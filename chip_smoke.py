@@ -18,8 +18,22 @@
 6. holds every kernel against its plain version at the shapes the main
    path gives it (K1 [16384, 25, 64], K2 [400, 32, 32, 64]) and times both
    with CUDA events (median after warm-up), beside the card's bound;
-7. prints the `kernels` JSON line, the card's name and power limit, and
+7. trains: the 4x recipe (Adam 2e-4, batch 4 of 32x32-view patches made on
+   the card by `synth_batch` from `--seed`, a 160x160 LR mosaic) from the
+   same checkpoint, through `make_train_step`: one step through the kernels
+   (K1/K2 with residuals, K4/K3 backwards) against one through the plain
+   blocks and backwards (|dloss| <= 1e-5 |loss|; under a smooth loss every
+   parameter's max |dgrad| <= 5e-4 max |grad| + 2e-9), the kernel step
+   repeated from the same state (bitwise equal gradients and params), 5
+   further steps (finite loss), and the median ms a step of both paths;
+8. holds every training kernel against its plain version at the training
+   shapes (K1/K4 [4096, 25, 64], K2/K3 [100, 32, 32, 64]), max |diff| <=
+   5e-4 max |plain| per output, and times them;
+9. prints the `kernels` JSON line, the card's name and power limit, and
    last `{"ok": true, "device": {...}}`.
+
+Launch counts are per phase: the SR run must launch every forward kernel
+and no training kernel, the training run every training kernel.
 
 Every check raises; the script exits non-zero on any failure, without a
 CUDA card, and when run outside the repository.
@@ -43,6 +57,10 @@ PEAK_SXM = (67e12, 3.35e12)
 # per kernel: max |kernel - plain| <= KERNEL_ATOL * max(1, max |plain|); both sum
 # the same f32 products in another order
 KERNEL_ATOL = 1e-4
+# the training kernels, per output: max |kernel - plain| <= TRAIN_REL * max |plain|
+# (the JAX package's fused-vs-unfused gradient bound, tests/test_kernels.py:428)
+TRAIN_REL = 5e-4
+TRAIN_STEPS = 5          # kernel-path steps after the compared and repeated ones
 
 
 def card_line() -> str:
@@ -77,20 +95,43 @@ def timed(fn, reps: int = 10, warmup: int = 2):
     return times[len(times) // 2]
 
 
-def max_err(got, ref):
+def max_err(got, ref, rel=None):
     """(max |got - ref| over the outputs, whether every output is within
-    KERNEL_ATOL * max(1, max |ref|))."""
+    KERNEL_ATOL * max(1, max |ref|), or rel * max |ref| where given). A
+    failure prints every output's error."""
     import torch
     if isinstance(got, torch.Tensor):
         got, ref = (got,), (ref,)
-    worst, ok = 0.0, True
-    for g, r in zip(got, ref):
+    worst, ok, report = 0.0, True, []
+    for i, (g, r) in enumerate(zip(got, ref)):
         if g.shape != r.shape or not torch.isfinite(g).all():
             raise AssertionError(f"bad kernel output: shape {tuple(g.shape)} vs {tuple(r.shape)}")
         err = float((g - r).abs().max())
-        ok = ok and err <= KERNEL_ATOL * max(1.0, float(r.abs().max()))
+        scale = float(r.abs().max())
+        lim = KERNEL_ATOL * max(1.0, scale) if rel is None else rel * scale
+        ok = ok and err <= lim
         worst = max(worst, err)
+        report.append(f"#{i} {tuple(g.shape)}: {err:.3e} (limit {lim:.3e})")
+    if not ok:
+        print("  per output: " + "; ".join(report), flush=True)
     return worst, ok
+
+
+def calm_relu(dout, hid_k, hid_p, what: str):
+    """dout with a zero cotangent for the tokens where a ReLU of the FFN is
+    on in one version and off in the other (its input within f32 rounding
+    of 0). dpre = (hid > 0) dhid jumps there, by design and not by the
+    kernel's arithmetic; with dout zero on those tokens their dhid is zero
+    and the jump no longer enters the comparison. They must stay rare."""
+    flips = ((hid_k > 0) != (hid_p > 0)).reshape(-1, hid_k.shape[-1]).any(-1)
+    n = int(flips.sum())
+    print(f"  {what}: {n} of {flips.numel()} tokens with a ReLU on in one version and off "
+          f"in the other (limit 1e-4 of them), given a zero cotangent", flush=True)
+    if n > 1e-4 * flips.numel():
+        raise AssertionError(f"{what}: {n} ReLU flips")
+    dout = dout.clone()
+    dout.reshape(-1, dout.shape[-1])[flips] = 0.0
+    return dout
 
 
 def valid_window_pairs(h: int, w: int, r: int) -> int:
@@ -100,8 +141,45 @@ def valid_window_pairs(h: int, w: int, r: int) -> int:
     return cy * cx
 
 
+class Recorder:
+    """Checks a kernel against its plain version, times both and records
+    the `kernels` JSON row with the card's bound."""
+
+    def __init__(self, card: str, launches: dict, per: float, unit: str):
+        self.flops_peak, self.bw_peak = peaks(card)
+        self.launches, self.per, self.unit = launches, per, unit
+        self.rows = []
+
+    def bound(self, flops, nbytes):
+        t_ops, t_mem = flops / self.flops_peak * 1e3, nbytes / self.bw_peak * 1e3
+        return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+    def record(self, name, src, replaces, got, ref, fn_k, fn_p, flops, io, lib_fn=None,
+               rel=None):
+        err, ok = max_err(got, ref, rel)
+        ms_k, ms_p = timed(fn_k), timed(fn_p)
+        ms_l = timed(lib_fn) if lib_fn is not None else None
+        b_ms, b_by = self.bound(flops, io)
+        n = self.launches[name]
+        self.rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                              launches=n, max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=ms_l))
+        limit = f"{KERNEL_ATOL:g} x max(1, max|ref|)" if rel is None else f"{rel:g} x max|ref|"
+        print(f"kernel {name}: max_abs_err {err:.3e} (limit {limit}) "
+              f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), library {'-' if ms_l is None else f'{ms_l:.4f} ms'}, "
+              f"launches {n} ({n / self.per:g}/{self.unit})", flush=True)
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                                 f"(max |diff| {err:.3e})")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -> list:
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each SR kernel against its plain version at the main path's shapes."""
     import torch
     import torch.nn.functional as F
     from lft_torch.kernels import ang_block as ab
@@ -110,7 +188,6 @@ def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -
     from lft_torch.ops.posenc import angular_position, spatial_position
     from lft_torch.ops.unfold import unfold3x3_linear
 
-    flops_peak, bw_peak = peaks(card)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     C, A2, h, w, H, K = 64, 25, 32, 32, 8, 5
@@ -118,32 +195,8 @@ def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -
     N = 16 * h * w              # pixels of one chunk of 16 patches
     V = 16 * A2                 # views of one chunk
     T = V * h * w
-
-    def bound(flops, nbytes):
-        t_ops, t_mem = flops / flops_peak * 1e3, nbytes / bw_peak * 1e3
-        return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
-
-    def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
-
-    rows = []
-
-    def record(name, src, replaces, got, ref, fn_k, fn_p, flops, io, lib_fn=None):
-        err, ok = max_err(got, ref)
-        ms_k, ms_p = timed(fn_k), timed(fn_p)
-        ms_l = timed(lib_fn) if lib_fn is not None else None
-        b_ms, b_by = bound(flops, io)
-        rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                         launches=launches[name], max_abs_err=err, ms=ms_k,
-                         plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, library_ms=ms_l))
-        print(f"kernel {name}: max_abs_err {err:.3e} (limit {KERNEL_ATOL:g} x max|ref|) "
-              f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}), library {'-' if ms_l is None else f'{ms_l:.4f} ms'}, "
-              f"launches {launches[name]} ({launches[name] / n_scenes:g}/scene)",
-              flush=True)
-        if not ok:
-            raise AssertionError(f"{name}: kernel disagrees with its plain version "
-                                 f"(max |diff| {err:.3e})")
+    rec = Recorder(card, launches, n_scenes, "scene")
+    record = rec.record
 
     # K1 at [16384, 25, 64] with the checkpoint's block-0 weights
     wa = ab.ang_weights(params, "altblock.0.ang_trans.")
@@ -207,7 +260,266 @@ def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -
           f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms", flush=True)
     if not ok:
         raise AssertionError(f"chained K2 disagrees with its plain version ({err:.3e})")
-    return rows
+    return rec.rows
+
+
+
+
+def train_phase(params, seed: int):
+    """The 4x recipe's train step through the kernels against the plain
+    blocks, its bitwise repeat, and a few more steps. Returns the launch
+    counts of the kernel-path steps and their number."""
+    import dataclasses
+    import functools
+
+    import torch
+    from lft_torch.config import Args
+    from lft_torch.data.device_synth import synth_batch
+    from lft_torch.kernels import LAUNCHES, TRAINING, reset_launches
+    from lft_torch.models.lft import forward
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import make_optimizer
+    from lft_torch.training.trainer import make_train_step
+
+    dev = torch.device("cuda")
+    args = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, lr=2e-4, n_steps=15,
+                gamma=0.5, epoch=50)
+    model = get_model(args)
+    plain_model = dataclasses.replace(model, apply=functools.partial(forward, plain_blocks=True))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lr, hr = synth_batch(gen, batch=4, ang_res=5, patch=32, scale=4)
+    print(f"train batch: lr {tuple(lr.shape)} hr {tuple(hr.shape)} (synth_batch, seed {seed})",
+          flush=True)
+
+    def fresh(m):
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        opt = make_optimizer(p, args, steps_per_epoch=1000)
+        return p, make_train_step(m, opt, args)
+
+    def grads(p):
+        return {k: v.grad.detach().clone() for k, v in p.items()}
+
+    # The gradients are compared under a smooth loss, as the JAX package
+    # compares its fused and unfused gradients (tests/test_kernels.py:446-461):
+    # the L1 loss's d|r|/dr flips sign where the two paths' outputs straddle
+    # the label by f32 noise, and those flips, not the kernels, would set
+    # the difference of small gradients.
+    smooth = lambda sr, y: ((sr - y) * torch.cos(3.0 * (sr - y))).mean()
+
+    # the plain blocks and backwards launch no kernel
+    torch.cuda.synchronize()
+    reset_launches()
+    pp, step_p = fresh(plain_model)
+    loss_p, _, _ = step_p(pp, lr, hr)
+    ps, step_ps = fresh(dataclasses.replace(plain_model, loss=smooth))
+    step_ps(ps, lr, hr)
+    g_p = grads(ps)
+    del ps
+    torch.cuda.synchronize()
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"the plain path launched kernels: {dict(LAUNCHES)}")
+
+    # the main path: counts at 0, kernel-path steps, counts read right after
+    reset_launches()
+    pa, step_a = fresh(model)
+    loss_a, psnr_a, ssim_a = step_a(pa, lr, hr)
+    g_r = grads(pa)
+    pb, step_b = fresh(model)
+    loss_b, _, _ = step_b(pb, lr, hr)
+    same = (float(loss_b) == float(loss_a)
+            and all(torch.equal(g_r[k], pb[k].grad) for k in g_r)
+            and all(torch.equal(pa[k], pb[k]) for k in pa))
+    del pb, g_r
+    pk, step_k = fresh(dataclasses.replace(model, loss=smooth))
+    step_k(pk, lr, hr)
+    g_a = grads(pk)
+    del pk
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        lr, hr = synth_batch(gen, batch=4, ang_res=5, patch=32, scale=4)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        loss, _, _ = step_a(pa, lr, hr)
+        ev1.record()
+        ev1.synchronize()
+        times.append(ev0.elapsed_time(ev1))
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    n_steps = 3 + TRAIN_STEPS
+
+    la, lp = float(loss_a), float(loss_p)
+    print(f"train step 1: loss kernels {la:.8f} plain {lp:.8f} (|d| {abs(la - lp):.3e}, "
+          f"limit 1e-5 |loss|); train PSNR {float(psnr_a):.4f} dB SSIM {float(ssim_a):.4f}",
+          flush=True)
+    if not abs(la - lp) <= 1e-5 * abs(lp):
+        raise AssertionError("kernel-path loss disagrees with the plain path")
+    worst = (0.0, "")
+    for k in g_p:
+        d = float((g_a[k] - g_p[k]).abs().max())
+        lim = 5e-4 * float(g_p[k].abs().max()) + 2e-9
+        if not d <= lim:
+            raise AssertionError(f"grad of {k}: max |kernel - plain| {d:.3e} > {lim:.3e}")
+        worst = max(worst, (d / lim, k))
+    print(f"train step 1 (smooth loss): every grad within 5e-4 max|grad| + 2e-9 of the "
+          f"plain path (worst {worst[1]} at {worst[0]:.3f} of its limit)", flush=True)
+    if not same:
+        raise AssertionError("a repeated kernel-path step is not bitwise equal")
+    print("train step repeated from the same state: loss, grads and params bitwise equal",
+          flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss in the further steps: {losses}")
+    times.sort()
+    ms_k = times[len(times) // 2]
+
+    p_times = []
+    for _ in range(3):
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        step_p(pp, lr, hr)
+        ev1.record()
+        ev1.synchronize()
+        p_times.append(ev0.elapsed_time(ev1))
+    p_times.sort()
+    print(f"train steps: losses {losses}; median {ms_k:.3f} ms/step through the kernels "
+          f"(all {[round(t, 3) for t in times]}), {p_times[1]:.3f} ms/step through the plain "
+          f"blocks (all {[round(t, 3) for t in p_times]}); batch 4, 4x, C=64", flush=True)
+    print(f"launches in the training run ({n_steps} kernel-path steps): {counts}", flush=True)
+    missing = [k for k in TRAINING if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"training kernels not launched on the training path: {missing}")
+    return counts, n_steps
+
+
+def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: int) -> list:
+    """Each training kernel against its plain version at the train step's
+    shapes: batch 4 of 32x32-view patches, K1/K4 [4096, 25, 64], K2/K3
+    [100, 32, 32, 64] (block 0's weights of the checkpoint)."""
+    import torch
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.kernels import wgrad as wg
+    from lft_torch.ops.posenc import angular_position, spatial_position
+    from lft_torch.ops.unfold import unfold3x3_linear
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    C, A2, h, w, H, K = 64, 25, 32, 32, 8, 5
+    D = 2 * C
+    N = 4 * h * w               # pixels of the batch
+    V = 4 * A2                  # views of the batch
+    T = V * h * w               # tokens, = N * A2
+    rec = Recorder(card, launches, n_steps, "train step")
+    rel = TRAIN_REL
+    src_a, src_s, src_w = ("lft_torch/csrc/ang_block.cu", "lft_torch/csrc/spa_block_bwd.cu",
+                           "lft_torch/csrc/wgrad.cu")
+    rand = lambda *s_: torch.randn(*s_, device=dev, generator=g)
+    with_sum = lambda ops: (*ops[:-1], ops[-1].sum(0))   # partial LN sums -> totals
+
+    # K1 with residuals, K4
+    wa = ab.ang_weights(params, "altblock.0.ang_trans.")
+    wa_b = sum(nbytes(t) for t in wa.values())
+    x = rand(N, A2, C)
+    pe = torch.from_numpy(angular_position(A2, C)).to(dev)
+    ref = ab.ang_block_plain(x, pe, wa, H, with_res=True)
+    rec.record("ang_block_res", src_a, "lft_tpu/kernels/ang_block.py:233",
+               ab.ang_block(x, pe, wa, H, with_res=True), ref,
+               lambda: ab.ang_block(x, pe, wa, H, with_res=True),
+               lambda: ab.ang_block_plain(x, pe, wa, H, with_res=True),
+               2 * N * A2 * 8 * C * C + 4 * N * A2 * A2 * C, nbytes(x, pe, *ref) + wa_b, rel=rel)
+    _, m, l, attn = ref
+    dout = rand(N, A2, C)
+    hid = lambda fn: fn(x, pe, wa, m, l, attn, dout, H)[8]
+    dout = calm_relu(dout, hid(ab.ang_block_bwd_ops), hid(ab.ang_block_bwd_ops_plain),
+                     "ang_block_bwd")
+    bwd_in = (x, pe, wa, m, l, attn, dout, H)
+    ref = ab.ang_block_bwd_ops_plain(*bwd_in)
+    rec.record("ang_block_bwd", src_a, "lft_tpu/kernels/ang_block.py:432",
+               with_sum(ab.ang_block_bwd_ops(*bwd_in)), (*ref[:-1], ref[-1][0]),
+               lambda: ab.ang_block_bwd_ops(*bwd_in), lambda: ab.ang_block_bwd_ops_plain(*bwd_in),
+               28 * T * C * C + 10 * C * N * A2 * A2,
+               nbytes(x, pe, m, l, attn, dout, *ref[:-1]) + 2 * wa_b, rel=rel)
+    got = ab.ang_block_bwd(*bwd_in)
+    ref = ab.ang_block_bwd_plain(*bwd_in)
+    err, ok = max_err(got, ref, rel)
+    ms_k = timed(lambda: ab.ang_block_bwd(*bwd_in))
+    ms_p = timed(lambda: ab.ang_block_bwd_plain(*bwd_in))
+    print(f"block ang_trans backward (K4 + 6 wgrad + colsum): max_abs_err {err:.3e} "
+          f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms", flush=True)
+    if not ok:
+        raise AssertionError(f"the AngTrans backward disagrees with its plain version ({err:.3e})")
+
+    # K2's window step with stats, K3's five steps
+    ws = sb._with_mlp(sb.spa_weights(params, "altblock.0.spa_trans."))
+    wbytes = lambda *k: sum(nbytes(ws[n]) for n in k)
+    xs = rand(V, h, w, C)
+    pe_tok = unfold3x3_linear(torch.from_numpy(spatial_position(h, w, C)).to(dev)[None],
+                              ws["mlp"])[0].contiguous()
+    _, tok, m, l, attn = sb.spa_block_plain(xs, pe_tok, ws, H, K, with_res=True)
+    xn, q, k, v = sb.ln_qkv_plain(tok, pe_tok, ws)
+    pairs = V * valid_window_pairs(h, w, K // 2)
+    ref = sb.window_attn_plain(q, k, v, H, K)
+    rec.record("spa_window_attn_res", "lft_torch/csrc/spa_block.cu",
+               "lft_tpu/kernels/spa_block.py:339", sb.window_attn(q, k, v, H, K, True), ref,
+               lambda: sb.window_attn(q, k, v, H, K, True),
+               lambda: sb.window_attn_plain(q, k, v, H, K), 4 * D * pairs,
+               nbytes(q, k, v, *ref), rel=rel)
+    rep = "lft_tpu/kernels/spa_block.py:602"
+    dout = rand(V, h, w, C)
+    dout = calm_relu(dout, sb.ffn_out_bwd(attn, tok, dout, ws)[4],
+                     sb.ffn_out_bwd_plain(attn, tok, dout, ws)[4], "spa_ffn_out_bwd")
+    ref = sb.ffn_out_bwd_plain(attn, tok, dout, ws)
+    rec.record("spa_ffn_out_bwd", src_s, rep, with_sum(sb.ffn_out_bwd(attn, tok, dout, ws)),
+               (*ref[:-1], ref[-1][0]), lambda: sb.ffn_out_bwd(attn, tok, dout, ws),
+               lambda: sb.ffn_out_bwd_plain(attn, tok, dout, ws), T * (20 * D * D + 2 * C * D),
+               nbytes(attn, tok, dout, *ref[:-1])
+               + wbytes("ln", "wo", "w1", "w2", "wlin") * 2, rel=rel)
+    dx2, dattn = ref[0], ref[1]
+    ref = (xn, q, k, v)
+    rec.record("spa_ln_qkv", src_s, rep, sb.ln_qkv(tok, pe_tok, ws), ref,
+               lambda: sb.ln_qkv(tok, pe_tok, ws), lambda: sb.ln_qkv_plain(tok, pe_tok, ws),
+               6 * T * D * D, nbytes(tok, pe_tok, *ref) + wbytes("ln", "wqk", "wv"), rel=rel)
+    args_c = (q, k, v, attn, dattn, m, l, H, K)
+    ref = sb.window_attn_bwd_plain(*args_c)
+    rec.record("spa_window_attn_bwd", src_s, rep, sb.window_attn_bwd(*args_c), ref,
+               lambda: sb.window_attn_bwd(*args_c), lambda: sb.window_attn_bwd_plain(*args_c),
+               10 * D * pairs + 2 * D * T, nbytes(q, k, v, attn, dattn, m, l, *ref), rel=rel)
+    dq, dk, dv = ref
+    args_d = (tok, pe_tok, dq, dk, dv, dx2, ws)
+    ref = sb.qkv_ln_bwd_plain(*args_d)
+    rec.record("spa_qkv_ln_bwd", src_s, rep, with_sum(sb.qkv_ln_bwd(*args_d)),
+               (*ref[:-1], ref[-1][0]), lambda: sb.qkv_ln_bwd(*args_d),
+               lambda: sb.qkv_ln_bwd_plain(*args_d), 6 * T * D * D,
+               nbytes(tok, pe_tok, dq, dk, dv, dx2, *ref[:-1]) + wbytes("ln", "wqk", "wv"),
+               rel=rel)
+    dtok = ref[0]
+    ref = sb.tokenize_bwd_plain(dtok, ws)
+    rec.record("spa_tokenize_bwd", src_s, rep, sb.tokenize_bwd(dtok, ws), ref,
+               lambda: sb.tokenize_bwd(dtok, ws), lambda: sb.tokenize_bwd_plain(dtok, ws),
+               2 * D * C * V * valid_window_pairs(h, w, 1), nbytes(dtok, ref) + wbytes("wu"),
+               rel=rel)
+    got = sb.spa_block_bwd(xs, pe_tok, ws, tok, m, l, attn, dout, H, K)
+    ref = sb.spa_block_bwd_plain(xs, pe_tok, ws, tok, m, l, attn, dout, H, K)
+    err, ok = max_err(got, ref, rel)
+    ms_k = timed(lambda: sb.spa_block_bwd(xs, pe_tok, ws, tok, m, l, attn, dout, H, K))
+    ms_p = timed(lambda: sb.spa_block_bwd_plain(xs, pe_tok, ws, tok, m, l, attn, dout, H, K))
+    print(f"block spa_trans backward (K3's 5 kernels + 8 wgrad + 3 colsum): max_abs_err "
+          f"{err:.3e} kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms", flush=True)
+    if not ok:
+        raise AssertionError(f"the SpaTrans backward disagrees with its plain version ({err:.3e})")
+
+    # the reductions, at K3's dw1 = xn2ᵀ dpre and dpe_tok = sum over views
+    a_, b_ = rand(T, D), rand(T, 2 * D)
+    ref = wg.wgrad_plain(a_, b_)
+    rec.record("wgrad", src_w, "lft_tpu/kernels/spa_block.py:570", wg.wgrad(a_, b_), ref,
+               lambda: wg.wgrad(a_, b_), lambda: wg.wgrad_plain(a_, b_), 2 * T * D * 2 * D,
+               nbytes(a_, b_, ref), lib_fn=lambda: a_.t() @ b_, rel=rel)
+    c_ = rand(V, h * w * D)
+    ref = wg.colsum_plain(c_)
+    rec.record("colsum", src_w, "lft_tpu/kernels/spa_block.py:570", wg.colsum(c_), ref,
+               lambda: wg.colsum(c_), lambda: wg.colsum_plain(c_), c_.numel(),
+               nbytes(c_, ref), lib_fn=lambda: c_.sum(0), rel=rel)
+    return rec.rows
 
 
 def main(argv=None) -> int:
@@ -233,7 +545,7 @@ def main(argv=None) -> int:
     from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
-    from lft_torch.kernels import LAUNCHES, build_all, reset_launches
+    from lft_torch.kernels import FORWARD, LAUNCHES, TRAINING, build_all, reset_launches
     from lft_torch.models.lft import forward
     from lft_torch.ops.bicubic import bicubic_upscale_views
     from lft_torch.ops.metrics import cal_metrics
@@ -254,7 +566,7 @@ def main(argv=None) -> int:
                 if "registers" in line or "spill" in line or "error" in line.lower():
                     print("  " + line.strip())
 
-    params, _ = load_checkpoint(CKPT, device=dev)
+    params, _, _ = load_checkpoint(CKPT, device=dev)
     args = Args(angRes=5, scale_factor=4, channels=64, patch_size_for_test=32,
                 stride_for_test=16, eval_batch=16)
     n_scenes = 2
@@ -272,9 +584,12 @@ def main(argv=None) -> int:
     print(f"SR model: PSNR {psnr:.6f} dB SSIM {ssim:.6f} over {n_scenes} scenes "
           f"({wall:.3f} s incl. first calls); per scene {rows}", flush=True)
     print(f"launches in the SR run: {counts}", flush=True)
-    missing = [k for k, n in counts.items() if n == 0]
+    missing = [k for k in FORWARD if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    extra = [k for k in TRAINING if counts[k]]
+    if extra:
+        raise AssertionError(f"training kernels launched by the SR run: {extra}")
 
     bic = [cal_metrics(torch.from_numpy(hr).to(dev),
                        bicubic_upscale_views(torch.from_numpy(lr).to(dev), 5, 4), 5)
@@ -302,6 +617,12 @@ def main(argv=None) -> int:
 
     rows = kernel_checks(params, card, counts, n_scenes, a.seed)
     torch.cuda.synchronize()
+
+    t0 = time.time()
+    train_counts, n_steps = train_phase(params, a.seed)
+    rows += train_kernel_checks(params, card, train_counts, n_steps, a.seed)
+    torch.cuda.synchronize()
+    print(f"training phase: {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

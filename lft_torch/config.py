@@ -1,9 +1,9 @@
 """Configuration / CLI flags (counterpart of lft_tpu/config.py, without JAX).
 
 The reference-compatible flags are the same; the TPU-only knobs
-(`--platform`, `--compile_cache_dir`, mesh and multi-host flags) are
-replaced by an explicit `device` argument of the entry points (`cuda`
-unless the caller asks for `cpu`, see lft_torch/device.py).
+(`--platform`, `--compile_cache_dir`, `--train_remat`, mesh and multi-host
+flags) are replaced by an explicit `device` argument of the entry points
+(`cuda` unless the caller asks for `cpu`, see lft_torch/device.py).
 """
 
 from __future__ import annotations
@@ -45,9 +45,17 @@ class Args:
     local_rank: int = 0
 
     # Port flags
+    seed: int = 0                     # params, batch order and augmentation
     dtype: str = "float32"            # float32 only in this port
     eval_batch: int = 16              # patches per forward in tiled eval
     scene_batch: int = 1              # same-shape scenes per pipeline call
+    ckpt_format: str = "npz"          # npz (with Adam state) | pth (reference)
+    lr_schedule: str = "step"         # step (reference StepLR) | cosine
+    log_every: int = 0                # per-iteration log line every N (0: off)
+    train_fused: str = "auto"         # auto | true | false: train through the
+                                      # fused blocks (K1-K4); auto = on CUDA.
+                                      # true on the CPU runs their plain
+                                      # versions through the autograd Functions
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,8 +84,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", type=str, default=d.dtype,
                    choices=["float32", "bfloat16", "mixed"],
                    help="float32 only; the others raise NotImplementedError")
+    p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--eval_batch", type=int, default=d.eval_batch)
     p.add_argument("--scene_batch", type=int, default=d.scene_batch)
+    p.add_argument("--ckpt_format", type=str, default=d.ckpt_format, choices=["npz", "pth"])
+    p.add_argument("--lr_schedule", type=str, default=d.lr_schedule,
+                   choices=["step", "cosine"])
+    p.add_argument("--log_every", type=int, default=d.log_every)
+    p.add_argument("--train_fused", type=str, default=d.train_fused,
+                   choices=["auto", "true", "false"])
     return p
 
 

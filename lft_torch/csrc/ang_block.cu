@@ -1,4 +1,5 @@
-// K1: the whole AngTrans block (reference model/LFT.py:194-238), forward.
+// K1: the whole AngTrans block (reference model/LFT.py:194-238), forward,
+// with or without the residuals of the backward; K4, its backward, below.
 //
 // Replaces lft_tpu/kernels/ang_block.py:_core_fwd / _kernel (the Pallas TPU
 // kernel behind ang_trans_block_fused). Per pixel, over its A2 view tokens
@@ -24,9 +25,10 @@
 // SXM). The products use 4 x 4 register tiles, so each k step issues
 // 16 FMAs per five loads; the weights (128 KB) stay in L1/L2. Shared
 // memory (174 KB at C = 64) allows one block of 8 warps per SM. The tensor
-// cores do not compute in exact f32, so they are not used.
+// cores do not compute in exact f32, so they are not used. With residuals
+// (training) each thread also writes its query's m, l and attention output.
 
-#include "common.cuh"
+#include "bwd.cuh"
 
 using namespace lft;
 
@@ -43,14 +45,15 @@ struct AngLayout {
   static_assert(RP * LDH <= 2 * TILE, "hidden tile must fit over q and k");
 };
 
-template <int C, int H>
+template <int C, int H, bool RES>
 __global__ void __launch_bounds__(NT)
     ang_block_kernel(const float* __restrict__ x, const float* __restrict__ pe,
                      const float* __restrict__ ln, const float* __restrict__ wq,
                      const float* __restrict__ wk, const float* __restrict__ wv,
                      const float* __restrict__ wo, const float* __restrict__ w1,
                      const float* __restrict__ w2, float* __restrict__ out,
-                     int N, int A2, float scale) {
+                     float* __restrict__ m_out, float* __restrict__ l_out,
+                     float* __restrict__ attn_out, int N, int A2, float scale) {
   using L = AngLayout<C>;
   using LN = RowLN<C>;
   constexpr int LD = L::LD, LDH = L::LDH, DH = C / H;
@@ -135,6 +138,13 @@ __global__ void __launch_bounds__(NT)
     float* ar = XN + (p * A2 + i) * LD + hh * DH;
 #pragma unroll
     for (int d = 0; d < DH; ++d) ar[d] = o[d] * inv;
+    if constexpr (RES) {  // the residuals of the backward (K4)
+      const size_t row = row0 + p * A2 + i;
+      m_out[row * H + hh] = m;
+      l_out[row * H + hh] = l;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) attn_out[row * C + hh * DH + d] = ar[d];
+    }
   }
   __syncthreads();
 
@@ -182,21 +192,374 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <int C>
+template <int C, bool RES>
 int launch(const float* x, const float* pe, const float* ln, const float* wq,
            const float* wk, const float* wv, const float* wo, const float* w1,
-           const float* w2, float* out, int N, int A2, float scale,
-           cudaStream_t stream) {
+           const float* w2, float* out, float* m, float* l, float* attn, int N, int A2,
+           float scale, cudaStream_t stream) {
   constexpr int H = 8;
-  auto kernel = ang_block_kernel<C, H>;
+  auto kernel = ang_block_kernel<C, H, RES>;
   const size_t bytes = AngLayout<C>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int P = RP / A2;
   const int grid = (N + P - 1) / P;
-  kernel<<<grid, NT, bytes, stream>>>(x, pe, ln, wq, wk, wv, wo, w1, w2, out, N, A2,
-                                      scale);
+  kernel<<<grid, NT, bytes, stream>>>(x, pe, ln, wq, wk, wv, wo, w1, w2, out, m, l, attn,
+                                      N, A2, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K4: the block's backward ---------------------------------------------
+//
+// Replaces lft_tpu/kernels/ang_block.py:_vjp_bwd / _bwd_kernel. One block
+// owns RB = 64 token rows = RB / A2 whole pixels (2 at A2 = 25) and runs,
+// in shared memory:
+//   recompute   xn = LN1(x + pe), q, k, v; x2 = attn Wo + x (attn saved);
+//               xn2 = LN2(x2); hid = relu(xn2 W1)
+//   backward    dpre = (hid > 0) dout W2ᵀ;  dxn2 = dpre W1ᵀ;
+//               dx2 = dout + LN2ᵀ(dxn2);  dattn = dx2 Woᵀ;
+//               attention from the saved (m, l): thread (pixel, head, t)
+//               computes dq of query t over the keys and dk, dv of key t
+//               over the queries, with dsum_i = dattn_i . attn_i;
+//               dxn = dq Wqᵀ + dk Wkᵀ;  dx = dx2 + dv Wvᵀ + LN1ᵀ(dxn)
+// and writes dx plus the per-token operands of the weight gradients (xn,
+// dq, dk, dv, dx2, xn2, dpre, hid) and its own partial column sums of the
+// LayerNorm affine grads; `wgrad`/`colsum` (wgrad.cu) reduce them in a
+// fixed order. The TPU kernel accumulated the weight grads across its
+// sequential grid; CUDA blocks run in no order, and float atomics would
+// make every step's result depend on the schedule. Pad rows of the last
+// block are masked: they are computed from zeros and never stored or
+// summed.
+//
+// Bound: ~44 C^2 + 10 A2 C FLOP a token (~22 GFLOP at [4096, 25, 64],
+// 0.33 ms at 67 TFLOP/s FP32) and ~20 C-wide token tensors of traffic
+// (~0.16 ms): operations. 188 KB of shared memory at C = 64: one block of
+// 8 warps per SM.
+
+constexpr int RB = 64;  // token rows per block of the backward
+
+template <int C>
+struct AngBwdLayout {
+  static constexpr int LD = C + 4, LDH = 2 * C + 4;
+  static constexpr int TILE = RB * LD;
+  static constexpr int FLOATS = 8 * TILE + RB * LDH + 3 * RB * 8 + 2 * RB + (NT / 32) * 4 * C;
+  static constexpr size_t BYTES = FLOATS * sizeof(float);
+};
+
+template <int C, int H>
+__global__ void __launch_bounds__(NT)
+    ang_block_bwd_kernel(const float* __restrict__ x, const float* __restrict__ pe,
+                         const float* __restrict__ ln, const float* __restrict__ wq,
+                         const float* __restrict__ wk, const float* __restrict__ wv,
+                         const float* __restrict__ wo, const float* __restrict__ w1,
+                         const float* __restrict__ wqT, const float* __restrict__ wkT,
+                         const float* __restrict__ wvT, const float* __restrict__ woT,
+                         const float* __restrict__ w1T, const float* __restrict__ w2T,
+                         const float* __restrict__ m_in, const float* __restrict__ l_in,
+                         const float* __restrict__ attn, const float* __restrict__ dout,
+                         float* __restrict__ dx, float* __restrict__ xn_out,
+                         float* __restrict__ dq_out, float* __restrict__ dk_out,
+                         float* __restrict__ dv_out, float* __restrict__ dx2_out,
+                         float* __restrict__ xn2_out, float* __restrict__ dpre_out,
+                         float* __restrict__ hid_out, float* __restrict__ ln_part, int N,
+                         int A2, float scale) {
+  using L = AngBwdLayout<C>;
+  using LN = RowLN<C>;
+  constexpr int LD = L::LD, LDH = L::LDH, DH = C / H;
+  extern __shared__ float4 smem4[];
+  float* X = reinterpret_cast<float*>(smem4);  // x
+  float* XN = X + L::TILE;                      // xn -> xn2 -> dxn2 -> dq
+  float* Q = XN + L::TILE;                      // q -> dxn
+  float* K = Q + L::TILE;
+  float* V = K + L::TILE;
+  float* A = V + L::TILE;                       // attn (saved)
+  float* X2 = A + L::TILE;                      // x2 -> dx2 -> dx
+  float* DO = X2 + L::TILE;                     // dout -> dattn
+  float* HD = DO + L::TILE;                     // [RB][LDH] hid -> dpre -> (dk | dv)
+  float* M = HD + RB * LDH;                     // [RB][8]
+  float* Lsum = M + RB * 8;
+  float* DS = Lsum + RB * 8;                    // dsum_i = dattn_i . attn_i per head
+  float* MU2 = DS + RB * 8;
+  float* RS2 = MU2 + RB;
+  float* WP = RS2 + RB;                         // [8 warps][4][C]
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int P = RB / A2;
+  const int pix0 = blockIdx.x * P;
+  const int np = min(P, N - pix0);
+  const int nrows = np * A2;
+  const size_t row0 = static_cast<size_t>(pix0) * A2;
+  const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int i = tid; i < RB * (C / 4); i += NT) {
+    const int r = i / (C / 4), c = 4 * (i % (C / 4));
+    const bool ok = r < nrows;
+    const size_t g = (row0 + r) * C + c;
+    store4(X + r * LD + c, ok ? ldg4(x + g) : z4);
+    store4(A + r * LD + c, ok ? ldg4(attn + g) : z4);
+    store4(DO + r * LD + c, ok ? ldg4(dout + g) : z4);
+  }
+  for (int i = tid; i < RB * H; i += NT) {
+    const bool ok = i / H < nrows;
+    M[i] = ok ? __ldg(m_in + row0 * H + i) : 0.f;
+    Lsum[i] = ok ? __ldg(l_in + row0 * H + i) : 1.f;
+  }
+  __syncthreads();
+
+  // xn = LN1(x + pe), as the forward computed it
+  for (int r = warp; r < RB; r += NT / 32) {
+    float v[LN::E];
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) v[e] = X[r * LD + LN::col(e)] + __ldg(pe + (r % A2) * C + LN::col(e));
+    LN::apply(v, ln, ln + C);
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) {
+        XN[r * LD + LN::col(e)] = v[e];
+        if (r < nrows) xn_out[(row0 + r) * C + LN::col(e)] = v[e];
+      }
+  }
+  __syncthreads();
+
+  {  // q, k from xn; v from x; x2 = attn Wo + x
+    Acc<RB, C> acc;
+    zero_acc<RB, C>(acc);
+    gemm_acc<RB, C, C>(acc, XN, LD, wq);
+    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) { store4(Q + r * LD + c, v); });
+    zero_acc<RB, C>(acc);
+    gemm_acc<RB, C, C>(acc, XN, LD, wk);
+    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) { store4(K + r * LD + c, v); });
+    zero_acc<RB, C>(acc);
+    gemm_acc<RB, C, C>(acc, X, LD, wv);
+    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) { store4(V + r * LD + c, v); });
+    zero_acc<RB, C>(acc);
+    gemm_acc<RB, C, C>(acc, A, LD, wo);
+    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) {
+      store4(X2 + r * LD + c, add4(load4(X + r * LD + c), v));
+    });
+  }
+  __syncthreads();
+
+  // xn2 = LN2(x2) over xn, and its statistics
+  for (int r = warp; r < RB; r += NT / 32) {
+    float v[LN::E];
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) v[e] = X2[r * LD + LN::col(e)];
+    float mu, rstd;
+    ln_stats<C>(v, mu, rstd);
+    if ((tid & 31) == 0) {
+      MU2[r] = mu;
+      RS2[r] = rstd;
+    }
+    LN::apply(v, ln + 2 * C, ln + 3 * C);
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) {
+        XN[r * LD + LN::col(e)] = v[e];
+        if (r < nrows) xn2_out[(row0 + r) * C + LN::col(e)] = v[e];
+      }
+  }
+  __syncthreads();
+
+  {  // hid = relu(xn2 W1)
+    Acc<RB, 2 * C> acc;
+    zero_acc<RB, 2 * C>(acc);
+    gemm_acc<RB, C, 2 * C>(acc, XN, LD, w1);
+    for_tiles<RB, 2 * C>(acc, [&](int r, int c, float4 v) {
+      v = make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
+      store4(HD + r * LDH + c, v);
+      if (r < nrows) store4(hid_out + (row0 + r) * (2 * C) + c, v);
+    });
+  }
+  __syncthreads();
+
+  {  // dpre = (hid > 0) * (dout W2ᵀ), in place over hid
+    Acc<RB, 2 * C> acc;
+    zero_acc<RB, 2 * C>(acc);
+    gemm_acc<RB, C, 2 * C>(acc, DO, LD, w2T);
+    for_tiles<RB, 2 * C>(acc, [&](int r, int c, float4 v) {
+      const float4 hv = load4(HD + r * LDH + c);
+      v = make_float4(hv.x > 0.f ? v.x : 0.f, hv.y > 0.f ? v.y : 0.f,
+                      hv.z > 0.f ? v.z : 0.f, hv.w > 0.f ? v.w : 0.f);
+      store4(HD + r * LDH + c, v);
+      if (r < nrows) store4(dpre_out + (row0 + r) * (2 * C) + c, v);
+    });
+  }
+  __syncthreads();
+
+  {  // dxn2 = dpre W1ᵀ over xn2
+    Acc<RB, C> acc;
+    zero_acc<RB, C>(acc);
+    gemm_acc<RB, 2 * C, C>(acc, HD, LDH, w1T);
+    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) { store4(XN + r * LD + c, v); });
+  }
+  __syncthreads();
+
+  LnGradAcc<C> g2;
+  g2.zero();
+  // dx2 = dout + LN2ᵀ(dxn2), in place over x2
+  for (int r = warp; r < nrows; r += NT / 32) {
+    float xh[LN::E] = {}, d[LN::E] = {};
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) {
+        xh[e] = (X2[r * LD + LN::col(e)] - MU2[r]) * RS2[r];
+        d[e] = XN[r * LD + LN::col(e)];
+      }
+    g2.add(d, xh);
+    ln_bwd<C>(d, xh, RS2[r], ln + 2 * C);
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) {
+        const float v = DO[r * LD + LN::col(e)] + d[e];
+        X2[r * LD + LN::col(e)] = v;
+        dx2_out[(row0 + r) * C + LN::col(e)] = v;
+      }
+  }
+  g2.flush(WP, 4, 2);
+  __syncthreads();
+
+  {  // dattn = dx2 Woᵀ over dout
+    Acc<RB, C> acc;
+    zero_acc<RB, C>(acc);
+    gemm_acc<RB, C, C>(acc, X2, LD, woT);
+    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) { store4(DO + r * LD + c, v); });
+  }
+  __syncthreads();
+
+  for (int i = tid; i < nrows * H; i += NT) {  // dsum = dattn . attn per head
+    const int r = i / H, hh = i % H;
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) s = fmaf(DO[r * LD + hh * DH + d], A[r * LD + hh * DH + d], s);
+    DS[i] = s;
+  }
+  __syncthreads();
+
+  // attention backward; thread (pixel, head, t), t fastest. Scores are
+  // rebuilt with the forward's arithmetic (q scaled first, then an fmaf
+  // chain), so p = exp(s - m) / l uses exactly the forward's s.
+  for (int t = tid; t < np * H * A2; t += NT) {
+    const int i = t % A2, hh = (t / A2) % H, p = t / (A2 * H);
+    const int me = p * A2 + i;
+    float qs[DH], kv[DH], vv[DH], dov[DH], dq[DH], dk[DH], dv[DH];
+#pragma unroll
+    for (int d = 0; d < DH; ++d) {
+      qs[d] = Q[me * LD + hh * DH + d] * scale;
+      kv[d] = K[me * LD + hh * DH + d];
+      vv[d] = V[me * LD + hh * DH + d];
+      dov[d] = DO[me * LD + hh * DH + d];
+      dq[d] = dk[d] = dv[d] = 0.f;
+    }
+    const float m_me = M[me * H + hh], inv_me = 1.f / Lsum[me * H + hh];
+    const float ds_me = DS[me * H + hh];
+    for (int j = 0; j < A2; ++j) {
+      const int o = p * A2 + j;
+      const float* kr = K + o * LD + hh * DH;
+      const float* vr = V + o * LD + hh * DH;
+      const float* qr = Q + o * LD + hh * DH;
+      const float* dr = DO + o * LD + hh * DH;
+      // me as the query, o as the key
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        s = fmaf(qs[d], kr[d], s);
+        dp = fmaf(dov[d], vr[d], dp);
+      }
+      float pr = expf(s - m_me) * inv_me;
+      float g = pr * (dp - ds_me);
+#pragma unroll
+      for (int d = 0; d < DH; ++d) dq[d] = fmaf(g, kr[d], dq[d]);
+      // o as the query, me as the key
+      float qo[DH];
+      s = 0.f;
+      dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        qo[d] = qr[d] * scale;
+        s = fmaf(qo[d], kv[d], s);
+        dp = fmaf(dr[d], vv[d], dp);
+      }
+      pr = expf(s - M[o * H + hh]) / Lsum[o * H + hh];
+      g = pr * (dp - DS[o * H + hh]);
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        dk[d] = fmaf(g, qo[d], dk[d]);
+        dv[d] = fmaf(pr, dr[d], dv[d]);
+      }
+    }
+    const size_t row = row0 + me;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) {
+      const int c = hh * DH + d;
+      XN[me * LD + c] = dq[d] * scale;
+      HD[me * LDH + c] = dk[d];
+      HD[me * LDH + C + c] = dv[d];
+      dq_out[row * C + c] = dq[d] * scale;
+      dk_out[row * C + c] = dk[d];
+      dv_out[row * C + c] = dv[d];
+    }
+  }
+  __syncthreads();
+
+  {  // dxn = dq Wqᵀ + dk Wkᵀ over q; dx = dx2 + dv Wvᵀ over dx2
+    Acc<RB, C> acc;
+    zero_acc<RB, C>(acc);
+    gemm_acc<RB, C, C>(acc, XN, LD, wqT);
+    gemm_acc<RB, C, C>(acc, HD, LDH, wkT);
+    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) { store4(Q + r * LD + c, v); });
+    zero_acc<RB, C>(acc);
+    gemm_acc<RB, C, C>(acc, HD + C, LDH, wvT);
+    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) {
+      store4(X2 + r * LD + c, add4(load4(X2 + r * LD + c), v));
+    });
+  }
+  __syncthreads();
+
+  LnGradAcc<C> g1;
+  g1.zero();
+  // dx += LN1ᵀ(dxn)
+  for (int r = warp; r < nrows; r += NT / 32) {
+    float xh[LN::E] = {}, d[LN::E] = {};
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) xh[e] = X[r * LD + LN::col(e)] + __ldg(pe + (r % A2) * C + LN::col(e));
+    float mu, rstd;
+    ln_stats<C>(xh, mu, rstd);
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) {
+        xh[e] = (xh[e] - mu) * rstd;
+        d[e] = Q[r * LD + LN::col(e)];
+      }
+    g1.add(d, xh);
+    ln_bwd<C>(d, xh, rstd, ln);
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e))
+        dx[(row0 + r) * C + LN::col(e)] = X2[r * LD + LN::col(e)] + d[e];
+  }
+  g1.flush(WP, 4, 0);
+  __syncthreads();
+  block_colsum(WP, 4 * C, ln_part + static_cast<size_t>(blockIdx.x) * 4 * C);
+}
+
+template <int C>
+int launch_bwd(const float* const* in, float* const* out, int N, int A2, float scale,
+               cudaStream_t stream) {
+  auto kernel = ang_block_bwd_kernel<C, 8>;
+  const size_t bytes = AngBwdLayout<C>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int P = RB / A2;
+  kernel<<<(N + P - 1) / P, NT, bytes, stream>>>(
+      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10], in[11],
+      in[12], in[13], in[14], in[15], in[16], in[17], out[0], out[1], out[2], out[3],
+      out[4], out[5], out[6], out[7], out[8], out[9], N, A2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -216,9 +579,56 @@ extern "C" int lft_ang_block_fwd(const float* x, const float* pe, const float* l
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 16: return launch<16>(x, pe, ln, wq, wk, wv, wo, w1, w2, out, N, A2, scale, s);
-    case 32: return launch<32>(x, pe, ln, wq, wk, wv, wo, w1, w2, out, N, A2, scale, s);
-    case 64: return launch<64>(x, pe, ln, wq, wk, wv, wo, w1, w2, out, N, A2, scale, s);
+#define LFT_CASE(CV)                                                                   \
+    case CV: return launch<CV, false>(x, pe, ln, wq, wk, wv, wo, w1, w2, out, nullptr, \
+                                      nullptr, nullptr, N, A2, scale, s);
+    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
+#undef LFT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same, with the residuals of the backward: m, l [N, A2, H] (per token
+// and head, the softmax's max and sum of exp(s - m)) and attn [N, A2, C].
+extern "C" int lft_ang_block_fwd_res(const float* x, const float* pe, const float* ln,
+                                     const float* wq, const float* wk, const float* wv,
+                                     const float* wo, const float* w1, const float* w2,
+                                     float* out, float* m, float* l, float* attn, int N,
+                                     int A2, int C, int H, float scale, void* stream) {
+  if (H != 8 || A2 < 1 || A2 > RP || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+#define LFT_CASE(CV)                                                                  \
+    case CV: return launch<CV, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, out, m, l,    \
+                                     attn, N, A2, scale, s);
+    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
+#undef LFT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K4. Inputs x, pe, ln, wq, wk, wv, wo, w1 (as above), the transposes wqT,
+// wkT, wvT, woT [C, C], w1T [2C, C], w2T [C, 2C], the saved m, l, attn, and
+// dout [N, A2, C]. Outputs dx [N, A2, C]; xn, dq, dk, dv, dx2, xn2 [T, C]
+// and dpre, hid [T, 2C] (T = N A2 tokens), the operands of the weight
+// grads; ln_part [blocks, 4, C], each block's sums of the LN affine grads.
+extern "C" int lft_ang_block_bwd(
+    const float* x, const float* pe, const float* ln, const float* wq, const float* wk,
+    const float* wv, const float* wo, const float* w1, const float* wqT, const float* wkT,
+    const float* wvT, const float* woT, const float* w1T, const float* w2T, const float* m,
+    const float* l, const float* attn, const float* dout, float* dx, float* xn, float* dq,
+    float* dk, float* dv, float* dx2, float* xn2, float* dpre, float* hid, float* ln_part,
+    int N, int A2, int C, int H, float scale, void* stream) {
+  if (H != 8 || A2 < 1 || A2 > RB || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const float* in[] = {x, pe, ln, wq, wk, wv, wo, w1, wqT, wkT, wvT, woT, w1T, w2T, m, l,
+                       attn, dout};
+  float* out[] = {dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, ln_part};
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 16: return launch_bwd<16>(in, out, N, A2, scale, s);
+    case 32: return launch_bwd<32>(in, out, N, A2, scale, s);
+    case 64: return launch_bwd<64>(in, out, N, A2, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -29,25 +29,11 @@
 // memory traffic (~0.6 ms at 3.35 TB/s), so the steps are compute-bound
 // except the window attention, which is bound by its k/v reads.
 
-#include "common.cuh"
+#include "spa.cuh"
 
 using namespace lft;
 
 namespace {
-
-constexpr int BM = 64;  // token rows per block in the product steps
-constexpr int TH = 16, TW = 16, R = 2;  // window step: query tile, radius
-constexpr int HH = TH + 2 * R, HW = TW + 2 * R;
-
-template <int C>
-struct Spa {
-  static constexpr int D = 2 * C;
-  static constexpr int LDC = C + 4, LDD = D + 4, LDH = 2 * D + 4;
-  static constexpr int DH = D / 8;
-};
-
-// Token t of T = V*h*w tokens -> its offset in [V, h, w, *] is t itself;
-// the (y, x) position inside its view is (t % hw) / w, t % w.
 
 // ---- 1: tokenisation (9 shifted C -> D taps) + PE + LN1 -----------------
 template <int C>
@@ -108,19 +94,6 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// Loads rows [t0, t0 + BM) of a [T, W] tensor into a [BM][ld] tile (zero
-// past T).
-template <int W>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* __restrict__ src,
-                                          int t0, int T) {
-  for (int i = threadIdx.x; i < BM * (W / 4); i += NT) {
-    const int r = i / (W / 4), c = 4 * (i % (W / 4));
-    const float4 v = t0 + r < T ? ldg4(src + static_cast<size_t>(t0 + r) * W + c)
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
-    store4(dst + r * ld + c, v);
-  }
-}
-
 // ---- 2: q/k from xn, v from tok -----------------------------------------
 template <int C>
 __global__ void __launch_bounds__(NT)
@@ -164,10 +137,13 @@ __global__ void __launch_bounds__(NT)
 // memory (row stride DH+4 floats, so the float4 reads of neighbouring
 // threads fall in distinct banks); positions outside the image are never
 // scored.
-template <int DH>
+// With STATS (training) each thread also writes its query's softmax max m
+// and sum l of exp(s - m), [V, h, w, H], for the backward (K3).
+template <int DH, bool STATS>
 __global__ void __launch_bounds__(NT)
     spa_window_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ attn,
+                           float* __restrict__ m_out, float* __restrict__ l_out,
                            int h, int w, int D, float scale) {
   constexpr int KS = DH + 4;
   extern __shared__ float4 smem4[];
@@ -228,6 +204,11 @@ __global__ void __launch_bounds__(NT)
   for (int d = 0; d < DH; d += 4)
     store4(attn + qoff + d, make_float4(o[d] * inv, o[d + 1] * inv, o[d + 2] * inv,
                                         o[d + 3] * inv));
+  if constexpr (STATS) {
+    const size_t soff = (view + static_cast<size_t>(y) * w + x) * gridDim.y + head;
+    m_out[soff] = m;
+    l_out[soff] = l;
+  }
 }
 
 // ---- 4: out-projection + residual + LN2 ---------------------------------
@@ -320,24 +301,6 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-int blocks(int T) { return (T + BM - 1) / BM; }
-
-#define LFT_SET_SMEM(kernel, bytes)                                            \
-  do {                                                                         \
-    cudaError_t e_ = cudaFuncSetAttribute(                                     \
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)); \
-    if (e_ != cudaSuccess) return static_cast<int>(e_);                        \
-  } while (0)
-
-// Runs the statements with CC bound to C as a compile-time constant.
-#define LFT_DISPATCH_C(C, ...)                                  \
-  switch (C) {                                                  \
-    case 16: { constexpr int CC = 16; __VA_ARGS__; break; }     \
-    case 32: { constexpr int CC = 32; __VA_ARGS__; break; }     \
-    case 64: { constexpr int CC = 64; __VA_ARGS__; break; }     \
-    default: return static_cast<int>(cudaErrorInvalidValue);    \
-  }
-
 }  // namespace
 
 LFT_EXPORT_ERROR_STRING
@@ -375,19 +338,20 @@ extern "C" int lft_spa_qkv(const float* xn, const float* tok, const float* wqk,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int lft_spa_window_attn(const float* q, const float* k, const float* v,
-                                   float* attn, int V, int h, int w, int D, int H,
-                                   float scale, void* stream) {
+namespace {
+
+template <bool STATS>
+int window_attn(const float* q, const float* k, const float* v, float* attn, float* m,
+                float* l, int V, int h, int w, int D, int H, float scale, cudaStream_t s) {
   if (H != 8) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
   const dim3 grid(((h + TH - 1) / TH) * ((w + TW - 1) / TW), H, V);
   switch (D / H) {
 #define LFT_ATTN_CASE(DHV)                                                    \
     case DHV: {                                                               \
-      auto kernel = spa_window_attn_kernel<DHV>;                              \
+      auto kernel = spa_window_attn_kernel<DHV, STATS>;                       \
       const size_t bytes = 2 * HH * HW * (DHV + 4) * sizeof(float);           \
       LFT_SET_SMEM(kernel, bytes);                                            \
-      kernel<<<grid, NT, bytes, s>>>(q, k, v, attn, h, w, D, scale);          \
+      kernel<<<grid, NT, bytes, s>>>(q, k, v, attn, m, l, h, w, D, scale);    \
       break;                                                                  \
     }
     LFT_ATTN_CASE(4)
@@ -397,6 +361,23 @@ extern "C" int lft_spa_window_attn(const float* q, const float* k, const float* 
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int lft_spa_window_attn(const float* q, const float* k, const float* v,
+                                   float* attn, int V, int h, int w, int D, int H,
+                                   float scale, void* stream) {
+  return window_attn<false>(q, k, v, attn, nullptr, nullptr, V, h, w, D, H, scale,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The same, also writing m, l [V, h, w, H] (the residuals of K3).
+extern "C" int lft_spa_window_attn_res(const float* q, const float* k, const float* v,
+                                       float* attn, float* m, float* l, int V, int h,
+                                       int w, int D, int H, float scale, void* stream) {
+  return window_attn<true>(q, k, v, attn, m, l, V, h, w, D, H, scale,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lft_spa_outproj_ln(const float* attn, const float* tok, const float* wo,

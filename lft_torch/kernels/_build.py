@@ -24,19 +24,21 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("ang_block", "spa_block")
+SOURCES = ("ang_block", "spa_block", "spa_block_bwd", "wgrad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# The kernels of the SR forward (K1, K2's five steps) ...
+FORWARD = ("ang_block", "spa_tokenize_ln", "spa_qkv", "spa_window_attn",
+           "spa_outproj_ln", "spa_ffn_out")
+# ... and those only a train step launches: K1 and K2's window step with the
+# residuals of the backward, K4, K3's five steps, the weight-grad reductions.
+TRAINING = ("ang_block_res", "spa_window_attn_res", "ang_block_bwd", "spa_ffn_out_bwd",
+            "spa_ln_qkv", "spa_window_attn_bwd", "spa_qkv_ln_bwd", "spa_tokenize_bwd",
+            "wgrad", "colsum")
+
 # kernel name -> launches since the last reset
-LAUNCHES = {
-    "ang_block": 0,
-    "spa_tokenize_ln": 0,
-    "spa_qkv": 0,
-    "spa_window_attn": 0,
-    "spa_outproj_ln": 0,
-    "spa_ffn_out": 0,
-}
+LAUNCHES = {name: 0 for name in FORWARD + TRAINING}
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -1,12 +1,22 @@
-"""K1: the fused AngTrans block (counterpart of lft_tpu/kernels/ang_block.py).
+"""K1/K4: the fused AngTrans block and its backward (counterpart of
+lft_tpu/kernels/ang_block.py).
 
 `ang_trans_block_fused` runs the whole block (reference model/LFT.py:
 194-238) on pixel-major tokens [N, A2, C]: LN(x + ang_pe), q = k from the
 normed tokens and v from the raw ones, 8-head attention over each pixel's
 A2 view tokens, out-projection + residual, FFN + residual. On a CUDA tensor
-it launches the hand-written kernel of `lft_torch/csrc/ang_block.cu`; on a
-CPU tensor it runs `ang_trans_block_plain`, the same function in plain
-PyTorch. There is no fallback from one to the other.
+it launches the hand-written kernels of `lft_torch/csrc/ang_block.cu`; on a
+CPU tensor it runs the same functions in plain PyTorch. There is no
+fallback from one to the other.
+
+Training: when grad mode is on and an input or weight requires grad, the
+block runs as `AngBlockFn`. Its forward is K1 "with residuals" (it also
+returns the per-(token, head) softmax max m and denominator l, and the
+attention output attn); its backward is K4 (`ang_block_bwd`), which
+recomputes xn, q, k, v, x2, xn2 and the FFN hidden from x and the saved
+residuals, writes dx and the per-token operands of every weight gradient,
+and leaves the weight gradients to the deterministic `wgrad` reduction.
+The angular PE is a constant of the shapes: its gradient is None.
 """
 
 from __future__ import annotations
@@ -16,11 +26,14 @@ import ctypes
 import torch
 
 from lft_torch.kernels import _build
+from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import attention_heads
 
 LN_EPS = 1e-5
 BLK = 128          # the JAX gate's key block: A2 <= 128 tokens per pixel
+BWD_ROWS = 64      # the backward kernel's token rows per block: A2 <= 64
 KERNEL_C = (16, 32, 64)
+WEIGHTS = ("ln", "wq", "wk", "wv", "wo", "w1", "w2")
 
 
 def ang_block_applicable(A2: int) -> bool:
@@ -46,52 +59,238 @@ def _ln(x, w, b):
     return torch.nn.functional.layer_norm(x, (x.shape[-1],), w, b, LN_EPS)
 
 
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[N, A2, C] -> [N, H, A2, C/H]."""
+    N, A2, C = t.shape
+    return t.reshape(N, A2, num_heads, C // num_heads).transpose(1, 2)
+
+
+def _merge(t: torch.Tensor) -> torch.Tensor:
+    """[N, H, A2, dh] -> [N, A2, H*dh]."""
+    N, H, A2, dh = t.shape
+    return t.transpose(1, 2).reshape(N, A2, H * dh)
+
+
+def ln_stats(x: torch.Tensor):
+    """(xhat, rstd) of a LayerNorm over the last axis (biased variance)."""
+    xc = x - x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + LN_EPS)
+    return xc * rstd, rstd
+
+
+def ln_bwd(dxn, xhat, rstd, w):
+    """Cotangent of the LayerNorm input, given that of its output."""
+    dxh = dxn * w
+    return rstd * (dxh - dxh.mean(-1, keepdim=True)
+                   - xhat * (dxh * xhat).mean(-1, keepdim=True))
+
+
+# ---------------------------------------------------------------- forward ---
+
 def ang_block_plain(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
-                    num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: [N, A2, C] -> [N, A2, C]."""
+                    num_heads: int, with_res: bool = False):
+    """Plain PyTorch version of K1: [N, A2, C] -> [N, A2, C]; with_res also
+    returns m, l [N, A2, H] (per token and head: the softmax's row max and
+    the sum of exp(s - m)) and attn [N, A2, C]."""
     ln = wts["ln"]
     xn = _ln(x + ang_pe, ln[0], ln[1])
-    a = attention_heads(xn @ wts["wq"], xn @ wts["wk"], x @ wts["wv"], num_heads)
+    q, k, v = xn @ wts["wq"], xn @ wts["wk"], x @ wts["wv"]
+    if with_res:
+        dh = x.shape[-1] // num_heads
+        s = (_heads(q, num_heads) * float(dh) ** -0.5) @ _heads(k, num_heads).transpose(-1, -2)
+        m = s.amax(-1)                                        # [N, H, A2]
+        e = torch.exp(s - m[..., None])
+        l = e.sum(-1)
+        a = _merge((e / l[..., None]) @ _heads(v, num_heads))
+    else:
+        a = attention_heads(q, k, v, num_heads)
     x2 = a @ wts["wo"] + x
-    return torch.relu(_ln(x2, ln[2], ln[3]) @ wts["w1"]) @ wts["w2"] + x2
+    out = torch.relu(_ln(x2, ln[2], ln[3]) @ wts["w1"]) @ wts["w2"] + x2
+    if not with_res:
+        return out
+    return (out, m.transpose(1, 2).contiguous(), l.transpose(1, 2).contiguous(),
+            a.contiguous())
 
 
-def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
-              num_heads: int) -> torch.Tensor:
-    """The block on [N, A2, C] tokens: the CUDA kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
-    if x.device.type != "cuda":
-        return ang_block_plain(x, ang_pe, wts, num_heads)
+def _check_kernel_shape(kernel: str, x, ang_pe, num_heads: int, max_a2: int) -> None:
     N, A2, C = x.shape
-    if C not in KERNEL_C or num_heads != 8 or not ang_block_applicable(A2):
+    if C not in KERNEL_C or num_heads != 8 or A2 > max_a2:
         raise NotImplementedError(
-            f"ang_block kernel takes C in {KERNEL_C}, 8 heads and A2 <= {BLK}; "
+            f"{kernel} kernel takes C in {KERNEL_C}, 8 heads and A2 <= {max_a2}; "
             f"got C={C}, heads={num_heads}, A2={A2}")
     if tuple(ang_pe.shape) != (A2, C):
         raise ValueError(f"ang_pe must be [{A2}, {C}], got {tuple(ang_pe.shape)}")
+
+
+def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
+              num_heads: int, with_res: bool = False):
+    """K1 on [N, A2, C] tokens: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor. with_res: (out, m, l, attn), counted as
+    `ang_block_res`."""
+    if x.device.type != "cuda":
+        return ang_block_plain(x, ang_pe, wts, num_heads, with_res)
+    _check_kernel_shape("ang_block", x, ang_pe, num_heads, BLK)
+    N, A2, C = x.shape
     w = wts
-    _build.check_cuda_args("ang_block", x, ang_pe, w["ln"], w["wq"], w["wk"],
-                           w["wv"], w["wo"], w["w1"], w["w2"])
+    _build.check_cuda_args("ang_block", x, ang_pe, *(w[n] for n in WEIGHTS))
     out = torch.empty_like(x)
-    fn = _build.bind("ang_block", "lft_ang_block_fwd", 10,
+    ptrs = [x.data_ptr(), ang_pe.data_ptr(), *(w[n].data_ptr() for n in WEIGHTS),
+            out.data_ptr()]
+    tail = (N, A2, C, num_heads, float(C // num_heads) ** -0.5)
+    if not with_res:
+        fn = _build.bind("ang_block", "lft_ang_block_fwd", 10,
+                         (ctypes.c_int,) * 4 + (ctypes.c_float,))
+        _build.launch("ang_block", "ang_block", fn, x.device, *ptrs, *tail)
+        return out
+    m = torch.empty(N, A2, num_heads, device=x.device)
+    l = torch.empty_like(m)
+    attn = torch.empty_like(x)
+    fn = _build.bind("ang_block", "lft_ang_block_fwd_res", 13,
                      (ctypes.c_int,) * 4 + (ctypes.c_float,))
-    _build.launch("ang_block", "ang_block", fn, x.device,
-                  x.data_ptr(), ang_pe.data_ptr(), w["ln"].data_ptr(),
-                  w["wq"].data_ptr(), w["wk"].data_ptr(), w["wv"].data_ptr(),
-                  w["wo"].data_ptr(), w["w1"].data_ptr(), w["w2"].data_ptr(),
-                  out.data_ptr(), N, A2, C, num_heads,
+    _build.launch("ang_block", "ang_block_res", fn, x.device, *ptrs, m.data_ptr(),
+                  l.data_ptr(), attn.data_ptr(), *tail)
+    return out, m, l, attn
+
+
+# --------------------------------------------------------------- backward ---
+
+def ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
+    """Plain version of the K4 kernel: recompute the block from x and the
+    saved residuals, then backpropagate dout [N, A2, C]. Returns dx and the
+    per-token operands of the weight gradients, each [T, *] with T = N*A2:
+    (dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, dln [1, 4, C]); dln holds
+    the LayerNorm affine grads (LN1 w, b, LN2 w, b) summed over the tokens."""
+    ln = wts["ln"]
+    N, A2, C = x.shape
+    H = num_heads
+    scale = float(C // H) ** -0.5
+    xhat1, rstd1 = ln_stats(x + ang_pe)
+    xn = xhat1 * ln[0] + ln[1]
+    q, k, v = xn @ wts["wq"], xn @ wts["wk"], x @ wts["wv"]
+    x2 = attn @ wts["wo"] + x
+    xhat2, rstd2 = ln_stats(x2)
+    xn2 = xhat2 * ln[2] + ln[3]
+    hid = torch.relu(xn2 @ wts["w1"])
+
+    dpre = torch.where(hid > 0, dout @ wts["w2"].t(), 0.0)
+    dxn2 = dpre @ wts["w1"].t()
+    dx2 = dout + ln_bwd(dxn2, xhat2, rstd2, ln[2])
+    dattn = dx2 @ wts["wo"].t()
+    # attention, per pixel and head, from the saved (m, l)
+    qh = _heads(q, H) * scale
+    kh, vh, doh = _heads(k, H), _heads(v, H), _heads(dattn, H)
+    p = torch.exp(qh @ kh.transpose(-1, -2) - m.transpose(1, 2)[..., None]) \
+        / l.transpose(1, 2)[..., None]                        # [N, H, A2, A2]
+    dp = doh @ vh.transpose(-1, -2)
+    dsum = (doh * _heads(attn, H)).sum(-1, keepdim=True)     # = sum_j p dp
+    ds = p * (dp - dsum)
+    dq = _merge(ds @ kh) * scale
+    dk = _merge(ds.transpose(-1, -2) @ qh)
+    dv = _merge(p.transpose(-1, -2) @ doh)
+    dxn = dq @ wts["wq"].t() + dk @ wts["wk"].t()
+    dx = dx2 + dv @ wts["wv"].t() + ln_bwd(dxn, xhat1, rstd1, ln[0])
+    cs = lambda t: t.reshape(-1, C).sum(0)
+    dln = torch.stack([cs(dxn * xhat1), cs(dxn), cs(dxn2 * xhat2), cs(dxn2)])
+    tok = lambda t: t.reshape(N * A2, -1)
+    return (dx, tok(xn), tok(dq), tok(dk), tok(dv), tok(dx2), tok(xn2), tok(dpre),
+            tok(hid), dln[None])
+
+
+def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
+    """The K4 kernel (`ang_block_bwd`) for CUDA tensors, its plain version
+    for CPU tensors. Same outputs as `ang_block_bwd_ops_plain`, except that
+    dln holds one partial sum per block of the kernel: [blocks, 4, C]."""
+    if x.device.type != "cuda":
+        return ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads)
+    _check_kernel_shape("ang_block_bwd", x, ang_pe, num_heads, BWD_ROWS)
+    N, A2, C = x.shape
+    T = N * A2
+    P = BWD_ROWS // A2
+    nblk = (N + P - 1) // P
+    w = wts
+    wt = {n: w[n].t().contiguous() for n in ("wq", "wk", "wv", "wo", "w1", "w2")}
+    ins = (x, ang_pe, *(w[n] for n in WEIGHTS[:-1]), *(wt[n] for n in WEIGHTS[1:]),
+           m, l, attn, dout)
+    _build.check_cuda_args("ang_block_bwd", *ins)
+    dev = x.device
+    e = lambda *s: torch.empty(*s, device=dev)
+    outs = (e(N, A2, C), e(T, C), e(T, C), e(T, C), e(T, C), e(T, C), e(T, C),
+            e(T, 2 * C), e(T, 2 * C), e(nblk, 4, C))
+    fn = _build.bind("ang_block", "lft_ang_block_bwd", len(ins) + len(outs),
+                     (ctypes.c_int,) * 4 + (ctypes.c_float,))
+    _build.launch("ang_block", "ang_block_bwd", fn, dev,
+                  *(t.data_ptr() for t in ins + outs), N, A2, C, num_heads,
                   float(C // num_heads) ** -0.5)
-    return out
+    return outs
+
+
+def _bwd(ops, wg, cs, x, ang_pe, wts, m, l, attn, dout, num_heads):
+    dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, dln = ops(
+        x, ang_pe, wts, m, l, attn, dout, num_heads)
+    C = x.shape[-1]
+    tok = lambda t: t.reshape(-1, C)
+    return (dx, cs(dln.reshape(dln.shape[0], -1)).reshape(4, C),
+            wg(xn, dq), wg(xn, dk), wg(tok(x), dv), wg(tok(attn), dx2),
+            wg(xn2, dpre), wg(hid, tok(dout)))
+
+
+def ang_block_bwd(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
+    """The block's backward from x and the saved (m, l, attn): (dx,
+    dln [4, C], dwq, dwk, dwv, dwo, dw1, dw2), weight grads in the `x @ W`
+    layouts of `ang_weights`. K4, then `wgrad` and `colsum`; each takes its
+    plain version for CPU tensors."""
+    return _bwd(ang_block_bwd_ops, wgrad, colsum, x, ang_pe, wts, m, l, attn, dout,
+                num_heads)
+
+
+def ang_block_bwd_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
+    """Plain version of `ang_block_bwd` (lft_tpu/kernels/ang_block.py:305-394
+    in plain PyTorch), on any device."""
+    return _bwd(ang_block_bwd_ops_plain, wgrad_plain, colsum_plain, x, ang_pe, wts, m, l,
+                attn, dout, num_heads)
+
+
+class AngBlockFn(torch.autograd.Function):
+    """K1 with residuals forward, K4 backward. Inputs: x [N, A2, C],
+    ang_pe, then the weights of `ang_weights` in WEIGHTS order."""
+
+    @staticmethod
+    def forward(ctx, x, ang_pe, ln, wq, wk, wv, wo, w1, w2, num_heads, plain):
+        wts = dict(zip(WEIGHTS, (ln, wq, wk, wv, wo, w1, w2)))
+        fwd = ang_block_plain if plain else ang_block
+        out, m, l, attn = fwd(x, ang_pe, wts, num_heads, with_res=True)
+        ctx.save_for_backward(x, ang_pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn)
+        ctx.cfg = (num_heads, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, ang_pe, *w, m, l, attn = ctx.saved_tensors
+        num_heads, plain = ctx.cfg
+        bwd = ang_block_bwd_plain if plain else ang_block_bwd
+        dx, *dw = bwd(x, ang_pe, dict(zip(WEIGHTS, w)), m, l, attn, dout.contiguous(),
+                      num_heads)
+        return (dx, None, *dw, None, None)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def ang_trans_block_fused(x, ang_pe, params, prefix: str, num_heads: int,
+                          plain: bool = False):
+    """The whole AngTrans block on pixel-major tokens.
+
+    x: [N, A2, C] (N = batch*h*w pixels); ang_pe: [A2, C]; params/prefix:
+    the flat param dict and `altblock.{i}.ang_trans.`. Returns [N, A2, C].
+    Differentiable through `AngBlockFn` when grad is needed; `plain=True`
+    runs the plain versions on any device."""
+    wts = ang_weights(params, prefix)
+    if _needs_grad(x, *wts.values()):
+        return AngBlockFn.apply(x, ang_pe, *(wts[n] for n in WEIGHTS), num_heads, plain)
+    return (ang_block_plain if plain else ang_block)(x, ang_pe, wts, num_heads)
 
 
 def ang_trans_block_plain(x, ang_pe, params, prefix: str, num_heads: int):
     """Plain version of `ang_trans_block_fused`, on any device."""
-    return ang_block_plain(x, ang_pe, ang_weights(params, prefix), num_heads)
-
-
-def ang_trans_block_fused(x, ang_pe, params, prefix: str, num_heads: int):
-    """The whole AngTrans block on pixel-major tokens.
-
-    x: [N, A2, C] (N = batch*h*w pixels); ang_pe: [A2, C]; params/prefix:
-    the flat param dict and `altblock.{i}.ang_trans.`. Returns [N, A2, C]."""
-    return ang_block(x, ang_pe, ang_weights(params, prefix), num_heads)
+    return ang_trans_block_fused(x, ang_pe, params, prefix, num_heads, plain=True)

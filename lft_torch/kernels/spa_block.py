@@ -1,5 +1,5 @@
-"""K2: the fused SpaTrans block (counterpart of lft_tpu/kernels/spa_block.py,
-view-major form).
+"""K2/K3: the fused SpaTrans block and its backward (counterpart of
+lft_tpu/kernels/spa_block.py, view-major form).
 
 `spa_trans_block_fused` runs the whole block (reference model/LFT.py:
 118-191) on view images [V, h, w, C] as five steps, each a hand-written
@@ -12,7 +12,22 @@ PyTorch version on a CPU tensor:
   4 outproj_ln      x2 = attn Wo + tok;  xn2 = LN2(x2)
   5 ffn_out         out = (relu(xn2 W1) W2 + x2) Wlin   (Token2SAI)
 
-`spa_trans_block_plain` chains the five plain versions on any device.
+Training runs the block as `SpaBlockFn`: the forward is the same chain with
+the window step also writing its per-(query, head) softmax max m and
+denominator l, and saves x, tok, m, l and attn. The backward (K3,
+`lft_torch/csrc/spa_block_bwd.cu`) runs the chain in reverse:
+
+  a ffn_out_bwd     recompute x2, xn2, hid, y from attn and tok; Token2SAI,
+                    FFN and LN2 backward -> dx2, dattn = dx2 Woᵀ
+  b ln_qkv          recompute xn = LN1(tok + pe_tok), q, k, v
+  c window_attn_bwd dq per query; dk, dv per key as a gather over the <= 25
+                    queries whose window holds it
+  d qkv_ln_bwd      dxn = dq Wqᵀ + dk Wkᵀ, LN1 backward, dtok
+  e tokenize_bwd    dx as a gather over the 9 transposed taps
+
+and the weight, LayerNorm and PE gradients are reduced by `wgrad`/`colsum`
+(kernels/wgrad.py). `pe_tok` gets a real gradient: it carries MLP.weight.
+`spa_trans_block_plain` runs the plain versions of all of it on any device.
 """
 
 from __future__ import annotations
@@ -22,10 +37,15 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from lft_torch.kernels import _build
+from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
+from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import windowed_attention
 from lft_torch.ops.unfold import unfold3x3_linear
+
+WEIGHTS = ("ln", "wu", "wqk", "wv", "wo", "w1", "w2", "wlin")
 
 LN_EPS = 1e-5
 KERNEL_C = (16, 32, 64)
@@ -111,6 +131,131 @@ def ffn_out_plain(xn2, x2, wts):
     return y @ wts["wlin"]
 
 
+def _window_offsets(ksize: int):
+    r = ksize // 2
+    return [(dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _window_valid(h: int, w: int, ksize: int) -> np.ndarray:
+    """[h, w, k*k] bool: key offset j of the query at (y, x) lies in the image."""
+    yy, xx = np.arange(h)[:, None], np.arange(w)[None, :]
+    return np.stack([(yy + dy >= 0) & (yy + dy < h) & (xx + dx >= 0) & (xx + dx < w)
+                     for dy, dx in _window_offsets(ksize)], axis=-1)
+
+
+def _gather_window(t: torch.Tensor, ksize: int) -> torch.Tensor:
+    """[B, h, w, E] -> [B, h, w, k*k, E]: each pixel's window, zero outside."""
+    r = ksize // 2
+    B, h, w, E = t.shape
+    tp = F.pad(t, (0, 0, r, r, r, r))
+    return torch.stack([tp[:, r + dy:r + dy + h, r + dx:r + dx + w]
+                        for dy, dx in _window_offsets(ksize)], dim=3)
+
+
+def _scatter_window(tw: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Adjoint of `_gather_window`: [B, h, w, k*k, E] -> [B, h, w, E]."""
+    r = ksize // 2
+    B, h, w, _, E = tw.shape
+    out = tw.new_zeros(B, h + 2 * r, w + 2 * r, E)
+    for j, (dy, dx) in enumerate(_window_offsets(ksize)):
+        out[:, r + dy:r + dy + h, r + dx:r + dx + w] += tw[:, :, :, j]
+    return out[:, r:r + h, r:r + w].contiguous()
+
+
+def _window_probs(q, k, num_heads: int, ksize: int, m=None, l=None):
+    """Softmax probabilities [B, h, w, k*k, H] of the window attention and
+    the scaled heads of q [B, h, w, H, dh]; from the saved (m, l) where
+    given, else computed (then also returned)."""
+    B, h, w, E = q.shape
+    dh = E // num_heads
+    qh = q.reshape(B, h, w, num_heads, dh) * float(dh) ** -0.5
+    kw = _gather_window(k, ksize).reshape(B, h, w, -1, num_heads, dh)
+    s = torch.einsum("byxhd,byxjhd->byxjh", qh, kw)
+    valid = torch.from_numpy(_window_valid(h, w, ksize)).to(q.device)[..., None]
+    s = s.masked_fill(~valid, float("-inf"))
+    if m is None:
+        m = s.amax(3)
+        l = torch.exp(s - m[:, :, :, None]).sum(3)
+    return torch.exp(s - m[:, :, :, None]) / l[:, :, :, None], qh, m, l
+
+
+def window_attn_plain(q, k, v, num_heads: int, ksize: int):
+    """Plain version of the window step with stats: (attn, m, l), m and l
+    [V, h, w, H] per query and head."""
+    B, h, w, E = q.shape
+    p, _, m, l = _window_probs(q, k, num_heads, ksize)
+    vw = _gather_window(v, ksize).reshape(B, h, w, -1, num_heads, E // num_heads)
+    attn = torch.einsum("byxjh,byxjhd->byxhd", p, vw).reshape(B, h, w, E)
+    return attn.contiguous(), m.contiguous(), l.contiguous()
+
+
+# ----------------------------------------------------- plain backward steps ---
+
+def ffn_out_bwd_plain(attn, tok, dout, wts):
+    """Plain version of step a: (dx2, dattn, y, dy, hid, dpre, xn2, dln2),
+    dln2 [1, 2, D] = the LN2 affine grads summed over the tokens."""
+    ln = wts["ln"]
+    D = tok.shape[-1]
+    x2 = attn @ wts["wo"] + tok
+    xhat2, rstd2 = ln_stats(x2)
+    xn2 = xhat2 * ln[2] + ln[3]
+    hid = torch.relu(xn2 @ wts["w1"])
+    y = hid @ wts["w2"] + x2
+    dy = dout @ wts["wlin"].t()
+    dpre = torch.where(hid > 0, dy @ wts["w2"].t(), 0.0)
+    dxn2 = dpre @ wts["w1"].t()
+    dx2 = dy + ln_bwd(dxn2, xhat2, rstd2, ln[2])
+    dln2 = torch.stack([(dxn2 * xhat2).reshape(-1, D).sum(0), dxn2.reshape(-1, D).sum(0)])
+    return dx2, dx2 @ wts["wo"].t(), y, dy, hid, dpre, xn2, dln2[None]
+
+
+def ln_qkv_plain(tok, pe_tok, wts):
+    """Plain version of step b: (xn, q, k, v)."""
+    xn = _ln(tok + pe_tok, wts["ln"][0], wts["ln"][1])
+    return (xn, *qkv_plain(xn, tok, wts))
+
+
+def window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int):
+    """Plain version of step c: (dq, dk, dv) from the saved (m, l)."""
+    B, h, w, E = q.shape
+    H, dh = num_heads, E // num_heads
+    p, qh, _, _ = _window_probs(q, k, H, ksize, m, l)
+    doh = dattn.reshape(B, h, w, H, dh)
+    vw = _gather_window(v, ksize).reshape(B, h, w, -1, H, dh)
+    kw = _gather_window(k, ksize).reshape(B, h, w, -1, H, dh)
+    dp = torch.einsum("byxhd,byxjhd->byxjh", doh, vw)
+    dsum = (doh * attn.reshape(B, h, w, H, dh)).sum(-1)     # = sum_j p dp
+    ds = p * (dp - dsum[:, :, :, None])
+    dq = torch.einsum("byxjh,byxjhd->byxhd", ds, kw) * float(dh) ** -0.5
+    dkw = torch.einsum("byxjh,byxhd->byxjhd", ds, qh)
+    dvw = torch.einsum("byxjh,byxhd->byxjhd", p, doh)
+    return (dq.reshape(B, h, w, E).contiguous(), _scatter_window(dkw.reshape(B, h, w, -1, E), ksize),
+            _scatter_window(dvw.reshape(B, h, w, -1, E), ksize))
+
+
+def qkv_ln_bwd_plain(tok, pe_tok, dq, dk, dv, dx2, wts):
+    """Plain version of step d: (dtok, dtokpe, dln1); dtokpe is the LN1
+    input's cotangent (summed over views it is pe_tok's gradient), dln1
+    [1, 2, D] the LN1 affine grads."""
+    ln = wts["ln"]
+    D = tok.shape[-1]
+    xhat1, rstd1 = ln_stats(tok + pe_tok)
+    dxn = dq @ wts["wqk"][:, :D].t() + dk @ wts["wqk"][:, D:].t()
+    dtokpe = ln_bwd(dxn, xhat1, rstd1, ln[0])
+    dln1 = torch.stack([(dxn * xhat1).reshape(-1, D).sum(0), dxn.reshape(-1, D).sum(0)])
+    return dx2 + dv @ wts["wv"].t() + dtokpe, dtokpe, dln1[None]
+
+
+def tokenize_bwd_plain(dtok, wts):
+    """Plain version of step e: dx [V, h, w, C], the transposed 3x3
+    tokenization of dtok [V, h, w, D]."""
+    D, C9 = wts["mlp"].shape
+    dx = F.conv_transpose2d(dtok.permute(0, 3, 1, 2), wts["mlp"].reshape(D, C9 // 9, 3, 3),
+                            padding=1)
+    return dx.permute(0, 2, 3, 1).contiguous()
+
+
 # ------------------------------------------------------ kernel wrappers ---
 
 def _check_c(kernel: str, C: int) -> None:
@@ -152,24 +297,40 @@ def qkv(xn, tok, wts):
     return q, k, v
 
 
-def window_attn(q, k, v, num_heads: int, ksize: int):
-    """Step 3: projected q/k/v [V, h, w, D] -> attention output [V, h, w, D]."""
-    if q.device.type != "cuda":
-        return windowed_attention(q, k, v, num_heads, ksize)
-    V, h, w, D = q.shape
+def _check_window(kernel: str, D: int, num_heads: int, ksize: int) -> None:
     if num_heads != 8 or ksize != 5 or D // num_heads not in (4, 8, 16) \
             or D % num_heads:
         raise NotImplementedError(
-            "spa_window_attn kernel takes 8 heads of width 4, 8 or 16 and a 5x5 "
+            f"{kernel} kernel takes 8 heads of width 4, 8 or 16 and a 5x5 "
             f"window; got D={D}, heads={num_heads}, k={ksize}")
+
+
+def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
+    """Step 3: projected q/k/v [V, h, w, D] -> attention output [V, h, w, D];
+    with_stats: (attn, m, l), m and l [V, h, w, H], counted as
+    `spa_window_attn_res`."""
+    if q.device.type != "cuda":
+        if with_stats:
+            return window_attn_plain(q, k, v, num_heads, ksize)
+        return windowed_attention(q, k, v, num_heads, ksize)
+    V, h, w, D = q.shape
+    _check_window("spa_window_attn", D, num_heads, ksize)
     _build.check_cuda_args("spa_window_attn", q, k, v)
     attn = torch.empty_like(q)
-    fn = _build.bind("spa_block", "lft_spa_window_attn", 4,
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), attn.data_ptr()]
+    tail = (V, h, w, D, num_heads, float(D // num_heads) ** -0.5)
+    if not with_stats:
+        fn = _build.bind("spa_block", "lft_spa_window_attn", 4,
+                         (ctypes.c_int,) * 5 + (ctypes.c_float,))
+        _build.launch("spa_block", "spa_window_attn", fn, q.device, *ptrs, *tail)
+        return attn
+    m = torch.empty(V, h, w, num_heads, device=q.device)
+    l = torch.empty_like(m)
+    fn = _build.bind("spa_block", "lft_spa_window_attn_res", 6,
                      (ctypes.c_int,) * 5 + (ctypes.c_float,))
-    _build.launch("spa_block", "spa_window_attn", fn, q.device, q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), attn.data_ptr(), V, h, w, D, num_heads,
-                  float(D // num_heads) ** -0.5)
-    return attn
+    _build.launch("spa_block", "spa_window_attn_res", fn, q.device, *ptrs,
+                  m.data_ptr(), l.data_ptr(), *tail)
+    return attn, m, l
 
 
 def outproj_ln(attn, tok, wts):
@@ -203,34 +364,210 @@ def ffn_out(xn2, x2, wts):
     return out
 
 
+# ------------------------------------------------- K3 kernel wrappers ---
+
+def _bwd_weights(wts: dict) -> dict:
+    """Transposed weights of the backward products (`dy Wᵀ`), contiguous."""
+    D = wts["wo"].shape[0]
+    t = lambda m: m.t().contiguous()
+    return dict(wlinT=t(wts["wlin"]), w2T=t(wts["w2"]), w1T=t(wts["w1"]), woT=t(wts["wo"]),
+                wqT=t(wts["wqk"][:, :D]), wkT=t(wts["wqk"][:, D:]), wvT=t(wts["wv"]),
+                wuT=wts["wu"].transpose(1, 2).contiguous())           # [9, D, C]
+
+
+def _launch(kernel: str, fn_name: str, ins, outs, ints, dev, floats=()):
+    _build.check_cuda_args(kernel, *ins)
+    fn = _build.bind("spa_block_bwd", fn_name, len(ins) + len(outs),
+                     (ctypes.c_int,) * len(ints) + (ctypes.c_float,) * len(floats))
+    _build.launch("spa_block_bwd", kernel, fn, dev, *(t.data_ptr() for t in (*ins, *outs)),
+                  *ints, *floats)
+
+
+def _bwd_blocks(T: int) -> int:
+    return (T + 63) // 64          # BM = 64 token rows a block (spa_block_bwd.cu)
+
+
+def ffn_out_bwd(attn, tok, dout, wts):
+    """Step a: (dx2, dattn, y, dy, hid, dpre, xn2, dln2); dln2 holds one
+    partial sum per kernel block, [blocks, 2, D]."""
+    if attn.device.type != "cuda":
+        return ffn_out_bwd_plain(attn, tok, dout, wts)
+    *lead, D = tok.shape
+    T = tok.numel() // D
+    _check_c("spa_ffn_out_bwd", D // 2)
+    wt = _bwd_weights(wts)
+    e = lambda n: torch.empty(*lead, n, device=tok.device)
+    outs = (e(D), e(D), e(D), e(D), e(2 * D), e(2 * D), e(D),
+            torch.empty(_bwd_blocks(T), 2, D, device=tok.device))
+    _launch("spa_ffn_out_bwd", "lft_spa_ffn_out_bwd",
+            (attn, tok, dout, wts["ln"], wts["wo"], wts["w1"], wts["w2"], wt["wlinT"],
+             wt["w2T"], wt["w1T"], wt["woT"]), outs, (T, D // 2), tok.device)
+    return outs
+
+
+def ln_qkv(tok, pe_tok, wts):
+    """Step b: recompute (xn, q, k, v) [V, h, w, D] from tok and pe_tok."""
+    if tok.device.type != "cuda":
+        return ln_qkv_plain(tok, pe_tok, wts)
+    V, h, w, D = tok.shape
+    _check_c("spa_ln_qkv", D // 2)
+    outs = tuple(torch.empty_like(tok) for _ in range(4))
+    _launch("spa_ln_qkv", "lft_spa_ln_qkv", (tok, pe_tok, wts["ln"], wts["wqk"], wts["wv"]),
+            outs, (V * h * w, h * w, D // 2), tok.device)
+    return outs
+
+
+def window_attn_bwd(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int):
+    """Step c: (dq, dk, dv) [V, h, w, D] from the saved (m, l)."""
+    if q.device.type != "cuda":
+        return window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads, ksize)
+    V, h, w, D = q.shape
+    _check_window("spa_window_attn_bwd", D, num_heads, ksize)
+    outs = tuple(torch.empty_like(q) for _ in range(3))
+    _launch("spa_window_attn_bwd", "lft_spa_window_attn_bwd", (q, k, v, attn, dattn, m, l),
+            outs, (V, h, w, D, num_heads), q.device, (float(D // num_heads) ** -0.5,))
+    return outs
+
+
+def qkv_ln_bwd(tok, pe_tok, dq, dk, dv, dx2, wts):
+    """Step d: (dtok, dtokpe, dln1); dln1 [blocks, 2, D] partial sums."""
+    if tok.device.type != "cuda":
+        return qkv_ln_bwd_plain(tok, pe_tok, dq, dk, dv, dx2, wts)
+    V, h, w, D = tok.shape
+    T = V * h * w
+    _check_c("spa_qkv_ln_bwd", D // 2)
+    wt = _bwd_weights(wts)
+    outs = (torch.empty_like(tok), torch.empty_like(tok),
+            torch.empty(_bwd_blocks(T), 2, D, device=tok.device))
+    _launch("spa_qkv_ln_bwd", "lft_spa_qkv_ln_bwd",
+            (tok, pe_tok, dq, dk, dv, dx2, wts["ln"], wt["wqT"], wt["wkT"], wt["wvT"]),
+            outs, (T, h * w, D // 2), tok.device)
+    return outs
+
+
+def tokenize_bwd(dtok, wts):
+    """Step e: dx [V, h, w, C] = the 3x3 tokenization transposed, as a
+    gather over the 9 taps."""
+    if dtok.device.type != "cuda":
+        return tokenize_bwd_plain(dtok, wts)
+    V, h, w, D = dtok.shape
+    _check_c("spa_tokenize_bwd", D // 2)
+    dx = torch.empty(V, h, w, D // 2, device=dtok.device)
+    _launch("spa_tokenize_bwd", "lft_spa_tokenize_bwd", (dtok, _bwd_weights(wts)["wuT"]),
+            (dx,), (V * h * w, h, w, D // 2), dtok.device)
+    return dx
+
+
 # --------------------------------------------------------------- blocks ---
 
-def spa_block(x, pe_tok, wts, num_heads: int, k: int):
+def spa_block(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False):
+    """K2 chained; with_res: (out, tok, m, l, attn)."""
     tok, xn = tokenize_ln(x, pe_tok, wts)
     q, kk, v = qkv(xn, tok, wts)
-    attn = window_attn(q, kk, v, num_heads, k)
+    if with_res:
+        attn, m, l = window_attn(q, kk, v, num_heads, k, with_stats=True)
+    else:
+        attn = window_attn(q, kk, v, num_heads, k)
     x2, xn2 = outproj_ln(attn, tok, wts)
-    return ffn_out(xn2, x2, wts)
+    out = ffn_out(xn2, x2, wts)
+    return (out, tok, m, l, attn) if with_res else out
 
 
-def spa_block_plain(x, pe_tok, wts, num_heads: int, k: int):
+def spa_block_plain(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False):
     tok, xn = tokenize_ln_plain(x, pe_tok, wts)
     q, kk, v = qkv_plain(xn, tok, wts)
-    attn = windowed_attention(q, kk, v, num_heads, k)
+    if with_res:
+        attn, m, l = window_attn_plain(q, kk, v, num_heads, k)
+    else:
+        attn = windowed_attention(q, kk, v, num_heads, k)
     x2, xn2 = outproj_ln_plain(attn, tok, wts)
-    return ffn_out_plain(xn2, x2, wts)
+    out = ffn_out_plain(xn2, x2, wts)
+    return (out, tok, m, l, attn) if with_res else out
 
 
-def spa_trans_block_plain(x, pe_tok, params, prefix: str, num_heads: int, k: int):
-    """Plain version of `spa_trans_block_fused`, on any device."""
-    return spa_block_plain(x, pe_tok, spa_weights(params, prefix), num_heads, k)
+_KERNEL_STEPS = (ffn_out_bwd, ln_qkv, window_attn_bwd, qkv_ln_bwd, tokenize_bwd, wgrad,
+                 colsum)
+_PLAIN_STEPS = (ffn_out_bwd_plain, ln_qkv_plain, window_attn_bwd_plain, qkv_ln_bwd_plain,
+                tokenize_bwd_plain, wgrad_plain, colsum_plain)
 
 
-def spa_trans_block_fused(x, pe_tok, params, prefix: str, num_heads: int, k: int):
+def spa_block_bwd(x, pe_tok, wts, tok, m, l, attn, dout, num_heads: int, k: int):
+    """K3: the block's backward from x and the saved (tok, m, l, attn).
+    Returns (dx, dpe_tok [h, w, D], dln [4, D], dwu [9, C, D], dwqk, dwv,
+    dwo, dw1, dw2, dwlin), weight grads in the layouts of `spa_weights`.
+    Each step takes its plain version for CPU tensors."""
+    return _bwd(_KERNEL_STEPS, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k)
+
+
+def spa_block_bwd_plain(x, pe_tok, wts, tok, m, l, attn, dout, num_heads: int, k: int):
+    """Plain version of `spa_block_bwd` (lft_tpu/kernels/spa_block.py:427-568
+    in plain PyTorch), on any device."""
+    return _bwd(_PLAIN_STEPS, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k)
+
+
+def _bwd(steps, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k):
+    f_ffn, f_lnqkv, f_attn, f_qkvln, f_tok, wg, cs = steps
+    V, h, w, C = x.shape
+    D = 2 * C
+    dx2, dattn, y, dy, hid, dpre, xn2, dln2 = f_ffn(attn, tok, dout, wts)
+    xn, q, kk, v = f_lnqkv(tok, pe_tok, wts)
+    dq, dk, dv = f_attn(q, kk, v, attn, dattn, m, l, num_heads, k)
+    dtok, dtokpe, dln1 = f_qkvln(tok, pe_tok, dq, dk, dv, dx2, wts)
+    dx = f_tok(dtok, wts)
+    r = lambda t: t.reshape(-1, t.shape[-1])
+    rows = lambda t: cs(t.reshape(t.shape[0], -1))
+    return (dx, rows(dtokpe).reshape(h, w, D),
+            torch.cat([rows(dln1), rows(dln2)]).reshape(4, D),
+            wg(r(x), r(dtok), image=(h, w)),
+            torch.cat([wg(r(xn), r(dq)), wg(r(xn), r(dk))], dim=1),
+            wg(r(tok), r(dv)), wg(r(attn), r(dx2)), wg(r(xn2), r(dpre)),
+            wg(r(hid), r(dy)), wg(r(y), r(dout)))
+
+
+def _with_mlp(wts: dict) -> dict:
+    """The weights of WEIGHTS plus `mlp`, MLP.weight [D, C*9] rebuilt from wu."""
+    wu = wts["wu"]
+    return dict(wts, mlp=wu.permute(2, 1, 0).reshape(wu.shape[2], -1))
+
+
+class SpaBlockFn(torch.autograd.Function):
+    """K2 with residuals forward, K3 backward. Inputs: x [V, h, w, C],
+    pe_tok [h, w, D], then the weights of `spa_weights` in WEIGHTS order."""
+
+    @staticmethod
+    def forward(ctx, x, pe_tok, ln, wu, wqk, wv, wo, w1, w2, wlin, num_heads, k, plain):
+        wts = _with_mlp(dict(zip(WEIGHTS, (ln, wu, wqk, wv, wo, w1, w2, wlin))))
+        fwd = spa_block_plain if plain else spa_block
+        out, tok, m, l, attn = fwd(x, pe_tok, wts, num_heads, k, with_res=True)
+        ctx.save_for_backward(x, pe_tok, ln, wu, wqk, wv, wo, w1, w2, wlin, tok, m, l, attn)
+        ctx.cfg = (num_heads, k, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, pe_tok, *w, tok, m, l, attn = ctx.saved_tensors
+        num_heads, k, plain = ctx.cfg
+        bwd = spa_block_bwd_plain if plain else spa_block_bwd
+        grads = bwd(x, pe_tok, _with_mlp(dict(zip(WEIGHTS, w))), tok, m, l, attn,
+                    dout.contiguous(), num_heads, k)
+        return (*grads, None, None, None)
+
+
+def spa_trans_block_fused(x, pe_tok, params, prefix: str, num_heads: int, k: int,
+                          plain: bool = False):
     """The whole SpaTrans block on view images.
 
     x: [V, h, w, C] (V = batch*A2 views); pe_tok: [h, w, D], the spatial PE
     through the same unfold+MLP (view-independent, computed outside);
     params/prefix: the flat param dict and `altblock.{i}.spa_trans.`.
-    Returns [V, h, w, C]."""
-    return spa_block(x, pe_tok, spa_weights(params, prefix), num_heads, k)
+    Returns [V, h, w, C]. Differentiable through `SpaBlockFn` when grad is
+    needed; `plain=True` runs the plain versions on any device."""
+    wts = spa_weights(params, prefix)
+    if _needs_grad(x, pe_tok, *(wts[n] for n in WEIGHTS)):
+        return SpaBlockFn.apply(x, pe_tok, *(wts[n] for n in WEIGHTS), num_heads, k, plain)
+    return (spa_block_plain if plain else spa_block)(x, pe_tok, wts, num_heads, k)
+
+
+def spa_trans_block_plain(x, pe_tok, params, prefix: str, num_heads: int, k: int):
+    """Plain version of `spa_trans_block_fused`, on any device."""
+    return spa_trans_block_fused(x, pe_tok, params, prefix, num_heads, k, plain=True)

@@ -18,7 +18,10 @@ view borders; dropout 0.
 Two branches, as in the JAX package:
 * fused (default on CUDA): each transformer block runs as the port's
   kernels, K1 `ang_trans_block_fused` and K2 `spa_trans_block_fused`;
-  on a CPU tensor those dispatch to their plain versions;
+  on a CPU tensor those dispatch to their plain versions. When grad mode
+  is on and an input or weight requires grad, each block runs as its
+  autograd Function (K1/K2 with residuals forward, K4/K3 backward);
+  otherwise, as in inference, the residual-free kernels;
 * unfused: the per-op plain reference (ops/attention.py). On CUDA it would
   need the per-op kernels K5-K10, which are not ported yet, so it raises.
 """

@@ -50,8 +50,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
     dev = resolve_device()
-    params, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
-                                             "LFT_5x5_4x_synth3000.pth"), device=dev)
+    params, _, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
+                                                "LFT_5x5_4x_synth3000.pth"), device=dev)
     args = Args(angRes=5, scale_factor=4, channels=64, patch_size_for_test=32,
                 stride_for_test=16, eval_batch=16)
     cache = ScenePipelineCache(forward, args, eval_batch=16, plain_blocks=a.plain)
@@ -79,17 +79,23 @@ def main(argv=None) -> int:
         cache(params, lrs[0])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    report(prof, wall, "one scene", top=20)
+    return 0
+
+
+def report(prof, wall: float, what: str, top: int) -> None:
+    """Device busy time and idle share of a traced window of `wall`
+    seconds, and its `top` kernels by device time."""
     rows = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
             if e.device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(r[1] for r in rows) / 1e3
     if not rows:
         print("profile: no device time in the trace (not measured)")
-        return 0
-    print(f"profile of one scene: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms, "
+        return
+    busy = sum(r[1] for r in rows) / 1e3
+    print(f"profile of {what}: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms, "
           f"idle share {1 - busy / (wall * 1e3):.3f}")
-    for key, t, n in sorted(rows, key=lambda r: -r[1])[:20]:
+    for key, t, n in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"  {t / 1e3:9.3f} ms {100 * t / 1e3 / busy:5.1f}%  x{n:<4d} {key[:100]}")
-    return 0
 
 
 if __name__ == "__main__":

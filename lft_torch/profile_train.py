@@ -1,0 +1,98 @@
+"""Time and profile the train step on one CUDA card.
+
+    python3 -m lft_torch.profile_train [--steps N] [--seed S] [--plain]
+
+The 4x recipe (runs/ref_recipe_s4): LFT at full width (C=64, 8 heads, 4
+AltFilter blocks, 5x5 views) from the 4x demo checkpoint, Adam 2e-4,
+batch 4 of 32x32-view patches made on the card by `synth_batch`:
+
+* steady-state ms per train step (host clock around steps that end in
+  `torch.cuda.synchronize()`, after two warm-up steps);
+* a `torch.profiler` trace of one step: device time by kernel name, the
+  device's busy time and its idle share of the wall time.
+
+`--plain` trains through the blocks' plain PyTorch versions and backwards
+instead of the kernels. Prints the card's name and power limit first.
+Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--plain", action="store_true")
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device is available", file=sys.stderr)
+        return 1
+
+    from lft_torch.config import Args
+    from lft_torch.data.device_synth import synth_batch
+    from lft_torch.device import resolve_device
+    from lft_torch.models.lft import forward
+    from lft_torch.profile_scene import report
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import make_optimizer
+    from lft_torch.training.trainer import make_train_step
+    from lft_torch.utils.checkpoint import load_checkpoint
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    dev = resolve_device()
+    params, _, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
+                                                "LFT_5x5_4x_synth3000.pth"), device=dev)
+    args = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, lr=2e-4)
+    model = get_model(args)
+    if a.plain:
+        model = dataclasses.replace(model, apply=functools.partial(forward, plain_blocks=True))
+    for p in params.values():
+        p.requires_grad_(True)
+    step = make_train_step(model, make_optimizer(params, args, steps_per_epoch=1000), args)
+    gen = torch.Generator(device=dev).manual_seed(a.seed)
+    batches = [synth_batch(gen, batch=4, ang_res=5, patch=32, scale=4)
+               for _ in range(a.steps + 3)]
+
+    for lr, hr in batches[:2]:                 # warm-up
+        step(params, lr, hr)
+    torch.cuda.synchronize()
+    times = []
+    for lr, hr in batches[2:-1]:
+        t0 = time.perf_counter()
+        step(params, lr, hr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    med = times[len(times) // 2]
+    print(f"train step ({'plain blocks' if a.plain else 'kernels'}, batch 4, 4x, C=64): "
+          f"median {med * 1e3:.3f} ms over {len(times)} steps (all: "
+          f"{[round(t * 1e3, 3) for t in times]})", flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+    lr, hr = batches[-1]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, lr, hr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report(prof, wall, "one step", top=25)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

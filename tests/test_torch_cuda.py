@@ -7,7 +7,9 @@ machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Shapes are small and ragged (a last block that is only partly filled) and
-cover every channel width the kernels are built for.
+cover every channel width the kernels are built for. The backward kernels
+are held to max |kernel - plain| <= 5e-4 max |plain| per output (the JAX
+package's fused-vs-unfused gradient bound, tests/test_kernels.py:428).
 """
 
 import numpy as np
@@ -15,7 +17,7 @@ import pytest
 import torch
 
 from lft_torch.config import Args
-from lft_torch.kernels import LAUNCHES, ang_block, reset_launches, spa_block
+from lft_torch.kernels import FORWARD, LAUNCHES, ang_block, reset_launches, spa_block, wgrad
 from lft_torch.models import lft
 from lft_torch.ops.posenc import angular_position
 
@@ -60,7 +62,7 @@ def test_spa_block_kernels(cuda_device, C, h, w):
     reset_launches()
     got = spa_block.spa_block(x, pe_tok, wts, 8, 5)
     torch.cuda.synchronize()
-    assert all(LAUNCHES[k] == 1 for k in LAUNCHES if k.startswith("spa_"))
+    assert all(LAUNCHES[k] == 1 for k in FORWARD if k.startswith("spa_"))
     torch.testing.assert_close(got, spa_block.spa_block_plain(x, pe_tok, wts, 8, 5), **TOL)
 
 
@@ -76,3 +78,182 @@ def test_forward_kernels_match_plain_blocks(cuda_device):
     torch.testing.assert_close(got, ref, **TOL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lft.forward(p, lr, args, fused=False)
+
+
+def _close(got, ref, rel=5e-4):
+    if isinstance(got, torch.Tensor):
+        got, ref = (got,), (ref,)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape, (i, g.shape, r.shape)
+        err = float((g - r).abs().max())
+        assert err <= rel * float(r.abs().max()) + 1e-9, (i, err, float(r.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+def test_ang_block_res_and_bwd_kernels(cuda_device, C):
+    p = _params(C, cuda_device, seed=C)
+    wts = ang_block.ang_weights(p, "altblock.3.ang_trans.")
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    x = torch.randn(37, 25, C, device=cuda_device, generator=g)
+    dout = torch.randn(37, 25, C, device=cuda_device, generator=g)
+    pe = torch.from_numpy(angular_position(25, C)).to(cuda_device)
+    reset_launches()
+    res = ang_block.ang_block(x, pe, wts, 8, with_res=True)
+    ref = ang_block.ang_block_plain(x, pe, wts, 8, with_res=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ang_block_res"] == 1 and LAUNCHES["ang_block"] == 0
+    _close(res, ref, 1e-4)
+    _, m, l, attn = ref
+    ops = ang_block.ang_block_bwd_ops(x, pe, wts, m, l, attn, dout, 8)
+    ops_ref = ang_block.ang_block_bwd_ops_plain(x, pe, wts, m, l, attn, dout, 8)
+    _close(ops[:-1], ops_ref[:-1])
+    _close(ops[-1].sum(0, keepdim=True), ops_ref[-1])
+    got = ang_block.ang_block_bwd(x, pe, wts, m, l, attn, dout, 8)
+    torch.cuda.synchronize()
+    _close(got, ang_block.ang_block_bwd_plain(x, pe, wts, m, l, attn, dout, 8))
+    assert LAUNCHES["ang_block_bwd"] == 2 and LAUNCHES["wgrad"] == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,h,w", [(16, 20, 12), (32, 9, 7), (64, 32, 32), (64, 17, 40)])
+def test_spa_res_and_bwd_kernels(cuda_device, C, h, w):
+    p = _params(C, cuda_device, seed=h)
+    wts = spa_block.spa_weights(p, "altblock.1.spa_trans.")
+    g = torch.Generator(device=cuda_device).manual_seed(C + w)
+    x = torch.randn(3, h, w, C, device=cuda_device, generator=g)
+    pe_tok = torch.randn(h, w, 2 * C, device=cuda_device, generator=g)
+    dout = torch.randn(3, h, w, C, device=cuda_device, generator=g)
+    res = spa_block.spa_block(x, pe_tok, wts, 8, 5, with_res=True)
+    ref = spa_block.spa_block_plain(x, pe_tok, wts, 8, 5, with_res=True)
+    _close(res, ref, 1e-4)
+    _, tok, m, l, attn = ref
+    a = spa_block.ffn_out_bwd(attn, tok, dout, wts)
+    a_ref = spa_block.ffn_out_bwd_plain(attn, tok, dout, wts)
+    _close(a[:-1], a_ref[:-1])
+    _close(a[-1].sum(0, keepdim=True), a_ref[-1])
+    b_ref = spa_block.ln_qkv_plain(tok, pe_tok, wts)
+    _close(spa_block.ln_qkv(tok, pe_tok, wts), b_ref, 1e-4)
+    xn, q, k, v = b_ref
+    dattn = a_ref[1]
+    c_ref = spa_block.window_attn_bwd_plain(q, k, v, attn, dattn, m, l, 8, 5)
+    _close(spa_block.window_attn_bwd(q, k, v, attn, dattn, m, l, 8, 5), c_ref)
+    dq, dk, dv = c_ref
+    d = spa_block.qkv_ln_bwd(tok, pe_tok, dq, dk, dv, a_ref[0], wts)
+    d_ref = spa_block.qkv_ln_bwd_plain(tok, pe_tok, dq, dk, dv, a_ref[0], wts)
+    _close(d[:-1], d_ref[:-1])
+    _close(d[-1].sum(0, keepdim=True), d_ref[-1])
+    wts_m = spa_block._with_mlp(wts)
+    _close(spa_block.tokenize_bwd(d_ref[0], wts), spa_block.tokenize_bwd_plain(d_ref[0], wts_m))
+    reset_launches()
+    got = spa_block.spa_block_bwd(x, pe_tok, wts_m, tok, m, l, attn, dout, 8, 5)
+    torch.cuda.synchronize()
+    assert all(LAUNCHES[n] == 1 for n in ("spa_ffn_out_bwd", "spa_ln_qkv", "spa_window_attn_bwd",
+                                          "spa_qkv_ln_bwd", "spa_tokenize_bwd"))
+    _close(got, spa_block.spa_block_bwd_plain(x, pe_tok, wts_m, tok, m, l, attn, dout, 8, 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K,N,image", [(1000, 64, 128, None), (4097, 256, 128, None),
+                                         (3 * 9 * 7, 16, 32, (9, 7)),
+                                         (2 * 32 * 32, 64, 128, (32, 32))])
+def test_wgrad_kernels(cuda_device, T, K, N, image):
+    g = torch.Generator(device=cuda_device).manual_seed(T)
+    x = torch.randn(T, K, device=cuda_device, generator=g)
+    dy = torch.randn(T, N, device=cuda_device, generator=g)
+    _close(wgrad.wgrad(x, dy, image), wgrad.wgrad_plain(x, dy, image), 1e-5)
+    _close(wgrad.colsum(dy), wgrad.colsum_plain(dy), 1e-5)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_repeat_bitwise(cuda_device):
+    C = 64
+    p = _params(C, cuda_device, seed=5)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    wa = ang_block.ang_weights(p, "altblock.0.ang_trans.")
+    x = torch.randn(300, 25, C, device=cuda_device, generator=g)
+    pe = torch.from_numpy(angular_position(25, C)).to(cuda_device)
+    dout = torch.randn_like(x)
+    _, m, l, attn = ang_block.ang_block(x, pe, wa, 8, with_res=True)
+    a1 = ang_block.ang_block_bwd(x, pe, wa, m, l, attn, dout, 8)
+    a2 = ang_block.ang_block_bwd(x, pe, wa, m, l, attn, dout, 8)
+    assert all(torch.equal(u, v) for u, v in zip(a1, a2))
+    ws = spa_block._with_mlp(spa_block.spa_weights(p, "altblock.0.spa_trans."))
+    xs = torch.randn(6, 32, 32, C, device=cuda_device, generator=g)
+    pe_tok = torch.randn(32, 32, 2 * C, device=cuda_device, generator=g)
+    ds = torch.randn_like(xs)
+    _, tok, m, l, attn = spa_block.spa_block(xs, pe_tok, ws, 8, 5, with_res=True)
+    s1 = spa_block.spa_block_bwd(xs, pe_tok, ws, tok, m, l, attn, ds, 8, 5)
+    s2 = spa_block.spa_block_bwd(xs, pe_tok, ws, tok, m, l, attn, ds, 8, 5)
+    assert all(torch.equal(u, v) for u, v in zip(s1, s2))
+
+
+@pytest.mark.cuda
+def test_model_grads_kernels_match_plain(cuda_device):
+    """Gradients of the whole model through the kernels against the plain
+    blocks, at C=16 and the 4x recipe's geometry (32x32-view patches)."""
+    args = Args(channels=16, scale_factor=4)
+    p = lft.init_params(4, args, device=cuda_device)
+    for t in p.values():
+        t.requires_grad_(True)
+    rng = np.random.RandomState(1)
+    lr = torch.from_numpy(rng.rand(2, 1, 160, 160).astype(np.float32)).to(cuda_device)
+    hr = torch.from_numpy(rng.rand(2, 1, 640, 640).astype(np.float32)).to(cuda_device)
+
+    def grads(plain):
+        sr = lft.forward(p, lr, args, plain_blocks=plain)
+        loss = ((sr - hr) * torch.cos(3.0 * (sr - hr))).mean()
+        return torch.autograd.grad(loss, list(p.values()))
+
+    reset_launches()
+    got = grads(False)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ang_block_bwd"] == 4 and LAUNCHES["spa_tokenize_bwd"] == 4
+    for name, g1, g2 in zip(p, got, grads(True)):
+        err = float((g1 - g2).abs().max())
+        assert err <= 5e-4 * float(g2.abs().max()) + 2e-9, (name, err)
+
+
+class _Patches:
+    """In-memory training set with `item(index, rng)`, like TrainDataset."""
+
+    def __init__(self, n, seed=0):
+        rng = np.random.RandomState(seed)
+        self.lr = [rng.rand(160, 160).astype(np.float32) for _ in range(n)]
+        self.hr = [rng.rand(640, 640).astype(np.float32) for _ in range(n)]
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.lr)
+
+    def item(self, index, rng):
+        from lft_torch.data.datasets import augmentation
+        d, l = augmentation(self.lr[index], self.hr[index], rng)
+        return np.ascontiguousarray(d)[None], np.ascontiguousarray(l)[None]
+
+
+@pytest.mark.cuda
+def test_fit_kill_resume_bitwise_on_card(cuda_device, tmp_path):
+    """fit through the kernels for 2 epochs == 1 epoch, an npz save, a load
+    and 1 more epoch: params and Adam state bit for bit on the card."""
+    from lft_torch.training import trainer
+    data = _Patches(4)
+    base = dict(channels=16, scale_factor=4, batch_size=2, epoch=2, n_steps=1, num_workers=0,
+                seed=3)
+    a, b = tmp_path / "a", tmp_path / "b"
+    a.mkdir()
+    b.mkdir()
+    full, hist = trainer.fit(Args(**base), dataset=data, checkpoints_dir=str(a))
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    trainer.fit(Args(**dict(base, epoch=1)), dataset=data, checkpoints_dir=str(b))
+    ck = trainer.checkpoint_path(str(b), Args(**base), 1)
+    reset_launches()
+    resumed, _ = trainer.fit(Args(**dict(base, use_pre_pth=True, path_pre_pth=ck)),
+                             dataset=data, checkpoints_dir=str(b))
+    assert LAUNCHES["ang_block_bwd"] == 2 * 4 and LAUNCHES["spa_tokenize_bwd"] == 2 * 4
+    for k in full:
+        assert torch.equal(full[k], resumed[k]), k
+    za = np.load(trainer.checkpoint_path(str(a), Args(**base), 2))
+    zb = np.load(trainer.checkpoint_path(str(b), Args(**base), 2))
+    for f in za.files:
+        np.testing.assert_array_equal(za[f], zb[f], err_msg=f)

@@ -69,9 +69,12 @@ def test_checkpoints_load_like_jax(name):
     """.pth and .npz load to exactly the tensors lft_tpu's loader returns."""
     for ext in (".pth", ".npz"):
         path = os.path.join(DEMO, name + ext)
-        ref, ref_epoch, _ = j_ckpt.load_checkpoint(path)
-        got, epoch = ckpt.load_checkpoint(path, device="cpu")
+        ref, ref_epoch, ref_opt = j_ckpt.load_checkpoint(path)
+        got, epoch, opt = ckpt.load_checkpoint(path, device="cpu")
         assert epoch == ref_epoch
+        assert set(opt or {}) == set(ref_opt or {})
+        for k in opt or {}:
+            np.testing.assert_array_equal(opt[k], ref_opt[k], err_msg=k)
         assert set(got) == set(ref)
         for k, v in ref.items():
             assert got[k].dtype == torch.float32
