@@ -29,11 +29,33 @@
 8. holds every training kernel against its plain version at the training
    shapes (K1/K4 [4096, 25, 64], K2/K3 [100, 32, 32, 64]), max |diff| <=
    5e-4 max |plain| per output, and times them;
-9. prints the `kernels` JSON line, the card's name and power limit, and
-   last `{"ok": true, "device": {...}}`.
+9. runs the same two scenes through the unfused per-op branch
+   (`fused=False`: LayerNorms, projections and FFNs as torch ops around the
+   attention kernels K7 and K5): within 1e-3 / 0.01 dB of the plain unfused
+   path (tiled torch attention) and of the fused kernel path, exactly 16
+   `ang_attn` and 16 `spa_attn_hp` launches a scene and none of the fused
+   blocks' kernels, and times a scene on both kernel paths;
+10. trains one step with `--train_fused false` through the per-op kernels
+    against the same step through the plain unfused path (the bounds of
+    step 7), repeats it bitwise, counts exactly 4 launches a step of each of
+    `ang_attn_res`, `ang_attn_bwd`, `spa_attn_hp_res`, `spa_attn_hp_bwd`,
+    and times 5 further steps;
+11. holds K7 and K5 (forward, forward with m and l, backward) against their
+    plain versions at the serving shapes (K7 [16384, 25, 64], K5
+    [400, 32, 32, 128]) and the training shapes ([4096, 25, 64],
+    [100, 32, 32, 128]), times them beside their bound and one
+    `scaled_dot_product_attention` call, and K5 in turns with K2's and K3's
+    window steps at the same shape;
+12. holds K7 against its plain version at A2 = 81 (9x9 views), and checks
+    that a training forward at angRes 9, which the fused backward kernel
+    does not take, runs the per-op branch on the card and matches the plain
+    path;
+13. prints the `kernels` JSON line, the card's name and power limit, and
+    last `{"ok": true, "device": {...}}`.
 
 Launch counts are per phase: the SR run must launch every forward kernel
-and no training kernel, the training run every training kernel.
+and no training kernel, the training run every training kernel, the per-op
+runs only the per-op kernels.
 
 Every check raises; the script exits non-zero on any failure, without a
 CUDA card, and when run outside the repository.
@@ -263,19 +285,23 @@ def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -
     return rec.rows
 
 
+PEROP_TRAIN = ("ang_attn_res", "ang_attn_bwd", "spa_attn_hp_res", "spa_attn_hp_bwd")
 
 
-def train_phase(params, seed: int):
+def train_phase(params, seed: int, unfused: bool = False):
     """The 4x recipe's train step through the kernels against the plain
-    blocks, its bitwise repeat, and a few more steps. Returns the launch
-    counts of the kernel-path steps and their number."""
+    path, its bitwise repeat, and a few more steps: the fused blocks against
+    their plain versions, or with `unfused` the per-op branch
+    (`--train_fused false`) against the same branch with the tiled torch
+    attention. Returns the launch counts of the kernel-path steps, their
+    number and the median ms of a kernel-path step."""
     import dataclasses
     import functools
 
     import torch
     from lft_torch.config import Args
     from lft_torch.data.device_synth import synth_batch
-    from lft_torch.kernels import LAUNCHES, TRAINING, reset_launches
+    from lft_torch.kernels import LAUNCHES, PEROP, TRAINING, reset_launches
     from lft_torch.models.lft import forward
     from lft_torch.registry import get_model
     from lft_torch.training.optim import make_optimizer
@@ -283,9 +309,11 @@ def train_phase(params, seed: int):
 
     dev = torch.device("cuda")
     args = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, lr=2e-4, n_steps=15,
-                gamma=0.5, epoch=50)
+                gamma=0.5, epoch=50, train_fused="false" if unfused else "auto")
     model = get_model(args)
-    plain_model = dataclasses.replace(model, apply=functools.partial(forward, plain_blocks=True))
+    plain_kw = dict(attention_impl="tiled") if unfused else dict(plain_blocks=True)
+    plain_model = dataclasses.replace(model, apply=functools.partial(forward, **plain_kw))
+    what = "per-op train" if unfused else "train"
     gen = torch.Generator(device=dev).manual_seed(seed)
     lr, hr = synth_batch(gen, batch=4, ang_res=5, patch=32, scale=4)
     print(f"train batch: lr {tuple(lr.shape)} hr {tuple(hr.shape)} (synth_batch, seed {seed})",
@@ -349,7 +377,7 @@ def train_phase(params, seed: int):
     n_steps = 3 + TRAIN_STEPS
 
     la, lp = float(loss_a), float(loss_p)
-    print(f"train step 1: loss kernels {la:.8f} plain {lp:.8f} (|d| {abs(la - lp):.3e}, "
+    print(f"{what} step 1: loss kernels {la:.8f} plain {lp:.8f} (|d| {abs(la - lp):.3e}, "
           f"limit 1e-5 |loss|); train PSNR {float(psnr_a):.4f} dB SSIM {float(ssim_a):.4f}",
           flush=True)
     if not abs(la - lp) <= 1e-5 * abs(lp):
@@ -361,11 +389,11 @@ def train_phase(params, seed: int):
         if not d <= lim:
             raise AssertionError(f"grad of {k}: max |kernel - plain| {d:.3e} > {lim:.3e}")
         worst = max(worst, (d / lim, k))
-    print(f"train step 1 (smooth loss): every grad within 5e-4 max|grad| + 2e-9 of the "
+    print(f"{what} step 1 (smooth loss): every grad within 5e-4 max|grad| + 2e-9 of the "
           f"plain path (worst {worst[1]} at {worst[0]:.3f} of its limit)", flush=True)
     if not same:
         raise AssertionError("a repeated kernel-path step is not bitwise equal")
-    print("train step repeated from the same state: loss, grads and params bitwise equal",
+    print(f"{what} step repeated from the same state: loss, grads and params bitwise equal",
           flush=True)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss in the further steps: {losses}")
@@ -381,14 +409,25 @@ def train_phase(params, seed: int):
         ev1.synchronize()
         p_times.append(ev0.elapsed_time(ev1))
     p_times.sort()
-    print(f"train steps: losses {losses}; median {ms_k:.3f} ms/step through the kernels "
+    print(f"{what} steps: losses {losses}; median {ms_k:.3f} ms/step through the kernels "
           f"(all {[round(t, 3) for t in times]}), {p_times[1]:.3f} ms/step through the plain "
-          f"blocks (all {[round(t, 3) for t in p_times]}); batch 4, 4x, C=64", flush=True)
-    print(f"launches in the training run ({n_steps} kernel-path steps): {counts}", flush=True)
-    missing = [k for k in TRAINING if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"training kernels not launched on the training path: {missing}")
-    return counts, n_steps
+          f"path (all {[round(t, 3) for t in p_times]}); batch 4, 4x, C=64", flush=True)
+    print(f"launches in the {what} run ({n_steps} kernel-path steps): {counts}", flush=True)
+    if unfused:
+        # one launch of each per-op training kernel per AltFilter block and step
+        wrong = {k: counts[k] for k in LAUNCHES
+                 if counts[k] != (4 * n_steps if k in PEROP_TRAIN else 0)}
+        if wrong:
+            raise AssertionError(f"per-op train steps: expected 4 launches a step of each of "
+                                 f"{PEROP_TRAIN} and no other kernel, got {wrong}")
+    else:
+        missing = [k for k in TRAINING if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"training kernels not launched on the training path: {missing}")
+        extra = [k for k in PEROP if counts[k]]
+        if extra:
+            raise AssertionError(f"per-op kernels launched by the fused train steps: {extra}")
+    return counts, n_steps, ms_k
 
 
 def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: int) -> list:
@@ -522,6 +561,254 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
     return rec.rows
 
 
+def perop_sr_phase(params, args, scenes, fused_cache, fused_psnr: float):
+    """The two scenes through the unfused per-op branch, against the plain
+    unfused path and the fused kernel path. Returns the launch counts of
+    the per-op run."""
+    import time
+
+    import torch
+    from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
+    from lft_torch.kernels import LAUNCHES, reset_launches
+    from lft_torch.models.lft import forward
+
+    dev = torch.device("cuda")
+    n = len(scenes)
+    perop = ScenePipelineCache(forward, args, eval_batch=16, fused=False)
+    tiled = ScenePipelineCache(forward, args, eval_batch=16, fused=False, attention_impl="tiled")
+    torch.cuda.synchronize()
+    reset_launches()
+    psnr, ssim, _ = evaluate_dataset(forward, params, args, scenes, cache=perop)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    print(f"per-op SR: PSNR {psnr:.6f} dB SSIM {ssim:.6f}; launches {counts}", flush=True)
+    wrong = {k: c for k, c in counts.items()
+             if c != (16 * n if k in ("ang_attn", "spa_attn_hp") else 0)}
+    if wrong:
+        raise AssertionError(f"per-op SR: expected 16 ang_attn and 16 spa_attn_hp launches a "
+                             f"scene and no other kernel, got {wrong}")
+    t_psnr, _, _ = evaluate_dataset(forward, params, args, scenes, cache=tiled)
+    d_tiled = d_fused = 0.0
+    for lr, _ in scenes:
+        lr_t = torch.from_numpy(lr).to(dev)
+        sr = perop(params, lr_t)
+        if sr.shape != (lr.shape[0] * 4, lr.shape[1] * 4) or not torch.isfinite(sr).all():
+            raise AssertionError(f"bad per-op SR mosaic {tuple(sr.shape)}")
+        d_tiled = max(d_tiled, float((sr - tiled(params, lr_t)).abs().max()))
+        d_fused = max(d_fused, float((sr - fused_cache(params, lr_t)).abs().max()))
+    print(f"per-op kernel path vs plain unfused path: max |SR diff| {d_tiled:.3e} (limit 1e-3), "
+          f"dPSNR {psnr - t_psnr:+.3e} dB (limit 0.01); vs the fused kernel path: max |SR diff| "
+          f"{d_fused:.3e}, dPSNR {psnr - fused_psnr:+.3e} dB", flush=True)
+    if max(d_tiled, d_fused) > 1e-3 or max(abs(psnr - t_psnr), abs(psnr - fused_psnr)) > 0.01:
+        raise AssertionError("the per-op kernel path disagrees with the plain or the fused path")
+
+    def ms_scene(cache):
+        times = []
+        for lr, _ in scenes * 2:
+            lr_t = torch.from_numpy(lr).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache(params, lr_t)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2]
+
+    a, b = ms_scene(perop), ms_scene(fused_cache)
+    print(f"scene SR, median of {2 * n} steady-state scenes: {a:.2f} ms/scene per-op kernels, "
+          f"{b:.2f} ms/scene fused kernels, {ms_scene(tiled):.2f} ms/scene plain unfused",
+          flush=True)
+    return counts
+
+
+def perop_kernel_checks(card: str, sr_counts: dict, n_scenes: int, train_counts: dict,
+                        n_steps: int, seed: int) -> list:
+    """K7 and K5 against their plain versions: the primal at the serving
+    shapes, the forward with (m, l) and the backward at the training shapes;
+    then K5 in turns with K2's and K3's window steps at the same shapes."""
+    import torch
+    import torch.nn.functional as F
+    from lft_torch.kernels import ang_attn_mxu as am
+    from lft_torch.kernels import spa_attn_hp as hp
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.ops.attention import local_window_mask
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    rand = lambda *s_: torch.randn(*s_, device=dev, generator=g)
+    C, A2, h, w, H, K = 64, 25, 32, 32, 8, 5
+    E = 2 * C
+    src_a, src_s = "lft_torch/csrc/ang_attn.cu", "lft_torch/csrc/spa_attn_hp.cu"
+    mask = torch.from_numpy(local_window_mask(h, w, K) == 0).to(dev)
+    rows = []
+    for serving in (True, False):
+        rec = (Recorder(card, sr_counts, n_scenes, "scene") if serving
+               else Recorder(card, train_counts, n_steps, "train step"))
+        patches = 16 if serving else 4
+        N, V = patches * h * w, patches * A2
+
+        # K7
+        q, k, v = rand(N, A2, C), rand(N, A2, C), rand(N, A2, C)
+        ref = am.ang_attention_blockdiag_plain(q, k, v, H)
+        heads = lambda t: t.reshape(N, A2, H, C // H).transpose(1, 2)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+        fl = 4 * N * A2 * A2 * C
+        if serving:
+            rec.record("ang_attn", src_a, "lft_tpu/kernels/ang_attn_mxu.py:234",
+                       am.ang_attn_fwd(q, k, v, H), ref[0], lambda: am.ang_attn_fwd(q, k, v, H),
+                       lambda: am.ang_attention_blockdiag_plain(q, k, v, H), fl,
+                       nbytes(q, k, v, ref[0]), lib_fn=sdpa)
+        else:
+            rec.record("ang_attn_res", src_a, "lft_tpu/kernels/ang_attn_mxu.py:244",
+                       am.ang_attn_fwd(q, k, v, H, True), ref,
+                       lambda: am.ang_attn_fwd(q, k, v, H, True),
+                       lambda: am.ang_attention_blockdiag_plain(q, k, v, H), fl,
+                       nbytes(q, k, v, *ref), lib_fn=sdpa)
+            _, m, l = ref
+            dout = rand(N, A2, C)
+            ref = am.ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, H)
+            rec.record("ang_attn_bwd", src_a, "lft_tpu/kernels/ang_attn_mxu.py:289",
+                       am.ang_attn_bwd(q, k, v, m, l, dout, H), ref,
+                       lambda: am.ang_attn_bwd(q, k, v, m, l, dout, H),
+                       lambda: am.ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, H),
+                       10 * N * A2 * A2 * C, nbytes(q, k, v, dout, m, l, *ref), rel=TRAIN_REL)
+        del q, k, v, ref, qh, kh, vh
+
+        # K5
+        q, k, v = rand(V, h, w, E), rand(V, h, w, E), rand(V, h, w, E)
+        ref = hp.windowed_attention_headpacked_plain(q, k, v, H, K)
+        pairs = V * valid_window_pairs(h, w, K // 2)
+        heads = lambda t: t.reshape(V, h * w, H, E // H).transpose(1, 2)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        if serving:
+            rec.record("spa_attn_hp", src_s, "lft_tpu/kernels/spa_attn_hp.py:419",
+                       hp.spa_attn_hp_fwd(q, k, v, H, K), ref[0],
+                       lambda: hp.spa_attn_hp_fwd(q, k, v, H, K),
+                       lambda: hp.windowed_attention_headpacked_plain(q, k, v, H, K),
+                       4 * E * pairs, nbytes(q, k, v, ref[0]), lib_fn=sdpa)
+            turns = [("K5 spa_attn_hp", lambda: hp.spa_attn_hp_fwd(q, k, v, H, K)),
+                     ("K2.3 spa_window_attn", lambda: sb.window_attn(q, k, v, H, K))]
+        else:
+            rec.record("spa_attn_hp_res", src_s, "lft_tpu/kernels/spa_attn_hp.py:433",
+                       hp.spa_attn_hp_fwd(q, k, v, H, K, True), ref,
+                       lambda: hp.spa_attn_hp_fwd(q, k, v, H, K, True),
+                       lambda: hp.windowed_attention_headpacked_plain(q, k, v, H, K),
+                       4 * E * pairs, nbytes(q, k, v, *ref), lib_fn=sdpa)
+            out, m, l = ref
+            dout = rand(V, h, w, E)
+            ref = hp.windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout, H, K)
+            rec.record("spa_attn_hp_bwd", src_s, "lft_tpu/kernels/spa_attn_hp.py:514",
+                       hp.spa_attn_hp_bwd(q, k, v, m, l, dout, H, K), ref,
+                       lambda: hp.spa_attn_hp_bwd(q, k, v, m, l, dout, H, K),
+                       lambda: hp.windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout,
+                                                                          H, K),
+                       10 * E * pairs, nbytes(q, k, v, dout, m, l, *ref), rel=TRAIN_REL)
+            turns = [("K5 spa_attn_hp_bwd", lambda: hp.spa_attn_hp_bwd(q, k, v, m, l, dout, H, K)),
+                     ("K3.c spa_window_attn_bwd",
+                      lambda: sb.window_attn_bwd(q, k, v, out, dout, m, l, H, K))]
+        # all heads of a tile in one block (K5) against one block per head
+        # (K2.3, K3.c), the same function at the same shape, in turns
+        (na, fa), (nb, fb) = turns
+        ta, tb, tb2, ta2 = timed(fa), timed(fb), timed(fb), timed(fa)
+        print(f"at {[V, h, w, E]}: {na} {ta:.4f} / {ta2:.4f} ms, {nb} {tb:.4f} / {tb2:.4f} ms "
+              f"(turns a b b a, median of 10 each)", flush=True)
+        rows += rec.rows
+    return rows
+
+
+def angres9_phase(params, seed: int) -> None:
+    """K7 at A2 = 81 against its plain version, and the dispatch of a
+    training forward at angRes 9 (the demo checkpoint's weights do not
+    depend on the view count): the fused backward kernel takes A2 <= 64, so
+    the forward runs the per-op branch, launches say so, and its gradients
+    match the plain unfused path's; inference at angRes 9 stays fused.
+
+    The gradient bound is that of the train steps, 5e-4 max|grad| + 2e-9,
+    with one allowance: a 9x9-view batch of this size has a fifth of the
+    recipe batch's tokens, and the smallest gradients (the attentions'
+    pre-norms, sums that nearly cancel) then differ by more than that
+    between two PLAIN f32 paths, the unfused branch with the tiled torch
+    attention and the fused branch's plain blocks. So both plain paths run,
+    and where their own difference is larger a gradient is held to twice
+    that difference instead."""
+    import torch
+    from lft_torch.config import Args
+    from lft_torch.data.device_synth import synth_batch
+    from lft_torch.kernels import LAUNCHES, reset_launches
+    from lft_torch.kernels import ang_attn_mxu as am
+    from lft_torch.models.lft import forward
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    N, A2, C, H = 1024, 81, 64, 8
+    q, k, v, dout = (torch.randn(N, A2, C, device=dev, generator=g) for _ in range(4))
+    ref = am.ang_attention_blockdiag_plain(q, k, v, H)
+    e_f, ok_f = max_err(am.ang_attn_fwd(q, k, v, H, True), ref)
+    _, m, l = ref
+    e_b, ok_b = max_err(am.ang_attn_bwd(q, k, v, m, l, dout, H),
+                        am.ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, H), TRAIN_REL)
+    ms_f = timed(lambda: am.ang_attn_fwd(q, k, v, H, True))
+    ms_b = timed(lambda: am.ang_attn_bwd(q, k, v, m, l, dout, H))
+    print(f"K7 at A2 = 81 [{N}, 81, 64]: forward with stats max_abs_err {e_f:.3e} "
+          f"({ms_f:.4f} ms), backward {e_b:.3e} ({ms_b:.4f} ms)", flush=True)
+    if not (ok_f and ok_b):
+        raise AssertionError("K7 at A2 = 81 disagrees with its plain version")
+
+    args = Args(angRes=9, scale_factor=4, channels=64)
+    lr, hr = synth_batch(g, batch=4, ang_res=9, patch=16, scale=4)
+    p = {k_: t.detach().clone().requires_grad_(True) for k_, t in params.items()}
+
+    def grads(**kw):
+        sr = forward(p, lr, args, **kw)
+        loss = ((sr - hr) * torch.cos(3.0 * (sr - hr))).mean()
+        return sr.detach(), torch.autograd.grad(loss, list(p.values()))
+
+    torch.cuda.synchronize()
+    reset_launches()
+    sr_k, g_k = grads()
+    torch.cuda.synchronize()
+    counts = {k_: c for k_, c in LAUNCHES.items() if c}
+    print(f"training forward and backward at angRes 9 (A2 = 81, 16x16 views): launches {counts}",
+          flush=True)
+    if counts != {k_: 4 for k_ in PEROP_TRAIN}:
+        raise AssertionError("a training forward at angRes 9 must run the per-op branch: 4 "
+                             f"launches of each of {PEROP_TRAIN} and no other, got {counts}")
+    sr_p, g_p = grads(fused=False, attention_impl="tiled")
+    _, g_d = grads(plain_blocks=True)
+    d_sr = float((sr_k - sr_p).abs().max())
+    worst, floored = (0.0, ""), []
+    for name, a, b, c in zip(p, g_k, g_p, g_d):
+        d = float((a - b).abs().max())
+        bound = 5e-4 * float(b.abs().max()) + 2e-9
+        floor = 2.0 * float((c - b).abs().max())
+        if floor > bound:
+            floored.append(name)
+        lim = max(bound, floor)
+        if not d <= lim:
+            raise AssertionError(f"angRes 9, grad of {name}: max |kernel - plain| {d:.3e} > "
+                                 f"{lim:.3e} (bound {bound:.3e}, twice the plain paths' own "
+                                 f"difference {floor:.3e})")
+        worst = max(worst, (d / lim, name))
+    print(f"angRes 9: max |SR diff| to the plain unfused path {d_sr:.3e} (limit 1e-4), every "
+          f"grad within 5e-4 max|grad| + 2e-9 or twice the difference of the two plain paths "
+          f"(worst {worst[1]} at {worst[0]:.3f} of its limit; {len(floored)} of {len(g_k)} "
+          f"held to the plain paths' difference: {floored})", flush=True)
+    if d_sr > 1e-4:
+        raise AssertionError("angRes 9: the per-op forward disagrees with the plain path")
+    with torch.no_grad():
+        reset_launches()
+        sr_i = forward(p, lr, args)
+        torch.cuda.synchronize()
+        if LAUNCHES["ang_block"] != 4 or LAUNCHES["ang_attn"]:
+            raise AssertionError(f"inference at angRes 9 must stay fused: {dict(LAUNCHES)}")
+        d_i = float((sr_i - sr_p).abs().max())
+    print(f"inference at angRes 9 stays on the fused kernels (4 ang_block launches), max |SR "
+          f"diff| to the plain unfused path {d_i:.3e} (limit 1e-4)", flush=True)
+    if d_i > 1e-4:
+        raise AssertionError("angRes 9: the fused forward disagrees with the plain path")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -545,7 +832,7 @@ def main(argv=None) -> int:
     from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
-    from lft_torch.kernels import FORWARD, LAUNCHES, TRAINING, build_all, reset_launches
+    from lft_torch.kernels import FORWARD, LAUNCHES, PEROP, TRAINING, build_all, reset_launches
     from lft_torch.models.lft import forward
     from lft_torch.ops.bicubic import bicubic_upscale_views
     from lft_torch.ops.metrics import cal_metrics
@@ -587,9 +874,9 @@ def main(argv=None) -> int:
     missing = [k for k in FORWARD if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    extra = [k for k in TRAINING if counts[k]]
+    extra = [k for k in TRAINING + PEROP if counts[k]]
     if extra:
-        raise AssertionError(f"training kernels launched by the SR run: {extra}")
+        raise AssertionError(f"training or per-op kernels launched by the SR run: {extra}")
 
     bic = [cal_metrics(torch.from_numpy(hr).to(dev),
                        bicubic_upscale_views(torch.from_numpy(lr).to(dev), 5, 4), 5)
@@ -619,10 +906,20 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     t0 = time.time()
-    train_counts, n_steps = train_phase(params, a.seed)
+    train_counts, n_steps, ms_fused = train_phase(params, a.seed)
     rows += train_kernel_checks(params, card, train_counts, n_steps, a.seed)
     torch.cuda.synchronize()
     print(f"training phase: {time.time() - t0:.1f} s", flush=True)
+
+    t0 = time.time()
+    sr_counts = perop_sr_phase(params, args, scenes, cache, psnr)
+    perop_counts, n_steps, ms_perop = train_phase(params, a.seed, unfused=True)
+    print(f"train step, medians: {ms_perop:.3f} ms through the per-op kernels, {ms_fused:.3f} ms "
+          f"through the fused blocks' kernels", flush=True)
+    rows += perop_kernel_checks(card, sr_counts, n_scenes, perop_counts, n_steps, a.seed)
+    angres9_phase(params, a.seed)
+    torch.cuda.synchronize()
+    print(f"per-op phases: {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

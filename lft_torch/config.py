@@ -52,10 +52,14 @@ class Args:
     ckpt_format: str = "npz"          # npz (with Adam state) | pth (reference)
     lr_schedule: str = "step"         # step (reference StepLR) | cosine
     log_every: int = 0                # per-iteration log line every N (0: off)
+    attention_impl: str = "auto"      # auto | dense | tiled | pallas: the unfused
+                                      # branch's attention; pallas = the per-op
+                                      # kernels (K7, K5), auto = pallas on CUDA
     train_fused: str = "auto"         # auto | true | false: train through the
                                       # fused blocks (K1-K4); auto = on CUDA.
                                       # true on the CPU runs their plain
-                                      # versions through the autograd Functions
+                                      # versions through the autograd Functions;
+                                      # false trains the unfused per-op branch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,6 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr_schedule", type=str, default=d.lr_schedule,
                    choices=["step", "cosine"])
     p.add_argument("--log_every", type=int, default=d.log_every)
+    p.add_argument("--attention_impl", type=str, default=d.attention_impl,
+                   choices=["auto", "dense", "tiled", "pallas"])
     p.add_argument("--train_fused", type=str, default=d.train_fused,
                    choices=["auto", "true", "false"])
     return p

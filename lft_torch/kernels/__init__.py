@@ -1,11 +1,11 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
 `LAUNCHES` counts each kernel's launches; `reset_launches()` zeroes them.
-`FORWARD` names the kernels of the SR forward, `TRAINING` those that only a
-train step launches.
+`FORWARD` names the kernels of the fused SR forward, `TRAINING` those that
+only a fused train step launches, `PEROP` those of the unfused per-op branch.
 """
 
-from lft_torch.kernels._build import (FORWARD, LAUNCHES, TRAINING, build_all,
+from lft_torch.kernels._build import (FORWARD, LAUNCHES, PEROP, TRAINING, build_all,
                                       reset_launches)
 
-__all__ = ["FORWARD", "LAUNCHES", "TRAINING", "build_all", "reset_launches"]
+__all__ = ["FORWARD", "LAUNCHES", "PEROP", "TRAINING", "build_all", "reset_launches"]

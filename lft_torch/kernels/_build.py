@@ -24,7 +24,7 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("ang_block", "spa_block", "spa_block_bwd", "wgrad")
+SOURCES = ("ang_block", "spa_block", "spa_block_bwd", "wgrad", "ang_attn", "spa_attn_hp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,9 +36,14 @@ FORWARD = ("ang_block", "spa_tokenize_ln", "spa_qkv", "spa_window_attn",
 TRAINING = ("ang_block_res", "spa_window_attn_res", "ang_block_bwd", "spa_ffn_out_bwd",
             "spa_ln_qkv", "spa_window_attn_bwd", "spa_qkv_ln_bwd", "spa_tokenize_bwd",
             "wgrad", "colsum")
+# The kernels of the unfused per-op branch: K7 (angular attention) and K5
+# (window attention), each as the primal, with the residuals (m, l) of the
+# backward, and the backward.
+PEROP = ("ang_attn", "ang_attn_res", "ang_attn_bwd", "spa_attn_hp", "spa_attn_hp_res",
+         "spa_attn_hp_bwd")
 
 # kernel name -> launches since the last reset
-LAUNCHES = {name: 0 for name in FORWARD + TRAINING}
+LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP}
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -1,0 +1,154 @@
+"""K7: per-op angular attention on projected q/k/v (counterpart of
+lft_tpu/kernels/ang_attn_mxu.py).
+
+`ang_attention_blockdiag(q, k, v, num_heads)` is full multi-head attention
+over the A2 view tokens of each pixel, [N, A2, C] -> [N, A2, C], scale
+(C / heads)^-0.5 inside. On a CUDA tensor it launches the hand-written
+kernels of `lft_torch/csrc/ang_attn.cu`; on a CPU tensor it runs the plain
+PyTorch versions below. There is no fallback from one to the other.
+
+Training: when grad mode is on and q, k or v requires grad it runs as
+`AngAttnFn`, whose forward also returns the per-(token, head) softmax max m
+and denominator l (`ang_attn_res`) and saves only (q, k, v, m, l); the
+backward (`ang_attn_bwd`) rebuilds the probabilities from them.
+
+`ang_attention_mxu` is the AngTrans attention around it: the q/k/v and out
+projections as `torch.matmul`, as the JAX package leaves them to XLA. The
+JAX module's name is kept; what made it "MXU" (keys replicated per head,
+the block-diagonal mask over a group of pixels, pixel pairs) is the TPU's
+and is not carried over. Its gate is: `mxu_applicable(A2)` iff A2 <= 128.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from lft_torch.kernels import _build
+from lft_torch.kernels.ang_block import _heads, _merge, _needs_grad
+
+BLK = 128          # the gate's key block: A2 <= 128 view tokens per pixel
+KERNEL_C = (16, 32, 64)
+
+
+def mxu_applicable(A2: int) -> bool:
+    """Same outcome as lft_tpu.kernels.ang_attn_mxu.mxu_applicable."""
+    return A2 <= BLK
+
+
+# --------------------------------------------------------- plain versions ---
+
+def ang_attention_blockdiag_plain(q, k, v, num_heads: int):
+    """Plain version of K7's forward with stats: (out [N, A2, C], m, l
+    [N, A2, H]), m the row max of the scaled scores and l the sum of
+    exp(s - m), per token and head."""
+    dh = q.shape[-1] // num_heads
+    s = (_heads(q, num_heads) * float(dh) ** -0.5) @ _heads(k, num_heads).transpose(-1, -2)
+    m = s.amax(-1)                                            # [N, H, A2]
+    e = torch.exp(s - m[..., None])
+    l = e.sum(-1)
+    out = _merge((e / l[..., None]) @ _heads(v, num_heads))
+    return out.contiguous(), m.transpose(1, 2).contiguous(), l.transpose(1, 2).contiguous()
+
+
+def ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, num_heads: int):
+    """Plain version of K7's backward: (dq, dk, dv) from (q, k, v, m, l,
+    dout), the identities written out (ds = p (dp - sum_j p dp))."""
+    H = num_heads
+    scale = float(q.shape[-1] // H) ** -0.5
+    qh = _heads(q, H) * scale
+    kh, vh, doh = _heads(k, H), _heads(v, H), _heads(dout, H)
+    p = torch.exp(qh @ kh.transpose(-1, -2) - m.transpose(1, 2)[..., None]) \
+        / l.transpose(1, 2)[..., None]                        # [N, H, A2, A2]
+    dp = doh @ vh.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    return (_merge(ds @ kh).contiguous() * scale, _merge(ds.transpose(-1, -2) @ qh).contiguous(),
+            _merge(p.transpose(-1, -2) @ doh).contiguous())
+
+
+# -------------------------------------------------------- kernel wrappers ---
+
+def _check_shape(kernel: str, q, num_heads: int) -> None:
+    if q.dim() != 3 or q.shape[-1] not in KERNEL_C or num_heads != 8 \
+            or not mxu_applicable(q.shape[1]):
+        raise NotImplementedError(
+            f"{kernel} kernel takes [N, A2, C] tokens with C in {KERNEL_C}, 8 heads and "
+            f"A2 <= {BLK}; got shape {tuple(q.shape)}, heads={num_heads}")
+
+
+def ang_attn_fwd(q, k, v, num_heads: int, with_stats: bool = False):
+    """K7's forward: the CUDA kernel for CUDA tensors (`ang_attn`, or
+    `ang_attn_res` with stats), the plain version for CPU tensors.
+    with_stats: (out, m, l), else out."""
+    if q.device.type != "cuda":
+        out, m, l = ang_attention_blockdiag_plain(q, k, v, num_heads)
+        return (out, m, l) if with_stats else out
+    name = "ang_attn_res" if with_stats else "ang_attn"
+    _check_shape(name, q, num_heads)
+    _build.check_cuda_args(name, q, k, v)
+    N, A2, C = q.shape
+    out = torch.empty_like(q)
+    tail = (N, A2, C, num_heads, float(C // num_heads) ** -0.5)
+    types = (ctypes.c_int,) * 4 + (ctypes.c_float,)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if not with_stats:
+        fn = _build.bind("ang_attn", "lft_ang_attn", 4, types)
+        _build.launch("ang_attn", name, fn, q.device, *ptrs, *tail)
+        return out
+    m = torch.empty(N, A2, num_heads, device=q.device)
+    l = torch.empty_like(m)
+    fn = _build.bind("ang_attn", "lft_ang_attn_res", 6, types)
+    _build.launch("ang_attn", name, fn, q.device, *ptrs, m.data_ptr(), l.data_ptr(), *tail)
+    return out, m, l
+
+
+def ang_attn_bwd(q, k, v, m, l, dout, num_heads: int):
+    """K7's backward (`ang_attn_bwd`): (dq, dk, dv) [N, A2, C]."""
+    if q.device.type != "cuda":
+        return ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, num_heads)
+    _check_shape("ang_attn_bwd", q, num_heads)
+    _build.check_cuda_args("ang_attn_bwd", q, k, v, dout, m, l)
+    N, A2, C = q.shape
+    outs = tuple(torch.empty_like(q) for _ in range(3))
+    fn = _build.bind("ang_attn", "lft_ang_attn_bwd", 9, (ctypes.c_int,) * 4 + (ctypes.c_float,))
+    _build.launch("ang_attn", "ang_attn_bwd", fn, q.device,
+                  *(t.data_ptr() for t in (q, k, v, dout, m, l, *outs)),
+                  N, A2, C, num_heads, float(C // num_heads) ** -0.5)
+    return outs
+
+
+class AngAttnFn(torch.autograd.Function):
+    """K7 with stats forward, K7's backward; saves (q, k, v, m, l)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        out, m, l = ang_attn_fwd(q, k, v, num_heads, with_stats=True)
+        ctx.save_for_backward(q, k, v, m, l)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, m, l = ctx.saved_tensors
+        return (*ang_attn_bwd(q, k, v, m, l, dout.contiguous(), ctx.num_heads), None)
+
+
+def ang_attention_blockdiag(q, k, v, num_heads: int):
+    """Differentiable attention over the view axis of projected [N, A2, C]
+    q/k/v."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _needs_grad(q, k, v):
+        return AngAttnFn.apply(q, k, v, num_heads)
+    return ang_attn_fwd(q, k, v, num_heads)
+
+
+def ang_attention_mxu(qn, v, in_proj_weight, out_proj_weight, num_heads: int):
+    """Drop-in for the AngTrans MHSA (q = k from the normed tokens `qn`, v
+    from the raw ones; torch-packed projections) on [..., A2, C] tokens.
+    Requires `mxu_applicable(A2)`."""
+    *lead, A2, C = qn.shape
+    wq, wk, wv = in_proj_weight.chunk(3, dim=0)
+    out = ang_attention_blockdiag((qn @ wq.T).reshape(-1, A2, C), (qn @ wk.T).reshape(-1, A2, C),
+                                  (v @ wv.T).reshape(-1, A2, C), num_heads)
+    return out.reshape(*lead, A2, C) @ out_proj_weight.T

@@ -41,6 +41,16 @@ def ang_block_applicable(A2: int) -> bool:
     return A2 <= BLK
 
 
+def ang_block_trainable(A2: int, device_type: str) -> bool:
+    """Whether the fused block can run FORWARD AND BACKWARD at this view
+    count on this kind of device. The backward kernel K4 owns `BWD_ROWS`
+    token rows a block, so on CUDA it takes A2 <= 64 where the forward K1
+    and the gate take A2 <= 128; the plain versions (CPU tensors) take every
+    gated A2. A caller that trains sends a geometry that fails this to the
+    unfused branch, as it sends one that fails `ang_block_applicable`."""
+    return ang_block_applicable(A2) and (device_type != "cuda" or A2 <= BWD_ROWS)
+
+
 def ang_weights(params, prefix: str) -> dict:
     """Param dict -> the block's weights in `x @ W` layouts, contiguous."""
     wq, wk, wv = params[prefix + "attention.in_proj_weight"].chunk(3, dim=0)

@@ -1,0 +1,222 @@
+"""K5: per-op 5x5-window attention of projected q/k/v images, all heads of
+a query tile in one block (counterpart of lft_tpu/kernels/spa_attn_hp.py).
+
+`windowed_attention_headpacked(q, k, v, num_heads, ksize)` maps projected
+[B, h, w, E] images to the attention output [B, h, w, E]: every pixel
+attends, per head, to the keys of its ksize x ksize window that lie inside
+the image (scale (E / heads)^-0.5 inside). On a CUDA tensor it launches the
+hand-written kernels of `lft_torch/csrc/spa_attn_hp.cu`; on a CPU tensor it
+runs the plain PyTorch versions below. There is no fallback from one to the
+other.
+
+Training: when grad mode is on and q, k or v requires grad it runs as
+`SpaAttnHpFn`, whose forward also returns the per-(pixel, head) softmax max
+m and denominator l (`spa_attn_hp_res`) and saves only (q, k, v, m, l); the
+backward (`spa_attn_hp_bwd`) rebuilds the probabilities from them.
+
+`headpacked_applicable` decides the dispatch exactly as the JAX package's
+does (its tile search is the TPU's; the port keeps its outcome, so both
+packages send a geometry to the same kernel). The CUDA kernels themselves
+take any h and w.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from lft_torch.kernels import _build
+from lft_torch.kernels.ang_block import _needs_grad
+
+# The JAX gate's geometry limits (lft_tpu/kernels/spa_attn_hp.py:65-67):
+# the port keeps their outcome, not their TPU meaning.
+_MAX_NQ = 128
+_MAX_WIDTH = 4096
+_MAX_TILES = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _hp_geometry_exists(h: int, w: int, num_heads: int, k: int) -> bool:
+    """True iff lft_tpu's `pick_hp_geometry(h, w, num_heads, k)` finds a
+    tile (its free search, without the LFT_HP_* overrides)."""
+    r = k // 2
+    g = int(np.gcd(num_heads, 128))
+    align = int(np.lcm(128 // g, 16))
+    for th in (d for d in range(1, h + 1) if h % d == 0):
+        for tw in (d for d in range(1, w + 1) if w % d == 0):
+            nq = th * tw
+            n_tiles = (h // th) * (w // tw)
+            nk = (th + 2 * r) * (tw + 2 * r)
+            for kb in {-(-nk // align) * align, -(-nk // 128) * 128}:
+                if (kb >= nk and kb % align == 0 and nq <= _MAX_NQ
+                        and n_tiles <= _MAX_TILES and num_heads * kb <= _MAX_WIDTH):
+                    return True
+    return False
+
+
+def headpacked_applicable(h: int, w: int, E: int, num_heads: int, k: int) -> bool:
+    """Same outcome as lft_tpu.kernels.spa_attn_hp.headpacked_applicable."""
+    if E % num_heads:
+        return False
+    return _hp_geometry_exists(h, w, num_heads, k)
+
+
+# --------------------------------------------------------- plain versions ---
+
+def _window_offsets(ksize: int):
+    r = ksize // 2
+    return [(dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _window_valid(h: int, w: int, ksize: int) -> np.ndarray:
+    """[h, w, k*k] bool: key offset j of the query at (y, x) lies in the image."""
+    yy, xx = np.arange(h)[:, None], np.arange(w)[None, :]
+    return np.stack([(yy + dy >= 0) & (yy + dy < h) & (xx + dx >= 0) & (xx + dx < w)
+                     for dy, dx in _window_offsets(ksize)], axis=-1)
+
+
+def _gather_window(t: torch.Tensor, ksize: int) -> torch.Tensor:
+    """[B, h, w, E] -> [B, h, w, k*k, E]: each pixel's window, zero outside."""
+    r = ksize // 2
+    B, h, w, E = t.shape
+    tp = F.pad(t, (0, 0, r, r, r, r))
+    return torch.stack([tp[:, r + dy:r + dy + h, r + dx:r + dx + w]
+                        for dy, dx in _window_offsets(ksize)], dim=3)
+
+
+def _scatter_window(tw: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Adjoint of `_gather_window`: [B, h, w, k*k, E] -> [B, h, w, E]."""
+    r = ksize // 2
+    B, h, w, _, E = tw.shape
+    out = tw.new_zeros(B, h + 2 * r, w + 2 * r, E)
+    for j, (dy, dx) in enumerate(_window_offsets(ksize)):
+        out[:, r + dy:r + dy + h, r + dx:r + dx + w] += tw[:, :, :, j]
+    return out[:, r:r + h, r:r + w].contiguous()
+
+
+def _window_probs(q, k, num_heads: int, ksize: int, m=None, l=None):
+    """Softmax probabilities [B, h, w, k*k, H] of the window attention and
+    the scaled heads of q [B, h, w, H, dh]; from the saved (m, l) where
+    given, else computed (then also returned)."""
+    B, h, w, E = q.shape
+    dh = E // num_heads
+    qh = q.reshape(B, h, w, num_heads, dh) * float(dh) ** -0.5
+    kw = _gather_window(k, ksize).reshape(B, h, w, -1, num_heads, dh)
+    s = torch.einsum("byxhd,byxjhd->byxjh", qh, kw)
+    valid = torch.from_numpy(_window_valid(h, w, ksize)).to(q.device)[..., None]
+    s = s.masked_fill(~valid, float("-inf"))
+    if m is None:
+        m = s.amax(3)
+        l = torch.exp(s - m[:, :, :, None]).sum(3)
+    return torch.exp(s - m[:, :, :, None]) / l[:, :, :, None], qh, m, l
+
+
+def windowed_attention_headpacked_plain(q, k, v, num_heads: int, ksize: int):
+    """Plain version of K5's forward with stats: (out, m, l), m and l
+    [B, h, w, H] per pixel and head."""
+    B, h, w, E = q.shape
+    p, _, m, l = _window_probs(q, k, num_heads, ksize)
+    vw = _gather_window(v, ksize).reshape(B, h, w, -1, num_heads, E // num_heads)
+    out = torch.einsum("byxjh,byxjhd->byxhd", p, vw).reshape(B, h, w, E)
+    return out.contiguous(), m.contiguous(), l.contiguous()
+
+
+def windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout, num_heads: int, ksize: int):
+    """Plain version of K5's backward: (dq, dk, dv) from (q, k, v, m, l,
+    dout), the identities written out (ds = p (dp - sum_j p dp))."""
+    B, h, w, E = q.shape
+    H, dh = num_heads, E // num_heads
+    p, qh, _, _ = _window_probs(q, k, H, ksize, m, l)
+    doh = dout.reshape(B, h, w, H, dh)
+    vw = _gather_window(v, ksize).reshape(B, h, w, -1, H, dh)
+    kw = _gather_window(k, ksize).reshape(B, h, w, -1, H, dh)
+    dp = torch.einsum("byxhd,byxjhd->byxjh", doh, vw)
+    ds = p * (dp - (p * dp).sum(3, keepdim=True))
+    dq = torch.einsum("byxjh,byxjhd->byxhd", ds, kw) * float(dh) ** -0.5
+    dkw = torch.einsum("byxjh,byxhd->byxjhd", ds, qh)
+    dvw = torch.einsum("byxjh,byxhd->byxjhd", p, doh)
+    return (dq.reshape(B, h, w, E).contiguous(),
+            _scatter_window(dkw.reshape(B, h, w, -1, E), ksize),
+            _scatter_window(dvw.reshape(B, h, w, -1, E), ksize))
+
+
+# -------------------------------------------------------- kernel wrappers ---
+
+def _check_shape(kernel: str, q, num_heads: int, ksize: int) -> None:
+    E = q.shape[-1]
+    if q.dim() != 4 or num_heads != 8 or ksize != 5 or E % num_heads \
+            or E // num_heads not in (4, 8, 16):
+        raise NotImplementedError(
+            f"{kernel} kernel takes [B, h, w, E] images, 8 heads of width 4, 8 or 16 and a "
+            f"5x5 window; got shape {tuple(q.shape)}, heads={num_heads}, k={ksize}")
+
+
+def spa_attn_hp_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
+    """K5's forward: the CUDA kernel for CUDA tensors (`spa_attn_hp`, or
+    `spa_attn_hp_res` with stats), the plain version for CPU tensors.
+    with_stats: (out, m, l), else out."""
+    if q.device.type != "cuda":
+        out, m, l = windowed_attention_headpacked_plain(q, k, v, num_heads, ksize)
+        return (out, m, l) if with_stats else out
+    name = "spa_attn_hp_res" if with_stats else "spa_attn_hp"
+    _check_shape(name, q, num_heads, ksize)
+    _build.check_cuda_args(name, q, k, v)
+    B, h, w, E = q.shape
+    out = torch.empty_like(q)
+    tail = (B, h, w, E, num_heads, float(E // num_heads) ** -0.5)
+    types = (ctypes.c_int,) * 5 + (ctypes.c_float,)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if not with_stats:
+        fn = _build.bind("spa_attn_hp", "lft_spa_attn_hp", 4, types)
+        _build.launch("spa_attn_hp", name, fn, q.device, *ptrs, *tail)
+        return out
+    m = torch.empty(B, h, w, num_heads, device=q.device)
+    l = torch.empty_like(m)
+    fn = _build.bind("spa_attn_hp", "lft_spa_attn_hp_res", 6, types)
+    _build.launch("spa_attn_hp", name, fn, q.device, *ptrs, m.data_ptr(), l.data_ptr(), *tail)
+    return out, m, l
+
+
+def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int):
+    """K5's backward (`spa_attn_hp_bwd`): (dq, dk, dv) [B, h, w, E]."""
+    if q.device.type != "cuda":
+        return windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout, num_heads, ksize)
+    _check_shape("spa_attn_hp_bwd", q, num_heads, ksize)
+    _build.check_cuda_args("spa_attn_hp_bwd", q, k, v, dout, m, l)
+    B, h, w, E = q.shape
+    outs = tuple(torch.empty_like(q) for _ in range(3))
+    fn = _build.bind("spa_attn_hp", "lft_spa_attn_hp_bwd", 9,
+                     (ctypes.c_int,) * 5 + (ctypes.c_float,))
+    _build.launch("spa_attn_hp", "spa_attn_hp_bwd", fn, q.device,
+                  *(t.data_ptr() for t in (q, k, v, dout, m, l, *outs)),
+                  B, h, w, E, num_heads, float(E // num_heads) ** -0.5)
+    return outs
+
+
+class SpaAttnHpFn(torch.autograd.Function):
+    """K5 with stats forward, K5's backward; saves (q, k, v, m, l)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, ksize):
+        out, m, l = spa_attn_hp_fwd(q, k, v, num_heads, ksize, with_stats=True)
+        ctx.save_for_backward(q, k, v, m, l)
+        ctx.cfg = (num_heads, ksize)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, m, l = ctx.saved_tensors
+        return (*spa_attn_hp_bwd(q, k, v, m, l, dout.contiguous(), *ctx.cfg), None, None)
+
+
+def windowed_attention_headpacked(q, k, v, num_heads: int, ksize: int = 5):
+    """Differentiable window attention on projected [B, h, w, E] q/k/v."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _needs_grad(q, k, v):
+        return SpaAttnHpFn.apply(q, k, v, num_heads, ksize)
+    return spa_attn_hp_fwd(q, k, v, num_heads, ksize)

@@ -33,14 +33,14 @@ and the weight, LayerNorm and PE gradients are reduced by `wgrad`/`colsum`
 from __future__ import annotations
 
 import ctypes
-import functools
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
+from lft_torch.kernels.spa_attn_hp import (_gather_window, _hp_geometry_exists,
+                                           _scatter_window, _window_probs)
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import windowed_attention
 from lft_torch.ops.unfold import unfold3x3_linear
@@ -49,31 +49,6 @@ WEIGHTS = ("ln", "wu", "wqk", "wv", "wo", "w1", "w2", "wlin")
 
 LN_EPS = 1e-5
 KERNEL_C = (16, 32, 64)
-
-# The JAX gate's geometry limits (lft_tpu/kernels/spa_attn_hp.py:65-67):
-# the port keeps their outcome, not their TPU meaning.
-_MAX_NQ = 128
-_MAX_WIDTH = 4096
-_MAX_TILES = 64
-
-
-@functools.lru_cache(maxsize=None)
-def _hp_geometry_exists(h: int, w: int, num_heads: int, k: int) -> bool:
-    """True iff lft_tpu's `pick_hp_geometry(h, w, num_heads, k)` finds a
-    tile (its free search, without the LFT_HP_* overrides)."""
-    r = k // 2
-    g = int(np.gcd(num_heads, 128))
-    align = int(np.lcm(128 // g, 16))
-    for th in (d for d in range(1, h + 1) if h % d == 0):
-        for tw in (d for d in range(1, w + 1) if w % d == 0):
-            nq = th * tw
-            n_tiles = (h // th) * (w // tw)
-            nk = (th + 2 * r) * (tw + 2 * r)
-            for kb in {-(-nk // align) * align, -(-nk // 128) * 128}:
-                if (kb >= nk and kb % align == 0 and nq <= _MAX_NQ
-                        and n_tiles <= _MAX_TILES and num_heads * kb <= _MAX_WIDTH):
-                    return True
-    return False
 
 
 def spa_block_applicable(h: int, w: int, D: int, num_heads: int, k: int) -> bool:
@@ -129,55 +104,6 @@ def outproj_ln_plain(attn, tok, wts):
 def ffn_out_plain(xn2, x2, wts):
     y = torch.relu(xn2 @ wts["w1"]) @ wts["w2"] + x2
     return y @ wts["wlin"]
-
-
-def _window_offsets(ksize: int):
-    r = ksize // 2
-    return [(dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
-
-
-@functools.lru_cache(maxsize=None)
-def _window_valid(h: int, w: int, ksize: int) -> np.ndarray:
-    """[h, w, k*k] bool: key offset j of the query at (y, x) lies in the image."""
-    yy, xx = np.arange(h)[:, None], np.arange(w)[None, :]
-    return np.stack([(yy + dy >= 0) & (yy + dy < h) & (xx + dx >= 0) & (xx + dx < w)
-                     for dy, dx in _window_offsets(ksize)], axis=-1)
-
-
-def _gather_window(t: torch.Tensor, ksize: int) -> torch.Tensor:
-    """[B, h, w, E] -> [B, h, w, k*k, E]: each pixel's window, zero outside."""
-    r = ksize // 2
-    B, h, w, E = t.shape
-    tp = F.pad(t, (0, 0, r, r, r, r))
-    return torch.stack([tp[:, r + dy:r + dy + h, r + dx:r + dx + w]
-                        for dy, dx in _window_offsets(ksize)], dim=3)
-
-
-def _scatter_window(tw: torch.Tensor, ksize: int) -> torch.Tensor:
-    """Adjoint of `_gather_window`: [B, h, w, k*k, E] -> [B, h, w, E]."""
-    r = ksize // 2
-    B, h, w, _, E = tw.shape
-    out = tw.new_zeros(B, h + 2 * r, w + 2 * r, E)
-    for j, (dy, dx) in enumerate(_window_offsets(ksize)):
-        out[:, r + dy:r + dy + h, r + dx:r + dx + w] += tw[:, :, :, j]
-    return out[:, r:r + h, r:r + w].contiguous()
-
-
-def _window_probs(q, k, num_heads: int, ksize: int, m=None, l=None):
-    """Softmax probabilities [B, h, w, k*k, H] of the window attention and
-    the scaled heads of q [B, h, w, H, dh]; from the saved (m, l) where
-    given, else computed (then also returned)."""
-    B, h, w, E = q.shape
-    dh = E // num_heads
-    qh = q.reshape(B, h, w, num_heads, dh) * float(dh) ** -0.5
-    kw = _gather_window(k, ksize).reshape(B, h, w, -1, num_heads, dh)
-    s = torch.einsum("byxhd,byxjhd->byxjh", qh, kw)
-    valid = torch.from_numpy(_window_valid(h, w, ksize)).to(q.device)[..., None]
-    s = s.masked_fill(~valid, float("-inf"))
-    if m is None:
-        m = s.amax(3)
-        l = torch.exp(s - m[:, :, :, None]).sum(3)
-    return torch.exp(s - m[:, :, :, None]) / l[:, :, :, None], qh, m, l
 
 
 def window_attn_plain(q, k, v, num_heads: int, ksize: int):

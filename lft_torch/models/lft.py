@@ -22,8 +22,16 @@ Two branches, as in the JAX package:
   is on and an input or weight requires grad, each block runs as its
   autograd Function (K1/K2 with residuals forward, K4/K3 backward);
   otherwise, as in inference, the residual-free kernels;
-* unfused: the per-op plain reference (ops/attention.py). On CUDA it would
-  need the per-op kernels K5-K10, which are not ported yet, so it raises.
+* unfused: LayerNorm, projections, FFN and residuals as plain torch ops
+  around the two attentions, which `attention_impl` selects: `pallas`, the
+  default on CUDA, runs them as the per-op kernels K7 (angular) and K5
+  (5x5 window), each an autograd Function with a kernel backward, so the
+  branch serves and trains on the card; `tiled`/`dense` are the plain
+  reference (ops/attention.py), the default on the CPU. It is also where a
+  geometry goes that fails a fused gate, and a training forward whose view
+  count the backward kernel K4 does not take (64 < A2 <= 128). Where the
+  JAX dispatch would pick a per-op kernel that is still to port (K6, K8,
+  K9, K10) the branch raises and names it.
 """
 
 from __future__ import annotations
@@ -37,7 +45,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from lft_torch.device import check_dtype, resolve_device
-from lft_torch.kernels.ang_block import (ang_block_applicable, ang_trans_block_fused,
+from lft_torch.kernels.ang_attn import ang_attention_pallas
+from lft_torch.kernels.ang_block import (_needs_grad, ang_block_applicable,
+                                         ang_block_trainable, ang_trans_block_fused,
                                          ang_trans_block_plain)
 from lft_torch.kernels.spa_block import (spa_block_applicable, spa_trans_block_fused,
                                          spa_trans_block_plain)
@@ -154,18 +164,23 @@ def _ffn(x, p, prefix):
     return y @ p[prefix + "feed_forward.4.weight"].T
 
 
-def _ang_trans(x, p, prefix, ang_pe):
-    """Unfused angular transformer over [B, A2, h, w, C]."""
+def _ang_trans(x, p, prefix, ang_pe, impl="auto"):
+    """Unfused angular transformer over [B, A2, h, w, C]; impl 'pallas'
+    (and 'auto' on a CUDA tensor) runs the attention as the per-op kernel."""
     t = x.permute(0, 2, 3, 1, 4)                                   # [B, h, w, A2, C]
     tn = _layer_norm(t + ang_pe, p[prefix + "norm.weight"], p[prefix + "norm.bias"])
-    t = multi_head_attention(tn, tn, t, p[prefix + "attention.in_proj_weight"],
-                             p[prefix + "attention.out_proj.weight"], NUM_HEADS) + t
+    w_in, w_out = p[prefix + "attention.in_proj_weight"], p[prefix + "attention.out_proj.weight"]
+    if impl == "pallas" or (impl == "auto" and x.is_cuda):
+        t = ang_attention_pallas(tn, t, w_in, w_out, NUM_HEADS) + t
+    else:
+        t = multi_head_attention(tn, tn, t, w_in, w_out, NUM_HEADS) + t
     t = _ffn(t, p, prefix) + t
     return t.permute(0, 3, 1, 2, 4)
 
 
-def _spa_trans(x, p, prefix, spa_pe):
-    """Unfused spatial transformer over [B, A2, h, w, C]."""
+def _spa_trans(x, p, prefix, spa_pe, impl="auto"):
+    """Unfused spatial transformer over [B, A2, h, w, C]; `impl` as in
+    `ops.attention.local_attention`."""
     B, A2, h, w, C = x.shape
     img = x.reshape(B * A2, h, w, C)
     tok = unfold3x3_linear(img, p[prefix + "MLP.weight"])
@@ -173,23 +188,39 @@ def _spa_trans(x, p, prefix, spa_pe):
     tok_n = _layer_norm(tok + pe_tok, p[prefix + "norm.weight"], p[prefix + "norm.bias"])
     tok = local_attention(tok_n, tok, p[prefix + "attention.in_proj_weight"],
                           p[prefix + "attention.out_proj.weight"], NUM_HEADS,
-                          k=KERNEL_SEARCH) + tok
+                          k=KERNEL_SEARCH, impl=impl) + tok
     tok = _ffn(tok, p, prefix) + tok
     out = tok @ p[prefix + "linear.0.weight"][:, :, 0, 0, 0].T
     return out.reshape(B, A2, h, w, C)
 
 
+def resolve_fused(fused: bool, h: int, w: int, C: int, A2: int, device_type: str,
+                  training: bool, plain_blocks: bool = False) -> bool:
+    """Whether a forward that asks for the fused branch takes it: both
+    blocks' gates must pass, and a forward that will be differentiated
+    through the kernels also needs the backward kernels to take the
+    geometry (`ang_block_trainable`). Everything else goes to the unfused
+    branch, as in the JAX package (lft_tpu/models/lft.py:325-329)."""
+    if not (fused and spa_block_applicable(h, w, 2 * C, NUM_HEADS, KERNEL_SEARCH)
+            and ang_block_applicable(A2)):
+        return False
+    return not training or plain_blocks or ang_block_trainable(A2, device_type)
+
+
 def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
-            fused=None, plain_blocks: bool = False) -> torch.Tensor:
+            fused=None, plain_blocks: bool = False, attention_impl=None) -> torch.Tensor:
     """SR forward: lr [B, 1, A*h, A*w] -> [B, 1, A*h*S, A*w*S] (NCHW, like
     the reference), on the device of `lr` and `params`.
 
     `fused=None` takes the fused branch on CUDA and the unfused one on the
     CPU (the JAX tiled pipeline likewise fuses on its accelerator); the
-    fused branch needs both gates to pass. `plain_blocks=True` runs the
+    fused branch needs `resolve_fused`. `plain_blocks=True` runs the
     fused branch through the blocks' plain versions on any device: the
-    reference the card's kernels are held against."""
+    reference the card's kernels are held against. `attention_impl`
+    (default `args.attention_impl`) selects the unfused branch's attention:
+    auto | dense | tiled | pallas."""
     check_dtype(getattr(args, "dtype", "float32"))
+    impl = attention_impl or getattr(args, "attention_impl", "auto") or "auto"
     A = args.angRes
     S = args.scale_factor
     C = args.channels
@@ -214,8 +245,8 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
 
     if fused is None:
         fused = dev.type == "cuda" or plain_blocks
-    fused = fused and spa_block_applicable(h, w, 2 * C, NUM_HEADS, KERNEL_SEARCH) \
-        and ang_block_applicable(A * A)
+    fused = resolve_fused(fused, h, w, C, A * A, dev.type, _needs_grad(lr, *p.values()),
+                          plain_blocks)
 
     if fused:
         ang_fn = ang_trans_block_plain if plain_blocks else ang_trans_block_fused
@@ -230,14 +261,9 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
                          NUM_HEADS, KERNEL_SEARCH)
             buf = out.reshape(B, A * A, h, w, C)
     else:
-        if dev.type == "cuda":
-            raise NotImplementedError(
-                "the unfused LFT branch on CUDA needs the per-op attention kernels "
-                "K5-K10, queued as ROADMAP.md §1 item 10; this geometry fails the "
-                f"fused-block gates (h={h}, w={w}, A2={A * A})")
         for i in range(LAYER_NUM):
-            buf = _ang_trans(buf, p, f"altblock.{i}.ang_trans.", ang_pe)
-            buf = _spa_trans(buf, p, f"altblock.{i}.spa_trans.", spa_pe)
+            buf = _ang_trans(buf, p, f"altblock.{i}.ang_trans.", ang_pe, impl)
+            buf = _spa_trans(buf, p, f"altblock.{i}.spa_trans.", spa_pe, impl)
     buf = buf + res                                                # model/LFT.py:76
 
     # upsampling head (reference model/LFT.py:39-44, 80): 1x1 conv -> pixel

@@ -8,7 +8,9 @@ lft_tpu/ops/attention.py).
   halo blocks with an exact static mask, and never builds an (hw)^2 object.
 
 These are the building blocks of the unfused forward and of the fused
-kernels' plain versions. Weights follow `nn.MultiheadAttention`: packed
+kernels' plain versions. `local_attention(impl='pallas')` hands over to
+the per-op kernel dispatch of `kernels/local_attn.py`. Weights follow
+`nn.MultiheadAttention`: packed
 `in_proj_weight [3E, E]` (rows Wq; Wk; Wv) and `out_proj.weight [E, E]`,
 no biases.
 """
@@ -144,7 +146,18 @@ def local_attention(qn: torch.Tensor, v: torch.Tensor, in_proj_weight,
                     out_proj_weight, num_heads: int, k: int = 5,
                     impl: str = "auto") -> torch.Tensor:
     """Local-window spatial MHA over [B, h, w, E] token images: q = k from
-    the normed tokens `qn`, v from the raw tokens (model/LFT.py:183-187)."""
+    the normed tokens `qn`, v from the raw tokens (model/LFT.py:183-187).
+
+    impl: 'auto' | 'dense' | 'tiled' | 'pallas'. 'pallas' is the per-op
+    kernel dispatch (kernels/local_attn.py); 'auto' takes it for a CUDA
+    tensor, as the JAX package does on its accelerator, and the tiled or
+    dense op for a CPU tensor."""
+    if impl == "auto" and qn.is_cuda and qn.shape[-1] % num_heads == 0:
+        impl = "pallas"
+    if impl == "pallas":
+        from lft_torch.kernels.local_attn import local_attention_pallas
+        return local_attention_pallas(qn, v, in_proj_weight, out_proj_weight,
+                                      num_heads=num_heads, k=k)
     wq, wk, wv = in_proj_weight.chunk(3, dim=0)
     out = windowed_attention(qn @ wq.T, qn @ wk.T, v @ wv.T, num_heads, k, impl)
     return out @ out_proj_weight.T

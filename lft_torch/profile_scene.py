@@ -1,6 +1,6 @@
 """Time and profile full-scene SR on one CUDA card.
 
-    python3 -m lft_torch.profile_scene [--scenes N] [--seed S] [--plain]
+    python3 -m lft_torch.profile_scene [--scenes N] [--seed S] [--plain] [--unfused]
 
 Loads the full-width 4x demo checkpoint, makes `--scenes` synthetic 5x5
 scenes of 128x128 LR views, and runs the tiled pipeline (patch 32, stride
@@ -13,6 +13,8 @@ scenes of 128x128 LR views, and runs the tiled pipeline (patch 32, stride
   device's busy time and its idle share of the wall time.
 
 `--plain` runs the blocks' plain PyTorch versions instead of the kernels.
+`--unfused` runs the per-op branch (`fused=False`): the attentions as the
+kernels K7 and K5, or with `--plain` as the tiled torch ops.
 Prints the card's name and power limit first. Exits non-zero without a card.
 """
 
@@ -34,6 +36,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scenes", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--unfused", action="store_true")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_scene: no CUDA device is available", file=sys.stderr)
@@ -54,7 +57,8 @@ def main(argv=None) -> int:
                                                 "LFT_5x5_4x_synth3000.pth"), device=dev)
     args = Args(angRes=5, scale_factor=4, channels=64, patch_size_for_test=32,
                 stride_for_test=16, eval_batch=16)
-    cache = ScenePipelineCache(forward, args, eval_batch=16, plain_blocks=a.plain)
+    kw, what = path_kw(a.plain, a.unfused)
+    cache = ScenePipelineCache(forward, args, eval_batch=16, **kw)
     lrs = [torch.from_numpy(lr_hr_pair(synth_lf_scene(5, 512, 512, seed=a.seed + i), 4)[0])
            .to(dev) for i in range(a.scenes)]
     mpx = (lrs[0].shape[0] * 4) * (lrs[0].shape[1] * 4) / 1e6
@@ -69,7 +73,7 @@ def main(argv=None) -> int:
         times.append(time.perf_counter() - t0)
     times.sort()
     med = times[len(times) // 2]
-    print(f"scene SR ({'plain blocks' if a.plain else 'kernels'}): median "
+    print(f"scene SR ({what}): median "
           f"{med * 1e3:.2f} ms/scene over {len(times)} scenes (all: "
           f"{[round(t * 1e3, 2) for t in times]}), {mpx / med:.3f} HR MPx/s", flush=True)
 
@@ -81,6 +85,14 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
     report(prof, wall, "one scene", top=20)
     return 0
+
+
+def path_kw(plain: bool, unfused: bool):
+    """(keywords of `forward`, a name) for the path the flags select."""
+    if unfused:
+        return (dict(fused=False, attention_impl="tiled" if plain else "pallas"),
+                "unfused, tiled torch attention" if plain else "unfused, per-op kernels")
+    return dict(plain_blocks=plain), "plain blocks" if plain else "kernels"
 
 
 def report(prof, wall: float, what: str, top: int) -> None:

@@ -1,6 +1,6 @@
 """Time and profile the train step on one CUDA card.
 
-    python3 -m lft_torch.profile_train [--steps N] [--seed S] [--plain]
+    python3 -m lft_torch.profile_train [--steps N] [--seed S] [--plain] [--unfused]
 
 The 4x recipe (runs/ref_recipe_s4): LFT at full width (C=64, 8 heads, 4
 AltFilter blocks, 5x5 views) from the 4x demo checkpoint, Adam 2e-4,
@@ -12,7 +12,10 @@ batch 4 of 32x32-view patches made on the card by `synth_batch`:
   device's busy time and its idle share of the wall time.
 
 `--plain` trains through the blocks' plain PyTorch versions and backwards
-instead of the kernels. Prints the card's name and power limit first.
+instead of the kernels; `--unfused` trains the per-op branch
+(`--train_fused false`): the attentions as the kernels K7 and K5 with their
+kernel backwards, or with `--plain` as the tiled torch ops under autograd.
+Prints the card's name and power limit first.
 Exits non-zero without a card.
 """
 
@@ -36,6 +39,7 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--unfused", action="store_true")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device is available", file=sys.stderr)
@@ -45,7 +49,7 @@ def main(argv=None) -> int:
     from lft_torch.data.device_synth import synth_batch
     from lft_torch.device import resolve_device
     from lft_torch.models.lft import forward
-    from lft_torch.profile_scene import report
+    from lft_torch.profile_scene import path_kw, report
     from lft_torch.registry import get_model
     from lft_torch.training.optim import make_optimizer
     from lft_torch.training.trainer import make_train_step
@@ -57,9 +61,12 @@ def main(argv=None) -> int:
     dev = resolve_device()
     params, _, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
                                                 "LFT_5x5_4x_synth3000.pth"), device=dev)
-    args = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, lr=2e-4)
+    kw, what = path_kw(a.plain, a.unfused)
+    args = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, lr=2e-4,
+                train_fused="false" if a.unfused else "auto",
+                attention_impl=kw.get("attention_impl", "auto"))
     model = get_model(args)
-    if a.plain:
+    if a.plain and not a.unfused:
         model = dataclasses.replace(model, apply=functools.partial(forward, plain_blocks=True))
     for p in params.values():
         p.requires_grad_(True)
@@ -79,7 +86,7 @@ def main(argv=None) -> int:
         times.append(time.perf_counter() - t0)
     times.sort()
     med = times[len(times) // 2]
-    print(f"train step ({'plain blocks' if a.plain else 'kernels'}, batch 4, 4x, C=64): "
+    print(f"train step ({what}, batch 4, 4x, C=64): "
           f"median {med * 1e3:.3f} ms over {len(times)} steps (all: "
           f"{[round(t * 1e3, 3) for t in times]})", flush=True)
 

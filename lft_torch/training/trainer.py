@@ -11,8 +11,11 @@ fresh moments with the schedule fast-forwarded to the checkpoint's epoch.
 
 On the card the model trains through the fused blocks, whose backwards are
 the hand-written K4/K3 kernels with deterministic weight-gradient
-reductions, and cuDNN is held to deterministic algorithms: the same state
-and batch give the same update bit for bit.
+reductions, or with `--train_fused false` through the unfused branch, whose
+two attentions are the per-op kernels K7 and K5 with kernel backwards (no
+atomics) and everything else torch's own autograd. cuDNN is held to
+deterministic algorithms: the same state and batch give the same update bit
+for bit.
 """
 
 from __future__ import annotations
@@ -33,7 +36,10 @@ from lft_torch.utils.checkpoint import load_checkpoint, params_to_pth, save_chec
 def train_fused(args, device: torch.device) -> bool:
     """`--train_fused`: auto = the fused blocks on CUDA, the unfused plain
     model on the CPU; true on the CPU runs the fused blocks' plain versions
-    through their autograd Functions."""
+    through their autograd Functions; false on CUDA trains the unfused
+    branch through the per-op kernels (`--attention_impl`). A geometry the
+    fused backward kernels do not take goes to the unfused branch whatever
+    this says (`models.lft.resolve_fused`)."""
     tf = str(getattr(args, "train_fused", "auto")).lower()
     if tf == "auto":
         return device.type == "cuda"

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from lft_torch.config import Args
-from lft_torch.kernels import FORWARD, LAUNCHES, ang_block, reset_launches, spa_block, wgrad
+from lft_torch.kernels import (FORWARD, LAUNCHES, PEROP, ang_attn_mxu, ang_block, reset_launches,
+                               spa_attn_hp, spa_block, wgrad)
 from lft_torch.models import lft
 from lft_torch.ops.posenc import angular_position
 
@@ -76,8 +77,15 @@ def test_forward_kernels_match_plain_blocks(cuda_device):
     got = lft.forward(p, lr, args)
     ref = lft.forward(p, lr, args, plain_blocks=True)
     torch.testing.assert_close(got, ref, **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lft.forward(p, lr, args, fused=False)
+    # the unfused branch runs on the card through the per-op kernels
+    reset_launches()
+    unfused = lft.forward(p, lr, args, fused=False)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ang_attn"] == 4 and LAUNCHES["spa_attn_hp"] == 4
+    assert not any(LAUNCHES[k] for k in FORWARD)
+    torch.testing.assert_close(unfused, ref, **TOL)
+    torch.testing.assert_close(unfused, lft.forward(p, lr, args, fused=False,
+                                                    attention_impl="tiled"), **TOL)
 
 
 def _close(got, ref, rel=5e-4):
@@ -257,3 +265,165 @@ def test_fit_kill_resume_bitwise_on_card(cuda_device, tmp_path):
     zb = np.load(trainer.checkpoint_path(str(b), Args(**base), 2))
     for f in za.files:
         np.testing.assert_array_equal(za[f], zb[f], err_msg=f)
+
+
+# ------------------------------------------------ per-op kernels K7 and K5 ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,N,A2", [(16, 37, 25), (32, 37, 25), (64, 37, 25), (64, 7, 81),
+                                    (64, 3, 121), (32, 11, 9), (64, 1, 128)])
+def test_ang_attn_kernels(cuda_device, C, N, A2):
+    """K7 forward, forward with stats and backward against their plain
+    versions: every channel width, ragged N, A2 up to the gate's 128."""
+    g = torch.Generator(device=cuda_device).manual_seed(C + A2)
+    q, k, v, dout = (torch.randn(N, A2, C, device=cuda_device, generator=g) for _ in range(4))
+    ref = ang_attn_mxu.ang_attention_blockdiag_plain(q, k, v, 8)
+    reset_launches()
+    _close(ang_attn_mxu.ang_attn_fwd(q, k, v, 8), ref[0], 1e-4)
+    _close(ang_attn_mxu.ang_attn_fwd(q, k, v, 8, with_stats=True), ref, 1e-4)
+    _, m, l = ref
+    got = ang_attn_mxu.ang_attn_bwd(q, k, v, m, l, dout, 8)
+    torch.cuda.synchronize()
+    assert [LAUNCHES[n] for n in PEROP[:3]] == [1, 1, 1]
+    _close(got, ang_attn_mxu.ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, 8))
+    again = ang_attn_mxu.ang_attn_bwd(q, k, v, m, l, dout, 8)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,h,w", [(16, 20, 12), (32, 9, 7), (64, 32, 32), (64, 17, 40),
+                                   (64, 3, 2)])
+def test_spa_attn_hp_kernels(cuda_device, C, h, w):
+    """K5 forward, forward with stats and backward against their plain
+    versions: every channel width, ragged tiles, views smaller than a tile."""
+    E = 2 * C
+    g = torch.Generator(device=cuda_device).manual_seed(C + h)
+    q, k, v, dout = (torch.randn(3, h, w, E, device=cuda_device, generator=g) for _ in range(4))
+    ref = spa_attn_hp.windowed_attention_headpacked_plain(q, k, v, 8, 5)
+    reset_launches()
+    _close(spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5), ref[0], 1e-4)
+    _close(spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5, with_stats=True), ref, 1e-4)
+    _, m, l = ref
+    got = spa_attn_hp.spa_attn_hp_bwd(q, k, v, m, l, dout, 8, 5)
+    torch.cuda.synchronize()
+    assert [LAUNCHES[n] for n in PEROP[3:]] == [1, 1, 1]
+    _close(got, spa_attn_hp.windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout, 8, 5))
+    again = spa_attn_hp.spa_attn_hp_bwd(q, k, v, m, l, dout, 8, 5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the same function as K2's window step, per head
+    _close(spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5), spa_block.window_attn(q, k, v, 8, 5), 1e-5)
+
+
+@pytest.mark.cuda
+def test_perop_wrappers_raise_on_card_instead_of_falling_back(cuda_device):
+    from lft_torch.kernels.ang_attn import ang_attention_pallas
+    from lft_torch.kernels.local_attn import local_attention_pallas
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    r = lambda *s: torch.randn(*s, device=cuda_device, generator=g)
+    with pytest.raises(NotImplementedError, match="K8"):
+        ang_attention_pallas(r(2, 144, 16), r(2, 144, 16), r(48, 16), r(16, 16), 8)
+    with pytest.raises(NotImplementedError, match="kernel takes"):
+        ang_attn_mxu.ang_attn_fwd(r(2, 25, 24), r(2, 25, 24), r(2, 25, 24), 8)
+    with pytest.raises(NotImplementedError, match="K6"):
+        local_attention_pallas(r(1, 16, 16, 32), r(1, 16, 16, 32), r(96, 32), r(32, 32), 8,
+                               variant="mxu")
+    with pytest.raises(NotImplementedError, match="kernel takes"):
+        spa_attn_hp.spa_attn_hp_fwd(r(1, 8, 8, 24), r(1, 8, 8, 24), r(1, 8, 8, 24), 8, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ang_res,view", [(5, 32), (9, 8)])
+def test_unfused_grads_kernels_match_plain_and_repeat(cuda_device, monkeypatch, ang_res, view):
+    """Gradients of the whole model through the per-op kernels against the
+    same branch with the kernels' plain versions behind the same autograd
+    Functions; the same backward twice is bitwise equal. At the recipe's
+    geometry the bound is 5e-4 max |grad| + 2e-9, also against the plain
+    unfused path (tiled torch attention). At angRes 9 the fused backward
+    does not take the geometry, so a training forward that asks for the
+    fused branch goes through the per-op kernels too; its small batch
+    (10,368 tokens) is held to 1e-2 max |grad| + 1e-8 only: one FFN unit
+    whose input lies within f32 rounding of 0 is on in one path and off in
+    the other, and that one relu' jump moves a weight gradient by 3e-3 of
+    its max (as much as two plain paths differ there). The kernels' own
+    accuracy at A2 = 81 is `test_ang_attn_kernels`'s to hold."""
+    args = Args(channels=16, scale_factor=2, angRes=ang_res)
+    p = lft.init_params(4, args, device=cuda_device)
+    for t in p.values():
+        t.requires_grad_(True)
+    rng = np.random.RandomState(1)
+    n = ang_res * view
+    lr = torch.from_numpy(rng.rand(2, 1, n, n).astype(np.float32)).to(cuda_device)
+    hr = torch.from_numpy(rng.rand(2, 1, 2 * n, 2 * n).astype(np.float32)).to(cuda_device)
+    torch.backends.cudnn.deterministic = True
+
+    def grads(**kw):
+        sr = lft.forward(p, lr, args, **kw)
+        loss = ((sr - hr) * torch.cos(3.0 * (sr - hr))).mean()
+        return torch.autograd.grad(loss, list(p.values()))
+
+    reset_launches()
+    got = grads(fused=False)
+    torch.cuda.synchronize()
+    assert [LAUNCHES[n] for n in PEROP] == [0, 4, 4, 0, 4, 4]
+    assert not any(LAUNCHES[k] for k in FORWARD)
+    assert all(torch.equal(a, b) for a, b in zip(got, grads(fused=False)))
+    if ang_res == 5:
+        for name, g1, g2 in zip(p, got, grads(fused=False, attention_impl="tiled")):
+            err = float((g1 - g2).abs().max())
+            assert err <= 5e-4 * float(g2.abs().max()) + 2e-9, (name, err)
+    with monkeypatch.context() as mp:
+        plain_a = ang_attn_mxu.ang_attention_blockdiag_plain
+        plain_s = spa_attn_hp.windowed_attention_headpacked_plain
+        mp.setattr(ang_attn_mxu, "ang_attn_fwd",
+                   lambda q, k, v, h, with_stats=False: plain_a(q, k, v, h))
+        mp.setattr(ang_attn_mxu, "ang_attn_bwd", ang_attn_mxu.ang_attention_blockdiag_bwd_plain)
+        mp.setattr(spa_attn_hp, "spa_attn_hp_fwd",
+                   lambda q, k, v, h, ks, with_stats=False: plain_s(q, k, v, h, ks))
+        mp.setattr(spa_attn_hp, "spa_attn_hp_bwd",
+                   spa_attn_hp.windowed_attention_headpacked_bwd_plain)
+        reset_launches()
+        ref = grads(fused=False)
+        assert not any(LAUNCHES.values())
+    rel, floor = (5e-4, 2e-9) if ang_res == 5 else (1e-2, 1e-8)
+    for name, g1, g2 in zip(p, got, ref):
+        err = float((g1 - g2).abs().max())
+        assert err <= rel * float(g2.abs().max()) + floor, (name, err, float(g2.abs().max()))
+    if ang_res == 9:
+        reset_launches()
+        auto = grads()
+        assert LAUNCHES["ang_attn_bwd"] == 4 and LAUNCHES["ang_block_bwd"] == 0
+        assert all(torch.equal(a, b) for a, b in zip(got, auto))
+        with torch.no_grad():
+            reset_launches()
+            lft.forward(p, lr, args)
+            assert LAUNCHES["ang_block"] == 4 and LAUNCHES["ang_attn"] == 0
+
+
+@pytest.mark.cuda
+def test_unfused_train_step_repeats_bitwise(cuda_device):
+    """`--train_fused false` on the card: two steps from the same state and
+    batch give the same loss and parameters bit for bit."""
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import make_optimizer
+    from lft_torch.training.trainer import make_train_step
+    args = Args(channels=32, scale_factor=4, batch_size=2, train_fused="false")
+    model = get_model(args)
+    init = lft.init_params(6, args, device=cuda_device)
+    rng = np.random.RandomState(2)
+    lr = torch.from_numpy(rng.rand(2, 1, 160, 160).astype(np.float32)).to(cuda_device)
+    hr = torch.from_numpy(rng.rand(2, 1, 640, 640).astype(np.float32)).to(cuda_device)
+
+    def one():
+        p = {k: v.clone().requires_grad_(True) for k, v in init.items()}
+        step = make_train_step(model, make_optimizer(p, args, steps_per_epoch=10), args)
+        loss, _, _ = step(p, lr, hr)
+        return float(loss), p
+
+    reset_launches()
+    l1, p1 = one()
+    torch.cuda.synchronize()
+    assert [LAUNCHES[n] for n in PEROP] == [0, 4, 4, 0, 4, 4]
+    l2, p2 = one()
+    assert l1 == l2 and np.isfinite(l1)
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]), k

@@ -53,6 +53,8 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 15
+    assert {"lft_torch.kernels." + m for m in ("ang_attn", "ang_attn_mxu", "spa_attn_hp",
+                                               "spa_attn", "local_attn")} <= set(mods)
 
 
 @pytest.fixture
