@@ -50,8 +50,33 @@
     that a training forward at angRes 9, which the fused backward kernel
     does not take, runs the per-op branch on the card and matches the plain
     path;
-13. prints the `kernels` JSON line, the card's name and power limit, and
-    last `{"ok": true, "device": {...}}`.
+13. runs the first scene through the unfused branch with the environment
+    knobs `LFT_ANG_VARIANT=sweep` + `LFT_SPA_VARIANT=offset` (K8 and K9:
+    exactly 16 `ang_attn_sweep` and 16 `spa_attn_offset` launches and no
+    other kernel) and with `LFT_SPA_VARIANT=mxu` (16 `ang_attn` and 16
+    `spa_attn_mxu`), each within 1e-3 / 0.01 dB of the plain unfused path
+    and of step 9's K7/K5 result, and times a scene;
+14. trains one `--train_fused false` step under each of the two settings
+    against the plain unfused step (the bounds of step 7), repeats it
+    bitwise, counts exactly 4 launches a step of each `_res` and `_bwd`
+    kernel of the families in play and of nothing else, and times further
+    steps;
+15. drives the geometries that reach K8, K6 and K9 with the knobs unset: a
+    12x12-view light field (A2 = 144, 48x48 LR views) through
+    `evaluate_dataset` with default arguments (the gates send it to K8 + K5)
+    and a train step there; a 5x5 scene at patch 64 (64x64 views: K7 + K6)
+    and at patch 30 (no tile divides it: K7 + K9) through the unfused branch,
+    and a train step on such patches; each SR result against the plain
+    unfused path, each train step as in step 14;
+16. holds every K8, K9 and K6 kernel (forward, with stats, backward) against
+    its plain version at the serving and training shapes of steps 13-15,
+    times each beside its bound and one `scaled_dot_product_attention` call,
+    and K5, K6, K9 and K2.3 (backwards: K3.c) in turns at one shape;
+17. prints the `kernels` JSON line (every kernel, old and new), the card's
+    name and power limit, and last `{"ok": true, "device": {...}}`.
+
+Steps 1-12 run as before; the plain and library versions of the large shapes
+of step 16 are timed over 3 launches instead of 10.
 
 Launch counts are per phase: the SR run must launch every forward kernel
 and no training kernel, the training run every training kernel, the per-op
@@ -64,6 +89,7 @@ CUDA card, and when run outside the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -177,17 +203,23 @@ class Recorder:
         return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
     def record(self, name, src, replaces, got, ref, fn_k, fn_p, flops, io, lib_fn=None,
-               rel=None):
+               rel=None, shape=None, slow_reps=10):
+        """With `shape` the check is one more shape of a kernel that has its
+        row already: compared, timed and printed, not added to the rows.
+        `slow_reps`: launches timed of the plain and library versions."""
         err, ok = max_err(got, ref, rel)
-        ms_k, ms_p = timed(fn_k), timed(fn_p)
-        ms_l = timed(lib_fn) if lib_fn is not None else None
+        warm = 2 if slow_reps >= 10 else 1
+        ms_k, ms_p = timed(fn_k), timed(fn_p, slow_reps, warm)
+        ms_l = timed(lib_fn, slow_reps, warm) if lib_fn is not None else None
         b_ms, b_by = self.bound(flops, io)
         n = self.launches[name]
-        self.rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                              launches=n, max_abs_err=err, ms=ms_k, plain_ms=ms_p,
-                              bound_ms=b_ms, bound_by=b_by, library_ms=ms_l))
+        if shape is None:
+            self.rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                                  launches=n, max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+                                  bound_ms=b_ms, bound_by=b_by, library_ms=ms_l))
         limit = f"{KERNEL_ATOL:g} x max(1, max|ref|)" if rel is None else f"{rel:g} x max|ref|"
-        print(f"kernel {name}: max_abs_err {err:.3e} (limit {limit}) "
+        print(f"kernel {name}{'' if shape is None else f' at {list(shape)}'}: "
+              f"max_abs_err {err:.3e} (limit {limit}) "
               f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}), library {'-' if ms_l is None else f'{ms_l:.4f} ms'}, "
               f"launches {n} ({n / self.per:g}/{self.unit})", flush=True)
@@ -286,36 +318,65 @@ def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -
 
 
 PEROP_TRAIN = ("ang_attn_res", "ang_attn_bwd", "spa_attn_hp_res", "spa_attn_hp_bwd")
+VARIANT_KNOBS = ("LFT_ANG_VARIANT", "LFT_SPA_VARIANT")
 
 
-def train_phase(params, seed: int, unfused: bool = False):
+@contextlib.contextmanager
+def variants(ang=None, spa=None):
+    """The two environment knobs of the per-op dispatchers set for the block
+    (None: unset), and put back after it."""
+    before = {k: os.environ.pop(k, None) for k in VARIANT_KNOBS}
+    os.environ.update({k: v for k, v in zip(VARIANT_KNOBS, (ang, spa)) if v is not None})
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def plain_attention_impl(h: int, w: int) -> str:
+    """The plain torch window attention that takes an h x w view."""
+    from lft_torch.ops.attention import _pick_tile
+    return "tiled" if _pick_tile(h, w) is not None else "dense"
+
+
+def train_phase(params, seed: int, unfused: bool = False, *, what=None, ang_res: int = 5,
+                patch: int = 32, batch: int = 4, train_fused=None, expect=PEROP_TRAIN,
+                steps: int = TRAIN_STEPS):
     """The 4x recipe's train step through the kernels against the plain
     path, its bitwise repeat, and a few more steps: the fused blocks against
     their plain versions, or with `unfused` the per-op branch
-    (`--train_fused false`) against the same branch with the tiled torch
-    attention. Returns the launch counts of the kernel-path steps, their
-    number and the median ms of a kernel-path step."""
+    (`--train_fused false`, or `train_fused` as given where the gates send
+    the geometry there) against the same branch with the plain torch
+    attention; `expect` names the kernels that branch must launch 4 times a
+    step, and no other. Returns the launch counts of the kernel-path steps,
+    their number and the median ms of a kernel-path step."""
     import dataclasses
     import functools
 
     import torch
     from lft_torch.config import Args
     from lft_torch.data.device_synth import synth_batch
-    from lft_torch.kernels import LAUNCHES, PEROP, TRAINING, reset_launches
+    from lft_torch.kernels import LAUNCHES, PEROP, SWEEPS, TRAINING, reset_launches
     from lft_torch.models.lft import forward
     from lft_torch.registry import get_model
     from lft_torch.training.optim import make_optimizer
     from lft_torch.training.trainer import make_train_step
 
     dev = torch.device("cuda")
-    args = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, lr=2e-4, n_steps=15,
-                gamma=0.5, epoch=50, train_fused="false" if unfused else "auto")
+    args = Args(angRes=ang_res, scale_factor=4, channels=64, batch_size=batch, lr=2e-4,
+                n_steps=15, gamma=0.5, epoch=50,
+                train_fused=train_fused or ("false" if unfused else "auto"))
     model = get_model(args)
-    plain_kw = dict(attention_impl="tiled") if unfused else dict(plain_blocks=True)
+    plain_kw = (dict(attention_impl=plain_attention_impl(patch, patch)) if unfused
+                else dict(plain_blocks=True))
     plain_model = dataclasses.replace(model, apply=functools.partial(forward, **plain_kw))
-    what = "per-op train" if unfused else "train"
+    what = what or ("per-op train" if unfused else "train")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    lr, hr = synth_batch(gen, batch=4, ang_res=5, patch=32, scale=4)
+    new_batch = lambda: synth_batch(gen, batch=batch, ang_res=ang_res, patch=patch, scale=4)
+    lr, hr = new_batch()
     print(f"train batch: lr {tuple(lr.shape)} hr {tuple(hr.shape)} (synth_batch, seed {seed})",
           flush=True)
 
@@ -363,8 +424,8 @@ def train_phase(params, seed: int, unfused: bool = False):
     g_a = grads(pk)
     del pk
     times, losses = [], []
-    for _ in range(TRAIN_STEPS):
-        lr, hr = synth_batch(gen, batch=4, ang_res=5, patch=32, scale=4)
+    for _ in range(steps):
+        lr, hr = new_batch()
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         ev0.record()
         loss, _, _ = step_a(pa, lr, hr)
@@ -374,7 +435,7 @@ def train_phase(params, seed: int, unfused: bool = False):
         losses.append(float(loss))
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
-    n_steps = 3 + TRAIN_STEPS
+    n_steps = 3 + steps
 
     la, lp = float(loss_a), float(loss_p)
     print(f"{what} step 1: loss kernels {la:.8f} plain {lp:.8f} (|d| {abs(la - lp):.3e}, "
@@ -411,20 +472,21 @@ def train_phase(params, seed: int, unfused: bool = False):
     p_times.sort()
     print(f"{what} steps: losses {losses}; median {ms_k:.3f} ms/step through the kernels "
           f"(all {[round(t, 3) for t in times]}), {p_times[1]:.3f} ms/step through the plain "
-          f"path (all {[round(t, 3) for t in p_times]}); batch 4, 4x, C=64", flush=True)
+          f"path (all {[round(t, 3) for t in p_times]}); batch {batch} of {patch}x{patch}-view "
+          f"patches, {ang_res}x{ang_res} views, 4x, C=64", flush=True)
     print(f"launches in the {what} run ({n_steps} kernel-path steps): {counts}", flush=True)
     if unfused:
         # one launch of each per-op training kernel per AltFilter block and step
         wrong = {k: counts[k] for k in LAUNCHES
-                 if counts[k] != (4 * n_steps if k in PEROP_TRAIN else 0)}
+                 if counts[k] != (4 * n_steps if k in expect else 0)}
         if wrong:
-            raise AssertionError(f"per-op train steps: expected 4 launches a step of each of "
-                                 f"{PEROP_TRAIN} and no other kernel, got {wrong}")
+            raise AssertionError(f"{what} steps: expected 4 launches a step of each of "
+                                 f"{expect} and no other kernel, got {wrong}")
     else:
         missing = [k for k in TRAINING if counts[k] == 0]
         if missing:
             raise AssertionError(f"training kernels not launched on the training path: {missing}")
-        extra = [k for k in PEROP if counts[k]]
+        extra = [k for k in PEROP + SWEEPS if counts[k]]
         if extra:
             raise AssertionError(f"per-op kernels launched by the fused train steps: {extra}")
     return counts, n_steps, ms_k
@@ -564,7 +626,8 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
 def perop_sr_phase(params, args, scenes, fused_cache, fused_psnr: float):
     """The two scenes through the unfused per-op branch, against the plain
     unfused path and the fused kernel path. Returns the launch counts of
-    the per-op run."""
+    the per-op run and the first scene's mosaics through the plain unfused
+    path and the per-op kernels."""
     import time
 
     import torch
@@ -589,12 +652,14 @@ def perop_sr_phase(params, args, scenes, fused_cache, fused_psnr: float):
                              f"scene and no other kernel, got {wrong}")
     t_psnr, _, _ = evaluate_dataset(forward, params, args, scenes, cache=tiled)
     d_tiled = d_fused = 0.0
+    first = None
     for lr, _ in scenes:
         lr_t = torch.from_numpy(lr).to(dev)
-        sr = perop(params, lr_t)
+        sr, sr_t = perop(params, lr_t), tiled(params, lr_t)
         if sr.shape != (lr.shape[0] * 4, lr.shape[1] * 4) or not torch.isfinite(sr).all():
             raise AssertionError(f"bad per-op SR mosaic {tuple(sr.shape)}")
-        d_tiled = max(d_tiled, float((sr - tiled(params, lr_t)).abs().max()))
+        first = first or {"the plain unfused path": sr_t, "the K7/K5 per-op path": sr}
+        d_tiled = max(d_tiled, float((sr - sr_t).abs().max()))
         d_fused = max(d_fused, float((sr - fused_cache(params, lr_t)).abs().max()))
     print(f"per-op kernel path vs plain unfused path: max |SR diff| {d_tiled:.3e} (limit 1e-3), "
           f"dPSNR {psnr - t_psnr:+.3e} dB (limit 0.01); vs the fused kernel path: max |SR diff| "
@@ -617,7 +682,77 @@ def perop_sr_phase(params, args, scenes, fused_cache, fused_psnr: float):
     print(f"scene SR, median of {2 * n} steady-state scenes: {a:.2f} ms/scene per-op kernels, "
           f"{b:.2f} ms/scene fused kernels, {ms_scene(tiled):.2f} ms/scene plain unfused",
           flush=True)
-    return counts
+    return counts, first
+
+
+def scene_phase(params, args, scene, what: str, expect: dict, refs=None, plain_impl=None,
+                default_call: bool = False, ang=None, spa=None):
+    """One scene through `evaluate_dataset` on the unfused branch (or, with
+    `default_call`, with default arguments, where the gates choose the
+    branch), the dispatchers' knobs set to `ang` / `spa`: the launches of the
+    run must be exactly `expect` (kernel -> count), the mosaic is held
+    against the mosaics of `refs` and, with `plain_impl`, against the plain
+    unfused path with that torch attention (max |diff| 1e-3, |dPSNR| 0.01 dB),
+    and a scene is timed. Returns the launch counts and the ms a scene."""
+    import time
+
+    import torch
+    from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
+    from lft_torch.kernels import LAUNCHES, reset_launches
+    from lft_torch.models.lft import forward
+    from lft_torch.ops.metrics import cal_metrics
+
+    dev = torch.device("cuda")
+    lr, hr = scene
+    lr_t, hr_t = torch.from_numpy(lr).to(dev), torch.from_numpy(hr).to(dev)
+    with variants(ang, spa):
+        cache = (ScenePipelineCache(forward, args) if default_call
+                 else ScenePipelineCache(forward, args, fused=False))
+        torch.cuda.synchronize()
+        reset_launches()
+        if default_call:
+            psnr, ssim, _ = evaluate_dataset(forward, params, args, [scene])
+        else:
+            psnr, ssim, _ = evaluate_dataset(forward, params, args, [scene], cache=cache)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        print(f"{what}: PSNR {psnr:.6f} dB SSIM {ssim:.6f}; launches "
+              f"{ {k: c for k, c in counts.items() if c} }", flush=True)
+        wrong = {k: c for k, c in counts.items() if c != expect.get(k, 0)}
+        if wrong:
+            raise AssertionError(f"{what}: expected exactly {expect} launches, got {wrong}")
+        sr = cache(params, lr_t)
+        if sr.shape != hr_t.shape or not torch.isfinite(sr).all():
+            raise AssertionError(f"{what}: bad SR mosaic {tuple(sr.shape)}")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache(params, lr_t)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    refs = dict(refs or {})
+    ms_p = None
+    if plain_impl is not None:
+        plain = ScenePipelineCache(forward, args, fused=False, attention_impl=plain_impl)
+        refs[f"the plain unfused path ({plain_impl} torch attention)"] = plain(params, lr_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain(params, lr_t)
+        torch.cuda.synchronize()
+        ms_p = (time.perf_counter() - t0) * 1e3
+    for name, ref in refs.items():
+        d = float((sr - ref).abs().max())
+        dp = psnr - float(cal_metrics(hr_t, ref, args.angRes)[0])
+        print(f"{what} vs {name}: max |SR diff| {d:.3e} (limit 1e-3), dPSNR {dp:+.3e} dB "
+              f"(limit 0.01)", flush=True)
+        if d > 1e-3 or abs(dp) > 0.01:
+            raise AssertionError(f"{what} disagrees with {name}")
+    ms = sorted(times)[1]
+    print(f"{what}: {ms:.2f} ms/scene (median of 3, all {[round(t, 2) for t in times]})"
+          + ("" if ms_p is None else f"; the plain unfused path {ms_p:.2f} ms/scene (one run)"),
+          flush=True)
+    return counts, ms
 
 
 def perop_kernel_checks(card: str, sr_counts: dict, n_scenes: int, train_counts: dict,
@@ -715,6 +850,150 @@ def perop_kernel_checks(card: str, sr_counts: dict, n_scenes: int, train_counts:
               f"(turns a b b a, median of 10 each)", flush=True)
         rows += rec.rows
     return rows
+
+
+def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps: int,
+                        seed: int) -> list:
+    """K8, K9 and K6 against their plain versions. The rows of the `kernels`
+    line: the primal at the serving shapes of the 5x5 scene (K8
+    [16384, 25, 64], K9 and K6 [400, 32, 32, 128]) with the launches of the
+    forced-variant scenes, the forward with (m, l) and the backward at the
+    training shapes ([4096, 25, 64], [100, 32, 32, 128]) with the launches of
+    the forced-variant train steps. Then the other shapes the paths give
+    them, all three forms each; then K5, K6, K9 and K2.3 in turns."""
+    import torch
+    import torch.nn.functional as F
+    from lft_torch.kernels import ang_attn_vjp as av
+    from lft_torch.kernels import local_attn_vjp as lv
+    from lft_torch.kernels import spa_attn as sa
+    from lft_torch.kernels import spa_attn_hp as hp
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.ops.attention import local_window_mask
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    rand = lambda *s_: torch.randn(*s_, device=dev, generator=g)
+    H, K = 8, 5
+    src8, src9, src6 = ("lft_torch/csrc/ang_attn_sweep.cu", "lft_torch/csrc/spa_attn_offset.cu",
+                        "lft_torch/csrc/spa_attn_mxu.cu")
+    rec_sr = Recorder(card, sr_counts, 1, "scene")
+    rec_tr = Recorder(card, train_counts, n_steps, "train step")
+
+    def k8(N, A2, C, forms, shape=None, reps=10):
+        q, k, v = rand(N, A2, C), rand(N, A2, C), rand(N, A2, C)
+        ref = av.ang_attention_sweep_plain(q, k, v, H)
+        heads = lambda t: t.reshape(N, A2, H, C // H).transpose(1, 2)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+        plain = lambda: av.ang_attention_sweep_plain(q, k, v, H)
+        fl = 4 * N * A2 * A2 * C
+        kw = dict(shape=shape, slow_reps=reps)
+        if "fwd" in forms:
+            rec_sr.record("ang_attn_sweep", src8, "lft_tpu/kernels/ang_attn_vjp.py:129",
+                          av.ang_attn_sweep_fwd(q, k, v, H), ref[0],
+                          lambda: av.ang_attn_sweep_fwd(q, k, v, H), plain, fl,
+                          nbytes(q, k, v, ref[0]), lib_fn=sdpa, **kw)
+        if "res" in forms:
+            rec_tr.record("ang_attn_sweep_res", src8, "lft_tpu/kernels/ang_attn_vjp.py:129",
+                          av.ang_attn_sweep_fwd(q, k, v, H, True), ref,
+                          lambda: av.ang_attn_sweep_fwd(q, k, v, H, True), plain, fl,
+                          nbytes(q, k, v, *ref), lib_fn=sdpa, **kw)
+        if "bwd" in forms:
+            out, m, l = ref
+            dout = rand(N, A2, C)
+            ref = av.ang_attention_sweep_bwd_plain(q, k, v, out, m, l, dout, H)
+            rec_tr.record("ang_attn_sweep_bwd", src8, "lft_tpu/kernels/ang_attn_vjp.py:158",
+                          av.ang_attn_sweep_bwd(q, k, v, out, m, l, dout, H), ref,
+                          lambda: av.ang_attn_sweep_bwd(q, k, v, out, m, l, dout, H),
+                          lambda: av.ang_attention_sweep_bwd_plain(q, k, v, out, m, l, dout, H),
+                          10 * N * A2 * A2 * C, nbytes(q, k, v, dout, out, m, l, *ref),
+                          rel=TRAIN_REL, **kw)
+
+    def window(which, V, h, w, E, forms, shape=None, reps=10):
+        """K9 (which = 9) or K6 (which = 6) at [V, h, w, E]."""
+        q, k, v = rand(V, h, w, E), rand(V, h, w, E), rand(V, h, w, E)
+        pairs = V * valid_window_pairs(h, w, K // 2)
+        mask = torch.from_numpy(local_window_mask(h, w, K) == 0).to(dev)
+        heads = lambda t: t.reshape(V, h * w, H, E // H).transpose(1, 2)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        # no library time where a dense [V, H, hw, hw] score tensor, should the call
+        # materialise one, would not fit beside the rest (the 64x64 views)
+        sdpa = (lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)) \
+            if V * H * (h * w) ** 2 * 4 <= 16e9 else None
+        kw = dict(shape=shape, slow_reps=reps)
+        if which == 9:
+            name, src, rep_f, rep_b = ("spa_attn_offset", src9,
+                                       "lft_tpu/kernels/local_attn_vjp.py:257",
+                                       "lft_tpu/kernels/local_attn_vjp.py:314")
+            fwd, plain = lv.spa_attn_offset_fwd, lv.windowed_attention_offset_plain
+        else:
+            name, src, rep_f, rep_b = ("spa_attn_mxu", src6, "lft_tpu/kernels/spa_attn.py:233",
+                                       "lft_tpu/kernels/spa_attn.py:271")
+            fwd, plain = sa.spa_attn_mxu_fwd, sa.windowed_attention_mxu_plain
+        ref = plain(q, k, v, H, K)
+        if "fwd" in forms:
+            rec_sr.record(name, src, rep_f, fwd(q, k, v, H, K), ref[0],
+                          lambda: fwd(q, k, v, H, K), lambda: plain(q, k, v, H, K),
+                          4 * E * pairs, nbytes(q, k, v, ref[0]), lib_fn=sdpa, **kw)
+        if "res" in forms:
+            rep_r = rep_f if which == 9 else "lft_tpu/kernels/spa_attn.py:220"
+            rec_tr.record(name + "_res", src, rep_r, fwd(q, k, v, H, K, True), ref,
+                          lambda: fwd(q, k, v, H, K, True), lambda: plain(q, k, v, H, K),
+                          4 * E * pairs, nbytes(q, k, v, *ref), lib_fn=sdpa, **kw)
+        if "bwd" in forms:
+            out, m, l = ref
+            dout = rand(V, h, w, E)
+            if which == 9:
+                res = (q, k, v, out, m, l, dout, H, K)
+                bwd, bwd_plain = lv.spa_attn_offset_bwd, lv.windowed_attention_offset_bwd_plain
+            else:
+                res = (q, k, v, m, l, dout, H, K)
+                bwd, bwd_plain = sa.spa_attn_mxu_bwd, sa.windowed_attention_mxu_bwd_plain
+            ref = bwd_plain(*res)
+            rec_tr.record(name + "_bwd", src, rep_b, bwd(*res), ref, lambda: bwd(*res),
+                          lambda: bwd_plain(*res), 10 * E * pairs,
+                          nbytes(*res[:-2], *ref), rel=TRAIN_REL, **kw)
+
+    # the rows: the 5x5 scene's chunk of 16 patches, the recipe's batch of 4
+    k8(16384, 25, 64, ("fwd",))
+    k8(4096, 25, 64, ("res", "bwd"))
+    for which in (9, 6):
+        window(which, 400, 32, 32, 128, ("fwd",))
+        window(which, 100, 32, 32, 128, ("res", "bwd"))
+    # the other shapes of the paths, every form: the 12x12-view scene's chunk
+    # of 9 patches and a 13x13-view one of a pixel count no group divides; the
+    # 30x30, 7x7 and 8x101 views that reach K9; the 64x64 and 8x101 views that
+    # reach K6 (the scene's chunk of 16 patches, and 9 of them)
+    all_forms = ("fwd", "res", "bwd")
+    k8(9216, 144, 64, all_forms, shape=(9216, 144, 64), reps=3)
+    k8(1001, 169, 64, all_forms, shape=(1001, 169, 64), reps=3)
+    for V, h, w in ((400, 30, 30), (400, 7, 7), (100, 8, 101)):
+        window(9, V, h, w, 128, all_forms, shape=(V, h, w, 128), reps=3)
+    for V, h, w in ((400, 64, 64), (225, 64, 64), (100, 8, 101)):
+        window(6, V, h, w, 128, all_forms, shape=(V, h, w, 128), reps=3)
+
+    # four kernels, one function: in turns a b c d d c b a at one shape
+    for V, bwd in ((400, False), (100, True)):
+        q, k, v, dout = (rand(V, 32, 32, 128) for _ in range(4))
+        if bwd:
+            out, m, l = hp.windowed_attention_headpacked_plain(q, k, v, H, K)
+            turns = [("K5 spa_attn_hp_bwd", lambda: hp.spa_attn_hp_bwd(q, k, v, m, l, dout, H, K)),
+                     ("K6 spa_attn_mxu_bwd", lambda: sa.spa_attn_mxu_bwd(q, k, v, m, l, dout, H, K)),
+                     ("K9 spa_attn_offset_bwd",
+                      lambda: lv.spa_attn_offset_bwd(q, k, v, out, m, l, dout, H, K)),
+                     ("K3.c spa_window_attn_bwd",
+                      lambda: sb.window_attn_bwd(q, k, v, out, dout, m, l, H, K))]
+        else:
+            turns = [("K5 spa_attn_hp", lambda: hp.spa_attn_hp_fwd(q, k, v, H, K)),
+                     ("K6 spa_attn_mxu", lambda: sa.spa_attn_mxu_fwd(q, k, v, H, K)),
+                     ("K9 spa_attn_offset", lambda: lv.spa_attn_offset_fwd(q, k, v, H, K)),
+                     ("K2.3 spa_window_attn", lambda: sb.window_attn(q, k, v, H, K))]
+        first = [timed(fn) for _, fn in turns]
+        second = [timed(fn) for _, fn in reversed(turns)][::-1]
+        print(f"at {[V, 32, 32, 128]} (turns a b c d d c b a, median of 10 each): "
+              + ", ".join(f"{n} {a:.4f} / {b:.4f} ms"
+                          for (n, _), a, b in zip(turns, first, second)), flush=True)
+    return rec_sr.rows + rec_tr.rows
 
 
 def angres9_phase(params, seed: int) -> None:
@@ -832,12 +1111,15 @@ def main(argv=None) -> int:
     from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
-    from lft_torch.kernels import FORWARD, LAUNCHES, PEROP, TRAINING, build_all, reset_launches
+    from lft_torch.kernels import (FORWARD, LAUNCHES, PEROP, SWEEPS, TRAINING, build_all,
+                                   reset_launches)
     from lft_torch.models.lft import forward
     from lft_torch.ops.bicubic import bicubic_upscale_views
     from lft_torch.ops.metrics import cal_metrics
     from lft_torch.utils.checkpoint import load_checkpoint
 
+    for knob in VARIANT_KNOBS:          # every phase sets the knobs it runs under
+        os.environ.pop(knob, None)
     card = card_line()
     print(card, flush=True)
     dev = resolve_device()
@@ -874,7 +1156,7 @@ def main(argv=None) -> int:
     missing = [k for k in FORWARD if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    extra = [k for k in TRAINING + PEROP if counts[k]]
+    extra = [k for k in TRAINING + PEROP + SWEEPS if counts[k]]
     if extra:
         raise AssertionError(f"training or per-op kernels launched by the SR run: {extra}")
 
@@ -912,7 +1194,7 @@ def main(argv=None) -> int:
     print(f"training phase: {time.time() - t0:.1f} s", flush=True)
 
     t0 = time.time()
-    sr_counts = perop_sr_phase(params, args, scenes, cache, psnr)
+    sr_counts, first = perop_sr_phase(params, args, scenes, cache, psnr)
     perop_counts, n_steps, ms_perop = train_phase(params, a.seed, unfused=True)
     print(f"train step, medians: {ms_perop:.3f} ms through the per-op kernels, {ms_fused:.3f} ms "
           f"through the fused blocks' kernels", flush=True)
@@ -920,6 +1202,65 @@ def main(argv=None) -> int:
     angres9_phase(params, a.seed)
     torch.cuda.synchronize()
     print(f"per-op phases: {time.time() - t0:.1f} s", flush=True)
+
+    # steps 13-14: K8 + K9, then K7 + K6, forced through the dispatchers' knobs
+    t0 = time.time()
+    sweep_sr, ms_sweep = scene_phase(
+        params, args, scenes[0], "per-op SR, sweep + offset (K8, K9)",
+        {"ang_attn_sweep": 16, "spa_attn_offset": 16}, refs=first, ang="sweep", spa="offset")
+    mxu_sr, ms_mxu = scene_phase(
+        params, args, scenes[0], "per-op SR, mxu (K7, K6)",
+        {"ang_attn": 16, "spa_attn_mxu": 16}, refs=first, spa="mxu")
+    del first
+    with variants("sweep", "offset"):
+        sweep_tr, n_steps, ms_sweep_tr = train_phase(
+            params, a.seed, unfused=True, what="sweep + offset train (K8, K9)",
+            expect=("ang_attn_sweep_res", "ang_attn_sweep_bwd", "spa_attn_offset_res",
+                    "spa_attn_offset_bwd"))
+    with variants(spa="mxu"):
+        mxu_tr, _, ms_mxu_tr = train_phase(
+            params, a.seed, unfused=True, what="mxu train (K7, K6)",
+            expect=("ang_attn_res", "ang_attn_bwd", "spa_attn_mxu_res", "spa_attn_mxu_bwd"))
+    print(f"per-op branch, 5x5 views at patch 32: K7/K5 (see above), K8/K9 {ms_sweep:.2f} "
+          f"ms/scene and {ms_sweep_tr:.3f} ms/step, K7/K6 {ms_mxu:.2f} ms/scene and "
+          f"{ms_mxu_tr:.3f} ms/step", flush=True)
+    print(f"forced-variant phases: {time.time() - t0:.1f} s", flush=True)
+
+    # step 15: the geometries that reach K8, K6 and K9 with the knobs unset
+    t0 = time.time()
+    geometries = [
+        # what, angRes, LR view, patch, stride, default call, SR launches, train kernels, batch
+        ("12x12 views (K8, K5)", 12, 48, 32, 16, True,
+         {"ang_attn_sweep": 4, "spa_attn_hp": 4},
+         ("ang_attn_sweep_res", "ang_attn_sweep_bwd", "spa_attn_hp_res", "spa_attn_hp_bwd"), 2),
+        ("64x64-view patches (K7, K6)", 5, 128, 64, 32, False,
+         {"ang_attn": 4, "spa_attn_mxu": 4},
+         ("ang_attn_res", "ang_attn_bwd", "spa_attn_mxu_res", "spa_attn_mxu_bwd"), 2),
+        ("30x30-view patches (K7, K9)", 5, 128, 30, 16, False,
+         {"ang_attn": 16, "spa_attn_offset": 16},
+         ("ang_attn_res", "ang_attn_bwd", "spa_attn_offset_res", "spa_attn_offset_bwd"), 4),
+    ]
+    for what, ang_res, view, patch, stride, default_call, expect, train_expect, batch in geometries:
+        g_args = Args(angRes=ang_res, scale_factor=4, channels=64, patch_size_for_test=patch,
+                      stride_for_test=stride, eval_batch=16)
+        scene = (scenes[0] if ang_res == 5 else
+                 lr_hr_pair(synth_lf_scene(ang_res, 4 * view, 4 * view, seed=a.seed), 4))
+        scene_phase(params, g_args, scene, f"SR, {what}", expect,
+                    plain_impl=plain_attention_impl(patch, patch), default_call=default_call)
+        train_phase(params, a.seed, unfused=True, what=f"train, {what}", ang_res=ang_res,
+                    patch=patch, batch=batch, train_fused="auto" if default_call else "false",
+                    expect=train_expect, steps=2)
+        torch.cuda.empty_cache()
+    print(f"geometry phases: {time.time() - t0:.1f} s", flush=True)
+
+    # step 16: every K8, K9, K6 kernel against its plain version
+    t0 = time.time()
+    rows += sweep_kernel_checks(card, {**sweep_sr, "spa_attn_mxu": mxu_sr["spa_attn_mxu"]},
+                                {**sweep_tr, **{k: mxu_tr[k] for k in
+                                                ("spa_attn_mxu_res", "spa_attn_mxu_bwd")}},
+                                n_steps, a.seed)
+    torch.cuda.synchronize()
+    print(f"sweep kernel checks: {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -54,7 +54,7 @@ class Args:
     log_every: int = 0                # per-iteration log line every N (0: off)
     attention_impl: str = "auto"      # auto | dense | tiled | pallas: the unfused
                                       # branch's attention; pallas = the per-op
-                                      # kernels (K7, K5), auto = pallas on CUDA
+                                      # kernels (K5-K9), auto = pallas on CUDA
     train_fused: str = "auto"         # auto | true | false: train through the
                                       # fused blocks (K1-K4); auto = on CUDA.
                                       # true on the CPU runs their plain

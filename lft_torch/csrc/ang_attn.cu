@@ -33,57 +33,13 @@
 // 4 x 105 MB (0.125 ms at 3.35 TB/s) for 2.6 GFLOP (0.04 ms at 67 TFLOP/s
 // FP32); the backward moves 7 tensors for 6.6 GFLOP of minimal work.
 
-#include "spa.cuh"
+#include "attn.cuh"
 
 using namespace lft;
 
 namespace {
 
 constexpr int H = 8;
-
-template <int DH>
-__device__ __forceinline__ void ld(const float* p, float (&r)[DH]) {
-  if constexpr (DH % 4 == 0) {
-#pragma unroll
-    for (int d = 0; d < DH; d += 4) {
-      const float4 t = load4(p + d);
-      r[d] = t.x; r[d + 1] = t.y; r[d + 2] = t.z; r[d + 3] = t.w;
-    }
-  } else {
-    static_assert(DH == 2, "head width 2, or a multiple of 4");
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    r[0] = t.x; r[1] = t.y;
-  }
-}
-
-template <int DH>
-__device__ __forceinline__ void st(float* p, const float (&r)[DH]) {
-  if constexpr (DH % 4 == 0) {
-#pragma unroll
-    for (int d = 0; d < DH; d += 4)
-      store4(p + d, make_float4(r[d], r[d + 1], r[d + 2], r[d + 3]));
-  } else {
-    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
-  }
-}
-
-template <int DH>
-__device__ __forceinline__ float dot(const float (&a)[DH], const float (&b)[DH]) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) s = fmaf(a[d], b[d], s);
-  return s;
-}
-
-// rows [row0, row0 + rows) of a [*, C] tensor -> a [rows][C + 4] tile
-template <int C>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      size_t row0, int rows) {
-  for (int i = threadIdx.x; i < rows * (C / 4); i += NT) {
-    const int r = i / (C / 4), c = 4 * (i % (C / 4));
-    store4(dst + r * (C + 4) + c, ldg4(src + (row0 + r) * C + c));
-  }
-}
 
 // ---- forward: one thread per (pixel, head, query view) --------------------
 template <int DH, bool STATS>

@@ -39,7 +39,7 @@
 // Bound on this card: the bytes. At [400, 32, 32, 128] the forward moves
 // 4 x 210 MB (0.25 ms at 3.35 TB/s) for 4.9 GFLOP (0.07 ms at 67 TFLOP/s).
 
-#include "spa.cuh"
+#include "attn.cuh"
 
 using namespace lft;
 
@@ -49,30 +49,6 @@ constexpr int H = 8;               // heads
 constexpr int QT = 8;              // query tile edge
 constexpr int HL = QT + 2 * R;     // halo edge
 constexpr int NQ = QT * QT, NH = HL * HL;
-
-template <int DH>
-__device__ __forceinline__ void ld(const float* p, float (&r)[DH]) {
-#pragma unroll
-  for (int d = 0; d < DH; d += 4) {
-    const float4 t = load4(p + d);
-    r[d] = t.x; r[d + 1] = t.y; r[d + 2] = t.z; r[d + 3] = t.w;
-  }
-}
-
-template <int DH>
-__device__ __forceinline__ void st(float* p, const float (&r)[DH]) {
-#pragma unroll
-  for (int d = 0; d < DH; d += 4)
-    store4(p + d, make_float4(r[d], r[d + 1], r[d + 2], r[d + 3]));
-}
-
-template <int DH>
-__device__ __forceinline__ float dot(const float (&a)[DH], const float (&b)[DH]) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) s = fmaf(a[d], b[d], s);
-  return s;
-}
 
 // Channels [c0, c0 + CW) of the tile's halo of one view image [h, w, E] ->
 // a [NH][CW + 4] tile, zero outside the image. `nt` threads take part.

@@ -24,7 +24,8 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("ang_block", "spa_block", "spa_block_bwd", "wgrad", "ang_attn", "spa_attn_hp")
+SOURCES = ("ang_block", "spa_block", "spa_block_bwd", "wgrad", "ang_attn", "spa_attn_hp",
+           "ang_attn_sweep", "spa_attn_offset", "spa_attn_mxu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,14 +37,20 @@ FORWARD = ("ang_block", "spa_tokenize_ln", "spa_qkv", "spa_window_attn",
 TRAINING = ("ang_block_res", "spa_window_attn_res", "ang_block_bwd", "spa_ffn_out_bwd",
             "spa_ln_qkv", "spa_window_attn_bwd", "spa_qkv_ln_bwd", "spa_tokenize_bwd",
             "wgrad", "colsum")
-# The kernels of the unfused per-op branch: K7 (angular attention) and K5
-# (window attention), each as the primal, with the residuals (m, l) of the
-# backward, and the backward.
+# The kernels of the unfused per-op branch's default pair: K7 (angular
+# attention) and K5 (window attention), each as the primal, with the residuals
+# (m, l) of the backward, and the backward.
 PEROP = ("ang_attn", "ang_attn_res", "ang_attn_bwd", "spa_attn_hp", "spa_attn_hp_res",
          "spa_attn_hp_bwd")
+# The branch's other trainable families, in the same three forms: K8 (the
+# key-view sweep: any view count), K9 (the 25-offset sweep: any view size) and
+# K6 (tile-dense: views of more than 2048 pixels).
+SWEEPS = ("ang_attn_sweep", "ang_attn_sweep_res", "ang_attn_sweep_bwd", "spa_attn_offset",
+          "spa_attn_offset_res", "spa_attn_offset_bwd", "spa_attn_mxu", "spa_attn_mxu_res",
+          "spa_attn_mxu_bwd")
 
 # kernel name -> launches since the last reset
-LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP}
+LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS}
 
 _libs: dict = {}
 _lock = threading.Lock()

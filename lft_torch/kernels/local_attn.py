@@ -1,16 +1,20 @@
 """Per-op spatial attention: the dispatch of `attention_impl='pallas'`
 (counterpart of lft_tpu/kernels/local_attn.py:130-179).
 
-The JAX dispatcher chooses among four kernel families. The port follows it
-branch for branch and has the default's first choice, K5 through the
-hybrid; the other branches name the kernel the JAX package would run (K6,
-K9, K10: still to port) and raise. The one branch that holds no kernel in
-the JAX package either, the tiled XLA op for views no 8x8 tile divides,
-goes to the port's tiled torch op.
+The JAX dispatcher chooses among four kernel families, and the port follows
+it branch for branch: the hybrid (K5, or K9 and K6 where no all-heads
+geometry exists) for a tileable view of at most 2048 pixels, the tile-dense
+K6 for a larger tileable view, the offset sweep K9 for a small view no tile
+divides. The tile-halo kernel K10 is still to port and its branch raises.
+The one branch that holds no kernel in the JAX package either, the tiled XLA
+op for views no 8x8 tile divides, goes to the port's tiled torch op.
 """
 
 from __future__ import annotations
 
+import os
+
+from lft_torch.kernels import local_attn_vjp
 from lft_torch.kernels.spa_attn import (local_attention_tile_mxu, pick_tile,
                                         windowed_attention_hybrid)
 
@@ -24,10 +28,14 @@ def local_attention_pallas(qn, v, in_proj_weight, out_proj_weight, num_heads: in
                            k: int = 5, t: int = 8, variant: str = "auto"):
     """Drop-in for `ops.attention.local_attention` on [B, h, w, E] token
     images through the port's kernels. variant: 'auto' resolves per
-    geometry and context; 'mxu' | 'offset' | 'tile' force one family."""
+    geometry and context; 'mxu' | 'offset' | 'tile' force one family. The
+    environment variable `LFT_SPA_VARIANT` overrides 'auto', as in the JAX
+    package."""
+    if variant == "auto":
+        variant = os.environ.get("LFT_SPA_VARIANT", "auto")
     if variant not in SPA_VARIANTS:
-        raise ValueError(f"unknown spatial attention variant {variant!r}; "
-                         f"valid: {SPA_VARIANTS}")
+        raise ValueError(f"unknown spatial attention variant {variant!r} "
+                         f"(LFT_SPA_VARIANT?); valid: {SPA_VARIANTS}")
     B, h, w, E = qn.shape
     tileable = pick_tile(h, w) is not None and E % num_heads == 0
     if variant == "auto" and tileable and h * w <= _MAX_HW_OFFSET:
@@ -41,10 +49,8 @@ def local_attention_pallas(qn, v, in_proj_weight, out_proj_weight, num_heads: in
         return local_attention(qn, v, in_proj_weight, out_proj_weight, num_heads, k=k,
                                impl="tiled")
     if use_offset:
-        raise NotImplementedError(
-            f"window attention of {h}x{w} views with variant={variant!r} takes the "
-            "offset-sweep kernel K9 (lft_tpu/kernels/local_attn_vjp.py), which is still to "
-            "port")
+        return local_attn_vjp.local_attention_pallas_ad(qn, v, in_proj_weight, out_proj_weight,
+                                                        num_heads, k)
     raise NotImplementedError(
         f"window attention of {h}x{w} views with variant={variant!r} takes the tile-halo "
         "kernel K10 (lft_tpu/kernels/local_attn.py:_windowed_attention_pallas), which is "

@@ -1,0 +1,187 @@
+"""K9: per-op 5x5-window attention as a sweep over the window's offsets, any
+view size (counterpart of lft_tpu/kernels/local_attn_vjp.py).
+
+`windowed_attention(q, k, v, num_heads, ksize)` maps projected [B, h, w, E]
+images to the attention output [B, h, w, E]: every pixel attends, per head,
+to the keys of its ksize x ksize window that lie inside the image (scale
+(E / heads)^-0.5 inside), computed as an online softmax over the window's
+offsets. It is the kernel with no tile: any h and w. On a CUDA tensor it
+launches the hand-written kernels of `lft_torch/csrc/spa_attn_offset.cu`; on
+a CPU tensor it runs the plain PyTorch versions below. There is no fallback
+from one to the other.
+
+Training: when grad mode is on and q, k or v requires grad it runs as
+`SpaOffsetFn`, whose forward also returns the per-(pixel, head) softmax max m
+and denominator l (`spa_attn_offset_res`) and saves (q, k, v, out, m, l), as
+the JAX package does; the backward (`spa_attn_offset_bwd`) takes
+D = rowsum_head(dout * out) from the saved output. All of it is f32 (the
+TPU backward streams k, v and dout as bf16 to fit its VMEM).
+
+A channel count that the heads do not divide is refused with a ValueError:
+the JAX kernel leaves the last E - heads * (E // heads) channels to no head
+and returns NaN in them (0 / 0), and the model never makes such a shape.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from lft_torch.kernels import _build
+from lft_torch.kernels.ang_block import _needs_grad
+from lft_torch.kernels.spa_attn_hp import (_check_shape as _check_kernel_shape, _window_offsets,
+                                           _window_valid)
+
+M_INIT = -1e30     # the sweep's first running max and the score of an out-of-image offset
+
+
+# --------------------------------------------------------- plain versions ---
+
+def _padded_heads(t, r: int, num_heads: int):
+    """[B, h, w, E] -> zero-padded [B, h + 2r, w + 2r, H, dh]."""
+    B, h, w, E = t.shape
+    return F.pad(t, (0, 0, r, r, r, r)).reshape(B, h + 2 * r, w + 2 * r, num_heads,
+                                                E // num_heads)
+
+
+def windowed_attention_offset_plain(q, k, v, num_heads: int, ksize: int):
+    """Plain version of K9's forward: the online softmax over the window's
+    offsets written out, an out-of-image offset scored M_INIT. Returns (out,
+    m, l), m and l [B, h, w, H] per pixel and head."""
+    B, h, w, E = q.shape
+    r, H, dh = ksize // 2, num_heads, E // num_heads
+    qh = q.reshape(B, h, w, H, dh) * float(dh) ** -0.5
+    kp, vp = _padded_heads(k, r, H), _padded_heads(v, r, H)
+    valid = torch.from_numpy(_window_valid(h, w, ksize)).to(q.device)
+    m = qh.new_full((B, h, w, H), M_INIT)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qh)
+    for j, (dy, dx) in enumerate(_window_offsets(ksize)):
+        ys, xs = slice(r + dy, r + dy + h), slice(r + dx, r + dx + w)
+        s = (qh * kp[:, ys, xs]).sum(-1).masked_fill(~valid[:, :, j, None], M_INIT)
+        m_new = torch.maximum(m, s)
+        corr, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * corr + p
+        acc = acc * corr[..., None] + p[..., None] * vp[:, ys, xs]
+        m = m_new
+    return (acc / l[..., None]).reshape(B, h, w, E).contiguous(), m, l
+
+
+def windowed_attention_offset_bwd_plain(q, k, v, out, m, l, dout, num_heads: int, ksize: int):
+    """Plain version of K9's backward: (dq, dk, dv) from (q, k, v, out, m, l,
+    dout), the identities written out offset by offset; dk and dv collect in
+    padded accumulators whose margins only ever receive zeros."""
+    B, h, w, E = q.shape
+    r, H, dh = ksize // 2, num_heads, E // num_heads
+    scale = float(dh) ** -0.5
+    qh = q.reshape(B, h, w, H, dh) * scale
+    doh = dout.reshape(B, h, w, H, dh)
+    kp, vp = _padded_heads(k, r, H), _padded_heads(v, r, H)
+    valid = torch.from_numpy(_window_valid(h, w, ksize)).to(q.device)
+    D = (doh * out.reshape(B, h, w, H, dh)).sum(-1)
+    dq = torch.zeros_like(qh)
+    dkp, dvp = torch.zeros_like(kp), torch.zeros_like(vp)
+    for j, (dy, dx) in enumerate(_window_offsets(ksize)):
+        ys, xs = slice(r + dy, r + dy + h), slice(r + dx, r + dx + w)
+        s = (qh * kp[:, ys, xs]).sum(-1)
+        a = (torch.exp(s - m) / l).masked_fill(~valid[:, :, j, None], 0.0)
+        ds = a * ((doh * vp[:, ys, xs]).sum(-1) - D)
+        dq += ds[..., None] * kp[:, ys, xs]
+        dkp[:, ys, xs] += ds[..., None] * qh
+        dvp[:, ys, xs] += a[..., None] * doh
+    crop = lambda t: t[:, r:r + h, r:r + w].reshape(B, h, w, E).contiguous()
+    return (dq * scale).reshape(B, h, w, E), crop(dkp), crop(dvp)
+
+
+# -------------------------------------------------------- kernel wrappers ---
+
+def _check_shape(kernel: str, q, num_heads: int, ksize: int) -> None:
+    E = q.shape[-1]
+    if E % num_heads:
+        raise ValueError(
+            f"{kernel}: {num_heads} heads do not divide E = {E}; the offset sweep would leave "
+            f"the last {E - num_heads * (E // num_heads)} channels to no head")
+    if q.device.type == "cuda":
+        _check_kernel_shape(kernel, q, num_heads, ksize)
+
+
+def spa_attn_offset_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
+    """K9's forward: the CUDA kernel for CUDA tensors (`spa_attn_offset`, or
+    `spa_attn_offset_res` with stats), the plain version for CPU tensors.
+    with_stats: (out, m, l), else out."""
+    name = "spa_attn_offset_res" if with_stats else "spa_attn_offset"
+    _check_shape(name, q, num_heads, ksize)
+    if q.device.type != "cuda":
+        out, m, l = windowed_attention_offset_plain(q, k, v, num_heads, ksize)
+        return (out, m, l) if with_stats else out
+    _build.check_cuda_args(name, q, k, v)
+    B, h, w, E = q.shape
+    out = torch.empty_like(q)
+    tail = (B, h, w, E, num_heads, float(E // num_heads) ** -0.5)
+    types = (ctypes.c_int,) * 5 + (ctypes.c_float,)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if not with_stats:
+        fn = _build.bind("spa_attn_offset", "lft_spa_attn_offset", 4, types)
+        _build.launch("spa_attn_offset", name, fn, q.device, *ptrs, *tail)
+        return out
+    m = torch.empty(B, h, w, num_heads, device=q.device)
+    l = torch.empty_like(m)
+    fn = _build.bind("spa_attn_offset", "lft_spa_attn_offset_res", 6, types)
+    _build.launch("spa_attn_offset", name, fn, q.device, *ptrs, m.data_ptr(), l.data_ptr(),
+                  *tail)
+    return out, m, l
+
+
+def spa_attn_offset_bwd(q, k, v, out, m, l, dout, num_heads: int, ksize: int):
+    """K9's backward (`spa_attn_offset_bwd`): (dq, dk, dv) [B, h, w, E]."""
+    _check_shape("spa_attn_offset_bwd", q, num_heads, ksize)
+    if q.device.type != "cuda":
+        return windowed_attention_offset_bwd_plain(q, k, v, out, m, l, dout, num_heads, ksize)
+    _build.check_cuda_args("spa_attn_offset_bwd", q, k, v, dout, out, m, l)
+    B, h, w, E = q.shape
+    dsum = torch.empty_like(m)                  # the kernels' scratch: D per pixel and head
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    fn = _build.bind("spa_attn_offset", "lft_spa_attn_offset_bwd", 11,
+                     (ctypes.c_int,) * 5 + (ctypes.c_float,))
+    _build.launch("spa_attn_offset", "spa_attn_offset_bwd", fn, q.device,
+                  *(t.data_ptr() for t in (q, k, v, dout, out, m, l, dsum, *grads)),
+                  B, h, w, E, num_heads, float(E // num_heads) ** -0.5)
+    return grads
+
+
+class SpaOffsetFn(torch.autograd.Function):
+    """K9 with stats forward, K9's backward; saves (q, k, v, out, m, l)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, ksize):
+        out, m, l = spa_attn_offset_fwd(q, k, v, num_heads, ksize, with_stats=True)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.cfg = (num_heads, ksize)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        return (*spa_attn_offset_bwd(q, k, v, out, m, l, dout.contiguous(), *ctx.cfg),
+                None, None)
+
+
+def windowed_attention(q, k, v, num_heads: int, ksize: int = 5):
+    """Differentiable window attention on projected [B, h, w, E] q/k/v, any
+    h and w."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _needs_grad(q, k, v):
+        return SpaOffsetFn.apply(q, k, v, num_heads, ksize)
+    return spa_attn_offset_fwd(q, k, v, num_heads, ksize)
+
+
+def local_attention_pallas_ad(qn, v, in_proj_weight, out_proj_weight, num_heads: int,
+                              k: int = 5):
+    """Drop-in for ops.attention.local_attention (q = k from `qn`, v raw;
+    torch-packed projections): the projections as `torch.matmul`, K9 for the
+    window attention itself."""
+    wq, wk, wv = in_proj_weight.chunk(3, dim=0)
+    out = windowed_attention(qn @ wq.T, qn @ wk.T, v @ wv.T, num_heads, k)
+    return out @ out_proj_weight.T

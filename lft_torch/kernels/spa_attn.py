@@ -1,24 +1,49 @@
-"""Per-op 5x5-window spatial attention: tile choice, the hybrid and the
-projection wrapper (counterpart of lft_tpu/kernels/spa_attn.py).
+"""Per-op 5x5-window spatial attention: the tile-dense kernel K6, the hybrid
+and the projection wrapper (counterpart of lft_tpu/kernels/spa_attn.py).
 
-The JAX module holds the tile-dense kernel K6 and a hybrid that picks a
-kernel per context. The port has the hybrid's first choice, the all-heads
-kernel K5 (kernels/spa_attn_hp.py), for the primal and for the training
-pair; where the JAX package would take the offset sweep K9 (primal without
-a head-packed geometry) or the tile-dense pair K6, the port raises and
-names the kernel: both are still to port.
+`windowed_attention_mxu(q, k, v, num_heads, ksize)` maps projected
+[B, h, w, E] images to the window attention's output, tile by tile: the view
+is cut into `pick_tile`'s th x tw query tiles, each tile's queries are scored
+against its whole (th+4) x (tw+4) key halo, masked (outside the window or the
+image: -1e30) and put through a plain softmax. On a CUDA tensor it launches
+the hand-written kernels of `lft_torch/csrc/spa_attn_mxu.cu`; on a CPU tensor
+it runs the plain PyTorch versions below. There is no fallback from one to
+the other. The JAX module's name is kept; the matrix unit it names is the
+TPU's.
+
+Training: when grad mode is on and q, k or v requires grad it runs as
+`SpaMxuFn`, whose forward also returns the per-(pixel, head) softmax max m
+and denominator l (`spa_attn_mxu_res`) and saves only (q, k, v, m, l), as the
+JAX package does; the backward (`spa_attn_mxu_bwd`) rebuilds the
+probabilities from them and takes D from a * (dout v^T).
+
+`windowed_attention_hybrid` picks a kernel per context as the JAX hybrid does
+off a TPU: the all-heads kernel K5 (kernels/spa_attn_hp.py) for the primal and
+for the training pair wherever `headpacked_applicable`; else the offset sweep
+K9 for the primal and the tile-dense pair K6 for training.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from lft_torch.kernels import _build, local_attn_vjp
 from lft_torch.kernels.ang_block import _needs_grad
-from lft_torch.kernels.spa_attn_hp import headpacked_applicable, windowed_attention_headpacked
+from lft_torch.kernels.spa_attn_hp import (_check_shape, headpacked_applicable,
+                                           windowed_attention_headpacked)
+
+MASKED = -1e30     # the additive mask of a key outside the window or the image
 
 
 def pick_tile(h: int, w: int):
     """Same outcome as lft_tpu.kernels.spa_attn.pick_tile: the rectangular
     query tile (th, tw) dividing (h, w), or None if only degenerate tilings
-    exist. The port uses only whether one exists: it decides the dispatch."""
+    exist. It decides the dispatch, and it is K6's query tile."""
     for target in (128, 64, 32, 16, 8):
         for th in (8, 16, 4, 32, 64, 128, 2, 1):
             if th > target:
@@ -29,28 +54,208 @@ def pick_tile(h: int, w: int):
     return None
 
 
-def windowed_attention_mxu(q_img, k_img, v_img, num_heads: int, k: int):
-    """The tile-dense kernel K6 and its backward: still to port."""
-    B, h, w, E = q_img.shape
-    raise NotImplementedError(
-        f"window attention of {h}x{w} views (E={E}) takes the tile-dense kernel K6 "
-        "(lft_tpu/kernels/spa_attn.py:windowed_attention_mxu), which is still to port")
+# --------------------------------------------------------- plain versions ---
+
+@functools.lru_cache(maxsize=None)
+def _tile_mask(th: int, tw: int, r: int, h: int, w: int) -> np.ndarray:
+    """[n_tiles, th*tw, (th+2r)*(tw+2r)] bool: halo key j lies in the image
+    and in the window of the tile's query i."""
+    hl_w = tw + 2 * r
+    qi = np.arange(th * tw)[:, None]
+    ki = np.arange((th + 2 * r) * hl_w)[None, :]
+    q_y, q_x = qi // tw, qi % tw
+    k_y, k_x = ki // hl_w - r, ki % hl_w - r
+    in_win = (np.abs(q_y - k_y) <= r) & (np.abs(q_x - k_x) <= r)
+    tiles = [in_win & (ti * th + k_y >= 0) & (ti * th + k_y < h)
+             & (tj * tw + k_x >= 0) & (tj * tw + k_x < w)
+             for ti in range(h // th) for tj in range(w // tw)]
+    return np.asarray(tiles)
+
+
+def _to_tiles(t, th: int, tw: int, num_heads: int):
+    """[B, h, w, H*d] -> [B, n_tiles, H, th*tw, d]."""
+    B, h, w, E = t.shape
+    t = t.reshape(B, h // th, th, w // tw, tw, num_heads, E // num_heads)
+    return t.permute(0, 1, 3, 5, 2, 4, 6).reshape(B, -1, num_heads, th * tw, E // num_heads)
+
+
+def _from_tiles(t, h: int, w: int, th: int, tw: int):
+    """Inverse of `_to_tiles`: [B, n_tiles, H, th*tw, d] -> [B, h, w, H*d]."""
+    B, _, H, _, d = t.shape
+    t = t.reshape(B, h // th, w // tw, H, th, tw, d)
+    return t.permute(0, 1, 4, 2, 5, 3, 6).reshape(B, h, w, H * d)
+
+
+def _to_halos(t, th: int, tw: int, r: int, num_heads: int):
+    """[B, h, w, E] -> [B, n_tiles, H, nk, dh]: every tile's zero-padded halo."""
+    B, h, w, E = t.shape
+    blocks = F.pad(t, (0, 0, r, r, r, r)).unfold(1, th + 2 * r, th).unfold(2, tw + 2 * r, tw)
+    blocks = blocks.reshape(B, -1, num_heads, E // num_heads, (th + 2 * r) * (tw + 2 * r))
+    return blocks.transpose(-1, -2)
+
+
+def _add_halos(t, h: int, w: int, th: int, tw: int, r: int):
+    """Adjoint of `_to_halos`: [B, n_tiles, H, nk, dh] -> [B, h, w, E], each
+    key summed over the tiles whose halo holds it."""
+    B, _, H, _, dh = t.shape
+    t = t.reshape(B, h // th, w // tw, H, th + 2 * r, tw + 2 * r, dh).permute(0, 1, 2, 4, 5, 3, 6)
+    out = t.new_zeros(B, h + 2 * r, w + 2 * r, H, dh)
+    for ti in range(h // th):
+        for tj in range(w // tw):
+            out[:, ti * th:ti * th + th + 2 * r, tj * tw:tj * tw + tw + 2 * r] += t[:, ti, tj]
+    return out[:, r:r + h, r:r + w].reshape(B, h, w, H * dh).contiguous()
+
+
+def _tile_geometry(q, num_heads: int, ksize: int):
+    B, h, w, E = q.shape
+    tile = pick_tile(h, w)
+    if tile is None or E % num_heads:
+        raise ValueError(f"no valid query tile for ({h}, {w}), or {num_heads} heads do not "
+                         f"divide E = {E}; use the offset or the tiled spatial attention")
+    return tile, ksize // 2
+
+
+def _view_chunks(B: int, per_view: int) -> int:
+    """Views a plain pass takes at once, so that one dense [.., nq, nk] score
+    tensor stays near 2^28 floats."""
+    return max(1, min(B, (1 << 28) // per_view))
+
+
+def _scores(q_t, k_t, mask, scale: float):
+    return (q_t * scale) @ k_t.transpose(-1, -2) + mask
+
+
+def windowed_attention_mxu_plain(q, k, v, num_heads: int, ksize: int):
+    """Plain version of K6's forward with stats: per tile and head the dense
+    masked scores, a plain softmax, a @ v. Returns (out, m, l), m and l
+    [B, h, w, H] per pixel and head."""
+    (th, tw), r = _tile_geometry(q, num_heads, ksize)
+    B, h, w, E = q.shape
+    H, scale = num_heads, float(E // num_heads) ** -0.5
+    valid = torch.from_numpy(_tile_mask(th, tw, r, h, w)).to(q.device)[:, None]
+    mask = torch.zeros(valid.shape, device=q.device).masked_fill(~valid, MASKED)
+    outs, ms, ls = [], [], []
+    step = _view_chunks(B, valid.numel() * H)
+    for b0 in range(0, B, step):
+        sl = slice(b0, b0 + step)
+        s = _scores(_to_tiles(q[sl], th, tw, H), _to_halos(k[sl], th, tw, r, H), mask, scale)
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        l = e.sum(-1, keepdim=True)
+        outs.append(_from_tiles((e / l) @ _to_halos(v[sl], th, tw, r, H), h, w, th, tw))
+        ms.append(_from_tiles(m, h, w, th, tw))
+        ls.append(_from_tiles(l, h, w, th, tw))
+    return torch.cat(outs).contiguous(), torch.cat(ms).contiguous(), torch.cat(ls).contiguous()
+
+
+def windowed_attention_mxu_bwd_plain(q, k, v, m, l, dout, num_heads: int, ksize: int):
+    """Plain version of K6's backward: (dq, dk, dv) from (q, k, v, m, l,
+    dout), the dense identities written out per tile (D = rowsum(a * dout
+    v^T)), dk and dv summed over the tiles that share a key."""
+    (th, tw), r = _tile_geometry(q, num_heads, ksize)
+    B, h, w, E = q.shape
+    H, scale = num_heads, float(E // num_heads) ** -0.5
+    valid = torch.from_numpy(_tile_mask(th, tw, r, h, w)).to(q.device)[:, None]
+    mask = torch.zeros(valid.shape, device=q.device).masked_fill(~valid, MASKED)
+    grads = ([], [], [])
+    step = _view_chunks(B, valid.numel() * H)
+    for b0 in range(0, B, step):
+        sl = slice(b0, b0 + step)
+        q_t, do_t = _to_tiles(q[sl], th, tw, H), _to_tiles(dout[sl], th, tw, H)
+        k_t, v_t = _to_halos(k[sl], th, tw, r, H), _to_halos(v[sl], th, tw, r, H)
+        m_t, l_t = _to_tiles(m[sl], th, tw, H), _to_tiles(l[sl], th, tw, H)
+        a = torch.exp(_scores(q_t, k_t, mask, scale) - m_t) / l_t
+        dov = do_t @ v_t.transpose(-1, -2)
+        ds = a * (dov - (a * dov).sum(-1, keepdim=True)) * scale
+        grads[0].append(_from_tiles(ds @ k_t, h, w, th, tw))
+        grads[1].append(_add_halos(ds.transpose(-1, -2) @ q_t, h, w, th, tw, r))
+        grads[2].append(_add_halos(a.transpose(-1, -2) @ do_t, h, w, th, tw, r))
+    return tuple(torch.cat(g).contiguous() for g in grads)
+
+
+# -------------------------------------------------------- kernel wrappers ---
+
+def spa_attn_mxu_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
+    """K6's forward: the CUDA kernel for CUDA tensors (`spa_attn_mxu`, or
+    `spa_attn_mxu_res` with stats), the plain version for CPU tensors.
+    with_stats: (out, m, l), else out."""
+    if q.device.type != "cuda":
+        out, m, l = windowed_attention_mxu_plain(q, k, v, num_heads, ksize)
+        return (out, m, l) if with_stats else out
+    name = "spa_attn_mxu_res" if with_stats else "spa_attn_mxu"
+    _check_shape(name, q, num_heads, ksize)
+    (th, tw), _ = _tile_geometry(q, num_heads, ksize)
+    _build.check_cuda_args(name, q, k, v)
+    B, h, w, E = q.shape
+    out = torch.empty_like(q)
+    tail = (B, h, w, E, num_heads, th, tw, float(E // num_heads) ** -0.5)
+    types = (ctypes.c_int,) * 7 + (ctypes.c_float,)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if not with_stats:
+        fn = _build.bind("spa_attn_mxu", "lft_spa_attn_mxu", 4, types)
+        _build.launch("spa_attn_mxu", name, fn, q.device, *ptrs, *tail)
+        return out
+    m = torch.empty(B, h, w, num_heads, device=q.device)
+    l = torch.empty_like(m)
+    fn = _build.bind("spa_attn_mxu", "lft_spa_attn_mxu_res", 6, types)
+    _build.launch("spa_attn_mxu", name, fn, q.device, *ptrs, m.data_ptr(), l.data_ptr(), *tail)
+    return out, m, l
+
+
+def spa_attn_mxu_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int):
+    """K6's backward (`spa_attn_mxu_bwd`): (dq, dk, dv) [B, h, w, E]."""
+    if q.device.type != "cuda":
+        return windowed_attention_mxu_bwd_plain(q, k, v, m, l, dout, num_heads, ksize)
+    _check_shape("spa_attn_mxu_bwd", q, num_heads, ksize)
+    (th, tw), _ = _tile_geometry(q, num_heads, ksize)
+    _build.check_cuda_args("spa_attn_mxu_bwd", q, k, v, dout, m, l)
+    B, h, w, E = q.shape
+    dsum = torch.empty_like(m)                  # the kernels' scratch: D per pixel and head
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    fn = _build.bind("spa_attn_mxu", "lft_spa_attn_mxu_bwd", 10,
+                     (ctypes.c_int,) * 7 + (ctypes.c_float,))
+    _build.launch("spa_attn_mxu", "spa_attn_mxu_bwd", fn, q.device,
+                  *(t.data_ptr() for t in (q, k, v, dout, m, l, dsum, *grads)),
+                  B, h, w, E, num_heads, th, tw, float(E // num_heads) ** -0.5)
+    return grads
+
+
+class SpaMxuFn(torch.autograd.Function):
+    """K6 with stats forward, K6's backward; saves (q, k, v, m, l)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, ksize):
+        out, m, l = spa_attn_mxu_fwd(q, k, v, num_heads, ksize, with_stats=True)
+        ctx.save_for_backward(q, k, v, m, l)
+        ctx.cfg = (num_heads, ksize)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, m, l = ctx.saved_tensors
+        return (*spa_attn_mxu_bwd(q, k, v, m, l, dout.contiguous(), *ctx.cfg), None, None)
+
+
+def windowed_attention_mxu(q_img, k_img, v_img, num_heads: int, k: int = 5):
+    """Differentiable tile-dense window attention on projected [B, h, w, E]
+    q/k/v; needs `pick_tile(h, w)`."""
+    q, kk, v = q_img.contiguous(), k_img.contiguous(), v_img.contiguous()
+    if _needs_grad(q, kk, v):
+        return SpaMxuFn.apply(q, kk, v, num_heads, k)
+    return spa_attn_mxu_fwd(q, kk, v, num_heads, k)
 
 
 def windowed_attention_hybrid(q_img, k_img, v_img, num_heads: int, k: int):
     """Window attention with the kernel chosen per context, as the JAX
     hybrid chooses off a TPU: K5 for the primal and for the training pair
-    whenever `headpacked_applicable`; else K9 (primal) or K6 (training),
-    which raise as still to port."""
+    wherever `headpacked_applicable`; else K9 for the primal and K6 for the
+    training pair. The caller ensures `pick_tile(h, w)` and h*w <= 2048."""
     B, h, w, E = q_img.shape
     if headpacked_applicable(h, w, E, num_heads, k):
         return windowed_attention_headpacked(q_img, k_img, v_img, num_heads, k)
     if _needs_grad(q_img, k_img, v_img):
         return windowed_attention_mxu(q_img, k_img, v_img, num_heads, k)
-    raise NotImplementedError(
-        f"window attention of {h}x{w} views (E={E}, heads={num_heads}) has no head-packed "
-        "geometry and takes the offset-sweep kernel K9 "
-        "(lft_tpu/kernels/local_attn_vjp.py), which is still to port")
+    return local_attn_vjp.windowed_attention(q_img, k_img, v_img, num_heads, k)
 
 
 def local_attention_tile_mxu(qn, v, in_proj_weight, out_proj_weight, num_heads: int,

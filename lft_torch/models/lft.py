@@ -24,14 +24,18 @@ Two branches, as in the JAX package:
   otherwise, as in inference, the residual-free kernels;
 * unfused: LayerNorm, projections, FFN and residuals as plain torch ops
   around the two attentions, which `attention_impl` selects: `pallas`, the
-  default on CUDA, runs them as the per-op kernels K7 (angular) and K5
-  (5x5 window), each an autograd Function with a kernel backward, so the
-  branch serves and trains on the card; `tiled`/`dense` are the plain
-  reference (ops/attention.py), the default on the CPU. It is also where a
-  geometry goes that fails a fused gate, and a training forward whose view
-  count the backward kernel K4 does not take (64 < A2 <= 128). Where the
-  JAX dispatch would pick a per-op kernel that is still to port (K6, K8,
-  K9, K10) the branch raises and names it.
+  default on CUDA, runs them as the per-op kernels, each an autograd
+  Function with a kernel backward, so the branch serves and trains on the
+  card; `tiled`/`dense` are the plain reference (ops/attention.py), the
+  default on the CPU. The kernels are chosen per geometry as the JAX
+  package chooses them (kernels/ang_attn.py, kernels/local_attn.py): K7 for
+  A2 <= 128 and the key-view sweep K8 beyond; K5 for 32x32 views, the
+  tile-dense K6 for tileable views of more than 2048 pixels (64x64), the
+  offset sweep K9 for small views no tile divides (30x30). The branch is
+  also where a geometry goes that fails a fused gate (angRes >= 12), and a
+  training forward whose view count the backward kernel K4 does not take
+  (64 < A2 <= 128). Only the forward-only tile-halo kernel K10 is still to
+  port; its variant raises and names it.
 """
 
 from __future__ import annotations

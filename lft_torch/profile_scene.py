@@ -14,7 +14,9 @@ scenes of 128x128 LR views, and runs the tiled pipeline (patch 32, stride
 
 `--plain` runs the blocks' plain PyTorch versions instead of the kernels.
 `--unfused` runs the per-op branch (`fused=False`): the attentions as the
-kernels K7 and K5, or with `--plain` as the tiled torch ops.
+kernels K7 and K5, or with `--plain` as the tiled torch ops. The environment
+variables `LFT_ANG_VARIANT=sweep` and `LFT_SPA_VARIANT=offset|mxu` send that
+branch through K8, K9 or K6 instead; the kernels a scene launched are printed.
 Prints the card's name and power limit first. Exits non-zero without a card.
 """
 
@@ -46,6 +48,7 @@ def main(argv=None) -> int:
     from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache
+    from lft_torch.kernels import LAUNCHES, reset_launches
     from lft_torch.models.lft import forward
     from lft_torch.utils.checkpoint import load_checkpoint
 
@@ -63,8 +66,11 @@ def main(argv=None) -> int:
            .to(dev) for i in range(a.scenes)]
     mpx = (lrs[0].shape[0] * 4) * (lrs[0].shape[1] * 4) / 1e6
 
+    reset_launches()
     cache(params, lrs[0])                      # warm-up
     torch.cuda.synchronize()
+    print(f"variants {variant_knobs()}; kernel launches of one scene: "
+          f"{ {k: n for k, n in LAUNCHES.items() if n} }", flush=True)
     times = []
     for lr in lrs:
         t0 = time.perf_counter()
@@ -93,6 +99,11 @@ def path_kw(plain: bool, unfused: bool):
         return (dict(fused=False, attention_impl="tiled" if plain else "pallas"),
                 "unfused, tiled torch attention" if plain else "unfused, per-op kernels")
     return dict(plain_blocks=plain), "plain blocks" if plain else "kernels"
+
+
+def variant_knobs() -> dict:
+    """The per-op dispatchers' environment knobs as they are set."""
+    return {k: os.environ.get(k, "unset") for k in ("LFT_ANG_VARIANT", "LFT_SPA_VARIANT")}
 
 
 def report(prof, wall: float, what: str, top: int) -> None:

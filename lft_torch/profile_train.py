@@ -15,6 +15,9 @@ batch 4 of 32x32-view patches made on the card by `synth_batch`:
 instead of the kernels; `--unfused` trains the per-op branch
 (`--train_fused false`): the attentions as the kernels K7 and K5 with their
 kernel backwards, or with `--plain` as the tiled torch ops under autograd.
+The environment variables `LFT_ANG_VARIANT=sweep` and
+`LFT_SPA_VARIANT=offset|mxu` send that branch through K8, K9 or K6 instead;
+the kernels a step launched are printed.
 Prints the card's name and power limit first.
 Exits non-zero without a card.
 """
@@ -49,7 +52,8 @@ def main(argv=None) -> int:
     from lft_torch.data.device_synth import synth_batch
     from lft_torch.device import resolve_device
     from lft_torch.models.lft import forward
-    from lft_torch.profile_scene import path_kw, report
+    from lft_torch.kernels import LAUNCHES, reset_launches
+    from lft_torch.profile_scene import path_kw, report, variant_knobs
     from lft_torch.registry import get_model
     from lft_torch.training.optim import make_optimizer
     from lft_torch.training.trainer import make_train_step
@@ -76,8 +80,11 @@ def main(argv=None) -> int:
                for _ in range(a.steps + 3)]
 
     for lr, hr in batches[:2]:                 # warm-up
+        reset_launches()
         step(params, lr, hr)
     torch.cuda.synchronize()
+    print(f"variants {variant_knobs()}; kernel launches of one step: "
+          f"{ {k: n for k, n in LAUNCHES.items() if n} }", flush=True)
     times = []
     for lr, hr in batches[2:-1]:
         t0 = time.perf_counter()

@@ -12,8 +12,9 @@ fresh moments with the schedule fast-forwarded to the checkpoint's epoch.
 On the card the model trains through the fused blocks, whose backwards are
 the hand-written K4/K3 kernels with deterministic weight-gradient
 reductions, or with `--train_fused false` through the unfused branch, whose
-two attentions are the per-op kernels K7 and K5 with kernel backwards (no
-atomics) and everything else torch's own autograd. cuDNN is held to
+two attentions are the per-op kernels (K7 and K5, or K8, K9 and K6 where the
+geometry or the `LFT_ANG_VARIANT` / `LFT_SPA_VARIANT` knobs send them) with
+kernel backwards (no atomics) and everything else torch's own autograd. cuDNN is held to
 deterministic algorithms: the same state and batch give the same update bit
 for bit.
 """

@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from lft_torch.config import Args
-from lft_torch.kernels import (FORWARD, LAUNCHES, PEROP, ang_attn_mxu, ang_block, reset_launches,
-                               spa_attn_hp, spa_block, wgrad)
+from lft_torch.kernels import (FORWARD, LAUNCHES, PEROP, SWEEPS, ang_attn_mxu, ang_attn_vjp,
+                               ang_block, local_attn_vjp, reset_launches, spa_attn, spa_attn_hp,
+                               spa_block, wgrad)
 from lft_torch.models import lft
 from lft_torch.ops.posenc import angular_position
 
@@ -316,19 +317,117 @@ def test_spa_attn_hp_kernels(cuda_device, C, h, w):
 
 @pytest.mark.cuda
 def test_perop_wrappers_raise_on_card_instead_of_falling_back(cuda_device):
-    from lft_torch.kernels.ang_attn import ang_attention_pallas
     from lft_torch.kernels.local_attn import local_attention_pallas
     g = torch.Generator(device=cuda_device).manual_seed(0)
     r = lambda *s: torch.randn(*s, device=cuda_device, generator=g)
-    with pytest.raises(NotImplementedError, match="K8"):
-        ang_attention_pallas(r(2, 144, 16), r(2, 144, 16), r(48, 16), r(16, 16), 8)
     with pytest.raises(NotImplementedError, match="kernel takes"):
         ang_attn_mxu.ang_attn_fwd(r(2, 25, 24), r(2, 25, 24), r(2, 25, 24), 8)
-    with pytest.raises(NotImplementedError, match="K6"):
+    with pytest.raises(NotImplementedError, match="kernel takes"):
+        ang_attn_vjp.ang_attn_sweep_fwd(r(2, 144, 24), r(2, 144, 24), r(2, 144, 24), 8)
+    with pytest.raises(NotImplementedError, match="K10"):
         local_attention_pallas(r(1, 16, 16, 32), r(1, 16, 16, 32), r(96, 32), r(32, 32), 8,
-                               variant="mxu")
+                               variant="tile")
     with pytest.raises(NotImplementedError, match="kernel takes"):
         spa_attn_hp.spa_attn_hp_fwd(r(1, 8, 8, 24), r(1, 8, 8, 24), r(1, 8, 8, 24), 8, 5)
+    with pytest.raises(NotImplementedError, match="kernel takes"):
+        spa_attn.spa_attn_mxu_fwd(r(1, 8, 8, 24), r(1, 8, 8, 24), r(1, 8, 8, 24), 8, 5)
+    with pytest.raises(ValueError, match="no valid query tile"):
+        spa_attn.spa_attn_mxu_fwd(r(1, 7, 7, 32), r(1, 7, 7, 32), r(1, 7, 7, 32), 8, 5)
+    with pytest.raises(NotImplementedError, match="kernel takes"):
+        local_attn_vjp.spa_attn_offset_fwd(r(1, 8, 8, 24), r(1, 8, 8, 24), r(1, 8, 8, 24), 8, 5)
+    with pytest.raises(ValueError, match="do not divide"):
+        local_attn_vjp.spa_attn_offset_fwd(r(1, 8, 8, 36), r(1, 8, 8, 36), r(1, 8, 8, 36), 8, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        local_attn_vjp.spa_attn_offset_fwd(*(r(1, 8, 32, 8).transpose(2, 3) for _ in range(3)),
+                                           8, 5)
+
+
+# ------------------------------------------ per-op kernels K8, K9 and K6 ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,N,A2", [(16, 37, 25), (32, 37, 25), (64, 37, 25), (64, 7, 144),
+                                    (64, 3, 169), (32, 11, 9), (64, 2, 400), (16, 1, 1)])
+def test_ang_attn_sweep_kernels(cuda_device, C, N, A2):
+    """K8 forward, forward with stats and backward against their plain
+    versions: every channel width, N that fills no group, view counts of
+    one chunk, several chunks and past K7's gate; the backward repeats bit
+    for bit; the same function as K7 where K7 takes the shape."""
+    g = torch.Generator(device=cuda_device).manual_seed(C + A2)
+    q, k, v, dout = (torch.randn(N, A2, C, device=cuda_device, generator=g) for _ in range(4))
+    ref = ang_attn_vjp.ang_attention_sweep_plain(q, k, v, 8)
+    reset_launches()
+    _close(ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, 8), ref[0], 1e-4)
+    _close(ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, 8, with_stats=True), ref, 1e-4)
+    out, m, l = ref
+    got = ang_attn_vjp.ang_attn_sweep_bwd(q, k, v, out, m, l, dout, 8)
+    torch.cuda.synchronize()
+    assert [LAUNCHES[n] for n in SWEEPS[:3]] == [1, 1, 1]
+    assert sum(LAUNCHES.values()) == 3
+    _close(got, ang_attn_vjp.ang_attention_sweep_bwd_plain(q, k, v, out, m, l, dout, 8))
+    again = ang_attn_vjp.ang_attn_sweep_bwd(q, k, v, out, m, l, dout, 8)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if A2 <= 128:
+        _close(ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, 8), ang_attn_mxu.ang_attn_fwd(q, k, v, 8),
+               1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,h,w", [(16, 20, 12), (32, 9, 7), (64, 32, 32), (64, 30, 30),
+                                   (64, 7, 7), (64, 8, 101), (64, 3, 2), (64, 1, 1)])
+def test_spa_attn_offset_kernels(cuda_device, C, h, w):
+    """K9 forward, forward with stats and backward against their plain
+    versions: every channel width, views that no tile divides and views
+    smaller than the window; the backward repeats bit for bit."""
+    E = 2 * C
+    g = torch.Generator(device=cuda_device).manual_seed(C + h)
+    q, k, v, dout = (torch.randn(3, h, w, E, device=cuda_device, generator=g) for _ in range(4))
+    ref = local_attn_vjp.windowed_attention_offset_plain(q, k, v, 8, 5)
+    reset_launches()
+    _close(local_attn_vjp.spa_attn_offset_fwd(q, k, v, 8, 5), ref[0], 1e-4)
+    _close(local_attn_vjp.spa_attn_offset_fwd(q, k, v, 8, 5, with_stats=True), ref, 1e-4)
+    out, m, l = ref
+    got = local_attn_vjp.spa_attn_offset_bwd(q, k, v, out, m, l, dout, 8, 5)
+    torch.cuda.synchronize()
+    assert [LAUNCHES[n] for n in SWEEPS[3:6]] == [1, 1, 1]
+    assert sum(LAUNCHES.values()) == 3
+    _close(got, local_attn_vjp.windowed_attention_offset_bwd_plain(q, k, v, out, m, l, dout, 8, 5))
+    again = local_attn_vjp.spa_attn_offset_bwd(q, k, v, out, m, l, dout, 8, 5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the same function as K5
+    _close(local_attn_vjp.spa_attn_offset_fwd(q, k, v, 8, 5),
+           spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,h,w,tile", [(16, 16, 16, (8, 16)), (32, 8, 101, (8, 1)),
+                                        (64, 32, 32, (8, 16)), (64, 64, 64, (8, 16)),
+                                        (64, 48, 40, (16, 8)), (64, 4, 32, (4, 32)),
+                                        (32, 1, 128, (1, 128)), (64, 128, 1, (128, 1)),
+                                        (64, 2, 4, (2, 4))])
+def test_spa_attn_mxu_kernels(cuda_device, C, h, w, tile):
+    """K6 forward, forward with stats and backward against their plain
+    versions over `pick_tile`'s tiles: the usual 8x16, the one-column tile
+    of a prime width, the widest halos (1x128, 128x1) and the smallest
+    tile; the backward repeats bit for bit."""
+    assert spa_attn.pick_tile(h, w) == tile
+    E = 2 * C
+    g = torch.Generator(device=cuda_device).manual_seed(C + h)
+    q, k, v, dout = (torch.randn(3, h, w, E, device=cuda_device, generator=g) for _ in range(4))
+    ref = spa_attn.windowed_attention_mxu_plain(q, k, v, 8, 5)
+    reset_launches()
+    _close(spa_attn.spa_attn_mxu_fwd(q, k, v, 8, 5), ref[0], 1e-4)
+    _close(spa_attn.spa_attn_mxu_fwd(q, k, v, 8, 5, with_stats=True), ref, 1e-4)
+    _, m, l = ref
+    got = spa_attn.spa_attn_mxu_bwd(q, k, v, m, l, dout, 8, 5)
+    torch.cuda.synchronize()
+    assert [LAUNCHES[n] for n in SWEEPS[6:]] == [1, 1, 1]
+    assert sum(LAUNCHES.values()) == 3
+    _close(got, spa_attn.windowed_attention_mxu_bwd_plain(q, k, v, m, l, dout, 8, 5))
+    again = spa_attn.spa_attn_mxu_bwd(q, k, v, m, l, dout, 8, 5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the same function as K5
+    _close(spa_attn.spa_attn_mxu_fwd(q, k, v, 8, 5), spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5),
+           1e-5)
 
 
 @pytest.mark.cuda

@@ -54,7 +54,8 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 15
     assert {"lft_torch.kernels." + m for m in ("ang_attn", "ang_attn_mxu", "spa_attn_hp",
-                                               "spa_attn", "local_attn")} <= set(mods)
+                                               "spa_attn", "local_attn", "ang_attn_vjp",
+                                               "local_attn_vjp")} <= set(mods)
 
 
 @pytest.fixture

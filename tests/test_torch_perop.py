@@ -7,10 +7,10 @@
   5e-4 max |ref| + 2e-9 (the JAX package's own gradient bound).
 * Each plain backward against torch.autograd of its plain forward: 5e-5
   max |ref| (the identities written out against autograd's).
-* The dispatch against JAX's own: with every kernel entry of lft_tpu
-  replaced by a recorder, the port picks K5/K7 exactly where JAX does,
-  goes to the tiled op where JAX goes to its XLA tiled op, and raises
-  NotImplementedError naming K6/K8/K9/K10 where JAX picks those.
+* The dispatch against JAX's own: with every kernel entry of both packages
+  replaced by a recorder, the port picks K5/K6/K7/K8/K9 exactly where JAX
+  does, goes to the tiled op where JAX goes to its XLA tiled op, and raises
+  NotImplementedError naming K10 where JAX picks that.
 * The slice as a whole: forward, gradients, a tiled scene and one train
   step of the unfused branch with `attention_impl='pallas'` against
   lft_tpu's, on the same parameters (2 of the 4 AltFilter blocks).
@@ -39,7 +39,8 @@ from lft_tpu.training import trainer as j_trainer
 from lft_torch.config import Args, parse_args
 from lft_torch.inference import tiled
 from lft_torch.kernels import LAUNCHES, PEROP, ang_attn, ang_attn_mxu, ang_block
-from lft_torch.kernels import local_attn, reset_launches, spa_attn, spa_attn_hp, spa_block
+from lft_torch.kernels import local_attn, local_attn_vjp, reset_launches, spa_attn
+from lft_torch.kernels import spa_attn_hp, spa_block
 from lft_torch.models import lft
 from lft_torch.ops import attention
 from lft_torch.registry import get_model
@@ -199,6 +200,41 @@ def test_local_attention_pallas_matches_jax_hybrid():
         _grad_close(g.numpy(), r, name)
 
 
+@pytest.mark.parametrize("training", [True, False], ids=["training-K6-pair", "primal-K9"])
+def test_hybrid_without_headpacked_geometry(training):
+    """A tileable view with no all-heads geometry (8x101): the hybrid runs
+    the tile-dense pair K6 under autograd, chosen as lft_tpu's own predicate
+    chooses off a TPU, and the offset sweep K9 for the primal. The primal is
+    held against lft_tpu's hybrid (its K9 in interpret mode); the training
+    pair against jax.grad of lft_tpu's dense XLA op, which its own tests hold
+    K6 to (its interpret-mode K6 unrolls all 101 tiles of the view)."""
+    B, h, w, E = 1, 8, 101, 32
+    assert not j_hp.headpacked_applicable(h, w, E, H, 5) and j_spa.pick_tile(h, w) == (8, 1)
+    assert not j_spa._use_headpacked_pair(jnp.zeros((B, h, w, E)), H, 5)
+    qn, v = _rand((B, h, w, E), 84), _rand((B, h, w, E), 85)
+    wi, wo = _rand((3 * E, E), 86, 0.1), _rand((E, E), 87, 0.1)
+    ins = [t.requires_grad_(training) for t in _t(qn, v, wi, wo)]
+    out = attention.local_attention(*ins, H, k=5, impl="pallas")
+    if not training:
+        ref = j_local.local_attention_pallas(*map(jnp.asarray, (qn, v, wi, wo)), H, k=5)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **FWD)
+        return
+    dense = lambda *a: j_attention.local_attention(*a, H, k=5, impl="dense")
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(dense(*map(jnp.asarray, (qn, v, wi, wo)))), **FWD)
+    g_ref = jax.grad(lambda *a: jnp.sum(jnp.sin(dense(*a))), argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (qn, v, wi, wo)))
+    nodes, seen = [out.grad_fn], set()
+    while nodes:
+        node = nodes.pop()
+        seen.add(type(node).__name__)
+        nodes += [f for f, _ in node.next_functions if f is not None]
+    assert "SpaMxuFnBackward" in seen and "SpaAttnHpFnBackward" not in seen, seen
+    got = torch.autograd.grad(torch.sin(out).sum(), ins)
+    for name, g, r in zip(("dqn", "dv", "dwi", "dwo"), got, g_ref):
+        _grad_close(g.numpy(), r, name)
+
+
 # ------------------------------------------------------------- dispatch ---
 
 def _jax_spatial_route(monkeypatch, h, w, E, heads, variant, training):
@@ -240,16 +276,19 @@ def _port_spatial_route(monkeypatch, h, w, E, heads, variant, training):
 
     with monkeypatch.context() as mp:
         mp.setattr(spa_attn, "windowed_attention_headpacked", rec("K5"))
+        mp.setattr(spa_attn, "windowed_attention_mxu", rec("K6"))
+        mp.setattr(spa_attn.local_attention_tile_mxu, "__defaults__", (5, rec("K6")))
+        mp.setattr(local_attn_vjp, "windowed_attention", rec("K9"))
         mp.setattr(attention, "local_attention", rec("tiled"))
         z = torch.zeros(1, h, w, E, requires_grad=training)
         try:
             local_attn.local_attention_pallas(z, z, torch.zeros(3 * E, E), torch.zeros(E, E),
                                               heads, k=5, variant=variant)
         except NotImplementedError as e:
-            named = [n for n in ("K10", "K6", "K8", "K9") if n in str(e).split("kernel")[1][:5]]
-            assert len(named) == 1 and "to port" in str(e), str(e)
+            # only the tile-halo kernel is still to port
+            assert "K10" in str(e).split("kernel")[1][:5] and "to port" in str(e), str(e)
             assert f"{h}x{w}" in str(e), str(e)
-            return named[0]
+            return "K10"
     assert len(hits) == 1, hits
     return hits[0]
 
@@ -301,16 +340,30 @@ def test_angular_dispatch_matches_jax(monkeypatch, A2, variant, route):
     assert j_mxu.mxu_applicable(A2) == ang_attn_mxu.mxu_applicable(A2)
     z = torch.zeros(2, A2, C)
     args = (z, z, torch.zeros(3 * C, C), torch.zeros(C, C), H)
-    if route == "K7":
-        assert ang_attn.ang_attention_pallas(*args, variant=variant).shape == z.shape
-    else:
-        with pytest.raises(NotImplementedError, match=r"K8 .*to port"):
-            ang_attn.ang_attention_pallas(*args, variant=variant)
+    for by_env in (False, True):
+        taken = []
+        with monkeypatch.context() as mp:
+            mp.setattr(ang_attn, "ang_attention_mxu", lambda qn, *a: taken.append("K7") or qn)
+            mp.setattr(ang_attn, "ang_attention_pallas_ad",
+                       lambda qn, *a: taken.append("K8") or qn)
+            if by_env:
+                mp.setenv("LFT_ANG_VARIANT", variant)
+                ang_attn.ang_attention_pallas(*args)
+            else:
+                # an explicit argument wins over the environment
+                mp.setenv("LFT_ANG_VARIANT", "sweep" if variant == "mxu" else "mxu")
+                ang_attn.ang_attention_pallas(*args, variant=variant)
+        assert taken == [route], (by_env, taken)
+    monkeypatch.delenv("LFT_ANG_VARIANT", raising=False)
+    assert ang_attn.ang_attention_pallas(*args, variant=variant).shape == z.shape
 
 
-def test_unknown_variant_raises():
+def test_unknown_variant_raises(monkeypatch):
     """As tests/test_kernels.py:test_unknown_variant_raises expects of
-    lft_tpu: a typo is an error, not another path."""
+    lft_tpu: a typo is an error, not another path, in the argument and in
+    the environment knobs alike."""
+    monkeypatch.delenv("LFT_ANG_VARIANT", raising=False)
+    monkeypatch.delenv("LFT_SPA_VARIANT", raising=False)
     z = torch.zeros(1, 16, 16, 64)
     with pytest.raises(ValueError, match="unknown spatial attention"):
         local_attn.local_attention_pallas(z, z, torch.zeros(192, 64), torch.zeros(64, 64), H,
@@ -319,6 +372,22 @@ def test_unknown_variant_raises():
     with pytest.raises(ValueError, match="unknown angular attention"):
         ang_attn.ang_attention_pallas(a, a, torch.zeros(192, 64), torch.zeros(64, 64), H,
                                       variant="sweeep")
+    monkeypatch.setenv("LFT_SPA_VARIANT", "mxuu")
+    with pytest.raises(ValueError, match="LFT_SPA_VARIANT"):
+        local_attn.local_attention_pallas(z, z, torch.zeros(192, 64), torch.zeros(64, 64), H)
+    with pytest.raises(ValueError, match="LFT_SPA_VARIANT"):
+        j_local.local_attention_pallas(jnp.zeros((1, 16, 16, 64)), jnp.zeros((1, 16, 16, 64)),
+                                       jnp.zeros((192, 64)), jnp.zeros((64, 64)), H)
+    # an explicit variant wins over the knob
+    assert local_attn.local_attention_pallas(z, z, torch.zeros(192, 64), torch.zeros(64, 64), H,
+                                             variant="offset").shape == z.shape
+    monkeypatch.delenv("LFT_SPA_VARIANT")
+    monkeypatch.setenv("LFT_ANG_VARIANT", "sweeep")
+    with pytest.raises(ValueError, match="LFT_ANG_VARIANT"):
+        ang_attn.ang_attention_pallas(a, a, torch.zeros(192, 64), torch.zeros(64, 64), H)
+    with pytest.raises(ValueError, match="LFT_ANG_VARIANT"):
+        j_ang.ang_attention_pallas(jnp.zeros((1, 25, 64)), jnp.zeros((1, 25, 64)),
+                                   jnp.zeros((192, 64)), jnp.zeros((64, 64)), H)
     assert local_attn.SPA_VARIANTS == j_local.SPA_VARIANTS
 
 
