@@ -46,10 +46,14 @@
     [100, 32, 32, 128]), times them beside their bound and one
     `scaled_dot_product_attention` call, and K5 in turns with K2's and K3's
     window steps at the same shape;
-12. holds K7 against its plain version at A2 = 81 (9x9 views), and checks
-    that a training forward at angRes 9, which the fused backward kernel
-    does not take, runs the per-op branch on the card and matches the plain
-    path;
+12. holds K7 against its plain version at A2 = 81 (9x9 views), and trains at
+    angRes 9 (batch 4 of 16x16-view patches) through `make_train_step`: with
+    `--train_fused auto` the fused blocks take it, 4 `ang_block_res` and 4
+    `ang_block_bwd128` launches a step (K4's form for 64 < A2 <= 128) beside
+    K2's and K3's kernels and no per-op kernel, gradients against the plain
+    blocks within the bounds of step 7 (or twice the two plain paths' own
+    difference), bitwise repeatable; the same step with `--train_fused false`
+    through K7/K5; inference at angRes 9 stays fused;
 13. runs the first scene through the unfused branch with the environment
     knobs `LFT_ANG_VARIANT=sweep` + `LFT_SPA_VARIANT=offset` (K8 and K9:
     exactly 16 `ang_attn_sweep` and 16 `spa_attn_offset` launches and no
@@ -71,12 +75,27 @@
 16. holds every K8, K9 and K6 kernel (forward, with stats, backward) against
     its plain version at the serving and training shapes of steps 13-15,
     times each beside its bound and one `scaled_dot_product_attention` call,
-    and K5, K6, K9 and K2.3 (backwards: K3.c) in turns at one shape;
-17. prints the `kernels` JSON line (every kernel, old and new), the card's
+    and K5, K6, K9, K10 and K2.3 (backwards: K3.c) in turns at one shape;
+17. runs the first scene through the tile-halo kernel K10: under
+    `LFT_SPA_VARIANT=tile` at patch 32 (16 `ang_attn` + 16 `spa_attn_tile`
+    launches) and under `LFT_SPA_VARIANT=offset` at patch 64 (64x64 = 4096 >
+    2048 pixels: the large-view fallback, 4 + 4 launches), each within 1e-3 /
+    0.01 dB of the plain unfused path, the first also of step 9's K7/K5 result;
+18. runs K11, the fused SpaTrans forward on a pixel-major buffer, at
+    [16, 32, 32, 25, 64] (the AngTrans output of the first scene's first chunk,
+    block 0's weights): against its plain version and against view-major K2 on
+    a permuted copy, exactly one launch of each of its five kernels, no more
+    device memory than K2 itself takes, and times it in turns with "permute +
+    K2 + permute back";
+19. holds K10 at [400, 32, 32, 128] and [400, 64, 64, 128], the 128-row K4 at
+    [1024, 81, 64] and, with a ragged last block, at A2 = 121 and 128, and
+    K11's two `_pm` kernels against their plain versions, timed beside their
+    bounds (K10 also beside one `scaled_dot_product_attention` call);
+20. prints the `kernels` JSON line (every kernel, old and new), the card's
     name and power limit, and last `{"ok": true, "device": {...}}`.
 
-Steps 1-12 run as before; the plain and library versions of the large shapes
-of step 16 are timed over 3 launches instead of 10.
+The plain and library versions of the large shapes of steps 16 and 19 are
+timed over 3 launches instead of 10.
 
 Launch counts are per phase: the SR run must launch every forward kernel
 and no training kernel, the training run every training kernel, the per-op
@@ -344,14 +363,20 @@ def plain_attention_impl(h: int, w: int) -> str:
 
 def train_phase(params, seed: int, unfused: bool = False, *, what=None, ang_res: int = 5,
                 patch: int = 32, batch: int = 4, train_fused=None, expect=PEROP_TRAIN,
-                steps: int = TRAIN_STEPS):
+                steps: int = TRAIN_STEPS, other_plain=None):
     """The 4x recipe's train step through the kernels against the plain
     path, its bitwise repeat, and a few more steps: the fused blocks against
     their plain versions, or with `unfused` the per-op branch
     (`--train_fused false`, or `train_fused` as given where the gates send
     the geometry there) against the same branch with the plain torch
     attention; `expect` names the kernels that branch must launch 4 times a
-    step, and no other. Returns the launch counts of the kernel-path steps,
+    step, and no other; the fused steps must launch 4 times a step K1 with
+    residuals and the K4 form of the view count (`ang_block_bwd`, or
+    `ang_block_bwd128` past 64 views), every other training kernel, and no
+    per-op kernel. `other_plain`: keywords of a second plain forward; where
+    the two plain paths differ by more than half a gradient's bound (small
+    batches: sums that nearly cancel), the gradient is held to twice their
+    difference instead. Returns the launch counts of the kernel-path steps,
     their number and the median ms of a kernel-path step."""
     import dataclasses
     import functools
@@ -359,7 +384,7 @@ def train_phase(params, seed: int, unfused: bool = False, *, what=None, ang_res:
     import torch
     from lft_torch.config import Args
     from lft_torch.data.device_synth import synth_batch
-    from lft_torch.kernels import LAUNCHES, PEROP, SWEEPS, TRAINING, reset_launches
+    from lft_torch.kernels import LAUNCHES, PEROP, SWEEPS, TAIL, TRAINING, reset_launches
     from lft_torch.models.lft import forward
     from lft_torch.registry import get_model
     from lft_torch.training.optim import make_optimizer
@@ -404,6 +429,15 @@ def train_phase(params, seed: int, unfused: bool = False, *, what=None, ang_res:
     step_ps(ps, lr, hr)
     g_p = grads(ps)
     del ps
+    g_o = None
+    if other_plain is not None:
+        # these keywords win over the train step's own (`fused`)
+        po, step_po = fresh(dataclasses.replace(
+            model, apply=lambda p, x, a_, **kw: forward(p, x, a_, **{**kw, **other_plain}),
+            loss=smooth))
+        step_po(po, lr, hr)
+        g_o = grads(po)
+        del po
     torch.cuda.synchronize()
     if any(LAUNCHES.values()):
         raise AssertionError(f"the plain path launched kernels: {dict(LAUNCHES)}")
@@ -443,15 +477,22 @@ def train_phase(params, seed: int, unfused: bool = False, *, what=None, ang_res:
           flush=True)
     if not abs(la - lp) <= 1e-5 * abs(lp):
         raise AssertionError("kernel-path loss disagrees with the plain path")
-    worst = (0.0, "")
+    worst, floored = (0.0, ""), []
     for k in g_p:
         d = float((g_a[k] - g_p[k]).abs().max())
         lim = 5e-4 * float(g_p[k].abs().max()) + 2e-9
+        if g_o is not None:
+            floor = 2.0 * float((g_o[k] - g_p[k]).abs().max())
+            if floor > lim:
+                floored.append(k)
+                lim = floor
         if not d <= lim:
             raise AssertionError(f"grad of {k}: max |kernel - plain| {d:.3e} > {lim:.3e}")
         worst = max(worst, (d / lim, k))
     print(f"{what} step 1 (smooth loss): every grad within 5e-4 max|grad| + 2e-9 of the "
-          f"plain path (worst {worst[1]} at {worst[0]:.3f} of its limit)", flush=True)
+          f"plain path (worst {worst[1]} at {worst[0]:.3f} of its limit)"
+          + ("" if g_o is None else f"; {len(floored)} of {len(g_p)} held to twice the two "
+             f"plain paths' own difference instead: {floored}"), flush=True)
     if not same:
         raise AssertionError("a repeated kernel-path step is not bitwise equal")
     print(f"{what} step repeated from the same state: loss, grads and params bitwise equal",
@@ -483,12 +524,20 @@ def train_phase(params, seed: int, unfused: bool = False, *, what=None, ang_res:
             raise AssertionError(f"{what} steps: expected 4 launches a step of each of "
                                  f"{expect} and no other kernel, got {wrong}")
     else:
-        missing = [k for k in TRAINING if counts[k] == 0]
+        wide = ang_res * ang_res > 64
+        k4, other_k4 = (("ang_block_bwd128", "ang_block_bwd") if wide
+                        else ("ang_block_bwd", "ang_block_bwd128"))
+        missing = [k for k in TRAINING + (k4,) if counts[k] == 0 and k != other_k4]
         if missing:
             raise AssertionError(f"training kernels not launched on the training path: {missing}")
-        extra = [k for k in PEROP + SWEEPS if counts[k]]
+        extra = [k for k in PEROP + SWEEPS + TAIL + (other_k4,) if counts[k] and k != k4]
         if extra:
-            raise AssertionError(f"per-op kernels launched by the fused train steps: {extra}")
+            raise AssertionError(f"kernels of another path launched by the fused train steps: "
+                                 f"{extra}")
+        if counts["ang_block_res"] != 4 * n_steps or counts[k4] != 4 * n_steps:
+            raise AssertionError(f"{what} steps: expected 4 ang_block_res and 4 {k4} launches a "
+                                 f"step, got {counts['ang_block_res']} and {counts[k4]} in "
+                                 f"{n_steps} steps")
     return counts, n_steps, ms_k
 
 
@@ -860,10 +909,12 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
     forced-variant scenes, the forward with (m, l) and the backward at the
     training shapes ([4096, 25, 64], [100, 32, 32, 128]) with the launches of
     the forced-variant train steps. Then the other shapes the paths give
-    them, all three forms each; then K5, K6, K9 and K2.3 in turns."""
+    them, all three forms each; then K5, K6, K9, K10 and K2.3 in turns (the
+    backwards without K10, which has none)."""
     import torch
     import torch.nn.functional as F
     from lft_torch.kernels import ang_attn_vjp as av
+    from lft_torch.kernels import local_attn as la
     from lft_torch.kernels import local_attn_vjp as lv
     from lft_torch.kernels import spa_attn as sa
     from lft_torch.kernels import spa_attn_hp as hp
@@ -972,7 +1023,7 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
     for V, h, w in ((400, 64, 64), (225, 64, 64), (100, 8, 101)):
         window(6, V, h, w, 128, all_forms, shape=(V, h, w, 128), reps=3)
 
-    # four kernels, one function: in turns a b c d d c b a at one shape
+    # one function by four kernels (five forward): in turns a b c d d c b a at one shape
     for V, bwd in ((400, False), (100, True)):
         q, k, v, dout = (rand(V, 32, 32, 128) for _ in range(4))
         if bwd:
@@ -987,21 +1038,24 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
             turns = [("K5 spa_attn_hp", lambda: hp.spa_attn_hp_fwd(q, k, v, H, K)),
                      ("K6 spa_attn_mxu", lambda: sa.spa_attn_mxu_fwd(q, k, v, H, K)),
                      ("K9 spa_attn_offset", lambda: lv.spa_attn_offset_fwd(q, k, v, H, K)),
+                     ("K10 spa_attn_tile", lambda: la.windowed_attention_tile(q, k, v, H, K)),
                      ("K2.3 spa_window_attn", lambda: sb.window_attn(q, k, v, H, K))]
         first = [timed(fn) for _, fn in turns]
         second = [timed(fn) for _, fn in reversed(turns)][::-1]
-        print(f"at {[V, 32, 32, 128]} (turns a b c d d c b a, median of 10 each): "
+        print(f"at {[V, 32, 32, 128]} (turns a b .. b a, median of 10 each): "
               + ", ".join(f"{n} {a:.4f} / {b:.4f} ms"
                           for (n, _), a, b in zip(turns, first, second)), flush=True)
     return rec_sr.rows + rec_tr.rows
 
 
-def angres9_phase(params, seed: int) -> None:
-    """K7 at A2 = 81 against its plain version, and the dispatch of a
-    training forward at angRes 9 (the demo checkpoint's weights do not
-    depend on the view count): the fused backward kernel takes A2 <= 64, so
-    the forward runs the per-op branch, launches say so, and its gradients
-    match the plain unfused path's; inference at angRes 9 stays fused.
+def angres9_phase(params, seed: int):
+    """K7 at A2 = 81 against its plain version; train steps at angRes 9 (the
+    demo checkpoint's weights do not depend on the view count; batch 4 of
+    16x16-view patches): `--train_fused auto` through the fused blocks, whose
+    backward is K4's three-kernel form `ang_block_bwd128` there, and
+    `--train_fused false` through the per-op kernels K7/K5; inference at
+    angRes 9 stays fused. Returns the fused steps' launch counts and their
+    number.
 
     The gradient bound is that of the train steps, 5e-4 max|grad| + 2e-9,
     with one allowance: a 9x9-view batch of this size has a fifth of the
@@ -1033,59 +1087,224 @@ def angres9_phase(params, seed: int) -> None:
           f"({ms_f:.4f} ms), backward {e_b:.3e} ({ms_b:.4f} ms)", flush=True)
     if not (ok_f and ok_b):
         raise AssertionError("K7 at A2 = 81 disagrees with its plain version")
+    del q, k, v, dout, ref, m, l
+
+    counts, n_steps, ms_fused = train_phase(
+        params, seed, what="angRes-9 fused train (K1, K4 128-row, K2, K3)", ang_res=9, patch=16,
+        batch=4, other_plain=dict(fused=False, attention_impl="tiled"))
+    _, _, ms_perop = train_phase(
+        params, seed, unfused=True, what="angRes-9 per-op train (K7, K5)", ang_res=9, patch=16,
+        batch=4, other_plain=dict(fused=True, plain_blocks=True))
+    print(f"train step at angRes 9 (batch 4 of 16x16 views), medians: {ms_fused:.3f} ms fused "
+          f"(--train_fused auto), {ms_perop:.3f} ms per-op (--train_fused false)", flush=True)
 
     args = Args(angRes=9, scale_factor=4, channels=64)
-    lr, hr = synth_batch(g, batch=4, ang_res=9, patch=16, scale=4)
-    p = {k_: t.detach().clone().requires_grad_(True) for k_, t in params.items()}
-
-    def grads(**kw):
-        sr = forward(p, lr, args, **kw)
-        loss = ((sr - hr) * torch.cos(3.0 * (sr - hr))).mean()
-        return sr.detach(), torch.autograd.grad(loss, list(p.values()))
-
-    torch.cuda.synchronize()
-    reset_launches()
-    sr_k, g_k = grads()
-    torch.cuda.synchronize()
-    counts = {k_: c for k_, c in LAUNCHES.items() if c}
-    print(f"training forward and backward at angRes 9 (A2 = 81, 16x16 views): launches {counts}",
-          flush=True)
-    if counts != {k_: 4 for k_ in PEROP_TRAIN}:
-        raise AssertionError("a training forward at angRes 9 must run the per-op branch: 4 "
-                             f"launches of each of {PEROP_TRAIN} and no other, got {counts}")
-    sr_p, g_p = grads(fused=False, attention_impl="tiled")
-    _, g_d = grads(plain_blocks=True)
-    d_sr = float((sr_k - sr_p).abs().max())
-    worst, floored = (0.0, ""), []
-    for name, a, b, c in zip(p, g_k, g_p, g_d):
-        d = float((a - b).abs().max())
-        bound = 5e-4 * float(b.abs().max()) + 2e-9
-        floor = 2.0 * float((c - b).abs().max())
-        if floor > bound:
-            floored.append(name)
-        lim = max(bound, floor)
-        if not d <= lim:
-            raise AssertionError(f"angRes 9, grad of {name}: max |kernel - plain| {d:.3e} > "
-                                 f"{lim:.3e} (bound {bound:.3e}, twice the plain paths' own "
-                                 f"difference {floor:.3e})")
-        worst = max(worst, (d / lim, name))
-    print(f"angRes 9: max |SR diff| to the plain unfused path {d_sr:.3e} (limit 1e-4), every "
-          f"grad within 5e-4 max|grad| + 2e-9 or twice the difference of the two plain paths "
-          f"(worst {worst[1]} at {worst[0]:.3f} of its limit; {len(floored)} of {len(g_k)} "
-          f"held to the plain paths' difference: {floored})", flush=True)
-    if d_sr > 1e-4:
-        raise AssertionError("angRes 9: the per-op forward disagrees with the plain path")
+    lr, _ = synth_batch(g, batch=4, ang_res=9, patch=16, scale=4)
     with torch.no_grad():
+        torch.cuda.synchronize()
         reset_launches()
-        sr_i = forward(p, lr, args)
+        sr_i = forward(params, lr, args)
         torch.cuda.synchronize()
         if LAUNCHES["ang_block"] != 4 or LAUNCHES["ang_attn"]:
             raise AssertionError(f"inference at angRes 9 must stay fused: {dict(LAUNCHES)}")
-        d_i = float((sr_i - sr_p).abs().max())
+        d_i = float((sr_i - forward(params, lr, args, fused=False,
+                                    attention_impl="tiled")).abs().max())
     print(f"inference at angRes 9 stays on the fused kernels (4 ang_block launches), max |SR "
           f"diff| to the plain unfused path {d_i:.3e} (limit 1e-4)", flush=True)
     if d_i > 1e-4:
         raise AssertionError("angRes 9: the fused forward disagrees with the plain path")
+    return counts, n_steps
+
+
+def pixel_major_phase(params, cache, scene, card: str) -> list:
+    """K11 at full width: the AngTrans output of the scene's first chunk
+    [16, 32, 32, 25, 64], pixel-major as K1 leaves it, through
+    `spa_trans_block_fused(pixel_major=True)` with block 0's weights: against
+    its plain version and against view-major K2 on a permuted copy, the
+    launches, the device memory it takes, and its time in turns with "permute
+    + K2 + permute back". Then its two `_pm` kernels against their plain
+    versions. Returns their rows of the `kernels` line."""
+    import torch
+    import lft_torch.models.lft as model
+    from lft_torch.kernels import LAUNCHES, reset_launches
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.ops.posenc import spatial_position
+    from lft_torch.ops.unfold import unfold3x3_linear
+
+    dev = torch.device("cuda")
+    C, A2, h, w, H, K = 64, 25, 32, 32, 8, 5
+    D = 2 * C
+    # the first AngTrans output of the scene, taken where the forward makes it
+    taken = []
+    block = model.ang_trans_block_fused
+
+    def keep_first(t, *a, **kw):
+        out = block(t, *a, **kw)
+        if not taken:
+            taken.append(out.detach().clone())
+        return out
+
+    model.ang_trans_block_fused = keep_first
+    try:
+        cache(params, torch.from_numpy(scene[0]).to(dev))
+    finally:
+        model.ang_trans_block_fused = block
+    x = taken[0].reshape(-1, h, w, A2, C)
+    Bb = x.shape[0]
+    if tuple(x.shape) != (16, h, w, A2, C):
+        raise AssertionError(f"K11: unexpected chunk shape {tuple(x.shape)}")
+    prefix = "altblock.0.spa_trans."
+    ws = sb.spa_weights(params, prefix)
+    pe_tok = unfold3x3_linear(torch.from_numpy(spatial_position(h, w, C)).to(dev)[None],
+                              ws["mlp"])[0].contiguous()
+    to_vm = lambda t: t.permute(0, 3, 1, 2, 4).reshape(Bb * A2, h, w, C).contiguous()
+    to_pm = lambda t: t.reshape(Bb, A2, h, w, C).permute(0, 2, 3, 1, 4).contiguous()
+    k11 = lambda: sb.spa_trans_block_fused(x, pe_tok, params, prefix, H, K, pixel_major=True)
+    k2 = lambda t: sb.spa_trans_block_fused(t, pe_tok, params, prefix, H, K)
+    copied = lambda: to_pm(k2(to_vm(x)))
+
+    def extra_memory(fn):
+        """Peak device memory above what is held before the call, in bytes."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        del out
+        return torch.cuda.max_memory_allocated() - before
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_launches()
+        got = k11()
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        expect = dict.fromkeys(("spa_tokenize_ln_pm", "spa_qkv", "spa_window_attn",
+                                "spa_outproj_ln", "spa_ffn_out_pm"), 1)
+        if {k_: c for k_, c in counts.items() if c} != expect:
+            raise AssertionError(f"K11: expected one launch of each of {tuple(expect)}, got "
+                                 f"{ {k_: c for k_, c in counts.items() if c} }")
+        ref = sb.spa_trans_block_plain(x, pe_tok, params, prefix, H, K, pixel_major=True)
+        err, ok = max_err(got, ref)
+        xv = to_vm(x)
+        d_vm = float((got - to_pm(k2(xv))).abs().max())
+        mem_pm, mem_vm = extra_memory(k11), extra_memory(lambda: k2(xv))
+        mem_cp = extra_memory(copied)
+        del xv
+        mib = 2.0 ** -20
+        print(f"K11 spa_trans pixel-major at {list(x.shape)}: max_abs_err {err:.3e} to its plain "
+              f"version (limit {KERNEL_ATOL:g} x max(1, max|ref|)), max |diff| {d_vm:.3e} to "
+              f"view-major K2 on a permuted copy; launches {expect}; device memory above the "
+              f"input: {mem_pm * mib:.1f} MiB, view-major K2 {mem_vm * mib:.1f} MiB, permute + K2 "
+              f"+ permute back {mem_cp * mib:.1f} MiB (the buffer is {nbytes(x) * mib:.1f} MiB)",
+              flush=True)
+        if not ok or d_vm > KERNEL_ATOL:
+            raise AssertionError("K11 disagrees with its plain version or with view-major K2")
+        if mem_pm > mem_vm + (1 << 20):
+            raise AssertionError("K11 takes more device memory than view-major K2: a copy of "
+                                 "the buffer was made")
+        ta, tb = timed(k11), timed(copied)
+        tb2, ta2 = timed(copied), timed(k11)
+        ms_p = timed(lambda: sb.spa_trans_block_plain(x, pe_tok, params, prefix, H, K,
+                                                      pixel_major=True), 3, 1)
+        print(f"K11 chained (5 kernels) {ta:.4f} / {ta2:.4f} ms, permute + K2 + permute back "
+              f"{tb:.4f} / {tb2:.4f} ms (turns a b b a, median of 10 each), plain {ms_p:.4f} ms",
+              flush=True)
+
+        # the two kernels K11 adds, each fed its plain predecessor's output
+        rec = Recorder(card, counts, 1, "call")
+        T = Bb * A2 * h * w
+        wbytes = lambda *k_: sum(nbytes(ws[n]) for n in k_)
+        src, rep = "lft_torch/csrc/spa_block.cu", "lft_tpu/kernels/spa_block.py:309"
+        tok, xn = sb.tokenize_ln_plain(to_vm(x), pe_tok, ws)
+        rec.record("spa_tokenize_ln_pm", src, rep, sb.tokenize_ln(x, pe_tok, ws, True), (tok, xn),
+                   lambda: sb.tokenize_ln(x, pe_tok, ws, True),
+                   lambda: sb.tokenize_ln_plain(to_vm(x), pe_tok, ws),
+                   2 * T * 9 * C * D, nbytes(x, pe_tok, tok, xn) + wbytes("wu", "ln"))
+        q, kk, v = sb.qkv_plain(xn, tok, ws)
+        x2, xn2 = sb.outproj_ln_plain(sb.window_attn(q, kk, v, H, K), tok, ws)
+        del q, kk, v, tok, xn
+        out = to_pm(sb.ffn_out_plain(xn2, x2, ws))
+        rec.record("spa_ffn_out_pm", src, rep, sb.ffn_out(xn2, x2, ws, A2), out,
+                   lambda: sb.ffn_out(xn2, x2, ws, A2),
+                   lambda: to_pm(sb.ffn_out_plain(xn2, x2, ws)),
+                   2 * T * (4 * D * D + D * C), nbytes(xn2, x2, out) + wbytes("w1", "w2", "wlin"))
+    return rec.rows
+
+
+def tail_kernel_checks(params, card: str, tile_counts: dict, tile64_counts: dict,
+                       a9_counts: dict, a9_steps: int, seed: int) -> list:
+    """K10 and the 128-row K4 against their plain versions. The rows of the
+    `kernels` line: K10 at the tile scene's [400, 32, 32, 128] with that
+    scene's launches, K4 at the angRes-9 step's [1024, 81, 64] (block 0's
+    weights) with those steps' launches. Then K10 at the patch-64 scene's
+    [400, 64, 64, 128] beside that scene's launches, and K4 at A2 = 121 and
+    128 with a ragged last block."""
+    import torch
+    import torch.nn.functional as F
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import local_attn as la
+    from lft_torch.ops.attention import local_window_mask
+    from lft_torch.ops.posenc import angular_position
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    rand = lambda *s_: torch.randn(*s_, device=dev, generator=g)
+    H, K, C, E = 8, 5, 64, 128
+    rec_sr = Recorder(card, tile_counts, 1, "scene")
+    rec_sr64 = Recorder(card, tile64_counts, 1, "scene")
+    rec_tr = Recorder(card, a9_counts, a9_steps, "train step")
+
+    for V, h, w, shape in ((400, 32, 32, None), (400, 64, 64, (400, 64, 64, E))):
+        q, k, v = rand(V, h, w, E), rand(V, h, w, E), rand(V, h, w, E)
+        ref = la.windowed_attention_tile_plain(q, k, v, H, K)
+        sdpa = None
+        if shape is None:       # a dense [V, H, hw, hw] score tensor fits only at 32x32 views
+            mask = torch.from_numpy(local_window_mask(h, w, K) == 0).to(dev)
+            heads = lambda t: t.reshape(V, h * w, H, E // H).transpose(1, 2)
+            qh, kh, vh = heads(q), heads(k), heads(v)
+            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        (rec_sr if shape is None else rec_sr64).record(
+            "spa_attn_tile", "lft_torch/csrc/spa_attn_tile.cu",
+            "lft_tpu/kernels/local_attn.py:99", la.windowed_attention_tile(q, k, v, H, K), ref,
+            lambda: la.windowed_attention_tile(q, k, v, H, K),
+            lambda: la.windowed_attention_tile_plain(q, k, v, H, K),
+            4 * E * V * valid_window_pairs(h, w, K // 2), nbytes(q, k, v, ref),
+            lib_fn=sdpa, shape=shape, slow_reps=3)
+        del q, k, v, ref
+
+    wa = ab.ang_weights(params, "altblock.0.ang_trans.")
+    wa_b = sum(nbytes(t) for t in wa.values())
+    for N, A2, shape in ((1024, 81, None), (1001, 121, (1001, 121, C)), (333, 128, (333, 128, C))):
+        x, dout = rand(N, A2, C), rand(N, A2, C)
+        pe = torch.from_numpy(angular_position(A2, C)).to(dev)
+        _, m, l, attn = ab.ang_block_plain(x, pe, wa, H, with_res=True)
+        hid = lambda fn: fn(x, pe, wa, m, l, attn, dout, H)[8]
+        dout = calm_relu(dout, hid(ab.ang_block_bwd_ops), hid(ab.ang_block_bwd_ops_plain),
+                         f"ang_block_bwd128 at A2 = {A2}")
+        bwd_in = (x, pe, wa, m, l, attn, dout, H)
+        ref = ab.ang_block_bwd_ops_plain(*bwd_in)
+        got = ab.ang_block_bwd_ops(*bwd_in)
+        T = N * A2
+        rec_tr.record("ang_block_bwd128", "lft_torch/csrc/ang_block.cu",
+                      "lft_tpu/kernels/ang_block.py:477", (*got[:-1], got[-1].sum(0)),
+                      (*ref[:-1], ref[-1][0]), lambda: ab.ang_block_bwd_ops(*bwd_in),
+                      lambda: ab.ang_block_bwd_ops_plain(*bwd_in),
+                      28 * T * C * C + 10 * C * N * A2 * A2,
+                      nbytes(x, pe, m, l, attn, dout, *ref[:-1]) + 2 * wa_b, rel=TRAIN_REL,
+                      shape=shape, slow_reps=3)
+        if shape is None:
+            full, full_p = ab.ang_block_bwd(*bwd_in), ab.ang_block_bwd_plain(*bwd_in)
+            err, ok = max_err(full, full_p, TRAIN_REL)
+            same = all(torch.equal(a, b) for a, b in zip(full, ab.ang_block_bwd(*bwd_in)))
+            ms_k = timed(lambda: ab.ang_block_bwd(*bwd_in))
+            print(f"block ang_trans backward at {[N, A2, C]} (K4 128-row + 6 wgrad + colsum): "
+                  f"max_abs_err {err:.3e}, {ms_k:.4f} ms, repeated bitwise: {same}", flush=True)
+            if not (ok and same):
+                raise AssertionError("the AngTrans backward at A2 = 81 disagrees with its plain "
+                                     "version or does not repeat")
+    return rec_sr.rows + rec_tr.rows
 
 
 def main(argv=None) -> int:
@@ -1111,7 +1330,7 @@ def main(argv=None) -> int:
     from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
-    from lft_torch.kernels import (FORWARD, LAUNCHES, PEROP, SWEEPS, TRAINING, build_all,
+    from lft_torch.kernels import (FORWARD, LAUNCHES, PEROP, SWEEPS, TAIL, TRAINING, build_all,
                                    reset_launches)
     from lft_torch.models.lft import forward
     from lft_torch.ops.bicubic import bicubic_upscale_views
@@ -1156,7 +1375,7 @@ def main(argv=None) -> int:
     missing = [k for k in FORWARD if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    extra = [k for k in TRAINING + PEROP + SWEEPS if counts[k]]
+    extra = [k for k in TRAINING + PEROP + SWEEPS + TAIL if counts[k]]
     if extra:
         raise AssertionError(f"training or per-op kernels launched by the SR run: {extra}")
 
@@ -1199,9 +1418,12 @@ def main(argv=None) -> int:
     print(f"train step, medians: {ms_perop:.3f} ms through the per-op kernels, {ms_fused:.3f} ms "
           f"through the fused blocks' kernels", flush=True)
     rows += perop_kernel_checks(card, sr_counts, n_scenes, perop_counts, n_steps, a.seed)
-    angres9_phase(params, a.seed)
     torch.cuda.synchronize()
     print(f"per-op phases: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    a9_counts, a9_steps = angres9_phase(params, a.seed)
+    torch.cuda.synchronize()
+    print(f"angRes-9 phase: {time.time() - t0:.1f} s", flush=True)
 
     # steps 13-14: K8 + K9, then K7 + K6, forced through the dispatchers' knobs
     t0 = time.time()
@@ -1211,7 +1433,6 @@ def main(argv=None) -> int:
     mxu_sr, ms_mxu = scene_phase(
         params, args, scenes[0], "per-op SR, mxu (K7, K6)",
         {"ang_attn": 16, "spa_attn_mxu": 16}, refs=first, spa="mxu")
-    del first
     with variants("sweep", "offset"):
         sweep_tr, n_steps, ms_sweep_tr = train_phase(
             params, a.seed, unfused=True, what="sweep + offset train (K8, K9)",
@@ -1261,6 +1482,35 @@ def main(argv=None) -> int:
                                 n_steps, a.seed)
     torch.cuda.synchronize()
     print(f"sweep kernel checks: {time.time() - t0:.1f} s", flush=True)
+
+    # step 17: K10, forced at patch 32 and as the large-view fallback at patch 64
+    t0 = time.time()
+    tile_sr, ms_tile = scene_phase(
+        params, args, scenes[0], "per-op SR, tile (K7, K10)",
+        {"ang_attn": 16, "spa_attn_tile": 16}, refs=first, spa="tile")
+    del first
+    args64 = Args(angRes=5, scale_factor=4, channels=64, patch_size_for_test=64,
+                  stride_for_test=32, eval_batch=16)
+    tile64_sr, ms_tile64 = scene_phase(
+        params, args64, scenes[0], "per-op SR, offset at 64x64-view patches (K7, K10)",
+        {"ang_attn": 4, "spa_attn_tile": 4}, plain_impl="tiled", spa="offset")
+    print(f"K10 scenes: {ms_tile:.2f} ms/scene at patch 32 (tile), {ms_tile64:.2f} ms/scene at "
+          f"patch 64 (offset)", flush=True)
+    torch.cuda.empty_cache()
+    print(f"tile-halo scene phases: {time.time() - t0:.1f} s", flush=True)
+
+    # step 18: K11; step 19: K10 and the 128-row K4 against their plain versions
+    t0 = time.time()
+    rows += pixel_major_phase(params, cache, scenes[0], card)
+    torch.cuda.empty_cache()
+    print(f"pixel-major phase: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    rows += tail_kernel_checks(params, card, tile_sr, tile64_sr, a9_counts, a9_steps, a.seed)
+    torch.cuda.synchronize()
+    print(f"tail kernel checks: {time.time() - t0:.1f} s", flush=True)
+    missing = sorted(set(LAUNCHES) - {r["name"] for r in rows})
+    if missing:
+        raise AssertionError(f"kernels without a row in the kernels line: {missing}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -28,6 +28,7 @@
 // cores do not compute in exact f32, so they are not used. With residuals
 // (training) each thread also writes its query's m, l and attention output.
 
+#include "attn.cuh"
 #include "bwd.cuh"
 
 using namespace lft;
@@ -563,6 +564,408 @@ int launch_bwd(const float* const* in, float* const* out, int N, int A2, float s
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- K4 for 64 < A2 <= 128: the same backward as three kernels ------------
+//
+// A pixel of 65 to 128 view tokens does not fit the kernel above: its nine
+// [rows][C + 4] tiles and the hidden tile take 376 KB at 128 rows and C = 64,
+// and a block can hold 227 KB. Only the attention needs a pixel's rows
+// together, so the backward is cut there, as K3 is cut into five kernels,
+// and the intermediates pass through device memory:
+//   a  ang_bwd_tok_kernel   BM = 64 token rows a block, rows of any pixels:
+//                           recompute xn, q, k, v, x2, xn2, hid; dpre, dxn2,
+//                           dx2, dattn = dx2 Woᵀ and dsum = dattn . attn per
+//                           head; writes xn, xn2, hid, dpre, dx2 (operands of
+//                           the weight grads) and the scratch q, k, v, dattn,
+//                           dsum; LN2's partial affine sums
+//   b  ang_bwd_attn_kernel  one pixel a block (P = 1: rows of two pixels never
+//                           share a block), its q, k, v, dattn rows (<= 139 KB)
+//                           and m, l, dsum in shared memory; thread (head, t)
+//                           computes dq of query t and dk, dv of key t exactly
+//                           as the kernel above does; writes dq, dk, dv
+//   c  ang_bwd_in_kernel    BM = 64 token rows a block: dxn = dq Wqᵀ + dk Wkᵀ,
+//                           dx = dx2 + dv Wvᵀ + LN1ᵀ(dxn); LN1's partial sums
+// Each output element is written by one thread and every sum has a fixed
+// order: no atomics, a step repeats bit for bit. ln_part is [blocks, 4, C]
+// with blocks = ceil(N A2 / 64): kernel c fills rows 0-1 of a block's slot,
+// kernel a rows 2-3. Ragged tails (the last block's rows past N A2) are
+// computed from zeros and never stored or summed. The extra traffic is the
+// scratch written and read once (9 C-wide token tensors more than the
+// 64-row kernel): the bound stays the operations'.
+
+template <int C>
+struct AngBwdTokLayout {
+  static constexpr int LD = C + 4, LDH = 2 * C + 4;
+  static constexpr int TILE = BM * LD;
+  static constexpr int FLOATS = 5 * TILE + BM * LDH + 2 * BM + (NT / 32) * 2 * C;
+  static constexpr size_t BYTES = FLOATS * sizeof(float);
+};
+
+template <int C, int H>
+__global__ void __launch_bounds__(NT)
+    ang_bwd_tok_kernel(const float* __restrict__ x, const float* __restrict__ pe,
+                       const float* __restrict__ ln, const float* __restrict__ wq,
+                       const float* __restrict__ wk, const float* __restrict__ wv,
+                       const float* __restrict__ wo, const float* __restrict__ w1,
+                       const float* __restrict__ woT, const float* __restrict__ w1T,
+                       const float* __restrict__ w2T, const float* __restrict__ attn,
+                       const float* __restrict__ dout, float* __restrict__ xn_out,
+                       float* __restrict__ q_out, float* __restrict__ k_out,
+                       float* __restrict__ v_out, float* __restrict__ dx2_out,
+                       float* __restrict__ xn2_out, float* __restrict__ dpre_out,
+                       float* __restrict__ hid_out, float* __restrict__ dattn_out,
+                       float* __restrict__ dsum_out, float* __restrict__ ln_part, int T,
+                       int A2) {
+  using L = AngBwdTokLayout<C>;
+  using LN = RowLN<C>;
+  constexpr int LD = L::LD, LDH = L::LDH, DH = C / H;
+  extern __shared__ float4 smem4[];
+  float* X = reinterpret_cast<float*>(smem4);  // x
+  float* XN = X + L::TILE;                      // xn -> xn2 -> dxn2
+  float* A = XN + L::TILE;                      // attn (saved)
+  float* X2 = A + L::TILE;                      // x2 -> dx2
+  float* DO = X2 + L::TILE;                     // dout -> dattn
+  float* HD = DO + L::TILE;                     // [BM][LDH] hid -> dpre
+  float* MU2 = HD + BM * LDH;
+  float* RS2 = MU2 + BM;
+  float* WP = RS2 + BM;                         // [8 warps][2][C]
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int t0 = blockIdx.x * BM;
+  const int nrows = min(BM, T - t0);
+  const size_t row0 = static_cast<size_t>(t0);
+
+  load_rows<C>(X, LD, x, t0, T);
+  load_rows<C>(A, LD, attn, t0, T);
+  load_rows<C>(DO, LD, dout, t0, T);
+  __syncthreads();
+
+  // xn = LN1(x + pe), as the forward computed it
+  for (int r = warp; r < BM; r += NT / 32) {
+    float v[LN::E];
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e))
+        v[e] = X[r * LD + LN::col(e)] + __ldg(pe + ((t0 + r) % A2) * C + LN::col(e));
+    LN::apply(v, ln, ln + C);
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) {
+        XN[r * LD + LN::col(e)] = v[e];
+        if (r < nrows) xn_out[(row0 + r) * C + LN::col(e)] = v[e];
+      }
+  }
+  __syncthreads();
+
+  {  // q, k from xn and v from x, to the scratch; x2 = attn Wo + x
+    Acc<BM, C> acc;
+    zero_acc<BM, C>(acc);
+    gemm_acc<BM, C, C>(acc, XN, LD, wq);
+    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) {
+      if (r < nrows) store4(q_out + (row0 + r) * C + c, v);
+    });
+    zero_acc<BM, C>(acc);
+    gemm_acc<BM, C, C>(acc, XN, LD, wk);
+    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) {
+      if (r < nrows) store4(k_out + (row0 + r) * C + c, v);
+    });
+    zero_acc<BM, C>(acc);
+    gemm_acc<BM, C, C>(acc, X, LD, wv);
+    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) {
+      if (r < nrows) store4(v_out + (row0 + r) * C + c, v);
+    });
+    zero_acc<BM, C>(acc);
+    gemm_acc<BM, C, C>(acc, A, LD, wo);
+    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) {
+      store4(X2 + r * LD + c, add4(load4(X + r * LD + c), v));
+    });
+  }
+  __syncthreads();
+
+  // xn2 = LN2(x2) over xn, and its statistics
+  for (int r = warp; r < BM; r += NT / 32) {
+    float v[LN::E];
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) v[e] = X2[r * LD + LN::col(e)];
+    float mu, rstd;
+    ln_stats<C>(v, mu, rstd);
+    if ((tid & 31) == 0) {
+      MU2[r] = mu;
+      RS2[r] = rstd;
+    }
+    LN::apply(v, ln + 2 * C, ln + 3 * C);
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) {
+        XN[r * LD + LN::col(e)] = v[e];
+        if (r < nrows) xn2_out[(row0 + r) * C + LN::col(e)] = v[e];
+      }
+  }
+  __syncthreads();
+
+  {  // hid = relu(xn2 W1)
+    Acc<BM, 2 * C> acc;
+    zero_acc<BM, 2 * C>(acc);
+    gemm_acc<BM, C, 2 * C>(acc, XN, LD, w1);
+    for_tiles<BM, 2 * C>(acc, [&](int r, int c, float4 v) {
+      v = make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
+      store4(HD + r * LDH + c, v);
+      if (r < nrows) store4(hid_out + (row0 + r) * (2 * C) + c, v);
+    });
+  }
+  __syncthreads();
+
+  {  // dpre = (hid > 0) * (dout W2ᵀ), in place over hid
+    Acc<BM, 2 * C> acc;
+    zero_acc<BM, 2 * C>(acc);
+    gemm_acc<BM, C, 2 * C>(acc, DO, LD, w2T);
+    for_tiles<BM, 2 * C>(acc, [&](int r, int c, float4 v) {
+      const float4 hv = load4(HD + r * LDH + c);
+      v = make_float4(hv.x > 0.f ? v.x : 0.f, hv.y > 0.f ? v.y : 0.f,
+                      hv.z > 0.f ? v.z : 0.f, hv.w > 0.f ? v.w : 0.f);
+      store4(HD + r * LDH + c, v);
+      if (r < nrows) store4(dpre_out + (row0 + r) * (2 * C) + c, v);
+    });
+  }
+  __syncthreads();
+
+  {  // dxn2 = dpre W1ᵀ over xn2
+    Acc<BM, C> acc;
+    zero_acc<BM, C>(acc);
+    gemm_acc<BM, 2 * C, C>(acc, HD, LDH, w1T);
+    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) { store4(XN + r * LD + c, v); });
+  }
+  __syncthreads();
+
+  LnGradAcc<C> g2;
+  g2.zero();
+  // dx2 = dout + LN2ᵀ(dxn2), in place over x2
+  for (int r = warp; r < nrows; r += NT / 32) {
+    float xh[LN::E] = {}, d[LN::E] = {};
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) {
+        xh[e] = (X2[r * LD + LN::col(e)] - MU2[r]) * RS2[r];
+        d[e] = XN[r * LD + LN::col(e)];
+      }
+    g2.add(d, xh);
+    ln_bwd<C>(d, xh, RS2[r], ln + 2 * C);
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) {
+        const float v = DO[r * LD + LN::col(e)] + d[e];
+        X2[r * LD + LN::col(e)] = v;
+        dx2_out[(row0 + r) * C + LN::col(e)] = v;
+      }
+  }
+  g2.flush(WP, 2, 0);
+  __syncthreads();
+
+  {  // dattn = dx2 Woᵀ over dout, and to the scratch
+    Acc<BM, C> acc;
+    zero_acc<BM, C>(acc);
+    gemm_acc<BM, C, C>(acc, X2, LD, woT);
+    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) {
+      store4(DO + r * LD + c, v);
+      if (r < nrows) store4(dattn_out + (row0 + r) * C + c, v);
+    });
+  }
+  __syncthreads();
+
+  for (int i = tid; i < nrows * H; i += NT) {  // dsum = dattn . attn per head
+    const int r = i / H, hh = i % H;
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) s = fmaf(DO[r * LD + hh * DH + d], A[r * LD + hh * DH + d], s);
+    dsum_out[row0 * H + i] = s;
+  }
+  block_colsum(WP, 2 * C, ln_part + (static_cast<size_t>(blockIdx.x) * 4 + 2) * C);
+}
+
+// b: one pixel a block; tiles are [A2][C + 4], sized by the launch.
+template <int C, int H>
+__global__ void __launch_bounds__(NT)
+    ang_bwd_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dattn,
+                        const float* __restrict__ m_in, const float* __restrict__ l_in,
+                        const float* __restrict__ dsum, float* __restrict__ dq_out,
+                        float* __restrict__ dk_out, float* __restrict__ dv_out, int A2,
+                        float scale) {
+  constexpr int LD = C + 4, DH = C / H;
+  extern __shared__ float4 smem4[];
+  float* Q = reinterpret_cast<float*>(smem4);
+  float* K = Q + A2 * LD;
+  float* V = K + A2 * LD;
+  float* DO = V + A2 * LD;
+  float* M = DO + A2 * LD;                      // [A2][8] each
+  float* Lsum = M + A2 * H;
+  float* DS = Lsum + A2 * H;
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * A2;
+  stage<C>(Q, q, row0, A2);
+  stage<C>(K, k, row0, A2);
+  stage<C>(V, v, row0, A2);
+  stage<C>(DO, dattn, row0, A2);
+  for (int i = threadIdx.x; i < A2 * H; i += NT) {
+    M[i] = __ldg(m_in + row0 * H + i);
+    Lsum[i] = __ldg(l_in + row0 * H + i);
+    DS[i] = __ldg(dsum + row0 * H + i);
+  }
+  __syncthreads();
+
+  // thread (head, t), t fastest. Scores are rebuilt with the forward's
+  // arithmetic (q scaled first, then an fmaf chain), so p = exp(s - m) / l
+  // uses exactly the forward's s.
+  for (int t = threadIdx.x; t < H * A2; t += NT) {
+    const int me = t % A2, hh = t / A2;
+    float qs[DH], kv[DH], vv[DH], dov[DH], dq[DH], dk[DH], dv[DH];
+    ld<DH>(Q + me * LD + hh * DH, qs);
+    ld<DH>(K + me * LD + hh * DH, kv);
+    ld<DH>(V + me * LD + hh * DH, vv);
+    ld<DH>(DO + me * LD + hh * DH, dov);
+#pragma unroll
+    for (int d = 0; d < DH; ++d) {
+      qs[d] *= scale;
+      dq[d] = dk[d] = dv[d] = 0.f;
+    }
+    const float m_me = M[me * H + hh], inv_me = 1.f / Lsum[me * H + hh];
+    const float ds_me = DS[me * H + hh];
+    for (int o = 0; o < A2; ++o) {
+      float kr[DH], vr[DH], qo[DH], dr[DH];
+      ld<DH>(K + o * LD + hh * DH, kr);
+      ld<DH>(V + o * LD + hh * DH, vr);
+      ld<DH>(Q + o * LD + hh * DH, qo);
+      ld<DH>(DO + o * LD + hh * DH, dr);
+      // me as the query, o as the key
+      float pr = expf(dot<DH>(qs, kr) - m_me) * inv_me;
+      float g = pr * (dot<DH>(dov, vr) - ds_me);
+#pragma unroll
+      for (int d = 0; d < DH; ++d) dq[d] = fmaf(g, kr[d], dq[d]);
+      // o as the query, me as the key
+#pragma unroll
+      for (int d = 0; d < DH; ++d) qo[d] *= scale;
+      pr = expf(dot<DH>(qo, kv) - M[o * H + hh]) / Lsum[o * H + hh];
+      g = pr * (dot<DH>(dr, vv) - DS[o * H + hh]);
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        dk[d] = fmaf(g, qo[d], dk[d]);
+        dv[d] = fmaf(pr, dr[d], dv[d]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < DH; ++d) dq[d] *= scale;
+    const size_t off = (row0 + me) * C + hh * DH;
+    st<DH>(dq_out + off, dq);
+    st<DH>(dk_out + off, dk);
+    st<DH>(dv_out + off, dv);
+  }
+}
+
+template <int C>
+struct AngBwdInLayout {
+  static constexpr int LD = C + 4;
+  static constexpr int TILE = BM * LD;
+  static constexpr size_t BYTES = (6 * TILE + (NT / 32) * 2 * C) * sizeof(float);
+};
+
+template <int C>
+__global__ void __launch_bounds__(NT)
+    ang_bwd_in_kernel(const float* __restrict__ x, const float* __restrict__ pe,
+                      const float* __restrict__ ln, const float* __restrict__ wqT,
+                      const float* __restrict__ wkT, const float* __restrict__ wvT,
+                      const float* __restrict__ dq, const float* __restrict__ dk,
+                      const float* __restrict__ dv, const float* __restrict__ dx2,
+                      float* __restrict__ dx, float* __restrict__ ln_part, int T, int A2) {
+  using L = AngBwdInLayout<C>;
+  using LN = RowLN<C>;
+  constexpr int LD = L::LD;
+  extern __shared__ float4 smem4[];
+  float* X = reinterpret_cast<float*>(smem4);
+  float* DQ = X + L::TILE;
+  float* DK = DQ + L::TILE;
+  float* DV = DK + L::TILE;
+  float* X2 = DV + L::TILE;                     // dx2 -> dx2 + dv Wvᵀ
+  float* DN = X2 + L::TILE;                     // dxn
+  float* WP = DN + L::TILE;                     // [8 warps][2][C]
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int t0 = blockIdx.x * BM;
+  const int nrows = min(BM, T - t0);
+  const size_t row0 = static_cast<size_t>(t0);
+  load_rows<C>(X, LD, x, t0, T);
+  load_rows<C>(DQ, LD, dq, t0, T);
+  load_rows<C>(DK, LD, dk, t0, T);
+  load_rows<C>(DV, LD, dv, t0, T);
+  load_rows<C>(X2, LD, dx2, t0, T);
+  __syncthreads();
+
+  {  // dxn = dq Wqᵀ + dk Wkᵀ; dx2 + dv Wvᵀ in place
+    Acc<BM, C> acc;
+    zero_acc<BM, C>(acc);
+    gemm_acc<BM, C, C>(acc, DQ, LD, wqT);
+    gemm_acc<BM, C, C>(acc, DK, LD, wkT);
+    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) { store4(DN + r * LD + c, v); });
+    zero_acc<BM, C>(acc);
+    gemm_acc<BM, C, C>(acc, DV, LD, wvT);
+    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) {
+      store4(X2 + r * LD + c, add4(load4(X2 + r * LD + c), v));
+    });
+  }
+  __syncthreads();
+
+  LnGradAcc<C> g1;
+  g1.zero();
+  // dx = dx2 + dv Wvᵀ + LN1ᵀ(dxn)
+  for (int r = warp; r < nrows; r += NT / 32) {
+    float xh[LN::E] = {}, d[LN::E] = {};
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e))
+        xh[e] = X[r * LD + LN::col(e)] + __ldg(pe + ((t0 + r) % A2) * C + LN::col(e));
+    float mu, rstd;
+    ln_stats<C>(xh, mu, rstd);
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e)) {
+        xh[e] = (xh[e] - mu) * rstd;
+        d[e] = DN[r * LD + LN::col(e)];
+      }
+    g1.add(d, xh);
+    ln_bwd<C>(d, xh, rstd, ln);
+#pragma unroll
+    for (int e = 0; e < LN::E; ++e)
+      if (LN::valid(e))
+        dx[(row0 + r) * C + LN::col(e)] = X2[r * LD + LN::col(e)] + d[e];
+  }
+  g1.flush(WP, 2, 0);
+  __syncthreads();
+  block_colsum(WP, 2 * C, ln_part + static_cast<size_t>(blockIdx.x) * 4 * C);
+}
+
+// in: x, pe, ln, wq, wk, wv, wo, w1, wqT, wkT, wvT, woT, w1T, w2T, m, l, attn,
+// dout; out: dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, ln_part; scratch: q, k,
+// v, dattn [T, C], dsum [T, 8].
+template <int C>
+int launch_bwd128(const float* const* in, float* const* out, float* const* scr, int N, int A2,
+                  float scale, cudaStream_t stream) {
+  const int T = N * A2;
+  auto tok = ang_bwd_tok_kernel<C, 8>;
+  auto att = ang_bwd_attn_kernel<C, 8>;
+  auto inp = ang_bwd_in_kernel<C>;
+  const size_t att_bytes = (4 * A2 * (C + 4) + 3 * A2 * 8) * sizeof(float);
+  LFT_SET_SMEM(tok, AngBwdTokLayout<C>::BYTES);
+  LFT_SET_SMEM(att, att_bytes);
+  LFT_SET_SMEM(inp, AngBwdInLayout<C>::BYTES);
+  tok<<<blocks(T), NT, AngBwdTokLayout<C>::BYTES, stream>>>(
+      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[11], in[12], in[13], in[16],
+      in[17], out[1], scr[0], scr[1], scr[2], out[5], out[6], out[7], out[8], scr[3], scr[4],
+      out[9], T, A2);
+  att<<<N, NT, att_bytes, stream>>>(scr[0], scr[1], scr[2], scr[3], in[14], in[15], scr[4],
+                                    out[2], out[3], out[4], A2, scale);
+  inp<<<blocks(T), NT, AngBwdInLayout<C>::BYTES, stream>>>(
+      in[0], in[1], in[2], in[8], in[9], in[10], out[2], out[3], out[4], out[5], out[0], out[9],
+      T, A2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 LFT_EXPORT_ERROR_STRING
@@ -629,6 +1032,34 @@ extern "C" int lft_ang_block_bwd(
     case 16: return launch_bwd<16>(in, out, N, A2, scale, s);
     case 32: return launch_bwd<32>(in, out, N, A2, scale, s);
     case 64: return launch_bwd<64>(in, out, N, A2, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K4 for every A2 <= 128 (the wrapper sends it 64 < A2 <= 128): inputs and
+// outputs as lft_ang_block_bwd, except ln_part [ceil(N A2 / 64), 4, C], plus
+// the scratch q, k, v, dattn [T, C] and dsum [T, 8] that its three kernels
+// pass through device memory.
+extern "C" int lft_ang_block_bwd128(
+    const float* x, const float* pe, const float* ln, const float* wq, const float* wk,
+    const float* wv, const float* wo, const float* w1, const float* wqT, const float* wkT,
+    const float* wvT, const float* woT, const float* w1T, const float* w2T, const float* m,
+    const float* l, const float* attn, const float* dout, float* dx, float* xn, float* dq,
+    float* dk, float* dv, float* dx2, float* xn2, float* dpre, float* hid, float* ln_part,
+    float* q, float* k, float* v, float* dattn, float* dsum, int N, int A2, int C, int H,
+    float scale, void* stream) {
+  if (H != 8 || A2 < 1 || A2 > RP || N < 1 ||
+      static_cast<long long>(N) * A2 > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* in[] = {x, pe, ln, wq, wk, wv, wo, w1, wqT, wkT, wvT, woT, w1T, w2T, m, l,
+                       attn, dout};
+  float* out[] = {dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, ln_part};
+  float* scr[] = {q, k, v, dattn, dsum};
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 16: return launch_bwd128<16>(in, out, scr, N, A2, scale, s);
+    case 32: return launch_bwd128<32>(in, out, scr, N, A2, scale, s);
+    case 64: return launch_bwd128<64>(in, out, scr, N, A2, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -50,21 +50,6 @@ constexpr int QT = 8;              // query tile edge
 constexpr int HL = QT + 2 * R;     // halo edge
 constexpr int NQ = QT * QT, NH = HL * HL;
 
-// Channels [c0, c0 + CW) of the tile's halo of one view image [h, w, E] ->
-// a [NH][CW + 4] tile, zero outside the image. `nt` threads take part.
-template <int CW>
-__device__ __forceinline__ void stage_halo(float* dst, const float* __restrict__ img, int E,
-                                           int c0, int y0, int x0, int h, int w, int nt) {
-  for (int i = threadIdx.x; i < NH * (CW / 4); i += nt) {
-    const int pos = i / (CW / 4), c = 4 * (i % (CW / 4));
-    const int y = y0 - R + pos / HL, x = x0 - R + pos % HL;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (y >= 0 && y < h && x >= 0 && x < w)
-      val = ldg4(img + (static_cast<size_t>(y) * w + x) * E + c0 + c);
-    store4(dst + pos * (CW + 4) + c, val);
-  }
-}
-
 // ---- forward: 512 threads = 64 queries x 8 heads --------------------------
 template <int DH, bool STATS>
 __global__ void __launch_bounds__(NQ * H)
@@ -80,8 +65,8 @@ __global__ void __launch_bounds__(NQ * H)
   const int tile = blockIdx.x % (nth * ntw);
   const int y0 = (tile / ntw) * QT, x0 = (tile % ntw) * QT;
   const size_t view = static_cast<size_t>(blockIdx.x / (nth * ntw)) * h * w;
-  stage_halo<E>(KT, k + view * E, E, 0, y0, x0, h, w, NQ * H);
-  stage_halo<E>(VT, v + view * E, E, 0, y0, x0, h, w, NQ * H);
+  stage_tile_halo<E, QT>(KT, k + view * E, E, 0, y0, x0, h, w, NQ * H);
+  stage_tile_halo<E, QT>(VT, v + view * E, E, 0, y0, x0, h, w, NQ * H);
   __syncthreads();
 
   const int qi = threadIdx.x % NQ, hh = threadIdx.x / NQ;
@@ -177,10 +162,10 @@ __global__ void __launch_bounds__(Bwd<DH>::NTB)
   for (int c0 = 0; c0 < E; c0 += CW) {
     const int h0 = c0 / DH;
     if (c0) __syncthreads();                       // the last chunk's readers are done
-    stage_halo<CW>(QS, q + view * E, E, c0, y0, x0, h, w, NTB);
-    stage_halo<CW>(KT, kv, E, c0, y0, x0, h, w, NTB);
-    stage_halo<CW>(VT, vv, E, c0, y0, x0, h, w, NTB);
-    stage_halo<CW>(GT, dout + view * E, E, c0, y0, x0, h, w, NTB);
+    stage_tile_halo<CW, QT>(QS, q + view * E, E, c0, y0, x0, h, w, NTB);
+    stage_tile_halo<CW, QT>(KT, kv, E, c0, y0, x0, h, w, NTB);
+    stage_tile_halo<CW, QT>(VT, vv, E, c0, y0, x0, h, w, NTB);
+    stage_tile_halo<CW, QT>(GT, dout + view * E, E, c0, y0, x0, h, w, NTB);
     for (int i = threadIdx.x; i < NH * HP; i += NTB) {
       const int pos = i / HP, hh = i % HP;
       const int y = y0 - R + pos / HL, x = x0 - R + pos % HL;

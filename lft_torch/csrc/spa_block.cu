@@ -28,6 +28,17 @@
 // 67 TFLOP/s on an H100 SXM; the intermediates add ~1.9 GB of device
 // memory traffic (~0.6 ms at 3.35 TB/s), so the steps are compute-bound
 // except the window attention, which is bound by its k/v reads.
+//
+// K11, the same forward on a pixel-major buffer x [Bb, h, w, A2, C] ->
+// [Bb, h, w, A2, C] (replaces lft_tpu/kernels/spa_block.py:_fwd_call with
+// pixel_major=True, whose BlockSpec gathers each (batch, view) plane out of
+// the strided layout): only step 1 reads x and only step 5 writes the
+// output, everything between is the block's own view-major [V = Bb A2, h, w,
+// D] buffers. So steps 1 and 5 have a PM form that turns a view-major token
+// index into the pixel-major row (`pm_row`); a pixel's C floats stay one
+// contiguous 4 C-byte segment at a stride of A2 C floats, so the reads and
+// writes remain whole 128-byte lines and the bounds are K2's. No view-major
+// copy of x or of the output is ever made.
 
 #include "spa.cuh"
 
@@ -35,13 +46,21 @@ using namespace lft;
 
 namespace {
 
+// Token t of the view-major [Bb * A2, hw] order -> its row in a pixel-major
+// [Bb, hw, A2] buffer.
+__device__ __forceinline__ long long pm_row(long long t, int hw, int A2) {
+  const long long view = t / hw;
+  return ((view / A2) * hw + t % hw) * A2 + view % A2;
+}
+
 // ---- 1: tokenisation (9 shifted C -> D taps) + PE + LN1 -----------------
-template <int C>
+// PM: x is pixel-major [T / (hw A2), h, w, A2, C]; tok and xn stay view-major.
+template <int C, bool PM>
 __global__ void __launch_bounds__(NT)
     spa_tokenize_ln_kernel(const float* __restrict__ x, const float* __restrict__ pe_tok,
                            const float* __restrict__ wu, const float* __restrict__ ln,
                            float* __restrict__ tok, float* __restrict__ xn, int T,
-                           int h, int w) {
+                           int h, int w, int A2) {
   using S = Spa<C>;
   using LN = RowLN<S::D>;
   constexpr int D = S::D, LDC = S::LDC, LDD = S::LDD;
@@ -63,8 +82,11 @@ __global__ void __launch_bounds__(NT)
       if (t < T) {
         const int rem = t % hw;
         const int y = rem / w + dy, xx = rem % w + dx;
-        if (y >= 0 && y < h && xx >= 0 && xx < w)
-          v = ldg4(x + (static_cast<long long>(t) + dy * w + dx) * C + c);
+        if (y >= 0 && y < h && xx >= 0 && xx < w) {
+          long long row = static_cast<long long>(t) + dy * w + dx;   // same view
+          if constexpr (PM) row = pm_row(row, hw, A2);
+          v = ldg4(x + row * C + c);
+        }
       }
       store4(AS + r * LDC + c, v);
     }
@@ -255,11 +277,13 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ---- 5: FFN + residual + Token2SAI --------------------------------------
-template <int C>
+// PM: out is pixel-major [T / (hw A2), hw, A2, C]; xn2 and x2 are view-major.
+template <int C, bool PM>
 __global__ void __launch_bounds__(NT)
     spa_ffn_out_kernel(const float* __restrict__ xn2, const float* __restrict__ x2,
                        const float* __restrict__ w1, const float* __restrict__ w2,
-                       const float* __restrict__ wlin, float* __restrict__ out, int T) {
+                       const float* __restrict__ wlin, float* __restrict__ out, int T,
+                       int hw, int A2) {
   using S = Spa<C>;
   constexpr int D = S::D, LDD = S::LDD, LDH = S::LDH;
   extern __shared__ float4 smem4[];
@@ -296,7 +320,10 @@ __global__ void __launch_bounds__(NT)
     gemm_acc<BM, D, C>(acc, XN, LDD, wlin);
     for_tiles<BM, C>(acc, [&](int r, int c, float4 val) {
       const int t = t0 + r;
-      if (t < T) store4(out + static_cast<size_t>(t) * C + c, val);
+      if (t >= T) return;
+      long long row = t;
+      if constexpr (PM) row = pm_row(row, hw, A2);
+      store4(out + row * C + c, val);
     });
   }
 }
@@ -311,18 +338,50 @@ LFT_EXPORT_ERROR_STRING
 // (LN1 w, b, LN2 w, b). Each returns the launch's cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape it does not take (C in {16, 32, 64}).
 
+namespace {
+
+template <bool PM>
+int tokenize_ln(const float* x, const float* pe_tok, const float* wu, const float* ln,
+                float* tok, float* xn, int V, int h, int w, int A2, int C, cudaStream_t s) {
+  const int T = V * h * w;
+  LFT_DISPATCH_C(C, {
+    auto kernel = spa_tokenize_ln_kernel<CC, PM>;
+    const size_t bytes = BM * (Spa<CC>::LDC + Spa<CC>::LDD) * sizeof(float);
+    LFT_SET_SMEM(kernel, bytes);
+    kernel<<<blocks(T), NT, bytes, s>>>(x, pe_tok, wu, ln, tok, xn, T, h, w, A2);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool PM>
+int ffn_out(const float* xn2, const float* x2, const float* w1, const float* w2,
+            const float* wlin, float* out, int T, int hw, int A2, int C, cudaStream_t s) {
+  LFT_DISPATCH_C(C, {
+    auto kernel = spa_ffn_out_kernel<CC, PM>;
+    const size_t bytes = BM * (Spa<CC>::LDD + Spa<CC>::LDH) * sizeof(float);
+    LFT_SET_SMEM(kernel, bytes);
+    kernel<<<blocks(T), NT, bytes, s>>>(xn2, x2, w1, w2, wlin, out, T, hw, A2);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 extern "C" int lft_spa_tokenize_ln(const float* x, const float* pe_tok, const float* wu,
                                    const float* ln, float* tok, float* xn, int V, int h,
                                    int w, int C, void* stream) {
-  const int T = V * h * w;
-  auto s = static_cast<cudaStream_t>(stream);
-  LFT_DISPATCH_C(C, {
-    auto kernel = spa_tokenize_ln_kernel<CC>;
-    const size_t bytes = BM * (Spa<CC>::LDC + Spa<CC>::LDD) * sizeof(float);
-    LFT_SET_SMEM(kernel, bytes);
-    kernel<<<blocks(T), NT, bytes, s>>>(x, pe_tok, wu, ln, tok, xn, T, h, w);
-  });
-  return static_cast<int>(cudaGetLastError());
+  return tokenize_ln<false>(x, pe_tok, wu, ln, tok, xn, V, h, w, 1, C,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// K11's first step: x [Bb, h, w, A2, C] pixel-major -> tok, xn [Bb * A2, h, w, D].
+extern "C" int lft_spa_tokenize_ln_pm(const float* x, const float* pe_tok, const float* wu,
+                                      const float* ln, float* tok, float* xn, int Bb, int h,
+                                      int w, int A2, int C, void* stream) {
+  if (Bb < 1 || A2 < 1 || static_cast<long long>(Bb) * A2 * h * w > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tokenize_ln<true>(x, pe_tok, wu, ln, tok, xn, Bb * A2, h, w, A2, C,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lft_spa_qkv(const float* xn, const float* tok, const float* wqk,
@@ -396,12 +455,17 @@ extern "C" int lft_spa_outproj_ln(const float* attn, const float* tok, const flo
 extern "C" int lft_spa_ffn_out(const float* xn2, const float* x2, const float* w1,
                                const float* w2, const float* wlin, float* out, int T,
                                int C, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  LFT_DISPATCH_C(C, {
-    auto kernel = spa_ffn_out_kernel<CC>;
-    const size_t bytes = BM * (Spa<CC>::LDD + Spa<CC>::LDH) * sizeof(float);
-    LFT_SET_SMEM(kernel, bytes);
-    kernel<<<blocks(T), NT, bytes, s>>>(xn2, x2, w1, w2, wlin, out, T);
-  });
-  return static_cast<int>(cudaGetLastError());
+  return ffn_out<false>(xn2, x2, w1, w2, wlin, out, T, 1, 1, C,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// K11's last step: xn2, x2 [Bb * A2, hw, D] view-major -> out [Bb, hw, A2, C]
+// pixel-major.
+extern "C" int lft_spa_ffn_out_pm(const float* xn2, const float* x2, const float* w1,
+                                  const float* w2, const float* wlin, float* out, int Bb,
+                                  int hw, int A2, int C, void* stream) {
+  if (Bb < 1 || A2 < 1 || hw < 1 || static_cast<long long>(Bb) * A2 * hw > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return ffn_out<true>(xn2, x2, w1, w2, wlin, out, Bb * A2 * hw, hw, A2, C,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -3,10 +3,14 @@
 `LAUNCHES` counts each kernel's launches; `reset_launches()` zeroes them.
 `FORWARD` names the kernels of the fused SR forward, `TRAINING` those that
 only a fused train step launches, `PEROP` those of the unfused per-op branch's
-default pair (K7, K5), `SWEEPS` those of its other families (K8, K9, K6).
+default pair (K7, K5), `SWEEPS` those of its other families (K8, K9, K6),
+`TAIL` the rest: K10 `spa_attn_tile`; `ang_block_bwd128`, the fused AngTrans
+backward K4 for pixels of 65 to 128 views (`ang_block_bwd` serves A2 <= 64);
+and K11's `spa_tokenize_ln_pm` and `spa_ffn_out_pm`.
 """
 
-from lft_torch.kernels._build import (FORWARD, LAUNCHES, PEROP, SWEEPS, TRAINING, build_all,
-                                      reset_launches)
+from lft_torch.kernels._build import (FORWARD, LAUNCHES, PEROP, SWEEPS, TAIL, TRAINING,
+                                      build_all, reset_launches)
 
-__all__ = ["FORWARD", "LAUNCHES", "PEROP", "SWEEPS", "TRAINING", "build_all", "reset_launches"]
+__all__ = ["FORWARD", "LAUNCHES", "PEROP", "SWEEPS", "TAIL", "TRAINING", "build_all",
+           "reset_launches"]

@@ -25,7 +25,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("ang_block", "spa_block", "spa_block_bwd", "wgrad", "ang_attn", "spa_attn_hp",
-           "ang_attn_sweep", "spa_attn_offset", "spa_attn_mxu")
+           "ang_attn_sweep", "spa_attn_offset", "spa_attn_mxu", "spa_attn_tile")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,8 +49,13 @@ SWEEPS = ("ang_attn_sweep", "ang_attn_sweep_res", "ang_attn_sweep_bwd", "spa_att
           "spa_attn_offset_res", "spa_attn_offset_bwd", "spa_attn_mxu", "spa_attn_mxu_res",
           "spa_attn_mxu_bwd")
 
+# The last of the TPU kernels' counterparts: K10 (tile-halo window attention,
+# forward only), K4's form for pixels of 65 to 128 views (three kernels behind
+# one launch) and K11 (K2's first and last step on a pixel-major buffer).
+TAIL = ("spa_attn_tile", "ang_block_bwd128", "spa_tokenize_ln_pm", "spa_ffn_out_pm")
+
 # kernel name -> launches since the last reset
-LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS}
+LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS + TAIL}
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -12,11 +12,16 @@ fallback from one to the other.
 Training: when grad mode is on and an input or weight requires grad, the
 block runs as `AngBlockFn`. Its forward is K1 "with residuals" (it also
 returns the per-(token, head) softmax max m and denominator l, and the
-attention output attn); its backward is K4 (`ang_block_bwd`), which
-recomputes xn, q, k, v, x2, xn2 and the FFN hidden from x and the saved
-residuals, writes dx and the per-token operands of every weight gradient,
-and leaves the weight gradients to the deterministic `wgrad` reduction.
-The angular PE is a constant of the shapes: its gradient is None.
+attention output attn); its backward is K4, which recomputes xn, q, k, v,
+x2, xn2 and the FFN hidden from x and the saved residuals, writes dx and the
+per-token operands of every weight gradient, and leaves the weight gradients
+to the deterministic `wgrad` reduction. K4 has two forms: `ang_block_bwd`,
+one kernel whose block holds `BWD_ROWS` = 64 token rows of whole pixels
+(A2 <= 64), and `ang_block_bwd128` for pixels of 65 to 128 views, three
+kernels (token-wise, attention a pixel a block, token-wise) that pass q, k,
+v, dattn and dsum through device memory. Together they cover the gate, so
+every gated geometry trains fused. The angular PE is a constant of the
+shapes: its gradient is None.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from lft_torch.ops.attention import attention_heads
 
 LN_EPS = 1e-5
 BLK = 128          # the JAX gate's key block: A2 <= 128 tokens per pixel
-BWD_ROWS = 64      # the backward kernel's token rows per block: A2 <= 64
+BWD_ROWS = 64      # token rows per block of the backward kernels; one-kernel K4: A2 <= 64
 KERNEL_C = (16, 32, 64)
 WEIGHTS = ("ln", "wq", "wk", "wv", "wo", "w1", "w2")
 
@@ -43,12 +48,12 @@ def ang_block_applicable(A2: int) -> bool:
 
 def ang_block_trainable(A2: int, device_type: str) -> bool:
     """Whether the fused block can run FORWARD AND BACKWARD at this view
-    count on this kind of device. The backward kernel K4 owns `BWD_ROWS`
-    token rows a block, so on CUDA it takes A2 <= 64 where the forward K1
-    and the gate take A2 <= 128; the plain versions (CPU tensors) take every
-    gated A2. A caller that trains sends a geometry that fails this to the
-    unfused branch, as it sends one that fails `ang_block_applicable`."""
-    return ang_block_applicable(A2) and (device_type != "cuda" or A2 <= BWD_ROWS)
+    count on this kind of device: on every device, wherever the gate passes.
+    On CUDA `ang_block_bwd` takes A2 <= 64 and `ang_block_bwd128` the rest of
+    the gate; the plain versions (CPU tensors) take every gated A2. A caller
+    that trains sends a geometry that fails this to the unfused branch, as it
+    sends one that fails `ang_block_applicable`."""
+    return ang_block_applicable(A2)
 
 
 def ang_weights(params, prefix: str) -> dict:
@@ -207,29 +212,34 @@ def ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
 
 
 def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
-    """The K4 kernel (`ang_block_bwd`) for CUDA tensors, its plain version
-    for CPU tensors. Same outputs as `ang_block_bwd_ops_plain`, except that
-    dln holds one partial sum per block of the kernel: [blocks, 4, C]."""
+    """The K4 kernel for CUDA tensors (`ang_block_bwd` for A2 <= 64, the
+    three kernels of `ang_block_bwd128` beyond), its plain version for CPU
+    tensors. Same outputs as `ang_block_bwd_ops_plain`, except that dln
+    holds one partial sum per block of the kernel: [blocks, 4, C]."""
     if x.device.type != "cuda":
         return ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads)
-    _check_kernel_shape("ang_block_bwd", x, ang_pe, num_heads, BWD_ROWS)
     N, A2, C = x.shape
     T = N * A2
-    P = BWD_ROWS // A2
-    nblk = (N + P - 1) // P
+    wide = A2 > BWD_ROWS
+    name = "ang_block_bwd128" if wide else "ang_block_bwd"
+    _check_kernel_shape(name, x, ang_pe, num_heads, BLK)
+    # blocks of whole pixels (P a block), or of BWD_ROWS token rows of any pixel
+    nblk = -(-T // BWD_ROWS) if wide else -(-N // (BWD_ROWS // A2))
     w = wts
     wt = {n: w[n].t().contiguous() for n in ("wq", "wk", "wv", "wo", "w1", "w2")}
     ins = (x, ang_pe, *(w[n] for n in WEIGHTS[:-1]), *(wt[n] for n in WEIGHTS[1:]),
            m, l, attn, dout)
-    _build.check_cuda_args("ang_block_bwd", *ins)
+    _build.check_cuda_args(name, *ins)
     dev = x.device
     e = lambda *s: torch.empty(*s, device=dev)
     outs = (e(N, A2, C), e(T, C), e(T, C), e(T, C), e(T, C), e(T, C), e(T, C),
             e(T, 2 * C), e(T, 2 * C), e(nblk, 4, C))
-    fn = _build.bind("ang_block", "lft_ang_block_bwd", len(ins) + len(outs),
+    # what the three kernels hand on: q, k, v, dattn and dsum per token and head
+    scratch = (e(T, C), e(T, C), e(T, C), e(T, C), e(T, num_heads)) if wide else ()
+    fn = _build.bind("ang_block", "lft_" + name, len(ins) + len(outs) + len(scratch),
                      (ctypes.c_int,) * 4 + (ctypes.c_float,))
-    _build.launch("ang_block", "ang_block_bwd", fn, dev,
-                  *(t.data_ptr() for t in ins + outs), N, A2, C, num_heads,
+    _build.launch("ang_block", name, fn, dev,
+                  *(t.data_ptr() for t in ins + outs + scratch), N, A2, C, num_heads,
                   float(C // num_heads) ** -0.5)
     return outs
 

@@ -1,36 +1,91 @@
-"""Per-op spatial attention: the dispatch of `attention_impl='pallas'`
-(counterpart of lft_tpu/kernels/local_attn.py:130-179).
+"""Per-op spatial attention: the dispatch of `attention_impl='pallas'` and
+the tile-halo kernel K10 (counterpart of lft_tpu/kernels/local_attn.py).
 
 The JAX dispatcher chooses among four kernel families, and the port follows
 it branch for branch: the hybrid (K5, or K9 and K6 where no all-heads
 geometry exists) for a tileable view of at most 2048 pixels, the tile-dense
 K6 for a larger tileable view, the offset sweep K9 for a small view no tile
-divides. The tile-halo kernel K10 is still to port and its branch raises.
-The one branch that holds no kernel in the JAX package either, the tiled XLA
-op for views no 8x8 tile divides, goes to the port's tiled torch op.
+divides, and the tile-halo kernel K10 where its variant is forced (`tile`) or
+the offset variant meets a view of more than 2048 pixels that 8x8 tiles
+divide. The one branch that holds no kernel in the JAX package either, the
+tiled XLA op for views no 8x8 tile divides, goes to the port's tiled torch op.
+
+`windowed_attention_tile(q, k, v, num_heads, ksize, t)` is K10: projected
+[B, h, w, E] images -> the window attention's output, every t x t query tile
+scored against its whole (t + 2r)^2 key halo under the additive mask of
+`ops.attention._halo_mask` and put through a plain softmax. On a CUDA tensor
+it launches the hand-written kernel of `lft_torch/csrc/spa_attn_tile.cu`; on
+a CPU tensor it runs the plain PyTorch version. There is no fallback from
+one to the other. K10 is forward-only, as in the JAX package, whose kernel
+has no VJP and fails under `jax.grad`: when grad is needed the wrapper raises
+on any device and names the variants that train.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 
-from lft_torch.kernels import local_attn_vjp
+import torch
+
+from lft_torch.kernels import _build, local_attn_vjp
+from lft_torch.kernels.ang_block import _needs_grad
 from lft_torch.kernels.spa_attn import (local_attention_tile_mxu, pick_tile,
                                         windowed_attention_hybrid)
+from lft_torch.kernels.spa_attn_hp import _check_shape
+from lft_torch.ops.attention import windowed_attention
 
 # The JAX gate of its per-view offset kernel, kept for the same dispatch.
 _MAX_HW_OFFSET = 2048
 
 SPA_VARIANTS = ("auto", "mxu", "offset", "tile")
 
+TILE = 8           # the query tile edge the K10 kernel is built for
+
+
+def windowed_attention_tile_plain(q, k, v, num_heads: int, ksize: int = 5, t: int = TILE):
+    """Plain version of K10: the tiled torch op at tile edge t (q scaled
+    before the product, the additive -1e30 mask, softmax, times the halo's
+    values: the JAX kernel's arithmetic)."""
+    return windowed_attention(q, k, v, num_heads, ksize, impl="tiled", t=t)
+
+
+def windowed_attention_tile(q, k, v, num_heads: int, ksize: int = 5, t: int = TILE):
+    """K10 (`spa_attn_tile`) on projected [B, h, w, E] q/k/v, h and w
+    multiples of t: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Inference only."""
+    if _needs_grad(q, k, v):
+        raise ValueError(
+            "the tile-halo window attention K10 (variant 'tile', and 'offset' on views of more "
+            f"than {_MAX_HW_OFFSET} pixels) is forward-only and cannot be differentiated; the "
+            f"variants that train are 'auto', 'mxu' and, up to {_MAX_HW_OFFSET} pixels a view, "
+            "'offset'")
+    B, h, w, E = q.shape
+    if h % t or w % t:
+        raise ValueError(f"spa_attn_tile: {t}x{t} tiles do not divide ({h}, {w}) views")
+    if q.device.type != "cuda":
+        return windowed_attention_tile_plain(q, k, v, num_heads, ksize, t)
+    _check_shape("spa_attn_tile", q, num_heads, ksize)
+    if t != TILE:
+        raise NotImplementedError(f"spa_attn_tile kernel takes {TILE}x{TILE} tiles, got t={t}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _build.check_cuda_args("spa_attn_tile", q, k, v)
+    out = torch.empty_like(q)
+    fn = _build.bind("spa_attn_tile", "lft_spa_attn_tile", 4,
+                     (ctypes.c_int,) * 5 + (ctypes.c_float,))
+    _build.launch("spa_attn_tile", "spa_attn_tile", fn, q.device,
+                  *(x.data_ptr() for x in (q, k, v, out)), B, h, w, E, num_heads,
+                  float(E // num_heads) ** -0.5)
+    return out
+
 
 def local_attention_pallas(qn, v, in_proj_weight, out_proj_weight, num_heads: int,
-                           k: int = 5, t: int = 8, variant: str = "auto"):
+                           k: int = 5, t: int = TILE, variant: str = "auto"):
     """Drop-in for `ops.attention.local_attention` on [B, h, w, E] token
     images through the port's kernels. variant: 'auto' resolves per
-    geometry and context; 'mxu' | 'offset' | 'tile' force one family. The
-    environment variable `LFT_SPA_VARIANT` overrides 'auto', as in the JAX
-    package."""
+    geometry and context; 'mxu' | 'offset' | 'tile' force one family
+    ('tile' is inference only). The environment variable `LFT_SPA_VARIANT`
+    overrides 'auto', as in the JAX package."""
     if variant == "auto":
         variant = os.environ.get("LFT_SPA_VARIANT", "auto")
     if variant not in SPA_VARIANTS:
@@ -51,7 +106,6 @@ def local_attention_pallas(qn, v, in_proj_weight, out_proj_weight, num_heads: in
     if use_offset:
         return local_attn_vjp.local_attention_pallas_ad(qn, v, in_proj_weight, out_proj_weight,
                                                         num_heads, k)
-    raise NotImplementedError(
-        f"window attention of {h}x{w} views with variant={variant!r} takes the tile-halo "
-        "kernel K10 (lft_tpu/kernels/local_attn.py:_windowed_attention_pallas), which is "
-        "still to port")
+    wq, wk, wv = in_proj_weight.chunk(3, dim=0)
+    out = windowed_attention_tile(qn @ wq.T, qn @ wk.T, v @ wv.T, num_heads, k, t)
+    return out @ out_proj_weight.T

@@ -28,6 +28,14 @@ denominator l, and saves x, tok, m, l and attn. The backward (K3,
 and the weight, LayerNorm and PE gradients are reduced by `wgrad`/`colsum`
 (kernels/wgrad.py). `pe_tok` gets a real gradient: it carries MLP.weight.
 `spa_trans_block_plain` runs the plain versions of all of it on any device.
+
+K11, `pixel_major=True` (counterpart of lft_tpu's `_fwd_call(pixel_major=
+True)`): the same forward on a pixel-major buffer x [Bb, h, w, A2, C] ->
+[Bb, h, w, A2, C], each (batch, view) plane read and written in place through
+its stride. Only step 1 reads x and only step 5 writes the output, so those
+two run as `spa_tokenize_ln_pm` and `spa_ffn_out_pm` around the unchanged
+steps 2-4, and no view-major copy of the buffer is made. Inference only, as
+in the JAX package: a call that needs grad raises.
 """
 
 from __future__ import annotations
@@ -189,22 +197,42 @@ def _check_c(kernel: str, C: int) -> None:
         raise NotImplementedError(f"{kernel} kernel takes C in {KERNEL_C}, got C={C}")
 
 
-def tokenize_ln(x, pe_tok, wts):
-    """Step 1: x [V, h, w, C], pe_tok [h, w, D] -> (tok, xn) [V, h, w, D]."""
-    if x.device.type != "cuda":
-        return tokenize_ln_plain(x, pe_tok, wts)
+def _to_view_major(x):
+    """[Bb, h, w, A2, C] -> a view-major copy [Bb * A2, h, w, C]."""
+    Bb, h, w, A2, C = x.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(Bb * A2, h, w, C)
+
+
+def _to_pixel_major(x, A2: int):
+    """[Bb * A2, h, w, C] -> a pixel-major copy [Bb, h, w, A2, C]."""
     V, h, w, C = x.shape
+    return x.reshape(V // A2, A2, h, w, C).permute(0, 2, 3, 1, 4).contiguous()
+
+
+def tokenize_ln(x, pe_tok, wts, pixel_major: bool = False):
+    """Step 1: x [V, h, w, C], pe_tok [h, w, D] -> (tok, xn) [V, h, w, D].
+    pixel_major: x is [Bb, h, w, A2, C], V = Bb * A2, counted as
+    `spa_tokenize_ln_pm`; tok and xn are view-major either way."""
+    if x.device.type != "cuda":
+        return tokenize_ln_plain(_to_view_major(x) if pixel_major else x, pe_tok, wts)
+    name = "spa_tokenize_ln_pm" if pixel_major else "spa_tokenize_ln"
+    if pixel_major:
+        Bb, h, w, A2, C = x.shape
+        dims = (Bb, h, w, A2, C)
+    else:
+        Bb, h, w, C = x.shape
+        A2, dims = 1, (Bb, h, w, C)
     D = wts["wu"].shape[-1]
-    _check_c("spa_tokenize_ln", C)
+    _check_c(name, C)
     if tuple(pe_tok.shape) != (h, w, D) or D != 2 * C:
-        raise ValueError(f"spa_tokenize_ln: pe_tok {tuple(pe_tok.shape)} for x {tuple(x.shape)}")
-    _build.check_cuda_args("spa_tokenize_ln", x, pe_tok, wts["wu"], wts["ln"])
-    tok = torch.empty(V, h, w, D, device=x.device)
+        raise ValueError(f"{name}: pe_tok {tuple(pe_tok.shape)} for x {tuple(x.shape)}")
+    _build.check_cuda_args(name, x, pe_tok, wts["wu"], wts["ln"])
+    tok = torch.empty(Bb * A2, h, w, D, device=x.device)
     xn = torch.empty_like(tok)
-    fn = _build.bind("spa_block", "lft_spa_tokenize_ln", 6, (ctypes.c_int,) * 4)
-    _build.launch("spa_block", "spa_tokenize_ln", fn, x.device, x.data_ptr(),
+    fn = _build.bind("spa_block", "lft_" + name, 6, (ctypes.c_int,) * len(dims))
+    _build.launch("spa_block", name, fn, x.device, x.data_ptr(),
                   pe_tok.data_ptr(), wts["wu"].data_ptr(), wts["ln"].data_ptr(),
-                  tok.data_ptr(), xn.data_ptr(), V, h, w, C)
+                  tok.data_ptr(), xn.data_ptr(), *dims)
     return tok, xn
 
 
@@ -274,19 +302,28 @@ def outproj_ln(attn, tok, wts):
     return x2, xn2
 
 
-def ffn_out(xn2, x2, wts):
-    """Step 5: (xn2, x2) [V, h, w, D] -> block output [V, h, w, C]."""
+def ffn_out(xn2, x2, wts, views=None):
+    """Step 5: (xn2, x2) [V, h, w, D] -> block output [V, h, w, C]. With
+    `views` = A2 the output is pixel-major [V / A2, h, w, A2, C], counted as
+    `spa_ffn_out_pm`."""
     if xn2.device.type != "cuda":
-        return ffn_out_plain(xn2, x2, wts)
+        out = ffn_out_plain(xn2, x2, wts)
+        return out if views is None else _to_pixel_major(out, views)
     *lead, D = x2.shape
     C = D // 2
-    _check_c("spa_ffn_out", C)
-    _build.check_cuda_args("spa_ffn_out", xn2, x2, wts["w1"], wts["w2"], wts["wlin"])
-    out = torch.empty(*lead, C, device=x2.device)
-    fn = _build.bind("spa_block", "lft_spa_ffn_out", 6, (ctypes.c_int,) * 2)
-    _build.launch("spa_block", "spa_ffn_out", fn, x2.device, xn2.data_ptr(),
+    name = "spa_ffn_out" if views is None else "spa_ffn_out_pm"
+    _check_c(name, C)
+    _build.check_cuda_args(name, xn2, x2, wts["w1"], wts["w2"], wts["wlin"])
+    if views is None:
+        out, dims = torch.empty(*lead, C, device=x2.device), (x2.numel() // D, C)
+    else:
+        V, h, w = lead
+        out = torch.empty(V // views, h, w, views, C, device=x2.device)
+        dims = (V // views, h * w, views, C)
+    fn = _build.bind("spa_block", "lft_" + name, 6, (ctypes.c_int,) * len(dims))
+    _build.launch("spa_block", name, fn, x2.device, xn2.data_ptr(),
                   x2.data_ptr(), wts["w1"].data_ptr(), wts["w2"].data_ptr(),
-                  wts["wlin"].data_ptr(), out.data_ptr(), x2.numel() // D, C)
+                  wts["wlin"].data_ptr(), out.data_ptr(), *dims)
     return out
 
 
@@ -386,16 +423,19 @@ def tokenize_bwd(dtok, wts):
 
 # --------------------------------------------------------------- blocks ---
 
-def spa_block(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False):
-    """K2 chained; with_res: (out, tok, m, l, attn)."""
-    tok, xn = tokenize_ln(x, pe_tok, wts)
+def spa_block(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False,
+              pixel_major: bool = False):
+    """K2 chained; with_res: (out, tok, m, l, attn). pixel_major (K11): x and
+    out are [Bb, h, w, A2, C], the first and last step run in their `_pm`
+    forms; without residuals."""
+    tok, xn = tokenize_ln(x, pe_tok, wts, pixel_major)
     q, kk, v = qkv(xn, tok, wts)
     if with_res:
         attn, m, l = window_attn(q, kk, v, num_heads, k, with_stats=True)
     else:
         attn = window_attn(q, kk, v, num_heads, k)
     x2, xn2 = outproj_ln(attn, tok, wts)
-    out = ffn_out(xn2, x2, wts)
+    out = ffn_out(xn2, x2, wts, x.shape[3] if pixel_major else None)
     return (out, tok, m, l, attn) if with_res else out
 
 
@@ -480,20 +520,36 @@ class SpaBlockFn(torch.autograd.Function):
 
 
 def spa_trans_block_fused(x, pe_tok, params, prefix: str, num_heads: int, k: int,
-                          plain: bool = False):
+                          plain: bool = False, pixel_major: bool = False):
     """The whole SpaTrans block on view images.
 
-    x: [V, h, w, C] (V = batch*A2 views); pe_tok: [h, w, D], the spatial PE
-    through the same unfold+MLP (view-independent, computed outside);
-    params/prefix: the flat param dict and `altblock.{i}.spa_trans.`.
-    Returns [V, h, w, C]. Differentiable through `SpaBlockFn` when grad is
-    needed; `plain=True` runs the plain versions on any device."""
+    x: [V, h, w, C] (V = batch*A2 views), or with `pixel_major=True` a
+    [Bb, h, w, A2, C] pixel-major buffer whose (batch, view) planes are read
+    and written through their stride (K11: no view-major copy is made);
+    pe_tok: [h, w, D], the spatial PE through the same unfold+MLP
+    (view-independent, computed outside); params/prefix: the flat param dict
+    and `altblock.{i}.spa_trans.`. Returns the shape of x. The view-major
+    form is differentiable through `SpaBlockFn` when grad is needed; the
+    pixel-major form is inference-only and raises then. `plain=True` runs
+    the plain versions on any device."""
     wts = spa_weights(params, prefix)
-    if _needs_grad(x, pe_tok, *(wts[n] for n in WEIGHTS)):
+    needs_grad = _needs_grad(x, pe_tok, *(wts[n] for n in WEIGHTS))
+    if pixel_major:
+        if needs_grad:
+            raise ValueError("spa_trans_block_fused(pixel_major=True) is inference-only: the "
+                             "pixel-major forward K11 has no backward; differentiate the "
+                             "view-major form")
+        if plain:
+            out = spa_block_plain(_to_view_major(x), pe_tok, wts, num_heads, k)
+            return _to_pixel_major(out, x.shape[3])
+        return spa_block(x, pe_tok, wts, num_heads, k, pixel_major=True)
+    if needs_grad:
         return SpaBlockFn.apply(x, pe_tok, *(wts[n] for n in WEIGHTS), num_heads, k, plain)
     return (spa_block_plain if plain else spa_block)(x, pe_tok, wts, num_heads, k)
 
 
-def spa_trans_block_plain(x, pe_tok, params, prefix: str, num_heads: int, k: int):
+def spa_trans_block_plain(x, pe_tok, params, prefix: str, num_heads: int, k: int,
+                          pixel_major: bool = False):
     """Plain version of `spa_trans_block_fused`, on any device."""
-    return spa_trans_block_fused(x, pe_tok, params, prefix, num_heads, k, plain=True)
+    return spa_trans_block_fused(x, pe_tok, params, prefix, num_heads, k, plain=True,
+                                 pixel_major=pixel_major)

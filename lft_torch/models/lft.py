@@ -31,11 +31,11 @@ Two branches, as in the JAX package:
   package chooses them (kernels/ang_attn.py, kernels/local_attn.py): K7 for
   A2 <= 128 and the key-view sweep K8 beyond; K5 for 32x32 views, the
   tile-dense K6 for tileable views of more than 2048 pixels (64x64), the
-  offset sweep K9 for small views no tile divides (30x30). The branch is
-  also where a geometry goes that fails a fused gate (angRes >= 12), and a
-  training forward whose view count the backward kernel K4 does not take
-  (64 < A2 <= 128). Only the forward-only tile-halo kernel K10 is still to
-  port; its variant raises and names it.
+  offset sweep K9 for small views no tile divides (30x30), and the
+  forward-only tile-halo kernel K10 where `LFT_SPA_VARIANT=tile` forces it or
+  `offset` meets a view of more than 2048 pixels. The branch is also where a
+  geometry goes that fails a fused gate (angRes >= 12); every gated geometry
+  trains fused (K4 has a form for A2 <= 64 and one for 64 < A2 <= 128).
 """
 
 from __future__ import annotations
@@ -203,7 +203,8 @@ def resolve_fused(fused: bool, h: int, w: int, C: int, A2: int, device_type: str
     """Whether a forward that asks for the fused branch takes it: both
     blocks' gates must pass, and a forward that will be differentiated
     through the kernels also needs the backward kernels to take the
-    geometry (`ang_block_trainable`). Everything else goes to the unfused
+    geometry (`ang_block_trainable`: today every gated one, so training
+    fuses wherever inference does). Everything else goes to the unfused
     branch, as in the JAX package (lft_tpu/models/lft.py:325-329)."""
     if not (fused and spa_block_applicable(h, w, 2 * C, NUM_HEADS, KERNEL_SEARCH)
             and ang_block_applicable(A2)):

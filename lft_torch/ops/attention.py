@@ -119,11 +119,14 @@ def _extract_halo(x: torch.Tensor, t: int, r: int) -> torch.Tensor:
 
 
 def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       num_heads: int, ksize: int = 5, impl: str = "auto"):
+                       num_heads: int, ksize: int = 5, impl: str = "auto", t=None):
     """k x k-window attention of PROJECTED [B, h, w, E] q/k/v images; keys
-    outside the image are excluded. impl: 'auto' | 'tiled' | 'dense'."""
+    outside the image are excluded. impl: 'auto' | 'tiled' | 'dense'; `t`
+    fixes the tiled op's query tile edge, which must divide h and w (default:
+    the first of 8, 16, 4, 32 that does)."""
     B, h, w, E = q.shape
-    t = _pick_tile(h, w)
+    if t is None:
+        t = _pick_tile(h, w)
     if impl == "tiled" or (impl == "auto" and t is not None):
         if t is None:
             raise ValueError(f"no valid tile size for ({h}, {w}); use impl='dense'")

@@ -15,8 +15,9 @@ scenes of 128x128 LR views, and runs the tiled pipeline (patch 32, stride
 `--plain` runs the blocks' plain PyTorch versions instead of the kernels.
 `--unfused` runs the per-op branch (`fused=False`): the attentions as the
 kernels K7 and K5, or with `--plain` as the tiled torch ops. The environment
-variables `LFT_ANG_VARIANT=sweep` and `LFT_SPA_VARIANT=offset|mxu` send that
-branch through K8, K9 or K6 instead; the kernels a scene launched are printed.
+variables `LFT_ANG_VARIANT=sweep` and `LFT_SPA_VARIANT=offset|mxu|tile` send
+that branch through K8, K9, K6 or K10 instead (`tile`, K10, is inference
+only); the kernels a scene launched are printed.
 Prints the card's name and power limit first. Exits non-zero without a card.
 """
 

@@ -16,8 +16,9 @@ instead of the kernels; `--unfused` trains the per-op branch
 (`--train_fused false`): the attentions as the kernels K7 and K5 with their
 kernel backwards, or with `--plain` as the tiled torch ops under autograd.
 The environment variables `LFT_ANG_VARIANT=sweep` and
-`LFT_SPA_VARIANT=offset|mxu` send that branch through K8, K9 or K6 instead;
-the kernels a step launched are printed.
+`LFT_SPA_VARIANT=offset|mxu` send that branch through K8, K9 or K6 instead
+(`LFT_SPA_VARIANT=tile`, K10, is inference only: a train step under it
+raises); the kernels a step launched are printed.
 Prints the card's name and power limit first.
 Exits non-zero without a card.
 """

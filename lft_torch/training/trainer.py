@@ -11,7 +11,7 @@ fresh moments with the schedule fast-forwarded to the checkpoint's epoch.
 
 On the card the model trains through the fused blocks, whose backwards are
 the hand-written K4/K3 kernels with deterministic weight-gradient
-reductions, or with `--train_fused false` through the unfused branch, whose
+reductions (every geometry the fused gates pass, up to 11x11 views), or with `--train_fused false` through the unfused branch, whose
 two attentions are the per-op kernels (K7 and K5, or K8, K9 and K6 where the
 geometry or the `LFT_ANG_VARIANT` / `LFT_SPA_VARIANT` knobs send them) with
 kernel backwards (no atomics) and everything else torch's own autograd. cuDNN is held to
@@ -39,8 +39,8 @@ def train_fused(args, device: torch.device) -> bool:
     model on the CPU; true on the CPU runs the fused blocks' plain versions
     through their autograd Functions; false on CUDA trains the unfused
     branch through the per-op kernels (`--attention_impl`). A geometry the
-    fused backward kernels do not take goes to the unfused branch whatever
-    this says (`models.lft.resolve_fused`)."""
+    fused gates do not pass goes to the unfused branch whatever this says
+    (`models.lft.resolve_fused`)."""
     tf = str(getattr(args, "train_fused", "auto")).lower()
     if tf == "auto":
         return device.type == "cuda"

@@ -17,9 +17,9 @@ import pytest
 import torch
 
 from lft_torch.config import Args
-from lft_torch.kernels import (FORWARD, LAUNCHES, PEROP, SWEEPS, ang_attn_mxu, ang_attn_vjp,
-                               ang_block, local_attn_vjp, reset_launches, spa_attn, spa_attn_hp,
-                               spa_block, wgrad)
+from lft_torch.kernels import (FORWARD, LAUNCHES, PEROP, SWEEPS, TAIL, ang_attn_mxu,
+                               ang_attn_vjp, ang_block, local_attn, local_attn_vjp,
+                               reset_launches, spa_attn, spa_attn_hp, spa_block, wgrad)
 from lft_torch.models import lft
 from lft_torch.ops.posenc import angular_position
 
@@ -324,9 +324,19 @@ def test_perop_wrappers_raise_on_card_instead_of_falling_back(cuda_device):
         ang_attn_mxu.ang_attn_fwd(r(2, 25, 24), r(2, 25, 24), r(2, 25, 24), 8)
     with pytest.raises(NotImplementedError, match="kernel takes"):
         ang_attn_vjp.ang_attn_sweep_fwd(r(2, 144, 24), r(2, 144, 24), r(2, 144, 24), 8)
-    with pytest.raises(NotImplementedError, match="K10"):
-        local_attention_pallas(r(1, 16, 16, 32), r(1, 16, 16, 32), r(96, 32), r(32, 32), 8,
-                               variant="tile")
+    # K10 runs on the card, for inference only; it takes 8x8 tiles
+    reset_launches()
+    out = local_attention_pallas(r(1, 16, 16, 32), r(1, 16, 16, 32), r(96, 32), r(32, 32), 8,
+                                 variant="tile")
+    assert out.shape == (1, 16, 16, 32) and LAUNCHES["spa_attn_tile"] == 1
+    with pytest.raises(ValueError, match="forward-only"):
+        local_attention_pallas(r(1, 16, 16, 32), r(1, 16, 16, 32), r(96, 32).requires_grad_(),
+                               r(32, 32), 8, variant="tile")
+    with pytest.raises(NotImplementedError, match="8x8 tiles"):
+        local_attn.windowed_attention_tile(r(1, 16, 16, 32), r(1, 16, 16, 32), r(1, 16, 16, 32),
+                                           8, 5, t=16)
+    with pytest.raises(NotImplementedError, match="kernel takes"):
+        local_attn.windowed_attention_tile(r(1, 8, 8, 24), r(1, 8, 8, 24), r(1, 8, 8, 24), 8, 5)
     with pytest.raises(NotImplementedError, match="kernel takes"):
         spa_attn_hp.spa_attn_hp_fwd(r(1, 8, 8, 24), r(1, 8, 8, 24), r(1, 8, 8, 24), 8, 5)
     with pytest.raises(NotImplementedError, match="kernel takes"):
@@ -437,9 +447,10 @@ def test_unfused_grads_kernels_match_plain_and_repeat(cuda_device, monkeypatch, 
     same branch with the kernels' plain versions behind the same autograd
     Functions; the same backward twice is bitwise equal. At the recipe's
     geometry the bound is 5e-4 max |grad| + 2e-9, also against the plain
-    unfused path (tiled torch attention). At angRes 9 the fused backward
-    does not take the geometry, so a training forward that asks for the
-    fused branch goes through the per-op kernels too; its small batch
+    unfused path (tiled torch attention). At angRes 9 a training forward
+    that asks for the fused branch takes it (K1 with residuals and the
+    128-row K4), and `fused=False` still trains through the per-op kernels;
+    its small batch
     (10,368 tokens) is held to 1e-2 max |grad| + 1e-8 only: one FFN unit
     whose input lies within f32 rounding of 0 is on in one path and off in
     the other, and that one relu' jump moves a weight gradient by 3e-3 of
@@ -490,8 +501,13 @@ def test_unfused_grads_kernels_match_plain_and_repeat(cuda_device, monkeypatch, 
     if ang_res == 9:
         reset_launches()
         auto = grads()
-        assert LAUNCHES["ang_attn_bwd"] == 4 and LAUNCHES["ang_block_bwd"] == 0
-        assert all(torch.equal(a, b) for a, b in zip(got, auto))
+        torch.cuda.synchronize()
+        assert LAUNCHES["ang_block_res"] == 4 and LAUNCHES["ang_block_bwd128"] == 4
+        assert LAUNCHES["ang_block_bwd"] == 0 and not any(LAUNCHES[k] for k in PEROP)
+        assert all(torch.equal(a, b) for a, b in zip(auto, grads()))
+        for name, g1, g2 in zip(p, auto, grads(plain_blocks=True)):
+            err = float((g1 - g2).abs().max())
+            assert err <= rel * float(g2.abs().max()) + floor, (name, err, float(g2.abs().max()))
         with torch.no_grad():
             reset_launches()
             lft.forward(p, lr, args)
@@ -526,3 +542,108 @@ def test_unfused_train_step_repeats_bitwise(cuda_device):
     assert l1 == l2 and np.isfinite(l1)
     for k in p1:
         assert torch.equal(p1[k], p2[k]), k
+
+
+# ------------------------------- K10, the 128-row K4 and K11 (`TAIL`) ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,B,h,w", [(16, 3, 16, 16), (32, 2, 8, 24), (64, 3, 32, 32),
+                                     (64, 2, 64, 64), (64, 5, 8, 8), (32, 1, 40, 16)])
+def test_spa_attn_tile_kernel(cuda_device, C, B, h, w):
+    """K10 against its plain version: every head width, one-tile views (all
+    four borders in one halo), non-square views, the 64x64 views it serves;
+    the same function as K5 and K9."""
+    E = 2 * C
+    g = torch.Generator(device=cuda_device).manual_seed(C + h)
+    q, k, v = (torch.randn(B, h, w, E, device=cuda_device, generator=g) for _ in range(3))
+    reset_launches()
+    got = local_attn.windowed_attention_tile(q, k, v, 8, 5)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spa_attn_tile"] == 1 and sum(LAUNCHES.values()) == 1
+    _close(got, local_attn.windowed_attention_tile_plain(q, k, v, 8, 5), 1e-4)
+    _close(got, spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5), 1e-5)
+    _close(got, local_attn_vjp.spa_attn_offset_fwd(q, k, v, 8, 5), 1e-5)
+    assert torch.equal(got, local_attn.windowed_attention_tile(q, k, v, 8, 5))
+
+
+@pytest.mark.cuda
+def test_spa_dispatch_reaches_tile_kernel_on_card(cuda_device):
+    """`offset` on a 48x48 view (2304 pixels) and `tile` on a 32x32 one reach
+    K10 with their projections, and equal the tiled torch op."""
+    from lft_torch.ops.attention import local_attention
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    r = lambda *s: torch.randn(*s, device=cuda_device, generator=g)
+    for hw, variant in ((48, "offset"), (32, "tile")):
+        qn, v, wi, wo = r(2, hw, hw, 32), r(2, hw, hw, 32), r(96, 32) * 0.2, r(32, 32) * 0.2
+        reset_launches()
+        got = local_attn.local_attention_pallas(qn, v, wi, wo, 8, variant=variant)
+        torch.cuda.synchronize()
+        assert {k: c for k, c in LAUNCHES.items() if c} == {"spa_attn_tile": 1}
+        _close(got, local_attention(qn, v, wi, wo, 8, impl="tiled"), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,N,A2", [(64, 7, 81), (64, 3, 121), (64, 5, 128), (32, 9, 100),
+                                    (16, 6, 65), (64, 1, 81)])
+def test_ang_block_bwd128_kernels(cuda_device, C, N, A2):
+    """K4 for 64 < A2 <= 128 (three kernels behind `ang_block_bwd128`) against
+    its plain version from K1's residuals: every channel width, token counts
+    that leave the last 64-row block ragged; with `wgrad`/`colsum` the whole
+    block backward; twice bit for bit."""
+    p = _params(C, cuda_device, seed=A2)
+    wts = ang_block.ang_weights(p, "altblock.2.ang_trans.")
+    g = torch.Generator(device=cuda_device).manual_seed(C + A2)
+    x = torch.randn(N, A2, C, device=cuda_device, generator=g)
+    dout = torch.randn(N, A2, C, device=cuda_device, generator=g)
+    pe = torch.from_numpy(angular_position(A2, C)).to(cuda_device)
+    res = ang_block.ang_block(x, pe, wts, 8, with_res=True)
+    ref = ang_block.ang_block_plain(x, pe, wts, 8, with_res=True)
+    _close(res, ref, 1e-4)
+    _, m, l, attn = ref
+    reset_launches()
+    ops = ang_block.ang_block_bwd_ops(x, pe, wts, m, l, attn, dout, 8)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ang_block_bwd128"] == 1 and LAUNCHES["ang_block_bwd"] == 0
+    assert ops[-1].shape == (-(-N * A2 // 64), 4, C)
+    ops_ref = ang_block.ang_block_bwd_ops_plain(x, pe, wts, m, l, attn, dout, 8)
+    _close(ops[:-1], ops_ref[:-1])
+    _close(ops[-1].sum(0, keepdim=True), ops_ref[-1])
+    got = ang_block.ang_block_bwd(x, pe, wts, m, l, attn, dout, 8)
+    _close(got, ang_block.ang_block_bwd_plain(x, pe, wts, m, l, attn, dout, 8))
+    again = ang_block.ang_block_bwd(x, pe, wts, m, l, attn, dout, 8)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,Bb,h,w,A2", [(16, 2, 8, 8, 4), (32, 1, 9, 7, 25), (64, 2, 32, 32, 25),
+                                         (64, 1, 17, 40, 9), (64, 3, 16, 16, 81)])
+def test_spa_block_pixel_major_kernels(cuda_device, C, Bb, h, w, A2):
+    """K11: the two `_pm` kernels against their plain versions, the chained
+    block against its plain version and against view-major K2 on a permuted
+    copy (the same arithmetic: bit for bit); a call that needs grad raises."""
+    p = _params(C, cuda_device, seed=h)
+    prefix = "altblock.1.spa_trans."
+    wts = spa_block.spa_weights(p, prefix)
+    g = torch.Generator(device=cuda_device).manual_seed(C + A2)
+    x = torch.randn(Bb, h, w, A2, C, device=cuda_device, generator=g)
+    pe_tok = torch.randn(h, w, 2 * C, device=cuda_device, generator=g)
+    xv = x.permute(0, 3, 1, 2, 4).reshape(Bb * A2, h, w, C).contiguous()
+    tok, xn = spa_block.tokenize_ln_plain(xv, pe_tok, wts)
+    _close(spa_block.tokenize_ln(x, pe_tok, wts, pixel_major=True), (tok, xn), 1e-4)
+    x2, xn2 = torch.randn_like(tok), torch.randn_like(tok)
+    ref = spa_block.ffn_out_plain(xn2, x2, wts).reshape(Bb, A2, h, w, C).permute(0, 2, 3, 1, 4)
+    _close(spa_block.ffn_out(xn2, x2, wts, views=A2), ref.contiguous(), 1e-4)
+    reset_launches()
+    got = spa_block.spa_trans_block_fused(x, pe_tok, p, prefix, 8, 5, pixel_major=True)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in LAUNCHES.items() if c} == dict.fromkeys(
+        ("spa_tokenize_ln_pm", "spa_qkv", "spa_window_attn", "spa_outproj_ln", "spa_ffn_out_pm"), 1)
+    assert got.shape == x.shape
+    _close(got, spa_block.spa_trans_block_plain(x, pe_tok, p, prefix, 8, 5, pixel_major=True),
+           1e-4)
+    vm = spa_block.spa_trans_block_fused(xv, pe_tok, p, prefix, 8, 5)
+    assert torch.equal(got, vm.reshape(Bb, A2, h, w, C).permute(0, 2, 3, 1, 4))
+    with pytest.raises(ValueError, match="inference-only"):
+        spa_block.spa_trans_block_fused(x.clone().requires_grad_(), pe_tok, p, prefix, 8, 5,
+                                        pixel_major=True)
+    assert set(TAIL) <= set(LAUNCHES)

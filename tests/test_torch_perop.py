@@ -8,9 +8,8 @@
 * Each plain backward against torch.autograd of its plain forward: 5e-5
   max |ref| (the identities written out against autograd's).
 * The dispatch against JAX's own: with every kernel entry of both packages
-  replaced by a recorder, the port picks K5/K6/K7/K8/K9 exactly where JAX
-  does, goes to the tiled op where JAX goes to its XLA tiled op, and raises
-  NotImplementedError naming K10 where JAX picks that.
+  replaced by a recorder, the port picks K5/K6/K7/K8/K9/K10 exactly where
+  JAX does, and goes to the tiled op where JAX goes to its XLA tiled op.
 * The slice as a whole: forward, gradients, a tiled scene and one train
   step of the unfused branch with `attention_impl='pallas'` against
   lft_tpu's, on the same parameters (2 of the 4 AltFilter blocks).
@@ -279,16 +278,11 @@ def _port_spatial_route(monkeypatch, h, w, E, heads, variant, training):
         mp.setattr(spa_attn, "windowed_attention_mxu", rec("K6"))
         mp.setattr(spa_attn.local_attention_tile_mxu, "__defaults__", (5, rec("K6")))
         mp.setattr(local_attn_vjp, "windowed_attention", rec("K9"))
+        mp.setattr(local_attn, "windowed_attention_tile", rec("K10"))
         mp.setattr(attention, "local_attention", rec("tiled"))
         z = torch.zeros(1, h, w, E, requires_grad=training)
-        try:
-            local_attn.local_attention_pallas(z, z, torch.zeros(3 * E, E), torch.zeros(E, E),
-                                              heads, k=5, variant=variant)
-        except NotImplementedError as e:
-            # only the tile-halo kernel is still to port
-            assert "K10" in str(e).split("kernel")[1][:5] and "to port" in str(e), str(e)
-            assert f"{h}x{w}" in str(e), str(e)
-            return "K10"
+        local_attn.local_attention_pallas(z, z, torch.zeros(3 * E, E), torch.zeros(E, E),
+                                          heads, k=5, variant=variant)
     assert len(hits) == 1, hits
     return hits[0]
 
@@ -428,8 +422,8 @@ def test_auto_means_the_plain_ops_on_the_cpu(monkeypatch):
     (5, "cuda", False, False, True),
     (8, "cuda", True, False, True),      # A2 = 64: the last K4 takes
     (9, "cuda", False, False, True),     # inference at angRes 9-11 still fuses (K1)
-    (9, "cuda", True, False, False),     # K4 takes A2 <= 64: train through K7/K5
-    (11, "cuda", True, False, False),
+    (9, "cuda", True, False, True),      # 64 < A2 <= 128: K4's three-kernel form
+    (11, "cuda", True, False, True),
     (9, "cuda", True, True, True),       # the plain blocks take every gated A2
     (9, "cpu", True, False, True),
     (12, "cuda", False, False, False),   # A2 = 144 fails the gate itself
@@ -438,7 +432,7 @@ def test_resolve_fused_predicate(ang_res, device, training, plain, expect):
     A2 = ang_res * ang_res
     assert lft.resolve_fused(True, 32, 32, 64, A2, device, training, plain) is expect
     assert lft.resolve_fused(False, 32, 32, 64, A2, device, training, plain) is False
-    assert ang_block.ang_block_trainable(A2, device) == (A2 <= (64 if device == "cuda" else 128))
+    assert ang_block.ang_block_trainable(A2, device) == (A2 <= 128)
     # a view no head-packed tile divides fails the spatial gate as before
     assert lft.resolve_fused(True, 8, 101, 64, 25, device, False) is False
 
@@ -565,11 +559,13 @@ def test_unfused_train_step_matches_jax(two_blocks):
 
 
 def test_training_forward_at_angres9_takes_the_unfused_branch(monkeypatch):
-    """Repair of the K4 gate, end to end on the CPU with the device's answer
-    patched in: under autograd a 9x9-view forward that asks for the fused
-    branch runs the per-op branch, in inference it stays fused."""
+    """The K4 gate end to end on the CPU. The backward kernels take every
+    gated view count, so a 9x9-view forward that asks for the fused branch
+    runs it under autograd as it does in inference; `--train_fused false` is
+    what still trains such a geometry through the per-op branch (K7/K5), and
+    a device whose backward did not take the view count would be sent there
+    too (its answer patched in)."""
     calls = []
-    monkeypatch.setattr(lft, "ang_block_trainable", lambda A2, dev: A2 <= 64)
     monkeypatch.setattr(lft, "_ang_trans", lambda x, *a: calls.append("unfused") or x)
     monkeypatch.setattr(lft, "ang_trans_block_fused", lambda t, *a, **kw: calls.append("fused") or t)
     monkeypatch.setattr(lft, "LAYER_NUM", 1)
@@ -582,8 +578,21 @@ def test_training_forward_at_angres9_takes_the_unfused_branch(monkeypatch):
     for t in p.values():
         t.requires_grad_(True)
     lft.forward(p, x, args, fused=True)
-    assert calls == ["fused", "unfused"]
+    assert calls == ["fused", "fused"]
+    # `--train_fused false` reaches the model as fused=False
+    args_unfused = Args(channels=16, scale_factor=2, angRes=9, train_fused="false")
+    assert trainer.train_fused(args_unfused, torch.device("cuda")) is False
+    assert trainer.train_fused(args, torch.device("cuda")) is True
+    lft.forward(p, x, args, fused=trainer.train_fused(args_unfused, torch.device("cuda")))
+    assert calls == ["fused", "fused", "unfused"]
+    with monkeypatch.context() as mp:
+        mp.setattr(lft, "ang_block_trainable", lambda A2, dev: A2 <= 64)
+        lft.forward(p, x, args, fused=True)
+        assert calls[3:] == ["unfused"]
+        with torch.no_grad():
+            lft.forward(p, x, args, fused=True)
+        assert calls[4:] == ["fused"]
     args5 = Args(channels=16, scale_factor=2, angRes=5)
     p5 = {k: v.requires_grad_(True) for k, v in lft.init_params(0, args5, device="cpu").items()}
     lft.forward(p5, x[:, :, :40, :40], args5, fused=True)
-    assert calls == ["fused", "unfused", "fused"]
+    assert calls[5:] == ["fused"]
