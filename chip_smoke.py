@@ -28,7 +28,12 @@
    further steps (finite loss), and the median ms a step of both paths;
 8. holds every training kernel against its plain version at the training
    shapes (K1/K4 [4096, 25, 64], K2/K3 [100, 32, 32, 64]), max |diff| <=
-   5e-4 max |plain| per output, and times them;
+   5e-4 max |plain| per output, and times them; then `wgrad` at every
+   product of the fused step (8 shapes, 56 launches a step) and `colsum` at
+   its three shapes, timed in device time (a profiler trace of 20 calls,
+   the host's launch path left out) beside `x.t() @ dy` / `a.sum(0)`, with
+   `wgrad`'s error against float64 held to twice the f32 product's and both
+   repeated bitwise;
 9. runs the same two scenes through the unfused per-op branch
    (`fused=False`: LayerNorms, projections and FFNs as torch ops around the
    attention kernels K7 and K5): within 1e-3 / 0.01 dB of the plain unfused
@@ -48,7 +53,7 @@
     window steps at the same shape;
 12. holds K7 against its plain version at A2 = 81 (9x9 views), and trains at
     angRes 9 (batch 4 of 16x16-view patches) through `make_train_step`: with
-    `--train_fused auto` the fused blocks take it, 4 `ang_block_res` and 4
+    `--train_fused true` the fused blocks take it, 4 `ang_block_res` and 4
     `ang_block_bwd128` launches a step (K4's form for 64 < A2 <= 128) beside
     K2's and K3's kernels and no per-op kernel, gradients against the plain
     blocks within the bounds of step 7 (or twice the two plain paths' own
@@ -117,10 +122,11 @@ import sys
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "examples", "synth_demo", "LFT_5x5_4x_synth3000.pth")
-# Published dense rates without tensor cores (FP32 FLOP/s, memory B/s),
-# keyed by a fragment of the card's name; an H100 SXM unless named.
-PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12)}
-PEAK_SXM = (67e12, 3.35e12)
+# Published dense rates (FP32 FLOP/s without tensor cores, memory B/s, TF32
+# FLOP/s on the tensor cores), keyed by a fragment of the card's name; an H100
+# SXM unless named.
+PEAKS = {"PCIe": (51e12, 2.0e12, 378e12), "NVL": (60e12, 3.9e12, 417.5e12)}
+PEAK_SXM = (67e12, 3.35e12, 495e12)
 # per kernel: max |kernel - plain| <= KERNEL_ATOL * max(1, max |plain|); both sum
 # the same f32 products in another order
 KERNEL_ATOL = 1e-4
@@ -213,24 +219,39 @@ class Recorder:
     the `kernels` JSON row with the card's bound."""
 
     def __init__(self, card: str, launches: dict, per: float, unit: str):
-        self.flops_peak, self.bw_peak = peaks(card)
+        self.flops_peak, self.bw_peak, self.tf32_peak = peaks(card)
         self.launches, self.per, self.unit = launches, per, unit
         self.rows = []
 
-    def bound(self, flops, nbytes):
-        t_ops, t_mem = flops / self.flops_peak * 1e3, nbytes / self.bw_peak * 1e3
+    def bound(self, flops, nbytes, peak=None):
+        t_ops = flops / (peak or self.flops_peak) * 1e3
+        t_mem = nbytes / self.bw_peak * 1e3
         return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
     def record(self, name, src, replaces, got, ref, fn_k, fn_p, flops, io, lib_fn=None,
-               rel=None, shape=None, slow_reps=10):
+               rel=None, shape=None, slow_reps=10, device_time=False, tf32_products=0):
         """With `shape` the check is one more shape of a kernel that has its
         row already: compared, timed and printed, not added to the rows.
-        `slow_reps`: launches timed of the plain and library versions."""
+        `slow_reps`: launches timed of the plain and library versions.
+        `device_time`: time all three by `device_ms` instead of CUDA events
+        around one call. `tf32_products`: the kernel runs its `flops` as
+        that many TF32 tensor-core products each (3xTF32): the bound is then
+        the tensor cores' (the least time for the same f32 result), and the
+        FP32 pipes' is printed beside it."""
         err, ok = max_err(got, ref, rel)
         warm = 2 if slow_reps >= 10 else 1
-        ms_k, ms_p = timed(fn_k), timed(fn_p, slow_reps, warm)
-        ms_l = timed(lib_fn, slow_reps, warm) if lib_fn is not None else None
+        if device_time:
+            from lft_torch.profile_scene import device_ms
+            ms_k, ms_p = device_ms(fn_k), device_ms(fn_p, slow_reps)
+            ms_l = device_ms(lib_fn, slow_reps) if lib_fn is not None else None
+        else:
+            ms_k, ms_p = timed(fn_k), timed(fn_p, slow_reps, warm)
+            ms_l = timed(lib_fn, slow_reps, warm) if lib_fn is not None else None
         b_ms, b_by = self.bound(flops, io)
+        fp32_note = ""
+        if tf32_products:
+            fp32_note = f", FP32-pipe bound {b_ms:.4f} ms ({b_by})"
+            b_ms, b_by = self.bound(tf32_products * flops, io, self.tf32_peak)
         n = self.launches[name]
         if shape is None:
             self.rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -240,11 +261,13 @@ class Recorder:
         print(f"kernel {name}{'' if shape is None else f' at {list(shape)}'}: "
               f"max_abs_err {err:.3e} (limit {limit}) "
               f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}), library {'-' if ms_l is None else f'{ms_l:.4f} ms'}, "
-              f"launches {n} ({n / self.per:g}/{self.unit})", flush=True)
+              f"({b_by}){fp32_note}, library {'-' if ms_l is None else f'{ms_l:.4f} ms'}, "
+              f"launches {n} ({n / self.per:g}/{self.unit}){' [device time]' if device_time else ''}",
+              flush=True)
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain version "
                                  f"(max |diff| {err:.3e})")
+        return ms_k, ms_p, ms_l
 
 
 def nbytes(*ts):
@@ -393,7 +416,7 @@ def train_phase(params, seed: int, unfused: bool = False, *, what=None, ang_res:
     dev = torch.device("cuda")
     args = Args(angRes=ang_res, scale_factor=4, channels=64, batch_size=batch, lr=2e-4,
                 n_steps=15, gamma=0.5, epoch=50,
-                train_fused=train_fused or ("false" if unfused else "auto"))
+                train_fused=train_fused or ("false" if unfused else "true"))
     model = get_model(args)
     plain_kw = (dict(attention_impl=plain_attention_impl(patch, patch)) if unfused
                 else dict(plain_blocks=True))
@@ -538,6 +561,11 @@ def train_phase(params, seed: int, unfused: bool = False, *, what=None, ang_res:
             raise AssertionError(f"{what} steps: expected 4 ang_block_res and 4 {k4} launches a "
                                  f"step, got {counts['ang_block_res']} and {counts[k4]} in "
                                  f"{n_steps} steps")
+        # a block's backward: K4 with 6 wgrad + 1 colsum, K3 with 8 + 3
+        if counts["wgrad"] != 56 * n_steps or counts["colsum"] != 16 * n_steps:
+            raise AssertionError(f"{what} steps: expected 56 wgrad and 16 colsum launches a "
+                                 f"step, got {counts['wgrad']} and {counts['colsum']} in "
+                                 f"{n_steps} steps")
     return counts, n_steps, ms_k
 
 
@@ -546,9 +574,9 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
     shapes: batch 4 of 32x32-view patches, K1/K4 [4096, 25, 64], K2/K3
     [100, 32, 32, 64] (block 0's weights of the checkpoint)."""
     import torch
+    import torch.nn.functional as F
     from lft_torch.kernels import ang_block as ab
     from lft_torch.kernels import spa_block as sb
-    from lft_torch.kernels import wgrad as wg
     from lft_torch.ops.posenc import angular_position, spatial_position
     from lft_torch.ops.unfold import unfold3x3_linear
 
@@ -561,8 +589,7 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
     T = V * h * w               # tokens, = N * A2
     rec = Recorder(card, launches, n_steps, "train step")
     rel = TRAIN_REL
-    src_a, src_s, src_w = ("lft_torch/csrc/ang_block.cu", "lft_torch/csrc/spa_block_bwd.cu",
-                           "lft_torch/csrc/wgrad.cu")
+    src_a, src_s = "lft_torch/csrc/ang_block.cu", "lft_torch/csrc/spa_block_bwd.cu"
     rand = lambda *s_: torch.randn(*s_, device=dev, generator=g)
     with_sum = lambda ops: (*ops[:-1], ops[-1].sum(0))   # partial LN sums -> totals
 
@@ -644,10 +671,11 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
                rel=rel)
     dtok = ref[0]
     ref = sb.tokenize_bwd_plain(dtok, ws)
+    dtok_nchw, w_t = dtok.permute(0, 3, 1, 2), ws["mlp"].reshape(D, C, 3, 3)
     rec.record("spa_tokenize_bwd", src_s, rep, sb.tokenize_bwd(dtok, ws), ref,
                lambda: sb.tokenize_bwd(dtok, ws), lambda: sb.tokenize_bwd_plain(dtok, ws),
                2 * D * C * V * valid_window_pairs(h, w, 1), nbytes(dtok, ref) + wbytes("wu"),
-               rel=rel)
+               lib_fn=lambda: F.conv_transpose2d(dtok_nchw, w_t, padding=1), rel=rel)
     got = sb.spa_block_bwd(xs, pe_tok, ws, tok, m, l, attn, dout, H, K)
     ref = sb.spa_block_bwd_plain(xs, pe_tok, ws, tok, m, l, attn, dout, H, K)
     err, ok = max_err(got, ref, rel)
@@ -658,17 +686,77 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
     if not ok:
         raise AssertionError(f"the SpaTrans backward disagrees with its plain version ({err:.3e})")
 
-    # the reductions, at K3's dw1 = xn2ᵀ dpre and dpe_tok = sum over views
-    a_, b_ = rand(T, D), rand(T, 2 * D)
-    ref = wg.wgrad_plain(a_, b_)
-    rec.record("wgrad", src_w, "lft_tpu/kernels/spa_block.py:570", wg.wgrad(a_, b_), ref,
-               lambda: wg.wgrad(a_, b_), lambda: wg.wgrad_plain(a_, b_), 2 * T * D * 2 * D,
-               nbytes(a_, b_, ref), lib_fn=lambda: a_.t() @ b_, rel=rel)
-    c_ = rand(V, h * w * D)
-    ref = wg.colsum_plain(c_)
-    rec.record("colsum", src_w, "lft_tpu/kernels/spa_block.py:570", wg.colsum(c_), ref,
-               lambda: wg.colsum(c_), lambda: wg.colsum_plain(c_), c_.numel(),
-               nbytes(c_, ref), lib_fn=lambda: c_.sum(0), rel=rel)
+    return rec.rows + reduction_checks(card, launches, n_steps, g)
+
+
+def reduction_checks(card: str, launches: dict, n_steps: int, g) -> list:
+    """`wgrad` at every product of the fused train step and `colsum` at its
+    three shapes, against the plain version and timed in device time
+    (`device_ms`) beside one PyTorch call for the same function: `x.t() @ dy`
+    (for dwu cuDNN's conv weight grad on the same memory) and `a.sum(0)`.
+    `wgrad` runs 3xTF32 on the tensor cores: its max error against float64
+    must be at most twice that of the plain f32 product (TF32 off)."""
+    import torch
+    from lft_torch.compare_wgrad import STEP_PRODUCTS, STEP_SUMS
+    from lft_torch.kernels import wgrad as wg
+
+    dev = torch.device("cuda")
+    rand = lambda *s_: torch.randn(*s_, device=dev, generator=g)
+    rec = Recorder(card, launches, n_steps, "train step")
+    src, rep = "lft_torch/csrc/wgrad.cu", "lft_tpu/kernels/spa_block.py:570"
+    V, h, w = 100, 32, 32
+    T = V * h * w
+    sum_k = sum_l = 0.0
+    for i, (what, K, N, image, per_step) in enumerate(STEP_PRODUCTS):
+        x, dy = rand(T, K), rand(T, N)
+        got, ref = wg.wgrad(x, dy, image), wg.wgrad_plain(x, dy, image)
+        exact = wg.wgrad_plain(x.double(), dy.double(), image)
+        e_k, e_f32 = (float((t.double() - exact).abs().max()) for t in (got, ref))
+        del exact
+        if image is None:
+            lib = lambda x=x, dy=dy: x.t() @ dy
+            pairs = T
+        else:
+            xi = x.view(V, h, w, K).permute(0, 3, 1, 2)
+            gi = dy.view(V, h, w, N).permute(0, 3, 1, 2)
+            lib = lambda xi=xi, gi=gi, K=K, N=N: torch.nn.grad.conv2d_weight(
+                xi, (N, K, 3, 3), gi, padding=1)
+            pairs = V * valid_window_pairs(h, w, 1)
+        ms_k, _, ms_l = rec.record(
+            "wgrad", src, rep, got, ref, lambda x=x, dy=dy, im=image: wg.wgrad(x, dy, im),
+            lambda x=x, dy=dy, im=image: wg.wgrad_plain(x, dy, im), 2 * pairs * K * N,
+            nbytes(x, dy, got), lib_fn=lib, rel=TRAIN_REL,
+            shape=None if i == 0 else (T, K, N) + (image or ()), device_time=True,
+            tf32_products=3)
+        same = torch.equal(got, wg.wgrad(x, dy, image))
+        sum_k += per_step * ms_k
+        sum_l += per_step * ms_l
+        print(f"  {what} [{T}, {K}]ᵀ[{T}, {N}]{'' if image is None else f' taps of {image}'}: "
+              f"max |wgrad - float64| {e_k:.3e}, max |f32 product (TF32 off) - float64| "
+              f"{e_f32:.3e} (limit 2x: {e_k / max(e_f32, 1e-30):.3f}x); {per_step} a step; "
+              f"repeated bitwise: {same}", flush=True)
+        if not e_k <= 2 * e_f32:
+            raise AssertionError(f"wgrad {what}: error against float64 {e_k:.3e} is more than "
+                                 f"twice the f32 product's {e_f32:.3e}")
+        if not same:
+            raise AssertionError(f"wgrad {what} does not repeat bitwise")
+        del x, dy, got, ref
+    print(f"wgrad over a fused step's 56 launches: {sum_k:.4f} ms device time, one PyTorch call "
+          f"each {sum_l:.4f} ms", flush=True)
+    if sum_k > sum_l:
+        print("  (the kernels are slower than the library calls in sum)", flush=True)
+    for i, (what, R, N, per_step) in enumerate(STEP_SUMS):
+        a = rand(R, N)
+        ref = wg.colsum_plain(a)
+        got = wg.colsum(a)
+        rec.record("colsum", src, rep, got, ref, lambda a=a: wg.colsum(a),
+                   lambda a=a: wg.colsum_plain(a), a.numel(), nbytes(a, ref),
+                   lib_fn=lambda a=a: a.sum(0), rel=TRAIN_REL,
+                   shape=None if i == 0 else (R, N), device_time=True)
+        print(f"  colsum {what} [{R}, {N}]: {per_step} a step; repeated bitwise: "
+              f"{torch.equal(got, wg.colsum(a))}", flush=True)
+        if not torch.equal(got, wg.colsum(a)):
+            raise AssertionError("colsum does not repeat bitwise")
     return rec.rows
 
 
@@ -1051,7 +1139,7 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
 def angres9_phase(params, seed: int):
     """K7 at A2 = 81 against its plain version; train steps at angRes 9 (the
     demo checkpoint's weights do not depend on the view count; batch 4 of
-    16x16-view patches): `--train_fused auto` through the fused blocks, whose
+    16x16-view patches): `--train_fused true` through the fused blocks, whose
     backward is K4's three-kernel form `ang_block_bwd128` there, and
     `--train_fused false` through the per-op kernels K7/K5; inference at
     angRes 9 stays fused. Returns the fused steps' launch counts and their
@@ -1096,7 +1184,7 @@ def angres9_phase(params, seed: int):
         params, seed, unfused=True, what="angRes-9 per-op train (K7, K5)", ang_res=9, patch=16,
         batch=4, other_plain=dict(fused=True, plain_blocks=True))
     print(f"train step at angRes 9 (batch 4 of 16x16 views), medians: {ms_fused:.3f} ms fused "
-          f"(--train_fused auto), {ms_perop:.3f} ms per-op (--train_fused false)", flush=True)
+          f"(--train_fused true), {ms_perop:.3f} ms per-op (--train_fused false)", flush=True)
 
     args = Args(angRes=9, scale_factor=4, channels=64)
     lr, _ = synth_batch(g, batch=4, ang_res=9, patch=16, scale=4)

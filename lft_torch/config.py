@@ -54,9 +54,11 @@ class Args:
     log_every: int = 0                # per-iteration log line every N (0: off)
     attention_impl: str = "auto"      # auto | dense | tiled | pallas: the unfused
                                       # branch's attention; pallas = the per-op
-                                      # kernels (K5-K9), auto = pallas on CUDA
+                                      # kernels (K5-K10), auto = pallas on CUDA
+                                      # where the kernels take the width
     train_fused: str = "auto"         # auto | true | false: train through the
-                                      # fused blocks (K1-K4); auto = on CUDA.
+                                      # fused blocks (K1-K4); auto = false
+                                      # (lft_tpu's auto at float32).
                                       # true on the CPU runs their plain
                                       # versions through the autograd Functions;
                                       # false trains the unfused per-op branch

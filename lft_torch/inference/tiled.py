@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from lft_torch.kernels.common import kernels_take
 from lft_torch.ops.metrics import cal_metrics
 from lft_torch.ops.tiling import lf_divide, lf_integrate, tiling_grid, views_4d_to_mosaic
 from lft_torch.registry import capabilities_of
@@ -40,8 +41,9 @@ def make_scene_sr(model_apply, args, h0: int, w0: int,
     n_patches = g["numU"] * g["numV"] * n_scenes
     eb = min(eval_batch or args.eval_batch, n_patches)
     # the counterpart of lft_tpu/inference/tiled.py:77-78: declared
-    # capability, fused on the accelerator
+    # capability, fused on the accelerator where the kernels take the width
     takes_fused = "fused" in capabilities_of(model_apply)
+    fuse_cuda = kernels_take(args.channels)
 
     @torch.no_grad()
     def scene_sr(params, lr_mosaic: torch.Tensor) -> torch.Tensor:
@@ -50,7 +52,7 @@ def make_scene_sr(model_apply, args, h0: int, w0: int,
         flat = flat.reshape(n_patches, 1, A * patch, A * patch)
         kw = dict(apply_kw)
         if takes_fused:
-            kw.setdefault("fused", lr_mosaic.is_cuda)
+            kw.setdefault("fused", lr_mosaic.is_cuda and fuse_cuda)
         outs = [model_apply(params, flat[i:i + eb], args, **kw)
                 for i in range(0, n_patches, eb)]
         out = torch.cat(outs).reshape(n_scenes, g["numU"], g["numV"],

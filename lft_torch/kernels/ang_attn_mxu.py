@@ -27,9 +27,9 @@ import torch
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _heads, _merge, _needs_grad
+from lft_torch.kernels.common import KERNEL_C
 
 BLK = 128          # the gate's key block: A2 <= 128 view tokens per pixel
-KERNEL_C = (16, 32, 64)
 
 
 def mxu_applicable(A2: int) -> bool:

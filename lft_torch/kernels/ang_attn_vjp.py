@@ -29,8 +29,8 @@ import torch
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _heads, _merge, _needs_grad
+from lft_torch.kernels.common import KERNEL_C
 
-KERNEL_C = (16, 32, 64)
 M_INIT = -1e30     # the sweep's first running max, as in the JAX kernel
 
 

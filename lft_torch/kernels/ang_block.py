@@ -31,13 +31,13 @@ import ctypes
 import torch
 
 from lft_torch.kernels import _build
+from lft_torch.kernels.common import KERNEL_C
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import attention_heads
 
 LN_EPS = 1e-5
 BLK = 128          # the JAX gate's key block: A2 <= 128 tokens per pixel
 BWD_ROWS = 64      # token rows per block of the backward kernels; one-kernel K4: A2 <= 64
-KERNEL_C = (16, 32, 64)
 WEIGHTS = ("ln", "wq", "wk", "wv", "wo", "w1", "w2")
 
 

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
+from lft_torch.kernels.common import KERNEL_C
 from lft_torch.kernels.spa_attn_hp import (_gather_window, _hp_geometry_exists,
                                            _scatter_window, _window_probs)
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
@@ -56,7 +57,6 @@ from lft_torch.ops.unfold import unfold3x3_linear
 WEIGHTS = ("ln", "wu", "wqk", "wv", "wo", "w1", "w2", "wlin")
 
 LN_EPS = 1e-5
-KERNEL_C = (16, 32, 64)
 
 
 def spa_block_applicable(h: int, w: int, D: int, num_heads: int, k: int) -> bool:

@@ -16,8 +16,10 @@ partials in a fixed order. No atomics: a step is bitwise repeatable.
       (the weight grad of the 3x3 tokenization, dwu)
   colsum(a [R, N])                      -> a.sum(0) [N]
 
-On a CPU tensor each takes its plain version; the `*_plain` functions run
-anywhere.
+The products run on the tensor cores as 3xTF32 (each f32 operand split
+into two TF32 parts, three products accumulated in f32: f32 accuracy; see
+the source). On a CPU tensor each takes its plain version; the `*_plain`
+functions run anywhere.
 """
 
 from __future__ import annotations
@@ -29,15 +31,47 @@ import torch.nn.functional as F
 
 from lft_torch.kernels import _build
 
-_TILE = 64         # output tile edge of the first pass
-_ROWS = 256        # least token rows per partial
+SMS = 132              # streaming multiprocessors of an H100
+ROWS = 256             # least token rows of a slice
+# (K, N) output tile of a block of the product and the blocks wanted: 8 warps
+# over 128 x 128, one block an SM; for N <= 64, 2 warps over 64 x 64, two an
+# SM; with image=, one warp a tap over 64 x 32, one an SM
+TILE, SMALL_TILE, TAP_TILE = (128, 128), (64, 64), (64, 32)
+# colsum: a block of 512 threads is `lanes` column lanes (a float4 each where
+# N % 4 == 0) x 512 / lanes row groups; a cluster of at most 8 blocks (the
+# portable maximum) splits the rows
+CS_THREADS, CS_MAX = 512, 8
+CS_FILL = 2 * SMS      # blocks wanted in flight
 
 
-def _splits(T: int, tiles: int, sms: int = 132) -> int:
-    """Partial sums per output tile: about two blocks per SM in all, each
-    over at least _ROWS tokens. A function of the shapes only, so the
-    order of every sum is fixed."""
-    return max(1, min(-(-T // _ROWS), -(-2 * sms // tiles)))
+def tile(N: int, taps: int = 1):
+    """((K, N) tile, blocks wanted) of the kernel that takes the product."""
+    if taps == 9:
+        return TAP_TILE, SMS
+    return (TILE, SMS) if N > 64 else (SMALL_TILE, 2 * SMS)
+
+
+def splits(T: int, K: int, N: int, taps: int = 1) -> int:
+    """Token-axis slices S of a product: about the blocks wanted in all
+    (`tile`), each slice of at least ROWS tokens. A function of the shapes
+    only, so the order of every sum is fixed."""
+    (tk, tn), fill = tile(N, taps)
+    tiles = -(-K // tk) * -(-N // tn)
+    return max(1, min(-(-T // ROWS), -(-fill // tiles)))
+
+
+def colsum_cut(R: int, N: int):
+    """(lanes, size) of a column sum of R rows and N columns: 32 column lanes
+    a block (16 row groups) where the columns fill at most 64 lanes, else 64
+    (8 row groups); clusters of `size` blocks that cut the rows into
+    contiguous chunks, added in rank order: about CS_FILL blocks in all, at
+    most CS_MAX, at least two rows a thread. A function of (R, N) only, so
+    the order of every sum is fixed."""
+    width = 4 if N % 4 == 0 else 1
+    lanes = 32 if -(-N // width) <= 64 else 64
+    col_blocks = -(-N // (lanes * width))
+    size = max(1, min(-(-CS_FILL // col_blocks), CS_MAX, R // (2 * CS_THREADS // lanes)))
+    return lanes, size
 
 
 def _shifted(x_img: torch.Tensor, ky: int, kx: int) -> torch.Tensor:
@@ -71,24 +105,25 @@ def wgrad(x: torch.Tensor, dy: torch.Tensor, image=None) -> torch.Tensor:
     if taps == 9 and T % (h * w):
         raise ValueError(f"wgrad: {T} tokens are not whole {h}x{w} images")
     _build.check_cuda_args("wgrad", x, dy)
-    tiles = taps * (-(-K // _TILE)) * (-(-N // _TILE))
-    S = _splits(T, tiles)
-    part = torch.empty(S, taps, K, N, device=x.device)
+    S = splits(T, K, N, taps)
     out = torch.empty(taps, K, N, device=x.device)
-    fn = _build.bind("wgrad", "lft_wgrad", 4, (ctypes.c_int,) * 6)
+    part = torch.empty(S, taps, K, N, device=x.device) if S > 1 else out
+    fn = _build.bind("wgrad", "lft_wgrad", 4, (ctypes.c_int,) * 8)
     _build.launch("wgrad", "wgrad", fn, x.device, x.data_ptr(), dy.data_ptr(),
-                  part.data_ptr(), out.data_ptr(), T, K, N, S, h, w)
+                  part.data_ptr(), out.data_ptr(), T, K, N, S,
+                  *colsum_cut(S, taps * K * N), h, w)
     return out[0] if image is None else out
 
 
 def colsum(a: torch.Tensor) -> torch.Tensor:
-    """a.sum(0) of a [R, N] tensor, rows added in order: the CUDA kernel for
-    a CUDA tensor, the plain version for a CPU tensor."""
+    """a.sum(0) of a [R, N] tensor in a fixed order: the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
     if a.device.type != "cuda":
         return colsum_plain(a)
     R, N = a.shape
     _build.check_cuda_args("colsum", a)
     out = torch.empty(N, device=a.device)
-    fn = _build.bind("wgrad", "lft_colsum", 2, (ctypes.c_int,) * 2)
-    _build.launch("wgrad", "colsum", fn, a.device, a.data_ptr(), out.data_ptr(), R, N)
+    fn = _build.bind("wgrad", "lft_colsum", 2, (ctypes.c_int,) * 4)
+    _build.launch("wgrad", "colsum", fn, a.device, a.data_ptr(), out.data_ptr(), R, N,
+                  *colsum_cut(R, N))
     return out

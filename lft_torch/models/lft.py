@@ -53,6 +53,7 @@ from lft_torch.kernels.ang_attn import ang_attention_pallas
 from lft_torch.kernels.ang_block import (_needs_grad, ang_block_applicable,
                                          ang_block_trainable, ang_trans_block_fused,
                                          ang_trans_block_plain)
+from lft_torch.kernels.common import attention_route, kernels_take
 from lft_torch.kernels.spa_block import (spa_block_applicable, spa_trans_block_fused,
                                          spa_trans_block_plain)
 from lft_torch.ops.attention import local_attention, multi_head_attention
@@ -170,11 +171,12 @@ def _ffn(x, p, prefix):
 
 def _ang_trans(x, p, prefix, ang_pe, impl="auto"):
     """Unfused angular transformer over [B, A2, h, w, C]; impl 'pallas'
-    (and 'auto' on a CUDA tensor) runs the attention as the per-op kernel."""
+    (and 'auto' on a CUDA tensor of a width the kernels take) runs the
+    attention as the per-op kernel (`kernels.common.attention_route`)."""
     t = x.permute(0, 2, 3, 1, 4)                                   # [B, h, w, A2, C]
     tn = _layer_norm(t + ang_pe, p[prefix + "norm.weight"], p[prefix + "norm.bias"])
     w_in, w_out = p[prefix + "attention.in_proj_weight"], p[prefix + "attention.out_proj.weight"]
-    if impl == "pallas" or (impl == "auto" and x.is_cuda):
+    if attention_route(impl, x.device.type, x.shape[-1]) == "pallas":
         t = ang_attention_pallas(tn, t, w_in, w_out, NUM_HEADS) + t
     else:
         t = multi_head_attention(tn, tn, t, w_in, w_out, NUM_HEADS) + t
@@ -205,9 +207,13 @@ def resolve_fused(fused: bool, h: int, w: int, C: int, A2: int, device_type: str
     through the kernels also needs the backward kernels to take the
     geometry (`ang_block_trainable`: today every gated one, so training
     fuses wherever inference does). Everything else goes to the unfused
-    branch, as in the JAX package (lft_tpu/models/lft.py:325-329)."""
+    branch, as in the JAX package (lft_tpu/models/lft.py:325-329). On CUDA
+    the kernels must also take the width (`kernels_take`); lft_tpu's gates
+    pass any C with 8 | 2C, so there the two packages differ."""
     if not (fused and spa_block_applicable(h, w, 2 * C, NUM_HEADS, KERNEL_SEARCH)
             and ang_block_applicable(A2)):
+        return False
+    if device_type == "cuda" and not plain_blocks and not kernels_take(C):
         return False
     return not training or plain_blocks or ang_block_trainable(A2, device_type)
 

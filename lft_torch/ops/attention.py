@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lft_torch.kernels.common import attention_route
+
 NEG_INF = -1e30  # finite: no NaN from (-inf) - (-inf); every row has a key
 
 
@@ -153,10 +155,12 @@ def local_attention(qn: torch.Tensor, v: torch.Tensor, in_proj_weight,
 
     impl: 'auto' | 'dense' | 'tiled' | 'pallas'. 'pallas' is the per-op
     kernel dispatch (kernels/local_attn.py); 'auto' takes it for a CUDA
-    tensor, as the JAX package does on its accelerator, and the tiled or
-    dense op for a CPU tensor."""
-    if impl == "auto" and qn.is_cuda and qn.shape[-1] % num_heads == 0:
-        impl = "pallas"
+    tensor of a width the kernels take (E = 2C:
+    `kernels.common.attention_route`), as the JAX package does on its
+    accelerator, and the tiled or dense op otherwise."""
+    E = qn.shape[-1]
+    if impl == "auto" and E % num_heads == 0:
+        impl = attention_route(impl, qn.device.type, E // 2)
     if impl == "pallas":
         from lft_torch.kernels.local_attn import local_attention_pallas
         return local_attention_pallas(qn, v, in_proj_weight, out_proj_weight,

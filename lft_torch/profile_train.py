@@ -9,7 +9,8 @@ batch 4 of 32x32-view patches made on the card by `synth_batch`:
 * steady-state ms per train step (host clock around steps that end in
   `torch.cuda.synchronize()`, after two warm-up steps);
 * a `torch.profiler` trace of one step: device time by kernel name, the
-  device's busy time and its idle share of the wall time.
+  device's busy time and its idle share of the wall time, and the device
+  time of the weight-grad and column-sum reductions (`wgrad`, `colsum`).
 
 `--plain` trains through the blocks' plain PyTorch versions and backwards
 instead of the kernels; `--unfused` trains the per-op branch
@@ -68,7 +69,7 @@ def main(argv=None) -> int:
                                                 "LFT_5x5_4x_synth3000.pth"), device=dev)
     kw, what = path_kw(a.plain, a.unfused)
     args = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, lr=2e-4,
-                train_fused="false" if a.unfused else "auto",
+                train_fused="false" if a.unfused else "true",
                 attention_impl=kw.get("attention_impl", "auto"))
     model = get_model(args)
     if a.plain and not a.unfused:
@@ -106,6 +107,12 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report(prof, wall, "one step", top=25)
+    names = ("wgrad_kernel", "wgrad_taps_kernel", "colsum_kernel")
+    red = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+           and any(n in e.key for n in names)]
+    print(f"weight-grad and column-sum reductions (wgrad.cu) in the traced step: "
+          f"{sum(e.device_time_total for e in red) / 1e3:.3f} ms device time, "
+          f"{sum(e.count for e in red)} kernel launches", flush=True)
     return 0
 
 

@@ -25,12 +25,28 @@ import numpy as np
 import torch
 
 
+def _pow_f32(base: float, k: int) -> np.float32:
+    """base ** k for an integer k >= 0 in float32, by binary powering: the
+    rounding of XLA's power with an integer exponent, which lft_tpu's
+    schedule takes on its int32 step count. Equal to it bit for bit wherever
+    the result is a normal float32."""
+    r, b = np.float32(1.0), np.float32(base)
+    while k:
+        if k & 1:
+            r = np.float32(r * b)
+        b = np.float32(b * b)
+        k >>= 1
+    return r
+
+
 def step_lr_schedule(base_lr: float, gamma: float, n_steps_epochs: int,
                      steps_per_epoch: int):
-    """lr(step) = base_lr * gamma ** (epoch // n_steps_epochs)."""
+    """lr(step) = base_lr * gamma ** (epoch // n_steps_epochs), in float32
+    as the JAX package evaluates it (a rounding of the float64 value is an
+    ulp off at a gamma that is not a power of two)."""
     def schedule(count: int) -> float:
         epoch = count // max(steps_per_epoch, 1)
-        return base_lr * gamma ** (epoch // n_steps_epochs)
+        return float(np.float32(base_lr) * _pow_f32(gamma, epoch // n_steps_epochs))
     return schedule
 
 

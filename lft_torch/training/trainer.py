@@ -9,14 +9,15 @@ Reference behaviour mirrored (reference train.py:86-138): per-epoch loop to
 moments and both step counts, so a resume is exact; a `.pth` resume starts
 fresh moments with the schedule fast-forwarded to the checkpoint's epoch.
 
-On the card the model trains through the fused blocks, whose backwards are
-the hand-written K4/K3 kernels with deterministic weight-gradient
-reductions (every geometry the fused gates pass, up to 11x11 views), or with `--train_fused false` through the unfused branch, whose
-two attentions are the per-op kernels (K7 and K5, or K8, K9 and K6 where the
-geometry or the `LFT_ANG_VARIANT` / `LFT_SPA_VARIANT` knobs send them) with
-kernel backwards (no atomics) and everything else torch's own autograd. cuDNN is held to
-deterministic algorithms: the same state and batch give the same update bit
-for bit.
+On the card the model trains, as lft_tpu does at float32, through the
+unfused branch, whose two attentions are the per-op kernels (K7 and K5, or
+K8, K9 and K6 where the geometry or the `LFT_ANG_VARIANT` / `LFT_SPA_VARIANT`
+knobs send them) with kernel backwards (no atomics) and everything else
+torch's own autograd; or with `--train_fused true` through the fused blocks,
+whose backwards are the hand-written K4/K3 kernels with deterministic
+weight-gradient reductions (every geometry the fused gates pass, up to
+11x11 views). cuDNN is held to deterministic algorithms: the same state and
+batch give the same update bit for bit.
 """
 
 from __future__ import annotations
@@ -31,20 +32,20 @@ from lft_torch.data.datasets import TrainDataset, iterate_batches
 from lft_torch.device import resolve_device
 from lft_torch.ops.metrics import cal_metrics
 from lft_torch.training.optim import make_optimizer, opt_state_from_jax_flat
-from lft_torch.utils.checkpoint import load_checkpoint, params_to_pth, save_checkpoint
+from lft_torch.utils.checkpoint import (load_checkpoint, params_to_pth, save_checkpoint,
+                                       validate_params)
 
 
 def train_fused(args, device: torch.device) -> bool:
-    """`--train_fused`: auto = the fused blocks on CUDA, the unfused plain
-    model on the CPU; true on the CPU runs the fused blocks' plain versions
-    through their autograd Functions; false on CUDA trains the unfused
-    branch through the per-op kernels (`--attention_impl`). A geometry the
-    fused gates do not pass goes to the unfused branch whatever this says
-    (`models.lft.resolve_fused`)."""
-    tf = str(getattr(args, "train_fused", "auto")).lower()
-    if tf == "auto":
-        return device.type == "cuda"
-    return tf in ("true", "1", "yes")
+    """`--train_fused`: auto = the unfused branch, as lft_tpu's auto at
+    float32, the port's only dtype (lft_tpu/training/trainer.py:100-106:
+    fused only on a TPU in bfloat16 or mixed); on CUDA that branch runs the
+    per-op kernels (`--attention_impl`). true trains the fused blocks: their
+    kernels on CUDA, their plain versions through the autograd Functions on
+    the CPU. A geometry the fused gates do not pass goes to the unfused
+    branch whatever this says (`models.lft.resolve_fused`). At float32 the
+    choice does not depend on `device`."""
+    return str(getattr(args, "train_fused", "auto")).lower() in ("true", "1", "yes")
 
 
 def make_train_step(model, optimizer, args, with_metrics: bool = True) -> Callable:
@@ -107,6 +108,7 @@ def fit(args, logger=None, dataset=None, checkpoints_dir: Optional[str] = None,
     object with `__len__` and `item(index, rng)`, a `TrainDataset` of
     `args.path_for_train` by default. Runs on `device` (cuda unless the
     caller passes 'cpu'). Returns (params, history of per-epoch means)."""
+    from lft_torch.models.lft import param_shapes
     from lft_torch.registry import get_model
     log = logger.log_string if logger else print
     dev = resolve_device(device)
@@ -117,6 +119,8 @@ def fit(args, logger=None, dataset=None, checkpoints_dir: Optional[str] = None,
     start_epoch, opt_flat = 0, None
     if args.use_pre_pth:
         params, start_epoch, opt_flat = load_checkpoint(args.path_pre_pth, device=dev)
+        # the checkpoint against the run's flags (lft_tpu/training/trainer.py:182-184)
+        validate_params(params, param_shapes(args.channels, args.scale_factor))
     else:
         params = model.init(args.seed, args, device=dev)
     for p in params.values():

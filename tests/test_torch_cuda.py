@@ -162,16 +162,52 @@ def test_spa_res_and_bwd_kernels(cuda_device, C, h, w):
     _close(got, spa_block.spa_block_bwd_plain(x, pe_tok, wts_m, tok, m, l, attn, dout, 8, 5))
 
 
+# every product of a fused 5x5 train step (batch 4, C = 64: T = 102,400; at
+# angRes 9 T = 82,944), then ragged ones: T no slice or slab divides, K and N
+# multiples of 4 but not of the 128 x 128 (64 x 32 with taps) tile
+WGRAD_SHAPES = [(102400, 64, 128, (32, 32)), (102400, 128, 128, None),
+                (102400, 128, 256, None), (102400, 256, 128, None), (102400, 128, 64, None),
+                (102400, 64, 64, None), (102400, 64, 128, None), (82944, 64, 64, None),
+                (1000, 64, 128, None), (4097, 256, 128, None), (3001, 100, 36, None),
+                (777, 132, 260, None), (7, 4, 4, None), (3 * 9 * 7, 16, 32, (9, 7)),
+                (2 * 32 * 32, 64, 128, (32, 32)), (5 * 17 * 40, 20, 44, (17, 40))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,K,N,image", [(1000, 64, 128, None), (4097, 256, 128, None),
-                                         (3 * 9 * 7, 16, 32, (9, 7)),
-                                         (2 * 32 * 32, 64, 128, (32, 32))])
+@pytest.mark.parametrize("T,K,N,image", WGRAD_SHAPES)
 def test_wgrad_kernels(cuda_device, T, K, N, image):
-    g = torch.Generator(device=cuda_device).manual_seed(T)
+    """Against the plain version (f32, TF32 off); against float64 no worse
+    than twice the plain f32 product; bitwise repeatable."""
+    g = torch.Generator(device=cuda_device).manual_seed(T + K + N)
     x = torch.randn(T, K, device=cuda_device, generator=g)
     dy = torch.randn(T, N, device=cuda_device, generator=g)
-    _close(wgrad.wgrad(x, dy, image), wgrad.wgrad_plain(x, dy, image), 1e-5)
-    _close(wgrad.colsum(dy), wgrad.colsum_plain(dy), 1e-5)
+    reset_launches()
+    got = wgrad.wgrad(x, dy, image)
+    torch.cuda.synchronize()
+    assert LAUNCHES["wgrad"] == 1
+    ref = wgrad.wgrad_plain(x, dy, image)
+    _close(got, ref, 1e-5)
+    exact = wgrad.wgrad_plain(x.double(), dy.double(), image)
+    err, err_f32 = (float((t.double() - exact).abs().max()) for t in (got, ref))
+    assert err <= 2 * err_f32 + 1e-7 * float(exact.abs().max()), (err, err_f32)
+    assert torch.equal(got, wgrad.wgrad(x, dy, image))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N", [(1600, 256), (2048, 256), (1296, 256), (100, 131072), (7, 5),
+                                 (1000, 64), (33, 1030)])
+def test_colsum_kernel(cuda_device, R, N):
+    """The LayerNorm partial sums of K3 ([1600, 256]) and K4 ([2048, 256];
+    [1296, 256] at angRes 9), the spatial PE grad ([100, 131072]), a scalar
+    tail; bitwise repeatable."""
+    g = torch.Generator(device=cuda_device).manual_seed(R + N)
+    a = torch.randn(R, N, device=cuda_device, generator=g)
+    reset_launches()
+    got = wgrad.colsum(a)
+    torch.cuda.synchronize()
+    assert LAUNCHES["colsum"] == 1
+    _close(got, wgrad.colsum_plain(a), 1e-5)
+    assert torch.equal(got, wgrad.colsum(a))
 
 
 @pytest.mark.cuda
@@ -248,7 +284,7 @@ def test_fit_kill_resume_bitwise_on_card(cuda_device, tmp_path):
     from lft_torch.training import trainer
     data = _Patches(4)
     base = dict(channels=16, scale_factor=4, batch_size=2, epoch=2, n_steps=1, num_workers=0,
-                seed=3)
+                seed=3, train_fused="true")
     a, b = tmp_path / "a", tmp_path / "b"
     a.mkdir()
     b.mkdir()
@@ -647,3 +683,41 @@ def test_spa_block_pixel_major_kernels(cuda_device, C, Bb, h, w, A2):
         spa_block.spa_trans_block_fused(x.clone().requires_grad_(), pe_tok, p, prefix, 8, 5,
                                         pixel_major=True)
     assert set(TAIL) <= set(LAUNCHES)
+
+
+# ------------------------------------------ widths the kernels do not take ---
+
+@pytest.mark.cuda
+def test_c48_model_runs_plain_on_card(cuda_device):
+    """A C = 48 model on the card: the forward, a tiled scene and a train
+    step take the plain torch ops (no kernel launched) and equal the plain
+    unfused path; an explicit request for a kernel still raises."""
+    from lft_torch.inference.tiled import ScenePipelineCache
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import make_optimizer
+    from lft_torch.training.trainer import make_train_step
+    args = Args(channels=48, scale_factor=2, patch_size_for_test=16, stride_for_test=8,
+                eval_batch=4, batch_size=2)
+    p = _params(48, cuda_device, seed=4)
+    rng = np.random.RandomState(1)
+    lr = torch.from_numpy(rng.rand(2, 1, 80, 80).astype(np.float32)).to(cuda_device)
+    mosaic = torch.from_numpy(rng.rand(120, 120).astype(np.float32)).to(cuda_device)
+    reset_launches()
+    got = lft.forward(p, lr, args)
+    sr = ScenePipelineCache(lft.forward, args)(p, mosaic)
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    step = make_train_step(get_model(args), make_optimizer(params, args, 10), args,
+                           with_metrics=False)
+    hr = torch.from_numpy(rng.rand(2, 1, 160, 160).astype(np.float32)).to(cuda_device)
+    loss, _, _ = step(params, lr, hr)
+    torch.cuda.synchronize()
+    assert not any(LAUNCHES.values()), {k: n for k, n in LAUNCHES.items() if n}
+    assert torch.isfinite(loss) and torch.isfinite(sr).all() and sr.shape == (240, 240)
+    torch.testing.assert_close(got, lft.forward(p, lr, args, fused=False, attention_impl="tiled"),
+                               **TOL)
+    with pytest.raises(NotImplementedError):
+        lft.forward(p, lr, args, fused=False, attention_impl="pallas")
+    x = torch.randn(10, 25, 48, device=cuda_device)
+    pe = torch.from_numpy(angular_position(25, 48)).to(cuda_device)
+    with pytest.raises(NotImplementedError):
+        ang_block.ang_trans_block_fused(x, pe, p, "altblock.0.ang_trans.", 8)

@@ -582,7 +582,8 @@ def test_training_forward_at_angres9_takes_the_unfused_branch(monkeypatch):
     # `--train_fused false` reaches the model as fused=False
     args_unfused = Args(channels=16, scale_factor=2, angRes=9, train_fused="false")
     assert trainer.train_fused(args_unfused, torch.device("cuda")) is False
-    assert trainer.train_fused(args, torch.device("cuda")) is True
+    args_fused = Args(channels=16, scale_factor=2, angRes=9, train_fused="true")
+    assert trainer.train_fused(args_fused, torch.device("cuda")) is True
     lft.forward(p, x, args, fused=trainer.train_fused(args_unfused, torch.device("cuda")))
     assert calls == ["fused", "fused", "unfused"]
     with monkeypatch.context() as mp:
