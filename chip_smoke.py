@@ -17,7 +17,12 @@
    in a different order, nothing more;
 6. holds every kernel against its plain version at the shapes the main
    path gives it (K1 [16384, 25, 64], K2 [400, 32, 32, 64]) and times both
-   with CUDA events (median after warm-up), beside the card's bound;
+   with CUDA events (median after warm-up), beside the card's bound; K2's
+   tokenization (`spa_tokenize_ln`, 3xTF32 on the tensor cores: bound on
+   the tensor cores, the FP32 pipes' printed beside) must keep tok within
+   twice the f32 plain version's error against float64 and repeat bitwise,
+   and cuDNN's `F.conv2d` of the same memory (its conv part only) is timed
+   beside it;
 7. trains: the 4x recipe (Adam 2e-4, batch 4 of 32x32-view patches made on
    the card by `synth_batch` from `--seed`, a 160x160 LR mosaic) from the
    same checkpoint, through `make_train_step`: one step through the kernels
@@ -28,7 +33,10 @@
    further steps (finite loss), and the median ms a step of both paths;
 8. holds every training kernel against its plain version at the training
    shapes (K1/K4 [4096, 25, 64], K2/K3 [100, 32, 32, 64]), max |diff| <=
-   5e-4 max |plain| per output, and times them; then `wgrad` at every
+   5e-4 max |plain| per output, and times them (the window step with stats
+   beside one masked `scaled_dot_product_attention`, K3.e `spa_tokenize_bwd`
+   beside cuDNN's `conv_transpose2d` and held, as 3xTF32, to twice the f32
+   plain version's float64 error and a bitwise repeat); then `wgrad` at every
    product of the fused step (8 shapes, 56 launches a step) and `colsum` at
    its three shapes, timed in device time (a profiler trace of 20 calls,
    the host's launch path left out) beside `x.t() @ dy` / `a.sum(0)`, with
@@ -95,7 +103,8 @@
 19. holds K10 at [400, 32, 32, 128] and [400, 64, 64, 128], the 128-row K4 at
     [1024, 81, 64] and, with a ragged last block, at A2 = 121 and 128, and
     K11's two `_pm` kernels against their plain versions, timed beside their
-    bounds (K10 also beside one `scaled_dot_product_attention` call);
+    bounds (K10 also beside one `scaled_dot_product_attention` call;
+    `spa_tokenize_ln_pm` held to float64 and a bitwise repeat as K2.1);
 20. prints the `kernels` JSON line (every kernel, old and new), the card's
     name and power limit, and last `{"ok": true, "device": {...}}`.
 
@@ -274,6 +283,21 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def f64_check(name: str, got, ref, exact, repeats: bool) -> None:
+    """A kernel that runs its products 3xTF32 on the tensor cores: its max
+    error against float64 must be at most twice the f32 plain version's
+    (TF32 off), and a second call must equal the first bit for bit."""
+    e_k, e_f32 = (float((t.double() - exact).abs().max()) for t in (got, ref))
+    print(f"  {name}: max |kernel - float64| {e_k:.3e}, max |f32 plain (TF32 off) - float64| "
+          f"{e_f32:.3e} (limit 2x: {e_k / max(e_f32, 1e-30):.3f}x); repeated bitwise: {repeats}",
+          flush=True)
+    if not e_k <= 2 * e_f32:
+        raise AssertionError(f"{name}: error against float64 {e_k:.3e} is more than twice the "
+                             f"f32 plain version's {e_f32:.3e}")
+    if not repeats:
+        raise AssertionError(f"{name} does not repeat bitwise")
+
+
 def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -> list:
     """Each SR kernel against its plain version at the main path's shapes."""
     import torch
@@ -316,10 +340,21 @@ def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -
     src = "lft_torch/csrc/spa_block.cu"
 
     tok, xn = sb.tokenize_ln_plain(xs, pe_tok, ws)
-    record("spa_tokenize_ln", src, rep, sb.tokenize_ln(xs, pe_tok, ws), (tok, xn),
-           lambda: sb.tokenize_ln(xs, pe_tok, ws),
-           lambda: sb.tokenize_ln_plain(xs, pe_tok, ws),
-           2 * T * 9 * C * D, nbytes(xs, pe_tok, tok, xn) + wbytes("wu", "ln"))
+    got = sb.tokenize_ln(xs, pe_tok, ws)
+    ms_k, _, _ = record("spa_tokenize_ln", src, rep, got, (tok, xn),
+                        lambda: sb.tokenize_ln(xs, pe_tok, ws),
+                        lambda: sb.tokenize_ln_plain(xs, pe_tok, ws),
+                        2 * C * D * V * valid_window_pairs(h, w, 1),
+                        nbytes(xs, pe_tok, tok, xn) + wbytes("wu", "ln"), tf32_products=3)
+    again = sb.tokenize_ln(xs, pe_tok, ws)
+    f64_check("spa_tokenize_ln tok", got[0], tok,
+              unfold3x3_linear(xs.double(), ws["mlp"].double()),
+              all(torch.equal(a, b) for a, b in zip(got, again)))
+    del got, again
+    xs_nchw, w_nchw = xs.permute(0, 3, 1, 2), ws["mlp"].reshape(D, C, 3, 3)
+    ms_conv = timed(lambda: F.conv2d(xs_nchw, w_nchw, padding=1))
+    print(f"  spa_tokenize_ln conv part only (cuDNN F.conv2d on the same memory, TF32 off; no PE, "
+          f"no LN1) at {[V, h, w, C]}: {ms_conv:.4f} ms, the kernel {ms_k:.4f} ms", flush=True)
 
     q, k, v = sb.qkv_plain(xn, tok, ws)
     record("spa_qkv", src, rep, sb.qkv(xn, tok, ws), (q, k, v),
@@ -577,6 +612,7 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
     import torch.nn.functional as F
     from lft_torch.kernels import ang_block as ab
     from lft_torch.kernels import spa_block as sb
+    from lft_torch.ops.attention import local_window_mask
     from lft_torch.ops.posenc import angular_position, spatial_position
     from lft_torch.ops.unfold import unfold3x3_linear
 
@@ -636,11 +672,16 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
     xn, q, k, v = sb.ln_qkv_plain(tok, pe_tok, ws)
     pairs = V * valid_window_pairs(h, w, K // 2)
     ref = sb.window_attn_plain(q, k, v, H, K)
+    mask = torch.from_numpy(local_window_mask(h, w, K) == 0).to(dev)
+    heads = lambda t: t.reshape(V, h * w, H, D // H).transpose(1, 2)
+    qh, kh, vh = heads(q), heads(k), heads(v)
     rec.record("spa_window_attn_res", "lft_torch/csrc/spa_block.cu",
                "lft_tpu/kernels/spa_block.py:339", sb.window_attn(q, k, v, H, K, True), ref,
                lambda: sb.window_attn(q, k, v, H, K, True),
                lambda: sb.window_attn_plain(q, k, v, H, K), 4 * D * pairs,
-               nbytes(q, k, v, *ref), rel=rel)
+               nbytes(q, k, v, *ref), rel=rel,
+               lib_fn=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    del qh, kh, vh
     rep = "lft_tpu/kernels/spa_block.py:602"
     dout = rand(V, h, w, C)
     dout = calm_relu(dout, sb.ffn_out_bwd(attn, tok, dout, ws)[4],
@@ -672,10 +713,16 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
     dtok = ref[0]
     ref = sb.tokenize_bwd_plain(dtok, ws)
     dtok_nchw, w_t = dtok.permute(0, 3, 1, 2), ws["mlp"].reshape(D, C, 3, 3)
-    rec.record("spa_tokenize_bwd", src_s, rep, sb.tokenize_bwd(dtok, ws), ref,
+    got = sb.tokenize_bwd(dtok, ws)
+    rec.record("spa_tokenize_bwd", src_s, rep, got, ref,
                lambda: sb.tokenize_bwd(dtok, ws), lambda: sb.tokenize_bwd_plain(dtok, ws),
                2 * D * C * V * valid_window_pairs(h, w, 1), nbytes(dtok, ref) + wbytes("wu"),
-               lib_fn=lambda: F.conv_transpose2d(dtok_nchw, w_t, padding=1), rel=rel)
+               lib_fn=lambda: F.conv_transpose2d(dtok_nchw, w_t, padding=1), rel=rel,
+               tf32_products=3)
+    f64_check("spa_tokenize_bwd dx", got, ref,
+              sb.tokenize_bwd_plain(dtok.double(), dict(mlp=ws["mlp"].double())),
+              torch.equal(got, sb.tokenize_bwd(dtok, ws)))
+    del got
     got = sb.spa_block_bwd(xs, pe_tok, ws, tok, m, l, attn, dout, H, K)
     ref = sb.spa_block_bwd_plain(xs, pe_tok, ws, tok, m, l, attn, dout, H, K)
     err, ok = max_err(got, ref, rel)
@@ -1306,10 +1353,17 @@ def pixel_major_phase(params, cache, scene, card: str) -> list:
         wbytes = lambda *k_: sum(nbytes(ws[n]) for n in k_)
         src, rep = "lft_torch/csrc/spa_block.cu", "lft_tpu/kernels/spa_block.py:309"
         tok, xn = sb.tokenize_ln_plain(to_vm(x), pe_tok, ws)
-        rec.record("spa_tokenize_ln_pm", src, rep, sb.tokenize_ln(x, pe_tok, ws, True), (tok, xn),
+        got = sb.tokenize_ln(x, pe_tok, ws, True)
+        rec.record("spa_tokenize_ln_pm", src, rep, got, (tok, xn),
                    lambda: sb.tokenize_ln(x, pe_tok, ws, True),
                    lambda: sb.tokenize_ln_plain(to_vm(x), pe_tok, ws),
-                   2 * T * 9 * C * D, nbytes(x, pe_tok, tok, xn) + wbytes("wu", "ln"))
+                   2 * C * D * Bb * A2 * valid_window_pairs(h, w, 1),
+                   nbytes(x, pe_tok, tok, xn) + wbytes("wu", "ln"), tf32_products=3)
+        again = sb.tokenize_ln(x, pe_tok, ws, True)
+        f64_check("spa_tokenize_ln_pm tok", got[0], tok,
+                  unfold3x3_linear(to_vm(x).double(), ws["mlp"].double()),
+                  all(torch.equal(a, b) for a, b in zip(got, again)))
+        del got, again
         q, kk, v = sb.qkv_plain(xn, tok, ws)
         x2, xn2 = sb.outproj_ln_plain(sb.window_attn(q, kk, v, H, K), tok, ws)
         del q, kk, v, tok, xn

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import os
 import subprocess
 import sys
 import tempfile
@@ -45,10 +44,7 @@ STEP_TOKENS = 100 * 32 * 32
 
 def _load_other(src: str, build_dir: str):
     from lft_torch.kernels import _build
-    so = os.path.join(build_dir, "libother_wgrad.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.SRC_DIR, "-o", so, src],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(so)
+    lib = _build.build_library(src, build_dir, "other_wgrad")
     lib.lft_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.lft_colsum.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     stream = lambda: torch.cuda.current_stream().cuda_stream

@@ -4,9 +4,11 @@
 //
 // Every kernel here works on a tile of token rows held in shared memory and
 // multiplies it by a weight matrix that stays in device memory (it is small
-// enough to live in L1/L2: at most 256 x 256 f32). The products run in
+// enough to live in L1/L2: at most 256 x 256 f32). These products run in
 // full f32 on the FP32 pipes (no TF32, no tensor cores): the port's parity
-// mode is the reference's f32/HIGHEST arithmetic.
+// mode is the reference's f32/HIGHEST arithmetic. The 3x3 tokenization
+// (tokenize.cuh) and the weight gradients (wgrad.cu) reach the same accuracy
+// on the tensor cores instead, as 3xTF32 (tf32.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -36,6 +36,13 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* __res
 
 inline int blocks(int T) { return (T + BM - 1) / BM; }
 
+// Token t of the view-major [Bb * A2, hw] order -> its row in a pixel-major
+// [Bb, hw, A2] buffer (K11).
+__device__ __forceinline__ long long pm_row(long long t, int hw, int A2) {
+  const long long view = t / hw;
+  return ((view / A2) * hw + t % hw) * A2 + view % A2;
+}
+
 }  // namespace lft
 
 #define LFT_SET_SMEM(kernel, bytes)                                            \

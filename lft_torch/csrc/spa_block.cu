@@ -14,20 +14,24 @@
 // Why five kernels: at C = 64 / D = 128 the block's weights are ~0.8 MB in
 // f32 and one view's tokens 512 KB, far past the 227 KB of shared memory a
 // block can hold, so the TPU kernel's one-view-per-step VMEM chain cannot
-// carry over. Each step instead owns a tile of BM = 64 tokens, runs its
-// products from shared memory against weights read through L1/L2, and
-// hands its result to the next step through device memory. Every block
+// carry over. Each step instead owns a tile of tokens (steps 2, 4, 5: BM =
+// 64; step 1: a rectangle of up to 128 pixels of one view), runs its
+// products from shared memory, and hands its result to the next step
+// through device memory. Every block
 // computes its own halo and zero padding (the TPU kernel zeroed scratch
 // borders once at grid step 0, which is exact only on a sequential grid).
 // The window step skips keys outside the image instead of scoring zero
 // keys and correcting the denominator.
 //
-// Bound on this card: f32 on the FP32 pipes. At the production shape
-// [400, 32, 32, 64] the block does ~180 GFLOP (tokenisation 60.4, q/k 26.8,
-// v 13.4, attention 5.2, Wo 13.4, FFN 53.7, Token2SAI 6.7), ~2.7 ms at
-// 67 TFLOP/s on an H100 SXM; the intermediates add ~1.9 GB of device
-// memory traffic (~0.6 ms at 3.35 TB/s), so the steps are compute-bound
-// except the window attention, which is bound by its k/v reads.
+// Bound on this card: at the production shape [400, 32, 32, 64] the block
+// does ~176 GFLOP over the window pairs and taps inside the image
+// (tokenisation 57.9, q/k 26.8, v 13.4, attention 5.2, Wo 13.4, FFN 53.7,
+// Token2SAI 6.7) and its intermediates add ~1.9 GB of device memory traffic
+// (~0.6 ms at 3.35 TB/s). Step 1, the tokenisation, runs 3xTF32 on the
+// tensor cores (tokenize.cuh, where its bound and design are set out). Steps
+// 2, 4 and 5 run in f32 on the FP32 pipes (common.cuh:gemm_acc), bound by
+// operations (~1.7 ms at 67 TFLOP/s); the window step is bound by its k/v
+// reads.
 //
 // K11, the same forward on a pixel-major buffer x [Bb, h, w, A2, C] ->
 // [Bb, h, w, A2, C] (replaces lft_tpu/kernels/spa_block.py:_fwd_call with
@@ -41,80 +45,14 @@
 // copy of x or of the output is ever made.
 
 #include "spa.cuh"
+#include "tokenize.cuh"
 
 using namespace lft;
 
 namespace {
 
-// Token t of the view-major [Bb * A2, hw] order -> its row in a pixel-major
-// [Bb, hw, A2] buffer.
-__device__ __forceinline__ long long pm_row(long long t, int hw, int A2) {
-  const long long view = t / hw;
-  return ((view / A2) * hw + t % hw) * A2 + view % A2;
-}
-
 // ---- 1: tokenisation (9 shifted C -> D taps) + PE + LN1 -----------------
-// PM: x is pixel-major [T / (hw A2), h, w, A2, C]; tok and xn stay view-major.
-template <int C, bool PM>
-__global__ void __launch_bounds__(NT)
-    spa_tokenize_ln_kernel(const float* __restrict__ x, const float* __restrict__ pe_tok,
-                           const float* __restrict__ wu, const float* __restrict__ ln,
-                           float* __restrict__ tok, float* __restrict__ xn, int T,
-                           int h, int w, int A2) {
-  using S = Spa<C>;
-  using LN = RowLN<S::D>;
-  constexpr int D = S::D, LDC = S::LDC, LDD = S::LDD;
-  extern __shared__ float4 smem4[];
-  float* AS = reinterpret_cast<float*>(smem4);   // [BM][LDC] one tap's inputs
-  float* TK = AS + BM * LDC;                      // [BM][LDD] tok tile
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int t0 = blockIdx.x * BM;
-  const int hw = h * w;
-
-  Acc<BM, D> acc;
-  zero_acc<BM, D>(acc);
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    for (int i = tid; i < BM * (C / 4); i += NT) {
-      const int r = i / (C / 4), c = 4 * (i % (C / 4));
-      const int t = t0 + r;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t < T) {
-        const int rem = t % hw;
-        const int y = rem / w + dy, xx = rem % w + dx;
-        if (y >= 0 && y < h && xx >= 0 && xx < w) {
-          long long row = static_cast<long long>(t) + dy * w + dx;   // same view
-          if constexpr (PM) row = pm_row(row, hw, A2);
-          v = ldg4(x + row * C + c);
-        }
-      }
-      store4(AS + r * LDC + c, v);
-    }
-    __syncthreads();
-    gemm_acc<BM, C, D>(acc, AS, LDC, wu + static_cast<size_t>(tap) * C * D);
-    __syncthreads();
-  }
-  for_tiles<BM, D>(acc, [&](int r, int c, float4 v) { store4(TK + r * LDD + c, v); });
-  __syncthreads();
-
-  for (int r = warp; r < BM; r += NT / 32) {
-    const int t = t0 + r;
-    if (t >= T) break;
-    const float* pe = pe_tok + static_cast<size_t>(t % hw) * D;
-    float v[LN::E];
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        const float tv = TK[r * LDD + LN::col(e)];
-        tok[static_cast<size_t>(t) * D + LN::col(e)] = tv;
-        v[e] = tv + __ldg(pe + LN::col(e));
-      }
-    LN::apply(v, ln, ln + D);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) xn[static_cast<size_t>(t) * D + LN::col(e)] = v[e];
-  }
-}
+// tap_conv_kernel<C, 2C, PM, true> (tokenize.cuh).
 
 // ---- 2: q/k from xn, v from tok -----------------------------------------
 template <int C>
@@ -333,7 +271,7 @@ __global__ void __launch_bounds__(NT)
 LFT_EXPORT_ERROR_STRING
 
 // All token tensors are [T, *] with T = V*h*w tokens in [V, h, w] order.
-// Weights use "x @ W" layouts: wu [9, C, D] (tap-major), wqk [D, 2D],
+// Weights use "x @ W" layouts: wqk [D, 2D],
 // wv/wo [D, D], w1 [D, 2D], w2 [2D, D], wlin [D, C]; ln [4, D] is
 // (LN1 w, b, LN2 w, b). Each returns the launch's cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape it does not take (C in {16, 32, 64}).
@@ -341,16 +279,14 @@ LFT_EXPORT_ERROR_STRING
 namespace {
 
 template <bool PM>
-int tokenize_ln(const float* x, const float* pe_tok, const float* wu, const float* ln,
-                float* tok, float* xn, int V, int h, int w, int A2, int C, cudaStream_t s) {
-  const int T = V * h * w;
+int tokenize_ln(const float* x, const float* pe_tok, const float* wu, float* wf,
+                const float* ln, float* tok, float* xn, int V, int h, int w, int A2, int C, int r,
+                int cw, cudaStream_t s) {
   LFT_DISPATCH_C(C, {
-    auto kernel = spa_tokenize_ln_kernel<CC, PM>;
-    const size_t bytes = BM * (Spa<CC>::LDC + Spa<CC>::LDD) * sizeof(float);
-    LFT_SET_SMEM(kernel, bytes);
-    kernel<<<blocks(T), NT, bytes, s>>>(x, pe_tok, wu, ln, tok, xn, T, h, w, A2);
+    return launch_tap_conv<CC, 2 * CC, PM, true, false>(x, wu, wf, pe_tok, ln, tok, xn, V, h, w,
+                                                        A2, r, cw, s);
   });
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool PM>
@@ -367,20 +303,23 @@ int ffn_out(const float* xn2, const float* x2, const float* w1, const float* w2,
 
 }  // namespace
 
+// Step 1: x [V, h, w, C] -> tok, xn [V, h, w, D]; wu [9, C, D]; wf scratch of
+// 18 C D floats (wu split into TF32 hi/lo, kernels/spa_block.py:tap_weights);
+// a block takes r x cw pixels of a view (kernels/spa_block.py:tok_tile).
 extern "C" int lft_spa_tokenize_ln(const float* x, const float* pe_tok, const float* wu,
-                                   const float* ln, float* tok, float* xn, int V, int h,
-                                   int w, int C, void* stream) {
-  return tokenize_ln<false>(x, pe_tok, wu, ln, tok, xn, V, h, w, 1, C,
+                                   float* wf, const float* ln, float* tok, float* xn, int V,
+                                   int h, int w, int C, int r, int cw, void* stream) {
+  return tokenize_ln<false>(x, pe_tok, wu, wf, ln, tok, xn, V, h, w, 1, C, r, cw,
                             static_cast<cudaStream_t>(stream));
 }
 
 // K11's first step: x [Bb, h, w, A2, C] pixel-major -> tok, xn [Bb * A2, h, w, D].
 extern "C" int lft_spa_tokenize_ln_pm(const float* x, const float* pe_tok, const float* wu,
-                                      const float* ln, float* tok, float* xn, int Bb, int h,
-                                      int w, int A2, int C, void* stream) {
+                                      float* wf, const float* ln, float* tok, float* xn, int Bb,
+                                      int h, int w, int A2, int C, int r, int cw, void* stream) {
   if (Bb < 1 || A2 < 1 || static_cast<long long>(Bb) * A2 * h * w > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  return tokenize_ln<true>(x, pe_tok, wu, ln, tok, xn, Bb * A2, h, w, A2, C,
+  return tokenize_ln<true>(x, pe_tok, wu, wf, ln, tok, xn, Bb * A2, h, w, A2, C, r, cw,
                            static_cast<cudaStream_t>(stream));
 }
 

@@ -16,7 +16,8 @@
 //   d spa_qkv_ln_bwd      dxn = dq Wqᵀ + dk Wkᵀ, dtokpe = LN1ᵀ(dxn),
 //                         dtok = dx2 + dv Wvᵀ + dtokpe
 //   e spa_tokenize_bwd    dx = the 3x3 tokenization transposed, a gather
-//                         over the 9 taps
+//                         over the 9 taps (tokenize.cuh: 3xTF32 on the
+//                         tensor cores)
 // Each writes the per-token operands of the weight gradients, and a and d
 // their blocks' partial column sums of the LayerNorm affine grads;
 // wgrad.cu reduces all of them, and dtokpe over the views (pe_tok's
@@ -32,12 +33,14 @@
 // recomputed q, k and x2 are bit-identical to the forward's (same tile
 // code), so p = exp(s - m) / l uses the forward's own scores.
 //
-// Bound on this card: ~48 D^2 + 4 9 C D + 250 D FLOP a token without the
-// weight grads (~100 GFLOP at [100, 32, 32, 64], 1.5 ms at 67 TFLOP/s FP32);
-// the operand tensors add ~1.5 GB of traffic (~0.45 ms): operations.
+// Bound on this card: ~48 D^2 + 250 D FLOP a token in steps a-d without
+// the weight grads (~84 GFLOP at [100, 32, 32, 64], 1.3 ms at 67 TFLOP/s
+// FP32); the operand tensors add ~1.5 GB of traffic (~0.45 ms): operations.
+// Step e (14.5 GFLOP) runs 3xTF32 on the tensor cores (tokenize.cuh).
 
 #include "bwd.cuh"
 #include "spa.cuh"
+#include "tokenize.cuh"
 
 using namespace lft;
 
@@ -444,41 +447,9 @@ __global__ void __launch_bounds__(NT)
 
 // ---- e: tokenization backward, a gather over the 9 taps -------------------
 // The forward's tok[t] = sum_tap x[t + s_tap] Wu[tap] (s_tap = (ky-1, kx-1)
-// inside the image) gives dx[u] = sum_tap dtok[u - s_tap] Wu[tap]ᵀ.
-template <int C>
-__global__ void __launch_bounds__(NT)
-    spa_tokenize_bwd_kernel(const float* __restrict__ dtok, const float* __restrict__ wuT,
-                            float* __restrict__ dx, int T, int h, int w) {
-  using S = Spa<C>;
-  constexpr int D = S::D, LDD = S::LDD;
-  extern __shared__ float4 smem4[];
-  float* AS = reinterpret_cast<float*>(smem4);   // [BM][LDD] one tap's dtok rows
-  const int t0 = blockIdx.x * BM;
-  const int hw = h * w;
-  Acc<BM, C> acc;
-  zero_acc<BM, C>(acc);
-  for (int tap = 0; tap < 9; ++tap) {
-    const int sy = tap / 3 - 1, sx = tap % 3 - 1;
-    for (int i = threadIdx.x; i < BM * (D / 4); i += NT) {
-      const int r = i / (D / 4), c = 4 * (i % (D / 4));
-      const int t = t0 + r;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t < T) {
-        const int rem = t % hw;
-        const int y = rem / w - sy, xx = rem % w - sx;
-        if (y >= 0 && y < h && xx >= 0 && xx < w)
-          v = ldg4(dtok + (static_cast<long long>(t) - sy * w - sx) * D + c);
-      }
-      store4(AS + r * LDD + c, v);
-    }
-    __syncthreads();
-    gemm_acc<BM, D, C>(acc, AS, LDD, wuT + static_cast<size_t>(tap) * D * C);
-    __syncthreads();
-  }
-  for_tiles<BM, C>(acc, [&](int r, int c, float4 v) {
-    if (t0 + r < T) store4(dx + static_cast<size_t>(t0 + r) * C + c, v);
-  });
-}
+// inside the image) gives dx[u] = sum_tap dtok[u - s_tap] Wu[tap]ᵀ = sum_tap
+// dtok[u + s_tap] Wu[8 - tap]ᵀ: tap_conv_kernel<D, C, false, false>
+// (tokenize.cuh) with the mirrored, transposed taps.
 
 }  // namespace
 
@@ -486,7 +457,7 @@ LFT_EXPORT_ERROR_STRING
 
 // Token tensors are [T, *] in [V, h, w] order (T = V h w), weights "x @ W"
 // layouts as in spa_block.cu, "...T" their transposes: wlinT [C, D], w2T
-// [D, 2D], w1T [2D, D], woT/wqT/wkT/wvT [D, D], wuT [9, D, C]. ln [4, D] is
+// [D, 2D], w1T [2D, D], woT/wqT/wkT/wvT [D, D]. ln [4, D] is
 // (LN1 w, b, LN2 w, b); ln_part [blocks, 2, D] with blocks = ceil(T / 64).
 // Each returns the launch's cudaGetLastError(), or cudaErrorInvalidValue
 // for a shape it does not take (C in {16, 32, 64}).
@@ -568,14 +539,18 @@ extern "C" int lft_spa_qkv_ln_bwd(const float* tok, const float* pe_tok, const f
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int lft_spa_tokenize_bwd(const float* dtok, const float* wuT, float* dx, int T,
-                                    int h, int w, int C, void* stream) {
+// dtok [T, D] -> dx [T, C], T = V h w; wu [9, C, D]; wf scratch of 18 C D
+// floats (wu[8 - tap]ᵀ split into TF32 hi/lo, kernels/spa_block.py:
+// tap_weights(wu, backward=True)); a block takes r x cw pixels of a view
+// (tok_tile).
+extern "C" int lft_spa_tokenize_bwd(const float* dtok, const float* wu, float* wf, float* dx,
+                                    int T, int h, int w, int C, int r, int cw, void* stream) {
+  if (h < 1 || w < 1 || T < 1 || T % (h * w)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   LFT_DISPATCH_C(C, {
-    auto kernel = spa_tokenize_bwd_kernel<CC>;
-    const size_t bytes = BM * Spa<CC>::LDD * sizeof(float);
-    LFT_SET_SMEM(kernel, bytes);
-    kernel<<<blocks(T), NT, bytes, s>>>(dtok, wuT, dx, T, h, w);
+    return launch_tap_conv<2 * CC, CC, false, false, true>(dtok, wu, wf, nullptr, nullptr, dx,
+                                                           nullptr, T / (h * w), h, w, 1, r,
+                                                           cw, s);
   });
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

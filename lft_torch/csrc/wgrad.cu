@@ -18,11 +18,7 @@
 // On the FP32 pipes (67 TFLOP/s) the products are bound by operations;
 // on the tensor cores they are bound by bytes, so the products run there:
 //
-// * 3xTF32 (`mma.sync.m16n8k8` tf32 with f32 accumulators): each operand
-//   is split into a TF32 head and a TF32 tail, a = a_hi + a_lo, and the
-//   sum takes a_lo b_hi + a_hi b_lo + a_hi b_hi. Only a_lo b_lo and the
-//   tails' truncation to TF32 are lost (about 2^-21 of |a b|): f32
-//   accuracy, where one TF32 product would keep three decimal digits. `wgmma` takes tf32
+// * 3xTF32 (tf32.cuh: `split_tf32`, `mma_tf32`). `wgmma` takes tf32
 //   operands from shared memory K-major only, and the reduction axis here
 //   (tokens) is the slow axis of both X [T, K] and dY [T, N]; `mma.sync`
 //   fragments are loaded from a token-major tile as they lie. Rows are
@@ -55,6 +51,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "tf32.cuh"
 
 namespace cg = cooperative_groups;
 using namespace lft;
@@ -83,36 +80,6 @@ constexpr int HR = BT + 2;      // rows of one staged image row band: the slab a
 constexpr int TLDX = WM + PAD, TLDY = WN + PAD;
 constexpr int TAP_X = 3 * HR * TLDX;          // floats of a stage's X bands
 constexpr int TAP_SMEM = (STAGES * (TAP_X + BT * TLDY) + WM) * 4 + STAGES * BT * 4;
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// v = hi + lo: hi is v rounded to TF32 as cvt.rna.tf32.f32 rounds (to
-// nearest, ties away from zero), by two integer operations instead of the
-// conversion unit; lo = v - hi is exact in f32 and goes to the MMA as it is,
-// which reads its top 19 bits (a truncation to TF32). |v - hi - lo_tf32| <=
-// 2^-21 |v|. The splits are most of a warp's non-MMA instructions: with
-// two cvt a split the kernel ran 12% slower on an H100.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // acc (a warp's 64 x 32 tile) += Aᵀ B over one staged slab of BT tokens.
 // row_a(t) points at token t's 64 A values of the warp (a zero row for a

@@ -134,6 +134,21 @@ def bind(name: str, fn: str, n_ptr: int, tail: tuple):
     return f
 
 
+def build_library(src: str, out_dir: str, name: str) -> ctypes.CDLL:
+    """Compile one CUDA source with the port's nvcc flags into
+    `out_dir/lib<name>.so` and load it: another revision's source, for the
+    A/B tools (`compare_wgrad`, `compare_tokenize`). Its headers are looked
+    up beside it first, then in this checkout's `csrc/`. Raises with the
+    compiler's output if the build fails."""
+    so = os.path.join(out_dir, f"lib{name}.so")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", SRC_DIR, "-o", so, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src} (rc {proc.returncode}):\n{proc.stdout}"
+                           f"{proc.stderr}")
+    return ctypes.CDLL(so)
+
+
 def check_cuda_args(kernel: str, *tensors: torch.Tensor) -> None:
     """Every tensor on the same CUDA device, float32, contiguous, and
     16-byte aligned (the kernels use float4 accesses)."""

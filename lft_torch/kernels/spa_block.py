@@ -25,7 +25,12 @@ denominator l, and saves x, tok, m, l and attn. The backward (K3,
   d qkv_ln_bwd      dxn = dq Wqᵀ + dk Wkᵀ, LN1 backward, dtok
   e tokenize_bwd    dx as a gather over the 9 transposed taps
 
-and the weight, LayerNorm and PE gradients are reduced by `wgrad`/`colsum`
+Steps 1 and e are one implicit GEMM, `out[t] = sum_tap in[t + s_tap] B[tap]`,
+run 3xTF32 on the tensor cores (`wgmma`, `lft_torch/csrc/tokenize.cuh`): a
+first kernel of the launch splits the weights into TF32 hi/lo parts in the
+layout the second reads (`tap_weights` in plain PyTorch), and the wrapper
+picks the block's rectangle of pixels (`tok_tile`, a function of the shapes
+only). The weight, LayerNorm and PE gradients are reduced by `wgrad`/`colsum`
 (kernels/wgrad.py). `pe_tok` gets a real gradient: it carries MLP.weight.
 `spa_trans_block_plain` runs the plain versions of all of it on any device.
 
@@ -41,6 +46,7 @@ in the JAX package: a call that needs grad raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -190,6 +196,74 @@ def tokenize_bwd_plain(dtok, wts):
     return dx.permute(0, 2, 3, 1).contiguous()
 
 
+# ------------------------------------ tokenization geometry and weights ---
+
+TOK_M = 128               # token rows of a tokenization block (8 warps)
+TOK_STAGES = 3            # the weight ring: 3 stages of at most 32 KB
+TOK_STAGE_FLOATS = 8192
+TOK_SMEM_MAX = 232448     # shared memory a block can use on an H100
+
+
+def tok_smem(r: int, cw: int, cin: int, cout: int, ln: bool) -> int:
+    """Shared memory bytes of a tokenization block over r x cw pixels, in
+    channels `cin`, out channels `cout`, with the LayerNorm epilogue or not
+    (the forward's): the band of (r + 2) x (cw + 2) pixels at a row stride of
+    cin + 4 floats and the weight ring, or the epilogue's [128, cout + 8]
+    tile if larger (tokenize.cuh:TapConv::smem)."""
+    kc = min(cin, TOK_STAGE_FLOATS // (2 * cout))
+    main = ((r + 2) * (cw + 2) * (cin + 4) + TOK_STAGES * kc * cout * 2) * 4
+    return max(main, TOK_M * (cout + 8) * 4 if ln else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def tok_tile(h: int, w: int, C: int):
+    """(r, cw): the rectangle of r image rows x cw columns of one view that
+    a block of the tokenization and of its transpose takes (r cw <= 128
+    tokens), such that both fit in shared memory: the fewest blocks, then
+    the smallest band, then the widest rectangle. A function of the shapes
+    only."""
+    best = None
+    for cw in range(1, min(w, TOK_M) + 1):
+        r = min(h, TOK_M // cw)
+        while r >= 1 and max(tok_smem(r, cw, C, 2 * C, True),
+                             tok_smem(r, cw, 2 * C, C, False)) > TOK_SMEM_MAX:
+            r -= 1
+        if r < 1:
+            continue
+        key = (-(-h // r) * -(-w // cw), (r + 2) * (cw + 2), -cw)
+        if best is None or key < best[0]:
+            best = (key, (r, cw))
+    if best is None:
+        raise ValueError(f"no tokenization tile fits an {h}x{w} view at C={C}")
+    return best[1]
+
+
+def split_tf32(a: torch.Tensor):
+    """(hi, lo), a = hi + lo up to 2^-21 |a|: hi rounded to TF32 as
+    `cvt.rna.tf32.f32` rounds (to nearest, ties away from zero), lo = a - hi
+    truncated to TF32 (what an MMA reads of it)."""
+    bits = a.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, ((a - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tap_weights(wu: torch.Tensor, backward: bool = False) -> torch.Tensor:
+    """Plain version of the kernels' weight preparation (tokenize.cuh:
+    tap_weights_kernel, the first kernel of each launch), which the CPU
+    tests emulate the kernels from. The B operand from wu [9, C, D]: B[tap] =
+    wu[tap] [C, D] (forward), or wu[8 - tap]ᵀ [D, C] (backward: the taps
+    mirrored), split into TF32 hi/lo and laid out as `wgmma` reads a K-major
+    operand without swizzle, [9, K / 8, 2, 2, N / 8, 8, 4]: (tap, k8 step kk,
+    hi or lo, k half kh, n8 tile j, row n, t) holds B[tap][8 kk + 4 kh + t]
+    [8 j + n], so a k8 step's hi (or lo) is core matrices of 8 columns x 4 k
+    (128 bytes each), N / 8 of them along N, then the second k half."""
+    B = wu.flip(0).transpose(1, 2) if backward else wu
+    K, N = B.shape[1:]
+    hi, lo = split_tf32(B)
+    f = torch.stack([hi, lo], dim=1).reshape(9, 2, K // 8, 2, 4, N // 8, 8)
+    return f.permute(0, 2, 1, 3, 5, 6, 4).contiguous()
+
+
 # ------------------------------------------------------ kernel wrappers ---
 
 def _check_c(kernel: str, C: int) -> None:
@@ -212,7 +286,8 @@ def _to_pixel_major(x, A2: int):
 def tokenize_ln(x, pe_tok, wts, pixel_major: bool = False):
     """Step 1: x [V, h, w, C], pe_tok [h, w, D] -> (tok, xn) [V, h, w, D].
     pixel_major: x is [Bb, h, w, A2, C], V = Bb * A2, counted as
-    `spa_tokenize_ln_pm`; tok and xn are view-major either way."""
+    `spa_tokenize_ln_pm`; tok and xn are view-major either way. On the card
+    3xTF32 on the tensor cores (module docstring)."""
     if x.device.type != "cuda":
         return tokenize_ln_plain(_to_view_major(x) if pixel_major else x, pe_tok, wts)
     name = "spa_tokenize_ln_pm" if pixel_major else "spa_tokenize_ln"
@@ -224,15 +299,16 @@ def tokenize_ln(x, pe_tok, wts, pixel_major: bool = False):
         A2, dims = 1, (Bb, h, w, C)
     D = wts["wu"].shape[-1]
     _check_c(name, C)
-    if tuple(pe_tok.shape) != (h, w, D) or D != 2 * C:
+    if tuple(wts["wu"].shape) != (9, C, D) or tuple(pe_tok.shape) != (h, w, D) or D != 2 * C:
         raise ValueError(f"{name}: pe_tok {tuple(pe_tok.shape)} for x {tuple(x.shape)}")
     _build.check_cuda_args(name, x, pe_tok, wts["wu"], wts["ln"])
     tok = torch.empty(Bb * A2, h, w, D, device=x.device)
     xn = torch.empty_like(tok)
-    fn = _build.bind("spa_block", "lft_" + name, 6, (ctypes.c_int,) * len(dims))
+    wf = torch.empty(18 * C * D, device=x.device)      # scratch: `tap_weights`' layout
+    fn = _build.bind("spa_block", "lft_" + name, 7, (ctypes.c_int,) * (len(dims) + 2))
     _build.launch("spa_block", name, fn, x.device, x.data_ptr(),
-                  pe_tok.data_ptr(), wts["wu"].data_ptr(), wts["ln"].data_ptr(),
-                  tok.data_ptr(), xn.data_ptr(), *dims)
+                  pe_tok.data_ptr(), wts["wu"].data_ptr(), wf.data_ptr(), wts["ln"].data_ptr(),
+                  tok.data_ptr(), xn.data_ptr(), *dims, *tok_tile(h, w, C))
     return tok, xn
 
 
@@ -334,8 +410,7 @@ def _bwd_weights(wts: dict) -> dict:
     D = wts["wo"].shape[0]
     t = lambda m: m.t().contiguous()
     return dict(wlinT=t(wts["wlin"]), w2T=t(wts["w2"]), w1T=t(wts["w1"]), woT=t(wts["wo"]),
-                wqT=t(wts["wqk"][:, :D]), wkT=t(wts["wqk"][:, D:]), wvT=t(wts["wv"]),
-                wuT=wts["wu"].transpose(1, 2).contiguous())           # [9, D, C]
+                wqT=t(wts["wqk"][:, :D]), wkT=t(wts["wqk"][:, D:]), wvT=t(wts["wv"]))
 
 
 def _launch(kernel: str, fn_name: str, ins, outs, ints, dev, floats=()):
@@ -410,14 +485,19 @@ def qkv_ln_bwd(tok, pe_tok, dq, dk, dv, dx2, wts):
 
 def tokenize_bwd(dtok, wts):
     """Step e: dx [V, h, w, C] = the 3x3 tokenization transposed, as a
-    gather over the 9 taps."""
+    gather over the 9 taps (on the card 3xTF32 on the tensor cores)."""
     if dtok.device.type != "cuda":
         return tokenize_bwd_plain(dtok, wts)
     V, h, w, D = dtok.shape
-    _check_c("spa_tokenize_bwd", D // 2)
-    dx = torch.empty(V, h, w, D // 2, device=dtok.device)
-    _launch("spa_tokenize_bwd", "lft_spa_tokenize_bwd", (dtok, _bwd_weights(wts)["wuT"]),
-            (dx,), (V * h * w, h, w, D // 2), dtok.device)
+    C = D // 2
+    _check_c("spa_tokenize_bwd", C)
+    if tuple(wts["wu"].shape) != (9, C, D):
+        raise ValueError(f"spa_tokenize_bwd: wu {tuple(wts['wu'].shape)} for dtok "
+                         f"{tuple(dtok.shape)}")
+    dx = torch.empty(V, h, w, C, device=dtok.device)
+    wf = torch.empty(18 * C * D, device=dtok.device)   # scratch: `tap_weights`' layout
+    _launch("spa_tokenize_bwd", "lft_spa_tokenize_bwd", (dtok, wts["wu"]), (wf, dx),
+            (V * h * w, h, w, C, *tok_tile(h, w, C)), dtok.device)
     return dx
 
 

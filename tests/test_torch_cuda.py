@@ -22,6 +22,7 @@ from lft_torch.kernels import (FORWARD, LAUNCHES, PEROP, SWEEPS, TAIL, ang_attn_
                                reset_launches, spa_attn, spa_attn_hp, spa_block, wgrad)
 from lft_torch.models import lft
 from lft_torch.ops.posenc import angular_position
+from lft_torch.ops.unfold import unfold3x3_linear
 
 TOL = dict(atol=1e-4, rtol=1e-4)   # the same f32 sums in another order
 
@@ -683,6 +684,71 @@ def test_spa_block_pixel_major_kernels(cuda_device, C, Bb, h, w, A2):
         spa_block.spa_trans_block_fused(x.clone().requires_grad_(), pe_tok, p, prefix, 8, 5,
                                         pixel_major=True)
     assert set(TAIL) <= set(LAUNCHES)
+
+
+# ------------------------------------- the tokenization on the tensor cores ---
+
+def _f64_err(got, ref, exact):
+    """(max |kernel - float64|, max |f32 plain - float64|, max |float64|)."""
+    e = lambda t: float((t.double() - exact).abs().max())
+    return e(got), e(ref), float(exact.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,h,w", [(64, 32, 32), (64, 17, 40), (32, 30, 30), (16, 64, 64)])
+def test_tokenize_kernels_3xtf32(cuda_device, C, h, w):
+    """K2.1 and K3.e run 3xTF32 on the tensor cores: tok and dx against
+    float64 no worse than twice the f32 plain version's error (TF32 off),
+    tok, xn and dx against the plain versions, one launch each, bitwise
+    repeatable."""
+    p = _params(C, cuda_device, seed=h + w)
+    wts = spa_block._with_mlp(spa_block.spa_weights(p, "altblock.2.spa_trans."))
+    g = torch.Generator(device=cuda_device).manual_seed(C * h + w)
+    x = torch.randn(3, h, w, C, device=cuda_device, generator=g)
+    pe_tok = torch.randn(h, w, 2 * C, device=cuda_device, generator=g)
+    dtok = torch.randn(3, h, w, 2 * C, device=cuda_device, generator=g)
+    reset_launches()
+    tok, xn = spa_block.tokenize_ln(x, pe_tok, wts)
+    dx = spa_block.tokenize_bwd(dtok, wts)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spa_tokenize_ln"] == 1 and LAUNCHES["spa_tokenize_bwd"] == 1
+    tok_p, xn_p = spa_block.tokenize_ln_plain(x, pe_tok, wts)
+    _close((tok, xn), (tok_p, xn_p), 1e-4)
+    err, err_f32, top = _f64_err(tok, tok_p, unfold3x3_linear(x.double(), wts["mlp"].double()))
+    assert err <= 2 * err_f32 + 1e-7 * top, (err, err_f32)
+    dx_p = spa_block.tokenize_bwd_plain(dtok, wts)
+    _close(dx, dx_p, 1e-4)
+    err, err_f32, top = _f64_err(dx, dx_p, spa_block.tokenize_bwd_plain(
+        dtok.double(), dict(mlp=wts["mlp"].double())))
+    assert err <= 2 * err_f32 + 1e-7 * top, (err, err_f32)
+    again = spa_block.tokenize_ln(x, pe_tok, wts)
+    assert torch.equal(tok, again[0]) and torch.equal(xn, again[1])
+    assert torch.equal(dx, spa_block.tokenize_bwd(dtok, wts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,Bb,h,w,A2", [(64, 2, 32, 32, 25), (32, 1, 9, 7, 25), (16, 3, 30, 30, 4)])
+def test_tokenize_pm_kernel_3xtf32(cuda_device, C, Bb, h, w, A2):
+    """K11.1 on a pixel-major buffer: tok against float64 as K2.1, equal bit
+    for bit to K2.1 on a view-major copy, bitwise repeatable."""
+    p = _params(C, cuda_device, seed=A2)
+    wts = spa_block._with_mlp(spa_block.spa_weights(p, "altblock.3.spa_trans."))
+    g = torch.Generator(device=cuda_device).manual_seed(C + Bb + A2)
+    x = torch.randn(Bb, h, w, A2, C, device=cuda_device, generator=g)
+    pe_tok = torch.randn(h, w, 2 * C, device=cuda_device, generator=g)
+    xv = x.permute(0, 3, 1, 2, 4).reshape(Bb * A2, h, w, C).contiguous()
+    reset_launches()
+    tok, xn = spa_block.tokenize_ln(x, pe_tok, wts, pixel_major=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spa_tokenize_ln_pm"] == 1 and LAUNCHES["spa_tokenize_ln"] == 0
+    tok_p, xn_p = spa_block.tokenize_ln_plain(xv, pe_tok, wts)
+    _close((tok, xn), (tok_p, xn_p), 1e-4)
+    err, err_f32, top = _f64_err(tok, tok_p, unfold3x3_linear(xv.double(), wts["mlp"].double()))
+    assert err <= 2 * err_f32 + 1e-7 * top, (err, err_f32)
+    vm = spa_block.tokenize_ln(xv, pe_tok, wts)
+    assert torch.equal(tok, vm[0]) and torch.equal(xn, vm[1])
+    again = spa_block.tokenize_ln(x, pe_tok, wts, pixel_major=True)
+    assert torch.equal(tok, again[0]) and torch.equal(xn, again[1])
 
 
 # ------------------------------------------ widths the kernels do not take ---
