@@ -17,12 +17,14 @@
    in a different order, nothing more;
 6. holds every kernel against its plain version at the shapes the main
    path gives it (K1 [16384, 25, 64], K2 [400, 32, 32, 64]) and times both
-   with CUDA events (median after warm-up), beside the card's bound; K2's
-   tokenization (`spa_tokenize_ln`, 3xTF32 on the tensor cores: bound on
-   the tensor cores, the FP32 pipes' printed beside) must keep tok within
-   twice the f32 plain version's error against float64 and repeat bitwise,
-   and cuDNN's `F.conv2d` of the same memory (its conv part only) is timed
-   beside it;
+   with CUDA events (median after warm-up), beside the card's bound; the
+   kernels that run their products 3xTF32 on the tensor cores (K1
+   `ang_block`, K2's tokenization `spa_tokenize_ln` and `spa_ffn_out`: bound
+   on the tensor cores, K1's attention on the FP32 pipes, the FP32 pipes'
+   whole bound printed beside) must keep their output within twice the f32
+   plain version's error against float64 and repeat bitwise, and cuDNN's
+   `F.conv2d` of the same memory (the tokenization's conv part only) is
+   timed beside it;
 7. trains: the 4x recipe (Adam 2e-4, batch 4 of 32x32-view patches made on
    the card by `synth_batch` from `--seed`, a 160x160 LR mosaic) from the
    same checkpoint, through `make_train_step`: one step through the kernels
@@ -35,8 +37,9 @@
    shapes (K1/K4 [4096, 25, 64], K2/K3 [100, 32, 32, 64]), max |diff| <=
    5e-4 max |plain| per output, and times them (the window step with stats
    beside one masked `scaled_dot_product_attention`, K3.e `spa_tokenize_bwd`
-   beside cuDNN's `conv_transpose2d` and held, as 3xTF32, to twice the f32
-   plain version's float64 error and a bitwise repeat); then `wgrad` at every
+   beside cuDNN's `conv_transpose2d`; it and `ang_block_res` held, as
+   3xTF32, to twice the f32 plain version's float64 error and a bitwise
+   repeat); then `wgrad` at every
    product of the fused step (8 shapes, 56 launches a step) and `colsum` at
    its three shapes, timed in device time (a profiler trace of 20 calls,
    the host's launch path left out) beside `x.t() @ dy` / `a.sum(0)`, with
@@ -104,7 +107,8 @@
     [1024, 81, 64] and, with a ragged last block, at A2 = 121 and 128, and
     K11's two `_pm` kernels against their plain versions, timed beside their
     bounds (K10 also beside one `scaled_dot_product_attention` call;
-    `spa_tokenize_ln_pm` held to float64 and a bitwise repeat as K2.1);
+    `spa_tokenize_ln_pm` and `spa_ffn_out_pm` held to float64 and a bitwise
+    repeat as K2.1 and K2.5);
 20. prints the `kernels` JSON line (every kernel, old and new), the card's
     name and power limit, and last `{"ok": true, "device": {...}}`.
 
@@ -238,7 +242,8 @@ class Recorder:
         return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
     def record(self, name, src, replaces, got, ref, fn_k, fn_p, flops, io, lib_fn=None,
-               rel=None, shape=None, slow_reps=10, device_time=False, tf32_products=0):
+               rel=None, shape=None, slow_reps=10, device_time=False, tf32_products=0,
+               fp32_flops=0):
         """With `shape` the check is one more shape of a kernel that has its
         row already: compared, timed and printed, not added to the rows.
         `slow_reps`: launches timed of the plain and library versions.
@@ -246,7 +251,9 @@ class Recorder:
         around one call. `tf32_products`: the kernel runs its `flops` as
         that many TF32 tensor-core products each (3xTF32): the bound is then
         the tensor cores' (the least time for the same f32 result), and the
-        FP32 pipes' is printed beside it."""
+        FP32 pipes' is printed beside it. `fp32_flops`: more operations the
+        kernel runs on the FP32 pipes beside those products (K1's attention),
+        whose time at their peak adds to the tensor cores'."""
         err, ok = max_err(got, ref, rel)
         warm = 2 if slow_reps >= 10 else 1
         if device_time:
@@ -256,11 +263,13 @@ class Recorder:
         else:
             ms_k, ms_p = timed(fn_k), timed(fn_p, slow_reps, warm)
             ms_l = timed(lib_fn, slow_reps, warm) if lib_fn is not None else None
-        b_ms, b_by = self.bound(flops, io)
+        b_ms, b_by = self.bound(flops + fp32_flops, io)
         fp32_note = ""
         if tf32_products:
             fp32_note = f", FP32-pipe bound {b_ms:.4f} ms ({b_by})"
-            b_ms, b_by = self.bound(tf32_products * flops, io, self.tf32_peak)
+            b_ms, b_by = self.bound(tf32_products * flops
+                                    + fp32_flops * self.tf32_peak / self.flops_peak, io,
+                                    self.tf32_peak)
         n = self.launches[name]
         if shape is None:
             self.rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -324,11 +333,16 @@ def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -
     pe = torch.from_numpy(angular_position(A2, C)).to(dev)
     got = ab.ang_block(x, pe, wa, H)
     ref = ab.ang_block_plain(x, pe, wa, H)
-    fl = 2 * N * A2 * 8 * C * C + 4 * N * A2 * A2 * C
     io = nbytes(x, pe, got, *wa.values())
     record("ang_block", "lft_torch/csrc/ang_block.cu", "lft_tpu/kernels/ang_block.py:188",
            got, ref, lambda: ab.ang_block(x, pe, wa, H),
-           lambda: ab.ang_block_plain(x, pe, wa, H), fl, io)
+           lambda: ab.ang_block_plain(x, pe, wa, H), 2 * N * A2 * 8 * C * C, io,
+           tf32_products=3, fp32_flops=4 * N * A2 * A2 * C)
+    f64_check("ang_block out", got, ref,
+              ab.ang_block_plain(x.double(), pe.double(), {k: v.double() for k, v in wa.items()},
+                                 H),
+              torch.equal(got, ab.ang_block(x, pe, wa, H)))
+    del got, ref
 
     # K2's five steps at [400, 32, 32, 64], each fed its plain predecessor's output
     ws = sb.spa_weights(params, "altblock.0.spa_trans.")
@@ -378,9 +392,15 @@ def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -
            2 * T * D * D, nbytes(attn, tok, x2, xn2) + wbytes("wo", "ln"))
 
     out = sb.ffn_out_plain(xn2, x2, ws)
-    record("spa_ffn_out", src, rep, sb.ffn_out(xn2, x2, ws), out,
+    got = sb.ffn_out(xn2, x2, ws)
+    record("spa_ffn_out", src, rep, got, out,
            lambda: sb.ffn_out(xn2, x2, ws), lambda: sb.ffn_out_plain(xn2, x2, ws),
-           2 * T * (4 * D * D + D * C), nbytes(xn2, x2, out) + wbytes("w1", "w2", "wlin"))
+           2 * T * (4 * D * D + D * C), nbytes(xn2, x2, out) + wbytes("w1", "w2", "wlin"),
+           tf32_products=3)
+    f64_check("spa_ffn_out out", got, out,
+              sb.ffn_out_plain(xn2.double(), x2.double(), {k: v.double() for k, v in ws.items()}),
+              torch.equal(got, sb.ffn_out(xn2, x2, ws)))
+    del got
 
     # the whole K2 block, kernels chained against plain chained
     got = sb.spa_block(xs, pe_tok, ws, H, K)
@@ -635,11 +655,18 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
     x = rand(N, A2, C)
     pe = torch.from_numpy(angular_position(A2, C)).to(dev)
     ref = ab.ang_block_plain(x, pe, wa, H, with_res=True)
-    rec.record("ang_block_res", src_a, "lft_tpu/kernels/ang_block.py:233",
-               ab.ang_block(x, pe, wa, H, with_res=True), ref,
+    got = ab.ang_block(x, pe, wa, H, with_res=True)
+    rec.record("ang_block_res", src_a, "lft_tpu/kernels/ang_block.py:233", got, ref,
                lambda: ab.ang_block(x, pe, wa, H, with_res=True),
                lambda: ab.ang_block_plain(x, pe, wa, H, with_res=True),
-               2 * N * A2 * 8 * C * C + 4 * N * A2 * A2 * C, nbytes(x, pe, *ref) + wa_b, rel=rel)
+               2 * N * A2 * 8 * C * C, nbytes(x, pe, *ref) + wa_b, rel=rel, tf32_products=3,
+               fp32_flops=4 * N * A2 * A2 * C)
+    again = ab.ang_block(x, pe, wa, H, with_res=True)
+    f64_check("ang_block_res out", got[0], ref[0],
+              ab.ang_block_plain(x.double(), pe.double(), {k: v.double() for k, v in wa.items()},
+                                 H),
+              all(torch.equal(a, b) for a, b in zip(got, again)))
+    del got, again
     _, m, l, attn = ref
     dout = rand(N, A2, C)
     hid = lambda fn: fn(x, pe, wa, m, l, attn, dout, H)[8]
@@ -1368,10 +1395,17 @@ def pixel_major_phase(params, cache, scene, card: str) -> list:
         x2, xn2 = sb.outproj_ln_plain(sb.window_attn(q, kk, v, H, K), tok, ws)
         del q, kk, v, tok, xn
         out = to_pm(sb.ffn_out_plain(xn2, x2, ws))
-        rec.record("spa_ffn_out_pm", src, rep, sb.ffn_out(xn2, x2, ws, A2), out,
+        got = sb.ffn_out(xn2, x2, ws, A2)
+        rec.record("spa_ffn_out_pm", src, rep, got, out,
                    lambda: sb.ffn_out(xn2, x2, ws, A2),
                    lambda: to_pm(sb.ffn_out_plain(xn2, x2, ws)),
-                   2 * T * (4 * D * D + D * C), nbytes(xn2, x2, out) + wbytes("w1", "w2", "wlin"))
+                   2 * T * (4 * D * D + D * C), nbytes(xn2, x2, out) + wbytes("w1", "w2", "wlin"),
+                   tf32_products=3)
+        f64_check("spa_ffn_out_pm out", got, out,
+                  to_pm(sb.ffn_out_plain(xn2.double(), x2.double(),
+                                         {k: v.double() for k, v in ws.items()})),
+                  torch.equal(got, sb.ffn_out(xn2, x2, ws, A2)))
+        del got
     return rec.rows
 
 

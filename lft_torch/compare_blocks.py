@@ -1,0 +1,195 @@
+"""Time this checkout's row-tile block kernels against another revision's,
+in turns in one process, on one CUDA card.
+
+    python3 -m lft_torch.compare_blocks OTHER_SPA_BLOCK_CU OTHER_ANG_BLOCK_CU
+
+The two sources are `spa_block.cu` and `ang_block.cu` of a revision whose
+K2.5 and K1 have the C interface the port had before its 3xTF32 row-tile
+products (no weight scratch): `lft_spa_ffn_out(xn2, x2, w1, w2, wlin, out,
+T, C, stream)`, `lft_spa_ffn_out_pm(xn2, x2, w1, w2, wlin, out, Bb, hw, A2,
+C, stream)`, `lft_ang_block_fwd(x, pe, ln, wq, wk, wv, wo, w1, w2, out, N,
+A2, C, H, scale, stream)` and `lft_ang_block_fwd_res(..., out, m, l, attn,
+N, A2, C, H, scale, stream)`; e.g. `git archive <commit> lft_torch/csrc`
+unpacked into a git-ignored directory, so that their headers come with
+them. Each is built with the port's nvcc flags into a temporary directory.
+
+With the demo checkpoint's block-0 weights, at the shapes of the main
+paths: K2.5 `spa_ffn_out` at [400, 32, 32, 64] (a scene's chunk) and [100,
+32, 32, 64] (a fused train step), K11.5 `spa_ffn_out_pm` at [16, 32, 32,
+25, 64], K1 `ang_block` at [16384, 25, 64], K1 `ang_block_res` at [4096,
+25, 64] and at [1024, 81, 64] (angRes 9). Both builds are checked against
+the plain version (the forwards within 1e-4 max(1, max |plain|), the
+residual form within 5e-4 max |plain| per output) and for a bitwise
+repeat; their max error against float64 (the block output) is printed
+beside the f32 plain version's (TF32 off); both are timed in device time
+(`profile_scene.device_ms`) in the order other, this, this, other. For K2.5
+and K11.5 the three cuBLAS f32 products of the same function on the same
+memory are timed beside them: context, not a yardstick, since no one
+PyTorch call computes the step. Prints the card's name and power limit
+first. Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNEL_ATOL = 1e-4     # forwards: max |diff| <= 1e-4 max(1, max |plain|)
+TRAIN_REL = 5e-4       # the residual form: max |diff| <= 5e-4 max |plain|, per output
+
+
+def _load_other(spa_src: str, ang_src: str, build_dir: str):
+    """(ffn_out, ang_block) of the other revision, with this checkout's
+    wrappers' arguments."""
+    import ctypes
+
+    from lft_torch.kernels import _build
+    spa = _build.build_library(spa_src, build_dir, "other_spa_block")
+    ang = _build.build_library(ang_src, build_dir, "other_ang_block")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    spa.lft_spa_ffn_out.argtypes = [P] * 6 + [I] * 2 + [P]
+    spa.lft_spa_ffn_out_pm.argtypes = [P] * 6 + [I] * 4 + [P]
+    ang.lft_ang_block_fwd.argtypes = [P] * 10 + [I] * 4 + [F, P]
+    ang.lft_ang_block_fwd_res.argtypes = [P] * 13 + [I] * 4 + [F, P]
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def ffn_out(xn2, x2, wts, views=None):
+        *lead, D = x2.shape
+        C = D // 2
+        w = [wts[n].data_ptr() for n in ("w1", "w2", "wlin")]
+        if views is None:
+            out = torch.empty(*lead, C, device=x2.device)
+            rc = spa.lft_spa_ffn_out(xn2.data_ptr(), x2.data_ptr(), *w, out.data_ptr(),
+                                     x2.numel() // D, C, stream())
+        else:
+            V, h, w_ = lead
+            out = torch.empty(V // views, h, w_, views, C, device=x2.device)
+            rc = spa.lft_spa_ffn_out_pm(xn2.data_ptr(), x2.data_ptr(), *w, out.data_ptr(),
+                                        V // views, h * w_, views, C, stream())
+        if rc:
+            raise RuntimeError("the other spa_ffn_out failed to launch")
+        return out
+
+    def ang_block(x, pe, wts, H, with_res=False):
+        N, A2, C = x.shape
+        out = torch.empty_like(x)
+        ptrs = [x.data_ptr(), pe.data_ptr(),
+                *(wts[n].data_ptr() for n in ("ln", "wq", "wk", "wv", "wo", "w1", "w2")),
+                out.data_ptr()]
+        tail = (N, A2, C, H, float(C // H) ** -0.5, stream())
+        if not with_res:
+            if ang.lft_ang_block_fwd(*ptrs, *tail):
+                raise RuntimeError("the other ang_block failed to launch")
+            return out
+        m = torch.empty(N, A2, H, device=x.device)
+        l = torch.empty_like(m)
+        attn = torch.empty_like(x)
+        if ang.lft_ang_block_fwd_res(*ptrs, m.data_ptr(), l.data_ptr(), attn.data_ptr(),
+                                     *tail):
+            raise RuntimeError("the other ang_block_res failed to launch")
+        return out, m, l, attn
+
+    return ffn_out, ang_block
+
+
+def _err(got, ref) -> float:
+    return float((got.double() - ref.double()).abs().max())
+
+
+def _tuple(t):
+    return t if isinstance(t, tuple) else (t,)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other_spa", help="path of the other revision's spa_block.cu")
+    ap.add_argument("other_ang", help="path of the other revision's ang_block.cu")
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare_blocks: no CUDA device is available", file=sys.stderr)
+        return 1
+    from lft_torch.device import resolve_device
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.ops.posenc import angular_position
+    from lft_torch.profile_scene import device_ms
+    from lft_torch.utils.checkpoint import load_checkpoint
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    dev = resolve_device()
+    params, _, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
+                                                "LFT_5x5_4x_synth3000.pth"), device=dev)
+    ws = sb.spa_weights(params, "altblock.0.spa_trans.")
+    wa = ab.ang_weights(params, "altblock.0.ang_trans.")
+    ws64 = {k: v.double() for k, v in ws.items()}
+    wa64 = {k: v.double() for k, v in wa.items()}
+    C, h, w, H = 64, 32, 32, 8
+    D = 2 * C
+    g = torch.Generator(device=dev).manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        o_ffn, o_ang = _load_other(a.other_spa, a.other_ang, tmp)
+        cases = []
+        for V, A2 in ((400, None), (100, None), (400, 25)):
+            xn2 = torch.randn(V, h, w, D, device=dev, generator=g)
+            x2 = torch.randn(V, h, w, D, device=dev, generator=g)
+            ref = sb.ffn_out_plain(xn2, x2, ws)
+            exact = sb.ffn_out_plain(xn2.double(), x2.double(), ws64)
+            if A2 is not None:
+                ref, exact = sb._to_pixel_major(ref, A2), sb._to_pixel_major(exact, A2)
+            hid = torch.relu(xn2 @ ws["w1"])
+            y = hid @ ws["w2"] + x2
+            name = ("K2.5 spa_ffn_out", [V, h, w, C]) if A2 is None else \
+                ("K11.5 spa_ffn_out_pm", [V // A2, h, w, A2, C])
+            cases.append((f"{name[0]} {name[1]}", (ref,), exact,
+                          lambda xn2=xn2, x2=x2, A2=A2: o_ffn(xn2, x2, ws, A2),
+                          lambda xn2=xn2, x2=x2, A2=A2: sb.ffn_out(xn2, x2, ws, A2),
+                          lambda xn2=xn2, hid=hid, y=y: (xn2 @ ws["w1"], hid @ ws["w2"],
+                                                         y @ ws["wlin"]),
+                          KERNEL_ATOL * max(1.0, float(ref.abs().max())), None))
+            del hid, y
+        for N, A2, res in ((16384, 25, False), (4096, 25, True), (1024, 81, True)):
+            x = torch.randn(N, A2, C, device=dev, generator=g)
+            pe = torch.from_numpy(angular_position(A2, C)).to(dev)
+            ref = _tuple(ab.ang_block_plain(x, pe, wa, H, with_res=res))
+            exact = ab.ang_block_plain(x.double(), pe.double(), wa64, H)
+            cases.append((f"K1 ang_block{'_res' if res else ''} {[N, A2, C]}", ref, exact,
+                          lambda x=x, pe=pe, res=res: o_ang(x, pe, wa, H, res),
+                          lambda x=x, pe=pe, res=res: ab.ang_block(x, pe, wa, H, with_res=res),
+                          None, KERNEL_ATOL * max(1.0, float(ref[0].abs().max())),
+                          TRAIN_REL if res else None))
+        for what, ref, exact, other, this, lib, limit, rel in cases:
+            e_f32 = _err(ref[0], exact)
+            errs = []
+            for fn in (other, this):
+                got = _tuple(fn())
+                for i, (u, v) in enumerate(zip(got, ref)):
+                    lim = limit if rel is None else rel * float(v.abs().max())
+                    diff = _err(u, v)
+                    if not diff <= lim:
+                        raise AssertionError(f"{what}: a build disagrees with the plain "
+                                             f"version at output {i} ({diff:.3e} > {lim:.3e})")
+                errs.append(_err(got[0], exact))
+                if not all(torch.equal(u, v) for u, v in zip(got, _tuple(fn()))):
+                    raise AssertionError(f"{what}: a build does not repeat bitwise")
+                del got
+            t = [device_ms(other), device_ms(this), device_ms(this), device_ms(other)]
+            lib_note = ""
+            if lib is not None:
+                lib_note = f", three cuBLAS f32 products {device_ms(lib):.4f} ms"
+            print(f"{what}: other {t[0]:.4f} / {t[3]:.4f} ms, this {t[1]:.4f} / {t[2]:.4f} ms"
+                  f"{lib_note}; max |out - float64|: other {errs[0]:.3e}, this {errs[1]:.3e}, "
+                  f"f32 plain (TF32 off) {e_f32:.3e} (this / plain "
+                  f"{errs[1] / max(e_f32, 1e-30):.3f}x)", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,204 +10,324 @@
 //   x2  = a Wo + x
 //   out = relu(LN2(x2) W1) W2 + x2
 //
-// Design for the H100. One block owns RP = 128 token rows = P = 128 / A2
-// whole pixels (5 at A2 = 25), so attention never leaves the block and the
-// whole chain runs in shared memory: x (kept as the residual, then x2), xn
-// (then the attention output, then LN2), q, k, v, and the hidden FFN tile
-// over q/k. Only x is read and only out is written. The block-diagonal
-// key replication, head masks and pixel groups of the TPU kernel are gone:
-// a thread runs one (pixel, head, query) softmax over the A2 keys with an
-// online max, reading k/v from shared memory.
+// Bound on this card: at the production shape [16384, 25, 64] the six
+// products are 26.8 GFLOP (16 C^2 FLOP a token), the attention 2.6 GFLOP and
+// the block moves ~210 MB. On the FP32 pipes (67 TFLOP/s) that is 0.44 ms,
+// bound by operations; as 3xTF32 on the tensor cores (3 TF32 products at
+// 495 TFLOP/s) the products take 0.163 ms and the attention, which stays
+// on the FP32 pipes, 0.04 ms; the bytes 0.063 ms. So the products run on the
+// tensor cores (rowgemm.cuh):
 //
-// Bound on this card: f32 with TF32 off runs on the FP32 pipes. At the
-// production shape [16384, 25, 64] the block does ~29.5 GFLOP and moves
-// ~210 MB, i.e. it is compute-bound (~0.44 ms at 67 TFLOP/s on an H100
-// SXM). The products use 4 x 4 register tiles, so each k step issues
-// 16 FMAs per five loads; the weights (128 KB) stay in L1/L2. Shared
-// memory (174 KB at C = 64) allows one block of 8 warps per SM. The tensor
-// cores do not compute in exact f32, so they are not used. With residuals
-// (training) each thread also writes its query's m, l and attention output.
+// * A block of two warpgroups takes RP = 128 token rows = P = 128 / A2
+//   whole pixels a tile (5 at A2 = 25, 1 at A2 = 81-128), persistent over
+//   tiles, so attention never leaves the block. Each warp owns 16 rows: it
+//   loads them, normalises them (LN1, one row at a time) and runs the
+//   products on them; only the attention reads other warps' rows, between
+//   two barriers. The block-diagonal key replication, head masks and pixel
+//   groups of the TPU kernel are gone: a thread runs one (pixel, head,
+//   query) softmax over the A2 keys, chunks of 8 keys at a time with an
+//   online max, reading k/v from shared memory.
+// * v first (from x), then q over x's rows, then k; after the attention,
+//   x2 = a Wo + x (x read again from device memory, an L2 hit) goes over
+//   q's rows, LN2 runs on the accumulators (a row's C values lie in the
+//   four lanes of a quad; LN1 likewise, on x + pe read in that layout: the
+//   16 rows of a warp at once, where a row at a time left the warp waiting
+//   on its shuffles), and the FFN goes in hidden chunks of 64 columns:
+//   relu(LN2(x2) W1[:, chunk]) into shared memory over the dead k/v tiles,
+//   then out += chunk W2[chunk, :] in registers, + x2 as it is written.
+//   Shared memory at C = 64: four 128 x 68 tiles (x / q / x2, xn /
+//   attention / LN2(x2), k, v / hidden) 136 KB and a ring of 5 16-KB weight
+//   stages (the 6 products' weights, split, are 256 KB): 216 KB, one block
+//   an SM.
+// * With residuals (training) each thread also writes its query's m, l and
+//   attention output.
 
 #include "attn.cuh"
 #include "bwd.cuh"
+#include "rowgemm.cuh"
 
 using namespace lft;
 
 namespace {
 
 constexpr int RP = 128;  // token rows per block
+static_assert(RP == RG_M, "a tile is one row-tile product's 128 rows");
 
 template <int C>
 struct AngLayout {
-  static constexpr int LD = C + 4;        // row stride of the C-wide tiles
-  static constexpr int LDH = 2 * C + 4;   // row stride of the hidden tile
+  static constexpr int LD = C + 4;                      // row stride of the C-wide tiles
+  static constexpr int HC = 2 * C < 64 ? 2 * C : 64;    // hidden columns a chunk
+  static constexpr int NH = 2 * C / HC;                 // chunks
+  static constexpr int LDH = HC + 4;                    // row stride of a hidden chunk
   static constexpr int TILE = RP * LD;
-  static constexpr size_t BYTES = 5 * TILE * sizeof(float);
-  static_assert(RP * LDH <= 2 * TILE, "hidden tile must fit over q and k");
+  // the weight stream: Wv, Wq, Wk, Wo, then per chunk W1[:, chunk], W2[chunk, :]
+  static constexpr int SQ = 2 * C * C;                  // floats of a C x C piece
+  static constexpr int OFF_V = 0, OFF_Q = SQ, OFF_K = 2 * SQ, OFF_O = 3 * SQ, OFF_F = 4 * SQ;
+  static constexpr int W1 = 2 * C * HC, W2 = 2 * HC * C;
+  static constexpr int FLOATS = OFF_F + NH * (W1 + W2);
+  static constexpr int TILES = 4 * TILE * 4;            // bytes of rows
+  static constexpr int NS = rg_slots(TILES);
+  static constexpr size_t BYTES = TILES + static_cast<size_t>(NS) * RG_SF * 4;
+  static_assert(RP * LDH <= 2 * TILE, "a hidden chunk must fit over k and v");
 };
 
+// LayerNorm (torch's: biased variance, eps 1e-5, affine w, b) of the warp's
+// 16 rows held in the accumulator layout of a C-wide product (rowgemm.cuh):
+// row g + 8 h's C values lie in the four lanes of a quad, so a row's sums
+// take two shuffles and all 16 rows are normalised at once. Writes dst's
+// rows (the warp's first row at dst, stride ld).
+template <int C>
+__device__ __forceinline__ void quad_ln(RgAcc<C>& v, const float* __restrict__ w,
+                                        const float* __restrict__ b, float* dst, int ld) {
+  using PC = RgParts<C>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float s = 0.f;
+#pragma unroll
+    for (int p = 0; p < PC::NP; ++p)
+#pragma unroll
+      for (int j = 0; j < PC::NW / 8; ++j) s += v[p][4 * j + 2 * h] + v[p][4 * j + 2 * h + 1];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    const float mu = s / C;
+    float qq = 0.f;
+#pragma unroll
+    for (int p = 0; p < PC::NP; ++p)
+#pragma unroll
+      for (int j = 0; j < PC::NW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float d = v[p][4 * j + 2 * h + e] - mu;
+          qq = fmaf(d, d, qq);
+        }
+    qq += __shfl_xor_sync(0xffffffffu, qq, 1);
+    qq += __shfl_xor_sync(0xffffffffu, qq, 2);
+    const float rstd = rsqrtf(qq / C + 1e-5f);
+    float* row = dst + (g + 8 * h) * ld;
+#pragma unroll
+    for (int p = 0; p < PC::NP; ++p)
+#pragma unroll
+      for (int j = 0; j < PC::NW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = p * PC::NW + 8 * j + 2 * q + e;
+          row[c] = (v[p][4 * j + 2 * h + e] - mu) * rstd * __ldg(w + c) + __ldg(b + c);
+        }
+  }
+}
+
+// wf: the weight stream (AngLayout::FLOATS floats, kernels/rowgemm.py:
+// ang_block_stream), written by rg_weights_kernel.
 template <int C, int H, bool RES>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(RG_NT, 1)
     ang_block_kernel(const float* __restrict__ x, const float* __restrict__ pe,
-                     const float* __restrict__ ln, const float* __restrict__ wq,
-                     const float* __restrict__ wk, const float* __restrict__ wv,
-                     const float* __restrict__ wo, const float* __restrict__ w1,
-                     const float* __restrict__ w2, float* __restrict__ out,
-                     float* __restrict__ m_out, float* __restrict__ l_out,
-                     float* __restrict__ attn_out, int N, int A2, float scale) {
+                     const float* __restrict__ ln, const float* __restrict__ wf,
+                     float* __restrict__ out, float* __restrict__ m_out,
+                     float* __restrict__ l_out, float* __restrict__ attn_out, int N, int A2,
+                     float scale) {
   using L = AngLayout<C>;
-  using LN = RowLN<C>;
-  constexpr int LD = L::LD, LDH = L::LDH, DH = C / H;
-  extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);
-  float* XN = X + L::TILE;
-  float* Q = XN + L::TILE;
-  float* K = Q + L::TILE;
+  constexpr int LD = L::LD, LDH = L::LDH, HC = L::HC, DH = C / H;
+  extern __shared__ __align__(16) float smem[];
+  float* XQ = smem;             // x, then q, then x2
+  float* XN = XQ + L::TILE;     // xn, then the attention output, then LN2(x2)
+  float* K = XN + L::TILE;
   float* V = K + L::TILE;
-  float* HID = Q;
+  float* HID = K;               // a hidden chunk [RP][LDH], over k and v
 
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wr = 16 * warp;     // the warp's rows
   const int P = RP / A2;
-  const int pix0 = blockIdx.x * P;
-  const int np = min(P, N - pix0);
-  const int nrows = np * A2;
-  const size_t row0 = static_cast<size_t>(pix0) * A2;
+  const int tiles = (N + P - 1) / P;
+  WeightRing<L::NS> ring;
+  ring.start(V + L::TILE, wf, L::FLOATS,
+             (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x);
+  const float* st = nullptr;
 
-  // x rows of this block's pixels are contiguous; pad rows are zero.
-  for (int i = tid; i < RP * (C / 4); i += NT) {
-    const int r = i / (C / 4), c = 4 * (i % (C / 4));
-    const float4 v = r < nrows ? ldg4(x + (row0 + r) * C + c)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-    store4(X + r * LD + c, v);
-  }
-  __syncthreads();
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int pix0 = tile * P;
+    const int np = min(P, N - pix0);
+    const int nrows = np * A2;
+    const size_t row0 = static_cast<size_t>(pix0) * A2;
 
-  // xn = LN1(x + pe)
-  for (int r = warp; r < RP; r += NT / 32) {
-    float v[LN::E];
+    {  // the warp's rows of x (contiguous; zero past the tile's pixels), all
+       // loads in flight at once; then xn = LN1(x + pe)
+      constexpr int L4 = C / 8;   // float4 a lane
+      float4 v[L4];
 #pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) v[e] = X[r * LD + LN::col(e)] + __ldg(pe + (r % A2) * C + LN::col(e));
-    LN::apply(v, ln, ln + C);
+      for (int k = 0; k < L4; ++k) {
+        const int i = lane + 32 * k, r = wr + i / (C / 4), c = 4 * (i % (C / 4));
+        v[k] = r < nrows ? ldg4(x + (row0 + r) * C + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncwarp();
 #pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) XN[r * LD + LN::col(e)] = v[e];
-  }
-  __syncthreads();
-
-  {  // q, k from xn; v from the raw x
-    Acc<RP, C> acc;
-    zero_acc<RP, C>(acc);
-    gemm_acc<RP, C, C>(acc, XN, LD, wq);
-    for_tiles<RP, C>(acc, [&](int r, int c, float4 v) { store4(Q + r * LD + c, v); });
-    zero_acc<RP, C>(acc);
-    gemm_acc<RP, C, C>(acc, XN, LD, wk);
-    for_tiles<RP, C>(acc, [&](int r, int c, float4 v) { store4(K + r * LD + c, v); });
-    zero_acc<RP, C>(acc);
-    gemm_acc<RP, C, C>(acc, X, LD, wv);
-    for_tiles<RP, C>(acc, [&](int r, int c, float4 v) { store4(V + r * LD + c, v); });
-  }
-  __syncthreads();
-
-  // attention over each pixel's A2 tokens; one thread per (pixel, head,
-  // query), queries fastest so a warp reads the same key rows (broadcast).
-  // The output overwrites xn, which is dead after the projections.
-  for (int t = tid; t < np * H * A2; t += NT) {
-    const int i = t % A2, hh = (t / A2) % H, p = t / (A2 * H);
-    const float* qr = Q + (p * A2 + i) * LD + hh * DH;
-    float q[DH], o[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      q[d] = qr[d] * scale;
-      o[d] = 0.f;
+      for (int k = 0; k < L4; ++k) {
+        const int i = lane + 32 * k;
+        store4(XQ + (wr + i / (C / 4)) * LD + 4 * (i % (C / 4)), v[k]);
+      }
+      __syncwarp();
     }
-    float m = -CUDART_INF_F, l = 0.f;
-    for (int j = 0; j < A2; ++j) {
-      const float* kr = K + (p * A2 + j) * LD + hh * DH;
-      const float* vr = V + (p * A2 + j) * LD + hh * DH;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) s = fmaf(q[d], kr[d], s);
-      const float mn = fmaxf(m, s);
-      const float corr = expf(m - mn), e = expf(s - mn);
-      l = fmaf(l, corr, e);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) o[d] = fmaf(o[d], corr, e * vr[d]);
-      m = mn;
+    {  // xn = LN1(x + pe), the warp's 16 rows at once
+      RgAcc<C> xp;
+      rg_pairs<C>(xp, [&](int r, int c, float& v0, float& v1) {
+        const float2 a = *reinterpret_cast<const float2*>(XQ + (wr + r) * LD + c);
+        const float2 b = __ldg(reinterpret_cast<const float2*>(pe + ((wr + r) % A2) * C + c));
+        v0 = a.x + b.x;
+        v1 = a.y + b.y;
+      });
+      quad_ln<C>(xp, ln, ln + C, XN + wr * LD, LD);
     }
-    const float inv = 1.f / l;
-    float* ar = XN + (p * A2 + i) * LD + hh * DH;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) ar[d] = o[d] * inv;
-    if constexpr (RES) {  // the residuals of the backward (K4)
-      const size_t row = row0 + p * A2 + i;
-      m_out[row * H + hh] = m;
-      l_out[row * H + hh] = l;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) attn_out[row * C + hh * DH + d] = ar[d];
-    }
-  }
-  __syncthreads();
+    __syncwarp();
 
-  {  // x2 = a Wo + x, in place over x
-    Acc<RP, C> acc;
-    zero_acc<RP, C>(acc);
-    gemm_acc<RP, C, C>(acc, XN, LD, wo);
-    for_tiles<RP, C>(acc, [&](int r, int c, float4 v) {
-      store4(X + r * LD + c, add4(load4(X + r * LD + c), v));
+    {  // v from the raw x, then q over x's rows, k from xn
+      RgAcc<C> acc;
+      auto put = [&](float* dst) {
+        rg_pairs<C>(acc, [&](int r, int c, float v0, float v1) {
+          *reinterpret_cast<float2*>(dst + (wr + r) * LD + c) = make_float2(v0, v1);
+        });
+      };
+      rg_zero<C>(acc);
+      rg_product<C, C, L::OFF_V>(acc, XQ + wr * LD, LD, ring, st);
+      put(V);
+      rg_zero<C>(acc);
+      rg_product<C, C, L::OFF_Q>(acc, XN + wr * LD, LD, ring, st);
+      __syncwarp();   // x is read
+      put(XQ);
+      rg_zero<C>(acc);
+      rg_product<C, C, L::OFF_K>(acc, XN + wr * LD, LD, ring, st);
+      put(K);
+    }
+    __syncthreads();
+
+    // attention over each pixel's A2 tokens; one thread per (pixel, head,
+    // query), queries fastest so a warp reads the same key rows (broadcast).
+    // Keys go in chunks of KB: their scores are independent, then one
+    // rescale of the running sums a chunk (an online softmax over chunks).
+    // The output overwrites xn, which is dead after the projections.
+    constexpr int KB = 8;
+    for (int t = tid; t < np * H * A2; t += RG_NT) {
+      const int i = t % A2, hh = (t / A2) % H, p = t / (A2 * H);
+      const float* qr = XQ + (p * A2 + i) * LD + hh * DH;
+      const float* kp = K + p * A2 * LD + hh * DH;
+      const float* vp = V + p * A2 * LD + hh * DH;
+      float qv[DH], o[DH];
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        qv[d] = qr[d] * scale;
+        o[d] = 0.f;
+      }
+      float m = -CUDART_INF_F, l = 0.f;
+      for (int j0 = 0; j0 < A2; j0 += KB) {
+        float sc[KB];
+        float mc = m;
+#pragma unroll
+        for (int jj = 0; jj < KB; ++jj) {
+          float s = -CUDART_INF_F;
+          if (j0 + jj < A2) {
+            const float* kr = kp + (j0 + jj) * LD;
+            s = 0.f;
+#pragma unroll
+            for (int d = 0; d < DH; ++d) s = fmaf(qv[d], kr[d], s);
+          }
+          sc[jj] = s;
+          mc = fmaxf(mc, s);
+        }
+        const float corr = expf(m - mc);
+        l *= corr;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) o[d] *= corr;
+#pragma unroll
+        for (int jj = 0; jj < KB; ++jj) {
+          if (j0 + jj < A2) {
+            const float e = expf(sc[jj] - mc);
+            const float* vr = vp + (j0 + jj) * LD;
+            l += e;
+#pragma unroll
+            for (int d = 0; d < DH; ++d) o[d] = fmaf(e, vr[d], o[d]);
+          }
+        }
+        m = mc;
+      }
+      const float inv = 1.f / l;
+      float* ar = XN + (p * A2 + i) * LD + hh * DH;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) ar[d] = o[d] * inv;
+      if constexpr (RES) {  // the residuals of the backward (K4)
+        const size_t row = row0 + p * A2 + i;
+        m_out[row * H + hh] = m;
+        l_out[row * H + hh] = l;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) attn_out[row * C + hh * DH + d] = ar[d];
+      }
+    }
+    __syncthreads();
+
+    // x2 = a Wo + x over the warp's rows of q (dead), LN2(x2) over its rows
+    // of the attention output
+    RgAcc<C> x2;
+    rg_zero<C>(x2);
+    rg_product<C, C, L::OFF_O>(x2, XN + wr * LD, LD, ring, st);
+    rg_pairs<C>(x2, [&](int r, int c, float& v0, float& v1) {
+      if (wr + r < nrows) {
+        const float2 xv = __ldg(reinterpret_cast<const float2*>(x + (row0 + wr + r) * C + c));
+        v0 += xv.x;
+        v1 += xv.y;
+      }
+      *reinterpret_cast<float2*>(XQ + (wr + r) * LD + c) = make_float2(v0, v1);
+    });
+    __syncwarp();   // the attention output is read
+    quad_ln<C>(x2, ln + 2 * C, ln + 3 * C, XN + wr * LD, LD);
+    __syncwarp();
+
+    // out = relu(LN2(x2) W1) W2 + x2, the hidden layer in chunks
+    RgAcc<C> y;
+    rg_zero<C>(y);
+    rg_static_for<L::NH>([&](auto J) {
+      constexpr int off = L::OFF_F + decltype(J)::value * (L::W1 + L::W2);
+      RgAcc<HC> hid;
+      rg_zero<HC>(hid);
+      rg_product<C, HC, off>(hid, XN + wr * LD, LD, ring, st);
+      __syncwarp();   // the previous chunk's rows are read
+      rg_pairs<HC>(hid, [&](int r, int c, float v0, float v1) {
+        *reinterpret_cast<float2*>(HID + (wr + r) * LDH + c) = make_float2(fmaxf(v0, 0.f),
+                                                                           fmaxf(v1, 0.f));
+      });
+      __syncwarp();
+      rg_product<HC, C, off + L::W1>(y, HID + wr * LDH, LDH, ring, st);
+    });
+    rg_pairs<C>(y, [&](int r, int c, float v0, float v1) {
+      if (wr + r >= nrows) return;
+      const float2 res = *reinterpret_cast<const float2*>(XQ + (wr + r) * LD + c);
+      *reinterpret_cast<float2*>(out + (row0 + wr + r) * C + c) =
+          make_float2(v0 + res.x, v1 + res.y);
     });
   }
-  __syncthreads();
-
-  // LN2 over x2 into xn
-  for (int r = warp; r < RP; r += NT / 32) {
-    float v[LN::E];
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) v[e] = X[r * LD + LN::col(e)];
-    LN::apply(v, ln + 2 * C, ln + 3 * C);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) XN[r * LD + LN::col(e)] = v[e];
-  }
-  __syncthreads();
-
-  {  // hidden = relu(LN2(x2) W1), over the dead q/k tiles
-    Acc<RP, 2 * C> acc;
-    zero_acc<RP, 2 * C>(acc);
-    gemm_acc<RP, C, 2 * C>(acc, XN, LD, w1);
-    for_tiles<RP, 2 * C>(acc, [&](int r, int c, float4 v) {
-      store4(HID + r * LDH + c, make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f),
-                                            fmaxf(v.z, 0.f), fmaxf(v.w, 0.f)));
-    });
-  }
-  __syncthreads();
-
-  {  // out = hidden W2 + x2
-    Acc<RP, C> acc;
-    zero_acc<RP, C>(acc);
-    gemm_acc<RP, 2 * C, C>(acc, HID, LDH, w2);
-    for_tiles<RP, C>(acc, [&](int r, int c, float4 v) {
-      if (r < nrows) store4(out + (row0 + r) * C + c, add4(load4(X + r * LD + c), v));
-    });
-  }
+  cp_async_wait<0>();
 }
 
 template <int C, bool RES>
 int launch(const float* x, const float* pe, const float* ln, const float* wq,
            const float* wk, const float* wv, const float* wo, const float* w1,
-           const float* w2, float* out, float* m, float* l, float* attn, int N, int A2,
-           float scale, cudaStream_t stream) {
+           const float* w2, float* wf, float* out, float* m, float* l, float* attn, int N,
+           int A2, float scale, cudaStream_t stream) {
+  using L = AngLayout<C>;
   constexpr int H = 8;
+  RgPieces ps{};
+  int n = 0;
+  ps.p[n++] = RgPiece{wv, C, C, C, L::OFF_V};
+  ps.p[n++] = RgPiece{wq, C, C, C, L::OFF_Q};
+  ps.p[n++] = RgPiece{wk, C, C, C, L::OFF_K};
+  ps.p[n++] = RgPiece{wo, C, C, C, L::OFF_O};
+  for (int j = 0; j < L::NH; ++j) {
+    ps.p[n++] = RgPiece{w1 + j * L::HC, 2 * C, C, L::HC, L::OFF_F + j * (L::W1 + L::W2)};
+    ps.p[n++] = RgPiece{w2 + j * L::HC * C, C, L::HC, C, L::OFF_F + j * (L::W1 + L::W2) + L::W1};
+  }
+  launch_rg_weights(ps, n, wf, stream);
   auto kernel = ang_block_kernel<C, H, RES>;
-  const size_t bytes = AngLayout<C>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  LFT_SET_SMEM(kernel, L::BYTES);
   const int P = RP / A2;
-  const int grid = (N + P - 1) / P;
-  kernel<<<grid, NT, bytes, stream>>>(x, pe, ln, wq, wk, wv, wo, w1, w2, out, m, l, attn,
-                                      N, A2, scale);
+  kernel<<<rg_grid((N + P - 1) / P), RG_NT, L::BYTES, stream>>>(x, pe, ln, wf, out, m, l, attn,
+                                                                 N, A2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -971,19 +1091,22 @@ int launch_bwd128(const float* const* in, float* const* out, float* const* scr, 
 LFT_EXPORT_ERROR_STRING
 
 // x, out [N, A2, C]; pe [A2, C]; ln [4, C] (LN1 w, b, LN2 w, b); wq/wk/wv/wo
-// [C, C], w1 [C, 2C], w2 [2C, C], all "x @ W" layouts. Returns the launch's
-// cudaGetLastError(); cudaErrorInvalidValue for a shape it does not take.
+// [C, C], w1 [C, 2C], w2 [2C, C], all "x @ W" layouts; wf a scratch of
+// AngLayout<C>::FLOATS floats (kernels/rowgemm.py:ang_block_floats), the
+// weights split into TF32 hi/lo by the launch's first kernel. Returns the
+// launch's cudaGetLastError(); cudaErrorInvalidValue for a shape it does not
+// take.
 extern "C" int lft_ang_block_fwd(const float* x, const float* pe, const float* ln,
                                  const float* wq, const float* wk, const float* wv,
-                                 const float* wo, const float* w1, const float* w2,
+                                 const float* wo, const float* w1, const float* w2, float* wf,
                                  float* out, int N, int A2, int C, int H, float scale,
                                  void* stream) {
   if (H != 8 || A2 < 1 || A2 > RP || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   switch (C) {
-#define LFT_CASE(CV)                                                                   \
-    case CV: return launch<CV, false>(x, pe, ln, wq, wk, wv, wo, w1, w2, out, nullptr, \
+#define LFT_CASE(CV)                                                                       \
+    case CV: return launch<CV, false>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out, nullptr, \
                                       nullptr, nullptr, N, A2, scale, s);
     LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
 #undef LFT_CASE
@@ -996,14 +1119,14 @@ extern "C" int lft_ang_block_fwd(const float* x, const float* pe, const float* l
 extern "C" int lft_ang_block_fwd_res(const float* x, const float* pe, const float* ln,
                                      const float* wq, const float* wk, const float* wv,
                                      const float* wo, const float* w1, const float* w2,
-                                     float* out, float* m, float* l, float* attn, int N,
-                                     int A2, int C, int H, float scale, void* stream) {
+                                     float* wf, float* out, float* m, float* l, float* attn,
+                                     int N, int A2, int C, int H, float scale, void* stream) {
   if (H != 8 || A2 < 1 || A2 > RP || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   switch (C) {
-#define LFT_CASE(CV)                                                                  \
-    case CV: return launch<CV, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, out, m, l,    \
+#define LFT_CASE(CV)                                                                    \
+    case CV: return launch<CV, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out, m, l,  \
                                      attn, N, A2, scale, s);
     LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
 #undef LFT_CASE

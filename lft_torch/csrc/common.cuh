@@ -1,14 +1,15 @@
 // Building blocks shared by the hand-written LFT kernels (ang_block.cu,
-// spa_block.cu): a row-tile matrix product on the CUDA cores and a
-// warp-per-row LayerNorm.
+// spa_block.cu, spa_block_bwd.cu): a row-tile matrix product on the FP32
+// pipes and a warp-per-row LayerNorm.
 //
-// Every kernel here works on a tile of token rows held in shared memory and
-// multiplies it by a weight matrix that stays in device memory (it is small
-// enough to live in L1/L2: at most 256 x 256 f32). These products run in
-// full f32 on the FP32 pipes (no TF32, no tensor cores): the port's parity
-// mode is the reference's f32/HIGHEST arithmetic. The 3x3 tokenization
-// (tokenize.cuh) and the weight gradients (wgrad.cu) reach the same accuracy
-// on the tensor cores instead, as 3xTF32 (tf32.cuh).
+// `gemm_acc` multiplies a tile of token rows held in shared memory by a
+// weight matrix that stays in device memory (it is small enough to live in
+// L1/L2: at most 256 x 256 f32), in full f32 on the FP32 pipes (no TF32, no
+// tensor cores): the port's parity mode is the reference's f32/HIGHEST
+// arithmetic. K2.2, K2.4, the backwards K3.a-d and K4 use it. The 3x3
+// tokenization (tokenize.cuh: K2.1, K11.1, K3.e), the row-tile products of
+// K1 and K2.5 / K11.5 (rowgemm.cuh) and the weight gradients (wgrad.cu)
+// reach the same accuracy on the tensor cores instead, as 3xTF32 (tf32.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

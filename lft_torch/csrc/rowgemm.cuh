@@ -1,0 +1,275 @@
+// A block's token-row products on the tensor cores, 3xTF32 (`wgmma`): the
+// shared building block of K2.5 / K11.5 (spa_ffn_out[_pm], spa_block.cu)
+// and K1 (ang_block[_res], ang_block.cu).
+//
+//   acc[64 x N] (+)= A[64 x K] B[K x N]
+//
+// * A is a warpgroup's 64 token rows in shared memory, row-major at a
+//   padded stride (K contiguous: the K-major operand tf32 `wgmma` takes).
+//   Each warp reads its own 16 rows into registers in the m16n8k8 fragment
+//   layout and splits them into TF32 hi/lo as it loads (tf32.cuh), so the
+//   rows a warp writes from its accumulators (the same 16 rows) are the
+//   rows it reads next: between the products of a tile no warp waits for
+//   another.
+// * B is a weight matrix, split into TF32 hi/lo and laid out in K-major
+//   core matrices by `rg_weights_kernel`, the first kernel of each launch
+//   (in plain PyTorch `kernels/rowgemm.py:piece`). A kernel's weights are
+//   one stream of such pieces in the order its products read them, and the
+//   stream goes through a ring of RG_SF-float stages (`WeightRing`,
+//   `cp.async`, NS - 2 stages ahead): split, the weights (576 KB for K2.5,
+//   256 KB for K1 at C = 64) do not fit in shared memory beside the rows.
+// * 3xTF32 with both tails rounded to nearest (`split_tf32_rn`; B's by the
+//   weight kernel): the truncated tails of tf32.cuh's `split_tf32` err
+//   toward zero alike, and over these short products (K = 16-128) that
+//   bias brought C = 16's K1 up to twice the f32 block's error against
+//   float64 (a scratch run on an H100).
+// * The tensor cores round their f32 sums toward zero, so the products of
+//   every 16 of K (two k8 steps: 6 MMAs, al bh + ah bl + ah bh each, the
+//   first from zero) are a chain with its own accumulators, added into acc
+//   in f32 on the FP32 pipes in K order.
+// * The drains overlap: the chains (16 of K times a part of N <= 64
+//   columns: one `wgmma` of width 64 where N allows) alternate between two
+//   sets of chain accumulators, along K where N <= 64 and between the two
+//   64-column halves at N = 128, so `wgmma.wait_group 1` retires one chain
+//   (which is then added into its part of acc) while the next runs on the
+//   tensor cores. The A fragments are double-buffered: the next 16 of K
+//   load and split while this 16's chains run. On an H100 (a scratch A/B
+//   of the variants, no number kept) 64-column parts beat 32-column ones,
+//   whose chains cost more in issue, wait and flush than the tensor cores'
+//   work; so did descriptors advanced by constants over rebuilt ones; an L2
+//   prefetch of a block's next rows slowed K2.5 and is not made.
+// * N <= 128 per product; K and N are multiples of 16; a chain's 32 N
+//   floats of B never straddle two stages.
+// Every output is written by one warp of one block, no atomics: a call
+// repeats bitwise.
+#pragma once
+
+#include <type_traits>
+
+#include "common.cuh"
+#include "tf32.cuh"
+
+namespace lft {
+
+constexpr int RG_M = 128;               // token rows of a block: 2 warpgroups of 64
+constexpr int RG_NT = 256;              // threads of a block
+constexpr int RG_SF = 4096;             // floats of a ring stage (16 KB)
+constexpr int RG_SMEM_MAX = 232448;     // shared memory a block can use
+
+// Ring slots that fit beside `tile_bytes` of rows, at most 8.
+constexpr int rg_slots(int tile_bytes) {
+  return (RG_SMEM_MAX - tile_bytes) / (RG_SF * 4) < 8 ? (RG_SMEM_MAX - tile_bytes) / (RG_SF * 4)
+                                                       : 8;
+}
+
+// One piece of a weight stream: B[k][n] = src[k ld + n], K x N, written at
+// stream offset `off` (floats).
+struct RgPiece {
+  const float* src;
+  int ld, K, N, off;
+};
+constexpr int RG_MAX_PIECES = 12;
+struct RgPieces {
+  RgPiece p[RG_MAX_PIECES];
+};
+
+// B split into TF32 hi and lo (both rounded to nearest), per piece
+// [K / 8][2 (hi, lo)][2 (k half)][N / 8][8 (n)][4 (k)]: a k8 step's hi (or
+// lo) is core matrices of 8 columns x 4 k, 128 bytes each, N / 8 of them
+// 128 bytes apart, then the second k half (kernels/rowgemm.py:piece).
+__global__ void __launch_bounds__(256) rg_weights_kernel(RgPieces ps, float* __restrict__ wf) {
+  const RgPiece pc = ps.p[blockIdx.y];
+  for (int i = blockIdx.x * 256 + threadIdx.x; i < pc.K * pc.N; i += gridDim.x * 256) {
+    const int k = i / pc.N, n = i % pc.N;
+    uint32_t hi, lo;
+    split_tf32_rn(__ldg(pc.src + static_cast<size_t>(k) * pc.ld + n), hi, lo);
+    const size_t at = pc.off +
+                      (static_cast<size_t>((k / 8) * 4 + k % 8 / 4) * (pc.N / 8) + n / 8) * 32 +
+                      n % 8 * 4 + k % 4;
+    wf[at] = __uint_as_float(hi);
+    wf[at + 8 * pc.N] = __uint_as_float(lo);
+  }
+}
+
+inline void launch_rg_weights(const RgPieces& ps, int n, float* wf, cudaStream_t s) {
+  int most = 0;
+  for (int i = 0; i < n; ++i) most = ps.p[i].K * ps.p[i].N > most ? ps.p[i].K * ps.p[i].N : most;
+  rg_weights_kernel<<<dim3((most + 255) / 256, n), 256, 0, s>>>(ps, wf);
+}
+
+// Blocks of a persistent launch over `tiles` row tiles: one a multiprocessor
+// (a block takes most of its shared memory), each walking tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ..., so that the weight ring runs on from one
+// tile into the next.
+inline int rg_grid(int tiles) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return tiles < sms ? tiles : sms;
+}
+
+// f(std::integral_constant<int, I>) for I = 0 .. N - 1: a loop whose index
+// is a compile-time constant (a product's stream offset).
+template <int N, int I = 0, class F>
+__device__ __forceinline__ void rg_static_for(F&& f) {
+  if constexpr (I < N) {
+    f(std::integral_constant<int, I>{});
+    rg_static_for<N, I + 1>(f);
+  }
+}
+
+// The weight stream through NS shared-memory slots, PD = NS - 2 stages
+// ahead. Stage st of the block is stage st % spt of the stream (one tile's
+// stream a pass). A slot is refilled two stages after it was read: by then
+// every chain that read it has retired (a warpgroup has at most one chain
+// in flight, which reads the stage before the current one or the current
+// one), and the barrier of `enter` has seen every warpgroup past it.
+template <int NS>
+struct WeightRing {
+  static constexpr int PD = NS - 2;
+  static_assert(PD >= 1, "the ring needs three slots");
+  float* slot;        // [NS][RG_SF]
+  const float* wf;    // one tile's stream
+  int total, spt;     // floats and stages of the stream
+  int last;           // stages this block enters
+  int s;              // the next stage to enter
+
+  __device__ __forceinline__ void load(int st) const {
+    if (st < last) {
+      const int off = (st % spt) * RG_SF;
+      const int n = total - off < RG_SF ? total - off : RG_SF;
+      const float* src = wf + off;
+      float* dst = slot + (st % NS) * RG_SF;
+      for (int i = 4 * static_cast<int>(threadIdx.x); i < n; i += 4 * RG_NT)
+        cp_async16(dst + i, src + i, true);
+    }
+    cp_async_commit();   // one group a stage, empty past the last
+  }
+  __device__ __forceinline__ void start(float* slots, const float* stream, int floats,
+                                        int tiles) {
+    slot = slots;
+    wf = stream;
+    total = floats;
+    spt = (floats + RG_SF - 1) / RG_SF;
+    last = tiles * spt;
+    s = 0;
+    for (int i = 0; i < PD; ++i) load(i);
+  }
+  // Waits for the next stage, refills the slot read two stages ago, and
+  // returns the stage's slot.
+  __device__ __forceinline__ const float* enter() {
+    cp_async_wait<PD - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    load(s + PD);
+    return slot + (s++ % NS) * RG_SF;
+  }
+};
+
+template <int N>
+struct RgParts {
+  static constexpr int NW = N < 64 ? N : 64;   // columns of a part (a wgmma's N)
+  static constexpr int NP = N / NW;            // parts of acc
+  static constexpr int R = NW / 2;             // accumulators a thread, a part
+};
+
+template <int N>
+using RgAcc = float[RgParts<N>::NP][RgParts<N>::R];
+
+template <int N>
+__device__ __forceinline__ void rg_zero(RgAcc<N>& acc) {
+#pragma unroll
+  for (int p = 0; p < RgParts<N>::NP; ++p)
+#pragma unroll
+    for (int i = 0; i < RgParts<N>::R; ++i) acc[p][i] = 0.f;
+}
+
+// Calls f(row, col, v0, v1) for each of a thread's pairs of acc (as
+// lvalues): the warp's row `row` (0..15: g or g + 8), columns col, col + 1.
+template <int N, class F>
+__device__ __forceinline__ void rg_pairs(RgAcc<N>& acc, F f) {
+  using P = RgParts<N>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < P::NW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f(g + 8 * h, p * P::NW + 8 * j + 2 * q, acc[p][4 * j + 2 * h], acc[p][4 * j + 2 * h + 1]);
+}
+
+// acc (+)= A B for the warpgroup's 64 rows. `a`: the warp's first row in
+// shared memory, row stride lda floats. B: stream floats [OFF, OFF + 2 K N)
+// (K x N, `rg_weights_kernel`'s layout); `st` is the slot of the current
+// stage, entered here where a chain starts a new one.
+template <int K, int N, int OFF, int NS>
+__device__ __forceinline__ void rg_product(RgAcc<N>& acc, const float* a, int lda,
+                                           WeightRing<NS>& ring, const float*& st) {
+  using P = RgParts<N>;
+  constexpr int NP = P::NP, NW = P::NW, R = P::R, NC = K / 16;
+  constexpr int CHAIN = 32 * N;   // floats of B a chunk of 16 of K reads (hi and lo)
+  static_assert(K % 16 == 0 && N % 16 == 0 && N <= 128, "unsupported product shape");
+  static_assert(OFF % CHAIN == 0 && RG_SF % CHAIN == 0, "a chunk must not straddle two stages");
+  constexpr int LBO = N / 8 * 128, SBO = 128;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const float* a0 = a + g * lda + q;
+  const float* a1 = a0 + 8 * lda;
+
+  uint32_t ah[2][2][4], al[2][2][4];   // [buffer][k8 step][fragment]
+  float sum[2][R];                     // the two sets of chain accumulators
+  auto load_a = [&](int c, int b) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int k0 = 16 * c + 8 * u;
+      split_tf32_rn(a0[k0], ah[b][u][0], al[b][u][0]);
+      split_tf32_rn(a1[k0], ah[b][u][1], al[b][u][1]);
+      split_tf32_rn(a0[k0 + 4], ah[b][u][2], al[b][u][2]);
+      split_tf32_rn(a1[k0 + 4], ah[b][u][3], al[b][u][3]);
+    }
+  };
+  // chain i: 16 of K (chunk i / NP) times part i % NP, into set i % 2
+  auto issue = [&](int i) {
+    const int c = i / NP, p = i % NP, z = i & 1;
+    // the k8 steps' hi, then lo, 16 N and 8 N floats on (4 N and 2 N in the
+    // descriptor's 16-byte units)
+    const uint64_t d0 =
+        smem_desc(st + (OFF + c * CHAIN) % RG_SF + p * (NW / 8) * 32, LBO, SBO);
+    reg_fence(sum[z]);
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const uint64_t dh = d0 + u * 4 * N, dl = dh + 2 * N;
+      Wgmma<NW>::mma(sum[z], al[c & 1][u], dh, u);
+      Wgmma<NW>::mma(sum[z], ah[c & 1][u], dl, 1);
+      Wgmma<NW>::mma(sum[z], ah[c & 1][u], dh, 1);
+    }
+    wgmma_commit();
+  };
+  auto flush = [&](int i) {
+    const int p = i % NP, z = i & 1;
+    reg_fence(sum[z]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[p][r] += sum[z][r];
+  };
+
+  load_a(0, 0);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if ((OFF + c * CHAIN) % RG_SF == 0) st = ring.enter();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int i = c * NP + p;
+      issue(i);
+      if (i > 0) {   // retire the chain before this one and add it
+        wgmma_wait<1>();
+        flush(i - 1);
+      }
+      if (p == 0 && c + 1 < NC) load_a(c + 1, (c + 1) & 1);
+    }
+  }
+  wgmma_wait<0>();
+  flush(NC * NP - 1);
+}
+
+}  // namespace lft

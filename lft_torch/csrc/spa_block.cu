@@ -14,10 +14,10 @@
 // Why five kernels: at C = 64 / D = 128 the block's weights are ~0.8 MB in
 // f32 and one view's tokens 512 KB, far past the 227 KB of shared memory a
 // block can hold, so the TPU kernel's one-view-per-step VMEM chain cannot
-// carry over. Each step instead owns a tile of tokens (steps 2, 4, 5: BM =
-// 64; step 1: a rectangle of up to 128 pixels of one view), runs its
-// products from shared memory, and hands its result to the next step
-// through device memory. Every block
+// carry over. Each step instead owns a tile of tokens (steps 2, 4: BM = 64;
+// step 5: 128, persistent; step 1: a rectangle of up to 128 pixels of one
+// view), runs its products from shared memory, and hands its result to the
+// next step through device memory. Every block
 // computes its own halo and zero padding (the TPU kernel zeroed scratch
 // borders once at grid step 0, which is exact only on a sequential grid).
 // The window step skips keys outside the image instead of scoring zero
@@ -27,11 +27,11 @@
 // does ~176 GFLOP over the window pairs and taps inside the image
 // (tokenisation 57.9, q/k 26.8, v 13.4, attention 5.2, Wo 13.4, FFN 53.7,
 // Token2SAI 6.7) and its intermediates add ~1.9 GB of device memory traffic
-// (~0.6 ms at 3.35 TB/s). Step 1, the tokenisation, runs 3xTF32 on the
-// tensor cores (tokenize.cuh, where its bound and design are set out). Steps
-// 2, 4 and 5 run in f32 on the FP32 pipes (common.cuh:gemm_acc), bound by
-// operations (~1.7 ms at 67 TFLOP/s); the window step is bound by its k/v
-// reads.
+// (~0.6 ms at 3.35 TB/s). Steps 1 and 5, the tokenisation and the FFN with
+// Token2SAI, run 3xTF32 on the tensor cores (tokenize.cuh and rowgemm.cuh,
+// where their bounds and designs are set out). Steps 2 and 4 run in f32 on
+// the FP32 pipes (common.cuh:gemm_acc), bound by operations (~0.8 ms at 67
+// TFLOP/s); the window step is bound by its k/v reads.
 //
 // K11, the same forward on a pixel-major buffer x [Bb, h, w, A2, C] ->
 // [Bb, h, w, A2, C] (replaces lft_tpu/kernels/spa_block.py:_fwd_call with
@@ -44,6 +44,7 @@
 // writes remain whole 128-byte lines and the bounds are K2's. No view-major
 // copy of x or of the output is ever made.
 
+#include "rowgemm.cuh"
 #include "spa.cuh"
 #include "tokenize.cuh"
 
@@ -215,55 +216,104 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ---- 5: FFN + residual + Token2SAI --------------------------------------
+// out = (relu(xn2 W1) W2 + x2) Wlin, the three products 3xTF32 on the tensor
+// cores (rowgemm.cuh): at [400, 32, 32, 64] 60.4 GFLOP, 0.37 ms as 3 TF32
+// products at 495 TFLOP/s (0.90 on the FP32 pipes), its 0.52 GB 0.16 ms; so
+// bound by operations. A block of two warpgroups takes 128 token rows a
+// tile, persistent over tiles. The hidden layer goes in chunks of HC = 64
+// columns: h = relu(xn2 W1[:, chunk]) into shared memory, then y += h
+// W2[chunk, :] in registers, so neither the 2D-wide hidden tile nor the
+// two accumulator sets of a 256-column product are ever held. Then y + x2
+// (f32) goes over the dead xn2 rows and out = y Wlin is written. Shared
+// memory at C = 64: xn2 / y 66 KB, a hidden chunk 34 KB, a ring of 7
+// 16-KB weight stages; 212 KB, one block an SM.
+template <int C>
+struct FfnOut {
+  static constexpr int D = 2 * C;
+  static constexpr int HC = 2 * D < 64 ? 2 * D : 64;   // hidden columns a chunk
+  static constexpr int NH = 2 * D / HC;                 // chunks
+  static constexpr int LDX = D + 4, LDH = HC + 4;       // row strides
+  static constexpr int W1 = 2 * D * HC, W2 = 2 * HC * D;  // floats of a chunk's pieces
+  static constexpr int OFF_LIN = NH * (W1 + W2);
+  static constexpr int FLOATS = OFF_LIN + 2 * D * C;    // the weight stream
+  static constexpr int TILES = RG_M * (LDX + LDH) * 4;  // bytes of rows
+  static constexpr int NS = rg_slots(TILES);
+  static constexpr size_t BYTES = TILES + static_cast<size_t>(NS) * RG_SF * 4;
+};
+
 // PM: out is pixel-major [T / (hw A2), hw, A2, C]; xn2 and x2 are view-major.
+// wf: the weight stream (FfnOut::FLOATS floats, kernels/rowgemm.py:
+// ffn_out_stream), written by rg_weights_kernel.
 template <int C, bool PM>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(RG_NT, 1)
     spa_ffn_out_kernel(const float* __restrict__ xn2, const float* __restrict__ x2,
-                       const float* __restrict__ w1, const float* __restrict__ w2,
-                       const float* __restrict__ wlin, float* __restrict__ out, int T,
-                       int hw, int A2) {
-  using S = Spa<C>;
-  constexpr int D = S::D, LDD = S::LDD, LDH = S::LDH;
-  extern __shared__ float4 smem4[];
-  float* XN = reinterpret_cast<float*>(smem4);   // xn2, then y
-  float* HID = XN + BM * LDD;
-  const int t0 = blockIdx.x * BM;
-  load_rows<D>(XN, LDD, xn2, t0, T);
-  __syncthreads();
-  {
-    Acc<BM, 2 * D> acc;
-    zero_acc<BM, 2 * D>(acc);
-    gemm_acc<BM, D, 2 * D>(acc, XN, LDD, w1);
-    for_tiles<BM, 2 * D>(acc, [&](int r, int c, float4 val) {
-      store4(HID + r * LDH + c, make_float4(fmaxf(val.x, 0.f), fmaxf(val.y, 0.f),
-                                            fmaxf(val.z, 0.f), fmaxf(val.w, 0.f)));
+                       const float* __restrict__ wf, float* __restrict__ out, int T, int hw,
+                       int A2) {
+  using F = FfnOut<C>;
+  constexpr int D = F::D, HC = F::HC, LDX = F::LDX, LDH = F::LDH;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* xw = smem + 16 * warp * LDX;                   // the warp's 16 rows: xn2, then y
+  float* hw16 = smem + RG_M * LDX + 16 * warp * LDH;    // and of a hidden chunk
+  const int tiles = (T + RG_M - 1) / RG_M;
+  WeightRing<F::NS> ring;
+  ring.start(smem + RG_M * (LDX + LDH), wf, F::FLOATS,
+             (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x);
+  const float* st = nullptr;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int t0 = tile * RG_M + 16 * warp;   // the warp's first token
+    {  // the warp's rows of xn2, all loads in flight at once (zero past T)
+      constexpr int L = D / 8;   // float4 a lane
+      float4 v[L];
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        const int i = lane + 32 * k, r = i / (D / 4), c = 4 * (i % (D / 4));
+        v[k] = t0 + r < T ? ldg4(xn2 + static_cast<size_t>(t0 + r) * D + c)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        const int i = lane + 32 * k;
+        store4(xw + i / (D / 4) * LDX + 4 * (i % (D / 4)), v[k]);
+      }
+      __syncwarp();
+    }
+    RgAcc<D> y;
+    rg_zero<D>(y);
+    rg_static_for<F::NH>([&](auto J) {
+      constexpr int off = decltype(J)::value * (F::W1 + F::W2);
+      RgAcc<HC> h;
+      rg_zero<HC>(h);
+      rg_product<D, HC, off>(h, xw, LDX, ring, st);
+      __syncwarp();   // the previous chunk's rows are read
+      rg_pairs<HC>(h, [&](int r, int c, float v0, float v1) {
+        *reinterpret_cast<float2*>(hw16 + r * LDH + c) = make_float2(fmaxf(v0, 0.f),
+                                                                     fmaxf(v1, 0.f));
+      });
+      __syncwarp();
+      rg_product<HC, D, off + F::W1>(y, hw16, LDH, ring, st);
     });
-  }
-  __syncthreads();
-  {
-    Acc<BM, D> acc;
-    zero_acc<BM, D>(acc);
-    gemm_acc<BM, 2 * D, D>(acc, HID, LDH, w2);
-    for_tiles<BM, D>(acc, [&](int r, int c, float4 val) {
+    __syncwarp();     // xn2 is read
+    rg_pairs<D>(y, [&](int r, int c, float v0, float v1) {
       const int t = t0 + r;
-      const float4 res = t < T ? ldg4(x2 + static_cast<size_t>(t) * D + c)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      store4(XN + r * LDD + c, add4(val, res));
+      const float2 res = t < T ? __ldg(reinterpret_cast<const float2*>(x2 + static_cast<size_t>(t) * D + c))
+                               : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(xw + r * LDX + c) = make_float2(v0 + res.x, v1 + res.y);
     });
-  }
-  __syncthreads();
-  {
-    Acc<BM, C> acc;
-    zero_acc<BM, C>(acc);
-    gemm_acc<BM, D, C>(acc, XN, LDD, wlin);
-    for_tiles<BM, C>(acc, [&](int r, int c, float4 val) {
+    __syncwarp();
+    RgAcc<C> o;
+    rg_zero<C>(o);
+    rg_product<D, C, F::OFF_LIN>(o, xw, LDX, ring, st);
+    rg_pairs<C>(o, [&](int r, int c, float v0, float v1) {
       const int t = t0 + r;
       if (t >= T) return;
       long long row = t;
       if constexpr (PM) row = pm_row(row, hw, A2);
-      store4(out + row * C + c, val);
+      *reinterpret_cast<float2*>(out + row * C + c) = make_float2(v0, v1);
     });
   }
+  cp_async_wait<0>();
 }
 
 }  // namespace
@@ -291,12 +341,23 @@ int tokenize_ln(const float* x, const float* pe_tok, const float* wu, float* wf,
 
 template <bool PM>
 int ffn_out(const float* xn2, const float* x2, const float* w1, const float* w2,
-            const float* wlin, float* out, int T, int hw, int A2, int C, cudaStream_t s) {
+            const float* wlin, float* wf, float* out, int T, int hw, int A2, int C,
+            cudaStream_t s) {
+  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
+    using F = FfnOut<CC>;
+    RgPieces ps{};
+    int n = 0;
+    for (int j = 0; j < F::NH; ++j) {
+      ps.p[n++] = RgPiece{w1 + j * F::HC, 2 * F::D, F::D, F::HC, j * (F::W1 + F::W2)};
+      ps.p[n++] = RgPiece{w2 + static_cast<size_t>(j) * F::HC * F::D, F::D, F::HC, F::D,
+                          j * (F::W1 + F::W2) + F::W1};
+    }
+    ps.p[n++] = RgPiece{wlin, CC, F::D, CC, F::OFF_LIN};
+    launch_rg_weights(ps, n, wf, s);
     auto kernel = spa_ffn_out_kernel<CC, PM>;
-    const size_t bytes = BM * (Spa<CC>::LDD + Spa<CC>::LDH) * sizeof(float);
-    LFT_SET_SMEM(kernel, bytes);
-    kernel<<<blocks(T), NT, bytes, s>>>(xn2, x2, w1, w2, wlin, out, T, hw, A2);
+    LFT_SET_SMEM(kernel, F::BYTES);
+    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(xn2, x2, wf, out, T, hw, A2);
   });
   return static_cast<int>(cudaGetLastError());
 }
@@ -391,20 +452,23 @@ extern "C" int lft_spa_outproj_ln(const float* attn, const float* tok, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
+// Step 5: wf is a scratch of FfnOut<C>::FLOATS floats (kernels/rowgemm.py:
+// ffn_out_floats), the weights split into TF32 hi/lo by the launch's first
+// kernel.
 extern "C" int lft_spa_ffn_out(const float* xn2, const float* x2, const float* w1,
-                               const float* w2, const float* wlin, float* out, int T,
-                               int C, void* stream) {
-  return ffn_out<false>(xn2, x2, w1, w2, wlin, out, T, 1, 1, C,
+                               const float* w2, const float* wlin, float* wf, float* out,
+                               int T, int C, void* stream) {
+  return ffn_out<false>(xn2, x2, w1, w2, wlin, wf, out, T, 1, 1, C,
                         static_cast<cudaStream_t>(stream));
 }
 
 // K11's last step: xn2, x2 [Bb * A2, hw, D] view-major -> out [Bb, hw, A2, C]
 // pixel-major.
 extern "C" int lft_spa_ffn_out_pm(const float* xn2, const float* x2, const float* w1,
-                                  const float* w2, const float* wlin, float* out, int Bb,
-                                  int hw, int A2, int C, void* stream) {
+                                  const float* w2, const float* wlin, float* wf, float* out,
+                                  int Bb, int hw, int A2, int C, void* stream) {
   if (Bb < 1 || A2 < 1 || hw < 1 || static_cast<long long>(Bb) * A2 * hw > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  return ffn_out<true>(xn2, x2, w1, w2, wlin, out, Bb * A2 * hw, hw, A2, C,
+  return ffn_out<true>(xn2, x2, w1, w2, wlin, wf, out, Bb * A2 * hw, hw, A2, C,
                        static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,8 @@
 // f32 products on the tensor cores (3xTF32) and the cp.async copies that
-// feed them: the building blocks of wgrad.cu (`mma.sync`) and of the 3x3
+// feed them: the building blocks of wgrad.cu (`mma.sync`), of the 3x3
 // tokenization (tokenize.cuh, for spa_block.cu and spa_block_bwd.cu:
-// `wgmma`).
+// `wgmma`) and of the blocks' row-tile products (rowgemm.cuh, for
+// spa_block.cu and ang_block.cu: `wgmma`).
 //
 // 3xTF32: each f32 operand is split into a TF32 head and a TF32 tail,
 // a = a_hi + a_lo, and a product takes a_lo b_hi + a_hi b_lo + a_hi b_hi
@@ -38,6 +39,14 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// As split_tf32, with lo rounded to TF32 the same way instead of left to
+// the MMA's truncation: |v - hi - lo| <= 2^-23 |v|, and unbiased, where the
+// truncated tails of a sum all err toward zero (rowgemm.cuh).
+__device__ __forceinline__ void split_tf32_rn(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
 }
 
 // c += a b over one m16n8k8 tile. Fragments (lane = 4 g + q): A (row,

@@ -32,6 +32,7 @@ import torch
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.common import KERNEL_C
+from lft_torch.kernels.rowgemm import ang_block_floats
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import attention_heads
 
@@ -141,7 +142,9 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
               num_heads: int, with_res: bool = False):
     """K1 on [N, A2, C] tokens: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. with_res: (out, m, l, attn), counted as
-    `ang_block_res`."""
+    `ang_block_res`. On the card its six products run 3xTF32 on the tensor
+    cores (`csrc/rowgemm.cuh`), the weights split by the launch's first
+    kernel into a scratch of `rowgemm.ang_block_stream`'s layout."""
     if x.device.type != "cuda":
         return ang_block_plain(x, ang_pe, wts, num_heads, with_res)
     _check_kernel_shape("ang_block", x, ang_pe, num_heads, BLK)
@@ -149,18 +152,19 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     w = wts
     _build.check_cuda_args("ang_block", x, ang_pe, *(w[n] for n in WEIGHTS))
     out = torch.empty_like(x)
+    wf = torch.empty(ang_block_floats(C), device=x.device)   # scratch: the split weights
     ptrs = [x.data_ptr(), ang_pe.data_ptr(), *(w[n].data_ptr() for n in WEIGHTS),
-            out.data_ptr()]
+            wf.data_ptr(), out.data_ptr()]
     tail = (N, A2, C, num_heads, float(C // num_heads) ** -0.5)
     if not with_res:
-        fn = _build.bind("ang_block", "lft_ang_block_fwd", 10,
+        fn = _build.bind("ang_block", "lft_ang_block_fwd", 11,
                          (ctypes.c_int,) * 4 + (ctypes.c_float,))
         _build.launch("ang_block", "ang_block", fn, x.device, *ptrs, *tail)
         return out
     m = torch.empty(N, A2, num_heads, device=x.device)
     l = torch.empty_like(m)
     attn = torch.empty_like(x)
-    fn = _build.bind("ang_block", "lft_ang_block_fwd_res", 13,
+    fn = _build.bind("ang_block", "lft_ang_block_fwd_res", 14,
                      (ctypes.c_int,) * 4 + (ctypes.c_float,))
     _build.launch("ang_block", "ang_block_res", fn, x.device, *ptrs, m.data_ptr(),
                   l.data_ptr(), attn.data_ptr(), *tail)

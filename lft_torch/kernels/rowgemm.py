@@ -1,0 +1,129 @@
+"""The weight streams of the 3xTF32 row-tile products (`lft_torch/csrc/
+rowgemm.cuh`) in plain PyTorch, and the geometry their kernels are built
+with.
+
+K2.5 / K11.5 (`spa_block.ffn_out`) and K1 (`ang_block.ang_block`) run their
+products as `acc[64 x N] += A[64 x K] B` on the tensor cores: A a
+warpgroup's token rows in shared memory, B a weight matrix split into TF32
+hi and lo and laid out in K-major core matrices, streamed through a ring of
+`RG_SF`-float stages. The first kernel of each launch (`rg_weights_kernel`)
+writes a kernel's weights as one stream of such pieces, in the order its
+products read them, into a scratch buffer the wrapper allocates. `piece`,
+`ffn_out_stream` and `ang_block_stream` are that preparation in plain
+PyTorch, which the CPU tests emulate the kernels from; `*_floats` are the
+scratch sizes and `*_smem` the shared memory the kernels take
+(`FfnOut`, `AngLayout` in the sources).
+"""
+
+from __future__ import annotations
+
+import torch
+
+RG_M = 128             # token rows of a block: 2 warpgroups of 64
+RG_SF = 4096           # floats of a weight-ring stage (16 KB)
+RG_SMEM_MAX = 232448   # shared memory a block can use on an H100
+
+
+def tf32_rn(a: torch.Tensor) -> torch.Tensor:
+    """a rounded to TF32 as `cvt.rna.tf32.f32` rounds: to nearest, ties away
+    from zero (add 0x1000 to the bits, clear the low 13)."""
+    return ((a.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(a: torch.Tensor):
+    """(hi, lo), a = hi + lo up to 2^-21 |a|: hi = tf32_rn(a), lo = a - hi
+    truncated to TF32 (what an MMA reads of it): the tokenization's split
+    (tf32.cuh:split_tf32)."""
+    hi = tf32_rn(a)
+    return hi, ((a - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32_rn(a: torch.Tensor):
+    """(hi, lo), a = hi + lo up to 2^-23 |a|: both rounded to nearest, the
+    row-tile products' split (tf32.cuh:split_tf32_rn)."""
+    hi = tf32_rn(a)
+    return hi, tf32_rn(a - hi)
+
+
+def piece(B: torch.Tensor, split=split_tf32_rn) -> torch.Tensor:
+    """One K x N weight matrix as the kernels read it, flat: split into TF32
+    hi/lo (`split_tf32_rn`; the tokenization's `split_tf32`) and laid out
+    [K / 8, 2, 2, N / 8, 8, 4]: (k8 step kk, hi or lo, k half kh, n8 tile j,
+    row n, t) holds B[8 kk + 4 kh + t][8 j + n], so a k8 step's hi (or lo)
+    is core matrices of 8 columns x 4 k (128 bytes each), N / 8 of them
+    along N, then the second k half: the K-major operand `wgmma` reads
+    without swizzle."""
+    K, N = B.shape
+    hi, lo = split(B)
+    f = torch.stack([hi, lo]).reshape(2, K // 8, 2, 4, N // 8, 8)
+    return f.permute(1, 0, 2, 4, 5, 3).reshape(-1)
+
+
+def hidden_chunk(width: int) -> int:
+    """Columns of the FFN's hidden layer a kernel computes at a time
+    (hidden width 2 x `width`): at most 64."""
+    return min(64, 2 * width)
+
+
+def ffn_out_pieces(w1, w2, wlin):
+    """K2.5's weights in stream order: per hidden chunk W1[:, chunk] and
+    W2[chunk, :], then Wlin."""
+    D = w1.shape[0]
+    hc = hidden_chunk(D)
+    out = []
+    for j in range(0, 2 * D, hc):
+        out += [w1[:, j:j + hc], w2[j:j + hc]]
+    return out + [wlin]
+
+
+def ang_block_pieces(wts: dict):
+    """K1's weights in stream order: Wv, Wq, Wk, Wo, then per hidden chunk
+    W1[:, chunk] and W2[chunk, :]."""
+    C = wts["wq"].shape[0]
+    hc = hidden_chunk(C)
+    out = [wts["wv"], wts["wq"], wts["wk"], wts["wo"]]
+    for j in range(0, 2 * C, hc):
+        out += [wts["w1"][:, j:j + hc], wts["w2"][j:j + hc]]
+    return out
+
+
+def ffn_out_stream(wts: dict) -> torch.Tensor:
+    """Plain version of the K2.5 / K11.5 launches' weight preparation."""
+    return torch.cat([piece(p) for p in ffn_out_pieces(wts["w1"], wts["w2"], wts["wlin"])])
+
+
+def ang_block_stream(wts: dict) -> torch.Tensor:
+    """Plain version of the K1 launches' weight preparation."""
+    return torch.cat([piece(p) for p in ang_block_pieces(wts)])
+
+
+def ffn_out_floats(C: int) -> int:
+    """Floats of K2.5's weight stream (FfnOut<C>::FLOATS)."""
+    D = 2 * C
+    return 2 * (4 * D * D + D * C)
+
+
+def ang_block_floats(C: int) -> int:
+    """Floats of K1's weight stream (AngLayout<C>::FLOATS)."""
+    return 16 * C * C
+
+
+def ring_slots(tile_bytes: int) -> int:
+    """Weight-ring slots beside `tile_bytes` of rows (rg_slots)."""
+    return min(8, (RG_SMEM_MAX - tile_bytes) // (RG_SF * 4))
+
+
+def ffn_out_smem(C: int) -> int:
+    """Shared memory of a K2.5 block: xn2 / y [128, 2C + 4], a hidden chunk
+    [128, 68] and the ring (FfnOut<C>::BYTES)."""
+    D = 2 * C
+    tiles = RG_M * (D + 4 + hidden_chunk(D) + 4) * 4
+    return tiles + ring_slots(tiles) * RG_SF * 4
+
+
+def ang_block_smem(C: int) -> int:
+    """Shared memory of a K1 block: four [128, C + 4] tiles (x / q, xn /
+    attention / LN2, k, v / a hidden chunk) and the ring
+    (AngLayout<C>::BYTES)."""
+    tiles = 4 * RG_M * (C + 4) * 4
+    return tiles + ring_slots(tiles) * RG_SF * 4

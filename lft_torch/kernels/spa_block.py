@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
 from lft_torch.kernels.common import KERNEL_C
+from lft_torch.kernels.rowgemm import ffn_out_floats, piece, split_tf32
 from lft_torch.kernels.spa_attn_hp import (_gather_window, _hp_geometry_exists,
                                            _scatter_window, _window_probs)
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
@@ -238,15 +239,6 @@ def tok_tile(h: int, w: int, C: int):
     return best[1]
 
 
-def split_tf32(a: torch.Tensor):
-    """(hi, lo), a = hi + lo up to 2^-21 |a|: hi rounded to TF32 as
-    `cvt.rna.tf32.f32` rounds (to nearest, ties away from zero), lo = a - hi
-    truncated to TF32 (what an MMA reads of it)."""
-    bits = a.contiguous().view(torch.int32)
-    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-    return hi, ((a - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
 def tap_weights(wu: torch.Tensor, backward: bool = False) -> torch.Tensor:
     """Plain version of the kernels' weight preparation (tokenize.cuh:
     tap_weights_kernel, the first kernel of each launch), which the CPU
@@ -259,9 +251,7 @@ def tap_weights(wu: torch.Tensor, backward: bool = False) -> torch.Tensor:
     (128 bytes each), N / 8 of them along N, then the second k half."""
     B = wu.flip(0).transpose(1, 2) if backward else wu
     K, N = B.shape[1:]
-    hi, lo = split_tf32(B)
-    f = torch.stack([hi, lo], dim=1).reshape(9, 2, K // 8, 2, 4, N // 8, 8)
-    return f.permute(0, 2, 1, 3, 5, 6, 4).contiguous()
+    return torch.stack([piece(b, split_tf32) for b in B]).reshape(9, K // 8, 2, 2, N // 8, 8, 4)
 
 
 # ------------------------------------------------------ kernel wrappers ---
@@ -381,7 +371,9 @@ def outproj_ln(attn, tok, wts):
 def ffn_out(xn2, x2, wts, views=None):
     """Step 5: (xn2, x2) [V, h, w, D] -> block output [V, h, w, C]. With
     `views` = A2 the output is pixel-major [V / A2, h, w, A2, C], counted as
-    `spa_ffn_out_pm`."""
+    `spa_ffn_out_pm`. On the card its three products run 3xTF32 on the
+    tensor cores (`csrc/rowgemm.cuh`), the weights split by the launch's
+    first kernel into a scratch of `rowgemm.ffn_out_stream`'s layout."""
     if xn2.device.type != "cuda":
         out = ffn_out_plain(xn2, x2, wts)
         return out if views is None else _to_pixel_major(out, views)
@@ -396,10 +388,14 @@ def ffn_out(xn2, x2, wts, views=None):
         V, h, w = lead
         out = torch.empty(V // views, h, w, views, C, device=x2.device)
         dims = (V // views, h * w, views, C)
-    fn = _build.bind("spa_block", "lft_" + name, 6, (ctypes.c_int,) * len(dims))
+    if tuple(wts["w1"].shape) != (D, 2 * D) or tuple(wts["wlin"].shape) != (D, C):
+        raise ValueError(f"{name}: w1 {tuple(wts['w1'].shape)}, wlin "
+                         f"{tuple(wts['wlin'].shape)} for x2 {tuple(x2.shape)}")
+    wf = torch.empty(ffn_out_floats(C), device=x2.device)   # scratch: the split weights
+    fn = _build.bind("spa_block", "lft_" + name, 7, (ctypes.c_int,) * len(dims))
     _build.launch("spa_block", name, fn, x2.device, xn2.data_ptr(),
                   x2.data_ptr(), wts["w1"].data_ptr(), wts["w2"].data_ptr(),
-                  wts["wlin"].data_ptr(), out.data_ptr(), *dims)
+                  wts["wlin"].data_ptr(), wf.data_ptr(), out.data_ptr(), *dims)
     return out
 
 

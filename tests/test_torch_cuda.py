@@ -751,6 +751,71 @@ def test_tokenize_pm_kernel_3xtf32(cuda_device, C, Bb, h, w, A2):
     assert torch.equal(tok, again[0]) and torch.equal(xn, again[1])
 
 
+# ------------------------------- the row-tile products on the tensor cores ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("V,h,w,A2", [(3, 9, 7, None), (4, 9, 7, 2), (20, 31, 33, None)])
+def test_ffn_out_kernels_3xtf32(cuda_device, C, V, h, w, A2):
+    """K2.5 (A2 None) and K11.5 run 3xTF32 on the tensor cores: against the
+    plain version, against float64 within twice the f32 plain version's
+    error (TF32 off), one launch, bitwise repeatable. T = V h w is no
+    multiple of the 128-row tile, and at 20 x 31 x 33 blocks take two tiles
+    each."""
+    p = _params(C, cuda_device, seed=C + V)
+    wts = spa_block.spa_weights(p, "altblock.1.spa_trans.")
+    g = torch.Generator(device=cuda_device).manual_seed(C * V + h)
+    xn2 = torch.randn(V, h, w, 2 * C, device=cuda_device, generator=g)
+    x2 = torch.randn(V, h, w, 2 * C, device=cuda_device, generator=g)
+    name = "spa_ffn_out" if A2 is None else "spa_ffn_out_pm"
+    reset_launches()
+    got = spa_block.ffn_out(xn2, x2, wts, A2)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == 1 and sum(LAUNCHES.values()) == 1
+    ref = spa_block.ffn_out_plain(xn2, x2, wts)
+    exact = spa_block.ffn_out_plain(xn2.double(), x2.double(),
+                                    {k: v.double() for k, v in wts.items()})
+    if A2 is not None:
+        ref, exact = spa_block._to_pixel_major(ref, A2), spa_block._to_pixel_major(exact, A2)
+    torch.testing.assert_close(got, ref, **TOL)
+    err, err_f32, _ = _f64_err(got, ref, exact)
+    assert err <= 2 * err_f32, (err, err_f32)
+    assert torch.equal(got, spa_block.ffn_out(xn2, x2, wts, A2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("A2,N", [(25, 37), (25, 703), (81, 150), (121, 140)])
+def test_ang_block_kernels_3xtf32(cuda_device, C, A2, N):
+    """K1 and its residual form run 3xTF32 on the tensor cores: against the
+    plain versions (the forward within 1e-4, the residual form within 5e-4
+    max |plain| per output), against float64 within twice the f32 plain
+    version's error (TF32 off), one launch each, bitwise repeatable. The
+    last tile is ragged at A2 = 25 (N % 5 != 0); at A2 = 81, 121 a tile is
+    one pixel and pad rows; past 132 tiles blocks take several."""
+    p = _params(C, cuda_device, seed=A2)
+    wts = ang_block.ang_weights(p, "altblock.0.ang_trans.")
+    g = torch.Generator(device=cuda_device).manual_seed(C + N)
+    x = torch.randn(N, A2, C, device=cuda_device, generator=g)
+    pe = torch.from_numpy(angular_position(A2, C)).to(cuda_device)
+    reset_launches()
+    got = ang_block.ang_block(x, pe, wts, 8)
+    res = ang_block.ang_block(x, pe, wts, 8, with_res=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ang_block"] == 1 and LAUNCHES["ang_block_res"] == 1
+    ref = ang_block.ang_block_plain(x, pe, wts, 8)
+    torch.testing.assert_close(got, ref, **TOL)
+    _close(res, ang_block.ang_block_plain(x, pe, wts, 8, with_res=True))
+    exact = ang_block.ang_block_plain(x.double(), pe.double(),
+                                      {k: v.double() for k, v in wts.items()}, 8)
+    for out in (got, res[0]):
+        err, err_f32, _ = _f64_err(out, ref, exact)
+        assert err <= 2 * err_f32, (err, err_f32)
+    assert torch.equal(got, ang_block.ang_block(x, pe, wts, 8))
+    again = ang_block.ang_block(x, pe, wts, 8, with_res=True)
+    assert all(torch.equal(a, b) for a, b in zip(res, again))
+
+
 # ------------------------------------------ widths the kernels do not take ---
 
 @pytest.mark.cuda
