@@ -19,12 +19,13 @@
    path gives it (K1 [16384, 25, 64], K2 [400, 32, 32, 64]) and times both
    with CUDA events (median after warm-up), beside the card's bound; the
    kernels that run their products 3xTF32 on the tensor cores (K1
-   `ang_block`, K2's tokenization `spa_tokenize_ln` and `spa_ffn_out`: bound
-   on the tensor cores, K1's attention on the FP32 pipes, the FP32 pipes'
-   whole bound printed beside) must keep their output within twice the f32
-   plain version's error against float64 and repeat bitwise, and cuDNN's
-   `F.conv2d` of the same memory (the tokenization's conv part only) is
-   timed beside it;
+   `ang_block`, K2's tokenization `spa_tokenize_ln`, `spa_qkv`,
+   `spa_outproj_ln` and `spa_ffn_out`: bound on the tensor cores, K1's
+   attention on the FP32 pipes, the FP32 pipes' whole bound printed beside)
+   must keep each output within twice the f32 plain version's error against
+   float64 and repeat bitwise; cuDNN's `F.conv2d` of the same memory (the
+   tokenization's conv part only) and the cuBLAS f32 products of `spa_qkv`
+   and `spa_outproj_ln` are timed beside them;
 7. trains: the 4x recipe (Adam 2e-4, batch 4 of 32x32-view patches made on
    the card by `synth_batch` from `--seed`, a 160x160 LR mosaic) from the
    same checkpoint, through `make_train_step`: one step through the kernels
@@ -370,10 +371,22 @@ def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -
     print(f"  spa_tokenize_ln conv part only (cuDNN F.conv2d on the same memory, TF32 off; no PE, "
           f"no LN1) at {[V, h, w, C]}: {ms_conv:.4f} ms, the kernel {ms_k:.4f} ms", flush=True)
 
+    ws64 = {k_: v_.double() for k_, v_ in ws.items()}
     q, k, v = sb.qkv_plain(xn, tok, ws)
-    record("spa_qkv", src, rep, sb.qkv(xn, tok, ws), (q, k, v),
-           lambda: sb.qkv(xn, tok, ws), lambda: sb.qkv_plain(xn, tok, ws),
-           2 * T * D * 3 * D, nbytes(xn, tok, q, k, v) + wbytes("wqk", "wv"))
+    got = sb.qkv(xn, tok, ws)
+    ms_k, _, _ = record("spa_qkv", src, rep, got, (q, k, v),
+                        lambda: sb.qkv(xn, tok, ws), lambda: sb.qkv_plain(xn, tok, ws),
+                        2 * T * D * 3 * D, nbytes(xn, tok, q, k, v) + wbytes("wqk", "wv"),
+                        tf32_products=3)
+    again = sb.qkv(xn, tok, ws)
+    repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+    for name, g_, r_, e_ in zip("qkv", got, (q, k, v),
+                                sb.qkv_plain(xn.double(), tok.double(), ws64)):
+        f64_check(f"spa_qkv {name}", g_, r_, e_, repeats)
+    del got, again
+    ms_lib = timed(lambda: (xn @ ws["wqk"], tok @ ws["wv"]))
+    print(f"  spa_qkv: its two cuBLAS f32 products (xn @ wqk, tok @ wv) on the same memory "
+          f"{ms_lib:.4f} ms, the kernel {ms_k:.4f} ms", flush=True)
 
     attn = windowed_attention(q, k, v, H, K)
     pairs = V * valid_window_pairs(h, w, K // 2)
@@ -387,9 +400,21 @@ def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -
            lib_fn=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
 
     x2, xn2 = sb.outproj_ln_plain(attn, tok, ws)
-    record("spa_outproj_ln", src, rep, sb.outproj_ln(attn, tok, ws), (x2, xn2),
-           lambda: sb.outproj_ln(attn, tok, ws), lambda: sb.outproj_ln_plain(attn, tok, ws),
-           2 * T * D * D, nbytes(attn, tok, x2, xn2) + wbytes("wo", "ln"))
+    got = sb.outproj_ln(attn, tok, ws)
+    ms_k, _, _ = record("spa_outproj_ln", src, rep, got, (x2, xn2),
+                        lambda: sb.outproj_ln(attn, tok, ws),
+                        lambda: sb.outproj_ln_plain(attn, tok, ws),
+                        2 * T * D * D, nbytes(attn, tok, x2, xn2) + wbytes("wo", "ln"),
+                        tf32_products=3)
+    again = sb.outproj_ln(attn, tok, ws)
+    repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+    for name, g_, r_, e_ in zip(("x2", "xn2"), got, (x2, xn2),
+                                sb.outproj_ln_plain(attn.double(), tok.double(), ws64)):
+        f64_check(f"spa_outproj_ln {name}", g_, r_, e_, repeats)
+    del got, again
+    ms_lib = timed(lambda: torch.addmm(tok.reshape(-1, D), attn.reshape(-1, D), ws["wo"]))
+    print(f"  spa_outproj_ln: its cuBLAS f32 product with the residual (addmm(tok, attn, wo), "
+          f"no LN2) on the same memory {ms_lib:.4f} ms, the kernel {ms_k:.4f} ms", flush=True)
 
     out = sb.ffn_out_plain(xn2, x2, ws)
     got = sb.ffn_out(xn2, x2, ws)

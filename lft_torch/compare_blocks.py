@@ -4,29 +4,40 @@ in turns in one process, on one CUDA card.
     python3 -m lft_torch.compare_blocks OTHER_SPA_BLOCK_CU OTHER_ANG_BLOCK_CU
 
 The two sources are `spa_block.cu` and `ang_block.cu` of a revision whose
-K2.5 and K1 have the C interface the port had before its 3xTF32 row-tile
-products (no weight scratch): `lft_spa_ffn_out(xn2, x2, w1, w2, wlin, out,
-T, C, stream)`, `lft_spa_ffn_out_pm(xn2, x2, w1, w2, wlin, out, Bb, hw, A2,
-C, stream)`, `lft_ang_block_fwd(x, pe, ln, wq, wk, wv, wo, w1, w2, out, N,
-A2, C, H, scale, stream)` and `lft_ang_block_fwd_res(..., out, m, l, attn,
-N, A2, C, H, scale, stream)`; e.g. `git archive <commit> lft_torch/csrc`
-unpacked into a git-ignored directory, so that their headers come with
-them. Each is built with the port's nvcc flags into a temporary directory.
+K2.5 and K1 already run on `rowgemm.cuh` (their C entries take the weight
+scratch, as this checkout's do) while K2.2 and K2.4 still run on the FP32
+pipes (no scratch): the port at commit 1dcb33f. Its C interfaces:
+`lft_spa_qkv(xn, tok, wqk, wv, q, k, v, T, C, stream)`,
+`lft_spa_outproj_ln(attn, tok, wo, ln, x2, xn2, T, C, stream)`,
+`lft_spa_ffn_out(xn2, x2, w1, w2, wlin, wf, out, T, C, stream)`,
+`lft_spa_ffn_out_pm(xn2, x2, w1, w2, wlin, wf, out, Bb, hw, A2, C, stream)`,
+`lft_ang_block_fwd(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out, N, A2, C, H,
+scale, stream)` and `lft_ang_block_fwd_res(..., wf, out, m, l, attn, N, A2,
+C, H, scale, stream)`. Unpack the revision's whole `lft_torch/csrc` (`git
+archive <commit> lft_torch/csrc`) into a git-ignored directory, so that its
+headers come with it. Each source is built with the port's nvcc flags into
+a temporary directory.
 
 With the demo checkpoint's block-0 weights, at the shapes of the main
-paths: K2.5 `spa_ffn_out` at [400, 32, 32, 64] (a scene's chunk) and [100,
-32, 32, 64] (a fused train step), K11.5 `spa_ffn_out_pm` at [16, 32, 32,
-25, 64], K1 `ang_block` at [16384, 25, 64], K1 `ang_block_res` at [4096,
-25, 64] and at [1024, 81, 64] (angRes 9). Both builds are checked against
-the plain version (the forwards within 1e-4 max(1, max |plain|), the
-residual form within 5e-4 max |plain| per output) and for a bitwise
-repeat; their max error against float64 (the block output) is printed
-beside the f32 plain version's (TF32 off); both are timed in device time
-(`profile_scene.device_ms`) in the order other, this, this, other. For K2.5
-and K11.5 the three cuBLAS f32 products of the same function on the same
-memory are timed beside them: context, not a yardstick, since no one
-PyTorch call computes the step. Prints the card's name and power limit
-first. Exits non-zero without a card.
+paths: K2.2 `spa_qkv`, K2.4 `spa_outproj_ln` and K2.5 `spa_ffn_out` at
+[400, 32, 32, 64] (a scene's chunk) and [100, 32, 32, 64] (a fused train
+step), K11.5 `spa_ffn_out_pm` at [16, 32, 32, 25, 64], K1 `ang_block` at
+[16384, 25, 64], K1 `ang_block_res` at [4096, 25, 64] and at [1024, 81,
+64] (angRes 9). Both builds are checked against the plain version (the
+forwards within 1e-4 max(1, max |plain|), the residual form within 5e-4
+max |plain| per output) and for a bitwise repeat; their max error against
+float64 (each output of K2.2 and K2.4, the block output of the others) is
+printed beside the f32 plain version's (TF32 off); both are timed in device
+time (`profile_scene.device_ms`) in the order other, this, this, other.
+Beside K2.2, K2.4, K2.5 and K11.5 the cuBLAS f32 products of the same
+function on the same memory are timed (K2.4's with its residual, as one
+`addmm`, without LN2): context, not a yardstick, since no one PyTorch call
+computes the step. Then K2 chained at [400, 32, 32, 64] and K11 chained at
+[16, 32, 32, 25, 64], with steps 2 and 4 of either build and the other
+steps of this checkout, in the same turns, each held to the plain chain:
+the chain's device time and, within it, that of its step 5 (K2.5 or
+K11.5), the step that reads what step 4 wrote. Prints the card's name and power limit first. Exits
+non-zero without a card.
 """
 
 from __future__ import annotations
@@ -45,57 +56,80 @@ TRAIN_REL = 5e-4       # the residual form: max |diff| <= 5e-4 max |plain|, per 
 
 
 def _load_other(spa_src: str, ang_src: str, build_dir: str):
-    """(ffn_out, ang_block) of the other revision, with this checkout's
-    wrappers' arguments."""
+    """(qkv, outproj_ln, ffn_out, ang_block) of the other revision, with
+    this checkout's wrappers' arguments."""
     import ctypes
 
     from lft_torch.kernels import _build
+    from lft_torch.kernels.rowgemm import ang_block_floats, ffn_out_floats
     spa = _build.build_library(spa_src, build_dir, "other_spa_block")
     ang = _build.build_library(ang_src, build_dir, "other_ang_block")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    spa.lft_spa_ffn_out.argtypes = [P] * 6 + [I] * 2 + [P]
-    spa.lft_spa_ffn_out_pm.argtypes = [P] * 6 + [I] * 4 + [P]
-    ang.lft_ang_block_fwd.argtypes = [P] * 10 + [I] * 4 + [F, P]
-    ang.lft_ang_block_fwd_res.argtypes = [P] * 13 + [I] * 4 + [F, P]
+    spa.lft_spa_qkv.argtypes = [P] * 7 + [I] * 2 + [P]
+    spa.lft_spa_outproj_ln.argtypes = [P] * 6 + [I] * 2 + [P]
+    spa.lft_spa_ffn_out.argtypes = [P] * 7 + [I] * 2 + [P]
+    spa.lft_spa_ffn_out_pm.argtypes = [P] * 7 + [I] * 4 + [P]
+    ang.lft_ang_block_fwd.argtypes = [P] * 11 + [I] * 4 + [F, P]
+    ang.lft_ang_block_fwd_res.argtypes = [P] * 14 + [I] * 4 + [F, P]
     stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def check(rc, what):
+        if rc:
+            raise RuntimeError(f"the other {what} failed to launch ({rc})")
+
+    def qkv(xn, tok, wts):
+        D = tok.shape[-1]
+        q, k, v = (torch.empty_like(tok) for _ in range(3))
+        check(spa.lft_spa_qkv(xn.data_ptr(), tok.data_ptr(), wts["wqk"].data_ptr(),
+                              wts["wv"].data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              tok.numel() // D, D // 2, stream()), "spa_qkv")
+        return q, k, v
+
+    def outproj_ln(attn, tok, wts):
+        D = tok.shape[-1]
+        x2, xn2 = torch.empty_like(tok), torch.empty_like(tok)
+        check(spa.lft_spa_outproj_ln(attn.data_ptr(), tok.data_ptr(), wts["wo"].data_ptr(),
+                                     wts["ln"].data_ptr(), x2.data_ptr(), xn2.data_ptr(),
+                                     tok.numel() // D, D // 2, stream()), "spa_outproj_ln")
+        return x2, xn2
 
     def ffn_out(xn2, x2, wts, views=None):
         *lead, D = x2.shape
         C = D // 2
         w = [wts[n].data_ptr() for n in ("w1", "w2", "wlin")]
+        wf = torch.empty(ffn_out_floats(C), device=x2.device)
         if views is None:
             out = torch.empty(*lead, C, device=x2.device)
-            rc = spa.lft_spa_ffn_out(xn2.data_ptr(), x2.data_ptr(), *w, out.data_ptr(),
-                                     x2.numel() // D, C, stream())
+            check(spa.lft_spa_ffn_out(xn2.data_ptr(), x2.data_ptr(), *w, wf.data_ptr(),
+                                      out.data_ptr(), x2.numel() // D, C, stream()),
+                  "spa_ffn_out")
         else:
             V, h, w_ = lead
             out = torch.empty(V // views, h, w_, views, C, device=x2.device)
-            rc = spa.lft_spa_ffn_out_pm(xn2.data_ptr(), x2.data_ptr(), *w, out.data_ptr(),
-                                        V // views, h * w_, views, C, stream())
-        if rc:
-            raise RuntimeError("the other spa_ffn_out failed to launch")
+            check(spa.lft_spa_ffn_out_pm(xn2.data_ptr(), x2.data_ptr(), *w, wf.data_ptr(),
+                                         out.data_ptr(), V // views, h * w_, views, C,
+                                         stream()), "spa_ffn_out_pm")
         return out
 
     def ang_block(x, pe, wts, H, with_res=False):
         N, A2, C = x.shape
         out = torch.empty_like(x)
+        wf = torch.empty(ang_block_floats(C), device=x.device)
         ptrs = [x.data_ptr(), pe.data_ptr(),
                 *(wts[n].data_ptr() for n in ("ln", "wq", "wk", "wv", "wo", "w1", "w2")),
-                out.data_ptr()]
+                wf.data_ptr(), out.data_ptr()]
         tail = (N, A2, C, H, float(C // H) ** -0.5, stream())
         if not with_res:
-            if ang.lft_ang_block_fwd(*ptrs, *tail):
-                raise RuntimeError("the other ang_block failed to launch")
+            check(ang.lft_ang_block_fwd(*ptrs, *tail), "ang_block")
             return out
         m = torch.empty(N, A2, H, device=x.device)
         l = torch.empty_like(m)
         attn = torch.empty_like(x)
-        if ang.lft_ang_block_fwd_res(*ptrs, m.data_ptr(), l.data_ptr(), attn.data_ptr(),
-                                     *tail):
-            raise RuntimeError("the other ang_block_res failed to launch")
+        check(ang.lft_ang_block_fwd_res(*ptrs, m.data_ptr(), l.data_ptr(), attn.data_ptr(),
+                                        *tail), "ang_block_res")
         return out, m, l, attn
 
-    return ffn_out, ang_block
+    return qkv, outproj_ln, ffn_out, ang_block
 
 
 def _err(got, ref) -> float:
@@ -117,7 +151,8 @@ def main(argv=None) -> int:
     from lft_torch.device import resolve_device
     from lft_torch.kernels import ang_block as ab
     from lft_torch.kernels import spa_block as sb
-    from lft_torch.ops.posenc import angular_position
+    from lft_torch.ops.posenc import angular_position, spatial_position
+    from lft_torch.ops.unfold import unfold3x3_linear
     from lft_torch.profile_scene import device_ms
     from lft_torch.utils.checkpoint import load_checkpoint
 
@@ -135,8 +170,28 @@ def main(argv=None) -> int:
     D = 2 * C
     g = torch.Generator(device=dev).manual_seed(0)
     with tempfile.TemporaryDirectory() as tmp:
-        o_ffn, o_ang = _load_other(a.other_spa, a.other_ang, tmp)
+        o_qkv, o_out, o_ffn, o_ang = _load_other(a.other_spa, a.other_ang, tmp)
         cases = []
+        for V in (400, 100):
+            xn, tok, attn = (torch.randn(V, h, w, D, device=dev, generator=g) for _ in range(3))
+            ref = sb.qkv_plain(xn, tok, ws)
+            cases.append((f"K2.2 spa_qkv {[V, h, w, C]}", ref,
+                          sb.qkv_plain(xn.double(), tok.double(), ws64),
+                          lambda xn=xn, tok=tok: o_qkv(xn, tok, ws),
+                          lambda xn=xn, tok=tok: sb.qkv(xn, tok, ws),
+                          ("its two cuBLAS f32 products",
+                           lambda xn=xn, tok=tok: (xn @ ws["wqk"], tok @ ws["wv"])),
+                          KERNEL_ATOL * max(1.0, max(float(r.abs().max()) for r in ref)), None))
+            ref = sb.outproj_ln_plain(attn, tok, ws)
+            cases.append((f"K2.4 spa_outproj_ln {[V, h, w, C]}", ref,
+                          sb.outproj_ln_plain(attn.double(), tok.double(), ws64),
+                          lambda attn=attn, tok=tok: o_out(attn, tok, ws),
+                          lambda attn=attn, tok=tok: sb.outproj_ln(attn, tok, ws),
+                          ("its cuBLAS f32 product with the residual (addmm, no LN2)",
+                           lambda attn=attn, tok=tok: torch.addmm(
+                               tok.reshape(-1, D), attn.reshape(-1, D), ws["wo"])),
+                          KERNEL_ATOL * max(1.0, max(float(r.abs().max()) for r in ref)), None))
+            del xn, tok, attn
         for V, A2 in ((400, None), (100, None), (400, 25)):
             xn2 = torch.randn(V, h, w, D, device=dev, generator=g)
             x2 = torch.randn(V, h, w, D, device=dev, generator=g)
@@ -148,11 +203,12 @@ def main(argv=None) -> int:
             y = hid @ ws["w2"] + x2
             name = ("K2.5 spa_ffn_out", [V, h, w, C]) if A2 is None else \
                 ("K11.5 spa_ffn_out_pm", [V // A2, h, w, A2, C])
-            cases.append((f"{name[0]} {name[1]}", (ref,), exact,
+            cases.append((f"{name[0]} {name[1]}", (ref,), (exact,),
                           lambda xn2=xn2, x2=x2, A2=A2: o_ffn(xn2, x2, ws, A2),
                           lambda xn2=xn2, x2=x2, A2=A2: sb.ffn_out(xn2, x2, ws, A2),
-                          lambda xn2=xn2, hid=hid, y=y: (xn2 @ ws["w1"], hid @ ws["w2"],
-                                                         y @ ws["wlin"]),
+                          ("its three cuBLAS f32 products",
+                           lambda xn2=xn2, hid=hid, y=y: (xn2 @ ws["w1"], hid @ ws["w2"],
+                                                          y @ ws["wlin"])),
                           KERNEL_ATOL * max(1.0, float(ref.abs().max())), None))
             del hid, y
         for N, A2, res in ((16384, 25, False), (4096, 25, True), (1024, 81, True)):
@@ -160,13 +216,13 @@ def main(argv=None) -> int:
             pe = torch.from_numpy(angular_position(A2, C)).to(dev)
             ref = _tuple(ab.ang_block_plain(x, pe, wa, H, with_res=res))
             exact = ab.ang_block_plain(x.double(), pe.double(), wa64, H)
-            cases.append((f"K1 ang_block{'_res' if res else ''} {[N, A2, C]}", ref, exact,
+            cases.append((f"K1 ang_block{'_res' if res else ''} {[N, A2, C]}", ref, (exact,),
                           lambda x=x, pe=pe, res=res: o_ang(x, pe, wa, H, res),
                           lambda x=x, pe=pe, res=res: ab.ang_block(x, pe, wa, H, with_res=res),
                           None, KERNEL_ATOL * max(1.0, float(ref[0].abs().max())),
                           TRAIN_REL if res else None))
         for what, ref, exact, other, this, lib, limit, rel in cases:
-            e_f32 = _err(ref[0], exact)
+            e_f32 = [_err(r, e) for r, e in zip(ref, exact)]
             errs = []
             for fn in (other, this):
                 got = _tuple(fn())
@@ -176,18 +232,48 @@ def main(argv=None) -> int:
                     if not diff <= lim:
                         raise AssertionError(f"{what}: a build disagrees with the plain "
                                              f"version at output {i} ({diff:.3e} > {lim:.3e})")
-                errs.append(_err(got[0], exact))
+                errs.append([_err(u, e) for u, e in zip(got, exact)])
                 if not all(torch.equal(u, v) for u, v in zip(got, _tuple(fn()))):
                     raise AssertionError(f"{what}: a build does not repeat bitwise")
                 del got
             t = [device_ms(other), device_ms(this), device_ms(this), device_ms(other)]
-            lib_note = ""
-            if lib is not None:
-                lib_note = f", three cuBLAS f32 products {device_ms(lib):.4f} ms"
+            lib_note = "" if lib is None else f", {lib[0]} {device_ms(lib[1]):.4f} ms"
+            f64 = "; ".join(
+                f"other {eo:.3e}, this {et:.3e}, f32 plain (TF32 off) {ep:.3e} "
+                f"(this / plain {et / max(ep, 1e-30):.3f}x)"
+                for eo, et, ep in zip(errs[0], errs[1], e_f32))
             print(f"{what}: other {t[0]:.4f} / {t[3]:.4f} ms, this {t[1]:.4f} / {t[2]:.4f} ms"
-                  f"{lib_note}; max |out - float64|: other {errs[0]:.3e}, this {errs[1]:.3e}, "
-                  f"f32 plain (TF32 off) {e_f32:.3e} (this / plain "
-                  f"{errs[1] / max(e_f32, 1e-30):.3f}x)", flush=True)
+                  f"{lib_note}; max |out - float64| per output: {f64}", flush=True)
+
+        # K2 and K11 chained: steps 2 and 4 of either build, the rest this
+        # checkout's
+        spa_pe = torch.from_numpy(spatial_position(h, w, C)).to(dev)
+        pe_tok = unfold3x3_linear(spa_pe[None], ws["mlp"])[0].contiguous()
+        xs = torch.randn(400, h, w, C, device=dev, generator=g)
+        xp = torch.randn(16, h, w, 25, C, device=dev, generator=g)
+
+        def chain(x, qkv, outproj, views):
+            tok, xn = sb.tokenize_ln(x, pe_tok, ws, views is not None)
+            q, k, v = qkv(xn, tok, ws)
+            x2, xn2 = outproj(sb.window_attn(q, k, v, H, 5), tok, ws)
+            return sb.ffn_out(xn2, x2, ws, views)
+
+        for what, x, views, ref, step5 in (
+                ("K2 chained", xs, None, sb.spa_block_plain(xs, pe_tok, ws, H, 5),
+                 "spa_ffn_out_kernel<64, false>"),
+                ("K11 chained", xp, 25,
+                 sb._to_pixel_major(sb.spa_block_plain(sb._to_view_major(xp), pe_tok, ws, H, 5),
+                                    25), "spa_ffn_out_kernel<64, true>")):
+            other = lambda x=x, views=views: chain(x, o_qkv, o_out, views)
+            this = lambda x=x, views=views: chain(x, sb.qkv, sb.outproj_ln, views)
+            lim = KERNEL_ATOL * max(1.0, float(ref.abs().max()))
+            for fn in (other, this):
+                if not _err(fn(), ref) <= lim:
+                    raise AssertionError(f"{what}: a build disagrees with the plain chain")
+            t = [(device_ms(fn), device_ms(fn, kernel=step5)) for fn in (other, this, this, other)]
+            print(f"{what} {list(x.shape)}: other {t[0][0]:.4f} / {t[3][0]:.4f} ms, this "
+                  f"{t[1][0]:.4f} / {t[2][0]:.4f} ms; its step 5 within: other {t[0][1]:.4f} / "
+                  f"{t[3][1]:.4f} ms, this {t[1][1]:.4f} / {t[2][1]:.4f} ms", flush=True)
     return 0
 
 

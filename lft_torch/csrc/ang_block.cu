@@ -29,8 +29,8 @@
 //   online max, reading k/v from shared memory.
 // * v first (from x), then q over x's rows, then k; after the attention,
 //   x2 = a Wo + x (x read again from device memory, an L2 hit) goes over
-//   q's rows, LN2 runs on the accumulators (a row's C values lie in the
-//   four lanes of a quad; LN1 likewise, on x + pe read in that layout: the
+//   q's rows, LN2 runs on the accumulators (rowgemm.cuh:quad_ln: a row's C
+//   values lie in the four lanes of a quad; LN1 likewise, on x + pe read in that layout: the
 //   16 rows of a warp at once, where a row at a time left the warp waiting
 //   on its shuffles), and the FFN goes in hidden chunks of 64 columns:
 //   relu(LN2(x2) W1[:, chunk]) into shared memory over the dead k/v tiles,
@@ -70,52 +70,6 @@ struct AngLayout {
   static constexpr size_t BYTES = TILES + static_cast<size_t>(NS) * RG_SF * 4;
   static_assert(RP * LDH <= 2 * TILE, "a hidden chunk must fit over k and v");
 };
-
-// LayerNorm (torch's: biased variance, eps 1e-5, affine w, b) of the warp's
-// 16 rows held in the accumulator layout of a C-wide product (rowgemm.cuh):
-// row g + 8 h's C values lie in the four lanes of a quad, so a row's sums
-// take two shuffles and all 16 rows are normalised at once. Writes dst's
-// rows (the warp's first row at dst, stride ld).
-template <int C>
-__device__ __forceinline__ void quad_ln(RgAcc<C>& v, const float* __restrict__ w,
-                                        const float* __restrict__ b, float* dst, int ld) {
-  using PC = RgParts<C>;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float s = 0.f;
-#pragma unroll
-    for (int p = 0; p < PC::NP; ++p)
-#pragma unroll
-      for (int j = 0; j < PC::NW / 8; ++j) s += v[p][4 * j + 2 * h] + v[p][4 * j + 2 * h + 1];
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    const float mu = s / C;
-    float qq = 0.f;
-#pragma unroll
-    for (int p = 0; p < PC::NP; ++p)
-#pragma unroll
-      for (int j = 0; j < PC::NW / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float d = v[p][4 * j + 2 * h + e] - mu;
-          qq = fmaf(d, d, qq);
-        }
-    qq += __shfl_xor_sync(0xffffffffu, qq, 1);
-    qq += __shfl_xor_sync(0xffffffffu, qq, 2);
-    const float rstd = rsqrtf(qq / C + 1e-5f);
-    float* row = dst + (g + 8 * h) * ld;
-#pragma unroll
-    for (int p = 0; p < PC::NP; ++p)
-#pragma unroll
-      for (int j = 0; j < PC::NW / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = p * PC::NW + 8 * j + 2 * q + e;
-          row[c] = (v[p][4 * j + 2 * h + e] - mu) * rstd * __ldg(w + c) + __ldg(b + c);
-        }
-  }
-}
 
 // wf: the weight stream (AngLayout::FLOATS floats, kernels/rowgemm.py:
 // ang_block_stream), written by rg_weights_kernel.
@@ -175,7 +129,10 @@ __global__ void __launch_bounds__(RG_NT, 1)
         v0 = a.x + b.x;
         v1 = a.y + b.y;
       });
-      quad_ln<C>(xp, ln, ln + C, XN + wr * LD, LD);
+      quad_ln<C>(xp, ln, ln + C);
+      rg_pairs<C>(xp, [&](int r, int c, float v0, float v1) {
+        *reinterpret_cast<float2*>(XN + (wr + r) * LD + c) = make_float2(v0, v1);
+      });
     }
     __syncwarp();
 
@@ -276,7 +233,10 @@ __global__ void __launch_bounds__(RG_NT, 1)
       *reinterpret_cast<float2*>(XQ + (wr + r) * LD + c) = make_float2(v0, v1);
     });
     __syncwarp();   // the attention output is read
-    quad_ln<C>(x2, ln + 2 * C, ln + 3 * C, XN + wr * LD, LD);
+    quad_ln<C>(x2, ln + 2 * C, ln + 3 * C);
+    rg_pairs<C>(x2, [&](int r, int c, float v0, float v1) {
+      *reinterpret_cast<float2*>(XN + (wr + r) * LD + c) = make_float2(v0, v1);
+    });
     __syncwarp();
 
     // out = relu(LN2(x2) W1) W2 + x2, the hidden layer in chunks

@@ -6,9 +6,9 @@
 // weight matrix that stays in device memory (it is small enough to live in
 // L1/L2: at most 256 x 256 f32), in full f32 on the FP32 pipes (no TF32, no
 // tensor cores): the port's parity mode is the reference's f32/HIGHEST
-// arithmetic. K2.2, K2.4, the backwards K3.a-d and K4 use it. The 3x3
-// tokenization (tokenize.cuh: K2.1, K11.1, K3.e), the row-tile products of
-// K1 and K2.5 / K11.5 (rowgemm.cuh) and the weight gradients (wgrad.cu)
+// arithmetic. The backwards K3.a-d and K4 use it. The 3x3 tokenization
+// (tokenize.cuh: K2.1, K11.1, K3.e), the row-tile products of K1, K2.2,
+// K2.4 and K2.5 / K11.5 (rowgemm.cuh) and the weight gradients (wgrad.cu)
 // reach the same accuracy on the tensor cores instead, as 3xTF32 (tf32.cuh).
 #pragma once
 

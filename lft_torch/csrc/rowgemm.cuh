@@ -1,6 +1,7 @@
 // A block's token-row products on the tensor cores, 3xTF32 (`wgmma`): the
-// shared building block of K2.5 / K11.5 (spa_ffn_out[_pm], spa_block.cu)
-// and K1 (ang_block[_res], ang_block.cu).
+// shared building block of K2.2 (spa_qkv), K2.4 (spa_outproj_ln), K2.5 /
+// K11.5 (spa_ffn_out[_pm]), all in spa_block.cu, and K1 (ang_block[_res],
+// ang_block.cu).
 //
 //   acc[64 x N] (+)= A[64 x K] B[K x N]
 //
@@ -18,6 +19,11 @@
 //   stream goes through a ring of RG_SF-float stages (`WeightRing`,
 //   `cp.async`, NS - 2 stages ahead): split, the weights (576 KB for K2.5,
 //   256 KB for K1 at C = 64) do not fit in shared memory beside the rows.
+//   A weight that does fit (one D x D weight, 128 KB split at C = 64: K2.2
+//   and K2.4) stays resident for a whole pass over the tiles instead
+//   (`ResidentWeights`): the same product reads it without a ring and
+//   without a block barrier, which on an H100 ran K2.2's products 1.7x
+//   faster than the ring did.
 // * 3xTF32 with both tails rounded to nearest (`split_tf32_rn`; B's by the
 //   weight kernel): the truncated tails of tf32.cuh's `split_tf32` err
 //   toward zero alike, and over these short products (K = 16-128) that
@@ -126,6 +132,7 @@ __device__ __forceinline__ void rg_static_for(F&& f) {
 // one), and the barrier of `enter` has seen every warpgroup past it.
 template <int NS>
 struct WeightRing {
+  static constexpr int SF = RG_SF;   // floats of a stage
   static constexpr int PD = NS - 2;
   static_assert(PD >= 1, "the ring needs three slots");
   float* slot;        // [NS][RG_SF]
@@ -166,6 +173,14 @@ struct WeightRing {
   }
 };
 
+// A weight held whole in shared memory for a pass over the tiles: one
+// stage as large as any stream, entered once, where the stream starts.
+struct ResidentWeights {
+  static constexpr int SF = 1 << 30;
+  const float* w;
+  __device__ __forceinline__ const float* enter() const { return w; }
+};
+
 template <int N>
 struct RgParts {
   static constexpr int NW = N < 64 ? N : 64;   // columns of a part (a wgmma's N)
@@ -199,18 +214,64 @@ __device__ __forceinline__ void rg_pairs(RgAcc<N>& acc, F f) {
         f(g + 8 * h, p * P::NW + 8 * j + 2 * q, acc[p][4 * j + 2 * h], acc[p][4 * j + 2 * h + 1]);
 }
 
+// LayerNorm (torch's: biased variance, eps 1e-5, affine w, b), in place,
+// of the warp's 16 rows held in the accumulator layout of an N-wide
+// product: row g + 8 h's N values lie in the four lanes of a quad, so a
+// row's sums take two shuffles and all 16 rows are normalised at once.
+template <int N>
+__device__ __forceinline__ void quad_ln(RgAcc<N>& v, const float* __restrict__ w,
+                                        const float* __restrict__ b) {
+  using P = RgParts<N>;
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float s = 0.f;
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+      for (int j = 0; j < P::NW / 8; ++j) s += v[p][4 * j + 2 * h] + v[p][4 * j + 2 * h + 1];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    const float mu = s / N;
+    float qq = 0.f;
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+      for (int j = 0; j < P::NW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float d = v[p][4 * j + 2 * h + e] - mu;
+          qq = fmaf(d, d, qq);
+        }
+    qq += __shfl_xor_sync(0xffffffffu, qq, 1);
+    qq += __shfl_xor_sync(0xffffffffu, qq, 2);
+    const float rstd = rsqrtf(qq / N + 1e-5f);
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+      for (int j = 0; j < P::NW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = p * P::NW + 8 * j + 2 * q + e;
+          float& x = v[p][4 * j + 2 * h + e];
+          x = (x - mu) * rstd * __ldg(w + c) + __ldg(b + c);
+        }
+  }
+}
+
 // acc (+)= A B for the warpgroup's 64 rows. `a`: the warp's first row in
 // shared memory, row stride lda floats. B: stream floats [OFF, OFF + 2 K N)
-// (K x N, `rg_weights_kernel`'s layout); `st` is the slot of the current
-// stage, entered here where a chain starts a new one.
-template <int K, int N, int OFF, int NS>
-__device__ __forceinline__ void rg_product(RgAcc<N>& acc, const float* a, int lda,
-                                           WeightRing<NS>& ring, const float*& st) {
+// (K x N, `rg_weights_kernel`'s layout) from `ring` (a WeightRing or
+// ResidentWeights); `st` is the slot of the current stage, entered here
+// where a chain starts a new one.
+template <int K, int N, int OFF, class W>
+__device__ __forceinline__ void rg_product(RgAcc<N>& acc, const float* a, int lda, W& ring,
+                                           const float*& st) {
   using P = RgParts<N>;
-  constexpr int NP = P::NP, NW = P::NW, R = P::R, NC = K / 16;
+  constexpr int NP = P::NP, NW = P::NW, R = P::R, NC = K / 16, SF = W::SF;
   constexpr int CHAIN = 32 * N;   // floats of B a chunk of 16 of K reads (hi and lo)
   static_assert(K % 16 == 0 && N % 16 == 0 && N <= 128, "unsupported product shape");
-  static_assert(OFF % CHAIN == 0 && RG_SF % CHAIN == 0, "a chunk must not straddle two stages");
+  static_assert(OFF % CHAIN == 0 && SF % CHAIN == 0, "a chunk must not straddle two stages");
   constexpr int LBO = N / 8 * 128, SBO = 128;
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const float* a0 = a + g * lda + q;
@@ -234,7 +295,7 @@ __device__ __forceinline__ void rg_product(RgAcc<N>& acc, const float* a, int ld
     // the k8 steps' hi, then lo, 16 N and 8 N floats on (4 N and 2 N in the
     // descriptor's 16-byte units)
     const uint64_t d0 =
-        smem_desc(st + (OFF + c * CHAIN) % RG_SF + p * (NW / 8) * 32, LBO, SBO);
+        smem_desc(st + (OFF + c * CHAIN) % SF + p * (NW / 8) * 32, LBO, SBO);
     reg_fence(sum[z]);
     wgmma_fence();
 #pragma unroll
@@ -256,7 +317,7 @@ __device__ __forceinline__ void rg_product(RgAcc<N>& acc, const float* a, int ld
   load_a(0, 0);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    if ((OFF + c * CHAIN) % RG_SF == 0) st = ring.enter();
+    if ((OFF + c * CHAIN) % SF == 0) st = ring.enter();
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       const int i = c * NP + p;

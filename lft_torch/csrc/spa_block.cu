@@ -14,24 +14,23 @@
 // Why five kernels: at C = 64 / D = 128 the block's weights are ~0.8 MB in
 // f32 and one view's tokens 512 KB, far past the 227 KB of shared memory a
 // block can hold, so the TPU kernel's one-view-per-step VMEM chain cannot
-// carry over. Each step instead owns a tile of tokens (steps 2, 4: BM = 64;
-// step 5: 128, persistent; step 1: a rectangle of up to 128 pixels of one
-// view), runs its products from shared memory, and hands its result to the
-// next step through device memory. Every block
-// computes its own halo and zero padding (the TPU kernel zeroed scratch
-// borders once at grid step 0, which is exact only on a sequential grid).
-// The window step skips keys outside the image instead of scoring zero
-// keys and correcting the denominator.
+// carry over. Each step instead owns a tile of tokens (steps 2, 4, 5: 128,
+// persistent; step 1: a rectangle of up to 128 pixels of one view), runs
+// its products from shared memory, and hands its result to the next step
+// through device memory. Every block computes its own halo and zero padding
+// (the TPU kernel zeroed scratch borders once at grid step 0, which is
+// exact only on a sequential grid). The window step skips keys outside the
+// image instead of scoring zero keys and correcting the denominator.
 //
 // Bound on this card: at the production shape [400, 32, 32, 64] the block
 // does ~176 GFLOP over the window pairs and taps inside the image
 // (tokenisation 57.9, q/k 26.8, v 13.4, attention 5.2, Wo 13.4, FFN 53.7,
 // Token2SAI 6.7) and its intermediates add ~1.9 GB of device memory traffic
-// (~0.6 ms at 3.35 TB/s). Steps 1 and 5, the tokenisation and the FFN with
-// Token2SAI, run 3xTF32 on the tensor cores (tokenize.cuh and rowgemm.cuh,
-// where their bounds and designs are set out). Steps 2 and 4 run in f32 on
-// the FP32 pipes (common.cuh:gemm_acc), bound by operations (~0.8 ms at 67
-// TFLOP/s); the window step is bound by its k/v reads.
+// (~0.6 ms at 3.35 TB/s). Every product runs 3xTF32 on the tensor cores:
+// step 1 as an implicit GEMM (tokenize.cuh), steps 2, 4 and 5 as row-tile
+// products (rowgemm.cuh); their bounds and designs are set out at each
+// step. On the tensor cores steps 2 and 4 are bound by bytes, steps 1 and 5
+// by operations; the window step is bound by its k/v reads.
 //
 // K11, the same forward on a pixel-major buffer x [Bb, h, w, A2, C] ->
 // [Bb, h, w, A2, C] (replaces lft_tpu/kernels/spa_block.py:_fwd_call with
@@ -55,42 +54,134 @@ namespace {
 // ---- 1: tokenisation (9 shifted C -> D taps) + PE + LN1 -----------------
 // tap_conv_kernel<C, 2C, PM, true> (tokenize.cuh).
 
-// ---- 2: q/k from xn, v from tok -----------------------------------------
+// ---- 2 and 4: token rows times one resident D x D weight --------------
+// Steps 2 and 4 run their products 3xTF32 on the tensor cores (rowgemm.cuh)
+// as passes of one shape: out = a W over [T, D] rows, W one D x D weight
+// held in shared memory (`ResidentWeights`). Step 2 (replaces
+// lft_tpu/kernels/spa_block.py:142-147, qk = xn wqk and v = tok wv: v from
+// the RAW tok) is three passes, q = xn Wq, k = xn Wk, v = tok Wv; step 4
+// (:196-197) one, which adds tok to the finished product (x2 = attn Wo +
+// tok, one f32 rounding as in the plain version: accumulators started from
+// tok would round the sum at x2's scale once a chain, 4x the plain
+// version's error on an H100 when attn Wo is small beside tok) and
+// normalises it in place (LN2, rowgemm.cuh:quad_ln) before both are
+// written.
+//
+// Bound: at [400, 32, 32, 64] (T = 409,600, D = 128) step 2 does 40.3
+// GFLOP, 0.244 ms as 3 TF32 products at 495 TFLOP/s (0.60 on the FP32
+// pipes), and moves 1.05 GB (xn, tok in; q, k, v out), 0.313 ms at 3.35
+// TB/s; step 4 13.4 GFLOP (0.081 ms) and 0.84 GB (attn, tok in; x2, xn2
+// out), 0.250 ms. Both are bound by bytes, so the design keeps device
+// memory busy while the tensor cores run:
+// * W split is 128 KB at C = 64: it fits beside one 128-row tile of rows
+//   (66 KB); 194 KB, one block an SM, persistent over tiles. With no
+//   weight ring there is no block barrier in a pass: each warp owns its 16
+//   rows of the tile, and the two warpgroups go at their own pace.
+// * As soon as a warp's product has read its rows, it starts the cp.async
+//   of its rows of its next tile into the same place, so they arrive under
+//   its epilogue and the other warpgroup's product.
+// * Step 2 reads xn twice (for q and for k): 1.26 GB instead of 1.05, a
+//   bound of 0.376 ms, for passes without a ring. Its three weights (384
+//   KB split) do not fit beside the rows at once; the first version of
+//   this kernel streamed them through a weight ring as K2.5 does, all
+//   three products in one pass with the rows brought ahead by bulk copies,
+//   and took 1.7x the time of the three passes on an H100: the ring's
+//   products, not the bytes, bound it.
+// Every output is written by one warp of one block, no atomics.
 template <int C>
-__global__ void __launch_bounds__(NT)
-    spa_qkv_kernel(const float* __restrict__ xn, const float* __restrict__ tok,
-                   const float* __restrict__ wqk, const float* __restrict__ wv,
-                   float* __restrict__ q, float* __restrict__ k, float* __restrict__ v,
-                   int T) {
-  using S = Spa<C>;
-  constexpr int D = S::D, LDD = S::LDD;
-  extern __shared__ float4 smem4[];
-  float* XN = reinterpret_cast<float*>(smem4);
-  float* TK = XN + BM * LDD;
-  const int t0 = blockIdx.x * BM;
-  load_rows<D>(XN, LDD, xn, t0, T);
-  load_rows<D>(TK, LDD, tok, t0, T);
+struct RowProj {
+  static constexpr int D = 2 * C;
+  static constexpr int LDX = D + 4;                 // row stride of the tile
+  static constexpr int SQ = 2 * D * D;              // floats of a D x D weight split
+  static constexpr size_t BYTES = (static_cast<size_t>(SQ) + RG_M * LDX) * 4;
+  static_assert(BYTES <= RG_SMEM_MAX, "the weight and the tile must fit in shared memory");
+};
+
+// The warp's 16 rows of tile `tile` of src [T, D] into aw (row stride D + 4)
+// by cp.async, zero past T; one group.
+template <int D>
+__device__ __forceinline__ void warp_rows(float* aw, const float* __restrict__ src, int tile,
+                                          int T) {
+  const int lane = threadIdx.x & 31, t0 = tile * RG_M + 16 * (threadIdx.x >> 5);
+  for (int i = lane; i < 16 * (D / 4); i += 32) {
+    const int r = i / (D / 4), c = 4 * (i % (D / 4));
+    const bool ok = t0 + r < T;
+    cp_async16(aw + r * (D + 4) + c, src + static_cast<size_t>(ok ? t0 + r : 0) * D + c, ok);
+  }
+  cp_async_commit();
+}
+
+// Loads the split weight w (RowProj::SQ floats) into shared memory and the
+// warps' rows of the block's first tile of a, then out = a W over the
+// block's tiles. LN (step 4): out = a W + res, and out_ln = LN(out) with
+// weight lw, bias lb. Ends with every warp past its last read of W.
+template <int C, bool LN>
+__device__ __forceinline__ void row_pass(const float* __restrict__ a,
+                                         const float* __restrict__ w, float* __restrict__ out,
+                                         const float* __restrict__ res,
+                                         const float* __restrict__ lw,
+                                         const float* __restrict__ lb,
+                                         float* __restrict__ out_ln, float* smem, int T) {
+  using L = RowProj<C>;
+  constexpr int D = L::D, LDX = L::LDX;
+  const int warp = threadIdx.x >> 5;
+  float* aw = smem + L::SQ + 16 * warp * LDX;   // the warp's 16 rows of a
+  const int tiles = (T + RG_M - 1) / RG_M;
+  for (int i = 4 * static_cast<int>(threadIdx.x); i < L::SQ; i += 4 * RG_NT)
+    cp_async16(smem + i, w + i, true);
+  warp_rows<D>(aw, a, blockIdx.x, T);
+  cp_async_wait<0>();
+  fence_proxy_async();
   __syncthreads();
-  {
-    Acc<BM, 2 * D> acc;
-    zero_acc<BM, 2 * D>(acc);
-    gemm_acc<BM, D, 2 * D>(acc, XN, LDD, wqk);
-    for_tiles<BM, 2 * D>(acc, [&](int r, int c, float4 val) {
-      const int t = t0 + r;
-      if (t >= T) return;
-      if (c < D) store4(q + static_cast<size_t>(t) * D + c, val);
-      else store4(k + static_cast<size_t>(t) * D + c - D, val);
-    });
+  ResidentWeights wr{smem};
+  const float* st = nullptr;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int t0 = tile * RG_M + 16 * warp;   // the warp's first token
+    RgAcc<D> acc;
+    rg_zero<D>(acc);
+    rg_product<D, D, 0>(acc, aw, LDX, wr, st);
+    __syncwarp();   // the warp's rows are read
+    if (tile + static_cast<int>(gridDim.x) < tiles) warp_rows<D>(aw, a, tile + gridDim.x, T);
+    if constexpr (LN) {   // + res, to the finished product as the plain version adds it
+      rg_pairs<D>(acc, [&](int r, int c, float& v0, float& v1) {
+        if (t0 + r < T) {
+          const float2 t =
+              __ldg(reinterpret_cast<const float2*>(res + static_cast<size_t>(t0 + r) * D + c));
+          v0 += t.x;
+          v1 += t.y;
+        }
+      });
+    }
+    auto put = [&](float* __restrict__ dst) {
+      rg_pairs<D>(acc, [&](int r, int c, float v0, float v1) {
+        if (t0 + r < T)
+          *reinterpret_cast<float2*>(dst + static_cast<size_t>(t0 + r) * D + c) =
+              make_float2(v0, v1);
+      });
+    };
+    put(out);
+    if constexpr (LN) {
+      quad_ln<D>(acc, lw, lb);
+      put(out_ln);
+    }
+    cp_async_wait<0>();
+    __syncwarp();
   }
-  {
-    Acc<BM, D> acc;
-    zero_acc<BM, D>(acc);
-    gemm_acc<BM, D, D>(acc, TK, LDD, wv);
-    for_tiles<BM, D>(acc, [&](int r, int c, float4 val) {
-      const int t = t0 + r;
-      if (t < T) store4(v + static_cast<size_t>(t) * D + c, val);
-    });
-  }
+  __syncthreads();
+}
+
+// Step 2. wf: Wq, Wk, Wv split (3 RowProj::SQ floats, kernels/rowgemm.py:
+// qkv_stream), written by rg_weights_kernel.
+template <int C>
+__global__ void __launch_bounds__(RG_NT, 1)
+    spa_qkv_kernel(const float* __restrict__ xn, const float* __restrict__ tok,
+                   const float* __restrict__ wf, float* __restrict__ q,
+                   float* __restrict__ k, float* __restrict__ v, int T) {
+  constexpr int SQ = RowProj<C>::SQ;
+  extern __shared__ __align__(16) float smem[];
+  row_pass<C, false>(xn, wf, q, nullptr, nullptr, nullptr, nullptr, smem, T);
+  row_pass<C, false>(xn, wf + SQ, k, nullptr, nullptr, nullptr, nullptr, smem, T);
+  row_pass<C, false>(tok, wf + 2 * SQ, v, nullptr, nullptr, nullptr, nullptr, smem, T);
 }
 
 // ---- 3: 5x5-window attention, one head of one 16 x 16 query tile --------
@@ -173,46 +264,16 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ---- 4: out-projection + residual + LN2 ---------------------------------
+// One pass of step 2's (above). wf: Wo split (RowProj::SQ floats,
+// kernels/rowgemm.py:outproj_stream), written by rg_weights_kernel.
 template <int C>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(RG_NT, 1)
     spa_outproj_ln_kernel(const float* __restrict__ attn, const float* __restrict__ tok,
-                          const float* __restrict__ wo, const float* __restrict__ ln,
+                          const float* __restrict__ wf, const float* __restrict__ ln,
                           float* __restrict__ x2, float* __restrict__ xn2, int T) {
-  using S = Spa<C>;
-  using LN = RowLN<S::D>;
-  constexpr int D = S::D, LDD = S::LDD;
-  extern __shared__ float4 smem4[];
-  float* AT = reinterpret_cast<float*>(smem4);
-  float* X2 = AT + BM * LDD;
-  const int warp = threadIdx.x >> 5;
-  const int t0 = blockIdx.x * BM;
-  load_rows<D>(AT, LDD, attn, t0, T);
-  __syncthreads();
-  {
-    Acc<BM, D> acc;
-    zero_acc<BM, D>(acc);
-    gemm_acc<BM, D, D>(acc, AT, LDD, wo);
-    for_tiles<BM, D>(acc, [&](int r, int c, float4 val) {
-      const int t = t0 + r;
-      if (t < T) store4(X2 + r * LDD + c, add4(val, ldg4(tok + static_cast<size_t>(t) * D + c)));
-    });
-  }
-  __syncthreads();
-  for (int r = warp; r < BM; r += NT / 32) {
-    const int t = t0 + r;
-    if (t >= T) break;
-    float v[LN::E];
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        v[e] = X2[r * LDD + LN::col(e)];
-        x2[static_cast<size_t>(t) * D + LN::col(e)] = v[e];
-      }
-    LN::apply(v, ln + 2 * D, ln + 3 * D);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) xn2[static_cast<size_t>(t) * D + LN::col(e)] = v[e];
-  }
+  constexpr int D = 2 * C;
+  extern __shared__ __align__(16) float smem[];
+  row_pass<C, true>(attn, wf, x2, tok, ln + 2 * D, ln + 3 * D, xn2, smem, T);
 }
 
 // ---- 5: FFN + residual + Token2SAI --------------------------------------
@@ -384,15 +445,24 @@ extern "C" int lft_spa_tokenize_ln_pm(const float* x, const float* pe_tok, const
                            static_cast<cudaStream_t>(stream));
 }
 
+// Step 2: wf is a scratch of 3 RowProj<C>::SQ floats (kernels/rowgemm.py:
+// qkv_floats), Wq, Wk, Wv split into TF32 hi/lo by the launch's first
+// kernel.
 extern "C" int lft_spa_qkv(const float* xn, const float* tok, const float* wqk,
-                           const float* wv, float* q, float* k, float* v, int T, int C,
-                           void* stream) {
+                           const float* wv, float* wf, float* q, float* k, float* v, int T,
+                           int C, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
+    using L = RowProj<CC>;
+    RgPieces ps{};
+    ps.p[0] = RgPiece{wqk, 2 * L::D, L::D, L::D, 0};
+    ps.p[1] = RgPiece{wqk + L::D, 2 * L::D, L::D, L::D, L::SQ};
+    ps.p[2] = RgPiece{wv, L::D, L::D, L::D, 2 * L::SQ};
+    launch_rg_weights(ps, 3, wf, s);
     auto kernel = spa_qkv_kernel<CC>;
-    const size_t bytes = 2 * BM * Spa<CC>::LDD * sizeof(float);
-    LFT_SET_SMEM(kernel, bytes);
-    kernel<<<blocks(T), NT, bytes, s>>>(xn, tok, wqk, wv, q, k, v, T);
+    LFT_SET_SMEM(kernel, L::BYTES);
+    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(xn, tok, wf, q, k, v, T);
   });
   return static_cast<int>(cudaGetLastError());
 }
@@ -439,15 +509,22 @@ extern "C" int lft_spa_window_attn_res(const float* q, const float* k, const flo
                            static_cast<cudaStream_t>(stream));
 }
 
+// Step 4: wf is a scratch of RowProj<C>::SQ floats (kernels/rowgemm.py:
+// outproj_floats), Wo split into TF32 hi/lo by the launch's first kernel.
 extern "C" int lft_spa_outproj_ln(const float* attn, const float* tok, const float* wo,
-                                  const float* ln, float* x2, float* xn2, int T, int C,
-                                  void* stream) {
+                                  const float* ln, float* wf, float* x2, float* xn2, int T,
+                                  int C, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
+    using L = RowProj<CC>;
+    RgPieces ps{};
+    ps.p[0] = RgPiece{wo, L::D, L::D, L::D, 0};
+    launch_rg_weights(ps, 1, wf, s);
     auto kernel = spa_outproj_ln_kernel<CC>;
-    const size_t bytes = 2 * BM * Spa<CC>::LDD * sizeof(float);
-    LFT_SET_SMEM(kernel, bytes);
-    kernel<<<blocks(T), NT, bytes, s>>>(attn, tok, wo, ln, x2, xn2, T);
+    LFT_SET_SMEM(kernel, L::BYTES);
+    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(attn, tok, wf, ln, x2, xn2,
+                                                                    T);
   });
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,17 +2,18 @@
 rowgemm.cuh`) in plain PyTorch, and the geometry their kernels are built
 with.
 
-K2.5 / K11.5 (`spa_block.ffn_out`) and K1 (`ang_block.ang_block`) run their
-products as `acc[64 x N] += A[64 x K] B` on the tensor cores: A a
-warpgroup's token rows in shared memory, B a weight matrix split into TF32
-hi and lo and laid out in K-major core matrices, streamed through a ring of
-`RG_SF`-float stages. The first kernel of each launch (`rg_weights_kernel`)
-writes a kernel's weights as one stream of such pieces, in the order its
-products read them, into a scratch buffer the wrapper allocates. `piece`,
-`ffn_out_stream` and `ang_block_stream` are that preparation in plain
-PyTorch, which the CPU tests emulate the kernels from; `*_floats` are the
-scratch sizes and `*_smem` the shared memory the kernels take
-(`FfnOut`, `AngLayout` in the sources).
+K2.2 (`spa_block.qkv`), K2.4 (`spa_block.outproj_ln`), K2.5 / K11.5
+(`spa_block.ffn_out`) and K1 (`ang_block.ang_block`) run their products as
+`acc[64 x N] += A[64 x K] B` on the tensor cores: A a warpgroup's token rows
+in shared memory, B a weight matrix split into TF32 hi and lo and laid out
+in K-major core matrices, streamed through a ring of `RG_SF`-float stages
+(K2.2's and K2.4's D x D pieces stay resident instead, one at a time). The first kernel of each launch
+(`rg_weights_kernel`) writes a kernel's weights as one stream of such
+pieces, in the order its products read them, into a scratch buffer the
+wrapper allocates. `piece` and the `*_stream` functions are that
+preparation in plain PyTorch, which the CPU tests emulate the kernels from;
+`*_floats` are the scratch sizes and `*_smem` the shared memory the kernels
+take (`RowProj`, `FfnOut`, `AngLayout` in the sources).
 """
 
 from __future__ import annotations
@@ -87,6 +88,23 @@ def ang_block_pieces(wts: dict):
     return out
 
 
+def qkv_pieces(wqk, wv):
+    """K2.2's weights in stream order: Wq, Wk (the halves of wqk [D, 2D]),
+    Wv."""
+    D = wv.shape[0]
+    return [wqk[:, :D], wqk[:, D:], wv]
+
+
+def qkv_stream(wts: dict) -> torch.Tensor:
+    """Plain version of the K2.2 launches' weight preparation."""
+    return torch.cat([piece(p) for p in qkv_pieces(wts["wqk"], wts["wv"])])
+
+
+def outproj_stream(wts: dict) -> torch.Tensor:
+    """Plain version of the K2.4 launches' weight preparation: Wo."""
+    return piece(wts["wo"])
+
+
 def ffn_out_stream(wts: dict) -> torch.Tensor:
     """Plain version of the K2.5 / K11.5 launches' weight preparation."""
     return torch.cat([piece(p) for p in ffn_out_pieces(wts["w1"], wts["w2"], wts["wlin"])])
@@ -95,6 +113,17 @@ def ffn_out_stream(wts: dict) -> torch.Tensor:
 def ang_block_stream(wts: dict) -> torch.Tensor:
     """Plain version of the K1 launches' weight preparation."""
     return torch.cat([piece(p) for p in ang_block_pieces(wts)])
+
+
+def outproj_floats(C: int) -> int:
+    """Floats of one D x D weight split (RowProj<C>::SQ): K2.4's Wo, and
+    each of K2.2's three."""
+    return 2 * (2 * C) ** 2
+
+
+def qkv_floats(C: int) -> int:
+    """Floats of K2.2's weight stream: Wq, Wk, Wv."""
+    return 3 * outproj_floats(C)
 
 
 def ffn_out_floats(C: int) -> int:
@@ -111,6 +140,12 @@ def ang_block_floats(C: int) -> int:
 def ring_slots(tile_bytes: int) -> int:
     """Weight-ring slots beside `tile_bytes` of rows (rg_slots)."""
     return min(8, (RG_SMEM_MAX - tile_bytes) // (RG_SF * 4))
+
+
+def proj_smem(C: int) -> int:
+    """Shared memory of a K2.2 or K2.4 block: one D x D weight split and a
+    tile of rows [128, 2C + 4] (RowProj<C>::BYTES)."""
+    return (outproj_floats(C) + RG_M * (2 * C + 4)) * 4
 
 
 def ffn_out_smem(C: int) -> int:

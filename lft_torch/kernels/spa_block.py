@@ -25,13 +25,16 @@ denominator l, and saves x, tok, m, l and attn. The backward (K3,
   d qkv_ln_bwd      dxn = dq Wqᵀ + dk Wkᵀ, LN1 backward, dtok
   e tokenize_bwd    dx as a gather over the 9 transposed taps
 
-Steps 1 and e are one implicit GEMM, `out[t] = sum_tap in[t + s_tap] B[tap]`,
-run 3xTF32 on the tensor cores (`wgmma`, `lft_torch/csrc/tokenize.cuh`): a
-first kernel of the launch splits the weights into TF32 hi/lo parts in the
-layout the second reads (`tap_weights` in plain PyTorch), and the wrapper
-picks the block's rectangle of pixels (`tok_tile`, a function of the shapes
-only). The weight, LayerNorm and PE gradients are reduced by `wgrad`/`colsum`
-(kernels/wgrad.py). `pe_tok` gets a real gradient: it carries MLP.weight.
+Steps 2, 4 and 5 run their products 3xTF32 on the tensor cores as row-tile
+products (`wgmma`, `lft_torch/csrc/rowgemm.cuh`; their weights prepared as
+`kernels/rowgemm.py` sets out). Steps 1 and e are one implicit GEMM,
+`out[t] = sum_tap in[t + s_tap] B[tap]`, run 3xTF32 on the tensor cores
+(`wgmma`, `lft_torch/csrc/tokenize.cuh`): a first kernel of the launch splits the
+weights into TF32 hi/lo parts in the layout the second reads (`tap_weights`
+in plain PyTorch), and the wrapper picks the block's rectangle of pixels
+(`tok_tile`, a function of the shapes only). The weight, LayerNorm and PE
+gradients are reduced by `wgrad`/`colsum` (kernels/wgrad.py). `pe_tok` gets
+a real gradient: it carries MLP.weight.
 `spa_trans_block_plain` runs the plain versions of all of it on any device.
 
 K11, `pixel_major=True` (counterpart of lft_tpu's `_fwd_call(pixel_major=
@@ -54,7 +57,8 @@ import torch.nn.functional as F
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
 from lft_torch.kernels.common import KERNEL_C
-from lft_torch.kernels.rowgemm import ffn_out_floats, piece, split_tf32
+from lft_torch.kernels.rowgemm import (ffn_out_floats, outproj_floats, piece, qkv_floats,
+                                       split_tf32)
 from lft_torch.kernels.spa_attn_hp import (_gather_window, _hp_geometry_exists,
                                            _scatter_window, _window_probs)
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
@@ -303,16 +307,24 @@ def tokenize_ln(x, pe_tok, wts, pixel_major: bool = False):
 
 
 def qkv(xn, tok, wts):
-    """Step 2: (xn, tok) [V, h, w, D] -> (q, k, v) [V, h, w, D]."""
+    """Step 2: (xn, tok) [V, h, w, D] -> (q, k, v) [V, h, w, D]. On the card
+    its three products run 3xTF32 on the tensor cores (`csrc/rowgemm.cuh`),
+    the weights split by the launch's first kernel into a scratch of
+    `rowgemm.qkv_stream`'s layout."""
     if xn.device.type != "cuda":
         return qkv_plain(xn, tok, wts)
     D = tok.shape[-1]
     _check_c("spa_qkv", D // 2)
+    if xn.shape != tok.shape or tuple(wts["wqk"].shape) != (D, 2 * D) \
+            or tuple(wts["wv"].shape) != (D, D):
+        raise ValueError(f"spa_qkv: wqk {tuple(wts['wqk'].shape)}, wv {tuple(wts['wv'].shape)} "
+                         f"for xn {tuple(xn.shape)}, tok {tuple(tok.shape)}")
     _build.check_cuda_args("spa_qkv", xn, tok, wts["wqk"], wts["wv"])
     q, k, v = (torch.empty_like(tok) for _ in range(3))
-    fn = _build.bind("spa_block", "lft_spa_qkv", 7, (ctypes.c_int,) * 2)
+    wf = torch.empty(qkv_floats(D // 2), device=tok.device)   # scratch: the split weights
+    fn = _build.bind("spa_block", "lft_spa_qkv", 8, (ctypes.c_int,) * 2)
     _build.launch("spa_block", "spa_qkv", fn, xn.device, xn.data_ptr(), tok.data_ptr(),
-                  wts["wqk"].data_ptr(), wts["wv"].data_ptr(), q.data_ptr(),
+                  wts["wqk"].data_ptr(), wts["wv"].data_ptr(), wf.data_ptr(), q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), tok.numel() // D, D // 2)
     return q, k, v
 
@@ -354,16 +366,24 @@ def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
 
 
 def outproj_ln(attn, tok, wts):
-    """Step 4: (attn, tok) [V, h, w, D] -> (x2, xn2) [V, h, w, D]."""
+    """Step 4: (attn, tok) [V, h, w, D] -> (x2, xn2) [V, h, w, D]. On the card
+    its product runs 3xTF32 on the tensor cores (`csrc/rowgemm.cuh`), Wo
+    split by the launch's first kernel into a scratch of
+    `rowgemm.outproj_stream`'s layout and held in shared memory, LN2 on the
+    accumulators."""
     if attn.device.type != "cuda":
         return outproj_ln_plain(attn, tok, wts)
     D = tok.shape[-1]
     _check_c("spa_outproj_ln", D // 2)
+    if attn.shape != tok.shape or tuple(wts["wo"].shape) != (D, D):
+        raise ValueError(f"spa_outproj_ln: wo {tuple(wts['wo'].shape)} for attn "
+                         f"{tuple(attn.shape)}, tok {tuple(tok.shape)}")
     _build.check_cuda_args("spa_outproj_ln", attn, tok, wts["wo"], wts["ln"])
     x2, xn2 = torch.empty_like(tok), torch.empty_like(tok)
-    fn = _build.bind("spa_block", "lft_spa_outproj_ln", 6, (ctypes.c_int,) * 2)
+    wf = torch.empty(outproj_floats(D // 2), device=tok.device)   # scratch: Wo split
+    fn = _build.bind("spa_block", "lft_spa_outproj_ln", 7, (ctypes.c_int,) * 2)
     _build.launch("spa_block", "spa_outproj_ln", fn, attn.device, attn.data_ptr(),
-                  tok.data_ptr(), wts["wo"].data_ptr(), wts["ln"].data_ptr(),
+                  tok.data_ptr(), wts["wo"].data_ptr(), wts["ln"].data_ptr(), wf.data_ptr(),
                   x2.data_ptr(), xn2.data_ptr(), tok.numel() // D, D // 2)
     return x2, xn2
 

@@ -122,11 +122,12 @@ def report(prof, wall: float, what: str, top: int) -> None:
         print(f"  {t / 1e3:9.3f} ms {100 * t / 1e3 / busy:5.1f}%  x{n:<4d} {key[:100]}")
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, kernel: str = "") -> float:
     """Device milliseconds of one `fn()`: the CUDA kernels' time in a
     profiler trace of `reps` back-to-back calls after two warm-ups, over
     `reps`. The host's launch path is not in it, which at tens of
-    microseconds a kernel would be in a CUDA-event time of one call."""
+    microseconds a kernel would be in a CUDA-event time of one call. With
+    `kernel`, only the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     fn()
@@ -136,7 +137,7 @@ def device_ms(fn, reps: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     t = sum(e.device_time_total for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
     if t <= 0:
         raise AssertionError("the profiler saw no device time")
     return t / 1e3 / reps

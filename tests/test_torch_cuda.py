@@ -816,6 +816,81 @@ def test_ang_block_kernels_3xtf32(cuda_device, C, A2, N):
     assert all(torch.equal(a, b) for a, b in zip(res, again))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("V,h,w", [(3, 9, 7), (20, 31, 33)])
+def test_qkv_outproj_kernels_3xtf32(cuda_device, C, V, h, w):
+    """K2.2 and K2.4 run 3xTF32 on the tensor cores: q, k, v and x2, xn2
+    against the plain versions (1e-4 max(1, max |plain|)), each against
+    float64 within twice the f32 plain version's error (TF32 off), one
+    launch each, bitwise repeatable. T = V h w is no multiple of the 128-row
+    tile, and at 20 x 31 x 33 blocks take two tiles each."""
+    p = _params(C, cuda_device, seed=C + V)
+    wts = spa_block.spa_weights(p, "altblock.2.spa_trans.")
+    w64 = {k: v.double() for k, v in wts.items()}
+    g = torch.Generator(device=cuda_device).manual_seed(C * V + w)
+    xn, tok, attn = (torch.randn(V, h, w, 2 * C, device=cuda_device, generator=g)
+                     for _ in range(3))
+    reset_launches()
+    qkv = spa_block.qkv(xn, tok, wts)
+    out = spa_block.outproj_ln(attn, tok, wts)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spa_qkv"] == 1 and LAUNCHES["spa_outproj_ln"] == 1
+    assert sum(LAUNCHES.values()) == 2
+    for got, ref, exact in ((qkv, spa_block.qkv_plain(xn, tok, wts),
+                             spa_block.qkv_plain(xn.double(), tok.double(), w64)),
+                            (out, spa_block.outproj_ln_plain(attn, tok, wts),
+                             spa_block.outproj_ln_plain(attn.double(), tok.double(), w64))):
+        for u, r, e in zip(got, ref, exact):
+            torch.testing.assert_close(u, r, atol=1e-4 * max(1.0, float(r.abs().max())),
+                                       rtol=0)
+            err, err_f32, _ = _f64_err(u, r, e)
+            assert err <= 2 * err_f32, (err, err_f32)
+    assert all(torch.equal(a, b) for a, b in zip(qkv, spa_block.qkv(xn, tok, wts)))
+    assert all(torch.equal(a, b) for a, b in zip(out, spa_block.outproj_ln(attn, tok, wts)))
+
+
+@pytest.mark.cuda
+def test_spa_chains_and_fused_grads_through_new_projections(cuda_device):
+    """At C = 64: the K2 chain with residuals and the K11 chain against
+    their plain versions, and the model's gradients through the fused
+    blocks (K2.2 and K2.4 in SpaBlockFn's forward, 4 launches each) against
+    the plain blocks."""
+    C = 64
+    p = _params(C, cuda_device, seed=8)
+    prefix = "altblock.0.spa_trans."
+    wts = spa_block.spa_weights(p, prefix)
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    x = torch.randn(5, 32, 32, C, device=cuda_device, generator=g)
+    pe_tok = torch.randn(32, 32, 2 * C, device=cuda_device, generator=g)
+    _close(spa_block.spa_block(x, pe_tok, wts, 8, 5, with_res=True),
+           spa_block.spa_block_plain(x, pe_tok, wts, 8, 5, with_res=True), 1e-4)
+    xp = torch.randn(2, 16, 16, 25, C, device=cuda_device, generator=g)
+    pe16 = torch.randn(16, 16, 2 * C, device=cuda_device, generator=g)
+    _close(spa_block.spa_trans_block_fused(xp, pe16, p, prefix, 8, 5, pixel_major=True),
+           spa_block.spa_trans_block_plain(xp, pe16, p, prefix, 8, 5, pixel_major=True), 1e-4)
+
+    args = Args(channels=C, scale_factor=2)
+    for t in p.values():
+        t.requires_grad_(True)
+    rng = np.random.RandomState(2)
+    lr = torch.from_numpy(rng.rand(1, 1, 160, 160).astype(np.float32)).to(cuda_device)
+    hr = torch.from_numpy(rng.rand(1, 1, 320, 320).astype(np.float32)).to(cuda_device)
+
+    def grads(plain):
+        sr = lft.forward(p, lr, args, plain_blocks=plain)
+        loss = ((sr - hr) * torch.cos(3.0 * (sr - hr))).mean()
+        return torch.autograd.grad(loss, list(p.values()))
+
+    reset_launches()
+    got = grads(False)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spa_qkv"] == 4 and LAUNCHES["spa_outproj_ln"] == 4
+    for name, g1, g2 in zip(p, got, grads(True)):
+        err = float((g1 - g2).abs().max())
+        assert err <= 5e-4 * float(g2.abs().max()) + 2e-9, (name, err)
+
+
 # ------------------------------------------ widths the kernels do not take ---
 
 @pytest.mark.cuda
