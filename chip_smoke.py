@@ -23,7 +23,8 @@
    `spa_outproj_ln` and `spa_ffn_out`: bound on the tensor cores, K1's
    attention on the FP32 pipes, the FP32 pipes' whole bound printed beside)
    must keep each output within twice the f32 plain version's error against
-   float64 and repeat bitwise; cuDNN's `F.conv2d` of the same memory (the
+   float64 and repeat bitwise, and so must the window step
+   `spa_window_attn`; cuDNN's `F.conv2d` of the same memory (the
    tokenization's conv part only) and the cuBLAS f32 products of `spa_qkv`
    and `spa_outproj_ln` are timed beside them;
 7. trains: the 4x recipe (Adam 2e-4, batch 4 of 32x32-view patches made on
@@ -38,9 +39,10 @@
    shapes (K1/K4 [4096, 25, 64], K2/K3 [100, 32, 32, 64]), max |diff| <=
    5e-4 max |plain| per output, and times them (the window step with stats
    beside one masked `scaled_dot_product_attention`, K3.e `spa_tokenize_bwd`
-   beside cuDNN's `conv_transpose2d`; it and `ang_block_res` held, as
-   3xTF32, to twice the f32 plain version's float64 error and a bitwise
-   repeat); then `wgrad` at every
+   beside cuDNN's `conv_transpose2d`; it, `ang_block_res` and K3.a
+   `spa_ffn_out_bwd` (dx2, dattn, y, dy, xn2, the LN2 sums), bound as
+   3xTF32, and the window step with stats (attn, m, l) held to twice the
+   f32 plain version's float64 error and a bitwise repeat); then `wgrad` at every
    product of the fused step (8 shapes, 56 launches a step) and `colsum` at
    its three shapes, timed in device time (a profiler trace of 20 calls,
    the host's launch path left out) beside `x.t() @ dy` / `a.sum(0)`, with
@@ -393,11 +395,16 @@ def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -
     mask = torch.from_numpy(local_window_mask(h, w, K) == 0).to(dev)
     heads = lambda t: t.reshape(V, h * w, H, D // H).transpose(1, 2)
     qh, kh, vh = heads(q), heads(k), heads(v)
-    record("spa_window_attn", src, rep, sb.window_attn(q, k, v, H, K), attn,
+    got = sb.window_attn(q, k, v, H, K)
+    record("spa_window_attn", src, rep, got, attn,
            lambda: sb.window_attn(q, k, v, H, K),
            lambda: windowed_attention(q, k, v, H, K),
            4 * D * pairs, nbytes(q, k, v, attn),
            lib_fn=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    f64_check("spa_window_attn attn", got, attn,
+              windowed_attention(q.double(), k.double(), v.double(), H, K),
+              torch.equal(got, sb.window_attn(q, k, v, H, K)))
+    del got, qh, kh, vh
 
     x2, xn2 = sb.outproj_ln_plain(attn, tok, ws)
     got = sb.outproj_ln(attn, tok, ws)
@@ -727,23 +734,39 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
     mask = torch.from_numpy(local_window_mask(h, w, K) == 0).to(dev)
     heads = lambda t: t.reshape(V, h * w, H, D // H).transpose(1, 2)
     qh, kh, vh = heads(q), heads(k), heads(v)
+    got = sb.window_attn(q, k, v, H, K, True)
     rec.record("spa_window_attn_res", "lft_torch/csrc/spa_block.cu",
-               "lft_tpu/kernels/spa_block.py:339", sb.window_attn(q, k, v, H, K, True), ref,
+               "lft_tpu/kernels/spa_block.py:339", got, ref,
                lambda: sb.window_attn(q, k, v, H, K, True),
                lambda: sb.window_attn_plain(q, k, v, H, K), 4 * D * pairs,
                nbytes(q, k, v, *ref), rel=rel,
                lib_fn=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
     del qh, kh, vh
+    again = sb.window_attn(q, k, v, H, K, True)
+    repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+    for name, g_, r_, e_ in zip(("attn", "m", "l"), got, ref,
+                                sb.window_attn_plain(q.double(), k.double(), v.double(), H, K)):
+        f64_check(f"spa_window_attn_res {name}", g_, r_, e_, repeats)
+    del got, again
     rep = "lft_tpu/kernels/spa_block.py:602"
     dout = rand(V, h, w, C)
     dout = calm_relu(dout, sb.ffn_out_bwd(attn, tok, dout, ws)[4],
                      sb.ffn_out_bwd_plain(attn, tok, dout, ws)[4], "spa_ffn_out_bwd")
     ref = sb.ffn_out_bwd_plain(attn, tok, dout, ws)
-    rec.record("spa_ffn_out_bwd", src_s, rep, with_sum(sb.ffn_out_bwd(attn, tok, dout, ws)),
+    got = sb.ffn_out_bwd(attn, tok, dout, ws)
+    rec.record("spa_ffn_out_bwd", src_s, rep, with_sum(got),
                (*ref[:-1], ref[-1][0]), lambda: sb.ffn_out_bwd(attn, tok, dout, ws),
                lambda: sb.ffn_out_bwd_plain(attn, tok, dout, ws), T * (20 * D * D + 2 * C * D),
                nbytes(attn, tok, dout, *ref[:-1])
-               + wbytes("ln", "wo", "w1", "w2", "wlin") * 2, rel=rel)
+               + wbytes("ln", "wo", "w1", "w2", "wlin") * 2, rel=rel, tf32_products=3)
+    repeats = all(torch.equal(a, b) for a, b in zip(got, sb.ffn_out_bwd(attn, tok, dout, ws)))
+    exact = sb.ffn_out_bwd_plain(attn.double(), tok.double(), dout.double(),
+                                 {k_: v_.double() for k_, v_ in ws.items()})
+    summed = with_sum(got)
+    for i, name in ((0, "dx2"), (1, "dattn"), (2, "y"), (3, "dy"), (6, "xn2"), (7, "dln2 sums")):
+        f64_check(f"spa_ffn_out_bwd {name}", summed[i], ref[i].reshape(summed[i].shape),
+                  exact[i].reshape(summed[i].shape), repeats)
+    del got, summed, exact
     dx2, dattn = ref[0], ref[1]
     ref = (xn, q, k, v)
     rec.record("spa_ln_qkv", src_s, rep, sb.ln_qkv(tok, pe_tok, ws), ref,

@@ -1,7 +1,7 @@
 // A block's token-row products on the tensor cores, 3xTF32 (`wgmma`): the
 // shared building block of K2.2 (spa_qkv), K2.4 (spa_outproj_ln), K2.5 /
-// K11.5 (spa_ffn_out[_pm]), all in spa_block.cu, and K1 (ang_block[_res],
-// ang_block.cu).
+// K11.5 (spa_ffn_out[_pm]), all in spa_block.cu, K3.a (spa_ffn_out_bwd,
+// spa_block_bwd.cu) and K1 (ang_block[_res], ang_block.cu).
 //
 //   acc[64 x N] (+)= A[64 x K] B[K x N]
 //
@@ -18,12 +18,15 @@
 //   one stream of such pieces in the order its products read them, and the
 //   stream goes through a ring of RG_SF-float stages (`WeightRing`,
 //   `cp.async`, NS - 2 stages ahead): split, the weights (576 KB for K2.5,
-//   256 KB for K1 at C = 64) do not fit in shared memory beside the rows.
+//   1.38 MB for K3.a, 256 KB for K1 at C = 64) do not fit in shared memory
+//   beside the rows.
 //   A weight that does fit (one D x D weight, 128 KB split at C = 64: K2.2
 //   and K2.4) stays resident for a whole pass over the tiles instead
 //   (`ResidentWeights`): the same product reads it without a ring and
 //   without a block barrier, which on an H100 ran K2.2's products 1.7x
-//   faster than the ring did.
+//   faster than the ring did. K3.a's stream (1.38 MB) goes through
+//   `MbarRing`: the same slots filled by bulk copies on mbarriers, with no
+//   block barrier a stage (1.33x WeightRing's speed for K3.a on an H100).
 // * 3xTF32 with both tails rounded to nearest (`split_tf32_rn`; B's by the
 //   weight kernel): the truncated tails of tf32.cuh's `split_tf32` err
 //   toward zero alike, and over these short products (K = 16-128) that
@@ -173,6 +176,124 @@ struct WeightRing {
   }
 };
 
+// ---- mbarriers and bulk copies (sm_90) for MbarRing.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+// Whether the phase of parity `parity` of b has completed, without waiting.
+__device__ __forceinline__ bool mbar_test(uint64_t* b, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(b)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Waits for the phase of parity `parity` of b to complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(b)),
+      "r"(parity)
+      : "memory");
+}
+// bytes (a multiple of 16) from device to shared memory by the copy engine,
+// completing on b's transaction count.
+__device__ __forceinline__ void bulk_g2s(float* dst, const float* src, uint32_t bytes,
+                                         uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(b))
+      : "memory");
+}
+
+// The weight stream through NS slots as WeightRing sets it out, without its
+// block barrier a stage: thread 0 fills a slot by one bulk copy on the
+// slot's `full` mbarrier, and each warpgroup's first thread releases a slot
+// on its `empty` mbarrier (two arrivals) once the warpgroup's chains that
+// read it have retired (two stages on, as in WeightRing). A warpgroup waits
+// only for its next stage to arrive, so the two run up to PD stages apart.
+// Thread 0 issues the stages up to PD ahead whose slots are free, and
+// waits for a slot only when its own warpgroup needs that stage next. bars:
+// 2 NS mbarriers in shared memory.
+template <int NS>
+struct MbarRing {
+  static constexpr int SF = RG_SF;   // floats of a stage
+  static constexpr int PD = NS - 2;
+  static_assert(PD >= 1, "the ring needs three slots");
+  float* slot;              // [NS][RG_SF]
+  uint64_t *full, *empty;   // [NS] each
+  const float* wf;          // one tile's stream
+  int total, spt, last;     // floats and stages of the stream, stages of the block
+  int s;                    // the next stage to enter
+  int issued;               // stages issued (thread 0)
+
+  __device__ __forceinline__ void issue(int t) {
+    const int i = t % NS, off = (t % spt) * RG_SF;
+    const int n = total - off < RG_SF ? total - off : RG_SF;
+    mbar_expect_tx(full + i, 4u * n);
+    bulk_g2s(slot + i * RG_SF, wf + off, 4u * n, full + i);
+  }
+  // Issues the stages up to s + PD - 1 whose slots both warpgroups have
+  // released; waits for the slot of a stage <= need.
+  __device__ __forceinline__ void fill(int need) {
+    while (issued < last && issued < s + PD) {
+      if (issued >= NS) {
+        const uint32_t parity = ((issued / NS) - 1) & 1;
+        if (issued <= need)
+          mbar_wait(empty + issued % NS, parity);
+        else if (!mbar_test(empty + issued % NS, parity))
+          break;
+      }
+      issue(issued++);
+    }
+  }
+  __device__ __forceinline__ void start(float* slots, uint64_t* bars, const float* stream,
+                                        int floats, int tiles) {
+    slot = slots;
+    full = bars;
+    empty = bars + NS;
+    wf = stream;
+    total = floats;
+    spt = (floats + RG_SF - 1) / RG_SF;
+    last = tiles * spt;
+    s = 0;
+    issued = 0;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < NS; ++i) {
+        mbar_init(full + i, 1);
+        mbar_init(empty + i, 2);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) fill(-1);
+  }
+  // Releases the stage read two stages ago, fills, waits for the next stage
+  // and returns its slot.
+  __device__ __forceinline__ const float* enter() {
+    if (s >= 2 && (threadIdx.x & 127) == 0) mbar_arrive(empty + (s - 2) % NS);
+    if (threadIdx.x == 0) fill(s);
+    mbar_wait(full + s % NS, (s / NS) & 1);
+    return slot + (s++ % NS) * RG_SF;
+  }
+};
+
 // A weight held whole in shared memory for a pass over the tiles: one
 // stage as large as any stream, entered once, where the stream starts.
 struct ResidentWeights {
@@ -218,9 +339,12 @@ __device__ __forceinline__ void rg_pairs(RgAcc<N>& acc, F f) {
 // of the warp's 16 rows held in the accumulator layout of an N-wide
 // product: row g + 8 h's N values lie in the four lanes of a quad, so a
 // row's sums take two shuffles and all 16 rows are normalised at once.
-template <int N>
+// KEEP: also hands out each row's mean and 1/std (mu[h], rstd[h]), so a
+// backward can rebuild xhat = (x - mu) rstd bit for bit (K3.a).
+template <int N, bool KEEP = false>
 __device__ __forceinline__ void quad_ln(RgAcc<N>& v, const float* __restrict__ w,
-                                        const float* __restrict__ b) {
+                                        const float* __restrict__ b, float* mu_out = nullptr,
+                                        float* rstd_out = nullptr) {
   using P = RgParts<N>;
   const int q = threadIdx.x & 3;
 #pragma unroll
@@ -246,6 +370,10 @@ __device__ __forceinline__ void quad_ln(RgAcc<N>& v, const float* __restrict__ w
     qq += __shfl_xor_sync(0xffffffffu, qq, 1);
     qq += __shfl_xor_sync(0xffffffffu, qq, 2);
     const float rstd = rsqrtf(qq / N + 1e-5f);
+    if constexpr (KEEP) {
+      mu_out[h] = mu;
+      rstd_out[h] = rstd;
+    }
 #pragma unroll
     for (int p = 0; p < P::NP; ++p)
 #pragma unroll
@@ -263,8 +391,13 @@ __device__ __forceinline__ void quad_ln(RgAcc<N>& v, const float* __restrict__ w
 // shared memory, row stride lda floats. B: stream floats [OFF, OFF + 2 K N)
 // (K x N, `rg_weights_kernel`'s layout) from `ring` (a WeightRing or
 // ResidentWeights); `st` is the slot of the current stage, entered here
-// where a chain starts a new one.
-template <int K, int N, int OFF, class W>
+// where a chain starts a new one. TAILS_FIRST: a chain issues the four
+// tail products (al bh, ah bl of both k8 steps) before the two ah bh, so
+// that only two of its truncated sums are at the chain's full magnitude
+// (four in the default order); at K = 16 a product is one chain, and this
+// order keeps it within the f32 product's error (K3.a's dout Wlinᵀ at C =
+// 16, an H100).
+template <int K, int N, int OFF, bool TAILS_FIRST = false, class W>
 __device__ __forceinline__ void rg_product(RgAcc<N>& acc, const float* a, int lda, W& ring,
                                            const float*& st) {
   using P = RgParts<N>;
@@ -298,12 +431,23 @@ __device__ __forceinline__ void rg_product(RgAcc<N>& acc, const float* a, int ld
         smem_desc(st + (OFF + c * CHAIN) % SF + p * (NW / 8) * 32, LBO, SBO);
     reg_fence(sum[z]);
     wgmma_fence();
+    if constexpr (TAILS_FIRST) {
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const uint64_t dh = d0 + u * 4 * N, dl = dh + 2 * N;
-      Wgmma<NW>::mma(sum[z], al[c & 1][u], dh, u);
-      Wgmma<NW>::mma(sum[z], ah[c & 1][u], dl, 1);
-      Wgmma<NW>::mma(sum[z], ah[c & 1][u], dh, 1);
+      for (int u = 0; u < 2; ++u) {
+        const uint64_t dh = d0 + u * 4 * N, dl = dh + 2 * N;
+        Wgmma<NW>::mma(sum[z], al[c & 1][u], dh, u);
+        Wgmma<NW>::mma(sum[z], ah[c & 1][u], dl, 1);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) Wgmma<NW>::mma(sum[z], ah[c & 1][u], d0 + u * 4 * N, 1);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const uint64_t dh = d0 + u * 4 * N, dl = dh + 2 * N;
+        Wgmma<NW>::mma(sum[z], al[c & 1][u], dh, u);
+        Wgmma<NW>::mma(sum[z], ah[c & 1][u], dl, 1);
+        Wgmma<NW>::mma(sum[z], ah[c & 1][u], dh, 1);
+      }
     }
     wgmma_commit();
   };

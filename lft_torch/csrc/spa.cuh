@@ -14,8 +14,7 @@ constexpr int HH = TH + 2 * R, HW = TW + 2 * R;
 template <int C>
 struct Spa {
   static constexpr int D = 2 * C;
-  static constexpr int LDC = C + 4, LDD = D + 4, LDH = 2 * D + 4;
-  static constexpr int DH = D / 8;
+  static constexpr int LDD = D + 4;
 };
 
 // Token t of T = V*h*w tokens -> its offset in [V, h, w, *] is t itself;

@@ -15,7 +15,8 @@
 // f32 and one view's tokens 512 KB, far past the 227 KB of shared memory a
 // block can hold, so the TPU kernel's one-view-per-step VMEM chain cannot
 // carry over. Each step instead owns a tile of tokens (steps 2, 4, 5: 128,
-// persistent; step 1: a rectangle of up to 128 pixels of one view), runs
+// persistent; step 1: a rectangle of up to 128 pixels of one view; step 3:
+// a 16 x 16 query tile of one head group, two blocks an SM), runs
 // its products from shared memory, and hands its result to the next step
 // through device memory. Every block computes its own halo and zero padding
 // (the TPU kernel zeroed scratch borders once at grid step 0, which is
@@ -30,7 +31,7 @@
 // step 1 as an implicit GEMM (tokenize.cuh), steps 2, 4 and 5 as row-tile
 // products (rowgemm.cuh); their bounds and designs are set out at each
 // step. On the tensor cores steps 2 and 4 are bound by bytes, steps 1 and 5
-// by operations; the window step is bound by its k/v reads.
+// by operations; the window step, on the FP32 pipes, by bytes.
 //
 // K11, the same forward on a pixel-major buffer x [Bb, h, w, A2, C] ->
 // [Bb, h, w, A2, C] (replaces lft_tpu/kernels/spa_block.py:_fwd_call with
@@ -184,82 +185,216 @@ __global__ void __launch_bounds__(RG_NT, 1)
   row_pass<C, false>(tok, wf + 2 * SQ, v, nullptr, nullptr, nullptr, nullptr, smem, T);
 }
 
-// ---- 3: 5x5-window attention, one head of one 16 x 16 query tile --------
-// The block stages the tile's (16+4)^2 key/value halo of its head in shared
-// memory (row stride DH+4 floats, so the float4 reads of neighbouring
-// threads fall in distinct banks); positions outside the image are never
-// scored.
-// With STATS (training) each thread also writes its query's softmax max m
-// and sum l of exp(s - m), [V, h, w, H], for the backward (K3).
+// ---- 3: 5x5-window attention -------------------------------------------
+// Replaces the window attention of lft_tpu/kernels/spa_block.py:_kernel
+// (:154-192): per query the scores over its 5x5 window, out-of-image keys
+// skipped (never scored), a softmax per head, the product with v; with
+// STATS (training) also the softmax max m and sum l of exp(s - m) per query
+// and head, [V, h, w, H], for the backward (K3.c).
+// Bound: q, k, v read once and attn written once, 4 T D floats: at [400,
+// 32, 32, 64] 0.84 GB, 0.2504 ms at 3.35 TB/s (with STATS at [100, 32, 32,
+// 64] 0.0646 ms); its 5.2 GFLOP (0.08 ms on the FP32 pipes) bind nothing.
+// The first design (one head of one 16 x 16 tile a block, one query a
+// thread reading all 25 keys' k and v rows from shared memory) read 3.2 KB
+// of shared memory a query and head, 10.5 GB at that shape: at the SMs'
+// ~128 bytes a clock, ~0.35 ms, a floor above the bound, and its halo
+// loads overlapped nothing. This design:
+// * Head groups of 32 floats: a block takes the heads of one 128-byte line
+//   of a pixel (2 at DH = 16, 4 at 8, 8 at 4) for one 16 x 16 query tile,
+//   so k and v are read as whole lines. A thread owns 16 floats of the
+//   group (one head at DH = 16, two at 8, four at 4) for WA_QY = 2 queries
+//   down a column, and reads each key of the 6 x 5 keys their windows span
+//   once, for every one of its queries whose window holds it: 15 key reads
+//   a query where the first design took 25.
+// * The block stages the 20 x 20 k/v halo of its group by cp.async (one
+//   buffer of 20 x 20 pixels x (32 + 4) floats for k and v, 113 KB), loads
+//   its q meanwhile, and two blocks share an SM (16 warps), so one block's
+//   staging overlaps the other's work. A persistent block of 4 warps that
+//   staged its next tile into a second buffer while computing (2.5x fewer
+//   reads, 4 queries a thread) took 1.4x the time on an H100: with one warp
+//   a scheduler nothing hid the shared-memory and FP32 latencies. The
+//   halos' overlap (1.56x of k, v for an interior tile; 1.27x at 32 x 32
+//   views, where the image borders clip them) is left to L2.
+// * A two-pass softmax: a thread holds its queries' 25 scores of a head,
+//   takes their max, then one exp a key and the sums l and o; 25 exps a
+//   query where the first design's online softmax took 50, and no
+//   rescaling of l and o by exp(m - m'), whose roundings cost l accuracy.
+//   A score is four partial sums of its head's channels, added pairwise; l
+//   the sums of the five key rows; o runs in key order (all held to the
+//   plain version's tolerance and to float64).
+// Every output is written by one thread, no atomics: a call repeats bitwise.
+constexpr int WA_TX = 16, WA_TY = 16;                 // query tile
+constexpr int WA_QY = 2;                              // queries a thread, down a column
+constexpr int WA_HX = WA_TX + 2 * R, WA_HY = WA_TY + 2 * R;   // k/v halo
+constexpr int WA_G = 32;                              // floats of a head group (128 bytes)
+constexpr int WA_S = 16;                              // floats of a thread's slice of it
+constexpr int WA_LD = WA_G + 4;                       // halo pixel stride: float4 reads of
+                                                      // 8 neighbouring pixels hit 32 banks
+constexpr int WA_NT = WA_TX * (WA_TY / WA_QY) * (WA_G / WA_S);   // 256 threads
+constexpr int WA_BUF = WA_HY * WA_HX * WA_LD;         // floats of a k (or v) halo
+constexpr size_t WA_BYTES = 2 * static_cast<size_t>(WA_BUF) * sizeof(float);
+static_assert(2 * (WA_BYTES + 1024) <= 233472, "two blocks' halos must share an SM");
+
+// One block an item (view, 16 x 16 tile, head group), items in launch order.
 template <int DH, bool STATS>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(WA_NT, 2)
     spa_window_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ attn,
-                           float* __restrict__ m_out, float* __restrict__ l_out,
-                           int h, int w, int D, float scale) {
-  constexpr int KS = DH + 4;
-  extern __shared__ float4 smem4[];
-  float* KT = reinterpret_cast<float*>(smem4);   // [HH*HW][KS]
-  float* VT = KT + HH * HW * KS;
-  const int ntw = (w + TW - 1) / TW;
-  const int y0 = (blockIdx.x / ntw) * TH, x0 = (blockIdx.x % ntw) * TW;
-  const int head = blockIdx.y;
-  const size_t view = static_cast<size_t>(blockIdx.z) * h * w;
-
-  for (int i = threadIdx.x; i < HH * HW * (DH / 4); i += NT) {
-    const int key = i / (DH / 4), d = 4 * (i % (DH / 4));
-    const int ky = y0 - R + key / HW, kx = x0 - R + key % HW;
-    float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-    if (ky >= 0 && ky < h && kx >= 0 && kx < w) {
-      const size_t off = (view + static_cast<size_t>(ky) * w + kx) * D + head * DH + d;
-      kv = ldg4(k + off);
-      vv = ldg4(v + off);
+                           float* __restrict__ m_out, float* __restrict__ l_out, int V,
+                           int h, int w, float scale) {
+  constexpr int H = 8, D = H * DH;
+  constexpr int G = D / WA_G;       // head groups of a pixel
+  constexpr int HT = WA_S / DH;     // heads of a thread's slice
+  constexpr int KR = WA_QY + 2 * R;   // key rows of a thread's queries
+  constexpr int KW = (2 * R + 1) * (2 * R + 1);   // keys of a window
+  extern __shared__ __align__(16) float smem[];
+  const int ntx = (w + WA_TX - 1) / WA_TX;
+  const int per_view = ((h + WA_TY - 1) / WA_TY) * ntx * G;
+  const int lane = threadIdx.x & 31;
+  const int tx = lane & 15, half = lane >> 4;    // the thread's column and slice
+  const int ry = WA_QY * (threadIdx.x >> 5);     // its first query row in the tile
+  const int i = blockIdx.x, tile = i % per_view / G;
+  const int view = i / per_view, y0 = tile / ntx * WA_TY, x0 = tile % ntx * WA_TX, g = i % G;
+  // the item's k and v halos, zero outside the image
+  const float* buf = smem;
+  for (int j = threadIdx.x; j < WA_HY * WA_HX * (WA_G / 4); j += WA_NT) {
+    const int px = j / (WA_G / 4), c = 4 * (j % (WA_G / 4));
+    const int ky = y0 - R + px / WA_HX, kx = x0 - R + px % WA_HX;
+    const bool ok = ky >= 0 && ky < h && kx >= 0 && kx < w;
+    const size_t off =
+        ok ? ((static_cast<size_t>(view) * h + ky) * w + kx) * D + g * WA_G + c : 0;
+    cp_async16(smem + px * WA_LD + c, k + off, ok);
+    cp_async16(smem + WA_BUF + px * WA_LD + c, v + off, ok);
+  }
+  cp_async_commit();
+  {
+    const int x = x0 + tx;
+    const size_t col = g * WA_G + half * WA_S;   // the slice's first channel
+    float qv[WA_QY][WA_S];
+#pragma unroll
+    for (int a = 0; a < WA_QY; ++a) {
+      const int y = y0 + ry + a;
+      const bool in = y < h && x < w;
+      const float* qp = q + ((static_cast<size_t>(view) * h + (in ? y : 0)) * w +
+                             (in ? x : 0)) * D + col;
+#pragma unroll
+      for (int d = 0; d < WA_S; d += 4) {
+        const float4 t = in ? ldg4(qp + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+        qv[a][d] = t.x * scale;
+        qv[a][d + 1] = t.y * scale;
+        qv[a][d + 2] = t.z * scale;
+        qv[a][d + 3] = t.w * scale;
+      }
     }
-    store4(KT + key * KS + d, kv);
-    store4(VT + key * KS + d, vv);
-  }
-  __syncthreads();
+    cp_async_wait<0>();
+    __syncthreads();
 
-  const int ly = threadIdx.x / TW, lx = threadIdx.x % TW;
-  const int y = y0 + ly, x = x0 + lx;
-  if (y >= h || x >= w) return;
-  const size_t qoff = (view + static_cast<size_t>(y) * w + x) * D + head * DH;
-  float qv[DH], o[DH];
 #pragma unroll
-  for (int d = 0; d < DH; d += 4) {
-    const float4 t = ldg4(q + qoff + d);
-    qv[d] = t.x * scale; qv[d + 1] = t.y * scale;
-    qv[d + 2] = t.z * scale; qv[d + 3] = t.w * scale;
-    o[d] = o[d + 1] = o[d + 2] = o[d + 3] = 0.f;
-  }
-  float m = -CUDART_INF_F, l = 0.f;
-  for (int dy = -R; dy <= R; ++dy) {
-    if (y + dy < 0 || y + dy >= h) continue;
-    for (int dx = -R; dx <= R; ++dx) {
-      if (x + dx < 0 || x + dx >= w) continue;
-      const int key = (ly + dy + R) * HW + (lx + dx + R);
-      const float* kr = KT + key * KS;
-      const float* vr = VT + key * KS;
-      float s = 0.f;
+    for (int e = 0; e < HT; ++e) {   // the heads of the thread's slice
+      // query a's window, row-major: s[a][5 (key row - a) + dx]; -inf where
+      // the key lies outside the image
+      float s[WA_QY][KW];
 #pragma unroll
-      for (int d = 0; d < DH; ++d) s = fmaf(qv[d], kr[d], s);
-      const float mn = fmaxf(m, s);
-      const float corr = expf(m - mn), e = expf(s - mn);
-      l = fmaf(l, corr, e);
+      for (int a = 0; a < WA_QY; ++a)
 #pragma unroll
-      for (int d = 0; d < DH; ++d) o[d] = fmaf(o[d], corr, e * vr[d]);
-      m = mn;
+        for (int j = 0; j < KW; ++j) s[a][j] = -CUDART_INF_F;
+#pragma unroll
+      for (int r = 0; r < KR; ++r) {   // key row ry + r - 2 of the tile
+        const int ky = y0 + ry + r - R;
+        if (ky < 0 || ky >= h) continue;
+        // the thread's key (r, dx) is halo pixel (ry + r, tx + dx)
+        const float* kr = buf + ((ry + r) * WA_HX + tx) * WA_LD + half * WA_S + e * DH;
+#pragma unroll
+        for (int dx = 0; dx <= 2 * R; ++dx) {
+          const int kx = x + dx - R;
+          if (kx < 0 || kx >= w) continue;
+          float kk[DH];
+#pragma unroll
+          for (int d = 0; d < DH; d += 4) {
+            const float4 t = load4(kr + dx * WA_LD + d);
+            kk[d] = t.x;
+            kk[d + 1] = t.y;
+            kk[d + 2] = t.z;
+            kk[d + 3] = t.w;
+          }
+#pragma unroll
+          for (int a = 0; a < WA_QY; ++a) {
+            if (a < r - 2 * R || a > r) continue;
+            float t[4] = {0.f, 0.f, 0.f, 0.f};   // four partial sums, added pairwise
+#pragma unroll
+            for (int d = 0; d < DH; ++d) t[d % 4] = fmaf(qv[a][e * DH + d], kk[d], t[d % 4]);
+            s[a][(2 * R + 1) * (r - a) + dx] = (t[0] + t[1]) + (t[2] + t[3]);
+          }
+        }
+      }
+      float m[WA_QY], l[WA_QY];
+#pragma unroll
+      for (int a = 0; a < WA_QY; ++a) {
+        m[a] = s[a][0];
+#pragma unroll
+        for (int j = 1; j < KW; ++j) m[a] = fmaxf(m[a], s[a][j]);
+        l[a] = 0.f;
+#pragma unroll
+        for (int j0 = 0; j0 < KW; j0 += 2 * R + 1) {   // a key row's sum, then the rows'
+          float row = 0.f;
+#pragma unroll
+          for (int j = j0; j < j0 + 2 * R + 1; ++j) {
+            s[a][j] = expf(s[a][j] - m[a]);
+            row += s[a][j];
+          }
+          l[a] += row;
+        }
+      }
+      float o[WA_QY][DH];
+#pragma unroll
+      for (int a = 0; a < WA_QY; ++a)
+#pragma unroll
+        for (int d = 0; d < DH; ++d) o[a][d] = 0.f;
+#pragma unroll
+      for (int r = 0; r < KR; ++r) {
+        const int ky = y0 + ry + r - R;
+        if (ky < 0 || ky >= h) continue;
+        const float* vr = buf + WA_BUF + ((ry + r) * WA_HX + tx) * WA_LD + half * WA_S + e * DH;
+#pragma unroll
+        for (int dx = 0; dx <= 2 * R; ++dx) {
+          const int kx = x + dx - R;
+          if (kx < 0 || kx >= w) continue;
+          float vv[DH];
+#pragma unroll
+          for (int d = 0; d < DH; d += 4) {
+            const float4 t = load4(vr + dx * WA_LD + d);
+            vv[d] = t.x;
+            vv[d + 1] = t.y;
+            vv[d + 2] = t.z;
+            vv[d + 3] = t.w;
+          }
+#pragma unroll
+          for (int a = 0; a < WA_QY; ++a) {
+            if (a < r - 2 * R || a > r) continue;
+            const float p = s[a][(2 * R + 1) * (r - a) + dx];
+#pragma unroll
+            for (int d = 0; d < DH; ++d) o[a][d] = fmaf(p, vv[d], o[a][d]);
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < WA_QY; ++a) {
+        const int y = y0 + ry + a;
+        if (y >= h || x >= w) continue;
+        const size_t pix = (static_cast<size_t>(view) * h + y) * w + x;
+        const float inv = 1.f / l[a];
+#pragma unroll
+        for (int d = 0; d < DH; d += 4)
+          store4(attn + pix * D + col + e * DH + d,
+                 make_float4(o[a][d] * inv, o[a][d + 1] * inv, o[a][d + 2] * inv,
+                             o[a][d + 3] * inv));
+        if constexpr (STATS) {
+          const size_t hd = pix * H + (col + e * DH) / DH;
+          m_out[hd] = m[a];
+          l_out[hd] = l[a];
+        }
+      }
     }
-  }
-  const float inv = 1.f / l;
-#pragma unroll
-  for (int d = 0; d < DH; d += 4)
-    store4(attn + qoff + d, make_float4(o[d] * inv, o[d + 1] * inv, o[d + 2] * inv,
-                                        o[d + 3] * inv));
-  if constexpr (STATS) {
-    const size_t soff = (view + static_cast<size_t>(y) * w + x) * gridDim.y + head;
-    m_out[soff] = m;
-    l_out[soff] = l;
   }
 }
 
@@ -472,16 +607,19 @@ namespace {
 template <bool STATS>
 int window_attn(const float* q, const float* k, const float* v, float* attn, float* m,
                 float* l, int V, int h, int w, int D, int H, float scale, cudaStream_t s) {
-  if (H != 8) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(((h + TH - 1) / TH) * ((w + TW - 1) / TW), H, V);
+  if (H != 8 || V < 1 || h < 1 || w < 1 || D % WA_G) return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = static_cast<long long>(V) * ((h + WA_TY - 1) / WA_TY) *
+                          ((w + WA_TX - 1) / WA_TX) * (D / WA_G);
+  if (items > 0x7fffffffLL || static_cast<long long>(V) * h * w > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (D / H) {
-#define LFT_ATTN_CASE(DHV)                                                    \
-    case DHV: {                                                               \
-      auto kernel = spa_window_attn_kernel<DHV, STATS>;                       \
-      const size_t bytes = 2 * HH * HW * (DHV + 4) * sizeof(float);           \
-      LFT_SET_SMEM(kernel, bytes);                                            \
-      kernel<<<grid, NT, bytes, s>>>(q, k, v, attn, m, l, h, w, D, scale);    \
-      break;                                                                  \
+#define LFT_ATTN_CASE(DHV)                                                        \
+    case DHV: {                                                                   \
+      auto kernel = spa_window_attn_kernel<DHV, STATS>;                           \
+      LFT_SET_SMEM(kernel, WA_BYTES);                                             \
+      kernel<<<static_cast<int>(items), WA_NT, WA_BYTES, s>>>(q, k, v, attn, m, l, V, h, w, \
+                                                               scale);              \
+      break;                                                                      \
     }
     LFT_ATTN_CASE(4)
     LFT_ATTN_CASE(8)

@@ -29,16 +29,24 @@
 // grid. CUDA blocks run in parallel, so every scatter here is recast as a
 // gather (each output element is written by exactly one thread) and every
 // sum over tokens goes through the deterministic reductions: no atomics.
-// Out-of-image keys are skipped exactly as spa_window_attn skips them. The
-// recomputed q, k and x2 are bit-identical to the forward's (same tile
-// code), so p = exp(s - m) / l uses the forward's own scores.
+// Out-of-image keys are skipped exactly as spa_window_attn skips them.
+// Step a recomputes x2 and xn2 with K2.4's own pass arithmetic (rowgemm.cuh:
+// the product, + tok, quad_ln), so they equal the forward's bit for bit.
+// Step b does not yet do so for q, k and v: it runs its products with
+// gemm_acc on the FP32 pipes, where K2.2 runs them 3xTF32 on the tensor
+// cores, so step c's scores from step b's q and k differ from the
+// forward's at the f32 rounding level, and p = exp(s - m) / l with the
+// forward's (m, l) by as much (within the kernels' bounds). Moving step b
+// onto row_pass, behind an LN1 prologue, would restore the identity.
 //
 // Bound on this card: ~48 D^2 + 250 D FLOP a token in steps a-d without
 // the weight grads (~84 GFLOP at [100, 32, 32, 64], 1.3 ms at 67 TFLOP/s
 // FP32); the operand tensors add ~1.5 GB of traffic (~0.45 ms): operations.
-// Step e (14.5 GFLOP) runs 3xTF32 on the tensor cores (tokenize.cuh).
+// Step a (21 D^2 of those) and step e (14.5 GFLOP) run 3xTF32 on the tensor
+// cores (rowgemm.cuh, tokenize.cuh); steps b-d on the FP32 pipes.
 
 #include "bwd.cuh"
+#include "rowgemm.cuh"
 #include "spa.cuh"
 #include "tokenize.cuh"
 
@@ -47,146 +55,387 @@ using namespace lft;
 namespace {
 
 // ---- a: Token2SAI, FFN and LN2 backward ---------------------------------
+// Replaces the FFN / Token2SAI / LN2 part of lft_tpu/kernels/spa_block.py:
+// _bwd_kernel (:447-482, x2 recomputed from the saved attn). Its seven
+// products run 3xTF32 on the tensor cores as row-tile products
+// (rowgemm.cuh), in this order over a 128-row tile:
+//   x2 = attn Wo + tok, xn2 = LN2(x2)       K2.4's pass arithmetic
+//   per hidden chunk c (HC = 64 columns):
+//     hid_c = relu(xn2 W1[:, c]);  y += hid_c W2[c, :]
+//   y += x2;  dy = dout Wlinᵀ
+//   per hidden chunk c:
+//     dpre_c = (hid_c > 0) dy W2ᵀ[:, c];  dxn2 += dpre_c W1ᵀ[c, :]
+//   dx2 = dy + LN2ᵀ(dxn2);  dattn = dx2 Woᵀ
+// Bound: at [100, 32, 32, 64] (T = 102,400, D = 128) 21 D^2 = 344 kFLOP a
+// token, 35.2 GFLOP: 0.2135 ms as 3 TF32 products at 495 TFLOP/s (0.526 on
+// the FP32 pipes); its bytes (attn, tok, dout in; dx2, dattn, y, dy, xn2
+// and the 2D-wide hid, dpre out: 1,472 floats a token) 0.180 ms at 3.35
+// TB/s. So bound by operations, as K2.5 is. The design:
+// * A persistent block of two warpgroups takes 128 rows a tile; each warp
+//   owns 16 of them from its loads to its stores, so no warp waits for
+//   another but at the two block barriers around a tile's LN2 sums.
+// * The weights split (Wo, W1, W2, Wlinᵀ, W2ᵀ, W1ᵀ, Woᵀ: 1.38 MB at C = 64)
+//   do not fit in shared memory; they are one stream, written by
+//   rg_weights_kernel first in the launch (kernels/rowgemm.py:
+//   ffn_out_bwd_stream), through MbarRing: with no block barrier a stage
+//   the two warpgroups run up to PD stages apart (1.33x WeightRing's speed
+//   here on an H100).
+// * The 2D-wide products go in hidden chunks, as K2.5's do, so the hid and
+//   dpre tiles are never held whole, and the forward's chunks (y) and the
+//   backward's (dxn2) run as two loops: y and dxn2, each 64 floats a
+//   thread, are never live together (both, beside a product's chain sets
+//   and A fragments, would pass 255 registers). What the second loop needs
+//   of hid is its sign: one bit an element, a word a thread and chunk (the
+//   chunk's accumulator layout is the same in both loops), kept in shared
+//   memory with the rows' LN2 mean and 1/std.
+// * The products after x2's issue a chain's tail MMAs first (rg_product<...,
+//   true>): dy = dout Wlinᵀ is one 16-deep chain at C = 16.
+// * x2 and xn2 are recomputed with K2.4's own arithmetic (row_pass<C,
+//   true>, spa_block.cu: the product, then + tok, then quad_ln), so they
+//   equal the forward's bit for bit; quad_ln keeps each row's mean and
+//   1/std for the LN2 backward. x2 is needed again (y's residual, xhat) but
+//   its 64 KB tile would leave the ring 3 stages; it waits in the rows of
+//   dx2's output instead (in L2) until dx2 replaces it.
+// * Every output goes from the accumulators to the warp's rows in shared
+//   memory and from there to device memory as whole 128-byte lines.
+// * L2: the stream is re-read by every block each tile (132 x 1.38 MB a
+//   round of tiles), while attn, tok, dout and the outputs pass through L2
+//   once (5.9 KB a token). Loaded and stored with evict-first hints (.cs),
+//   they leave the weights in L2: on an H100 the kernel took 1.8x the time
+//   without the hints (a scratch A/B; hid, dpre and the other outputs
+//   written normally evicted the stream, whose stages then came late).
+// * LN2's backward runs on the dxn2 accumulators (row sums in a quad, as
+//   quad_ln's), and the affine grads' partial sums are one row a 128-row
+//   tile ([tiles, 2, D]): their number and the order of the colsum after
+//   depend on T alone. Every output is written by one warp of one block,
+//   no atomics: a call repeats bitwise.
 template <int C>
-__global__ void __launch_bounds__(NT)
+struct FfnOutBwd {
+  static constexpr int D = 2 * C;
+  static constexpr int HC = 2 * D < 64 ? 2 * D : 64;   // hidden columns a chunk
+  static constexpr int NH = 2 * D / HC;                 // chunks
+  static constexpr int LDX = D + 4, LDH = HC + 4;       // row strides
+  static constexpr int SQ = 2 * D * D;                  // floats of Wo (Woᵀ) split
+  static constexpr int PC = 2 * D * HC;                 // floats of a chunk's piece
+  static constexpr int ALIGN = 32 * (D > HC ? D : HC);  // a 16-of-K chain of any piece
+  static constexpr int OFF_F = SQ;                      // W1[:, c], W2[c, :] a chunk
+  static constexpr int OFF_LIN = OFF_F + NH * 2 * PC;   // Wlinᵀ
+  static constexpr int OFF_B =                          // W2ᵀ[:, c], W1ᵀ[c, :] a chunk
+      (OFF_LIN + 2 * C * D + ALIGN - 1) / ALIGN * ALIGN;
+  static constexpr int OFF_OT = OFF_B + NH * 2 * PC;    // Woᵀ
+  static constexpr int FLOATS = OFF_OT + SQ;            // the weight stream
+  static constexpr int PIECES = 3 + 4 * NH;
+  // rows, the LN2 sums [8 warps][2][D], the rows' LN2 mean and 1/std
+  // [128][2], the ReLU signs [NH][256 threads]
+  static constexpr int TILES = (RG_M * (LDX + LDH) + 8 * 2 * D + 2 * RG_M + NH * RG_NT) * 4;
+  static constexpr int NS = rg_slots(TILES + 16 * 8);   // the ring and its 2 NS mbarriers
+  static constexpr size_t BYTES = TILES + static_cast<size_t>(NS) * RG_SF * 4 + 2 * NS * 8;
+  static_assert(RgParts<HC>::NP * RgParts<HC>::R == 32, "a chunk's ReLU signs fill one word");
+  static_assert(BYTES <= RG_SMEM_MAX, "the rows and the ring must fit in shared memory");
+};
+
+// The warp's 16 rows [t0, t0 + 16) of src [T, W] into dst (row stride ld),
+// all loads in flight at once, zero past T; read once, so marked to leave
+// L2 first (ld.global.cs).
+template <int W>
+__device__ __forceinline__ void warp_rows(float* dst, int ld, const float* __restrict__ src,
+                                          int t0, int T) {
+  constexpr int L = W / 8;   // float4 a lane
+  const int lane = threadIdx.x & 31;
+  float4 v[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int i = lane + 32 * k, r = i / (W / 4), c = 4 * (i % (W / 4));
+    v[k] = t0 + r < T ? __ldcs(reinterpret_cast<const float4*>(src + static_cast<size_t>(t0 + r) * W + c))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncwarp();   // the rows' last readers are done
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int i = lane + 32 * k;
+    store4(dst + i / (W / 4) * ld + 4 * (i % (W / 4)), v[k]);
+  }
+  __syncwarp();
+}
+
+// The warp's 16 rows of a shared tile (row stride ld), W floats each, into
+// rows t0 .. t0 + 15 (< T) of dst [T, dld] from column c0 on: a lane's
+// float4 a time, one row of whole 128-byte lines an instruction. KEEP: the
+// rows are read again in this kernel (x2); else they are marked to leave
+// L2 first (st.global.cs).
+template <int W, bool KEEP = false>
+__device__ __forceinline__ void store_rows(const float* tile, int ld, float* __restrict__ dst,
+                                           int dld, int c0, int t0, int T) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < W / 8; ++k) {
+    const int i = lane + 32 * k, r = i / (W / 4), c = 4 * (i % (W / 4));
+    if (t0 + r >= T) continue;
+    float* at = dst + static_cast<size_t>(t0 + r) * dld + c0 + c;
+    const float4 v = load4(tile + r * ld + c);
+    if constexpr (KEEP)
+      store4(at, v);
+    else
+      __stcs(reinterpret_cast<float4*>(at), v);
+  }
+}
+
+// acc into the warp's rows of a shared tile (row stride ld), after every
+// lane is done reading them.
+template <int N>
+__device__ __forceinline__ void put_tile(RgAcc<N>& acc, float* tile, int ld) {
+  __syncwarp();
+  rg_pairs<N>(acc, [&](int r, int c, float v0, float v1) {
+    *reinterpret_cast<float2*>(tile + r * ld + c) = make_float2(v0, v1);
+  });
+  __syncwarp();
+}
+
+// The forward's hidden chunk J and those after it: hid_c = relu(xn2 W1[:,
+// c]) into hid_out and the warp's chunk rows, its signs into the thread's
+// word on[J RG_NT] (bit i: the chunk accumulator's element i), y += hid_c
+// W2[c, :].
+template <int C, int J, class Ring>
+__device__ __forceinline__ void fwd_chunks(RgAcc<2 * C>& y, uint32_t* on, const float* xw,
+                                           float* hw16,
+                                           float* __restrict__ hid_out, Ring& ring,
+                                           const float*& st, int t0, int T) {
+  using F = FfnOutBwd<C>;
+  constexpr int off = F::OFF_F + J * 2 * F::PC;
+  RgAcc<F::HC> hc;
+  rg_zero<F::HC>(hc);
+  rg_product<F::D, F::HC, off, true>(hc, xw, F::LDX, ring, st);
+  uint32_t bits = 0;
+#pragma unroll
+  for (int i = 0; i < RgParts<F::HC>::R; ++i) {
+    bits |= (hc[0][i] > 0.f ? 1u : 0u) << i;
+    hc[0][i] = fmaxf(hc[0][i], 0.f);
+  }
+  on[J * RG_NT] = bits;
+  put_tile<F::HC>(hc, hw16, F::LDH);
+  store_rows<F::HC>(hw16, F::LDH, hid_out, 2 * F::D, J * F::HC, t0, T);
+  rg_product<F::HC, F::D, off + F::PC, true>(y, hw16, F::LDH, ring, st);
+  if constexpr (J + 1 < F::NH) fwd_chunks<C, J + 1>(y, on, xw, hw16, hid_out, ring, st, t0, T);
+}
+
+// The backward's hidden chunk J and those after it: dpre_c = (hid_c > 0)
+// dy W2ᵀ[:, c] into dpre_out and the warp's chunk rows, dxn2 += dpre_c
+// W1ᵀ[c, :].
+template <int C, int J, class Ring>
+__device__ __forceinline__ void bwd_chunks(RgAcc<2 * C>& dxn, const uint32_t* on,
+                                           const float* xw, float* hw16,
+                                           float* __restrict__ dpre_out, Ring& ring,
+                                           const float*& st, int t0, int T) {
+  using F = FfnOutBwd<C>;
+  constexpr int off = F::OFF_B + J * 2 * F::PC;
+  RgAcc<F::HC> dp;
+  rg_zero<F::HC>(dp);
+  rg_product<F::D, F::HC, off, true>(dp, xw, F::LDX, ring, st);
+  const uint32_t bits = on[J * RG_NT];
+#pragma unroll
+  for (int i = 0; i < RgParts<F::HC>::R; ++i)
+    if (!((bits >> i) & 1u)) dp[0][i] = 0.f;
+  put_tile<F::HC>(dp, hw16, F::LDH);
+  store_rows<F::HC>(hw16, F::LDH, dpre_out, 2 * F::D, J * F::HC, t0, T);
+  rg_product<F::HC, F::D, off + F::PC, true>(dxn, hw16, F::LDH, ring, st);
+  if constexpr (J + 1 < F::NH) bwd_chunks<C, J + 1>(dxn, on, xw, hw16, dpre_out, ring, st, t0, T);
+}
+
+// wf: the weight stream (FfnOutBwd::FLOATS floats, kernels/rowgemm.py:
+// ffn_out_bwd_stream), written by rg_weights_kernel. ln_part [tiles, 2, D].
+template <int C>
+__global__ void __launch_bounds__(RG_NT, 1)
     spa_ffn_out_bwd_kernel(const float* __restrict__ attn, const float* __restrict__ tok,
                            const float* __restrict__ dout, const float* __restrict__ ln,
-                           const float* __restrict__ wo, const float* __restrict__ w1,
-                           const float* __restrict__ w2, const float* __restrict__ wlinT,
-                           const float* __restrict__ w2T, const float* __restrict__ w1T,
-                           const float* __restrict__ woT, float* __restrict__ dx2_out,
+                           const float* __restrict__ wf, float* dx2_out,
                            float* __restrict__ dattn_out, float* __restrict__ y_out,
                            float* __restrict__ dy_out, float* __restrict__ hid_out,
                            float* __restrict__ dpre_out, float* __restrict__ xn2_out,
                            float* __restrict__ ln_part, int T) {
-  using S = Spa<C>;
-  constexpr int D = S::D, LDC = S::LDC, LDD = S::LDD, LDH = S::LDH;
-  using LN = RowLN<D>;
-  extern __shared__ float4 smem4[];
-  float* AT = reinterpret_cast<float*>(smem4);   // attn -> dxn2
-  float* X2 = AT + BM * LDD;                      // x2 -> dx2
-  float* XN = X2 + BM * LDD;                      // xn2 -> dy
-  float* HD = XN + BM * LDD;                      // [BM][LDH] hid -> dpre
-  float* DO = HD + BM * LDH;                      // [BM][LDC] dout
-  float* MU = DO + BM * LDC;
-  float* RS = MU + BM;
-  float* WP = RS + BM;                            // [8][2][D]
-  const int warp = threadIdx.x >> 5;
-  const int t0 = blockIdx.x * BM;
-  const int nr = min(BM, T - t0);
-  auto gl = [&](float* p, int r, int c, int W) { return p + static_cast<size_t>(t0 + r) * W + c; };
+  using F = FfnOutBwd<C>;
+  using P = RgParts<F::D>;
+  constexpr int D = F::D, LDX = F::LDX, LDH = F::LDH;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* xw = smem + 16 * warp * LDX;                   // the warp's rows: attn, xn2, dy, dx2
+  float* hw16 = smem + RG_M * LDX + 16 * warp * LDH;    // dout, then a hidden chunk
+  float* part = smem + RG_M * (LDX + LDH);              // [8 warps][2][D] LN2 sums
+  float* stats = part + 8 * 2 * D + 32 * warp;          // the warp's rows' mean, 1/std
+  uint32_t* on = reinterpret_cast<uint32_t*>(part + 8 * 2 * D + 2 * RG_M) + threadIdx.x;
+  const float* g2 = ln + 2 * D;                         // LN2's weight
+  const int tiles = (T + RG_M - 1) / RG_M;
+  float* slots = reinterpret_cast<float*>(on - threadIdx.x) + F::NH * RG_NT;
+  MbarRing<F::NS> ring;
+  ring.start(slots, reinterpret_cast<uint64_t*>(slots + F::NS * RG_SF), wf, F::FLOATS,
+             (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x);
+  const float* st = nullptr;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int t0 = tile * RG_M + 16 * warp;   // the warp's first token
+    warp_rows<D>(xw, LDX, attn, t0, T);
 
-  load_rows<D>(AT, LDD, attn, t0, T);
-  load_rows<C>(DO, LDC, dout, t0, T);
-  __syncthreads();
-  {  // x2 = attn Wo + tok
-    Acc<BM, D> acc;
-    zero_acc<BM, D>(acc);
-    gemm_acc<BM, D, D>(acc, AT, LDD, wo);
-    for_tiles<BM, D>(acc, [&](int r, int c, float4 v) {
-      const float4 tv = r < nr ? ldg4(tok + static_cast<size_t>(t0 + r) * D + c)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      store4(X2 + r * LDD + c, add4(v, tv));
+    // x2 = attn Wo + tok (tok added to the finished product), xn2 = LN2(x2)
+    RgAcc<D> a;
+    rg_zero<D>(a);
+    rg_product<D, D, 0>(a, xw, LDX, ring, st);
+    rg_pairs<D>(a, [&](int r, int c, float& v0, float& v1) {
+      if (t0 + r < T) {
+        const float2 t =
+            __ldcs(reinterpret_cast<const float2*>(tok + static_cast<size_t>(t0 + r) * D + c));
+        v0 += t.x;
+        v1 += t.y;
+      }
     });
-  }
-  __syncthreads();
-  for (int r = warp; r < BM; r += NT / 32) {  // xn2 = LN2(x2) and its statistics
-    float v[LN::E];
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) v[e] = X2[r * LDD + LN::col(e)];
-    float mu, rstd;
-    ln_stats<D>(v, mu, rstd);
-    if ((threadIdx.x & 31) == 0) {
-      MU[r] = mu;
-      RS[r] = rstd;
+    put_tile<D>(a, xw, LDX);   // attn is read
+    store_rows<D, true>(xw, LDX, dx2_out, D, 0, t0, T);   // x2, until dx2 replaces it
+    {
+      float mu[2], rstd[2];
+      quad_ln<D, true>(a, g2, ln + 3 * D, mu, rstd);
+      if ((lane & 3) == 0) {
+        const int g = lane >> 2;
+        *reinterpret_cast<float2*>(stats + 2 * g) = make_float2(mu[0], rstd[0]);
+        *reinterpret_cast<float2*>(stats + 2 * g + 16) = make_float2(mu[1], rstd[1]);
+      }
     }
-    LN::apply(v, ln + 2 * D, ln + 3 * D);
+    put_tile<D>(a, xw, LDX);
+    store_rows<D>(xw, LDX, xn2_out, D, 0, t0, T);
+
+    // hid = relu(xn2 W1) and y = hid W2 + x2, a hidden chunk at a time;
+    // on[j RG_NT] keeps the chunk's ReLU signs
+    {
+      RgAcc<D> y;
+      rg_zero<D>(y);
+      fwd_chunks<C, 0>(y, on, xw, hw16, hid_out, ring, st, t0, T);
+      rg_pairs<D>(y, [&](int r, int c, float& v0, float& v1) {
+        if (t0 + r < T) {
+          const float2 x2 =
+              *reinterpret_cast<const float2*>(dx2_out + static_cast<size_t>(t0 + r) * D + c);
+          v0 += x2.x;
+          v1 += x2.y;
+        }
+      });
+      put_tile<D>(y, xw, LDX);   // xn2 is read
+      store_rows<D>(xw, LDX, y_out, D, 0, t0, T);
+    }
+
+    // dy = dout Wlinᵀ, kept in the warp's rows (xn2 is read)
+    {
+      warp_rows<C>(hw16, LDH, dout, t0, T);
+      RgAcc<D> dy;
+      rg_zero<D>(dy);
+      rg_product<C, D, F::OFF_LIN, true>(dy, hw16, LDH, ring, st);
+      put_tile<D>(dy, xw, LDX);
+      store_rows<D>(xw, LDX, dy_out, D, 0, t0, T);
+    }
+
+    // dpre = (hid > 0) dy W2ᵀ and dxn2 = dpre W1ᵀ, a hidden chunk at a time
+    RgAcc<D> dxn;
+    rg_zero<D>(dxn);
+    bwd_chunks<C, 0>(dxn, on, xw, hw16, dpre_out, ring, st, t0, T);
+
+    // LN2 backward on the accumulators: xhat = (x2 - mu) rstd as the
+    // forward made it (zero on rows past T, whose dxn2 is zero too)
+    RgAcc<D> xh;
+    float mu[2], rstd[2];
+    {
+      const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        XN[r * LDD + LN::col(e)] = v[e];
-        if (r < nr) *gl(xn2_out, r, LN::col(e), D) = v[e];
-      }
-  }
-  __syncthreads();
-  {  // hid = relu(xn2 W1)
-    Acc<BM, 2 * D> acc;
-    zero_acc<BM, 2 * D>(acc);
-    gemm_acc<BM, D, 2 * D>(acc, XN, LDD, w1);
-    for_tiles<BM, 2 * D>(acc, [&](int r, int c, float4 v) {
-      v = make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
-      store4(HD + r * LDH + c, v);
-      if (r < nr) store4(gl(hid_out, r, c, 2 * D), v);
-    });
-  }
-  __syncthreads();
-  {  // y = hid W2 + x2 (the Token2SAI operand); dy = dout Wlinᵀ over xn2
-    Acc<BM, D> acc;
-    zero_acc<BM, D>(acc);
-    gemm_acc<BM, 2 * D, D>(acc, HD, LDH, w2);
-    for_tiles<BM, D>(acc, [&](int r, int c, float4 v) {
-      if (r < nr) store4(gl(y_out, r, c, D), add4(v, load4(X2 + r * LDD + c)));
-    });
-    zero_acc<BM, D>(acc);
-    gemm_acc<BM, C, D>(acc, DO, LDC, wlinT);
-    for_tiles<BM, D>(acc, [&](int r, int c, float4 v) {
-      store4(XN + r * LDD + c, v);
-      if (r < nr) store4(gl(dy_out, r, c, D), v);
-    });
-  }
-  __syncthreads();
-  {  // dpre = (hid > 0) dy W2ᵀ, in place over hid
-    Acc<BM, 2 * D> acc;
-    zero_acc<BM, 2 * D>(acc);
-    gemm_acc<BM, D, 2 * D>(acc, XN, LDD, w2T);
-    for_tiles<BM, 2 * D>(acc, [&](int r, int c, float4 v) {
-      const float4 hv = load4(HD + r * LDH + c);
-      v = make_float4(hv.x > 0.f ? v.x : 0.f, hv.y > 0.f ? v.y : 0.f,
-                      hv.z > 0.f ? v.z : 0.f, hv.w > 0.f ? v.w : 0.f);
-      store4(HD + r * LDH + c, v);
-      if (r < nr) store4(gl(dpre_out, r, c, 2 * D), v);
-    });
-  }
-  __syncthreads();
-  {  // dxn2 = dpre W1ᵀ over attn
-    Acc<BM, D> acc;
-    zero_acc<BM, D>(acc);
-    gemm_acc<BM, 2 * D, D>(acc, HD, LDH, w1T);
-    for_tiles<BM, D>(acc, [&](int r, int c, float4 v) { store4(AT + r * LDD + c, v); });
-  }
-  __syncthreads();
-  LnGradAcc<D> g2;
-  g2.zero();
-  for (int r = warp; r < nr; r += NT / 32) {  // dx2 = dy + LN2ᵀ(dxn2), over x2
-    float xh[LN::E] = {}, d[LN::E] = {};
+      for (int h = 0; h < 2; ++h) {
+        const float2 ms = *reinterpret_cast<const float2*>(stats + 2 * g + 16 * h);
+        mu[h] = ms.x;
+        rstd[h] = ms.y;
+        const bool in = t0 + g + 8 * h < T;
+        const float* row = dx2_out + static_cast<size_t>(in ? t0 + g + 8 * h : 0) * D + 2 * q;
 #pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        xh[e] = (X2[r * LDD + LN::col(e)] - MU[r]) * RS[r];
-        d[e] = AT[r * LDD + LN::col(e)];
-      }
-    g2.add(d, xh);
-    ln_bwd<D>(d, xh, RS[r], ln + 2 * D);
+        for (int p = 0; p < P::NP; ++p)
 #pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        const float v = XN[r * LDD + LN::col(e)] + d[e];
-        X2[r * LDD + LN::col(e)] = v;
-        *gl(dx2_out, r, LN::col(e), D) = v;
+          for (int jj = 0; jj < P::NW / 8; ++jj) {
+            const float2 x2 = in ? *reinterpret_cast<const float2*>(row + p * P::NW + 8 * jj)
+                                 : make_float2(mu[h], mu[h]);
+            xh[p][4 * jj + 2 * h] = (x2.x - mu[h]) * rstd[h];
+            xh[p][4 * jj + 2 * h + 1] = (x2.y - mu[h]) * rstd[h];
+          }
       }
-  }
-  g2.flush(WP, 2, 0);
-  __syncthreads();
-  {  // dattn = dx2 Woᵀ
-    Acc<BM, D> acc;
-    zero_acc<BM, D>(acc);
-    gemm_acc<BM, D, D>(acc, X2, LDD, woT);
-    for_tiles<BM, D>(acc, [&](int r, int c, float4 v) {
-      if (r < nr) store4(gl(dattn_out, r, c, D), v);
+    }
+    // the affine grads' column sums over the warp's 16 rows: sum dxn2 xhat,
+    // sum dxn2; rows g and g + 8 in a thread, then the 8 lanes of a column
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+      for (int jj = 0; jj < P::NW / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i0 = 4 * jj + e, i1 = 4 * jj + 2 + e;
+          float sw = fmaf(dxn[p][i1], xh[p][i1], dxn[p][i0] * xh[p][i0]);
+          float sb = dxn[p][i0] + dxn[p][i1];
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) {
+            sw += __shfl_xor_sync(0xffffffffu, sw, o);
+            sb += __shfl_xor_sync(0xffffffffu, sb, o);
+          }
+          if (lane < 4) {
+            const int c = p * P::NW + 8 * jj + 2 * lane + e;
+            part[(warp * 2) * D + c] = sw;
+            part[(warp * 2 + 1) * D + c] = sb;
+          }
+        }
+    // dx2 = dy + rstd (dxh - mean(dxh) - xhat mean(dxh xhat)), dxh = dxn2 g2
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sa = 0.f, sx = 0.f;
+#pragma unroll
+      for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+        for (int jj = 0; jj < P::NW / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * jj + 2 * h + e;
+            const float dxh = dxn[p][i] * __ldg(g2 + p * P::NW + 8 * jj + 2 * (lane & 3) + e);
+            dxn[p][i] = dxh;
+            sa += dxh;
+            sx = fmaf(dxh, xh[p][i], sx);
+          }
+      sa += __shfl_xor_sync(0xffffffffu, sa, 1);
+      sa += __shfl_xor_sync(0xffffffffu, sa, 2);
+      sx += __shfl_xor_sync(0xffffffffu, sx, 1);
+      sx += __shfl_xor_sync(0xffffffffu, sx, 2);
+      sa /= D;
+      sx /= D;
+#pragma unroll
+      for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+        for (int jj = 0; jj < P::NW / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * jj + 2 * h + e;
+            dxn[p][i] = rstd[h] * (dxn[p][i] - sa - xh[p][i] * sx);
+          }
+    }
+    rg_pairs<D>(dxn, [&](int r, int c, float& v0, float& v1) {
+      const float2 dy = *reinterpret_cast<const float2*>(xw + r * LDX + c);
+      v0 += dy.x;
+      v1 += dy.y;
     });
+    put_tile<D>(dxn, xw, LDX);
+    store_rows<D>(xw, LDX, dx2_out, D, 0, t0, T);
+
+    // dattn = dx2 Woᵀ
+    RgAcc<D> da;
+    rg_zero<D>(da);
+    rg_product<D, D, F::OFF_OT, true>(da, xw, LDX, ring, st);
+    put_tile<D>(da, xw, LDX);   // dx2 is read
+    store_rows<D>(xw, LDX, dattn_out, D, 0, t0, T);
+
+    // the tile's LN2 sums: the 8 warps' in order, one row [2, D] a tile
+    // (the ring has no block barrier: one on each side of the reads)
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * D; i += RG_NT) {
+      float s = 0.f;
+#pragma unroll
+      for (int wp = 0; wp < 8; ++wp) s += part[wp * 2 * D + i];
+      ln_part[static_cast<size_t>(tile) * 2 * D + i] = s;
+    }
+    __syncthreads();
   }
-  block_colsum(WP, 2 * D, ln_part + static_cast<size_t>(blockIdx.x) * 2 * D);
 }
 
 // ---- b: recompute xn = LN1(tok + pe_tok), q, k, v -------------------------
@@ -458,26 +707,52 @@ LFT_EXPORT_ERROR_STRING
 // Token tensors are [T, *] in [V, h, w] order (T = V h w), weights "x @ W"
 // layouts as in spa_block.cu, "...T" their transposes: wlinT [C, D], w2T
 // [D, 2D], w1T [2D, D], woT/wqT/wkT/wvT [D, D]. ln [4, D] is
-// (LN1 w, b, LN2 w, b); ln_part [blocks, 2, D] with blocks = ceil(T / 64).
+// (LN1 w, b, LN2 w, b); step d's ln_part [blocks, 2, D] with blocks =
+// ceil(T / 64).
 // Each returns the launch's cudaGetLastError(), or cudaErrorInvalidValue
 // for a shape it does not take (C in {16, 32, 64}).
 
+// Step a: wf is a scratch of FfnOutBwd<C>::FLOATS floats (kernels/rowgemm.py:
+// ffn_out_bwd_floats), the weights split into TF32 hi/lo by the launch's
+// first kernels; ln_part [ceil(T / 128), 2, D].
 extern "C" int lft_spa_ffn_out_bwd(const float* attn, const float* tok, const float* dout,
                                    const float* ln, const float* wo, const float* w1,
                                    const float* w2, const float* wlinT, const float* w2T,
-                                   const float* w1T, const float* woT, float* dx2,
+                                   const float* w1T, const float* woT, float* wf, float* dx2,
                                    float* dattn, float* y, float* dy, float* hid,
                                    float* dpre, float* xn2, float* ln_part, int T, int C,
                                    void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
-    using SS = Spa<CC>;
+    using F = FfnOutBwd<CC>;
+    RgPiece all[F::PIECES];
+    int n = 0;
+    all[n++] = RgPiece{wo, F::D, F::D, F::D, 0};
+    for (int j = 0; j < F::NH; ++j) {
+      const int off = F::OFF_F + j * 2 * F::PC;
+      all[n++] = RgPiece{w1 + j * F::HC, 2 * F::D, F::D, F::HC, off};
+      all[n++] = RgPiece{w2 + static_cast<size_t>(j) * F::HC * F::D, F::D, F::HC, F::D,
+                         off + F::PC};
+    }
+    all[n++] = RgPiece{wlinT, F::D, CC, F::D, F::OFF_LIN};
+    for (int j = 0; j < F::NH; ++j) {
+      const int off = F::OFF_B + j * 2 * F::PC;
+      all[n++] = RgPiece{w2T + j * F::HC, 2 * F::D, F::D, F::HC, off};
+      all[n++] = RgPiece{w1T + static_cast<size_t>(j) * F::HC * F::D, F::D, F::HC, F::D,
+                         off + F::PC};
+    }
+    all[n++] = RgPiece{woT, F::D, F::D, F::D, F::OFF_OT};
+    for (int i = 0; i < n; i += RG_MAX_PIECES) {   // RG_MAX_PIECES a launch
+      RgPieces ps{};
+      const int k = n - i < RG_MAX_PIECES ? n - i : RG_MAX_PIECES;
+      for (int j = 0; j < k; ++j) ps.p[j] = all[i + j];
+      launch_rg_weights(ps, k, wf, s);
+    }
     auto kernel = spa_ffn_out_bwd_kernel<CC>;
-    const size_t bytes = (BM * (3 * SS::LDD + SS::LDH + SS::LDC) + 2 * BM +
-                          (NT / 32) * 2 * SS::D) * sizeof(float);
-    LFT_SET_SMEM(kernel, bytes);
-    kernel<<<blocks(T), NT, bytes, s>>>(attn, tok, dout, ln, wo, w1, w2, wlinT, w2T, w1T,
-                                        woT, dx2, dattn, y, dy, hid, dpre, xn2, ln_part, T);
+    LFT_SET_SMEM(kernel, F::BYTES);
+    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(
+        attn, tok, dout, ln, wf, dx2, dattn, y, dy, hid, dpre, xn2, ln_part, T);
   });
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@ rowgemm.cuh`) in plain PyTorch, and the geometry their kernels are built
 with.
 
 K2.2 (`spa_block.qkv`), K2.4 (`spa_block.outproj_ln`), K2.5 / K11.5
-(`spa_block.ffn_out`) and K1 (`ang_block.ang_block`) run their products as
+(`spa_block.ffn_out`), K3.a (`spa_block.ffn_out_bwd`) and K1
+(`ang_block.ang_block`) run their products as
 `acc[64 x N] += A[64 x K] B` on the tensor cores: A a warpgroup's token rows
 in shared memory, B a weight matrix split into TF32 hi and lo and laid out
 in K-major core matrices, streamed through a ring of `RG_SF`-float stages
@@ -13,7 +14,7 @@ pieces, in the order its products read them, into a scratch buffer the
 wrapper allocates. `piece` and the `*_stream` functions are that
 preparation in plain PyTorch, which the CPU tests emulate the kernels from;
 `*_floats` are the scratch sizes and `*_smem` the shared memory the kernels
-take (`RowProj`, `FfnOut`, `AngLayout` in the sources).
+take (`RowProj`, `FfnOut`, `FfnOutBwd`, `AngLayout` in the sources).
 """
 
 from __future__ import annotations
@@ -88,6 +89,56 @@ def ang_block_pieces(wts: dict):
     return out
 
 
+def ffn_out_bwd_layout(C: int):
+    """K3.a's stream (FfnOutBwd<C> in spa_block_bwd.cu): [(name, chunk,
+    K, N, offset)] in the order its products read them, and the stream's
+    floats. Wo; per hidden chunk W1[:, c], W2[c, :]; Wlinᵀ; per chunk
+    W2ᵀ[:, c], W1ᵀ[c, :]; Woᵀ. A piece starts at a multiple of its 16-of-K
+    chain (32 N floats): the second loop at a multiple of 32 max(D, HC),
+    which leaves a gap after Wlinᵀ at C = 16."""
+    D = 2 * C
+    hc = hidden_chunk(D)
+    nh = 2 * D // hc
+    sq, w1, w2 = 2 * D * D, 2 * D * hc, 2 * hc * D
+    align = 32 * max(D, hc)
+    out = [("wo", None, D, D, 0)]
+    for j in range(nh):
+        off = sq + j * (w1 + w2)
+        out += [("w1", j, D, hc, off), ("w2", j, hc, D, off + w1)]
+    off_lin = sq + nh * (w1 + w2)
+    out.append(("wlinT", None, C, D, off_lin))
+    off_b = -(-(off_lin + 2 * C * D) // align) * align
+    for j in range(nh):
+        off = off_b + j * (w1 + w2)
+        out += [("w2T", j, D, hc, off), ("w1T", j, hc, D, off + w2)]
+    off_ot = off_b + nh * (w1 + w2)
+    out.append(("woT", None, D, D, off_ot))
+    return out, off_ot + sq
+
+
+def ffn_out_bwd_pieces(wts: dict):
+    """K3.a's weights in stream order (`ffn_out_bwd_layout`), as K x N
+    matrices."""
+    D = wts["wo"].shape[0]
+    hc = hidden_chunk(D)
+    mats = dict(wo=wts["wo"], w1=wts["w1"], w2=wts["w2"], wlinT=wts["wlin"].t(),
+                w2T=wts["w2"].t(), w1T=wts["w1"].t(), woT=wts["wo"].t())
+    cut = dict(w1=lambda m, j: m[:, j * hc:(j + 1) * hc], w2T=lambda m, j: m[:, j * hc:(j + 1) * hc],
+               w2=lambda m, j: m[j * hc:(j + 1) * hc], w1T=lambda m, j: m[j * hc:(j + 1) * hc])
+    layout, _ = ffn_out_bwd_layout(D // 2)
+    return [mats[n] if j is None else cut[n](mats[n], j) for n, j, _, _, _ in layout]
+
+
+def ffn_out_bwd_stream(wts: dict) -> torch.Tensor:
+    """Plain version of the K3.a launches' weight preparation (zero in the
+    gap the kernel never reads)."""
+    layout, floats = ffn_out_bwd_layout(wts["wo"].shape[0] // 2)
+    out = torch.zeros(floats, dtype=wts["wo"].dtype)
+    for (_, _, K, N, off), m in zip(layout, ffn_out_bwd_pieces(wts)):
+        out[off:off + 2 * K * N] = piece(m.contiguous())
+    return out
+
+
 def qkv_pieces(wqk, wv):
     """K2.2's weights in stream order: Wq, Wk (the halves of wqk [D, 2D]),
     Wv."""
@@ -132,6 +183,11 @@ def ffn_out_floats(C: int) -> int:
     return 2 * (4 * D * D + D * C)
 
 
+def ffn_out_bwd_floats(C: int) -> int:
+    """Floats of K3.a's weight stream (FfnOutBwd<C>::FLOATS)."""
+    return ffn_out_bwd_layout(C)[1]
+
+
 def ang_block_floats(C: int) -> int:
     """Floats of K1's weight stream (AngLayout<C>::FLOATS)."""
     return 16 * C * C
@@ -154,6 +210,19 @@ def ffn_out_smem(C: int) -> int:
     D = 2 * C
     tiles = RG_M * (D + 4 + hidden_chunk(D) + 4) * 4
     return tiles + ring_slots(tiles) * RG_SF * 4
+
+
+def ffn_out_bwd_smem(C: int) -> int:
+    """Shared memory of a K3.a block: the rows [128, 2C + 4] (attn, xn2,
+    dy, dx2), a hidden chunk [128, 68] (dout first), the 8 warps' LN2 sums
+    [8, 2, 2C], the rows' LN2 mean and 1/std [128, 2], the threads' ReLU
+    signs [chunks, 256], the ring and its two mbarriers a slot
+    (FfnOutBwd<C>::BYTES)."""
+    D = 2 * C
+    hc = hidden_chunk(D)
+    tiles = (RG_M * (D + 4 + hc + 4) + 8 * 2 * D + 2 * RG_M + 2 * D // hc * 256) * 4
+    slots = ring_slots(tiles + 16 * 8)
+    return tiles + slots * RG_SF * 4 + 2 * slots * 8
 
 
 def ang_block_smem(C: int) -> int:

@@ -25,9 +25,9 @@ denominator l, and saves x, tok, m, l and attn. The backward (K3,
   d qkv_ln_bwd      dxn = dq Wqᵀ + dk Wkᵀ, LN1 backward, dtok
   e tokenize_bwd    dx as a gather over the 9 transposed taps
 
-Steps 2, 4 and 5 run their products 3xTF32 on the tensor cores as row-tile
-products (`wgmma`, `lft_torch/csrc/rowgemm.cuh`; their weights prepared as
-`kernels/rowgemm.py` sets out). Steps 1 and e are one implicit GEMM,
+Steps 2, 4, 5 and a run their products 3xTF32 on the tensor cores as
+row-tile products (`wgmma`, `lft_torch/csrc/rowgemm.cuh`; their weights
+prepared as `kernels/rowgemm.py` sets out). Steps 1 and e are one implicit GEMM,
 `out[t] = sum_tap in[t + s_tap] B[tap]`, run 3xTF32 on the tensor cores
 (`wgmma`, `lft_torch/csrc/tokenize.cuh`): a first kernel of the launch splits the
 weights into TF32 hi/lo parts in the layout the second reads (`tap_weights`
@@ -57,8 +57,8 @@ import torch.nn.functional as F
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
 from lft_torch.kernels.common import KERNEL_C
-from lft_torch.kernels.rowgemm import (ffn_out_floats, outproj_floats, piece, qkv_floats,
-                                       split_tf32)
+from lft_torch.kernels.rowgemm import (RG_M, ffn_out_bwd_floats, ffn_out_floats,
+                                       outproj_floats, piece, qkv_floats, split_tf32)
 from lft_torch.kernels.spa_attn_hp import (_gather_window, _hp_geometry_exists,
                                            _scatter_window, _window_probs)
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
@@ -329,6 +329,40 @@ def qkv(xn, tok, wts):
     return q, k, v
 
 
+# ------------------------------------------------ window step geometry ---
+
+WA_TX = WA_TY = 16     # query tile of the window step (spa_block.cu: WA_TX, WA_TY)
+WA_QY = 2              # queries a thread owns, down a column
+WA_G = 32              # floats of a head group: one 128-byte line of a pixel
+WA_S = 16              # floats of a thread's slice of the group
+WA_NT = WA_TX * (WA_TY // WA_QY) * (WA_G // WA_S)   # threads of a block: 256
+WA_RADIUS = 2          # the 5x5 window
+
+
+def window_smem() -> int:
+    """Shared memory of a window-step block: the k and v halos, (16 + 4)^2
+    pixels at a stride of 32 + 4 floats (WA_BYTES); two blocks share an SM."""
+    halo = (WA_TY + 2 * WA_RADIUS) * (WA_TX + 2 * WA_RADIUS) * (WA_G + 4)
+    return 2 * halo * 4
+
+
+def window_items(V: int, h: int, w: int, D: int):
+    """The window step's blocks in launch order, (view, y0, x0, group): a 16
+    x 16 query tile at (y0, x0) of one view times one head group of 32
+    channels (spa_block.cu: spa_window_attn_kernel)."""
+    ntx, nty, G = -(-w // WA_TX), -(-h // WA_TY), D // WA_G
+    return [(i // (nty * ntx * G), (i % (nty * ntx * G) // G) // ntx * WA_TY,
+             (i % (nty * ntx * G) // G) % ntx * WA_TX, i % G) for i in range(V * nty * ntx * G)]
+
+
+def window_thread(tid: int):
+    """(column, slice, first query row) in the tile of thread `tid` of the
+    window step's 256: a warp is 16 columns x the group's two 16-float
+    slices, and warp j owns query rows 2 j and 2 j + 1."""
+    lane = tid % 32
+    return lane % 16, lane // 16, WA_QY * (tid // 32)
+
+
 def _check_window(kernel: str, D: int, num_heads: int, ksize: int) -> None:
     if num_heads != 8 or ksize != 5 or D // num_heads not in (4, 8, 16) \
             or D % num_heads:
@@ -340,7 +374,9 @@ def _check_window(kernel: str, D: int, num_heads: int, ksize: int) -> None:
 def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
     """Step 3: projected q/k/v [V, h, w, D] -> attention output [V, h, w, D];
     with_stats: (attn, m, l), m and l [V, h, w, H], counted as
-    `spa_window_attn_res`."""
+    `spa_window_attn_res`. On the card a block takes a (view, 16 x 16 tile,
+    head group) item (`window_items`), its threads each 2 queries of a
+    column and 16 channels (`window_thread`), two blocks an SM."""
     if q.device.type != "cuda":
         if with_stats:
             return window_attn_plain(q, k, v, num_heads, ksize)
@@ -438,24 +474,39 @@ def _launch(kernel: str, fn_name: str, ins, outs, ints, dev, floats=()):
 
 
 def _bwd_blocks(T: int) -> int:
-    return (T + 63) // 64          # BM = 64 token rows a block (spa_block_bwd.cu)
+    return (T + 63) // 64          # BM = 64 token rows a block of step d (spa_block_bwd.cu)
+
+
+def ffn_out_bwd_tiles(T: int) -> int:
+    """Rows of step a's LN2 partial sums: one a 128-row tile (RG_M)."""
+    return -(-T // RG_M)
 
 
 def ffn_out_bwd(attn, tok, dout, wts):
     """Step a: (dx2, dattn, y, dy, hid, dpre, xn2, dln2); dln2 holds one
-    partial sum per kernel block, [blocks, 2, D]."""
+    partial sum per 128-row tile, [ffn_out_bwd_tiles(T), 2, D]. On the card
+    its seven products run 3xTF32 on the tensor cores (`csrc/rowgemm.cuh`),
+    the weights split by the launch's first kernels into a scratch of
+    `rowgemm.ffn_out_bwd_stream`'s layout."""
     if attn.device.type != "cuda":
         return ffn_out_bwd_plain(attn, tok, dout, wts)
     *lead, D = tok.shape
+    C = D // 2
     T = tok.numel() // D
-    _check_c("spa_ffn_out_bwd", D // 2)
+    _check_c("spa_ffn_out_bwd", C)
+    if attn.shape != tok.shape or tuple(dout.shape) != (*lead, C) \
+            or tuple(wts["w1"].shape) != (D, 2 * D) or tuple(wts["wlin"].shape) != (D, C):
+        raise ValueError(f"spa_ffn_out_bwd: attn {tuple(attn.shape)}, tok {tuple(tok.shape)}, "
+                         f"dout {tuple(dout.shape)}, w1 {tuple(wts['w1'].shape)}, wlin "
+                         f"{tuple(wts['wlin'].shape)}")
     wt = _bwd_weights(wts)
     e = lambda n: torch.empty(*lead, n, device=tok.device)
+    wf = torch.empty(ffn_out_bwd_floats(C), device=tok.device)   # scratch: the split weights
     outs = (e(D), e(D), e(D), e(D), e(2 * D), e(2 * D), e(D),
-            torch.empty(_bwd_blocks(T), 2, D, device=tok.device))
+            torch.empty(ffn_out_bwd_tiles(T), 2, D, device=tok.device))
     _launch("spa_ffn_out_bwd", "lft_spa_ffn_out_bwd",
             (attn, tok, dout, wts["ln"], wts["wo"], wts["w1"], wts["w2"], wt["wlinT"],
-             wt["w2T"], wt["w1T"], wt["woT"]), outs, (T, D // 2), tok.device)
+             wt["w2T"], wt["w1T"], wt["woT"]), (wf, *outs), (T, C), tok.device)
     return outs
 
 

@@ -128,6 +128,9 @@ def test_ang_block_res_and_bwd_kernels(cuda_device, C):
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,h,w", [(16, 20, 12), (32, 9, 7), (64, 32, 32), (64, 17, 40)])
 def test_spa_res_and_bwd_kernels(cuda_device, C, h, w):
+    """K2 with residuals and K3's steps against their plain versions; dout
+    is zero on the tokens whose FFN ReLU is on in one version of step a and
+    off in the other (ROADMAP §3, "ReLU and sign flips")."""
     p = _params(C, cuda_device, seed=h)
     wts = spa_block.spa_weights(p, "altblock.1.spa_trans.")
     g = torch.Generator(device=cuda_device).manual_seed(C + w)
@@ -138,6 +141,8 @@ def test_spa_res_and_bwd_kernels(cuda_device, C, h, w):
     ref = spa_block.spa_block_plain(x, pe_tok, wts, 8, 5, with_res=True)
     _close(res, ref, 1e-4)
     _, tok, m, l, attn = ref
+    dout = _calm_relu(dout, spa_block.ffn_out_bwd(attn, tok, dout, wts)[4],
+                      spa_block.ffn_out_bwd_plain(attn, tok, dout, wts)[4])
     a = spa_block.ffn_out_bwd(attn, tok, dout, wts)
     a_ref = spa_block.ffn_out_bwd_plain(attn, tok, dout, wts)
     _close(a[:-1], a_ref[:-1])
@@ -889,6 +894,127 @@ def test_spa_chains_and_fused_grads_through_new_projections(cuda_device):
     for name, g1, g2 in zip(p, got, grads(True)):
         err = float((g1 - g2).abs().max())
         assert err <= 5e-4 * float(g2.abs().max()) + 2e-9, (name, err)
+
+
+def _calm_relu(dout, hid_k, hid_p):
+    """dout with a zero cotangent on the tokens where an FFN ReLU is on in
+    one version and off in the other (its input within f32 rounding of 0):
+    dpre jumps there by design, not by the kernel's arithmetic."""
+    flips = ((hid_k > 0) != (hid_p > 0)).reshape(-1, hid_k.shape[-1]).any(-1)
+    assert int(flips.sum()) <= max(2, flips.numel() // 1000), int(flips.sum())
+    dout = dout.clone()
+    dout.reshape(-1, dout.shape[-1])[flips] = 0.0
+    return dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("V,h,w", [(3, 9, 7), (20, 31, 33)])
+def test_ffn_out_bwd_kernel_3xtf32(cuda_device, C, V, h, w):
+    """K3.a runs its seven products 3xTF32 on the tensor cores: every output
+    against the plain version (5e-4 max |plain|, the LN2 sums summed over
+    their per-tile rows), dx2, dattn, y, dy, xn2 and the LN2 sums against
+    float64 within twice the f32 plain version's error (TF32 off) plus
+    1e-7 max |float64| (as test_wgrad_kernels: at C = 16 dy is one 16-deep
+    chain, and over T = 189 tokens the f32 product's max error is a small
+    sample), one launch, one row of sums a 128-row tile, bitwise repeatable.
+    T = V h w is no multiple of 128, and at 20 x 31 x 33 blocks take several
+    tiles."""
+    p = _params(C, cuda_device, seed=C + V)
+    wts = spa_block.spa_weights(p, "altblock.1.spa_trans.")
+    w64 = {k: v.double() for k, v in wts.items()}
+    g = torch.Generator(device=cuda_device).manual_seed(C * V + h)
+    D = 2 * C
+    attn = 0.3 * torch.randn(V, h, w, D, device=cuda_device, generator=g)
+    tok = torch.randn(V, h, w, D, device=cuda_device, generator=g)
+    dout = torch.randn(V, h, w, C, device=cuda_device, generator=g)
+    dout = _calm_relu(dout, spa_block.ffn_out_bwd(attn, tok, dout, wts)[4],
+                      spa_block.ffn_out_bwd_plain(attn, tok, dout, wts)[4])
+    reset_launches()
+    got = spa_block.ffn_out_bwd(attn, tok, dout, wts)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spa_ffn_out_bwd"] == 1 and sum(LAUNCHES.values()) == 1
+    T = V * h * w
+    assert got[-1].shape == (-(-T // 128), 2, D)
+    ref = spa_block.ffn_out_bwd_plain(attn, tok, dout, wts)
+    exact = spa_block.ffn_out_bwd_plain(attn.double(), tok.double(), dout.double(), w64)
+    summed = lambda o: (*o[:-1], o[-1].sum(0, keepdim=True))
+    _close(summed(got), ref)
+    for i in (0, 1, 2, 3, 6, 7):
+        err, err_f32, scale = _f64_err(summed(got)[i], ref[i], exact[i])
+        assert err <= 2 * err_f32 + 1e-7 * scale, (i, err, err_f32)
+    assert all(torch.equal(a, b) for a, b in zip(got, spa_block.ffn_out_bwd(attn, tok, dout, wts)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,V,h,w", [(64, 5, 32, 32), (32, 3, 9, 7), (16, 4, 31, 33)])
+def test_ffn_out_bwd_recomputes_the_forwards_xn2_bitwise(cuda_device, C, V, h, w):
+    """K3.a recomputes x2 and xn2 with K2.4's own pass arithmetic: fed the
+    same attn, tok and weights, its xn2 equals K2.4's bit for bit."""
+    p = _params(C, cuda_device, seed=V)
+    wts = spa_block.spa_weights(p, "altblock.0.spa_trans.")
+    g = torch.Generator(device=cuda_device).manual_seed(C + h)
+    attn, tok = (torch.randn(V, h, w, 2 * C, device=cuda_device, generator=g) for _ in range(2))
+    dout = torch.randn(V, h, w, C, device=cuda_device, generator=g)
+    _, xn2 = spa_block.outproj_ln(attn, tok, wts)
+    assert torch.equal(spa_block.ffn_out_bwd(attn, tok, dout, wts)[6], xn2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("V,h,w", [(3, 8, 8), (2, 16, 16), (2, 30, 30), (3, 32, 32), (2, 17, 40)])
+def test_window_attn_kernels(cuda_device, C, V, h, w):
+    """K2.3 and K2.3 res: attn (and m, l) against the plain versions within
+    1e-4 max(1, max |plain|), against float64 within twice the f32 plain
+    version's error plus 1e-7 max |float64|, one launch each, bitwise
+    repeatable."""
+    g = torch.Generator(device=cuda_device).manual_seed(C + V * h + w)
+    q, k, v = (torch.randn(V, h, w, 2 * C, device=cuda_device, generator=g) for _ in range(3))
+    reset_launches()
+    got = spa_block.window_attn(q, k, v, 8, 5)
+    res = spa_block.window_attn(q, k, v, 8, 5, with_stats=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spa_window_attn"] == 1 and LAUNCHES["spa_window_attn_res"] == 1
+    ref = spa_block.window_attn_plain(q, k, v, 8, 5)
+    exact = spa_block.window_attn_plain(q.double(), k.double(), v.double(), 8, 5)
+    for u, r, e in zip((got, *res), (ref[0], *ref), (exact[0], *exact)):
+        torch.testing.assert_close(u, r, atol=1e-4 * max(1.0, float(r.abs().max())), rtol=0)
+        err, err_f32, scale = _f64_err(u, r, e)
+        assert err <= 2 * err_f32 + 1e-7 * scale, (err, err_f32)
+    assert torch.equal(got, res[0])
+    assert torch.equal(got, spa_block.window_attn(q, k, v, 8, 5))
+    assert all(torch.equal(a, b) for a, b in zip(res, spa_block.window_attn(q, k, v, 8, 5, True)))
+
+
+@pytest.mark.cuda
+def test_fused_grads_through_new_ffn_bwd_and_window_step(cuda_device, monkeypatch):
+    """At C = 64 the model's gradients through the fused blocks, with K2.3
+    res in SpaBlockFn's forward and K3.a in its backward (4 launches each),
+    against the plain blocks, and a bitwise repeat (cuDNN held to its
+    deterministic algorithms, as the trainer holds it)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    C = 64
+    p = _params(C, cuda_device, seed=9)
+    args = Args(channels=C, scale_factor=2)
+    for t in p.values():
+        t.requires_grad_(True)
+    rng = np.random.RandomState(5)
+    lr = torch.from_numpy(rng.rand(1, 1, 160, 160).astype(np.float32)).to(cuda_device)
+    hr = torch.from_numpy(rng.rand(1, 1, 320, 320).astype(np.float32)).to(cuda_device)
+
+    def grads(plain):
+        sr = lft.forward(p, lr, args, plain_blocks=plain)
+        loss = ((sr - hr) * torch.cos(3.0 * (sr - hr))).mean()
+        return torch.autograd.grad(loss, list(p.values()))
+
+    reset_launches()
+    got = grads(False)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spa_ffn_out_bwd"] == 4 and LAUNCHES["spa_window_attn_res"] == 4
+    for name, g1, g2 in zip(p, got, grads(True)):
+        err = float((g1 - g2).abs().max())
+        assert err <= 5e-4 * float(g2.abs().max()) + 2e-9, (name, err)
+    assert all(torch.equal(a, b) for a, b in zip(got, grads(False)))
 
 
 # ------------------------------------------ widths the kernels do not take ---
