@@ -39,10 +39,13 @@
    shapes (K1/K4 [4096, 25, 64], K2/K3 [100, 32, 32, 64]), max |diff| <=
    5e-4 max |plain| per output, and times them (the window step with stats
    beside one masked `scaled_dot_product_attention`, K3.e `spa_tokenize_bwd`
-   beside cuDNN's `conv_transpose2d`; it, `ang_block_res` and K3.a
-   `spa_ffn_out_bwd` (dx2, dattn, y, dy, xn2, the LN2 sums), bound as
-   3xTF32, and the window step with stats (attn, m, l) held to twice the
-   f32 plain version's float64 error and a bitwise repeat); then `wgrad` at every
+   beside cuDNN's `conv_transpose2d`; it, `ang_block_res`, K4
+   `ang_block_bwd` (every output, each version from its own forward's
+   residuals), K3.a `spa_ffn_out_bwd` (dx2, dattn, y, dy, xn2, the LN2
+   sums) and K3.d `spa_qkv_ln_bwd` (dtok, dtokpe, the LN1 sums), bound
+   as 3xTF32 (K4's attention on the FP32 pipes), and the window step with
+   stats (attn, m, l) held to twice the f32 plain version's float64 error
+   and a bitwise repeat); then `wgrad` at every
    product of the fused step (8 shapes, 56 launches a step) and `colsum` at
    its three shapes, timed in device time (a profiler trace of 20 calls,
    the host's launch path left out) beside `x.t() @ dy` / `a.sum(0)`, with
@@ -68,7 +71,7 @@
 12. holds K7 against its plain version at A2 = 81 (9x9 views), and trains at
     angRes 9 (batch 4 of 16x16-view patches) through `make_train_step`: with
     `--train_fused true` the fused blocks take it, 4 `ang_block_res` and 4
-    `ang_block_bwd128` launches a step (K4's form for 64 < A2 <= 128) beside
+    `ang_block_bwd128` launches a step (K4 counted past 64 views) beside
     K2's and K3's kernels and no per-op kernel, gradients against the plain
     blocks within the bounds of step 7 (or twice the two plain paths' own
     difference), bitwise repeatable; the same step with `--train_fused false`
@@ -106,9 +109,10 @@
     a permuted copy, exactly one launch of each of its five kernels, no more
     device memory than K2 itself takes, and times it in turns with "permute +
     K2 + permute back";
-19. holds K10 at [400, 32, 32, 128] and [400, 64, 64, 128], the 128-row K4 at
-    [1024, 81, 64] and, with a ragged last block, at A2 = 121 and 128, and
-    K11's two `_pm` kernels against their plain versions, timed beside their
+19. holds K10 at [400, 32, 32, 128] and [400, 64, 64, 128], K4 at the
+    angRes-9 step's [1024, 81, 64] (held to float64 and a bitwise repeat as
+    in step 8) and, with a ragged last tile, at A2 = 121 and 128, and K11's
+    two `_pm` kernels against their plain versions, timed beside their
     bounds (K10 also beside one `scaled_dot_product_attention` call;
     `spa_tokenize_ln_pm` and `spa_ffn_out_pm` held to float64 and a bitwise
     repeat as K2.1 and K2.5);
@@ -698,19 +702,8 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
               ab.ang_block_plain(x.double(), pe.double(), {k: v.double() for k, v in wa.items()},
                                  H),
               all(torch.equal(a, b) for a, b in zip(got, again)))
-    del got, again
-    _, m, l, attn = ref
-    dout = rand(N, A2, C)
-    hid = lambda fn: fn(x, pe, wa, m, l, attn, dout, H)[8]
-    dout = calm_relu(dout, hid(ab.ang_block_bwd_ops), hid(ab.ang_block_bwd_ops_plain),
-                     "ang_block_bwd")
-    bwd_in = (x, pe, wa, m, l, attn, dout, H)
-    ref = ab.ang_block_bwd_ops_plain(*bwd_in)
-    rec.record("ang_block_bwd", src_a, "lft_tpu/kernels/ang_block.py:432",
-               with_sum(ab.ang_block_bwd_ops(*bwd_in)), (*ref[:-1], ref[-1][0]),
-               lambda: ab.ang_block_bwd_ops(*bwd_in), lambda: ab.ang_block_bwd_ops_plain(*bwd_in),
-               28 * T * C * C + 10 * C * N * A2 * A2,
-               nbytes(x, pe, m, l, attn, dout, *ref[:-1]) + 2 * wa_b, rel=rel)
+    del got, again, ref
+    bwd_in = k4_check(rec, "ang_block_bwd", x, pe, wa, rand(N, A2, C), rel)
     got = ab.ang_block_bwd(*bwd_in)
     ref = ab.ang_block_bwd_plain(*bwd_in)
     err, ok = max_err(got, ref, rel)
@@ -780,11 +773,20 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
     dq, dk, dv = ref
     args_d = (tok, pe_tok, dq, dk, dv, dx2, ws)
     ref = sb.qkv_ln_bwd_plain(*args_d)
-    rec.record("spa_qkv_ln_bwd", src_s, rep, with_sum(sb.qkv_ln_bwd(*args_d)),
+    got = sb.qkv_ln_bwd(*args_d)
+    rec.record("spa_qkv_ln_bwd", src_s, rep, with_sum(got),
                (*ref[:-1], ref[-1][0]), lambda: sb.qkv_ln_bwd(*args_d),
                lambda: sb.qkv_ln_bwd_plain(*args_d), 6 * T * D * D,
                nbytes(tok, pe_tok, dq, dk, dv, dx2, *ref[:-1]) + wbytes("ln", "wqk", "wv"),
-               rel=rel)
+               rel=rel, tf32_products=3)
+    repeats = all(torch.equal(a, b) for a, b in zip(got, sb.qkv_ln_bwd(*args_d)))
+    exact = sb.qkv_ln_bwd_plain(*(t.double() for t in args_d[:-1]),
+                                {k_: v_.double() for k_, v_ in ws.items()})
+    summed = with_sum(got)
+    for i, name in ((0, "dtok"), (1, "dtokpe"), (2, "dln1 sums")):
+        f64_check(f"spa_qkv_ln_bwd {name}", summed[i], ref[i].reshape(summed[i].shape),
+                  exact[i].reshape(summed[i].shape), repeats)
+    del got, summed, exact
     dtok = ref[0]
     ref = sb.tokenize_bwd_plain(dtok, ws)
     dtok_nchw, w_t = dtok.permute(0, 3, 1, 2), ws["mlp"].reshape(D, C, 3, 3)
@@ -809,6 +811,54 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
         raise AssertionError(f"the SpaTrans backward disagrees with its plain version ({err:.3e})")
 
     return rec.rows + reduction_checks(card, launches, n_steps, g)
+
+
+def k4_check(rec, name: str, x, pe, wa, dout, rel, shape=None):
+    """K4 (`ang_block_bwd_ops`) against its plain version at x [N, A2, C]
+    with block 0's weights, both from K1 res's residuals (m, l, attn, as in
+    a train step): the `kernels` row (or, with `shape`, one more shape of
+    it), bound as 3xTF32 products on the tensor cores beside the attention
+    on the FP32 pipes. Then every output held to twice the f32 plain
+    version's float64 error (the LN sums summed over their rows), each
+    version from its own forward's residuals (the softmax (m, l) fits the
+    scores of the forward that made it: K1's for the kernel), and a bitwise
+    repeat. Returns the backward's inputs, dout zero on the tokens of a ReLU
+    flip."""
+    import torch
+    from lft_torch.kernels import ang_block as ab
+
+    N, A2, C = x.shape
+    T, H = N * A2, 8
+    w64 = {k: v.double() for k, v in wa.items()}
+    res_k = ab.ang_block(x, pe, wa, H, with_res=True)[1:]
+    res_p = ab.ang_block_plain(x, pe, wa, H, with_res=True)[1:]
+    res_e = ab.ang_block_plain(x.double(), pe.double(), w64, H, with_res=True)[1:]
+    hid_k = ab.ang_block_bwd_ops(x, pe, wa, *res_k, dout, H)[8]
+    dout = calm_relu(dout, hid_k, ab.ang_block_bwd_ops_plain(x, pe, wa, *res_p, dout, H)[8],
+                     f"{name} at A2 = {A2}")
+    dout = calm_relu(dout, hid_k, ab.ang_block_bwd_ops_plain(x.double(), pe.double(), w64,
+                                                             *res_e, dout.double(), H)[8],
+                     f"{name} at A2 = {A2} against float64")
+    del hid_k
+    bwd_in = (x, pe, wa, *res_k, dout, H)
+    ref = ab.ang_block_bwd_ops_plain(*bwd_in)
+    got = ab.ang_block_bwd_ops(*bwd_in)
+    summed = (*got[:-1], got[-1].sum(0))
+    call = ":432" if name == "ang_block_bwd" else ":477"
+    rec.record(name, "lft_torch/csrc/ang_block.cu", "lft_tpu/kernels/ang_block.py" + call,
+               summed, (*ref[:-1], ref[-1][0]), lambda: ab.ang_block_bwd_ops(*bwd_in),
+               lambda: ab.ang_block_bwd_ops_plain(*bwd_in), 28 * T * C * C,
+               nbytes(x, pe, *res_k, dout, *ref[:-1]) + 2 * sum(nbytes(t) for t in wa.values()),
+               rel=rel, shape=shape, slow_reps=10 if shape is None and A2 <= 64 else 3,
+               tf32_products=3, fp32_flops=10 * C * N * A2 * A2)
+    repeats = all(torch.equal(a, b) for a, b in zip(got, ab.ang_block_bwd_ops(*bwd_in)))
+    own = ab.ang_block_bwd_ops_plain(x, pe, wa, *res_p, dout, H)
+    exact = ab.ang_block_bwd_ops_plain(x.double(), pe.double(), w64, *res_e, dout.double(), H)
+    for i, out in enumerate(("dx", "xn", "dq", "dk", "dv", "dx2", "xn2", "dpre", "hid",
+                             "dln sums")):
+        f64_check(f"{name} at A2 = {A2} {out}", summed[i], own[i].reshape(summed[i].shape),
+                  exact[i].reshape(summed[i].shape), repeats)
+    return bwd_in
 
 
 def reduction_checks(card: str, launches: dict, n_steps: int, g) -> list:
@@ -1499,25 +1549,10 @@ def tail_kernel_checks(params, card: str, tile_counts: dict, tile64_counts: dict
         del q, k, v, ref
 
     wa = ab.ang_weights(params, "altblock.0.ang_trans.")
-    wa_b = sum(nbytes(t) for t in wa.values())
     for N, A2, shape in ((1024, 81, None), (1001, 121, (1001, 121, C)), (333, 128, (333, 128, C))):
-        x, dout = rand(N, A2, C), rand(N, A2, C)
         pe = torch.from_numpy(angular_position(A2, C)).to(dev)
-        _, m, l, attn = ab.ang_block_plain(x, pe, wa, H, with_res=True)
-        hid = lambda fn: fn(x, pe, wa, m, l, attn, dout, H)[8]
-        dout = calm_relu(dout, hid(ab.ang_block_bwd_ops), hid(ab.ang_block_bwd_ops_plain),
-                         f"ang_block_bwd128 at A2 = {A2}")
-        bwd_in = (x, pe, wa, m, l, attn, dout, H)
-        ref = ab.ang_block_bwd_ops_plain(*bwd_in)
-        got = ab.ang_block_bwd_ops(*bwd_in)
-        T = N * A2
-        rec_tr.record("ang_block_bwd128", "lft_torch/csrc/ang_block.cu",
-                      "lft_tpu/kernels/ang_block.py:477", (*got[:-1], got[-1].sum(0)),
-                      (*ref[:-1], ref[-1][0]), lambda: ab.ang_block_bwd_ops(*bwd_in),
-                      lambda: ab.ang_block_bwd_ops_plain(*bwd_in),
-                      28 * T * C * C + 10 * C * N * A2 * A2,
-                      nbytes(x, pe, m, l, attn, dout, *ref[:-1]) + 2 * wa_b, rel=TRAIN_REL,
-                      shape=shape, slow_reps=3)
+        bwd_in = k4_check(rec_tr, "ang_block_bwd128", rand(N, A2, C), pe, wa, rand(N, A2, C),
+                          TRAIN_REL, shape)
         if shape is None:
             full, full_p = ab.ang_block_bwd(*bwd_in), ab.ang_block_bwd_plain(*bwd_in)
             err, ok = max_err(full, full_p, TRAIN_REL)

@@ -43,8 +43,7 @@
 //   attention output.
 
 #include "attn.cuh"
-#include "bwd.cuh"
-#include "rowgemm.cuh"
+#include "rowbwd.cuh"
 
 using namespace lft;
 
@@ -293,610 +292,272 @@ int launch(const float* x, const float* pe, const float* ln, const float* wq,
 
 // ---- K4: the block's backward ---------------------------------------------
 //
-// Replaces lft_tpu/kernels/ang_block.py:_vjp_bwd / _bwd_kernel. One block
-// owns RB = 64 token rows = RB / A2 whole pixels (2 at A2 = 25) and runs,
-// in shared memory:
-//   recompute   xn = LN1(x + pe), q, k, v; x2 = attn Wo + x (attn saved);
-//               xn2 = LN2(x2); hid = relu(xn2 W1)
-//   backward    dpre = (hid > 0) dout W2ᵀ;  dxn2 = dpre W1ᵀ;
-//               dx2 = dout + LN2ᵀ(dxn2);  dattn = dx2 Woᵀ;
-//               attention from the saved (m, l): thread (pixel, head, t)
-//               computes dq of query t over the keys and dk, dv of key t
-//               over the queries, with dsum_i = dattn_i . attn_i;
-//               dxn = dq Wqᵀ + dk Wkᵀ;  dx = dx2 + dv Wvᵀ + LN1ᵀ(dxn)
-// and writes dx plus the per-token operands of the weight gradients (xn,
-// dq, dk, dv, dx2, xn2, dpre, hid) and its own partial column sums of the
-// LayerNorm affine grads; `wgrad`/`colsum` (wgrad.cu) reduce them in a
-// fixed order. The TPU kernel accumulated the weight grads across its
-// sequential grid; CUDA blocks run in no order, and float atomics would
-// make every step's result depend on the schedule. Pad rows of the last
-// block are masked: they are computed from zeros and never stored or
-// summed.
+// Replaces lft_tpu/kernels/ang_block.py:_vjp_bwd / _bwd_kernel. Three
+// kernels for every A2 <= 128 (a pixel's rows are needed together only by
+// the attention, so the backward is cut there, as K3 is cut into five
+// kernels), the intermediates through device memory:
+//   a  ang_bwd_tok_kernel   persistent 128-row tiles of token rows of any
+//                           pixels: recompute xn = LN1(x + pe), q = xn Wq,
+//                           k = xn Wk, v = x Wv, x2 = attn Wo + x (attn
+//                           saved), xn2 = LN2(x2), hid = relu(xn2 W1); then
+//                           dpre = (hid > 0) dout W2ᵀ, dxn2 = dpre W1ᵀ,
+//                           dx2 = dout + LN2ᵀ(dxn2), dattn = dx2 Woᵀ and
+//                           dsum = dattn . attn per head
+//   b  ang_bwd_attn_kernel  P whole pixels a block (as many as fill its 256
+//                           threads, at least one): from the saved (m, l),
+//                           thread (pixel, head, t) computes dq of query t
+//                           over the keys and dk, dv of key t over the
+//                           queries
+//   c  qkv_ln_bwd_kernel<C> (rowbwd.cuh: K3.d's kernel at width C, its three
+//                           weights resident): dxn = dq Wqᵀ + dk Wkᵀ,
+//                           dx = (dx2 + dv Wvᵀ) + LN1ᵀ(dxn)
+// They write dx and the per-token operands of the weight grads (xn, dq, dk,
+// dv, dx2, xn2, dpre, hid) and, one row a 128-row tile, the partial column
+// sums of the LayerNorm affine grads (ln_part [tiles, 4, C]: c fills rows
+// 0-1 of a tile's slot, a rows 2-3); `wgrad`/`colsum` (wgrad.cu) reduce
+// them in a fixed order. The TPU kernel accumulated the weight grads across
+// its sequential grid; CUDA blocks run in no order, and float atomics would
+// make every step's result depend on the schedule. Rows past T are computed
+// from zeros and never stored or summed. Every output is written by one
+// thread, no atomics: a step repeats bit for bit.
 //
-// Bound: ~44 C^2 + 10 A2 C FLOP a token (~22 GFLOP at [4096, 25, 64],
-// 0.33 ms at 67 TFLOP/s FP32) and ~20 C-wide token tensors of traffic
-// (~0.16 ms): operations. 188 KB of shared memory at C = 64: one block of
-// 8 warps per SM.
+// Bound: 28 C^2 FLOP a token in products and 10 A2 C in the attention; at
+// [4096, 25, 64] (T = 102,400) 11.7 GFLOP, 0.071 ms as 3 TF32 products at
+// 495 TFLOP/s, and 1.6 GFLOP, 0.024 ms on the FP32 pipes; x, attn, dout, m,
+// l in and dx, xn, dq, dk, dv, dx2, xn2, dpre, hid out, 3.65 KB a token,
+// 374 MB: 0.1115 ms at 3.35 TB/s, so bound by bytes. The scratch q, k, v,
+// dattn and dsum add ~0.1 ms of traffic: the design's own floor is ~0.2 ms.
+// The first version was one kernel of 64-row blocks of whole pixels, its
+// products on the FP32 pipes: a one-kernel form with 128-row tiles of whole
+// pixels needs eight C-wide tiles and a hidden tile, ~280 KB at C = 64, and
+// a block has 227 KB. So steps a and c are plain token-row kernels on
+// rowgemm.cuh's 3xTF32 `wgmma` products, as K3.a and K3.d are:
+// * a: K3.a's design at width C (spa_block_bwd.cu): its 11 C^2 weights split
+//   (360 KB at C = 64) are one stream in product order (Wv, Wq, Wk, Wo, per
+//   hidden chunk W1[:, c], W2ᵀ[:, c], W1ᵀ[c, :], then Woᵀ: kernels/
+//   rowgemm.py:ang_bwd_tok_layout), through `MbarRing`; rows read and
+//   outputs written once are marked evict-first, so they leave the stream
+//   in L2. The LayerNorms are K1's (quad_ln) and x is added to attn Wo's
+//   finished product, but every product issues its tail MMAs first,
+//   K1's recomputed ones too: with K1's default order q and k (K = 16 or
+//   32 at C = 16 or 32: one or two chains) carried up to twice the f32
+//   product's error, and dk, through the scores, 2.1-2.2x the f32 plain
+//   backward's float64 error at A2 = 25 (an H100; tails first: at most
+//   1.61x at every C and A2 tried). So the scores match K1's to f32
+//   rounding, not bit for bit; (m, l) normalise them to that rounding.
+//   One hidden chunk at a time: hid_c, its signs in a register, dpre_c,
+//   dxn2 += dpre_c W1ᵀ[c, :]. LN2's backward runs on the accumulators
+//   (rowbwd.cuh:quad_ln_bwd), and dsum on dattn's, a head's columns in the
+//   lanes of a quad. Every output goes from the accumulators to the warp's
+//   rows in shared memory and from there to device memory as whole
+//   128-byte lines (the hidden chunk's tile stages q, k, v and dattn): the
+//   outputs' stores took 0.135 of the kernel's 0.36 ms at [4096, 25, 64],
+//   and staged they ran 1-6% faster than float2 stores from the
+//   accumulators (an H100, scratch A/B).
+// * b: the attention stays on the FP32 pipes; scores are rebuilt with the
+//   forward's arithmetic (q scaled first, then an fmaf chain).
+// * c: the three weights split take 96 KB at C = 64 and stay resident.
 
-constexpr int RB = 64;  // token rows per block of the backward
-
+// The weight stream of step a and the block's shared memory.
 template <int C>
-struct AngBwdLayout {
-  static constexpr int LD = C + 4, LDH = 2 * C + 4;
-  static constexpr int TILE = RB * LD;
-  static constexpr int FLOATS = 8 * TILE + RB * LDH + 3 * RB * 8 + 2 * RB + (NT / 32) * 4 * C;
-  static constexpr size_t BYTES = FLOATS * sizeof(float);
+struct AngBwdTok {
+  static constexpr int HC = 2 * C < 64 ? 2 * C : 64;   // hidden columns a chunk
+  static constexpr int NH = 2 * C / HC;                 // chunks
+  static constexpr int LD = C + 4, LDH = HC + 4;        // row strides
+  static constexpr int SQ = 2 * C * C;                  // floats of a C x C piece
+  static constexpr int PC = 2 * C * HC;                 // floats of a chunk's piece
+  static constexpr int OFF_V = 0, OFF_Q = SQ, OFF_K = 2 * SQ, OFF_O = 3 * SQ, OFF_F = 4 * SQ;
+  static constexpr int OFF_OT = OFF_F + NH * 3 * PC;    // Woᵀ
+  static constexpr int FLOATS = OFF_OT + SQ;            // the stream
+  static constexpr int PIECES = 5 + 3 * NH;
+  // rows: x / x2 / dx2, xn / attn / xn2 and dout [128][LD], a hidden chunk
+  // [128][LDH]; the 8 warps' LN2 sums [8][2][C]
+  static constexpr int TILES = (RG_M * (3 * LD + LDH) + 16 * C) * 4;
+  static constexpr int NS = rg_slots(TILES + 16 * 8);   // the ring and its 2 NS mbarriers
+  static constexpr size_t BYTES = TILES + static_cast<size_t>(NS) * RG_SF * 4 + 2 * NS * 8;
+  static_assert(BYTES <= RG_SMEM_MAX, "the rows and the ring must fit in shared memory");
 };
 
+// a. wf: the weight stream (AngBwdTok<C>::FLOATS floats), written by
+// rg_weights_kernel. q, k, v, dattn [T, C] and dsum [T, H]: step b's
+// inputs; ln_part [tiles, 4, C], rows 2-3 (LN2).
 template <int C, int H>
-__global__ void __launch_bounds__(NT)
-    ang_block_bwd_kernel(const float* __restrict__ x, const float* __restrict__ pe,
-                         const float* __restrict__ ln, const float* __restrict__ wq,
-                         const float* __restrict__ wk, const float* __restrict__ wv,
-                         const float* __restrict__ wo, const float* __restrict__ w1,
-                         const float* __restrict__ wqT, const float* __restrict__ wkT,
-                         const float* __restrict__ wvT, const float* __restrict__ woT,
-                         const float* __restrict__ w1T, const float* __restrict__ w2T,
-                         const float* __restrict__ m_in, const float* __restrict__ l_in,
-                         const float* __restrict__ attn, const float* __restrict__ dout,
-                         float* __restrict__ dx, float* __restrict__ xn_out,
-                         float* __restrict__ dq_out, float* __restrict__ dk_out,
-                         float* __restrict__ dv_out, float* __restrict__ dx2_out,
-                         float* __restrict__ xn2_out, float* __restrict__ dpre_out,
-                         float* __restrict__ hid_out, float* __restrict__ ln_part, int N,
-                         int A2, float scale) {
-  using L = AngBwdLayout<C>;
-  using LN = RowLN<C>;
-  constexpr int LD = L::LD, LDH = L::LDH, DH = C / H;
-  extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);  // x
-  float* XN = X + L::TILE;                      // xn -> xn2 -> dxn2 -> dq
-  float* Q = XN + L::TILE;                      // q -> dxn
-  float* K = Q + L::TILE;
-  float* V = K + L::TILE;
-  float* A = V + L::TILE;                       // attn (saved)
-  float* X2 = A + L::TILE;                      // x2 -> dx2 -> dx
-  float* DO = X2 + L::TILE;                     // dout -> dattn
-  float* HD = DO + L::TILE;                     // [RB][LDH] hid -> dpre -> (dk | dv)
-  float* M = HD + RB * LDH;                     // [RB][8]
-  float* Lsum = M + RB * 8;
-  float* DS = Lsum + RB * 8;                    // dsum_i = dattn_i . attn_i per head
-  float* MU2 = DS + RB * 8;
-  float* RS2 = MU2 + RB;
-  float* WP = RS2 + RB;                         // [8 warps][4][C]
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int P = RB / A2;
-  const int pix0 = blockIdx.x * P;
-  const int np = min(P, N - pix0);
-  const int nrows = np * A2;
-  const size_t row0 = static_cast<size_t>(pix0) * A2;
-  const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int i = tid; i < RB * (C / 4); i += NT) {
-    const int r = i / (C / 4), c = 4 * (i % (C / 4));
-    const bool ok = r < nrows;
-    const size_t g = (row0 + r) * C + c;
-    store4(X + r * LD + c, ok ? ldg4(x + g) : z4);
-    store4(A + r * LD + c, ok ? ldg4(attn + g) : z4);
-    store4(DO + r * LD + c, ok ? ldg4(dout + g) : z4);
-  }
-  for (int i = tid; i < RB * H; i += NT) {
-    const bool ok = i / H < nrows;
-    M[i] = ok ? __ldg(m_in + row0 * H + i) : 0.f;
-    Lsum[i] = ok ? __ldg(l_in + row0 * H + i) : 1.f;
-  }
-  __syncthreads();
-
-  // xn = LN1(x + pe), as the forward computed it
-  for (int r = warp; r < RB; r += NT / 32) {
-    float v[LN::E];
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) v[e] = X[r * LD + LN::col(e)] + __ldg(pe + (r % A2) * C + LN::col(e));
-    LN::apply(v, ln, ln + C);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        XN[r * LD + LN::col(e)] = v[e];
-        if (r < nrows) xn_out[(row0 + r) * C + LN::col(e)] = v[e];
-      }
-  }
-  __syncthreads();
-
-  {  // q, k from xn; v from x; x2 = attn Wo + x
-    Acc<RB, C> acc;
-    zero_acc<RB, C>(acc);
-    gemm_acc<RB, C, C>(acc, XN, LD, wq);
-    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) { store4(Q + r * LD + c, v); });
-    zero_acc<RB, C>(acc);
-    gemm_acc<RB, C, C>(acc, XN, LD, wk);
-    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) { store4(K + r * LD + c, v); });
-    zero_acc<RB, C>(acc);
-    gemm_acc<RB, C, C>(acc, X, LD, wv);
-    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) { store4(V + r * LD + c, v); });
-    zero_acc<RB, C>(acc);
-    gemm_acc<RB, C, C>(acc, A, LD, wo);
-    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) {
-      store4(X2 + r * LD + c, add4(load4(X + r * LD + c), v));
-    });
-  }
-  __syncthreads();
-
-  // xn2 = LN2(x2) over xn, and its statistics
-  for (int r = warp; r < RB; r += NT / 32) {
-    float v[LN::E];
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) v[e] = X2[r * LD + LN::col(e)];
-    float mu, rstd;
-    ln_stats<C>(v, mu, rstd);
-    if ((tid & 31) == 0) {
-      MU2[r] = mu;
-      RS2[r] = rstd;
-    }
-    LN::apply(v, ln + 2 * C, ln + 3 * C);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        XN[r * LD + LN::col(e)] = v[e];
-        if (r < nrows) xn2_out[(row0 + r) * C + LN::col(e)] = v[e];
-      }
-  }
-  __syncthreads();
-
-  {  // hid = relu(xn2 W1)
-    Acc<RB, 2 * C> acc;
-    zero_acc<RB, 2 * C>(acc);
-    gemm_acc<RB, C, 2 * C>(acc, XN, LD, w1);
-    for_tiles<RB, 2 * C>(acc, [&](int r, int c, float4 v) {
-      v = make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
-      store4(HD + r * LDH + c, v);
-      if (r < nrows) store4(hid_out + (row0 + r) * (2 * C) + c, v);
-    });
-  }
-  __syncthreads();
-
-  {  // dpre = (hid > 0) * (dout W2ᵀ), in place over hid
-    Acc<RB, 2 * C> acc;
-    zero_acc<RB, 2 * C>(acc);
-    gemm_acc<RB, C, 2 * C>(acc, DO, LD, w2T);
-    for_tiles<RB, 2 * C>(acc, [&](int r, int c, float4 v) {
-      const float4 hv = load4(HD + r * LDH + c);
-      v = make_float4(hv.x > 0.f ? v.x : 0.f, hv.y > 0.f ? v.y : 0.f,
-                      hv.z > 0.f ? v.z : 0.f, hv.w > 0.f ? v.w : 0.f);
-      store4(HD + r * LDH + c, v);
-      if (r < nrows) store4(dpre_out + (row0 + r) * (2 * C) + c, v);
-    });
-  }
-  __syncthreads();
-
-  {  // dxn2 = dpre W1ᵀ over xn2
-    Acc<RB, C> acc;
-    zero_acc<RB, C>(acc);
-    gemm_acc<RB, 2 * C, C>(acc, HD, LDH, w1T);
-    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) { store4(XN + r * LD + c, v); });
-  }
-  __syncthreads();
-
-  LnGradAcc<C> g2;
-  g2.zero();
-  // dx2 = dout + LN2ᵀ(dxn2), in place over x2
-  for (int r = warp; r < nrows; r += NT / 32) {
-    float xh[LN::E] = {}, d[LN::E] = {};
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        xh[e] = (X2[r * LD + LN::col(e)] - MU2[r]) * RS2[r];
-        d[e] = XN[r * LD + LN::col(e)];
-      }
-    g2.add(d, xh);
-    ln_bwd<C>(d, xh, RS2[r], ln + 2 * C);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        const float v = DO[r * LD + LN::col(e)] + d[e];
-        X2[r * LD + LN::col(e)] = v;
-        dx2_out[(row0 + r) * C + LN::col(e)] = v;
-      }
-  }
-  g2.flush(WP, 4, 2);
-  __syncthreads();
-
-  {  // dattn = dx2 Woᵀ over dout
-    Acc<RB, C> acc;
-    zero_acc<RB, C>(acc);
-    gemm_acc<RB, C, C>(acc, X2, LD, woT);
-    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) { store4(DO + r * LD + c, v); });
-  }
-  __syncthreads();
-
-  for (int i = tid; i < nrows * H; i += NT) {  // dsum = dattn . attn per head
-    const int r = i / H, hh = i % H;
-    float s = 0.f;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) s = fmaf(DO[r * LD + hh * DH + d], A[r * LD + hh * DH + d], s);
-    DS[i] = s;
-  }
-  __syncthreads();
-
-  // attention backward; thread (pixel, head, t), t fastest. Scores are
-  // rebuilt with the forward's arithmetic (q scaled first, then an fmaf
-  // chain), so p = exp(s - m) / l uses exactly the forward's s.
-  for (int t = tid; t < np * H * A2; t += NT) {
-    const int i = t % A2, hh = (t / A2) % H, p = t / (A2 * H);
-    const int me = p * A2 + i;
-    float qs[DH], kv[DH], vv[DH], dov[DH], dq[DH], dk[DH], dv[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      qs[d] = Q[me * LD + hh * DH + d] * scale;
-      kv[d] = K[me * LD + hh * DH + d];
-      vv[d] = V[me * LD + hh * DH + d];
-      dov[d] = DO[me * LD + hh * DH + d];
-      dq[d] = dk[d] = dv[d] = 0.f;
-    }
-    const float m_me = M[me * H + hh], inv_me = 1.f / Lsum[me * H + hh];
-    const float ds_me = DS[me * H + hh];
-    for (int j = 0; j < A2; ++j) {
-      const int o = p * A2 + j;
-      const float* kr = K + o * LD + hh * DH;
-      const float* vr = V + o * LD + hh * DH;
-      const float* qr = Q + o * LD + hh * DH;
-      const float* dr = DO + o * LD + hh * DH;
-      // me as the query, o as the key
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        s = fmaf(qs[d], kr[d], s);
-        dp = fmaf(dov[d], vr[d], dp);
-      }
-      float pr = expf(s - m_me) * inv_me;
-      float g = pr * (dp - ds_me);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) dq[d] = fmaf(g, kr[d], dq[d]);
-      // o as the query, me as the key
-      float qo[DH];
-      s = 0.f;
-      dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        qo[d] = qr[d] * scale;
-        s = fmaf(qo[d], kv[d], s);
-        dp = fmaf(dr[d], vv[d], dp);
-      }
-      pr = expf(s - M[o * H + hh]) / Lsum[o * H + hh];
-      g = pr * (dp - DS[o * H + hh]);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        dk[d] = fmaf(g, qo[d], dk[d]);
-        dv[d] = fmaf(pr, dr[d], dv[d]);
-      }
-    }
-    const size_t row = row0 + me;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      const int c = hh * DH + d;
-      XN[me * LD + c] = dq[d] * scale;
-      HD[me * LDH + c] = dk[d];
-      HD[me * LDH + C + c] = dv[d];
-      dq_out[row * C + c] = dq[d] * scale;
-      dk_out[row * C + c] = dk[d];
-      dv_out[row * C + c] = dv[d];
-    }
-  }
-  __syncthreads();
-
-  {  // dxn = dq Wqᵀ + dk Wkᵀ over q; dx = dx2 + dv Wvᵀ over dx2
-    Acc<RB, C> acc;
-    zero_acc<RB, C>(acc);
-    gemm_acc<RB, C, C>(acc, XN, LD, wqT);
-    gemm_acc<RB, C, C>(acc, HD, LDH, wkT);
-    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) { store4(Q + r * LD + c, v); });
-    zero_acc<RB, C>(acc);
-    gemm_acc<RB, C, C>(acc, HD + C, LDH, wvT);
-    for_tiles<RB, C>(acc, [&](int r, int c, float4 v) {
-      store4(X2 + r * LD + c, add4(load4(X2 + r * LD + c), v));
-    });
-  }
-  __syncthreads();
-
-  LnGradAcc<C> g1;
-  g1.zero();
-  // dx += LN1ᵀ(dxn)
-  for (int r = warp; r < nrows; r += NT / 32) {
-    float xh[LN::E] = {}, d[LN::E] = {};
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) xh[e] = X[r * LD + LN::col(e)] + __ldg(pe + (r % A2) * C + LN::col(e));
-    float mu, rstd;
-    ln_stats<C>(xh, mu, rstd);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        xh[e] = (xh[e] - mu) * rstd;
-        d[e] = Q[r * LD + LN::col(e)];
-      }
-    g1.add(d, xh);
-    ln_bwd<C>(d, xh, rstd, ln);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e))
-        dx[(row0 + r) * C + LN::col(e)] = X2[r * LD + LN::col(e)] + d[e];
-  }
-  g1.flush(WP, 4, 0);
-  __syncthreads();
-  block_colsum(WP, 4 * C, ln_part + static_cast<size_t>(blockIdx.x) * 4 * C);
-}
-
-template <int C>
-int launch_bwd(const float* const* in, float* const* out, int N, int A2, float scale,
-               cudaStream_t stream) {
-  auto kernel = ang_block_bwd_kernel<C, 8>;
-  const size_t bytes = AngBwdLayout<C>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int P = RB / A2;
-  kernel<<<(N + P - 1) / P, NT, bytes, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10], in[11],
-      in[12], in[13], in[14], in[15], in[16], in[17], out[0], out[1], out[2], out[3],
-      out[4], out[5], out[6], out[7], out[8], out[9], N, A2, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- K4 for 64 < A2 <= 128: the same backward as three kernels ------------
-//
-// A pixel of 65 to 128 view tokens does not fit the kernel above: its nine
-// [rows][C + 4] tiles and the hidden tile take 376 KB at 128 rows and C = 64,
-// and a block can hold 227 KB. Only the attention needs a pixel's rows
-// together, so the backward is cut there, as K3 is cut into five kernels,
-// and the intermediates pass through device memory:
-//   a  ang_bwd_tok_kernel   BM = 64 token rows a block, rows of any pixels:
-//                           recompute xn, q, k, v, x2, xn2, hid; dpre, dxn2,
-//                           dx2, dattn = dx2 Woᵀ and dsum = dattn . attn per
-//                           head; writes xn, xn2, hid, dpre, dx2 (operands of
-//                           the weight grads) and the scratch q, k, v, dattn,
-//                           dsum; LN2's partial affine sums
-//   b  ang_bwd_attn_kernel  one pixel a block (P = 1: rows of two pixels never
-//                           share a block), its q, k, v, dattn rows (<= 139 KB)
-//                           and m, l, dsum in shared memory; thread (head, t)
-//                           computes dq of query t and dk, dv of key t exactly
-//                           as the kernel above does; writes dq, dk, dv
-//   c  ang_bwd_in_kernel    BM = 64 token rows a block: dxn = dq Wqᵀ + dk Wkᵀ,
-//                           dx = dx2 + dv Wvᵀ + LN1ᵀ(dxn); LN1's partial sums
-// Each output element is written by one thread and every sum has a fixed
-// order: no atomics, a step repeats bit for bit. ln_part is [blocks, 4, C]
-// with blocks = ceil(N A2 / 64): kernel c fills rows 0-1 of a block's slot,
-// kernel a rows 2-3. Ragged tails (the last block's rows past N A2) are
-// computed from zeros and never stored or summed. The extra traffic is the
-// scratch written and read once (9 C-wide token tensors more than the
-// 64-row kernel): the bound stays the operations'.
-
-template <int C>
-struct AngBwdTokLayout {
-  static constexpr int LD = C + 4, LDH = 2 * C + 4;
-  static constexpr int TILE = BM * LD;
-  static constexpr int FLOATS = 5 * TILE + BM * LDH + 2 * BM + (NT / 32) * 2 * C;
-  static constexpr size_t BYTES = FLOATS * sizeof(float);
-};
-
-template <int C, int H>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(RG_NT, 1)
     ang_bwd_tok_kernel(const float* __restrict__ x, const float* __restrict__ pe,
-                       const float* __restrict__ ln, const float* __restrict__ wq,
-                       const float* __restrict__ wk, const float* __restrict__ wv,
-                       const float* __restrict__ wo, const float* __restrict__ w1,
-                       const float* __restrict__ woT, const float* __restrict__ w1T,
-                       const float* __restrict__ w2T, const float* __restrict__ attn,
-                       const float* __restrict__ dout, float* __restrict__ xn_out,
-                       float* __restrict__ q_out, float* __restrict__ k_out,
-                       float* __restrict__ v_out, float* __restrict__ dx2_out,
-                       float* __restrict__ xn2_out, float* __restrict__ dpre_out,
-                       float* __restrict__ hid_out, float* __restrict__ dattn_out,
-                       float* __restrict__ dsum_out, float* __restrict__ ln_part, int T,
-                       int A2) {
-  using L = AngBwdTokLayout<C>;
-  using LN = RowLN<C>;
-  constexpr int LD = L::LD, LDH = L::LDH, DH = C / H;
-  extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);  // x
-  float* XN = X + L::TILE;                      // xn -> xn2 -> dxn2
-  float* A = XN + L::TILE;                      // attn (saved)
-  float* X2 = A + L::TILE;                      // x2 -> dx2
-  float* DO = X2 + L::TILE;                     // dout -> dattn
-  float* HD = DO + L::TILE;                     // [BM][LDH] hid -> dpre
-  float* MU2 = HD + BM * LDH;
-  float* RS2 = MU2 + BM;
-  float* WP = RS2 + BM;                         // [8 warps][2][C]
+                       const float* __restrict__ ln, const float* __restrict__ attn,
+                       const float* __restrict__ dout, const float* __restrict__ wf,
+                       float* __restrict__ xn_out, float* __restrict__ q_out,
+                       float* __restrict__ k_out, float* __restrict__ v_out,
+                       float* __restrict__ xn2_out, float* __restrict__ hid_out,
+                       float* __restrict__ dpre_out, float* __restrict__ dx2_out,
+                       float* __restrict__ dattn_out, float* __restrict__ dsum_out,
+                       float* __restrict__ ln_part, int T, int A2) {
+  using L = AngBwdTok<C>;
+  constexpr int LD = L::LD, LDH = L::LDH, HC = L::HC, DH = C / H;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* xw = smem + 16 * warp * LD;                    // x, then x2, then dx2
+  float* nw = smem + RG_M * LD + 16 * warp * LD;        // xn, then attn, then xn2
+  float* dw = smem + 2 * RG_M * LD + 16 * warp * LD;    // dout
+  float* hw = smem + 3 * RG_M * LD + 16 * warp * LDH;   // a hidden chunk; outputs staged
+  float* part = smem + RG_M * (3 * LD + LDH);           // [8 warps][2][C] LN2 sums
+  float* slots = part + 16 * C;
+  const int tiles = (T + RG_M - 1) / RG_M;
+  MbarRing<L::NS> ring;
+  ring.start(slots, reinterpret_cast<uint64_t*>(slots + L::NS * RG_SF), wf, L::FLOATS,
+             (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x);
+  const float* st = nullptr;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int t0 = tile * RG_M + 16 * warp;   // the warp's first token
+    warp_rows<C>(xw, LD, x, t0, T);
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int t0 = blockIdx.x * BM;
-  const int nrows = min(BM, T - t0);
-  const size_t row0 = static_cast<size_t>(t0);
-
-  load_rows<C>(X, LD, x, t0, T);
-  load_rows<C>(A, LD, attn, t0, T);
-  load_rows<C>(DO, LD, dout, t0, T);
-  __syncthreads();
-
-  // xn = LN1(x + pe), as the forward computed it
-  for (int r = warp; r < BM; r += NT / 32) {
-    float v[LN::E];
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e))
-        v[e] = X[r * LD + LN::col(e)] + __ldg(pe + ((t0 + r) % A2) * C + LN::col(e));
-    LN::apply(v, ln, ln + C);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        XN[r * LD + LN::col(e)] = v[e];
-        if (r < nrows) xn_out[(row0 + r) * C + LN::col(e)] = v[e];
-      }
-  }
-  __syncthreads();
-
-  {  // q, k from xn and v from x, to the scratch; x2 = attn Wo + x
-    Acc<BM, C> acc;
-    zero_acc<BM, C>(acc);
-    gemm_acc<BM, C, C>(acc, XN, LD, wq);
-    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) {
-      if (r < nrows) store4(q_out + (row0 + r) * C + c, v);
-    });
-    zero_acc<BM, C>(acc);
-    gemm_acc<BM, C, C>(acc, XN, LD, wk);
-    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) {
-      if (r < nrows) store4(k_out + (row0 + r) * C + c, v);
-    });
-    zero_acc<BM, C>(acc);
-    gemm_acc<BM, C, C>(acc, X, LD, wv);
-    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) {
-      if (r < nrows) store4(v_out + (row0 + r) * C + c, v);
-    });
-    zero_acc<BM, C>(acc);
-    gemm_acc<BM, C, C>(acc, A, LD, wo);
-    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) {
-      store4(X2 + r * LD + c, add4(load4(X + r * LD + c), v));
-    });
-  }
-  __syncthreads();
-
-  // xn2 = LN2(x2) over xn, and its statistics
-  for (int r = warp; r < BM; r += NT / 32) {
-    float v[LN::E];
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) v[e] = X2[r * LD + LN::col(e)];
-    float mu, rstd;
-    ln_stats<C>(v, mu, rstd);
-    if ((tid & 31) == 0) {
-      MU2[r] = mu;
-      RS2[r] = rstd;
+    {  // xn = LN1(x + pe), as K1 computes it
+      RgAcc<C> a;
+      rg_pairs<C>(a, [&](int r, int c, float& v0, float& v1) {
+        const float2 xv = *reinterpret_cast<const float2*>(xw + r * LD + c);
+        const float2 pv = __ldg(reinterpret_cast<const float2*>(pe + ((t0 + r) % A2) * C + c));
+        v0 = xv.x + pv.x;
+        v1 = xv.y + pv.y;
+      });
+      quad_ln<C>(a, ln, ln + C);
+      put_tile<C>(a, nw, LD);
+      store_rows<C>(nw, LD, xn_out, C, 0, t0, T);
     }
-    LN::apply(v, ln + 2 * C, ln + 3 * C);
+    {  // v = x Wv, q = xn Wq, k = xn Wk, into step b's scratch
+      RgAcc<C> a;
+      rg_zero<C>(a);
+      rg_product<C, C, L::OFF_V, true>(a, xw, LD, ring, st);
+      put_tile<C>(a, hw, LDH);
+      store_rows<C, true>(hw, LDH, v_out, C, 0, t0, T);
+      rg_zero<C>(a);
+      rg_product<C, C, L::OFF_Q, true>(a, nw, LD, ring, st);
+      put_tile<C>(a, hw, LDH);
+      store_rows<C, true>(hw, LDH, q_out, C, 0, t0, T);
+      rg_zero<C>(a);
+      rg_product<C, C, L::OFF_K, true>(a, nw, LD, ring, st);
+      put_tile<C>(a, hw, LDH);
+      store_rows<C, true>(hw, LDH, k_out, C, 0, t0, T);
+    }
+    warp_rows<C>(nw, LD, attn, t0, T);   // xn is read
+    float mu[2], rstd[2];
+    {  // x2 = attn Wo + x (x added to the finished product), xn2 = LN2(x2)
+      RgAcc<C> a;
+      rg_zero<C>(a);
+      rg_product<C, C, L::OFF_O, true>(a, nw, LD, ring, st);
+      rg_pairs<C>(a, [&](int r, int c, float& v0, float& v1) {
+        const float2 xv = *reinterpret_cast<const float2*>(xw + r * LD + c);
+        v0 += xv.x;
+        v1 += xv.y;
+      });
+      put_tile<C>(a, xw, LD);   // x2 over x
+      quad_ln<C, true>(a, ln + 2 * C, ln + 3 * C, mu, rstd);
+      put_tile<C>(a, nw, LD);   // xn2 over attn
+      store_rows<C>(nw, LD, xn2_out, C, 0, t0, T);
+    }
+    warp_rows<C>(dw, LD, dout, t0, T);
+
+    // a hidden chunk at a time: hid_c = relu(xn2 W1[:, c]),
+    // dpre_c = (hid_c > 0) dout W2ᵀ[:, c], dxn2 += dpre_c W1ᵀ[c, :]
+    RgAcc<C> dxn;
+    rg_zero<C>(dxn);
+    rg_static_for<L::NH>([&](auto J) {
+      constexpr int j = decltype(J)::value, off = L::OFF_F + j * 3 * L::PC;
+      RgAcc<HC> hc;
+      rg_zero<HC>(hc);
+      rg_product<C, HC, off, true>(hc, nw, LD, ring, st);
+      uint32_t on = 0;   // the ReLU's signs, bit i: element i
 #pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        XN[r * LD + LN::col(e)] = v[e];
-        if (r < nrows) xn2_out[(row0 + r) * C + LN::col(e)] = v[e];
+      for (int i = 0; i < RgParts<HC>::R; ++i) {
+        on |= (hc[0][i] > 0.f ? 1u : 0u) << i;
+        hc[0][i] = fmaxf(hc[0][i], 0.f);
       }
-  }
-  __syncthreads();
-
-  {  // hid = relu(xn2 W1)
-    Acc<BM, 2 * C> acc;
-    zero_acc<BM, 2 * C>(acc);
-    gemm_acc<BM, C, 2 * C>(acc, XN, LD, w1);
-    for_tiles<BM, 2 * C>(acc, [&](int r, int c, float4 v) {
-      v = make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
-      store4(HD + r * LDH + c, v);
-      if (r < nrows) store4(hid_out + (row0 + r) * (2 * C) + c, v);
-    });
-  }
-  __syncthreads();
-
-  {  // dpre = (hid > 0) * (dout W2ᵀ), in place over hid
-    Acc<BM, 2 * C> acc;
-    zero_acc<BM, 2 * C>(acc);
-    gemm_acc<BM, C, 2 * C>(acc, DO, LD, w2T);
-    for_tiles<BM, 2 * C>(acc, [&](int r, int c, float4 v) {
-      const float4 hv = load4(HD + r * LDH + c);
-      v = make_float4(hv.x > 0.f ? v.x : 0.f, hv.y > 0.f ? v.y : 0.f,
-                      hv.z > 0.f ? v.z : 0.f, hv.w > 0.f ? v.w : 0.f);
-      store4(HD + r * LDH + c, v);
-      if (r < nrows) store4(dpre_out + (row0 + r) * (2 * C) + c, v);
-    });
-  }
-  __syncthreads();
-
-  {  // dxn2 = dpre W1ᵀ over xn2
-    Acc<BM, C> acc;
-    zero_acc<BM, C>(acc);
-    gemm_acc<BM, 2 * C, C>(acc, HD, LDH, w1T);
-    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) { store4(XN + r * LD + c, v); });
-  }
-  __syncthreads();
-
-  LnGradAcc<C> g2;
-  g2.zero();
-  // dx2 = dout + LN2ᵀ(dxn2), in place over x2
-  for (int r = warp; r < nrows; r += NT / 32) {
-    float xh[LN::E] = {}, d[LN::E] = {};
+      put_tile<HC>(hc, hw, LDH);
+      store_rows<HC>(hw, LDH, hid_out, 2 * C, j * HC, t0, T);
+      rg_zero<HC>(hc);
+      rg_product<C, HC, off + L::PC, true>(hc, dw, LD, ring, st);
 #pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        xh[e] = (X2[r * LD + LN::col(e)] - MU2[r]) * RS2[r];
-        d[e] = XN[r * LD + LN::col(e)];
-      }
-    g2.add(d, xh);
-    ln_bwd<C>(d, xh, RS2[r], ln + 2 * C);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        const float v = DO[r * LD + LN::col(e)] + d[e];
-        X2[r * LD + LN::col(e)] = v;
-        dx2_out[(row0 + r) * C + LN::col(e)] = v;
-      }
-  }
-  g2.flush(WP, 2, 0);
-  __syncthreads();
-
-  {  // dattn = dx2 Woᵀ over dout, and to the scratch
-    Acc<BM, C> acc;
-    zero_acc<BM, C>(acc);
-    gemm_acc<BM, C, C>(acc, X2, LD, woT);
-    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) {
-      store4(DO + r * LD + c, v);
-      if (r < nrows) store4(dattn_out + (row0 + r) * C + c, v);
+      for (int i = 0; i < RgParts<HC>::R; ++i)
+        if (!((on >> i) & 1u)) hc[0][i] = 0.f;
+      put_tile<HC>(hc, hw, LDH);
+      store_rows<HC>(hw, LDH, dpre_out, 2 * C, j * HC, t0, T);
+      rg_product<HC, C, off + 2 * L::PC, true>(dxn, hw, LDH, ring, st);
     });
-  }
-  __syncthreads();
 
-  for (int i = tid; i < nrows * H; i += NT) {  // dsum = dattn . attn per head
-    const int r = i / H, hh = i % H;
-    float s = 0.f;
+    {  // dx2 = dout + LN2ᵀ(dxn2) on the accumulators, xhat from x2 as LN2 made it
+      RgAcc<C> xh;
+      rg_each<C>([&](int p, int i, int r, int c) {
+        const float2 v = *reinterpret_cast<const float2*>(xw + r * LD + c);
+        const float m = i & 2 ? mu[1] : mu[0], rs = i & 2 ? rstd[1] : rstd[0];   // row g + 8 h
+        xh[p][i] = (v.x - m) * rs;
+        xh[p][i + 1] = (v.y - m) * rs;
+      });
+      quad_ln_bwd<C>(dxn, xh, rstd, ln + 2 * C, part + warp * 2 * C);
+      rg_pairs<C>(dxn, [&](int r, int c, float& v0, float& v1) {
+        const float2 d = *reinterpret_cast<const float2*>(dw + r * LD + c);
+        v0 = d.x + v0;
+        v1 = d.y + v1;
+      });
+      put_tile<C>(dxn, xw, LD);   // dx2 over x2
+      store_rows<C>(xw, LD, dx2_out, C, 0, t0, T);
+    }
+    {  // dattn = dx2 Woᵀ; dsum = dattn . attn per head (attn read again)
+      RgAcc<C> a;
+      rg_zero<C>(a);
+      rg_product<C, C, L::OFF_OT, true>(a, xw, LD, ring, st);
+      put_tile<C>(a, hw, LDH);
+      store_rows<C, true>(hw, LDH, dattn_out, C, 0, t0, T);
+      constexpr int LH = DH / 2;   // lanes of a quad that hold a head of a row
+      rg_each<C>([&](int p, int i, int r, int c) {
+        const int t = t0 + r;
+        const float2 av =
+            t < T ? __ldcs(reinterpret_cast<const float2*>(attn + static_cast<size_t>(t) * C + c))
+                  : make_float2(0.f, 0.f);
+        float s = fmaf(a[p][i + 1], av.y, a[p][i] * av.x);
 #pragma unroll
-    for (int d = 0; d < DH; ++d) s = fmaf(DO[r * LD + hh * DH + d], A[r * LD + hh * DH + d], s);
-    dsum_out[row0 * H + i] = s;
+        for (int o = 1; o < LH; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (t < T && (lane & (LH - 1)) == 0) dsum_out[static_cast<size_t>(t) * H + c / DH] = s;
+      });
+    }
+    tile_ln_sums<C>(part, ln_part + static_cast<size_t>(tile) * 4 * C + 2 * C);
   }
-  block_colsum(WP, 2 * C, ln_part + (static_cast<size_t>(blockIdx.x) * 4 + 2) * C);
 }
 
-// b: one pixel a block; tiles are [A2][C + 4], sized by the launch.
+// b. P pixels a block (attn_pixels), tiles [P A2][C + 4] sized by the launch.
 template <int C, int H>
 __global__ void __launch_bounds__(NT)
     ang_bwd_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dattn,
                         const float* __restrict__ m_in, const float* __restrict__ l_in,
                         const float* __restrict__ dsum, float* __restrict__ dq_out,
-                        float* __restrict__ dk_out, float* __restrict__ dv_out, int A2,
-                        float scale) {
+                        float* __restrict__ dk_out, float* __restrict__ dv_out, int N, int A2,
+                        int P, float scale) {
   constexpr int LD = C + 4, DH = C / H;
   extern __shared__ float4 smem4[];
+  const int pix0 = blockIdx.x * P, np = min(P, N - pix0), rows = np * A2;
   float* Q = reinterpret_cast<float*>(smem4);
-  float* K = Q + A2 * LD;
-  float* V = K + A2 * LD;
-  float* DO = V + A2 * LD;
-  float* M = DO + A2 * LD;                      // [A2][8] each
-  float* Lsum = M + A2 * H;
-  float* DS = Lsum + A2 * H;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * A2;
-  stage<C>(Q, q, row0, A2);
-  stage<C>(K, k, row0, A2);
-  stage<C>(V, v, row0, A2);
-  stage<C>(DO, dattn, row0, A2);
-  for (int i = threadIdx.x; i < A2 * H; i += NT) {
+  float* K = Q + P * A2 * LD;
+  float* V = K + P * A2 * LD;
+  float* DO = V + P * A2 * LD;
+  float* M = DO + P * A2 * LD;                  // [P A2][H] each
+  float* Lsum = M + P * A2 * H;
+  float* DS = Lsum + P * A2 * H;
+  const size_t row0 = static_cast<size_t>(pix0) * A2;
+  stage<C>(Q, q, row0, rows);
+  stage<C>(K, k, row0, rows);
+  stage<C>(V, v, row0, rows);
+  stage<C>(DO, dattn, row0, rows);
+  for (int i = threadIdx.x; i < rows * H; i += NT) {
     M[i] = __ldg(m_in + row0 * H + i);
     Lsum[i] = __ldg(l_in + row0 * H + i);
     DS[i] = __ldg(dsum + row0 * H + i);
   }
   __syncthreads();
 
-  // thread (head, t), t fastest. Scores are rebuilt with the forward's
-  // arithmetic (q scaled first, then an fmaf chain), so p = exp(s - m) / l
-  // uses exactly the forward's s.
-  for (int t = threadIdx.x; t < H * A2; t += NT) {
-    const int me = t % A2, hh = t / A2;
+  // thread (pixel, head, t), t fastest. Scores are rebuilt with the
+  // forward's arithmetic (q scaled first, then an fmaf chain).
+  for (int t = threadIdx.x; t < np * H * A2; t += NT) {
+    const int hh = (t / A2) % H, base = t / (A2 * H) * A2;
+    const int me = base + t % A2;
     float qs[DH], kv[DH], vv[DH], dov[DH], dq[DH], dk[DH], dv[DH];
     ld<DH>(Q + me * LD + hh * DH, qs);
     ld<DH>(K + me * LD + hh * DH, kv);
@@ -909,7 +570,7 @@ __global__ void __launch_bounds__(NT)
     }
     const float m_me = M[me * H + hh], inv_me = 1.f / Lsum[me * H + hh];
     const float ds_me = DS[me * H + hh];
-    for (int o = 0; o < A2; ++o) {
+    for (int o = base; o < base + A2; ++o) {
       float kr[DH], vr[DH], qo[DH], dr[DH];
       ld<DH>(K + o * LD + hh * DH, kr);
       ld<DH>(V + o * LD + hh * DH, vr);
@@ -940,110 +601,50 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// Pixels a block of step b: as many as fill its NT threads (one thread a
+// pixel, head and view), at least one (kernels/ang_block.py:
+// ang_bwd_attn_pixels).
+inline int attn_pixels(int A2) { return NT / (8 * A2) > 1 ? NT / (8 * A2) : 1; }
+
+// in: x, pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn, dout; out: dx, xn, dq,
+// dk, dv, dx2, xn2, dpre, hid, ln_part; scr: q, k, v, dattn, dsum.
 template <int C>
-struct AngBwdInLayout {
-  static constexpr int LD = C + 4;
-  static constexpr int TILE = BM * LD;
-  static constexpr size_t BYTES = (6 * TILE + (NT / 32) * 2 * C) * sizeof(float);
-};
-
-template <int C>
-__global__ void __launch_bounds__(NT)
-    ang_bwd_in_kernel(const float* __restrict__ x, const float* __restrict__ pe,
-                      const float* __restrict__ ln, const float* __restrict__ wqT,
-                      const float* __restrict__ wkT, const float* __restrict__ wvT,
-                      const float* __restrict__ dq, const float* __restrict__ dk,
-                      const float* __restrict__ dv, const float* __restrict__ dx2,
-                      float* __restrict__ dx, float* __restrict__ ln_part, int T, int A2) {
-  using L = AngBwdInLayout<C>;
-  using LN = RowLN<C>;
-  constexpr int LD = L::LD;
-  extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);
-  float* DQ = X + L::TILE;
-  float* DK = DQ + L::TILE;
-  float* DV = DK + L::TILE;
-  float* X2 = DV + L::TILE;                     // dx2 -> dx2 + dv Wvᵀ
-  float* DN = X2 + L::TILE;                     // dxn
-  float* WP = DN + L::TILE;                     // [8 warps][2][C]
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int t0 = blockIdx.x * BM;
-  const int nrows = min(BM, T - t0);
-  const size_t row0 = static_cast<size_t>(t0);
-  load_rows<C>(X, LD, x, t0, T);
-  load_rows<C>(DQ, LD, dq, t0, T);
-  load_rows<C>(DK, LD, dk, t0, T);
-  load_rows<C>(DV, LD, dv, t0, T);
-  load_rows<C>(X2, LD, dx2, t0, T);
-  __syncthreads();
-
-  {  // dxn = dq Wqᵀ + dk Wkᵀ; dx2 + dv Wvᵀ in place
-    Acc<BM, C> acc;
-    zero_acc<BM, C>(acc);
-    gemm_acc<BM, C, C>(acc, DQ, LD, wqT);
-    gemm_acc<BM, C, C>(acc, DK, LD, wkT);
-    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) { store4(DN + r * LD + c, v); });
-    zero_acc<BM, C>(acc);
-    gemm_acc<BM, C, C>(acc, DV, LD, wvT);
-    for_tiles<BM, C>(acc, [&](int r, int c, float4 v) {
-      store4(X2 + r * LD + c, add4(load4(X2 + r * LD + c), v));
-    });
-  }
-  __syncthreads();
-
-  LnGradAcc<C> g1;
-  g1.zero();
-  // dx = dx2 + dv Wvᵀ + LN1ᵀ(dxn)
-  for (int r = warp; r < nrows; r += NT / 32) {
-    float xh[LN::E] = {}, d[LN::E] = {};
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e))
-        xh[e] = X[r * LD + LN::col(e)] + __ldg(pe + ((t0 + r) % A2) * C + LN::col(e));
-    float mu, rstd;
-    ln_stats<C>(xh, mu, rstd);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        xh[e] = (xh[e] - mu) * rstd;
-        d[e] = DN[r * LD + LN::col(e)];
-      }
-    g1.add(d, xh);
-    ln_bwd<C>(d, xh, rstd, ln);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e))
-        dx[(row0 + r) * C + LN::col(e)] = X2[r * LD + LN::col(e)] + d[e];
-  }
-  g1.flush(WP, 2, 0);
-  __syncthreads();
-  block_colsum(WP, 2 * C, ln_part + static_cast<size_t>(blockIdx.x) * 4 * C);
-}
-
-// in: x, pe, ln, wq, wk, wv, wo, w1, wqT, wkT, wvT, woT, w1T, w2T, m, l, attn,
-// dout; out: dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, ln_part; scratch: q, k,
-// v, dattn [T, C], dsum [T, 8].
-template <int C>
-int launch_bwd128(const float* const* in, float* const* out, float* const* scr, int N, int A2,
-                  float scale, cudaStream_t stream) {
+int launch_bwd(const float* const* in, float* const* out, float* const* scr, float* wf, int N,
+               int A2, float scale, cudaStream_t s) {
+  using L = AngBwdTok<C>;
+  constexpr int H = 8;
   const int T = N * A2;
-  auto tok = ang_bwd_tok_kernel<C, 8>;
-  auto att = ang_bwd_attn_kernel<C, 8>;
-  auto inp = ang_bwd_in_kernel<C>;
-  const size_t att_bytes = (4 * A2 * (C + 4) + 3 * A2 * 8) * sizeof(float);
-  LFT_SET_SMEM(tok, AngBwdTokLayout<C>::BYTES);
+  const float *x = in[0], *pe = in[1], *ln = in[2], *wq = in[3], *wk = in[4], *wv = in[5],
+              *wo = in[6], *w1 = in[7], *w2 = in[8];
+  // step a's stream, the backward's transposes read straight from the weights
+  RgPiece all[L::PIECES];
+  int n = 0;
+  all[n++] = RgPiece{wv, C, C, C, L::OFF_V, 0};
+  all[n++] = RgPiece{wq, C, C, C, L::OFF_Q, 0};
+  all[n++] = RgPiece{wk, C, C, C, L::OFF_K, 0};
+  all[n++] = RgPiece{wo, C, C, C, L::OFF_O, 0};
+  for (int j = 0; j < L::NH; ++j) {
+    const int off = L::OFF_F + j * 3 * L::PC;
+    all[n++] = RgPiece{w1 + j * L::HC, 2 * C, C, L::HC, off, 0};                // W1[:, c]
+    all[n++] = RgPiece{w2 + j * L::HC * C, C, C, L::HC, off + L::PC, 1};         // W2ᵀ[:, c]
+    all[n++] = RgPiece{w1 + j * L::HC, 2 * C, L::HC, C, off + 2 * L::PC, 1};     // W1ᵀ[c, :]
+  }
+  all[n++] = RgPiece{wo, C, C, C, L::OFF_OT, 1};                                // Woᵀ
+  launch_rg_pieces(all, n, wf, s);
+  auto tok = ang_bwd_tok_kernel<C, H>;
+  LFT_SET_SMEM(tok, L::BYTES);
+  tok<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(
+      x, pe, ln, in[11], in[12], wf, out[1], scr[0], scr[1], scr[2], out[6], out[8], out[7],
+      out[5], scr[3], scr[4], out[9], T, A2);
+  const int P = attn_pixels(A2);
+  auto att = ang_bwd_attn_kernel<C, H>;
+  const size_t att_bytes = static_cast<size_t>(P) * A2 * (4 * (C + 4) + 3 * H) * sizeof(float);
   LFT_SET_SMEM(att, att_bytes);
-  LFT_SET_SMEM(inp, AngBwdInLayout<C>::BYTES);
-  tok<<<blocks(T), NT, AngBwdTokLayout<C>::BYTES, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[11], in[12], in[13], in[16],
-      in[17], out[1], scr[0], scr[1], scr[2], out[5], out[6], out[7], out[8], scr[3], scr[4],
-      out[9], T, A2);
-  att<<<N, NT, att_bytes, stream>>>(scr[0], scr[1], scr[2], scr[3], in[14], in[15], scr[4],
-                                    out[2], out[3], out[4], A2, scale);
-  inp<<<blocks(T), NT, AngBwdInLayout<C>::BYTES, stream>>>(
-      in[0], in[1], in[2], in[8], in[9], in[10], out[2], out[3], out[4], out[5], out[0], out[9],
-      T, A2);
-  return static_cast<int>(cudaGetLastError());
+  att<<<(N + P - 1) / P, NT, att_bytes, s>>>(scr[0], scr[1], scr[2], scr[3], in[9], in[10],
+                                            scr[4], out[2], out[3], out[4], N, A2, P, scale);
+  const QkvLnBwdArgs a{x, pe, out[2], out[3], out[4], out[5], ln, nullptr, out[0], nullptr,
+                       out[9], A2, 4 * C, T};
+  return launch_qkv_ln_bwd<C>(a, wq, wk, C, wv, wf + L::FLOATS, s);
 }
 
 }  // namespace
@@ -1094,55 +695,33 @@ extern "C" int lft_ang_block_fwd_res(const float* x, const float* pe, const floa
   }
 }
 
-// K4. Inputs x, pe, ln, wq, wk, wv, wo, w1 (as above), the transposes wqT,
-// wkT, wvT, woT [C, C], w1T [2C, C], w2T [C, 2C], the saved m, l, attn, and
-// dout [N, A2, C]. Outputs dx [N, A2, C]; xn, dq, dk, dv, dx2, xn2 [T, C]
-// and dpre, hid [T, 2C] (T = N A2 tokens), the operands of the weight
-// grads; ln_part [blocks, 4, C], each block's sums of the LN affine grads.
+// K4 for every A2 <= 128. x, dout, dx [N, A2, C]; pe [A2, C]; ln [4, C]; the
+// weights as lft_ang_block_fwd takes them (the backward's transposes are
+// read from them by the launch's first kernels into wf, a scratch of
+// AngBwdTok<C>::FLOATS + QkvLnBwd<C>::FLOATS floats, kernels/rowgemm.py:
+// ang_bwd_floats); the saved m, l [N, A2, H] and attn. Outputs xn, dq, dk,
+// dv, dx2, xn2 [T, C] and dpre, hid [T, 2C] (T = N A2 tokens), the operands
+// of the weight grads, and ln_part [ceil(T / 128), 4, C], each 128-row
+// tile's sums of the LN affine grads; q, k, v, dattn [T, C] and dsum [T, H]
+// are the scratch its three kernels pass through device memory.
 extern "C" int lft_ang_block_bwd(
     const float* x, const float* pe, const float* ln, const float* wq, const float* wk,
-    const float* wv, const float* wo, const float* w1, const float* wqT, const float* wkT,
-    const float* wvT, const float* woT, const float* w1T, const float* w2T, const float* m,
-    const float* l, const float* attn, const float* dout, float* dx, float* xn, float* dq,
-    float* dk, float* dv, float* dx2, float* xn2, float* dpre, float* hid, float* ln_part,
-    int N, int A2, int C, int H, float scale, void* stream) {
-  if (H != 8 || A2 < 1 || A2 > RB || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const float* in[] = {x, pe, ln, wq, wk, wv, wo, w1, wqT, wkT, wvT, woT, w1T, w2T, m, l,
-                       attn, dout};
-  float* out[] = {dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, ln_part};
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 16: return launch_bwd<16>(in, out, N, A2, scale, s);
-    case 32: return launch_bwd<32>(in, out, N, A2, scale, s);
-    case 64: return launch_bwd<64>(in, out, N, A2, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// K4 for every A2 <= 128 (the wrapper sends it 64 < A2 <= 128): inputs and
-// outputs as lft_ang_block_bwd, except ln_part [ceil(N A2 / 64), 4, C], plus
-// the scratch q, k, v, dattn [T, C] and dsum [T, 8] that its three kernels
-// pass through device memory.
-extern "C" int lft_ang_block_bwd128(
-    const float* x, const float* pe, const float* ln, const float* wq, const float* wk,
-    const float* wv, const float* wo, const float* w1, const float* wqT, const float* wkT,
-    const float* wvT, const float* woT, const float* w1T, const float* w2T, const float* m,
-    const float* l, const float* attn, const float* dout, float* dx, float* xn, float* dq,
-    float* dk, float* dv, float* dx2, float* xn2, float* dpre, float* hid, float* ln_part,
-    float* q, float* k, float* v, float* dattn, float* dsum, int N, int A2, int C, int H,
-    float scale, void* stream) {
+    const float* wv, const float* wo, const float* w1, const float* w2, const float* m,
+    const float* l, const float* attn, const float* dout, float* wf, float* dx, float* xn,
+    float* dq, float* dk, float* dv, float* dx2, float* xn2, float* dpre, float* hid,
+    float* ln_part, float* q, float* k, float* v, float* dattn, float* dsum, int N, int A2,
+    int C, int H, float scale, void* stream) {
   if (H != 8 || A2 < 1 || A2 > RP || N < 1 ||
       static_cast<long long>(N) * A2 > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* in[] = {x, pe, ln, wq, wk, wv, wo, w1, wqT, wkT, wvT, woT, w1T, w2T, m, l,
-                       attn, dout};
+  const float* in[] = {x, pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn, dout};
   float* out[] = {dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, ln_part};
   float* scr[] = {q, k, v, dattn, dsum};
   auto s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 16: return launch_bwd128<16>(in, out, scr, N, A2, scale, s);
-    case 32: return launch_bwd128<32>(in, out, scr, N, A2, scale, s);
-    case 64: return launch_bwd128<64>(in, out, scr, N, A2, scale, s);
+    case 16: return launch_bwd<16>(in, out, scr, wf, N, A2, scale, s);
+    case 32: return launch_bwd<32>(in, out, scr, wf, N, A2, scale, s);
+    case 64: return launch_bwd<64>(in, out, scr, wf, N, A2, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,7 +1,8 @@
 // A block's token-row products on the tensor cores, 3xTF32 (`wgmma`): the
 // shared building block of K2.2 (spa_qkv), K2.4 (spa_outproj_ln), K2.5 /
-// K11.5 (spa_ffn_out[_pm]), all in spa_block.cu, K3.a (spa_ffn_out_bwd,
-// spa_block_bwd.cu) and K1 (ang_block[_res], ang_block.cu).
+// K11.5 (spa_ffn_out[_pm]), all in spa_block.cu, K3.a and K3.d
+// (spa_ffn_out_bwd, spa_qkv_ln_bwd: spa_block_bwd.cu, rowbwd.cuh), K1
+// (ang_block[_res]) and K4 (ang_block_bwd's steps a and c; ang_block.cu).
 //
 //   acc[64 x N] (+)= A[64 x K] B[K x N]
 //
@@ -72,10 +73,12 @@ constexpr int rg_slots(int tile_bytes) {
 }
 
 // One piece of a weight stream: B[k][n] = src[k ld + n], K x N, written at
-// stream offset `off` (floats).
+// stream offset `off` (floats); with `tr` B is read transposed, B[k][n] =
+// src[n ld + k] (a backward's Wᵀ from the forward's W, with no copy).
 struct RgPiece {
   const float* src;
   int ld, K, N, off;
+  int tr;
 };
 constexpr int RG_MAX_PIECES = 12;
 struct RgPieces {
@@ -91,7 +94,9 @@ __global__ void __launch_bounds__(256) rg_weights_kernel(RgPieces ps, float* __r
   for (int i = blockIdx.x * 256 + threadIdx.x; i < pc.K * pc.N; i += gridDim.x * 256) {
     const int k = i / pc.N, n = i % pc.N;
     uint32_t hi, lo;
-    split_tf32_rn(__ldg(pc.src + static_cast<size_t>(k) * pc.ld + n), hi, lo);
+    split_tf32_rn(__ldg(pc.src + (pc.tr ? static_cast<size_t>(n) * pc.ld + k
+                                         : static_cast<size_t>(k) * pc.ld + n)),
+                  hi, lo);
     const size_t at = pc.off +
                       (static_cast<size_t>((k / 8) * 4 + k % 8 / 4) * (pc.N / 8) + n / 8) * 32 +
                       n % 8 * 4 + k % 4;
@@ -104,6 +109,16 @@ inline void launch_rg_weights(const RgPieces& ps, int n, float* wf, cudaStream_t
   int most = 0;
   for (int i = 0; i < n; ++i) most = ps.p[i].K * ps.p[i].N > most ? ps.p[i].K * ps.p[i].N : most;
   rg_weights_kernel<<<dim3((most + 255) / 256, n), 256, 0, s>>>(ps, wf);
+}
+
+// The same for any number of pieces, RG_MAX_PIECES a launch.
+inline void launch_rg_pieces(const RgPiece* all, int n, float* wf, cudaStream_t s) {
+  for (int i = 0; i < n; i += RG_MAX_PIECES) {
+    RgPieces ps{};
+    const int k = n - i < RG_MAX_PIECES ? n - i : RG_MAX_PIECES;
+    for (int j = 0; j < k; ++j) ps.p[j] = all[i + j];
+    launch_rg_weights(ps, k, wf, s);
+  }
 }
 
 // Blocks of a persistent launch over `tiles` row tiles: one a multiprocessor

@@ -14,7 +14,8 @@
 //                         holds it (the window is symmetric), with
 //                         dsum_i = dattn_i . attn_i
 //   d spa_qkv_ln_bwd      dxn = dq Wqᵀ + dk Wkᵀ, dtokpe = LN1ᵀ(dxn),
-//                         dtok = dx2 + dv Wvᵀ + dtokpe
+//                         dtok = dx2 + dv Wvᵀ + dtokpe (rowbwd.cuh: 3xTF32
+//                         on the tensor cores, shared with K4's step c)
 //   e spa_tokenize_bwd    dx = the 3x3 tokenization transposed, a gather
 //                         over the 9 taps (tokenize.cuh: 3xTF32 on the
 //                         tensor cores)
@@ -42,11 +43,11 @@
 // Bound on this card: ~48 D^2 + 250 D FLOP a token in steps a-d without
 // the weight grads (~84 GFLOP at [100, 32, 32, 64], 1.3 ms at 67 TFLOP/s
 // FP32); the operand tensors add ~1.5 GB of traffic (~0.45 ms): operations.
-// Step a (21 D^2 of those) and step e (14.5 GFLOP) run 3xTF32 on the tensor
-// cores (rowgemm.cuh, tokenize.cuh); steps b-d on the FP32 pipes.
+// Steps a (21 D^2 of those), d (6 D^2) and e (14.5 GFLOP) run 3xTF32 on the
+// tensor cores (rowgemm.cuh, rowbwd.cuh, tokenize.cuh); steps b and c on
+// the FP32 pipes.
 
-#include "bwd.cuh"
-#include "rowgemm.cuh"
+#include "rowbwd.cuh"
 #include "spa.cuh"
 #include "tokenize.cuh"
 
@@ -133,63 +134,6 @@ struct FfnOutBwd {
   static_assert(RgParts<HC>::NP * RgParts<HC>::R == 32, "a chunk's ReLU signs fill one word");
   static_assert(BYTES <= RG_SMEM_MAX, "the rows and the ring must fit in shared memory");
 };
-
-// The warp's 16 rows [t0, t0 + 16) of src [T, W] into dst (row stride ld),
-// all loads in flight at once, zero past T; read once, so marked to leave
-// L2 first (ld.global.cs).
-template <int W>
-__device__ __forceinline__ void warp_rows(float* dst, int ld, const float* __restrict__ src,
-                                          int t0, int T) {
-  constexpr int L = W / 8;   // float4 a lane
-  const int lane = threadIdx.x & 31;
-  float4 v[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    const int i = lane + 32 * k, r = i / (W / 4), c = 4 * (i % (W / 4));
-    v[k] = t0 + r < T ? __ldcs(reinterpret_cast<const float4*>(src + static_cast<size_t>(t0 + r) * W + c))
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  __syncwarp();   // the rows' last readers are done
-#pragma unroll
-  for (int k = 0; k < L; ++k) {
-    const int i = lane + 32 * k;
-    store4(dst + i / (W / 4) * ld + 4 * (i % (W / 4)), v[k]);
-  }
-  __syncwarp();
-}
-
-// The warp's 16 rows of a shared tile (row stride ld), W floats each, into
-// rows t0 .. t0 + 15 (< T) of dst [T, dld] from column c0 on: a lane's
-// float4 a time, one row of whole 128-byte lines an instruction. KEEP: the
-// rows are read again in this kernel (x2); else they are marked to leave
-// L2 first (st.global.cs).
-template <int W, bool KEEP = false>
-__device__ __forceinline__ void store_rows(const float* tile, int ld, float* __restrict__ dst,
-                                           int dld, int c0, int t0, int T) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < W / 8; ++k) {
-    const int i = lane + 32 * k, r = i / (W / 4), c = 4 * (i % (W / 4));
-    if (t0 + r >= T) continue;
-    float* at = dst + static_cast<size_t>(t0 + r) * dld + c0 + c;
-    const float4 v = load4(tile + r * ld + c);
-    if constexpr (KEEP)
-      store4(at, v);
-    else
-      __stcs(reinterpret_cast<float4*>(at), v);
-  }
-}
-
-// acc into the warp's rows of a shared tile (row stride ld), after every
-// lane is done reading them.
-template <int N>
-__device__ __forceinline__ void put_tile(RgAcc<N>& acc, float* tile, int ld) {
-  __syncwarp();
-  rg_pairs<N>(acc, [&](int r, int c, float v0, float v1) {
-    *reinterpret_cast<float2*>(tile + r * ld + c) = make_float2(v0, v1);
-  });
-  __syncwarp();
-}
 
 // The forward's hidden chunk J and those after it: hid_c = relu(xn2 W1[:,
 // c]) into hid_out and the warp's chunk rows, its signs into the thread's
@@ -622,77 +566,7 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ---- d: projections and LN1 backward ---------------------------------------
-template <int C>
-__global__ void __launch_bounds__(NT)
-    spa_qkv_ln_bwd_kernel(const float* __restrict__ tok, const float* __restrict__ pe_tok,
-                          const float* __restrict__ dq, const float* __restrict__ dk,
-                          const float* __restrict__ dv, const float* __restrict__ dx2,
-                          const float* __restrict__ ln, const float* __restrict__ wqT,
-                          const float* __restrict__ wkT, const float* __restrict__ wvT,
-                          float* __restrict__ dtok, float* __restrict__ dtokpe,
-                          float* __restrict__ ln_part, int T, int hw) {
-  using S = Spa<C>;
-  constexpr int D = S::D, LDD = S::LDD;
-  using LN = RowLN<D>;
-  extern __shared__ float4 smem4[];
-  float* DQ = reinterpret_cast<float*>(smem4);   // dq -> dv Wvᵀ
-  float* DK = DQ + BM * LDD;
-  float* DV = DK + BM * LDD;
-  float* DXN = DV + BM * LDD;
-  float* WP = DXN + BM * LDD;                     // [8][2][D]
-  const int warp = threadIdx.x >> 5;
-  const int t0 = blockIdx.x * BM;
-  const int nr = min(BM, T - t0);
-  load_rows<D>(DQ, LDD, dq, t0, T);
-  load_rows<D>(DK, LDD, dk, t0, T);
-  load_rows<D>(DV, LDD, dv, t0, T);
-  __syncthreads();
-  {  // dxn = dq Wqᵀ + dk Wkᵀ
-    Acc<BM, D> acc;
-    zero_acc<BM, D>(acc);
-    gemm_acc<BM, D, D>(acc, DQ, LDD, wqT);
-    gemm_acc<BM, D, D>(acc, DK, LDD, wkT);
-    for_tiles<BM, D>(acc, [&](int r, int c, float4 v) { store4(DXN + r * LDD + c, v); });
-  }
-  __syncthreads();
-  {  // dv Wvᵀ over dq
-    Acc<BM, D> acc;
-    zero_acc<BM, D>(acc);
-    gemm_acc<BM, D, D>(acc, DV, LDD, wvT);
-    for_tiles<BM, D>(acc, [&](int r, int c, float4 v) { store4(DQ + r * LDD + c, v); });
-  }
-  __syncthreads();
-  LnGradAcc<D> g1;
-  g1.zero();
-  for (int r = warp; r < nr; r += NT / 32) {
-    const size_t t = static_cast<size_t>(t0 + r);
-    const float* pe = pe_tok + (t % hw) * D;
-    float xh[LN::E] = {}, d[LN::E] = {};
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) xh[e] = __ldg(tok + t * D + LN::col(e)) + __ldg(pe + LN::col(e));
-    float mu, rstd;
-    ln_stats<D>(xh, mu, rstd);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        xh[e] = (xh[e] - mu) * rstd;
-        d[e] = DXN[r * LDD + LN::col(e)];
-      }
-    g1.add(d, xh);
-    ln_bwd<D>(d, xh, rstd, ln);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        const int c = LN::col(e);
-        dtokpe[t * D + c] = d[e];
-        dtok[t * D + c] = __ldg(dx2 + t * D + c) + DQ[r * LDD + c] + d[e];
-      }
-  }
-  g1.flush(WP, 2, 0);
-  __syncthreads();
-  block_colsum(WP, 2 * D, ln_part + static_cast<size_t>(blockIdx.x) * 2 * D);
-}
+// qkv_ln_bwd_kernel<D> (rowbwd.cuh), with pe_tok indexed t % hw and dtokpe.
 
 // ---- e: tokenization backward, a gather over the 9 taps -------------------
 // The forward's tok[t] = sum_tap x[t + s_tap] Wu[tap] (s_tap = (ky-1, kx-1)
@@ -706,9 +580,7 @@ LFT_EXPORT_ERROR_STRING
 
 // Token tensors are [T, *] in [V, h, w] order (T = V h w), weights "x @ W"
 // layouts as in spa_block.cu, "...T" their transposes: wlinT [C, D], w2T
-// [D, 2D], w1T [2D, D], woT/wqT/wkT/wvT [D, D]. ln [4, D] is
-// (LN1 w, b, LN2 w, b); step d's ln_part [blocks, 2, D] with blocks =
-// ceil(T / 64).
+// [D, 2D], w1T [2D, D], woT [D, D]. ln [4, D] is (LN1 w, b, LN2 w, b).
 // Each returns the launch's cudaGetLastError(), or cudaErrorInvalidValue
 // for a shape it does not take (C in {16, 32, 64}).
 
@@ -743,12 +615,7 @@ extern "C" int lft_spa_ffn_out_bwd(const float* attn, const float* tok, const fl
                          off + F::PC};
     }
     all[n++] = RgPiece{woT, F::D, F::D, F::D, F::OFF_OT};
-    for (int i = 0; i < n; i += RG_MAX_PIECES) {   // RG_MAX_PIECES a launch
-      RgPieces ps{};
-      const int k = n - i < RG_MAX_PIECES ? n - i : RG_MAX_PIECES;
-      for (int j = 0; j < k; ++j) ps.p[j] = all[i + j];
-      launch_rg_weights(ps, k, wf, s);
-    }
+    launch_rg_pieces(all, n, wf, s);
     auto kernel = spa_ffn_out_bwd_kernel<CC>;
     LFT_SET_SMEM(kernel, F::BYTES);
     kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(
@@ -798,20 +665,24 @@ extern "C" int lft_spa_window_attn_bwd(const float* q, const float* k, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
+// Step d: wqk [D, 2D] and wv [D, D] as the forward takes them (read
+// transposed by the launch's first kernel into the scratch wf of
+// QkvLnBwd<D>::FLOATS floats, kernels/rowgemm.py:qkv_ln_bwd_floats);
+// ln_part [ceil(T / 128), 2, D].
 extern "C" int lft_spa_qkv_ln_bwd(const float* tok, const float* pe_tok, const float* dq,
                                   const float* dk, const float* dv, const float* dx2,
-                                  const float* ln, const float* wqT, const float* wkT,
-                                  const float* wvT, float* dtok, float* dtokpe,
-                                  float* ln_part, int T, int hw, int C, void* stream) {
+                                  const float* ln, const float* wqk, const float* wv, float* wf,
+                                  float* dtok, float* dtokpe, float* ln_part, int T, int hw,
+                                  int C, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (T < 1 || hw < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
-    auto kernel = spa_qkv_ln_bwd_kernel<CC>;
-    const size_t bytes = (4 * BM * Spa<CC>::LDD + (NT / 32) * 2 * Spa<CC>::D) * sizeof(float);
-    LFT_SET_SMEM(kernel, bytes);
-    kernel<<<blocks(T), NT, bytes, s>>>(tok, pe_tok, dq, dk, dv, dx2, ln, wqT, wkT, wvT,
-                                        dtok, dtokpe, ln_part, T, hw);
+    constexpr int D = 2 * CC;
+    const QkvLnBwdArgs a{tok, pe_tok, dq, dk, dv, dx2, ln, nullptr, dtok, dtokpe, ln_part,
+                         hw, 2 * D, T};
+    return launch_qkv_ln_bwd<D>(a, wqk, wqk + D, 2 * D, wv, wf, s);
   });
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dtok [T, D] -> dx [T, C], T = V h w; wu [9, C, D]; wf scratch of 18 C D

@@ -5,8 +5,9 @@
 only a fused train step launches, `PEROP` those of the unfused per-op branch's
 default pair (K7, K5), `SWEEPS` those of its other families (K8, K9, K6),
 `TAIL` the rest: K10 `spa_attn_tile`; `ang_block_bwd128`, the fused AngTrans
-backward K4 for pixels of 65 to 128 views (`ang_block_bwd` serves A2 <= 64);
-and K11's `spa_tokenize_ln_pm` and `spa_ffn_out_pm`.
+backward K4 counted at pixels of 65 to 128 views (the same kernels count as
+`ang_block_bwd` at A2 <= 64); and K11's `spa_tokenize_ln_pm` and
+`spa_ffn_out_pm`.
 """
 
 from lft_torch.kernels._build import (FORWARD, LAUNCHES, PEROP, SWEEPS, TAIL, TRAINING,

@@ -50,8 +50,9 @@ SWEEPS = ("ang_attn_sweep", "ang_attn_sweep_res", "ang_attn_sweep_bwd", "spa_att
           "spa_attn_mxu_bwd")
 
 # The last of the TPU kernels' counterparts: K10 (tile-halo window attention,
-# forward only), K4's form for pixels of 65 to 128 views (three kernels behind
-# one launch) and K11 (K2's first and last step on a pixel-major buffer).
+# forward only), K4 at pixels of 65 to 128 views (its three kernels, counted
+# apart from A2 <= 64 so that a run shows which geometry trained) and K11
+# (K2's first and last step on a pixel-major buffer).
 TAIL = ("spa_attn_tile", "ang_block_bwd128", "spa_tokenize_ln_pm", "spa_ffn_out_pm")
 
 # kernel name -> launches since the last reset

@@ -15,13 +15,18 @@ returns the per-(token, head) softmax max m and denominator l, and the
 attention output attn); its backward is K4, which recomputes xn, q, k, v,
 x2, xn2 and the FFN hidden from x and the saved residuals, writes dx and the
 per-token operands of every weight gradient, and leaves the weight gradients
-to the deterministic `wgrad` reduction. K4 has two forms: `ang_block_bwd`,
-one kernel whose block holds `BWD_ROWS` = 64 token rows of whole pixels
-(A2 <= 64), and `ang_block_bwd128` for pixels of 65 to 128 views, three
-kernels (token-wise, attention a pixel a block, token-wise) that pass q, k,
-v, dattn and dsum through device memory. Together they cover the gate, so
-every gated geometry trains fused. The angular PE is a constant of the
-shapes: its gradient is None.
+to the deterministic `wgrad` reduction. K4 is three kernels for every
+gated A2 (<= 128), so every gated geometry trains fused: a (token rows:
+the recomputation, the FFN and LN2 backward, dattn = dx2 Woᵀ), b (the
+attention backward, `ang_bwd_attn_pixels` whole pixels a block) and c
+(K3.d's kernel at width C: the projections' and LN1's backward), q, k, v,
+dattn and dsum passing through device memory. Steps a and c run their
+products 3xTF32 on the tensor cores (`csrc/rowgemm.cuh`) in 128-row tiles
+(`ang_bwd_tiles`), their weights split by the launch's first kernels into a
+scratch of `rowgemm.ang_bwd_floats` floats. Its launches count as
+`ang_block_bwd` at A2 <= 64 and as `ang_block_bwd128` beyond, so that a run
+shows which geometry trained. The angular PE is a constant of the shapes:
+its gradient is None.
 """
 
 from __future__ import annotations
@@ -32,13 +37,12 @@ import torch
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.common import KERNEL_C
-from lft_torch.kernels.rowgemm import ang_block_floats
+from lft_torch.kernels.rowgemm import RG_M, ang_block_floats, ang_bwd_floats
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import attention_heads
 
 LN_EPS = 1e-5
 BLK = 128          # the JAX gate's key block: A2 <= 128 tokens per pixel
-BWD_ROWS = 64      # token rows per block of the backward kernels; one-kernel K4: A2 <= 64
 WEIGHTS = ("ln", "wq", "wk", "wv", "wo", "w1", "w2")
 
 
@@ -49,9 +53,8 @@ def ang_block_applicable(A2: int) -> bool:
 
 def ang_block_trainable(A2: int, device_type: str) -> bool:
     """Whether the fused block can run FORWARD AND BACKWARD at this view
-    count on this kind of device: on every device, wherever the gate passes.
-    On CUDA `ang_block_bwd` takes A2 <= 64 and `ang_block_bwd128` the rest of
-    the gate; the plain versions (CPU tensors) take every gated A2. A caller
+    count on this kind of device: on every device, wherever the gate passes
+    (K4's kernels and their plain versions take every gated A2). A caller
     that trains sends a geometry that fails this to the unfused branch, as it
     sends one that fails `ang_block_applicable`."""
     return ang_block_applicable(A2)
@@ -215,35 +218,43 @@ def ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
             tok(hid), dln[None])
 
 
+def ang_bwd_tiles(T: int) -> int:
+    """Rows of K4's LN partial sums: one a 128-row tile of steps a and c."""
+    return -(-T // RG_M)
+
+
+def ang_bwd_attn_pixels(A2: int) -> int:
+    """Whole pixels a block of K4's step b: as many as fill its 256 threads
+    (a thread a pixel, head and view), at least one (ang_block.cu:
+    attn_pixels)."""
+    return max(1, 256 // (8 * A2))
+
+
 def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
-    """The K4 kernel for CUDA tensors (`ang_block_bwd` for A2 <= 64, the
-    three kernels of `ang_block_bwd128` beyond), its plain version for CPU
-    tensors. Same outputs as `ang_block_bwd_ops_plain`, except that dln
-    holds one partial sum per block of the kernel: [blocks, 4, C]."""
+    """The K4 kernels for CUDA tensors (counted as `ang_block_bwd` at A2 <=
+    64, `ang_block_bwd128` beyond), the plain version for CPU tensors. Same
+    outputs as `ang_block_bwd_ops_plain`, except that dln holds one partial
+    sum per 128-row tile: [ang_bwd_tiles(T), 4, C]."""
     if x.device.type != "cuda":
         return ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads)
     N, A2, C = x.shape
     T = N * A2
-    wide = A2 > BWD_ROWS
-    name = "ang_block_bwd128" if wide else "ang_block_bwd"
+    name = "ang_block_bwd128" if A2 > 64 else "ang_block_bwd"
     _check_kernel_shape(name, x, ang_pe, num_heads, BLK)
-    # blocks of whole pixels (P a block), or of BWD_ROWS token rows of any pixel
-    nblk = -(-T // BWD_ROWS) if wide else -(-N // (BWD_ROWS // A2))
     w = wts
-    wt = {n: w[n].t().contiguous() for n in ("wq", "wk", "wv", "wo", "w1", "w2")}
-    ins = (x, ang_pe, *(w[n] for n in WEIGHTS[:-1]), *(wt[n] for n in WEIGHTS[1:]),
-           m, l, attn, dout)
+    ins = (x, ang_pe, *(w[n] for n in WEIGHTS), m, l, attn, dout)
     _build.check_cuda_args(name, *ins)
     dev = x.device
     e = lambda *s: torch.empty(*s, device=dev)
+    wf = e(ang_bwd_floats(C))   # scratch: the split weights of steps a and c
     outs = (e(N, A2, C), e(T, C), e(T, C), e(T, C), e(T, C), e(T, C), e(T, C),
-            e(T, 2 * C), e(T, 2 * C), e(nblk, 4, C))
+            e(T, 2 * C), e(T, 2 * C), e(ang_bwd_tiles(T), 4, C))
     # what the three kernels hand on: q, k, v, dattn and dsum per token and head
-    scratch = (e(T, C), e(T, C), e(T, C), e(T, C), e(T, num_heads)) if wide else ()
-    fn = _build.bind("ang_block", "lft_" + name, len(ins) + len(outs) + len(scratch),
+    scratch = (e(T, C), e(T, C), e(T, C), e(T, C), e(T, num_heads))
+    fn = _build.bind("ang_block", "lft_ang_block_bwd", len(ins) + 1 + len(outs) + len(scratch),
                      (ctypes.c_int,) * 4 + (ctypes.c_float,))
     _build.launch("ang_block", name, fn, dev,
-                  *(t.data_ptr() for t in ins + outs + scratch), N, A2, C, num_heads,
+                  *(t.data_ptr() for t in ins + (wf,) + outs + scratch), N, A2, C, num_heads,
                   float(C // num_heads) ** -0.5)
     return outs
 

@@ -3,18 +3,21 @@ rowgemm.cuh`) in plain PyTorch, and the geometry their kernels are built
 with.
 
 K2.2 (`spa_block.qkv`), K2.4 (`spa_block.outproj_ln`), K2.5 / K11.5
-(`spa_block.ffn_out`), K3.a (`spa_block.ffn_out_bwd`) and K1
-(`ang_block.ang_block`) run their products as
+(`spa_block.ffn_out`), K3.a (`spa_block.ffn_out_bwd`), K3.d
+(`spa_block.qkv_ln_bwd`), K1 (`ang_block.ang_block`) and K4's steps a and
+c (`ang_block.ang_block_bwd_ops`) run their products as
 `acc[64 x N] += A[64 x K] B` on the tensor cores: A a warpgroup's token rows
 in shared memory, B a weight matrix split into TF32 hi and lo and laid out
 in K-major core matrices, streamed through a ring of `RG_SF`-float stages
-(K2.2's and K2.4's D x D pieces stay resident instead, one at a time). The first kernel of each launch
+(K2.2's, K2.4's, K3.d's and K4 c's W x W pieces stay resident instead). The first kernel of each launch
 (`rg_weights_kernel`) writes a kernel's weights as one stream of such
 pieces, in the order its products read them, into a scratch buffer the
 wrapper allocates. `piece` and the `*_stream` functions are that
 preparation in plain PyTorch, which the CPU tests emulate the kernels from;
 `*_floats` are the scratch sizes and `*_smem` the shared memory the kernels
-take (`RowProj`, `FfnOut`, `FfnOutBwd`, `AngLayout` in the sources).
+take (`RowProj`, `FfnOut`, `FfnOutBwd`, `AngLayout`, `AngBwdTok`,
+`QkvLnBwd` in the sources). A backward's transposed weights are split
+straight from the forward's (`RgPiece::tr`): no transposed copy is made.
 """
 
 from __future__ import annotations
@@ -139,6 +142,46 @@ def ffn_out_bwd_stream(wts: dict) -> torch.Tensor:
     return out
 
 
+def ang_bwd_tok_layout(C: int):
+    """K4 step a's stream (AngBwdTok<C> in ang_block.cu): [(name, chunk, K,
+    N, offset)] in the order its products read them, and the stream's
+    floats. Wv, Wq, Wk, Wo; per hidden chunk W1[:, c], W2ᵀ[:, c], W1ᵀ[c, :];
+    Woᵀ. No gaps: every piece starts at a multiple of its 16-of-K chain."""
+    hc = hidden_chunk(C)
+    sq, pc = 2 * C * C, 2 * C * hc
+    out = [(n, None, C, C, i * sq) for i, n in enumerate(("wv", "wq", "wk", "wo"))]
+    for j in range(2 * C // hc):
+        off = 4 * sq + 3 * j * pc
+        out += [("w1", j, C, hc, off), ("w2T", j, C, hc, off + pc), ("w1T", j, hc, C, off + 2 * pc)]
+    off_ot = 4 * sq + 3 * (2 * C // hc) * pc
+    out.append(("woT", None, C, C, off_ot))
+    return out, off_ot + sq
+
+
+def ang_bwd_tok_pieces(wts: dict):
+    """K4 step a's weights in stream order (`ang_bwd_tok_layout`), as K x N
+    matrices (views of the forward's weights)."""
+    C = wts["wq"].shape[0]
+    hc = hidden_chunk(C)
+    mats = dict(wv=wts["wv"], wq=wts["wq"], wk=wts["wk"], wo=wts["wo"], w1=wts["w1"],
+                w2T=wts["w2"].t(), w1T=wts["w1"].t(), woT=wts["wo"].t())
+    cut = dict(w1=lambda m, j: m[:, j * hc:(j + 1) * hc], w2T=lambda m, j: m[:, j * hc:(j + 1) * hc],
+               w1T=lambda m, j: m[j * hc:(j + 1) * hc])
+    layout, _ = ang_bwd_tok_layout(C)
+    return [mats[n] if j is None else cut[n](mats[n], j) for n, j, _, _, _ in layout]
+
+
+def ang_bwd_tok_stream(wts: dict) -> torch.Tensor:
+    """Plain version of K4 step a's weight preparation."""
+    return torch.cat([piece(p) for p in ang_bwd_tok_pieces(wts)])
+
+
+def qkv_ln_bwd_stream(wq, wk, wv) -> torch.Tensor:
+    """Plain version of the weight preparation of K3.d and K4's step c: Wqᵀ,
+    Wkᵀ, Wvᵀ from the forward's W x W weights."""
+    return torch.cat([piece(w.t()) for w in (wq, wk, wv)])
+
+
 def qkv_pieces(wqk, wv):
     """K2.2's weights in stream order: Wq, Wk (the halves of wqk [D, 2D]),
     Wv."""
@@ -193,6 +236,23 @@ def ang_block_floats(C: int) -> int:
     return 16 * C * C
 
 
+def ang_bwd_tok_floats(C: int) -> int:
+    """Floats of K4 step a's weight stream (AngBwdTok<C>::FLOATS): 11 C x C
+    weights split."""
+    return ang_bwd_tok_layout(C)[1]
+
+
+def qkv_ln_bwd_floats(W: int) -> int:
+    """Floats of the weight stream of K3.d (W = 2C) and K4's step c (W = C),
+    QkvLnBwd<W>::FLOATS: three W x W weights split."""
+    return 6 * W * W
+
+
+def ang_bwd_floats(C: int) -> int:
+    """Floats of K4's weight scratch: step a's stream, then step c's."""
+    return ang_bwd_tok_floats(C) + qkv_ln_bwd_floats(C)
+
+
 def ring_slots(tile_bytes: int) -> int:
     """Weight-ring slots beside `tile_bytes` of rows (rg_slots)."""
     return min(8, (RG_SMEM_MAX - tile_bytes) // (RG_SF * 4))
@@ -231,3 +291,28 @@ def ang_block_smem(C: int) -> int:
     (AngLayout<C>::BYTES)."""
     tiles = 4 * RG_M * (C + 4) * 4
     return tiles + ring_slots(tiles) * RG_SF * 4
+
+
+def ang_bwd_tok_smem(C: int) -> int:
+    """Shared memory of a K4 step a block: three [128, C + 4] tiles (x / x2
+    / dx2, xn / attn / xn2, dout), a hidden chunk [128, hc + 4], the 8
+    warps' LN2 sums [8, 2, C], the ring and its two mbarriers a slot
+    (AngBwdTok<C>::BYTES)."""
+    tiles = (RG_M * (3 * (C + 4) + hidden_chunk(C) + 4) + 16 * C) * 4
+    slots = ring_slots(tiles + 16 * 8)
+    return tiles + slots * RG_SF * 4 + 2 * slots * 8
+
+
+def qkv_ln_bwd_passes(W: int) -> int:
+    """Passes of K3.d / K4 c over a block's tiles (QkvLnBwd<W>::ONE): one
+    where the three weights split, three row tiles and the LN1 sums fit
+    (W <= 64), else three with one weight resident each."""
+    return 1 if (3 * 2 * W * W + 3 * RG_M * (W + 4) + 16 * W) * 4 <= RG_SMEM_MAX else 3
+
+
+def qkv_ln_bwd_smem(W: int) -> int:
+    """Shared memory of a K3.d / K4 c block: the weights and row tiles a
+    pass holds (three of each, or one) and the 8 warps' LN1 sums [8, 2, W]
+    (QkvLnBwd<W>::BYTES)."""
+    held = 3 if qkv_ln_bwd_passes(W) == 1 else 1
+    return (held * 2 * W * W + held * RG_M * (W + 4) + 16 * W) * 4

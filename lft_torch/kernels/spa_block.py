@@ -25,9 +25,10 @@ denominator l, and saves x, tok, m, l and attn. The backward (K3,
   d qkv_ln_bwd      dxn = dq Wqᵀ + dk Wkᵀ, LN1 backward, dtok
   e tokenize_bwd    dx as a gather over the 9 transposed taps
 
-Steps 2, 4, 5 and a run their products 3xTF32 on the tensor cores as
+Steps 2, 4, 5, a and d run their products 3xTF32 on the tensor cores as
 row-tile products (`wgmma`, `lft_torch/csrc/rowgemm.cuh`; their weights
-prepared as `kernels/rowgemm.py` sets out). Steps 1 and e are one implicit GEMM,
+prepared as `kernels/rowgemm.py` sets out; step d is K4's step c at width
+2C, `csrc/rowbwd.cuh`). Steps 1 and e are one implicit GEMM,
 `out[t] = sum_tap in[t + s_tap] B[tap]`, run 3xTF32 on the tensor cores
 (`wgmma`, `lft_torch/csrc/tokenize.cuh`): a first kernel of the launch splits the
 weights into TF32 hi/lo parts in the layout the second reads (`tap_weights`
@@ -58,7 +59,8 @@ from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
 from lft_torch.kernels.common import KERNEL_C
 from lft_torch.kernels.rowgemm import (RG_M, ffn_out_bwd_floats, ffn_out_floats,
-                                       outproj_floats, piece, qkv_floats, split_tf32)
+                                       outproj_floats, piece, qkv_floats, qkv_ln_bwd_floats,
+                                       split_tf32)
 from lft_torch.kernels.spa_attn_hp import (_gather_window, _hp_geometry_exists,
                                            _scatter_window, _window_probs)
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
@@ -458,11 +460,10 @@ def ffn_out(xn2, x2, wts, views=None):
 # ------------------------------------------------- K3 kernel wrappers ---
 
 def _bwd_weights(wts: dict) -> dict:
-    """Transposed weights of the backward products (`dy Wᵀ`), contiguous."""
-    D = wts["wo"].shape[0]
+    """Transposed weights of step a's backward products (`dy Wᵀ`),
+    contiguous (step d splits its transposes straight from wqk and wv)."""
     t = lambda m: m.t().contiguous()
-    return dict(wlinT=t(wts["wlin"]), w2T=t(wts["w2"]), w1T=t(wts["w1"]), woT=t(wts["wo"]),
-                wqT=t(wts["wqk"][:, :D]), wkT=t(wts["wqk"][:, D:]), wvT=t(wts["wv"]))
+    return dict(wlinT=t(wts["wlin"]), w2T=t(wts["w2"]), w1T=t(wts["w1"]), woT=t(wts["wo"]))
 
 
 def _launch(kernel: str, fn_name: str, ins, outs, ints, dev, floats=()):
@@ -473,12 +474,9 @@ def _launch(kernel: str, fn_name: str, ins, outs, ints, dev, floats=()):
                   *ints, *floats)
 
 
-def _bwd_blocks(T: int) -> int:
-    return (T + 63) // 64          # BM = 64 token rows a block of step d (spa_block_bwd.cu)
-
-
 def ffn_out_bwd_tiles(T: int) -> int:
-    """Rows of step a's LN2 partial sums: one a 128-row tile (RG_M)."""
+    """Rows of the LN partial sums of steps a (LN2) and d (LN1): one a
+    128-row tile (RG_M)."""
     return -(-T // RG_M)
 
 
@@ -535,18 +533,28 @@ def window_attn_bwd(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int):
 
 
 def qkv_ln_bwd(tok, pe_tok, dq, dk, dv, dx2, wts):
-    """Step d: (dtok, dtokpe, dln1); dln1 [blocks, 2, D] partial sums."""
+    """Step d: (dtok, dtokpe, dln1); dln1 holds one partial sum per 128-row
+    tile, [ffn_out_bwd_tiles(T), 2, D]. On the card its three products run
+    3xTF32 on the tensor cores (`csrc/rowbwd.cuh`, one weight resident a
+    pass at D = 128: `rowgemm.qkv_ln_bwd_passes`), Wqᵀ, Wkᵀ, Wvᵀ split
+    straight from wqk and wv by the launch's first kernel into a scratch of
+    `rowgemm.qkv_ln_bwd_stream`'s layout."""
     if tok.device.type != "cuda":
         return qkv_ln_bwd_plain(tok, pe_tok, dq, dk, dv, dx2, wts)
     V, h, w, D = tok.shape
     T = V * h * w
     _check_c("spa_qkv_ln_bwd", D // 2)
-    wt = _bwd_weights(wts)
+    if not (dq.shape == dk.shape == dv.shape == dx2.shape == tok.shape) \
+            or tuple(pe_tok.shape) != (h, w, D) or tuple(wts["wqk"].shape) != (D, 2 * D) \
+            or tuple(wts["wv"].shape) != (D, D):
+        raise ValueError(f"spa_qkv_ln_bwd: tok {tuple(tok.shape)}, pe_tok {tuple(pe_tok.shape)}, "
+                         f"dq {tuple(dq.shape)}, wqk {tuple(wts['wqk'].shape)}")
+    wf = torch.empty(qkv_ln_bwd_floats(D), device=tok.device)   # scratch: Wqᵀ, Wkᵀ, Wvᵀ split
     outs = (torch.empty_like(tok), torch.empty_like(tok),
-            torch.empty(_bwd_blocks(T), 2, D, device=tok.device))
+            torch.empty(ffn_out_bwd_tiles(T), 2, D, device=tok.device))
     _launch("spa_qkv_ln_bwd", "lft_spa_qkv_ln_bwd",
-            (tok, pe_tok, dq, dk, dv, dx2, wts["ln"], wt["wqT"], wt["wkT"], wt["wvT"]),
-            outs, (T, h * w, D // 2), tok.device)
+            (tok, pe_tok, dq, dk, dv, dx2, wts["ln"], wts["wqk"], wts["wv"]), (wf, *outs),
+            (T, h * w, D // 2), tok.device)
     return outs
 
 

@@ -628,10 +628,10 @@ def test_spa_dispatch_reaches_tile_kernel_on_card(cuda_device):
 @pytest.mark.parametrize("C,N,A2", [(64, 7, 81), (64, 3, 121), (64, 5, 128), (32, 9, 100),
                                     (16, 6, 65), (64, 1, 81)])
 def test_ang_block_bwd128_kernels(cuda_device, C, N, A2):
-    """K4 for 64 < A2 <= 128 (three kernels behind `ang_block_bwd128`) against
-    its plain version from K1's residuals: every channel width, token counts
-    that leave the last 64-row block ragged; with `wgrad`/`colsum` the whole
-    block backward; twice bit for bit."""
+    """K4 for 64 < A2 <= 128 (its three kernels, counted as
+    `ang_block_bwd128`) against its plain version from K1's residuals: every
+    channel width, token counts that leave the last 128-row tile ragged;
+    with `wgrad`/`colsum` the whole block backward; twice bit for bit."""
     p = _params(C, cuda_device, seed=A2)
     wts = ang_block.ang_weights(p, "altblock.2.ang_trans.")
     g = torch.Generator(device=cuda_device).manual_seed(C + A2)
@@ -646,7 +646,7 @@ def test_ang_block_bwd128_kernels(cuda_device, C, N, A2):
     ops = ang_block.ang_block_bwd_ops(x, pe, wts, m, l, attn, dout, 8)
     torch.cuda.synchronize()
     assert LAUNCHES["ang_block_bwd128"] == 1 and LAUNCHES["ang_block_bwd"] == 0
-    assert ops[-1].shape == (-(-N * A2 // 64), 4, C)
+    assert ops[-1].shape == (-(-N * A2 // 128), 4, C)
     ops_ref = ang_block.ang_block_bwd_ops_plain(x, pe, wts, m, l, attn, dout, 8)
     _close(ops[:-1], ops_ref[:-1])
     _close(ops[-1].sum(0, keepdim=True), ops_ref[-1])
@@ -1053,3 +1053,83 @@ def test_c48_model_runs_plain_on_card(cuda_device):
     pe = torch.from_numpy(angular_position(25, 48)).to(cuda_device)
     with pytest.raises(NotImplementedError):
         ang_block.ang_trans_block_fused(x, pe, p, "altblock.0.ang_trans.", 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("A2,N", [(4, 301), (25, 37), (64, 9), (81, 7), (128, 5)])
+def test_ang_block_bwd_kernels_3xtf32(cuda_device, C, A2, N):
+    """K4's steps a and c run their products 3xTF32 on the tensor cores: every
+    output against float64 within twice the f32 plain version's error (TF32
+    off) plus 1e-7 max |float64| (the LN sums summed over their per-tile
+    rows; dout zero on the tokens of a ReLU flip), against the plain version
+    on the same inputs within 5e-4 max |plain|, one launch (`ang_block_bwd`
+    at A2 <= 64, `ang_block_bwd128` beyond), one row of LN sums a 128-row
+    tile, bitwise repeatable. T = N A2 leaves the last tile ragged; at A2 = 4
+    a block of step b takes 8 pixels. Each version takes the residuals m, l,
+    attn of its own forward, as in a train step (K1 res for the kernel, the
+    plain and the float64 forward for the others): the softmax (m, l) fits
+    the scores of the forward that made it."""
+    p = _params(C, cuda_device, seed=C + A2)
+    wts = ang_block.ang_weights(p, "altblock.1.ang_trans.")
+    w64 = {k: v.double() for k, v in wts.items()}
+    g = torch.Generator(device=cuda_device).manual_seed(C * A2 + N)
+    x = torch.randn(N, A2, C, device=cuda_device, generator=g)
+    dout = torch.randn(N, A2, C, device=cuda_device, generator=g)
+    pe = torch.from_numpy(angular_position(A2, C)).to(cuda_device)
+    res_k = ang_block.ang_block(x, pe, wts, 8, with_res=True)[1:]
+    res_p = ang_block.ang_block_plain(x, pe, wts, 8, with_res=True)[1:]
+    res_e = ang_block.ang_block_plain(x.double(), pe.double(), w64, 8, with_res=True)[1:]
+    kern = lambda d: ang_block.ang_block_bwd_ops(x, pe, wts, *res_k, d, 8)
+    plain = lambda d: ang_block.ang_block_bwd_ops_plain(x, pe, wts, *res_p, d, 8)
+    f64 = lambda d: ang_block.ang_block_bwd_ops_plain(x.double(), pe.double(), w64, *res_e,
+                                                      d.double(), 8)
+    dout = _calm_relu(dout, kern(dout)[8], plain(dout)[8])
+    dout = _calm_relu(dout, kern(dout)[8], f64(dout)[8])
+    reset_launches()
+    got = kern(dout)
+    torch.cuda.synchronize()
+    name = "ang_block_bwd128" if A2 > 64 else "ang_block_bwd"
+    assert LAUNCHES[name] == 1 and sum(LAUNCHES.values()) == 1
+    assert got[-1].shape == (-(-N * A2 // 128), 4, C)
+    summed = (*got[:-1], got[-1].sum(0, keepdim=True))
+    _close(summed, ang_block.ang_block_bwd_ops_plain(x, pe, wts, *res_k, dout, 8))
+    for i, (u, r, e) in enumerate(zip(summed, plain(dout), f64(dout))):
+        err, err_f32, scale = _f64_err(u, r, e)
+        assert err <= 2 * err_f32 + 1e-7 * scale, (i, err, err_f32)
+    assert all(torch.equal(a, b) for a, b in zip(got, kern(dout)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("V,h,w", [(3, 9, 7), (20, 31, 33)])
+def test_qkv_ln_bwd_kernel_3xtf32(cuda_device, C, V, h, w):
+    """K3.d runs its three products 3xTF32 on the tensor cores (one pass at
+    C <= 32, three at C = 64): dtok, dtokpe and the LN1 sums (summed over
+    their per-tile rows) against float64 within twice the f32 plain
+    version's error plus 1e-7 max |float64| and against the plain version
+    within 5e-4 max |plain|, one launch, one row of sums a 128-row tile,
+    bitwise repeatable."""
+    p = _params(C, cuda_device, seed=C + w)
+    wts = spa_block.spa_weights(p, "altblock.2.spa_trans.")
+    w64 = {k: v.double() for k, v in wts.items()}
+    g = torch.Generator(device=cuda_device).manual_seed(C + V * h)
+    D = 2 * C
+    tok = torch.randn(V, h, w, D, device=cuda_device, generator=g)
+    pe_tok = torch.randn(h, w, D, device=cuda_device, generator=g)
+    dq, dk, dv = (0.5 * torch.randn(V, h, w, D, device=cuda_device, generator=g) for _ in range(3))
+    dx2 = torch.randn(V, h, w, D, device=cuda_device, generator=g)
+    args = (tok, pe_tok, dq, dk, dv, dx2)
+    reset_launches()
+    got = spa_block.qkv_ln_bwd(*args, wts)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spa_qkv_ln_bwd"] == 1 and sum(LAUNCHES.values()) == 1
+    assert got[-1].shape == (-(-V * h * w // 128), 2, D)
+    ref = spa_block.qkv_ln_bwd_plain(*args, wts)
+    exact = spa_block.qkv_ln_bwd_plain(*(t.double() for t in args), w64)
+    summed = (*got[:-1], got[-1].sum(0, keepdim=True))
+    _close(summed, ref)
+    for i, (u, r, e) in enumerate(zip(summed, ref, exact)):
+        err, err_f32, scale = _f64_err(u, r, e)
+        assert err <= 2 * err_f32 + 1e-7 * scale, (i, err, err_f32)
+    assert all(torch.equal(a, b) for a, b in zip(got, spa_block.qkv_ln_bwd(*args, wts)))
