@@ -67,7 +67,10 @@
     [400, 32, 32, 128]) and the training shapes ([4096, 25, 64],
     [100, 32, 32, 128]), times them beside their bound and one
     `scaled_dot_product_attention` call, and K5 in turns with K2's and K3's
-    window steps at the same shape;
+    window steps at the same shape; K5's forward (K2.3's kernel) must equal
+    K2.3's window step bit for bit, and K5's backward (from K5 res's m and
+    l) keep dq, dk and dv within twice the f32 plain version's error
+    against float64 and repeat bitwise;
 12. holds K7 against its plain version at A2 = 81 (9x9 views), and trains at
     angRes 9 (batch 4 of 16x16-view patches) through `make_train_step`: with
     `--train_fused true` the fused blocks take it, 4 `ang_block_res` and 4
@@ -1131,6 +1134,11 @@ def perop_kernel_checks(card: str, sr_counts: dict, n_scenes: int, train_counts:
                        lambda: hp.spa_attn_hp_fwd(q, k, v, H, K),
                        lambda: hp.windowed_attention_headpacked_plain(q, k, v, H, K),
                        4 * E * pairs, nbytes(q, k, v, ref[0]), lib_fn=sdpa)
+            same = torch.equal(hp.spa_attn_hp_fwd(q, k, v, H, K), sb.window_attn(q, k, v, H, K))
+            print(f"  spa_attn_hp: bitwise equal to K2.3's spa_window_attn on the same inputs: "
+                  f"{same}", flush=True)
+            if not same:
+                raise AssertionError("spa_attn_hp is not K2.3's window step bit for bit")
             turns = [("K5 spa_attn_hp", lambda: hp.spa_attn_hp_fwd(q, k, v, H, K)),
                      ("K2.3 spa_window_attn", lambda: sb.window_attn(q, k, v, H, K))]
         else:
@@ -1148,11 +1156,24 @@ def perop_kernel_checks(card: str, sr_counts: dict, n_scenes: int, train_counts:
                        lambda: hp.windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout,
                                                                           H, K),
                        10 * E * pairs, nbytes(q, k, v, dout, m, l, *ref), rel=TRAIN_REL)
+            # against float64, each backward from its own forward's (m, l)
+            res_k = hp.spa_attn_hp_fwd(q, k, v, H, K, True)[1:]
+            got = hp.spa_attn_hp_bwd(q, k, v, *res_k, dout, H, K)
+            repeats = all(torch.equal(a, b) for a, b in
+                          zip(got, hp.spa_attn_hp_bwd(q, k, v, *res_k, dout, H, K)))
+            x64 = [t.double() for t in (q, k, v, dout)]
+            exact = hp.windowed_attention_headpacked_bwd_plain(
+                *x64[:3], *hp.windowed_attention_headpacked_plain(*x64[:3], H, K)[1:], x64[3],
+                H, K)
+            del x64
+            for name, g_, r_, e_ in zip(("dq", "dk", "dv"), got, ref, exact):
+                f64_check(f"spa_attn_hp_bwd {name}", g_, r_, e_, repeats)
+            del got, exact
             turns = [("K5 spa_attn_hp_bwd", lambda: hp.spa_attn_hp_bwd(q, k, v, m, l, dout, H, K)),
                      ("K3.c spa_window_attn_bwd",
                       lambda: sb.window_attn_bwd(q, k, v, out, dout, m, l, H, K))]
-        # all heads of a tile in one block (K5) against one block per head
-        # (K2.3, K3.c), the same function at the same shape, in turns
+        # K5 beside K2's and K3's window steps, the same function at the same
+        # shape, in turns (K5's forward is K2.3's kernel)
         (na, fa), (nb, fb) = turns
         ta, tb, tb2, ta2 = timed(fa), timed(fb), timed(fb), timed(fa)
         print(f"at {[V, h, w, E]}: {na} {ta:.4f} / {ta2:.4f} ms, {nb} {tb:.4f} / {tb2:.4f} ms "

@@ -58,7 +58,8 @@ TRAIN_REL = 5e-4       # the backward step: max |diff| <= 5e-4 max |plain|, per 
 
 def ptxas_report(log: str) -> dict:
     """{kernel: (registers, spill stores, spill loads)} from nvcc's -Xptxas
-    -v output, kernels by demangled name (anonymous namespaces dropped)."""
+    -v output, kernels by demangled name (anonymous namespaces and `lft::`
+    dropped, so a kernel that moved into a header keeps its name)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -73,7 +74,8 @@ def ptxas_report(log: str) -> dict:
             out.setdefault(cur, [0, 0, 0])[0] = int(m.group(1))
     names = subprocess.run(["c++filt"], input="\n".join(out), capture_output=True, text=True)
     plain = names.stdout.splitlines() if names.returncode == 0 else list(out)
-    clean = lambda n: re.sub(r"\(anonymous namespace\)::|_GLOBAL__N_\w+::", "", n).split("(")[0]
+    clean = lambda n: re.sub(r"\(anonymous namespace\)::|_GLOBAL__N_\w+::|\blft::", "",
+                             n).split("(")[0]
     return {clean(p): tuple(v) for p, v in zip(plain, out.values())}
 
 

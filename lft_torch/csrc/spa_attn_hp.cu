@@ -1,5 +1,5 @@
-// K5: per-op 5x5-window attention on projected q/k/v images, all heads of a
-// query tile in one block, forward and backward.
+// K5: per-op 5x5-window attention on projected q/k/v images, forward and
+// backward, on K2.3's window layout.
 //
 // Replaces lft_tpu/kernels/spa_attn_hp.py:_fwd / _vjp_bwd (the Pallas TPU
 // kernels behind windowed_attention_headpacked). For every view b, head hh
@@ -14,283 +14,328 @@
 // window holds j). The q/k/v/out projections stay outside (torch.matmul).
 //
 // The TPU kernel packs the heads into one wide matrix product (keys
-// replicated per head behind channel masks, the key count padded to KB,
-// zero-pad keys scored and taken out of the denominator again by npad).
-// What survives of "head-packed" on this card is one block serving ALL
-// heads of an 8 x 8 query tile: the (8+4)^2 halo's full rows (E floats,
-// 512 bytes at E = 128) are staged once with coalesced float4 loads, a
-// thread owns one (query, head), and m, l leave as contiguous [.., 8] rows.
-// Keys outside the image are never scored. A 16 x 16 tile's two halos at
-// E = 128 would take 410 KB, past the 227 KB a block can hold; 8 x 8 takes
-// 152 KB. Threads of a warp are 32 queries of one head, so neighbouring
-// threads read neighbouring halo rows (row stride E + 4 floats: distinct
-// banks for float4 reads).
+// replicated per head behind channel masks, zero-pad keys scored and taken
+// out of the denominator again). On this card the function is K2's window
+// step (spa_block.cu step 3), with the same m/l layout (pixel * 8 + head).
 //
-// The backward is a gather, like K3's window step: a thread owns a pixel
-// and head, sums dq over its window as the query, and collects dk, dv from
-// the <= 25 queries whose window holds it as the key (a second score per
-// pair), so every output is written by one thread and a step repeats bit
-// for bit. Unlike K3 it is not given the forward's output, so it first
-// computes D for every pixel of the halo: the windows of the halo's outer
-// ring reach past the staged halo, and those few keys are read from device
-// memory. q, k, v and dout halos of all heads do not fit at E = 128, so the
-// block walks the heads in chunks of 64 channels (256-byte row segments).
+// Forward (`spa_attn_hp`, with STATS `spa_attn_hp_res`): K2.3's kernel,
+// spa_window_attn_kernel<DH, STATS> (window_attn.cuh), launched as K2 launches
+// it. Bound: q, k, v read once and out written once: at [400, 32, 32, 128]
+// 0.84 GB, 0.2504 ms at 3.35 TB/s (with STATS at [100, 32, 32, 128] 0.0646).
 //
-// Bound on this card: the bytes. At [400, 32, 32, 128] the forward moves
-// 4 x 210 MB (0.25 ms at 3.35 TB/s) for 4.9 GFLOP (0.07 ms at 67 TFLOP/s).
+// Backward (`spa_attn_hp_bwd`): two kernels on K2.3's item, a 16 x 16 tile of
+// one view times a head group, two blocks of 256 threads an SM, halos staged
+// by cp.async, a window's scores held in registers. Every output element is
+// written by one thread in a fixed order, no atomics: a call repeats bitwise.
+// * Pass q (the query side, K2.3's skeleton: a 32-float group, its 20 x 20 k
+//   and v halo, a thread 16 floats of 2 queries down a column). A thread
+//   takes its two queries one after the other: 25 scores and 25 dp of one
+//   query and head are 50 registers, two queries' with their q and dout
+//   would not fit in 128. Per query and head: the 25 scores with the
+//   forward's arithmetic (q scaled as the forward scales it, four partial
+//   sums added pairwise), so s is the forward's bit for bit and the saved
+//   (m, l) fit it; e_j = exp(s_j - m), dp_j = dout . v_j (the same four
+//   partial sums); D = (sum_j e_j dp_j) / l in key order; dq = scale / l
+//   sum_j e_j (dp_j - D) k_j (k read again from the halo). Writes dq and D
+//   ([B, h, w, 8], a scratch of the launch).
+// * Pass kv (the key side). A thread owns a key pixel and one head and
+//   gathers over the <= 25 queries whose window holds it (the window is
+//   symmetric): s = (q_o scale) . k_me with the forward's arithmetic, p =
+//   exp(s - m_o) / l_o, ds = p (dout_o . v_me - D_o); dk = sum_o ds q_o
+//   scale, dv = sum_o p dout_o. The block stages the 20 x 20 halo of q
+//   (scaled in place once it has landed: the forward's product q * scale)
+//   and dout for a pair of heads, and the pair's m, 1 / l and D ride in the
+//   four pad floats of each halo pixel's rows (stride 2 dh + 4: float4 reads
+//   of 8 neighbouring pixels hit 32 banks), so at dh = 16 the item is K2.3's
+//   128-byte group and the block K2.3's 113 KB. Two heads an item at every
+//   dh: at dh 4 and 8 a 32-float group holds 8 or 4 heads, whose 24 or 12
+//   statistics a pixel would not fit beside the halos in half an SM.
+// Bound: q, k, v, dout read and dq, dk, dv written once (m, l beside them):
+// at [100, 32, 32, 128] 0.37 GB, 0.1115 ms at 3.35 TB/s; its ~5.3 GFLOP
+// (10 dh a pair and head) take 0.08 ms on the FP32 pipes. The two passes
+// move ~0.58 GB (each reads four images, pass kv also the halo's statistics),
+// ~0.17 ms.
 
 #include "attn.cuh"
+#include "window_attn.cuh"
 
 using namespace lft;
 
 namespace {
 
-constexpr int H = 8;               // heads
-constexpr int QT = 8;              // query tile edge
-constexpr int HL = QT + 2 * R;     // halo edge
-constexpr int NQ = QT * QT, NH = HL * HL;
+constexpr int H = 8;       // heads
+constexpr int KW = (2 * R + 1) * (2 * R + 1);   // keys of a window
+constexpr int KV_HEADS = 2;                     // heads of a pass-kv item
 
-// ---- forward: 512 threads = 64 queries x 8 heads --------------------------
-template <int DH, bool STATS>
-__global__ void __launch_bounds__(NQ * H)
-    spa_attn_hp_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out,
-                       float* __restrict__ m_out, float* __restrict__ l_out, int h, int w,
-                       float scale) {
-  constexpr int E = H * DH, LD = E + 4;
-  extern __shared__ float4 smem4[];
-  float* KT = reinterpret_cast<float*>(smem4);   // [NH][LD]
-  float* VT = KT + NH * LD;
-  const int ntw = (w + QT - 1) / QT, nth = (h + QT - 1) / QT;
-  const int tile = blockIdx.x % (nth * ntw);
-  const int y0 = (tile / ntw) * QT, x0 = (tile % ntw) * QT;
-  const size_t view = static_cast<size_t>(blockIdx.x / (nth * ntw)) * h * w;
-  stage_tile_halo<E, QT>(KT, k + view * E, E, 0, y0, x0, h, w, NQ * H);
-  stage_tile_halo<E, QT>(VT, v + view * E, E, 0, y0, x0, h, w, NQ * H);
-  __syncthreads();
+// a . b as four partial sums over the channels, added pairwise: the
+// forward's score arithmetic (window_attn.cuh), a first operand q * scale.
+template <int DH>
+__device__ __forceinline__ float dot4(const float* a, const float (&b)[DH]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int d = 0; d < DH; ++d) t[d % 4] = fmaf(a[d], b[d], t[d % 4]);
+  return (t[0] + t[1]) + (t[2] + t[3]);
+}
 
-  const int qi = threadIdx.x % NQ, hh = threadIdx.x / NQ;
-  const int ly = qi / QT, lx = qi % QT;
-  const int y = y0 + ly, x = x0 + lx;
-  const bool valid = y < h && x < w;
-  float m = 0.f, l = 1.f;
-  if (valid) {
-    const size_t off = (view + static_cast<size_t>(y) * w + x) * E + hh * DH;
-    float qs[DH], o[DH];
-    ld<DH>(q + off, qs);
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      qs[d] *= scale;
-      o[d] = 0.f;
-    }
-    m = -CUDART_INF_F;
-    l = 0.f;
-    for (int dy = -R; dy <= R; ++dy) {
-      if (y + dy < 0 || y + dy >= h) continue;
-      for (int dx = -R; dx <= R; ++dx) {
-        if (x + dx < 0 || x + dx >= w) continue;
-        const int key = (ly + dy + R) * HL + (lx + dx + R);
-        float kr[DH], vr[DH];
-        ld<DH>(KT + key * LD + hh * DH, kr);
-        ld<DH>(VT + key * LD + hh * DH, vr);
-        const float s = dot<DH>(qs, kr);
-        const float mn = fmaxf(m, s);
-        const float corr = expf(m - mn), e = expf(s - mn);
-        l = fmaf(l, corr, e);
-#pragma unroll
-        for (int d = 0; d < DH; ++d) o[d] = fmaf(o[d], corr, e * vr[d]);
-        m = mn;
-      }
-    }
-    const float inv = 1.f / l;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) o[d] *= inv;
-    st<DH>(out + off, o);
+// ---- backward, pass q: dq and D --------------------------------------------
+// One block an item (view, 16 x 16 tile, 32-float head group), items in
+// K2.3's launch order.
+template <int DH>
+__global__ void __launch_bounds__(WA_NT, 2)
+    spa_attn_hp_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ m_in, const float* __restrict__ l_in,
+                             float* __restrict__ dq_out, float* __restrict__ dsum_out, int h,
+                             int w, float scale) {
+  constexpr int D = H * DH;
+  constexpr int G = D / WA_G;       // head groups of a pixel
+  constexpr int HT = WA_S / DH;     // heads of a thread's slice
+  extern __shared__ __align__(16) float smem[];
+  const int ntx = (w + WA_TX - 1) / WA_TX;
+  const int per_view = ((h + WA_TY - 1) / WA_TY) * ntx * G;
+  const int lane = threadIdx.x & 31;
+  const int tx = lane & 15, half = lane >> 4;    // the thread's column and slice
+  const int ry = WA_QY * (threadIdx.x >> 5);     // its first query row in the tile
+  const int i = blockIdx.x, tile = i % per_view / G;
+  const int view = i / per_view, y0 = tile / ntx * WA_TY, x0 = tile % ntx * WA_TX, g = i % G;
+  // the item's k and v halos, zero outside the image
+  for (int j = threadIdx.x; j < WA_HY * WA_HX * (WA_G / 4); j += WA_NT) {
+    const int px = j / (WA_G / 4), c = 4 * (j % (WA_G / 4));
+    const int ky = y0 - R + px / WA_HX, kx = x0 - R + px % WA_HX;
+    const bool ok = ky >= 0 && ky < h && kx >= 0 && kx < w;
+    const size_t off =
+        ok ? ((static_cast<size_t>(view) * h + ky) * w + kx) * D + g * WA_G + c : 0;
+    cp_async16(smem + px * WA_LD + c, k + off, ok);
+    cp_async16(smem + WA_BUF + px * WA_LD + c, v + off, ok);
   }
-  if constexpr (STATS) {
-    // m, l through shared memory, so they leave as [.., 8] rows: thread
-    // (query, head) wrote [query][head], thread i stores element i
-    __syncthreads();
-    float* MS = KT;                                // [NQ][H]
-    float* LS = KT + NQ * H;
-    MS[qi * H + hh] = m;
-    LS[qi * H + hh] = l;
-    __syncthreads();
-    const int sq = threadIdx.x / H, sh = threadIdx.x % H;
-    const int sy = y0 + sq / QT, sx = x0 + sq % QT;
-    if (sy < h && sx < w) {
-      const size_t soff = (view + static_cast<size_t>(sy) * w + sx) * H + sh;
-      m_out[soff] = MS[threadIdx.x];
-      l_out[soff] = LS[threadIdx.x];
+  cp_async_commit();
+  const int x = x0 + tx;
+  const int col = g * WA_G + half * WA_S;   // the slice's first channel
+#pragma unroll 1
+  for (int a = 0; a < WA_QY; ++a) {
+    const int y = y0 + ry + a;
+    const bool in = y < h && x < w;
+    const size_t pix = (static_cast<size_t>(view) * h + (in ? y : 0)) * w + (in ? x : 0);
+    float qv[WA_S], gv[WA_S];   // the query's q (scaled as the forward scales it), dout
+#pragma unroll
+    for (int d = 0; d < WA_S; d += 4) {
+      const float4 t = in ? ldg4(q + pix * D + col + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 u = in ? ldg4(dout + pix * D + col + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+      qv[d] = t.x * scale;
+      qv[d + 1] = t.y * scale;
+      qv[d + 2] = t.z * scale;
+      qv[d + 3] = t.w * scale;
+      gv[d] = u.x;
+      gv[d + 1] = u.y;
+      gv[d + 2] = u.z;
+      gv[d + 3] = u.w;
+    }
+    if (a == 0) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (!in) continue;   // no barrier follows
+#pragma unroll
+    for (int e = 0; e < HT; ++e) {   // the heads of the thread's slice
+      const size_t hd = pix * H + (col + e * DH) / DH;
+      const float m = __ldg(m_in + hd), il = 1.f / __ldg(l_in + hd);
+      // the window row-major, s[5 dy + dx]: the forward's scores, -inf (and
+      // dp 0) where the key lies outside the image
+      float s[KW], dp[KW];
+#pragma unroll
+      for (int j = 0; j < KW; ++j) {
+        s[j] = -CUDART_INF_F;
+        dp[j] = 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r <= 2 * R; ++r) {   // key row y + r - 2: halo row ry + a + r
+        const int ky = y + r - R;
+        if (ky < 0 || ky >= h) continue;
+        const float* kr = smem + ((ry + a + r) * WA_HX + tx) * WA_LD + half * WA_S + e * DH;
+#pragma unroll
+        for (int dx = 0; dx <= 2 * R; ++dx) {
+          const int kx = x + dx - R;
+          if (kx < 0 || kx >= w) continue;
+          float kk[DH], vv[DH];
+          ld<DH>(kr + dx * WA_LD, kk);
+          s[(2 * R + 1) * r + dx] = dot4<DH>(qv + e * DH, kk);
+          ld<DH>(kr + WA_BUF + dx * WA_LD, vv);
+          dp[(2 * R + 1) * r + dx] = dot4<DH>(gv + e * DH, vv);
+        }
+      }
+      float dsum = 0.f;   // sum_j e_j dp_j in key order
+#pragma unroll
+      for (int j = 0; j < KW; ++j) {
+        s[j] = expf(s[j] - m);
+        dsum = fmaf(s[j], dp[j], dsum);
+      }
+      const float dd = dsum * il;
+#pragma unroll
+      for (int j = 0; j < KW; ++j) dp[j] = s[j] * (dp[j] - dd);   // l ds_j
+      float dq[DH];
+#pragma unroll
+      for (int d = 0; d < DH; ++d) dq[d] = 0.f;
+#pragma unroll
+      for (int r = 0; r <= 2 * R; ++r) {
+        const int ky = y + r - R;
+        if (ky < 0 || ky >= h) continue;
+        const float* kr = smem + ((ry + a + r) * WA_HX + tx) * WA_LD + half * WA_S + e * DH;
+#pragma unroll
+        for (int dx = 0; dx <= 2 * R; ++dx) {
+          const int kx = x + dx - R;
+          if (kx < 0 || kx >= w) continue;
+          float kk[DH];
+          ld<DH>(kr + dx * WA_LD, kk);
+          const float c = dp[(2 * R + 1) * r + dx];
+#pragma unroll
+          for (int d = 0; d < DH; ++d) dq[d] = fmaf(c, kk[d], dq[d]);
+        }
+      }
+      const float f = il * scale;
+#pragma unroll
+      for (int d = 0; d < DH; d += 4)
+        store4(dq_out + pix * D + col + e * DH + d,
+               make_float4(dq[d] * f, dq[d + 1] * f, dq[d + 2] * f, dq[d + 3] * f));
+      dsum_out[hd] = dd;
     }
   }
 }
 
-// ---- backward: heads in chunks of HP, 64 x HP threads ---------------------
+// ---- backward, pass kv: dk and dv -----------------------------------------
+// Shared memory of a pass-kv block: the q and dout halos of a head pair,
+// pixel stride 2 DH + 4; q's row ends in (m, 1/l) of each head, dout's in
+// the two heads' D.
 template <int DH>
-struct Bwd {
-  static constexpr int HP = DH <= 8 ? 8 : 4;       // heads per chunk
-  static constexpr int CW = HP * DH, LD = CW + 4;  // chunk width <= 64 channels
-  static constexpr int NTB = NQ * HP;
-  static constexpr size_t BYTES = (4 * NH * LD + 3 * NH * HP) * sizeof(float);
+struct KvLayout {
+  static constexpr int LD = KV_HEADS * DH + 4;
+  static constexpr int BUF = WA_HY * WA_HX * LD;
+  static constexpr size_t BYTES = 2 * static_cast<size_t>(BUF) * sizeof(float);
+  static_assert(2 * (BYTES + 1024) <= 233472, "two blocks' halos must share an SM");
 };
 
+// One block an item (view, 16 x 16 tile, head pair), items in launch order;
+// a thread owns the key pixels (ry, tx) and (ry + 1, tx) of the tile, one
+// after the other, for head `e` of the pair.
 template <int DH>
-__global__ void __launch_bounds__(Bwd<DH>::NTB)
-    spa_attn_hp_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ dout,
-                           const float* __restrict__ m_in, const float* __restrict__ l_in,
-                           float* __restrict__ dq_out, float* __restrict__ dk_out,
-                           float* __restrict__ dv_out, int h, int w, float scale) {
-  using B = Bwd<DH>;
-  constexpr int E = H * DH, HP = B::HP, CW = B::CW, LD = B::LD, NTB = B::NTB;
-  extern __shared__ float4 smem4[];
-  float* QS = reinterpret_cast<float*>(smem4);   // [NH][LD] each
-  float* KT = QS + NH * LD;
-  float* VT = KT + NH * LD;
-  float* GT = VT + NH * LD;                       // dout
-  float* MT = GT + NH * LD;                       // [NH][HP] each
-  float* LT = MT + NH * HP;
-  float* DT = LT + NH * HP;                       // D = sum_j p dp
-  const int ntw = (w + QT - 1) / QT, nth = (h + QT - 1) / QT;
-  const int tile = blockIdx.x % (nth * ntw);
-  const int y0 = (tile / ntw) * QT, x0 = (tile % ntw) * QT;
-  const size_t view = static_cast<size_t>(blockIdx.x / (nth * ntw)) * h * w;
-  const float* kv = k + view * E;
-  const float* vv = v + view * E;
-
-  for (int c0 = 0; c0 < E; c0 += CW) {
-    const int h0 = c0 / DH;
-    if (c0) __syncthreads();                       // the last chunk's readers are done
-    stage_tile_halo<CW, QT>(QS, q + view * E, E, c0, y0, x0, h, w, NTB);
-    stage_tile_halo<CW, QT>(KT, kv, E, c0, y0, x0, h, w, NTB);
-    stage_tile_halo<CW, QT>(VT, vv, E, c0, y0, x0, h, w, NTB);
-    stage_tile_halo<CW, QT>(GT, dout + view * E, E, c0, y0, x0, h, w, NTB);
-    for (int i = threadIdx.x; i < NH * HP; i += NTB) {
-      const int pos = i / HP, hh = i % HP;
-      const int y = y0 - R + pos / HL, x = x0 - R + pos % HL;
-      float mv = 0.f, lv = 1.f;
-      if (y >= 0 && y < h && x >= 0 && x < w) {
-        const size_t s = (view + static_cast<size_t>(y) * w + x) * H + h0 + hh;
-        mv = __ldg(m_in + s);
-        lv = __ldg(l_in + s);
-      }
-      MT[i] = mv;
-      LT[i] = lv;
+__global__ void __launch_bounds__(WA_NT, 2)
+    spa_attn_hp_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const float* __restrict__ m_in, const float* __restrict__ l_in,
+                              const float* __restrict__ dsum, float* __restrict__ dk_out,
+                              float* __restrict__ dv_out, int h, int w, float scale) {
+  using L = KvLayout<DH>;
+  constexpr int D = H * DH, P = H / KV_HEADS, LD = L::LD, W = KV_HEADS * DH;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // [20 x 20][LD]: q * scale, m0, 1/l0, m1, 1/l1
+  float* gs = smem + L::BUF;        // [20 x 20][LD]: dout, D0, D1
+  const int ntx = (w + WA_TX - 1) / WA_TX;
+  const int per_view = ((h + WA_TY - 1) / WA_TY) * ntx * P;
+  const int lane = threadIdx.x & 31;
+  const int tx = lane & 15, e = lane >> 4;       // the thread's column and head of the pair
+  const int ry = WA_QY * (threadIdx.x >> 5);     // its first key row in the tile
+  const int i = blockIdx.x, tile = i % per_view / P;
+  const int view = i / per_view, y0 = tile / ntx * WA_TY, x0 = tile % ntx * WA_TX, pr = i % P;
+  for (int j = threadIdx.x; j < WA_HY * WA_HX * (W / 4); j += WA_NT) {
+    const int px = j / (W / 4), c = 4 * (j % (W / 4));
+    const int oy = y0 - R + px / WA_HX, ox = x0 - R + px % WA_HX;
+    const bool ok = oy >= 0 && oy < h && ox >= 0 && ox < w;
+    const size_t off =
+        ok ? ((static_cast<size_t>(view) * h + oy) * w + ox) * D + pr * W + c : 0;
+    cp_async16(qs + px * LD + c, q + off, ok);
+    cp_async16(gs + px * LD + c, dout + off, ok);
+  }
+  cp_async_commit();
+  for (int j = threadIdx.x; j < WA_HY * WA_HX * KV_HEADS; j += WA_NT) {
+    const int px = j / KV_HEADS, hh = j % KV_HEADS;
+    const int oy = y0 - R + px / WA_HX, ox = x0 - R + px % WA_HX;
+    float mv = 0.f, il = 0.f, dd = 0.f;   // outside the image: never read
+    if (oy >= 0 && oy < h && ox >= 0 && ox < w) {
+      const size_t hd = ((static_cast<size_t>(view) * h + oy) * w + ox) * H + pr * KV_HEADS + hh;
+      mv = __ldg(m_in + hd);
+      il = 1.f / __ldg(l_in + hd);
+      dd = __ldg(dsum + hd);
     }
-    __syncthreads();
+    qs[px * LD + W + 2 * hh] = mv;
+    qs[px * LD + W + 2 * hh + 1] = il;
+    gs[px * LD + W + hh] = dd;
+  }
+  cp_async_wait<0>();
+  // q * scale in place, over the chunks this thread copied (its own copies
+  // have landed): the forward's operand
+  for (int j = threadIdx.x; j < WA_HY * WA_HX * (W / 4); j += WA_NT) {
+    float* p = qs + j / (W / 4) * LD + 4 * (j % (W / 4));
+    const float4 t = load4(p);
+    store4(p, make_float4(t.x * scale, t.y * scale, t.z * scale, t.w * scale));
+  }
+  __syncthreads();
 
-    // D of every halo pixel inside the image; a key outside the staged halo
-    // (the windows of the halo's outer ring) comes from device memory
-    for (int t = threadIdx.x; t < NH * HP; t += NTB) {
-      const int pos = t % NH, hh = t / NH;
-      const int py = pos / HL, px = pos % HL;
-      const int y = y0 - R + py, x = x0 - R + px;
-      float dsum = 0.f;
-      if (y >= 0 && y < h && x >= 0 && x < w) {
-        float qs[DH], g[DH];
-        ld<DH>(QS + pos * LD + hh * DH, qs);
-        ld<DH>(GT + pos * LD + hh * DH, g);
+  const int x = x0 + tx;
+#pragma unroll 1
+  for (int a = 0; a < WA_QY; ++a) {
+    const int y = y0 + ry + a;
+    if (y >= h || x >= w) continue;   // no barrier follows
+    const size_t off = ((static_cast<size_t>(view) * h + y) * w + x) * D + pr * W + e * DH;
+    float km[DH], vm[DH], dk[DH], dv[DH];
+    ldg<DH>(k + off, km);
+    ldg<DH>(v + off, vm);
 #pragma unroll
-        for (int d = 0; d < DH; ++d) qs[d] *= scale;
-        const float m_me = MT[pos * HP + hh], inv = 1.f / LT[pos * HP + hh];
-        for (int dy = -R; dy <= R; ++dy) {
-          if (y + dy < 0 || y + dy >= h) continue;
-          for (int dx = -R; dx <= R; ++dx) {
-            if (x + dx < 0 || x + dx >= w) continue;
-            const int ky = py + dy, kx = px + dx;
-            float kr[DH], vr[DH];
-            if (ky >= 0 && ky < HL && kx >= 0 && kx < HL) {
-              ld<DH>(KT + (ky * HL + kx) * LD + hh * DH, kr);
-              ld<DH>(VT + (ky * HL + kx) * LD + hh * DH, vr);
-            } else {
-              const size_t off = (static_cast<size_t>(y + dy) * w + x + dx) * E + c0 + hh * DH;
-              ld<DH>(kv + off, kr);
-              ld<DH>(vv + off, vr);
-            }
-            dsum = fmaf(expf(dot<DH>(qs, kr) - m_me) * inv, dot<DH>(g, vr), dsum);
-          }
+    for (int d = 0; d < DH; ++d) dk[d] = dv[d] = 0.f;
+#pragma unroll
+    for (int r = 0; r <= 2 * R; ++r) {   // query row y + r - 2: halo row ry + a + r
+      const int oy = y + r - R;
+      if (oy < 0 || oy >= h) continue;
+      const int row = ((ry + a + r) * WA_HX + tx) * LD;
+#pragma unroll
+      for (int dx = 0; dx <= 2 * R; ++dx) {
+        const int ox = x + dx - R;
+        if (ox < 0 || ox >= w) continue;
+        const float* qo = qs + row + dx * LD;
+        const float* go = gs + row + dx * LD;
+        float qq[DH], gg[DH];
+        ld<DH>(qo + e * DH, qq);
+        const float2 ml = *reinterpret_cast<const float2*>(qo + W + 2 * e);
+        const float p = expf(dot4<DH>(qq, km) - ml.x) * ml.y;
+        ld<DH>(go + e * DH, gg);
+        const float ds = p * (dot4<DH>(gg, vm) - go[W + e]);
+#pragma unroll
+        for (int d = 0; d < DH; ++d) {
+          dk[d] = fmaf(ds, qq[d], dk[d]);
+          dv[d] = fmaf(p, gg[d], dv[d]);
         }
       }
-      DT[pos * HP + hh] = dsum;
     }
-    __syncthreads();
-
-    const int qi = threadIdx.x % NQ, hh = threadIdx.x / NQ;
-    const int ly = qi / QT, lx = qi % QT;
-    const int y = y0 + ly, x = x0 + lx;
-    if (y < h && x < w) {
-      const int me = (ly + R) * HL + (lx + R);
-      float qs[DH], kme[DH], vme[DH], gme[DH], dq[DH], dk[DH], dv[DH];
-      ld<DH>(QS + me * LD + hh * DH, qs);
-      ld<DH>(KT + me * LD + hh * DH, kme);
-      ld<DH>(VT + me * LD + hh * DH, vme);
-      ld<DH>(GT + me * LD + hh * DH, gme);
 #pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        qs[d] *= scale;
-        dq[d] = dk[d] = dv[d] = 0.f;
-      }
-      const float m_me = MT[me * HP + hh], inv = 1.f / LT[me * HP + hh];
-      const float d_me = DT[me * HP + hh];
-      for (int dy = -R; dy <= R; ++dy) {
-        if (y + dy < 0 || y + dy >= h) continue;
-        for (int dx = -R; dx <= R; ++dx) {
-          if (x + dx < 0 || x + dx >= w) continue;
-          const int o = me + dy * HL + dx;
-          float a[DH], b[DH];
-          // me as the query, o as the key (the forward's score arithmetic)
-          ld<DH>(KT + o * LD + hh * DH, a);
-          ld<DH>(VT + o * LD + hh * DH, b);
-          float ds = expf(dot<DH>(qs, a) - m_me) * inv * (dot<DH>(gme, b) - d_me);
-#pragma unroll
-          for (int d = 0; d < DH; ++d) dq[d] = fmaf(ds, a[d], dq[d]);
-          // o as the query, me as the key
-          ld<DH>(QS + o * LD + hh * DH, a);
-          ld<DH>(GT + o * LD + hh * DH, b);
-#pragma unroll
-          for (int d = 0; d < DH; ++d) a[d] *= scale;
-          const float pr = expf(dot<DH>(a, kme) - MT[o * HP + hh]) / LT[o * HP + hh];
-          ds = pr * (dot<DH>(b, vme) - DT[o * HP + hh]);
-#pragma unroll
-          for (int d = 0; d < DH; ++d) {
-            dk[d] = fmaf(ds, a[d], dk[d]);
-            dv[d] = fmaf(pr, b[d], dv[d]);
-          }
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < DH; ++d) dq[d] *= scale;
-      const size_t off = (view + static_cast<size_t>(y) * w + x) * E + c0 + hh * DH;
-      st<DH>(dq_out + off, dq);
-      st<DH>(dk_out + off, dk);
-      st<DH>(dv_out + off, dv);
+    for (int d = 0; d < DH; d += 4) {
+      store4(dk_out + off + d, make_float4(dk[d], dk[d + 1], dk[d + 2], dk[d + 3]));
+      store4(dv_out + off + d, make_float4(dv[d], dv[d + 1], dv[d + 2], dv[d + 3]));
     }
   }
 }
 
-inline bool bad_shape(int B, int h, int w, int heads) {
-  return heads != H || B < 1 || h < 1 || w < 1;
+inline bool bad_shape(int B, int h, int w, int E, int heads) {
+  return heads != H || B < 1 || h < 1 || w < 1 || E % WA_G ||
+         static_cast<long long>(B) * h * w > 0x7fffffffLL;
 }
 
-inline long long n_blocks(int B, int h, int w) {
-  return static_cast<long long>(B) * ((h + QT - 1) / QT) * ((w + QT - 1) / QT);
+// blocks of a launch: (view, 16 x 16 tile, group) items, `groups` a pixel
+inline long long n_items(int B, int h, int w, int groups) {
+  return static_cast<long long>(B) * ((h + WA_TY - 1) / WA_TY) * ((w + WA_TX - 1) / WA_TX) *
+         groups;
 }
 
 template <bool STATS>
 int spa_attn_hp(const float* q, const float* k, const float* v, float* out, float* m, float* l,
                 int B, int h, int w, int E, int heads, float scale, cudaStream_t s) {
-  if (bad_shape(B, h, w, heads) || n_blocks(B, h, w) > 0x7fffffffLL)
+  if (bad_shape(B, h, w, E, heads) || n_items(B, h, w, E / WA_G) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = static_cast<int>(n_blocks(B, h, w));
+  const int grid = static_cast<int>(n_items(B, h, w, E / WA_G));
   switch (E / H) {
-#define LFT_HP_CASE(DHV)                                                      \
-    case DHV: {                                                               \
-      auto kernel = spa_attn_hp_kernel<DHV, STATS>;                           \
-      const size_t bytes = 2 * NH * (H * DHV + 4) * sizeof(float);            \
-      LFT_SET_SMEM(kernel, bytes);                                            \
-      kernel<<<grid, NQ * H, bytes, s>>>(q, k, v, out, m, l, h, w, scale);    \
-      break;                                                                  \
+#define LFT_HP_CASE(DHV)                                                           \
+    case DHV: {                                                                    \
+      auto kernel = spa_window_attn_kernel<DHV, STATS>;                            \
+      LFT_SET_SMEM(kernel, WA_BYTES);                                              \
+      kernel<<<grid, WA_NT, WA_BYTES, s>>>(q, k, v, out, m, l, B, h, w, scale);     \
+      break;                                                                       \
     }
     LFT_HP_CASE(4)
     LFT_HP_CASE(8)
@@ -323,22 +368,29 @@ extern "C" int lft_spa_attn_hp_res(const float* q, const float* k, const float* 
                            static_cast<cudaStream_t>(stream));
 }
 
+// dq, dk, dv [B, h, w, E] from q, k, v, dout [B, h, w, E] and m, l [B, h, w,
+// 8]; dsum [B, h, w, 8] is the launch's scratch (pass q writes D there,
+// pass kv reads it).
 extern "C" int lft_spa_attn_hp_bwd(const float* q, const float* k, const float* v,
                                    const float* dout, const float* m, const float* l,
-                                   float* dq, float* dk, float* dv, int B, int h, int w, int E,
-                                   int heads, float scale, void* stream) {
-  if (bad_shape(B, h, w, heads) || n_blocks(B, h, w) > 0x7fffffffLL)
+                                   float* dsum, float* dq, float* dk, float* dv, int B, int h,
+                                   int w, int E, int heads, float scale, void* stream) {
+  if (bad_shape(B, h, w, E, heads) || n_items(B, h, w, H / KV_HEADS) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  const int grid = static_cast<int>(n_blocks(B, h, w));
+  const int grid_q = static_cast<int>(n_items(B, h, w, E / WA_G));
+  const int grid_kv = static_cast<int>(n_items(B, h, w, H / KV_HEADS));
   switch (E / H) {
-#define LFT_HP_CASE(DHV)                                                      \
-    case DHV: {                                                               \
-      auto kernel = spa_attn_hp_bwd_kernel<DHV>;                              \
-      LFT_SET_SMEM(kernel, Bwd<DHV>::BYTES);                                  \
-      kernel<<<grid, Bwd<DHV>::NTB, Bwd<DHV>::BYTES, s>>>(q, k, v, dout, m, l, dq, dk, dv, \
-                                                          h, w, scale);       \
-      break;                                                                  \
+#define LFT_HP_CASE(DHV)                                                             \
+    case DHV: {                                                                      \
+      auto kq = spa_attn_hp_bwd_q_kernel<DHV>;                                       \
+      auto kkv = spa_attn_hp_bwd_kv_kernel<DHV>;                                     \
+      LFT_SET_SMEM(kq, WA_BYTES);                                                    \
+      LFT_SET_SMEM(kkv, KvLayout<DHV>::BYTES);                                       \
+      kq<<<grid_q, WA_NT, WA_BYTES, s>>>(q, k, v, dout, m, l, dq, dsum, h, w, scale); \
+      kkv<<<grid_kv, WA_NT, KvLayout<DHV>::BYTES, s>>>(q, k, v, dout, m, l, dsum, dk, dv, \
+                                                       h, w, scale);                 \
+      break;                                                                         \
     }
     LFT_HP_CASE(4)
     LFT_HP_CASE(8)

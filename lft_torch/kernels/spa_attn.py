@@ -18,7 +18,7 @@ JAX package does; the backward (`spa_attn_mxu_bwd`) rebuilds the
 probabilities from them and takes D from a * (dout v^T).
 
 `windowed_attention_hybrid` picks a kernel per context as the JAX hybrid does
-off a TPU: the all-heads kernel K5 (kernels/spa_attn_hp.py) for the primal and
+off a TPU: the window kernel K5 (kernels/spa_attn_hp.py) for the primal and
 for the training pair wherever `headpacked_applicable`; else the offset sweep
 K9 for the primal and the tile-dense pair K6 for training.
 """

@@ -1,5 +1,5 @@
-"""K5: per-op 5x5-window attention of projected q/k/v images, all heads of
-a query tile in one block (counterpart of lft_tpu/kernels/spa_attn_hp.py).
+"""K5: per-op 5x5-window attention of projected q/k/v images (counterpart
+of lft_tpu/kernels/spa_attn_hp.py), on K2.3's window layout.
 
 `windowed_attention_headpacked(q, k, v, num_heads, ksize)` maps projected
 [B, h, w, E] images to the attention output [B, h, w, E]: every pixel
@@ -8,6 +8,14 @@ the image (scale (E / heads)^-0.5 inside). On a CUDA tensor it launches the
 hand-written kernels of `lft_torch/csrc/spa_attn_hp.cu`; on a CPU tensor it
 runs the plain PyTorch versions below. There is no fallback from one to the
 other.
+
+The forward is K2.3's kernel (`csrc/window_attn.cuh`, the fused SpaTrans
+block's window step): a block takes a (view, 16 x 16 tile, 32-float head
+group) item. The backward is two kernels in one launch: pass q (K2.3's
+items: dq and D = sum_j p_j dp_j per pixel and head, into a scratch) and
+pass kv (a (view, tile, head pair) item: dk, dv gathered over the queries
+whose window holds a key). Their geometry is mirrored in
+`kernels/spa_block.py` (`window_items`, `hp_kv_items`, ...).
 
 Training: when grad mode is on and q, k or v requires grad it runs as
 `SpaAttnHpFn`, whose forward also returns the per-(pixel, head) softmax max
@@ -126,6 +134,17 @@ def windowed_attention_headpacked_plain(q, k, v, num_heads: int, ksize: int):
     return out.contiguous(), m.contiguous(), l.contiguous()
 
 
+def windowed_attention_headpacked_dsum_plain(q, k, v, m, l, dout, num_heads: int,
+                                              ksize: int):
+    """D = sum_j p_j dp_j [B, h, w, H] from (q, k, v, m, l, dout): what the
+    backward's pass q writes beside dq."""
+    B, h, w, E = q.shape
+    p, _, _, _ = _window_probs(q, k, num_heads, ksize, m, l)
+    vw = _gather_window(v, ksize).reshape(B, h, w, -1, num_heads, E // num_heads)
+    dp = torch.einsum("byxhd,byxjhd->byxjh", dout.reshape(B, h, w, num_heads, -1), vw)
+    return (p * dp).sum(3)
+
+
 def windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout, num_heads: int, ksize: int):
     """Plain version of K5's backward: (dq, dk, dv) from (q, k, v, m, l,
     dout), the identities written out (ds = p (dp - sum_j p dp))."""
@@ -182,20 +201,26 @@ def spa_attn_hp_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = Fals
     return out, m, l
 
 
-def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int):
-    """K5's backward (`spa_attn_hp_bwd`): (dq, dk, dv) [B, h, w, E]."""
+def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int, with_dsum: bool = False):
+    """K5's backward (`spa_attn_hp_bwd`): (dq, dk, dv) [B, h, w, E]; with_dsum
+    also D [B, h, w, H], the scratch pass q hands to pass kv."""
     if q.device.type != "cuda":
-        return windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout, num_heads, ksize)
+        grads = windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout, num_heads, ksize)
+        if not with_dsum:
+            return grads
+        return (*grads, windowed_attention_headpacked_dsum_plain(q, k, v, m, l, dout, num_heads,
+                                                                 ksize))
     _check_shape("spa_attn_hp_bwd", q, num_heads, ksize)
     _build.check_cuda_args("spa_attn_hp_bwd", q, k, v, dout, m, l)
     B, h, w, E = q.shape
+    dsum = torch.empty(B, h, w, num_heads, device=q.device)
     outs = tuple(torch.empty_like(q) for _ in range(3))
-    fn = _build.bind("spa_attn_hp", "lft_spa_attn_hp_bwd", 9,
+    fn = _build.bind("spa_attn_hp", "lft_spa_attn_hp_bwd", 10,
                      (ctypes.c_int,) * 5 + (ctypes.c_float,))
     _build.launch("spa_attn_hp", "spa_attn_hp_bwd", fn, q.device,
-                  *(t.data_ptr() for t in (q, k, v, dout, m, l, *outs)),
+                  *(t.data_ptr() for t in (q, k, v, dout, m, l, dsum, *outs)),
                   B, h, w, E, num_heads, float(E // num_heads) ** -0.5)
-    return outs
+    return (*outs, dsum) if with_dsum else outs
 
 
 class SpaAttnHpFn(torch.autograd.Function):

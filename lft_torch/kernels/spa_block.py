@@ -37,6 +37,10 @@ in plain PyTorch), and the wrapper picks the block's rectangle of pixels
 gradients are reduced by `wgrad`/`colsum` (kernels/wgrad.py). `pe_tok` gets
 a real gradient: it carries MLP.weight.
 `spa_trans_block_plain` runs the plain versions of all of it on any device.
+Step 3's kernel (`csrc/window_attn.cuh`) is also K5's forward; the geometry
+of it and of K5's two-pass backward is mirrored here (`window_items`,
+`window_thread`, `window_smem`, `hp_kv_items`, `hp_kv_smem`,
+`hp_thread_pixels`).
 
 K11, `pixel_major=True` (counterpart of lft_tpu's `_fwd_call(pixel_major=
 True)`): the same forward on a pixel-major buffer x [Bb, h, w, A2, C] ->
@@ -363,6 +367,38 @@ def window_thread(tid: int):
     slices, and warp j owns query rows 2 j and 2 j + 1."""
     lane = tid % 32
     return lane % 16, lane // 16, WA_QY * (tid // 32)
+
+
+# K5's backward (csrc/spa_attn_hp.cu): pass q takes K2.3's items
+# (`window_items`), threads (`window_thread`: its two queries one after the
+# other) and k/v halo (`window_smem`); pass kv takes a (view, 16 x 16 tile,
+# head pair) item, whose q and dout halos carry the pair's m, 1/l and D in
+# each pixel's four pad floats, and `window_thread`'s mapping with the slice
+# a head of the pair: a thread takes two key pixels down a column.
+HP_KV_HEADS = 2        # heads of a pass-kv item (spa_attn_hp.cu: KV_HEADS)
+
+
+def hp_kv_smem(dh: int) -> int:
+    """Shared memory of a pass-kv block: the q and dout halos of a head
+    pair, (16 + 4)^2 pixels at a stride of 2 dh + 4 floats (KvLayout::BYTES);
+    two blocks share an SM."""
+    halo = (WA_TY + 2 * WA_RADIUS) * (WA_TX + 2 * WA_RADIUS) * (HP_KV_HEADS * dh + 4)
+    return 2 * halo * 4
+
+
+def hp_kv_items(V: int, h: int, w: int, num_heads: int = 8):
+    """Pass kv's blocks in launch order, (view, y0, x0, pair): a 16 x 16 key
+    tile at (y0, x0) of one view times heads 2 pair and 2 pair + 1."""
+    ntx, nty, P = -(-w // WA_TX), -(-h // WA_TY), num_heads // HP_KV_HEADS
+    return [(i // (nty * ntx * P), (i % (nty * ntx * P) // P) // ntx * WA_TY,
+             (i % (nty * ntx * P) // P) % ntx * WA_TX, i % P) for i in range(V * nty * ntx * P)]
+
+
+def hp_thread_pixels(tid: int):
+    """The tile's (row, column) pixels of thread `tid` in either pass, in the
+    order it takes them: its queries (pass q) or keys (pass kv)."""
+    tx, _, ry = window_thread(tid)
+    return [(ry + a, tx) for a in range(WA_QY)]
 
 
 def _check_window(kernel: str, D: int, num_heads: int, ksize: int) -> None:

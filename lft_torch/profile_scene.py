@@ -1,10 +1,11 @@
 """Time and profile full-scene SR on one CUDA card.
 
     python3 -m lft_torch.profile_scene [--scenes N] [--seed S] [--plain] [--unfused]
+        [--ang-res A] [--view V]
 
-Loads the full-width 4x demo checkpoint, makes `--scenes` synthetic 5x5
-scenes of 128x128 LR views, and runs the tiled pipeline (patch 32, stride
-16, 16 patches a forward) on the card:
+Loads the full-width 4x demo checkpoint, makes `--scenes` synthetic A x A
+scenes of V x V LR views (5x5 and 128x128 by default), and runs the tiled
+pipeline (patch 32, stride 16, 16 patches a forward) on the card:
 
 * steady-state seconds per scene (host clock around work that ends in
   `torch.cuda.synchronize()`, after one warm-up scene) and HR SAI
@@ -17,7 +18,9 @@ scenes of 128x128 LR views, and runs the tiled pipeline (patch 32, stride
 kernels K7 and K5, or with `--plain` as the tiled torch ops. The environment
 variables `LFT_ANG_VARIANT=sweep` and `LFT_SPA_VARIANT=offset|mxu|tile` send
 that branch through K8, K9, K6 or K10 instead (`tile`, K10, is inference
-only); the kernels a scene launched are printed.
+only); the kernels a scene launched are printed. Past 11x11 views the
+fused blocks' gate sends every call to the per-op branch (`--ang-res 12
+--view 48`: K8 and K5, `chip_smoke.py`'s 12x12-view scene).
 Prints the card's name and power limit first. Exits non-zero without a card.
 """
 
@@ -40,6 +43,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--unfused", action="store_true")
+    ap.add_argument("--ang-res", type=int, default=5)
+    ap.add_argument("--view", type=int, default=128)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_scene: no CUDA device is available", file=sys.stderr)
@@ -59,11 +64,13 @@ def main(argv=None) -> int:
     dev = resolve_device()
     params, _, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
                                                 "LFT_5x5_4x_synth3000.pth"), device=dev)
-    args = Args(angRes=5, scale_factor=4, channels=64, patch_size_for_test=32,
+    args = Args(angRes=a.ang_res, scale_factor=4, channels=64, patch_size_for_test=32,
                 stride_for_test=16, eval_batch=16)
     kw, what = path_kw(a.plain, a.unfused)
     cache = ScenePipelineCache(forward, args, eval_batch=16, **kw)
-    lrs = [torch.from_numpy(lr_hr_pair(synth_lf_scene(5, 512, 512, seed=a.seed + i), 4)[0])
+    hr_view = 4 * a.view
+    lrs = [torch.from_numpy(lr_hr_pair(synth_lf_scene(a.ang_res, hr_view, hr_view,
+                                                      seed=a.seed + i), 4)[0])
            .to(dev) for i in range(a.scenes)]
     mpx = (lrs[0].shape[0] * 4) * (lrs[0].shape[1] * 4) / 1e6
 

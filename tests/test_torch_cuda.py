@@ -335,10 +335,13 @@ def test_ang_attn_kernels(cuda_device, C, N, A2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,h,w", [(16, 20, 12), (32, 9, 7), (64, 32, 32), (64, 17, 40),
-                                   (64, 3, 2)])
+                                   (64, 3, 2), (16, 30, 30), (32, 8, 101), (64, 30, 30),
+                                   (64, 8, 101)])
 def test_spa_attn_hp_kernels(cuda_device, C, h, w):
     """K5 forward, forward with stats and backward against their plain
-    versions: every channel width, ragged tiles, views smaller than a tile."""
+    versions: every channel width, ragged tiles, views smaller than a tile.
+    The forward is K2.3's window step bit for bit; the backward's pass q
+    writes D = sum_j p_j dp_j beside dq, and a call repeats bitwise."""
     E = 2 * C
     g = torch.Generator(device=cuda_device).manual_seed(C + h)
     q, k, v, dout = (torch.randn(3, h, w, E, device=cuda_device, generator=g) for _ in range(4))
@@ -347,14 +350,20 @@ def test_spa_attn_hp_kernels(cuda_device, C, h, w):
     _close(spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5), ref[0], 1e-4)
     _close(spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5, with_stats=True), ref, 1e-4)
     _, m, l = ref
-    got = spa_attn_hp.spa_attn_hp_bwd(q, k, v, m, l, dout, 8, 5)
+    got = spa_attn_hp.spa_attn_hp_bwd(q, k, v, m, l, dout, 8, 5, with_dsum=True)
     torch.cuda.synchronize()
     assert [LAUNCHES[n] for n in PEROP[3:]] == [1, 1, 1]
-    _close(got, spa_attn_hp.windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout, 8, 5))
-    again = spa_attn_hp.spa_attn_hp_bwd(q, k, v, m, l, dout, 8, 5)
+    _close(got[:3],
+           spa_attn_hp.windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout, 8, 5))
+    _close(got[3],
+           spa_attn_hp.windowed_attention_headpacked_dsum_plain(q, k, v, m, l, dout, 8, 5), 1e-4)
+    again = spa_attn_hp.spa_attn_hp_bwd(q, k, v, m, l, dout, 8, 5, with_dsum=True)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    # the same function as K2's window step, per head
-    _close(spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5), spa_block.window_attn(q, k, v, 8, 5), 1e-5)
+    # the same kernel as K2's window step, with the same m, l
+    assert torch.equal(spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5),
+                       spa_block.window_attn(q, k, v, 8, 5))
+    got = spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5, with_stats=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, spa_block.window_attn(q, k, v, 8, 5, True)))
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """K2.3 `spa_window_attn` (and its `_res` form) as redesigned for the H100
-(`lft_torch/csrc/spa_block.cu`), on the CPU: its geometry and its
-arithmetic.
+(`lft_torch/csrc/window_attn.cuh`, launched by `spa_block.cu`), on the CPU:
+its geometry and its arithmetic.
 
 The CUDA kernel cannot run here. Its geometry is mirrored in Python
 (`kernels/spa_block.py`: `window_items`, `window_thread`, `window_smem`,
@@ -109,11 +109,13 @@ def test_window_geometry_scores_each_in_image_window_once(h, w, dh):
 
 
 def test_window_python_geometry_mirrors_the_source():
-    """The constants and the item order of spa_window_attn_kernel; two
-    blocks' k/v halos fit in an SM's shared memory (228 KB, 1 KB a block
-    reserved); the halo's pixel stride lets 8 neighbouring pixels' float4
-    reads hit 32 distinct banks."""
-    src = (CSRC / "spa_block.cu").read_text()
+    """The constants and the item order of spa_window_attn_kernel
+    (window_attn.cuh, included by spa_block.cu); two blocks' k/v halos fit
+    in an SM's shared memory (228 KB, 1 KB a block reserved); the halo's
+    pixel stride lets 8 neighbouring pixels' float4 reads hit 32 distinct
+    banks."""
+    assert '#include "window_attn.cuh"' in (CSRC / "spa_block.cu").read_text()
+    src = (CSRC / "window_attn.cuh").read_text()
     for line in ("constexpr int WA_TX = 16, WA_TY = 16;", "constexpr int WA_QY = 2;",
                  "constexpr int WA_G = 32;", "constexpr int WA_S = 16;",
                  "constexpr int WA_LD = WA_G + 4;",
