@@ -100,7 +100,7 @@
 16. holds every K8, K9 and K6 kernel (forward, with stats, backward) against
     its plain version at the serving and training shapes of steps 13-15,
     times each beside its bound and one `scaled_dot_product_attention` call,
-    and K5, K6, K9, K10 and K2.3 (backwards: K3.c) in turns at one shape;
+    and K5, K6, K9, K10 and K2.3 (backwards: K5, K6, K9) in turns at one shape;
 17. runs the first scene through the tile-halo kernel K10: under
     `LFT_SPA_VARIANT=tile` at patch 32 (16 `ang_attn` + 16 `spa_attn_tile`
     launches) and under `LFT_SPA_VARIANT=offset` at patch 64 (64x64 = 4096 >
@@ -670,6 +670,7 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
     import torch
     import torch.nn.functional as F
     from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import spa_attn_hp as hp
     from lft_torch.kernels import spa_block as sb
     from lft_torch.ops.attention import local_window_mask
     from lft_torch.ops.posenc import angular_position, spatial_position
@@ -764,15 +765,53 @@ def train_kernel_checks(params, card: str, launches: dict, n_steps: int, seed: i
                   exact[i].reshape(summed[i].shape), repeats)
     del got, summed, exact
     dx2, dattn = ref[0], ref[1]
-    ref = (xn, q, k, v)
-    rec.record("spa_ln_qkv", src_s, rep, sb.ln_qkv(tok, pe_tok, ws), ref,
-               lambda: sb.ln_qkv(tok, pe_tok, ws), lambda: sb.ln_qkv_plain(tok, pe_tok, ws),
-               6 * T * D * D, nbytes(tok, pe_tok, *ref) + wbytes("ln", "wqk", "wv"), rel=rel)
-    args_c = (q, k, v, attn, dattn, m, l, H, K)
+    # K3.b from K2.1's tok (the kernel's): its (xn, q, k, v) must be K2.1's xn
+    # and K2.2's (q, k, v) bit for bit
+    tok_k, xn_k = sb.tokenize_ln(xs, pe_tok, ws)
+    fwd = (xn_k, *sb.qkv(xn_k, tok_k, ws))
+    ref = sb.ln_qkv_plain(tok_k, pe_tok, ws)
+    got = sb.ln_qkv(tok_k, pe_tok, ws)
+    rec.record("spa_ln_qkv", "lft_torch/csrc/spa_block.cu", rep, got, ref,
+               lambda: sb.ln_qkv(tok_k, pe_tok, ws), lambda: sb.ln_qkv_plain(tok_k, pe_tok, ws),
+               6 * T * D * D, nbytes(tok_k, pe_tok, *ref) + wbytes("ln", "wqk", "wv"), rel=rel,
+               tf32_products=3)
+    same = all(torch.equal(a, b) for a, b in zip(got, fwd))
+    repeats = all(torch.equal(a, b) for a, b in zip(got, sb.ln_qkv(tok_k, pe_tok, ws)))
+    print(f"  spa_ln_qkv: (xn, q, k, v) bitwise equal to K2.1's xn and K2.2's (q, k, v) from "
+          f"K2.1's tok: {same}; repeated bitwise: {repeats}", flush=True)
+    if not (same and repeats):
+        raise AssertionError("spa_ln_qkv does not recompute the forward's xn, q, k, v bit for "
+                             "bit, or does not repeat bitwise")
+    del tok_k, xn_k, fwd, ref
+    # K3.c on K3.b's q, k, v with K2.3 res's (m, l) on them (a backward is
+    # tested with its own forward's residuals): K5's backward under K3's name
+    q_k, k_k, v_k = got[1:]
+    del got
+    attn_k, m_k, l_k = sb.window_attn(q_k, k_k, v_k, H, K, True)
+    args_c = (q_k, k_k, v_k, attn_k, dattn, m_k, l_k, H, K)
     ref = sb.window_attn_bwd_plain(*args_c)
-    rec.record("spa_window_attn_bwd", src_s, rep, sb.window_attn_bwd(*args_c), ref,
+    got = sb.window_attn_bwd(*args_c)
+    rec.record("spa_window_attn_bwd", "lft_torch/csrc/spa_attn_hp.cu", rep, got, ref,
                lambda: sb.window_attn_bwd(*args_c), lambda: sb.window_attn_bwd_plain(*args_c),
-               10 * D * pairs + 2 * D * T, nbytes(q, k, v, attn, dattn, m, l, *ref), rel=rel)
+               10 * D * pairs, nbytes(q_k, k_k, v_k, dattn, m_k, l_k, *ref), rel=rel)
+    same = all(torch.equal(a, b) for a, b in
+               zip(got, hp.spa_attn_hp_bwd(q_k, k_k, v_k, m_k, l_k, dattn, H, K)))
+    repeats = all(torch.equal(a, b) for a, b in zip(got, sb.window_attn_bwd(*args_c)))
+    print(f"  spa_window_attn_bwd: bitwise equal to spa_attn_hp_bwd on the same inputs: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("spa_window_attn_bwd is not K5's backward bit for bit")
+    # against float64, each version from its own forward's (m, l)
+    a_p, m_p, l_p = sb.window_attn_plain(q_k, k_k, v_k, H, K)
+    plain_f32 = sb.window_attn_bwd_plain(q_k, k_k, v_k, a_p, dattn, m_p, l_p, H, K)
+    del a_p, m_p, l_p
+    x64 = [t_.double() for t_ in (q_k, k_k, v_k)]
+    a64, m64, l64 = sb.window_attn_plain(*x64, H, K)
+    exact = sb.window_attn_bwd_plain(*x64, a64, dattn.double(), m64, l64, H, K)
+    del x64, a64, m64, l64
+    for name, g_, r_, e_ in zip(("dq", "dk", "dv"), got, plain_f32, exact):
+        f64_check(f"spa_window_attn_bwd {name}", g_, r_, e_, repeats)
+    del got, plain_f32, exact, q_k, k_k, v_k, attn_k, m_k, l_k, args_c
     dq, dk, dv = ref
     args_d = (tok, pe_tok, dq, dk, dv, dx2, ws)
     ref = sb.qkv_ln_bwd_plain(*args_d)
@@ -1071,7 +1110,7 @@ def perop_kernel_checks(card: str, sr_counts: dict, n_scenes: int, train_counts:
                         n_steps: int, seed: int) -> list:
     """K7 and K5 against their plain versions: the primal at the serving
     shapes, the forward with (m, l) and the backward at the training shapes;
-    then K5 in turns with K2's and K3's window steps at the same shapes."""
+    then K5 in turns with K2.3 (its forward kernel) at the serving shape."""
     import torch
     import torch.nn.functional as F
     from lft_torch.kernels import ang_attn_mxu as am
@@ -1169,15 +1208,14 @@ def perop_kernel_checks(card: str, sr_counts: dict, n_scenes: int, train_counts:
             for name, g_, r_, e_ in zip(("dq", "dk", "dv"), got, ref, exact):
                 f64_check(f"spa_attn_hp_bwd {name}", g_, r_, e_, repeats)
             del got, exact
-            turns = [("K5 spa_attn_hp_bwd", lambda: hp.spa_attn_hp_bwd(q, k, v, m, l, dout, H, K)),
-                     ("K3.c spa_window_attn_bwd",
-                      lambda: sb.window_attn_bwd(q, k, v, out, dout, m, l, H, K))]
-        # K5 beside K2's and K3's window steps, the same function at the same
-        # shape, in turns (K5's forward is K2.3's kernel)
-        (na, fa), (nb, fb) = turns
-        ta, tb, tb2, ta2 = timed(fa), timed(fb), timed(fb), timed(fa)
-        print(f"at {[V, h, w, E]}: {na} {ta:.4f} / {ta2:.4f} ms, {nb} {tb:.4f} / {tb2:.4f} ms "
-              f"(turns a b b a, median of 10 each)", flush=True)
+        if serving:
+            # K5 beside K2's window step, the same function at the same shape,
+            # in turns (K5's forward is K2.3's kernel; K3.c is K5's backward,
+            # so that pair is not timed again)
+            (na, fa), (nb, fb) = turns
+            ta, tb, tb2, ta2 = timed(fa), timed(fb), timed(fb), timed(fa)
+            print(f"at {[V, h, w, E]}: {na} {ta:.4f} / {ta2:.4f} ms, {nb} {tb:.4f} / {tb2:.4f} "
+                  f"ms (turns a b b a, median of 10 each)", flush=True)
         rows += rec.rows
     return rows
 
@@ -1304,7 +1342,8 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
     for V, h, w in ((400, 64, 64), (225, 64, 64), (100, 8, 101)):
         window(6, V, h, w, 128, all_forms, shape=(V, h, w, 128), reps=3)
 
-    # one function by four kernels (five forward): in turns a b c d d c b a at one shape
+    # one function by three kernels (five forward, K5 and K2.3 one kernel): in
+    # turns a b c .. c b a at one shape (K3.c is K5's backward: not timed again)
     for V, bwd in ((400, False), (100, True)):
         q, k, v, dout = (rand(V, 32, 32, 128) for _ in range(4))
         if bwd:
@@ -1312,9 +1351,7 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
             turns = [("K5 spa_attn_hp_bwd", lambda: hp.spa_attn_hp_bwd(q, k, v, m, l, dout, H, K)),
                      ("K6 spa_attn_mxu_bwd", lambda: sa.spa_attn_mxu_bwd(q, k, v, m, l, dout, H, K)),
                      ("K9 spa_attn_offset_bwd",
-                      lambda: lv.spa_attn_offset_bwd(q, k, v, out, m, l, dout, H, K)),
-                     ("K3.c spa_window_attn_bwd",
-                      lambda: sb.window_attn_bwd(q, k, v, out, dout, m, l, H, K))]
+                      lambda: lv.spa_attn_offset_bwd(q, k, v, out, m, l, dout, H, K))]
         else:
             turns = [("K5 spa_attn_hp", lambda: hp.spa_attn_hp_fwd(q, k, v, H, K)),
                      ("K6 spa_attn_mxu", lambda: sa.spa_attn_mxu_fwd(q, k, v, H, K)),

@@ -23,7 +23,9 @@
 // it. Bound: q, k, v read once and out written once: at [400, 32, 32, 128]
 // 0.84 GB, 0.2504 ms at 3.35 TB/s (with STATS at [100, 32, 32, 128] 0.0646).
 //
-// Backward (`spa_attn_hp_bwd`): two kernels on K2.3's item, a 16 x 16 tile of
+// Backward (`spa_attn_hp_bwd`; the fused SpaTrans backward's step c, K3.c
+// `spa_window_attn_bwd`, launches it too, with dout = dattn and the (m, l)
+// of K2.3 res): two kernels on K2.3's item, a 16 x 16 tile of
 // one view times a head group, two blocks of 256 threads an SM, halos staged
 // by cp.async, a window's scores held in registers. Every output element is
 // written by one thread in a fixed order, no atomics: a call repeats bitwise.

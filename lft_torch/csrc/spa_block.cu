@@ -33,6 +33,10 @@
 // step. On the tensor cores steps 2 and 4 are bound by bytes, steps 1 and 5
 // by operations; the window step, on the FP32 pipes, by bytes.
 //
+// Step 2's kernel with an LN1 prologue is also the backward's step b (K3.b
+// `spa_ln_qkv`, `lft_spa_ln_qkv` below): it recomputes xn, q, k, v from tok
+// as steps 1 and 2 computed them, bit for bit.
+//
 // K11, the same forward on a pixel-major buffer x [Bb, h, w, A2, C] ->
 // [Bb, h, w, A2, C] (replaces lft_tpu/kernels/spa_block.py:_fwd_call with
 // pixel_major=True, whose BlockSpec gathers each (batch, view) plane out of
@@ -113,17 +117,68 @@ __device__ __forceinline__ void warp_rows(float* aw, const float* __restrict__ s
   cp_async_commit();
 }
 
+// What a pass does to the warp's 16 rows of a tile [t0, t0 + 16) once they
+// have landed, before its product: nothing (K2.2, K2.4) or K3.b's LN1.
+struct NoRows {
+  __device__ __forceinline__ void operator()(float*, int, int) const {}
+};
+
+// K3.b's prologue: the rows, tok, become xn = LN1(tok + pe_tok[t % hw]) in
+// place with K2.1's epilogue arithmetic (RowLN, one warp a row, as
+// tokenize.cuh's tap_conv_kernel normalises tok), so the pass's product
+// reads xn, and xn is written to device memory (rows < T). With tok from
+// K2.1 the rows are K2.1's xn bit for bit, and the product K2.2's. All 16
+// rows' loads go out before the first row's sums, and their 32 warp sums
+// interleave: row by row, each waiting on its pe_tok loads and then on its
+// two dependent sums, the prologue took K3.b from K2.2's 0.15 ms to 0.22 at
+// [100, 32, 32, 64] on an H100. Pad rows past T are normalised too (their
+// pe_tok row exists; their products are not stored).
+template <int D>
+struct Ln1Rows {
+  const float* pe_tok;   // [hw, D]
+  const float* ln;       // LN1 weight, then bias
+  float* xn;             // [T, D]
+  int hw;
+  __device__ __forceinline__ void operator()(float* aw, int t0, int T) const {
+    using RL = RowLN<D>;
+    constexpr int LDX = D + 4;
+    float v[16][RL::E];
+    int p = t0 % hw;   // token t0's row of pe_tok
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const float* pe = pe_tok + static_cast<size_t>(p) * D;
+#pragma unroll
+      for (int e = 0; e < RL::E; ++e)
+        if (RL::valid(e)) v[r][e] = aw[r * LDX + RL::col(e)] + __ldg(pe + RL::col(e));
+      p = p + 1 == hw ? 0 : p + 1;
+    }
+#pragma unroll
+    for (int r = 0; r < 16; ++r) RL::apply(v[r], ln, ln + D);
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+#pragma unroll
+      for (int e = 0; e < RL::E; ++e)
+        if (RL::valid(e)) {
+          aw[r * LDX + RL::col(e)] = v[r][e];
+          if (t0 + r < T) xn[static_cast<size_t>(t0 + r) * D + RL::col(e)] = v[r][e];
+        }
+    __syncwarp();   // the product reads other lanes' columns
+  }
+};
+
 // Loads the split weight w (RowProj::SQ floats) into shared memory and the
 // warps' rows of the block's first tile of a, then out = a W over the
 // block's tiles. LN (step 4): out = a W + res, and out_ln = LN(out) with
-// weight lw, bias lb. Ends with every warp past its last read of W.
-template <int C, bool LN>
+// weight lw, bias lb. `rows` runs on each tile's rows before its product.
+// Ends with every warp past its last read of W.
+template <int C, bool LN, class Rows = NoRows>
 __device__ __forceinline__ void row_pass(const float* __restrict__ a,
                                          const float* __restrict__ w, float* __restrict__ out,
                                          const float* __restrict__ res,
                                          const float* __restrict__ lw,
                                          const float* __restrict__ lb,
-                                         float* __restrict__ out_ln, float* smem, int T) {
+                                         float* __restrict__ out_ln, float* smem, int T,
+                                         Rows rows = {}) {
   using L = RowProj<C>;
   constexpr int D = L::D, LDX = L::LDX;
   const int warp = threadIdx.x >> 5;
@@ -139,6 +194,7 @@ __device__ __forceinline__ void row_pass(const float* __restrict__ a,
   const float* st = nullptr;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int t0 = tile * RG_M + 16 * warp;   // the warp's first token
+    rows(aw, t0, T);
     RgAcc<D> acc;
     rg_zero<D>(acc);
     rg_product<D, D, 0>(acc, aw, LDX, wr, st);
@@ -172,16 +228,29 @@ __device__ __forceinline__ void row_pass(const float* __restrict__ a,
   __syncthreads();
 }
 
-// Step 2. wf: Wq, Wk, Wv split (3 RowProj::SQ floats, kernels/rowgemm.py:
-// qkv_stream), written by rg_weights_kernel.
-template <int C>
+// Step 2 (LN1 false), and K3.b (LN1 true: spa_block_bwd.cu's step b, which
+// recomputes xn, q, k, v from tok). wf: Wq, Wk, Wv split (3 RowProj::SQ
+// floats, kernels/rowgemm.py:qkv_stream), written by rg_weights_kernel.
+// K3.b's pass q reads tok and runs the LN1 prologue (`Ln1Rows`), which
+// writes xn (ln1.xn, the buffer `xn` points to); pass k reads that xn back
+// (each warp the rows it wrote; 52 MB more at [100, 32, 32, 64], as K2.2
+// reads xn twice), pass v reads tok. So K3.b's (xn, q, k, v) are K2.1's xn
+// and K2.2's (q, k, v) bit for bit, and step c's scores from them are
+// K2.3's, which the forward's (m, l) fit exactly.
+// Bound of K3.b at [100, 32, 32, 64] (T = 102,400, D = 128): 10.07 GFLOP,
+// 0.061 ms as 3 TF32 products at 495 TFLOP/s (0.150 on the FP32 pipes); tok
+// and pe_tok in, xn, q, k, v out, 262.9 MB, 0.0785 ms at 3.35 TB/s: bytes.
+template <int C, bool LN1>
 __global__ void __launch_bounds__(RG_NT, 1)
-    spa_qkv_kernel(const float* __restrict__ xn, const float* __restrict__ tok,
+    spa_qkv_kernel(const float* xn, const float* __restrict__ tok,
                    const float* __restrict__ wf, float* __restrict__ q,
-                   float* __restrict__ k, float* __restrict__ v, int T) {
+                   float* __restrict__ k, float* __restrict__ v, int T, Ln1Rows<2 * C> ln1) {
   constexpr int SQ = RowProj<C>::SQ;
   extern __shared__ __align__(16) float smem[];
-  row_pass<C, false>(xn, wf, q, nullptr, nullptr, nullptr, nullptr, smem, T);
+  if constexpr (LN1)
+    row_pass<C, false>(tok, wf, q, nullptr, nullptr, nullptr, nullptr, smem, T, ln1);
+  else
+    row_pass<C, false>(xn, wf, q, nullptr, nullptr, nullptr, nullptr, smem, T);
   row_pass<C, false>(xn, wf + SQ, k, nullptr, nullptr, nullptr, nullptr, smem, T);
   row_pass<C, false>(tok, wf + 2 * SQ, v, nullptr, nullptr, nullptr, nullptr, smem, T);
 }
@@ -372,14 +441,14 @@ extern "C" int lft_spa_tokenize_ln_pm(const float* x, const float* pe_tok, const
                            static_cast<cudaStream_t>(stream));
 }
 
-// Step 2: wf is a scratch of 3 RowProj<C>::SQ floats (kernels/rowgemm.py:
-// qkv_floats), Wq, Wk, Wv split into TF32 hi/lo by the launch's first
-// kernel.
-extern "C" int lft_spa_qkv(const float* xn, const float* tok, const float* wqk,
-                           const float* wv, float* wf, float* q, float* k, float* v, int T,
-                           int C, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
+namespace {
+
+// Step 2 or (LN1) K3.b: the weights split into wf, then spa_qkv_kernel.
+template <bool LN1>
+int qkv(const float* xn, const float* tok, const float* wqk, const float* wv, float* wf,
+        float* q, float* k, float* v, int T, int C, const float* pe_tok, const float* ln,
+        float* xn_out, int hw, cudaStream_t s) {
+  if (T < 1 || hw < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
     using L = RowProj<CC>;
     RgPieces ps{};
@@ -387,11 +456,34 @@ extern "C" int lft_spa_qkv(const float* xn, const float* tok, const float* wqk,
     ps.p[1] = RgPiece{wqk + L::D, 2 * L::D, L::D, L::D, L::SQ};
     ps.p[2] = RgPiece{wv, L::D, L::D, L::D, 2 * L::SQ};
     launch_rg_weights(ps, 3, wf, s);
-    auto kernel = spa_qkv_kernel<CC>;
+    auto kernel = spa_qkv_kernel<CC, LN1>;
     LFT_SET_SMEM(kernel, L::BYTES);
-    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(xn, tok, wf, q, k, v, T);
+    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(
+        LN1 ? xn_out : xn, tok, wf, q, k, v, T, Ln1Rows<L::D>{pe_tok, ln, xn_out, hw});
   });
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Step 2: wf is a scratch of 3 RowProj<C>::SQ floats (kernels/rowgemm.py:
+// qkv_floats), Wq, Wk, Wv split into TF32 hi/lo by the launch's first
+// kernel.
+extern "C" int lft_spa_qkv(const float* xn, const float* tok, const float* wqk,
+                           const float* wv, float* wf, float* q, float* k, float* v, int T,
+                           int C, void* stream) {
+  return qkv<false>(xn, tok, wqk, wv, wf, q, k, v, T, C, nullptr, nullptr, nullptr, 1,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// K3.b (the backward's step b): tok [T, D], pe_tok [hw, D], ln [4, D] (LN1's
+// rows first) -> xn, q, k, v [T, D]; wf as lft_spa_qkv's.
+extern "C" int lft_spa_ln_qkv(const float* tok, const float* pe_tok, const float* ln,
+                              const float* wqk, const float* wv, float* wf, float* xn,
+                              float* q, float* k, float* v, int T, int hw, int C,
+                              void* stream) {
+  return qkv<true>(nullptr, tok, wqk, wv, wf, q, k, v, T, C, pe_tok, ln, xn, hw,
+                   static_cast<cudaStream_t>(stream));
 }
 
 namespace {

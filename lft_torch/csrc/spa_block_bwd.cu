@@ -8,11 +8,15 @@
 //                         hid = relu(xn2 W1), y = hid W2 + x2; then
 //                         dy = dout Wlinᵀ, dpre = (hid > 0) dy W2ᵀ,
 //                         dx2 = dy + LN2ᵀ(dpre W1ᵀ), dattn = dx2 Woᵀ
-//   b spa_ln_qkv          recompute xn = LN1(tok + pe_tok), q, k, v
-//   c spa_window_attn_bwd dq per query over its window; dk, dv per key as a
-//                         GATHER over the <= 25 queries whose 5x5 window
-//                         holds it (the window is symmetric), with
-//                         dsum_i = dattn_i . attn_i
+//   b spa_ln_qkv          recompute xn = LN1(tok + pe_tok), q, k, v: K2.2's
+//                         kernel with an LN1 prologue (spa_block.cu,
+//                         spa_qkv_kernel<C, true>), so they are the
+//                         forward's bit for bit
+//   c spa_window_attn_bwd dq, dk, dv from (q, k, v, m, l, dattn): K5's
+//                         backward (spa_attn_hp.cu: pass q dq and D =
+//                         sum_j p_j dp_j, pass kv dk and dv as a gather over
+//                         the <= 25 queries whose 5x5 window holds a key);
+//                         the saved attn is not read
 //   d spa_qkv_ln_bwd      dxn = dq Wqᵀ + dk Wkᵀ, dtokpe = LN1ᵀ(dxn),
 //                         dtok = dx2 + dv Wvᵀ + dtokpe (rowbwd.cuh: 3xTF32
 //                         on the tensor cores, shared with K4's step c)
@@ -31,21 +35,18 @@
 // gather (each output element is written by exactly one thread) and every
 // sum over tokens goes through the deterministic reductions: no atomics.
 // Out-of-image keys are skipped exactly as spa_window_attn skips them.
-// Step a recomputes x2 and xn2 with K2.4's own pass arithmetic (rowgemm.cuh:
-// the product, + tok, quad_ln), so they equal the forward's bit for bit.
-// Step b does not yet do so for q, k and v: it runs its products with
-// gemm_acc on the FP32 pipes, where K2.2 runs them 3xTF32 on the tensor
-// cores, so step c's scores from step b's q and k differ from the
-// forward's at the f32 rounding level, and p = exp(s - m) / l with the
-// forward's (m, l) by as much (within the kernels' bounds). Moving step b
-// onto row_pass, behind an LN1 prologue, would restore the identity.
+// Steps a and b recompute x2, xn2 and xn, q, k, v with the forward's own
+// arithmetic (K2.4's pass; K2.1's LN1 and K2.2's passes), so they equal
+// the forward's bit for bit, and step c's scores from step b's q and k are
+// K2.3's: the forward's (m, l) fit them exactly.
 //
 // Bound on this card: ~48 D^2 + 250 D FLOP a token in steps a-d without
 // the weight grads (~84 GFLOP at [100, 32, 32, 64], 1.3 ms at 67 TFLOP/s
 // FP32); the operand tensors add ~1.5 GB of traffic (~0.45 ms): operations.
-// Steps a (21 D^2 of those), d (6 D^2) and e (14.5 GFLOP) run 3xTF32 on the
-// tensor cores (rowgemm.cuh, rowbwd.cuh, tokenize.cuh); steps b and c on
-// the FP32 pipes.
+// Steps a (21 D^2 of those), b and d (6 D^2 each) and e (14.5 GFLOP) run
+// 3xTF32 on the tensor cores (rowgemm.cuh, rowbwd.cuh, tokenize.cuh); step
+// c, a gather of 5x5 windows, on the FP32 pipes. This file holds steps a, d
+// and e; b and c are launched from spa_block.cu and spa_attn_hp.cu.
 
 #include "rowbwd.cuh"
 #include "spa.cuh"
@@ -383,187 +384,11 @@ __global__ void __launch_bounds__(RG_NT, 1)
 }
 
 // ---- b: recompute xn = LN1(tok + pe_tok), q, k, v -------------------------
-template <int C>
-__global__ void __launch_bounds__(NT)
-    spa_ln_qkv_kernel(const float* __restrict__ tok, const float* __restrict__ pe_tok,
-                      const float* __restrict__ ln, const float* __restrict__ wqk,
-                      const float* __restrict__ wv, float* __restrict__ xn,
-                      float* __restrict__ q, float* __restrict__ k, float* __restrict__ v,
-                      int T, int hw) {
-  using S = Spa<C>;
-  constexpr int D = S::D, LDD = S::LDD;
-  using LN = RowLN<D>;
-  extern __shared__ float4 smem4[];
-  float* TK = reinterpret_cast<float*>(smem4);
-  float* XN = TK + BM * LDD;
-  const int warp = threadIdx.x >> 5;
-  const int t0 = blockIdx.x * BM;
-  load_rows<D>(TK, LDD, tok, t0, T);
-  __syncthreads();
-  for (int r = warp; r < BM; r += NT / 32) {
-    const int t = t0 + r;
-    const float* pe = pe_tok + static_cast<size_t>(t % hw) * D;
-    float val[LN::E];
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) val[e] = TK[r * LDD + LN::col(e)] + __ldg(pe + LN::col(e));
-    LN::apply(val, ln, ln + D);
-#pragma unroll
-    for (int e = 0; e < LN::E; ++e)
-      if (LN::valid(e)) {
-        XN[r * LDD + LN::col(e)] = val[e];
-        if (t < T) xn[static_cast<size_t>(t) * D + LN::col(e)] = val[e];
-      }
-  }
-  __syncthreads();
-  {
-    Acc<BM, 2 * D> acc;
-    zero_acc<BM, 2 * D>(acc);
-    gemm_acc<BM, D, 2 * D>(acc, XN, LDD, wqk);
-    for_tiles<BM, 2 * D>(acc, [&](int r, int c, float4 val) {
-      const int t = t0 + r;
-      if (t >= T) return;
-      if (c < D) store4(q + static_cast<size_t>(t) * D + c, val);
-      else store4(k + static_cast<size_t>(t) * D + c - D, val);
-    });
-  }
-  {
-    Acc<BM, D> acc;
-    zero_acc<BM, D>(acc);
-    gemm_acc<BM, D, D>(acc, TK, LDD, wv);
-    for_tiles<BM, D>(acc, [&](int r, int c, float4 val) {
-      const int t = t0 + r;
-      if (t < T) store4(v + static_cast<size_t>(t) * D + c, val);
-    });
-  }
-}
+// spa_qkv_kernel<C, true> (spa_block.cu, lft_spa_ln_qkv).
 
-// ---- c: 5x5-window attention backward, one head of one 16 x 16 tile ------
-// The block stages the tile's (16+4)^2 halo of q, k, v and dattn for its
-// head, with m, l and dsum. Thread (ly, lx) owns pixel (y, x): as a query
-// it sums dq over the keys of its window, as a key it gathers dk, dv from
-// the queries whose window holds it (the same 5x5 neighbourhood).
-template <int DH>
-__global__ void __launch_bounds__(NT)
-    spa_window_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, const float* __restrict__ attn,
-                               const float* __restrict__ dattn,
-                               const float* __restrict__ m_in,
-                               const float* __restrict__ l_in, float* __restrict__ dq_out,
-                               float* __restrict__ dk_out, float* __restrict__ dv_out,
-                               int h, int w, int D, float scale) {
-  constexpr int KS = DH + 4;
-  constexpr int NH = HH * HW;
-  extern __shared__ float4 smem4[];
-  float* QT = reinterpret_cast<float*>(smem4);   // [NH][KS] each
-  float* KT = QT + NH * KS;
-  float* VT = KT + NH * KS;
-  float* GT = VT + NH * KS;                       // dattn
-  float* MT = GT + NH * KS;                       // [NH] each
-  float* LT = MT + NH;
-  float* ST = LT + NH;                            // dsum
-  const int H = gridDim.y;
-  const int ntw = (w + TW - 1) / TW;
-  const int y0 = (blockIdx.x / ntw) * TH, x0 = (blockIdx.x % ntw) * TW;
-  const int head = blockIdx.y;
-  const size_t view = static_cast<size_t>(blockIdx.z) * h * w;
-
-  for (int i = threadIdx.x; i < NH * (DH / 4); i += NT) {
-    const int key = i / (DH / 4), d = 4 * (i % (DH / 4));
-    const int ky = y0 - R + key / HW, kx = x0 - R + key % HW;
-    float4 qv = make_float4(0.f, 0.f, 0.f, 0.f), kv = qv, vv = qv, gv = qv;
-    if (ky >= 0 && ky < h && kx >= 0 && kx < w) {
-      const size_t off = (view + static_cast<size_t>(ky) * w + kx) * D + head * DH + d;
-      qv = ldg4(q + off);
-      kv = ldg4(k + off);
-      vv = ldg4(v + off);
-      gv = ldg4(dattn + off);
-    }
-    store4(QT + key * KS + d, qv);
-    store4(KT + key * KS + d, kv);
-    store4(VT + key * KS + d, vv);
-    store4(GT + key * KS + d, gv);
-  }
-  for (int key = threadIdx.x; key < NH; key += NT) {
-    const int ky = y0 - R + key / HW, kx = x0 - R + key % HW;
-    float mv = 0.f, lv = 1.f, sv = 0.f;
-    if (ky >= 0 && ky < h && kx >= 0 && kx < w) {
-      const size_t pix = view + static_cast<size_t>(ky) * w + kx;
-      mv = __ldg(m_in + pix * H + head);
-      lv = __ldg(l_in + pix * H + head);
-      const float* ar = attn + pix * D + head * DH;
-      const float* gr = dattn + pix * D + head * DH;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) sv = fmaf(__ldg(gr + d), __ldg(ar + d), sv);
-    }
-    MT[key] = mv;
-    LT[key] = lv;
-    ST[key] = sv;
-  }
-  __syncthreads();
-
-  const int ly = threadIdx.x / TW, lx = threadIdx.x % TW;
-  const int y = y0 + ly, x = x0 + lx;
-  if (y >= h || x >= w) return;
-  const int me = (ly + R) * HW + (lx + R);
-  float qs[DH], kme[DH], vme[DH], gme[DH], dq[DH], dk[DH], dv[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    qs[d] = QT[me * KS + d] * scale;
-    kme[d] = KT[me * KS + d];
-    vme[d] = VT[me * KS + d];
-    gme[d] = GT[me * KS + d];
-    dq[d] = dk[d] = dv[d] = 0.f;
-  }
-  const float m_me = MT[me], l_me = LT[me], s_me = ST[me];
-  for (int dy = -R; dy <= R; ++dy) {
-    if (y + dy < 0 || y + dy >= h) continue;
-    for (int dx = -R; dx <= R; ++dx) {
-      if (x + dx < 0 || x + dx >= w) continue;
-      const int o = me + dy * HW + dx;
-      const float* kr = KT + o * KS;
-      const float* vr = VT + o * KS;
-      const float* qr = QT + o * KS;
-      const float* gr = GT + o * KS;
-      // me as the query, o as the key (the forward's score arithmetic)
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        s = fmaf(qs[d], kr[d], s);
-        dp = fmaf(gme[d], vr[d], dp);
-      }
-      float p = expf(s - m_me) / l_me;
-      float g = p * (dp - s_me);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) dq[d] = fmaf(g, kr[d], dq[d]);
-      // o as the query, me as the key
-      float qo[DH];
-      s = 0.f;
-      dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        qo[d] = qr[d] * scale;
-        s = fmaf(qo[d], kme[d], s);
-        dp = fmaf(gr[d], vme[d], dp);
-      }
-      p = expf(s - MT[o]) / LT[o];
-      g = p * (dp - ST[o]);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        dk[d] = fmaf(g, qo[d], dk[d]);
-        dv[d] = fmaf(p, gr[d], dv[d]);
-      }
-    }
-  }
-  const size_t off = (view + static_cast<size_t>(y) * w + x) * D + head * DH;
-#pragma unroll
-  for (int d = 0; d < DH; d += 4) {
-    store4(dq_out + off + d, make_float4(dq[d] * scale, dq[d + 1] * scale,
-                                         dq[d + 2] * scale, dq[d + 3] * scale));
-    store4(dk_out + off + d, make_float4(dk[d], dk[d + 1], dk[d + 2], dk[d + 3]));
-    store4(dv_out + off + d, make_float4(dv[d], dv[d + 1], dv[d + 2], dv[d + 3]));
-  }
-}
+// ---- c: 5x5-window attention backward --------------------------------------
+// spa_attn_hp_bwd_q_kernel<DH> and spa_attn_hp_bwd_kv_kernel<DH>
+// (spa_attn_hp.cu, lft_spa_attn_hp_bwd) with dout = dattn.
 
 // ---- d: projections and LN1 backward ---------------------------------------
 // qkv_ln_bwd_kernel<D> (rowbwd.cuh), with pe_tok indexed t % hw and dtokpe.
@@ -621,47 +446,6 @@ extern "C" int lft_spa_ffn_out_bwd(const float* attn, const float* tok, const fl
     kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(
         attn, tok, dout, ln, wf, dx2, dattn, y, dy, hid, dpre, xn2, ln_part, T);
   });
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int lft_spa_ln_qkv(const float* tok, const float* pe_tok, const float* ln,
-                              const float* wqk, const float* wv, float* xn, float* q,
-                              float* k, float* v, int T, int hw, int C, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  LFT_DISPATCH_C(C, {
-    auto kernel = spa_ln_qkv_kernel<CC>;
-    const size_t bytes = 2 * BM * Spa<CC>::LDD * sizeof(float);
-    LFT_SET_SMEM(kernel, bytes);
-    kernel<<<blocks(T), NT, bytes, s>>>(tok, pe_tok, ln, wqk, wv, xn, q, k, v, T, hw);
-  });
-  return static_cast<int>(cudaGetLastError());
-}
-
-// q, k, v, attn, dattn, dq, dk, dv [V, h, w, D]; m, l [V, h, w, H].
-extern "C" int lft_spa_window_attn_bwd(const float* q, const float* k, const float* v,
-                                       const float* attn, const float* dattn,
-                                       const float* m, const float* l, float* dq,
-                                       float* dk, float* dv, int V, int h, int w, int D,
-                                       int H, float scale, void* stream) {
-  if (H != 8) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(((h + TH - 1) / TH) * ((w + TW - 1) / TW), H, V);
-  switch (D / H) {
-#define LFT_ATTN_CASE(DHV)                                                      \
-    case DHV: {                                                                 \
-      auto kernel = spa_window_attn_bwd_kernel<DHV>;                            \
-      const size_t bytes = HH * HW * (4 * (DHV + 4) + 3) * sizeof(float);       \
-      LFT_SET_SMEM(kernel, bytes);                                              \
-      kernel<<<grid, NT, bytes, s>>>(q, k, v, attn, dattn, m, l, dq, dk, dv, h, w, D, \
-                                     scale);                                    \
-      break;                                                                    \
-    }
-    LFT_ATTN_CASE(4)
-    LFT_ATTN_CASE(8)
-    LFT_ATTN_CASE(16)
-#undef LFT_ATTN_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -201,23 +201,26 @@ def spa_attn_hp_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = Fals
     return out, m, l
 
 
-def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int, with_dsum: bool = False):
-    """K5's backward (`spa_attn_hp_bwd`): (dq, dk, dv) [B, h, w, E]; with_dsum
-    also D [B, h, w, H], the scratch pass q hands to pass kv."""
+def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int, with_dsum: bool = False,
+                    kernel: str = "spa_attn_hp_bwd"):
+    """K5's backward: (dq, dk, dv) [B, h, w, E]; with_dsum also D [B, h, w,
+    H], the scratch pass q hands to pass kv. `kernel`: the name the launch
+    is counted under (the fused SpaTrans backward's step c launches it as
+    `spa_window_attn_bwd`)."""
     if q.device.type != "cuda":
         grads = windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout, num_heads, ksize)
         if not with_dsum:
             return grads
         return (*grads, windowed_attention_headpacked_dsum_plain(q, k, v, m, l, dout, num_heads,
                                                                  ksize))
-    _check_shape("spa_attn_hp_bwd", q, num_heads, ksize)
-    _build.check_cuda_args("spa_attn_hp_bwd", q, k, v, dout, m, l)
+    _check_shape(kernel, q, num_heads, ksize)
+    _build.check_cuda_args(kernel, q, k, v, dout, m, l)
     B, h, w, E = q.shape
     dsum = torch.empty(B, h, w, num_heads, device=q.device)
     outs = tuple(torch.empty_like(q) for _ in range(3))
     fn = _build.bind("spa_attn_hp", "lft_spa_attn_hp_bwd", 10,
                      (ctypes.c_int,) * 5 + (ctypes.c_float,))
-    _build.launch("spa_attn_hp", "spa_attn_hp_bwd", fn, q.device,
+    _build.launch("spa_attn_hp", kernel, fn, q.device,
                   *(t.data_ptr() for t in (q, k, v, dout, m, l, dsum, *outs)),
                   B, h, w, E, num_heads, float(E // num_heads) ** -0.5)
     return (*outs, dsum) if with_dsum else outs

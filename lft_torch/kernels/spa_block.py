@@ -19,13 +19,15 @@ denominator l, and saves x, tok, m, l and attn. The backward (K3,
 
   a ffn_out_bwd     recompute x2, xn2, hid, y from attn and tok; Token2SAI,
                     FFN and LN2 backward -> dx2, dattn = dx2 Woᵀ
-  b ln_qkv          recompute xn = LN1(tok + pe_tok), q, k, v
+  b ln_qkv          recompute xn = LN1(tok + pe_tok), q, k, v (step 2's
+                    kernel with an LN1 prologue: the forward's bit for bit)
   c window_attn_bwd dq per query; dk, dv per key as a gather over the <= 25
-                    queries whose window holds it
+                    queries whose window holds it (K5's backward,
+                    `csrc/spa_attn_hp.cu`, under K3's name)
   d qkv_ln_bwd      dxn = dq Wqᵀ + dk Wkᵀ, LN1 backward, dtok
   e tokenize_bwd    dx as a gather over the 9 transposed taps
 
-Steps 2, 4, 5, a and d run their products 3xTF32 on the tensor cores as
+Steps 2, 4, 5, a, b and d run their products 3xTF32 on the tensor cores as
 row-tile products (`wgmma`, `lft_torch/csrc/rowgemm.cuh`; their weights
 prepared as `kernels/rowgemm.py` sets out; step d is K4's step c at width
 2C, `csrc/rowbwd.cuh`). Steps 1 and e are one implicit GEMM,
@@ -66,7 +68,7 @@ from lft_torch.kernels.rowgemm import (RG_M, ffn_out_bwd_floats, ffn_out_floats,
                                        outproj_floats, piece, qkv_floats, qkv_ln_bwd_floats,
                                        split_tf32)
 from lft_torch.kernels.spa_attn_hp import (_gather_window, _hp_geometry_exists,
-                                           _scatter_window, _window_probs)
+                                           _scatter_window, _window_probs, spa_attn_hp_bwd)
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import windowed_attention
 from lft_torch.ops.unfold import unfold3x3_linear
@@ -502,12 +504,11 @@ def _bwd_weights(wts: dict) -> dict:
     return dict(wlinT=t(wts["wlin"]), w2T=t(wts["w2"]), w1T=t(wts["w1"]), woT=t(wts["wo"]))
 
 
-def _launch(kernel: str, fn_name: str, ins, outs, ints, dev, floats=()):
+def _launch(kernel: str, fn_name: str, ins, outs, ints, dev):
     _build.check_cuda_args(kernel, *ins)
-    fn = _build.bind("spa_block_bwd", fn_name, len(ins) + len(outs),
-                     (ctypes.c_int,) * len(ints) + (ctypes.c_float,) * len(floats))
+    fn = _build.bind("spa_block_bwd", fn_name, len(ins) + len(outs), (ctypes.c_int,) * len(ints))
     _build.launch("spa_block_bwd", kernel, fn, dev, *(t.data_ptr() for t in (*ins, *outs)),
-                  *ints, *floats)
+                  *ints)
 
 
 def ffn_out_bwd_tiles(T: int) -> int:
@@ -545,27 +546,40 @@ def ffn_out_bwd(attn, tok, dout, wts):
 
 
 def ln_qkv(tok, pe_tok, wts):
-    """Step b: recompute (xn, q, k, v) [V, h, w, D] from tok and pe_tok."""
+    """Step b: recompute (xn, q, k, v) [V, h, w, D] from tok and pe_tok. On
+    the card K2.2's kernel with an LN1 prologue (`csrc/spa_block.cu`:
+    `spa_qkv_kernel<C, true>`): xn = LN1(tok + pe_tok) as K2.1 computes it,
+    then q, k, v as K2.2 computes them, the weights split by the launch's
+    first kernel into a scratch of `rowgemm.qkv_stream`'s layout. With tok
+    from K2.1 all four are the forward's bit for bit."""
     if tok.device.type != "cuda":
         return ln_qkv_plain(tok, pe_tok, wts)
     V, h, w, D = tok.shape
     _check_c("spa_ln_qkv", D // 2)
+    if tuple(pe_tok.shape) != (h, w, D) or tuple(wts["wqk"].shape) != (D, 2 * D) \
+            or tuple(wts["wv"].shape) != (D, D):
+        raise ValueError(f"spa_ln_qkv: tok {tuple(tok.shape)}, pe_tok {tuple(pe_tok.shape)}, "
+                         f"wqk {tuple(wts['wqk'].shape)}, wv {tuple(wts['wv'].shape)}")
+    _build.check_cuda_args("spa_ln_qkv", tok, pe_tok, wts["ln"], wts["wqk"], wts["wv"])
     outs = tuple(torch.empty_like(tok) for _ in range(4))
-    _launch("spa_ln_qkv", "lft_spa_ln_qkv", (tok, pe_tok, wts["ln"], wts["wqk"], wts["wv"]),
-            outs, (V * h * w, h * w, D // 2), tok.device)
+    wf = torch.empty(qkv_floats(D // 2), device=tok.device)   # scratch: the split weights
+    fn = _build.bind("spa_block", "lft_spa_ln_qkv", 10, (ctypes.c_int,) * 3)
+    _build.launch("spa_block", "spa_ln_qkv", fn, tok.device,
+                  *(t.data_ptr() for t in (tok, pe_tok, wts["ln"], wts["wqk"], wts["wv"], wf,
+                                           *outs)), V * h * w, h * w, D // 2)
     return outs
 
 
 def window_attn_bwd(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int):
-    """Step c: (dq, dk, dv) [V, h, w, D] from the saved (m, l)."""
+    """Step c: (dq, dk, dv) [V, h, w, D] from the saved (m, l). On the card
+    K5's backward (`spa_attn_hp.spa_attn_hp_bwd`: pass q, dq and D = sum_j
+    p_j dp_j; pass kv, dk and dv) with dout = dattn, counted as
+    `spa_window_attn_bwd`: `attn` is not read there (the plain version forms
+    D from it)."""
     if q.device.type != "cuda":
         return window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads, ksize)
-    V, h, w, D = q.shape
-    _check_window("spa_window_attn_bwd", D, num_heads, ksize)
-    outs = tuple(torch.empty_like(q) for _ in range(3))
-    _launch("spa_window_attn_bwd", "lft_spa_window_attn_bwd", (q, k, v, attn, dattn, m, l),
-            outs, (V, h, w, D, num_heads), q.device, (float(D // num_heads) ** -0.5,))
-    return outs
+    _check_window("spa_window_attn_bwd", q.shape[-1], num_heads, ksize)
+    return spa_attn_hp_bwd(q, k, v, m, l, dattn, num_heads, ksize, kernel="spa_window_attn_bwd")
 
 
 def qkv_ln_bwd(tok, pe_tok, dq, dk, dv, dx2, wts):

@@ -168,6 +168,50 @@ def test_spa_res_and_bwd_kernels(cuda_device, C, h, w):
     _close(got, spa_block.spa_block_bwd_plain(x, pe_tok, wts_m, tok, m, l, attn, dout, 8, 5))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,h,w", [(16, 20, 12), (32, 9, 7), (64, 32, 32), (64, 17, 40)])
+def test_k3b_k3c_recompute_the_forward_bitwise(cuda_device, C, h, w):
+    """K3.b from K2.1's tok (the kernel's): its (xn, q, k, v) equal K2.1's xn
+    and K2.2's (q, k, v) bit for bit, one launch. K3.c on them with K2.3
+    res's (m, l): (dq, dk, dv) equal `spa_attn_hp_bwd`'s bit for bit (it is
+    K5's backward, one launch counted as `spa_window_attn_bwd`), repeat
+    bitwise, and against float64 (from the float64 forward's (m, l)) are
+    within twice the f32 plain version's error (from its own)."""
+    p = _params(C, cuda_device, seed=h + 1)
+    wts = spa_block.spa_weights(p, "altblock.2.spa_trans.")
+    g = torch.Generator(device=cuda_device).manual_seed(C + h + w)
+    x = torch.randn(3, h, w, C, device=cuda_device, generator=g)
+    pe_tok = torch.randn(h, w, 2 * C, device=cuda_device, generator=g)
+    dattn = torch.randn(3, h, w, 2 * C, device=cuda_device, generator=g)
+    tok, xn = spa_block.tokenize_ln(x, pe_tok, wts)
+    fwd = (xn, *spa_block.qkv(xn, tok, wts))
+    reset_launches()
+    got = spa_block.ln_qkv(tok, pe_tok, wts)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spa_ln_qkv"] == 1 and sum(LAUNCHES.values()) == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, fwd))
+    _close(got, spa_block.ln_qkv_plain(tok, pe_tok, wts), 1e-4)
+    q, k, v = got[1:]
+    attn, m, l = spa_block.window_attn(q, k, v, 8, 5, with_stats=True)
+    reset_launches()
+    c = spa_block.window_attn_bwd(q, k, v, attn, dattn, m, l, 8, 5)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spa_window_attn_bwd"] == 1 and sum(LAUNCHES.values()) == 1
+    assert all(torch.equal(a, b) for a, b in
+               zip(c, spa_attn_hp.spa_attn_hp_bwd(q, k, v, m, l, dattn, 8, 5)))
+    assert all(torch.equal(a, b) for a, b in
+               zip(c, spa_block.window_attn_bwd(q, k, v, attn, dattn, m, l, 8, 5)))
+    _close(c, spa_block.window_attn_bwd_plain(q, k, v, attn, dattn, m, l, 8, 5))
+    a_p, m_p, l_p = spa_block.window_attn_plain(q, k, v, 8, 5)
+    ref = spa_block.window_attn_bwd_plain(q, k, v, a_p, dattn, m_p, l_p, 8, 5)
+    x64 = [t.double() for t in (q, k, v)]
+    a64, m64, l64 = spa_block.window_attn_plain(*x64, 8, 5)
+    exact = spa_block.window_attn_bwd_plain(*x64, a64, dattn.double(), m64, l64, 8, 5)
+    for u, r, e in zip(c, ref, exact):
+        err, err_f32, _ = _f64_err(u, r, e)
+        assert err <= 2 * err_f32, (err, err_f32)
+
+
 # every product of a fused 5x5 train step (batch 4, C = 64: T = 102,400; at
 # angRes 9 T = 82,944), then ragged ones: T no slice or slab divides, K and N
 # multiples of 4 but not of the 128 x 128 (64 x 32 with taps) tile

@@ -133,8 +133,8 @@ def test_window_python_geometry_mirrors_the_source():
     ld = sb.WA_G + 4
     banks = {(4 * (p * ld // 4)) % 32 for p in range(8)}
     assert banks == set(range(0, 32, 4)) and (ld * 4) % 16 == 0
-    # K3.b-d keep spa.cuh's tile constants
-    assert "constexpr int TH = 16, TW = 16, R = 2;" in (CSRC / "spa.cuh").read_text()
+    # the window's radius, which K2.3 and K5 take from spa.cuh
+    assert "constexpr int R = 2;" in (CSRC / "spa.cuh").read_text()
 
 
 def _window_emulated(q, k, v, num_heads=H):
