@@ -70,8 +70,10 @@
     window steps at the same shape; K5's forward (K2.3's kernel) must equal
     K2.3's window step bit for bit, and K5's backward (from K5 res's m and
     l) keep dq, dk and dv within twice the f32 plain version's error
-    against float64 and repeat bitwise;
-12. holds K7 against its plain version at A2 = 81 (9x9 views), and trains at
+    against float64 and repeat bitwise; so must K7's outputs (out; out, m,
+    l; dq, dk, dv from K7 res's own m and l);
+12. holds K7 against its plain version at A2 = 81 (9x9 views), its outputs
+    against float64 as in step 11, and trains at
     angRes 9 (batch 4 of 16x16-view patches) through `make_train_step`: with
     `--train_fused true` the fused blocks take it, 4 `ang_block_res` and 4
     `ang_block_bwd128` launches a step (K4 counted past 64 views) beside
@@ -303,9 +305,10 @@ def nbytes(*ts):
 
 
 def f64_check(name: str, got, ref, exact, repeats: bool) -> None:
-    """A kernel that runs its products 3xTF32 on the tensor cores: its max
-    error against float64 must be at most twice the f32 plain version's
-    (TF32 off), and a second call must equal the first bit for bit."""
+    """A kernel (its products 3xTF32 on the tensor cores, or on the FP32
+    pipes): its max error against float64 must be at most twice the f32
+    plain version's (TF32 off), and a second call must equal the first bit
+    for bit."""
     e_k, e_f32 = (float((t.double() - exact).abs().max()) for t in (got, ref))
     print(f"  {name}: max |kernel - float64| {e_k:.3e}, max |f32 plain (TF32 off) - float64| "
           f"{e_f32:.3e} (limit 2x: {e_k / max(e_f32, 1e-30):.3f}x); repeated bitwise: {repeats}",
@@ -315,6 +318,33 @@ def f64_check(name: str, got, ref, exact, repeats: bool) -> None:
                              f"f32 plain version's {e_f32:.3e}")
     if not repeats:
         raise AssertionError(f"{name} does not repeat bitwise")
+
+
+def k7_f64_checks(q, k, v, dout, ref, got, ref_b, got_b, where: str = "") -> None:
+    """K7's outputs against float64: the forward's (`ang_attn`'s out, or
+    `ang_attn_res`'s out, m, l) and, with dout, the backward's (dq, dk, dv,
+    run from the kernel forward's own (m, l); the float64 backward from the
+    float64 forward's, the f32 plain one from the f32 plain forward's). Each
+    at most twice the f32 plain version's error, and a second call equal to
+    the first bit for bit."""
+    import torch
+    from lft_torch.kernels import ang_attn_mxu as am
+    H = 8
+    x64 = [t.double() for t in (q, k, v)]
+    e_fwd = am.ang_attention_blockdiag_plain(*x64, H)
+    if dout is None:
+        again = am.ang_attn_fwd(q, k, v, H)
+        f64_check(f"ang_attn{where} out", got, ref[0], e_fwd[0], torch.equal(got, again))
+        return
+    again = am.ang_attn_fwd(q, k, v, H, True)
+    repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+    for name, g_, r_, e_ in zip(("out", "m", "l"), got, ref, e_fwd):
+        f64_check(f"ang_attn_res{where} {name}", g_, r_, e_, repeats)
+    e_bwd = am.ang_attention_blockdiag_bwd_plain(*x64, *e_fwd[1:], dout.double(), H)
+    again = am.ang_attn_bwd(q, k, v, *got[1:], dout, H)
+    repeats = all(torch.equal(a, b) for a, b in zip(got_b, again))
+    for name, g_, r_, e_ in zip(("dq", "dk", "dv"), got_b, ref_b, e_bwd):
+        f64_check(f"ang_attn_bwd{where} {name} (from its own m, l)", g_, r_, e_, repeats)
 
 
 def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -> list:
@@ -1140,16 +1170,19 @@ def perop_kernel_checks(card: str, sr_counts: dict, n_scenes: int, train_counts:
         sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)
         fl = 4 * N * A2 * A2 * C
         if serving:
-            rec.record("ang_attn", src_a, "lft_tpu/kernels/ang_attn_mxu.py:234",
-                       am.ang_attn_fwd(q, k, v, H), ref[0], lambda: am.ang_attn_fwd(q, k, v, H),
+            got = am.ang_attn_fwd(q, k, v, H)
+            rec.record("ang_attn", src_a, "lft_tpu/kernels/ang_attn_mxu.py:234", got, ref[0],
+                       lambda: am.ang_attn_fwd(q, k, v, H),
                        lambda: am.ang_attention_blockdiag_plain(q, k, v, H), fl,
                        nbytes(q, k, v, ref[0]), lib_fn=sdpa)
+            k7_f64_checks(q, k, v, None, ref, got, None, None)
         else:
-            rec.record("ang_attn_res", src_a, "lft_tpu/kernels/ang_attn_mxu.py:244",
-                       am.ang_attn_fwd(q, k, v, H, True), ref,
+            got = am.ang_attn_fwd(q, k, v, H, True)
+            rec.record("ang_attn_res", src_a, "lft_tpu/kernels/ang_attn_mxu.py:244", got, ref,
                        lambda: am.ang_attn_fwd(q, k, v, H, True),
                        lambda: am.ang_attention_blockdiag_plain(q, k, v, H), fl,
                        nbytes(q, k, v, *ref), lib_fn=sdpa)
+            fwd = ref
             _, m, l = ref
             dout = rand(N, A2, C)
             ref = am.ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, H)
@@ -1158,7 +1191,10 @@ def perop_kernel_checks(card: str, sr_counts: dict, n_scenes: int, train_counts:
                        lambda: am.ang_attn_bwd(q, k, v, m, l, dout, H),
                        lambda: am.ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, H),
                        10 * N * A2 * A2 * C, nbytes(q, k, v, dout, m, l, *ref), rel=TRAIN_REL)
-        del q, k, v, ref, qh, kh, vh
+            k7_f64_checks(q, k, v, dout, fwd, got, ref,
+                          am.ang_attn_bwd(q, k, v, *got[1:], dout, H))
+            del fwd, m, l, dout
+        del q, k, v, ref, qh, kh, vh, got
 
         # K5
         q, k, v = rand(V, h, w, E), rand(V, h, w, E), rand(V, h, w, E)
@@ -1397,15 +1433,18 @@ def angres9_phase(params, seed: int):
     ref = am.ang_attention_blockdiag_plain(q, k, v, H)
     e_f, ok_f = max_err(am.ang_attn_fwd(q, k, v, H, True), ref)
     _, m, l = ref
-    e_b, ok_b = max_err(am.ang_attn_bwd(q, k, v, m, l, dout, H),
-                        am.ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, H), TRAIN_REL)
+    ref_b = am.ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, H)
+    e_b, ok_b = max_err(am.ang_attn_bwd(q, k, v, m, l, dout, H), ref_b, TRAIN_REL)
     ms_f = timed(lambda: am.ang_attn_fwd(q, k, v, H, True))
     ms_b = timed(lambda: am.ang_attn_bwd(q, k, v, m, l, dout, H))
     print(f"K7 at A2 = 81 [{N}, 81, 64]: forward with stats max_abs_err {e_f:.3e} "
           f"({ms_f:.4f} ms), backward {e_b:.3e} ({ms_b:.4f} ms)", flush=True)
     if not (ok_f and ok_b):
         raise AssertionError("K7 at A2 = 81 disagrees with its plain version")
-    del q, k, v, dout, ref, m, l
+    got = am.ang_attn_fwd(q, k, v, H, True)
+    k7_f64_checks(q, k, v, dout, ref, got, ref_b, am.ang_attn_bwd(q, k, v, *got[1:], dout, H),
+                  " at A2 = 81")
+    del q, k, v, dout, ref, m, l, ref_b, got
 
     counts, n_steps, ms_fused = train_phase(
         params, seed, what="angRes-9 fused train (K1, K4 128-row, K2, K3)", ang_res=9, patch=16,

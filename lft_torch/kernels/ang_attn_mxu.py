@@ -31,10 +31,55 @@ from lft_torch.kernels.common import KERNEL_C
 
 BLK = 128          # the gate's key block: A2 <= 128 view tokens per pixel
 
+# The launch geometry of csrc/ang_attn.cu (`fwd_geo`, `bwd_geo`), mirrored
+# for the tests: both kernels are persistent over tiles of P whole pixels.
+H = 8
+KB = 8             # keys a softmax chunk of the forward (K1's)
+NT_MAX = 512       # threads a block at most
+SMEM_TWO = 115712  # bytes a block when two share an SM: (228 KB - 2 x 1 KB) / 2
+SMEM_MAX = 232448  # bytes a block at most
+HOLD_MAX = 32      # the backward's query phase holds p and dp in registers up to 32 keys
+
 
 def mxu_applicable(A2: int) -> bool:
     """Same outcome as lft_tpu.kernels.ang_attn_mxu.mxu_applicable."""
     return A2 <= BLK
+
+
+def _round32(n: int) -> int:
+    return (n + 31) // 32 * 32
+
+
+def fwd_geometry(A2: int, C: int, stats: bool = True):
+    """(pixels a tile, threads a block, shared bytes) of `ang_attn[_res]`: a
+    thread takes two queries of one (pixel, head); the tile is the most
+    pixels whose two stages of q, k, v and m, l fit two blocks on an SM,
+    at most 512 threads."""
+    qp = (A2 + 1) // 2
+    row = lambda st: 6 * (C + 4) + (2 * H if st else 0)
+    P = max(1, min(SMEM_TWO // (row(True) * 4) // A2, NT_MAX // (H * qp)))
+    return P, _round32(P * H * qp), P * A2 * row(stats) * 4
+
+
+def bwd_geometry(A2: int, C: int):
+    """(pixels a tile, threads a block, stages, shared bytes) of
+    `ang_attn_bwd`: a thread takes one (pixel, head, query) in the query
+    phase and one (pixel, head, key) in the key phase, in as many rounds as
+    512 threads need; two stages where they fit a block."""
+    row = lambda nbuf: nbuf * (4 * (C + 4) + 2 * H) + 4 * H + C + 4
+    P = max(1, min(SMEM_TWO // (row(2) * 4) // A2, NT_MAX // (H * A2)))
+    nbuf = 2 if P * A2 * row(2) * 4 <= SMEM_MAX else 1
+    items = P * H * A2
+    rounds = -(-items // NT_MAX)
+    return P, _round32(-(-items // rounds)), nbuf, P * A2 * row(nbuf) * 4
+
+
+def tile_pixels(N: int, P: int, grid: int):
+    """The pixel ranges each of `grid` persistent blocks takes, tile by tile
+    (tiles blockIdx.x, blockIdx.x + gridDim.x, ...; a last tile ragged)."""
+    tiles = -(-N // P)
+    return [[range(t * P, min(N, (t + 1) * P)) for t in range(b, tiles, grid)]
+            for b in range(min(grid, tiles))]
 
 
 # --------------------------------------------------------- plain versions ---

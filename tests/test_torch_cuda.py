@@ -358,23 +358,58 @@ def test_fit_kill_resume_bitwise_on_card(cuda_device, tmp_path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,N,A2", [(16, 37, 25), (32, 37, 25), (64, 37, 25), (64, 7, 81),
-                                    (64, 3, 121), (32, 11, 9), (64, 1, 128)])
+                                    (64, 3, 121), (32, 11, 9), (64, 1, 128), (16, 13, 1),
+                                    (64, 9, 32), (32, 9, 33), (64, 5, 64), (64, 4, 65),
+                                    (64, 4099, 25), (32, 2001, 33), (64, 700, 100)])
 def test_ang_attn_kernels(cuda_device, C, N, A2):
     """K7 forward, forward with stats and backward against their plain
-    versions: every channel width, ragged N, A2 up to the gate's 128."""
+    versions: every channel width, ragged N, A2 up to the gate's 128 (the
+    backward's register-held query phase up to 32 views, one stage past 85
+    at C = 64), and N large enough that each persistent block takes several
+    tiles. The backward runs from the plain forward's (m, l) (at one view
+    from its own) and from the kernel's own `_res` outputs (the plain (m,
+    l) fit only the plain scores). Both forwards and the backward repeat
+    bitwise. Where a case has at least 900 tokens, every output's max error
+    against float64 (the backward from the float64 forward's (m, l)) is at
+    most twice the f32 plain version's (from its own)."""
     g = torch.Generator(device=cuda_device).manual_seed(C + A2)
     q, k, v, dout = (torch.randn(N, A2, C, device=cuda_device, generator=g) for _ in range(4))
     ref = ang_attn_mxu.ang_attention_blockdiag_plain(q, k, v, 8)
     reset_launches()
-    _close(ang_attn_mxu.ang_attn_fwd(q, k, v, 8), ref[0], 1e-4)
-    _close(ang_attn_mxu.ang_attn_fwd(q, k, v, 8, with_stats=True), ref, 1e-4)
-    _, m, l = ref
+    got_f = ang_attn_mxu.ang_attn_fwd(q, k, v, 8)
+    _close(got_f, ref[0], 1e-4)
+    got_r = ang_attn_mxu.ang_attn_fwd(q, k, v, 8, with_stats=True)
+    _close(got_r, ref, 1e-4)
+    # at one view p = 1 and dq = dk = 0 exactly, and an m one ulp off the
+    # other version's score makes them ~1e-7: there each backward runs
+    # from its own forward
+    own_ml = got_r[1:] if A2 > 1 else ref[1:]
+    _, m, l = ref if A2 > 1 else got_r
     got = ang_attn_mxu.ang_attn_bwd(q, k, v, m, l, dout, 8)
     torch.cuda.synchronize()
     assert [LAUNCHES[n] for n in PEROP[:3]] == [1, 1, 1]
-    _close(got, ang_attn_mxu.ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, 8))
+    ref_b = ang_attn_mxu.ang_attention_blockdiag_bwd_plain(q, k, v, *ref[1:], dout, 8)
+    _close(got, ref_b)
     again = ang_attn_mxu.ang_attn_bwd(q, k, v, m, l, dout, 8)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got_f, ang_attn_mxu.ang_attn_fwd(q, k, v, 8))
+    assert all(torch.equal(a, b)
+               for a, b in zip(got_r, ang_attn_mxu.ang_attn_fwd(q, k, v, 8, with_stats=True)))
+    assert torch.equal(got_f, got_r[0])
+    # the backward from the kernel's own forward
+    own = ang_attn_mxu.ang_attn_bwd(q, k, v, *got_r[1:], dout, 8)
+    _close(own, ang_attn_mxu.ang_attention_blockdiag_bwd_plain(q, k, v, *own_ml, dout, 8))
+    assert all(torch.equal(a, b)
+               for a, b in zip(own, ang_attn_mxu.ang_attn_bwd(q, k, v, *got_r[1:], dout, 8)))
+    if N * A2 < 900:
+        return
+    x64 = [t.double() for t in (q, k, v, dout)]
+    e_fwd = ang_attn_mxu.ang_attention_blockdiag_plain(*x64[:3], 8)
+    e_bwd = ang_attn_mxu.ang_attention_blockdiag_bwd_plain(*x64[:3], *e_fwd[1:], x64[3], 8)
+    err = lambda a, e: float((a.double() - e).abs().max())
+    for name, a, b, e in zip(("out", "m", "l", "dq", "dk", "dv"), (*got_r, *own), (*ref, *ref_b),
+                             (*e_fwd, *e_bwd)):
+        assert err(a, e) <= 2 * err(b, e), (name, err(a, e), err(b, e))
 
 
 @pytest.mark.cuda
