@@ -102,7 +102,9 @@
 16. holds every K8, K9 and K6 kernel (forward, with stats, backward) against
     its plain version at the serving and training shapes of steps 13-15,
     times each beside its bound and one `scaled_dot_product_attention` call,
-    and K5, K6, K9, K10 and K2.3 (backwards: K5, K6, K9) in turns at one shape;
+    and K5, K6, K9, K10 and K2.3 (backwards: K5, K6, K9) in turns at one shape
+    (K6 launches K5's kernels: its outputs must equal K5's bit for bit), and
+    K6 against K10 in turns at [400, 64, 64, 128];
 17. runs the first scene through the tile-halo kernel K10: under
     `LFT_SPA_VARIANT=tile` at patch 32 (16 `ang_attn` + 16 `spa_attn_tile`
     launches) and under `LFT_SPA_VARIANT=offset` at patch 64 (64x64 = 4096 >
@@ -1265,7 +1267,8 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
     training shapes ([4096, 25, 64], [100, 32, 32, 128]) with the launches of
     the forced-variant train steps. Then the other shapes the paths give
     them, all three forms each; then K5, K6, K9, K10 and K2.3 in turns (the
-    backwards without K10, which has none)."""
+    backwards without K10, which has none), K6 held bitwise to K5, whose
+    kernels it launches; then K6 and K10 in turns at 64x64 views."""
     import torch
     import torch.nn.functional as F
     from lft_torch.kernels import ang_attn_vjp as av
@@ -1281,7 +1284,7 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
     rand = lambda *s_: torch.randn(*s_, device=dev, generator=g)
     H, K = 8, 5
     src8, src9, src6 = ("lft_torch/csrc/ang_attn_sweep.cu", "lft_torch/csrc/spa_attn_offset.cu",
-                        "lft_torch/csrc/spa_attn_mxu.cu")
+                        "lft_torch/csrc/spa_attn_hp.cu")
     rec_sr = Recorder(card, sr_counts, 1, "scene")
     rec_tr = Recorder(card, train_counts, n_steps, "train step")
 
@@ -1384,6 +1387,18 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
         q, k, v, dout = (rand(V, 32, 32, 128) for _ in range(4))
         if bwd:
             out, m, l = hp.windowed_attention_headpacked_plain(q, k, v, H, K)
+            same = all(torch.equal(a, b) for a, b in zip(
+                sa.spa_attn_mxu_fwd(q, k, v, H, K, True), hp.spa_attn_hp_fwd(q, k, v, H, K, True)))
+            same &= all(torch.equal(a, b) for a, b in zip(
+                sa.spa_attn_mxu_bwd(q, k, v, m, l, dout, H, K),
+                hp.spa_attn_hp_bwd(q, k, v, m, l, dout, H, K)))
+        else:
+            same = torch.equal(sa.spa_attn_mxu_fwd(q, k, v, H, K), hp.spa_attn_hp_fwd(q, k, v, H, K))
+        print(f"K6 equals K5 bit for bit at {[V, 32, 32, 128]} "
+              f"({'_res, _bwd' if bwd else 'forward'}): {same}", flush=True)
+        if not same:
+            raise AssertionError("K6 launches K5's kernels: its outputs must equal K5's")
+        if bwd:
             turns = [("K5 spa_attn_hp_bwd", lambda: hp.spa_attn_hp_bwd(q, k, v, m, l, dout, H, K)),
                      ("K6 spa_attn_mxu_bwd", lambda: sa.spa_attn_mxu_bwd(q, k, v, m, l, dout, H, K)),
                      ("K9 spa_attn_offset_bwd",
@@ -1399,6 +1414,15 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
         print(f"at {[V, 32, 32, 128]} (turns a b .. b a, median of 10 each): "
               + ", ".join(f"{n} {a:.4f} / {b:.4f} ms"
                           for (n, _), a, b in zip(turns, first, second)), flush=True)
+    # at 64x64 views the dispatch sends inference to K6 (lft_tpu's gate); K10
+    # is the forward-only alternative the `offset` variant takes there
+    q, k, v = (rand(400, 64, 64, 128) for _ in range(3))
+    turns = [("K6 spa_attn_mxu", lambda: sa.spa_attn_mxu_fwd(q, k, v, H, K)),
+             ("K10 spa_attn_tile", lambda: la.windowed_attention_tile(q, k, v, H, K))]
+    tm = [timed(turns[0][1]), timed(turns[1][1]), timed(turns[1][1]), timed(turns[0][1])]
+    print(f"at [400, 64, 64, 128] (turns a b b a, median of 10 each): K6 spa_attn_mxu "
+          f"{tm[0]:.4f} / {tm[3]:.4f} ms, K10 spa_attn_tile {tm[1]:.4f} / {tm[2]:.4f} ms",
+          flush=True)
     return rec_sr.rows + rec_tr.rows
 
 

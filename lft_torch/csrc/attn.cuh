@@ -1,5 +1,5 @@
 // Shared by the per-op attention kernels (ang_attn.cu, ang_attn_sweep.cu,
-// spa_attn_hp.cu, spa_attn_mxu.cu, spa_attn_offset.cu, spa_attn_tile.cu) and
+// spa_attn_hp.cu, spa_attn_offset.cu, spa_attn_tile.cu) and
 // by K4's attention step (ang_block.cu): one head's DH-wide row segment in
 // registers, its dot product with the forward's fixed fmaf order (every
 // backward rebuilds a score with exactly this arithmetic), and the row-tile

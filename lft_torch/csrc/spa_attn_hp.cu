@@ -2,9 +2,13 @@
 // backward, on K2.3's window layout.
 //
 // Replaces lft_tpu/kernels/spa_attn_hp.py:_fwd / _vjp_bwd (the Pallas TPU
-// kernels behind windowed_attention_headpacked). For every view b, head hh
-// of 8 and pixel (y, x) of q, k, v [B, h, w, E] (dh = E / 8), over the keys
-// of the pixel's 5x5 window that lie inside the image:
+// kernels behind windowed_attention_headpacked) and, launched by
+// kernels/spa_attn.py under K6's names (`spa_attn_mxu`, `_res`, `_bwd`),
+// lft_tpu/kernels/spa_attn.py:_fwd / _vjp_bwd (K6, the same function tile-
+// dense: each query against its tile's whole halo, masked keys adding
+// exactly 0; dense on this card it scored ~10x the window's pairs). For
+// every view b, head hh of 8 and pixel (y, x) of q, k, v [B, h, w, E] (dh =
+// E / 8), over the keys of the pixel's 5x5 window that lie inside the image:
 //   s_j = (q * scale) . k_j      out = sum_j softmax_j(s_j) v_j
 // with m = max_j s_j and l = sum_j exp(s_j - m) per (pixel, head) as the
 // residuals of the backward, which returns dq, dk, dv from (q, k, v, m, l,

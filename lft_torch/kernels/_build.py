@@ -25,7 +25,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("ang_block", "spa_block", "spa_block_bwd", "wgrad", "ang_attn", "spa_attn_hp",
-           "ang_attn_sweep", "spa_attn_offset", "spa_attn_mxu", "spa_attn_tile")
+           "ang_attn_sweep", "spa_attn_offset", "spa_attn_tile")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,7 +44,7 @@ PEROP = ("ang_attn", "ang_attn_res", "ang_attn_bwd", "spa_attn_hp", "spa_attn_hp
          "spa_attn_hp_bwd")
 # The branch's other trainable families, in the same three forms: K8 (the
 # key-view sweep: any view count), K9 (the 25-offset sweep: any view size) and
-# K6 (tile-dense: views of more than 2048 pixels).
+# K6 (views of more than 2048 pixels; K5's kernels, counted under K6's names).
 SWEEPS = ("ang_attn_sweep", "ang_attn_sweep_res", "ang_attn_sweep_bwd", "spa_attn_offset",
           "spa_attn_offset_res", "spa_attn_offset_bwd", "spa_attn_mxu", "spa_attn_mxu_res",
           "spa_attn_mxu_bwd")

@@ -3,8 +3,8 @@ the tile-halo kernel K10 (counterpart of lft_tpu/kernels/local_attn.py).
 
 The JAX dispatcher chooses among four kernel families, and the port follows
 it branch for branch: the hybrid (K5, or K9 and K6 where no all-heads
-geometry exists) for a tileable view of at most 2048 pixels, the tile-dense
-K6 for a larger tileable view, the offset sweep K9 for a small view no tile
+geometry exists) for a tileable view of at most 2048 pixels, K6 for a larger
+tileable view, the offset sweep K9 for a small view no tile
 divides, and the tile-halo kernel K10 where its variant is forced (`tile`) or
 the offset variant meets a view of more than 2048 pixels that 8x8 tiles
 divide. The one branch that holds no kernel in the JAX package either, the

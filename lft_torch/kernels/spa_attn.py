@@ -1,15 +1,22 @@
-"""Per-op 5x5-window spatial attention: the tile-dense kernel K6, the hybrid
-and the projection wrapper (counterpart of lft_tpu/kernels/spa_attn.py).
+"""Per-op 5x5-window spatial attention: K6, the hybrid and the projection
+wrapper (counterpart of lft_tpu/kernels/spa_attn.py).
 
 `windowed_attention_mxu(q, k, v, num_heads, ksize)` maps projected
-[B, h, w, E] images to the window attention's output, tile by tile: the view
-is cut into `pick_tile`'s th x tw query tiles, each tile's queries are scored
-against its whole (th+4) x (tw+4) key halo, masked (outside the window or the
-image: -1e30) and put through a plain softmax. On a CUDA tensor it launches
-the hand-written kernels of `lft_torch/csrc/spa_attn_mxu.cu`; on a CPU tensor
-it runs the plain PyTorch versions below. There is no fallback from one to
-the other. The JAX module's name is kept; the matrix unit it names is the
-TPU's.
+[B, h, w, E] images to the window attention's output: every pixel attends,
+per head, to the keys of its 5x5 window that lie inside the image. The JAX
+kernel computes it tile-dense: the view is cut into `pick_tile`'s th x tw
+query tiles, each tile's queries are scored against its whole (th+4) x
+(tw+4) key halo, masked (outside the window or the image: -1e30, which
+contributes exactly 0) and put through a plain softmax. The plain versions
+below do the same. It is the function of K5 (kernels/spa_attn_hp.py), so on
+a CUDA tensor K6 launches K5's hand-written kernels
+(`lft_torch/csrc/spa_attn_hp.cu`: the forward K2.3's window kernel of
+`csrc/window_attn.cuh`, the backward K5's two passes), which take any h and
+w, counted under K6's names; a dense design would score ~10x the window's
+pairs. `pick_tile` still decides the dispatch (a view it cannot tile
+raises `ValueError` on any device, as lft_tpu's does). On a CPU tensor it
+runs the plain versions. There is no fallback from one to the other. The
+JAX module's name is kept; the matrix unit it names is the TPU's.
 
 Training: when grad mode is on and q, k or v requires grad it runs as
 `SpaMxuFn`, whose forward also returns the per-(pixel, head) softmax max m
@@ -18,24 +25,23 @@ JAX package does; the backward (`spa_attn_mxu_bwd`) rebuilds the
 probabilities from them and takes D from a * (dout v^T).
 
 `windowed_attention_hybrid` picks a kernel per context as the JAX hybrid does
-off a TPU: the window kernel K5 (kernels/spa_attn_hp.py) for the primal and
-for the training pair wherever `headpacked_applicable`; else the offset sweep
-K9 for the primal and the tile-dense pair K6 for training.
+off a TPU: the window kernel K5 for the primal and for the training pair
+wherever `headpacked_applicable`; else the offset sweep K9 for the primal
+and K6's pair for training.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lft_torch.kernels import _build, local_attn_vjp
+from lft_torch.kernels import local_attn_vjp
 from lft_torch.kernels.ang_block import _needs_grad
-from lft_torch.kernels.spa_attn_hp import (_check_shape, headpacked_applicable,
-                                           windowed_attention_headpacked)
+from lft_torch.kernels.spa_attn_hp import (_check_shape, headpacked_applicable, spa_attn_hp_bwd,
+                                           spa_attn_hp_fwd, windowed_attention_headpacked)
 
 MASKED = -1e30     # the additive mask of a key outside the window or the image
 
@@ -43,7 +49,7 @@ MASKED = -1e30     # the additive mask of a key outside the window or the image
 def pick_tile(h: int, w: int):
     """Same outcome as lft_tpu.kernels.spa_attn.pick_tile: the rectangular
     query tile (th, tw) dividing (h, w), or None if only degenerate tilings
-    exist. It decides the dispatch, and it is K6's query tile."""
+    exist. It decides the dispatch and the plain versions' tiles."""
     for target in (128, 64, 32, 16, 8):
         for th in (8, 16, 4, 32, 64, 128, 2, 1):
             if th > target:
@@ -176,48 +182,25 @@ def windowed_attention_mxu_bwd_plain(q, k, v, m, l, dout, num_heads: int, ksize:
 # -------------------------------------------------------- kernel wrappers ---
 
 def spa_attn_mxu_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
-    """K6's forward: the CUDA kernel for CUDA tensors (`spa_attn_mxu`, or
-    `spa_attn_mxu_res` with stats), the plain version for CPU tensors.
-    with_stats: (out, m, l), else out."""
+    """K6's forward: K5's forward kernel for CUDA tensors, counted as
+    `spa_attn_mxu` (or `spa_attn_mxu_res` with stats), the plain version for
+    CPU tensors. with_stats: (out, m, l), else out."""
     if q.device.type != "cuda":
         out, m, l = windowed_attention_mxu_plain(q, k, v, num_heads, ksize)
         return (out, m, l) if with_stats else out
-    name = "spa_attn_mxu_res" if with_stats else "spa_attn_mxu"
-    _check_shape(name, q, num_heads, ksize)
-    (th, tw), _ = _tile_geometry(q, num_heads, ksize)
-    _build.check_cuda_args(name, q, k, v)
-    B, h, w, E = q.shape
-    out = torch.empty_like(q)
-    tail = (B, h, w, E, num_heads, th, tw, float(E // num_heads) ** -0.5)
-    types = (ctypes.c_int,) * 7 + (ctypes.c_float,)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
-    if not with_stats:
-        fn = _build.bind("spa_attn_mxu", "lft_spa_attn_mxu", 4, types)
-        _build.launch("spa_attn_mxu", name, fn, q.device, *ptrs, *tail)
-        return out
-    m = torch.empty(B, h, w, num_heads, device=q.device)
-    l = torch.empty_like(m)
-    fn = _build.bind("spa_attn_mxu", "lft_spa_attn_mxu_res", 6, types)
-    _build.launch("spa_attn_mxu", name, fn, q.device, *ptrs, m.data_ptr(), l.data_ptr(), *tail)
-    return out, m, l
+    _check_shape("spa_attn_mxu_res" if with_stats else "spa_attn_mxu", q, num_heads, ksize)
+    _tile_geometry(q, num_heads, ksize)
+    return spa_attn_hp_fwd(q, k, v, num_heads, ksize, with_stats, kernel="spa_attn_mxu")
 
 
 def spa_attn_mxu_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int):
-    """K6's backward (`spa_attn_mxu_bwd`): (dq, dk, dv) [B, h, w, E]."""
+    """K6's backward: (dq, dk, dv) [B, h, w, E]; K5's two backward passes
+    for CUDA tensors, counted as `spa_attn_mxu_bwd`."""
     if q.device.type != "cuda":
         return windowed_attention_mxu_bwd_plain(q, k, v, m, l, dout, num_heads, ksize)
     _check_shape("spa_attn_mxu_bwd", q, num_heads, ksize)
-    (th, tw), _ = _tile_geometry(q, num_heads, ksize)
-    _build.check_cuda_args("spa_attn_mxu_bwd", q, k, v, dout, m, l)
-    B, h, w, E = q.shape
-    dsum = torch.empty_like(m)                  # the kernels' scratch: D per pixel and head
-    grads = tuple(torch.empty_like(q) for _ in range(3))
-    fn = _build.bind("spa_attn_mxu", "lft_spa_attn_mxu_bwd", 10,
-                     (ctypes.c_int,) * 7 + (ctypes.c_float,))
-    _build.launch("spa_attn_mxu", "spa_attn_mxu_bwd", fn, q.device,
-                  *(t.data_ptr() for t in (q, k, v, dout, m, l, dsum, *grads)),
-                  B, h, w, E, num_heads, th, tw, float(E // num_heads) ** -0.5)
-    return grads
+    _tile_geometry(q, num_heads, ksize)
+    return spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads, ksize, kernel="spa_attn_mxu_bwd")
 
 
 class SpaMxuFn(torch.autograd.Function):

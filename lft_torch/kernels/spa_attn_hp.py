@@ -175,14 +175,17 @@ def _check_shape(kernel: str, q, num_heads: int, ksize: int) -> None:
             f"5x5 window; got shape {tuple(q.shape)}, heads={num_heads}, k={ksize}")
 
 
-def spa_attn_hp_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
+def spa_attn_hp_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = False,
+                    kernel: str = "spa_attn_hp"):
     """K5's forward: the CUDA kernel for CUDA tensors (`spa_attn_hp`, or
     `spa_attn_hp_res` with stats), the plain version for CPU tensors.
-    with_stats: (out, m, l), else out."""
+    with_stats: (out, m, l), else out. `kernel`: the name the launch is
+    counted under, `_res` appended with stats (K6's forward launches it as
+    `spa_attn_mxu`)."""
     if q.device.type != "cuda":
         out, m, l = windowed_attention_headpacked_plain(q, k, v, num_heads, ksize)
         return (out, m, l) if with_stats else out
-    name = "spa_attn_hp_res" if with_stats else "spa_attn_hp"
+    name = kernel + "_res" if with_stats else kernel
     _check_shape(name, q, num_heads, ksize)
     _build.check_cuda_args(name, q, k, v)
     B, h, w, E = q.shape

@@ -1,11 +1,12 @@
 """Time and profile full-scene SR on one CUDA card.
 
     python3 -m lft_torch.profile_scene [--scenes N] [--seed S] [--plain] [--unfused]
-        [--ang-res A] [--view V]
+        [--ang-res A] [--view V] [--patch P]
 
 Loads the full-width 4x demo checkpoint, makes `--scenes` synthetic A x A
 scenes of V x V LR views (5x5 and 128x128 by default), and runs the tiled
-pipeline (patch 32, stride 16, 16 patches a forward) on the card:
+pipeline (patch P, stride P / 2, 16 patches a forward; P = 32 by default)
+on the card:
 
 * steady-state seconds per scene (host clock around work that ends in
   `torch.cuda.synchronize()`, after one warm-up scene) and HR SAI
@@ -20,7 +21,9 @@ variables `LFT_ANG_VARIANT=sweep` and `LFT_SPA_VARIANT=offset|mxu|tile` send
 that branch through K8, K9, K6 or K10 instead (`tile`, K10, is inference
 only); the kernels a scene launched are printed. Past 11x11 views the
 fused blocks' gate sends every call to the per-op branch (`--ang-res 12
---view 48`: K8 and K5, `chip_smoke.py`'s 12x12-view scene).
+--view 48`: K8 and K5, `chip_smoke.py`'s 12x12-view scene). At `--patch 64`
+the views hold 4096 pixels: the per-op branch takes K6 there with no knob
+set (`--unfused --patch 64`: K7 and K6, `chip_smoke.py`'s patch-64 scene).
 Prints the card's name and power limit first. Exits non-zero without a card.
 """
 
@@ -45,6 +48,7 @@ def main(argv=None) -> int:
     ap.add_argument("--unfused", action="store_true")
     ap.add_argument("--ang-res", type=int, default=5)
     ap.add_argument("--view", type=int, default=128)
+    ap.add_argument("--patch", type=int, default=32)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_scene: no CUDA device is available", file=sys.stderr)
@@ -64,8 +68,8 @@ def main(argv=None) -> int:
     dev = resolve_device()
     params, _, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
                                                 "LFT_5x5_4x_synth3000.pth"), device=dev)
-    args = Args(angRes=a.ang_res, scale_factor=4, channels=64, patch_size_for_test=32,
-                stride_for_test=16, eval_batch=16)
+    args = Args(angRes=a.ang_res, scale_factor=4, channels=64, patch_size_for_test=a.patch,
+                stride_for_test=a.patch // 2, eval_batch=16)
     kw, what = path_kw(a.plain, a.unfused)
     cache = ScenePipelineCache(forward, args, eval_batch=16, **kw)
     hr_view = 4 * a.view

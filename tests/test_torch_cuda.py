@@ -541,33 +541,42 @@ def test_spa_attn_offset_kernels(cuda_device, C, h, w):
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,h,w,tile", [(16, 16, 16, (8, 16)), (32, 8, 101, (8, 1)),
                                         (64, 32, 32, (8, 16)), (64, 64, 64, (8, 16)),
+                                        (16, 64, 64, (8, 16)), (64, 72, 40, (8, 8)),
                                         (64, 48, 40, (16, 8)), (64, 4, 32, (4, 32)),
                                         (32, 1, 128, (1, 128)), (64, 128, 1, (128, 1)),
                                         (64, 2, 4, (2, 4))])
 def test_spa_attn_mxu_kernels(cuda_device, C, h, w, tile):
     """K6 forward, forward with stats and backward against their plain
-    versions over `pick_tile`'s tiles: the usual 8x16, the one-column tile
-    of a prime width, the widest halos (1x128, 128x1) and the smallest
-    tile; the backward repeats bit for bit."""
+    versions over `pick_tile`'s geometries: the usual 8x16, views over 2048
+    pixels, partial 16x16 tiles (72x40), the one-column tile of a prime
+    width, 1-pixel-wide views and the smallest tile; each launch counted
+    under K6's name, once; the backward repeats bit for bit; K6 launches
+    K5's kernels, so every output equals K5's bit for bit."""
     assert spa_attn.pick_tile(h, w) == tile
     E = 2 * C
     g = torch.Generator(device=cuda_device).manual_seed(C + h)
     q, k, v, dout = (torch.randn(3, h, w, E, device=cuda_device, generator=g) for _ in range(4))
     ref = spa_attn.windowed_attention_mxu_plain(q, k, v, 8, 5)
     reset_launches()
-    _close(spa_attn.spa_attn_mxu_fwd(q, k, v, 8, 5), ref[0], 1e-4)
-    _close(spa_attn.spa_attn_mxu_fwd(q, k, v, 8, 5, with_stats=True), ref, 1e-4)
+    fwd = spa_attn.spa_attn_mxu_fwd(q, k, v, 8, 5)
+    _close(fwd, ref[0], 1e-4)
+    res = spa_attn.spa_attn_mxu_fwd(q, k, v, 8, 5, with_stats=True)
+    _close(res, ref, 1e-4)
     _, m, l = ref
     got = spa_attn.spa_attn_mxu_bwd(q, k, v, m, l, dout, 8, 5)
     torch.cuda.synchronize()
-    assert [LAUNCHES[n] for n in SWEEPS[6:]] == [1, 1, 1]
+    assert {n: LAUNCHES[n] for n in ("spa_attn_mxu", "spa_attn_mxu_res", "spa_attn_mxu_bwd")} \
+        == {"spa_attn_mxu": 1, "spa_attn_mxu_res": 1, "spa_attn_mxu_bwd": 1}
     assert sum(LAUNCHES.values()) == 3
     _close(got, spa_attn.windowed_attention_mxu_bwd_plain(q, k, v, m, l, dout, 8, 5))
     again = spa_attn.spa_attn_mxu_bwd(q, k, v, m, l, dout, 8, 5)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    # the same function as K5
-    _close(spa_attn.spa_attn_mxu_fwd(q, k, v, 8, 5), spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5),
-           1e-5)
+    # the same kernels as K5
+    assert torch.equal(fwd, spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5))
+    assert all(torch.equal(a, b)
+               for a, b in zip(res, spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5, with_stats=True)))
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, spa_attn_hp.spa_attn_hp_bwd(q, k, v, m, l, dout, 8, 5)))
 
 
 @pytest.mark.cuda
