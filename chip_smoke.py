@@ -104,7 +104,11 @@
     times each beside its bound and one `scaled_dot_product_attention` call,
     and K5, K6, K9, K10 and K2.3 (backwards: K5, K6, K9) in turns at one shape
     (K6 launches K5's kernels: its outputs must equal K5's bit for bit), and
-    K6 against K10 in turns at [400, 64, 64, 128];
+    K6 against K10 in turns at [400, 64, 64, 128]; K8 also at [2048, 144,
+    64] (the 12x12-view step's batch), its outputs against float64 as K7's
+    in step 11 (the backward from K8 res's own out, m, l), and at A2 = 25
+    (K7's kernels under K8's names: the forward to 128 views, the backward
+    to 32) bit for bit K7's;
 17. runs the first scene through the tile-halo kernel K10: under
     `LFT_SPA_VARIANT=tile` at patch 32 (16 `ang_attn` + 16 `spa_attn_tile`
     launches) and under `LFT_SPA_VARIANT=offset` at patch 64 (64x64 = 4096 >
@@ -347,6 +351,41 @@ def k7_f64_checks(q, k, v, dout, ref, got, ref_b, got_b, where: str = "") -> Non
     repeats = all(torch.equal(a, b) for a, b in zip(got_b, again))
     for name, g_, r_, e_ in zip(("dq", "dk", "dv"), got_b, ref_b, e_bwd):
         f64_check(f"ang_attn_bwd{where} {name} (from its own m, l)", g_, r_, e_, repeats)
+
+
+def k8_f64_checks(q, k, v, dout, ref, got, ref_b, got_b, where: str = "") -> None:
+    """K8's outputs against float64, as `k7_f64_checks`: the forward's
+    (`ang_attn_sweep`'s out, or `ang_attn_sweep_res`'s out, m, l) and, with
+    dout, the backward's (dq, dk, dv, run from the kernel forward's own (out,
+    m, l); the float64 backward from the float64 forward's, the f32 plain one
+    from the f32 plain forward's). The float64 versions go 1024 pixels at a
+    time. Each at most twice the f32 plain version's error, and a second call
+    equal to the first bit for bit."""
+    import torch
+    from lft_torch.kernels import ang_attn_mxu as am
+    from lft_torch.kernels import ang_attn_vjp as av
+    H, n = 8, 1024
+    cat = lambda parts: tuple(torch.cat(p) for p in zip(*parts))
+    x64 = [t.double() for t in (q, k, v)]
+    e_fwd = cat([am.ang_attention_blockdiag_plain(*(t[i:i + n] for t in x64), H)
+                 for i in range(0, q.shape[0], n)])
+    if dout is None:
+        again = av.ang_attn_sweep_fwd(q, k, v, H)
+        f64_check(f"ang_attn_sweep{where} out", got, ref[0], e_fwd[0], torch.equal(got, again))
+        return
+    again = av.ang_attn_sweep_fwd(q, k, v, H, True)
+    repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+    for name, g_, r_, e_ in zip(("out", "m", "l"), got, ref, e_fwd):
+        f64_check(f"ang_attn_sweep_res{where} {name}", g_, r_, e_, repeats)
+    x64.append(dout.double())
+    e_bwd = cat([av.ang_attention_sweep_bwd_plain(*(t[i:i + n] for t in x64[:3]),
+                                                  *(t[i:i + n] for t in e_fwd), x64[3][i:i + n],
+                                                  H) for i in range(0, q.shape[0], n)])
+    again = av.ang_attn_sweep_bwd(q, k, v, *got, dout, H)
+    repeats = all(torch.equal(a, b) for a, b in zip(got_b, again))
+    for name, g_, r_, e_ in zip(("dq", "dk", "dv"), got_b, ref_b, e_bwd):
+        f64_check(f"ang_attn_sweep_bwd{where} {name} (from its own out, m, l)", g_, r_, e_,
+                  repeats)
 
 
 def kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -> list:
@@ -1271,6 +1310,7 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
     kernels it launches; then K6 and K10 in turns at 64x64 views."""
     import torch
     import torch.nn.functional as F
+    from lft_torch.kernels import ang_attn_mxu as am
     from lft_torch.kernels import ang_attn_vjp as av
     from lft_torch.kernels import local_attn as la
     from lft_torch.kernels import local_attn_vjp as lv
@@ -1297,26 +1337,53 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
         plain = lambda: av.ang_attention_sweep_plain(q, k, v, H)
         fl = 4 * N * A2 * A2 * C
         kw = dict(shape=shape, slow_reps=reps)
+        where = f" at {[N, A2, C]}"
         if "fwd" in forms:
-            rec_sr.record("ang_attn_sweep", src8, "lft_tpu/kernels/ang_attn_vjp.py:129",
-                          av.ang_attn_sweep_fwd(q, k, v, H), ref[0],
-                          lambda: av.ang_attn_sweep_fwd(q, k, v, H), plain, fl,
+            got = av.ang_attn_sweep_fwd(q, k, v, H)
+            rec_sr.record("ang_attn_sweep", src8, "lft_tpu/kernels/ang_attn_vjp.py:129", got,
+                          ref[0], lambda: av.ang_attn_sweep_fwd(q, k, v, H), plain, fl,
                           nbytes(q, k, v, ref[0]), lib_fn=sdpa, **kw)
+            k8_f64_checks(q, k, v, None, ref, got, None, None, where)
+            if A2 <= 128:   # K7's kernel under K8's name
+                same = torch.equal(got, am.ang_attn_fwd(q, k, v, H))
+                print(f"  ang_attn_sweep{where}: bitwise equal to K7's ang_attn: {same}",
+                      flush=True)
+                if not same:
+                    raise AssertionError("ang_attn_sweep is not K7's ang_attn bit for bit")
         if "res" in forms:
+            got = av.ang_attn_sweep_fwd(q, k, v, H, True)
             rec_tr.record("ang_attn_sweep_res", src8, "lft_tpu/kernels/ang_attn_vjp.py:129",
-                          av.ang_attn_sweep_fwd(q, k, v, H, True), ref,
-                          lambda: av.ang_attn_sweep_fwd(q, k, v, H, True), plain, fl,
+                          got, ref, lambda: av.ang_attn_sweep_fwd(q, k, v, H, True), plain, fl,
                           nbytes(q, k, v, *ref), lib_fn=sdpa, **kw)
+            if A2 <= 128:
+                same = all(torch.equal(a, b) for a, b in zip(got, am.ang_attn_fwd(q, k, v, H,
+                                                                                  True)))
+                print(f"  ang_attn_sweep_res{where}: bitwise equal to K7's ang_attn_res: {same}",
+                      flush=True)
+                if not same:
+                    raise AssertionError("ang_attn_sweep_res is not K7's ang_attn_res bit for bit")
         if "bwd" in forms:
             out, m, l = ref
             dout = rand(N, A2, C)
-            ref = av.ang_attention_sweep_bwd_plain(q, k, v, out, m, l, dout, H)
+            ref_b = av.ang_attention_sweep_bwd_plain(q, k, v, out, m, l, dout, H)
             rec_tr.record("ang_attn_sweep_bwd", src8, "lft_tpu/kernels/ang_attn_vjp.py:158",
-                          av.ang_attn_sweep_bwd(q, k, v, out, m, l, dout, H), ref,
+                          av.ang_attn_sweep_bwd(q, k, v, out, m, l, dout, H), ref_b,
                           lambda: av.ang_attn_sweep_bwd(q, k, v, out, m, l, dout, H),
                           lambda: av.ang_attention_sweep_bwd_plain(q, k, v, out, m, l, dout, H),
-                          10 * N * A2 * A2 * C, nbytes(q, k, v, dout, out, m, l, *ref),
+                          10 * N * A2 * A2 * C, nbytes(q, k, v, dout, out, m, l, *ref_b),
                           rel=TRAIN_REL, **kw)
+            got_r = av.ang_attn_sweep_fwd(q, k, v, H, True)
+            got_b = av.ang_attn_sweep_bwd(q, k, v, *got_r, dout, H)
+            k8_f64_checks(q, k, v, dout, ref, got_r, ref_b, got_b, where)
+            if A2 <= av.K7_BWD_MAX:   # K7's backward kernel under K8's name
+                same = all(torch.equal(a, b) for a, b in zip(
+                    got_b, am.ang_attn_bwd(q, k, v, *got_r[1:], dout, H)))
+                print(f"  ang_attn_sweep_bwd{where}: bitwise equal to K7's ang_attn_bwd: {same}",
+                      flush=True)
+                if not same:
+                    raise AssertionError("ang_attn_sweep_bwd is not K7's ang_attn_bwd bit for bit")
+        del q, k, v, ref, qh, kh, vh
+        torch.cuda.empty_cache()
 
     def window(which, V, h, w, E, forms, shape=None, reps=10):
         """K9 (which = 9) or K6 (which = 6) at [V, h, w, E]."""
@@ -1370,11 +1437,13 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
         window(which, 400, 32, 32, 128, ("fwd",))
         window(which, 100, 32, 32, 128, ("res", "bwd"))
     # the other shapes of the paths, every form: the 12x12-view scene's chunk
-    # of 9 patches and a 13x13-view one of a pixel count no group divides; the
+    # of 9 patches, the 12x12-view step's batch of 2 and a 13x13-view chunk of
+    # a pixel count no group divides; the
     # 30x30, 7x7 and 8x101 views that reach K9; the 64x64 and 8x101 views that
     # reach K6 (the scene's chunk of 16 patches, and 9 of them)
     all_forms = ("fwd", "res", "bwd")
     k8(9216, 144, 64, all_forms, shape=(9216, 144, 64), reps=3)
+    k8(2048, 144, 64, all_forms, shape=(2048, 144, 64), reps=3)
     k8(1001, 169, 64, all_forms, shape=(1001, 169, 64), reps=3)
     for V, h, w in ((400, 30, 30), (400, 7, 7), (100, 8, 101)):
         window(9, V, h, w, 128, all_forms, shape=(V, h, w, 128), reps=3)

@@ -83,21 +83,13 @@
 // the instructions hold it back: without loads 0.161 of 0.168 ms, the
 // staging alone 0.067 (probe_k7).
 
-#include <algorithm>
-#include <type_traits>
-
-#include "attn.cuh"
-#include "tf32.cuh"
+#include "ang_attn.cuh"
 
 using namespace lft;
 
 namespace {
 
 constexpr int H = 8;
-constexpr int KB = 8;              // keys a softmax chunk (K1's)
-constexpr int NT_MAX = 512;        // threads a block at most
-constexpr int SMEM_TWO = 115712;   // bytes a block, two blocks an SM: (228 KB - 2 x 1 KB) / 2
-constexpr int SMEM_MAX = 232448;   // bytes a block at most
 constexpr int HOLD_MAX = 32;       // the backward's query phase holds p, dp up to 32 keys
 
 // floats a token row takes: the forward's two stages of q, k, v and m, l;
@@ -105,7 +97,6 @@ constexpr int HOLD_MAX = 32;       // the backward's query phase holds p, dp up 
 // head) and the dq staging row
 inline int fwd_row_floats(int C, bool stats) { return 6 * (C + 4) + (stats ? 2 * H : 0); }
 inline int bwd_row_floats(int C, int nbuf) { return nbuf * (4 * (C + 4) + 2 * H) + 4 * H + C + 4; }
-inline int round32(int n) { return (n + 31) / 32 * 32; }
 
 struct Geo {
   int P, nt, nbuf;   // pixels a tile, threads a block, stages
@@ -126,37 +117,6 @@ inline Geo bwd_geo(int A2, int C) {
   const int items = P * H * A2, rounds = (items + NT_MAX - 1) / NT_MAX;
   return {P, round32((items + rounds - 1) / rounds), nbuf,
           static_cast<size_t>(P) * A2 * bwd_row_floats(C, nbuf) * 4};
-}
-
-// rows [row0, row0 + rows) of a [*, W] tensor -> a [rows][LD] tile by
-// cp.async, 16 bytes a thread at a time
-template <int W, int LD>
-__device__ __forceinline__ void stage_async(float* dst, const float* __restrict__ src,
-                                            size_t row0, int rows) {
-  for (int i = threadIdx.x; i < rows * (W / 4); i += blockDim.x) {
-    const int r = i / (W / 4), c = 4 * (i % (W / 4));
-    cp_async16(dst + r * LD + c, src + (row0 + r) * W + c, true);
-  }
-}
-
-// a [rows][LD] tile -> rows [row0, row0 + rows) of a [*, W] tensor, whole lines
-template <int W, int LD>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float* src, size_t row0,
-                                           int rows) {
-  for (int i = threadIdx.x; i < rows * (W / 4); i += blockDim.x) {
-    const int r = i / (W / 4), c = 4 * (i % (W / 4));
-    store4(dst + (row0 + r) * W + c, load4(src + r * LD + c));
-  }
-}
-
-// f(j0, full) for the chunks of KB keys (or queries) of n: the whole ones
-// with full a std::true_type, so that their loops run without per-key
-// predicates, then a last partial one
-template <class F>
-__device__ __forceinline__ void chunks(int n, F&& f) {
-  int j0 = 0;
-  for (; j0 + KB <= n; j0 += KB) f(j0, std::true_type{});
-  if (j0 < n) f(j0, std::false_type{});
 }
 
 // ---- forward: a thread takes two queries of one (pixel, head) -------------
@@ -476,22 +436,6 @@ __global__ void __launch_bounds__(NT_MAX)
   }
 }
 
-// A persistent launch's grid: as many blocks as fit the card, at most one a
-// tile. Sets the kernel's shared memory first.
-template <class Kernel>
-int persistent_grid(Kernel kernel, const Geo& g, int tiles, int* grid) {
-  LFT_SET_SMEM(kernel, g.bytes);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, g.nt, g.bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  *grid = std::min(tiles, sms * per_sm);
-  return 0;
-}
-
 template <bool STATS>
 int ang_attn(const float* q, const float* k, const float* v, float* out, float* m, float* l,
              int N, int A2, int C, int heads, float scale, cudaStream_t s) {
@@ -503,7 +447,7 @@ int ang_attn(const float* q, const float* k, const float* v, float* out, float* 
 #define LFT_ANG_CASE(DHV)                                                          \
     case DHV: {                                                                    \
       auto kernel = ang_attn_kernel<DHV, STATS>;                                   \
-      if (const int e = persistent_grid(kernel, g, tiles, &grid)) return e;        \
+      if (const int e = persistent_grid(kernel, g.nt, g.bytes, tiles, &grid)) return e;        \
       kernel<<<grid, g.nt, g.bytes, s>>>(q, k, v, out, m, l, N, A2, g.P, scale);   \
       break;                                                                       \
     }
@@ -551,7 +495,7 @@ extern "C" int lft_ang_attn_bwd(const float* q, const float* k, const float* v,
     case DHV: {                                                                            \
       auto kernel = ang_attn_bwd_kernel<DHV, false>;                                      \
       if (A2 <= HOLD_MAX) kernel = ang_attn_bwd_kernel<DHV, true>;                         \
-      if (const int e = persistent_grid(kernel, g, tiles, &grid)) return e;                \
+      if (const int e = persistent_grid(kernel, g.nt, g.bytes, tiles, &grid)) return e;                \
       kernel<<<grid, g.nt, g.bytes, s>>>(q, k, v, dout, m, l, dq, dk, dv, N, A2, g.P,      \
                                          g.nbuf, scale);                                   \
       break;                                                                               \

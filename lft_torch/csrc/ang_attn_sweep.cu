@@ -1,229 +1,480 @@
-// K8: per-op angular attention as a sweep over the key views, any view
-// count, forward and backward.
+// K8: per-op angular attention at any view count, forward (run past 128
+// views) and backward (run from 33).
 //
 // Replaces lft_tpu/kernels/ang_attn_vjp.py:_fwd / _vjp_bwd (the Pallas TPU
 // kernels behind ang_attention). For every pixel n of N and head hh of 8,
 // over the pixel's A2 view tokens (q, k, v [N, A2, C], dh = C / 8):
 //   s_ij = (q_i * scale) . k_j        out_i = sum_j softmax_j(s_ij) v_j
-// computed as an online softmax over the key views j = 0 .. A2-1: a running
-// max m (from -1e30), a running sum l and an accumulator, both rescaled by
-// exp(m_old - m_new) at each key; out = acc / l. m and l per (token, head)
-// and the output itself are the residuals of the backward, which returns
-// dq, dk, dv from (q, k, v, out, m, l, dout):
-//   D_i = dout_i . out_i (per head)   a_ij = exp(s_ij - m_i) / l_i
-//   ds_ij = a_ij (dout_i . v_j - D_i)
+// with m_i = max_j s_ij and l_i = sum_j exp(s_ij - m_i) per (token, head).
+// (out, m, l) are the residuals of the backward, which returns dq, dk, dv
+// from (q, k, v, out, m, l, dout):
+//   D_i = dout_i . out_i (per head)   p_ij = exp(s_ij - m_i) / l_i
+//   ds_ij = p_ij (dout_i . v_j - D_i)
 //   dq_i = scale sum_j ds_ij k_j      dk_j = sum_i ds_ij (q_i * scale)
-//   dv_j = sum_i a_ij dout_i
+//   dv_j = sum_i p_ij dout_i
 // The q/k/v/out projections stay outside (torch.matmul), as the JAX package
-// leaves them to XLA.
+// leaves them to XLA. The wrappers launch K7's kernels (ang_attn.cu) under
+// K8's names for the forward at A2 <= 128 (the same function) and for the
+// backward up to 32 views (where K7 holds p and dp in registers and runs
+// faster). The forward here takes the view counts past K7's, where a
+// pixel's q, k, v no longer fit K7's two stages (244 KB at A2 = 144, C = 64)
+// and its 8 heads x 72 query pairs no longer fit 512 threads; the backward
+// takes any A2 and runs from 33 views on.
 //
-// The TPU kernel holds a chunk of 32 pixels with all their views in VMEM
-// and walks fori_loop(0, A2) over whole key views; pixel pairs are packed
-// side by side to fill its lanes. Here no view count is assumed to fit
-// shared memory (A2 = 169 at C = 64 is 2 x 43 KB, larger is legal): a block
-// serves one pixel and up to NT (query view, head) pairs of it, a thread
-// owns one such pair with its (m, l, acc) in registers, and the pixel's key
-// views pass through shared memory in chunks of KC rows. Threads of a warp
-// are 4 queries x 8 heads, so a key row is read as 8 head segments, each a
-// broadcast to 4 threads. N needs no padding: the grid has one row of blocks
-// per pixel.
+// The TPU kernel holds a chunk of 32 pixels with all their views in VMEM and
+// walks fori_loop(0, A2) over whole key views. Here a tile is one pixel's
+// head group: HG of the 8 heads (the most whose items fit 256 threads; at
+// least 16 bytes of a row), so every column of k and v is staged by exactly
+// one tile, and the tiles of one pixel run in neighbouring blocks. Both
+// kernels are persistent (tiles blockIdx.x, blockIdx.x + gridDim.x, ...), and
+// the tile's key (or query) views pass through a ring of NS = 3 cp.async
+// stages of KS = 32 rows of the group's columns; the ring runs on across the
+// block's tiles, so the next tile's first rows land while this one computes.
+// Every score is the forward's arithmetic: q scaled first (one f32 product),
+// then one fmaf chain over d; m is the exact maximum, and the backward
+// rebuilds the scores bit for bit. Every output element is written by one
+// thread in a fixed order, without atomics: a call repeats bit for bit.
 //
-// The backward has no atomics. Phase A: the thread is a query, takes D from
-// its saved output, and sweeps the key chunks for dq. Phase B: the thread is
-// a key and sweeps the QUERY views in chunks (q, dout staged; m, l and D of
-// the chunk's queries staged beside them) to gather dk, dv. Every output
-// element is written by one thread, so a step repeats bit for bit; every
-// score is rebuilt with the forward's arithmetic (q scaled first, one fmaf
-// chain).
+// Forward (`ang_attn_sweep`, with STATS `ang_attn_sweep_res`): K7's
+// arithmetic. A thread takes two queries of one head, which share every key
+// and value read; the softmax goes in chunks of KB = 8 keys (the chunk's
+// scores and their maximum with the running m, the chunk's sums from 0, one
+// rescale a chunk: l = fmaf(l, r, l_c), o = fmaf(o, r, o_c)), so l and out
+// are summed in two levels and no key costs a correction exp. A tile takes
+// up to 2 x 512 / HG queries (all of them up to 1024 views, 512 at dh = 2;
+// past that the queries split into blocks whose tiles each stream the keys,
+// from L2). The tile's q rows come with its first key stage into one of two
+// q buffers, and the output overwrites the thread's own q rows there and
+// leaves as 16-byte pieces of the group's columns, row after row; m and l
+// likewise.
+// Bound on this card: at [9216, 144, 64] 48.9 GFLOP, 0.730 ms on the FP32
+// pipes, against 0.406 ms of bytes. It runs 2.62-2.85 ms there (NVIDIA H100
+// 80GB HBM3, 700 W; compare_k8), held back, as K7 is, by its instruction
+// stream: a (query, key, head) triple takes 16 FMA of ~31 instructions, 8 of
+// them the accurate expf.
 //
-// Bound on this card: the bytes. At [16384, 25, 64] the forward moves
-// 4 x 105 MB (0.125 ms at 3.35 TB/s) for 2.6 GFLOP (0.04 ms at 67 TFLOP/s).
+// Backward (`ang_attn_sweep_bwd`): two phases a tile, each score built twice.
+// * Query phase, a thread (head, query i): D_i = dout_i . out_i once, m_i,
+//   1 / l_i, then one pass over the streamed k, v stages: s_ij, p_ij =
+//   exp(s_ij - m_i) * (1 / l_i), dp_ij, ds_ij = p_ij (dp_ij - D_i), dq_i.
+//   {m_i, 1 / l_i, D_i} go to shared memory as one float4 a (query, head).
+// * Key phase, a thread (head, key j): over the streamed (q, dout) stages
+//   (q scaled in place once a stage, by the forward's product), the same
+//   p_ij and ds_ij from the float4 of query i; dk_j = sum_i ds_ij q_i scale,
+//   dv_j = sum_i p_ij dout_i.
+// Every sum over keys or queries goes in two levels: fmaf chains over chunks
+// of 8 from 0, the chunks added in order. Outputs go straight from the
+// registers, 8 to 32 bytes a thread. Where a tile's items pass 512 threads
+// (one head past 512 views, two at dh = 2 past 256) a phase runs in rounds,
+// each streaming the stages again. Bound: 10 dh FLOP a pair and head, 0.406 ms at
+// [2048, 144, 64] against 0.186 ms of bytes; it runs 1.91 ms there, and from
+// 33 views on it beats K7's backward, which holds p and dp in registers only
+// up to 32 keys (compare_k8).
 
-#include "attn.cuh"
+#include <climits>
+
+#include "ang_attn.cuh"
 
 using namespace lft;
 
 namespace {
 
 constexpr int H = 8;
-constexpr int KC = 32;   // key (or query) views staged per chunk
+constexpr int KS = 32;        // key (or query) rows a stage
+constexpr int NS = 3;         // stages of the ring
+constexpr int NT_TILE = 256;  // items (query pairs or tokens x heads) a tile, where heads allow
 
-// ---- forward: one thread per (query view, head) of the block's pixel ------
-template <int DH, bool STATS>
-__global__ void __launch_bounds__(NT)
-    ang_attn_sweep_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ out,
-                          float* __restrict__ m_out, float* __restrict__ l_out, int A2,
-                          float scale) {
-  constexpr int C = H * DH, LD = C + 4;
-  __shared__ float4 kt4[KC * LD / 4], vt4[KC * LD / 4];
-  float* KT = reinterpret_cast<float*>(kt4);     // [KC][LD]
-  float* VT = reinterpret_cast<float*>(vt4);
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * A2;
-  const int item = blockIdx.y * NT + threadIdx.x;
-  const bool active = item < A2 * H;
-  const int qi = item / H, hh = item % H;
-  const size_t off = (row0 + qi) * C + hh * DH;
-
-  float qs[DH], o[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) qs[d] = o[d] = 0.f;
-  if (active) {
-    ldg<DH>(q + off, qs);
-#pragma unroll
-    for (int d = 0; d < DH; ++d) qs[d] *= scale;
-  }
-  float m = -1e30f, l = 0.f;
-  for (int j0 = 0; j0 < A2; j0 += KC) {
-    const int nk = min(KC, A2 - j0);
-    if (j0) __syncthreads();                     // the last chunk's readers are done
-    stage<C>(KT, k, row0 + j0, nk);
-    stage<C>(VT, v, row0 + j0, nk);
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < nk; ++j) {
-      float kr[DH], vr[DH];
-      ld<DH>(KT + j * LD + hh * DH, kr);
-      ld<DH>(VT + j * LD + hh * DH, vr);
-      const float s = dot<DH>(qs, kr);
-      const float mn = fmaxf(m, s);
-      const float corr = expf(m - mn), e = expf(s - mn);
-      l = fmaf(l, corr, e);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) o[d] = fmaf(o[d], corr, e * vr[d]);
-      m = mn;
-    }
-  }
-  if (!active) return;
-  const float inv = 1.f / l;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) o[d] *= inv;
-  st<DH>(out + off, o);
-  if constexpr (STATS) {
-    m_out[row0 * H + item] = m;
-    l_out[row0 * H + item] = l;
-  }
+// The most heads of a group (8, 4, 2, 1) whose `per_head` items fit NT_TILE,
+// and at least 16 bytes of a row (2 heads at dh = 2).
+inline int head_group(int per_head, int DH) {
+  int hg = H;
+  while (hg > 1 && hg * per_head > NT_TILE) hg /= 2;
+  return std::max(hg, 4 / DH);
 }
 
-// ---- backward: the thread as a query (D, dq), then as a key (dk, dv) ------
-template <int DH>
-__global__ void __launch_bounds__(NT)
-    ang_attn_sweep_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ dout,
-                              const float* __restrict__ out, const float* __restrict__ m_in,
-                              const float* __restrict__ l_in, float* __restrict__ dq_out,
-                              float* __restrict__ dk_out, float* __restrict__ dv_out, int A2,
-                              float scale) {
-  constexpr int C = H * DH, LD = C + 4;
-  __shared__ float4 at4[KC * LD / 4], bt4[KC * LD / 4];
-  __shared__ float MT[KC * H], LT[KC * H], DT[KC * H];
-  float* AT = reinterpret_cast<float*>(at4);     // k rows, then q rows
-  float* BT = reinterpret_cast<float*>(bt4);     // v rows, then dout rows
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * A2;
-  const int item = blockIdx.y * NT + threadIdx.x;
-  const bool active = item < A2 * H;
-  const int me = item / H, hh = item % H;
-  const size_t off = (row0 + me) * C + hh * DH;
+struct FwdGeo {
+  int HG, QBP, NQB, nt;   // heads a tile, query pairs a tile, query blocks, threads
+  size_t bytes;           // shared memory a block
+};
 
-  // phase A: me as the query
-  float qs[DH], g[DH], acc[DH];
-  float m_me = 0.f, inv = 0.f, d_me = 0.f;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) qs[d] = g[d] = acc[d] = 0.f;
-  if (active) {
-    float o[DH];
-    ldg<DH>(q + off, qs);
-    ldg<DH>(dout + off, g);
-    ldg<DH>(out + off, o);
-#pragma unroll
-    for (int d = 0; d < DH; ++d) qs[d] *= scale;
-    d_me = dot<DH>(g, o);
-    m_me = __ldg(m_in + row0 * H + item);
-    inv = 1.f / __ldg(l_in + row0 * H + item);
-  }
-  for (int j0 = 0; j0 < A2; j0 += KC) {
-    const int nk = min(KC, A2 - j0);
-    if (j0) __syncthreads();
-    stage<C>(AT, k, row0 + j0, nk);
-    stage<C>(BT, v, row0 + j0, nk);
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < nk; ++j) {
-      float kr[DH], vr[DH];
-      ld<DH>(AT + j * LD + hh * DH, kr);
-      ld<DH>(BT + j * LD + hh * DH, vr);
-      const float ds = expf(dot<DH>(qs, kr) - m_me) * inv * (dot<DH>(g, vr) - d_me);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] = fmaf(ds, kr[d], acc[d]);
-    }
-  }
-  if (active) {
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= scale;
-    st<DH>(dq_out + off, acc);
-  }
+struct BwdGeo {
+  int HG, rounds, nt;     // heads a tile, rounds a phase, threads
+  size_t bytes;
+};
 
-  // phase B: me as the key, the query views in chunks
-  float kme[DH], vme[DH], dk[DH], dv[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) kme[d] = vme[d] = dk[d] = dv[d] = 0.f;
-  if (active) {
-    ldg<DH>(k + off, kme);
-    ldg<DH>(v + off, vme);
-  }
-  for (int i0 = 0; i0 < A2; i0 += KC) {
-    const int ni = min(KC, A2 - i0);
-    __syncthreads();
-    stage<C>(AT, q, row0 + i0, ni);
-    stage<C>(BT, dout, row0 + i0, ni);
-    for (int idx = threadIdx.x; idx < ni * H; idx += NT) {
-      const size_t s = (row0 + i0) * H + idx;        // (query view, head) of the chunk
-      const size_t o = (row0 + i0 + idx / H) * C + (idx % H) * DH;
-      float go[DH], oo[DH];
-      ldg<DH>(dout + o, go);
-      ldg<DH>(out + o, oo);
-      MT[idx] = __ldg(m_in + s);
-      LT[idx] = __ldg(l_in + s);
-      DT[idx] = dot<DH>(go, oo);
+inline FwdGeo fwd_geo(int A2, int C, bool stats) {
+  const int DH = C / H, QP = (A2 + 1) / 2, HG = head_group(QP, DH);
+  const int QBP = std::min(QP, NT_MAX / HG), NQB = (QP + QBP - 1) / QBP;
+  const int LDW = HG * DH + 4, QR = 2 * QBP;
+  const size_t floats = NS * 2 * KS * LDW + 2 * QR * LDW + (stats ? 2 * QR * HG : 0);
+  return {HG, QBP, NQB, round32(HG * QBP), floats * 4};
+}
+
+inline BwdGeo bwd_geo(int A2, int C) {
+  const int DH = C / H, HG = head_group(A2, DH);
+  const int items = HG * A2, rounds = (items + NT_MAX - 1) / NT_MAX;
+  const size_t floats = NS * 2 * KS * (HG * DH + 4) + static_cast<size_t>(4) * HG * A2;
+  return {HG, rounds, round32((items + rounds - 1) / rounds), floats * 4};
+}
+
+// ---- forward: a thread takes two queries of one head of the group ---------
+template <int DH, int HG, bool STATS>
+__global__ void __launch_bounds__(NT_MAX)
+    sweep_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ m_out, float* __restrict__ l_out, int N, int A2,
+                     int QBP, int NQB, float scale) {
+  constexpr int C = H * DH, W = HG * DH, LDW = W + 4, NG = H / HG;
+  constexpr int SF = 2 * KS * LDW;           // floats of a stage: k, v [KS][LDW]
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int QR = 2 * QBP;                    // query rows a tile at most
+  float* QB = smem + NS * SF;                // two q buffers [QR][LDW]
+  float* MS = QB + 2 * QR * LDW;             // [QR][HG] each (STATS)
+  float* LS = MS + QR * HG;
+  const int tiles = N * NG * NQB, nc = (A2 + KS - 1) / KS, tid = threadIdx.x;
+  // tile t: query block t % NQB of head group t / NQB % NG of pixel t / (NQB NG)
+  auto rows_of = [&](int t, size_t& row0, int& col0, int& i0, int& nq) {
+    row0 = static_cast<size_t>(t / (NQB * NG)) * A2;
+    col0 = t / NQB % NG * W;
+    i0 = t % NQB * QR;
+    nq = min(QR, A2 - i0);
+  };
+  // chunk f of the block's stream: key rows [c KS, c KS + KS) of its tile
+  // f / nc (c = f % nc) into stage f % NS; the first brings the tile's q
+  auto issue = [&](int f) {
+    const int t = blockIdx.x + f / nc * gridDim.x, c = f % nc;
+    if (t < tiles) {
+      size_t row0;
+      int col0, i0, nq;
+      rows_of(t, row0, col0, i0, nq);
+      float* dst = smem + f % NS * SF;
+      const int n = min(KS, A2 - c * KS);
+      stage_cols<C, W, LDW>(dst, k, row0 + c * KS, n, col0);
+      stage_cols<C, W, LDW>(dst + KS * LDW, v, row0 + c * KS, n, col0);
+      if (c == 0) stage_cols<C, W, LDW>(QB + (f / nc & 1) * QR * LDW, q, row0 + i0, nq, col0);
     }
-    __syncthreads();
-    if (!active) continue;
-    for (int i = 0; i < ni; ++i) {
-      float qo[DH], go[DH];
-      ld<DH>(AT + i * LD + hh * DH, qo);
-      ld<DH>(BT + i * LD + hh * DH, go);
+    cp_async_commit();
+  };
+
+  for (int f = 0; f < NS - 1; ++f) issue(f);
+  const int pr = tid % QBP, hh = tid / QBP;
+  int f = 0;
+  for (int t = blockIdx.x, it = 0; t < tiles; t += gridDim.x, ++it) {
+    size_t row0;
+    int col0, i0, nq;
+    rows_of(t, row0, col0, i0, nq);
+    float* qt = QB + (it & 1) * QR * LDW;
+    const bool active = hh < HG && 2 * pr < nq;
+    const int ia = 2 * pr, ib = min(ia + 1, nq - 1);   // a lone last query runs twice
+    float qa[DH], qb[DH], oa[DH], ob[DH];
 #pragma unroll
-      for (int d = 0; d < DH; ++d) qo[d] *= scale;
-      const float pr = expf(dot<DH>(qo, kme) - MT[i * H + hh]) / LT[i * H + hh];
-      const float ds = pr * (dot<DH>(go, vme) - DT[i * H + hh]);
+    for (int d = 0; d < DH; ++d) qa[d] = qb[d] = oa[d] = ob[d] = 0.f;
+    float ma = -CUDART_INF_F, mb = -CUDART_INF_F, la = 0.f, lb = 0.f;
+    for (int c = 0; c < nc; ++c, ++f) {
+      cp_async_wait<NS - 2>();
+      __syncthreads();   // chunk f has landed; stage (f - 1) % NS's last reader is done
+      issue(f + NS - 1);
+      if (!active) continue;
+      if (c == 0) {
+        ld<DH>(qt + ia * LDW + hh * DH, qa);
+        ld<DH>(qt + ib * LDW + hh * DH, qb);
+#pragma unroll
+        for (int d = 0; d < DH; ++d) {
+          qa[d] *= scale;
+          qb[d] *= scale;
+        }
+      }
+      const float* kp = smem + f % NS * SF + hh * DH;
+      const float* vp = kp + KS * LDW;
+      const int nk = min(KS, A2 - c * KS);
+      auto chunk = [&](int j0, auto full) {
+        float sa[KB], sb[KB];
+        float ca = ma, cb = mb;
+#pragma unroll
+        for (int jj = 0; jj < KB; ++jj) {
+          sa[jj] = sb[jj] = -CUDART_INF_F;
+          if (decltype(full)::value || j0 + jj < nk) {
+            float kr[DH];
+            ld<DH>(kp + (j0 + jj) * LDW, kr);
+            sa[jj] = dot<DH>(qa, kr);
+            sb[jj] = dot<DH>(qb, kr);
+          }
+          ca = fmaxf(ca, sa[jj]);
+          cb = fmaxf(cb, sb[jj]);
+        }
+        // the chunk's sums from 0, then one rescale of the running ones
+        float lca = 0.f, lcb = 0.f, pa[DH], pb[DH];
+#pragma unroll
+        for (int d = 0; d < DH; ++d) pa[d] = pb[d] = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < KB; ++jj) {
+          if (decltype(full)::value || j0 + jj < nk) {
+            const float ea = expf(sa[jj] - ca), eb = expf(sb[jj] - cb);
+            float vr[DH];
+            ld<DH>(vp + (j0 + jj) * LDW, vr);
+            lca += ea;
+            lcb += eb;
+#pragma unroll
+            for (int d = 0; d < DH; ++d) {
+              pa[d] = fmaf(ea, vr[d], pa[d]);
+              pb[d] = fmaf(eb, vr[d], pb[d]);
+            }
+          }
+        }
+        const float ra = expf(ma - ca), rb = expf(mb - cb);
+        la = fmaf(la, ra, lca);
+        lb = fmaf(lb, rb, lcb);
+#pragma unroll
+        for (int d = 0; d < DH; ++d) {
+          oa[d] = fmaf(oa[d], ra, pa[d]);
+          ob[d] = fmaf(ob[d], rb, pb[d]);
+        }
+        ma = ca;
+        mb = cb;
+      };
+      chunks(nk, chunk);
+    }
+    if (active) {
+      const float ia_ = 1.f / la, ib_ = 1.f / lb;
 #pragma unroll
       for (int d = 0; d < DH; ++d) {
-        dk[d] = fmaf(ds, qo[d], dk[d]);
-        dv[d] = fmaf(pr, go[d], dv[d]);
+        oa[d] *= ia_;
+        ob[d] *= ib_;
+      }
+      // the output over the thread's own q rows, which no other thread reads
+      st<DH>(qt + ia * LDW + hh * DH, oa);
+      if (ia + 1 < nq) st<DH>(qt + ib * LDW + hh * DH, ob);
+      if constexpr (STATS) {
+        MS[ia * HG + hh] = ma;
+        LS[ia * HG + hh] = la;
+        if (ia + 1 < nq) {
+          MS[ib * HG + hh] = mb;
+          LS[ib * HG + hh] = lb;
+        }
+      }
+    }
+    __syncthreads();
+    store_cols<C, W, LDW>(out, qt, row0 + i0, nq, col0);
+    if constexpr (STATS) {
+      for (int i = tid; i < nq * HG; i += blockDim.x) {
+        const size_t o = (row0 + i0 + i / HG) * H + col0 / DH + i % HG;
+        m_out[o] = MS[i];
+        l_out[o] = LS[i];
       }
     }
   }
-  if (active) {
-    st<DH>(dk_out + off, dk);
-    st<DH>(dv_out + off, dv);
+}
+
+// ---- backward: a query phase (D, dq), then a key phase (dk, dv) ------------
+template <int DH, int HG>
+__global__ void __launch_bounds__(NT_MAX)
+    sweep_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ out, const float* __restrict__ m_in,
+                     const float* __restrict__ l_in, float* __restrict__ dq_out,
+                     float* __restrict__ dk_out, float* __restrict__ dv_out, int N, int A2,
+                     int rounds, float scale) {
+  constexpr int C = H * DH, W = HG * DH, LDW = W + 4, NG = H / HG;
+  constexpr int SF = 2 * KS * LDW;           // a stage: k, v or q (scaled), dout [KS][LDW]
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* SD = smem + NS * SF;                // [A2][HG] float4 {m, 1 / l, D, 0}
+  const int tiles = N * NG, nc = (A2 + KS - 1) / KS, RC = rounds * nc;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // chunk f of the block's stream, tile f / (2 RC) (head group t % NG of
+  // pixel t / NG): first RC chunks of (k, v) rows (the query phase's
+  // rounds), then RC of (q, dout) rows (the key phase's); rows [c KS, c KS +
+  // KS), c = f % nc, into stage f % NS
+  auto issue = [&](int f) {
+    const int t = blockIdx.x + f / (2 * RC) * gridDim.x, e = f % (2 * RC), c = e % nc;
+    if (t < tiles) {
+      const bool keys = e < RC;
+      const size_t row0 = static_cast<size_t>(t / NG) * A2 + c * KS;
+      const int col0 = t % NG * W, n = min(KS, A2 - c * KS);
+      float* dst = smem + f % NS * SF;
+      stage_cols<C, W, LDW>(dst, keys ? k : q, row0, n, col0);
+      stage_cols<C, W, LDW>(dst + KS * LDW, keys ? v : dout, row0, n, col0);
+    }
+    cp_async_commit();
+  };
+
+  for (int f = 0; f < NS - 1; ++f) issue(f);
+  int f = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const size_t row0 = static_cast<size_t>(t / NG) * A2;
+    const int col0 = t % NG * W;
+
+    // query phase: thread (head hh of the group, query i), queries fastest
+    for (int r = 0; r < rounds; ++r) {
+      const int item = r * nt + tid, i = item % A2, hh = item / A2;
+      const bool active = hh < HG;
+      const size_t o = (row0 + i) * C + col0 + hh * DH;
+      float qs[DH], g[DH], ov[DH], dq[DH];
+      float mi = 0.f, li = 1.f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) qs[d] = g[d] = ov[d] = dq[d] = 0.f;
+      if (active) {   // before the first stage's wait, so that the loads overlap it
+        ldg<DH>(q + o, qs);
+        ldg<DH>(dout + o, g);
+        ldg<DH>(out + o, ov);
+        mi = __ldg(m_in + (row0 + i) * H + col0 / DH + hh);
+        li = __ldg(l_in + (row0 + i) * H + col0 / DH + hh);
+      }
+      float inv = 0.f, dsum = 0.f;
+      for (int c = 0; c < nc; ++c, ++f) {
+        cp_async_wait<NS - 2>();
+        __syncthreads();   // also: the last tile's key phase is done with SD
+        issue(f + NS - 1);
+        if (!active) continue;
+        if (c == 0) {
+#pragma unroll
+          for (int d = 0; d < DH; ++d) qs[d] *= scale;
+          inv = 1.f / li;
+          dsum = dot<DH>(g, ov);
+          store4(SD + (i * HG + hh) * 4, make_float4(mi, inv, dsum, 0.f));
+        }
+        const float* kp = smem + f % NS * SF + hh * DH;
+        const float* vp = kp + KS * LDW;
+        const int nk = min(KS, A2 - c * KS);
+        auto qchunk = [&](int j0, auto full) {
+          float dc[DH] = {};
+#pragma unroll
+          for (int j = j0; j < j0 + KB; ++j) {
+            if (decltype(full)::value || j < nk) {
+              float kr[DH], vr[DH];
+              ld<DH>(kp + j * LDW, kr);
+              ld<DH>(vp + j * LDW, vr);
+              const float ds = expf(dot<DH>(qs, kr) - mi) * inv * (dot<DH>(g, vr) - dsum);
+#pragma unroll
+              for (int d = 0; d < DH; ++d) dc[d] = fmaf(ds, kr[d], dc[d]);
+            }
+          }
+#pragma unroll
+          for (int d = 0; d < DH; ++d) dq[d] += dc[d];
+        };
+        chunks(nk, qchunk);
+      }
+      if (active) {
+#pragma unroll
+        for (int d = 0; d < DH; ++d) dq[d] *= scale;
+        st<DH>(dq_out + o, dq);
+      }
+    }
+
+    // key phase: thread (head hh of the group, key j), keys fastest
+    for (int r = 0; r < rounds; ++r) {
+      const int item = r * nt + tid, j = item % A2, hh = item / A2;
+      const bool active = hh < HG;
+      const size_t o = (row0 + j) * C + col0 + hh * DH;
+      float kme[DH], vme[DH], dk[DH], dv[DH];
+#pragma unroll
+      for (int d = 0; d < DH; ++d) kme[d] = vme[d] = dk[d] = dv[d] = 0.f;
+      if (active) {
+        ldg<DH>(k + o, kme);
+        ldg<DH>(v + o, vme);
+      }
+      for (int c = 0; c < nc; ++c, ++f) {
+        cp_async_wait<NS - 2>();
+        __syncthreads();   // also: SD is complete
+        issue(f + NS - 1);
+        float* qp = smem + f % NS * SF;
+        const int ni = min(KS, A2 - c * KS);
+        for (int x = tid; x < ni * W; x += nt) qp[x / W * LDW + x % W] *= scale;
+        __syncthreads();
+        if (!active) continue;
+        qp += hh * DH;
+        const float* gp = qp + KS * LDW;
+        const float* sd = SD + (c * KS * HG + hh) * 4;
+        auto kchunk = [&](int i0, auto full) {
+          float ck[DH] = {}, cv[DH] = {};
+#pragma unroll
+          for (int i = i0; i < i0 + KB; ++i) {
+            if (decltype(full)::value || i < ni) {
+              float qo[DH], go[DH];
+              ld<DH>(qp + i * LDW, qo);
+              ld<DH>(gp + i * LDW, go);
+              const float4 s = load4(sd + i * HG * 4);
+              const float pr = expf(dot<DH>(qo, kme) - s.x) * s.y;
+              const float ds = pr * (dot<DH>(go, vme) - s.z);
+#pragma unroll
+              for (int d = 0; d < DH; ++d) {
+                ck[d] = fmaf(ds, qo[d], ck[d]);
+                cv[d] = fmaf(pr, go[d], cv[d]);
+              }
+            }
+          }
+#pragma unroll
+          for (int d = 0; d < DH; ++d) {
+            dk[d] += ck[d];
+            dv[d] += cv[d];
+          }
+        };
+        chunks(ni, kchunk);
+      }
+      if (active) {
+        st<DH>(dk_out + o, dk);
+        st<DH>(dv_out + o, dv);
+      }
+    }
   }
 }
 
-inline bool bad_shape(int N, int A2, int heads) {
-  return heads != H || N < 1 || A2 < 1 || (static_cast<long long>(A2) * H + NT - 1) / NT > 65535;
+using FwdKernel = void (*)(const float*, const float*, const float*, float*, float*, float*, int,
+                           int, int, int, float);
+using BwdKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                           const float*, const float*, float*, float*, float*, int, int, int,
+                           float);
+
+// The instances: past 128 views the forward's groups are 1 or 2 heads (2 at
+// dh = 2); the backward takes every A2, so every group.
+template <bool STATS>
+FwdKernel fwd_kernel(int DH, int HG) {
+  switch (DH * 16 + HG) {
+    case 2 * 16 + 2: return sweep_fwd_kernel<2, 2, STATS>;
+    case 4 * 16 + 1: return sweep_fwd_kernel<4, 1, STATS>;
+    case 4 * 16 + 2: return sweep_fwd_kernel<4, 2, STATS>;
+    case 8 * 16 + 1: return sweep_fwd_kernel<8, 1, STATS>;
+    case 8 * 16 + 2: return sweep_fwd_kernel<8, 2, STATS>;
+    default: return nullptr;
+  }
+}
+
+BwdKernel bwd_kernel(int DH, int HG) {
+  switch (DH * 16 + HG) {
+    case 2 * 16 + 2: return sweep_bwd_kernel<2, 2>;
+    case 2 * 16 + 4: return sweep_bwd_kernel<2, 4>;
+    case 2 * 16 + 8: return sweep_bwd_kernel<2, 8>;
+    case 4 * 16 + 1: return sweep_bwd_kernel<4, 1>;
+    case 4 * 16 + 2: return sweep_bwd_kernel<4, 2>;
+    case 4 * 16 + 4: return sweep_bwd_kernel<4, 4>;
+    case 4 * 16 + 8: return sweep_bwd_kernel<4, 8>;
+    case 8 * 16 + 1: return sweep_bwd_kernel<8, 1>;
+    case 8 * 16 + 2: return sweep_bwd_kernel<8, 2>;
+    case 8 * 16 + 4: return sweep_bwd_kernel<8, 4>;
+    case 8 * 16 + 8: return sweep_bwd_kernel<8, 8>;
+    default: return nullptr;
+  }
+}
+
+inline bool bad_shape(int N, int A2, int C, int heads) {
+  return heads != H || N < 1 || A2 < 1 || C % H || C / H > 8;
 }
 
 template <bool STATS>
-int ang_attn_sweep(const float* q, const float* k, const float* v, float* out, float* m,
-                   float* l, int N, int A2, int C, int heads, float scale, cudaStream_t s) {
-  if (bad_shape(N, A2, heads)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(N, (A2 * H + NT - 1) / NT);
-  switch (C / H) {
-    case 2: ang_attn_sweep_kernel<2, STATS><<<grid, NT, 0, s>>>(q, k, v, out, m, l, A2, scale); break;
-    case 4: ang_attn_sweep_kernel<4, STATS><<<grid, NT, 0, s>>>(q, k, v, out, m, l, A2, scale); break;
-    case 8: ang_attn_sweep_kernel<8, STATS><<<grid, NT, 0, s>>>(q, k, v, out, m, l, A2, scale); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int sweep_fwd(const float* q, const float* k, const float* v, float* out, float* m, float* l,
+              int N, int A2, int C, int heads, float scale, cudaStream_t s) {
+  // A2 <= 128 is K7's (and a q buffer's next use needs NS - 1 stages a tile)
+  if (bad_shape(N, A2, C, heads) || A2 <= 128) return static_cast<int>(cudaErrorInvalidValue);
+  const FwdGeo g = fwd_geo(A2, C, STATS);
+  const FwdKernel kernel = fwd_kernel<STATS>(C / H, g.HG);
+  const long long tiles = static_cast<long long>(N) * (H / g.HG) * g.NQB;
+  if (!kernel || g.bytes > SMEM_MAX || tiles > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0;
+  if (const int e = persistent_grid(kernel, g.nt, g.bytes, static_cast<int>(tiles), &grid))
+    return e;
+  kernel<<<grid, g.nt, g.bytes, s>>>(q, k, v, out, m, l, N, A2, g.QBP, g.NQB, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,41 +482,38 @@ int ang_attn_sweep(const float* q, const float* k, const float* v, float* out, f
 
 LFT_EXPORT_ERROR_STRING
 
-// q, k, v, out [N, A2, C], C = 8 heads x {2, 4, 8}, any A2. Each returns the
-// launch's cudaGetLastError(), or cudaErrorInvalidValue for a shape it does
-// not take.
+// q, k, v, out [N, A2, C], C = 8 heads x {2, 4, 8}, A2 > 128 (K7's kernels
+// take the rest). Each returns the launch's cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape it does not take.
 extern "C" int lft_ang_attn_sweep(const float* q, const float* k, const float* v, float* out,
                                   int N, int A2, int C, int heads, float scale, void* stream) {
-  return ang_attn_sweep<false>(q, k, v, out, nullptr, nullptr, N, A2, C, heads, scale,
-                               static_cast<cudaStream_t>(stream));
+  return sweep_fwd<false>(q, k, v, out, nullptr, nullptr, N, A2, C, heads, scale,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // The same, also writing m, l [N, A2, 8] (with out, the residuals of the backward).
 extern "C" int lft_ang_attn_sweep_res(const float* q, const float* k, const float* v,
                                       float* out, float* m, float* l, int N, int A2, int C,
                                       int heads, float scale, void* stream) {
-  return ang_attn_sweep<true>(q, k, v, out, m, l, N, A2, C, heads, scale,
-                              static_cast<cudaStream_t>(stream));
+  return sweep_fwd<true>(q, k, v, out, m, l, N, A2, C, heads, scale,
+                         static_cast<cudaStream_t>(stream));
 }
 
+// Any A2 whose {m, 1 / l, D} of a head group fit a block's shared memory.
 extern "C" int lft_ang_attn_sweep_bwd(const float* q, const float* k, const float* v,
                                       const float* dout, const float* out, const float* m,
                                       const float* l, float* dq, float* dk, float* dv, int N,
                                       int A2, int C, int heads, float scale, void* stream) {
-  if (bad_shape(N, A2, heads)) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(N, (A2 * H + NT - 1) / NT);
-  switch (C / H) {
-#define LFT_SWEEP_CASE(DHV)                                                              \
-    case DHV:                                                                            \
-      ang_attn_sweep_bwd_kernel<DHV><<<grid, NT, 0, s>>>(q, k, v, dout, out, m, l, dq, dk, dv, \
-                                                         A2, scale);                     \
-      break;
-    LFT_SWEEP_CASE(2)
-    LFT_SWEEP_CASE(4)
-    LFT_SWEEP_CASE(8)
-#undef LFT_SWEEP_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_shape(N, A2, C, heads)) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdGeo g = bwd_geo(A2, C);
+  const BwdKernel kernel = bwd_kernel(C / H, g.HG);
+  const long long tiles = static_cast<long long>(N) * (H / g.HG);
+  if (!kernel || g.bytes > SMEM_MAX || tiles > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0;
+  if (const int e = persistent_grid(kernel, g.nt, g.bytes, static_cast<int>(tiles), &grid))
+    return e;
+  kernel<<<grid, g.nt, g.bytes, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, dout, out, m, l, dq, dk, dv, N, A2, g.rounds, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -122,14 +122,16 @@ def _check_shape(kernel: str, q, num_heads: int) -> None:
             f"A2 <= {BLK}; got shape {tuple(q.shape)}, heads={num_heads}")
 
 
-def ang_attn_fwd(q, k, v, num_heads: int, with_stats: bool = False):
+def ang_attn_fwd(q, k, v, num_heads: int, with_stats: bool = False, kernel: str = "ang_attn"):
     """K7's forward: the CUDA kernel for CUDA tensors (`ang_attn`, or
     `ang_attn_res` with stats), the plain version for CPU tensors.
-    with_stats: (out, m, l), else out."""
+    with_stats: (out, m, l), else out. `kernel`: the name the launch is
+    counted under (K8 launches this kernel as `ang_attn_sweep` at A2 <= 128),
+    `_res` appended with stats."""
     if q.device.type != "cuda":
         out, m, l = ang_attention_blockdiag_plain(q, k, v, num_heads)
         return (out, m, l) if with_stats else out
-    name = "ang_attn_res" if with_stats else "ang_attn"
+    name = kernel + "_res" if with_stats else kernel
     _check_shape(name, q, num_heads)
     _build.check_cuda_args(name, q, k, v)
     N, A2, C = q.shape
@@ -148,16 +150,17 @@ def ang_attn_fwd(q, k, v, num_heads: int, with_stats: bool = False):
     return out, m, l
 
 
-def ang_attn_bwd(q, k, v, m, l, dout, num_heads: int):
-    """K7's backward (`ang_attn_bwd`): (dq, dk, dv) [N, A2, C]."""
+def ang_attn_bwd(q, k, v, m, l, dout, num_heads: int, kernel: str = "ang_attn_bwd"):
+    """K7's backward (`ang_attn_bwd`): (dq, dk, dv) [N, A2, C]. `kernel`: the
+    name the launch is counted under."""
     if q.device.type != "cuda":
         return ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, num_heads)
-    _check_shape("ang_attn_bwd", q, num_heads)
-    _build.check_cuda_args("ang_attn_bwd", q, k, v, dout, m, l)
+    _check_shape(kernel, q, num_heads)
+    _build.check_cuda_args(kernel, q, k, v, dout, m, l)
     N, A2, C = q.shape
     outs = tuple(torch.empty_like(q) for _ in range(3))
     fn = _build.bind("ang_attn", "lft_ang_attn_bwd", 9, (ctypes.c_int,) * 4 + (ctypes.c_float,))
-    _build.launch("ang_attn", "ang_attn_bwd", fn, q.device,
+    _build.launch("ang_attn", kernel, fn, q.device,
                   *(t.data_ptr() for t in (q, k, v, dout, m, l, *outs)),
                   N, A2, C, num_heads, float(C // num_heads) ** -0.5)
     return outs

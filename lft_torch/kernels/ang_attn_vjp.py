@@ -3,10 +3,13 @@ count (counterpart of lft_tpu/kernels/ang_attn_vjp.py).
 
 `ang_attention(q, k, v, num_heads)` is full multi-head attention over the A2
 view tokens of each pixel, [N, A2, C] -> [N, A2, C], scale (C / heads)^-0.5
-inside, computed as an online softmax over the key views. On a CUDA tensor it
-launches the hand-written kernels of `lft_torch/csrc/ang_attn_sweep.cu`; on a
-CPU tensor it runs the plain PyTorch versions below. There is no fallback from
-one to the other.
+inside. On a CPU tensor it runs the plain PyTorch versions below (the JAX
+kernel's online softmax over the key views). On a CUDA tensor it launches
+hand-written kernels, counted under K8's names: the forward at A2 <= 128
+K7's (`lft_torch/csrc/ang_attn.cu`, the same function; only
+`LFT_ANG_VARIANT=sweep` sends such pixels here) and past 128 views that of
+`lft_torch/csrc/ang_attn_sweep.cu`; the backward K7's up to 32 views and
+`ang_attn_sweep.cu`'s from 33. There is no fallback from one to the other.
 
 Training: when grad mode is on and q, k or v requires grad it runs as
 `AngSweepFn`, whose forward also returns the per-(token, head) softmax max m
@@ -28,10 +31,113 @@ import ctypes
 import torch
 
 from lft_torch.kernels import _build
+from lft_torch.kernels import ang_attn_mxu as am
 from lft_torch.kernels.ang_block import _heads, _merge, _needs_grad
 from lft_torch.kernels.common import KERNEL_C
 
 M_INIT = -1e30     # the sweep's first running max, as in the JAX kernel
+
+# The launch geometry of csrc/ang_attn_sweep.cu (`fwd_geo`, `bwd_geo`, the
+# tile walk and the item maps), mirrored for the tests. Both kernels are
+# persistent over tiles of one pixel's head group; the group's key (or query)
+# rows pass through a ring of NS stages of KS rows.
+H = 8
+KS = 32            # key (or query) rows a stage
+NS = 3             # stages of the ring
+NT_TILE = 256      # items (query pairs or tokens x heads) a tile, where heads allow
+NT_MAX = am.NT_MAX
+SMEM_MAX = am.SMEM_MAX
+# Up to 32 views the backward launches K7's `ang_attn_bwd` (which ignores
+# out): there K7 holds p and dp in registers and runs faster; from 33 views
+# the streamed backward is faster (`compare_k8`, in turns at 25-128 views).
+K7_BWD_MAX = am.HOLD_MAX
+
+
+def head_group(per_head: int, dh: int) -> int:
+    """The most heads of a tile (8, 4, 2, 1) whose `per_head` items fit
+    NT_TILE, at least 16 bytes of a row (2 heads at dh = 2)."""
+    hg = H
+    while hg > 1 and hg * per_head > NT_TILE:
+        hg //= 2
+    return max(hg, 4 // dh)
+
+
+def fwd_geometry(A2: int, C: int, stats: bool = True):
+    """(heads a tile HG, query pairs a tile, query blocks a pixel's group,
+    threads, shared bytes) of `ang_attn_sweep[_res]` past 128 views: a
+    thread takes two queries of one head; a tile is one pixel's HG heads and
+    up to 2 x 512 / HG of its queries, with three stages of 32 key rows, two
+    q buffers and (stats) m, l."""
+    dh, qp = C // H, (A2 + 1) // 2
+    hg = head_group(qp, dh)
+    qbp = min(qp, NT_MAX // hg)
+    ldw, qr = hg * dh + 4, 2 * qbp
+    floats = NS * 2 * KS * ldw + 2 * qr * ldw + (2 * qr * hg if stats else 0)
+    return hg, qbp, -(-qp // qbp), am._round32(hg * qbp), floats * 4
+
+
+def bwd_geometry(A2: int, C: int):
+    """(heads a tile HG, rounds a phase, threads, shared bytes) of
+    `ang_attn_sweep_bwd`: a thread takes one (head, query) in the query phase
+    and one (head, key) in the key phase, in as many rounds as 512 threads
+    need (each streaming the stages again); three stages of 32 rows and a
+    float4 {m, 1 / l, D, 0} a (query, head) of the tile."""
+    dh = C // H
+    hg = head_group(A2, dh)
+    items = hg * A2
+    rounds = -(-items // NT_MAX)
+    floats = NS * 2 * KS * (hg * dh + 4) + 4 * hg * A2
+    return hg, rounds, am._round32(-(-items // rounds)), floats * 4
+
+
+def _chunk_rows(A2: int):
+    return [range(c * KS, min(A2, c * KS + KS)) for c in range(-(-A2 // KS))]
+
+
+def fwd_tiles(N: int, A2: int, C: int, grid: int):
+    """The tiles each of `grid` persistent blocks of the forward takes, in
+    order, as (pixel, heads, queries, staged key rows): tile t is query block
+    t % NQB of head group t // NQB % (8 / HG) of pixel t // (NQB 8 / HG)."""
+    hg, qbp, nqb, _, _ = fwd_geometry(A2, C)
+    ng, qr = H // hg, 2 * qbp
+    tiles, rows = N * ng * nqb, _chunk_rows(A2)
+    return [[(t // (nqb * ng), range(t // nqb % ng * hg, t // nqb % ng * hg + hg),
+              range(t % nqb * qr, min(A2, t % nqb * qr + qr)), rows)
+             for t in range(b, tiles, grid)] for b in range(min(grid, tiles))]
+
+
+def fwd_thread_items(A2: int, C: int, nq: int):
+    """{thread: (head of the group, queries it writes)} of a forward tile of
+    nq queries: pair pr = tid % QBP of head tid // QBP, queries 2 pr and 2 pr
+    + 1 (a lone last query runs twice and is written once)."""
+    hg, qbp, _, nt, _ = fwd_geometry(A2, C)
+    items = {}
+    for tid in range(nt):
+        pr, hh = tid % qbp, tid // qbp
+        if hh < hg and 2 * pr < nq:
+            items[tid] = (hh, [2 * pr] + ([2 * pr + 1] if 2 * pr + 1 < nq else []))
+    return items
+
+
+def bwd_tiles(N: int, A2: int, C: int, grid: int):
+    """The tiles each of `grid` persistent blocks of the backward takes, in
+    order, as (pixel, heads, staged rows of the query phase (k, v), of the
+    key phase (q, dout)): tile t is head group t % (8 / HG) of pixel
+    t // (8 / HG); each phase streams the rows once a round."""
+    hg, rounds, _, _ = bwd_geometry(A2, C)
+    ng = H // hg
+    rows = _chunk_rows(A2) * rounds
+    return [[(t // ng, range(t % ng * hg, t % ng * hg + hg), rows, rows)
+             for t in range(b, N * ng, grid)] for b in range(min(grid, N * ng))]
+
+
+def bwd_thread_items(A2: int, C: int):
+    """[(round, thread, head of the group, token)] of a backward tile: item
+    r nt + tid is token item % A2 of head item // A2 (queries in the query
+    phase, keys in the key phase)."""
+    hg, rounds, nt, _ = bwd_geometry(A2, C)
+    return [(r, tid, (r * nt + tid) // A2, (r * nt + tid) % A2)
+            for r in range(rounds) for tid in range(nt) if (r * nt + tid) // A2 < hg]
 
 
 # --------------------------------------------------------- plain versions ---
@@ -81,14 +187,17 @@ def _check_shape(kernel: str, q, num_heads: int) -> None:
 
 
 def ang_attn_sweep_fwd(q, k, v, num_heads: int, with_stats: bool = False):
-    """K8's forward: the CUDA kernel for CUDA tensors (`ang_attn_sweep`, or
-    `ang_attn_sweep_res` with stats), the plain version for CPU tensors.
+    """K8's forward: for CUDA tensors `ang_attn_sweep` (or
+    `ang_attn_sweep_res` with stats), K7's kernel at A2 <= 128 and the
+    streamed-key kernel past it; the plain version for CPU tensors.
     with_stats: (out, m, l), else out."""
     if q.device.type != "cuda":
         out, m, l = ang_attention_sweep_plain(q, k, v, num_heads)
         return (out, m, l) if with_stats else out
     name = "ang_attn_sweep_res" if with_stats else "ang_attn_sweep"
     _check_shape(name, q, num_heads)
+    if am.mxu_applicable(q.shape[1]):
+        return am.ang_attn_fwd(q, k, v, num_heads, with_stats, kernel="ang_attn_sweep")
     _build.check_cuda_args(name, q, k, v)
     N, A2, C = q.shape
     out = torch.empty_like(q)
@@ -106,10 +215,9 @@ def ang_attn_sweep_fwd(q, k, v, num_heads: int, with_stats: bool = False):
     return out, m, l
 
 
-def ang_attn_sweep_bwd(q, k, v, out, m, l, dout, num_heads: int):
-    """K8's backward (`ang_attn_sweep_bwd`): (dq, dk, dv) [N, A2, C]."""
-    if q.device.type != "cuda":
-        return ang_attention_sweep_bwd_plain(q, k, v, out, m, l, dout, num_heads)
+def sweep_bwd_launch(q, k, v, out, m, l, dout, num_heads: int):
+    """The streamed-key backward kernel (`lft_ang_attn_sweep_bwd`) at any A2,
+    counted as `ang_attn_sweep_bwd`: (dq, dk, dv) [N, A2, C] of CUDA tensors."""
     _check_shape("ang_attn_sweep_bwd", q, num_heads)
     _build.check_cuda_args("ang_attn_sweep_bwd", q, k, v, dout, out, m, l)
     N, A2, C = q.shape
@@ -120,6 +228,19 @@ def ang_attn_sweep_bwd(q, k, v, out, m, l, dout, num_heads: int):
                   *(t.data_ptr() for t in (q, k, v, dout, out, m, l, *grads)),
                   N, A2, C, num_heads, float(C // num_heads) ** -0.5)
     return grads
+
+
+def ang_attn_sweep_bwd(q, k, v, out, m, l, dout, num_heads: int):
+    """K8's backward (`ang_attn_sweep_bwd`): (dq, dk, dv) [N, A2, C]; for
+    CUDA tensors K7's backward kernel at A2 <= K7_BWD_MAX (from m, l; out
+    unread), the streamed-key kernel beyond; the plain version for CPU
+    tensors."""
+    if q.device.type != "cuda":
+        return ang_attention_sweep_bwd_plain(q, k, v, out, m, l, dout, num_heads)
+    _check_shape("ang_attn_sweep_bwd", q, num_heads)
+    if q.shape[1] <= K7_BWD_MAX:
+        return am.ang_attn_bwd(q, k, v, m, l, dout, num_heads, kernel="ang_attn_sweep_bwd")
+    return sweep_bwd_launch(q, k, v, out, m, l, dout, num_heads)
 
 
 class AngSweepFn(torch.autograd.Function):

@@ -1,10 +1,14 @@
 """Time and profile the train step on one CUDA card.
 
     python3 -m lft_torch.profile_train [--steps N] [--seed S] [--plain] [--unfused]
+        [--ang-res A] [--batch B]
 
 The 4x recipe (runs/ref_recipe_s4): LFT at full width (C=64, 8 heads, 4
 AltFilter blocks, 5x5 views) from the 4x demo checkpoint, Adam 2e-4,
-batch 4 of 32x32-view patches made on the card by `synth_batch`:
+batch 4 of 32x32-view patches made on the card by `synth_batch`
+(`--ang-res` and `--batch` change the views and the batch: `--ang-res 12
+--batch 2` is `chip_smoke.py`'s 12x12-view step, which the fused blocks'
+gate sends to the per-op branch, K8 and K5, with or without `--unfused`):
 
 * steady-state ms per train step (host clock around steps that end in
   `torch.cuda.synchronize()`, after two warm-up steps);
@@ -45,6 +49,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--unfused", action="store_true")
+    ap.add_argument("--ang-res", type=int, default=5)
+    ap.add_argument("--batch", type=int, default=4)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device is available", file=sys.stderr)
@@ -68,7 +74,7 @@ def main(argv=None) -> int:
     params, _, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
                                                 "LFT_5x5_4x_synth3000.pth"), device=dev)
     kw, what = path_kw(a.plain, a.unfused)
-    args = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, lr=2e-4,
+    args = Args(angRes=a.ang_res, scale_factor=4, channels=64, batch_size=a.batch, lr=2e-4,
                 train_fused="false" if a.unfused else "true",
                 attention_impl=kw.get("attention_impl", "auto"))
     model = get_model(args)
@@ -78,7 +84,7 @@ def main(argv=None) -> int:
         p.requires_grad_(True)
     step = make_train_step(model, make_optimizer(params, args, steps_per_epoch=1000), args)
     gen = torch.Generator(device=dev).manual_seed(a.seed)
-    batches = [synth_batch(gen, batch=4, ang_res=5, patch=32, scale=4)
+    batches = [synth_batch(gen, batch=a.batch, ang_res=a.ang_res, patch=32, scale=4)
                for _ in range(a.steps + 3)]
 
     for lr, hr in batches[:2]:                 # warm-up
@@ -95,7 +101,7 @@ def main(argv=None) -> int:
         times.append(time.perf_counter() - t0)
     times.sort()
     med = times[len(times) // 2]
-    print(f"train step ({what}, batch 4, 4x, C=64): "
+    print(f"train step ({what}, batch {a.batch}, {a.ang_res}x{a.ang_res} views, 4x, C=64): "
           f"median {med * 1e3:.3f} ms over {len(times)} steps (all: "
           f"{[round(t * 1e3, 3) for t in times]})", flush=True)
 

@@ -486,29 +486,68 @@ def test_perop_wrappers_raise_on_card_instead_of_falling_back(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,N,A2", [(16, 37, 25), (32, 37, 25), (64, 37, 25), (64, 7, 144),
-                                    (64, 3, 169), (32, 11, 9), (64, 2, 400), (16, 1, 1)])
+                                    (64, 3, 169), (32, 11, 9), (64, 2, 400), (16, 1, 1),
+                                    (64, 5, 128), (64, 5, 129), (32, 9, 129), (64, 4099, 144),
+                                    (16, 3, 400), (32, 3, 400), (64, 11, 32), (64, 11, 33)])
 def test_ang_attn_sweep_kernels(cuda_device, C, N, A2):
     """K8 forward, forward with stats and backward against their plain
     versions: every channel width, N that fills no group, view counts of
-    one chunk, several chunks and past K7's gate; the backward repeats bit
-    for bit; the same function as K7 where K7 takes the shape."""
+    one chunk, several chunks, both sides of K7's gate (128 | 129) and past
+    it, both sides of the backward's switch from K7's kernel to its own (32
+    | 33), N large enough that each persistent block takes several tiles. At
+    A2 <= 128 both forwards are K7's bit for bit, and at A2 <= 32 the
+    backward K7's. The backward runs from the
+    plain forward's (out, m, l) (at one view from its own) and from the
+    kernel's own `_res` outputs; both forwards and the backward repeat
+    bitwise. Where a case has at least 900 tokens, every output's max error
+    against float64 (the backward from the float64 forward's (out, m, l)) is
+    at most twice the f32 plain version's (from its own)."""
     g = torch.Generator(device=cuda_device).manual_seed(C + A2)
     q, k, v, dout = (torch.randn(N, A2, C, device=cuda_device, generator=g) for _ in range(4))
     ref = ang_attn_vjp.ang_attention_sweep_plain(q, k, v, 8)
     reset_launches()
-    _close(ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, 8), ref[0], 1e-4)
-    _close(ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, 8, with_stats=True), ref, 1e-4)
-    out, m, l = ref
-    got = ang_attn_vjp.ang_attn_sweep_bwd(q, k, v, out, m, l, dout, 8)
+    got_f = ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, 8)
+    _close(got_f, ref[0], 1e-4)
+    got_r = ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, 8, with_stats=True)
+    _close(got_r, ref, 1e-4)
+    # at one view p = 1 and dq = dk = 0 exactly, and an m one ulp off the
+    # other version's score makes them ~1e-7: there each backward runs from
+    # its own forward
+    own_res = got_r if A2 > 1 else ref
+    res = ref if A2 > 1 else got_r
+    got = ang_attn_vjp.ang_attn_sweep_bwd(q, k, v, *res, dout, 8)
     torch.cuda.synchronize()
     assert [LAUNCHES[n] for n in SWEEPS[:3]] == [1, 1, 1]
     assert sum(LAUNCHES.values()) == 3
-    _close(got, ang_attn_vjp.ang_attention_sweep_bwd_plain(q, k, v, out, m, l, dout, 8))
-    again = ang_attn_vjp.ang_attn_sweep_bwd(q, k, v, out, m, l, dout, 8)
+    ref_b = ang_attn_vjp.ang_attention_sweep_bwd_plain(q, k, v, *ref, dout, 8)
+    _close(got, ref_b)
+    again = ang_attn_vjp.ang_attn_sweep_bwd(q, k, v, *res, dout, 8)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    if A2 <= 128:
-        _close(ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, 8), ang_attn_mxu.ang_attn_fwd(q, k, v, 8),
-               1e-5)
+    assert torch.equal(got_f, ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, 8))
+    assert all(torch.equal(a, b)
+               for a, b in zip(got_r, ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, 8, with_stats=True)))
+    assert torch.equal(got_f, got_r[0])
+    # the backward from the kernel's own forward
+    own = ang_attn_vjp.ang_attn_sweep_bwd(q, k, v, *got_r, dout, 8)
+    _close(own, ang_attn_vjp.ang_attention_sweep_bwd_plain(q, k, v, *own_res, dout, 8))
+    assert all(torch.equal(a, b)
+               for a, b in zip(own, ang_attn_vjp.ang_attn_sweep_bwd(q, k, v, *got_r, dout, 8)))
+    if A2 <= 128:   # K7's kernels, bit for bit
+        assert torch.equal(got_f, ang_attn_mxu.ang_attn_fwd(q, k, v, 8))
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got_r, ang_attn_mxu.ang_attn_fwd(q, k, v, 8, with_stats=True)))
+    if A2 <= ang_attn_vjp.K7_BWD_MAX:
+        assert all(torch.equal(a, b)
+                   for a, b in zip(own, ang_attn_mxu.ang_attn_bwd(q, k, v, *got_r[1:], dout, 8)))
+    if N * A2 < 900:
+        return
+    x64 = [t.double() for t in (q, k, v, dout)]
+    e_fwd = ang_attn_mxu.ang_attention_blockdiag_plain(*x64[:3], 8)
+    e_bwd = ang_attn_vjp.ang_attention_sweep_bwd_plain(*x64[:3], *e_fwd, x64[3], 8)
+    err = lambda a, e: float((a.double() - e).abs().max())
+    for name, a, b, e in zip(("out", "m", "l", "dq", "dk", "dv"), (*got_r, *own), (*ref, *ref_b),
+                             (*e_fwd, *e_bwd)):
+        assert err(a, e) <= 2 * err(b, e), (name, err(a, e), err(b, e))
 
 
 @pytest.mark.cuda

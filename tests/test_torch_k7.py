@@ -48,8 +48,9 @@ def _threads():
 
 def test_k7_python_geometry_mirrors_the_source():
     """The constants, the tile rules and the persistent tile walk of
-    csrc/ang_attn.cu are those of the Python mirror."""
-    src = (CSRC / "ang_attn.cu").read_text()
+    csrc/ang_attn.cu (with the helpers it shares with K8 in
+    csrc/ang_attn.cuh) are those of the Python mirror."""
+    src = (CSRC / "ang_attn.cu").read_text() + (CSRC / "ang_attn.cuh").read_text()
     for line in (
             "constexpr int KB = 8;", "constexpr int NT_MAX = 512;",
             "constexpr int SMEM_TWO = 115712;", "constexpr int SMEM_MAX = 232448;",
