@@ -103,8 +103,9 @@
     its plain version at the serving and training shapes of steps 13-15,
     times each beside its bound and one `scaled_dot_product_attention` call,
     and K5, K6, K9, K10 and K2.3 (backwards: K5, K6, K9) in turns at one shape
-    (K6 launches K5's kernels: its outputs must equal K5's bit for bit), and
-    K6 against K10 in turns at [400, 64, 64, 128]; K8 also at [2048, 144,
+    (K6, K9 and K10 launch K5's kernels: their outputs, all three forms of
+    K6 and K9, must equal K5's bit for bit), and K6 against K10 in turns at
+    [400, 64, 64, 128] (bit for bit too); K8 also at [2048, 144,
     64] (the 12x12-view step's batch), its outputs against float64 as K7's
     in step 11 (the backward from K8 res's own out, m, l), and at A2 = 25
     (K7's kernels under K8's names: the forward to 128 views, the backward
@@ -120,7 +121,8 @@
     a permuted copy, exactly one launch of each of its five kernels, no more
     device memory than K2 itself takes, and times it in turns with "permute +
     K2 + permute back";
-19. holds K10 at [400, 32, 32, 128] and [400, 64, 64, 128], K4 at the
+19. holds K10 at [400, 32, 32, 128] and [400, 64, 64, 128] (and bit for
+    bit to K5's forward there), K4 at the
     angRes-9 step's [1024, 81, 64] (held to float64 and a bitwise repeat as
     in step 8) and, with a ragged last tile, at A2 = 121 and 128, and K11's
     two `_pm` kernels against their plain versions, timed beside their
@@ -1306,8 +1308,9 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
     training shapes ([4096, 25, 64], [100, 32, 32, 128]) with the launches of
     the forced-variant train steps. Then the other shapes the paths give
     them, all three forms each; then K5, K6, K9, K10 and K2.3 in turns (the
-    backwards without K10, which has none), K6 held bitwise to K5, whose
-    kernels it launches; then K6 and K10 in turns at 64x64 views."""
+    backwards without K10, which has none), K6, K9 and K10 held bitwise to
+    K5, whose kernels they launch; then K6 and K10 in turns at 64x64 views,
+    held bitwise to each other."""
     import torch
     import torch.nn.functional as F
     from lft_torch.kernels import ang_attn_mxu as am
@@ -1323,7 +1326,8 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
     g = torch.Generator(device=dev).manual_seed(seed + 4)
     rand = lambda *s_: torch.randn(*s_, device=dev, generator=g)
     H, K = 8, 5
-    src8, src9, src6 = ("lft_torch/csrc/ang_attn_sweep.cu", "lft_torch/csrc/spa_attn_offset.cu",
+    # K9 and K6 launch K5's kernels
+    src8, src9, src6 = ("lft_torch/csrc/ang_attn_sweep.cu", "lft_torch/csrc/spa_attn_hp.cu",
                         "lft_torch/csrc/spa_attn_hp.cu")
     rec_sr = Recorder(card, sr_counts, 1, "scene")
     rec_tr = Recorder(card, train_counts, n_steps, "train step")
@@ -1426,9 +1430,10 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
                 res = (q, k, v, m, l, dout, H, K)
                 bwd, bwd_plain = sa.spa_attn_mxu_bwd, sa.windowed_attention_mxu_bwd_plain
             ref = bwd_plain(*res)
+            # both read q, k, v, m, l, dout (K9's D comes from them, not from out)
             rec_tr.record(name + "_bwd", src, rep_b, bwd(*res), ref, lambda: bwd(*res),
                           lambda: bwd_plain(*res), 10 * E * pairs,
-                          nbytes(*res[:-2], *ref), rel=TRAIN_REL, **kw)
+                          nbytes(q, k, v, m, l, dout, *ref), rel=TRAIN_REL, **kw)
 
     # the rows: the 5x5 scene's chunk of 16 patches, the recipe's batch of 4
     k8(16384, 25, 64, ("fwd",))
@@ -1456,17 +1461,24 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
         q, k, v, dout = (rand(V, 32, 32, 128) for _ in range(4))
         if bwd:
             out, m, l = hp.windowed_attention_headpacked_plain(q, k, v, H, K)
-            same = all(torch.equal(a, b) for a, b in zip(
-                sa.spa_attn_mxu_fwd(q, k, v, H, K, True), hp.spa_attn_hp_fwd(q, k, v, H, K, True)))
-            same &= all(torch.equal(a, b) for a, b in zip(
-                sa.spa_attn_mxu_bwd(q, k, v, m, l, dout, H, K),
-                hp.spa_attn_hp_bwd(q, k, v, m, l, dout, H, K)))
+            want = (*hp.spa_attn_hp_fwd(q, k, v, H, K, True),
+                    *hp.spa_attn_hp_bwd(q, k, v, m, l, dout, H, K))
+            forms = {"K6": (*sa.spa_attn_mxu_fwd(q, k, v, H, K, True),
+                            *sa.spa_attn_mxu_bwd(q, k, v, m, l, dout, H, K)),
+                     "K9": (*lv.spa_attn_offset_fwd(q, k, v, H, K, True),
+                            *lv.spa_attn_offset_bwd(q, k, v, out, m, l, dout, H, K))}
         else:
-            same = torch.equal(sa.spa_attn_mxu_fwd(q, k, v, H, K), hp.spa_attn_hp_fwd(q, k, v, H, K))
-        print(f"K6 equals K5 bit for bit at {[V, 32, 32, 128]} "
-              f"({'_res, _bwd' if bwd else 'forward'}): {same}", flush=True)
-        if not same:
-            raise AssertionError("K6 launches K5's kernels: its outputs must equal K5's")
+            want = (hp.spa_attn_hp_fwd(q, k, v, H, K),)
+            forms = {"K6": (sa.spa_attn_mxu_fwd(q, k, v, H, K),),
+                     "K9": (lv.spa_attn_offset_fwd(q, k, v, H, K),),
+                     "K10": (la.windowed_attention_tile(q, k, v, H, K),)}
+        for who, got in forms.items():
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"{who} equals K5 bit for bit at {[V, 32, 32, 128]} "
+                  f"({'_res, _bwd' if bwd else 'forward'}): {same}", flush=True)
+            if not same:
+                raise AssertionError(f"{who} launches K5's kernels: its outputs must equal K5's")
+        del want, forms
         if bwd:
             turns = [("K5 spa_attn_hp_bwd", lambda: hp.spa_attn_hp_bwd(q, k, v, m, l, dout, H, K)),
                      ("K6 spa_attn_mxu_bwd", lambda: sa.spa_attn_mxu_bwd(q, k, v, m, l, dout, H, K)),
@@ -1488,10 +1500,12 @@ def sweep_kernel_checks(card: str, sr_counts: dict, train_counts: dict, n_steps:
     q, k, v = (rand(400, 64, 64, 128) for _ in range(3))
     turns = [("K6 spa_attn_mxu", lambda: sa.spa_attn_mxu_fwd(q, k, v, H, K)),
              ("K10 spa_attn_tile", lambda: la.windowed_attention_tile(q, k, v, H, K))]
+    if not torch.equal(turns[0][1](), turns[1][1]()):
+        raise AssertionError("K6 and K10 launch K5's forward kernel: they must agree bit for bit")
     tm = [timed(turns[0][1]), timed(turns[1][1]), timed(turns[1][1]), timed(turns[0][1])]
-    print(f"at [400, 64, 64, 128] (turns a b b a, median of 10 each): K6 spa_attn_mxu "
-          f"{tm[0]:.4f} / {tm[3]:.4f} ms, K10 spa_attn_tile {tm[1]:.4f} / {tm[2]:.4f} ms",
-          flush=True)
+    print(f"at [400, 64, 64, 128] (turns a b b a, median of 10 each; bit for bit equal): K6 "
+          f"spa_attn_mxu {tm[0]:.4f} / {tm[3]:.4f} ms, K10 spa_attn_tile {tm[1]:.4f} / "
+          f"{tm[2]:.4f} ms", flush=True)
     return rec_sr.rows + rec_tr.rows
 
 
@@ -1704,11 +1718,13 @@ def tail_kernel_checks(params, card: str, tile_counts: dict, tile64_counts: dict
     scene's launches, K4 at the angRes-9 step's [1024, 81, 64] (block 0's
     weights) with those steps' launches. Then K10 at the patch-64 scene's
     [400, 64, 64, 128] beside that scene's launches, and K4 at A2 = 121 and
-    128 with a ragged last block."""
+    128 with a ragged last block. K10 launches K5's forward kernel: it is
+    held bit for bit to K5's at both shapes."""
     import torch
     import torch.nn.functional as F
     from lft_torch.kernels import ang_block as ab
     from lft_torch.kernels import local_attn as la
+    from lft_torch.kernels import spa_attn_hp as hp
     from lft_torch.ops.attention import local_window_mask
     from lft_torch.ops.posenc import angular_position
 
@@ -1730,12 +1746,17 @@ def tail_kernel_checks(params, card: str, tile_counts: dict, tile64_counts: dict
             qh, kh, vh = heads(q), heads(k), heads(v)
             sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
         (rec_sr if shape is None else rec_sr64).record(
-            "spa_attn_tile", "lft_torch/csrc/spa_attn_tile.cu",
+            "spa_attn_tile", "lft_torch/csrc/spa_attn_hp.cu",
             "lft_tpu/kernels/local_attn.py:99", la.windowed_attention_tile(q, k, v, H, K), ref,
             lambda: la.windowed_attention_tile(q, k, v, H, K),
             lambda: la.windowed_attention_tile_plain(q, k, v, H, K),
             4 * E * V * valid_window_pairs(h, w, K // 2), nbytes(q, k, v, ref),
             lib_fn=sdpa, shape=shape, slow_reps=3)
+        same = torch.equal(la.windowed_attention_tile(q, k, v, H, K),
+                           hp.spa_attn_hp_fwd(q, k, v, H, K))
+        print(f"K10 equals K5 bit for bit at {[V, h, w, E]}: {same}", flush=True)
+        if not same:
+            raise AssertionError("K10 launches K5's forward kernel: its output must equal K5's")
         del q, k, v, ref
 
     wa = ab.ang_weights(params, "altblock.0.ang_trans.")

@@ -1,9 +1,8 @@
-// Shared by the per-op attention kernels (ang_attn.cu, ang_attn_sweep.cu,
-// spa_attn_hp.cu, spa_attn_offset.cu, spa_attn_tile.cu) and
-// by K4's attention step (ang_block.cu): one head's DH-wide row segment in
-// registers, its dot product with the forward's fixed fmaf order (every
-// backward rebuilds a score with exactly this arithmetic), and the row-tile
-// and halo loaders.
+// Shared by the per-op attention kernels (spa_attn_hp.cu; ang_attn.cu and
+// ang_attn_sweep.cu through ang_attn.cuh) and by K4's attention step
+// (ang_block.cu): one head's DH-wide row segment in registers, its dot
+// product with the forward's fixed fmaf order (every backward rebuilds a
+// score with exactly this arithmetic), and the row-tile loader.
 #pragma once
 
 #include "spa.cuh"
@@ -69,24 +68,6 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
   for (int i = threadIdx.x; i < rows * (C / 4); i += NT) {
     const int r = i / (C / 4), c = 4 * (i % (C / 4));
     store4(dst + r * (C + 4) + c, ldg4(src + (row0 + r) * C + c));
-  }
-}
-
-// Channels [c0, c0 + CW) of a QT x QT query tile's (QT + 2R)^2 halo of one view
-// image [h, w, E], tile origin (y0, x0) -> a [(QT + 2R)^2][CW + 4] tile, zero
-// outside the image. `nt` threads take part.
-template <int CW, int QT>
-__device__ __forceinline__ void stage_tile_halo(float* dst, const float* __restrict__ img, int E,
-                                                int c0, int y0, int x0, int h, int w,
-                                                int nt) {
-  constexpr int HL = QT + 2 * R;
-  for (int i = threadIdx.x; i < HL * HL * (CW / 4); i += nt) {
-    const int pos = i / (CW / 4), c = 4 * (i % (CW / 4));
-    const int y = y0 - R + pos / HL, x = x0 - R + pos % HL;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (y >= 0 && y < h && x >= 0 && x < w)
-      val = ldg4(img + (static_cast<size_t>(y) * w + x) * E + c0 + c);
-    store4(dst + pos * (CW + 4) + c, val);
   }
 }
 

@@ -2,13 +2,22 @@
 // backward, on K2.3's window layout.
 //
 // Replaces lft_tpu/kernels/spa_attn_hp.py:_fwd / _vjp_bwd (the Pallas TPU
-// kernels behind windowed_attention_headpacked) and, launched by
-// kernels/spa_attn.py under K6's names (`spa_attn_mxu`, `_res`, `_bwd`),
-// lft_tpu/kernels/spa_attn.py:_fwd / _vjp_bwd (K6, the same function tile-
-// dense: each query against its tile's whole halo, masked keys adding
-// exactly 0; dense on this card it scored ~10x the window's pairs). For
-// every view b, head hh of 8 and pixel (y, x) of q, k, v [B, h, w, E] (dh =
-// E / 8), over the keys of the pixel's 5x5 window that lie inside the image:
+// kernels behind windowed_attention_headpacked) and three more TPU kernels
+// of the same function, which launch these kernels under their own names:
+// * lft_tpu/kernels/spa_attn.py:_fwd / _vjp_bwd (K6, kernels/spa_attn.py:
+//   `spa_attn_mxu`, `_res`, `_bwd`), tile-dense: each query against its
+//   tile's whole halo, masked keys adding exactly 0 (dense on this card it
+//   scored ~10x the window's pairs);
+// * lft_tpu/kernels/local_attn_vjp.py:_call_fwd / _vjp_bwd (K9,
+//   kernels/local_attn_vjp.py: `spa_attn_offset`, `_res`, `_bwd`), an
+//   online softmax over the 25 offsets, rescaled at each (50 exps a query
+//   and head where the forward below takes 25), D from the saved output;
+// * lft_tpu/kernels/local_attn.py:_windowed_attention_pallas (K10,
+//   kernels/local_attn.py: `spa_attn_tile`, forward only), each 8 x 8 tile
+//   against its 144-key halo under an additive -1e30 mask (5.8x the
+//   window's products).
+// For every view b, head hh of 8 and pixel (y, x) of q, k, v [B, h, w, E]
+// (dh = E / 8), over the keys of the pixel's 5x5 window inside the image:
 //   s_j = (q * scale) . k_j      out = sum_j softmax_j(s_j) v_j
 // with m = max_j s_j and l = sum_j exp(s_j - m) per (pixel, head) as the
 // residuals of the backward, which returns dq, dk, dv from (q, k, v, m, l,

@@ -25,7 +25,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("ang_block", "spa_block", "spa_block_bwd", "wgrad", "ang_attn", "spa_attn_hp",
-           "ang_attn_sweep", "spa_attn_offset", "spa_attn_tile")
+           "ang_attn_sweep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,15 +44,17 @@ PEROP = ("ang_attn", "ang_attn_res", "ang_attn_bwd", "spa_attn_hp", "spa_attn_hp
          "spa_attn_hp_bwd")
 # The branch's other trainable families, in the same three forms: K8 (the
 # key-view sweep: any view count), K9 (the 25-offset sweep: any view size) and
-# K6 (views of more than 2048 pixels; K5's kernels, counted under K6's names).
+# K6 (views of more than 2048 pixels); K9 and K6 launch K5's kernels, counted
+# under their own names.
 SWEEPS = ("ang_attn_sweep", "ang_attn_sweep_res", "ang_attn_sweep_bwd", "spa_attn_offset",
           "spa_attn_offset_res", "spa_attn_offset_bwd", "spa_attn_mxu", "spa_attn_mxu_res",
           "spa_attn_mxu_bwd")
 
 # The last of the TPU kernels' counterparts: K10 (tile-halo window attention,
-# forward only), K4 at pixels of 65 to 128 views (its three kernels, counted
-# apart from A2 <= 64 so that a run shows which geometry trained) and K11
-# (K2's first and last step on a pixel-major buffer).
+# forward only; K5's forward kernel under K10's name), K4 at pixels of 65 to
+# 128 views (its three kernels, counted apart from A2 <= 64 so that a run
+# shows which geometry trained) and K11 (K2's first and last step on a
+# pixel-major buffer).
 TAIL = ("spa_attn_tile", "ang_block_bwd128", "spa_tokenize_ln_pm", "spa_ffn_out_pm")
 
 # kernel name -> launches since the last reset

@@ -11,28 +11,30 @@ divide. The one branch that holds no kernel in the JAX package either, the
 tiled XLA op for views no 8x8 tile divides, goes to the port's tiled torch op.
 
 `windowed_attention_tile(q, k, v, num_heads, ksize, t)` is K10: projected
-[B, h, w, E] images -> the window attention's output, every t x t query tile
-scored against its whole (t + 2r)^2 key halo under the additive mask of
-`ops.attention._halo_mask` and put through a plain softmax. On a CUDA tensor
-it launches the hand-written kernel of `lft_torch/csrc/spa_attn_tile.cu`; on
-a CPU tensor it runs the plain PyTorch version. There is no fallback from
-one to the other. K10 is forward-only, as in the JAX package, whose kernel
-has no VJP and fails under `jax.grad`: when grad is needed the wrapper raises
-on any device and names the variants that train.
+[B, h, w, E] images -> the window attention's output. The JAX kernel scores
+every t x t query tile against its whole (t + 2r)^2 key halo under the
+additive mask of `ops.attention._halo_mask` and puts it through a plain
+softmax, and so does the plain version below. It is the function of K5
+(kernels/spa_attn_hp.py), so on a CUDA tensor K10 launches K5's forward
+kernel (`lft_torch/csrc/spa_attn_hp.cu`, K2.3's window kernel of
+`csrc/window_attn.cuh`), counted as `spa_attn_tile`: it scores only a
+query's in-image window keys, whatever t is (a dense halo would score 5.8
+times as many). t still has to divide the view, as lft_tpu's gate asks. On a
+CPU tensor it runs the plain version. There is no fallback from one to the
+other. K10 is forward-only, as in the JAX package, whose kernel has no VJP
+and fails under `jax.grad`: when grad is needed the wrapper raises on any
+device and names the variants that train.
 """
 
 from __future__ import annotations
 
-import ctypes
 import os
 
-import torch
-
-from lft_torch.kernels import _build, local_attn_vjp
+from lft_torch.kernels import local_attn_vjp
 from lft_torch.kernels.ang_block import _needs_grad
 from lft_torch.kernels.spa_attn import (local_attention_tile_mxu, pick_tile,
                                         windowed_attention_hybrid)
-from lft_torch.kernels.spa_attn_hp import _check_shape
+from lft_torch.kernels.spa_attn_hp import spa_attn_hp_fwd
 from lft_torch.ops.attention import windowed_attention
 
 # The JAX gate of its per-view offset kernel, kept for the same dispatch.
@@ -40,7 +42,7 @@ _MAX_HW_OFFSET = 2048
 
 SPA_VARIANTS = ("auto", "mxu", "offset", "tile")
 
-TILE = 8           # the query tile edge the K10 kernel is built for
+TILE = 8           # the query tile edge of lft_tpu's K10 by default
 
 
 def windowed_attention_tile_plain(q, k, v, num_heads: int, ksize: int = 5, t: int = TILE):
@@ -52,8 +54,8 @@ def windowed_attention_tile_plain(q, k, v, num_heads: int, ksize: int = 5, t: in
 
 def windowed_attention_tile(q, k, v, num_heads: int, ksize: int = 5, t: int = TILE):
     """K10 (`spa_attn_tile`) on projected [B, h, w, E] q/k/v, h and w
-    multiples of t: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Inference only."""
+    multiples of t: K5's forward kernel for CUDA tensors, the plain version
+    for CPU tensors. Inference only."""
     if _needs_grad(q, k, v):
         raise ValueError(
             "the tile-halo window attention K10 (variant 'tile', and 'offset' on views of more "
@@ -65,18 +67,8 @@ def windowed_attention_tile(q, k, v, num_heads: int, ksize: int = 5, t: int = TI
         raise ValueError(f"spa_attn_tile: {t}x{t} tiles do not divide ({h}, {w}) views")
     if q.device.type != "cuda":
         return windowed_attention_tile_plain(q, k, v, num_heads, ksize, t)
-    _check_shape("spa_attn_tile", q, num_heads, ksize)
-    if t != TILE:
-        raise NotImplementedError(f"spa_attn_tile kernel takes {TILE}x{TILE} tiles, got t={t}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _build.check_cuda_args("spa_attn_tile", q, k, v)
-    out = torch.empty_like(q)
-    fn = _build.bind("spa_attn_tile", "lft_spa_attn_tile", 4,
-                     (ctypes.c_int,) * 5 + (ctypes.c_float,))
-    _build.launch("spa_attn_tile", "spa_attn_tile", fn, q.device,
-                  *(x.data_ptr() for x in (q, k, v, out)), B, h, w, E, num_heads,
-                  float(E // num_heads) ** -0.5)
-    return out
+    return spa_attn_hp_fwd(q.contiguous(), k.contiguous(), v.contiguous(), num_heads, ksize,
+                           kernel="spa_attn_tile")
 
 
 def local_attention_pallas(qn, v, in_proj_weight, out_proj_weight, num_heads: int,

@@ -4,18 +4,21 @@ view size (counterpart of lft_tpu/kernels/local_attn_vjp.py).
 `windowed_attention(q, k, v, num_heads, ksize)` maps projected [B, h, w, E]
 images to the attention output [B, h, w, E]: every pixel attends, per head,
 to the keys of its ksize x ksize window that lie inside the image (scale
-(E / heads)^-0.5 inside), computed as an online softmax over the window's
-offsets. It is the kernel with no tile: any h and w. On a CUDA tensor it
-launches the hand-written kernels of `lft_torch/csrc/spa_attn_offset.cu`; on
-a CPU tensor it runs the plain PyTorch versions below. There is no fallback
-from one to the other.
+(E / heads)^-0.5 inside). The JAX kernel computes it as an online softmax
+over the window's offsets, and so do the plain versions below. It is the
+function of K5 (kernels/spa_attn_hp.py), so on a CUDA tensor K9 launches
+K5's hand-written kernels (`lft_torch/csrc/spa_attn_hp.cu`: the forward
+K2.3's window kernel of `csrc/window_attn.cuh`, the backward K5's two
+passes), which take any h and w, counted under K9's names. On a CPU tensor
+it runs the plain versions. There is no fallback from one to the other.
 
 Training: when grad mode is on and q, k or v requires grad it runs as
 `SpaOffsetFn`, whose forward also returns the per-(pixel, head) softmax max m
-and denominator l (`spa_attn_offset_res`) and saves (q, k, v, out, m, l), as
-the JAX package does; the backward (`spa_attn_offset_bwd`) takes
-D = rowsum_head(dout * out) from the saved output. All of it is f32 (the
-TPU backward streams k, v and dout as bf16 to fit its VMEM).
+and denominator l (`spa_attn_offset_res`) and saves (q, k, v, m, l), and the
+output where the backward reads it: the plain backward takes
+D = rowsum_head(dout * out) from it, as the JAX package does; on the card K5
+bwd's pass q computes D itself (`spa_attn_offset_bwd`). All of it is f32
+(the TPU backward streams k, v and dout as bf16 to fit its VMEM).
 
 A channel count that the heads do not divide is refused with a ValueError:
 the JAX kernel leaves the last E - heads * (E // heads) channels to no head
@@ -24,15 +27,12 @@ and returns NaN in them (0 / 0), and the model never makes such a shape.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad
-from lft_torch.kernels.spa_attn_hp import (_check_shape as _check_kernel_shape, _window_offsets,
-                                           _window_valid)
+from lft_torch.kernels.spa_attn_hp import (_window_offsets, _window_valid, spa_attn_hp_bwd,
+                                           spa_attn_hp_fwd)
 
 M_INIT = -1e30     # the sweep's first running max and the score of an out-of-image offset
 
@@ -97,73 +97,50 @@ def windowed_attention_offset_bwd_plain(q, k, v, out, m, l, dout, num_heads: int
 
 # -------------------------------------------------------- kernel wrappers ---
 
-def _check_shape(kernel: str, q, num_heads: int, ksize: int) -> None:
+def _check_heads(kernel: str, q, num_heads: int) -> None:
+    """On any device, before K5's kernel check (which K5's wrappers make)."""
     E = q.shape[-1]
     if E % num_heads:
         raise ValueError(
             f"{kernel}: {num_heads} heads do not divide E = {E}; the offset sweep would leave "
             f"the last {E - num_heads * (E // num_heads)} channels to no head")
-    if q.device.type == "cuda":
-        _check_kernel_shape(kernel, q, num_heads, ksize)
 
 
 def spa_attn_offset_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
-    """K9's forward: the CUDA kernel for CUDA tensors (`spa_attn_offset`, or
-    `spa_attn_offset_res` with stats), the plain version for CPU tensors.
-    with_stats: (out, m, l), else out."""
-    name = "spa_attn_offset_res" if with_stats else "spa_attn_offset"
-    _check_shape(name, q, num_heads, ksize)
+    """K9's forward: K5's forward kernel for CUDA tensors, counted as
+    `spa_attn_offset` (or `spa_attn_offset_res` with stats), the plain
+    version for CPU tensors. with_stats: (out, m, l), else out."""
+    _check_heads("spa_attn_offset_res" if with_stats else "spa_attn_offset", q, num_heads)
     if q.device.type != "cuda":
         out, m, l = windowed_attention_offset_plain(q, k, v, num_heads, ksize)
         return (out, m, l) if with_stats else out
-    _build.check_cuda_args(name, q, k, v)
-    B, h, w, E = q.shape
-    out = torch.empty_like(q)
-    tail = (B, h, w, E, num_heads, float(E // num_heads) ** -0.5)
-    types = (ctypes.c_int,) * 5 + (ctypes.c_float,)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
-    if not with_stats:
-        fn = _build.bind("spa_attn_offset", "lft_spa_attn_offset", 4, types)
-        _build.launch("spa_attn_offset", name, fn, q.device, *ptrs, *tail)
-        return out
-    m = torch.empty(B, h, w, num_heads, device=q.device)
-    l = torch.empty_like(m)
-    fn = _build.bind("spa_attn_offset", "lft_spa_attn_offset_res", 6, types)
-    _build.launch("spa_attn_offset", name, fn, q.device, *ptrs, m.data_ptr(), l.data_ptr(),
-                  *tail)
-    return out, m, l
+    return spa_attn_hp_fwd(q, k, v, num_heads, ksize, with_stats, kernel="spa_attn_offset")
 
 
 def spa_attn_offset_bwd(q, k, v, out, m, l, dout, num_heads: int, ksize: int):
-    """K9's backward (`spa_attn_offset_bwd`): (dq, dk, dv) [B, h, w, E]."""
-    _check_shape("spa_attn_offset_bwd", q, num_heads, ksize)
+    """K9's backward: (dq, dk, dv) [B, h, w, E]; K5's two backward passes
+    for CUDA tensors, counted as `spa_attn_offset_bwd`, which compute D
+    themselves and do not read `out` (None will do there)."""
+    _check_heads("spa_attn_offset_bwd", q, num_heads)
     if q.device.type != "cuda":
         return windowed_attention_offset_bwd_plain(q, k, v, out, m, l, dout, num_heads, ksize)
-    _build.check_cuda_args("spa_attn_offset_bwd", q, k, v, dout, out, m, l)
-    B, h, w, E = q.shape
-    dsum = torch.empty_like(m)                  # the kernels' scratch: D per pixel and head
-    grads = tuple(torch.empty_like(q) for _ in range(3))
-    fn = _build.bind("spa_attn_offset", "lft_spa_attn_offset_bwd", 11,
-                     (ctypes.c_int,) * 5 + (ctypes.c_float,))
-    _build.launch("spa_attn_offset", "spa_attn_offset_bwd", fn, q.device,
-                  *(t.data_ptr() for t in (q, k, v, dout, out, m, l, dsum, *grads)),
-                  B, h, w, E, num_heads, float(E // num_heads) ** -0.5)
-    return grads
+    return spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads, ksize, kernel="spa_attn_offset_bwd")
 
 
 class SpaOffsetFn(torch.autograd.Function):
-    """K9 with stats forward, K9's backward; saves (q, k, v, out, m, l)."""
+    """K9 with stats forward, K9's backward; saves (q, k, v, m, l), and the
+    output only for the plain backward, which reads it."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, ksize):
         out, m, l = spa_attn_offset_fwd(q, k, v, num_heads, ksize, with_stats=True)
-        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.save_for_backward(q, k, v, m, l, None if q.device.type == "cuda" else out)
         ctx.cfg = (num_heads, ksize)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, m, l = ctx.saved_tensors
+        q, k, v, m, l, out = ctx.saved_tensors
         return (*spa_attn_offset_bwd(q, k, v, out, m, l, dout.contiguous(), *ctx.cfg),
                 None, None)
 

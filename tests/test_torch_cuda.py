@@ -462,9 +462,12 @@ def test_perop_wrappers_raise_on_card_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="forward-only"):
         local_attention_pallas(r(1, 16, 16, 32), r(1, 16, 16, 32), r(96, 32).requires_grad_(),
                                r(32, 32), 8, variant="tile")
-    with pytest.raises(NotImplementedError, match="8x8 tiles"):
-        local_attn.windowed_attention_tile(r(1, 16, 16, 32), r(1, 16, 16, 32), r(1, 16, 16, 32),
-                                           8, 5, t=16)
+    # K10 launches K5's forward kernel, whose result does not depend on t
+    q16 = r(1, 16, 16, 32)
+    assert torch.equal(local_attn.windowed_attention_tile(q16, q16, q16, 8, 5, t=16),
+                       local_attn.windowed_attention_tile(q16, q16, q16, 8, 5))
+    with pytest.raises(ValueError, match="12x12 tiles do not divide"):
+        local_attn.windowed_attention_tile(q16, q16, q16, 8, 5, t=12)
     with pytest.raises(NotImplementedError, match="kernel takes"):
         local_attn.windowed_attention_tile(r(1, 8, 8, 24), r(1, 8, 8, 24), r(1, 8, 8, 24), 8, 5)
     with pytest.raises(NotImplementedError, match="kernel takes"):
@@ -556,25 +559,40 @@ def test_ang_attn_sweep_kernels(cuda_device, C, N, A2):
 def test_spa_attn_offset_kernels(cuda_device, C, h, w):
     """K9 forward, forward with stats and backward against their plain
     versions: every channel width, views that no tile divides and views
-    smaller than the window; the backward repeats bit for bit."""
+    smaller than the window; each launch counted under K9's name, once; the
+    backward repeats bit for bit and does not read the output; K9 launches
+    K5's kernels, so every output equals K5's bit for bit, and `SpaOffsetFn`
+    saves no output on the card."""
     E = 2 * C
     g = torch.Generator(device=cuda_device).manual_seed(C + h)
     q, k, v, dout = (torch.randn(3, h, w, E, device=cuda_device, generator=g) for _ in range(4))
     ref = local_attn_vjp.windowed_attention_offset_plain(q, k, v, 8, 5)
     reset_launches()
-    _close(local_attn_vjp.spa_attn_offset_fwd(q, k, v, 8, 5), ref[0], 1e-4)
-    _close(local_attn_vjp.spa_attn_offset_fwd(q, k, v, 8, 5, with_stats=True), ref, 1e-4)
-    out, m, l = ref
+    fwd = local_attn_vjp.spa_attn_offset_fwd(q, k, v, 8, 5)
+    _close(fwd, ref[0], 1e-4)
+    res = local_attn_vjp.spa_attn_offset_fwd(q, k, v, 8, 5, with_stats=True)
+    _close(res, ref, 1e-4)
+    # the backward from its own forward's (m, l): at 1 x 1 views p = 1 and
+    # dq = dk = 0 exactly only with the scores that made m
+    out, m, l = res
     got = local_attn_vjp.spa_attn_offset_bwd(q, k, v, out, m, l, dout, 8, 5)
     torch.cuda.synchronize()
-    assert [LAUNCHES[n] for n in SWEEPS[3:6]] == [1, 1, 1]
+    assert {n: LAUNCHES[n] for n in SWEEPS[3:6]} == \
+        {"spa_attn_offset": 1, "spa_attn_offset_res": 1, "spa_attn_offset_bwd": 1}
     assert sum(LAUNCHES.values()) == 3
-    _close(got, local_attn_vjp.windowed_attention_offset_bwd_plain(q, k, v, out, m, l, dout, 8, 5))
-    again = local_attn_vjp.spa_attn_offset_bwd(q, k, v, out, m, l, dout, 8, 5)
+    _close(got, local_attn_vjp.windowed_attention_offset_bwd_plain(q, k, v, *ref, dout, 8, 5))
+    again = local_attn_vjp.spa_attn_offset_bwd(q, k, v, None, m, l, dout, 8, 5)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    # the same function as K5
-    _close(local_attn_vjp.spa_attn_offset_fwd(q, k, v, 8, 5),
-           spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5), 1e-5)
+    # the same kernels as K5
+    assert torch.equal(fwd, spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5))
+    assert all(torch.equal(a, b)
+               for a, b in zip(res, spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5, with_stats=True)))
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, spa_attn_hp.spa_attn_hp_bwd(q, k, v, m, l, dout, 8, 5)))
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    y = local_attn_vjp.windowed_attention(*ins, 8, 5)
+    assert y.grad_fn.saved_tensors[5] is None
+    assert all(torch.equal(a, b) for a, b in zip(torch.autograd.grad(y, ins, dout), got))
 
 
 @pytest.mark.cuda
@@ -730,7 +748,8 @@ def test_unfused_train_step_repeats_bitwise(cuda_device):
 def test_spa_attn_tile_kernel(cuda_device, C, B, h, w):
     """K10 against its plain version: every head width, one-tile views (all
     four borders in one halo), non-square views, the 64x64 views it serves;
-    the same function as K5 and K9."""
+    counted once under K10's name; K10 launches K5's forward kernel, so it
+    equals K5 and K9 bit for bit, at every tile edge that divides the view."""
     E = 2 * C
     g = torch.Generator(device=cuda_device).manual_seed(C + h)
     q, k, v = (torch.randn(B, h, w, E, device=cuda_device, generator=g) for _ in range(3))
@@ -739,9 +758,11 @@ def test_spa_attn_tile_kernel(cuda_device, C, B, h, w):
     torch.cuda.synchronize()
     assert LAUNCHES["spa_attn_tile"] == 1 and sum(LAUNCHES.values()) == 1
     _close(got, local_attn.windowed_attention_tile_plain(q, k, v, 8, 5), 1e-4)
-    _close(got, spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5), 1e-5)
-    _close(got, local_attn_vjp.spa_attn_offset_fwd(q, k, v, 8, 5), 1e-5)
+    assert torch.equal(got, spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5))
+    assert torch.equal(got, local_attn_vjp.spa_attn_offset_fwd(q, k, v, 8, 5))
     assert torch.equal(got, local_attn.windowed_attention_tile(q, k, v, 8, 5))
+    if h % 16 == 0 and w % 16 == 0:
+        assert torch.equal(got, local_attn.windowed_attention_tile(q, k, v, 8, 5, t=16))
 
 
 @pytest.mark.cuda
