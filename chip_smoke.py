@@ -129,7 +129,25 @@
     bounds (K10 also beside one `scaled_dot_product_attention` call;
     `spa_tokenize_ln_pm` and `spa_ffn_out_pm` held to float64 and a bitwise
     repeat as K2.1 and K2.5);
-20. prints the `kernels` JSON line (every kernel, old and new), the card's
+20. drives the user entry points below their h5 readers, with the demo
+    checkpoint: (a) the test CLI's body (`lft_torch.test.evaluate_sets`) on
+    step 3's scenes as an in-memory test set (stored transposed as the h5
+    files hold them, with `scene_name` and `scene_shape`), logging into a
+    temporary `--path_log`: one log line a scene, the `Test on` and `Mean
+    over datasets` lines, PSNR/SSIM equal to step 4's bit for bit, 16
+    launches of each fused forward kernel a scene and no other kernel;
+    (b) the same with `--profile_dir`: its trace must name `ang_block` and
+    `spa_window_attn` (its idle share printed); (c) the train CLI
+    (`lft_torch.train.main`) for 2 epochs of 2 steps (batch 4 of 8
+    `synth_batch` patches of 32x32 views from `--seed`, `--train_fused
+    auto`) from the checkpoint's weights: finite losses, both epoch
+    checkpoints under lft_tpu's names, 4 launches a step of each per-op
+    training kernel, and a resume from the epoch-1 file that ends on the
+    uninterrupted run's parameters bit for bit; (d) without h5py, `python
+    -m lft_torch.test` on an h5 path must fail naming h5py; (e) the test
+    CLI's ms a scene with and without the prefetch thread, in turns, and
+    an unprefetched scene's read, copy to the card, SR and metrics apart;
+21. prints the `kernels` JSON line (every kernel, old and new), the card's
     name and power limit, and last `{"ok": true, "device": {...}}`.
 
 The plain and library versions of the large shapes of steps 16 and 19 are
@@ -1777,6 +1795,231 @@ def tail_kernel_checks(params, card: str, tile_counts: dict, tile64_counts: dict
     return rec_sr.rows + rec_tr.rows
 
 
+class MemTestSet:
+    """Scenes as `TestDataset` holds them, without h5 files: stored
+    transposed (Matlab's column-major layout), read back with its (1, 0)
+    transpose, named and shaped as it names and shapes them."""
+
+    def __init__(self, scenes):
+        import numpy as np
+        self.stored = [(np.ascontiguousarray(lr.T), np.ascontiguousarray(hr.T))
+                       for lr, hr in scenes]
+
+    def __len__(self):
+        return len(self.stored)
+
+    def scene_name(self, i):
+        return f"scene_{i:02d}"
+
+    def scene_shape(self, i):
+        s = self.stored[i][0].shape
+        return (s[1], s[0])
+
+    def __getitem__(self, i):
+        import numpy as np
+        return tuple(np.ascontiguousarray(t.transpose(1, 0), dtype=np.float32)
+                     for t in self.stored[i])
+
+
+class MemTrainSet:
+    """Training patches in memory, as `TrainDataset` serves them: `item`
+    applies the reference's augmentation with the given rng; `seed` makes
+    the batches reproducible."""
+
+    def __init__(self, lr, hr, seed: int):
+        self.lr, self.hr, self.seed = lr, hr, seed
+
+    def __len__(self):
+        return len(self.lr)
+
+    def item(self, index, rng):
+        import numpy as np
+        from lft_torch.data.datasets import augmentation
+        d, l = augmentation(self.lr[index, 0], self.hr[index, 0], rng)
+        return np.ascontiguousarray(d)[None], np.ascontiguousarray(l)[None]
+
+
+def trace_stats(path: str):
+    """(kernel names, wall ms, device busy ms) of a Chrome trace: the wall
+    from its first to its last event, busy the union of its kernels."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "ts" in e and "dur" in e]
+    kernels = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                     for e in events if e.get("cat") == "kernel")
+    busy, end = 0.0, -math.inf
+    for t0, t1 in kernels:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    wall = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+            - min(float(e["ts"]) for e in events)) if events else 0.0
+    names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    return names, wall / 1e3, busy / 1e3
+
+
+def cli_phase(args, scenes, step4, card: str, seed: int) -> None:
+    """Step 20: the test and train CLIs' bodies on the card (module
+    docstring)."""
+    import dataclasses
+    import tempfile
+    import time
+
+    import torch
+    from lft_torch import test as test_cli
+    from lft_torch import train as train_cli
+    from lft_torch.data.device_synth import synth_batch
+    from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
+    from lft_torch.kernels import FORWARD, LAUNCHES, reset_launches
+    from lft_torch.models.lft import forward
+    from lft_torch.ops.metrics import cal_metrics
+    from lft_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from lft_torch.utils.logging import Logger, create_dir
+
+    psnr, ssim, scene_rows = step4
+    n_scenes = len(scenes)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        t_args = dataclasses.replace(args, path_pre_pth=CKPT, data_name="Synth",
+                                     path_log=os.path.join(tmp, "test"))
+        # (a) cuDNN as a fresh process has it (the train phases above made it
+        # deterministic; train steps set that again), as in step 4
+        torch.backends.cudnn.deterministic = False
+        _, _, log_dir = create_dir(t_args)
+        torch.cuda.synchronize()
+        reset_launches()
+        p_sets, s_sets = test_cli.evaluate_sets(t_args, ["Synth"], [MemTestSet(scenes)],
+                                                Logger(log_dir, t_args))
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        print(f"test CLI: PSNR {p_sets[0]!r} SSIM {s_sets[0]!r}, step 4 {psnr!r} {ssim!r}; "
+              f"launches {counts}", flush=True)
+        if (p_sets, s_sets) != ([psnr], [ssim]):
+            raise AssertionError("the test CLI's PSNR/SSIM differ from step 4's")
+        wrong = {k: v for k, v in counts.items()
+                 if v != (16 * n_scenes if k in FORWARD else 0)}
+        if wrong:
+            raise AssertionError(f"test CLI: expected {16 * n_scenes} launches of each "
+                                 f"forward kernel and no other, got {wrong}")
+        with open(os.path.join(log_dir, "LFT.txt")) as f:
+            log = [line.rstrip("\n").split(" - INFO - ", 1)[-1] for line in f]
+        want = (["  Synth/scene_%02d: psnr/ssim %.2f/%.3f" % (i, p, s)
+                 for i, (_, p, s) in enumerate(scene_rows)]
+                + ["Test on Synth, psnr/ssim is %.2f/%.3f" % (psnr, ssim),
+                   "Mean over datasets: psnr/ssim is %.2f/%.3f" % (psnr, ssim)])
+        if log[-len(want):] != want:
+            raise AssertionError(f"test CLI log ends {log[-len(want):]}, want {want}")
+        print(f"test CLI log: {len(log)} lines, ending as step 4's results", flush=True)
+
+        # (b) the same under --profile_dir; CUPTI now and then hands the
+        # profiler no kernel records, so a trace without them is taken again
+        p_args = dataclasses.replace(t_args, profile_dir=os.path.join(tmp, "trace"))
+        for _ in range(3):
+            test_cli.evaluate_sets(p_args, ["Synth"], [MemTestSet(scenes)],
+                                   Logger(log_dir, p_args))
+            names, wall, busy = trace_stats(os.path.join(p_args.profile_dir,
+                                                         "test.pt.trace.json"))
+            if names:
+                break
+            print("test CLI trace: no kernel records, tracing again", flush=True)
+        for want_k in ("ang_block", "spa_window_attn"):
+            if not any(want_k in n for n in names):
+                raise AssertionError(f"the --profile_dir trace names no {want_k!r} kernel")
+        print(f"test CLI under --profile_dir: trace wall {wall:.2f} ms, device busy "
+              f"{busy:.2f} ms, idle share {1 - busy / wall:.3f} ({len(names)} kernel "
+              f"names)", flush=True)
+
+        # (e) ms a scene of the test CLI's sweep, with and without prefetch
+        cache = ScenePipelineCache(forward, t_args, eval_batch=t_args.eval_batch,
+                                   scene_batch=t_args.scene_batch)
+        params, _, _ = load_checkpoint(CKPT)
+        mem_set = MemTestSet(scenes)
+        ms = {True: [], False: []}
+        for prefetch in (True, False, False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate_dataset(forward, params, t_args, mem_set, cache=cache, prefetch=prefetch)
+            torch.cuda.synchronize()
+            ms[prefetch].append((time.perf_counter() - t0) * 1e3 / n_scenes)
+        print(f"test CLI sweep, ms a scene ({n_scenes} scenes, in turns): prefetch "
+              f"{ms[True]}, no prefetch {ms[False]}; {card}", flush=True)
+        # where an unprefetched scene's time goes, each part synchronised
+        dev = next(iter(params.values())).device
+        parts = {"read (transposes)": 0.0, "to the card": 0.0, "SR": 0.0, "metrics": 0.0}
+        for i in range(n_scenes):
+            t = [time.perf_counter()]
+            lr, hr = mem_set[i]
+            t.append(time.perf_counter())
+            lr, hr = (torch.as_tensor(x, device=dev) for x in (lr, hr))
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            sr = cache(params, lr)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            p, s = cal_metrics(hr, sr, t_args.angRes)
+            float(p), float(s)  # on the host, as evaluate_dataset reads them
+            t.append(time.perf_counter())
+            for k, t0, t1 in zip(parts, t, t[1:]):
+                parts[k] += (t1 - t0) * 1e3 / n_scenes
+        print("test CLI scene parts, ms a scene without prefetch: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + f"; {card}", flush=True)
+
+        # (c) the train CLI, 2 epochs of 2 steps, from the checkpoint's weights
+        lr, hr = synth_batch(torch.Generator(device=dev).manual_seed(seed), batch=8, ang_res=5,
+                             patch=32, scale=4)
+        trainset = MemTrainSet(lr.cpu().numpy(), hr.cpu().numpy(), seed)
+        start = os.path.join(tmp, "start.npz")
+        save_checkpoint(start, params, 0)
+        tr_args = dataclasses.replace(t_args, batch_size=4, epoch=2, train_fused="auto",
+                                      use_pre_pth=True, path_pre_pth=start, seed=seed,
+                                      path_log=os.path.join(tmp, "train"))
+        torch.cuda.synchronize()
+        reset_launches()
+        full, hist = train_cli.main(tr_args, dataset=trainset)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        losses = [h["loss"] for h in hist]
+        print(f"train CLI: epoch means {hist}; launches {counts}", flush=True)
+        if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train CLI: bad losses {losses}")
+        n_steps = 2 * len(trainset) // tr_args.batch_size
+        wrong = {k: v for k, v in counts.items()
+                 if v != (4 * n_steps if k in PEROP_TRAIN else 0)}
+        if wrong:
+            raise AssertionError(f"train CLI: expected {4 * n_steps} launches of each of "
+                                 f"{PEROP_TRAIN} and no other, got {wrong}")
+        ck_dir = os.path.join(tr_args.path_log, "SR_5x5_4x", "LFT", "Synth", "checkpoints")
+        names = sorted(os.listdir(ck_dir))
+        if names != ["LFT_5x5_4x_epoch_01_model.npz", "LFT_5x5_4x_epoch_02_model.npz"]:
+            raise AssertionError(f"train CLI checkpoints: {names}")
+        r_args = dataclasses.replace(tr_args, path_pre_pth=os.path.join(ck_dir, names[0]),
+                                     path_log=os.path.join(tmp, "resume"))
+        resumed, _ = train_cli.main(r_args, dataset=trainset)
+        differ = [k for k in full if not torch.equal(full[k], resumed[k])]
+        if differ:
+            raise AssertionError(f"train CLI: resumed from epoch 1, {len(differ)} parameters "
+                                 f"differ from the uninterrupted run's, e.g. {differ[:3]}")
+        print("train CLI: checkpoints " + ", ".join(names) + "; resumed from epoch 1, every "
+              "epoch-2 parameter equals the uninterrupted run's bit for bit", flush=True)
+
+        # (d) the h5 reader's missing module is named
+        try:
+            import h5py  # noqa: F401
+            print("step 20 d skipped: h5py is installed on this machine", flush=True)
+        except ImportError:
+            h5_dir = os.path.join(tmp, "h5", "SR_5x5_4x", "Synth")
+            os.makedirs(h5_dir)
+            open(os.path.join(h5_dir, "scene_00.h5"), "wb").close()
+            out = subprocess.run(
+                [sys.executable, "-m", "lft_torch.test", "--path_for_test",
+                 os.path.join(tmp, "h5"), "--path_log", os.path.join(tmp, "h5log"),
+                 "--path_pre_pth", CKPT], cwd=REPO, capture_output=True, text=True,
+                timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+            last = (out.stderr.strip().splitlines() or [""])[-1]
+            if out.returncode == 0 or "h5py" not in last:
+                raise AssertionError(f"python -m lft_torch.test without h5py: rc "
+                                     f"{out.returncode}, last line {last!r}")
+            print(f"python -m lft_torch.test without h5py: rc {out.returncode}, {last}",
+                  flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1835,12 +2078,12 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.time()
-    psnr, ssim, rows = evaluate_dataset(forward, params, args, scenes, cache=cache)
+    psnr, ssim, scene_rows = evaluate_dataset(forward, params, args, scenes, cache=cache)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = dict(LAUNCHES)
     print(f"SR model: PSNR {psnr:.6f} dB SSIM {ssim:.6f} over {n_scenes} scenes "
-          f"({wall:.3f} s incl. first calls); per scene {rows}", flush=True)
+          f"({wall:.3f} s incl. first calls); per scene {scene_rows}", flush=True)
     print(f"launches in the SR run: {counts}", flush=True)
     missing = [k for k in FORWARD if counts[k] == 0]
     if missing:
@@ -1978,6 +2221,10 @@ def main(argv=None) -> int:
     rows += tail_kernel_checks(params, card, tile_sr, tile64_sr, a9_counts, a9_steps, a.seed)
     torch.cuda.synchronize()
     print(f"tail kernel checks: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    cli_phase(args, scenes, (psnr, ssim, scene_rows), card, a.seed)
+    torch.cuda.empty_cache()
+    print(f"CLI phase: {time.time() - t0:.1f} s", flush=True)
     missing = sorted(set(LAUNCHES) - {r["name"] for r in rows})
     if missing:
         raise AssertionError(f"kernels without a row in the kernels line: {missing}")

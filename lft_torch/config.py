@@ -52,6 +52,7 @@ class Args:
     ckpt_format: str = "npz"          # npz (with Adam state) | pth (reference)
     lr_schedule: str = "step"         # step (reference StepLR) | cosine
     log_every: int = 0                # per-iteration log line every N (0: off)
+    profile_dir: str = ""             # if set, the CLIs write a torch.profiler trace there
     attention_impl: str = "auto"      # auto | dense | tiled | pallas: the unfused
                                       # branch's attention; pallas = the per-op
                                       # kernels (K5-K10), auto = pallas on CUDA
@@ -97,6 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr_schedule", type=str, default=d.lr_schedule,
                    choices=["step", "cosine"])
     p.add_argument("--log_every", type=int, default=d.log_every)
+    p.add_argument("--profile_dir", type=str, default=d.profile_dir,
+                   help="write a torch.profiler trace (Chrome JSON) of the run here")
     p.add_argument("--attention_impl", type=str, default=d.attention_impl,
                    choices=["auto", "dense", "tiled", "pallas"])
     p.add_argument("--train_fused", type=str, default=d.train_fused,

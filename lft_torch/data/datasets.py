@@ -1,12 +1,15 @@
-"""Training data: the reference's augmentation, the h5 training set and
-batch iteration (counterpart of lft_tpu/data/datasets.py, numpy only).
+"""The h5 data sets, the reference's augmentation and batch iteration
+(counterpart of lft_tpu/data/datasets.py, numpy only).
 
 * `augmentation` is the reference's 3-op mosaic augmentation
   (utils/utils_datasets.py:114-124).
 * `TrainDataset` scans `data_for_train/SR_{A}x{A}_{S}x/<dataset>/*.h5` and
   reads `Lr_SAI_y`/`Hr_SAI_y` without transposing, as the reference's train
-  loader does (utils/utils_datasets.py:14-47). `h5py` is imported when an
-  item is read, so the module imports where h5py is missing.
+  loader does (utils/utils_datasets.py:14-47).
+* `TestDataset` / `multi_test_sets` read whole test scenes and transpose
+  them (1, 0) to undo the Matlab layout (utils/utils_datasets.py:50-98).
+* `h5py` is imported when a file is read (`multi_test_sets` checks for it
+  first), so the module imports where h5py is missing.
 * `iterate_batches` yields shuffled fixed-shape numpy batches from a
   prefetching thread pool. A seeded dataset gets each item's augmentation
   rng from (epoch seed, index), so the batches do not depend on
@@ -18,6 +21,7 @@ from __future__ import annotations
 import concurrent.futures as _fut
 import os
 import random
+from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -25,6 +29,18 @@ import numpy as np
 
 def _dataset_dir(root: str, ang_res: int, scale: int) -> str:
     return os.path.join(root, f"SR_{ang_res}x{ang_res}_{scale}x")
+
+
+def _h5py():
+    """The `h5py` module, or an error that says plainly that it is missing."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ModuleNotFoundError(
+            "reading the h5 data sets needs h5py, which is not installed: install "
+            "it, or pass in-memory sets from Python (lft_torch.test.evaluate_sets, "
+            "lft_torch.train.main(dataset=...))", name="h5py") from e
+    return h5py
 
 
 def augmentation(data: np.ndarray, label: np.ndarray,
@@ -60,8 +76,7 @@ class TrainDataset:
 
     def item(self, index: int, rng: Optional[random.Random]):
         """(lr [1, H, W], hr [1, H S, W S]) float32, augmented with `rng`."""
-        import h5py
-        with h5py.File(os.path.join(self.dataset_dir, self.file_list[index]), "r") as hf:
+        with _h5py().File(os.path.join(self.dataset_dir, self.file_list[index]), "r") as hf:
             data = np.array(hf.get("Lr_SAI_y"))
             label = np.array(hf.get("Hr_SAI_y"))
         data, label = augmentation(data, label, rng)
@@ -70,6 +85,52 @@ class TrainDataset:
 
     def __getitem__(self, index: int):
         return self.item(index, self.rng)
+
+
+class TestDataset:
+    """The h5 scenes of one test set (reference TestSetDataLoader,
+    utils/utils_datasets.py:67-98)."""
+
+    def __init__(self, args, data_name: str):
+        self.dataset_dir = _dataset_dir(args.path_for_test, args.angRes, args.scale_factor)
+        files = sorted(os.listdir(os.path.join(self.dataset_dir, data_name)))
+        self.file_list = [os.path.join(data_name, f) for f in files]
+
+    def __len__(self) -> int:
+        return len(self.file_list)
+
+    def scene_name(self, index: int) -> str:
+        return Path(self.file_list[index]).stem
+
+    def scene_shape(self, index: int) -> Tuple[int, ...]:
+        """The LR mosaic's shape from the h5 header alone, with no pixel read
+        (`evaluate_dataset` groups same-shape scenes by it)."""
+        with _h5py().File(os.path.join(self.dataset_dir, self.file_list[index]), "r") as hf:
+            s = hf["Lr_SAI_y"].shape
+        return (s[1], s[0])  # the (1, 0) transpose __getitem__ applies
+
+    def __getitem__(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(lr [A h, A w], hr [A h S, A w S]) float32 mosaics."""
+        with _h5py().File(os.path.join(self.dataset_dir, self.file_list[index]), "r") as hf:
+            lr = np.array(hf.get("Lr_SAI_y"))
+            hr = np.array(hf.get("Hr_SAI_y"))
+        # undo Matlab's column-major storage (utils/utils_datasets.py:89-90)
+        lr = np.ascontiguousarray(lr.transpose(1, 0), dtype=np.float32)
+        hr = np.ascontiguousarray(hr.transpose(1, 0), dtype=np.float32)
+        return lr, hr
+
+
+def multi_test_sets(args) -> Tuple[List[str], List[TestDataset], int]:
+    """One `TestDataset` per directory of `path_for_test/SR_{A}x{A}_{S}x/`
+    (reference MultiTestSetDataLoader, utils/utils_datasets.py:50-64), or
+    only `--data_name` where it names one. Returns (names, sets, scenes)."""
+    _h5py()
+    root = _dataset_dir(args.path_for_test, args.angRes, args.scale_factor)
+    names = sorted(os.listdir(root))
+    if args.data_name != "ALL" and args.data_name in names:
+        names = [args.data_name]
+    sets = [TestDataset(args, n) for n in names]
+    return names, sets, sum(len(s) for s in sets)
 
 
 def iterate_batches(dataset, batch_size: int, shuffle: bool = True, seed: int = 0,

@@ -1,18 +1,19 @@
-"""Synthetic light-field scenes (numpy, seeded; the scene generator of
-lft_tpu/data/synth.py) and the Y conversion that makes LR/HR pairs of them.
+"""Synthetic light-field scenes (numpy, seeded; counterpart of
+lft_tpu/data/synth.py): the scene generator, LR/HR pairs of its scenes,
+`.mat` scene files and a ready-made `data_for_train/` + `data_for_test/`
+h5 tree, so every stage runs with no outside data.
 """
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
+
 import numpy as np
 
+from lft_torch.data.generate import _downscale_views, _lf_to_y, _mosaic, _write_h5
 from lft_torch.ops.bicubic import imresize
-
-# ITU-R BT.601, Matlab coefficients (reference utils/utils.py:160-168)
-_MAT = np.array([[65.481, 128.553, 24.966],
-                 [-37.797, -74.203, 112.0],
-                 [112.0, -93.786, -18.214]], dtype=np.float64)
-_OFFSET = np.array([16.0, 128.0, 128.0], dtype=np.float64)
+from lft_torch.ops.color import _MAT, _OFFSET
 
 
 def synth_lf_scene(ang_res: int = 5, height: int = 128, width: int = 128,
@@ -52,3 +53,51 @@ def lr_hr_pair(lf: np.ndarray, scale: int):
                              for v in range(A)]) for u in range(A)])
     mosaic = lambda t: t.transpose(0, 2, 1, 3).reshape(A * t.shape[2], A * t.shape[3])
     return mosaic(lr).astype(np.float32), mosaic(y).astype(np.float32)
+
+
+def write_synth_scene_mat(path: str, ang_res: int = 9, height: int = 128,
+                          width: int = 128, seed: int = 0,
+                          fmt: str = "v73", lf: np.ndarray = None) -> np.ndarray:
+    """Write a .mat scene holding `LF[U, V, H, W, 3]` and return the array:
+    `fmt='v73'` as HDF5, axis-reversed like Matlab's column-major writes;
+    `fmt='classic'` as a v5 .mat through scipy. `data.generate.load_mat_lf`
+    reads both."""
+    if lf is None:
+        lf = synth_lf_scene(ang_res, height, width, seed=seed)
+    if fmt == "v73":
+        import h5py
+        with h5py.File(path, "w") as f:
+            f.create_dataset("LF", data=np.transpose(lf, (4, 3, 2, 1, 0)))
+    elif fmt == "classic":
+        import scipy.io as sio
+        sio.savemat(path, {"LF": lf})
+    else:
+        raise ValueError(f"unknown .mat fmt {fmt!r}")
+    return lf
+
+
+def make_synth_data(root: str, ang_res: int = 5, scale: int = 2, n_train: int = 8,
+                    n_test: int = 2, train_patch: int = 32, test_hw: int = 64,
+                    dataset_name: str = "SynthLF", seed: int = 0) -> dict:
+    """Write `<root>/data_for_train/SR_{A}x{A}_{S}x/<dataset_name>/NNNNNN.h5`
+    (`n_train` patches of `train_patch`^2 LR views) and
+    `<root>/data_for_test/.../scene_NN.h5` (`n_test` scenes of `test_hw`^2
+    LR views) in the generators' h5 layout. Returns the paths as the
+    `path_for_train`, `path_for_test` and `data_name` flags."""
+    train_dir = Path(root) / "data_for_train" / f"SR_{ang_res}x{ang_res}_{scale}x" / dataset_name
+    test_dir = Path(root) / "data_for_test" / f"SR_{ang_res}x{ang_res}_{scale}x" / dataset_name
+    train_dir.mkdir(parents=True, exist_ok=True)
+    test_dir.mkdir(parents=True, exist_ok=True)
+    for i in range(n_train):
+        hw = train_patch * scale
+        y = _lf_to_y(synth_lf_scene(ang_res, hw, hw, seed=seed + i))
+        _write_h5(str(train_dir / f"{i + 1:06d}.h5"), _mosaic(_downscale_views(y, scale)),
+                  _mosaic(y))
+    for i in range(n_test):
+        hw = test_hw * scale
+        y = _lf_to_y(synth_lf_scene(ang_res, hw, hw, seed=seed + 1000 + i))
+        _write_h5(str(test_dir / f"scene_{i:02d}.h5"), _mosaic(_downscale_views(y, scale)),
+                  _mosaic(y))
+    return {"path_for_train": str(Path(root) / "data_for_train") + os.sep,
+            "path_for_test": str(Path(root) / "data_for_test") + os.sep,
+            "data_name": dataset_name}

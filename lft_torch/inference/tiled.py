@@ -14,6 +14,7 @@ pipeline per scene geometry and batches same-shape scenes.
 
 from __future__ import annotations
 
+import concurrent.futures as _fut
 from typing import Optional, Sequence
 
 import numpy as np
@@ -101,40 +102,67 @@ class ScenePipelineCache:
         return list(pipe(params, torch.stack(list(lr_mosaics))))
 
 
-def evaluate_dataset(model_apply, params, args,
-                     dataset: Sequence, cache: Optional[ScenePipelineCache] = None):
-    """Tiled SR of every `(lr, hr)` mosaic pair of `dataset` (numpy or
-    tensors) plus per-scene PSNR/SSIM against hr (reference
-    test.py:73-111), on the device of `params`. Same-shape scenes are
-    swept together in groups of `cache.scene_batch`.
-    Returns (psnr_mean, ssim_mean, [(name, psnr, ssim), ...])."""
+def evaluate_dataset(model_apply, params, args, dataset: Sequence,
+                     cache: Optional[ScenePipelineCache] = None, metrics_fn=None, log=print,
+                     prefetch: bool = True):
+    """Tiled SR of every `(lr, hr)` mosaic pair of `dataset` plus per-scene
+    PSNR/SSIM against hr (reference test.py:73-111), on the device of
+    `params` (lft_tpu/inference/tiled.py:234-310). `dataset` is any object
+    with `__len__` and `__getitem__` (numpy or tensors); a `scene_name(i)`
+    names the scenes (else `str(i)`), and with `cache.scene_batch > 1` a
+    `scene_shape(i)` (no pixel read) orders the sweep so same-shape scenes
+    go through one pipeline call. No scene's pixels are read to order them.
+
+    With `prefetch`, one background thread reads scene i+1 and moves it to
+    the device while scene i runs. `metrics_fn(hr, sr, angRes) -> (psnr,
+    ssim)` replaces `cal_metrics`; `log` is taken for lft_tpu's signature
+    and logs nothing. Returns (psnr_mean, ssim_mean, [(name, psnr, ssim)])
+    in dataset order."""
     dev = next(iter(params.values())).device
     cache = cache or ScenePipelineCache(model_apply, args,
                                         eval_batch=getattr(args, "eval_batch", None))
-    order = sorted(range(len(dataset)), key=lambda i: (tuple(np.shape(dataset[i][0])), i))
+    metrics_fn = metrics_fn or cal_metrics
+    n = len(dataset)
+    sb = cache.scene_batch
+    order = list(range(n))
+    if sb > 1 and n > 1 and hasattr(dataset, "scene_shape"):
+        order.sort(key=lambda i: (tuple(dataset.scene_shape(i)), i))
+
+    def load(i):
+        lr, hr = dataset[i]
+        return (torch.as_tensor(lr, dtype=torch.float32, device=dev),
+                torch.as_tensor(hr, dtype=torch.float32, device=dev))
+
     per_scene = {}
-    pending = []
+    pending = []  # [(i, lr, hr)]: a same-shape group awaiting one pipeline call
 
     def flush():
         if not pending:
             return
         srs = cache.run_batch(params, [lr for _, lr, _ in pending])
         for (i, _, hr), sr in zip(pending, srs):
-            p, s = cal_metrics(hr, sr, args.angRes)
-            per_scene[i] = (str(i), float(p), float(s))
+            p, s = metrics_fn(hr, sr, args.angRes)
+            name = dataset.scene_name(i) if hasattr(dataset, "scene_name") else str(i)
+            per_scene[i] = (name, float(p), float(s))
         pending.clear()
 
-    for i in order:
-        lr, hr = dataset[i]
-        lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
-        hr = torch.as_tensor(hr, dtype=torch.float32, device=dev)
-        if pending and pending[-1][1].shape != lr.shape:
-            flush()
-        pending.append((i, lr, hr))
-        if len(pending) >= cache.scene_batch:
-            flush()
-    flush()
-    rows = [per_scene[i] for i in range(len(dataset))]
-    psnr = float(np.mean([r[1] for r in rows]))
-    ssim = float(np.mean([r[2] for r in rows]))
-    return psnr, ssim, rows
+    ex = _fut.ThreadPoolExecutor(max_workers=1) if (prefetch and n > 1) else None
+    try:
+        nxt = ex.submit(load, order[0]) if ex else None
+        for pos, i in enumerate(order):
+            lr, hr = nxt.result() if ex else load(i)
+            if ex and pos + 1 < n:
+                nxt = ex.submit(load, order[pos + 1])
+            if pending and pending[-1][1].shape != lr.shape:
+                flush()  # a shape change ends the group early
+            pending.append((i, lr, hr))
+            if len(pending) >= sb:
+                flush()
+        flush()
+    finally:
+        if ex:
+            # join the worker, so no read outlives a sweep that raised;
+            # cancel_futures drops a load not yet started
+            ex.shutdown(wait=True, cancel_futures=True)
+    rows = [per_scene[i] for i in range(n)]
+    return float(np.mean([r[1] for r in rows])), float(np.mean([r[2] for r in rows])), rows

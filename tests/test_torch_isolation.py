@@ -58,6 +58,34 @@ def test_importing_every_module_loads_no_jax():
                                                "local_attn_vjp")} <= set(mods)
 
 
+def test_every_module_imports_without_h5py():
+    """The card's machine has no h5py: every module, the CLIs and the data
+    generator among them, imports without it and loads no JAX; reading an
+    h5 set then says plainly that h5py is missing."""
+    import lft_torch
+    mods = [m.name for m in pkgutil.walk_packages(lft_torch.__path__, "lft_torch.")]
+    assert {"lft_torch." + m for m in ("test", "train", "generate_data", "data.generate",
+                                       "ops.color", "utils.logging", "utils.profiling")} \
+        <= set(mods)
+    code = ("import importlib, sys\n"
+            "sys.modules['h5py'] = None\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n"
+            "from lft_torch.config import Args\n"
+            "from lft_torch.data.datasets import multi_test_sets\n"
+            "try:\n"
+            "    multi_test_sets(Args())\n"
+            "except ModuleNotFoundError as e:\n"
+            "    print(e)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "needs h5py, which is not installed" in out.stdout
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
