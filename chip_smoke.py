@@ -147,7 +147,29 @@
     -m lft_torch.test` on an h5 path must fail naming h5py; (e) the test
     CLI's ms a scene with and without the prefetch thread, in turns, and
     an unprefetched scene's read, copy to the card, SR and metrics apart;
-21. prints the `kernels` JSON line (every kernel, old and new), the card's
+21. data parallelism (`lft_torch/parallel/`) on the one card: (a) with
+    `--num_devices 1 --coordinator localhost:<free port> --num_processes 1`
+    through `maybe_initialize` (nccl, world size 1), two Adam steps of the
+    4x recipe (batch 4 of step 7's `synth_batch` patches, the demo
+    checkpoint) through `make_dp_train_step` bitwise equal to
+    `make_train_step`'s (loss, PSNR, SSIM, grads, params), 4 launches a step
+    of each per-op training kernel and no other; (b) two gloo ranks spawned
+    on the card (NCCL refuses two ranks a card), the batch split 2 + 2:
+    under SGD two DP steps within |dloss| 1e-6 and max |dparam| 1e-6 of
+    one process's steps on all 4 (under step 7's smooth loss: the L1
+    loss's sign flips at residuals within f32 noise of 0 would set the
+    difference), the DP step's averaged gradient bitwise the mean of the
+    two shares' gradients taken in one process, under Adam both ranks'
+    params bitwise
+    equal after two steps, each rank's DP step 4 launches of each per-op
+    training kernel and no other; (c) step 3's first scene super-resolved
+    with its patch grid split over the two ranks (16 launches of each
+    fused forward kernel a rank, the same mosaic on both) within 1e-3 max
+    |diff| and 0.01 dB of step 4's; (d) the device ms a step of (a)'s DP
+    step and of `make_train_step`, in turns (a b b a), and the kernels
+    whose device time differs most between the two in a trace: the cost of
+    the flat buffer and its all-reduce. The ranks are joined with a timeout;
+22. prints the `kernels` JSON line (every kernel, old and new), the card's
     name and power limit, and last `{"ok": true, "device": {...}}`.
 
 The plain and library versions of the large shapes of steps 16 and 19 are
@@ -2020,6 +2042,272 @@ def cli_phase(args, scenes, step4, card: str, seed: int) -> None:
                   flush=True)
 
 
+DP_SGD_LR = 0.1          # SGD isolates the gradient average (tests/_dp_check.py)
+
+
+def dp_args(**kw):
+    from lft_torch.config import Args
+    return Args(angRes=5, scale_factor=4, channels=64, batch_size=4, lr=2e-4, n_steps=15,
+                gamma=0.5, epoch=50, **kw)
+
+
+def dp_rank(mesh, lr_np, seed: int) -> dict:
+    """Step 21 b and c on one of two gloo ranks sharing the card (module
+    docstring); raises on a failed check. Rank 0's result goes back to the
+    parent: its launch counts, the SGD differences and its SR mosaic."""
+    import dataclasses
+    import functools
+
+    import torch
+    import torch.distributed as dist
+    from lft_torch.data.device_synth import synth_batch
+    from lft_torch.inference.tiled import ScenePipelineCache
+    from lft_torch.kernels import FORWARD, LAUNCHES, reset_launches
+    from lft_torch.models.lft import forward
+    from lft_torch.parallel.mesh import make_dp_train_step
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import SGD, make_optimizer
+    from lft_torch.training.trainer import make_train_step
+    from lft_torch.utils.checkpoint import load_checkpoint
+
+    dev = mesh.device
+    params, _, _ = load_checkpoint(CKPT, device=dev)
+    args = dp_args()
+    model = get_model(args)
+    lr, hr = synth_batch(torch.Generator(device=dev).manual_seed(seed), batch=4, ang_res=5,
+                         patch=32, scale=4)
+    per = lr.shape[0] // mesh.size
+    mine = slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+    def fresh():
+        return {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+
+    def same_on_every_rank(t) -> bool:
+        ref = t.clone()
+        dist.broadcast(ref, 0)
+        ok = torch.tensor([float(torch.equal(ref, t))], device=dev)
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        return bool(ok.item())
+
+    # (b) under SGD: the DP step on this rank's 2 patches against one
+    # process's step on all 4, two steps each, under the smooth loss of step
+    # 7: cuDNN sums 2 rows otherwise than 4, and the L1 loss's sign flips
+    # where the two paths' outputs straddle the label by that f32 noise
+    # (2 / 1.6 M of a pixel's gradient each) are what it would compare
+    smooth = lambda sr, y: ((sr - y) * torch.cos(3.0 * (sr - y))).mean()
+    smooth_model = dataclasses.replace(model, loss=smooth)
+    p1, pd = fresh(), fresh()
+    step1 = make_train_step(smooth_model, SGD(p1, DP_SGD_LR), args, with_metrics=False)
+    stepd = make_dp_train_step(smooth_model, SGD(pd, DP_SGD_LR), args, mesh,
+                               with_metrics=False)
+
+    def rel_dgrad(pa, pb):
+        """The largest max |dgrad| / max |grad| over the parameters."""
+        return max(float((pa[k].grad - pb[k].grad).abs().max())
+                   / max(float(pa[k].grad.abs().max()), 1e-30) for k in pa)
+
+    for it in range(2):
+        loss1, _, _ = step1(p1, lr, hr)
+        lossd, _, _ = stepd(pd, lr[mine], hr[mine])
+        if it == 0:
+            rel_smooth = rel_dgrad(p1, pd)
+            g_dp = {k: v.grad.clone() for k, v in pd.items()}
+    dloss = abs(float(loss1) - float(lossd))
+    dparam = max(float((p1[k] - pd[k]).detach().abs().max()) for k in p1)
+    if not (dloss <= 1e-6 and dparam <= 1e-6):
+        raise AssertionError(f"rank {mesh.rank}: DP SGD steps vs one process: |dloss| "
+                             f"{dloss:.3e}, max |dparam| {dparam:.3e} (limits 1e-6)")
+    # what sets those differences is the batch split, not the DP step: its
+    # averaged gradient equals the ranks' shares' gradients taken one by one
+    # in this process, summed and divided as the all-reduce does, bit for bit
+    halves = []
+    for r in range(mesh.size):
+        ph = fresh()
+        make_train_step(smooth_model, SGD(ph, DP_SGD_LR), args, with_metrics=False)(
+            ph, lr[r * per:(r + 1) * per], hr[r * per:(r + 1) * per])
+        halves.append({k: v.grad for k, v in ph.items()})
+    split_exact = all(torch.equal(g_dp[k], functools.reduce(torch.add, [h[k] for h in halves])
+                                  / mesh.size) for k in g_dp)
+    if not split_exact:
+        raise AssertionError(f"rank {mesh.rank}: the DP gradient is not the mean of the shares' "
+                             f"gradients taken in one process")
+    del halves, g_dp
+    # the same first step's gradients under the L1 loss, for the record
+    p1, pd = fresh(), fresh()
+    make_train_step(model, SGD(p1, DP_SGD_LR), args, with_metrics=False)(p1, lr, hr)
+    make_dp_train_step(model, SGD(pd, DP_SGD_LR), args, mesh, with_metrics=False)(
+        pd, lr[mine], hr[mine])
+    rel_l1 = rel_dgrad(p1, pd)
+    del p1, pd
+
+    # under Adam: every rank's params bitwise equal after 2 steps; the
+    # launches of one DP step counted
+    pa = fresh()
+    stepa = make_dp_train_step(model, make_optimizer(pa, args, steps_per_epoch=1000), args,
+                               mesh)
+    torch.cuda.synchronize()
+    reset_launches()
+    stepa(pa, lr[mine], hr[mine])
+    torch.cuda.synchronize()
+    step_counts = dict(LAUNCHES)
+    stepa(pa, lr[mine], hr[mine])
+    flat = torch.cat([pa[k].detach().reshape(-1) for k in sorted(pa)])
+    if not same_on_every_rank(flat):
+        raise AssertionError(f"rank {mesh.rank}: params differ between the ranks after two "
+                             f"DP Adam steps")
+    wrong = {k: v for k, v in step_counts.items() if v != (4 if k in PEROP_TRAIN else 0)}
+    if wrong:
+        raise AssertionError(f"rank {mesh.rank}: a DP step must launch 4 of each of "
+                             f"{PEROP_TRAIN} and no other kernel, got {wrong}")
+    del pa, stepa
+
+    # (c) the scene's patch grid split over the ranks
+    sr_args = dataclasses.replace(args, patch_size_for_test=32, stride_for_test=16,
+                                  eval_batch=16)
+    cache = ScenePipelineCache(forward, sr_args, eval_batch=16, mesh=mesh)
+    lr_t = torch.from_numpy(lr_np).to(dev)
+    cache(params, lr_t)                          # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    sr = cache(params, lr_t)
+    torch.cuda.synchronize()
+    sr_counts = dict(LAUNCHES)
+    if not same_on_every_rank(sr):
+        raise AssertionError(f"rank {mesh.rank}: the sharded SR mosaic differs between ranks")
+    wrong = {k: v for k, v in sr_counts.items() if v != (16 if k in FORWARD else 0)}
+    if wrong:
+        raise AssertionError(f"rank {mesh.rank}: the sharded scene must launch 16 of each "
+                             f"forward kernel a rank and no other, got {wrong}")
+    return dict(dloss=dloss, dparam=dparam, rel_smooth=rel_smooth, rel_l1=rel_l1,
+                step_counts=step_counts, sr_counts=sr_counts,
+                sr=sr.cpu().numpy())
+
+
+def dp_phase(params, scenes, cache, card: str, seed: int) -> None:
+    """Step 21: data parallelism on the card (module docstring)."""
+    import socket
+    import time
+
+    import torch
+    import torch.distributed as dist
+    from lft_torch.data.device_synth import synth_batch
+    from lft_torch.kernels import LAUNCHES, reset_launches
+    from lft_torch.ops.metrics import cal_metrics
+    from lft_torch.parallel.distributed import maybe_initialize, spawn_ranks
+    from lft_torch.parallel.mesh import get_mesh, make_dp_train_step
+    from lft_torch.profile_scene import device_ms, kernel_times
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import make_optimizer
+    from lft_torch.training.trainer import make_train_step
+
+    # (a) one rank through --coordinator / --num_devices 1, on nccl
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        port = so.getsockname()[1]
+    args = dp_args(num_devices=1, coordinator=f"localhost:{port}", num_processes=1,
+                   process_id=0)
+    if not maybe_initialize(args):
+        raise AssertionError("maybe_initialize did not start a process group")
+    try:
+        mesh = get_mesh(args.num_devices)
+        backend = dist.get_backend()
+        if backend != "nccl" or mesh.size != 1:
+            raise AssertionError(f"world size 1 on the card: backend {backend}, {mesh.size} "
+                                 f"ranks")
+        dev = mesh.device
+        model = get_model(args)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        batches = [synth_batch(gen, batch=4, ang_res=5, patch=32, scale=4) for _ in range(2)]
+
+        def fresh():
+            p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+            return p, make_optimizer(p, args, steps_per_epoch=1000)
+
+        ps, opt_s = fresh()
+        pd, opt_d = fresh()
+        step_s = make_train_step(model, opt_s, args)
+        step_d = make_dp_train_step(model, opt_d, args, mesh)
+        torch.cuda.synchronize()
+        outs_s = [step_s(ps, lr, hr) for lr, hr in batches]
+        torch.cuda.synchronize()
+        reset_launches()
+        outs_d = [step_d(pd, lr, hr) for lr, hr in batches]
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        same = (all(torch.equal(a, b) for oa, ob in zip(outs_s, outs_d) for a, b in zip(oa, ob))
+                and all(torch.equal(ps[k], pd[k]) for k in ps)
+                and all(torch.equal(ps[k].grad, pd[k].grad) for k in ps))
+        print(f"DP step at world size 1 ({backend}, through maybe_initialize): 2 Adam steps, "
+              f"losses {[float(o[0]) for o in outs_d]}; loss, PSNR, SSIM, grads and params "
+              f"bitwise equal to make_train_step's: {same}; launches {counts}", flush=True)
+        if not same:
+            raise AssertionError("the DP step at world size 1 differs from make_train_step")
+        wrong = {k: v for k, v in counts.items() if v != (8 if k in PEROP_TRAIN else 0)}
+        if wrong:
+            raise AssertionError(f"the DP steps must launch 4 a step of each of {PEROP_TRAIN} "
+                                 f"and no other kernel, got {wrong}")
+
+        # (d) device ms a step, in turns: the flat buffer and its all-reduce
+        lr, hr = batches[0]
+        ms = {"make_train_step": [], "DP step": []}
+        for who in ("make_train_step", "DP step", "DP step", "make_train_step"):
+            fn = (lambda: step_s(ps, lr, hr)) if who == "make_train_step" else \
+                (lambda: step_d(pd, lr, hr))
+            ms[who].append(device_ms(fn, reps=10))
+        ev = {"make_train_step": timed(lambda: step_s(ps, lr, hr), reps=5),
+              "DP step": timed(lambda: step_d(pd, lr, hr), reps=5)}
+        print(f"train step at world size 1, device ms in turns (a b b a, 10 steps each): "
+              f"make_train_step {ms['make_train_step']}, DP step {ms['DP step']}; CUDA events, "
+              f"median of 5: {ev['make_train_step']:.3f} / {ev['DP step']:.3f} ms; {card}",
+              flush=True)
+        # where the difference goes: device ms a step by kernel name, traced
+        by_kernel = {}
+        for who, fn in (("make_train_step", lambda: step_s(ps, lr, hr)),
+                        ("DP step", lambda: step_d(pd, lr, hr))):
+            by_kernel[who] = kernel_times(fn, reps=5)
+        if not all(by_kernel.values()):
+            print("DP step - make_train_step by kernel: not measured (the profiler saw no "
+                  "device time in 3 traces of "
+                  f"{[w for w, r in by_kernel.items() if not r]})", flush=True)
+        else:
+            names = set(by_kernel["make_train_step"]) | set(by_kernel["DP step"])
+            diff = sorted(((by_kernel["DP step"].get(k, (0.0, 0))[0]
+                            - by_kernel["make_train_step"].get(k, (0.0, 0))[0], k)
+                           for k in names), key=lambda r: -abs(r[0]))
+            print("DP step - make_train_step, device ms a step by kernel (traced, 5 steps "
+                  "each; largest 6): " + "; ".join(
+                      f"{d:+.4f} {k[:70]} (launches "
+                      f"{by_kernel['make_train_step'].get(k, (0, 0))[1]} -> "
+                      f"{by_kernel['DP step'].get(k, (0, 0))[1]})" for d, k in diff[:6]),
+                  flush=True)
+        del ps, pd, opt_s, opt_d, step_s, step_d, batches
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b), (c): two gloo ranks on the one card (NCCL refuses two ranks a card)
+    lr_np, hr_np = scenes[0]
+    t0 = time.time()
+    r0 = spawn_ranks(dp_rank, 2, (lr_np, seed), device=dev, timeout=300)   # gloo
+    print(f"2 gloo ranks on the card ({time.time() - t0:.1f} s with their start): SGD, 2 DP "
+          f"steps of 2 + 2 patches against one process's of 4: |dloss| {r0['dloss']:.3e}, "
+          f"max |dparam| {r0['dparam']:.3e} (limits 1e-6), step 1's max |dgrad| / max |grad| "
+          f"{r0['rel_smooth']:.3e} (under the L1 loss {r0['rel_l1']:.3e}), the DP gradient "
+          f"bitwise the mean of the 2 shares' gradients taken in one process; Adam: both ranks' "
+          f"params bitwise equal; launches of one DP step on rank 0 "
+          f"{ {k: v for k, v in r0['step_counts'].items() if v} }", flush=True)
+    sr = torch.from_numpy(r0["sr"]).to(dev)
+    ref = cache(params, torch.from_numpy(lr_np).to(dev))
+    hr = torch.from_numpy(hr_np).to(dev)
+    d = float((sr - ref).abs().max())
+    dp = float(cal_metrics(hr, sr, 5)[0]) - float(cal_metrics(hr, ref, 5)[0])
+    print(f"sharded SR of scene 0 over the 2 ranks vs step 4's: max |diff| {d!r} (limit 1e-3), "
+          f"dPSNR {dp:+.3e} dB (limit 0.01); launches on rank 0 "
+          f"{ {k: v for k, v in r0['sr_counts'].items() if v} }", flush=True)
+    if not (d <= 1e-3 and abs(dp) <= 0.01):
+        raise AssertionError("the sharded SR disagrees with step 4's")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2225,6 +2513,10 @@ def main(argv=None) -> int:
     cli_phase(args, scenes, (psnr, ssim, scene_rows), card, a.seed)
     torch.cuda.empty_cache()
     print(f"CLI phase: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    dp_phase(params, scenes, cache, card, a.seed)
+    torch.cuda.empty_cache()
+    print(f"data-parallel phase: {time.time() - t0:.1f} s", flush=True)
     missing = sorted(set(LAUNCHES) - {r["name"] for r in rows})
     if missing:
         raise AssertionError(f"kernels without a row in the kernels line: {missing}")

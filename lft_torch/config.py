@@ -1,15 +1,19 @@
 """Configuration / CLI flags (counterpart of lft_tpu/config.py, without JAX).
 
 The reference-compatible flags are the same; the TPU-only knobs
-(`--platform`, `--compile_cache_dir`, `--train_remat`, mesh and multi-host
-flags) are replaced by an explicit `device` argument of the entry points
-(`cuda` unless the caller asks for `cpu`, see lft_torch/device.py).
+(`--platform`, `--compile_cache_dir`, `--train_remat`) are replaced by an
+explicit `device` argument of the entry points (`cuda` unless the caller
+asks for `cpu`, see lft_torch/device.py). The data-parallel flags are
+lft_tpu's, with one departure: a rank is one process on one device
+(lft_torch/parallel/), so under `--coordinator` `--num_devices` is unset
+or equals `--num_processes` (`check_parallel_flags`).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+from typing import Optional
 
 
 def _reference_bool(v) -> bool:
@@ -63,6 +67,10 @@ class Args:
                                       # true on the CPU runs their plain
                                       # versions through the autograd Functions;
                                       # false trains the unfused per-op branch
+    num_devices: Optional[int] = None  # data-parallel ranks (one process each)
+    coordinator: str = ""             # multi-process: rendezvous host:port
+    num_processes: int = 1            # multi-process: total process count
+    process_id: int = 0               # multi-process: this process's rank
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -104,9 +112,33 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "dense", "tiled", "pallas"])
     p.add_argument("--train_fused", type=str, default=d.train_fused,
                    choices=["auto", "true", "false"])
+    p.add_argument("--num_devices", type=int, default=d.num_devices,
+                   help="data-parallel ranks, one process on one card each: N > 1 "
+                        "without --coordinator starts N local ranks (the global "
+                        "--batch_size divides by N); with --coordinator unset or "
+                        "equal to --num_processes")
+    p.add_argument("--coordinator", type=str, default=d.coordinator,
+                   help="multi-process training: rendezvous address host:port "
+                        "(torch.distributed, tcp://host:port); every process "
+                        "passes the same address")
+    p.add_argument("--num_processes", type=int, default=d.num_processes,
+                   help="multi-process training: total number of processes")
+    p.add_argument("--process_id", type=int, default=d.process_id,
+                   help="multi-process training: this process's index")
     return p
 
 
+def check_parallel_flags(args) -> None:
+    """A rank is one process on one device: under `--coordinator` the
+    world is `--num_processes`, and `--num_devices` may only repeat it."""
+    nd = getattr(args, "num_devices", None)
+    if getattr(args, "coordinator", "") and nd is not None and nd != args.num_processes:
+        raise ValueError(
+            f"--num_devices {nd} with --coordinator must be unset or equal --num_processes "
+            f"{args.num_processes}: lft_torch runs one process on one device a rank")
+
+
 def parse_args(argv=None) -> Args:
-    ns = build_parser().parse_args(argv)
-    return Args(**vars(ns))
+    args = Args(**vars(build_parser().parse_args(argv)))
+    check_parallel_flags(args)
+    return args

@@ -10,6 +10,12 @@ pipeline turns its fused branch on for the TPU the same way
 (lft_tpu/inference/tiled.py:77-78). PyTorch runs eagerly, so there is no
 compile to cache and no geometry bucketing; `ScenePipelineCache` keeps one
 pipeline per scene geometry and batches same-shape scenes.
+
+With a `mesh` of several ranks (lft_torch/parallel/) the patch axis of
+every chunk is split over them, as lft_tpu shards it over 'dp'
+(lft_tpu/inference/tiled.py:54-59, :81-82): each rank runs its share and
+`all_gather_into_tensor` puts the chunk back together in patch order, so
+every rank returns the whole SR mosaic.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lft_torch.kernels.common import kernels_take
 from lft_torch.ops.metrics import cal_metrics
@@ -28,12 +35,16 @@ from lft_torch.registry import capabilities_of
 
 def make_scene_sr(model_apply, args, h0: int, w0: int,
                   eval_batch: Optional[int] = None, n_scenes: int = 1,
-                  **apply_kw):
+                  mesh=None, **apply_kw):
     """Build `scene_sr(params, lr [A*h0, A*w0]) -> sr [A*h0*S, A*w0*S]` for
     one scene geometry; with `n_scenes > 1` it maps [N, A*h0, A*w0] ->
     [N, A*h0*S, A*w0*S], the scenes' patch grids concatenated along the
     chunk axis. Extra keywords go to `model_apply` (for example
-    `plain_blocks=True`)."""
+    `plain_blocks=True`). With a `mesh` (`parallel.mesh.Mesh`) of R > 1
+    ranks, every rank calls `scene_sr` on the same scene: the chunk size is
+    rounded down to a multiple of R, each chunk split evenly over the
+    ranks (the remainder chunk zero-padded up to a multiple of R, the
+    padding dropped after) and gathered back in patch order."""
     A = args.angRes
     S = args.scale_factor
     patch = args.patch_size_for_test
@@ -41,6 +52,9 @@ def make_scene_sr(model_apply, args, h0: int, w0: int,
     g = tiling_grid(h0, w0, patch, stride)
     n_patches = g["numU"] * g["numV"] * n_scenes
     eb = min(eval_batch or args.eval_batch, n_patches)
+    ranks = mesh.size if mesh is not None else 1
+    if ranks > 1:
+        eb = max(eb // ranks, 1) * ranks  # a chunk splits evenly over the ranks
     # the counterpart of lft_tpu/inference/tiled.py:77-78: declared
     # capability, fused on the accelerator where the kernels take the width
     takes_fused = "fused" in capabilities_of(model_apply)
@@ -54,8 +68,9 @@ def make_scene_sr(model_apply, args, h0: int, w0: int,
         kw = dict(apply_kw)
         if takes_fused:
             kw.setdefault("fused", lr_mosaic.is_cuda and fuse_cuda)
-        outs = [model_apply(params, flat[i:i + eb], args, **kw)
-                for i in range(0, n_patches, eb)]
+        run = (lambda c: model_apply(params, c, args, **kw)) if ranks == 1 else \
+            (lambda c: _sharded_chunk(model_apply, params, c, args, kw, mesh))
+        outs = [run(flat[i:i + eb]) for i in range(0, n_patches, eb)]
         out = torch.cat(outs).reshape(n_scenes, g["numU"], g["numV"],
                                       A * patch * S, A * patch * S)
         mos = torch.stack([views_4d_to_mosaic(lf_integrate(
@@ -65,16 +80,34 @@ def make_scene_sr(model_apply, args, h0: int, w0: int,
     return scene_sr
 
 
+def _sharded_chunk(model_apply, params, chunk, args, kw, mesh):
+    """One chunk over the mesh's ranks: this rank's even share (the chunk
+    zero-padded up to a multiple of the ranks), gathered in patch order;
+    the padding dropped."""
+    n = chunk.shape[0]
+    pad = (-n) % mesh.size
+    if pad:
+        chunk = torch.cat([chunk, chunk.new_zeros((pad,) + tuple(chunk.shape[1:]))])
+    per = chunk.shape[0] // mesh.size
+    mine = model_apply(params, chunk[mesh.rank * per:(mesh.rank + 1) * per], args,
+                       **kw).contiguous()
+    whole = mine.new_empty((per * mesh.size,) + tuple(mine.shape[1:]))
+    dist.all_gather_into_tensor(whole, mine, group=mesh.group)
+    return whole[:n]
+
+
 class ScenePipelineCache:
     """One `make_scene_sr` pipeline per (h0, w0, n_scenes); `run_batch`
-    super-resolves a group of same-shape scenes through one pipeline call."""
+    super-resolves a group of same-shape scenes through one pipeline call.
+    `mesh` shards every pipeline's chunks over its ranks."""
 
     def __init__(self, model_apply, args, eval_batch: Optional[int] = None,
-                 scene_batch: Optional[int] = None, **apply_kw):
+                 scene_batch: Optional[int] = None, mesh=None, **apply_kw):
         self.model_apply = model_apply
         self.args = args
         self.eval_batch = eval_batch
         self.scene_batch = max(scene_batch or getattr(args, "scene_batch", 1) or 1, 1)
+        self.mesh = mesh
         self.apply_kw = apply_kw
         self._cache = {}
 
@@ -82,7 +115,7 @@ class ScenePipelineCache:
         key = (h0, w0, n)
         if key not in self._cache:
             self._cache[key] = make_scene_sr(self.model_apply, self.args, h0, w0,
-                                             self.eval_batch, n_scenes=n,
+                                             self.eval_batch, n_scenes=n, mesh=self.mesh,
                                              **self.apply_kw)
         return self._cache[key]
 

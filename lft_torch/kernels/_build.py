@@ -13,6 +13,7 @@ where it launches, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -91,10 +92,21 @@ def build_all() -> dict:
     output if a build fails. The ptxas report of each build is kept
     beside its library as `<lib>.log`."""
     paths = {n: _lib_path(n) for n in SOURCES}
-    todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
-    if not todo:
+    if all(os.path.exists(p) for p in paths.values()):
         return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
+    # ranks started together (lft_torch/parallel/) build once: the first to
+    # take the lock builds, the others then find the libraries
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build_missing(paths)
+    return paths
+
+
+def _build_missing(paths: dict) -> None:
+    todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
+    if not todo:
+        return
     nvcc = _nvcc()
     procs = {}
     for n, p in todo.items():
@@ -113,7 +125,6 @@ def build_all() -> dict:
             os.replace(tmp, paths[n])
     if errors:
         raise RuntimeError("\n".join(errors))
-    return paths
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -133,20 +133,14 @@ def report(prof, wall: float, what: str, top: int) -> None:
         print(f"  {t / 1e3:9.3f} ms {100 * t / 1e3 / busy:5.1f}%  x{n:<4d} {key[:100]}")
 
 
-def device_ms(fn, reps: int = 20, kernel: str = "") -> float:
-    """Device milliseconds of one `fn()`: the CUDA kernels' time in a
-    profiler trace of `reps` back-to-back calls after two warm-ups, over
-    `reps`. The host's launch path is not in it, which at tens of
-    microseconds a kernel would be in a CUDA-event time of one call. With
-    `kernel`, only the kernels whose name holds it.
-
-    CUPTI now and then hands the profiler no kernel records for a whole
-    trace. Such a trace is taken again, up to `tries` traces in all; if
-    none saw device time, the time is that of CUDA events around the
-    `reps` calls (which holds the host's launch gaps too), and a line says
-    so. A `kernel` filter has no such fallback and raises."""
+def kernel_times(fn, reps: int = 20, kernel: str = "", tries: int = 3) -> dict:
+    """{kernel name: (device ms a call, launches a call)} of `fn()` in a
+    profiler trace of `reps` back-to-back calls after two warm-ups; with
+    `kernel`, only the kernels whose name holds it. CUPTI now and then
+    hands the profiler no kernel records for a whole trace: such a trace
+    is taken again, up to `tries` traces in all, and {} means none saw
+    device time."""
     from torch.profiler import ProfilerActivity, profile
-    tries = 3
     fn()
     fn()
     torch.cuda.synchronize()
@@ -155,10 +149,30 @@ def device_ms(fn, reps: int = 20, kernel: str = "") -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        t = sum(e.device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
-        if t > 0:
-            return t / 1e3 / reps
+        rows = {e.key: (e.device_time_total / 1e3 / reps, e.count / reps)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key
+                and e.device_time_total > 0}
+        if rows:
+            return rows
+    return {}
+
+
+def device_ms(fn, reps: int = 20, kernel: str = "") -> float:
+    """Device milliseconds of one `fn()`: the CUDA kernels' time in a
+    profiler trace of `reps` back-to-back calls after two warm-ups, over
+    `reps` (`kernel_times`, which traces again where CUPTI recorded
+    nothing). The host's launch path is not in it, which at tens of
+    microseconds a kernel would be in a CUDA-event time of one call. With
+    `kernel`, only the kernels whose name holds it.
+
+    If no trace saw device time, the time is that of CUDA events around
+    the `reps` calls (which holds the host's launch gaps too), and a line
+    says so. A `kernel` filter has no such fallback and raises."""
+    tries = 3
+    rows = kernel_times(fn, reps, kernel, tries)
+    if rows:
+        return sum(ms for ms, _ in rows.values())
     if kernel:
         raise AssertionError(f"the profiler saw no device time of {kernel!r} in {tries} traces")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -140,3 +140,22 @@ def make_optimizer(params: Dict[str, torch.Tensor], args, steps_per_epoch: int) 
     """Adam + the run's schedule over `params` (leaf tensors that require
     grad; the optimizer updates them in place)."""
     return Optimizer(params, args, steps_per_epoch)
+
+
+class SGD:
+    """Plain SGD (optax.sgd without momentum) with `Optimizer`'s interface.
+    Its update is the gradient times `lr`, so the data-parallel checks use
+    it to isolate the gradient average (Adam's m / sqrt(v) amplifies f32
+    noise in near-zero gradients into lr-sized differences)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], lr: float):
+        self.params, self.lr = [params[k] for k in sorted(params)], lr
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self):
+        for p in self.params:
+            p.sub_(self.lr * p.grad)

@@ -18,6 +18,10 @@ whose backwards are the hand-written K4/K3 kernels with deterministic
 weight-gradient reductions (every geometry the fused gates pass, up to
 11x11 views). cuDNN is held to deterministic algorithms: the same state and
 batch give the same update bit for bit.
+
+Data parallelism lives in lft_torch/parallel/; as in lft_tpu, `fit` takes
+the step as a pluggable (`step_builder`) and the move of a numpy batch to
+the device (`put_batch`), so one and many ranks share the epoch loop.
 """
 
 from __future__ import annotations
@@ -48,41 +52,60 @@ def train_fused(args, device: torch.device) -> bool:
     return str(getattr(args, "train_fused", "auto")).lower() in ("true", "1", "yes")
 
 
-def make_train_step(model, optimizer, args, with_metrics: bool = True) -> Callable:
+def make_train_step(model, optimizer, args, with_metrics: bool = True,
+                    mesh=None) -> Callable:
     """One update: `step(params, data, label) -> (loss, psnr, ssim)`, 0-d
     tensors on the device (psnr, ssim None without metrics). `params` are
-    the optimizer's tensors, updated in place."""
+    the optimizer's tensors, updated in place.
+
+    With a `mesh` (`parallel.mesh.Mesh`), the data-parallel step: it trains
+    the unfused branch whatever `--train_fused` says, as lft_tpu's does
+    (lft_tpu/parallel/mesh.py:66); where the mesh has a process group,
+    `data` and `label` are this rank's shard, the gradients are averaged
+    over the ranks before the update and the results are means over them."""
     device = optimizer.params[0].device
     if device.type == "cuda":
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
-    kw = {"fused": train_fused(args, device)} if "fused" in model.capabilities else {}
+    fused = mesh is None and train_fused(args, device)
+    kw = {"fused": fused} if "fused" in model.capabilities else {}
+    reduce = mesh is not None and mesh.group is not None
 
     def step(params, data, label):
         optimizer.zero_grad()
         sr = model.apply(params, data, args, **kw)
         loss = model.loss(sr, label)
         loss.backward()
+        if reduce:
+            mesh.average_grads(params)
         optimizer.step()
-        if not with_metrics:
-            return loss.detach(), None, None
-        with torch.no_grad():
-            psnr, ssim = cal_metrics(label[:, 0], sr.detach()[:, 0], args.angRes)
-        return loss.detach(), psnr, ssim
+        loss, psnr, ssim = loss.detach(), None, None
+        if with_metrics:
+            with torch.no_grad():
+                psnr, ssim = cal_metrics(label[:, 0], sr.detach()[:, 0], args.angRes)
+        if reduce:
+            loss, psnr, ssim = mesh.average(loss, psnr, ssim)
+        return loss, psnr, ssim
 
     return step
 
 
-def train_epoch(step_fn, params, dataset, args, seed: int, device, log=None) -> dict:
+def train_epoch(step_fn, params, dataset, args, seed: int, device, log=None,
+                put_batch=None) -> dict:
     """One epoch over shuffled fixed-shape batches; returns the means of
-    loss, psnr and ssim. `--log_every N` logs every N iterations."""
+    loss, psnr and ssim. `--log_every N` logs every N iterations.
+    `put_batch(data, label)` moves a numpy batch to the step's device
+    (default: the whole batch to `device`)."""
     acc = []
     log_every = getattr(args, "log_every", 0) or 0
     for it, (data, label) in enumerate(iterate_batches(
             dataset, args.batch_size, shuffle=True, seed=seed, drop_last=True,
             num_workers=args.num_workers)):
-        out = step_fn(params, torch.from_numpy(data).to(device),
-                      torch.from_numpy(label).to(device))
+        if put_batch is None:
+            data, label = torch.from_numpy(data).to(device), torch.from_numpy(label).to(device)
+        else:
+            data, label = put_batch(data, label)
+        out = step_fn(params, data, label)
         acc.append(out)
         if log_every and log is not None and (it + 1) % log_every == 0:
             log("  iter %d: loss %.5f psnr %.3f" % (
@@ -103,11 +126,14 @@ def checkpoint_path(checkpoints_dir: str, args, epoch: int) -> str:
 
 
 def fit(args, logger=None, dataset=None, checkpoints_dir: Optional[str] = None,
-        device=None):
+        device=None, step_builder=None, put_batch=None):
     """A full training run (reference train.py:10-108). `dataset` is any
     object with `__len__` and `item(index, rng)`, a `TrainDataset` of
     `args.path_for_train` by default. Runs on `device` (cuda unless the
-    caller passes 'cpu'). Returns (params, history of per-epoch means)."""
+    caller passes 'cpu'). `step_builder(model, optimizer, args)` makes the
+    step (`make_train_step` by default; `parallel.mesh.make_dp_step_builder`
+    for data parallelism) and `put_batch` moves each batch to it
+    (`train_epoch`). Returns (params, history of per-epoch means)."""
     from lft_torch.models.lft import param_shapes
     from lft_torch.registry import get_model
     log = logger.log_string if logger else print
@@ -133,12 +159,12 @@ def fit(args, logger=None, dataset=None, checkpoints_dir: Optional[str] = None,
             optimizer.count = start_epoch * steps_per_epoch
         log("Use pretrain model!")
 
-    step_fn = make_train_step(model, optimizer, args)
+    step_fn = (step_builder or make_train_step)(model, optimizer, args)
     history = []
     for epoch in range(start_epoch, args.epoch):
         t0 = time.time()
         means = train_epoch(step_fn, params, dataset, args, seed=args.seed + epoch,
-                            device=dev, log=log)
+                            device=dev, log=log, put_batch=put_batch)
         log("The %dth Train, loss is: %.5f, psnr is %.5f, ssim is %.5f (%.1fs)"
             % (epoch + 1, means.get("loss", float("nan")), means.get("psnr", float("nan")),
                means.get("ssim", float("nan")), time.time() - t0))
