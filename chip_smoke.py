@@ -169,7 +169,28 @@
     step and of `make_train_step`, in turns (a b b a), and the kernels
     whose device time differs most between the two in a trace: the cost of
     the flat buffer and its all-reduce. The ranks are joined with a timeout;
-22. prints the `kernels` JSON line (every kernel, old and new), the card's
+22. `--dtype mixed` (lft_tpu's per-site plans: the forward at `all`, the
+    fused backward at `none`, every product over bf16 operands): (c) step
+    3's scenes under `mixed` bitwise equal to step 4's (mosaics, PSNR,
+    SSIM), only the forward kernels launched; (e) scene 0 under
+    `--matmul_precision high` against `highest`, max |diff| and dPSNR
+    printed; (b) the fused train step of the 4x recipe under `mixed`
+    through the kernels against the plain blocks under the plan: the loss
+    within 1e-5, the smooth loss's gradients as one vector within 1e-3
+    L2-relative and 0.1 of the plain mixed-vs-f32 distance, each
+    parameter's within half of it; a bitwise repeat; each bf16 instance of
+    K3's five steps and K4 launched 4 times a step, `wgrad_bf16` 56, no f32
+    K3, K4 or `wgrad`, K1 res and K2 res as before; the ms a step beside the
+    f32 fused step's in turns (f32, mixed, mixed, f32); the same checks of
+    two mixed steps at angRes 9 (batch 4 of 16x16-view patches), where K4
+    takes its 128-row form (`ang_block_bwd128_bf16`); (a) each bf16
+    instance against its plain version under the plan at the step's shapes
+    (K3 [100, 32, 32, 64], K4 [4096, 25, 64] and [1024, 81, 64], `wgrad` at
+    the 8 products): per output 1e-3 L2-relative and 0.1 of the plain
+    mixed-vs-f32 distance, a bitwise repeat, timed beside its bound (one
+    TF32 pass over the products); (d) each one's device ms beside its f32
+    instance's in turns, the card's name and power limit printed;
+23. prints the `kernels` JSON line (every kernel, old and new), the card's
     name and power limit, and last `{"ok": true, "device": {...}}`.
 
 The plain and library versions of the large shapes of steps 16 and 19 are
@@ -196,10 +217,10 @@ import sys
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "examples", "synth_demo", "LFT_5x5_4x_synth3000.pth")
 # Published dense rates (FP32 FLOP/s without tensor cores, memory B/s, TF32
-# FLOP/s on the tensor cores), keyed by a fragment of the card's name; an H100
-# SXM unless named.
-PEAKS = {"PCIe": (51e12, 2.0e12, 378e12), "NVL": (60e12, 3.9e12, 417.5e12)}
-PEAK_SXM = (67e12, 3.35e12, 495e12)
+# and bf16 FLOP/s on the tensor cores), keyed by a fragment of the card's
+# name; an H100 SXM unless named.
+PEAKS = {"PCIe": (51e12, 2.0e12, 378e12, 756e12), "NVL": (60e12, 3.9e12, 417.5e12, 835e12)}
+PEAK_SXM = (67e12, 3.35e12, 495e12, 989e12)
 # per kernel: max |kernel - plain| <= KERNEL_ATOL * max(1, max |plain|); both sum
 # the same f32 products in another order
 KERNEL_ATOL = 1e-4
@@ -207,6 +228,10 @@ KERNEL_ATOL = 1e-4
 # (the JAX package's fused-vs-unfused gradient bound, tests/test_kernels.py:428)
 TRAIN_REL = 5e-4
 TRAIN_STEPS = 5          # kernel-path steps after the compared and repeated ones
+# `--dtype mixed`'s bf16-operand instances, per output: L2-relative to the plain
+# version under the plan, and that distance over the plain mixed-vs-f32 one (a
+# kernel that ran f32 lies within ~2% of mixed)
+MIXED_REL, MIXED_GAP = 1e-3, 0.1
 
 
 def card_line() -> str:
@@ -263,6 +288,36 @@ def max_err(got, ref, rel=None):
     return worst, ok
 
 
+def l2_rel(a, b) -> float:
+    """||a - b|| / ||b|| in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def mixed_err(got, ref, ref32):
+    """A bf16-operand instance against its plain version under the mixed
+    plan: (max |got - ref|, whether every output is within MIXED_REL
+    L2-relative of ref and within MIXED_GAP of the plain f32 version's
+    distance from ref, so that a kernel that ran f32 fails; an output the
+    plan leaves f32, the plain versions' bit for bit, MIXED_REL alone: K3.b's
+    xn, LN1 of f32 inputs). Prints every output's distances."""
+    import torch
+    if isinstance(got, torch.Tensor):
+        got, ref, ref32 = (got,), (ref,), (ref32,)
+    worst, ok, report = 0.0, True, []
+    for i, (g, r, r32) in enumerate(zip(got, ref, ref32)):
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"bad kernel output: shape {tuple(g.shape)} vs {tuple(r.shape)}")
+        d, gap, f32_only = l2_rel(g, r), l2_rel(r32, r), torch.equal(r32, r)
+        ok = ok and d <= MIXED_REL and (d <= MIXED_GAP * gap or f32_only)
+        worst = max(worst, float((g - r).abs().max()))
+        report.append(f"#{i} {tuple(g.shape)}: L2 {d:.3e}, " + (
+            "the plan leaves it f32" if f32_only else
+            f"mixed-vs-f32 {gap:.3e} ({d / gap:.4f} of it)"))
+    print("  per output: " + "; ".join(report), flush=True)
+    return worst, ok
+
+
 def calm_relu(dout, hid_k, hid_p, what: str):
     """dout with a zero cotangent for the tokens where a ReLU of the FFN is
     on in one version and off in the other (its input within f32 rounding
@@ -292,7 +347,7 @@ class Recorder:
     the `kernels` JSON row with the card's bound."""
 
     def __init__(self, card: str, launches: dict, per: float, unit: str):
-        self.flops_peak, self.bw_peak, self.tf32_peak = peaks(card)
+        self.flops_peak, self.bw_peak, self.tf32_peak, self.bf16_peak = peaks(card)
         self.launches, self.per, self.unit = launches, per, unit
         self.rows = []
 
@@ -303,7 +358,7 @@ class Recorder:
 
     def record(self, name, src, replaces, got, ref, fn_k, fn_p, flops, io, lib_fn=None,
                rel=None, shape=None, slow_reps=10, device_time=False, tf32_products=0,
-               fp32_flops=0):
+               bf16_products=False, fp32_flops=0, ref32=None):
         """With `shape` the check is one more shape of a kernel that has its
         row already: compared, timed and printed, not added to the rows.
         `slow_reps`: launches timed of the plain and library versions.
@@ -311,10 +366,16 @@ class Recorder:
         around one call. `tf32_products`: the kernel runs its `flops` as
         that many TF32 tensor-core products each (3xTF32): the bound is then
         the tensor cores' (the least time for the same f32 result), and the
-        FP32 pipes' is printed beside it. `fp32_flops`: more operations the
+        FP32 pipes' is printed beside it. `bf16_products`: the kernel's
+        products take bf16-valued operands (a `mixed` instance, one TF32 pass
+        each, or its attention on the FP32 pipes): the bound is then all its
+        operations, `fp32_flops` too, at the tensor cores' bf16 rate, the
+        least time for the same products. `fp32_flops`: more operations the
         kernel runs on the FP32 pipes beside those products (K1's attention),
-        whose time at their peak adds to the tensor cores'."""
-        err, ok = max_err(got, ref, rel)
+        whose time at their peak adds to the tensor cores'. `ref32`: the f32
+        plain version's outputs, for a bf16-operand instance held by
+        `mixed_err` (`ref` is then the plain version under the mixed plan)."""
+        err, ok = max_err(got, ref, rel) if ref32 is None else mixed_err(got, ref, ref32)
         warm = 2 if slow_reps >= 10 else 1
         if device_time:
             from lft_torch.profile_scene import device_ms
@@ -325,17 +386,21 @@ class Recorder:
             ms_l = timed(lib_fn, slow_reps, warm) if lib_fn is not None else None
         b_ms, b_by = self.bound(flops + fp32_flops, io)
         fp32_note = ""
-        if tf32_products:
+        if tf32_products or bf16_products:
             fp32_note = f", FP32-pipe bound {b_ms:.4f} ms ({b_by})"
-            b_ms, b_by = self.bound(tf32_products * flops
-                                    + fp32_flops * self.tf32_peak / self.flops_peak, io,
-                                    self.tf32_peak)
+            if bf16_products:
+                b_ms, b_by = self.bound(flops + fp32_flops, io, self.bf16_peak)
+            else:
+                b_ms, b_by = self.bound(tf32_products * flops + fp32_flops * self.tf32_peak
+                                        / self.flops_peak, io, self.tf32_peak)
         n = self.launches[name]
         if shape is None:
             self.rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                                   launches=n, max_abs_err=err, ms=ms_k, plain_ms=ms_p,
                                   bound_ms=b_ms, bound_by=b_by, library_ms=ms_l))
-        limit = f"{KERNEL_ATOL:g} x max(1, max|ref|)" if rel is None else f"{rel:g} x max|ref|"
+        limit = (f"per output L2-relative {MIXED_REL:g} and {MIXED_GAP:g} of mixed-vs-f32"
+                 if ref32 is not None else f"{KERNEL_ATOL:g} x max(1, max|ref|)" if rel is None
+                 else f"{rel:g} x max|ref|")
         print(f"kernel {name}{'' if shape is None else f' at {list(shape)}'}: "
               f"max_abs_err {err:.3e} (limit {limit}) "
               f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
@@ -614,7 +679,8 @@ def train_phase(params, seed: int, unfused: bool = False, *, what=None, ang_res:
     import torch
     from lft_torch.config import Args
     from lft_torch.data.device_synth import synth_batch
-    from lft_torch.kernels import LAUNCHES, PEROP, SWEEPS, TAIL, TRAINING, reset_launches
+    from lft_torch.kernels import (LAUNCHES, MIXED, PEROP, SWEEPS, TAIL, TRAINING,
+                                   reset_launches)
     from lft_torch.models.lft import forward
     from lft_torch.registry import get_model
     from lft_torch.training.optim import make_optimizer
@@ -760,7 +826,7 @@ def train_phase(params, seed: int, unfused: bool = False, *, what=None, ang_res:
         missing = [k for k in TRAINING + (k4,) if counts[k] == 0 and k != other_k4]
         if missing:
             raise AssertionError(f"training kernels not launched on the training path: {missing}")
-        extra = [k for k in PEROP + SWEEPS + TAIL + (other_k4,) if counts[k] and k != k4]
+        extra = [k for k in PEROP + SWEEPS + TAIL + MIXED + (other_k4,) if counts[k] and k != k4]
         if extra:
             raise AssertionError(f"kernels of another path launched by the fused train steps: "
                                  f"{extra}")
@@ -2308,6 +2374,335 @@ def dp_phase(params, scenes, cache, card: str, seed: int) -> None:
         raise AssertionError("the sharded SR disagrees with step 4's")
 
 
+def mixed_kernel_checks(params, card: str, launches: dict, n_steps: int, launches9: dict,
+                        n_steps9: int, seed: int) -> list:
+    """Step 22 a and d: each bf16-operand instance of `--dtype mixed`'s
+    backward (the plan `none`: every product's operands rounded to bf16)
+    against its plain version under that plan at the train step's shapes (K3
+    [100, 32, 32, 64], K4 [4096, 25, 64] and [1024, 81, 64], `wgrad` at the
+    step's 8 products), each output within MIXED_REL L2-relative and
+    MIXED_GAP of the plain mixed-vs-f32 distance, and a bitwise repeat; the
+    `kernels` rows, bound as one TF32 pass over the products (K4's attention
+    and K3.c on the FP32 pipes); then each instance's device time beside its
+    f32 instance's on the same inputs, in turns (f32, bf16, bf16, f32).
+    `launches9`: the angRes-9 mixed steps' counts (K4's 128-row form)."""
+    import torch
+    from lft_torch.compare_wgrad import STEP_PRODUCTS
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import common
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.kernels import wgrad as wg
+    from lft_torch.ops.posenc import angular_position, spatial_position
+    from lft_torch.ops.unfold import unfold3x3_linear
+    from lft_torch.profile_scene import device_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    plan = common.mm_site_plan(True, frozenset())      # LFT_MM_HP_BWD_SITES=none
+    C, h, w, H, K = 64, 32, 32, 8, 5
+    D = 2 * C
+    V = 100
+    T = V * h * w
+    rec = Recorder(card, launches, n_steps, "mixed train step")
+    rec9 = Recorder(card, launches9, n_steps9, "angRes-9 mixed train step")
+    rand = lambda *s_: torch.randn(*s_, device=dev, generator=g)
+    with_sum = lambda ops: (*ops[:-1], ops[-1].sum(0))
+    src_s, rep = "lft_torch/csrc/spa_block_bwd.cu", "lft_tpu/kernels/spa_block.py:602"
+    turns = []
+
+    def check(name, src, fn, args, flops, io, summed=False, recorder=rec, **kw):
+        """One instance against its plain version (`fn(*args, plan=)` is the
+        wrapper on CUDA tensors; `plain`: its plain version)."""
+        plain = kw.pop("plain")
+        got, ref, ref32 = fn(*args, plan=plan), plain(*args, plan=plan), plain(*args)
+        again = fn(*args, plan=plan)
+        if summed:
+            got, again = with_sum(got), with_sum(again)
+            ref, ref32 = ((*r[:-1], r[-1][0]) for r in (ref, ref32))
+        recorder.record(name, src, kw.pop("replaces", rep), got, ref,
+                        lambda: fn(*args, plan=plan), lambda: plain(*args, plan=plan), flops, io,
+                        ref32=ref32, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"  {name}: repeated bitwise: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{name} does not repeat bitwise")
+        turns.append((name, lambda: fn(*args), lambda: fn(*args, plan=plan)))
+        return ref
+
+    # K3's five steps, each from the plain chain's inputs under the plan (the
+    # forward is f32: the forward's plan is `all`)
+    ws = sb._with_mlp(sb.spa_weights(params, "altblock.0.spa_trans."))
+    wbytes = lambda *k: sum(nbytes(ws[n]) for n in k)
+    xs = rand(V, h, w, C)
+    pe_tok = unfold3x3_linear(torch.from_numpy(spatial_position(h, w, C)).to(dev)[None],
+                              ws["mlp"])[0].contiguous()
+    _, tok, m, l, attn = sb.spa_block_plain(xs, pe_tok, ws, H, K, with_res=True)
+    dout = rand(V, h, w, C)
+    dout = calm_relu(dout, sb.ffn_out_bwd(attn, tok, dout, ws, plan=plan)[4],
+                     sb.ffn_out_bwd_plain(attn, tok, dout, ws, plan=plan)[4],
+                     "spa_ffn_out_bwd_bf16")
+    ref = check("spa_ffn_out_bwd_bf16", src_s, sb.ffn_out_bwd, (attn, tok, dout, ws),
+                T * (20 * D * D + 2 * C * D),
+                nbytes(attn, tok, dout) + 11 * T * D * 4 + wbytes("ln", "wo", "w1", "w2", "wlin"),
+                summed=True, plain=sb.ffn_out_bwd_plain, bf16_products=True)
+    dx2, dattn = ref[0], ref[1]
+    xn, q, k, v = check("spa_ln_qkv_bf16", "lft_torch/csrc/spa_block.cu", sb.ln_qkv,
+                        (tok, pe_tok, ws), 6 * T * D * D,
+                        nbytes(tok, pe_tok) + 4 * T * D * 4 + wbytes("ln", "wqk", "wv"),
+                        plain=sb.ln_qkv_plain, bf16_products=True)
+    pairs = V * valid_window_pairs(h, w, K // 2)
+    dq, dk, dv = check("spa_window_attn_bwd_bf16", "lft_torch/csrc/spa_attn_hp.cu",
+                       sb.window_attn_bwd, (q, k, v, attn, dattn, m, l, H, K), 10 * D * pairs,
+                       nbytes(q, k, v, dattn, m, l) + 3 * T * D * 4,
+                       plain=sb.window_attn_bwd_plain, bf16_products=True)
+    dtok = check("spa_qkv_ln_bwd_bf16", src_s, sb.qkv_ln_bwd, (tok, pe_tok, dq, dk, dv, dx2, ws),
+                 6 * T * D * D, nbytes(tok, pe_tok, dq, dk, dv, dx2) + 2 * T * D * 4
+                 + wbytes("ln", "wqk", "wv"), summed=True, plain=sb.qkv_ln_bwd_plain,
+                 bf16_products=True)[0]
+    check("spa_tokenize_bwd_bf16", src_s, sb.tokenize_bwd, (dtok, ws),
+          2 * D * C * V * valid_window_pairs(h, w, 1), nbytes(dtok) + T * C * 4 + wbytes("wu"),
+          plain=sb.tokenize_bwd_plain, bf16_products=True)
+    del xs, pe_tok, tok, m, l, attn, dout, ref, dx2, dattn, xn, q, k, v, dq, dk, dv, dtok
+
+    # K4, both forms, from the f32 forward's residuals (K1 res's plain version)
+    wa = ab.ang_weights(params, "altblock.0.ang_trans.")
+    for N, A2, name in ((4096, 25, "ang_block_bwd_bf16"), (1024, 81, "ang_block_bwd128_bf16")):
+        x = rand(N, A2, C)
+        pe = torch.from_numpy(angular_position(A2, C)).to(dev)
+        res = ab.ang_block_plain(x, pe, wa, H, with_res=True)[1:]
+        dout = rand(N, A2, C)
+        dout = calm_relu(dout, ab.ang_block_bwd_ops(x, pe, wa, *res, dout, H, plan=plan)[8],
+                         ab.ang_block_bwd_ops_plain(x, pe, wa, *res, dout, H, plan=plan)[8],
+                         f"{name} at A2 = {A2}")
+        Tk = N * A2
+        check(name, "lft_torch/csrc/ang_block.cu", ab.ang_block_bwd_ops,
+              (x, pe, wa, *res, dout, H), 28 * Tk * C * C,
+              nbytes(x, pe, *res, dout) + 11 * Tk * C * 4
+              + 2 * sum(nbytes(t) for t in wa.values()),
+              replaces="lft_tpu/kernels/ang_block.py:432" if A2 <= 64 else
+              "lft_tpu/kernels/ang_block.py:477", summed=True, plain=ab.ang_block_bwd_ops_plain,
+              bf16_products=True, fp32_flops=10 * C * N * A2 * A2,
+              slow_reps=10 if A2 <= 64 else 3, recorder=rec if A2 <= 64 else rec9)
+        del x, pe, res, dout
+
+    # wgrad at the step's 8 products, beside cuBLAS's bf16 product with an f32
+    # output (`torch.mm(..., out_dtype=)`, where this torch has it) on copies
+    # of the inputs already cast to bf16
+    def lib_mm(xb, db):
+        return torch.mm(xb.t(), db, out_dtype=torch.float32)
+    try:
+        lib_mm(torch.ones(8, 8, device=dev, dtype=torch.bfloat16),
+               torch.ones(8, 8, device=dev, dtype=torch.bfloat16))
+        has_lib = True
+    except (TypeError, RuntimeError) as e:
+        has_lib = False
+        print(f"  torch.mm(..., out_dtype=float32) of bf16 operands is not available ({e}); "
+              f"wgrad_bf16's library time is null", flush=True)
+    Tw = 100 * 32 * 32
+    for i, (what, Kw, Nw, image, per_step) in enumerate(STEP_PRODUCTS):
+        x, dy = rand(Tw, Kw), rand(Tw, Nw)
+        got, again = wg.wgrad(x, dy, image, half=True), wg.wgrad(x, dy, image, half=True)
+        ref, ref32 = wg.wgrad_plain(x, dy, image, half=True), wg.wgrad_plain(x, dy, image)
+        lib = None
+        if has_lib and image is None:
+            xb, db = x.bfloat16(), dy.bfloat16()
+            lib = lambda xb=xb, db=db: lib_mm(xb, db)
+        pairs_w = Tw if image is None else 100 * valid_window_pairs(32, 32, 1)
+        rec.record("wgrad_bf16", "lft_torch/csrc/wgrad.cu", "lft_tpu/kernels/spa_block.py:570",
+                   got, ref, lambda x=x, dy=dy, im=image: wg.wgrad(x, dy, im, half=True),
+                   lambda x=x, dy=dy, im=image: wg.wgrad_plain(x, dy, im, half=True),
+                   2 * pairs_w * Kw * Nw, nbytes(x, dy, got), lib_fn=lib, ref32=ref32,
+                   shape=None if i == 0 else (Tw, Kw, Nw) + (image or ()), device_time=True,
+                   bf16_products=True)
+        print(f"  wgrad_bf16 {what}: {per_step} a step; repeated bitwise: "
+              f"{torch.equal(got, again)}", flush=True)
+        if not torch.equal(got, again):
+            raise AssertionError(f"wgrad_bf16 {what} does not repeat bitwise")
+        if i in (0, 1):
+            turns.append((f"wgrad_bf16 {what}", lambda x=x, dy=dy, im=image: wg.wgrad(x, dy, im),
+                          lambda x=x, dy=dy, im=image: wg.wgrad(x, dy, im, half=True)))
+        else:
+            del x, dy
+        del got, again, ref, ref32
+
+    print(f"{card_line()}: device ms of each bf16-operand instance beside its f32 instance on "
+          f"the same inputs, in turns f32, bf16, bf16, f32 (device_ms, 20 calls):", flush=True)
+    for name, f32_fn, bf_fn in turns:
+        t = [device_ms(f32_fn), device_ms(bf_fn), device_ms(bf_fn), device_ms(f32_fn)]
+        print(f"  {name}: f32 {t[0]:.4f} / {t[3]:.4f} ms, bf16 {t[1]:.4f} / {t[2]:.4f} ms "
+              f"(bf16 / f32 {(t[1] + t[2]) / (t[0] + t[3]):.3f})", flush=True)
+    return rec.rows + rec9.rows
+
+
+def mixed_train_phase(params, seed: int, steps: int = TRAIN_STEPS, ang_res: int = 5,
+                      patch: int = 32, timing: bool = True):
+    """Step 22 b and d: the fused train step of the 4x recipe under `--dtype
+    mixed` through the kernels against the same step through the plain
+    blocks under the plan (the loss within 1e-5, under a smooth loss the
+    gradients as one vector within MIXED_REL L2-relative and MIXED_GAP of
+    the plain mixed-vs-f32 distance, each parameter's nearer the plain
+    mixed one than the f32 one by half their distance), its bitwise repeat,
+    the launches (each bf16 K3/K4 instance 4 a step, K4 in the form of the
+    view count, and `wgrad_bf16` 56; no f32 K3/K4 or `wgrad`, the forward's
+    f32 K1 res and K2 res as before), and with `timing` the ms per step
+    beside the f32 fused step's in turns (f32, mixed, mixed, f32). Returns
+    the launch counts and their steps."""
+    import dataclasses
+    import functools
+
+    import torch
+    from lft_torch.config import Args
+    from lft_torch.data.device_synth import synth_batch
+    from lft_torch.kernels import LAUNCHES, MIXED, reset_launches
+    from lft_torch.models.lft import forward
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import make_optimizer
+    from lft_torch.training.trainer import make_train_step
+
+    dev = torch.device("cuda")
+    a32 = Args(angRes=ang_res, scale_factor=4, channels=64, batch_size=4, lr=2e-4, n_steps=15,
+               gamma=0.5, epoch=50, train_fused="true")
+    am = dataclasses.replace(a32, dtype="mixed")
+    model = get_model(am)
+    plain = dataclasses.replace(model, apply=functools.partial(forward, plain_blocks=True))
+    smooth = lambda sr, y: ((sr - y) * torch.cos(3.0 * (sr - y))).mean()
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    new_batch = lambda: synth_batch(gen, batch=4, ang_res=ang_res, patch=patch, scale=4)
+    k4, other = (("ang_block_bwd128_bf16", "ang_block_bwd_bf16") if ang_res * ang_res > 64
+                 else ("ang_block_bwd_bf16", "ang_block_bwd128_bf16"))
+    what = f"mixed train ({ang_res}x{ang_res} views, patch {patch})"
+    lr, hr = new_batch()
+
+    def step(m, args, loss=None):
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        fn = make_train_step(m if loss is None else dataclasses.replace(m, loss=loss),
+                             make_optimizer(p, args, steps_per_epoch=1000), args)
+        out = float(fn(p, lr, hr)[0])
+        return out, {k: v.grad.detach().clone() for k, v in p.items()}, p, fn
+
+    reset_launches()
+    loss_p, _, _, _ = step(plain, am)
+    _, g_p, _, _ = step(plain, am, smooth)
+    _, g_f, _, _ = step(plain, a32, smooth)
+    torch.cuda.synchronize()
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"the plain mixed path launched kernels: {dict(LAUNCHES)}")
+    reset_launches()
+    loss_k, g_r, p_a, step_a = step(model, am)
+    p_a1 = {k_: v.detach().clone() for k_, v in p_a.items()}
+    loss_b, g_b, p_b, _ = step(model, am)
+    _, g_k, _, _ = step(model, am, smooth)
+    for _ in range(steps):
+        step_a(p_a, *new_batch())
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    n = 3 + steps
+    print(f"{what} step 1: loss kernels {loss_k:.8f} plain {loss_p:.8f} "
+          f"(|d| {abs(loss_k - loss_p):.3e}, limit 1e-5 |loss|)", flush=True)
+    if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
+        raise AssertionError("mixed kernel-path loss disagrees with the plain path")
+    cat = lambda gr: torch.cat([gr[k_].reshape(-1) for k_ in sorted(gr)])
+    d, gap = l2_rel(cat(g_k), cat(g_p)), l2_rel(cat(g_f), cat(g_p))
+    worst = max((l2_rel(g_k[k_], g_p[k_]) / max(l2_rel(g_f[k_], g_p[k_]), 1e-30), k_)
+                for k_ in g_p if not torch.equal(g_f[k_], g_p[k_]))
+    print(f"{what} step 1 (smooth loss): gradients L2-relative {d:.3e} from the plain mixed "
+          f"path, mixed-vs-f32 {gap:.3e} ({d / gap:.4f} of it; limits {MIXED_REL:g} and "
+          f"{MIXED_GAP:g}); per parameter at most {worst[0]:.4f} of its mixed-vs-f32 distance "
+          f"({worst[1]}, limit 0.5)", flush=True)
+    if not (d <= MIXED_REL and d <= MIXED_GAP * gap and worst[0] <= 0.5):
+        raise AssertionError("the mixed kernel path's gradients disagree with the plain path")
+    same = (loss_b == loss_k and all(torch.equal(g_r[k_], g_b[k_]) for k_ in g_r)
+            and all(torch.equal(p_a1[k_], p_b[k_]) for k_ in p_b))
+    print(f"{what} step repeated from the same state: loss, grads and params bitwise "
+          f"equal: {same}", flush=True)
+    if not same:
+        raise AssertionError("a repeated mixed kernel-path step is not bitwise equal")
+    print(f"launches in the {what} run ({n} kernel-path steps): "
+          f"{ {k_: v for k_, v in counts.items() if v} }", flush=True)
+    want = {k_: 4 * n for k_ in MIXED if k_ not in (other, "wgrad_bf16")}
+    want.update(wgrad_bf16=56 * n, colsum=16 * n, ang_block_res=4 * n,
+                spa_window_attn_res=4 * n, spa_tokenize_ln=4 * n, spa_qkv=4 * n,
+                spa_outproj_ln=4 * n, spa_ffn_out=4 * n)
+    wrong = {k_: counts[k_] for k_ in LAUNCHES if counts[k_] != want.get(k_, 0)}
+    if wrong:
+        raise AssertionError(f"{what} steps: expected {want} and no other launch (no f32 "
+                             f"K3, K4 or wgrad), got {wrong}")
+    if not timing:
+        return counts, n
+
+    fns = {}
+    for what, args in (("f32", a32), ("mixed", am)):
+        p = {k_: v.detach().clone().requires_grad_(True) for k_, v in params.items()}
+        fns[what] = (p, make_train_step(model, make_optimizer(p, args, 1000), args))
+    times = {"f32": [], "mixed": []}
+    for what in ("f32", "mixed", "mixed", "f32"):
+        p, fn = fns[what]
+        fn(p, lr, hr)                                    # warm-up
+        for _ in range(3):
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            fn(p, lr, hr)
+            ev1.record()
+            ev1.synchronize()
+            times[what].append(ev0.elapsed_time(ev1))
+    med = {k_: sorted(v)[len(v) // 2] for k_, v in times.items()}
+    print(f"{card_line()}: fused train step, batch 4 of 32x32-view patches, 5x5 views, 4x, C=64, "
+          f"in turns f32, mixed, mixed, f32 (3 steps each): median {med['f32']:.3f} ms f32, "
+          f"{med['mixed']:.3f} ms mixed (all f32 {[round(t, 3) for t in times['f32']]}, mixed "
+          f"{[round(t, 3) for t in times['mixed']]})", flush=True)
+    return counts, n
+
+
+def mixed_scene_phase(params, args, scenes, cache, step4) -> None:
+    """Step 22 c and e: the scenes of step 3 under `--dtype mixed` (the
+    forward's plan is `all`: the f32 kernels) bitwise equal to step 4's, SR
+    mosaics and PSNR/SSIM; then scene 0 under `--matmul_precision high` (TF32
+    for the torch convolutions and matmuls around the kernels) against
+    `highest`: its max |diff| and dPSNR are printed."""
+    import dataclasses
+
+    import torch
+    from lft_torch.device import resolve_device
+    from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
+    from lft_torch.kernels import FORWARD, LAUNCHES, MIXED, TRAINING, reset_launches
+    from lft_torch.models.lft import forward
+    from lft_torch.ops.metrics import cal_metrics
+
+    dev = torch.device("cuda")
+    am = dataclasses.replace(args, dtype="mixed")
+    cache_m = ScenePipelineCache(forward, am, eval_batch=16)
+    reset_launches()
+    psnr, ssim, rows = evaluate_dataset(forward, params, am, scenes, cache=cache_m)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    same = all(torch.equal(cache_m(params, torch.from_numpy(lr_).to(dev)),
+                           cache(params, torch.from_numpy(lr_).to(dev))) for lr_, _ in scenes)
+    print(f"SR under --dtype mixed: PSNR {psnr:.6f} dB SSIM {ssim:.6f} (step 4: "
+          f"{step4[0]:.6f} / {step4[1]:.6f}); SR mosaics bitwise equal to step 4's: {same}; "
+          f"launches {counts}", flush=True)
+    if not (same and psnr == step4[0] and ssim == step4[1] and rows == step4[2]):
+        raise AssertionError("the mixed scenes are not the float32 scenes bit for bit")
+    if any(counts[k_] == 0 for k_ in FORWARD) or any(counts[k_] for k_ in TRAINING + MIXED):
+        raise AssertionError(f"the mixed SR run launched the wrong kernels: {counts}")
+    lr0, hr0 = (torch.from_numpy(t).to(dev) for t in scenes[0])
+    ref = cache(params, lr0)
+    try:
+        resolve_device(dev, "high")
+        resolve_device(dev)         # a loader's call leaves the run's precision
+        if not (torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32):
+            raise AssertionError("resolve_device without a precision turned TF32 off")
+        high = cache(params, lr0)
+    finally:
+        resolve_device(dev, "highest")
+    p_ref = float(cal_metrics(hr0, ref, args.angRes)[0])
+    p_high = float(cal_metrics(hr0, high, args.angRes)[0])
+    print(f"scene 0 under --matmul_precision high (TF32 for the torch ops around the kernels) "
+          f"against highest: max |SR diff| {float((high - ref).abs().max()):.3e}, dPSNR "
+          f"{p_high - p_ref:+.3e} dB", flush=True)
+    if not torch.isfinite(high).all():
+        raise AssertionError("non-finite SR under --matmul_precision high")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2331,8 +2726,8 @@ def main(argv=None) -> int:
     from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
-    from lft_torch.kernels import (FORWARD, LAUNCHES, PEROP, SWEEPS, TAIL, TRAINING, build_all,
-                                   reset_launches)
+    from lft_torch.kernels import (FORWARD, LAUNCHES, MIXED, PEROP, SWEEPS, TAIL, TRAINING,
+                                   build_all, reset_launches)
     from lft_torch.models.lft import forward
     from lft_torch.ops.bicubic import bicubic_upscale_views
     from lft_torch.ops.metrics import cal_metrics
@@ -2376,7 +2771,7 @@ def main(argv=None) -> int:
     missing = [k for k in FORWARD if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    extra = [k for k in TRAINING + PEROP + SWEEPS + TAIL if counts[k]]
+    extra = [k for k in TRAINING + PEROP + SWEEPS + TAIL + MIXED if counts[k]]
     if extra:
         raise AssertionError(f"training or per-op kernels launched by the SR run: {extra}")
 
@@ -2517,6 +2912,16 @@ def main(argv=None) -> int:
     dp_phase(params, scenes, cache, card, a.seed)
     torch.cuda.empty_cache()
     print(f"data-parallel phase: {time.time() - t0:.1f} s", flush=True)
+    # step 22: --dtype mixed
+    t0 = time.time()
+    mixed_scene_phase(params, args, scenes, cache, (psnr, ssim, scene_rows))
+    mixed_counts, n_mixed = mixed_train_phase(params, a.seed)
+    mixed9_counts, n_mixed9 = mixed_train_phase(params, a.seed, steps=2, ang_res=9, patch=16,
+                                                timing=False)
+    rows += mixed_kernel_checks(params, card, mixed_counts, n_mixed, mixed9_counts, n_mixed9,
+                                a.seed)
+    torch.cuda.empty_cache()
+    print(f"mixed phase: {time.time() - t0:.1f} s", flush=True)
     missing = sorted(set(LAUNCHES) - {r["name"] for r in rows})
     if missing:
         raise AssertionError(f"kernels without a row in the kernels line: {missing}")

@@ -1,0 +1,98 @@
+"""Hold this checkout's f32 kernel instances to another revision's machine
+code: the ptxas registers and spills of every kernel, both builds.
+
+    python3 -m lft_torch.compare_ptxas OTHER_CSRC_DIR
+
+OTHER_CSRC_DIR holds another revision's whole `lft_torch/csrc` (e.g. `git
+archive <commit> lft_torch/csrc` unpacked into a git-ignored directory such
+as `ab/`). Each source of this checkout is built as `chip_smoke.py` builds
+it (`kernels._build.build_all`, whose ptxas report is kept beside each
+library) and each source of the other revision with the same flags. Kernels
+are named by their demangled names (`compare_bwd.ptxas_report`); a kernel that gained a trailing
+`false` template argument here (the `BF` switch of `--dtype mixed`'s
+bf16-operand instances, rowgemm.cuh / tokenize.cuh / wgrad.cu) is matched to
+the other build's kernel without it. Prints every matched pair's registers,
+spill stores and loads, and each side's unmatched kernels (here: the `BF`
+instances). Exits 1 if a matched pair differs or an old kernel is missing.
+Needs nvcc, not a card.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import tempfile
+
+from lft_torch.compare_bwd import ptxas_report
+from lft_torch.kernels import _build
+
+
+def bare(name: str) -> str:
+    """The name without the return type that a template's demangled name
+    carries and a plain function's does not."""
+    return name[5:] if name.startswith("void ") else name
+
+
+def without_bf(name: str) -> str:
+    """`k<64, false>` -> `k<64>`, `k<false>` -> `k`: the name before the BF switch."""
+    if name.endswith(", false>"):
+        return name[: -len(", false>")] + ">"
+    if name.endswith("<false>"):
+        return name[: -len("<false>")]
+    return name
+
+
+def reports(csrc_other: str) -> tuple:
+    """({source: {kernel: report}} of this build, of the other build)."""
+    paths = _build.build_all()
+    ours = {}
+    for src, lib in paths.items():
+        with open(lib + ".log") as f:
+            ours[src] = ptxas_report(f.read())
+    theirs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in _build.SOURCES:
+            path = os.path.join(csrc_other, f"{src}.cu")
+            if not os.path.exists(path):
+                continue
+            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc_other, "-o",
+                                   os.path.join(tmp, f"lib{src}.so"), path],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {path}:\n{proc.stdout}{proc.stderr}")
+            theirs[src] = ptxas_report(proc.stdout + proc.stderr)
+    return ours, theirs
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    ours, theirs = reports(argv[0])
+    bad = 0
+    for src in sorted(theirs):
+        new = ours.get(src, {})
+        old_by = {bare(k): r for k, r in theirs[src].items()}
+        matched = set()
+        for name, r in sorted(new.items()):
+            key = bare(name) if bare(name) in old_by else without_bf(bare(name))
+            if key not in old_by:
+                print(f"{src}: new only  {name}: {r[0]} registers, spills {r[1]}/{r[2]} B")
+                continue
+            matched.add(key)
+            same = old_by[key] == r
+            bad += not same
+            print(f"{src}: {'same' if same else 'DIFFERS'}  {name}: {r[0]} registers, spills "
+                  f"{r[1]}/{r[2]} B; other build {key}: {old_by[key][0]} registers, spills "
+                  f"{old_by[key][1]}/{old_by[key][2]} B")
+        for key in sorted(set(old_by) - matched):
+            bad += 1
+            print(f"{src}: MISSING here  {key}")
+    print(f"ptxas: {'every kernel of the other build matched' if not bad else f'{bad} differ'}")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

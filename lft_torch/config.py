@@ -50,7 +50,15 @@ class Args:
 
     # Port flags
     seed: int = 0                     # params, batch order and augmentation
-    dtype: str = "float32"            # float32 only in this port
+    dtype: str = "float32"            # float32 | mixed: f32 activations, and
+                                      # lft_tpu's per-site product plans in the
+                                      # fused blocks (LFT_MM_HP_SITES, default
+                                      # all f32; LFT_MM_HP_BWD_SITES, default
+                                      # none: the fused backward's products
+                                      # over bf16 operands). bfloat16 raises
+    matmul_precision: str = "default"  # default | high | highest: TF32 of the
+                                      # torch ops around the kernels on the
+                                      # card (high: on; the kernels ignore it)
     eval_batch: int = 16              # patches per forward in tiled eval
     scene_batch: int = 1              # same-shape scenes per pipeline call
     ckpt_format: str = "npz"          # npz (with Adam state) | pth (reference)
@@ -98,7 +106,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--local_rank", dest="local_rank", type=int, default=d.local_rank)
     p.add_argument("--dtype", type=str, default=d.dtype,
                    choices=["float32", "bfloat16", "mixed"],
-                   help="float32 only; the others raise NotImplementedError")
+                   help="mixed = f32 activations with lft_tpu's per-site product plans "
+                        "(LFT_MM_HP_SITES for the forward, default all f32; "
+                        "LFT_MM_HP_BWD_SITES for the fused backward, default none: its "
+                        "products over bf16 operands, f32 accumulation); bfloat16 raises "
+                        "NotImplementedError")
+    p.add_argument("--matmul_precision", type=str, default=d.matmul_precision,
+                   choices=["default", "high", "highest"],
+                   help="on the card: high turns TF32 on for the torch matmuls and "
+                        "convolutions around the kernels; default and highest keep it off")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--eval_batch", type=int, default=d.eval_batch)
     p.add_argument("--scene_batch", type=int, default=d.scene_batch)

@@ -357,6 +357,16 @@ int launch(const float* x, const float* pe, const float* ln, const float* wq,
 // * b: the attention stays on the FP32 pipes; scores are rebuilt with the
 //   forward's arithmetic (q scaled first, then an fmaf chain).
 // * c: the three weights split take 96 KB at C = 64 and stay resident.
+// `--dtype mixed` (lft_tpu's backward plan `none`: both operands of every
+// product rounded to bf16, f32 accumulation, lft_tpu/kernels/ang_block.py:
+// _bwd_kernel :307-378) runs the three kernels' BF instances
+// (`lft_ang_block_bwd_bf16`): a's and c's products one TF32 pass over the
+// rounded operands (rowgemm.cuh; a writes no dsum); b rounds q, k, v and
+// dattn as it stages them, takes s = (q . k) scale as lft_tpu does, first
+// D = sum_j p_j dp_j a query from those products (a pass over the keys
+// before the gradients), and rounds ds = p (dp - D) scale (the scale inside)
+// and p before their products. The saved (m, l) are the f32 forward's: p
+// is not renormalised.
 
 // The weight stream of step a and the block's shared memory.
 template <int C>
@@ -380,8 +390,9 @@ struct AngBwdTok {
 
 // a. wf: the weight stream (AngBwdTok<C>::FLOATS floats), written by
 // rg_weights_kernel. q, k, v, dattn [T, C] and dsum [T, H]: step b's
-// inputs; ln_part [tiles, 4, C], rows 2-3 (LN2).
-template <int C, int H>
+// inputs; ln_part [tiles, 4, C], rows 2-3 (LN2). BF: products over bf16
+// operands, and no dsum (step b's BF instance forms D itself).
+template <int C, int H, bool BF = false>
 __global__ void __launch_bounds__(RG_NT, 1)
     ang_bwd_tok_kernel(const float* __restrict__ x, const float* __restrict__ pe,
                        const float* __restrict__ ln, const float* __restrict__ attn,
@@ -426,15 +437,15 @@ __global__ void __launch_bounds__(RG_NT, 1)
     {  // v = x Wv, q = xn Wq, k = xn Wk, into step b's scratch
       RgAcc<C> a;
       rg_zero<C>(a);
-      rg_product<C, C, L::OFF_V, true>(a, xw, LD, ring, st);
+      rg_product<C, C, L::OFF_V, true, BF>(a, xw, LD, ring, st);
       put_tile<C>(a, hw, LDH);
       store_rows<C, true>(hw, LDH, v_out, C, 0, t0, T);
       rg_zero<C>(a);
-      rg_product<C, C, L::OFF_Q, true>(a, nw, LD, ring, st);
+      rg_product<C, C, L::OFF_Q, true, BF>(a, nw, LD, ring, st);
       put_tile<C>(a, hw, LDH);
       store_rows<C, true>(hw, LDH, q_out, C, 0, t0, T);
       rg_zero<C>(a);
-      rg_product<C, C, L::OFF_K, true>(a, nw, LD, ring, st);
+      rg_product<C, C, L::OFF_K, true, BF>(a, nw, LD, ring, st);
       put_tile<C>(a, hw, LDH);
       store_rows<C, true>(hw, LDH, k_out, C, 0, t0, T);
     }
@@ -443,7 +454,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     {  // x2 = attn Wo + x (x added to the finished product), xn2 = LN2(x2)
       RgAcc<C> a;
       rg_zero<C>(a);
-      rg_product<C, C, L::OFF_O, true>(a, nw, LD, ring, st);
+      rg_product<C, C, L::OFF_O, true, BF>(a, nw, LD, ring, st);
       rg_pairs<C>(a, [&](int r, int c, float& v0, float& v1) {
         const float2 xv = *reinterpret_cast<const float2*>(xw + r * LD + c);
         v0 += xv.x;
@@ -464,7 +475,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
       constexpr int j = decltype(J)::value, off = L::OFF_F + j * 3 * L::PC;
       RgAcc<HC> hc;
       rg_zero<HC>(hc);
-      rg_product<C, HC, off, true>(hc, nw, LD, ring, st);
+      rg_product<C, HC, off, true, BF>(hc, nw, LD, ring, st);
       uint32_t on = 0;   // the ReLU's signs, bit i: element i
 #pragma unroll
       for (int i = 0; i < RgParts<HC>::R; ++i) {
@@ -474,13 +485,13 @@ __global__ void __launch_bounds__(RG_NT, 1)
       put_tile<HC>(hc, hw, LDH);
       store_rows<HC>(hw, LDH, hid_out, 2 * C, j * HC, t0, T);
       rg_zero<HC>(hc);
-      rg_product<C, HC, off + L::PC, true>(hc, dw, LD, ring, st);
+      rg_product<C, HC, off + L::PC, true, BF>(hc, dw, LD, ring, st);
 #pragma unroll
       for (int i = 0; i < RgParts<HC>::R; ++i)
         if (!((on >> i) & 1u)) hc[0][i] = 0.f;
       put_tile<HC>(hc, hw, LDH);
       store_rows<HC>(hw, LDH, dpre_out, 2 * C, j * HC, t0, T);
-      rg_product<HC, C, off + 2 * L::PC, true>(dxn, hw, LDH, ring, st);
+      rg_product<HC, C, off + 2 * L::PC, true, BF>(dxn, hw, LDH, ring, st);
     });
 
     {  // dx2 = dout + LN2ᵀ(dxn2) on the accumulators, xhat from x2 as LN2 made it
@@ -503,11 +514,11 @@ __global__ void __launch_bounds__(RG_NT, 1)
     {  // dattn = dx2 Woᵀ; dsum = dattn . attn per head (attn read again)
       RgAcc<C> a;
       rg_zero<C>(a);
-      rg_product<C, C, L::OFF_OT, true>(a, xw, LD, ring, st);
+      rg_product<C, C, L::OFF_OT, true, BF>(a, xw, LD, ring, st);
       put_tile<C>(a, hw, LDH);
       store_rows<C, true>(hw, LDH, dattn_out, C, 0, t0, T);
       constexpr int LH = DH / 2;   // lanes of a quad that hold a head of a row
-      rg_each<C>([&](int p, int i, int r, int c) {
+      if constexpr (!BF) rg_each<C>([&](int p, int i, int r, int c) {
         const int t = t0 + r;
         const float2 av =
             t < T ? __ldcs(reinterpret_cast<const float2*>(attn + static_cast<size_t>(t) * C + c))
@@ -523,7 +534,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
 }
 
 // b. P pixels a block (attn_pixels), tiles [P A2][C + 4] sized by the launch.
-template <int C, int H>
+// BF: the header's arithmetic; dsum is not read.
+template <int C, int H, bool BF = false>
 __global__ void __launch_bounds__(NT)
     ang_bwd_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dattn,
@@ -546,12 +558,43 @@ __global__ void __launch_bounds__(NT)
   stage<C>(K, k, row0, rows);
   stage<C>(V, v, row0, rows);
   stage<C>(DO, dattn, row0, rows);
+  if constexpr (BF) {   // the elements this thread staged, rounded to bf16
+    for (int i = threadIdx.x; i < rows * (C / 4); i += NT) {
+      const int off = i / (C / 4) * (C + 4) + 4 * (i % (C / 4));
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        float* p = Q + b * P * A2 * (C + 4) + off;
+        const float4 t = load4(p);
+        store4(p, make_float4(bf16_round(t.x), bf16_round(t.y), bf16_round(t.z),
+                              bf16_round(t.w)));
+      }
+    }
+  }
   for (int i = threadIdx.x; i < rows * H; i += NT) {
     M[i] = __ldg(m_in + row0 * H + i);
     Lsum[i] = __ldg(l_in + row0 * H + i);
-    DS[i] = __ldg(dsum + row0 * H + i);
+    if constexpr (!BF) DS[i] = __ldg(dsum + row0 * H + i);
   }
   __syncthreads();
+  if constexpr (BF) {   // D = sum_j p_j dp_j of each (query, head), into DS
+    for (int t = threadIdx.x; t < np * H * A2; t += NT) {
+      const int hh = (t / A2) % H, base = t / (A2 * H) * A2;
+      const int me = base + t % A2;
+      float qs[DH], dov[DH];
+      ld<DH>(Q + me * LD + hh * DH, qs);
+      ld<DH>(DO + me * LD + hh * DH, dov);
+      const float m_me = M[me * H + hh], inv_me = 1.f / Lsum[me * H + hh];
+      float d = 0.f;
+      for (int o = base; o < base + A2; ++o) {
+        float kr[DH], vr[DH];
+        ld<DH>(K + o * LD + hh * DH, kr);
+        ld<DH>(V + o * LD + hh * DH, vr);
+        d = fmaf(expf(dot<DH>(qs, kr) * scale - m_me) * inv_me, dot<DH>(dov, vr), d);
+      }
+      DS[me * H + hh] = d;
+    }
+    __syncthreads();
+  }
 
   // thread (pixel, head, t), t fastest. Scores are rebuilt with the
   // forward's arithmetic (q scaled first, then an fmaf chain).
@@ -565,7 +608,7 @@ __global__ void __launch_bounds__(NT)
     ld<DH>(DO + me * LD + hh * DH, dov);
 #pragma unroll
     for (int d = 0; d < DH; ++d) {
-      qs[d] *= scale;
+      if constexpr (!BF) qs[d] *= scale;
       dq[d] = dk[d] = dv[d] = 0.f;
     }
     const float m_me = M[me * H + hh], inv_me = 1.f / Lsum[me * H + hh];
@@ -577,6 +620,22 @@ __global__ void __launch_bounds__(NT)
       ld<DH>(Q + o * LD + hh * DH, qo);
       ld<DH>(DO + o * LD + hh * DH, dr);
       // me as the query, o as the key
+      if constexpr (BF) {
+        float pr = expf(dot<DH>(qs, kr) * scale - m_me) * inv_me;
+        float g = bf16_round(pr * (dot<DH>(dov, vr) - ds_me) * scale);
+#pragma unroll
+        for (int d = 0; d < DH; ++d) dq[d] = fmaf(g, kr[d], dq[d]);
+        // o as the query, me as the key
+        pr = expf(dot<DH>(qo, kv) * scale - M[o * H + hh]) * (1.f / Lsum[o * H + hh]);
+        g = bf16_round(pr * (dot<DH>(dr, vv) - DS[o * H + hh]) * scale);
+        pr = bf16_round(pr);
+#pragma unroll
+        for (int d = 0; d < DH; ++d) {
+          dk[d] = fmaf(g, qo[d], dk[d]);
+          dv[d] = fmaf(pr, dr[d], dv[d]);
+        }
+        continue;
+      }
       float pr = expf(dot<DH>(qs, kr) - m_me) * inv_me;
       float g = pr * (dot<DH>(dov, vr) - ds_me);
 #pragma unroll
@@ -592,8 +651,10 @@ __global__ void __launch_bounds__(NT)
         dv[d] = fmaf(pr, dr[d], dv[d]);
       }
     }
+    if constexpr (!BF) {
 #pragma unroll
-    for (int d = 0; d < DH; ++d) dq[d] *= scale;
+      for (int d = 0; d < DH; ++d) dq[d] *= scale;
+    }
     const size_t off = (row0 + me) * C + hh * DH;
     st<DH>(dq_out + off, dq);
     st<DH>(dk_out + off, dk);
@@ -607,8 +668,9 @@ __global__ void __launch_bounds__(NT)
 inline int attn_pixels(int A2) { return NT / (8 * A2) > 1 ? NT / (8 * A2) : 1; }
 
 // in: x, pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn, dout; out: dx, xn, dq,
-// dk, dv, dx2, xn2, dpre, hid, ln_part; scr: q, k, v, dattn, dsum.
-template <int C>
+// dk, dv, dx2, xn2, dpre, hid, ln_part; scr: q, k, v, dattn, dsum. BF: the
+// three kernels' bf16-operand instances (the header).
+template <int C, bool BF = false>
 int launch_bwd(const float* const* in, float* const* out, float* const* scr, float* wf, int N,
                int A2, float scale, cudaStream_t s) {
   using L = AngBwdTok<C>;
@@ -630,21 +692,21 @@ int launch_bwd(const float* const* in, float* const* out, float* const* scr, flo
     all[n++] = RgPiece{w1 + j * L::HC, 2 * C, L::HC, C, off + 2 * L::PC, 1};     // W1ᵀ[c, :]
   }
   all[n++] = RgPiece{wo, C, C, C, L::OFF_OT, 1};                                // Woᵀ
-  launch_rg_pieces(all, n, wf, s);
-  auto tok = ang_bwd_tok_kernel<C, H>;
+  launch_rg_pieces(all, n, wf, s, BF);
+  auto tok = ang_bwd_tok_kernel<C, H, BF>;
   LFT_SET_SMEM(tok, L::BYTES);
   tok<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(
       x, pe, ln, in[11], in[12], wf, out[1], scr[0], scr[1], scr[2], out[6], out[8], out[7],
       out[5], scr[3], scr[4], out[9], T, A2);
   const int P = attn_pixels(A2);
-  auto att = ang_bwd_attn_kernel<C, H>;
+  auto att = ang_bwd_attn_kernel<C, H, BF>;
   const size_t att_bytes = static_cast<size_t>(P) * A2 * (4 * (C + 4) + 3 * H) * sizeof(float);
   LFT_SET_SMEM(att, att_bytes);
   att<<<(N + P - 1) / P, NT, att_bytes, s>>>(scr[0], scr[1], scr[2], scr[3], in[9], in[10],
                                             scr[4], out[2], out[3], out[4], N, A2, P, scale);
   const QkvLnBwdArgs a{x, pe, out[2], out[3], out[4], out[5], ln, nullptr, out[0], nullptr,
                        out[9], A2, 4 * C, T};
-  return launch_qkv_ln_bwd<C>(a, wq, wk, C, wv, wf + L::FLOATS, s);
+  return launch_qkv_ln_bwd<C, BF>(a, wq, wk, C, wv, wf + L::FLOATS, s);
 }
 
 }  // namespace
@@ -704,24 +766,30 @@ extern "C" int lft_ang_block_fwd_res(const float* x, const float* pe, const floa
 // of the weight grads, and ln_part [ceil(T / 128), 4, C], each 128-row
 // tile's sums of the LN affine grads; q, k, v, dattn [T, C] and dsum [T, H]
 // are the scratch its three kernels pass through device memory.
-extern "C" int lft_ang_block_bwd(
-    const float* x, const float* pe, const float* ln, const float* wq, const float* wk,
-    const float* wv, const float* wo, const float* w1, const float* w2, const float* m,
-    const float* l, const float* attn, const float* dout, float* wf, float* dx, float* xn,
-    float* dq, float* dk, float* dv, float* dx2, float* xn2, float* dpre, float* hid,
-    float* ln_part, float* q, float* k, float* v, float* dattn, float* dsum, int N, int A2,
-    int C, int H, float scale, void* stream) {
-  if (H != 8 || A2 < 1 || A2 > RP || N < 1 ||
-      static_cast<long long>(N) * A2 > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float* in[] = {x, pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn, dout};
-  float* out[] = {dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, ln_part};
-  float* scr[] = {q, k, v, dattn, dsum};
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 16: return launch_bwd<16>(in, out, scr, wf, N, A2, scale, s);
-    case 32: return launch_bwd<32>(in, out, scr, wf, N, A2, scale, s);
-    case 64: return launch_bwd<64>(in, out, scr, wf, N, A2, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+#define LFT_ANG_BWD_ARGS                                                                  \
+  const float *x, const float *pe, const float *ln, const float *wq, const float *wk,     \
+      const float *wv, const float *wo, const float *w1, const float *w2, const float *m, \
+      const float *l, const float *attn, const float *dout, float *wf, float *dx,         \
+      float *xn, float *dq, float *dk, float *dv, float *dx2, float *xn2, float *dpre,    \
+      float *hid, float *ln_part, float *q, float *k, float *v, float *dattn, float *dsum, \
+      int N, int A2, int C, int H, float scale, void *stream
+#define LFT_ANG_BWD_BODY(BF)                                                               \
+  if (H != 8 || A2 < 1 || A2 > RP || N < 1 || static_cast<long long>(N) * A2 > 0x7fffffffLL) \
+    return static_cast<int>(cudaErrorInvalidValue);                                        \
+  const float* in[] = {x, pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn, dout};               \
+  float* out[] = {dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, ln_part};                       \
+  float* scr[] = {q, k, v, dattn, dsum};                                                   \
+  auto s = static_cast<cudaStream_t>(stream);                                              \
+  switch (C) {                                                                             \
+    case 16: return launch_bwd<16, BF>(in, out, scr, wf, N, A2, scale, s);                 \
+    case 32: return launch_bwd<32, BF>(in, out, scr, wf, N, A2, scale, s);                 \
+    case 64: return launch_bwd<64, BF>(in, out, scr, wf, N, A2, scale, s);                 \
+    default: return static_cast<int>(cudaErrorInvalidValue);                               \
   }
-}
+
+extern "C" int lft_ang_block_bwd(LFT_ANG_BWD_ARGS) { LFT_ANG_BWD_BODY(false) }
+
+// K4's bf16-operand instances under `--dtype mixed` (the K4 header): the
+// same arguments (dsum is left unwritten), wf holding the weights' bf16
+// parts in the same layouts.
+extern "C" int lft_ang_block_bwd_bf16(LFT_ANG_BWD_ARGS) { LFT_ANG_BWD_BODY(true) }

@@ -270,6 +270,8 @@ __device__ __forceinline__ void tile_ln_sums(const float* part, float* __restric
 //   of ~0.16 ms for the design).
 // LN1's backward runs on the accumulators (quad_xhat, quad_ln_bwd). Every
 // output is written by one thread, no atomics: a call repeats bitwise.
+// BF (`--dtype mixed`'s backward): the three products over bf16-rounded
+// operands, one TF32 pass each (rowgemm.cuh).
 template <int W>
 struct QkvLnBwd {
   static constexpr int LDX = W + 4;          // row stride of a tile
@@ -291,7 +293,7 @@ struct QkvLnBwdArgs {
 // One pass over the block's tiles running the phases of PH (1: Q, 2: K,
 // 4: V), each from its own weight and row tile (slots in phase order).
 // Ends with every warp past its last read of the weights.
-template <int W, int PH>
+template <int W, int PH, bool BF>
 __device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs& a, float* smem) {
   using Q = QkvLnBwd<W>;
   constexpr int LDX = Q::LDX, SQ = Q::SQ;
@@ -323,7 +325,7 @@ __device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs& a, float* sm
     if constexpr ((PH & 1) != 0) {
       ResidentWeights wr{smem};
       rg_zero<W>(p);
-      rg_product<W, W, 0, true>(p, rw(0), LDX, wr, st);
+      rg_product<W, W, 0, true, BF>(p, rw(0), LDX, wr, st);
       __syncwarp();   // the warp's rows are read
       if (more) rows_async<W>(rw(0), a.dq, n0, T);
       if constexpr ((PH & 2) == 0) store_acc<W, false>(p, a.dxpe, W, 0, t0, T);
@@ -331,7 +333,7 @@ __device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs& a, float* sm
     if constexpr ((PH & 2) != 0) {
       ResidentWeights wr{smem + S1 * SQ};
       rg_zero<W>(acc);
-      rg_product<W, W, 0, true>(acc, rw(S1), LDX, wr, st);
+      rg_product<W, W, 0, true, BF>(acc, rw(S1), LDX, wr, st);
       __syncwarp();
       if (more) rows_async<W>(rw(S1), a.dk, n0, T);
       // dxn = dq Wqᵀ + dk Wkᵀ, the finished products added (zero past T)
@@ -369,7 +371,7 @@ __device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs& a, float* sm
     if constexpr ((PH & 4) != 0) {
       ResidentWeights wr{smem + S2 * SQ};
       rg_zero<W>(acc);
-      rg_product<W, W, 0, true>(acc, rw(S2), LDX, wr, st);
+      rg_product<W, W, 0, true, BF>(acc, rw(S2), LDX, wr, st);
       __syncwarp();
       if (more) rows_async<W>(rw(S2), a.dv, n0, T);
       // dx = (dx2 + dv Wvᵀ) + d
@@ -391,23 +393,23 @@ __device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs& a, float* sm
   __syncthreads();
 }
 
-template <int W>
+template <int W, bool BF = false>
 __global__ void __launch_bounds__(RG_NT, 1) qkv_ln_bwd_kernel(const QkvLnBwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   if constexpr (QkvLnBwd<W>::ONE) {
-    qkv_ln_bwd_pass<W, 7>(a, smem);
+    qkv_ln_bwd_pass<W, 7, BF>(a, smem);
   } else {
-    qkv_ln_bwd_pass<W, 1>(a, smem);
-    qkv_ln_bwd_pass<W, 2>(a, smem);
-    qkv_ln_bwd_pass<W, 4>(a, smem);
+    qkv_ln_bwd_pass<W, 1, BF>(a, smem);
+    qkv_ln_bwd_pass<W, 2, BF>(a, smem);
+    qkv_ln_bwd_pass<W, 4, BF>(a, smem);
   }
 }
 
 // Splits Wqᵀ, Wkᵀ, Wvᵀ straight from the forward's "x @ W" weights (wq, wk
 // rows ldqk floats apart, wv rows W apart) into the scratch wf
 // (QkvLnBwd<W>::FLOATS floats, kernels/rowgemm.py:qkv_ln_bwd_stream), then
-// runs the kernel.
-template <int W>
+// runs the kernel; BF: the bf16 parts, then the BF instance.
+template <int W, bool BF = false>
 int launch_qkv_ln_bwd(QkvLnBwdArgs a, const float* wq, const float* wk, int ldqk,
                       const float* wv, float* wf, cudaStream_t s) {
   using Q = QkvLnBwd<W>;
@@ -415,9 +417,9 @@ int launch_qkv_ln_bwd(QkvLnBwdArgs a, const float* wq, const float* wk, int ldqk
   ps.p[0] = RgPiece{wq, ldqk, W, W, 0, 1};
   ps.p[1] = RgPiece{wk, ldqk, W, W, Q::SQ, 1};
   ps.p[2] = RgPiece{wv, W, W, W, 2 * Q::SQ, 1};
-  launch_rg_weights(ps, 3, wf, s);
+  launch_rg_weights(ps, 3, wf, s, BF);
   a.wf = wf;
-  auto kernel = qkv_ln_bwd_kernel<W>;
+  auto kernel = qkv_ln_bwd_kernel<W, BF>;
   LFT_SET_SMEM(kernel, Q::BYTES);
   kernel<<<rg_grid((a.T + RG_M - 1) / RG_M), RG_NT, Q::BYTES, s>>>(a);
   return static_cast<int>(cudaGetLastError());

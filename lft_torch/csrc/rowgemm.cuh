@@ -50,6 +50,10 @@
 //   prefetch of a block's next rows slowed K2.5 and is not made.
 // * N <= 128 per product; K and N are multiples of 16; a chain's 32 N
 //   floats of B never straddle two stages.
+// * BF (`--dtype mixed`'s backward): both operands rounded to bf16 (A as
+//   it is loaded, B by `rg_weights_kernel<true>` into the hi part of the
+//   same layout, lo left 0), one TF32 `wgmma` a k8 step instead of three,
+//   the same chains and f32 accumulation (tf32.cuh).
 // Every output is written by one warp of one block, no atomics: a call
 // repeats bitwise.
 #pragma once
@@ -88,15 +92,23 @@ struct RgPieces {
 // B split into TF32 hi and lo (both rounded to nearest), per piece
 // [K / 8][2 (hi, lo)][2 (k half)][N / 8][8 (n)][4 (k)]: a k8 step's hi (or
 // lo) is core matrices of 8 columns x 4 k, 128 bytes each, N / 8 of them
-// 128 bytes apart, then the second k half (kernels/rowgemm.py:piece).
+// 128 bytes apart, then the second k half (kernels/rowgemm.py:piece). BF:
+// hi is B rounded to bf16 and lo 0, in the same layout, so a BF product
+// never reads a 3xTF32 split.
+template <bool BF = false>
 __global__ void __launch_bounds__(256) rg_weights_kernel(RgPieces ps, float* __restrict__ wf) {
   const RgPiece pc = ps.p[blockIdx.y];
   for (int i = blockIdx.x * 256 + threadIdx.x; i < pc.K * pc.N; i += gridDim.x * 256) {
     const int k = i / pc.N, n = i % pc.N;
     uint32_t hi, lo;
-    split_tf32_rn(__ldg(pc.src + (pc.tr ? static_cast<size_t>(n) * pc.ld + k
-                                         : static_cast<size_t>(k) * pc.ld + n)),
-                  hi, lo);
+    const float v = __ldg(pc.src + (pc.tr ? static_cast<size_t>(n) * pc.ld + k
+                                          : static_cast<size_t>(k) * pc.ld + n));
+    if constexpr (BF) {
+      hi = bf16_bits(v);
+      lo = 0u;
+    } else {
+      split_tf32_rn(v, hi, lo);
+    }
     const size_t at = pc.off +
                       (static_cast<size_t>((k / 8) * 4 + k % 8 / 4) * (pc.N / 8) + n / 8) * 32 +
                       n % 8 * 4 + k % 4;
@@ -105,19 +117,25 @@ __global__ void __launch_bounds__(256) rg_weights_kernel(RgPieces ps, float* __r
   }
 }
 
-inline void launch_rg_weights(const RgPieces& ps, int n, float* wf, cudaStream_t s) {
+inline void launch_rg_weights(const RgPieces& ps, int n, float* wf, cudaStream_t s,
+                              bool bf = false) {
   int most = 0;
   for (int i = 0; i < n; ++i) most = ps.p[i].K * ps.p[i].N > most ? ps.p[i].K * ps.p[i].N : most;
-  rg_weights_kernel<<<dim3((most + 255) / 256, n), 256, 0, s>>>(ps, wf);
+  const dim3 grid((most + 255) / 256, n);
+  if (bf)
+    rg_weights_kernel<true><<<grid, 256, 0, s>>>(ps, wf);
+  else
+    rg_weights_kernel<false><<<grid, 256, 0, s>>>(ps, wf);
 }
 
 // The same for any number of pieces, RG_MAX_PIECES a launch.
-inline void launch_rg_pieces(const RgPiece* all, int n, float* wf, cudaStream_t s) {
+inline void launch_rg_pieces(const RgPiece* all, int n, float* wf, cudaStream_t s,
+                             bool bf = false) {
   for (int i = 0; i < n; i += RG_MAX_PIECES) {
     RgPieces ps{};
     const int k = n - i < RG_MAX_PIECES ? n - i : RG_MAX_PIECES;
     for (int j = 0; j < k; ++j) ps.p[j] = all[i + j];
-    launch_rg_weights(ps, k, wf, s);
+    launch_rg_weights(ps, k, wf, s, bf);
   }
 }
 
@@ -411,8 +429,9 @@ __device__ __forceinline__ void quad_ln(RgAcc<N>& v, const float* __restrict__ w
 // that only two of its truncated sums are at the chain's full magnitude
 // (four in the default order); at K = 16 a product is one chain, and this
 // order keeps it within the f32 product's error (K3.a's dout Wlinᵀ at C =
-// 16, an H100).
-template <int K, int N, int OFF, bool TAILS_FIRST = false, class W>
+// 16, an H100). BF: A rounded to bf16 as it loads, one product a k8 step
+// over B's bf16 part (the header).
+template <int K, int N, int OFF, bool TAILS_FIRST = false, bool BF = false, class W>
 __device__ __forceinline__ void rg_product(RgAcc<N>& acc, const float* a, int lda, W& ring,
                                            const float*& st) {
   using P = RgParts<N>;
@@ -431,6 +450,13 @@ __device__ __forceinline__ void rg_product(RgAcc<N>& acc, const float* a, int ld
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int k0 = 16 * c + 8 * u;
+      if constexpr (BF) {
+        ah[b][u][0] = bf16_bits(a0[k0]);
+        ah[b][u][1] = bf16_bits(a1[k0]);
+        ah[b][u][2] = bf16_bits(a0[k0 + 4]);
+        ah[b][u][3] = bf16_bits(a1[k0 + 4]);
+        continue;
+      }
       split_tf32_rn(a0[k0], ah[b][u][0], al[b][u][0]);
       split_tf32_rn(a1[k0], ah[b][u][1], al[b][u][1]);
       split_tf32_rn(a0[k0 + 4], ah[b][u][2], al[b][u][2]);
@@ -446,7 +472,10 @@ __device__ __forceinline__ void rg_product(RgAcc<N>& acc, const float* a, int ld
         smem_desc(st + (OFF + c * CHAIN) % SF + p * (NW / 8) * 32, LBO, SBO);
     reg_fence(sum[z]);
     wgmma_fence();
-    if constexpr (TAILS_FIRST) {
+    if constexpr (BF) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) Wgmma<NW>::mma(sum[z], ah[c & 1][u], d0 + u * 4 * N, u);
+    } else if constexpr (TAILS_FIRST) {
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const uint64_t dh = d0 + u * 4 * N, dl = dh + 2 * N;

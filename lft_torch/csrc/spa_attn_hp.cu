@@ -70,6 +70,14 @@
 // (10 dh a pair and head) take 0.08 ms on the FP32 pipes. The two passes
 // move ~0.58 GB (each reads four images, pass kv also the halo's statistics),
 // ~0.17 ms.
+//
+// BF (`lft_spa_attn_hp_bwd_bf16`: K3.c under `--dtype mixed`'s backward,
+// lft_tpu/kernels/spa_block.py:_bwd_kernel :505-531): both passes round q,
+// k, v and dout to bf16 on load (the halos in place once they have landed),
+// score s = (q . k) scale as lft_tpu does, round ds = p (dp - D) scale (the
+// scale inside) and p before their products, and take D = sum_j p_j dp_j
+// from the rounded products, on the FP32 pipes as the f32 passes. The
+// saved (m, l) are the f32 forward's, so p is not renormalised.
 
 #include "attn.cuh"
 #include "window_attn.cuh"
@@ -95,7 +103,7 @@ __device__ __forceinline__ float dot4(const float* a, const float (&b)[DH]) {
 // ---- backward, pass q: dq and D --------------------------------------------
 // One block an item (view, 16 x 16 tile, 32-float head group), items in
 // K2.3's launch order.
-template <int DH>
+template <int DH, bool BF = false>
 __global__ void __launch_bounds__(WA_NT, 2)
     spa_attn_hp_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, const float* __restrict__ dout,
@@ -136,6 +144,17 @@ __global__ void __launch_bounds__(WA_NT, 2)
     for (int d = 0; d < WA_S; d += 4) {
       const float4 t = in ? ldg4(q + pix * D + col + d) : make_float4(0.f, 0.f, 0.f, 0.f);
       const float4 u = in ? ldg4(dout + pix * D + col + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (BF) {   // q unscaled: the score's scale comes after the product
+        qv[d] = bf16_round(t.x);
+        qv[d + 1] = bf16_round(t.y);
+        qv[d + 2] = bf16_round(t.z);
+        qv[d + 3] = bf16_round(t.w);
+        gv[d] = bf16_round(u.x);
+        gv[d + 1] = bf16_round(u.y);
+        gv[d + 2] = bf16_round(u.z);
+        gv[d + 3] = bf16_round(u.w);
+        continue;
+      }
       qv[d] = t.x * scale;
       qv[d + 1] = t.y * scale;
       qv[d + 2] = t.z * scale;
@@ -147,6 +166,18 @@ __global__ void __launch_bounds__(WA_NT, 2)
     }
     if (a == 0) {
       cp_async_wait<0>();
+      if constexpr (BF) {   // the k and v halo chunks this thread copied, rounded in place
+        for (int j = threadIdx.x; j < WA_HY * WA_HX * (WA_G / 4); j += WA_NT) {
+          const int px = j / (WA_G / 4), c = 4 * (j % (WA_G / 4));
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            float* p = smem + b * WA_BUF + px * WA_LD + c;
+            const float4 t = load4(p);
+            store4(p, make_float4(bf16_round(t.x), bf16_round(t.y), bf16_round(t.z),
+                                  bf16_round(t.w)));
+          }
+        }
+      }
       __syncthreads();
     }
     if (!in) continue;   // no barrier follows
@@ -173,7 +204,8 @@ __global__ void __launch_bounds__(WA_NT, 2)
           if (kx < 0 || kx >= w) continue;
           float kk[DH], vv[DH];
           ld<DH>(kr + dx * WA_LD, kk);
-          s[(2 * R + 1) * r + dx] = dot4<DH>(qv + e * DH, kk);
+          s[(2 * R + 1) * r + dx] = BF ? dot4<DH>(qv + e * DH, kk) * scale
+                                       : dot4<DH>(qv + e * DH, kk);
           ld<DH>(kr + WA_BUF + dx * WA_LD, vv);
           dp[(2 * R + 1) * r + dx] = dot4<DH>(gv + e * DH, vv);
         }
@@ -186,7 +218,8 @@ __global__ void __launch_bounds__(WA_NT, 2)
       }
       const float dd = dsum * il;
 #pragma unroll
-      for (int j = 0; j < KW; ++j) dp[j] = s[j] * (dp[j] - dd);   // l ds_j
+      for (int j = 0; j < KW; ++j)   // l ds_j; BF: ds_j rounded
+        dp[j] = BF ? bf16_round(s[j] * il * (dp[j] - dd) * scale) : s[j] * (dp[j] - dd);
       float dq[DH];
 #pragma unroll
       for (int d = 0; d < DH; ++d) dq[d] = 0.f;
@@ -206,7 +239,7 @@ __global__ void __launch_bounds__(WA_NT, 2)
           for (int d = 0; d < DH; ++d) dq[d] = fmaf(c, kk[d], dq[d]);
         }
       }
-      const float f = il * scale;
+      const float f = BF ? 1.f : il * scale;
 #pragma unroll
       for (int d = 0; d < DH; d += 4)
         store4(dq_out + pix * D + col + e * DH + d,
@@ -231,7 +264,7 @@ struct KvLayout {
 // One block an item (view, 16 x 16 tile, head pair), items in launch order;
 // a thread owns the key pixels (ry, tx) and (ry + 1, tx) of the tile, one
 // after the other, for head `e` of the pair.
-template <int DH>
+template <int DH, bool BF = false>
 __global__ void __launch_bounds__(WA_NT, 2)
     spa_attn_hp_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ dout,
@@ -276,11 +309,20 @@ __global__ void __launch_bounds__(WA_NT, 2)
   }
   cp_async_wait<0>();
   // q * scale in place, over the chunks this thread copied (its own copies
-  // have landed): the forward's operand
+  // have landed): the forward's operand; BF: q and dout rounded to bf16
   for (int j = threadIdx.x; j < WA_HY * WA_HX * (W / 4); j += WA_NT) {
     float* p = qs + j / (W / 4) * LD + 4 * (j % (W / 4));
     const float4 t = load4(p);
-    store4(p, make_float4(t.x * scale, t.y * scale, t.z * scale, t.w * scale));
+    if constexpr (BF) {
+      float* g = gs + j / (W / 4) * LD + 4 * (j % (W / 4));
+      const float4 u = load4(g);
+      store4(p, make_float4(bf16_round(t.x), bf16_round(t.y), bf16_round(t.z),
+                            bf16_round(t.w)));
+      store4(g, make_float4(bf16_round(u.x), bf16_round(u.y), bf16_round(u.z),
+                            bf16_round(u.w)));
+    } else {
+      store4(p, make_float4(t.x * scale, t.y * scale, t.z * scale, t.w * scale));
+    }
   }
   __syncthreads();
 
@@ -294,7 +336,13 @@ __global__ void __launch_bounds__(WA_NT, 2)
     ldg<DH>(k + off, km);
     ldg<DH>(v + off, vm);
 #pragma unroll
-    for (int d = 0; d < DH; ++d) dk[d] = dv[d] = 0.f;
+    for (int d = 0; d < DH; ++d) {
+      dk[d] = dv[d] = 0.f;
+      if constexpr (BF) {
+        km[d] = bf16_round(km[d]);
+        vm[d] = bf16_round(vm[d]);
+      }
+    }
 #pragma unroll
     for (int r = 0; r <= 2 * R; ++r) {   // query row y + r - 2: halo row ry + a + r
       const int oy = y + r - R;
@@ -309,13 +357,15 @@ __global__ void __launch_bounds__(WA_NT, 2)
         float qq[DH], gg[DH];
         ld<DH>(qo + e * DH, qq);
         const float2 ml = *reinterpret_cast<const float2*>(qo + W + 2 * e);
-        const float p = expf(dot4<DH>(qq, km) - ml.x) * ml.y;
+        const float p = expf((BF ? dot4<DH>(qq, km) * scale : dot4<DH>(qq, km)) - ml.x) * ml.y;
         ld<DH>(go + e * DH, gg);
-        const float ds = p * (dot4<DH>(gg, vm) - go[W + e]);
+        const float ds = BF ? bf16_round(p * (dot4<DH>(gg, vm) - go[W + e]) * scale)
+                            : p * (dot4<DH>(gg, vm) - go[W + e]);
+        const float pv = BF ? bf16_round(p) : p;
 #pragma unroll
         for (int d = 0; d < DH; ++d) {
           dk[d] = fmaf(ds, qq[d], dk[d]);
-          dv[d] = fmaf(p, gg[d], dv[d]);
+          dv[d] = fmaf(pv, gg[d], dv[d]);
         }
       }
     }
@@ -383,23 +433,21 @@ extern "C" int lft_spa_attn_hp_res(const float* q, const float* k, const float* 
                            static_cast<cudaStream_t>(stream));
 }
 
-// dq, dk, dv [B, h, w, E] from q, k, v, dout [B, h, w, E] and m, l [B, h, w,
-// 8]; dsum [B, h, w, 8] is the launch's scratch (pass q writes D there,
-// pass kv reads it).
-extern "C" int lft_spa_attn_hp_bwd(const float* q, const float* k, const float* v,
-                                   const float* dout, const float* m, const float* l,
-                                   float* dsum, float* dq, float* dk, float* dv, int B, int h,
-                                   int w, int E, int heads, float scale, void* stream) {
+namespace {
+
+template <bool BF>
+int hp_bwd(const float* q, const float* k, const float* v, const float* dout, const float* m,
+           const float* l, float* dsum, float* dq, float* dk, float* dv, int B, int h, int w,
+           int E, int heads, float scale, cudaStream_t s) {
   if (bad_shape(B, h, w, E, heads) || n_items(B, h, w, H / KV_HEADS) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
   const int grid_q = static_cast<int>(n_items(B, h, w, E / WA_G));
   const int grid_kv = static_cast<int>(n_items(B, h, w, H / KV_HEADS));
   switch (E / H) {
 #define LFT_HP_CASE(DHV)                                                             \
     case DHV: {                                                                      \
-      auto kq = spa_attn_hp_bwd_q_kernel<DHV>;                                       \
-      auto kkv = spa_attn_hp_bwd_kv_kernel<DHV>;                                     \
+      auto kq = spa_attn_hp_bwd_q_kernel<DHV, BF>;                                   \
+      auto kkv = spa_attn_hp_bwd_kv_kernel<DHV, BF>;                                 \
       LFT_SET_SMEM(kq, WA_BYTES);                                                    \
       LFT_SET_SMEM(kkv, KvLayout<DHV>::BYTES);                                       \
       kq<<<grid_q, WA_NT, WA_BYTES, s>>>(q, k, v, dout, m, l, dq, dsum, h, w, scale); \
@@ -414,4 +462,28 @@ extern "C" int lft_spa_attn_hp_bwd(const float* q, const float* k, const float* 
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dq, dk, dv [B, h, w, E] from q, k, v, dout [B, h, w, E] and m, l [B, h, w,
+// 8]; dsum [B, h, w, 8] is the launch's scratch (pass q writes D there,
+// pass kv reads it).
+extern "C" int lft_spa_attn_hp_bwd(const float* q, const float* k, const float* v,
+                                   const float* dout, const float* m, const float* l,
+                                   float* dsum, float* dq, float* dk, float* dv, int B, int h,
+                                   int w, int E, int heads, float scale, void* stream) {
+  return hp_bwd<false>(q, k, v, dout, m, l, dsum, dq, dk, dv, B, h, w, E, heads, scale,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The passes' bf16-operand instances (K3.c under `--dtype mixed`, the
+// header): the same arguments.
+extern "C" int lft_spa_attn_hp_bwd_bf16(const float* q, const float* k, const float* v,
+                                        const float* dout, const float* m, const float* l,
+                                        float* dsum, float* dq, float* dk, float* dv, int B,
+                                        int h, int w, int E, int heads, float scale,
+                                        void* stream) {
+  return hp_bwd<true>(q, k, v, dout, m, l, dsum, dq, dk, dv, B, h, w, E, heads, scale,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -171,7 +171,7 @@ struct Ln1Rows {
 // block's tiles. LN (step 4): out = a W + res, and out_ln = LN(out) with
 // weight lw, bias lb. `rows` runs on each tile's rows before its product.
 // Ends with every warp past its last read of W.
-template <int C, bool LN, class Rows = NoRows>
+template <int C, bool LN, class Rows = NoRows, bool BF = false>
 __device__ __forceinline__ void row_pass(const float* __restrict__ a,
                                          const float* __restrict__ w, float* __restrict__ out,
                                          const float* __restrict__ res,
@@ -197,7 +197,7 @@ __device__ __forceinline__ void row_pass(const float* __restrict__ a,
     rows(aw, t0, T);
     RgAcc<D> acc;
     rg_zero<D>(acc);
-    rg_product<D, D, 0>(acc, aw, LDX, wr, st);
+    rg_product<D, D, 0, false, BF>(acc, aw, LDX, wr, st);
     __syncwarp();   // the warp's rows are read
     if (tile + static_cast<int>(gridDim.x) < tiles) warp_rows<D>(aw, a, tile + gridDim.x, T);
     if constexpr (LN) {   // + res, to the finished product as the plain version adds it
@@ -240,7 +240,11 @@ __device__ __forceinline__ void row_pass(const float* __restrict__ a,
 // Bound of K3.b at [100, 32, 32, 64] (T = 102,400, D = 128): 10.07 GFLOP,
 // 0.061 ms as 3 TF32 products at 495 TFLOP/s (0.150 on the FP32 pipes); tok
 // and pe_tok in, xn, q, k, v out, 262.9 MB, 0.0785 ms at 3.35 TB/s: bytes.
-template <int C, bool LN1>
+// BF (K3.b under `--dtype mixed`'s backward, `lft_spa_ln_qkv_bf16`): the
+// products over bf16-rounded xn, tok and weights, one TF32 pass each; its q,
+// k, v then differ from the f32 forward's, as lft_tpu's do (its backward
+// rebuilds the scores from bf16 q and k against the f32 forward's (m, l)).
+template <int C, bool LN1, bool BF = false>
 __global__ void __launch_bounds__(RG_NT, 1)
     spa_qkv_kernel(const float* xn, const float* __restrict__ tok,
                    const float* __restrict__ wf, float* __restrict__ q,
@@ -248,11 +252,13 @@ __global__ void __launch_bounds__(RG_NT, 1)
   constexpr int SQ = RowProj<C>::SQ;
   extern __shared__ __align__(16) float smem[];
   if constexpr (LN1)
-    row_pass<C, false>(tok, wf, q, nullptr, nullptr, nullptr, nullptr, smem, T, ln1);
+    row_pass<C, false, Ln1Rows<2 * C>, BF>(tok, wf, q, nullptr, nullptr, nullptr, nullptr, smem,
+                                           T, ln1);
   else
-    row_pass<C, false>(xn, wf, q, nullptr, nullptr, nullptr, nullptr, smem, T);
-  row_pass<C, false>(xn, wf + SQ, k, nullptr, nullptr, nullptr, nullptr, smem, T);
-  row_pass<C, false>(tok, wf + 2 * SQ, v, nullptr, nullptr, nullptr, nullptr, smem, T);
+    row_pass<C, false, NoRows, BF>(xn, wf, q, nullptr, nullptr, nullptr, nullptr, smem, T);
+  row_pass<C, false, NoRows, BF>(xn, wf + SQ, k, nullptr, nullptr, nullptr, nullptr, smem, T);
+  row_pass<C, false, NoRows, BF>(tok, wf + 2 * SQ, v, nullptr, nullptr, nullptr, nullptr, smem,
+                                 T);
 }
 
 // ---- 3: 5x5-window attention -------------------------------------------
@@ -443,8 +449,9 @@ extern "C" int lft_spa_tokenize_ln_pm(const float* x, const float* pe_tok, const
 
 namespace {
 
-// Step 2 or (LN1) K3.b: the weights split into wf, then spa_qkv_kernel.
-template <bool LN1>
+// Step 2 or (LN1) K3.b: the weights split into wf, then spa_qkv_kernel; BF:
+// their bf16 parts and the BF instance.
+template <bool LN1, bool BF = false>
 int qkv(const float* xn, const float* tok, const float* wqk, const float* wv, float* wf,
         float* q, float* k, float* v, int T, int C, const float* pe_tok, const float* ln,
         float* xn_out, int hw, cudaStream_t s) {
@@ -455,8 +462,8 @@ int qkv(const float* xn, const float* tok, const float* wqk, const float* wv, fl
     ps.p[0] = RgPiece{wqk, 2 * L::D, L::D, L::D, 0};
     ps.p[1] = RgPiece{wqk + L::D, 2 * L::D, L::D, L::D, L::SQ};
     ps.p[2] = RgPiece{wv, L::D, L::D, L::D, 2 * L::SQ};
-    launch_rg_weights(ps, 3, wf, s);
-    auto kernel = spa_qkv_kernel<CC, LN1>;
+    launch_rg_weights(ps, 3, wf, s, BF);
+    auto kernel = spa_qkv_kernel<CC, LN1, BF>;
     LFT_SET_SMEM(kernel, L::BYTES);
     kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(
         LN1 ? xn_out : xn, tok, wf, q, k, v, T, Ln1Rows<L::D>{pe_tok, ln, xn_out, hw});
@@ -484,6 +491,16 @@ extern "C" int lft_spa_ln_qkv(const float* tok, const float* pe_tok, const float
                               void* stream) {
   return qkv<true>(nullptr, tok, wqk, wv, wf, q, k, v, T, C, pe_tok, ln, xn, hw,
                    static_cast<cudaStream_t>(stream));
+}
+
+// K3.b's bf16-operand instance (`--dtype mixed`'s backward): the same
+// arguments; wf holds the weights' bf16 parts in the same layout.
+extern "C" int lft_spa_ln_qkv_bf16(const float* tok, const float* pe_tok, const float* ln,
+                                   const float* wqk, const float* wv, float* wf, float* xn,
+                                   float* q, float* k, float* v, int T, int hw, int C,
+                                   void* stream) {
+  return qkv<true, true>(nullptr, tok, wqk, wv, wf, q, k, v, T, C, pe_tok, ln, xn, hw,
+                         static_cast<cudaStream_t>(stream));
 }
 
 namespace {

@@ -47,6 +47,15 @@
 // 3xTF32 on the tensor cores (rowgemm.cuh, rowbwd.cuh, tokenize.cuh); step
 // c, a gather of 5x5 windows, on the FP32 pipes. This file holds steps a, d
 // and e; b and c are launched from spa_block.cu and spa_attn_hp.cu.
+//
+// `--dtype mixed` (lft_tpu's backward plan `none`, the default: both
+// operands of every product rounded to bf16, f32 accumulation,
+// lft_tpu/kernels/spa_block.py:_bwd_kernel :430-557): each step has a BF
+// instance, exported with `_bf16` after its name, whose products are one
+// TF32 pass over the rounded operands (tf32.cuh, rowgemm.cuh, tokenize.cuh;
+// the weights' bf16 parts in the same scratch layouts). What a step hands
+// on stays f32; the next product rounds it as it loads it, as lft_tpu's
+// casts round it at the site.
 
 #include "rowbwd.cuh"
 #include "spa.cuh"
@@ -140,7 +149,7 @@ struct FfnOutBwd {
 // c]) into hid_out and the warp's chunk rows, its signs into the thread's
 // word on[J RG_NT] (bit i: the chunk accumulator's element i), y += hid_c
 // W2[c, :].
-template <int C, int J, class Ring>
+template <int C, int J, bool BF, class Ring>
 __device__ __forceinline__ void fwd_chunks(RgAcc<2 * C>& y, uint32_t* on, const float* xw,
                                            float* hw16,
                                            float* __restrict__ hid_out, Ring& ring,
@@ -149,7 +158,7 @@ __device__ __forceinline__ void fwd_chunks(RgAcc<2 * C>& y, uint32_t* on, const 
   constexpr int off = F::OFF_F + J * 2 * F::PC;
   RgAcc<F::HC> hc;
   rg_zero<F::HC>(hc);
-  rg_product<F::D, F::HC, off, true>(hc, xw, F::LDX, ring, st);
+  rg_product<F::D, F::HC, off, true, BF>(hc, xw, F::LDX, ring, st);
   uint32_t bits = 0;
 #pragma unroll
   for (int i = 0; i < RgParts<F::HC>::R; ++i) {
@@ -159,14 +168,15 @@ __device__ __forceinline__ void fwd_chunks(RgAcc<2 * C>& y, uint32_t* on, const 
   on[J * RG_NT] = bits;
   put_tile<F::HC>(hc, hw16, F::LDH);
   store_rows<F::HC>(hw16, F::LDH, hid_out, 2 * F::D, J * F::HC, t0, T);
-  rg_product<F::HC, F::D, off + F::PC, true>(y, hw16, F::LDH, ring, st);
-  if constexpr (J + 1 < F::NH) fwd_chunks<C, J + 1>(y, on, xw, hw16, hid_out, ring, st, t0, T);
+  rg_product<F::HC, F::D, off + F::PC, true, BF>(y, hw16, F::LDH, ring, st);
+  if constexpr (J + 1 < F::NH)
+    fwd_chunks<C, J + 1, BF>(y, on, xw, hw16, hid_out, ring, st, t0, T);
 }
 
 // The backward's hidden chunk J and those after it: dpre_c = (hid_c > 0)
 // dy W2ᵀ[:, c] into dpre_out and the warp's chunk rows, dxn2 += dpre_c
 // W1ᵀ[c, :].
-template <int C, int J, class Ring>
+template <int C, int J, bool BF, class Ring>
 __device__ __forceinline__ void bwd_chunks(RgAcc<2 * C>& dxn, const uint32_t* on,
                                            const float* xw, float* hw16,
                                            float* __restrict__ dpre_out, Ring& ring,
@@ -175,20 +185,22 @@ __device__ __forceinline__ void bwd_chunks(RgAcc<2 * C>& dxn, const uint32_t* on
   constexpr int off = F::OFF_B + J * 2 * F::PC;
   RgAcc<F::HC> dp;
   rg_zero<F::HC>(dp);
-  rg_product<F::D, F::HC, off, true>(dp, xw, F::LDX, ring, st);
+  rg_product<F::D, F::HC, off, true, BF>(dp, xw, F::LDX, ring, st);
   const uint32_t bits = on[J * RG_NT];
 #pragma unroll
   for (int i = 0; i < RgParts<F::HC>::R; ++i)
     if (!((bits >> i) & 1u)) dp[0][i] = 0.f;
   put_tile<F::HC>(dp, hw16, F::LDH);
   store_rows<F::HC>(hw16, F::LDH, dpre_out, 2 * F::D, J * F::HC, t0, T);
-  rg_product<F::HC, F::D, off + F::PC, true>(dxn, hw16, F::LDH, ring, st);
-  if constexpr (J + 1 < F::NH) bwd_chunks<C, J + 1>(dxn, on, xw, hw16, dpre_out, ring, st, t0, T);
+  rg_product<F::HC, F::D, off + F::PC, true, BF>(dxn, hw16, F::LDH, ring, st);
+  if constexpr (J + 1 < F::NH)
+    bwd_chunks<C, J + 1, BF>(dxn, on, xw, hw16, dpre_out, ring, st, t0, T);
 }
 
 // wf: the weight stream (FfnOutBwd::FLOATS floats, kernels/rowgemm.py:
 // ffn_out_bwd_stream), written by rg_weights_kernel. ln_part [tiles, 2, D].
-template <int C>
+// BF: the products over bf16-rounded operands (the weights' bf16 parts).
+template <int C, bool BF = false>
 __global__ void __launch_bounds__(RG_NT, 1)
     spa_ffn_out_bwd_kernel(const float* __restrict__ attn, const float* __restrict__ tok,
                            const float* __restrict__ dout, const float* __restrict__ ln,
@@ -221,7 +233,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // x2 = attn Wo + tok (tok added to the finished product), xn2 = LN2(x2)
     RgAcc<D> a;
     rg_zero<D>(a);
-    rg_product<D, D, 0>(a, xw, LDX, ring, st);
+    rg_product<D, D, 0, false, BF>(a, xw, LDX, ring, st);
     rg_pairs<D>(a, [&](int r, int c, float& v0, float& v1) {
       if (t0 + r < T) {
         const float2 t =
@@ -249,7 +261,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     {
       RgAcc<D> y;
       rg_zero<D>(y);
-      fwd_chunks<C, 0>(y, on, xw, hw16, hid_out, ring, st, t0, T);
+      fwd_chunks<C, 0, BF>(y, on, xw, hw16, hid_out, ring, st, t0, T);
       rg_pairs<D>(y, [&](int r, int c, float& v0, float& v1) {
         if (t0 + r < T) {
           const float2 x2 =
@@ -267,7 +279,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
       warp_rows<C>(hw16, LDH, dout, t0, T);
       RgAcc<D> dy;
       rg_zero<D>(dy);
-      rg_product<C, D, F::OFF_LIN, true>(dy, hw16, LDH, ring, st);
+      rg_product<C, D, F::OFF_LIN, true, BF>(dy, hw16, LDH, ring, st);
       put_tile<D>(dy, xw, LDX);
       store_rows<D>(xw, LDX, dy_out, D, 0, t0, T);
     }
@@ -275,7 +287,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // dpre = (hid > 0) dy W2ᵀ and dxn2 = dpre W1ᵀ, a hidden chunk at a time
     RgAcc<D> dxn;
     rg_zero<D>(dxn);
-    bwd_chunks<C, 0>(dxn, on, xw, hw16, dpre_out, ring, st, t0, T);
+    bwd_chunks<C, 0, BF>(dxn, on, xw, hw16, dpre_out, ring, st, t0, T);
 
     // LN2 backward on the accumulators: xhat = (x2 - mu) rstd as the
     // forward made it (zero on rows past T, whose dxn2 is zero too)
@@ -366,7 +378,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // dattn = dx2 Woᵀ
     RgAcc<D> da;
     rg_zero<D>(da);
-    rg_product<D, D, F::OFF_OT, true>(da, xw, LDX, ring, st);
+    rg_product<D, D, F::OFF_OT, true, BF>(da, xw, LDX, ring, st);
     put_tile<D>(da, xw, LDX);   // dx2 is read
     store_rows<D>(xw, LDX, dattn_out, D, 0, t0, T);
 
@@ -409,17 +421,14 @@ LFT_EXPORT_ERROR_STRING
 // Each returns the launch's cudaGetLastError(), or cudaErrorInvalidValue
 // for a shape it does not take (C in {16, 32, 64}).
 
-// Step a: wf is a scratch of FfnOutBwd<C>::FLOATS floats (kernels/rowgemm.py:
-// ffn_out_bwd_floats), the weights split into TF32 hi/lo by the launch's
-// first kernels; ln_part [ceil(T / 128), 2, D].
-extern "C" int lft_spa_ffn_out_bwd(const float* attn, const float* tok, const float* dout,
-                                   const float* ln, const float* wo, const float* w1,
-                                   const float* w2, const float* wlinT, const float* w2T,
-                                   const float* w1T, const float* woT, float* wf, float* dx2,
-                                   float* dattn, float* y, float* dy, float* hid,
-                                   float* dpre, float* xn2, float* ln_part, int T, int C,
-                                   void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
+namespace {
+
+template <bool BF>
+int ffn_out_bwd(const float* attn, const float* tok, const float* dout, const float* ln,
+                const float* wo, const float* w1, const float* w2, const float* wlinT,
+                const float* w2T, const float* w1T, const float* woT, float* wf, float* dx2,
+                float* dattn, float* y, float* dy, float* hid, float* dpre, float* xn2,
+                float* ln_part, int T, int C, cudaStream_t s) {
   if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
     using F = FfnOutBwd<CC>;
@@ -440,13 +449,56 @@ extern "C" int lft_spa_ffn_out_bwd(const float* attn, const float* tok, const fl
                          off + F::PC};
     }
     all[n++] = RgPiece{woT, F::D, F::D, F::D, F::OFF_OT};
-    launch_rg_pieces(all, n, wf, s);
-    auto kernel = spa_ffn_out_bwd_kernel<CC>;
+    launch_rg_pieces(all, n, wf, s, BF);
+    auto kernel = spa_ffn_out_bwd_kernel<CC, BF>;
     LFT_SET_SMEM(kernel, F::BYTES);
     kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(
         attn, tok, dout, ln, wf, dx2, dattn, y, dy, hid, dpre, xn2, ln_part, T);
   });
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BF>
+int qkv_ln_bwd(const float* tok, const float* pe_tok, const float* dq, const float* dk,
+               const float* dv, const float* dx2, const float* ln, const float* wqk,
+               const float* wv, float* wf, float* dtok, float* dtokpe, float* ln_part, int T,
+               int hw, int C, cudaStream_t s) {
+  if (T < 1 || hw < 1) return static_cast<int>(cudaErrorInvalidValue);
+  LFT_DISPATCH_C(C, {
+    constexpr int D = 2 * CC;
+    const QkvLnBwdArgs a{tok, pe_tok, dq, dk, dv, dx2, ln, nullptr, dtok, dtokpe, ln_part,
+                         hw, 2 * D, T};
+    return launch_qkv_ln_bwd<D, BF>(a, wqk, wqk + D, 2 * D, wv, wf, s);
+  });
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool BF>
+int tokenize_bwd(const float* dtok, const float* wu, float* wf, float* dx, int T, int h, int w,
+                 int C, int r, int cw, cudaStream_t s) {
+  if (h < 1 || w < 1 || T < 1 || T % (h * w)) return static_cast<int>(cudaErrorInvalidValue);
+  LFT_DISPATCH_C(C, {
+    return launch_tap_conv<2 * CC, CC, false, false, true, BF>(
+        dtok, wu, wf, nullptr, nullptr, dx, nullptr, T / (h * w), h, w, 1, r, cw, s);
+  });
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Step a: wf is a scratch of FfnOutBwd<C>::FLOATS floats (kernels/rowgemm.py:
+// ffn_out_bwd_floats), the weights split into TF32 hi/lo by the launch's
+// first kernels; ln_part [ceil(T / 128), 2, D].
+extern "C" int lft_spa_ffn_out_bwd(const float* attn, const float* tok, const float* dout,
+                                   const float* ln, const float* wo, const float* w1,
+                                   const float* w2, const float* wlinT, const float* w2T,
+                                   const float* w1T, const float* woT, float* wf, float* dx2,
+                                   float* dattn, float* y, float* dy, float* hid,
+                                   float* dpre, float* xn2, float* ln_part, int T, int C,
+                                   void* stream) {
+  return ffn_out_bwd<false>(attn, tok, dout, ln, wo, w1, w2, wlinT, w2T, w1T, woT, wf, dx2,
+                            dattn, y, dy, hid, dpre, xn2, ln_part, T, C,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // Step d: wqk [D, 2D] and wv [D, D] as the forward takes them (read
@@ -458,15 +510,8 @@ extern "C" int lft_spa_qkv_ln_bwd(const float* tok, const float* pe_tok, const f
                                   const float* ln, const float* wqk, const float* wv, float* wf,
                                   float* dtok, float* dtokpe, float* ln_part, int T, int hw,
                                   int C, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (T < 1 || hw < 1) return static_cast<int>(cudaErrorInvalidValue);
-  LFT_DISPATCH_C(C, {
-    constexpr int D = 2 * CC;
-    const QkvLnBwdArgs a{tok, pe_tok, dq, dk, dv, dx2, ln, nullptr, dtok, dtokpe, ln_part,
-                         hw, 2 * D, T};
-    return launch_qkv_ln_bwd<D>(a, wqk, wqk + D, 2 * D, wv, wf, s);
-  });
-  return static_cast<int>(cudaErrorInvalidValue);
+  return qkv_ln_bwd<false>(tok, pe_tok, dq, dk, dv, dx2, ln, wqk, wv, wf, dtok, dtokpe,
+                           ln_part, T, hw, C, static_cast<cudaStream_t>(stream));
 }
 
 // dtok [T, D] -> dx [T, C], T = V h w; wu [9, C, D]; wf scratch of 18 C D
@@ -475,12 +520,36 @@ extern "C" int lft_spa_qkv_ln_bwd(const float* tok, const float* pe_tok, const f
 // (tok_tile).
 extern "C" int lft_spa_tokenize_bwd(const float* dtok, const float* wu, float* wf, float* dx,
                                     int T, int h, int w, int C, int r, int cw, void* stream) {
-  if (h < 1 || w < 1 || T < 1 || T % (h * w)) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  LFT_DISPATCH_C(C, {
-    return launch_tap_conv<2 * CC, CC, false, false, true>(dtok, wu, wf, nullptr, nullptr, dx,
-                                                           nullptr, T / (h * w), h, w, 1, r,
-                                                           cw, s);
-  });
-  return static_cast<int>(cudaErrorInvalidValue);
+  return tokenize_bwd<false>(dtok, wu, wf, dx, T, h, w, C, r, cw,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The steps' bf16-operand instances under `--dtype mixed` (the header): the
+// same arguments, each wf holding the weights' bf16 parts in its layout.
+extern "C" int lft_spa_ffn_out_bwd_bf16(const float* attn, const float* tok, const float* dout,
+                                        const float* ln, const float* wo, const float* w1,
+                                        const float* w2, const float* wlinT, const float* w2T,
+                                        const float* w1T, const float* woT, float* wf,
+                                        float* dx2, float* dattn, float* y, float* dy,
+                                        float* hid, float* dpre, float* xn2, float* ln_part,
+                                        int T, int C, void* stream) {
+  return ffn_out_bwd<true>(attn, tok, dout, ln, wo, w1, w2, wlinT, w2T, w1T, woT, wf, dx2,
+                           dattn, y, dy, hid, dpre, xn2, ln_part, T, C,
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int lft_spa_qkv_ln_bwd_bf16(const float* tok, const float* pe_tok, const float* dq,
+                                       const float* dk, const float* dv, const float* dx2,
+                                       const float* ln, const float* wqk, const float* wv,
+                                       float* wf, float* dtok, float* dtokpe, float* ln_part,
+                                       int T, int hw, int C, void* stream) {
+  return qkv_ln_bwd<true>(tok, pe_tok, dq, dk, dv, dx2, ln, wqk, wv, wf, dtok, dtokpe,
+                          ln_part, T, hw, C, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int lft_spa_tokenize_bwd_bf16(const float* dtok, const float* wu, float* wf,
+                                         float* dx, int T, int h, int w, int C, int r, int cw,
+                                         void* stream) {
+  return tokenize_bwd<true>(dtok, wu, wf, dx, T, h, w, C, r, cw,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -11,8 +11,14 @@
 // where one TF32 product keeps three decimal digits. The tensor cores round
 // their f32 sums toward zero, so a kernel keeps each MMA chain short (tens
 // of MMAs) and adds the chains in f32 on the FP32 pipes.
+//
+// bf16 operands (`--dtype mixed`'s backward, the kernels' `BF` instances):
+// an operand rounded to bf16 is exact in TF32, and the product of two is
+// exact in f32, so a product over bf16-rounded operands is ONE TF32 product
+// (`bf16_bits`), with the same chains and f32 accumulation.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -47,6 +53,16 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) 
 __device__ __forceinline__ void split_tf32_rn(float v, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
   lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// v rounded to the nearest bf16 (ties to even), as a float.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// v rounded to bf16, kept as its TF32 bit pattern: an exact TF32 operand.
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return __float_as_uint(bf16_round(v));
 }
 
 // c += a b over one m16n8k8 tile. Fragments (lane = 4 g + q): A (row,

@@ -58,6 +58,10 @@
 // * Forward epilogue: the tile goes through shared memory; tok, then xn =
 //   LN1(tok + pe_tok) (RowLN, the arithmetic K3.b recomputes bit for bit),
 //   one warp a token, both written as 16-byte, coalesced rows.
+// * BF (K3.e under `--dtype mixed`'s backward): the band and the taps
+//   rounded to bf16 (the taps by `tap_weights_kernel<BWD, true>` into the hi
+//   part of the same layout, lo 0), one TF32 `wgmma` a k8 step instead of
+//   three, the same chains and f32 accumulation (tf32.cuh).
 #pragma once
 
 #include "spa.cuh"
@@ -101,7 +105,8 @@ struct TapConv {
 // tap]ᵀ with BWD), split into TF32 hi and lo (truncated as the MMA reads it)
 // and laid out as tap_conv_kernel reads it: wf[tap][kk][hi or lo][kh][j][n]
 // [t] = B[tap][8 kk + 4 kh + t][8 j + n], K x N = C x D (D x C with BWD).
-template <bool BWD>
+// BF: hi is B rounded to bf16, lo 0.
+template <bool BWD, bool BF = false>
 __global__ void __launch_bounds__(256)
     tap_weights_kernel(const float* __restrict__ wu, float* __restrict__ wf, int K, int N) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -109,7 +114,12 @@ __global__ void __launch_bounds__(256)
   const int tap = i / (K * N), k = i % (K * N) / N, n = i % N;
   const float v = BWD ? wu[(static_cast<size_t>(8 - tap) * N + n) * K + k] : wu[i];
   uint32_t hi, lo;
-  split_tf32(v, hi, lo);
+  if constexpr (BF) {
+    hi = bf16_bits(v);
+    lo = 0u;
+  } else {
+    split_tf32(v, hi, lo);
+  }
   const size_t at =
       ((static_cast<size_t>(tap * (K / 8) + k / 8) * 4 + k % 8 / 4) * (N / 8) + n / 8) * 32 +
       n % 8 * 4 + k % 4;
@@ -120,8 +130,9 @@ __global__ void __launch_bounds__(256)
 // LN: out = tok, xn = LN1(tok + pe_tok) with ln = (LN1 w, b); else out only.
 // PM: in is pixel-major [V / A2, h, w, A2, CIN]; out and xn stay view-major.
 // wf: [9, CIN / 8, 2 (hi, lo), 2, COUT / 8, 8, 4] (kernels/spa_block.py:
-// tap_weights).
-template <int CIN, int COUT, bool PM, bool LN>
+// tap_weights). BF: the band rounded to bf16 as it loads, one product a k8
+// step over the taps' bf16 part.
+template <int CIN, int COUT, bool PM, bool LN, bool BF = false>
 __global__ void __launch_bounds__(TOK_NT, 1)
     tap_conv_kernel(const float* __restrict__ in, const float* __restrict__ wf,
                     const float* __restrict__ pe_tok, const float* __restrict__ ln,
@@ -190,6 +201,13 @@ __global__ void __launch_bounds__(TOK_NT, 1)
           const int k0 = kc * G::KC + (2 * c2 + u) * 8 + q;
           const float* a0 = band + (pix[0] + toff) * LDA + k0;
           const float* a1 = band + (pix[1] + toff) * LDA + k0;
+          if constexpr (BF) {
+            ah[u][0] = bf16_bits(a0[0]);
+            ah[u][1] = bf16_bits(a1[0]);
+            ah[u][2] = bf16_bits(a0[4]);
+            ah[u][3] = bf16_bits(a1[4]);
+            continue;
+          }
           split_tf32(a0[0], ah[u][0], al[u][0]);
           split_tf32(a1[0], ah[u][1], al[u][1]);
           split_tf32(a0[4], ah[u][2], al[u][2]);
@@ -202,6 +220,10 @@ __global__ void __launch_bounds__(TOK_NT, 1)
           const float* bk = st + (2 * c2 + u) * 16 * COUT;   // the k8 step's hi, then lo
           const uint64_t dh = smem_desc(bk, G::LBO, G::SBO);
           const uint64_t dl = smem_desc(bk + 8 * COUT, G::LBO, G::SBO);
+          if constexpr (BF) {
+            Wgmma<COUT>::mma(sum, ah[u], dh, u);
+            continue;
+          }
           Wgmma<COUT>::mma(sum, al[u], dh, u);
           Wgmma<COUT>::mma(sum, ah[u], dl, 1);
           Wgmma<COUT>::mma(sum, ah[u], dh, 1);
@@ -270,8 +292,8 @@ __global__ void __launch_bounds__(TOK_NT, 1)
 
 // Splits wu into wf (tap_weights_kernel), then launches tap_conv_kernel over
 // V views of h x w (tiles of r x cw pixels). BWD: the backward's mirrored,
-// transposed taps.
-template <int CIN, int COUT, bool PM, bool LN, bool BWD>
+// transposed taps. BF: the bf16-operand instances of both kernels.
+template <int CIN, int COUT, bool PM, bool LN, bool BWD, bool BF = false>
 int launch_tap_conv(const float* in, const float* wu, float* wf, const float* pe_tok,
                     const float* ln, float* out, float* xn, int V, int h, int w, int A2, int r,
                     int cw, cudaStream_t s) {
@@ -283,8 +305,8 @@ int launch_tap_conv(const float* in, const float* wu, float* wf, const float* pe
   if (static_cast<long long>(V) * h * w > 0x7fffffffLL || blocks > 0x7fffffffLL ||
       bytes > static_cast<size_t>(TOK_SMEM_MAX))
     return static_cast<int>(cudaErrorInvalidValue);
-  tap_weights_kernel<BWD><<<(9 * CIN * COUT + 255) / 256, 256, 0, s>>>(wu, wf, CIN, COUT);
-  auto kernel = tap_conv_kernel<CIN, COUT, PM, LN>;
+  tap_weights_kernel<BWD, BF><<<(9 * CIN * COUT + 255) / 256, 256, 0, s>>>(wu, wf, CIN, COUT);
+  auto kernel = tap_conv_kernel<CIN, COUT, PM, LN, BF>;
   LFT_SET_SMEM(kernel, bytes);
   kernel<<<static_cast<unsigned>(blocks), TOK_NT, bytes, s>>>(in, wf, pe_tok, ln, out, xn, h, w,
                                                                A2, r, cw);

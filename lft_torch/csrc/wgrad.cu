@@ -35,6 +35,10 @@
 //   a tap; a tap is a row offset, a 9-bit mask per token zeroes the taps
 //   that leave the image. dtok is read once, and X once a 32-column tile
 //   of dtok (its bands come again from L2), not once a tap.
+// * BF (`lft_wgrad_bf16`, the weight grads of `--dtype mixed`'s backward:
+//   lft_tpu accumulates Xᵀ dY over bf16 operands): X and dY rounded to bf16
+//   as their fragments load, one `mma.sync` a step instead of three, the
+//   same slabs and f32 accumulation (tf32.cuh).
 //
 // colsum (a [R, N] -> a.sum(0)) and the partials' sum are one kernel: a
 // cluster of up to 8 blocks (about two blocks an SM in all, at least two
@@ -90,8 +94,9 @@ constexpr int TAP_SMEM = (STAGES * (TAP_X + BT * TLDY) + WM) * 4 + STAGES * BT *
 // a slab's own accumulators, which are then added to acc by the FP32
 // pipes: the tensor cores round their f32 sums toward zero, and over a
 // slice's hundreds of steps that bias would grow linearly (1e-5 of the
-// largest output at T = 102,400); a slab's chain is 12 MMAs long.
-template <class RowA>
+// largest output at T = 102,400); a slab's chain is 12 MMAs long (4 with
+// BF: one product over the bf16-rounded operands).
+template <bool BF, class RowA>
 __device__ __forceinline__ void warp_slab(float (&acc)[4][4][4], RowA row_a, const float* ys,
                                           int ldy) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
@@ -103,6 +108,11 @@ __device__ __forceinline__ void warp_slab(float (&acc)[4][4][4], RowA row_a, con
     const float* y1 = y0 + 4 * ldy;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
+      if constexpr (BF) {
+        bh[j][0] = bf16_bits(y0[8 * j]);
+        bh[j][1] = bf16_bits(y1[8 * j]);
+        continue;
+      }
       split_tf32(y0[8 * j], bh[j][0], bl[j][0]);
       split_tf32(y1[8 * j], bh[j][1], bl[j][1]);
     }
@@ -111,6 +121,15 @@ __device__ __forceinline__ void warp_slab(float (&acc)[4][4][4], RowA row_a, con
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       uint32_t ah[4], al[4];
+      if constexpr (BF) {
+        ah[0] = bf16_bits(a0[16 * i]);
+        ah[1] = bf16_bits(a0[16 * i + 8]);
+        ah[2] = bf16_bits(a1[16 * i]);
+        ah[3] = bf16_bits(a1[16 * i + 8]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(sum[i][j], ah, bh[j][0], bh[j][1]);
+        continue;
+      }
       split_tf32(a0[16 * i], ah[0], al[0]);
       split_tf32(a0[16 * i + 8], ah[1], al[1]);
       split_tf32(a1[16 * i], ah[2], al[2]);
@@ -157,7 +176,7 @@ __device__ __forceinline__ void slice(int T, int S, int& t0, int& t1) {
 
 // taps = 1: block (n tile, k tile, slice) -> dst[slice] = x[slice]ᵀ dy[slice]
 // over its tile.
-template <int WARPS_M, int WARPS_N>
+template <int WARPS_M, int WARPS_N, bool BF = false>
 __global__ void __launch_bounds__(Tile<WARPS_M, WARPS_N>::NTH)
     wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                  float* __restrict__ dst, int T, int K, int N, int S) {
@@ -204,7 +223,7 @@ __global__ void __launch_bounds__(Tile<WARPS_M, WARPS_N>::NTH)
     const int stage = j % STAGES;
     if (active) {
       const float* xs = Xs + stage * BT * LDX + wm;
-      warp_slab(acc, [&](int t) { return xs + t * LDX; }, Ys + stage * BT * LDY + wn, LDY);
+      warp_slab<BF>(acc, [&](int t) { return xs + t * LDX; }, Ys + stage * BT * LDY + wn, LDY);
     }
   }
   cp_async_wait<0>();
@@ -214,6 +233,7 @@ __global__ void __launch_bounds__(Tile<WARPS_M, WARPS_N>::NTH)
 
 // taps = 9: block (n tile of 32, k tile of 64, slice); warp = tap = 3 ky + kx
 // -> dst[slice][tap] = x_shifted[slice]ᵀ dy[slice] over the tile.
+template <bool BF = false>
 __global__ void __launch_bounds__(TAP_NTH)
     wgrad_taps_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                       float* __restrict__ dst, int T, int K, int N, int S, int h, int w) {
@@ -276,9 +296,9 @@ __global__ void __launch_bounds__(TAP_NTH)
     const int stage = j % STAGES;
     const float* band = Xs + stage * TAP_X + ky * HR * TLDX + kx * TLDX;
     const int* fs = Fs + stage * BT;
-    warp_slab(acc,
-              [&](int t) { return (fs[t] >> tap & 1) ? band + t * TLDX : zero; },
-              Ys + stage * BT * TLDY, TLDY);
+    warp_slab<BF>(acc,
+                  [&](int t) { return (fs[t] >> tap & 1) ? band + t * TLDX : zero; },
+                  Ys + stage * BT * TLDY, TLDY);
   }
   cp_async_wait<0>();
   store_tile(acc, dst + (static_cast<size_t>(blockIdx.z) * 9 + tap) * K * N, k0, n0, K, N);
@@ -343,15 +363,15 @@ __global__ void __launch_bounds__(CS_THREADS)
   cluster.sync();   // every block's shared memory lives until rank 0 has read it
 }
 
-template <int WARPS_M, int WARPS_N>
+template <int WARPS_M, int WARPS_N, bool BF>
 cudaError_t launch_product(const float* x, const float* dy, float* dst, int T, int K, int N,
                            int S, cudaStream_t s) {
   using TL = Tile<WARPS_M, WARPS_N>;
-  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel<WARPS_M, WARPS_N>,
+  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel<WARPS_M, WARPS_N, BF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + TL::BN - 1) / TL::BN, (K + TL::BM - 1) / TL::BM, S);
-  wgrad_kernel<WARPS_M, WARPS_N><<<grid, TL::NTH, TL::SMEM, s>>>(x, dy, dst, T, K, N, S);
+  wgrad_kernel<WARPS_M, WARPS_N, BF><<<grid, TL::NTH, TL::SMEM, s>>>(x, dy, dst, T, K, N, S);
   return cudaGetLastError();
 }
 
@@ -379,6 +399,31 @@ cudaError_t launch_colsum(const float* a, float* out, int R, int N, int lanes, i
                 : cudaLaunchKernelEx(&cfg, colsum_kernel<1>, a, out, R, N, lanes);
 }
 
+template <bool BF>
+int wgrad(const float* x, const float* dy, float* part, float* out, int T, int K, int N, int S,
+          int lanes, int size, int h, int w, cudaStream_t s) {
+  const int taps = h > 0 ? 9 : 1;
+  if (T < 1 || K < 4 || N < 4 || K % 4 || N % 4 || S < 1 || S > T ||
+      (taps == 9 && (w < 1 || T % (h * w))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* dst = S > 1 ? part : out;
+  cudaError_t err;
+  if (taps == 1 && N > 64) {
+    err = launch_product<2, 4, BF>(x, dy, dst, T, K, N, S, s);
+  } else if (taps == 1) {
+    err = launch_product<1, 2, BF>(x, dy, dst, T, K, N, S, s);
+  } else {
+    err = cudaFuncSetAttribute(wgrad_taps_kernel<BF>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, TAP_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((N + WN - 1) / WN, (K + WM - 1) / WM, S);
+    wgrad_taps_kernel<BF><<<grid, TAP_NTH, TAP_SMEM, s>>>(x, dy, dst, T, K, N, S, h, w);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess || S == 1) return static_cast<int>(err);
+  return static_cast<int>(launch_colsum(part, out, S, taps * K * N, lanes, size, s));
+}
+
 }  // namespace
 
 LFT_EXPORT_ERROR_STRING
@@ -393,27 +438,16 @@ LFT_EXPORT_ERROR_STRING
 extern "C" int lft_wgrad(const float* x, const float* dy, float* part, float* out, int T,
                          int K, int N, int S, int lanes, int size, int h, int w,
                          void* stream) {
-  const int taps = h > 0 ? 9 : 1;
-  if (T < 1 || K < 4 || N < 4 || K % 4 || N % 4 || S < 1 || S > T ||
-      (taps == 9 && (w < 1 || T % (h * w))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  float* dst = S > 1 ? part : out;
-  cudaError_t err;
-  if (taps == 1 && N > 64) {
-    err = launch_product<2, 4>(x, dy, dst, T, K, N, S, s);
-  } else if (taps == 1) {
-    err = launch_product<1, 2>(x, dy, dst, T, K, N, S, s);
-  } else {
-    err = cudaFuncSetAttribute(wgrad_taps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               TAP_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((N + WN - 1) / WN, (K + WM - 1) / WM, S);
-    wgrad_taps_kernel<<<grid, TAP_NTH, TAP_SMEM, s>>>(x, dy, dst, T, K, N, S, h, w);
-    err = cudaGetLastError();
-  }
-  if (err != cudaSuccess || S == 1) return static_cast<int>(err);
-  return static_cast<int>(launch_colsum(part, out, S, taps * K * N, lanes, size, s));
+  return wgrad<false>(x, dy, part, out, T, K, N, S, lanes, size, h, w,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The same over bf16-rounded x and dy (the header's BF).
+extern "C" int lft_wgrad_bf16(const float* x, const float* dy, float* part, float* out, int T,
+                              int K, int N, int S, int lanes, int size, int h, int w,
+                              void* stream) {
+  return wgrad<true>(x, dy, part, out, T, K, N, S, lanes, size, h, w,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // out[n] = sum_r a[r][n] of a [R, N] (launch_colsum).

@@ -16,6 +16,10 @@ every chunk is split over them, as lft_tpu shards it over 'dp'
 (lft_tpu/inference/tiled.py:54-59, :81-82): each rank runs its share and
 `all_gather_into_tensor` puts the chunk back together in patch order, so
 every rank returns the whole SR mosaic.
+
+`args` reaches the model with every chunk, `--dtype` with it: the `mixed`
+plans are read by each model call (kernels/common.py), never kept in
+`ScenePipelineCache`, so a changed plan never mixes two plans in one scene.
 """
 
 from __future__ import annotations

@@ -7,11 +7,12 @@ default pair (K7, K5), `SWEEPS` those of its other families (K8, K9, K6),
 `TAIL` the rest: K10 `spa_attn_tile`; `ang_block_bwd128`, the fused AngTrans
 backward K4 counted at pixels of 65 to 128 views (the same kernels count as
 `ang_block_bwd` at A2 <= 64); and K11's `spa_tokenize_ln_pm` and
-`spa_ffn_out_pm`.
+`spa_ffn_out_pm`; `MIXED` the bf16-operand instances a fused train step
+launches under `--dtype mixed` (K3's steps, K4, `wgrad`, each `_bf16`).
 """
 
-from lft_torch.kernels._build import (FORWARD, LAUNCHES, PEROP, SWEEPS, TAIL, TRAINING,
-                                      build_all, reset_launches)
+from lft_torch.kernels._build import (FORWARD, LAUNCHES, MIXED, PEROP, SWEEPS, TAIL,
+                                      TRAINING, build_all, reset_launches)
 
-__all__ = ["FORWARD", "LAUNCHES", "PEROP", "SWEEPS", "TAIL", "TRAINING", "build_all",
+__all__ = ["FORWARD", "LAUNCHES", "MIXED", "PEROP", "SWEEPS", "TAIL", "TRAINING", "build_all",
            "reset_launches"]

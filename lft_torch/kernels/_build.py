@@ -58,8 +58,16 @@ SWEEPS = ("ang_attn_sweep", "ang_attn_sweep_res", "ang_attn_sweep_bwd", "spa_att
 # pixel-major buffer).
 TAIL = ("spa_attn_tile", "ang_block_bwd128", "spa_tokenize_ln_pm", "spa_ffn_out_pm")
 
+# The bf16-operand instances that a fused train step under `--dtype mixed`
+# launches in place of K3's five steps, K4 (either form) and `wgrad` (the
+# backward's default plan, LFT_MM_HP_BWD_SITES=none): the same kernels with
+# each product one TF32 pass over operands rounded to bf16.
+MIXED = ("spa_ffn_out_bwd_bf16", "spa_ln_qkv_bf16", "spa_window_attn_bwd_bf16",
+         "spa_qkv_ln_bwd_bf16", "spa_tokenize_bwd_bf16", "ang_block_bwd_bf16",
+         "ang_block_bwd128_bf16", "wgrad_bf16")
+
 # kernel name -> launches since the last reset
-LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS + TAIL}
+LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS + TAIL + MIXED}
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -36,7 +36,7 @@ import ctypes
 import torch
 
 from lft_torch.kernels import _build
-from lft_torch.kernels.common import KERNEL_C
+from lft_torch.kernels.common import KERNEL_C, active, card_fwd, card_half, rd, rounds
 from lft_torch.kernels.rowgemm import RG_M, ang_block_floats, ang_bwd_floats
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import attention_heads
@@ -107,10 +107,13 @@ def ln_bwd(dxn, xhat, rstd, w):
 # ---------------------------------------------------------------- forward ---
 
 def ang_block_plain(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
-                    num_heads: int, with_res: bool = False):
+                    num_heads: int, with_res: bool = False, plan=None):
     """Plain PyTorch version of K1: [N, A2, C] -> [N, A2, C]; with_res also
     returns m, l [N, A2, H] (per token and head: the softmax's row max and
-    the sum of exp(s - m)) and attn [N, A2, C]."""
+    the sum of exp(s - m)) and attn [N, A2, C]. `plan`: `--dtype mixed`'s
+    forward plan (kernels/common.py), followed as lft_tpu's K1 follows it."""
+    if active(plan) is not None:
+        return _ang_block_planned(x, ang_pe, wts, num_heads, with_res, plan)
     ln = wts["ln"]
     xn = _ln(x + ang_pe, ln[0], ln[1])
     q, k, v = xn @ wts["wq"], xn @ wts["wk"], x @ wts["wv"]
@@ -131,6 +134,34 @@ def ang_block_plain(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
             a.contiguous())
 
 
+def _ang_block_planned(x, ang_pe, wts, num_heads, with_res, plan):
+    """K1 under a mixed plan, in lft_tpu's order (ang_block.py:_kernel
+    :110-152): each product's operands rounded where its site is, the
+    softmax unnormalised through the e v product (e = exp(s - m) with m the
+    token's max over every head, as lft_tpu's row max, so e rounds as
+    there) and divided by l after."""
+    R = lambda t, s: rd(t, plan, s)
+    ln = wts["ln"]
+    H = num_heads
+    scale = float(x.shape[-1] // H) ** -0.5
+    xn = _ln(x + ang_pe, ln[0], ln[1])
+    q = R(xn, "aqkv") @ R(wts["wq"], "aqkv")
+    k = R(xn, "aqkv") @ R(wts["wk"], "aqkv")
+    v = R(x, "aqkv") @ R(wts["wv"], "aqkv")
+    s = (_heads(R(q, "ascore"), H) @ _heads(R(k, "ascore"), H).transpose(-1, -2)) * scale
+    m = s.amax(-1).amax(1, keepdim=True).expand(-1, H, -1)     # [N, H, A2]
+    e = torch.exp(s - m[..., None])
+    l = e.sum(-1)
+    a = _merge((R(e, "aav") @ _heads(R(v, "aav"), H)) / l[..., None])
+    x2 = R(a, "awo") @ R(wts["wo"], "awo") + x
+    hid = torch.relu(R(_ln(x2, ln[2], ln[3]), "affn") @ R(wts["w1"], "affn"))
+    out = R(hid, "affn") @ R(wts["w2"], "affn") + x2
+    if not with_res:
+        return out
+    return (out, m.transpose(1, 2).contiguous(), l.transpose(1, 2).contiguous(),
+            a.contiguous())
+
+
 def _check_kernel_shape(kernel: str, x, ang_pe, num_heads: int, max_a2: int) -> None:
     N, A2, C = x.shape
     if C not in KERNEL_C or num_heads != 8 or A2 > max_a2:
@@ -142,14 +173,16 @@ def _check_kernel_shape(kernel: str, x, ang_pe, num_heads: int, max_a2: int) -> 
 
 
 def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
-              num_heads: int, with_res: bool = False):
+              num_heads: int, with_res: bool = False, plan=None):
     """K1 on [N, A2, C] tokens: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. with_res: (out, m, l, attn), counted as
     `ang_block_res`. On the card its six products run 3xTF32 on the tensor
     cores (`csrc/rowgemm.cuh`), the weights split by the launch's first
-    kernel into a scratch of `rowgemm.ang_block_stream`'s layout."""
+    kernel into a scratch of `rowgemm.ang_block_stream`'s layout. `plan`: a
+    mixed forward plan; the card runs only `all` (`common.card_fwd`)."""
     if x.device.type != "cuda":
-        return ang_block_plain(x, ang_pe, wts, num_heads, with_res)
+        return ang_block_plain(x, ang_pe, wts, num_heads, with_res, plan)
+    card_fwd(plan, "ang_block")
     _check_kernel_shape("ang_block", x, ang_pe, num_heads, BLK)
     N, A2, C = x.shape
     w = wts
@@ -176,41 +209,58 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
 
 # --------------------------------------------------------------- backward ---
 
-def ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
+def ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=None):
     """Plain version of the K4 kernel: recompute the block from x and the
     saved residuals, then backpropagate dout [N, A2, C]. Returns dx and the
     per-token operands of the weight gradients, each [T, *] with T = N*A2:
     (dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, dln [1, 4, C]); dln holds
-    the LayerNorm affine grads (LN1 w, b, LN2 w, b) summed over the tokens."""
+    the LayerNorm affine grads (LN1 w, b, LN2 w, b) summed over the tokens.
+    `plan`: `--dtype mixed`'s backward plan, each product's operands rounded
+    to bf16 where its site is, at lft_tpu's sites (ang_block.py:_bwd_kernel
+    :304-382; the attention then in its order: scores from the rounded q
+    and k, D = sum_j p_j dp_j, ds rounded with the scale in it)."""
+    R = lambda t, s: rd(t, plan, s)
+    plan = active(plan)
     ln = wts["ln"]
     N, A2, C = x.shape
     H = num_heads
     scale = float(C // H) ** -0.5
     xhat1, rstd1 = ln_stats(x + ang_pe)
     xn = xhat1 * ln[0] + ln[1]
-    q, k, v = xn @ wts["wq"], xn @ wts["wk"], x @ wts["wv"]
-    x2 = attn @ wts["wo"] + x
+    q = R(xn, "aqkv") @ R(wts["wq"], "aqkv")
+    k = R(xn, "aqkv") @ R(wts["wk"], "aqkv")
+    v = R(x, "aqkv") @ R(wts["wv"], "aqkv")
+    x2 = R(attn, "awo") @ R(wts["wo"], "awo") + x
     xhat2, rstd2 = ln_stats(x2)
     xn2 = xhat2 * ln[2] + ln[3]
-    hid = torch.relu(xn2 @ wts["w1"])
+    hid = torch.relu(R(xn2, "affn") @ R(wts["w1"], "affn"))
 
-    dpre = torch.where(hid > 0, dout @ wts["w2"].t(), 0.0)
-    dxn2 = dpre @ wts["w1"].t()
+    dpre = torch.where(hid > 0, R(dout, "affn") @ R(wts["w2"], "affn").t(), 0.0)
+    dxn2 = R(dpre, "affn") @ R(wts["w1"], "affn").t()
     dx2 = dout + ln_bwd(dxn2, xhat2, rstd2, ln[2])
-    dattn = dx2 @ wts["wo"].t()
+    dattn = R(dx2, "awo") @ R(wts["wo"], "awo").t()
     # attention, per pixel and head, from the saved (m, l)
-    qh = _heads(q, H) * scale
-    kh, vh, doh = _heads(k, H), _heads(v, H), _heads(dattn, H)
-    p = torch.exp(qh @ kh.transpose(-1, -2) - m.transpose(1, 2)[..., None]) \
-        / l.transpose(1, 2)[..., None]                        # [N, H, A2, A2]
-    dp = doh @ vh.transpose(-1, -2)
-    dsum = (doh * _heads(attn, H)).sum(-1, keepdim=True)     # = sum_j p dp
-    ds = p * (dp - dsum)
-    dq = _merge(ds @ kh) * scale
+    m_, il = m.transpose(1, 2)[..., None], l.transpose(1, 2)[..., None]
+    if plan is None:
+        qh = _heads(q, H) * scale
+        kh, vh, doh = _heads(k, H), _heads(v, H), _heads(dattn, H)
+        p = torch.exp(qh @ kh.transpose(-1, -2) - m_) / il    # [N, H, A2, A2]
+        dp = doh @ vh.transpose(-1, -2)
+        dsum = (doh * _heads(attn, H)).sum(-1, keepdim=True)  # = sum_j p dp
+        ds = p * (dp - dsum)
+        dq = _merge(ds @ kh) * scale
+    else:
+        qh, kh = _heads(R(q, "ascore"), H), _heads(R(k, "ascore"), H)
+        vh, doh = _heads(R(v, "aav"), H), _heads(R(dattn, "aav"), H)
+        p = torch.exp((qh @ kh.transpose(-1, -2)) * scale - m_) * (1.0 / il)
+        dp = doh @ vh.transpose(-1, -2)
+        ds = R(p * (dp - (p * dp).sum(-1, keepdim=True)) * scale, "ascore")
+        dq = _merge(ds @ kh)
+        p = R(p, "aav")
     dk = _merge(ds.transpose(-1, -2) @ qh)
     dv = _merge(p.transpose(-1, -2) @ doh)
-    dxn = dq @ wts["wq"].t() + dk @ wts["wk"].t()
-    dx = dx2 + dv @ wts["wv"].t() + ln_bwd(dxn, xhat1, rstd1, ln[0])
+    dxn = R(dq, "aqkv") @ R(wts["wq"], "aqkv").t() + R(dk, "aqkv") @ R(wts["wk"], "aqkv").t()
+    dx = dx2 + R(dv, "aqkv") @ R(wts["wv"], "aqkv").t() + ln_bwd(dxn, xhat1, rstd1, ln[0])
     cs = lambda t: t.reshape(-1, C).sum(0)
     dln = torch.stack([cs(dxn * xhat1), cs(dxn), cs(dxn2 * xhat2), cs(dxn2)])
     tok = lambda t: t.reshape(N * A2, -1)
@@ -230,16 +280,23 @@ def ang_bwd_attn_pixels(A2: int) -> int:
     return max(1, 256 // (8 * A2))
 
 
-def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
+def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=None):
     """The K4 kernels for CUDA tensors (counted as `ang_block_bwd` at A2 <=
     64, `ang_block_bwd128` beyond), the plain version for CPU tensors. Same
     outputs as `ang_block_bwd_ops_plain`, except that dln holds one partial
-    sum per 128-row tile: [ang_bwd_tiles(T), 4, C]."""
+    sum per 128-row tile: [ang_bwd_tiles(T), 4, C]. Under a mixed plan that
+    rounds every site the card launches the kernels' bf16-operand instances
+    (`_bf16` after the name): each product of steps a and c one TF32 pass
+    over bf16-rounded operands, step b's attention over rounded q, k, v,
+    dattn, ds and p with D from those products (`csrc/ang_block.cu`)."""
     if x.device.type != "cuda":
-        return ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads)
+        return ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads, plan)
     N, A2, C = x.shape
     T = N * A2
     name = "ang_block_bwd128" if A2 > 64 else "ang_block_bwd"
+    half = card_half(plan, name)
+    if half:
+        name += "_bf16"
     _check_kernel_shape(name, x, ang_pe, num_heads, BLK)
     w = wts
     ins = (x, ang_pe, *(w[n] for n in WEIGHTS), m, l, attn, dout)
@@ -251,7 +308,8 @@ def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
             e(T, 2 * C), e(T, 2 * C), e(ang_bwd_tiles(T), 4, C))
     # what the three kernels hand on: q, k, v, dattn and dsum per token and head
     scratch = (e(T, C), e(T, C), e(T, C), e(T, C), e(T, num_heads))
-    fn = _build.bind("ang_block", "lft_ang_block_bwd", len(ins) + 1 + len(outs) + len(scratch),
+    fn = _build.bind("ang_block", "lft_ang_block_bwd" + ("_bf16" if half else ""),
+                     len(ins) + 1 + len(outs) + len(scratch),
                      (ctypes.c_int,) * 4 + (ctypes.c_float,))
     _build.launch("ang_block", name, fn, dev,
                   *(t.data_ptr() for t in ins + (wf,) + outs + scratch), N, A2, C, num_heads,
@@ -259,53 +317,59 @@ def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
     return outs
 
 
-def _bwd(ops, wg, cs, x, ang_pe, wts, m, l, attn, dout, num_heads):
+def _bwd(ops, wg, cs, x, ang_pe, wts, m, l, attn, dout, num_heads, plan=None):
+    plan = active(plan)
     dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, dln = ops(
-        x, ang_pe, wts, m, l, attn, dout, num_heads)
+        x, ang_pe, wts, m, l, attn, dout, num_heads, **({} if plan is None else {"plan": plan}))
     C = x.shape[-1]
     tok = lambda t: t.reshape(-1, C)
+    # each weight grad over bf16 operands where its site rounds
+    h = lambda site: {"half": True} if rounds(plan, site) else {}
     return (dx, cs(dln.reshape(dln.shape[0], -1)).reshape(4, C),
-            wg(xn, dq), wg(xn, dk), wg(tok(x), dv), wg(tok(attn), dx2),
-            wg(xn2, dpre), wg(hid, tok(dout)))
+            wg(xn, dq, **h("aqkv")), wg(xn, dk, **h("aqkv")),
+            wg(tok(x), dv, **h("aqkv")), wg(tok(attn), dx2, **h("awo")),
+            wg(xn2, dpre, **h("affn")), wg(hid, tok(dout), **h("affn")))
 
 
-def ang_block_bwd(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
+def ang_block_bwd(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=None):
     """The block's backward from x and the saved (m, l, attn): (dx,
     dln [4, C], dwq, dwk, dwv, dwo, dw1, dw2), weight grads in the `x @ W`
     layouts of `ang_weights`. K4, then `wgrad` and `colsum`; each takes its
-    plain version for CPU tensors."""
+    plain version for CPU tensors. `plan`: `--dtype mixed`'s backward plan."""
     return _bwd(ang_block_bwd_ops, wgrad, colsum, x, ang_pe, wts, m, l, attn, dout,
-                num_heads)
+                num_heads, plan)
 
 
-def ang_block_bwd_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
+def ang_block_bwd_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=None):
     """Plain version of `ang_block_bwd` (lft_tpu/kernels/ang_block.py:305-394
     in plain PyTorch), on any device."""
     return _bwd(ang_block_bwd_ops_plain, wgrad_plain, colsum_plain, x, ang_pe, wts, m, l,
-                attn, dout, num_heads)
+                attn, dout, num_heads, plan)
 
 
 class AngBlockFn(torch.autograd.Function):
     """K1 with residuals forward, K4 backward. Inputs: x [N, A2, C],
-    ang_pe, then the weights of `ang_weights` in WEIGHTS order."""
+    ang_pe, the weights of `ang_weights` in WEIGHTS order, then the
+    configuration, the mixed forward and backward plans among it (the
+    backward's is kept in `ctx` for the backward)."""
 
     @staticmethod
-    def forward(ctx, x, ang_pe, ln, wq, wk, wv, wo, w1, w2, num_heads, plain):
+    def forward(ctx, x, ang_pe, ln, wq, wk, wv, wo, w1, w2, num_heads, plain, plan, bwd_plan):
         wts = dict(zip(WEIGHTS, (ln, wq, wk, wv, wo, w1, w2)))
         fwd = ang_block_plain if plain else ang_block
-        out, m, l, attn = fwd(x, ang_pe, wts, num_heads, with_res=True)
+        out, m, l, attn = fwd(x, ang_pe, wts, num_heads, with_res=True, plan=plan)
         ctx.save_for_backward(x, ang_pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn)
-        ctx.cfg = (num_heads, plain)
+        ctx.cfg = (num_heads, plain, bwd_plan)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         x, ang_pe, *w, m, l, attn = ctx.saved_tensors
-        num_heads, plain = ctx.cfg
+        num_heads, plain, bwd_plan = ctx.cfg
         bwd = ang_block_bwd_plain if plain else ang_block_bwd
         dx, *dw = bwd(x, ang_pe, dict(zip(WEIGHTS, w)), m, l, attn, dout.contiguous(),
-                      num_heads)
-        return (dx, None, *dw, None, None)
+                      num_heads, bwd_plan)
+        return (dx, None, *dw, None, None, None, None)
 
 
 def _needs_grad(*tensors) -> bool:
@@ -313,19 +377,24 @@ def _needs_grad(*tensors) -> bool:
 
 
 def ang_trans_block_fused(x, ang_pe, params, prefix: str, num_heads: int,
-                          plain: bool = False):
+                          plain: bool = False, plan=None, bwd_plan=None):
     """The whole AngTrans block on pixel-major tokens.
 
     x: [N, A2, C] (N = batch*h*w pixels); ang_pe: [A2, C]; params/prefix:
     the flat param dict and `altblock.{i}.ang_trans.`. Returns [N, A2, C].
     Differentiable through `AngBlockFn` when grad is needed; `plain=True`
-    runs the plain versions on any device."""
+    runs the plain versions on any device. `plan`, `bwd_plan`: the forward's
+    and the backward's site plans under `--dtype mixed` (kernels/common.py;
+    None: f32)."""
     wts = ang_weights(params, prefix)
     if _needs_grad(x, *wts.values()):
-        return AngBlockFn.apply(x, ang_pe, *(wts[n] for n in WEIGHTS), num_heads, plain)
-    return (ang_block_plain if plain else ang_block)(x, ang_pe, wts, num_heads)
+        return AngBlockFn.apply(x, ang_pe, *(wts[n] for n in WEIGHTS), num_heads, plain,
+                                plan, bwd_plan)
+    return (ang_block_plain if plain else ang_block)(x, ang_pe, wts, num_heads, plan=plan)
 
 
-def ang_trans_block_plain(x, ang_pe, params, prefix: str, num_heads: int):
+def ang_trans_block_plain(x, ang_pe, params, prefix: str, num_heads: int, plan=None,
+                          bwd_plan=None):
     """Plain version of `ang_trans_block_fused`, on any device."""
-    return ang_trans_block_fused(x, ang_pe, params, prefix, num_heads, plain=True)
+    return ang_trans_block_fused(x, ang_pe, params, prefix, num_heads, plain=True, plan=plan,
+                                 bwd_plan=bwd_plan)

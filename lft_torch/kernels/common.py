@@ -10,9 +10,17 @@ model of another width takes the plain torch ops: the unfused branch with
 the tiled or dense torch attention, and no kernel is launched. An explicit
 request for a kernel (`attention_impl='pallas'`, a block or kernel wrapper
 called directly) still raises `NotImplementedError` at such a width.
+
+It also holds `--dtype mixed`'s per-site product plans (below), which the
+plain versions of K1-K4 follow at every site and the card's backward
+kernels at the plans they have instances for (`card_fwd`, `card_half`).
 """
 
 from __future__ import annotations
+
+import os
+
+import torch
 
 KERNEL_C = (16, 32, 64)
 
@@ -30,3 +38,103 @@ def attention_route(impl: str, device_type: str, C: int) -> str:
     if impl == "auto" and device_type == "cuda" and kernels_take(C):
         return "pallas"
     return impl
+
+
+# ------------------------------------------------- the `mixed` site plans ---
+#
+# Copied from lft_tpu/kernels/common.py:18-50 (not imported: the port
+# imports nothing of the JAX package). Under `--dtype mixed` each product
+# SITE of the fused blocks either keeps f32 operands or rounds both operands
+# to bf16 and accumulates in f32 (spa_block sites: tok the 9-tap
+# tokenization, qk / v the projections, score q kᵀ, av p v, wo the
+# out-projection, ffn both MLP products, lin Token2SAI; the ang_block sites
+# carry an "a"). The forward's plan is LFT_MM_HP_SITES (default: every site
+# f32), the backward's LFT_MM_HP_BWD_SITES (default: none).
+MM_HP_ALL = frozenset({"tok", "qk", "v", "score", "av", "wo", "ffn", "lin",
+                       "aqkv", "ascore", "aav", "awo", "affn"})
+MM_HP_DEFAULT = "all"
+
+
+def mm_hp_sites(env: str = "LFT_MM_HP_SITES", default: str = MM_HP_DEFAULT) -> frozenset:
+    """The sites that keep f32 operands under `mixed`, from the environment
+    variable `env`: "all", "none" or "", or a comma list drawn from
+    MM_HP_ALL (an unknown name raises: a typo must not silently run at low
+    precision). Read per call: a model call reads it once."""
+    spec = os.environ.get(env, default).strip()
+    if spec == "all":
+        return MM_HP_ALL
+    if spec in ("", "none"):
+        return frozenset()
+    sites = frozenset(s.strip() for s in spec.split(",") if s.strip())
+    bad = sites - MM_HP_ALL
+    if bad:
+        raise ValueError(f"unknown {env} entries {sorted(bad)}; "
+                         f"valid: {sorted(MM_HP_ALL)}")
+    return sites
+
+
+def mm_site_plan(mm_half: bool, sites: frozenset) -> dict:
+    """site -> whether both operands of its products are rounded to bf16:
+    under `mm_half` every site outside `sites`; without it none."""
+    return {s: bool(mm_half) and s not in sites for s in MM_HP_ALL}
+
+
+def active(plan):
+    """The plan where it rounds at least one site, else None (the f32
+    arithmetic, whose code paths are the float32 mode's own)."""
+    return plan if plan and any(plan.values()) else None
+
+
+def rounds(plan, site: str) -> bool:
+    return bool(plan) and plan[site]
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to the nearest bf16 (ties to even), kept in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def rd(t: torch.Tensor, plan, site: str) -> torch.Tensor:
+    """A product's operand under `plan`: rounded to bf16 where its site is."""
+    return bf16_round(t) if rounds(plan, site) else t
+
+
+def _plan_name(sites: frozenset) -> str:
+    if sites == MM_HP_ALL:
+        return "all"
+    return ",".join(sorted(sites)) or "none"
+
+
+def _site_name(plan) -> str:
+    return _plan_name(frozenset(s for s, r in plan.items() if not r))
+
+
+def card_fwd(plan, kernel: str) -> None:
+    """A forward kernel on the card runs the forward plan `all` (the f32
+    kernels) only; another plan raises NotImplementedError. The plain
+    versions (CPU) run every plan."""
+    if active(plan) is not None:
+        raise NotImplementedError(
+            f"{kernel}: the card's kernels run LFT_MM_HP_SITES=all only under --dtype mixed, "
+            f"got {_site_name(plan)!r}; the plain versions (CPU) run every plan")
+
+
+def card_half(plan, kernel: str) -> bool:
+    """Whether a backward kernel on the card takes its bf16-operand instance
+    (LFT_MM_HP_BWD_SITES=none: every site rounded) or its f32 one (`all`);
+    another plan raises NotImplementedError."""
+    plan = active(plan)
+    if plan is None:
+        return False
+    if all(plan.values()):
+        return True
+    raise NotImplementedError(
+        f"{kernel}: the card's kernels run LFT_MM_HP_BWD_SITES=none or all only, got "
+        f"{_site_name(plan)!r}; the plain versions (CPU) run every plan")
+
+
+def card_plan(plan, bwd_plan) -> None:
+    """The wrappers' checks of a model call's forward and backward plans,
+    made before its first launch."""
+    card_fwd(plan, "--dtype mixed")
+    card_half(bwd_plan, "--dtype mixed")

@@ -205,11 +205,16 @@ def spa_attn_hp_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = Fals
 
 
 def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int, with_dsum: bool = False,
-                    kernel: str = "spa_attn_hp_bwd"):
+                    kernel: str = "spa_attn_hp_bwd", half: bool = False):
     """K5's backward: (dq, dk, dv) [B, h, w, E]; with_dsum also D [B, h, w,
     H], the scratch pass q hands to pass kv. `kernel`: the name the launch
     is counted under (the fused SpaTrans backward's step c launches it as
-    `spa_window_attn_bwd`)."""
+    `spa_window_attn_bwd`). `half`: the passes' bf16-operand instance
+    (`lft_spa_attn_hp_bwd_bf16`, which only K3.c's `--dtype mixed` form
+    launches, on the card only: its plain version is
+    `spa_block.window_attn_bwd_plain` under the plan)."""
+    if half and q.device.type != "cuda":
+        raise ValueError(f"{kernel}: the bf16-operand instance runs on the card only")
     if q.device.type != "cuda":
         grads = windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout, num_heads, ksize)
         if not with_dsum:
@@ -221,7 +226,7 @@ def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int, with_dsum: 
     B, h, w, E = q.shape
     dsum = torch.empty(B, h, w, num_heads, device=q.device)
     outs = tuple(torch.empty_like(q) for _ in range(3))
-    fn = _build.bind("spa_attn_hp", "lft_spa_attn_hp_bwd", 10,
+    fn = _build.bind("spa_attn_hp", "lft_spa_attn_hp_bwd" + ("_bf16" if half else ""), 10,
                      (ctypes.c_int,) * 5 + (ctypes.c_float,))
     _build.launch("spa_attn_hp", kernel, fn, q.device,
                   *(t.data_ptr() for t in (q, k, v, dout, m, l, dsum, *outs)),

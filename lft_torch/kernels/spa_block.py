@@ -39,6 +39,10 @@ in plain PyTorch), and the wrapper picks the block's rectangle of pixels
 gradients are reduced by `wgrad`/`colsum` (kernels/wgrad.py). `pe_tok` gets
 a real gradient: it carries MLP.weight.
 `spa_trans_block_plain` runs the plain versions of all of it on any device.
+Under `--dtype mixed` the plain versions follow lft_tpu's per-site plans
+(kernels/common.py: each product's operands rounded to bf16 where its site
+is), and on the card the backward's default plan, every site rounded,
+launches the steps' bf16-operand instances (`_bf16` after each name).
 Step 3's kernel (`csrc/window_attn.cuh`) is also K5's forward; the geometry
 of it and of K5's two-pass backward is mirrored here (`window_items`,
 `window_thread`, `window_smem`, `hp_kv_items`, `hp_kv_smem`,
@@ -63,12 +67,13 @@ import torch.nn.functional as F
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
-from lft_torch.kernels.common import KERNEL_C
+from lft_torch.kernels.common import KERNEL_C, active, card_fwd, card_half, rd, rounds
 from lft_torch.kernels.rowgemm import (RG_M, ffn_out_bwd_floats, ffn_out_floats,
                                        outproj_floats, piece, qkv_floats, qkv_ln_bwd_floats,
                                        split_tf32)
 from lft_torch.kernels.spa_attn_hp import (_gather_window, _hp_geometry_exists,
-                                           _scatter_window, _window_probs, spa_attn_hp_bwd)
+                                           _scatter_window, _window_probs, _window_valid,
+                                           spa_attn_hp_bwd)
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import windowed_attention
 from lft_torch.ops.unfold import unfold3x3_linear
@@ -111,32 +116,68 @@ def _ln(x, w, b):
 
 
 # ---------------------------------------------------------- plain steps ---
+#
+# `plan`: `--dtype mixed`'s site plan of the forward or the backward
+# (kernels/common.py), None in float32. Each product's operands are rounded
+# where its site is, at lft_tpu's sites (spa_block.py:_kernel :117-215,
+# _bwd_kernel :427-568); q, k, v and the other intermediates are handed on
+# unrounded and rounded where a product reads them, as the kernels do.
 
-def tokenize_ln_plain(x, pe_tok, wts):
-    tok = unfold3x3_linear(x, wts["mlp"]).contiguous()
+def tokenize_ln_plain(x, pe_tok, wts, plan=None):
+    tok = unfold3x3_linear(rd(x, plan, "tok"), rd(wts["mlp"], plan, "tok")).contiguous()
     return tok, _ln(tok + pe_tok, wts["ln"][0], wts["ln"][1])
 
 
-def qkv_plain(xn, tok, wts):
+def qkv_plain(xn, tok, wts, plan=None):
     D = tok.shape[-1]
-    qk = xn @ wts["wqk"]
-    return qk[..., :D].contiguous(), qk[..., D:].contiguous(), tok @ wts["wv"]
+    qk = rd(xn, plan, "qk") @ rd(wts["wqk"], plan, "qk")
+    return (qk[..., :D].contiguous(), qk[..., D:].contiguous(),
+            rd(tok, plan, "v") @ rd(wts["wv"], plan, "v"))
 
 
-def outproj_ln_plain(attn, tok, wts):
-    x2 = attn @ wts["wo"] + tok
+def outproj_ln_plain(attn, tok, wts, plan=None):
+    x2 = rd(attn, plan, "wo") @ rd(wts["wo"], plan, "wo") + tok
     return x2, _ln(x2, wts["ln"][2], wts["ln"][3])
 
 
-def ffn_out_plain(xn2, x2, wts):
-    y = torch.relu(xn2 @ wts["w1"]) @ wts["w2"] + x2
-    return y @ wts["wlin"]
+def ffn_out_plain(xn2, x2, wts, plan=None):
+    R = lambda t, s: rd(t, plan, s)
+    y = R(torch.relu(R(xn2, "ffn") @ R(wts["w1"], "ffn")), "ffn") @ R(wts["w2"], "ffn") + x2
+    return R(y, "lin") @ R(wts["wlin"], "lin")
 
 
-def window_attn_plain(q, k, v, num_heads: int, ksize: int):
-    """Plain version of the window step with stats: (attn, m, l), m and l
-    [V, h, w, H] per query and head."""
+def _planned_scores(q, k, num_heads: int, ksize: int, plan):
+    """lft_tpu's window scores under a mixed plan: (q . k_j) scale from q
+    and k rounded at the score site, -inf outside the image; and the
+    rounded heads of q [B, h, w, H, dh] and windows of k."""
     B, h, w, E = q.shape
+    dh = E // num_heads
+    qh = rd(q, plan, "score").reshape(B, h, w, num_heads, dh)
+    kw = _gather_window(rd(k, plan, "score"), ksize).reshape(B, h, w, -1, num_heads, dh)
+    s = torch.einsum("byxhd,byxjhd->byxjh", qh, kw) * float(dh) ** -0.5
+    valid = torch.from_numpy(_window_valid(h, w, ksize)).to(q.device)[..., None]
+    return s.masked_fill(~valid, float("-inf")), qh, kw
+
+
+def window_attn_plain(q, k, v, num_heads: int, ksize: int, plan=None):
+    """Plain version of the window step with stats: (attn, m, l), m and l
+    [V, h, w, H] per query and head. Under a mixed plan in lft_tpu's order:
+    e = exp(s - m) rounded at the av site through the e v product, then
+    divided by l; m is the query's max over every head and its window's
+    keys, those outside the image scoring 0 (lft_tpu's row max over the
+    zero-padded halo), so that e rounds as there."""
+    B, h, w, E = q.shape
+    if active(plan) is not None:
+        s, _, _ = _planned_scores(q, k, num_heads, ksize, plan)
+        pad = ~torch.from_numpy(_window_valid(h, w, ksize)).to(q.device).all(-1)
+        m = s.amax((3, 4))
+        m = torch.where(pad, m.clamp(min=0.0), m)[..., None].expand(-1, -1, -1, num_heads)
+        e = torch.exp(s - m[:, :, :, None])
+        l = e.sum(3)
+        vw = _gather_window(rd(v, plan, "av"), ksize).reshape(B, h, w, -1, num_heads,
+                                                               E // num_heads)
+        attn = torch.einsum("byxjh,byxjhd->byxhd", rd(e, plan, "av"), vw) / l[..., None]
+        return attn.reshape(B, h, w, E).contiguous(), m.contiguous(), l.contiguous()
     p, _, m, l = _window_probs(q, k, num_heads, ksize)
     vw = _gather_window(v, ksize).reshape(B, h, w, -1, num_heads, E // num_heads)
     attn = torch.einsum("byxjh,byxjhd->byxhd", p, vw).reshape(B, h, w, E)
@@ -145,34 +186,52 @@ def window_attn_plain(q, k, v, num_heads: int, ksize: int):
 
 # ----------------------------------------------------- plain backward steps ---
 
-def ffn_out_bwd_plain(attn, tok, dout, wts):
+def ffn_out_bwd_plain(attn, tok, dout, wts, plan=None):
     """Plain version of step a: (dx2, dattn, y, dy, hid, dpre, xn2, dln2),
     dln2 [1, 2, D] = the LN2 affine grads summed over the tokens."""
+    R = lambda t, s: rd(t, plan, s)
     ln = wts["ln"]
     D = tok.shape[-1]
-    x2 = attn @ wts["wo"] + tok
+    x2 = R(attn, "wo") @ R(wts["wo"], "wo") + tok
     xhat2, rstd2 = ln_stats(x2)
     xn2 = xhat2 * ln[2] + ln[3]
-    hid = torch.relu(xn2 @ wts["w1"])
-    y = hid @ wts["w2"] + x2
-    dy = dout @ wts["wlin"].t()
-    dpre = torch.where(hid > 0, dy @ wts["w2"].t(), 0.0)
-    dxn2 = dpre @ wts["w1"].t()
+    hid = torch.relu(R(xn2, "ffn") @ R(wts["w1"], "ffn"))
+    y = R(hid, "ffn") @ R(wts["w2"], "ffn") + x2
+    dy = R(dout, "lin") @ R(wts["wlin"], "lin").t()
+    dpre = torch.where(hid > 0, R(dy, "ffn") @ R(wts["w2"], "ffn").t(), 0.0)
+    dxn2 = R(dpre, "ffn") @ R(wts["w1"], "ffn").t()
     dx2 = dy + ln_bwd(dxn2, xhat2, rstd2, ln[2])
     dln2 = torch.stack([(dxn2 * xhat2).reshape(-1, D).sum(0), dxn2.reshape(-1, D).sum(0)])
-    return dx2, dx2 @ wts["wo"].t(), y, dy, hid, dpre, xn2, dln2[None]
+    return (dx2, R(dx2, "wo") @ R(wts["wo"], "wo").t(), y, dy, hid, dpre, xn2, dln2[None])
 
 
-def ln_qkv_plain(tok, pe_tok, wts):
+def ln_qkv_plain(tok, pe_tok, wts, plan=None):
     """Plain version of step b: (xn, q, k, v)."""
     xn = _ln(tok + pe_tok, wts["ln"][0], wts["ln"][1])
-    return (xn, *qkv_plain(xn, tok, wts))
+    return (xn, *qkv_plain(xn, tok, wts, plan))
 
 
-def window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int):
-    """Plain version of step c: (dq, dk, dv) from the saved (m, l)."""
+def window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int, plan=None):
+    """Plain version of step c: (dq, dk, dv) from the saved (m, l). Under a
+    mixed plan in lft_tpu's order (spa_block.py:_bwd_kernel :505-531): the
+    scores from q and k rounded at the score site, D = sum_j p_j dp_j from
+    dattn and v rounded at the av site, ds rounded with the scale in it, p
+    rounded for dv; `attn` is not read."""
     B, h, w, E = q.shape
     H, dh = num_heads, E // num_heads
+    if active(plan) is not None:
+        s, qh, kw = _planned_scores(q, k, H, ksize, plan)
+        p = torch.exp(s - m[:, :, :, None]) * (1.0 / l)[:, :, :, None]
+        doh = rd(dattn, plan, "av").reshape(B, h, w, H, dh)
+        vw = _gather_window(rd(v, plan, "av"), ksize).reshape(B, h, w, -1, H, dh)
+        dp = torch.einsum("byxhd,byxjhd->byxjh", doh, vw)
+        ds = rd(p * (dp - (p * dp).sum(3, keepdim=True)) * float(dh) ** -0.5, plan, "score")
+        dq = torch.einsum("byxjh,byxjhd->byxhd", ds, kw)
+        dkw = torch.einsum("byxjh,byxhd->byxjhd", ds, qh)
+        dvw = torch.einsum("byxjh,byxhd->byxjhd", rd(p, plan, "av"), doh)
+        return (dq.reshape(B, h, w, E).contiguous(),
+                _scatter_window(dkw.reshape(B, h, w, -1, E), ksize),
+                _scatter_window(dvw.reshape(B, h, w, -1, E), ksize))
     p, qh, _, _ = _window_probs(q, k, H, ksize, m, l)
     doh = dattn.reshape(B, h, w, H, dh)
     vw = _gather_window(v, ksize).reshape(B, h, w, -1, H, dh)
@@ -187,25 +246,27 @@ def window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int
             _scatter_window(dvw.reshape(B, h, w, -1, E), ksize))
 
 
-def qkv_ln_bwd_plain(tok, pe_tok, dq, dk, dv, dx2, wts):
+def qkv_ln_bwd_plain(tok, pe_tok, dq, dk, dv, dx2, wts, plan=None):
     """Plain version of step d: (dtok, dtokpe, dln1); dtokpe is the LN1
     input's cotangent (summed over views it is pe_tok's gradient), dln1
     [1, 2, D] the LN1 affine grads."""
+    R = lambda t, s: rd(t, plan, s)
     ln = wts["ln"]
     D = tok.shape[-1]
     xhat1, rstd1 = ln_stats(tok + pe_tok)
-    dxn = dq @ wts["wqk"][:, :D].t() + dk @ wts["wqk"][:, D:].t()
+    wqk = R(wts["wqk"], "qk")
+    dxn = R(dq, "qk") @ wqk[:, :D].t() + R(dk, "qk") @ wqk[:, D:].t()
     dtokpe = ln_bwd(dxn, xhat1, rstd1, ln[0])
     dln1 = torch.stack([(dxn * xhat1).reshape(-1, D).sum(0), dxn.reshape(-1, D).sum(0)])
-    return dx2 + dv @ wts["wv"].t() + dtokpe, dtokpe, dln1[None]
+    return dx2 + R(dv, "v") @ R(wts["wv"], "v").t() + dtokpe, dtokpe, dln1[None]
 
 
-def tokenize_bwd_plain(dtok, wts):
+def tokenize_bwd_plain(dtok, wts, plan=None):
     """Plain version of step e: dx [V, h, w, C], the transposed 3x3
     tokenization of dtok [V, h, w, D]."""
     D, C9 = wts["mlp"].shape
-    dx = F.conv_transpose2d(dtok.permute(0, 3, 1, 2), wts["mlp"].reshape(D, C9 // 9, 3, 3),
-                            padding=1)
+    dx = F.conv_transpose2d(rd(dtok, plan, "tok").permute(0, 3, 1, 2),
+                            rd(wts["mlp"], plan, "tok").reshape(D, C9 // 9, 3, 3), padding=1)
     return dx.permute(0, 2, 3, 1).contiguous()
 
 
@@ -285,13 +346,16 @@ def _to_pixel_major(x, A2: int):
     return x.reshape(V // A2, A2, h, w, C).permute(0, 2, 3, 1, 4).contiguous()
 
 
-def tokenize_ln(x, pe_tok, wts, pixel_major: bool = False):
+def tokenize_ln(x, pe_tok, wts, pixel_major: bool = False, plan=None):
     """Step 1: x [V, h, w, C], pe_tok [h, w, D] -> (tok, xn) [V, h, w, D].
     pixel_major: x is [Bb, h, w, A2, C], V = Bb * A2, counted as
     `spa_tokenize_ln_pm`; tok and xn are view-major either way. On the card
-    3xTF32 on the tensor cores (module docstring)."""
+    3xTF32 on the tensor cores (module docstring). `plan`: a mixed forward
+    plan; the card runs only `all` (`common.card_fwd`), as K2's other
+    forward steps."""
     if x.device.type != "cuda":
-        return tokenize_ln_plain(_to_view_major(x) if pixel_major else x, pe_tok, wts)
+        return tokenize_ln_plain(_to_view_major(x) if pixel_major else x, pe_tok, wts, plan)
+    card_fwd(plan, "spa_tokenize_ln")
     name = "spa_tokenize_ln_pm" if pixel_major else "spa_tokenize_ln"
     if pixel_major:
         Bb, h, w, A2, C = x.shape
@@ -314,13 +378,14 @@ def tokenize_ln(x, pe_tok, wts, pixel_major: bool = False):
     return tok, xn
 
 
-def qkv(xn, tok, wts):
+def qkv(xn, tok, wts, plan=None):
     """Step 2: (xn, tok) [V, h, w, D] -> (q, k, v) [V, h, w, D]. On the card
     its three products run 3xTF32 on the tensor cores (`csrc/rowgemm.cuh`),
     the weights split by the launch's first kernel into a scratch of
     `rowgemm.qkv_stream`'s layout."""
     if xn.device.type != "cuda":
-        return qkv_plain(xn, tok, wts)
+        return qkv_plain(xn, tok, wts, plan)
+    card_fwd(plan, "spa_qkv")
     D = tok.shape[-1]
     _check_c("spa_qkv", D // 2)
     if xn.shape != tok.shape or tuple(wts["wqk"].shape) != (D, 2 * D) \
@@ -411,7 +476,7 @@ def _check_window(kernel: str, D: int, num_heads: int, ksize: int) -> None:
             f"window; got D={D}, heads={num_heads}, k={ksize}")
 
 
-def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
+def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False, plan=None):
     """Step 3: projected q/k/v [V, h, w, D] -> attention output [V, h, w, D];
     with_stats: (attn, m, l), m and l [V, h, w, H], counted as
     `spa_window_attn_res`. On the card a block takes a (view, 16 x 16 tile,
@@ -419,8 +484,11 @@ def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
     column and 16 channels (`window_thread`), two blocks an SM."""
     if q.device.type != "cuda":
         if with_stats:
-            return window_attn_plain(q, k, v, num_heads, ksize)
+            return window_attn_plain(q, k, v, num_heads, ksize, plan)
+        if active(plan) is not None:
+            return window_attn_plain(q, k, v, num_heads, ksize, plan)[0]
         return windowed_attention(q, k, v, num_heads, ksize)
+    card_fwd(plan, "spa_window_attn")
     V, h, w, D = q.shape
     _check_window("spa_window_attn", D, num_heads, ksize)
     _build.check_cuda_args("spa_window_attn", q, k, v)
@@ -441,14 +509,15 @@ def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
     return attn, m, l
 
 
-def outproj_ln(attn, tok, wts):
+def outproj_ln(attn, tok, wts, plan=None):
     """Step 4: (attn, tok) [V, h, w, D] -> (x2, xn2) [V, h, w, D]. On the card
     its product runs 3xTF32 on the tensor cores (`csrc/rowgemm.cuh`), Wo
     split by the launch's first kernel into a scratch of
     `rowgemm.outproj_stream`'s layout and held in shared memory, LN2 on the
     accumulators."""
     if attn.device.type != "cuda":
-        return outproj_ln_plain(attn, tok, wts)
+        return outproj_ln_plain(attn, tok, wts, plan)
+    card_fwd(plan, "spa_outproj_ln")
     D = tok.shape[-1]
     _check_c("spa_outproj_ln", D // 2)
     if attn.shape != tok.shape or tuple(wts["wo"].shape) != (D, D):
@@ -464,15 +533,16 @@ def outproj_ln(attn, tok, wts):
     return x2, xn2
 
 
-def ffn_out(xn2, x2, wts, views=None):
+def ffn_out(xn2, x2, wts, views=None, plan=None):
     """Step 5: (xn2, x2) [V, h, w, D] -> block output [V, h, w, C]. With
     `views` = A2 the output is pixel-major [V / A2, h, w, A2, C], counted as
     `spa_ffn_out_pm`. On the card its three products run 3xTF32 on the
     tensor cores (`csrc/rowgemm.cuh`), the weights split by the launch's
     first kernel into a scratch of `rowgemm.ffn_out_stream`'s layout."""
     if xn2.device.type != "cuda":
-        out = ffn_out_plain(xn2, x2, wts)
+        out = ffn_out_plain(xn2, x2, wts, plan)
         return out if views is None else _to_pixel_major(out, views)
+    card_fwd(plan, "spa_ffn_out")
     *lead, D = x2.shape
     C = D // 2
     name = "spa_ffn_out" if views is None else "spa_ffn_out_pm"
@@ -504,11 +574,15 @@ def _bwd_weights(wts: dict) -> dict:
     return dict(wlinT=t(wts["wlin"]), w2T=t(wts["w2"]), w1T=t(wts["w1"]), woT=t(wts["wo"]))
 
 
-def _launch(kernel: str, fn_name: str, ins, outs, ints, dev):
+def _launch(kernel: str, fn_name: str, ins, outs, ints, dev, half: bool = False):
+    """One step's launch, under its `_bf16` name (C function and count) where
+    `half` (the bf16-operand instance)."""
     _build.check_cuda_args(kernel, *ins)
-    fn = _build.bind("spa_block_bwd", fn_name, len(ins) + len(outs), (ctypes.c_int,) * len(ints))
-    _build.launch("spa_block_bwd", kernel, fn, dev, *(t.data_ptr() for t in (*ins, *outs)),
-                  *ints)
+    sfx = "_bf16" if half else ""
+    fn = _build.bind("spa_block_bwd", fn_name + sfx, len(ins) + len(outs),
+                     (ctypes.c_int,) * len(ints))
+    _build.launch("spa_block_bwd", kernel + sfx, fn, dev,
+                  *(t.data_ptr() for t in (*ins, *outs)), *ints)
 
 
 def ffn_out_bwd_tiles(T: int) -> int:
@@ -517,14 +591,17 @@ def ffn_out_bwd_tiles(T: int) -> int:
     return -(-T // RG_M)
 
 
-def ffn_out_bwd(attn, tok, dout, wts):
+def ffn_out_bwd(attn, tok, dout, wts, plan=None):
     """Step a: (dx2, dattn, y, dy, hid, dpre, xn2, dln2); dln2 holds one
     partial sum per 128-row tile, [ffn_out_bwd_tiles(T), 2, D]. On the card
     its seven products run 3xTF32 on the tensor cores (`csrc/rowgemm.cuh`),
     the weights split by the launch's first kernels into a scratch of
-    `rowgemm.ffn_out_bwd_stream`'s layout."""
+    `rowgemm.ffn_out_bwd_stream`'s layout; under a mixed plan that rounds
+    every site, one TF32 pass each over bf16-rounded operands
+    (`spa_ffn_out_bwd_bf16`, the weights' bf16 parts in the same layout)."""
     if attn.device.type != "cuda":
-        return ffn_out_bwd_plain(attn, tok, dout, wts)
+        return ffn_out_bwd_plain(attn, tok, dout, wts, plan)
+    half = card_half(plan, "spa_ffn_out_bwd")
     *lead, D = tok.shape
     C = D // 2
     T = tok.numel() // D
@@ -541,56 +618,65 @@ def ffn_out_bwd(attn, tok, dout, wts):
             torch.empty(ffn_out_bwd_tiles(T), 2, D, device=tok.device))
     _launch("spa_ffn_out_bwd", "lft_spa_ffn_out_bwd",
             (attn, tok, dout, wts["ln"], wts["wo"], wts["w1"], wts["w2"], wt["wlinT"],
-             wt["w2T"], wt["w1T"], wt["woT"]), (wf, *outs), (T, C), tok.device)
+             wt["w2T"], wt["w1T"], wt["woT"]), (wf, *outs), (T, C), tok.device, half)
     return outs
 
 
-def ln_qkv(tok, pe_tok, wts):
+def ln_qkv(tok, pe_tok, wts, plan=None):
     """Step b: recompute (xn, q, k, v) [V, h, w, D] from tok and pe_tok. On
     the card K2.2's kernel with an LN1 prologue (`csrc/spa_block.cu`:
     `spa_qkv_kernel<C, true>`): xn = LN1(tok + pe_tok) as K2.1 computes it,
     then q, k, v as K2.2 computes them, the weights split by the launch's
     first kernel into a scratch of `rowgemm.qkv_stream`'s layout. With tok
-    from K2.1 all four are the forward's bit for bit."""
+    from K2.1 all four are the forward's bit for bit. Under a mixed plan that
+    rounds every site `spa_ln_qkv_bf16`: the products over bf16-rounded xn,
+    tok and weights (q, k, v then differ from the f32 forward's)."""
     if tok.device.type != "cuda":
-        return ln_qkv_plain(tok, pe_tok, wts)
+        return ln_qkv_plain(tok, pe_tok, wts, plan)
+    name = "spa_ln_qkv" + ("_bf16" if card_half(plan, "spa_ln_qkv") else "")
     V, h, w, D = tok.shape
     _check_c("spa_ln_qkv", D // 2)
     if tuple(pe_tok.shape) != (h, w, D) or tuple(wts["wqk"].shape) != (D, 2 * D) \
             or tuple(wts["wv"].shape) != (D, D):
         raise ValueError(f"spa_ln_qkv: tok {tuple(tok.shape)}, pe_tok {tuple(pe_tok.shape)}, "
                          f"wqk {tuple(wts['wqk'].shape)}, wv {tuple(wts['wv'].shape)}")
-    _build.check_cuda_args("spa_ln_qkv", tok, pe_tok, wts["ln"], wts["wqk"], wts["wv"])
+    _build.check_cuda_args(name, tok, pe_tok, wts["ln"], wts["wqk"], wts["wv"])
     outs = tuple(torch.empty_like(tok) for _ in range(4))
     wf = torch.empty(qkv_floats(D // 2), device=tok.device)   # scratch: the split weights
-    fn = _build.bind("spa_block", "lft_spa_ln_qkv", 10, (ctypes.c_int,) * 3)
-    _build.launch("spa_block", "spa_ln_qkv", fn, tok.device,
+    fn = _build.bind("spa_block", "lft_" + name, 10, (ctypes.c_int,) * 3)
+    _build.launch("spa_block", name, fn, tok.device,
                   *(t.data_ptr() for t in (tok, pe_tok, wts["ln"], wts["wqk"], wts["wv"], wf,
                                            *outs)), V * h * w, h * w, D // 2)
     return outs
 
 
-def window_attn_bwd(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int):
+def window_attn_bwd(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int, plan=None):
     """Step c: (dq, dk, dv) [V, h, w, D] from the saved (m, l). On the card
     K5's backward (`spa_attn_hp.spa_attn_hp_bwd`: pass q, dq and D = sum_j
     p_j dp_j; pass kv, dk and dv) with dout = dattn, counted as
     `spa_window_attn_bwd`: `attn` is not read there (the plain version forms
-    D from it)."""
+    D from it). Under a mixed plan that rounds every site its bf16-operand
+    instance, `spa_window_attn_bwd_bf16` (q, k, v, dattn rounded on load, ds
+    and p before their products)."""
     if q.device.type != "cuda":
-        return window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads, ksize)
-    _check_window("spa_window_attn_bwd", q.shape[-1], num_heads, ksize)
-    return spa_attn_hp_bwd(q, k, v, m, l, dattn, num_heads, ksize, kernel="spa_window_attn_bwd")
+        return window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads, ksize, plan)
+    half = card_half(plan, "spa_window_attn_bwd")
+    name = "spa_window_attn_bwd" + ("_bf16" if half else "")
+    _check_window(name, q.shape[-1], num_heads, ksize)
+    return spa_attn_hp_bwd(q, k, v, m, l, dattn, num_heads, ksize, kernel=name, half=half)
 
 
-def qkv_ln_bwd(tok, pe_tok, dq, dk, dv, dx2, wts):
+def qkv_ln_bwd(tok, pe_tok, dq, dk, dv, dx2, wts, plan=None):
     """Step d: (dtok, dtokpe, dln1); dln1 holds one partial sum per 128-row
     tile, [ffn_out_bwd_tiles(T), 2, D]. On the card its three products run
     3xTF32 on the tensor cores (`csrc/rowbwd.cuh`, one weight resident a
     pass at D = 128: `rowgemm.qkv_ln_bwd_passes`), Wqᵀ, Wkᵀ, Wvᵀ split
     straight from wqk and wv by the launch's first kernel into a scratch of
-    `rowgemm.qkv_ln_bwd_stream`'s layout."""
+    `rowgemm.qkv_ln_bwd_stream`'s layout; `spa_qkv_ln_bwd_bf16` under a
+    mixed plan that rounds every site."""
     if tok.device.type != "cuda":
-        return qkv_ln_bwd_plain(tok, pe_tok, dq, dk, dv, dx2, wts)
+        return qkv_ln_bwd_plain(tok, pe_tok, dq, dk, dv, dx2, wts, plan)
+    half = card_half(plan, "spa_qkv_ln_bwd")
     V, h, w, D = tok.shape
     T = V * h * w
     _check_c("spa_qkv_ln_bwd", D // 2)
@@ -604,15 +690,18 @@ def qkv_ln_bwd(tok, pe_tok, dq, dk, dv, dx2, wts):
             torch.empty(ffn_out_bwd_tiles(T), 2, D, device=tok.device))
     _launch("spa_qkv_ln_bwd", "lft_spa_qkv_ln_bwd",
             (tok, pe_tok, dq, dk, dv, dx2, wts["ln"], wts["wqk"], wts["wv"]), (wf, *outs),
-            (T, h * w, D // 2), tok.device)
+            (T, h * w, D // 2), tok.device, half)
     return outs
 
 
-def tokenize_bwd(dtok, wts):
+def tokenize_bwd(dtok, wts, plan=None):
     """Step e: dx [V, h, w, C] = the 3x3 tokenization transposed, as a
-    gather over the 9 taps (on the card 3xTF32 on the tensor cores)."""
+    gather over the 9 taps (on the card 3xTF32 on the tensor cores;
+    `spa_tokenize_bwd_bf16`, one TF32 pass over bf16-rounded dtok and taps,
+    under a mixed plan that rounds every site)."""
     if dtok.device.type != "cuda":
-        return tokenize_bwd_plain(dtok, wts)
+        return tokenize_bwd_plain(dtok, wts, plan)
+    half = card_half(plan, "spa_tokenize_bwd")
     V, h, w, D = dtok.shape
     C = D // 2
     _check_c("spa_tokenize_bwd", C)
@@ -622,37 +711,38 @@ def tokenize_bwd(dtok, wts):
     dx = torch.empty(V, h, w, C, device=dtok.device)
     wf = torch.empty(18 * C * D, device=dtok.device)   # scratch: `tap_weights`' layout
     _launch("spa_tokenize_bwd", "lft_spa_tokenize_bwd", (dtok, wts["wu"]), (wf, dx),
-            (V * h * w, h, w, C, *tok_tile(h, w, C)), dtok.device)
+            (V * h * w, h, w, C, *tok_tile(h, w, C)), dtok.device, half)
     return dx
 
 
 # --------------------------------------------------------------- blocks ---
 
 def spa_block(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False,
-              pixel_major: bool = False):
+              pixel_major: bool = False, plan=None):
     """K2 chained; with_res: (out, tok, m, l, attn). pixel_major (K11): x and
     out are [Bb, h, w, A2, C], the first and last step run in their `_pm`
-    forms; without residuals."""
-    tok, xn = tokenize_ln(x, pe_tok, wts, pixel_major)
-    q, kk, v = qkv(xn, tok, wts)
+    forms; without residuals. `plan`: a mixed forward plan."""
+    tok, xn = tokenize_ln(x, pe_tok, wts, pixel_major, plan)
+    q, kk, v = qkv(xn, tok, wts, plan)
     if with_res:
-        attn, m, l = window_attn(q, kk, v, num_heads, k, with_stats=True)
+        attn, m, l = window_attn(q, kk, v, num_heads, k, with_stats=True, plan=plan)
     else:
-        attn = window_attn(q, kk, v, num_heads, k)
-    x2, xn2 = outproj_ln(attn, tok, wts)
-    out = ffn_out(xn2, x2, wts, x.shape[3] if pixel_major else None)
+        attn = window_attn(q, kk, v, num_heads, k, plan=plan)
+    x2, xn2 = outproj_ln(attn, tok, wts, plan)
+    out = ffn_out(xn2, x2, wts, x.shape[3] if pixel_major else None, plan)
     return (out, tok, m, l, attn) if with_res else out
 
 
-def spa_block_plain(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False):
-    tok, xn = tokenize_ln_plain(x, pe_tok, wts)
-    q, kk, v = qkv_plain(xn, tok, wts)
-    if with_res:
-        attn, m, l = window_attn_plain(q, kk, v, num_heads, k)
+def spa_block_plain(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False,
+                    plan=None):
+    tok, xn = tokenize_ln_plain(x, pe_tok, wts, plan)
+    q, kk, v = qkv_plain(xn, tok, wts, plan)
+    if with_res or active(plan) is not None:
+        attn, m, l = window_attn_plain(q, kk, v, num_heads, k, plan)
     else:
         attn = windowed_attention(q, kk, v, num_heads, k)
-    x2, xn2 = outproj_ln_plain(attn, tok, wts)
-    out = ffn_out_plain(xn2, x2, wts)
+    x2, xn2 = outproj_ln_plain(attn, tok, wts, plan)
+    out = ffn_out_plain(xn2, x2, wts, plan)
     return (out, tok, m, l, attn) if with_res else out
 
 
@@ -662,37 +752,44 @@ _PLAIN_STEPS = (ffn_out_bwd_plain, ln_qkv_plain, window_attn_bwd_plain, qkv_ln_b
                 tokenize_bwd_plain, wgrad_plain, colsum_plain)
 
 
-def spa_block_bwd(x, pe_tok, wts, tok, m, l, attn, dout, num_heads: int, k: int):
+def spa_block_bwd(x, pe_tok, wts, tok, m, l, attn, dout, num_heads: int, k: int, plan=None):
     """K3: the block's backward from x and the saved (tok, m, l, attn).
     Returns (dx, dpe_tok [h, w, D], dln [4, D], dwu [9, C, D], dwqk, dwv,
     dwo, dw1, dw2, dwlin), weight grads in the layouts of `spa_weights`.
-    Each step takes its plain version for CPU tensors."""
-    return _bwd(_KERNEL_STEPS, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k)
+    Each step takes its plain version for CPU tensors. `plan`: `--dtype
+    mixed`'s backward plan."""
+    return _bwd(_KERNEL_STEPS, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k, plan)
 
 
-def spa_block_bwd_plain(x, pe_tok, wts, tok, m, l, attn, dout, num_heads: int, k: int):
+def spa_block_bwd_plain(x, pe_tok, wts, tok, m, l, attn, dout, num_heads: int, k: int,
+                        plan=None):
     """Plain version of `spa_block_bwd` (lft_tpu/kernels/spa_block.py:427-568
     in plain PyTorch), on any device."""
-    return _bwd(_PLAIN_STEPS, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k)
+    return _bwd(_PLAIN_STEPS, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k, plan)
 
 
-def _bwd(steps, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k):
+def _bwd(steps, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k, plan=None):
     f_ffn, f_lnqkv, f_attn, f_qkvln, f_tok, wg, cs = steps
     V, h, w, C = x.shape
     D = 2 * C
-    dx2, dattn, y, dy, hid, dpre, xn2, dln2 = f_ffn(attn, tok, dout, wts)
-    xn, q, kk, v = f_lnqkv(tok, pe_tok, wts)
-    dq, dk, dv = f_attn(q, kk, v, attn, dattn, m, l, num_heads, k)
-    dtok, dtokpe, dln1 = f_qkvln(tok, pe_tok, dq, dk, dv, dx2, wts)
-    dx = f_tok(dtok, wts)
+    plan = active(plan)
+    pl = {} if plan is None else {"plan": plan}
+    dx2, dattn, y, dy, hid, dpre, xn2, dln2 = f_ffn(attn, tok, dout, wts, **pl)
+    xn, q, kk, v = f_lnqkv(tok, pe_tok, wts, **pl)
+    dq, dk, dv = f_attn(q, kk, v, attn, dattn, m, l, num_heads, k, **pl)
+    dtok, dtokpe, dln1 = f_qkvln(tok, pe_tok, dq, dk, dv, dx2, wts, **pl)
+    dx = f_tok(dtok, wts, **pl)
     r = lambda t: t.reshape(-1, t.shape[-1])
     rows = lambda t: cs(t.reshape(t.shape[0], -1))
+    # each weight grad over bf16 operands where its site rounds
+    hf = lambda site: {"half": True} if rounds(plan, site) else {}
     return (dx, rows(dtokpe).reshape(h, w, D),
             torch.cat([rows(dln1), rows(dln2)]).reshape(4, D),
-            wg(r(x), r(dtok), image=(h, w)),
-            torch.cat([wg(r(xn), r(dq)), wg(r(xn), r(dk))], dim=1),
-            wg(r(tok), r(dv)), wg(r(attn), r(dx2)), wg(r(xn2), r(dpre)),
-            wg(r(hid), r(dy)), wg(r(y), r(dout)))
+            wg(r(x), r(dtok), image=(h, w), **hf("tok")),
+            torch.cat([wg(r(xn), r(dq), **hf("qk")), wg(r(xn), r(dk), **hf("qk"))], dim=1),
+            wg(r(tok), r(dv), **hf("v")), wg(r(attn), r(dx2), **hf("wo")),
+            wg(r(xn2), r(dpre), **hf("ffn")), wg(r(hid), r(dy), **hf("ffn")),
+            wg(r(y), r(dout), **hf("lin")))
 
 
 def _with_mlp(wts: dict) -> dict:
@@ -703,29 +800,33 @@ def _with_mlp(wts: dict) -> dict:
 
 class SpaBlockFn(torch.autograd.Function):
     """K2 with residuals forward, K3 backward. Inputs: x [V, h, w, C],
-    pe_tok [h, w, D], then the weights of `spa_weights` in WEIGHTS order."""
+    pe_tok [h, w, D], the weights of `spa_weights` in WEIGHTS order, then
+    the configuration, the mixed forward and backward plans among it (the
+    backward's is kept in `ctx` for the backward)."""
 
     @staticmethod
-    def forward(ctx, x, pe_tok, ln, wu, wqk, wv, wo, w1, w2, wlin, num_heads, k, plain):
+    def forward(ctx, x, pe_tok, ln, wu, wqk, wv, wo, w1, w2, wlin, num_heads, k, plain, plan,
+                bwd_plan):
         wts = _with_mlp(dict(zip(WEIGHTS, (ln, wu, wqk, wv, wo, w1, w2, wlin))))
         fwd = spa_block_plain if plain else spa_block
-        out, tok, m, l, attn = fwd(x, pe_tok, wts, num_heads, k, with_res=True)
+        out, tok, m, l, attn = fwd(x, pe_tok, wts, num_heads, k, with_res=True, plan=plan)
         ctx.save_for_backward(x, pe_tok, ln, wu, wqk, wv, wo, w1, w2, wlin, tok, m, l, attn)
-        ctx.cfg = (num_heads, k, plain)
+        ctx.cfg = (num_heads, k, plain, bwd_plan)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         x, pe_tok, *w, tok, m, l, attn = ctx.saved_tensors
-        num_heads, k, plain = ctx.cfg
+        num_heads, k, plain, bwd_plan = ctx.cfg
         bwd = spa_block_bwd_plain if plain else spa_block_bwd
         grads = bwd(x, pe_tok, _with_mlp(dict(zip(WEIGHTS, w))), tok, m, l, attn,
-                    dout.contiguous(), num_heads, k)
-        return (*grads, None, None, None)
+                    dout.contiguous(), num_heads, k, bwd_plan)
+        return (*grads, None, None, None, None, None)
 
 
 def spa_trans_block_fused(x, pe_tok, params, prefix: str, num_heads: int, k: int,
-                          plain: bool = False, pixel_major: bool = False):
+                          plain: bool = False, pixel_major: bool = False, plan=None,
+                          bwd_plan=None):
     """The whole SpaTrans block on view images.
 
     x: [V, h, w, C] (V = batch*A2 views), or with `pixel_major=True` a
@@ -736,7 +837,9 @@ def spa_trans_block_fused(x, pe_tok, params, prefix: str, num_heads: int, k: int
     and `altblock.{i}.spa_trans.`. Returns the shape of x. The view-major
     form is differentiable through `SpaBlockFn` when grad is needed; the
     pixel-major form is inference-only and raises then. `plain=True` runs
-    the plain versions on any device."""
+    the plain versions on any device. `plan`, `bwd_plan`: the forward's and
+    the backward's site plans under `--dtype mixed` (kernels/common.py;
+    None: f32)."""
     wts = spa_weights(params, prefix)
     needs_grad = _needs_grad(x, pe_tok, *(wts[n] for n in WEIGHTS))
     if pixel_major:
@@ -745,16 +848,17 @@ def spa_trans_block_fused(x, pe_tok, params, prefix: str, num_heads: int, k: int
                              "pixel-major forward K11 has no backward; differentiate the "
                              "view-major form")
         if plain:
-            out = spa_block_plain(_to_view_major(x), pe_tok, wts, num_heads, k)
+            out = spa_block_plain(_to_view_major(x), pe_tok, wts, num_heads, k, plan=plan)
             return _to_pixel_major(out, x.shape[3])
-        return spa_block(x, pe_tok, wts, num_heads, k, pixel_major=True)
+        return spa_block(x, pe_tok, wts, num_heads, k, pixel_major=True, plan=plan)
     if needs_grad:
-        return SpaBlockFn.apply(x, pe_tok, *(wts[n] for n in WEIGHTS), num_heads, k, plain)
-    return (spa_block_plain if plain else spa_block)(x, pe_tok, wts, num_heads, k)
+        return SpaBlockFn.apply(x, pe_tok, *(wts[n] for n in WEIGHTS), num_heads, k, plain,
+                                plan, bwd_plan)
+    return (spa_block_plain if plain else spa_block)(x, pe_tok, wts, num_heads, k, plan=plan)
 
 
 def spa_trans_block_plain(x, pe_tok, params, prefix: str, num_heads: int, k: int,
-                          pixel_major: bool = False):
+                          pixel_major: bool = False, plan=None, bwd_plan=None):
     """Plain version of `spa_trans_block_fused`, on any device."""
     return spa_trans_block_fused(x, pe_tok, params, prefix, num_heads, k, plain=True,
-                                 pixel_major=pixel_major)
+                                 pixel_major=pixel_major, plan=plan, bwd_plan=bwd_plan)

@@ -18,8 +18,11 @@ partials in a fixed order. No atomics: a step is bitwise repeatable.
 
 The products run on the tensor cores as 3xTF32 (each f32 operand split
 into two TF32 parts, three products accumulated in f32: f32 accuracy; see
-the source). On a CPU tensor each takes its plain version; the `*_plain`
-functions run anywhere.
+the source). With `half=True` (`--dtype mixed`'s backward at a site that
+rounds: lft_tpu's weight grads over bf16 operands) both operands are
+rounded to bf16 and the product is one TF32 pass, accumulated in f32 in
+the same order, counted as `wgrad_bf16`. On a CPU tensor each takes its
+plain version; the `*_plain` functions run anywhere.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from lft_torch.kernels import _build
+from lft_torch.kernels.common import bf16_round
 
 SMS = 132              # streaming multiprocessors of an H100
 ROWS = 256             # least token rows of a slice
@@ -79,8 +83,10 @@ def _shifted(x_img: torch.Tensor, ky: int, kx: int) -> torch.Tensor:
     return F.pad(x_img, (0, 0, 1, 1, 1, 1))[:, ky:ky + h, kx:kx + w]
 
 
-def wgrad_plain(x: torch.Tensor, dy: torch.Tensor, image=None) -> torch.Tensor:
+def wgrad_plain(x: torch.Tensor, dy: torch.Tensor, image=None, half: bool = False) -> torch.Tensor:
     """Plain version of `wgrad`."""
+    if half:
+        x, dy = bf16_round(x), bf16_round(dy)
     if image is None:
         return x.t() @ dy
     h, w = image
@@ -93,11 +99,12 @@ def colsum_plain(a: torch.Tensor) -> torch.Tensor:
     return a.sum(0)
 
 
-def wgrad(x: torch.Tensor, dy: torch.Tensor, image=None) -> torch.Tensor:
+def wgrad(x: torch.Tensor, dy: torch.Tensor, image=None, half: bool = False) -> torch.Tensor:
     """xᵀ·dy over the token axis (see the module docstring): the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors, the plain version for CPU tensors. half: over bf16
+    operands (`wgrad_bf16`)."""
     if x.device.type != "cuda":
-        return wgrad_plain(x, dy, image)
+        return wgrad_plain(x, dy, image, half)
     (T, K), N = x.shape, dy.shape[1]
     if dy.shape[0] != T or K % 4 or N % 4:
         raise ValueError(f"wgrad: x {tuple(x.shape)} and dy {tuple(dy.shape)}")
@@ -108,8 +115,9 @@ def wgrad(x: torch.Tensor, dy: torch.Tensor, image=None) -> torch.Tensor:
     S = splits(T, K, N, taps)
     out = torch.empty(taps, K, N, device=x.device)
     part = torch.empty(S, taps, K, N, device=x.device) if S > 1 else out
-    fn = _build.bind("wgrad", "lft_wgrad", 4, (ctypes.c_int,) * 8)
-    _build.launch("wgrad", "wgrad", fn, x.device, x.data_ptr(), dy.data_ptr(),
+    name = "wgrad_bf16" if half else "wgrad"
+    fn = _build.bind("wgrad", "lft_" + name, 4, (ctypes.c_int,) * 8)
+    _build.launch("wgrad", name, fn, x.device, x.data_ptr(), dy.data_ptr(),
                   part.data_ptr(), out.data_ptr(), T, K, N, S,
                   *colsum_cut(S, taps * K * N), h, w)
     return out[0] if image is None else out

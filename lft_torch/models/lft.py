@@ -36,6 +36,16 @@ Two branches, as in the JAX package:
   `offset` meets a view of more than 2048 pixels. The branch is also where a
   geometry goes that fails a fused gate (angRes >= 12); every gated geometry
   trains fused (K4 has a form for A2 <= 64 and one for 64 < A2 <= 128).
+
+`--dtype mixed` (lft_tpu/models/lft.py:267-286): f32 activations, with
+lft_tpu's per-site product plans in the fused blocks, read once a call
+(kernels/common.py): the forward's from LFT_MM_HP_SITES (default all f32,
+so a `mixed` forward is the f32 one), the backward's from
+LFT_MM_HP_BWD_SITES (default none: every product of K3 and K4 and their
+weight grads over bf16 operands). On the card the backward's plan `none`
+launches the kernels' bf16-operand instances and `all` the f32 ones; other
+plans run on the plain versions only. The unfused branch ignores the plan,
+as lft_tpu's does.
 """
 
 from __future__ import annotations
@@ -53,7 +63,8 @@ from lft_torch.kernels.ang_attn import ang_attention_pallas
 from lft_torch.kernels.ang_block import (_needs_grad, ang_block_applicable,
                                          ang_block_trainable, ang_trans_block_fused,
                                          ang_trans_block_plain)
-from lft_torch.kernels.common import attention_route, kernels_take
+from lft_torch.kernels.common import (active, attention_route, card_plan, kernels_take,
+                                      mm_hp_sites, mm_site_plan)
 from lft_torch.kernels.spa_block import (spa_block_applicable, spa_trans_block_fused,
                                          spa_trans_block_plain)
 from lft_torch.ops.attention import local_attention, multi_head_attention
@@ -229,8 +240,10 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
     fused branch through the blocks' plain versions on any device: the
     reference the card's kernels are held against. `attention_impl`
     (default `args.attention_impl`) selects the unfused branch's attention:
-    auto | dense | tiled | pallas."""
-    check_dtype(getattr(args, "dtype", "float32"))
+    auto | dense | tiled | pallas. `args.dtype` `mixed` takes lft_tpu's
+    site plans in the fused branch (module docstring)."""
+    dt = str(getattr(args, "dtype", "float32") or "float32")
+    check_dtype(dt)
     impl = attention_impl or getattr(args, "attention_impl", "auto") or "auto"
     A = args.angRes
     S = args.scale_factor
@@ -262,14 +275,21 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
     if fused:
         ang_fn = ang_trans_block_plain if plain_blocks else ang_trans_block_fused
         spa_fn = spa_trans_block_plain if plain_blocks else spa_trans_block_fused
+        plans = {}
+        if dt == "mixed":   # the plans, read once for the whole call
+            plans = dict(plan=active(mm_site_plan(True, mm_hp_sites())),
+                         bwd_plan=active(mm_site_plan(True, mm_hp_sites("LFT_MM_HP_BWD_SITES",
+                                                                        "none"))))
+            if dev.type == "cuda" and not plain_blocks:
+                card_plan(**plans)
         for i in range(LAYER_NUM):
             t = buf.permute(0, 2, 3, 1, 4).reshape(B * h * w, A * A, C).contiguous()
-            t = ang_fn(t, ang_pe, p, f"altblock.{i}.ang_trans.", NUM_HEADS)
+            t = ang_fn(t, ang_pe, p, f"altblock.{i}.ang_trans.", NUM_HEADS, **plans)
             t = t.reshape(B, h, w, A * A, C).permute(0, 3, 1, 2, 4)
             s_pref = f"altblock.{i}.spa_trans."
             pe_tok = unfold3x3_linear(spa_pe[None], p[s_pref + "MLP.weight"])[0].contiguous()
             out = spa_fn(t.reshape(B * A * A, h, w, C).contiguous(), pe_tok, p, s_pref,
-                         NUM_HEADS, KERNEL_SEARCH)
+                         NUM_HEADS, KERNEL_SEARCH, **plans)
             buf = out.reshape(B, A * A, h, w, C)
     else:
         for i in range(LAYER_NUM):

@@ -39,7 +39,7 @@ from lft_torch.device import resolve_device
 def rank_device(rank: int, device=None) -> torch.device:
     """The device of rank `rank`: `device` where it names the CPU or a card
     by index, else `cuda:<rank mod the card count>`; made current and
-    resolved (`lft_torch.device.resolve_device`: TF32 off; raises without
+    resolved (`lft_torch.device.resolve_device`, which raises without
     a card)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():

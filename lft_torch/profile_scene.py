@@ -1,7 +1,8 @@
 """Time and profile full-scene SR on one CUDA card.
 
     python3 -m lft_torch.profile_scene [--scenes N] [--seed S] [--plain] [--unfused]
-        [--ang-res A] [--view V] [--patch P]
+        [--ang-res A] [--view V] [--patch P] [--dtype float32|mixed]
+        [--matmul-precision default|high|highest]
 
 Loads the full-width 4x demo checkpoint, makes `--scenes` synthetic A x A
 scenes of V x V LR views (5x5 and 128x128 by default), and runs the tiled
@@ -15,6 +16,9 @@ on the card:
   device's busy time and its idle share of the wall time.
 
 `--plain` runs the blocks' plain PyTorch versions instead of the kernels.
+`--dtype mixed` runs lft_tpu's mixed plans (a forward at the default plan
+is the f32 one); `--matmul-precision high` turns TF32 on for the torch ops
+around the kernels.
 `--unfused` runs the per-op branch (`fused=False`): the attentions as the
 kernels K7 and K5, or with `--plain` as the tiled torch ops. The environment
 variables `LFT_ANG_VARIANT=sweep` and `LFT_SPA_VARIANT=offset|mxu|tile` send
@@ -49,6 +53,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ang-res", type=int, default=5)
     ap.add_argument("--view", type=int, default=128)
     ap.add_argument("--patch", type=int, default=32)
+    ap.add_argument("--dtype", default="float32", choices=["float32", "mixed"])
+    ap.add_argument("--matmul-precision", default="default",
+                    choices=["default", "high", "highest"])
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_scene: no CUDA device is available", file=sys.stderr)
@@ -56,7 +63,7 @@ def main(argv=None) -> int:
 
     from lft_torch.config import Args
     from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
-    from lft_torch.device import resolve_device
+    from lft_torch.device import matmul_precision, resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache
     from lft_torch.kernels import LAUNCHES, reset_launches
     from lft_torch.models.lft import forward
@@ -65,11 +72,12 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
-    dev = resolve_device()
+    dev = resolve_device(None, matmul_precision(a))
     params, _, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
                                                 "LFT_5x5_4x_synth3000.pth"), device=dev)
     args = Args(angRes=a.ang_res, scale_factor=4, channels=64, patch_size_for_test=a.patch,
-                stride_for_test=a.patch // 2, eval_batch=16)
+                stride_for_test=a.patch // 2, eval_batch=16, dtype=a.dtype,
+                matmul_precision=a.matmul_precision)
     kw, what = path_kw(a.plain, a.unfused)
     cache = ScenePipelineCache(forward, args, eval_batch=16, **kw)
     hr_view = 4 * a.view

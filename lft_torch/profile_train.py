@@ -1,7 +1,8 @@
 """Time and profile the train step on one CUDA card.
 
     python3 -m lft_torch.profile_train [--steps N] [--seed S] [--plain] [--unfused]
-        [--ang-res A] [--batch B]
+        [--ang-res A] [--batch B] [--dtype float32|mixed]
+        [--matmul-precision default|high|highest]
 
 The 4x recipe (runs/ref_recipe_s4): LFT at full width (C=64, 8 heads, 4
 AltFilter blocks, 5x5 views) from the 4x demo checkpoint, Adam 2e-4,
@@ -16,6 +17,10 @@ gate sends to the per-op branch, K8 and K5, with or without `--unfused`):
   device's busy time and its idle share of the wall time, and the device
   time of the weight-grad and column-sum reductions (`wgrad`, `colsum`).
 
+`--dtype mixed` trains under lft_tpu's mixed plans: the fused backward's
+products over bf16 operands (the `_bf16` instances of K3, K4 and `wgrad`;
+with `--plain` their plain versions); `--matmul-precision high` turns TF32
+on for the torch ops around the kernels.
 `--plain` trains through the blocks' plain PyTorch versions and backwards
 instead of the kernels; `--unfused` trains the per-op branch
 (`--train_fused false`): the attentions as the kernels K7 and K5 with their
@@ -51,6 +56,9 @@ def main(argv=None) -> int:
     ap.add_argument("--unfused", action="store_true")
     ap.add_argument("--ang-res", type=int, default=5)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--dtype", default="float32", choices=["float32", "mixed"])
+    ap.add_argument("--matmul-precision", default="default",
+                    choices=["default", "high", "highest"])
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device is available", file=sys.stderr)
@@ -58,7 +66,7 @@ def main(argv=None) -> int:
 
     from lft_torch.config import Args
     from lft_torch.data.device_synth import synth_batch
-    from lft_torch.device import resolve_device
+    from lft_torch.device import matmul_precision, resolve_device
     from lft_torch.models.lft import forward
     from lft_torch.kernels import LAUNCHES, reset_launches
     from lft_torch.profile_scene import path_kw, report, variant_knobs
@@ -70,13 +78,14 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
-    dev = resolve_device()
+    dev = resolve_device(None, matmul_precision(a))
     params, _, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
                                                 "LFT_5x5_4x_synth3000.pth"), device=dev)
     kw, what = path_kw(a.plain, a.unfused)
     args = Args(angRes=a.ang_res, scale_factor=4, channels=64, batch_size=a.batch, lr=2e-4,
                 train_fused="false" if a.unfused else "true",
-                attention_impl=kw.get("attention_impl", "auto"))
+                attention_impl=kw.get("attention_impl", "auto"), dtype=a.dtype,
+                matmul_precision=a.matmul_precision)
     model = get_model(args)
     if a.plain and not a.unfused:
         model = dataclasses.replace(model, apply=functools.partial(forward, plain_blocks=True))

@@ -70,14 +70,14 @@ def evaluate_sets(args, names, sets, logger, device=None, mesh=None):
     ssim per set). With a `mesh` (`parallel.mesh.Mesh`), every rank calls
     this on the same sets, on the mesh's device, and the pipeline splits
     each chunk over the ranks."""
-    from lft_torch.device import resolve_device
+    from lft_torch.device import matmul_precision, resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
     from lft_torch.models.lft import param_shapes
     from lft_torch.registry import get_model
     from lft_torch.utils.checkpoint import load_checkpoint, validate_params
     from lft_torch.utils.profiling import traced
 
-    dev = resolve_device(device if mesh is None else mesh.device)
+    dev = resolve_device(device if mesh is None else mesh.device, matmul_precision(args))
     logger.log_string("\nModel Initial ...")
     model = get_model(args)
     params, _, _ = load_checkpoint(args.path_pre_pth, device=dev)

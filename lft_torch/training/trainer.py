@@ -13,10 +13,11 @@ On the card the model trains, as lft_tpu does at float32, through the
 unfused branch, whose two attentions are the per-op kernels (K7 and K5, or
 K8, K9 and K6 where the geometry or the `LFT_ANG_VARIANT` / `LFT_SPA_VARIANT`
 knobs send them) with kernel backwards (no atomics) and everything else
-torch's own autograd; or with `--train_fused true` through the fused blocks,
-whose backwards are the hand-written K4/K3 kernels with deterministic
-weight-gradient reductions (every geometry the fused gates pass, up to
-11x11 views). cuDNN is held to deterministic algorithms: the same state and
+torch's own autograd; or with `--train_fused true`, and by default under
+`--dtype mixed` (as lft_tpu's `auto` on its accelerator), through the fused
+blocks, whose backwards are the hand-written K4/K3 kernels with
+deterministic weight-gradient reductions (every geometry the fused gates
+pass, up to 11x11 views). cuDNN is held to deterministic algorithms: the same state and
 batch give the same update bit for bit.
 
 Data parallelism lives in lft_torch/parallel/; as in lft_tpu, `fit` takes
@@ -33,7 +34,7 @@ from typing import Callable, Optional
 import torch
 
 from lft_torch.data.datasets import TrainDataset, iterate_batches
-from lft_torch.device import resolve_device
+from lft_torch.device import matmul_precision, resolve_device
 from lft_torch.ops.metrics import cal_metrics
 from lft_torch.training.optim import make_optimizer, opt_state_from_jax_flat
 from lft_torch.utils.checkpoint import (load_checkpoint, params_to_pth, save_checkpoint,
@@ -41,15 +42,18 @@ from lft_torch.utils.checkpoint import (load_checkpoint, params_to_pth, save_che
 
 
 def train_fused(args, device: torch.device) -> bool:
-    """`--train_fused`: auto = the unfused branch, as lft_tpu's auto at
-    float32, the port's only dtype (lft_tpu/training/trainer.py:100-106:
-    fused only on a TPU in bfloat16 or mixed); on CUDA that branch runs the
-    per-op kernels (`--attention_impl`). true trains the fused blocks: their
-    kernels on CUDA, their plain versions through the autograd Functions on
-    the CPU. A geometry the fused gates do not pass goes to the unfused
-    branch whatever this says (`models.lft.resolve_fused`). At float32 the
-    choice does not depend on `device`."""
-    return str(getattr(args, "train_fused", "auto")).lower() in ("true", "1", "yes")
+    """`--train_fused`: auto = the fused blocks on the card under `--dtype
+    mixed`, the unfused branch otherwise, as lft_tpu's auto (lft_tpu/
+    training/trainer.py:100-106: fused on its accelerator in bfloat16 or
+    mixed; the card stands where the TPU stands); on CUDA the unfused branch
+    runs the per-op kernels (`--attention_impl`). true trains the fused
+    blocks: their kernels on CUDA, their plain versions through the autograd
+    Functions on the CPU. A geometry the fused gates do not pass goes to the
+    unfused branch whatever this says (`models.lft.resolve_fused`)."""
+    tf = str(getattr(args, "train_fused", "auto")).lower()
+    if tf == "auto":
+        return torch.device(device).type == "cuda" and str(getattr(args, "dtype", "")) == "mixed"
+    return tf in ("true", "1", "yes")
 
 
 def make_train_step(model, optimizer, args, with_metrics: bool = True,
@@ -137,7 +141,7 @@ def fit(args, logger=None, dataset=None, checkpoints_dir: Optional[str] = None,
     from lft_torch.models.lft import param_shapes
     from lft_torch.registry import get_model
     log = logger.log_string if logger else print
-    dev = resolve_device(device)
+    dev = resolve_device(device, matmul_precision(args))
     model = get_model(args)
     dataset = dataset if dataset is not None else TrainDataset(args, seed=args.seed)
     steps_per_epoch = max(len(dataset) // args.batch_size, 1)

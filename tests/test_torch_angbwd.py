@@ -412,14 +412,14 @@ def test_launch_pieces_read_the_streams_matrices(C):
                  "RgPiece{w2 + j * L::HC * C, C, C, L::HC, off + L::PC, 1};",
                  "RgPiece{w1 + j * L::HC, 2 * C, L::HC, C, off + 2 * L::PC, 1};",
                  "RgPiece{wo, C, C, C, L::OFF_OT, 1};",
-                 "launch_qkv_ln_bwd<C>(a, wq, wk, C, wv, wf + L::FLOATS, s);"):
+                 "launch_qkv_ln_bwd<C, BF>(a, wq, wk, C, wv, wf + L::FLOATS, s);"):
         assert line in src, line
     hdr = (CSRC / "rowbwd.cuh").read_text()
     for line in ("ps.p[0] = RgPiece{wq, ldqk, W, W, 0, 1};",
                  "ps.p[1] = RgPiece{wk, ldqk, W, W, Q::SQ, 1};",
                  "ps.p[2] = RgPiece{wv, W, W, W, 2 * Q::SQ, 1};"):
         assert line in hdr, line
-    assert "launch_qkv_ln_bwd<D>(a, wqk, wqk + D, 2 * D, wv, wf, s);" in \
+    assert "launch_qkv_ln_bwd<D, BF>(a, wqk, wqk + D, 2 * D, wv, wf, s);" in \
         (CSRC / "spa_block_bwd.cu").read_text()
     assert "(pc.tr ? static_cast<size_t>(n) * pc.ld + k" in (CSRC / "rowgemm.cuh").read_text()
 
@@ -464,14 +464,14 @@ def test_python_geometry_mirrors_the_source():
                  "BYTES = TILES + static_cast<size_t>(NS) * RG_SF * 4 + 2 * NS * 8;",
                  "MbarRing<L::NS> ring;",
                  "off = L::OFF_F + j * 3 * L::PC;",
-                 "rg_product<C, C, L::OFF_V, true>(a, xw, LD, ring, st);",
-                 "rg_product<C, C, L::OFF_Q, true>(a, nw, LD, ring, st);",
-                 "rg_product<C, C, L::OFF_K, true>(a, nw, LD, ring, st);",
-                 "rg_product<C, C, L::OFF_O, true>(a, nw, LD, ring, st);",
-                 "rg_product<C, HC, off, true>(hc, nw, LD, ring, st);",
-                 "rg_product<C, HC, off + L::PC, true>(hc, dw, LD, ring, st);",
-                 "rg_product<HC, C, off + 2 * L::PC, true>(dxn, hw, LDH, ring, st);",
-                 "rg_product<C, C, L::OFF_OT, true>(a, xw, LD, ring, st);",
+                 "rg_product<C, C, L::OFF_V, true, BF>(a, xw, LD, ring, st);",
+                 "rg_product<C, C, L::OFF_Q, true, BF>(a, nw, LD, ring, st);",
+                 "rg_product<C, C, L::OFF_K, true, BF>(a, nw, LD, ring, st);",
+                 "rg_product<C, C, L::OFF_O, true, BF>(a, nw, LD, ring, st);",
+                 "rg_product<C, HC, off, true, BF>(hc, nw, LD, ring, st);",
+                 "rg_product<C, HC, off + L::PC, true, BF>(hc, dw, LD, ring, st);",
+                 "rg_product<HC, C, off + 2 * L::PC, true, BF>(dxn, hw, LDH, ring, st);",
+                 "rg_product<C, C, L::OFF_OT, true, BF>(a, xw, LD, ring, st);",
                  "quad_ln<C>(a, ln, ln + C);",
                  "quad_ln<C, true>(a, ln + 2 * C, ln + 3 * C, mu, rstd);",
                  "tile_ln_sums<C>(part, ln_part + static_cast<size_t>(tile) * 4 * C + 2 * C);",
@@ -480,22 +480,23 @@ def test_python_geometry_mirrors_the_source():
         assert line in ang, line
     a = ang.split("ang_bwd_tok_kernel(", 1)[1].split("// b. P pixels", 1)[0]
     assert a.index("v0 += xv.x;") < a.index("quad_ln<C, true>")
-    assert not re.search(r"rg_product<[^>]*[^e]>\(", a), "every product of K4 a tails first"
+    assert not re.search(r"rg_product<[^>]*[^e]>\(", a.replace(", BF>", ">")), \
+        "every product of K4 a tails first"
     assert not re.search(r"\bgemm_acc\b", ang)
     assert "ang_block_bwd_kernel" not in ang and "lft_ang_block_bwd128" not in ang
     hdr = (CSRC / "rowbwd.cuh").read_text()
     for line in ("SQ = 2 * W * W;", "FLOATS = 3 * SQ;",
                  "ONE = (3 * SQ + 3 * RG_M * LDX + 16 * W) * 4 <= RG_SMEM_MAX;",
                  "BYTES = (NW * static_cast<size_t>(SQ) + NW * RG_M * LDX + 16 * W) * 4;",
-                 "rg_product<W, W, 0, true>(p, rw(0), LDX, wr, st);",
-                 "rg_product<W, W, 0, true>(acc, rw(S1), LDX, wr, st);",
-                 "rg_product<W, W, 0, true>(acc, rw(S2), LDX, wr, st);",
+                 "rg_product<W, W, 0, true, BF>(p, rw(0), LDX, wr, st);",
+                 "rg_product<W, W, 0, true, BF>(acc, rw(S1), LDX, wr, st);",
+                 "rg_product<W, W, 0, true, BF>(acc, rw(S2), LDX, wr, st);",
                  "acc[pp][i] = u.x + acc[pp][i];",
                  "make_float2((u.x + acc[pp][i]) + d.x, (u.y + acc[pp][i + 1]) + d.y)"):
         assert line in hdr, line
     assert not re.search(r"\bgemm_acc\b", hdr)
     bwd = (CSRC / "spa_block_bwd.cu").read_text()
-    d = bwd.split('extern "C" int lft_spa_qkv_ln_bwd(', 1)[1].split('extern "C"', 1)[0]
+    d = bwd.split("int qkv_ln_bwd(", 1)[1].split("template <bool BF>", 1)[0]
     assert "hw, 2 * D, T};" in d and not re.search(r"\bgemm_acc\b", d)
     assert "spa_qkv_ln_bwd_kernel" not in bwd
     assert not (CSRC / "bwd.cuh").exists()

@@ -264,14 +264,14 @@ def test_ffn_out_bwd_python_geometry_mirrors_the_source():
                  "NS = rg_slots(TILES + 16 * 8);",
                  "BYTES = TILES + static_cast<size_t>(NS) * RG_SF * 4 + 2 * NS * 8;",
                  "MbarRing<F::NS> ring;",
-                 "rg_product<D, D, 0>(a, xw, LDX, ring, st);",
+                 "rg_product<D, D, 0, false, BF>(a, xw, LDX, ring, st);",
                  "quad_ln<D, true>(a, g2, ln + 3 * D, mu, rstd);",
-                 "rg_product<C, D, F::OFF_LIN, true>(dy, hw16, LDH, ring, st);",
-                 "rg_product<D, D, F::OFF_OT, true>(da, xw, LDX, ring, st);",
-                 "rg_product<F::D, F::HC, off, true>(hc, xw, F::LDX, ring, st);",
-                 "rg_product<F::HC, F::D, off + F::PC, true>(y, hw16, F::LDH, ring, st);",
-                 "rg_product<F::D, F::HC, off, true>(dp, xw, F::LDX, ring, st);",
-                 "rg_product<F::HC, F::D, off + F::PC, true>(dxn, hw16, F::LDH, ring, st);"):
+                 "rg_product<C, D, F::OFF_LIN, true, BF>(dy, hw16, LDH, ring, st);",
+                 "rg_product<D, D, F::OFF_OT, true, BF>(da, xw, LDX, ring, st);",
+                 "rg_product<F::D, F::HC, off, true, BF>(hc, xw, F::LDX, ring, st);",
+                 "rg_product<F::HC, F::D, off + F::PC, true, BF>(y, hw16, F::LDH, ring, st);",
+                 "rg_product<F::D, F::HC, off, true, BF>(dp, xw, F::LDX, ring, st);",
+                 "rg_product<F::HC, F::D, off + F::PC, true, BF>(dxn, hw16, F::LDH, ring, st);"):
         assert line in src, line
     kernel = src.split("spa_ffn_out_bwd_kernel(", 1)[1].split("// ---- b:", 1)[0]
     assert not re.search(r"\bgemm_acc\b", kernel)

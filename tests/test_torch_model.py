@@ -126,7 +126,8 @@ def test_registry_and_init():
 
 
 def test_only_float32():
-    args = Args(channels=16, scale_factor=2, dtype="mixed")
+    """float32 and mixed run; bfloat16 raises, naming its ROADMAP item."""
+    args = Args(channels=16, scale_factor=2, dtype="bfloat16")
     p = lft.init_params(0, Args(channels=16, scale_factor=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9b"):
         lft.forward(p, torch.zeros(1, 1, 40, 40), args)
