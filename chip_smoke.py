@@ -190,7 +190,26 @@
     mixed-vs-f32 distance, a bitwise repeat, timed beside its bound (one
     TF32 pass over the products); (d) each one's device ms beside its f32
     instance's in turns, the card's name and power limit printed;
-23. prints the `kernels` JSON line (every kernel, old and new), the card's
+23. `--dtype bfloat16` serving (lft_tpu's all-bf16 mode: the fused blocks'
+    `_bf16io` kernels, bf16 activations and weights): (b) step 3's scenes
+    under `bfloat16` through `evaluate_dataset` with every count at 0: 16
+    launches a scene of each `_bf16io` kernel and no other kernel of the
+    port; the scenes against the plain blocks under `bfloat16` on the card
+    (|dPSNR| <= 0.01 dB; each scene's distance from the f32 scene within
+    BF16_SCENE_TOL of the plain blocks', and its L2 from theirs within
+    BF16_SCENE_L2 of that distance: four blocks of bf16 roundings leave the
+    two as far apart as either is from f32, tests/test_torch_bf16.py), the
+    dPSNR against the f32 scenes beside lft_tpu's -0.20 dB, the test CLI's
+    body under `bfloat16` (PSNR/SSIM equal to (b)'s), the device ms of the
+    f32 and the bf16 scene in turns (f32, bf16, bf16, f32) and the bf16
+    scene's device ms by kernel; (a) each `_bf16io` instance against its
+    plain bf16 version at the main path's shapes (K1 [16384, 25, 64], K2
+    [400, 32, 32, 64], each step fed its plain predecessor's output):
+    per output L2 within BF16_GAP of the plain bf16-vs-f32 distance and no
+    element off by more than BF16_ULPS bf16 ulps of max |plain|, a bitwise
+    repeat, timed beside its bound (bf16 bytes, every operation at the bf16
+    rate) and the bf16 library calls;
+24. prints the `kernels` JSON line (every kernel, old and new), the card's
     name and power limit, and last `{"ok": true, "device": {...}}`.
 
 The plain and library versions of the large shapes of steps 16 and 19 are
@@ -232,6 +251,14 @@ TRAIN_STEPS = 5          # kernel-path steps after the compared and repeated one
 # version under the plan, and that distance over the plain mixed-vs-f32 one (a
 # kernel that ran f32 lies within ~2% of mixed)
 MIXED_REL, MIXED_GAP = 1e-3, 0.1
+# `--dtype bfloat16`'s `_bf16io` instances, per output: L2 from the plain bf16
+# version over the plain bf16-vs-f32 distance, and max |diff| in bf16 ulps of
+# max |plain| (an f32 sum in another order rounds to the neighbouring bf16
+# value now and then: one ulp at an element's own magnitude); the bf16
+# scene: its distance from the f32 scene against the plain blocks', and its
+# L2 from the plain blocks' scene over that distance
+BF16_GAP, BF16_ULPS = 0.1, 1.0
+BF16_SCENE_TOL, BF16_SCENE_L2 = 0.1, 1.5
 
 
 def card_line() -> str:
@@ -318,6 +345,30 @@ def mixed_err(got, ref, ref32):
     return worst, ok
 
 
+def bf16_err(got, ref, ref32):
+    """A `_bf16io` instance against its plain bf16 version: (max |got -
+    ref|, whether every output is within BF16_GAP of the plain bf16-vs-f32
+    distance (L2) and BF16_ULPS bf16 ulps of max |ref|). Prints every
+    output's distances."""
+    import torch
+    if isinstance(got, torch.Tensor):
+        got, ref, ref32 = (got,), (ref,), (ref32,)
+    worst, ok, report = 0.0, True, []
+    for i, (g, r, r32) in enumerate(zip(got, ref, ref32)):
+        if g.shape != r.shape or g.dtype != r.dtype or not torch.isfinite(g).all():
+            raise AssertionError(f"bad kernel output: {g.dtype} {tuple(g.shape)} vs {r.dtype} "
+                                 f"{tuple(r.shape)}")
+        d, gap = l2_rel(g, r), l2_rel(r32, r)
+        err = float((g.float() - r.float()).abs().max())
+        ulps = err / 2.0 ** (math.floor(math.log2(float(r.float().abs().max()))) - 7)
+        ok = ok and d <= BF16_GAP * gap and ulps <= BF16_ULPS
+        worst = max(worst, err)
+        report.append(f"#{i} {tuple(g.shape)}: L2 {d:.3e}, bf16-vs-f32 {gap:.3e} "
+                      f"({d / gap:.4f} of it), max |diff| {ulps:.2f} bf16 ulps of max |plain|")
+    print("  per output: " + "; ".join(report), flush=True)
+    return worst, ok
+
+
 def calm_relu(dout, hid_k, hid_p, what: str):
     """dout with a zero cotangent for the tokens where a ReLU of the FFN is
     on in one version and off in the other (its input within f32 rounding
@@ -358,7 +409,7 @@ class Recorder:
 
     def record(self, name, src, replaces, got, ref, fn_k, fn_p, flops, io, lib_fn=None,
                rel=None, shape=None, slow_reps=10, device_time=False, tf32_products=0,
-               bf16_products=False, fp32_flops=0, ref32=None):
+               bf16_products=False, fp32_flops=0, ref32=None, bf16_ref32=None):
         """With `shape` the check is one more shape of a kernel that has its
         row already: compared, timed and printed, not added to the rows.
         `slow_reps`: launches timed of the plain and library versions.
@@ -374,8 +425,13 @@ class Recorder:
         kernel runs on the FP32 pipes beside those products (K1's attention),
         whose time at their peak adds to the tensor cores'. `ref32`: the f32
         plain version's outputs, for a bf16-operand instance held by
-        `mixed_err` (`ref` is then the plain version under the mixed plan)."""
-        err, ok = max_err(got, ref, rel) if ref32 is None else mixed_err(got, ref, ref32)
+        `mixed_err` (`ref` is then the plain version under the mixed plan).
+        `bf16_ref32`: the plain f32 version's outputs, for a `_bf16io`
+        instance held by `bf16_err` (`ref` the plain bf16 version's)."""
+        if bf16_ref32 is not None:
+            err, ok = bf16_err(got, ref, bf16_ref32)
+        else:
+            err, ok = max_err(got, ref, rel) if ref32 is None else mixed_err(got, ref, ref32)
         warm = 2 if slow_reps >= 10 else 1
         if device_time:
             from lft_torch.profile_scene import device_ms
@@ -399,8 +455,10 @@ class Recorder:
                                   launches=n, max_abs_err=err, ms=ms_k, plain_ms=ms_p,
                                   bound_ms=b_ms, bound_by=b_by, library_ms=ms_l))
         limit = (f"per output L2-relative {MIXED_REL:g} and {MIXED_GAP:g} of mixed-vs-f32"
-                 if ref32 is not None else f"{KERNEL_ATOL:g} x max(1, max|ref|)" if rel is None
-                 else f"{rel:g} x max|ref|")
+                 if ref32 is not None else
+                 f"per output {BF16_GAP:g} of bf16-vs-f32 and {BF16_ULPS:g} bf16 ulp"
+                 if bf16_ref32 is not None else f"{KERNEL_ATOL:g} x max(1, max|ref|)"
+                 if rel is None else f"{rel:g} x max|ref|")
         print(f"kernel {name}{'' if shape is None else f' at {list(shape)}'}: "
               f"max_abs_err {err:.3e} (limit {limit}) "
               f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
@@ -2485,9 +2543,10 @@ def mixed_kernel_checks(params, card: str, launches: dict, n_steps: int, launche
               slow_reps=10 if A2 <= 64 else 3, recorder=rec if A2 <= 64 else rec9)
         del x, pe, res, dout
 
-    # wgrad at the step's 8 products, beside cuBLAS's bf16 product with an f32
-    # output (`torch.mm(..., out_dtype=)`, where this torch has it) on copies
-    # of the inputs already cast to bf16
+    # wgrad at the step's 8 products, beside the same function in PyTorch: the
+    # two casts of the f32 inputs to bf16 and cuBLAS's bf16 product with an f32
+    # output (`torch.mm(..., out_dtype=)`, where this torch has it), timed
+    # together; the product alone on copies cast before is printed beside
     def lib_mm(xb, db):
         return torch.mm(xb.t(), db, out_dtype=torch.float32)
     try:
@@ -2506,7 +2565,11 @@ def mixed_kernel_checks(params, card: str, launches: dict, n_steps: int, launche
         lib = None
         if has_lib and image is None:
             xb, db = x.bfloat16(), dy.bfloat16()
-            lib = lambda xb=xb, db=db: lib_mm(xb, db)
+            lib = lambda x=x, dy=dy: lib_mm(x.bfloat16(), dy.bfloat16())
+            print(f"  wgrad_bf16 {what}: cuBLAS's bf16 product alone, on copies cast before "
+                  f"(device time) {device_ms(lambda xb=xb, db=db: lib_mm(xb, db)):.4f} ms",
+                  flush=True)
+            del xb, db
         pairs_w = Tw if image is None else 100 * valid_window_pairs(32, 32, 1)
         rec.record("wgrad_bf16", "lft_torch/csrc/wgrad.cu", "lft_tpu/kernels/spa_block.py:570",
                    got, ref, lambda x=x, dy=dy, im=image: wg.wgrad(x, dy, im, half=True),
@@ -2703,6 +2766,177 @@ def mixed_scene_phase(params, args, scenes, cache, step4) -> None:
         raise AssertionError("non-finite SR under --matmul_precision high")
 
 
+def bf16_kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: int) -> list:
+    """Step 23 a: each `_bf16io` instance against its plain bf16 version at
+    the main path's shapes, the demo checkpoint's weights cast to bf16 (the
+    bf16 model's), each K2 step fed its plain predecessor's bf16 output; the
+    plain f32 version on the same values is the yardstick (`bf16_err`)."""
+    import torch
+    import torch.nn.functional as F
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.ops.attention import local_window_mask
+    from lft_torch.ops.posenc import angular_position, spatial_position
+    from lft_torch.ops.unfold import unfold3x3_linear
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    C, A2, h, w, H, K = 64, 25, 32, 32, 8, 5
+    D = 2 * C
+    N, V = 16 * h * w, 16 * A2
+    T = V * h * w
+    rec = Recorder(card, launches, n_scenes, "bf16 scene")
+    pb = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    f32 = lambda ts: tuple(t.float() if t.dtype == torch.bfloat16 else t for t in ts)
+    rows = lambda o: o if isinstance(o, tuple) else (o,)
+
+    def check(name, fn, plain, args, args32, flops, io, lib=None, lib_what="", **kw):
+        """`fn(*args)` (the wrapper) against `plain(*args)`; `plain(*args32)`
+        is the f32 yardstick; `lib`: bf16 library calls timed beside."""
+        got, ref, ref32 = fn(*args), plain(*args), plain(*args32)
+        again = fn(*args)
+        ms_k, _, ms_l = rec.record(name, "lft_torch/csrc/" + kw.pop("src", "spa_block.cu"),
+                                   kw.pop("replaces", "lft_tpu/kernels/spa_block.py:352"),
+                                   rows(got), rows(ref), lambda: fn(*args), lambda: plain(*args),
+                                   flops, io, bf16_products=True, bf16_ref32=rows(ref32), **kw)
+        same = all(torch.equal(a, b) for a, b in zip(rows(got), rows(again)))
+        print(f"  {name}: repeated bitwise: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{name} does not repeat bitwise")
+        if lib is not None:
+            print(f"  {name}: {lib_what} (bf16, TF32 off) {timed(lib):.4f} ms, the kernel "
+                  f"{ms_k:.4f} ms", flush=True)
+        return ref
+
+    # K1 at [16384, 25, 64], block 0's weights
+    wa, wa32 = (ab.ang_weights(p, "altblock.0.ang_trans.") for p in (pb, params))
+    wa32 = {k: v.to(torch.bfloat16).float() for k, v in wa32.items()}
+    x = torch.randn(N, A2, C, device=dev, generator=g).to(torch.bfloat16)
+    pe = torch.from_numpy(angular_position(A2, C)).to(dev)
+    tok1 = x.reshape(-1, C)
+    hid1 = torch.cat([tok1, tok1], 1)
+    check("ang_block_bf16io", lambda *a: ab.ang_block(*a, H), lambda *a: ab.ang_block_plain(*a, H),
+          (x, pe, wa), (x.float(), pe, wa32), 2 * N * A2 * 8 * C * C,
+          nbytes(x, pe, x, *wa.values()),
+          lib=lambda: [tok1 @ wa[n] for n in ("wq", "wk", "wv", "wo", "w1")] + [hid1 @ wa["w2"]],
+          lib_what="its six cuBLAS products", src="ang_block.cu",
+          replaces="lft_tpu/kernels/ang_block.py:249", fp32_flops=4 * N * A2 * A2 * C)
+    del x, tok1, hid1
+
+    # K2's five steps at [400, 32, 32, 64], block 0's weights
+    ws, ws32 = (sb.spa_weights(p, "altblock.0.spa_trans.") for p in (pb, params))
+    ws32 = {k: v.to(torch.bfloat16).float() for k, v in ws32.items()}
+    wbytes = lambda *k: sum(nbytes(ws[n]) for n in k)
+    xs = torch.randn(V, h, w, C, device=dev, generator=g).to(torch.bfloat16)
+    spa_pe = torch.from_numpy(spatial_position(h, w, C)).to(dev).to(torch.bfloat16)
+    pe_tok = unfold3x3_linear(spa_pe[None], ws["mlp"])[0].contiguous()
+    tok, xn = check("spa_tokenize_ln_bf16io", sb.tokenize_ln, sb.tokenize_ln_plain,
+                    (xs, pe_tok, ws), (*f32((xs, pe_tok)), ws32),
+                    2 * C * D * V * valid_window_pairs(h, w, 1),
+                    nbytes(xs, pe_tok, xs, xs, xs, xs) + wbytes("wu", "ln"),
+                    lib=lambda: F.conv2d(xs.permute(0, 3, 1, 2), ws["mlp"].reshape(D, C, 3, 3),
+                                         padding=1),
+                    lib_what="its conv part only, cuDNN's F.conv2d")
+    q, k, v = check("spa_qkv_bf16io", sb.qkv, sb.qkv_plain, (xn, tok, ws),
+                    (*f32((xn, tok)), ws32), 2 * T * D * 3 * D,
+                    nbytes(xn, tok, xn, tok, xn) + wbytes("wqk", "wv"),
+                    lib=lambda: (xn @ ws["wqk"], tok @ ws["wv"]),
+                    lib_what="its two cuBLAS products")
+    mask = torch.from_numpy(local_window_mask(h, w, K) == 0).to(dev)
+    heads = lambda t: t.reshape(V, h * w, H, D // H).transpose(1, 2)
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    pairs = V * valid_window_pairs(h, w, K // 2)
+    attn = check("spa_window_attn_bf16io", lambda *a: sb.window_attn(*a, H, K),
+                 lambda *a: sb.window_attn_plain(*a, H, K)[0], (q, k, v), f32((q, k, v)),
+                 4 * D * pairs, nbytes(q, k, v, q),
+                 lib_fn=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    del qh, kh, vh
+    x2, xn2 = check("spa_outproj_ln_bf16io", sb.outproj_ln, sb.outproj_ln_plain,
+                    (attn, tok, ws), (*f32((attn, tok)), ws32), 2 * T * D * D,
+                    nbytes(attn, tok, attn, tok) + wbytes("wo", "ln"),
+                    lib=lambda: torch.addmm(tok.reshape(-1, D), attn.reshape(-1, D), ws["wo"]),
+                    lib_what="its cuBLAS product with the residual (addmm, no LN2)")
+    hid = torch.empty(T, 2 * D, device=dev, dtype=torch.bfloat16)
+    check("spa_ffn_out_bf16io", sb.ffn_out, sb.ffn_out_plain, (xn2, x2, ws),
+          (*f32((xn2, x2)), ws32), 2 * T * (4 * D * D + D * C),
+          nbytes(xn2, x2) + T * C * 2 + wbytes("w1", "w2", "wlin"),
+          lib=lambda: (torch.mm(xn2.reshape(-1, D), ws["w1"], out=hid),
+                       hid @ ws["w2"], x2.reshape(-1, D) @ ws["wlin"]),
+          lib_what="its three cuBLAS products")
+    return rec.rows
+
+
+def bf16_scene_phase(params, args, scenes, cache, card: str) -> dict:
+    """Step 23 b: step 3's scenes under `--dtype bfloat16` (module
+    docstring). Returns the SR run's launch counts."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from lft_torch import test as test_cli
+    from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
+    from lft_torch.kernels import BF16IO, LAUNCHES, reset_launches
+    from lft_torch.models.lft import forward
+    from lft_torch.ops.metrics import cal_metrics
+    from lft_torch.profile_scene import device_ms, kernel_times
+    from lft_torch.utils.logging import Logger, create_dir
+
+    dev = torch.device("cuda")
+    n = len(scenes)
+    ab_ = dataclasses.replace(args, dtype="bfloat16")
+    cache_b = ScenePipelineCache(forward, ab_, eval_batch=16)
+    torch.cuda.synchronize()
+    reset_launches()
+    psnr, ssim, rows = evaluate_dataset(forward, params, ab_, scenes, cache=cache_b)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    print(f"SR under --dtype bfloat16: PSNR {psnr:.6f} dB SSIM {ssim:.6f}; per scene {rows}; "
+          f"launches {counts}", flush=True)
+    wrong = {k_: c for k_, c in counts.items() if c != (16 * n if k_ in BF16IO else 0)}
+    if wrong:
+        raise AssertionError(f"the bf16 SR run: expected {16 * n} launches of each bf16-IO "
+                             f"kernel and no other, got {wrong}")
+    plain = ScenePipelineCache(forward, ab_, eval_batch=16, plain_blocks=True)
+    for i, (lr, hr) in enumerate(scenes):
+        lr_t, hr_t = torch.from_numpy(lr).to(dev), torch.from_numpy(hr).to(dev)
+        sr_k, sr_p, sr_f = cache_b(params, lr_t), plain(params, lr_t), cache(params, lr_t)
+        if sr_k.dtype != torch.float32 or sr_k.shape != sr_f.shape \
+                or not torch.isfinite(sr_k).all():
+            raise AssertionError(f"bad bf16 SR mosaic {sr_k.dtype} {tuple(sr_k.shape)}")
+        gap_k, gap_p, d = l2_rel(sr_k, sr_f), l2_rel(sr_p, sr_f), l2_rel(sr_k, sr_p)
+        p_k, p_p, p_f = (float(cal_metrics(hr_t, t, args.angRes)[0]) for t in (sr_k, sr_p, sr_f))
+        print(f"scene {i} under bfloat16: kernels vs the plain blocks dPSNR {p_k - p_p:+.3e} dB "
+              f"(limit 0.01), L2 {d:.3e}; distance from the f32 scene: kernels {gap_k:.3e}, "
+              f"plain blocks {gap_p:.3e} ({gap_k / gap_p:.4f}, limit 1 +- {BF16_SCENE_TOL:g}; "
+              f"L2 {d / gap_p:.4f} of it, limit {BF16_SCENE_L2:g}); dPSNR against f32 "
+              f"{p_k - p_f:+.4f} dB (lft_tpu's bf16 mode: -0.20 dB, lft_tpu/models/lft.py:268-270)",
+              flush=True)
+        if abs(p_k - p_p) > 0.01 or abs(gap_k / gap_p - 1) > BF16_SCENE_TOL \
+                or d > BF16_SCENE_L2 * gap_p:
+            raise AssertionError(f"scene {i}: the bf16 kernels disagree with the plain blocks")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        t_args = dataclasses.replace(ab_, path_pre_pth=CKPT, data_name="Synth",
+                                     path_log=os.path.join(tmp, "test"))
+        _, _, log_dir = create_dir(t_args)
+        p_sets, s_sets = test_cli.evaluate_sets(t_args, ["Synth"], [MemTestSet(scenes)],
+                                                Logger(log_dir, t_args))
+    print(f"test CLI under --dtype bfloat16: PSNR {p_sets[0]!r} SSIM {s_sets[0]!r} (the SR "
+          f"run: {psnr!r} {ssim!r})", flush=True)
+    if (p_sets, s_sets) != ([psnr], [ssim]):
+        raise AssertionError("the bf16 test CLI's PSNR/SSIM differ from the bf16 SR run's")
+    lr0 = torch.from_numpy(scenes[0][0]).to(dev)
+    f32_fn, bf_fn = (lambda: cache(params, lr0)), (lambda: cache_b(params, lr0))
+    t = [device_ms(f32_fn, 3), device_ms(bf_fn, 3), device_ms(bf_fn, 3), device_ms(f32_fn, 3)]
+    print(f"{card_line()}: device ms a scene, in turns f32 / bf16 / bf16 / f32: "
+          + " / ".join(f"{x:.2f}" for x in t) + f" (bf16 / f32 {(t[1] + t[2]) / (t[0] + t[3]):.3f})",
+          flush=True)
+    by = sorted(kernel_times(bf_fn, 3).items(), key=lambda kv: -kv[1][0])
+    print("bf16 scene, device ms a scene by kernel: " + "; ".join(
+        f"{k_[:60]} {ms:.2f} ({c:g})" for k_, (ms, c) in by[:14]), flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2726,8 +2960,8 @@ def main(argv=None) -> int:
     from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
-    from lft_torch.kernels import (FORWARD, LAUNCHES, MIXED, PEROP, SWEEPS, TAIL, TRAINING,
-                                   build_all, reset_launches)
+    from lft_torch.kernels import (BF16IO, FORWARD, LAUNCHES, MIXED, PEROP, SWEEPS, TAIL,
+                                   TRAINING, build_all, reset_launches)
     from lft_torch.models.lft import forward
     from lft_torch.ops.bicubic import bicubic_upscale_views
     from lft_torch.ops.metrics import cal_metrics
@@ -2771,7 +3005,7 @@ def main(argv=None) -> int:
     missing = [k for k in FORWARD if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    extra = [k for k in TRAINING + PEROP + SWEEPS + TAIL + MIXED if counts[k]]
+    extra = [k for k in TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO if counts[k]]
     if extra:
         raise AssertionError(f"training or per-op kernels launched by the SR run: {extra}")
 
@@ -2922,6 +3156,12 @@ def main(argv=None) -> int:
                                 a.seed)
     torch.cuda.empty_cache()
     print(f"mixed phase: {time.time() - t0:.1f} s", flush=True)
+    # step 23: --dtype bfloat16 serving
+    t0 = time.time()
+    bf16_counts = bf16_scene_phase(params, args, scenes, cache, card)
+    rows += bf16_kernel_checks(params, card, bf16_counts, n_scenes, a.seed)
+    torch.cuda.empty_cache()
+    print(f"bf16 phase: {time.time() - t0:.1f} s", flush=True)
     missing = sorted(set(LAUNCHES) - {r["name"] for r in rows})
     if missing:
         raise AssertionError(f"kernels without a row in the kernels line: {missing}")

@@ -9,12 +9,13 @@ as `ab/`). Each source of this checkout is built as `chip_smoke.py` builds
 it (`kernels._build.build_all`, whose ptxas report is kept beside each
 library) and each source of the other revision with the same flags. Kernels
 are named by their demangled names (`compare_bwd.ptxas_report`); a kernel that gained a trailing
-`false` template argument here (the `BF` switch of `--dtype mixed`'s
-bf16-operand instances, rowgemm.cuh / tokenize.cuh / wgrad.cu) is matched to
-the other build's kernel without it. Prints every matched pair's registers,
-spill stores and loads, and each side's unmatched kernels (here: the `BF`
-instances). Exits 1 if a matched pair differs or an old kernel is missing.
-Needs nvcc, not a card.
+`float` template argument here (the IO type of `--dtype bfloat16`'s `_bf16io`
+instances: K1, K2's steps) or a trailing `false` (the `BF` switch of `--dtype
+mixed`'s bf16-operand instances, rowgemm.cuh / tokenize.cuh / wgrad.cu), or
+both, is matched to the other build's kernel without them. Prints every
+matched pair's registers, spill stores and loads, and each side's unmatched
+kernels (here: the newer bf16 instances). Exits 1 if a matched pair differs
+or an old kernel is missing. Needs nvcc, not a card.
 """
 
 from __future__ import annotations
@@ -41,6 +42,19 @@ def without_bf(name: str) -> str:
     if name.endswith("<false>"):
         return name[: -len("<false>")]
     return name
+
+
+def without_io(name: str) -> str:
+    """`k<64, false, float>` -> `k<64, false>`: the name before the IO type."""
+    return name[: -len(", float>")] + ">" if name.endswith(", float>") else name
+
+
+def match(name: str, old_by: dict):
+    """The other build's kernel that `name` is, or None."""
+    for cand in (name, without_io(name), without_bf(name), without_bf(without_io(name))):
+        if cand in old_by:
+            return cand
+    return None
 
 
 def reports(csrc_other: str) -> tuple:
@@ -77,8 +91,8 @@ def main(argv=None) -> int:
         old_by = {bare(k): r for k, r in theirs[src].items()}
         matched = set()
         for name, r in sorted(new.items()):
-            key = bare(name) if bare(name) in old_by else without_bf(bare(name))
-            if key not in old_by:
+            key = match(bare(name), old_by)
+            if key is None:
                 print(f"{src}: new only  {name}: {r[0]} registers, spills {r[1]}/{r[2]} B")
                 continue
             matched.add(key)

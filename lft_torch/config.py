@@ -55,7 +55,9 @@ class Args:
                                       # fused blocks (LFT_MM_HP_SITES, default
                                       # all f32; LFT_MM_HP_BWD_SITES, default
                                       # none: the fused backward's products
-                                      # over bf16 operands). bfloat16 raises
+                                      # over bf16 operands) | bfloat16: bf16
+                                      # activations and weights, inference
+                                      # through the fused blocks only
     matmul_precision: str = "default"  # default | high | highest: TF32 of the
                                       # torch ops around the kernels on the
                                       # card (high: on; the kernels ignore it)
@@ -109,8 +111,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mixed = f32 activations with lft_tpu's per-site product plans "
                         "(LFT_MM_HP_SITES for the forward, default all f32; "
                         "LFT_MM_HP_BWD_SITES for the fused backward, default none: its "
-                        "products over bf16 operands, f32 accumulation); bfloat16 raises "
-                        "NotImplementedError")
+                        "products over bf16 operands, f32 accumulation); bfloat16 = bf16 "
+                        "activations and weights (lft_tpu's all-bf16 mode: the fused blocks' "
+                        "bf16-IO kernels, the bicubic skip and metrics f32), inference only: "
+                        "training and the unfused branch raise NotImplementedError")
     p.add_argument("--matmul_precision", type=str, default=d.matmul_precision,
                    choices=["default", "high", "highest"],
                    help="on the card: high turns TF32 on for the torch matmuls and "

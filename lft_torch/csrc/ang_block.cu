@@ -41,6 +41,22 @@
 //   an SM.
 // * With residuals (training) each thread also writes its query's m, l and
 //   attention output.
+// * IO = bf16 (`ang_block_bf16io`, `--dtype bfloat16`; lft_tpu's kernel with
+//   io = bf16, ang_block.py:116-150): x and out bf16, widened as x is
+//   loaded; the weights' bf16 parts (rg_weights_kernel<true>) and the
+//   products one TF32 pass over bf16 values (rowgemm.cuh's BF), exact
+//   products summed in f32; every row the block keeps in shared memory
+//   stays f32 but holds bf16 values where lft_tpu rounds: xn, q, k, v, the
+//   attention output, x2 = bf16(bf16(a Wo) + x), LN2(x2), the hidden
+//   chunks, and out = bf16(bf16(y) + x2). The PE and the LayerNorms stay
+//   f32. The softmax takes lft_tpu's max, each token's over every head and
+//   key: a first pass over the (pixel, head, query) items writes each one's
+//   max to MH (4 KB past the ring), the second the token's max over its
+//   heads, then e = exp(s - m), l over the unrounded e and o over bf16(e),
+//   scores as (q . k) scale as lft_tpu orders them. Bound (the bytes halve,
+//   the products at the bf16 rate): at [16384, 25, 64] 0.0314 ms of bytes,
+//   26.8 GFLOP 0.027 ms on the tensor cores and the attention on the FP32
+//   pipes 0.04 ms (0.08 with the max pass).
 
 #include "attn.cuh"
 #include "rowbwd.cuh"
@@ -72,15 +88,17 @@ struct AngLayout {
 
 // wf: the weight stream (AngLayout::FLOATS floats, kernels/rowgemm.py:
 // ang_block_stream), written by rg_weights_kernel.
-template <int C, int H, bool RES>
+template <int C, int H, bool RES, class IO = float>
 __global__ void __launch_bounds__(RG_NT, 1)
-    ang_block_kernel(const float* __restrict__ x, const float* __restrict__ pe,
+    ang_block_kernel(const IO* __restrict__ x, const float* __restrict__ pe,
                      const float* __restrict__ ln, const float* __restrict__ wf,
-                     float* __restrict__ out, float* __restrict__ m_out,
+                     IO* __restrict__ out, float* __restrict__ m_out,
                      float* __restrict__ l_out, float* __restrict__ attn_out, int N, int A2,
                      float scale) {
   using L = AngLayout<C>;
   constexpr int LD = L::LD, LDH = L::LDH, HC = L::HC, DH = C / H;
+  constexpr bool BIO = is_bf16<IO>;
+  static_assert(!(RES && BIO), "bf16 IO takes no residuals (bf16 training)");
   extern __shared__ __align__(16) float smem[];
   float* XQ = smem;             // x, then q, then x2
   float* XN = XQ + L::TILE;     // xn, then the attention output, then LN2(x2)
@@ -130,7 +148,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
       });
       quad_ln<C>(xp, ln, ln + C);
       rg_pairs<C>(xp, [&](int r, int c, float v0, float v1) {
-        *reinterpret_cast<float2*>(XN + (wr + r) * LD + c) = make_float2(v0, v1);
+        *reinterpret_cast<float2*>(XN + (wr + r) * LD + c) =
+            make_float2(io_round<IO>(v0), io_round<IO>(v1));
       });
     }
     __syncwarp();
@@ -139,18 +158,19 @@ __global__ void __launch_bounds__(RG_NT, 1)
       RgAcc<C> acc;
       auto put = [&](float* dst) {
         rg_pairs<C>(acc, [&](int r, int c, float v0, float v1) {
-          *reinterpret_cast<float2*>(dst + (wr + r) * LD + c) = make_float2(v0, v1);
+          *reinterpret_cast<float2*>(dst + (wr + r) * LD + c) =
+              make_float2(io_round<IO>(v0), io_round<IO>(v1));
         });
       };
       rg_zero<C>(acc);
-      rg_product<C, C, L::OFF_V>(acc, XQ + wr * LD, LD, ring, st);
+      rg_product<C, C, L::OFF_V, false, BIO>(acc, XQ + wr * LD, LD, ring, st);
       put(V);
       rg_zero<C>(acc);
-      rg_product<C, C, L::OFF_Q>(acc, XN + wr * LD, LD, ring, st);
+      rg_product<C, C, L::OFF_Q, false, BIO>(acc, XN + wr * LD, LD, ring, st);
       __syncwarp();   // x is read
       put(XQ);
       rg_zero<C>(acc);
-      rg_product<C, C, L::OFF_K>(acc, XN + wr * LD, LD, ring, st);
+      rg_product<C, C, L::OFF_K, false, BIO>(acc, XN + wr * LD, LD, ring, st);
       put(K);
     }
     __syncthreads();
@@ -161,7 +181,56 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // rescale of the running sums a chunk (an online softmax over chunks).
     // The output overwrites xn, which is dead after the projections.
     constexpr int KB = 8;
-    for (int t = tid; t < np * H * A2; t += RG_NT) {
+    if constexpr (BIO) {
+      // lft_tpu's softmax (the header): pass 1, each item's max score
+      float* MH = V + L::TILE + L::NS * RG_SF;   // [RP][H]
+      for (int t = tid; t < np * H * A2; t += RG_NT) {
+        const int i = t % A2, hh = (t / A2) % H, p = t / (A2 * H);
+        const float* qr = XQ + (p * A2 + i) * LD + hh * DH;
+        const float* kp = K + p * A2 * LD + hh * DH;
+        float mx = -CUDART_INF_F;
+        for (int j = 0; j < A2; ++j) {
+          float s = 0.f;
+#pragma unroll
+          for (int d = 0; d < DH; ++d) s = fmaf(qr[d], kp[j * LD + d], s);
+          mx = fmaxf(mx, s * scale);
+        }
+        MH[(p * A2 + i) * H + hh] = mx;
+      }
+      __syncthreads();
+      // pass 2: m the token's max over its heads; l over e, o over bf16(e)
+      for (int t = tid; t < np * H * A2; t += RG_NT) {
+        const int i = t % A2, hh = (t / A2) % H, p = t / (A2 * H);
+        const float* qr = XQ + (p * A2 + i) * LD + hh * DH;
+        const float* kp = K + p * A2 * LD + hh * DH;
+        const float* vp = V + p * A2 * LD + hh * DH;
+        float m = MH[(p * A2 + i) * H];
+#pragma unroll
+        for (int g = 1; g < H; ++g) m = fmaxf(m, MH[(p * A2 + i) * H + g]);
+        float qv[DH], o[DH];
+#pragma unroll
+        for (int d = 0; d < DH; ++d) {
+          qv[d] = qr[d];
+          o[d] = 0.f;
+        }
+        float l = 0.f;
+        for (int j = 0; j < A2; ++j) {
+          float s = 0.f;
+#pragma unroll
+          for (int d = 0; d < DH; ++d) s = fmaf(qv[d], kp[j * LD + d], s);
+          const float e = expf(s * scale - m);
+          const float eb = bf16_round(e);
+          l += e;
+#pragma unroll
+          for (int d = 0; d < DH; ++d) o[d] = fmaf(eb, vp[j * LD + d], o[d]);
+        }
+        const float inv = 1.f / l;
+        float* ar = XN + (p * A2 + i) * LD + hh * DH;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) ar[d] = bf16_round(o[d] * inv);
+      }
+    }
+    for (int t = tid; t < (BIO ? 0 : np * H * A2); t += RG_NT) {
       const int i = t % A2, hh = (t / A2) % H, p = t / (A2 * H);
       const float* qr = XQ + (p * A2 + i) * LD + hh * DH;
       const float* kp = K + p * A2 * LD + hh * DH;
@@ -222,19 +291,20 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // of the attention output
     RgAcc<C> x2;
     rg_zero<C>(x2);
-    rg_product<C, C, L::OFF_O>(x2, XN + wr * LD, LD, ring, st);
+    rg_product<C, C, L::OFF_O, false, BIO>(x2, XN + wr * LD, LD, ring, st);
     rg_pairs<C>(x2, [&](int r, int c, float& v0, float& v1) {
       if (wr + r < nrows) {
-        const float2 xv = __ldg(reinterpret_cast<const float2*>(x + (row0 + wr + r) * C + c));
-        v0 += xv.x;
-        v1 += xv.y;
+        const float2 xv = ldg2(x + (row0 + wr + r) * C + c);
+        v0 = io_round<IO>(io_round<IO>(v0) + xv.x);
+        v1 = io_round<IO>(io_round<IO>(v1) + xv.y);
       }
       *reinterpret_cast<float2*>(XQ + (wr + r) * LD + c) = make_float2(v0, v1);
     });
     __syncwarp();   // the attention output is read
     quad_ln<C>(x2, ln + 2 * C, ln + 3 * C);
     rg_pairs<C>(x2, [&](int r, int c, float v0, float v1) {
-      *reinterpret_cast<float2*>(XN + (wr + r) * LD + c) = make_float2(v0, v1);
+      *reinterpret_cast<float2*>(XN + (wr + r) * LD + c) =
+          make_float2(io_round<IO>(v0), io_round<IO>(v1));
     });
     __syncwarp();
 
@@ -245,32 +315,35 @@ __global__ void __launch_bounds__(RG_NT, 1)
       constexpr int off = L::OFF_F + decltype(J)::value * (L::W1 + L::W2);
       RgAcc<HC> hid;
       rg_zero<HC>(hid);
-      rg_product<C, HC, off>(hid, XN + wr * LD, LD, ring, st);
+      rg_product<C, HC, off, false, BIO>(hid, XN + wr * LD, LD, ring, st);
       __syncwarp();   // the previous chunk's rows are read
       rg_pairs<HC>(hid, [&](int r, int c, float v0, float v1) {
-        *reinterpret_cast<float2*>(HID + (wr + r) * LDH + c) = make_float2(fmaxf(v0, 0.f),
-                                                                           fmaxf(v1, 0.f));
+        *reinterpret_cast<float2*>(HID + (wr + r) * LDH + c) =
+            make_float2(io_round<IO>(fmaxf(v0, 0.f)), io_round<IO>(fmaxf(v1, 0.f)));
       });
       __syncwarp();
-      rg_product<HC, C, off + L::W1>(y, HID + wr * LDH, LDH, ring, st);
+      rg_product<HC, C, off + L::W1, false, BIO>(y, HID + wr * LDH, LDH, ring, st);
     });
     rg_pairs<C>(y, [&](int r, int c, float v0, float v1) {
       if (wr + r >= nrows) return;
       const float2 res = *reinterpret_cast<const float2*>(XQ + (wr + r) * LD + c);
-      *reinterpret_cast<float2*>(out + (row0 + wr + r) * C + c) =
-          make_float2(v0 + res.x, v1 + res.y);
+      st2(out + (row0 + wr + r) * C + c, io_round<IO>(v0) + res.x, io_round<IO>(v1) + res.y);
     });
   }
   cp_async_wait<0>();
 }
 
-template <int C, bool RES>
-int launch(const float* x, const float* pe, const float* ln, const float* wq,
+template <int C, bool RES, class IO = float>
+int launch(const IO* x, const float* pe, const float* ln, const float* wq,
            const float* wk, const float* wv, const float* wo, const float* w1,
-           const float* w2, float* wf, float* out, float* m, float* l, float* attn, int N,
+           const float* w2, float* wf, IO* out, float* m, float* l, float* attn, int N,
            int A2, float scale, cudaStream_t stream) {
   using L = AngLayout<C>;
   constexpr int H = 8;
+  constexpr bool BIO = is_bf16<IO>;
+  // bf16 IO: the items' maxima MH past the ring
+  constexpr size_t BYTES = L::BYTES + (BIO ? static_cast<size_t>(RP) * H * 4 : 0);
+  static_assert(BYTES <= RG_SMEM_MAX, "the rows, the ring and MH must fit");
   RgPieces ps{};
   int n = 0;
   ps.p[n++] = RgPiece{wv, C, C, C, L::OFF_V};
@@ -281,12 +354,12 @@ int launch(const float* x, const float* pe, const float* ln, const float* wq,
     ps.p[n++] = RgPiece{w1 + j * L::HC, 2 * C, C, L::HC, L::OFF_F + j * (L::W1 + L::W2)};
     ps.p[n++] = RgPiece{w2 + j * L::HC * C, C, L::HC, C, L::OFF_F + j * (L::W1 + L::W2) + L::W1};
   }
-  launch_rg_weights(ps, n, wf, stream);
-  auto kernel = ang_block_kernel<C, H, RES>;
-  LFT_SET_SMEM(kernel, L::BYTES);
+  launch_rg_weights(ps, n, wf, stream, BIO);
+  auto kernel = ang_block_kernel<C, H, RES, IO>;
+  LFT_SET_SMEM(kernel, BYTES);
   const int P = RP / A2;
-  kernel<<<rg_grid((N + P - 1) / P), RG_NT, L::BYTES, stream>>>(x, pe, ln, wf, out, m, l, attn,
-                                                                 N, A2, scale);
+  kernel<<<rg_grid((N + P - 1) / P), RG_NT, BYTES, stream>>>(x, pe, ln, wf, out, m, l, attn, N,
+                                                              A2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -731,6 +804,26 @@ extern "C" int lft_ang_block_fwd(const float* x, const float* pe, const float* l
 #define LFT_CASE(CV)                                                                       \
     case CV: return launch<CV, false>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out, nullptr, \
                                       nullptr, nullptr, N, A2, scale, s);
+    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
+#undef LFT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The bf16-IO instance (`--dtype bfloat16`): x and out bf16 [N, A2, C]; pe,
+// ln and the weights f32 (the weights' bf16 values), wf as above.
+extern "C" int lft_ang_block_fwd_bf16io(const bf16* x, const float* pe, const float* ln,
+                                        const float* wq, const float* wk, const float* wv,
+                                        const float* wo, const float* w1, const float* w2,
+                                        float* wf, bf16* out, int N, int A2, int C, int H,
+                                        float scale, void* stream) {
+  if (H != 8 || A2 < 1 || A2 > RP || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+#define LFT_CASE(CV)                                                                       \
+    case CV: return launch<CV, false, bf16>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out,    \
+                                            nullptr, nullptr, nullptr, N, A2, scale, s);
     LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
 #undef LFT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -47,6 +47,19 @@
 // contiguous 4 C-byte segment at a stride of A2 C floats, so the reads and
 // writes remain whole 128-byte lines and the bounds are K2's. No view-major
 // copy of x or of the output is ever made.
+//
+// `--dtype bfloat16` (lft_tpu's K2 with io = bf16, spa_block.py:_kernel
+// :116-203): each step has a `_bf16io` instance (`lft_spa_*_bf16io`, IO =
+// bf16) whose activations are bf16 in device memory: the buffers between
+// the steps too, each rounded where lft_tpu rounds it, which is at every
+// step's boundary. Rows are widened to f32 as they are loaded into shared
+// memory (by the threads: cp.async copies bytes), the products take the
+// BF path (the weights' bf16 parts, one TF32 pass over bf16 values, exact
+// products summed in f32), and the epilogues round what they store: K2.2
+// q, k, v; K2.4 x2 = bf16(bf16(attn Wo) + tok) and xn2 = bf16(LN2(x2));
+// K2.5 hid = bf16(relu(xn2 W1)), y = bf16(bf16(hid W2) + x2) and out =
+// bf16(y Wlin). K2.1 and K2.3: tokenize.cuh, window_attn.cuh. With half
+// the bytes, every step is bound by its bytes (the bounds at each).
 
 #include "rowgemm.cuh"
 #include "spa.cuh"
@@ -117,6 +130,18 @@ __device__ __forceinline__ void warp_rows(float* aw, const float* __restrict__ s
   cp_async_commit();
 }
 
+// The same from bf16 rows, widened to f32 by the warp's own loads and stores.
+template <int D>
+__device__ __forceinline__ void warp_rows(float* aw, const bf16* __restrict__ src, int tile,
+                                          int T) {
+  const int lane = threadIdx.x & 31, t0 = tile * RG_M + 16 * (threadIdx.x >> 5);
+  for (int i = lane; i < 16 * (D / 4); i += 32) {
+    const int r = i / (D / 4), c = 4 * (i % (D / 4));
+    store4(aw + r * (D + 4) + c, t0 + r < T ? ldg4(src + static_cast<size_t>(t0 + r) * D + c)
+                                            : make_float4(0.f, 0.f, 0.f, 0.f));
+  }
+}
+
 // What a pass does to the warp's 16 rows of a tile [t0, t0 + 16) once they
 // have landed, before its product: nothing (K2.2, K2.4) or K3.b's LN1.
 struct NoRows {
@@ -170,14 +195,16 @@ struct Ln1Rows {
 // warps' rows of the block's first tile of a, then out = a W over the
 // block's tiles. LN (step 4): out = a W + res, and out_ln = LN(out) with
 // weight lw, bias lb. `rows` runs on each tile's rows before its product.
-// Ends with every warp past its last read of W.
-template <int C, bool LN, class Rows = NoRows, bool BF = false>
-__device__ __forceinline__ void row_pass(const float* __restrict__ a,
-                                         const float* __restrict__ w, float* __restrict__ out,
-                                         const float* __restrict__ res,
+// Ends with every warp past its last read of W. IO = bf16: a, res, out and
+// out_ln bf16, out = bf16(bf16(a W) + res) under LN, else bf16(a W).
+template <int C, bool LN, class Rows = NoRows, bool BF = false, class IO = float>
+__device__ __forceinline__ void row_pass(const named_t<IO>* __restrict__ a,
+                                         const float* __restrict__ w,
+                                         named_t<IO>* __restrict__ out,
+                                         const named_t<IO>* __restrict__ res,
                                          const float* __restrict__ lw,
                                          const float* __restrict__ lb,
-                                         float* __restrict__ out_ln, float* smem, int T,
+                                         named_t<IO>* __restrict__ out_ln, float* smem, int T,
                                          Rows rows = {}) {
   using L = RowProj<C>;
   constexpr int D = L::D, LDX = L::LDX;
@@ -203,18 +230,15 @@ __device__ __forceinline__ void row_pass(const float* __restrict__ a,
     if constexpr (LN) {   // + res, to the finished product as the plain version adds it
       rg_pairs<D>(acc, [&](int r, int c, float& v0, float& v1) {
         if (t0 + r < T) {
-          const float2 t =
-              __ldg(reinterpret_cast<const float2*>(res + static_cast<size_t>(t0 + r) * D + c));
-          v0 += t.x;
-          v1 += t.y;
+          const float2 t = ldg2(res + static_cast<size_t>(t0 + r) * D + c);
+          v0 = io_round<IO>(io_round<IO>(v0) + t.x);
+          v1 = io_round<IO>(io_round<IO>(v1) + t.y);
         }
       });
     }
-    auto put = [&](float* __restrict__ dst) {
+    auto put = [&](IO* __restrict__ dst) {
       rg_pairs<D>(acc, [&](int r, int c, float v0, float v1) {
-        if (t0 + r < T)
-          *reinterpret_cast<float2*>(dst + static_cast<size_t>(t0 + r) * D + c) =
-              make_float2(v0, v1);
+        if (t0 + r < T) st2(dst + static_cast<size_t>(t0 + r) * D + c, v0, v1);
       });
     };
     put(out);
@@ -244,21 +268,25 @@ __device__ __forceinline__ void row_pass(const float* __restrict__ a,
 // products over bf16-rounded xn, tok and weights, one TF32 pass each; its q,
 // k, v then differ from the f32 forward's, as lft_tpu's do (its backward
 // rebuilds the scores from bf16 q and k against the f32 forward's (m, l)).
-template <int C, bool LN1, bool BF = false>
+// IO = bf16 (K2.2 `spa_qkv_bf16io`, with BF; not with LN1): xn, tok, q, k,
+// v bf16. Bound at [400, 32, 32, 64]: 40.3 GFLOP at the bf16 rate 0.041
+// ms, 0.52 GB (0.63 reading xn twice) 0.157 ms: bytes.
+template <int C, bool LN1, bool BF = false, class IO = float>
 __global__ void __launch_bounds__(RG_NT, 1)
-    spa_qkv_kernel(const float* xn, const float* __restrict__ tok,
-                   const float* __restrict__ wf, float* __restrict__ q,
-                   float* __restrict__ k, float* __restrict__ v, int T, Ln1Rows<2 * C> ln1) {
+    spa_qkv_kernel(const IO* xn, const IO* __restrict__ tok,
+                   const float* __restrict__ wf, IO* __restrict__ q,
+                   IO* __restrict__ k, IO* __restrict__ v, int T, Ln1Rows<2 * C> ln1) {
   constexpr int SQ = RowProj<C>::SQ;
   extern __shared__ __align__(16) float smem[];
+  static_assert(!(LN1 && is_bf16<IO>), "K3.b is f32 IO");
   if constexpr (LN1)
     row_pass<C, false, Ln1Rows<2 * C>, BF>(tok, wf, q, nullptr, nullptr, nullptr, nullptr, smem,
                                            T, ln1);
   else
-    row_pass<C, false, NoRows, BF>(xn, wf, q, nullptr, nullptr, nullptr, nullptr, smem, T);
-  row_pass<C, false, NoRows, BF>(xn, wf + SQ, k, nullptr, nullptr, nullptr, nullptr, smem, T);
-  row_pass<C, false, NoRows, BF>(tok, wf + 2 * SQ, v, nullptr, nullptr, nullptr, nullptr, smem,
-                                 T);
+    row_pass<C, false, NoRows, BF, IO>(xn, wf, q, nullptr, nullptr, nullptr, nullptr, smem, T);
+  row_pass<C, false, NoRows, BF, IO>(xn, wf + SQ, k, nullptr, nullptr, nullptr, nullptr, smem, T);
+  row_pass<C, false, NoRows, BF, IO>(tok, wf + 2 * SQ, v, nullptr, nullptr, nullptr, nullptr,
+                                     smem, T);
 }
 
 // ---- 3: 5x5-window attention -------------------------------------------
@@ -267,15 +295,18 @@ __global__ void __launch_bounds__(RG_NT, 1)
 
 // ---- 4: out-projection + residual + LN2 ---------------------------------
 // One pass of step 2's (above). wf: Wo split (RowProj::SQ floats,
-// kernels/rowgemm.py:outproj_stream), written by rg_weights_kernel.
-template <int C>
+// kernels/rowgemm.py:outproj_stream), written by rg_weights_kernel. IO =
+// bf16 (`spa_outproj_ln_bf16io`, BF products): attn, tok, x2, xn2 bf16;
+// bound at [400, 32, 32, 64]: 0.42 GB, 0.125 ms, bytes.
+template <int C, class IO = float>
 __global__ void __launch_bounds__(RG_NT, 1)
-    spa_outproj_ln_kernel(const float* __restrict__ attn, const float* __restrict__ tok,
+    spa_outproj_ln_kernel(const IO* __restrict__ attn, const IO* __restrict__ tok,
                           const float* __restrict__ wf, const float* __restrict__ ln,
-                          float* __restrict__ x2, float* __restrict__ xn2, int T) {
+                          IO* __restrict__ x2, IO* __restrict__ xn2, int T) {
   constexpr int D = 2 * C;
   extern __shared__ __align__(16) float smem[];
-  row_pass<C, true>(attn, wf, x2, tok, ln + 2 * D, ln + 3 * D, xn2, smem, T);
+  row_pass<C, true, NoRows, is_bf16<IO>, IO>(attn, wf, x2, tok, ln + 2 * D, ln + 3 * D, xn2,
+                                             smem, T);
 }
 
 // ---- 5: FFN + residual + Token2SAI --------------------------------------
@@ -306,14 +337,18 @@ struct FfnOut {
 
 // PM: out is pixel-major [T / (hw A2), hw, A2, C]; xn2 and x2 are view-major.
 // wf: the weight stream (FfnOut::FLOATS floats, kernels/rowgemm.py:
-// ffn_out_stream), written by rg_weights_kernel.
-template <int C, bool PM>
+// ffn_out_stream), written by rg_weights_kernel. IO = bf16
+// (`spa_ffn_out_bf16io`): xn2, x2, out bf16, BF products, hid = bf16(relu),
+// y = bf16(bf16(hid W2) + x2), out = bf16(y Wlin); bound at [400, 32, 32,
+// 64]: 60.4 GFLOP at the bf16 rate 0.061 ms, 0.26 GB 0.078 ms: bytes.
+template <int C, bool PM, class IO = float>
 __global__ void __launch_bounds__(RG_NT, 1)
-    spa_ffn_out_kernel(const float* __restrict__ xn2, const float* __restrict__ x2,
-                       const float* __restrict__ wf, float* __restrict__ out, int T, int hw,
+    spa_ffn_out_kernel(const IO* __restrict__ xn2, const IO* __restrict__ x2,
+                       const float* __restrict__ wf, IO* __restrict__ out, int T, int hw,
                        int A2) {
   using F = FfnOut<C>;
   constexpr int D = F::D, HC = F::HC, LDX = F::LDX, LDH = F::LDH;
+  constexpr bool BIO = is_bf16<IO>;
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* xw = smem + 16 * warp * LDX;                   // the warp's 16 rows: xn2, then y
@@ -348,32 +383,34 @@ __global__ void __launch_bounds__(RG_NT, 1)
       constexpr int off = decltype(J)::value * (F::W1 + F::W2);
       RgAcc<HC> h;
       rg_zero<HC>(h);
-      rg_product<D, HC, off>(h, xw, LDX, ring, st);
+      rg_product<D, HC, off, false, BIO>(h, xw, LDX, ring, st);
       __syncwarp();   // the previous chunk's rows are read
       rg_pairs<HC>(h, [&](int r, int c, float v0, float v1) {
-        *reinterpret_cast<float2*>(hw16 + r * LDH + c) = make_float2(fmaxf(v0, 0.f),
-                                                                     fmaxf(v1, 0.f));
+        *reinterpret_cast<float2*>(hw16 + r * LDH + c) =
+            make_float2(io_round<IO>(fmaxf(v0, 0.f)), io_round<IO>(fmaxf(v1, 0.f)));
       });
       __syncwarp();
-      rg_product<HC, D, off + F::W1>(y, hw16, LDH, ring, st);
+      rg_product<HC, D, off + F::W1, false, BIO>(y, hw16, LDH, ring, st);
     });
     __syncwarp();     // xn2 is read
     rg_pairs<D>(y, [&](int r, int c, float v0, float v1) {
       const int t = t0 + r;
-      const float2 res = t < T ? __ldg(reinterpret_cast<const float2*>(x2 + static_cast<size_t>(t) * D + c))
+      const float2 res = t < T ? ldg2(x2 + static_cast<size_t>(t) * D + c)
                                : make_float2(0.f, 0.f);
-      *reinterpret_cast<float2*>(xw + r * LDX + c) = make_float2(v0 + res.x, v1 + res.y);
+      *reinterpret_cast<float2*>(xw + r * LDX + c) =
+          make_float2(io_round<IO>(io_round<IO>(v0) + res.x),
+                      io_round<IO>(io_round<IO>(v1) + res.y));
     });
     __syncwarp();
     RgAcc<C> o;
     rg_zero<C>(o);
-    rg_product<D, C, F::OFF_LIN>(o, xw, LDX, ring, st);
+    rg_product<D, C, F::OFF_LIN, false, BIO>(o, xw, LDX, ring, st);
     rg_pairs<C>(o, [&](int r, int c, float v0, float v1) {
       const int t = t0 + r;
       if (t >= T) return;
       long long row = t;
       if constexpr (PM) row = pm_row(row, hw, A2);
-      *reinterpret_cast<float2*>(out + row * C + c) = make_float2(v0, v1);
+      st2(out + row * C + c, v0, v1);
     });
   }
   cp_async_wait<0>();
@@ -391,20 +428,20 @@ LFT_EXPORT_ERROR_STRING
 
 namespace {
 
-template <bool PM>
-int tokenize_ln(const float* x, const float* pe_tok, const float* wu, float* wf,
-                const float* ln, float* tok, float* xn, int V, int h, int w, int A2, int C, int r,
-                int cw, cudaStream_t s) {
+template <bool PM, class IO = float>
+int tokenize_ln(const IO* x, const IO* pe_tok, const float* wu, float* wf, const float* ln,
+                IO* tok, IO* xn, int V, int h, int w, int A2, int C, int r, int cw,
+                cudaStream_t s) {
   LFT_DISPATCH_C(C, {
-    return launch_tap_conv<CC, 2 * CC, PM, true, false>(x, wu, wf, pe_tok, ln, tok, xn, V, h, w,
-                                                        A2, r, cw, s);
+    return launch_tap_conv<CC, 2 * CC, PM, true, false, is_bf16<IO>, IO>(
+        x, wu, wf, pe_tok, ln, tok, xn, V, h, w, A2, r, cw, s);
   });
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool PM>
-int ffn_out(const float* xn2, const float* x2, const float* w1, const float* w2,
-            const float* wlin, float* wf, float* out, int T, int hw, int A2, int C,
+template <bool PM, class IO = float>
+int ffn_out(const IO* xn2, const IO* x2, const float* w1, const float* w2,
+            const float* wlin, float* wf, IO* out, int T, int hw, int A2, int C,
             cudaStream_t s) {
   if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
@@ -417,8 +454,8 @@ int ffn_out(const float* xn2, const float* x2, const float* w1, const float* w2,
                           j * (F::W1 + F::W2) + F::W1};
     }
     ps.p[n++] = RgPiece{wlin, CC, F::D, CC, F::OFF_LIN};
-    launch_rg_weights(ps, n, wf, s);
-    auto kernel = spa_ffn_out_kernel<CC, PM>;
+    launch_rg_weights(ps, n, wf, s, is_bf16<IO>);
+    auto kernel = spa_ffn_out_kernel<CC, PM, IO>;
     LFT_SET_SMEM(kernel, F::BYTES);
     kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(xn2, x2, wf, out, T, hw, A2);
   });
@@ -437,6 +474,16 @@ extern "C" int lft_spa_tokenize_ln(const float* x, const float* pe_tok, const fl
                             static_cast<cudaStream_t>(stream));
 }
 
+// Step 1's bf16-IO instance: x, pe_tok, tok, xn bf16; wu and ln f32 (wu's
+// bf16 values, split into their bf16 parts).
+extern "C" int lft_spa_tokenize_ln_bf16io(const bf16* x, const bf16* pe_tok, const float* wu,
+                                          float* wf, const float* ln, bf16* tok, bf16* xn,
+                                          int V, int h, int w, int C, int r, int cw,
+                                          void* stream) {
+  return tokenize_ln<false, bf16>(x, pe_tok, wu, wf, ln, tok, xn, V, h, w, 1, C, r, cw,
+                                  static_cast<cudaStream_t>(stream));
+}
+
 // K11's first step: x [Bb, h, w, A2, C] pixel-major -> tok, xn [Bb * A2, h, w, D].
 extern "C" int lft_spa_tokenize_ln_pm(const float* x, const float* pe_tok, const float* wu,
                                       float* wf, const float* ln, float* tok, float* xn, int Bb,
@@ -450,11 +497,11 @@ extern "C" int lft_spa_tokenize_ln_pm(const float* x, const float* pe_tok, const
 namespace {
 
 // Step 2 or (LN1) K3.b: the weights split into wf, then spa_qkv_kernel; BF:
-// their bf16 parts and the BF instance.
-template <bool LN1, bool BF = false>
-int qkv(const float* xn, const float* tok, const float* wqk, const float* wv, float* wf,
-        float* q, float* k, float* v, int T, int C, const float* pe_tok, const float* ln,
-        float* xn_out, int hw, cudaStream_t s) {
+// their bf16 parts and the BF instance; IO = bf16: step 2's bf16-IO instance.
+template <bool LN1, bool BF = false, class IO = float>
+int qkv(const named_t<IO>* xn, const named_t<IO>* tok, const float* wqk, const float* wv,
+        float* wf, named_t<IO>* q, named_t<IO>* k, named_t<IO>* v, int T, int C,
+        const float* pe_tok, const float* ln, named_t<IO>* xn_out, int hw, cudaStream_t s) {
   if (T < 1 || hw < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
     using L = RowProj<CC>;
@@ -463,10 +510,12 @@ int qkv(const float* xn, const float* tok, const float* wqk, const float* wv, fl
     ps.p[1] = RgPiece{wqk + L::D, 2 * L::D, L::D, L::D, L::SQ};
     ps.p[2] = RgPiece{wv, L::D, L::D, L::D, 2 * L::SQ};
     launch_rg_weights(ps, 3, wf, s, BF);
-    auto kernel = spa_qkv_kernel<CC, LN1, BF>;
+    auto kernel = spa_qkv_kernel<CC, LN1, BF, IO>;
     LFT_SET_SMEM(kernel, L::BYTES);
-    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(
-        LN1 ? xn_out : xn, tok, wf, q, k, v, T, Ln1Rows<L::D>{pe_tok, ln, xn_out, hw});
+    Ln1Rows<L::D> ln1{};
+    if constexpr (LN1) ln1 = Ln1Rows<L::D>{pe_tok, ln, xn_out, hw};
+    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(LN1 ? xn_out : xn, tok, wf, q,
+                                                                    k, v, T, ln1);
   });
   return static_cast<int>(cudaGetLastError());
 }
@@ -481,6 +530,15 @@ extern "C" int lft_spa_qkv(const float* xn, const float* tok, const float* wqk,
                            int C, void* stream) {
   return qkv<false>(xn, tok, wqk, wv, wf, q, k, v, T, C, nullptr, nullptr, nullptr, 1,
                     static_cast<cudaStream_t>(stream));
+}
+
+// Step 2's bf16-IO instance: xn, tok, q, k, v bf16; wqk, wv f32 (their bf16
+// values), wf as lft_spa_qkv's, holding their bf16 parts.
+extern "C" int lft_spa_qkv_bf16io(const bf16* xn, const bf16* tok, const float* wqk,
+                                  const float* wv, float* wf, bf16* q, bf16* k, bf16* v, int T,
+                                  int C, void* stream) {
+  return qkv<false, true, bf16>(xn, tok, wqk, wv, wf, q, k, v, T, C, nullptr, nullptr, nullptr,
+                                1, static_cast<cudaStream_t>(stream));
 }
 
 // K3.b (the backward's step b): tok [T, D], pe_tok [hw, D], ln [4, D] (LN1's
@@ -540,6 +598,34 @@ extern "C" int lft_spa_window_attn(const float* q, const float* k, const float* 
                             static_cast<cudaStream_t>(stream));
 }
 
+// Step 3's bf16-IO instance (window_attn.cuh): q, k, v, attn bf16; a block
+// takes a (view, 16 x 16 tile) item and every head group.
+extern "C" int lft_spa_window_attn_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                          bf16* attn, int V, int h, int w, int D, int H,
+                                          float scale, void* stream) {
+  if (H != 8 || V < 1 || h < 1 || w < 1 || D % WA_G) return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = static_cast<long long>(V) * ((h + WA_TY - 1) / WA_TY) *
+                          ((w + WA_TX - 1) / WA_TX);
+  if (items > 0x7fffffffLL || static_cast<long long>(V) * h * w > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (D / H) {
+#define LFT_ATTN_CASE(DHV)                                                                   \
+    case DHV: {                                                                              \
+      auto kernel = spa_window_attn_bf16io_kernel<DHV>;                                      \
+      LFT_SET_SMEM(kernel, WA_BYTES);                                                        \
+      kernel<<<static_cast<int>(items), WA_NT, WA_BYTES, s>>>(q, k, v, attn, V, h, w, scale); \
+      break;                                                                                 \
+    }
+    LFT_ATTN_CASE(4)
+    LFT_ATTN_CASE(8)
+    LFT_ATTN_CASE(16)
+#undef LFT_ATTN_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The same, also writing m, l [V, h, w, H] (the residuals of K3).
 extern "C" int lft_spa_window_attn_res(const float* q, const float* k, const float* v,
                                        float* attn, float* m, float* l, int V, int h,
@@ -568,6 +654,26 @@ extern "C" int lft_spa_outproj_ln(const float* attn, const float* tok, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
+// Step 4's bf16-IO instance: attn, tok, x2, xn2 bf16; wo, ln f32, wf holding
+// Wo's bf16 part.
+extern "C" int lft_spa_outproj_ln_bf16io(const bf16* attn, const bf16* tok, const float* wo,
+                                         const float* ln, float* wf, bf16* x2, bf16* xn2, int T,
+                                         int C, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  LFT_DISPATCH_C(C, {
+    using L = RowProj<CC>;
+    RgPieces ps{};
+    ps.p[0] = RgPiece{wo, L::D, L::D, L::D, 0};
+    launch_rg_weights(ps, 1, wf, s, true);
+    auto kernel = spa_outproj_ln_kernel<CC, bf16>;
+    LFT_SET_SMEM(kernel, L::BYTES);
+    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(attn, tok, wf, ln, x2, xn2,
+                                                                    T);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Step 5: wf is a scratch of FfnOut<C>::FLOATS floats (kernels/rowgemm.py:
 // ffn_out_floats), the weights split into TF32 hi/lo by the launch's first
 // kernel.
@@ -576,6 +682,15 @@ extern "C" int lft_spa_ffn_out(const float* xn2, const float* x2, const float* w
                                int T, int C, void* stream) {
   return ffn_out<false>(xn2, x2, w1, w2, wlin, wf, out, T, 1, 1, C,
                         static_cast<cudaStream_t>(stream));
+}
+
+// Step 5's bf16-IO instance: xn2, x2, out bf16; the weights f32 (their bf16
+// values), wf holding their bf16 parts.
+extern "C" int lft_spa_ffn_out_bf16io(const bf16* xn2, const bf16* x2, const float* w1,
+                                      const float* w2, const float* wlin, float* wf, bf16* out,
+                                      int T, int C, void* stream) {
+  return ffn_out<false, bf16>(xn2, x2, w1, w2, wlin, wf, out, T, 1, 1, C,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // K11's last step: xn2, x2 [Bb * A2, hw, D] view-major -> out [Bb, hw, A2, C]

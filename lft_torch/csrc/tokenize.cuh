@@ -62,6 +62,14 @@
 //   rounded to bf16 (the taps by `tap_weights_kernel<BWD, true>` into the hi
 //   part of the same layout, lo 0), one TF32 `wgmma` a k8 step instead of
 //   three, the same chains and f32 accumulation (tf32.cuh).
+// * IO = bf16 (K2.1 `spa_tokenize_ln_bf16io`, `--dtype bfloat16`, with BF;
+//   lft_tpu's io = bf16, spa_block.py:128-142): x and pe_tok bf16, tok and
+//   xn stored bf16. The band stays f32 in shared memory, written by the
+//   threads from 8-byte loads widened to f32 (cp.async copies bytes, and an
+//   f32 band keeps the fragment loads and their banks as they are); the
+//   epilogue stores tok = bf16(tok_f) and takes LN1 from the unrounded sums,
+//   xn = bf16(LN1(tok_f + pe_tok)). Bound at [400, 32, 32, 64]: 57.9 GFLOP
+//   at the bf16 rate 0.059 ms, x, pe_tok, tok, xn 263 MB 0.078 ms: bytes.
 #pragma once
 
 #include "spa.cuh"
@@ -132,11 +140,11 @@ __global__ void __launch_bounds__(256)
 // wf: [9, CIN / 8, 2 (hi, lo), 2, COUT / 8, 8, 4] (kernels/spa_block.py:
 // tap_weights). BF: the band rounded to bf16 as it loads, one product a k8
 // step over the taps' bf16 part.
-template <int CIN, int COUT, bool PM, bool LN, bool BF = false>
+template <int CIN, int COUT, bool PM, bool LN, bool BF = false, class IO = float>
 __global__ void __launch_bounds__(TOK_NT, 1)
-    tap_conv_kernel(const float* __restrict__ in, const float* __restrict__ wf,
-                    const float* __restrict__ pe_tok, const float* __restrict__ ln,
-                    float* __restrict__ out, float* __restrict__ xn, int h, int w, int A2,
+    tap_conv_kernel(const IO* __restrict__ in, const float* __restrict__ wf,
+                    const IO* __restrict__ pe_tok, const float* __restrict__ ln,
+                    IO* __restrict__ out, IO* __restrict__ xn, int h, int w, int A2,
                     int r, int cw) {
   using G = TapConv<CIN, COUT>;
   constexpr int LDA = G::LDA, R = G::R;
@@ -158,7 +166,10 @@ __global__ void __launch_bounds__(TOK_NT, 1)
     const bool ok = y >= 0 && y < h && x >= 0 && x < w;
     long long row = ok ? static_cast<long long>(view) * hw + y * w + x : 0;
     if constexpr (PM) row = pm_row(row, hw, A2);
-    cp_async16(band + p * LDA + c, in + row * CIN + c, ok);
+    if constexpr (is_bf16<IO>)
+      store4(band + p * LDA + c, ok ? ldg4(in + row * CIN + c) : make_float4(0.f, 0.f, 0.f, 0.f));
+    else
+      cp_async16(band + p * LDA + c, in + row * CIN + c, ok);
   }
   auto load_stage = [&](int s) {
     const float* src = wf + static_cast<size_t>(s) * G::STAGE;
@@ -250,11 +261,10 @@ __global__ void __launch_bounds__(TOK_NT, 1)
     for (int e = 0; e < 2; ++e) {
       const int t = token(wm + g + 8 * e);
       if (t < 0) continue;
-      float* dst = out + static_cast<size_t>(t) * COUT + 2 * q;
+      IO* dst = out + static_cast<size_t>(t) * COUT + 2 * q;
 #pragma unroll
       for (int j = 0; j < COUT / 8; ++j)
-        *reinterpret_cast<float2*>(dst + 8 * j) =
-            make_float2(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
+        st2(dst + 8 * j, acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
     }
   } else {
     using RL = RowLN<COUT>;
@@ -273,30 +283,31 @@ __global__ void __launch_bounds__(TOK_NT, 1)
       const int t = token(m);
       if (t < 0) continue;
       float* row = tk + m * LDO;
-      const float* pe = pe_tok + static_cast<size_t>(t % hw) * COUT;
+      const IO* pe = pe_tok + static_cast<size_t>(t % hw) * COUT;
       float v[RL::E];
 #pragma unroll
       for (int e = 0; e < RL::E; ++e)
-        if (RL::valid(e)) v[e] = row[RL::col(e)] + __ldg(pe + RL::col(e));
-      if (vec) store4(out + static_cast<size_t>(t) * COUT + 4 * lane, load4(row + 4 * lane));
+        if (RL::valid(e)) v[e] = row[RL::col(e)] + ldg1(pe + RL::col(e));
+      if (vec) st4(out + static_cast<size_t>(t) * COUT + 4 * lane, load4(row + 4 * lane));
       RL::apply(v, ln, ln + COUT);
       __syncwarp();
 #pragma unroll
       for (int e = 0; e < RL::E; ++e)
         if (RL::valid(e)) row[RL::col(e)] = v[e];
       __syncwarp();
-      if (vec) store4(xn + static_cast<size_t>(t) * COUT + 4 * lane, load4(row + 4 * lane));
+      if (vec) st4(xn + static_cast<size_t>(t) * COUT + 4 * lane, load4(row + 4 * lane));
     }
   }
 }
 
 // Splits wu into wf (tap_weights_kernel), then launches tap_conv_kernel over
 // V views of h x w (tiles of r x cw pixels). BWD: the backward's mirrored,
-// transposed taps. BF: the bf16-operand instances of both kernels.
-template <int CIN, int COUT, bool PM, bool LN, bool BWD, bool BF = false>
-int launch_tap_conv(const float* in, const float* wu, float* wf, const float* pe_tok,
-                    const float* ln, float* out, float* xn, int V, int h, int w, int A2, int r,
-                    int cw, cudaStream_t s) {
+// transposed taps. BF: the bf16-operand instances of both kernels. IO: the
+// activations' type (named, never deduced).
+template <int CIN, int COUT, bool PM, bool LN, bool BWD, bool BF = false, class IO = float>
+int launch_tap_conv(const named_t<IO>* in, const float* wu, float* wf,
+                    const named_t<IO>* pe_tok, const float* ln, named_t<IO>* out,
+                    named_t<IO>* xn, int V, int h, int w, int A2, int r, int cw, cudaStream_t s) {
   using G = TapConv<CIN, COUT>;
   if (V < 1 || h < 1 || w < 1 || A2 < 1 || r < 1 || cw < 1 || r * cw > TOK_M)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -306,7 +317,7 @@ int launch_tap_conv(const float* in, const float* wu, float* wf, const float* pe
       bytes > static_cast<size_t>(TOK_SMEM_MAX))
     return static_cast<int>(cudaErrorInvalidValue);
   tap_weights_kernel<BWD, BF><<<(9 * CIN * COUT + 255) / 256, 256, 0, s>>>(wu, wf, CIN, COUT);
-  auto kernel = tap_conv_kernel<CIN, COUT, PM, LN, BF>;
+  auto kernel = tap_conv_kernel<CIN, COUT, PM, LN, BF, IO>;
   LFT_SET_SMEM(kernel, bytes);
   kernel<<<static_cast<unsigned>(blocks), TOK_NT, bytes, s>>>(in, wf, pe_tok, ln, out, xn, h, w,
                                                                A2, r, cw);

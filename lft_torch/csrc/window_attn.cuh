@@ -221,4 +221,185 @@ __global__ void __launch_bounds__(WA_NT, 2)
   }
 }
 
+// K2.3's bf16-IO form (`spa_window_attn_bf16io`, `--dtype bfloat16`):
+// lft_tpu's window softmax with io = bf16 (spa_block.py:_kernel :154-192).
+// q, k, v and the output bf16; the scores f32 over the keys inside the
+// image; e = exp(s - m) with m the query's max over EVERY head and its
+// window's keys, a key outside the image scoring 0 (lft_tpu's row max over
+// its zero-padded halo), so that bf16(e) rounds as there; l the sum of the
+// unrounded e (rows, then their sum, as above), o the sum of bf16(e) v in
+// key order, attn = bf16(o (1 / l)). A query's heads lie in all G head
+// groups, so a block takes a (view, 16 x 16 tile) item and its groups
+// twice: a first pass stages each group's k halo and takes every query's
+// max over its heads (the two slices of a group in lanes 16 apart), a
+// second stages k and v and runs the softmax. The threads, halos and shared
+// memory are the f32 kernel's; the halos are staged from 8-byte loads
+// widened to f32 by the threads (cp.async copies bytes). The scores are (q
+// . k) scale, as lft_tpu orders them. Bound at [400, 32, 32, 128]: q, k, v
+// read once and attn written once in bf16, 0.42 GB, 0.125 ms; the first
+// pass reads q and k again through L2.
+template <int DH>
+__global__ void __launch_bounds__(WA_NT, 2)
+    spa_window_attn_bf16io_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v, bf16* __restrict__ attn, int V,
+                                  int h, int w, float scale) {
+  constexpr int H = 8, D = H * DH;
+  constexpr int G = D / WA_G;       // head groups of a pixel
+  constexpr int HT = WA_S / DH;     // heads of a thread's slice
+  constexpr int KR = WA_QY + 2 * R;   // key rows of a thread's queries
+  constexpr int KW = (2 * R + 1) * (2 * R + 1);   // keys of a window
+  extern __shared__ __align__(16) float smem[];
+  const int ntx = (w + WA_TX - 1) / WA_TX;
+  const int per_view = ((h + WA_TY - 1) / WA_TY) * ntx;
+  const int lane = threadIdx.x & 31;
+  const int tx = lane & 15, half = lane >> 4;    // the thread's column and slice
+  const int ry = WA_QY * (threadIdx.x >> 5);     // its first query row in the tile
+  const int view = blockIdx.x / per_view, tile = blockIdx.x % per_view;
+  const int y0 = tile / ntx * WA_TY, x0 = tile % ntx * WA_TX, x = x0 + tx;
+
+  // group g's halo of src [V, h, w, D] into buf, zero outside the image
+  auto stage = [&](const bf16* __restrict__ src, float* buf, int g) {
+    for (int j = threadIdx.x; j < WA_HY * WA_HX * (WA_G / 4); j += WA_NT) {
+      const int px = j / (WA_G / 4), c = 4 * (j % (WA_G / 4));
+      const int ky = y0 - R + px / WA_HX, kx = x0 - R + px % WA_HX;
+      const bool ok = ky >= 0 && ky < h && kx >= 0 && kx < w;
+      store4(buf + px * WA_LD + c,
+             ok ? ldg4(src + ((static_cast<size_t>(view) * h + ky) * w + kx) * D + g * WA_G + c)
+                : make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+  };
+  // the thread's slice of group g of its queries' q (zero outside the image)
+  auto load_q = [&](int g, float (&qv)[WA_QY][WA_S]) {
+#pragma unroll
+    for (int a = 0; a < WA_QY; ++a) {
+      const int y = y0 + ry + a;
+      const bool in = y < h && x < w;
+      const bf16* qp = q + ((static_cast<size_t>(view) * h + (in ? y : 0)) * w + (in ? x : 0)) * D +
+                       g * WA_G + half * WA_S;
+#pragma unroll
+      for (int d = 0; d < WA_S; d += 4) {
+        const float4 t = in ? ldg4(qp + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+        qv[a][d] = t.x;
+        qv[a][d + 1] = t.y;
+        qv[a][d + 2] = t.z;
+        qv[a][d + 3] = t.w;
+      }
+    }
+  };
+  // head e of the slice: s[a][5 (key row - a) + dx], -inf outside the image
+  auto scores = [&](const float (&qv)[WA_QY][WA_S], int e, float (&s)[WA_QY][KW]) {
+#pragma unroll
+    for (int a = 0; a < WA_QY; ++a)
+#pragma unroll
+      for (int j = 0; j < KW; ++j) s[a][j] = -CUDART_INF_F;
+#pragma unroll
+    for (int r = 0; r < KR; ++r) {
+      const int ky = y0 + ry + r - R;
+      if (ky < 0 || ky >= h) continue;
+      const float* kr = smem + ((ry + r) * WA_HX + tx) * WA_LD + half * WA_S + e * DH;
+#pragma unroll
+      for (int dx = 0; dx <= 2 * R; ++dx) {
+        const int kx = x + dx - R;
+        if (kx < 0 || kx >= w) continue;
+#pragma unroll
+        for (int a = 0; a < WA_QY; ++a) {
+          if (a < r - 2 * R || a > r) continue;
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int d = 0; d < DH; ++d)
+            t[d % 4] = fmaf(qv[a][e * DH + d], kr[dx * WA_LD + d], t[d % 4]);
+          s[a][(2 * R + 1) * (r - a) + dx] = ((t[0] + t[1]) + (t[2] + t[3])) * scale;
+        }
+      }
+    }
+  };
+
+  float qv[WA_QY][WA_S], s[WA_QY][KW];
+  float mq[WA_QY] = {-CUDART_INF_F, -CUDART_INF_F};
+  for (int g = 0; g < G; ++g) {   // pass 1: each query's max over its heads
+    __syncthreads();   // the previous group's halo is read
+    stage(k, smem, g);
+    load_q(g, qv);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < HT; ++e) {
+      scores(qv, e, s);
+#pragma unroll
+      for (int a = 0; a < WA_QY; ++a)
+#pragma unroll
+        for (int j = 0; j < KW; ++j) mq[a] = fmaxf(mq[a], s[a][j]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < WA_QY; ++a) {
+    mq[a] = fmaxf(mq[a], __shfl_xor_sync(0xffffffffu, mq[a], 16));
+    const int y = y0 + ry + a;
+    if (y < R || y + R >= h || x < R || x + R >= w) mq[a] = fmaxf(mq[a], 0.f);
+  }
+  for (int g = 0; g < G; ++g) {   // pass 2: the softmax and the product with v
+    __syncthreads();
+    stage(k, smem, g);
+    stage(v, smem + WA_BUF, g);
+    load_q(g, qv);
+    __syncthreads();
+    const int col = g * WA_G + half * WA_S;
+#pragma unroll
+    for (int e = 0; e < HT; ++e) {
+      scores(qv, e, s);
+      float l[WA_QY];
+#pragma unroll
+      for (int a = 0; a < WA_QY; ++a) {
+        l[a] = 0.f;
+#pragma unroll
+        for (int j0 = 0; j0 < KW; j0 += 2 * R + 1) {   // a key row's sum, then the rows'
+          float row = 0.f;
+#pragma unroll
+          for (int j = j0; j < j0 + 2 * R + 1; ++j) {
+            const float ex = expf(s[a][j] - mq[a]);
+            row += ex;
+            s[a][j] = bf16_round(ex);
+          }
+          l[a] += row;
+        }
+      }
+      float o[WA_QY][DH];
+#pragma unroll
+      for (int a = 0; a < WA_QY; ++a)
+#pragma unroll
+        for (int d = 0; d < DH; ++d) o[a][d] = 0.f;
+#pragma unroll
+      for (int r = 0; r < KR; ++r) {
+        const int ky = y0 + ry + r - R;
+        if (ky < 0 || ky >= h) continue;
+        const float* vr =
+            smem + WA_BUF + ((ry + r) * WA_HX + tx) * WA_LD + half * WA_S + e * DH;
+#pragma unroll
+        for (int dx = 0; dx <= 2 * R; ++dx) {
+          const int kx = x + dx - R;
+          if (kx < 0 || kx >= w) continue;
+#pragma unroll
+          for (int a = 0; a < WA_QY; ++a) {
+            if (a < r - 2 * R || a > r) continue;
+            const float p = s[a][(2 * R + 1) * (r - a) + dx];
+#pragma unroll
+            for (int d = 0; d < DH; ++d) o[a][d] = fmaf(p, vr[dx * WA_LD + d], o[a][d]);
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < WA_QY; ++a) {
+        const int y = y0 + ry + a;
+        if (y >= h || x >= w) continue;
+        const size_t pix = (static_cast<size_t>(view) * h + y) * w + x;
+        const float inv = 1.f / l[a];
+#pragma unroll
+        for (int d = 0; d < DH; d += 4)
+          st4(attn + pix * D + col + e * DH + d,
+              make_float4(o[a][d] * inv, o[a][d + 1] * inv, o[a][d + 2] * inv,
+                          o[a][d + 3] * inv));
+      }
+    }
+  }
+}
+
 }  // namespace lft

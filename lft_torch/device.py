@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 PRECISIONS = ("default", "high", "highest")
-DTYPES = ("float32", "mixed")
+DTYPES = ("float32", "mixed", "bfloat16")
 
 
 _precision = None       # the precision the port last set on the card
@@ -57,7 +57,7 @@ def set_tf32(on: bool) -> None:
 def matmul_precision(args) -> str:
     """`--matmul_precision` as a run takes it: `mixed` with `default` runs
     at `highest`, as lft_tpu/models/lft.py:276-282 resolves it (in this port
-    both keep TF32 off)."""
+    both keep TF32 off); `bfloat16` keeps the flag as given, as there."""
     prec = getattr(args, "matmul_precision", "default") or "default"
     if str(getattr(args, "dtype", "float32")) == "mixed" and prec == "default":
         return "highest"
@@ -65,10 +65,9 @@ def matmul_precision(args) -> str:
 
 
 def check_dtype(dtype: str) -> None:
-    """The port computes `float32` and `mixed` (f32 activations, the fused
-    backward's products over bf16 operands, lft_tpu's per-site plan);
-    `bfloat16` is queued as ROADMAP.md §1 item 9b."""
+    """The port computes `float32`, `mixed` (f32 activations, the fused
+    backward's products over bf16 operands, lft_tpu's per-site plan) and
+    `bfloat16` (bf16 activations and parameters, inference through the fused
+    blocks; models/lft.py)."""
     if str(dtype) not in DTYPES:
-        raise NotImplementedError(
-            f"lft_torch supports dtype 'float32' and 'mixed', got {dtype!r}: "
-            "'bfloat16' is queued as ROADMAP.md §1 item 9b")
+        raise ValueError(f"lft_torch supports dtype {DTYPES}, got {dtype!r}")

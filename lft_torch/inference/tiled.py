@@ -20,6 +20,9 @@ every rank returns the whole SR mosaic.
 `args` reaches the model with every chunk, `--dtype` with it: the `mixed`
 plans are read by each model call (kernels/common.py), never kept in
 `ScenePipelineCache`, so a changed plan never mixes two plans in one scene.
+Under `bfloat16` the model runs its fused branch on every device (the only
+one with a bf16 form, models/lft.py:resolve_bf16); the scene buffers, the
+model's output and the metrics stay f32.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ def make_scene_sr(model_apply, args, h0: int, w0: int,
     # capability, fused on the accelerator where the kernels take the width
     takes_fused = "fused" in capabilities_of(model_apply)
     fuse_cuda = kernels_take(args.channels)
+    bf16 = str(getattr(args, "dtype", "float32")) == "bfloat16"
 
     @torch.no_grad()
     def scene_sr(params, lr_mosaic: torch.Tensor) -> torch.Tensor:
@@ -71,7 +75,7 @@ def make_scene_sr(model_apply, args, h0: int, w0: int,
         flat = flat.reshape(n_patches, 1, A * patch, A * patch)
         kw = dict(apply_kw)
         if takes_fused:
-            kw.setdefault("fused", lr_mosaic.is_cuda and fuse_cuda)
+            kw.setdefault("fused", bf16 or (lr_mosaic.is_cuda and fuse_cuda))
         run = (lambda c: model_apply(params, c, args, **kw)) if ranks == 1 else \
             (lambda c: _sharded_chunk(model_apply, params, c, args, kw, mesh))
         outs = [run(flat[i:i + eb]) for i in range(0, n_patches, eb)]

@@ -8,11 +8,13 @@ default pair (K7, K5), `SWEEPS` those of its other families (K8, K9, K6),
 backward K4 counted at pixels of 65 to 128 views (the same kernels count as
 `ang_block_bwd` at A2 <= 64); and K11's `spa_tokenize_ln_pm` and
 `spa_ffn_out_pm`; `MIXED` the bf16-operand instances a fused train step
-launches under `--dtype mixed` (K3's steps, K4, `wgrad`, each `_bf16`).
+launches under `--dtype mixed` (K3's steps, K4, `wgrad`, each `_bf16`);
+`BF16IO` the bf16-IO instances of K1 and K2's steps that an SR forward
+launches under `--dtype bfloat16` (each `_bf16io`).
 """
 
-from lft_torch.kernels._build import (FORWARD, LAUNCHES, MIXED, PEROP, SWEEPS, TAIL,
+from lft_torch.kernels._build import (BF16IO, FORWARD, LAUNCHES, MIXED, PEROP, SWEEPS, TAIL,
                                       TRAINING, build_all, reset_launches)
 
-__all__ = ["FORWARD", "LAUNCHES", "MIXED", "PEROP", "SWEEPS", "TAIL", "TRAINING", "build_all",
-           "reset_launches"]
+__all__ = ["BF16IO", "FORWARD", "LAUNCHES", "MIXED", "PEROP", "SWEEPS", "TAIL", "TRAINING",
+           "build_all", "reset_launches"]

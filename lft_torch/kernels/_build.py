@@ -66,8 +66,13 @@ MIXED = ("spa_ffn_out_bwd_bf16", "spa_ln_qkv_bf16", "spa_window_attn_bwd_bf16",
          "spa_qkv_ln_bwd_bf16", "spa_tokenize_bwd_bf16", "ang_block_bwd_bf16",
          "ang_block_bwd128_bf16", "wgrad_bf16")
 
+# The bf16-IO instances of the SR forward's kernels that `--dtype bfloat16`
+# launches in place of K1 and K2's five steps: bf16 activations in and out,
+# each product one TF32 pass over bf16 values, lft_tpu's rounding points.
+BF16IO = tuple(k + "_bf16io" for k in FORWARD)
+
 # kernel name -> launches since the last reset
-LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS + TAIL + MIXED}
+LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -171,15 +176,18 @@ def build_library(src: str, out_dir: str, name: str) -> ctypes.CDLL:
     return ctypes.CDLL(so)
 
 
-def check_cuda_args(kernel: str, *tensors: torch.Tensor) -> None:
-    """Every tensor on the same CUDA device, float32, contiguous, and
-    16-byte aligned (the kernels use float4 accesses)."""
+def check_cuda_args(kernel: str, *tensors: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> None:
+    """Every tensor of the dtype the launcher takes (`dtype`: float32, or
+    bfloat16 for a `_bf16io` instance's activations), on the same CUDA
+    device, contiguous, and 16-byte aligned (the kernels use 16-byte
+    accesses)."""
     dev = tensors[0].device
     for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: {dtype} tensors only, got {t.dtype}")
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{kernel}: all tensors must be on one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel}: float32 tensors only, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: tensors must be contiguous")
         if t.data_ptr() % 16:

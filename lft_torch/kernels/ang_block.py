@@ -27,6 +27,11 @@ scratch of `rowgemm.ang_bwd_floats` floats. Its launches count as
 `ang_block_bwd` at A2 <= 64 and as `ang_block_bwd128` beyond, so that a run
 shows which geometry trained. The angular PE is a constant of the shapes:
 its gradient is None.
+
+`--dtype bfloat16` (inference): a bf16 x runs K1 in bf16 IO, lft_tpu's K1
+with `io` = bf16, its rounding points listed at `ang_block_bf16io_plain`; on
+the card the kernel's `ang_block_bf16io` instance. Its residual form and K4
+take no bf16 tensor yet (ROADMAP.md §1 item 9c: `common.io_kernel` raises).
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ import ctypes
 import torch
 
 from lft_torch.kernels import _build
-from lft_torch.kernels.common import KERNEL_C, active, card_fwd, card_half, rd, rounds
+from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_fwd, card_half,
+                                      io_kernel, rd, rounds)
 from lft_torch.kernels.rowgemm import RG_M, ang_block_floats, ang_bwd_floats
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import attention_heads
@@ -111,7 +117,12 @@ def ang_block_plain(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     """Plain PyTorch version of K1: [N, A2, C] -> [N, A2, C]; with_res also
     returns m, l [N, A2, H] (per token and head: the softmax's row max and
     the sum of exp(s - m)) and attn [N, A2, C]. `plan`: `--dtype mixed`'s
-    forward plan (kernels/common.py), followed as lft_tpu's K1 follows it."""
+    forward plan (kernels/common.py), followed as lft_tpu's K1 follows it.
+    A bf16 x takes `ang_block_bf16io_plain` (without residuals: those are
+    bf16 training, item 9c)."""
+    if x.dtype == torch.bfloat16:
+        card_fwd(plan, io_kernel("ang_block_res" if with_res else "ang_block", x))
+        return ang_block_bf16io_plain(x, ang_pe, wts, num_heads)
     if active(plan) is not None:
         return _ang_block_planned(x, ang_pe, wts, num_heads, with_res, plan)
     ln = wts["ln"]
@@ -132,6 +143,33 @@ def ang_block_plain(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
         return out
     return (out, m.transpose(1, 2).contiguous(), l.transpose(1, 2).contiguous(),
             a.contiguous())
+
+
+def ang_block_bf16io_plain(x, ang_pe, wts, num_heads: int):
+    """Plain version of K1 in bf16 IO: bf16 x [N, A2, C] -> bf16, at
+    lft_tpu's rounding points (ang_block.py:_kernel :116-150 with io = bf16,
+    the wrapper :194-213): xf = f32(x) + pe (the angular PE stays f32); xn =
+    bf16(LN1(xf)) with the LN affine as f32; q = bf16(xn Wq), k = bf16(xn
+    Wk), v = bf16(x Wv) from the raw x; f32 scores; e = exp(s - m) with m
+    the token's max over every head and key (lft_tpu's row max), l the sum
+    of the unrounded e, the product with v over bf16(e); attn = bf16(out *
+    (1 / l)); x2 = bf16(bf16(attn Wo) + x); hid = bf16(relu(bf16(LN2(x2))
+    W1)); out = bf16(bf16(hid W2) + x2). Every product's operands are bf16
+    values (the weights rounded as lft_tpu casts them), summed in f32."""
+    B = bf16_round
+    w = lambda n: B(wts[n].float())
+    ln = wts["ln"].float()
+    H = num_heads
+    xf = x.float()
+    xn = B(_ln(xf + ang_pe.float(), ln[0], ln[1]))
+    q, k, v = B(xn @ w("wq")), B(xn @ w("wk")), B(xf @ w("wv"))
+    s = (_heads(q, H) @ _heads(k, H).transpose(-1, -2)) * float(x.shape[-1] // H) ** -0.5
+    m = s.amax(-1).amax(1, keepdim=True)                       # [N, 1, A2]
+    e = torch.exp(s - m[..., None])
+    a = B(_merge((B(e) @ _heads(v, H)) * (1.0 / e.sum(-1))[..., None]))
+    x2 = B(B(a @ w("wo")) + xf)
+    hid = B(torch.relu(B(_ln(x2, ln[2], ln[3])) @ w("w1")))
+    return B(B(hid @ w("w2")) + x2).to(torch.bfloat16)
 
 
 def _ang_block_planned(x, ang_pe, wts, num_heads, with_res, plan):
@@ -179,23 +217,31 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     `ang_block_res`. On the card its six products run 3xTF32 on the tensor
     cores (`csrc/rowgemm.cuh`), the weights split by the launch's first
     kernel into a scratch of `rowgemm.ang_block_stream`'s layout. `plan`: a
-    mixed forward plan; the card runs only `all` (`common.card_fwd`)."""
+    mixed forward plan; the card runs only `all` (`common.card_fwd`). A bf16
+    x launches `ang_block_bf16io` (bf16 in and out; the weights and LN
+    affine as f32 tensors of bf16 values, the PE f32), without residuals."""
     if x.device.type != "cuda":
         return ang_block_plain(x, ang_pe, wts, num_heads, with_res, plan)
-    card_fwd(plan, "ang_block")
-    _check_kernel_shape("ang_block", x, ang_pe, num_heads, BLK)
+    name = io_kernel("ang_block_res" if with_res else "ang_block", x)
+    card_fwd(plan, name)
+    _check_kernel_shape(name, x, ang_pe, num_heads, BLK)
     N, A2, C = x.shape
     w = wts
-    _build.check_cuda_args("ang_block", x, ang_pe, *(w[n] for n in WEIGHTS))
+    if x.dtype == torch.bfloat16:
+        w = {n: wts[n].float().contiguous() for n in WEIGHTS}
+        _build.check_cuda_args(name, x, dtype=torch.bfloat16)
+        _build.check_cuda_args(name, ang_pe, *(w[n] for n in WEIGHTS))
+    else:
+        _build.check_cuda_args(name, x, ang_pe, *(w[n] for n in WEIGHTS))
     out = torch.empty_like(x)
     wf = torch.empty(ang_block_floats(C), device=x.device)   # scratch: the split weights
     ptrs = [x.data_ptr(), ang_pe.data_ptr(), *(w[n].data_ptr() for n in WEIGHTS),
             wf.data_ptr(), out.data_ptr()]
     tail = (N, A2, C, num_heads, float(C // num_heads) ** -0.5)
     if not with_res:
-        fn = _build.bind("ang_block", "lft_ang_block_fwd", 11,
+        fn = _build.bind("ang_block", "lft_ang_block_fwd" + name[len("ang_block"):], 11,
                          (ctypes.c_int,) * 4 + (ctypes.c_float,))
-        _build.launch("ang_block", "ang_block", fn, x.device, *ptrs, *tail)
+        _build.launch("ang_block", name, fn, x.device, *ptrs, *tail)
         return out
     m = torch.empty(N, A2, num_heads, device=x.device)
     l = torch.empty_like(m)
@@ -293,7 +339,7 @@ def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=Non
         return ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads, plan)
     N, A2, C = x.shape
     T = N * A2
-    name = "ang_block_bwd128" if A2 > 64 else "ang_block_bwd"
+    name = io_kernel("ang_block_bwd128" if A2 > 64 else "ang_block_bwd", x)
     half = card_half(plan, name)
     if half:
         name += "_bf16"

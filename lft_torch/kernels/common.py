@@ -13,7 +13,8 @@ called directly) still raises `NotImplementedError` at such a width.
 
 It also holds `--dtype mixed`'s per-site product plans (below), which the
 plain versions of K1-K4 follow at every site and the card's backward
-kernels at the plans they have instances for (`card_fwd`, `card_half`).
+kernels at the plans they have instances for (`card_fwd`, `card_half`),
+and `--dtype bfloat16`'s routing of bf16 tensors (`io_kernel`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from __future__ import annotations
 import os
 
 import torch
+
+from lft_torch.kernels._build import FORWARD
 
 KERNEL_C = (16, 32, 64)
 
@@ -138,3 +141,37 @@ def card_plan(plan, bwd_plan) -> None:
     made before its first launch."""
     card_fwd(plan, "--dtype mixed")
     card_half(bwd_plan, "--dtype mixed")
+
+
+# ----------------------------------------------- `--dtype bfloat16` (IO) ---
+#
+# lft_tpu's `--dtype bfloat16` runs its fused kernels on bf16 tensors (`io =
+# x_ref.dtype`, lft_tpu/kernels/ang_block.py:105, spa_block.py:116): its plan
+# is `mm_site_plan(False, bf16, ...)`, every product site over bf16 operands
+# (the IO dtype), and every intermediate the kernel hands on rounded to bf16
+# where it is stored or added (the rounding points the plain versions list).
+# On the card the SR forward's kernels (`_build.FORWARD`) have `_bf16io`
+# instances; a bf16 tensor that reaches a kernel whose bf16 form is not
+# ported yet raises, naming it and the ROADMAP item that queues it. Nothing
+# falls back to f32.
+# The kernels whose bf16-IO form is bf16 training, ROADMAP.md §1 item 9c
+# (the residual forms and the backwards); any other, 9d (the per-op branch
+# and K11).
+BF16IO_TRAINING = frozenset({"ang_block_res", "spa_window_attn_res", "ang_block_bwd",
+                             "ang_block_bwd128", "spa_ffn_out_bwd", "spa_ln_qkv",
+                             "spa_window_attn_bwd", "spa_qkv_ln_bwd", "spa_tokenize_bwd"})
+
+
+def io_kernel(kernel: str, t: torch.Tensor) -> str:
+    """The launch name of `kernel` for the IO dtype of `t`: itself for an
+    f32 tensor, its `_bf16io` instance for a bf16 one where that is ported;
+    a bf16 tensor at any other kernel raises NotImplementedError naming the
+    kernel and its ROADMAP item."""
+    if t.dtype != torch.bfloat16:
+        return kernel
+    if kernel in FORWARD:
+        return kernel + "_bf16io"
+    raise NotImplementedError(
+        f"{kernel}: its bf16-IO form is not ported yet (--dtype bfloat16 there is queued as "
+        f"ROADMAP.md §1 item {'9c' if kernel in BF16IO_TRAINING else '9d'}); pass float32 "
+        f"tensors")

@@ -43,6 +43,12 @@ Under `--dtype mixed` the plain versions follow lft_tpu's per-site plans
 (kernels/common.py: each product's operands rounded to bf16 where its site
 is), and on the card the backward's default plan, every site rounded,
 launches the steps' bf16-operand instances (`_bf16` after each name).
+`--dtype bfloat16` (inference): bf16 x runs the five steps in bf16 IO,
+lft_tpu's K2 with `io` = bf16 (spa_block.py:_kernel :116-203): each plain
+step computes in f32 from bf16 inputs and rounds at lft_tpu's points (listed
+at each), and on the card each step launches its `_bf16io` instance, the
+buffers between them bf16. The residual form, K3 and K11 take no bf16 tensor
+yet (ROADMAP.md §1 items 9c, 9d: `common.io_kernel` raises).
 Step 3's kernel (`csrc/window_attn.cuh`) is also K5's forward; the geometry
 of it and of K5's two-pass backward is mirrored here (`window_items`,
 `window_thread`, `window_smem`, `hp_kv_items`, `hp_kv_smem`,
@@ -67,7 +73,8 @@ import torch.nn.functional as F
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
-from lft_torch.kernels.common import KERNEL_C, active, card_fwd, card_half, rd, rounds
+from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_fwd, card_half,
+                                      io_kernel, rd, rounds)
 from lft_torch.kernels.rowgemm import (RG_M, ffn_out_bwd_floats, ffn_out_floats,
                                        outproj_floats, piece, qkv_floats, qkv_ln_bwd_floats,
                                        split_tf32)
@@ -122,25 +129,75 @@ def _ln(x, w, b):
 # where its site is, at lft_tpu's sites (spa_block.py:_kernel :117-215,
 # _bwd_kernel :427-568); q, k, v and the other intermediates are handed on
 # unrounded and rounded where a product reads them, as the kernels do.
+#
+# A bf16 input takes the step in bf16 IO (`--dtype bfloat16`, lft_tpu's
+# _kernel with io = bf16): f32 arithmetic over bf16 values (the weights
+# rounded to bf16 as lft_tpu casts them, `_bw`; the LN affine f32) and bf16
+# outputs, rounded at lft_tpu's points, listed at each step.
+
+def _bw(wts, name):
+    """A weight as the bf16-IO steps take it: f32 of its bf16 rounding."""
+    return bf16_round(wts[name].float())
+
+
+def _tap_sum(x, wu):
+    """sum over the 9 taps of the shifted, zero-padded x [V, h, w, C] times
+    wu[tap] [C, D], in tap order as lft_tpu adds its 9 products (:128-137)."""
+    h, w = x.shape[1:3]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    out = 0
+    for t in range(9):
+        out = out + xp[:, t // 3:t // 3 + h, t % 3:t % 3 + w, :] @ wu[t]
+    return out
+
 
 def tokenize_ln_plain(x, pe_tok, wts, plan=None):
+    """bf16 IO: tok_f = the f32 9-tap sum (in lft_tpu's tap order: a sum in
+    another order rounds to the neighbouring bf16 value now and then); tok =
+    bf16(tok_f) and xn = bf16(LN1(tok_f + pe_tok)), LN1 from the unrounded
+    tok_f (:128-142)."""
+    if x.dtype == torch.bfloat16:
+        card_fwd(plan, "spa_tokenize_ln_bf16io")
+        tok_f = _tap_sum(x.float(), _bw(wts, "wu"))
+        ln = wts["ln"].float()
+        return (tok_f.bfloat16(),
+                _ln(tok_f + bf16_round(pe_tok.float()), ln[0], ln[1]).bfloat16())
     tok = unfold3x3_linear(rd(x, plan, "tok"), rd(wts["mlp"], plan, "tok")).contiguous()
     return tok, _ln(tok + pe_tok, wts["ln"][0], wts["ln"][1])
 
 
 def qkv_plain(xn, tok, wts, plan=None):
+    """bf16 IO: q, k = bf16(xn Wqk), v = bf16(tok Wv) (:143-147)."""
     D = tok.shape[-1]
+    if xn.dtype == torch.bfloat16:
+        card_fwd(plan, "spa_qkv_bf16io")
+        qk = xn.float() @ _bw(wts, "wqk")
+        return (qk[..., :D].bfloat16(), qk[..., D:].bfloat16(),
+                (tok.float() @ _bw(wts, "wv")).bfloat16())
     qk = rd(xn, plan, "qk") @ rd(wts["wqk"], plan, "qk")
     return (qk[..., :D].contiguous(), qk[..., D:].contiguous(),
             rd(tok, plan, "v") @ rd(wts["wv"], plan, "v"))
 
 
 def outproj_ln_plain(attn, tok, wts, plan=None):
+    """bf16 IO: x2 = bf16(bf16(attn Wo) + tok), xn2 = bf16(LN2(x2)) (:196-197)."""
+    if attn.dtype == torch.bfloat16:
+        card_fwd(plan, "spa_outproj_ln_bf16io")
+        x2 = bf16_round(bf16_round(attn.float() @ _bw(wts, "wo")) + tok.float())
+        ln = wts["ln"].float()
+        return x2.bfloat16(), _ln(x2, ln[2], ln[3]).bfloat16()
     x2 = rd(attn, plan, "wo") @ rd(wts["wo"], plan, "wo") + tok
     return x2, _ln(x2, wts["ln"][2], wts["ln"][3])
 
 
 def ffn_out_plain(xn2, x2, wts, plan=None):
+    """bf16 IO: hid = bf16(relu(xn2 W1)), y = bf16(bf16(hid W2) + x2), out =
+    bf16(y Wlin) (:198-202)."""
+    if xn2.dtype == torch.bfloat16:
+        card_fwd(plan, "spa_ffn_out_bf16io")
+        B = bf16_round
+        y = B(B(B(torch.relu(xn2.float() @ _bw(wts, "w1"))) @ _bw(wts, "w2")) + x2.float())
+        return (y @ _bw(wts, "wlin")).bfloat16()
     R = lambda t, s: rd(t, plan, s)
     y = R(torch.relu(R(xn2, "ffn") @ R(wts["w1"], "ffn")), "ffn") @ R(wts["w2"], "ffn") + x2
     return R(y, "lin") @ R(wts["wlin"], "lin")
@@ -165,9 +222,16 @@ def window_attn_plain(q, k, v, num_heads: int, ksize: int, plan=None):
     e = exp(s - m) rounded at the av site through the e v product, then
     divided by l; m is the query's max over every head and its window's
     keys, those outside the image scoring 0 (lft_tpu's row max over the
-    zero-padded halo), so that e rounds as there."""
+    zero-padded halo), so that e rounds as there. bf16 IO (bf16 q, k, v;
+    :154-192): the same m and e, f32 scores over the keys inside the image,
+    l the sum of the unrounded e, the product with v over bf16(e), attn =
+    bf16(out * (1 / l))."""
     B, h, w, E = q.shape
-    if active(plan) is not None:
+    io = q.dtype == torch.bfloat16
+    if io:
+        card_fwd(plan, "spa_window_attn_bf16io")
+        q, k, v = q.float(), k.float(), v.float()
+    if io or active(plan) is not None:
         s, _, _ = _planned_scores(q, k, num_heads, ksize, plan)
         pad = ~torch.from_numpy(_window_valid(h, w, ksize)).to(q.device).all(-1)
         m = s.amax((3, 4))
@@ -176,7 +240,8 @@ def window_attn_plain(q, k, v, num_heads: int, ksize: int, plan=None):
         l = e.sum(3)
         vw = _gather_window(rd(v, plan, "av"), ksize).reshape(B, h, w, -1, num_heads,
                                                                E // num_heads)
-        attn = torch.einsum("byxjh,byxjhd->byxhd", rd(e, plan, "av"), vw) / l[..., None]
+        o = torch.einsum("byxjh,byxjhd->byxhd", bf16_round(e) if io else rd(e, plan, "av"), vw)
+        attn = (o * (1.0 / l)[..., None]).bfloat16() if io else o / l[..., None]
         return attn.reshape(B, h, w, E).contiguous(), m.contiguous(), l.contiguous()
     p, _, m, l = _window_probs(q, k, num_heads, ksize)
     vw = _gather_window(v, ksize).reshape(B, h, w, -1, num_heads, E // num_heads)
@@ -329,6 +394,21 @@ def tap_weights(wu: torch.Tensor, backward: bool = False) -> torch.Tensor:
 
 # ------------------------------------------------------ kernel wrappers ---
 
+def _io_args(kernel: str, acts, wts: dict, names):
+    """The checks of a launch: its activations `acts` in their IO dtype
+    (bf16 for a `_bf16io` instance, else f32) and the weights `names` of
+    `wts` as f32 (a bf16 weight as the f32 tensor of its values). Returns
+    {name: weight}."""
+    io = acts[0].dtype
+    w = {n: wts[n].float().contiguous() if io == torch.bfloat16 else wts[n] for n in names}
+    if io == torch.bfloat16:
+        _build.check_cuda_args(kernel, *acts, dtype=io)
+        _build.check_cuda_args(kernel, *w.values())
+    else:
+        _build.check_cuda_args(kernel, *acts, *w.values())
+    return w
+
+
 def _check_c(kernel: str, C: int) -> None:
     if C not in KERNEL_C:
         raise NotImplementedError(f"{kernel} kernel takes C in {KERNEL_C}, got C={C}")
@@ -352,11 +432,12 @@ def tokenize_ln(x, pe_tok, wts, pixel_major: bool = False, plan=None):
     `spa_tokenize_ln_pm`; tok and xn are view-major either way. On the card
     3xTF32 on the tensor cores (module docstring). `plan`: a mixed forward
     plan; the card runs only `all` (`common.card_fwd`), as K2's other
-    forward steps."""
+    forward steps. A bf16 x launches `spa_tokenize_ln_bf16io` (bf16 pe_tok,
+    tok and xn)."""
     if x.device.type != "cuda":
         return tokenize_ln_plain(_to_view_major(x) if pixel_major else x, pe_tok, wts, plan)
-    card_fwd(plan, "spa_tokenize_ln")
-    name = "spa_tokenize_ln_pm" if pixel_major else "spa_tokenize_ln"
+    name = io_kernel("spa_tokenize_ln_pm" if pixel_major else "spa_tokenize_ln", x)
+    card_fwd(plan, name)
     if pixel_major:
         Bb, h, w, A2, C = x.shape
         dims = (Bb, h, w, A2, C)
@@ -367,13 +448,13 @@ def tokenize_ln(x, pe_tok, wts, pixel_major: bool = False, plan=None):
     _check_c(name, C)
     if tuple(wts["wu"].shape) != (9, C, D) or tuple(pe_tok.shape) != (h, w, D) or D != 2 * C:
         raise ValueError(f"{name}: pe_tok {tuple(pe_tok.shape)} for x {tuple(x.shape)}")
-    _build.check_cuda_args(name, x, pe_tok, wts["wu"], wts["ln"])
-    tok = torch.empty(Bb * A2, h, w, D, device=x.device)
+    wk = _io_args(name, (x, pe_tok), wts, ("wu", "ln"))
+    tok = torch.empty(Bb * A2, h, w, D, device=x.device, dtype=x.dtype)
     xn = torch.empty_like(tok)
     wf = torch.empty(18 * C * D, device=x.device)      # scratch: `tap_weights`' layout
     fn = _build.bind("spa_block", "lft_" + name, 7, (ctypes.c_int,) * (len(dims) + 2))
     _build.launch("spa_block", name, fn, x.device, x.data_ptr(),
-                  pe_tok.data_ptr(), wts["wu"].data_ptr(), wf.data_ptr(), wts["ln"].data_ptr(),
+                  pe_tok.data_ptr(), wk["wu"].data_ptr(), wf.data_ptr(), wk["ln"].data_ptr(),
                   tok.data_ptr(), xn.data_ptr(), *dims, *tok_tile(h, w, C))
     return tok, xn
 
@@ -382,22 +463,23 @@ def qkv(xn, tok, wts, plan=None):
     """Step 2: (xn, tok) [V, h, w, D] -> (q, k, v) [V, h, w, D]. On the card
     its three products run 3xTF32 on the tensor cores (`csrc/rowgemm.cuh`),
     the weights split by the launch's first kernel into a scratch of
-    `rowgemm.qkv_stream`'s layout."""
+    `rowgemm.qkv_stream`'s layout. bf16 xn and tok launch `spa_qkv_bf16io`."""
     if xn.device.type != "cuda":
         return qkv_plain(xn, tok, wts, plan)
-    card_fwd(plan, "spa_qkv")
+    name = io_kernel("spa_qkv", xn)
+    card_fwd(plan, name)
     D = tok.shape[-1]
-    _check_c("spa_qkv", D // 2)
+    _check_c(name, D // 2)
     if xn.shape != tok.shape or tuple(wts["wqk"].shape) != (D, 2 * D) \
             or tuple(wts["wv"].shape) != (D, D):
         raise ValueError(f"spa_qkv: wqk {tuple(wts['wqk'].shape)}, wv {tuple(wts['wv'].shape)} "
                          f"for xn {tuple(xn.shape)}, tok {tuple(tok.shape)}")
-    _build.check_cuda_args("spa_qkv", xn, tok, wts["wqk"], wts["wv"])
+    wk = _io_args(name, (xn, tok), wts, ("wqk", "wv"))
     q, k, v = (torch.empty_like(tok) for _ in range(3))
     wf = torch.empty(qkv_floats(D // 2), device=tok.device)   # scratch: the split weights
-    fn = _build.bind("spa_block", "lft_spa_qkv", 8, (ctypes.c_int,) * 2)
-    _build.launch("spa_block", "spa_qkv", fn, xn.device, xn.data_ptr(), tok.data_ptr(),
-                  wts["wqk"].data_ptr(), wts["wv"].data_ptr(), wf.data_ptr(), q.data_ptr(),
+    fn = _build.bind("spa_block", "lft_" + name, 8, (ctypes.c_int,) * 2)
+    _build.launch("spa_block", name, fn, xn.device, xn.data_ptr(), tok.data_ptr(),
+                  wk["wqk"].data_ptr(), wk["wv"].data_ptr(), wf.data_ptr(), q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), tok.numel() // D, D // 2)
     return q, k, v
 
@@ -481,24 +563,30 @@ def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False, p
     with_stats: (attn, m, l), m and l [V, h, w, H], counted as
     `spa_window_attn_res`. On the card a block takes a (view, 16 x 16 tile,
     head group) item (`window_items`), its threads each 2 queries of a
-    column and 16 channels (`window_thread`), two blocks an SM."""
+    column and 16 channels (`window_thread`), two blocks an SM. bf16 q, k,
+    v launch `spa_window_attn_bf16io` (`window_attn_plain`'s bf16 IO: a
+    block takes a (view, 16 x 16 tile) item and its head groups in two
+    passes, the first for each query's max over all its heads), without
+    stats."""
     if q.device.type != "cuda":
         if with_stats:
             return window_attn_plain(q, k, v, num_heads, ksize, plan)
-        if active(plan) is not None:
+        if active(plan) is not None or q.dtype == torch.bfloat16:
             return window_attn_plain(q, k, v, num_heads, ksize, plan)[0]
         return windowed_attention(q, k, v, num_heads, ksize)
-    card_fwd(plan, "spa_window_attn")
+    name = io_kernel("spa_window_attn_res" if with_stats else "spa_window_attn", q)
+    card_fwd(plan, name)
     V, h, w, D = q.shape
-    _check_window("spa_window_attn", D, num_heads, ksize)
-    _build.check_cuda_args("spa_window_attn", q, k, v)
+    _check_window(name, D, num_heads, ksize)
+    _build.check_cuda_args(name, q, k, v, dtype=torch.bfloat16 if name.endswith("_bf16io")
+                           else torch.float32)
     attn = torch.empty_like(q)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), attn.data_ptr()]
     tail = (V, h, w, D, num_heads, float(D // num_heads) ** -0.5)
     if not with_stats:
-        fn = _build.bind("spa_block", "lft_spa_window_attn", 4,
+        fn = _build.bind("spa_block", "lft_" + name, 4,
                          (ctypes.c_int,) * 5 + (ctypes.c_float,))
-        _build.launch("spa_block", "spa_window_attn", fn, q.device, *ptrs, *tail)
+        _build.launch("spa_block", name, fn, q.device, *ptrs, *tail)
         return attn
     m = torch.empty(V, h, w, num_heads, device=q.device)
     l = torch.empty_like(m)
@@ -514,21 +602,22 @@ def outproj_ln(attn, tok, wts, plan=None):
     its product runs 3xTF32 on the tensor cores (`csrc/rowgemm.cuh`), Wo
     split by the launch's first kernel into a scratch of
     `rowgemm.outproj_stream`'s layout and held in shared memory, LN2 on the
-    accumulators."""
+    accumulators. bf16 attn and tok launch `spa_outproj_ln_bf16io`."""
     if attn.device.type != "cuda":
         return outproj_ln_plain(attn, tok, wts, plan)
-    card_fwd(plan, "spa_outproj_ln")
+    name = io_kernel("spa_outproj_ln", attn)
+    card_fwd(plan, name)
     D = tok.shape[-1]
-    _check_c("spa_outproj_ln", D // 2)
+    _check_c(name, D // 2)
     if attn.shape != tok.shape or tuple(wts["wo"].shape) != (D, D):
         raise ValueError(f"spa_outproj_ln: wo {tuple(wts['wo'].shape)} for attn "
                          f"{tuple(attn.shape)}, tok {tuple(tok.shape)}")
-    _build.check_cuda_args("spa_outproj_ln", attn, tok, wts["wo"], wts["ln"])
+    wk = _io_args(name, (attn, tok), wts, ("wo", "ln"))
     x2, xn2 = torch.empty_like(tok), torch.empty_like(tok)
     wf = torch.empty(outproj_floats(D // 2), device=tok.device)   # scratch: Wo split
-    fn = _build.bind("spa_block", "lft_spa_outproj_ln", 7, (ctypes.c_int,) * 2)
-    _build.launch("spa_block", "spa_outproj_ln", fn, attn.device, attn.data_ptr(),
-                  tok.data_ptr(), wts["wo"].data_ptr(), wts["ln"].data_ptr(), wf.data_ptr(),
+    fn = _build.bind("spa_block", "lft_" + name, 7, (ctypes.c_int,) * 2)
+    _build.launch("spa_block", name, fn, attn.device, attn.data_ptr(),
+                  tok.data_ptr(), wk["wo"].data_ptr(), wk["ln"].data_ptr(), wf.data_ptr(),
                   x2.data_ptr(), xn2.data_ptr(), tok.numel() // D, D // 2)
     return x2, xn2
 
@@ -538,18 +627,20 @@ def ffn_out(xn2, x2, wts, views=None, plan=None):
     `views` = A2 the output is pixel-major [V / A2, h, w, A2, C], counted as
     `spa_ffn_out_pm`. On the card its three products run 3xTF32 on the
     tensor cores (`csrc/rowgemm.cuh`), the weights split by the launch's
-    first kernel into a scratch of `rowgemm.ffn_out_stream`'s layout."""
+    first kernel into a scratch of `rowgemm.ffn_out_stream`'s layout. bf16
+    xn2 and x2 launch `spa_ffn_out_bf16io` (bf16 out)."""
     if xn2.device.type != "cuda":
         out = ffn_out_plain(xn2, x2, wts, plan)
         return out if views is None else _to_pixel_major(out, views)
-    card_fwd(plan, "spa_ffn_out")
     *lead, D = x2.shape
     C = D // 2
-    name = "spa_ffn_out" if views is None else "spa_ffn_out_pm"
+    name = io_kernel("spa_ffn_out" if views is None else "spa_ffn_out_pm", xn2)
+    card_fwd(plan, name)
     _check_c(name, C)
-    _build.check_cuda_args(name, xn2, x2, wts["w1"], wts["w2"], wts["wlin"])
+    wk = _io_args(name, (xn2, x2), wts, ("w1", "w2", "wlin"))
     if views is None:
-        out, dims = torch.empty(*lead, C, device=x2.device), (x2.numel() // D, C)
+        out = torch.empty(*lead, C, device=x2.device, dtype=x2.dtype)
+        dims = (x2.numel() // D, C)
     else:
         V, h, w = lead
         out = torch.empty(V // views, h, w, views, C, device=x2.device)
@@ -560,8 +651,8 @@ def ffn_out(xn2, x2, wts, views=None, plan=None):
     wf = torch.empty(ffn_out_floats(C), device=x2.device)   # scratch: the split weights
     fn = _build.bind("spa_block", "lft_" + name, 7, (ctypes.c_int,) * len(dims))
     _build.launch("spa_block", name, fn, x2.device, xn2.data_ptr(),
-                  x2.data_ptr(), wts["w1"].data_ptr(), wts["w2"].data_ptr(),
-                  wts["wlin"].data_ptr(), wf.data_ptr(), out.data_ptr(), *dims)
+                  x2.data_ptr(), wk["w1"].data_ptr(), wk["w2"].data_ptr(),
+                  wk["wlin"].data_ptr(), wf.data_ptr(), out.data_ptr(), *dims)
     return out
 
 
@@ -601,7 +692,7 @@ def ffn_out_bwd(attn, tok, dout, wts, plan=None):
     (`spa_ffn_out_bwd_bf16`, the weights' bf16 parts in the same layout)."""
     if attn.device.type != "cuda":
         return ffn_out_bwd_plain(attn, tok, dout, wts, plan)
-    half = card_half(plan, "spa_ffn_out_bwd")
+    half = card_half(plan, io_kernel("spa_ffn_out_bwd", attn))
     *lead, D = tok.shape
     C = D // 2
     T = tok.numel() // D
@@ -633,7 +724,7 @@ def ln_qkv(tok, pe_tok, wts, plan=None):
     tok and weights (q, k, v then differ from the f32 forward's)."""
     if tok.device.type != "cuda":
         return ln_qkv_plain(tok, pe_tok, wts, plan)
-    name = "spa_ln_qkv" + ("_bf16" if card_half(plan, "spa_ln_qkv") else "")
+    name = "spa_ln_qkv" + ("_bf16" if card_half(plan, io_kernel("spa_ln_qkv", tok)) else "")
     V, h, w, D = tok.shape
     _check_c("spa_ln_qkv", D // 2)
     if tuple(pe_tok.shape) != (h, w, D) or tuple(wts["wqk"].shape) != (D, 2 * D) \
@@ -660,7 +751,7 @@ def window_attn_bwd(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int, plan
     and p before their products)."""
     if q.device.type != "cuda":
         return window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads, ksize, plan)
-    half = card_half(plan, "spa_window_attn_bwd")
+    half = card_half(plan, io_kernel("spa_window_attn_bwd", q))
     name = "spa_window_attn_bwd" + ("_bf16" if half else "")
     _check_window(name, q.shape[-1], num_heads, ksize)
     return spa_attn_hp_bwd(q, k, v, m, l, dattn, num_heads, ksize, kernel=name, half=half)
@@ -676,7 +767,7 @@ def qkv_ln_bwd(tok, pe_tok, dq, dk, dv, dx2, wts, plan=None):
     mixed plan that rounds every site."""
     if tok.device.type != "cuda":
         return qkv_ln_bwd_plain(tok, pe_tok, dq, dk, dv, dx2, wts, plan)
-    half = card_half(plan, "spa_qkv_ln_bwd")
+    half = card_half(plan, io_kernel("spa_qkv_ln_bwd", tok))
     V, h, w, D = tok.shape
     T = V * h * w
     _check_c("spa_qkv_ln_bwd", D // 2)
@@ -701,7 +792,7 @@ def tokenize_bwd(dtok, wts, plan=None):
     under a mixed plan that rounds every site)."""
     if dtok.device.type != "cuda":
         return tokenize_bwd_plain(dtok, wts, plan)
-    half = card_half(plan, "spa_tokenize_bwd")
+    half = card_half(plan, io_kernel("spa_tokenize_bwd", dtok))
     V, h, w, D = dtok.shape
     C = D // 2
     _check_c("spa_tokenize_bwd", C)
@@ -721,7 +812,10 @@ def spa_block(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False,
               pixel_major: bool = False, plan=None):
     """K2 chained; with_res: (out, tok, m, l, attn). pixel_major (K11): x and
     out are [Bb, h, w, A2, C], the first and last step run in their `_pm`
-    forms; without residuals. `plan`: a mixed forward plan."""
+    forms; without residuals. `plan`: a mixed forward plan. A bf16 x runs
+    the bf16-IO steps, without residuals (item 9c)."""
+    if with_res:
+        io_kernel("spa_window_attn_res", x)
     tok, xn = tokenize_ln(x, pe_tok, wts, pixel_major, plan)
     q, kk, v = qkv(xn, tok, wts, plan)
     if with_res:
@@ -735,9 +829,11 @@ def spa_block(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False,
 
 def spa_block_plain(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False,
                     plan=None):
+    if with_res:
+        io_kernel("spa_window_attn_res", x)
     tok, xn = tokenize_ln_plain(x, pe_tok, wts, plan)
     q, kk, v = qkv_plain(xn, tok, wts, plan)
-    if with_res or active(plan) is not None:
+    if with_res or active(plan) is not None or x.dtype == torch.bfloat16:
         attn, m, l = window_attn_plain(q, kk, v, num_heads, k, plan)
     else:
         attn = windowed_attention(q, kk, v, num_heads, k)

@@ -46,10 +46,23 @@ weight grads over bf16 operands). On the card the backward's plan `none`
 launches the kernels' bf16-operand instances and `all` the f32 ones; other
 plans run on the plain versions only. The unfused branch ignores the plan,
 as lft_tpu's does.
+
+`--dtype bfloat16` (lft_tpu/models/lft.py:272-306, :447: lft_tpu's all-bf16
+mode, -0.20 dB PSNR against f32 there), inference only: the parameters and
+the LR views are cast to bf16, the conv stack, LeakyReLU, the residuals and
+the upsampler run as torch ops in bf16, the blocks on bf16 tensors (the
+kernels' `_bf16io` instances on the card, their plain versions on the CPU or
+with `plain_blocks=True`), the bicubic skip in f32, and the output is the
+bf16 mosaic in f32 plus the skip. Only the fused branch has a bf16 form:
+a geometry or width it does not take (on the card a C outside
+`kernels.common.KERNEL_C`) and `fused=False` raise NotImplementedError
+naming ROADMAP item 9d, where lft_tpu's unfused XLA branch computes; a
+forward that would be differentiated raises naming item 9c.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict
 
@@ -165,6 +178,10 @@ def _layer_norm(x, w, b):
 
 
 def _leaky(x):
+    if x.dtype == torch.bfloat16:
+        # lft_tpu's `0.2 * x` on a bf16 array takes the slope in bf16 too
+        # (0.2001953125); torch's leaky_relu would multiply by f32 0.2
+        return torch.where(x >= 0, x, x * torch.tensor(0.2, dtype=x.dtype, device=x.device))
     return F.leaky_relu(x, 0.2)
 
 
@@ -229,6 +246,21 @@ def resolve_fused(fused: bool, h: int, w: int, C: int, A2: int, device_type: str
     return not training or plain_blocks or ang_block_trainable(A2, device_type)
 
 
+def resolve_bf16(fused, h: int, w: int, C: int, A2: int, device_type: str,
+                 plain_blocks: bool = False) -> bool:
+    """The branch of a `--dtype bfloat16` forward: the fused one (also where
+    `fused` is None, on every device), or NotImplementedError where it was
+    refused or its gates or the kernels' widths do not take the geometry:
+    the unfused branch has no bf16 form yet (ROADMAP.md §1 item 9d)."""
+    if fused is False or not resolve_fused(True, h, w, C, A2, device_type, False,
+                                           plain_blocks):
+        raise NotImplementedError(
+            f"--dtype bfloat16 runs the fused blocks only (views {h}x{w}, {A2} of them, "
+            f"C={C} on {device_type}, fused={fused}): the unfused branch's bf16 form is "
+            f"queued as ROADMAP.md §1 item 9d")
+    return True
+
+
 def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
             fused=None, plain_blocks: bool = False, attention_impl=None) -> torch.Tensor:
     """SR forward: lr [B, 1, A*h, A*w] -> [B, 1, A*h*S, A*w*S] (NCHW, like
@@ -241,9 +273,14 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
     reference the card's kernels are held against. `attention_impl`
     (default `args.attention_impl`) selects the unfused branch's attention:
     auto | dense | tiled | pallas. `args.dtype` `mixed` takes lft_tpu's
-    site plans in the fused branch (module docstring)."""
+    site plans in the fused branch (module docstring), `bfloat16` bf16
+    inference through the fused branch only (`resolve_bf16`)."""
     dt = str(getattr(args, "dtype", "float32") or "float32")
     check_dtype(dt)
+    bf16 = dt == "bfloat16"
+    if bf16 and _needs_grad(lr, *params.values()):
+        raise NotImplementedError("--dtype bfloat16 trains nothing yet: bf16 training is "
+                                  "queued as ROADMAP.md §1 item 9c")
     impl = attention_impl or getattr(args, "attention_impl", "auto") or "auto"
     A = args.angRes
     S = args.scale_factor
@@ -256,6 +293,9 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
     lr = lr[:, 0].float()
     lr_up = bicubic_upscale_views(lr, A, S)                        # [B, H*S, W*S]
     x = mosaic_to_views(lr[..., None], A).reshape(B * A * A, h, w, 1)
+    if bf16:                                   # lft_tpu/models/lft.py:306-307
+        p = {k: v.to(torch.bfloat16) for k, v in params.items()}
+        x = x.to(torch.bfloat16)
 
     x0 = _conv3d_133(x, p["conv_init0.0.weight"])
     y = _leaky(_conv3d_133(x0, p["conv_init.0.weight"]))
@@ -267,10 +307,14 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
     spa_pe = torch.from_numpy(spatial_position(h, w, C)).to(dev)
     ang_pe = torch.from_numpy(angular_position(A * A, C)).to(dev)
 
-    if fused is None:
-        fused = dev.type == "cuda" or plain_blocks
-    fused = resolve_fused(fused, h, w, C, A * A, dev.type, _needs_grad(lr, *p.values()),
-                          plain_blocks)
+    if bf16:
+        fused = resolve_bf16(fused, h, w, C, A * A, dev.type, plain_blocks)
+        spa_pe = spa_pe.to(torch.bfloat16)     # lft_tpu/models/lft.py:348
+    else:
+        if fused is None:
+            fused = dev.type == "cuda" or plain_blocks
+        fused = resolve_fused(fused, h, w, C, A * A, dev.type, _needs_grad(lr, *p.values()),
+                              plain_blocks)
 
     if fused:
         ang_fn = ang_trans_block_plain if plain_blocks else ang_trans_block_fused
@@ -299,11 +343,63 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
 
     # upsampling head (reference model/LFT.py:39-44, 80): 1x1 conv -> pixel
     # shuffle -> LeakyReLU -> 3x3 conv on the whole mosaic
+    if bf16:
+        m = _upsample_fold(views_to_mosaic(buf, A), p["upsampling.0.weight"],
+                           p["upsampling.3.weight"], S)
+        return m.float() + lr_up[:, None]
     m = views_to_mosaic(buf, A).permute(0, 3, 1, 2)                # [B, C, A*h, A*w]
     m = F.conv2d(m, p["upsampling.0.weight"])
     m = _leaky(F.pixel_shuffle(m, S))
     m = F.conv2d(m, p["upsampling.3.weight"], padding=1)           # [B, 1, H*S, W*S]
     return m + lr_up[:, None]
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_index(C: int, S: int):
+    """(rows, columns, taps) of lft_tpu's Wfold (lft_tpu/models/lft.py:
+    413-424): column (s9, i, j) of `U @ Wfold` holds the part of HR pixel
+    (S y + i, S x + j)'s 3x3 conv that LR cell (y + cy, x + cx) gives,
+    s9 = 3 (cy + 1) + cx + 1; row c S^2 + ip S + jp of U is channel c of
+    that cell's subpixel (ip, jp); tap c 9 + 3 ky + kx of the conv weight."""
+    S2 = S * S
+    r, c, k = [], [], []
+    for i in range(S):
+        for j in range(S):
+            for ky in range(3):
+                for kx in range(3):
+                    cy, ip = divmod(i + ky - 1, S)
+                    cx, jp = divmod(j + kx - 1, S)
+                    s9 = (cy + 1) * 3 + (cx + 1)
+                    for ch in range(C):
+                        r.append(ch * S2 + ip * S + jp)
+                        c.append(s9 * S2 + i * S + j)
+                        k.append(ch * 9 + ky * 3 + kx)
+    return tuple(torch.tensor(a) for a in (r, c, k))
+
+
+def _upsample_fold(m, w_up, w3, S: int):
+    """The upsampler as lft_tpu's `fold` computes it (lft_tpu/models/lft.py:
+    391-433), for `--dtype bfloat16`: m [B, H, W, C] (the mosaic, bf16) ->
+    [B, 1, H S, W S]. U = leaky(m W_up^T) in LR layout; T = U Wfold, the 3x3
+    conv's parts from each of the 9 neighbouring LR cells, each rounded to
+    bf16; their sum over the cells, shifted, one bf16 addition at a time in
+    lft_tpu's order; then the pixel shuffle. The same function as the NCHW
+    form, which rounds the conv once and so skips roundings lft_tpu makes:
+    with it the bf16 SR lay 0.876 of lft_tpu's bf16-vs-f32 distance from the
+    f32 SR, with this form 0.984 (tests/test_torch_bf16.py, on the CPU)."""
+    B, H, W, C = m.shape
+    S2 = S * S
+    rows, cols, taps = _fold_index(C, S)
+    wfold = torch.zeros(C * S2, 9 * S2, dtype=m.dtype, device=m.device)
+    wfold[rows.to(m.device), cols.to(m.device)] = w3.reshape(-1)[taps.to(m.device)]
+    u = _leaky(m @ w_up[:, :, 0, 0].t())                           # [B, H, W, S2 C]
+    tp = F.pad(u @ wfold, (0, 0, 1, 1, 1, 1))                      # [B, H+2, W+2, 9 S2]
+    o = 0
+    for s9 in range(9):
+        dy, dx = divmod(s9, 3)
+        o = o + tp[:, dy:dy + H, dx:dx + W, s9 * S2:(s9 + 1) * S2]
+    o = o.reshape(B, H, W, S, S).permute(0, 1, 3, 2, 4)
+    return o.reshape(B, 1, H * S, W * S)
 
 
 def l1_loss(sr: torch.Tensor, hr: torch.Tensor) -> torch.Tensor:

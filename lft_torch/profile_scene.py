@@ -1,7 +1,7 @@
 """Time and profile full-scene SR on one CUDA card.
 
     python3 -m lft_torch.profile_scene [--scenes N] [--seed S] [--plain] [--unfused]
-        [--ang-res A] [--view V] [--patch P] [--dtype float32|mixed]
+        [--ang-res A] [--view V] [--patch P] [--dtype float32|mixed|bfloat16]
         [--matmul-precision default|high|highest]
 
 Loads the full-width 4x demo checkpoint, makes `--scenes` synthetic A x A
@@ -17,8 +17,9 @@ on the card:
 
 `--plain` runs the blocks' plain PyTorch versions instead of the kernels.
 `--dtype mixed` runs lft_tpu's mixed plans (a forward at the default plan
-is the f32 one); `--matmul-precision high` turns TF32 on for the torch ops
-around the kernels.
+is the f32 one), `--dtype bfloat16` the bf16 model (the blocks' `_bf16io`
+kernels, fused only); `--matmul-precision high` turns TF32 on for the torch
+ops around the kernels.
 `--unfused` runs the per-op branch (`fused=False`): the attentions as the
 kernels K7 and K5, or with `--plain` as the tiled torch ops. The environment
 variables `LFT_ANG_VARIANT=sweep` and `LFT_SPA_VARIANT=offset|mxu|tile` send
@@ -53,7 +54,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ang-res", type=int, default=5)
     ap.add_argument("--view", type=int, default=128)
     ap.add_argument("--patch", type=int, default=32)
-    ap.add_argument("--dtype", default="float32", choices=["float32", "mixed"])
+    ap.add_argument("--dtype", default="float32", choices=["float32", "mixed", "bfloat16"])
     ap.add_argument("--matmul-precision", default="default",
                     choices=["default", "high", "highest"])
     a = ap.parse_args(argv)

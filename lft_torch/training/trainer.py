@@ -66,7 +66,12 @@ def make_train_step(model, optimizer, args, with_metrics: bool = True,
     the unfused branch whatever `--train_fused` says, as lft_tpu's does
     (lft_tpu/parallel/mesh.py:66); where the mesh has a process group,
     `data` and `label` are this rank's shard, the gradients are averaged
-    over the ranks before the update and the results are means over them."""
+    over the ranks before the update and the results are means over them.
+    `--dtype bfloat16` raises here, before any step: bf16 training is ROADMAP
+    item 9c, and nothing trains f32 in its place."""
+    if str(getattr(args, "dtype", "float32")) == "bfloat16":
+        raise NotImplementedError("--dtype bfloat16 is inference only: bf16 training is "
+                                  "queued as ROADMAP.md §1 item 9c")
     device = optimizer.params[0].device
     if device.type == "cuda":
         torch.backends.cudnn.deterministic = True

@@ -1290,3 +1290,120 @@ def test_qkv_ln_bwd_kernel_3xtf32(cuda_device, C, V, h, w):
         err, err_f32, scale = _f64_err(u, r, e)
         assert err <= 2 * err_f32 + 1e-7 * scale, (i, err, err_f32)
     assert all(torch.equal(a, b) for a, b in zip(got, spa_block.qkv_ln_bwd(*args, wts)))
+
+
+def _bf16_close(got, ref, ref32, gap=0.1, ulps=1.0):
+    """A `_bf16io` kernel against its plain bf16 version: L2 within `gap` of
+    the plain bf16-vs-f32 distance, every element within `ulps` bf16 ulps of
+    max |plain| (an f32 sum in another order rounds to the neighbouring bf16
+    value now and then; chip_smoke.py's BF16_GAP, BF16_ULPS)."""
+    for g, r, r32 in zip(got, ref, ref32):
+        assert g.dtype == r.dtype == torch.bfloat16 and g.shape == r.shape
+        g, r, r32 = g.double(), r.double(), r32.double()
+        d, d32 = float((g - r).norm() / r.norm()), float((r32 - r).norm() / r.norm())
+        assert d <= gap * d32, (d, d32)
+        ulp = 2.0 ** (np.floor(np.log2(float(r.abs().max()))) - 7)
+        assert float((g - r).abs().max()) <= ulps * ulp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("A2,N", [(25, 37), (81, 7)])
+def test_ang_block_bf16io_kernel(cuda_device, C, A2, N):
+    pb = {k: v.bfloat16() for k, v in _params(C, cuda_device).items()}
+    wts = ang_block.ang_weights(pb, "altblock.1.ang_trans.")
+    g = torch.Generator(device=cuda_device).manual_seed(C + A2)
+    x = torch.randn(N, A2, C, device=cuda_device, generator=g).bfloat16()
+    pe = torch.from_numpy(angular_position(A2, C)).to(cuda_device)
+    reset_launches()
+    got = ang_block.ang_block(x, pe, wts, 8)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ang_block_bf16io"] == 1 and LAUNCHES["ang_block"] == 0
+    ref32 = ang_block.ang_block_plain(x.float(), pe, {k: v.float() for k, v in wts.items()}, 8)
+    _bf16_close((got,), (ang_block.ang_block_plain(x, pe, wts, 8),), (ref32,))
+    assert torch.equal(got, ang_block.ang_block(x, pe, wts, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("V,h,w", [(3, 9, 7), (2, 17, 40), (2, 32, 32)])
+def test_spa_block_bf16io_kernels(cuda_device, C, V, h, w):
+    """Each of K2's five `_bf16io` steps from its plain predecessor's bf16
+    output, and the five chained."""
+    pb = {k: v.bfloat16() for k, v in _params(C, cuda_device).items()}
+    ws = spa_block.spa_weights(pb, "altblock.2.spa_trans.")
+    ws32 = {k: v.float() for k, v in ws.items()}
+    g = torch.Generator(device=cuda_device).manual_seed(C + h)
+    x = torch.randn(V, h, w, C, device=cuda_device, generator=g).bfloat16()
+    pe_tok = torch.randn(h, w, 2 * C, device=cuda_device, generator=g).bfloat16()
+    f = lambda ts: [t.float() for t in ts]
+    reset_launches()
+    steps = [(spa_block.tokenize_ln, spa_block.tokenize_ln_plain, (x, pe_tok))]
+    tok, xn = spa_block.tokenize_ln_plain(x, pe_tok, ws)
+    q, k, v = spa_block.qkv_plain(xn, tok, ws)
+    attn = spa_block.window_attn_plain(q, k, v, 8, 5)[0]
+    x2, xn2 = spa_block.outproj_ln_plain(attn, tok, ws)
+    steps += [(spa_block.qkv, spa_block.qkv_plain, (xn, tok)),
+              (spa_block.outproj_ln, spa_block.outproj_ln_plain, (attn, tok)),
+              (spa_block.ffn_out, spa_block.ffn_out_plain, (xn2, x2))]
+    for kern, plain, ins in steps:
+        got = kern(*ins, ws)
+        got = got if isinstance(got, tuple) else (got,)
+        ref, ref32 = plain(*ins, ws), plain(*f(ins), ws32)
+        _bf16_close(got, ref if isinstance(ref, tuple) else (ref,),
+                    ref32 if isinstance(ref32, tuple) else (ref32,))
+    got = spa_block.window_attn(q, k, v, 8, 5)
+    _bf16_close((got,), (attn,), (spa_block.window_attn_plain(*f((q, k, v)), 8, 5)[0],))
+    torch.cuda.synchronize()
+    assert all(LAUNCHES[n + "_bf16io"] == 1 for n in FORWARD if n.startswith("spa_"))
+    assert not any(LAUNCHES[n] for n in FORWARD)
+    chained = spa_block.spa_block(x, pe_tok, ws, 8, 5)
+    assert chained.dtype == torch.bfloat16 and torch.isfinite(chained.float()).all()
+
+
+@pytest.mark.cuda
+def test_bf16_forward_kernels_match_plain_blocks(cuda_device):
+    """The bf16 forward on the card: the kernels' distance from the f32
+    forward within 10% of the plain blocks' (tests/test_torch_bf16.py says
+    why L2 between two bf16 forwards does not tell them apart), and only
+    the `_bf16io` kernels launched."""
+    from lft_torch.kernels import BF16IO
+    args = Args(channels=16, scale_factor=2, dtype="bfloat16")
+    p = _params(16, cuda_device, seed=3)
+    lr = torch.from_numpy(np.random.RandomState(0).rand(2, 1, 80, 80).astype(np.float32))
+    lr = lr.to(cuda_device)
+    reset_launches()
+    got = lft.forward(p, lr, args)
+    torch.cuda.synchronize()
+    assert all(LAUNCHES[n] == 4 for n in BF16IO)
+    assert sum(LAUNCHES.values()) == 4 * len(BF16IO)
+    ref = lft.forward(p, lr, args, plain_blocks=True)
+    f32 = lft.forward(p, lr, Args(channels=16, scale_factor=2))
+    l2 = lambda a, b: float((a - b).double().norm() / b.double().norm())
+    assert got.dtype == torch.float32 and abs(l2(got, f32) / l2(ref, f32) - 1) <= 0.1
+    assert l2(got, ref) <= 1.5 * l2(ref, f32)
+
+
+@pytest.mark.cuda
+def test_bf16_raises_where_no_kernel_is_ported(cuda_device):
+    """A bf16 tensor at a kernel without a bf16-IO form raises, naming its
+    ROADMAP item; at an f32 launcher, TypeError; a width the kernels do not
+    take raises under bfloat16 (item 9d)."""
+    pb = {k: v.bfloat16() for k, v in _params(16, cuda_device).items()}
+    wa = ang_block.ang_weights(pb, "altblock.0.ang_trans.")
+    ws = spa_block.spa_weights(pb, "altblock.0.spa_trans.")
+    x = torch.zeros(4, 25, 16, device=cuda_device, dtype=torch.bfloat16)
+    pe = torch.from_numpy(angular_position(25, 16)).to(cuda_device)
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        ang_block.ang_block(x, pe, wa, 8, with_res=True)
+    xs = torch.zeros(1, 8, 8, 25, 16, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="item 9d"):
+        spa_block.tokenize_ln(xs, torch.zeros(8, 8, 32, device=cuda_device,
+                                              dtype=torch.bfloat16), ws, pixel_major=True)
+    q = torch.zeros(2, 8, 8, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        spa_attn_hp.spa_attn_hp_fwd(q, q, q, 8, 5)
+    p48 = _params(48, cuda_device)
+    with pytest.raises(NotImplementedError, match="item 9d"):
+        lft.forward(p48, torch.zeros(1, 1, 40, 40, device=cuda_device),
+                    Args(channels=48, scale_factor=2, dtype="bfloat16"))

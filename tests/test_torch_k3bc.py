@@ -229,10 +229,12 @@ def test_k3bc_wrappers_plain_on_cpu_and_sources():
     entry = spa.split('extern "C" int lft_spa_ln_qkv(', 1)[1].split("}", 1)[0]
     assert "return qkv<true>(nullptr, tok, wqk, wv, wf, q, k, v, T, C, pe_tok, ln, xn, hw," \
         in entry
-    for line in ("auto kernel = spa_qkv_kernel<CC, LN1, BF>;", "LFT_SET_SMEM(kernel, L::BYTES);",
+    for line in ("auto kernel = spa_qkv_kernel<CC, LN1, BF, IO>;",
+                 "LFT_SET_SMEM(kernel, L::BYTES);",
                  "row_pass<C, false, Ln1Rows<2 * C>, BF>(tok, wf, q, nullptr, nullptr, nullptr, "
                  "nullptr, smem,",
-                 "LN1 ? xn_out : xn, tok, wf, q, k, v, T, Ln1Rows<L::D>{pe_tok, ln, xn_out, hw});",
+                 "if constexpr (LN1) ln1 = Ln1Rows<L::D>{pe_tok, ln, xn_out, hw};",
+                 "L::BYTES, s>>>(LN1 ? xn_out : xn, tok, wf, q,",
                  "RL::apply(v[r], ln, ln + D);"):
         assert line in spa, line
     assert "qkv_floats(D // 2)" in inspect.getsource(sb.ln_qkv)

@@ -352,7 +352,9 @@ def test_matmul_precision_flag(prec):
 
 def test_bfloat16_raises_and_card_plans():
     p = lft.init_params(0, Args(channels=C, scale_factor=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="9b"):
+    for t in p.values():
+        t.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="9c"):
         lft.forward(p, torch.zeros(1, 1, 40, 40), Args(channels=C, scale_factor=2,
                                                        dtype="bfloat16"))
     assert parse_args(["--dtype", "mixed"]).dtype == "mixed"

@@ -126,8 +126,9 @@ def test_registry_and_init():
 
 
 def test_only_float32():
-    """float32 and mixed run; bfloat16 raises, naming its ROADMAP item."""
+    """float32 and mixed run every branch; bfloat16 runs the fused branch
+    only: the unfused one raises, naming its ROADMAP item."""
     args = Args(channels=16, scale_factor=2, dtype="bfloat16")
     p = lft.init_params(0, Args(channels=16, scale_factor=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9b"):
-        lft.forward(p, torch.zeros(1, 1, 40, 40), args)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9d"):
+        lft.forward(p, torch.zeros(1, 1, 40, 40), args, fused=False)
