@@ -209,7 +209,33 @@
     element off by more than BF16_ULPS bf16 ulps of max |plain|, a bitwise
     repeat, timed beside its bound (bf16 bytes, every operation at the bf16
     rate) and the bf16 library calls;
-24. prints the `kernels` JSON line (every kernel, old and new), the card's
+24. `--dtype bfloat16` training (lft_tpu's fused bf16 train step: K1 res,
+    K2 res, K4, K3 and `wgrad` in their `_bf16io` instances, the master
+    weights and Adam state f32): (a) the fused train step of the 4x recipe
+    from the demo checkpoint under `bfloat16` (`--train_fused auto`) through
+    the kernels against the same step through the plain blocks: |dloss|
+    within BF16T_LOSS |loss|, the smooth loss's gradient (one vector) within
+    BF16T_TOL of the plain step's distance from the f32 step's and within
+    BF16T_L2 of that distance from the plain step's gradient, the master
+    weights f32, a bitwise repeat, and 4 launches a step of each of
+    `ang_block_res_bf16io`, `spa_window_attn_res_bf16io`,
+    `ang_block_bwd_bf16io`, K3's five `_bf16io` steps and K2's other four
+    `_bf16io` steps, 56 of `wgrad_bf16io`, 16 of `colsum` (its inputs are
+    f32 partial sums) and no f32 or `_bf16` form; (b) two such steps at
+    angRes 9 and patch 16, where K4 takes its 128-row form
+    (`ang_block_bwd128_bf16io`); (c) each new kernel against its plain bf16
+    version at the step's shapes (K1 res and K4 [4096, 25, 64], K4 [1024,
+    81, 64], K2.3 res and K3 [100, 32, 32, 64], `wgrad_bf16io` at the 8
+    products and with an f32 dy), the plain f32 version on the same values
+    the yardstick (`bf16t_err`), K1 res's out and K2.3 res's attn bit for bit
+    the serving kernels', a bitwise repeat, each timed in device time beside
+    its bound (bf16 bytes, the bf16 rate), `wgrad_bf16io` also beside
+    `torch.mm(x.t(), dy, out_dtype=torch.float32)`, then beside its f32 and
+    `_bf16` instances in turns; (d) the step's ms under float32, mixed and
+    bfloat16, in turns; (e) the train CLI's body under `bfloat16` for 2
+    epochs of 2 steps (f32 checkpoints; a resume from the epoch-1 file ends
+    on the uninterrupted run's parameters bit for bit);
+25. prints the `kernels` JSON line (every kernel, old and new), the card's
     name and power limit, and last `{"ok": true, "device": {...}}`.
 
 The plain and library versions of the large shapes of steps 16 and 19 are
@@ -259,6 +285,21 @@ MIXED_REL, MIXED_GAP = 1e-3, 0.1
 # L2 from the plain blocks' scene over that distance
 BF16_GAP, BF16_ULPS = 0.1, 1.0
 BF16_SCENE_TOL, BF16_SCENE_L2 = 0.1, 1.5
+# `--dtype bfloat16` training: a kernel output whose plain bf16 and f32
+# versions run the same f32 arithmetic (dtokpe, the LN partial sums) within
+# BF16T_F32_REL L2-relative of the plain bf16 one; the step against the plain
+# blocks: |dloss| within BF16T_LOSS |loss|, the kernel gradient's distance
+# from the f32 step's within BF16T_TOL of the plain step's, and its L2 from
+# the plain step's within BF16T_L2 of that distance (four blocks of bf16
+# roundings decorrelate: tests/test_torch_bf16train.py)
+BF16T_F32_REL = 1e-4
+BF16T_LOSS, BF16T_TOL, BF16T_L2 = 1e-3, 0.1, 1.5
+# ... and an element of a bf16 output within BF16T_ULPS bf16 ulps of max
+# |plain|: a backward's bf16 intermediate (ds, p, dpre) that rounds to its
+# neighbouring bf16 value in one of the two moves the sums it enters by
+# its own ulp, which cancellation can leave above the output's (K4's dq,
+# 1.75 ulps at [4096, 25, 64] on an H100; L2 0.016 of the distance)
+BF16T_ULPS = 4.0
 
 
 def card_line() -> str:
@@ -345,11 +386,14 @@ def mixed_err(got, ref, ref32):
     return worst, ok
 
 
-def bf16_err(got, ref, ref32):
+def bf16_err(got, ref, ref32, ulps_max=BF16_ULPS, f32_rel=0.0):
     """A `_bf16io` instance against its plain bf16 version: (max |got -
     ref|, whether every output is within BF16_GAP of the plain bf16-vs-f32
-    distance (L2) and BF16_ULPS bf16 ulps of max |ref|). Prints every
-    output's distances."""
+    distance (L2) and, where it is bf16, `ulps_max` bf16 ulps of max |ref|).
+    An output whose plain bf16 and f32 versions agree within `f32_rel` (the
+    same f32 arithmetic on the same values: a bf16-training kernel's
+    dtokpe and LN sums, `bf16t_err`) is held within `f32_rel` L2 of the
+    plain bf16 one instead. Prints every output's distances."""
     import torch
     if isinstance(got, torch.Tensor):
         got, ref, ref32 = (got,), (ref,), (ref32,)
@@ -360,13 +404,25 @@ def bf16_err(got, ref, ref32):
                                  f"{tuple(r.shape)}")
         d, gap = l2_rel(g, r), l2_rel(r32, r)
         err = float((g.float() - r.float()).abs().max())
-        ulps = err / 2.0 ** (math.floor(math.log2(float(r.float().abs().max()))) - 7)
-        ok = ok and d <= BF16_GAP * gap and ulps <= BF16_ULPS
         worst = max(worst, err)
-        report.append(f"#{i} {tuple(g.shape)}: L2 {d:.3e}, bf16-vs-f32 {gap:.3e} "
-                      f"({d / gap:.4f} of it), max |diff| {ulps:.2f} bf16 ulps of max |plain|")
+        if gap <= f32_rel:
+            ok = ok and d <= f32_rel
+            report.append(f"#{i} {tuple(g.shape)} {str(g.dtype)[6:]}: L2 {d:.3e} (f32 "
+                          f"arithmetic in both: limit {f32_rel:g})")
+            continue
+        ulps = err / 2.0 ** (math.floor(math.log2(float(r.float().abs().max()))) - 7)
+        ok = ok and d <= BF16_GAP * gap and (ulps <= ulps_max or g.dtype != torch.bfloat16)
+        report.append(f"#{i} {tuple(g.shape)} {str(g.dtype)[6:]}: L2 {d:.3e}, bf16-vs-f32 "
+                      f"{gap:.3e} ({d / gap:.4f} of it), max |diff| {ulps:.2f} bf16 ulps of "
+                      f"max |plain|")
     print("  per output: " + "; ".join(report), flush=True)
     return worst, ok
+
+
+def bf16t_err(got, ref, ref32):
+    """A bf16-training kernel against its plain bf16 version: `bf16_err`
+    with BF16T_ULPS and BF16T_F32_REL."""
+    return bf16_err(got, ref, ref32, BF16T_ULPS, BF16T_F32_REL)
 
 
 def calm_relu(dout, hid_k, hid_p, what: str):
@@ -409,7 +465,8 @@ class Recorder:
 
     def record(self, name, src, replaces, got, ref, fn_k, fn_p, flops, io, lib_fn=None,
                rel=None, shape=None, slow_reps=10, device_time=False, tf32_products=0,
-               bf16_products=False, fp32_flops=0, ref32=None, bf16_ref32=None):
+               bf16_products=False, fp32_flops=0, ref32=None, bf16_ref32=None,
+               bf16t_ref32=None):
         """With `shape` the check is one more shape of a kernel that has its
         row already: compared, timed and printed, not added to the rows.
         `slow_reps`: launches timed of the plain and library versions.
@@ -427,8 +484,11 @@ class Recorder:
         plain version's outputs, for a bf16-operand instance held by
         `mixed_err` (`ref` is then the plain version under the mixed plan).
         `bf16_ref32`: the plain f32 version's outputs, for a `_bf16io`
-        instance held by `bf16_err` (`ref` the plain bf16 version's)."""
-        if bf16_ref32 is not None:
+        instance held by `bf16_err` (`ref` the plain bf16 version's);
+        `bf16t_ref32` likewise for a bf16-training instance, `bf16t_err`."""
+        if bf16t_ref32 is not None:
+            err, ok = bf16t_err(got, ref, bf16t_ref32)
+        elif bf16_ref32 is not None:
             err, ok = bf16_err(got, ref, bf16_ref32)
         else:
             err, ok = max_err(got, ref, rel) if ref32 is None else mixed_err(got, ref, ref32)
@@ -457,8 +517,10 @@ class Recorder:
         limit = (f"per output L2-relative {MIXED_REL:g} and {MIXED_GAP:g} of mixed-vs-f32"
                  if ref32 is not None else
                  f"per output {BF16_GAP:g} of bf16-vs-f32 and {BF16_ULPS:g} bf16 ulp"
-                 if bf16_ref32 is not None else f"{KERNEL_ATOL:g} x max(1, max|ref|)"
-                 if rel is None else f"{rel:g} x max|ref|")
+                 if bf16_ref32 is not None else
+                 f"per output {BF16_GAP:g} of bf16-vs-f32 and {BF16T_ULPS:g} bf16 ulps"
+                 if bf16t_ref32 is not None else
+                 f"{KERNEL_ATOL:g} x max(1, max|ref|)" if rel is None else f"{rel:g} x max|ref|")
         print(f"kernel {name}{'' if shape is None else f' at {list(shape)}'}: "
               f"max_abs_err {err:.3e} (limit {limit}) "
               f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
@@ -2937,6 +2999,393 @@ def bf16_scene_phase(params, args, scenes, cache, card: str) -> dict:
     return counts
 
 
+def bf16_train_phase(params, seed: int, steps: int = TRAIN_STEPS, ang_res: int = 5,
+                     patch: int = 32):
+    """Step 24 a and b: the fused train step of the 4x recipe under `--dtype
+    bfloat16` (`--train_fused auto`) through the kernels against the same
+    step through the plain blocks (module docstring), its bitwise repeat
+    and its launches. Returns (the launch counts, their steps, the
+    kernel step's (params, step fn, batch) for the timing of d)."""
+    import dataclasses
+    import functools
+
+    import torch
+    from lft_torch.config import Args
+    from lft_torch.data.device_synth import synth_batch
+    from lft_torch.kernels import BF16IO, BF16TRAIN, LAUNCHES, reset_launches
+    from lft_torch.models.lft import forward
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import make_optimizer
+    from lft_torch.training.trainer import make_train_step
+
+    dev = torch.device("cuda")
+    ab_ = Args(angRes=ang_res, scale_factor=4, channels=64, batch_size=4, lr=2e-4, n_steps=15,
+               gamma=0.5, epoch=50, dtype="bfloat16")
+    a32 = dataclasses.replace(ab_, dtype="float32", train_fused="true")
+    model = get_model(ab_)
+    plain = dataclasses.replace(model, apply=functools.partial(forward, plain_blocks=True))
+    smooth = lambda sr, y: ((sr - y) * torch.cos(3.0 * (sr - y))).mean()
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    new_batch = lambda: synth_batch(gen, batch=4, ang_res=ang_res, patch=patch, scale=4)
+    k4, other = (("ang_block_bwd128_bf16io", "ang_block_bwd_bf16io") if ang_res ** 2 > 64
+                 else ("ang_block_bwd_bf16io", "ang_block_bwd128_bf16io"))
+    what = f"bf16 train ({ang_res}x{ang_res} views, patch {patch})"
+    lr, hr = new_batch()
+
+    def step(m, args, loss=None):
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        fn = make_train_step(m if loss is None else dataclasses.replace(m, loss=loss),
+                             make_optimizer(p, args, steps_per_epoch=1000), args)
+        out = float(fn(p, lr, hr)[0])
+        return out, torch.cat([p[k].grad.reshape(-1) for k in sorted(p)]), p, fn
+
+    reset_launches()
+    loss_p, _, _, _ = step(plain, ab_)
+    _, g_p, _, _ = step(plain, ab_, smooth)
+    _, g_f, _, _ = step(plain, a32, smooth)
+    torch.cuda.synchronize()
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"the plain bf16 path launched kernels: {dict(LAUNCHES)}")
+    reset_launches()
+    loss_k, g_r, p_a, step_a = step(model, ab_)
+    p_a1 = {k_: v.detach().clone() for k_, v in p_a.items()}
+    loss_b, g_b, p_b, _ = step(model, ab_)
+    _, g_k, _, _ = step(model, ab_, smooth)
+    for _ in range(steps):
+        step_a(p_a, *new_batch())
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    n = 3 + steps
+    print(f"{what} step 1: loss kernels {loss_k:.8f} plain {loss_p:.8f} "
+          f"(|d| {abs(loss_k - loss_p):.3e}, limit {BF16T_LOSS:g} |loss|)", flush=True)
+    if not abs(loss_k - loss_p) <= BF16T_LOSS * abs(loss_p):
+        raise AssertionError("bf16 kernel-path loss disagrees with the plain path")
+    gap, own, d = l2_rel(g_p, g_f), l2_rel(g_k, g_f), l2_rel(g_k, g_p)
+    print(f"{what} step 1 (smooth loss): the gradient's distance from the f32 step's "
+          f"{own:.4e}, the plain blocks' {gap:.4e} ({own / gap:.4f}, limit 1 +- {BF16T_TOL:g}); "
+          f"L2 from the plain step's gradient {d:.4e} ({d / gap:.4f} of its distance, limit "
+          f"{BF16T_L2:g})", flush=True)
+    if not (abs(own / gap - 1) <= BF16T_TOL and d <= BF16T_L2 * gap):
+        raise AssertionError("the bf16 kernel path's gradient disagrees with the plain path")
+    if not all(v.dtype == torch.float32 for v in p_a.values()):
+        raise AssertionError("bf16 training: the master parameters left f32")
+    same = (loss_b == loss_k and torch.equal(g_r, g_b)
+            and all(torch.equal(p_a1[k_], p_b[k_]) for k_ in p_b))
+    print(f"{what} step repeated from the same state: loss, grads and params bitwise "
+          f"equal: {same}", flush=True)
+    if not same:
+        raise AssertionError("a repeated bf16 kernel-path step is not bitwise equal")
+    print(f"launches in the {what} run ({n} kernel-path steps): "
+          f"{ {k_: v for k_, v in counts.items() if v} }", flush=True)
+    want = {k_: 4 * n for k_ in BF16TRAIN if k_ not in (other, "wgrad_bf16io")}
+    want.update({k_: 4 * n for k_ in BF16IO if k_ not in ("ang_block_bf16io",
+                                                          "spa_window_attn_bf16io")})
+    want.update(wgrad_bf16io=56 * n, colsum=16 * n)
+    wrong = {k_: counts[k_] for k_ in LAUNCHES if counts[k_] != want.get(k_, 0)}
+    if wrong:
+        raise AssertionError(f"{what} steps: expected {want} and no other launch (no f32 or "
+                             f"_bf16 form), got {wrong}")
+    return counts, n, (p_a, step_a, lr, hr)
+
+
+def bf16_step_times(params, kernel_step, seed: int) -> None:
+    """Step 24 d: the fused train step's ms under float32, mixed and
+    bfloat16, in turns (f32, mixed, bf16, bf16, mixed, f32), 3 steps each
+    after a warm-up, CUDA events."""
+    import dataclasses
+
+    import torch
+    from lft_torch.config import Args
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import make_optimizer
+    from lft_torch.training.trainer import make_train_step
+
+    _, _, lr, hr = kernel_step
+    base = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, lr=2e-4, n_steps=15,
+                gamma=0.5, epoch=50, train_fused="true")
+    fns = {}
+    for dt in ("float32", "mixed", "bfloat16"):
+        args = dataclasses.replace(base, dtype=dt)
+        p = {k_: v.detach().clone().requires_grad_(True) for k_, v in params.items()}
+        fns[dt] = (p, make_train_step(get_model(args), make_optimizer(p, args, 1000), args))
+    times = {k_: [] for k_ in fns}
+    for dt in ("float32", "mixed", "bfloat16", "bfloat16", "mixed", "float32"):
+        p, fn = fns[dt]
+        fn(p, lr, hr)                                    # warm-up
+        for _ in range(3):
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            fn(p, lr, hr)
+            ev1.record()
+            ev1.synchronize()
+            times[dt].append(ev0.elapsed_time(ev1))
+    med = {k_: sorted(v)[len(v) // 2] for k_, v in times.items()}
+    print(f"{card_line()}: fused train step, batch 4 of 32x32-view patches, 5x5 views, 4x, C=64, "
+          f"in turns f32, mixed, bf16, bf16, mixed, f32 (3 steps each, CUDA events): median "
+          + ", ".join(f"{k_} {v:.3f} ms" for k_, v in med.items())
+          + "; all " + "; ".join(f"{k_} {[round(t, 3) for t in v]}" for k_, v in times.items()),
+          flush=True)
+
+
+def bf16_train_kernel_checks(params, card: str, launches: dict, n_steps: int, launches9: dict,
+                             n_steps9: int, seed: int) -> list:
+    """Step 24 c: each bf16-training instance against its plain bf16
+    version at the train step's shapes (K1 res and K4 [4096, 25, 64], K4
+    also [1024, 81, 64], K2.3 res and K3 [100, 32, 32, 64], `wgrad_bf16io`
+    at the step's 8 products), the demo checkpoint's weights cast to bf16,
+    each step fed its plain predecessor's output; the plain f32 version on
+    the same values is the yardstick (`bf16t_err`); a bitwise repeat; the
+    `kernels` rows, bound at the bf16 rate on bf16 bytes; then each one's
+    device ms beside its f32 instance's and its `_bf16` one's (where it has
+    one) on the same values, in turns."""
+    import torch
+    from lft_torch.compare_wgrad import STEP_PRODUCTS
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import common
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.kernels import wgrad as wg
+    from lft_torch.ops.posenc import angular_position, spatial_position
+    from lft_torch.ops.unfold import unfold3x3_linear
+    from lft_torch.profile_scene import device_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    plan = common.mm_site_plan(True, frozenset())      # `mixed`'s backward plan `none`
+    C, h, w, H, K = 64, 32, 32, 8, 5
+    D, V, T = 2 * C, 100, 100 * 32 * 32
+    rec = Recorder(card, launches, n_steps, "bf16 train step")
+    rec9 = Recorder(card, launches9, n_steps9, "angRes-9 bf16 train step")
+    pb = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    f32 = lambda ts: tuple(t.float() if t.dtype == torch.bfloat16 else t for t in ts)
+    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
+    summed = lambda o: (*o[:-1], o[-1].sum(0))
+    rand = lambda *s_: torch.randn(*s_, device=dev, generator=g).to(torch.bfloat16)
+    turns = []
+
+    def check(name, src, replaces, fn, plain, args, args32, flops, io, half=None, sums=False,
+              recorder=rec, **kw):
+        """`fn(*args)` (the wrapper on bf16 tensors) against `plain(*args)`,
+        `plain(*args32)` the f32 yardstick; `half(*args32)` its `_bf16`
+        instance (the mixed backward's) and `fn(*args32)` its f32 one."""
+        got, ref, ref32 = (as_tuple(t) for t in (fn(*args), plain(*args), plain(*args32)))
+        again = as_tuple(fn(*args))
+        if sums:
+            got, again, ref, ref32 = (summed(t) for t in (got, again, ref, ref32))
+        recorder.record(name, "lft_torch/csrc/" + src, replaces, got, ref, lambda: fn(*args),
+                        lambda: plain(*args), flops, io, bf16_products=True, bf16t_ref32=ref32,
+                        device_time=True, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"  {name}: repeated bitwise: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{name} does not repeat bitwise")
+        forms = [("f32", lambda: fn(*args32))]
+        if half is not None:
+            forms.append(("_bf16", lambda: half(*args32)))
+        turns.append((name, forms + [("_bf16io", lambda: fn(*args))]))
+        return ref
+
+    # K1 res and K4 at [4096, 25, 64], K4 also at [1024, 81, 64], block 0's weights
+    wa = ab.ang_weights(pb, "altblock.0.ang_trans.")
+    wa32 = {k: v.float() for k, v in wa.items()}
+    wab = sum(nbytes(t) for t in wa.values())
+    for N, A2 in ((4096, 25), (1024, 81)):
+        x, dout = rand(N, A2, C), rand(N, A2, C)
+        pe = torch.from_numpy(angular_position(A2, C)).to(dev)
+        Tk = N * A2
+        if A2 <= 64:
+            res = check("ang_block_res_bf16io", "ang_block.cu", "lft_tpu/kernels/ang_block.py:233",
+                        lambda *a: ab.ang_block(*a, H, with_res=True),
+                        lambda *a: ab.ang_block_plain(*a, H, with_res=True), (x, pe, wa),
+                        (x.float(), pe, wa32), 2 * Tk * 8 * C * C, nbytes(x, pe, x, x)
+                        + 8 * Tk * H + wab, fp32_flops=4 * Tk * A2 * C)
+            if not torch.equal(ab.ang_block(x, pe, wa, H, with_res=True)[0],
+                               ab.ang_block(x, pe, wa, H)):
+                raise AssertionError("ang_block_res_bf16io's out is not ang_block_bf16io's")
+            print("  ang_block_res_bf16io: out bit for bit ang_block_bf16io's", flush=True)
+        else:
+            res = ab.ang_block_plain(x, pe, wa, H, with_res=True)
+        _, m, l, attn = res
+        name = "ang_block_bwd_bf16io" if A2 <= 64 else "ang_block_bwd128_bf16io"
+        dout = calm_relu(dout, ab.ang_block_bwd_ops(x, pe, wa, m, l, attn, dout, H)[8],
+                         ab.ang_block_bwd_ops_plain(x, pe, wa, m, l, attn, dout, H)[8],
+                         f"{name} at A2 = {A2}")
+        check(name, "ang_block.cu", "lft_tpu/kernels/ang_block.py:477",
+              lambda *a: ab.ang_block_bwd_ops(*a, H), lambda *a: ab.ang_block_bwd_ops_plain(*a, H),
+              (x, pe, wa, m, l, attn, dout), (x.float(), pe, wa32, m, l, attn.float(),
+                                              dout.float()),
+              28 * Tk * C * C, nbytes(x, pe, m, l, attn, dout) + Tk * C * (6 * 2 + 4)
+              + 2 * Tk * 2 * C * 2 + wab, half=lambda *a: ab.ang_block_bwd_ops(*a, H, plan=plan),
+              sums=True, fp32_flops=10 * C * N * A2 * A2, recorder=rec if A2 <= 64 else rec9)
+        del x, dout, res, m, l, attn
+
+    # K2.3 res and K3's five steps at [100, 32, 32, 64], block 0's weights
+    ws = sb._with_mlp(sb.spa_weights(pb, "altblock.0.spa_trans."))
+    ws32 = {k: v.float() for k, v in ws.items()}
+    wbytes = lambda *k: sum(nbytes(ws[n]) for n in k)
+    src, rep = "spa_block_bwd.cu", "lft_tpu/kernels/spa_block.py:667"
+    xs = rand(V, h, w, C)
+    spa_pe = torch.from_numpy(spatial_position(h, w, C)).to(dev).to(torch.bfloat16)
+    pe_tok = unfold3x3_linear(spa_pe[None], ws["mlp"])[0].contiguous()
+    tok, xn = sb.tokenize_ln_plain(xs, pe_tok, ws)
+    q, k, v = sb.qkv_plain(xn, tok, ws)
+    pairs = V * valid_window_pairs(h, w, K // 2)
+    attn, m, l = check("spa_window_attn_res_bf16io", "spa_block.cu",
+                       "lft_tpu/kernels/spa_block.py:339",
+                       lambda *a: sb.window_attn(*a, H, K, with_stats=True),
+                       lambda *a: sb.window_attn_plain(*a, H, K), (q, k, v), f32((q, k, v)),
+                       4 * D * pairs, nbytes(q, k, v, q) + 2 * T * H * 4)
+    if not torch.equal(sb.window_attn(q, k, v, H, K, with_stats=True)[0],
+                       sb.window_attn(q, k, v, H, K)):
+        raise AssertionError("spa_window_attn_res_bf16io's attn is not spa_window_attn_bf16io's")
+    print("  spa_window_attn_res_bf16io: attn bit for bit spa_window_attn_bf16io's", flush=True)
+    dout = rand(V, h, w, C)
+    dout = calm_relu(dout, sb.ffn_out_bwd(attn, tok, dout, ws)[4],
+                     sb.ffn_out_bwd_plain(attn, tok, dout, ws)[4], "spa_ffn_out_bwd_bf16io")
+    dx2, dattn, *_ = check("spa_ffn_out_bwd_bf16io", src, rep, sb.ffn_out_bwd, sb.ffn_out_bwd_plain,
+                           (attn, tok, dout, ws), (*f32((attn, tok, dout)), ws32),
+                           T * (20 * D * D + 2 * C * D), nbytes(attn, tok, dout) + T * D * 4
+                           + T * D * 2 * 8 + wbytes("ln", "wo", "w1", "w2", "wlin"),
+                           half=lambda *a: sb.ffn_out_bwd(*a, plan=plan), sums=True)
+    xn, q, k, v = check("spa_ln_qkv_bf16io", "spa_block.cu", rep, sb.ln_qkv, sb.ln_qkv_plain,
+                        (tok, pe_tok, ws), (*f32((tok, pe_tok)), ws32), 6 * T * D * D,
+                        nbytes(tok, pe_tok) + 5 * T * D * 2 + wbytes("ln", "wqk", "wv"),
+                        half=lambda *a: sb.ln_qkv(*a, plan=plan))
+    dq, dk, dv = check("spa_window_attn_bwd_bf16io", "spa_attn_hp.cu", rep,
+                       lambda *a, m=m, l=l: sb.window_attn_bwd(*a, m, l, H, K),
+                       lambda *a, m=m, l=l: sb.window_attn_bwd_plain(*a, m, l, H, K),
+                       (q, k, v, attn, dattn), f32((q, k, v, attn, dattn)), 10 * D * pairs,
+                       nbytes(q, k, v, dattn, m, l) + 3 * T * D * 2,
+                       half=lambda *a, m=m, l=l: sb.window_attn_bwd(*a, m, l, H, K, plan=plan))
+    dtok = check("spa_qkv_ln_bwd_bf16io", src, rep, sb.qkv_ln_bwd, sb.qkv_ln_bwd_plain,
+                 (tok, pe_tok, dq, dk, dv, dx2, ws), (*f32((tok, pe_tok, dq, dk, dv, dx2)), ws32),
+                 6 * T * D * D, nbytes(tok, pe_tok, dq, dk, dv, dx2) + T * D * (2 + 4)
+                 + wbytes("ln", "wqk", "wv"), half=lambda *a: sb.qkv_ln_bwd(*a, plan=plan),
+                 sums=True)[0]
+    check("spa_tokenize_bwd_bf16io", src, rep, sb.tokenize_bwd, sb.tokenize_bwd_plain,
+          (dtok, ws), (dtok.float(), ws32), 2 * D * C * V * valid_window_pairs(h, w, 1),
+          nbytes(dtok) + T * C * 2 + wbytes("wu"), half=lambda *a: sb.tokenize_bwd(*a, plan=plan))
+    del xs, tok, xn, q, k, v, attn, m, l, dout, dx2, dattn, dq, dk, dv, dtok
+
+    # wgrad_bf16io at the step's 8 products (bf16 x and dy; the dwo products
+    # take dx2 in f32, timed as one more shape), beside cuBLAS's bf16 product
+    # with an f32 output on the same bf16 tensors
+    def lib_mm(xb, db):
+        return torch.mm(xb.t(), db, out_dtype=torch.float32)
+    try:
+        lib_mm(torch.ones(8, 8, device=dev, dtype=torch.bfloat16),
+               torch.ones(8, 8, device=dev, dtype=torch.bfloat16))
+        has_lib = True
+    except (TypeError, RuntimeError) as e:
+        has_lib = False
+        print(f"  torch.mm(..., out_dtype=float32) of bf16 operands is not available ({e}); "
+              f"wgrad_bf16io's library time is null", flush=True)
+    rows = list(STEP_PRODUCTS) + [("K3 dwo, dy = dx2 in f32", 128, 128, None, 4)]
+    for i, (what, Kw, Nw, image, per_step) in enumerate(rows):
+        x = rand(T, Kw)
+        dy = rand(T, Nw) if i < len(STEP_PRODUCTS) else rand(T, Nw).float()
+        got, again = wg.wgrad(x, dy, image), wg.wgrad(x, dy, image)
+        ref, ref32 = wg.wgrad_plain(x, dy, image), wg.wgrad_plain(x.float(), dy.float(), image)
+        lib = None
+        if has_lib and image is None and dy.dtype == torch.bfloat16:
+            lib = lambda x=x, dy=dy: lib_mm(x, dy)
+        pairs_w = T if image is None else V * valid_window_pairs(h, w, 1)
+        rec.record("wgrad_bf16io", "lft_torch/csrc/wgrad.cu", "lft_tpu/kernels/spa_block.py:570",
+                   (got,), (ref,), lambda x=x, dy=dy, im=image: wg.wgrad(x, dy, im),
+                   lambda x=x, dy=dy, im=image: wg.wgrad_plain(x, dy, im),
+                   2 * pairs_w * Kw * Nw, nbytes(x, dy, got), lib_fn=lib, bf16t_ref32=(ref32,),
+                   shape=None if i == 0 else (T, Kw, Nw) + (image or ()), device_time=True,
+                   bf16_products=True)
+        print(f"  wgrad_bf16io {what}: {per_step} a step; repeated bitwise: "
+              f"{torch.equal(got, again)}", flush=True)
+        if not torch.equal(got, again):
+            raise AssertionError(f"wgrad_bf16io {what} does not repeat bitwise")
+        if i in (0, 1):
+            xf, dyf = x.float(), dy.float()
+            turns.append((f"wgrad_bf16io {what}", [
+                ("f32", lambda xf=xf, dyf=dyf, im=image: wg.wgrad(xf, dyf, im)),
+                ("_bf16", lambda xf=xf, dyf=dyf, im=image: wg.wgrad(xf, dyf, im, half=True)),
+                ("_bf16io", lambda x=x, dy=dy, im=image: wg.wgrad(x, dy, im))]))
+        else:
+            del x, dy
+        del got, again, ref, ref32
+
+    print(f"{card_line()}: device ms of each bf16-training instance beside its f32 instance "
+          f"and its _bf16 one on the same values, in turns (forward, then backward; "
+          f"device_ms, 20 calls):", flush=True)
+    for name, forms in turns:
+        t = {label: [] for label, _ in forms}
+        for label, fn in forms + forms[::-1]:
+            t[label].append(device_ms(fn))
+        print(f"  {name}: " + ", ".join(f"{label} {a:.4f} / {b:.4f} ms" for label, (a, b)
+                                        in t.items()), flush=True)
+    return rec.rows + rec9.rows
+
+
+def bf16_train_cli(params, seed: int) -> None:
+    """Step 24 e: `python -m lft_torch.train --dtype bfloat16` (its `main`)
+    for 2 epochs of 2 steps from the checkpoint's weights, then a resume
+    from the epoch-1 file that must end on the uninterrupted run's
+    parameters bit for bit."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from lft_torch import train as train_cli
+    from lft_torch.config import Args
+    from lft_torch.data.device_synth import synth_batch
+    from lft_torch.kernels import BF16TRAIN, LAUNCHES, reset_launches
+    from lft_torch.utils.checkpoint import save_checkpoint
+
+    dev = next(iter(params.values())).device
+    lr, hr = synth_batch(torch.Generator(device=dev).manual_seed(seed + 8), batch=8, ang_res=5,
+                         patch=32, scale=4)
+    trainset = MemTrainSet(lr.cpu().numpy(), hr.cpu().numpy(), seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_train_") as tmp:
+        start = os.path.join(tmp, "start.npz")
+        save_checkpoint(start, params, 0)
+        args = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, epoch=2, lr=2e-4,
+                    n_steps=15, gamma=0.5, dtype="bfloat16", use_pre_pth=True,
+                    path_pre_pth=start, seed=seed, data_name="Synth", num_workers=0,
+                    path_log=os.path.join(tmp, "train"))
+        torch.cuda.synchronize()
+        reset_launches()
+        full, hist = train_cli.main(args, dataset=trainset)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        losses = [hh["loss"] for hh in hist]
+        print(f"train CLI under --dtype bfloat16: epoch means {hist}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"bf16 train CLI: bad losses {losses}")
+        n = 2 * len(trainset) // args.batch_size
+        if counts["ang_block_bwd_bf16io"] != 4 * n or counts["wgrad_bf16io"] != 56 * n or any(
+                v for k, v in counts.items() if k in ("ang_block_bwd", "wgrad", "spa_qkv")):
+            raise AssertionError(f"bf16 train CLI: launches {counts}")
+        if not all(counts[k] == 4 * n for k in BF16TRAIN
+                   if k not in ("wgrad_bf16io", "ang_block_bwd128_bf16io")):
+            raise AssertionError(f"bf16 train CLI: launches {counts}")
+        ck_dir = os.path.join(args.path_log, "SR_5x5_4x", "LFT", "Synth", "checkpoints")
+        names = sorted(os.listdir(ck_dir))
+        if names != ["LFT_5x5_4x_epoch_01_model.npz", "LFT_5x5_4x_epoch_02_model.npz"]:
+            raise AssertionError(f"bf16 train CLI checkpoints: {names}")
+        z1 = np.load(os.path.join(ck_dir, names[0]))
+        if not all(z1[f].dtype == np.float32 for f in z1.files
+                   if not f.startswith("__") and z1[f].ndim):
+            raise AssertionError("bf16 train CLI: a checkpoint parameter is not f32")
+        r_args = dataclasses.replace(args, path_pre_pth=os.path.join(ck_dir, names[0]),
+                                     path_log=os.path.join(tmp, "resume"))
+        resumed, _ = train_cli.main(r_args, dataset=trainset)
+        differ = [k for k in full if not torch.equal(full[k], resumed[k])]
+        if differ:
+            raise AssertionError(f"bf16 train CLI: resumed from epoch 1, {len(differ)} "
+                                 f"parameters differ from the uninterrupted run's, e.g. "
+                                 f"{differ[:3]}")
+        print("train CLI under --dtype bfloat16: checkpoints " + ", ".join(names) + " (f32); "
+              "resumed from epoch 1, every epoch-2 parameter equals the uninterrupted run's "
+              "bit for bit", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2960,8 +3409,8 @@ def main(argv=None) -> int:
     from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
-    from lft_torch.kernels import (BF16IO, FORWARD, LAUNCHES, MIXED, PEROP, SWEEPS, TAIL,
-                                   TRAINING, build_all, reset_launches)
+    from lft_torch.kernels import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, PEROP, SWEEPS,
+                                   TAIL, TRAINING, build_all, reset_launches)
     from lft_torch.models.lft import forward
     from lft_torch.ops.bicubic import bicubic_upscale_views
     from lft_torch.ops.metrics import cal_metrics
@@ -3005,7 +3454,8 @@ def main(argv=None) -> int:
     missing = [k for k in FORWARD if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    extra = [k for k in TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO if counts[k]]
+    extra = [k for k in TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO + BF16TRAIN
+             if counts[k]]
     if extra:
         raise AssertionError(f"training or per-op kernels launched by the SR run: {extra}")
 
@@ -3162,6 +3612,16 @@ def main(argv=None) -> int:
     rows += bf16_kernel_checks(params, card, bf16_counts, n_scenes, a.seed)
     torch.cuda.empty_cache()
     print(f"bf16 phase: {time.time() - t0:.1f} s", flush=True)
+    # step 24: --dtype bfloat16 training
+    t0 = time.time()
+    bt_counts, n_bt, kernel_step = bf16_train_phase(params, a.seed)
+    bt9_counts, n_bt9, _ = bf16_train_phase(params, a.seed, steps=2, ang_res=9, patch=16)
+    rows += bf16_train_kernel_checks(params, card, bt_counts, n_bt, bt9_counts, n_bt9, a.seed)
+    bf16_step_times(params, kernel_step, a.seed)
+    del kernel_step
+    bf16_train_cli(params, a.seed)
+    torch.cuda.empty_cache()
+    print(f"bf16 training phase: {time.time() - t0:.1f} s", flush=True)
     missing = sorted(set(LAUNCHES) - {r["name"] for r in rows})
     if missing:
         raise AssertionError(f"kernels without a row in the kernels line: {missing}")

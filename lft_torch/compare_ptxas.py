@@ -8,10 +8,11 @@ archive <commit> lft_torch/csrc` unpacked into a git-ignored directory such
 as `ab/`). Each source of this checkout is built as `chip_smoke.py` builds
 it (`kernels._build.build_all`, whose ptxas report is kept beside each
 library) and each source of the other revision with the same flags. Kernels
-are named by their demangled names (`compare_bwd.ptxas_report`); a kernel that gained a trailing
-`float` template argument here (the IO type of `--dtype bfloat16`'s `_bf16io`
-instances: K1, K2's steps) or a trailing `false` (the `BF` switch of `--dtype
-mixed`'s bf16-operand instances, rowgemm.cuh / tokenize.cuh / wgrad.cu), or
+are named by their demangled names (`compare_bwd.ptxas_report`); a kernel that gained trailing
+`float` template arguments here (the IO types of `--dtype bfloat16`'s
+`_bf16io` instances: K1-K4's, `wgrad`'s two operands) or a trailing `false`
+(the `BF` switch of `--dtype mixed`'s bf16-operand instances, rowgemm.cuh /
+tokenize.cuh / wgrad.cu; the STATS switch of K2.3's bf16-IO kernel), or
 both, is matched to the other build's kernel without them. Prints every
 matched pair's registers, spill stores and loads, and each side's unmatched
 kernels (here: the newer bf16 instances). Exits 1 if a matched pair differs
@@ -45,8 +46,11 @@ def without_bf(name: str) -> str:
 
 
 def without_io(name: str) -> str:
-    """`k<64, false, float>` -> `k<64, false>`: the name before the IO type."""
-    return name[: -len(", float>")] + ">" if name.endswith(", float>") else name
+    """`k<64, false, float>` -> `k<64, false>`, `k<2, 4, false, float, float>`
+    -> `k<2, 4, false>`: the name before the IO types."""
+    while name.endswith(", float>"):
+        name = name[: -len(", float>")] + ">"
+    return name
 
 
 def match(name: str, old_by: dict):

@@ -57,7 +57,9 @@ class Args:
                                       # none: the fused backward's products
                                       # over bf16 operands) | bfloat16: bf16
                                       # activations and weights, inference
-                                      # through the fused blocks only
+                                      # and training through the fused
+                                      # blocks only (f32 master weights,
+                                      # Adam state and checkpoints)
     matmul_precision: str = "default"  # default | high | highest: TF32 of the
                                       # torch ops around the kernels on the
                                       # card (high: on; the kernels ignore it)
@@ -73,7 +75,9 @@ class Args:
                                       # where the kernels take the width
     train_fused: str = "auto"         # auto | true | false: train through the
                                       # fused blocks (K1-K4); auto = false
-                                      # (lft_tpu's auto at float32).
+                                      # (lft_tpu's auto at float32), true
+                                      # under bfloat16 and, on the card,
+                                      # under mixed.
                                       # true on the CPU runs their plain
                                       # versions through the autograd Functions;
                                       # false trains the unfused per-op branch
@@ -113,8 +117,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "LFT_MM_HP_BWD_SITES for the fused backward, default none: its "
                         "products over bf16 operands, f32 accumulation); bfloat16 = bf16 "
                         "activations and weights (lft_tpu's all-bf16 mode: the fused blocks' "
-                        "bf16-IO kernels, the bicubic skip and metrics f32), inference only: "
-                        "training and the unfused branch raise NotImplementedError")
+                        "bf16-IO kernels, the bicubic skip, loss and metrics f32); it serves and "
+                        "trains the fused blocks (K1 res, K2 res, K4, K3 and the weight grads "
+                        "in bf16 IO; the master weights, Adam state and checkpoints f32); "
+                        "the unfused branch (--train_fused false, the data-parallel step) "
+                        "raises NotImplementedError")
     p.add_argument("--matmul_precision", type=str, default=d.matmul_precision,
                    choices=["default", "high", "highest"],
                    help="on the card: high turns TF32 on for the torch matmuls and "

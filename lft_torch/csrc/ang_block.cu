@@ -57,6 +57,11 @@
 //   the products at the bf16 rate): at [16384, 25, 64] 0.0314 ms of bytes,
 //   26.8 GFLOP 0.027 ms on the tensor cores and the attention on the FP32
 //   pipes 0.04 ms (0.08 with the max pass).
+// * IO = bf16 with residuals (`ang_block_res_bf16io`, `--dtype bfloat16`
+//   training, lft_tpu's K1 res with io = bf16, ang_block.py:139-143): the
+//   second pass also writes m, the token's max over its heads, into every
+//   head's slot, l over the unrounded e, and the attention output in bf16;
+//   out is `ang_block_bf16io`'s bit for bit.
 
 #include "attn.cuh"
 #include "rowbwd.cuh"
@@ -93,12 +98,11 @@ __global__ void __launch_bounds__(RG_NT, 1)
     ang_block_kernel(const IO* __restrict__ x, const float* __restrict__ pe,
                      const float* __restrict__ ln, const float* __restrict__ wf,
                      IO* __restrict__ out, float* __restrict__ m_out,
-                     float* __restrict__ l_out, float* __restrict__ attn_out, int N, int A2,
+                     float* __restrict__ l_out, IO* __restrict__ attn_out, int N, int A2,
                      float scale) {
   using L = AngLayout<C>;
   constexpr int LD = L::LD, LDH = L::LDH, HC = L::HC, DH = C / H;
   constexpr bool BIO = is_bf16<IO>;
-  static_assert(!(RES && BIO), "bf16 IO takes no residuals (bf16 training)");
   extern __shared__ __align__(16) float smem[];
   float* XQ = smem;             // x, then q, then x2
   float* XN = XQ + L::TILE;     // xn, then the attention output, then LN2(x2)
@@ -228,6 +232,13 @@ __global__ void __launch_bounds__(RG_NT, 1)
         float* ar = XN + (p * A2 + i) * LD + hh * DH;
 #pragma unroll
         for (int d = 0; d < DH; ++d) ar[d] = bf16_round(o[d] * inv);
+        if constexpr (RES) {  // the residuals of the backward (K4's bf16-IO form)
+          const size_t row = row0 + p * A2 + i;
+          m_out[row * H + hh] = m;
+          l_out[row * H + hh] = l;
+#pragma unroll
+          for (int d = 0; d < DH; ++d) st1(attn_out + row * C + hh * DH + d, ar[d]);
+        }
       }
     }
     for (int t = tid; t < (BIO ? 0 : np * H * A2); t += RG_NT) {
@@ -282,7 +293,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
         m_out[row * H + hh] = m;
         l_out[row * H + hh] = l;
 #pragma unroll
-        for (int d = 0; d < DH; ++d) attn_out[row * C + hh * DH + d] = ar[d];
+        for (int d = 0; d < DH; ++d) st1(attn_out + row * C + hh * DH + d, ar[d]);
       }
     }
     __syncthreads();
@@ -336,7 +347,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
 template <int C, bool RES, class IO = float>
 int launch(const IO* x, const float* pe, const float* ln, const float* wq,
            const float* wk, const float* wv, const float* wo, const float* w1,
-           const float* w2, float* wf, IO* out, float* m, float* l, float* attn, int N,
+           const float* w2, float* wf, IO* out, float* m, float* l, named_t<IO>* attn, int N,
            int A2, float scale, cudaStream_t stream) {
   using L = AngLayout<C>;
   constexpr int H = 8;
@@ -440,6 +451,18 @@ int launch(const IO* x, const float* pe, const float* ln, const float* wq,
 // before the gradients), and rounds ds = p (dp - D) scale (the scale inside)
 // and p before their products. The saved (m, l) are the f32 forward's: p
 // is not renormalised.
+// `--dtype bfloat16` training (`lft_ang_block_bwd_bf16io`, lft_tpu's
+// _bwd_kernel with io = bf16, :305-394): the BF instances on bf16 x, attn
+// and dout (rowbwd.cuh: rows widened to f32 as loaded), with K1 res's
+// bf16-IO (m, l); a recomputes x2 = bf16(bf16(attn Wo) + x) as K1 rounds
+// it, and writes xn, xn2, hid and dpre as bf16 (lft_tpu's operands of the
+// weight grads) and dx2 as f32 (lft_tpu keeps it f32: dx starts from it);
+// b writes dq, dk, dv as bf16, each summed in f32 and rounded once; c reads
+// them and x in bf16 and writes dx = bf16((dx2 + dv Wvᵀ) + LN1ᵀ(dxn)). q,
+// k, v and dattn pass from a to b in f32 as before, rounded as b stages
+// them. Bound at [4096, 25, 64]: x, attn, dout, dx, xn, dq, dk, dv, xn2
+// and the 2C-wide hid, dpre in bf16, dx2 in f32 and m, l: 1.92 KB a token,
+// 197 MB, 0.059 ms; the products at the bf16 rate 0.012 ms.
 
 // The weight stream of step a and the block's shared memory.
 template <int C>
@@ -465,17 +488,18 @@ struct AngBwdTok {
 // rg_weights_kernel. q, k, v, dattn [T, C] and dsum [T, H]: step b's
 // inputs; ln_part [tiles, 4, C], rows 2-3 (LN2). BF: products over bf16
 // operands, and no dsum (step b's BF instance forms D itself).
-template <int C, int H, bool BF = false>
+template <int C, int H, bool BF = false, class IO = float>
 __global__ void __launch_bounds__(RG_NT, 1)
-    ang_bwd_tok_kernel(const float* __restrict__ x, const float* __restrict__ pe,
-                       const float* __restrict__ ln, const float* __restrict__ attn,
-                       const float* __restrict__ dout, const float* __restrict__ wf,
-                       float* __restrict__ xn_out, float* __restrict__ q_out,
+    ang_bwd_tok_kernel(const IO* __restrict__ x, const float* __restrict__ pe,
+                       const float* __restrict__ ln, const IO* __restrict__ attn,
+                       const IO* __restrict__ dout, const float* __restrict__ wf,
+                       IO* __restrict__ xn_out, float* __restrict__ q_out,
                        float* __restrict__ k_out, float* __restrict__ v_out,
-                       float* __restrict__ xn2_out, float* __restrict__ hid_out,
-                       float* __restrict__ dpre_out, float* __restrict__ dx2_out,
+                       IO* __restrict__ xn2_out, IO* __restrict__ hid_out,
+                       IO* __restrict__ dpre_out, float* __restrict__ dx2_out,
                        float* __restrict__ dattn_out, float* __restrict__ dsum_out,
                        float* __restrict__ ln_part, int T, int A2) {
+  static_assert(BF || !is_bf16<IO>, "bf16 IO takes the BF products");
   using L = AngBwdTok<C>;
   constexpr int LD = L::LD, LDH = L::LDH, HC = L::HC, DH = C / H;
   extern __shared__ __align__(16) float smem[];
@@ -530,8 +554,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
       rg_product<C, C, L::OFF_O, true, BF>(a, nw, LD, ring, st);
       rg_pairs<C>(a, [&](int r, int c, float& v0, float& v1) {
         const float2 xv = *reinterpret_cast<const float2*>(xw + r * LD + c);
-        v0 += xv.x;
-        v1 += xv.y;
+        v0 = io_round<IO>(io_round<IO>(v0) + xv.x);
+        v1 = io_round<IO>(io_round<IO>(v1) + xv.y);
       });
       put_tile<C>(a, xw, LD);   // x2 over x
       quad_ln<C, true>(a, ln + 2 * C, ln + 3 * C, mu, rstd);
@@ -608,13 +632,13 @@ __global__ void __launch_bounds__(RG_NT, 1)
 
 // b. P pixels a block (attn_pixels), tiles [P A2][C + 4] sized by the launch.
 // BF: the header's arithmetic; dsum is not read.
-template <int C, int H, bool BF = false>
+template <int C, int H, bool BF = false, class IO = float>
 __global__ void __launch_bounds__(NT)
     ang_bwd_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dattn,
                         const float* __restrict__ m_in, const float* __restrict__ l_in,
-                        const float* __restrict__ dsum, float* __restrict__ dq_out,
-                        float* __restrict__ dk_out, float* __restrict__ dv_out, int N, int A2,
+                        const float* __restrict__ dsum, IO* __restrict__ dq_out,
+                        IO* __restrict__ dk_out, IO* __restrict__ dv_out, int N, int A2,
                         int P, float scale) {
   constexpr int LD = C + 4, DH = C / H;
   extern __shared__ float4 smem4[];
@@ -740,17 +764,30 @@ __global__ void __launch_bounds__(NT)
 // ang_bwd_attn_pixels).
 inline int attn_pixels(int A2) { return NT / (8 * A2) > 1 ? NT / (8 * A2) : 1; }
 
-// in: x, pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn, dout; out: dx, xn, dq,
-// dk, dv, dx2, xn2, dpre, hid, ln_part; scr: q, k, v, dattn, dsum. BF: the
-// three kernels' bf16-operand instances (the header).
-template <int C, bool BF = false>
-int launch_bwd(const float* const* in, float* const* out, float* const* scr, float* wf, int N,
-               int A2, float scale, cudaStream_t s) {
+// K4's arguments: the inputs, outputs and scratch of the C interface below,
+// the activations in IO.
+template <class IO>
+struct AngBwdArgs {
+  const IO* x;
+  const float *pe, *ln, *wq, *wk, *wv, *wo, *w1, *w2, *m, *l;
+  const IO *attn, *dout;
+  float* wf;
+  IO *dx, *xn, *dq, *dk, *dv;
+  float* dx2;
+  IO *xn2, *dpre, *hid;
+  float *ln_part, *q, *k, *v, *dattn, *dsum;
+};
+
+// BF: the three kernels' bf16-operand instances (the header); IO = bf16
+// (with BF) their bf16-IO instances.
+template <int C, bool BF = false, class IO = float>
+int launch_bwd(const AngBwdArgs<IO>& g, int N, int A2, float scale, cudaStream_t s) {
   using L = AngBwdTok<C>;
   constexpr int H = 8;
   const int T = N * A2;
-  const float *x = in[0], *pe = in[1], *ln = in[2], *wq = in[3], *wk = in[4], *wv = in[5],
-              *wo = in[6], *w1 = in[7], *w2 = in[8];
+  const float *pe = g.pe, *ln = g.ln, *wq = g.wq, *wk = g.wk, *wv = g.wv, *wo = g.wo,
+              *w1 = g.w1, *w2 = g.w2;
+  float* wf = g.wf;
   // step a's stream, the backward's transposes read straight from the weights
   RgPiece all[L::PIECES];
   int n = 0;
@@ -766,20 +803,20 @@ int launch_bwd(const float* const* in, float* const* out, float* const* scr, flo
   }
   all[n++] = RgPiece{wo, C, C, C, L::OFF_OT, 1};                                // Woᵀ
   launch_rg_pieces(all, n, wf, s, BF);
-  auto tok = ang_bwd_tok_kernel<C, H, BF>;
+  auto tok = ang_bwd_tok_kernel<C, H, BF, IO>;
   LFT_SET_SMEM(tok, L::BYTES);
   tok<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(
-      x, pe, ln, in[11], in[12], wf, out[1], scr[0], scr[1], scr[2], out[6], out[8], out[7],
-      out[5], scr[3], scr[4], out[9], T, A2);
+      g.x, pe, ln, g.attn, g.dout, wf, g.xn, g.q, g.k, g.v, g.xn2, g.hid, g.dpre, g.dx2,
+      g.dattn, g.dsum, g.ln_part, T, A2);
   const int P = attn_pixels(A2);
-  auto att = ang_bwd_attn_kernel<C, H, BF>;
+  auto att = ang_bwd_attn_kernel<C, H, BF, IO>;
   const size_t att_bytes = static_cast<size_t>(P) * A2 * (4 * (C + 4) + 3 * H) * sizeof(float);
   LFT_SET_SMEM(att, att_bytes);
-  att<<<(N + P - 1) / P, NT, att_bytes, s>>>(scr[0], scr[1], scr[2], scr[3], in[9], in[10],
-                                            scr[4], out[2], out[3], out[4], N, A2, P, scale);
-  const QkvLnBwdArgs a{x, pe, out[2], out[3], out[4], out[5], ln, nullptr, out[0], nullptr,
-                       out[9], A2, 4 * C, T};
-  return launch_qkv_ln_bwd<C, BF>(a, wq, wk, C, wv, wf + L::FLOATS, s);
+  att<<<(N + P - 1) / P, NT, att_bytes, s>>>(g.q, g.k, g.v, g.dattn, g.m, g.l, g.dsum, g.dq,
+                                            g.dk, g.dv, N, A2, P, scale);
+  const QkvLnBwdArgs<IO> a{g.x, pe, g.dq, g.dk, g.dv, g.dx2, ln, nullptr, g.dx, nullptr,
+                           g.ln_part, A2, 4 * C, T};
+  return launch_qkv_ln_bwd<C, BF, IO>(a, wq, wk, C, wv, wf + L::FLOATS, s);
 }
 
 }  // namespace
@@ -832,6 +869,28 @@ extern "C" int lft_ang_block_fwd_bf16io(const bf16* x, const float* pe, const fl
 
 // The same, with the residuals of the backward: m, l [N, A2, H] (per token
 // and head, the softmax's max and sum of exp(s - m)) and attn [N, A2, C].
+// The bf16-IO instance with the residuals (`--dtype bfloat16` training): x,
+// out and attn bf16; m, l f32 (m the token's max over its heads, in each
+// head's slot; l each head's sum under it).
+extern "C" int lft_ang_block_fwd_res_bf16io(const bf16* x, const float* pe, const float* ln,
+                                            const float* wq, const float* wk, const float* wv,
+                                            const float* wo, const float* w1, const float* w2,
+                                            float* wf, bf16* out, float* m, float* l, bf16* attn,
+                                            int N, int A2, int C, int H, float scale,
+                                            void* stream) {
+  if (H != 8 || A2 < 1 || A2 > RP || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+#define LFT_CASE(CV)                                                                         \
+    case CV: return launch<CV, true, bf16>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out, m, l,  \
+                                           attn, N, A2, scale, s);
+    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
+#undef LFT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 extern "C" int lft_ang_block_fwd_res(const float* x, const float* pe, const float* ln,
                                      const float* wq, const float* wk, const float* wv,
                                      const float* wo, const float* w1, const float* w2,
@@ -859,30 +918,34 @@ extern "C" int lft_ang_block_fwd_res(const float* x, const float* pe, const floa
 // of the weight grads, and ln_part [ceil(T / 128), 4, C], each 128-row
 // tile's sums of the LN affine grads; q, k, v, dattn [T, C] and dsum [T, H]
 // are the scratch its three kernels pass through device memory.
-#define LFT_ANG_BWD_ARGS                                                                  \
-  const float *x, const float *pe, const float *ln, const float *wq, const float *wk,     \
+#define LFT_ANG_BWD_ARGS(IO)                                                              \
+  const IO *x, const float *pe, const float *ln, const float *wq, const float *wk,        \
       const float *wv, const float *wo, const float *w1, const float *w2, const float *m, \
-      const float *l, const float *attn, const float *dout, float *wf, float *dx,         \
-      float *xn, float *dq, float *dk, float *dv, float *dx2, float *xn2, float *dpre,    \
-      float *hid, float *ln_part, float *q, float *k, float *v, float *dattn, float *dsum, \
-      int N, int A2, int C, int H, float scale, void *stream
-#define LFT_ANG_BWD_BODY(BF)                                                               \
+      const float *l, const IO *attn, const IO *dout, float *wf, IO *dx, IO *xn, IO *dq,  \
+      IO *dk, IO *dv, float *dx2, IO *xn2, IO *dpre, IO *hid, float *ln_part, float *q,   \
+      float *k, float *v, float *dattn, float *dsum, int N, int A2, int C, int H,         \
+      float scale, void *stream
+#define LFT_ANG_BWD_BODY(BF, IO)                                                           \
   if (H != 8 || A2 < 1 || A2 > RP || N < 1 || static_cast<long long>(N) * A2 > 0x7fffffffLL) \
     return static_cast<int>(cudaErrorInvalidValue);                                        \
-  const float* in[] = {x, pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn, dout};               \
-  float* out[] = {dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, ln_part};                       \
-  float* scr[] = {q, k, v, dattn, dsum};                                                   \
+  const AngBwdArgs<IO> g{x, pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn, dout, wf, dx, xn,   \
+                         dq, dk, dv, dx2, xn2, dpre, hid, ln_part, q, k, v, dattn, dsum};  \
   auto s = static_cast<cudaStream_t>(stream);                                              \
   switch (C) {                                                                             \
-    case 16: return launch_bwd<16, BF>(in, out, scr, wf, N, A2, scale, s);                 \
-    case 32: return launch_bwd<32, BF>(in, out, scr, wf, N, A2, scale, s);                 \
-    case 64: return launch_bwd<64, BF>(in, out, scr, wf, N, A2, scale, s);                 \
+    case 16: return launch_bwd<16, BF, IO>(g, N, A2, scale, s);                            \
+    case 32: return launch_bwd<32, BF, IO>(g, N, A2, scale, s);                            \
+    case 64: return launch_bwd<64, BF, IO>(g, N, A2, scale, s);                            \
     default: return static_cast<int>(cudaErrorInvalidValue);                               \
   }
 
-extern "C" int lft_ang_block_bwd(LFT_ANG_BWD_ARGS) { LFT_ANG_BWD_BODY(false) }
+extern "C" int lft_ang_block_bwd(LFT_ANG_BWD_ARGS(float)) { LFT_ANG_BWD_BODY(false, float) }
 
 // K4's bf16-operand instances under `--dtype mixed` (the K4 header): the
 // same arguments (dsum is left unwritten), wf holding the weights' bf16
 // parts in the same layouts.
-extern "C" int lft_ang_block_bwd_bf16(LFT_ANG_BWD_ARGS) { LFT_ANG_BWD_BODY(true) }
+extern "C" int lft_ang_block_bwd_bf16(LFT_ANG_BWD_ARGS(float)) { LFT_ANG_BWD_BODY(true, float) }
+
+// K4's bf16-IO instances under `--dtype bfloat16` (the K4 header): the same
+// arguments with x, attn, dout and dx, xn, dq, dk, dv, xn2, dpre, hid bf16
+// (dx2, ln_part, m, l and the scratch f32; dsum left unwritten).
+extern "C" int lft_ang_block_bwd_bf16io(LFT_ANG_BWD_ARGS(bf16)) { LFT_ANG_BWD_BODY(true, bf16) }

@@ -42,6 +42,22 @@ __device__ __forceinline__ void ldg(const float* __restrict__ p, float (&r)[DH])
   }
 }
 
+// The same from bf16 (`_bf16io` instances), widened to f32.
+template <int DH>
+__device__ __forceinline__ void ldg(const bf16* __restrict__ p, float (&r)[DH]) {
+  if constexpr (DH % 4 == 0) {
+#pragma unroll
+    for (int d = 0; d < DH; d += 4) {
+      const float4 t = ldg4(p + d);
+      r[d] = t.x; r[d + 1] = t.y; r[d + 2] = t.z; r[d + 3] = t.w;
+    }
+  } else {
+    static_assert(DH == 2, "head width 2, or a multiple of 4");
+    const float2 t = ldg2(p);
+    r[0] = t.x; r[1] = t.y;
+  }
+}
+
 template <int DH>
 __device__ __forceinline__ void st(float* p, const float (&r)[DH]) {
   if constexpr (DH % 4 == 0) {
@@ -50,6 +66,17 @@ __device__ __forceinline__ void st(float* p, const float (&r)[DH]) {
       store4(p + d, make_float4(r[d], r[d + 1], r[d + 2], r[d + 3]));
   } else {
     *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+  }
+}
+
+// The same into bf16, each value rounded to nearest even.
+template <int DH>
+__device__ __forceinline__ void st(bf16* p, const float (&r)[DH]) {
+  if constexpr (DH % 4 == 0) {
+#pragma unroll
+    for (int d = 0; d < DH; d += 4) st4(p + d, make_float4(r[d], r[d + 1], r[d + 2], r[d + 3]));
+  } else {
+    st2(p, r[0], r[1]);
   }
 }
 

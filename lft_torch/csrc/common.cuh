@@ -132,6 +132,36 @@ __device__ __forceinline__ void st4(float* p, float4 v) { store4(p, v); }
 __device__ __forceinline__ void st4(bf16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = make_uint2(narrow2(v.x, v.y), narrow2(v.z, v.w));
 }
+__device__ __forceinline__ void st1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+// Streaming (evict-first) accesses of a row read or written once: 2 or 4
+// values, bf16 widened on load and rounded on store.
+__device__ __forceinline__ float2 ldcs2(const float* p) {
+  return __ldcs(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ldcs2(const bf16* p) {
+  return widen2(__ldcs(reinterpret_cast<const unsigned int*>(p)));
+}
+__device__ __forceinline__ float4 ldcs4(const float* p) {
+  return __ldcs(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldcs4(const bf16* p) {
+  const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
+  const float2 a = widen2(u.x), b = widen2(u.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void stcs2(float* p, float a, float b) {
+  __stcs(reinterpret_cast<float2*>(p), make_float2(a, b));
+}
+__device__ __forceinline__ void stcs2(bf16* p, float a, float b) {
+  __stcs(reinterpret_cast<unsigned int*>(p), narrow2(a, b));
+}
+__device__ __forceinline__ void stcs4(float* p, float4 v) {
+  __stcs(reinterpret_cast<float4*>(p), v);
+}
+__device__ __forceinline__ void stcs4(bf16* p, float4 v) {
+  __stcs(reinterpret_cast<uint2*>(p), make_uint2(narrow2(v.x, v.y), narrow2(v.z, v.w)));
+}
 
 }  // namespace lft
 

@@ -2,7 +2,11 @@
 // spa_block_bwd.cu (K3.a spa_ffn_out_bwd, K3.d spa_qkv_ln_bwd) and
 // ang_block.cu (K4's steps a and c): a warp's rows in and out of shared and
 // device memory, the LayerNorm's backward on the accumulators, and the
-// kernel of K3.d and of K4's step c, `qkv_ln_bwd_kernel`.
+// kernel of K3.d and of K4's step c, `qkv_ln_bwd_kernel`. Rows in device
+// memory are f32 or, in the `_bf16io` instances (`--dtype bfloat16`
+// training), bf16: widened to f32 as they are loaded into shared memory and
+// rounded to nearest even as they are stored; the rows in shared memory and
+// the products over them are the f32 instances' (with BF).
 #pragma once
 
 #include "rowgemm.cuh"
@@ -34,6 +38,28 @@ __device__ __forceinline__ void warp_rows(float* dst, int ld, const float* __res
   __syncwarp();
 }
 
+// The same from bf16 rows, widened to f32 by 8-byte loads.
+template <int W>
+__device__ __forceinline__ void warp_rows(float* dst, int ld, const bf16* __restrict__ src,
+                                          int t0, int T) {
+  constexpr int L = W / 8;
+  const int lane = threadIdx.x & 31;
+  float4 v[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int i = lane + 32 * k, r = i / (W / 4), c = 4 * (i % (W / 4));
+    v[k] = t0 + r < T ? ldcs4(src + static_cast<size_t>(t0 + r) * W + c)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int i = lane + 32 * k;
+    store4(dst + i / (W / 4) * ld + 4 * (i % (W / 4)), v[k]);
+  }
+  __syncwarp();
+}
+
 // The warp's 16 rows of a shared tile (row stride ld), W floats each, into
 // rows t0 .. t0 + 15 (< T) of dst [T, dld] from column c0 on: a lane's
 // float4 a time, one row of whole 128-byte lines an instruction. KEEP: the
@@ -53,6 +79,24 @@ __device__ __forceinline__ void store_rows(const float* tile, int ld, float* __r
       store4(at, v);
     else
       __stcs(reinterpret_cast<float4*>(at), v);
+  }
+}
+
+// The same into bf16 rows, each value rounded to nearest even.
+template <int W, bool KEEP = false>
+__device__ __forceinline__ void store_rows(const float* tile, int ld, bf16* __restrict__ dst,
+                                           int dld, int c0, int t0, int T) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < W / 8; ++k) {
+    const int i = lane + 32 * k, r = i / (W / 4), c = 4 * (i % (W / 4));
+    if (t0 + r >= T) continue;
+    bf16* at = dst + static_cast<size_t>(t0 + r) * dld + c0 + c;
+    const float4 v = load4(tile + r * ld + c);
+    if constexpr (KEEP)
+      st4(at, v);
+    else
+      stcs4(at, v);
   }
 }
 
@@ -78,6 +122,21 @@ __device__ __forceinline__ void rows_async(float* aw, const float* __restrict__ 
     const int r = i / (W / 4), c = 4 * (i % (W / 4));
     const bool ok = t0 + r < T;
     cp_async16(aw + r * (W + 4) + c, src + static_cast<size_t>(ok ? t0 + r : 0) * W + c, ok);
+  }
+  cp_async_commit();
+}
+
+// The same from bf16 rows, widened by the warp's own loads (cp.async copies
+// bytes); an empty group keeps the callers' group counts.
+template <int W>
+__device__ __forceinline__ void rows_async(float* aw, const bf16* __restrict__ src, int t0,
+                                           int T) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 4
+  for (int i = lane; i < 16 * (W / 4); i += 32) {
+    const int r = i / (W / 4), c = 4 * (i % (W / 4));
+    store4(aw + r * (W + 4) + c, t0 + r < T ? ldcs4(src + static_cast<size_t>(t0 + r) * W + c)
+                                            : make_float4(0.f, 0.f, 0.f, 0.f));
   }
   cp_async_commit();
 }
@@ -271,7 +330,12 @@ __device__ __forceinline__ void tile_ln_sums(const float* part, float* __restric
 // LN1's backward runs on the accumulators (quad_xhat, quad_ln_bwd). Every
 // output is written by one thread, no atomics: a call repeats bitwise.
 // BF (`--dtype mixed`'s backward): the three products over bf16-rounded
-// operands, one TF32 pass each (rowgemm.cuh).
+// operands, one TF32 pass each (rowgemm.cuh). IO = bf16 (with BF, `--dtype
+// bfloat16` training, lft_tpu's io = bf16): x, dq, dk, dv and dx bf16 (dx =
+// bf16((dx2 + dv Wvᵀ) + d), its one rounding), pe, dx2, dxpe and the LN
+// sums f32, as lft_tpu keeps them. Bound of K3.d's bf16-IO instance at
+// [100, 32, 32, 64]: x, dq, dk, dv in bf16, dx2 in and dxpe out f32, dx out
+// bf16, 262 MB, 0.078 ms; 10.1 GFLOP at the bf16 rate 0.010 ms: bytes.
 template <int W>
 struct QkvLnBwd {
   static constexpr int LDX = W + 4;          // row stride of a tile
@@ -284,17 +348,22 @@ struct QkvLnBwd {
   static_assert(BYTES <= RG_SMEM_MAX, "the weights and the rows must fit in shared memory");
 };
 
+template <class IO = float>
 struct QkvLnBwdArgs {
-  const float *x, *pe, *dq, *dk, *dv, *dx2, *ln, *wf;
-  float *dx, *dxpe, *ln_part;
+  const IO* x;
+  const float* pe;
+  const IO *dq, *dk, *dv;
+  const float *dx2, *ln, *wf;
+  IO* dx;
+  float *dxpe, *ln_part;
   int period, part_ld, T;
 };
 
 // One pass over the block's tiles running the phases of PH (1: Q, 2: K,
 // 4: V), each from its own weight and row tile (slots in phase order).
 // Ends with every warp past its last read of the weights.
-template <int W, int PH, bool BF>
-__device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs& a, float* smem) {
+template <int W, int PH, bool BF, class IO>
+__device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs<IO>& a, float* smem) {
   using Q = QkvLnBwd<W>;
   constexpr int LDX = Q::LDX, SQ = Q::SQ;
   constexpr int S1 = PH & 1, S2 = S1 + ((PH >> 1) & 1);   // the slots of K and V
@@ -302,7 +371,7 @@ __device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs& a, float* sm
   const int tiles = (T + RG_M - 1) / RG_M;
   float* rows = smem + Q::NW * SQ;                 // [NW][RG_M][LDX]
   float* part = rows + Q::NW * RG_M * LDX;         // [8 warps][2][W]
-  const float* src[3] = {a.dq, a.dk, a.dv};
+  const IO* src[3] = {a.dq, a.dk, a.dv};
   const int slot[3] = {0, S1, S2};
   auto rw = [&](int s) { return rows + s * RG_M * LDX + 16 * warp * LDX; };
 #pragma unroll
@@ -353,7 +422,7 @@ __device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs& a, float* sm
       const float* pe1 = a.pe + (t0 + g + 8) % a.period * W;
       rg_each<W>([&](int pp, int i, int r, int c) {
         const int t = t0 + r;
-        const float2 xv = t < T ? __ldcs(reinterpret_cast<const float2*>(a.x + static_cast<size_t>(t) * W + c))
+        const float2 xv = t < T ? ldcs2(a.x + static_cast<size_t>(t) * W + c)
                                 : make_float2(0.f, 0.f);
         const float2 pv = __ldg(reinterpret_cast<const float2*>((i & 2 ? pe1 : pe0) + c));
         xh[pp][i] = xv.x + pv.x;
@@ -381,8 +450,7 @@ __device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs& a, float* sm
         const float2 u = __ldcs(reinterpret_cast<const float2*>(a.dx2 + at));
         const float2 d = (PH & 2) != 0 ? make_float2(p[pp][i], p[pp][i + 1])
                                        : __ldcs(reinterpret_cast<const float2*>(a.dxpe + at));
-        __stcs(reinterpret_cast<float2*>(a.dx + at),
-               make_float2((u.x + acc[pp][i]) + d.x, (u.y + acc[pp][i + 1]) + d.y));
+        stcs2(a.dx + at, (u.x + acc[pp][i]) + d.x, (u.y + acc[pp][i + 1]) + d.y);
       });
     }
     if constexpr ((PH & 2) != 0)
@@ -393,8 +461,8 @@ __device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs& a, float* sm
   __syncthreads();
 }
 
-template <int W, bool BF = false>
-__global__ void __launch_bounds__(RG_NT, 1) qkv_ln_bwd_kernel(const QkvLnBwdArgs a) {
+template <int W, bool BF = false, class IO = float>
+__global__ void __launch_bounds__(RG_NT, 1) qkv_ln_bwd_kernel(const QkvLnBwdArgs<IO> a) {
   extern __shared__ __align__(16) float smem[];
   if constexpr (QkvLnBwd<W>::ONE) {
     qkv_ln_bwd_pass<W, 7, BF>(a, smem);
@@ -408,9 +476,10 @@ __global__ void __launch_bounds__(RG_NT, 1) qkv_ln_bwd_kernel(const QkvLnBwdArgs
 // Splits Wqᵀ, Wkᵀ, Wvᵀ straight from the forward's "x @ W" weights (wq, wk
 // rows ldqk floats apart, wv rows W apart) into the scratch wf
 // (QkvLnBwd<W>::FLOATS floats, kernels/rowgemm.py:qkv_ln_bwd_stream), then
-// runs the kernel; BF: the bf16 parts, then the BF instance.
-template <int W, bool BF = false>
-int launch_qkv_ln_bwd(QkvLnBwdArgs a, const float* wq, const float* wk, int ldqk,
+// runs the kernel; BF: the bf16 parts, then the BF instance; IO: the rows'
+// type (bf16 with BF).
+template <int W, bool BF = false, class IO = float>
+int launch_qkv_ln_bwd(QkvLnBwdArgs<IO> a, const float* wq, const float* wk, int ldqk,
                       const float* wv, float* wf, cudaStream_t s) {
   using Q = QkvLnBwd<W>;
   RgPieces ps{};
@@ -419,7 +488,7 @@ int launch_qkv_ln_bwd(QkvLnBwdArgs a, const float* wq, const float* wk, int ldqk
   ps.p[2] = RgPiece{wv, W, W, W, 2 * Q::SQ, 1};
   launch_rg_weights(ps, 3, wf, s, BF);
   a.wf = wf;
-  auto kernel = qkv_ln_bwd_kernel<W, BF>;
+  auto kernel = qkv_ln_bwd_kernel<W, BF, IO>;
   LFT_SET_SMEM(kernel, Q::BYTES);
   kernel<<<rg_grid((a.T + RG_M - 1) / RG_M), RG_NT, Q::BYTES, s>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -78,6 +78,15 @@
 // scale inside) and p before their products, and take D = sum_j p_j dp_j
 // from the rounded products, on the FP32 pipes as the f32 passes. The
 // saved (m, l) are the f32 forward's, so p is not renormalised.
+//
+// IO = bf16 (`lft_spa_attn_hp_bwd_bf16io`: K3.c under `--dtype bfloat16`
+// training, lft_tpu's _bwd_kernel with io = bf16, :488-540): the BF passes
+// on bf16 q, k, v, dout, their halos staged by the threads' 8-byte loads
+// widened to f32 (cp.async copies bytes), with the (m, l) of K2.3 res's
+// bf16-IO form (m each query's max over its heads, l each head's sum under
+// it: p = exp(s - m) / l is lft_tpu's); dq, dk, dv summed in f32 and
+// rounded to bf16 once, as they are stored. Bound at [100, 32, 32, 128]:
+// q, k, v, dout in and dq, dk, dv out in bf16, m, l f32, 0.19 GB, 0.056 ms.
 
 #include "attn.cuh"
 #include "window_attn.cuh"
@@ -103,13 +112,14 @@ __device__ __forceinline__ float dot4(const float* a, const float (&b)[DH]) {
 // ---- backward, pass q: dq and D --------------------------------------------
 // One block an item (view, 16 x 16 tile, 32-float head group), items in
 // K2.3's launch order.
-template <int DH, bool BF = false>
+template <int DH, bool BF = false, class IO = float>
 __global__ void __launch_bounds__(WA_NT, 2)
-    spa_attn_hp_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ dout,
+    spa_attn_hp_bwd_q_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
+                             const IO* __restrict__ v, const IO* __restrict__ dout,
                              const float* __restrict__ m_in, const float* __restrict__ l_in,
-                             float* __restrict__ dq_out, float* __restrict__ dsum_out, int h,
+                             IO* __restrict__ dq_out, float* __restrict__ dsum_out, int h,
                              int w, float scale) {
+  static_assert(BF || !is_bf16<IO>, "bf16 IO takes the BF arithmetic");
   constexpr int D = H * DH;
   constexpr int G = D / WA_G;       // head groups of a pixel
   constexpr int HT = WA_S / DH;     // heads of a thread's slice
@@ -128,8 +138,8 @@ __global__ void __launch_bounds__(WA_NT, 2)
     const bool ok = ky >= 0 && ky < h && kx >= 0 && kx < w;
     const size_t off =
         ok ? ((static_cast<size_t>(view) * h + ky) * w + kx) * D + g * WA_G + c : 0;
-    cp_async16(smem + px * WA_LD + c, k + off, ok);
-    cp_async16(smem + WA_BUF + px * WA_LD + c, v + off, ok);
+    copy4(smem + px * WA_LD + c, k + off, ok);
+    copy4(smem + WA_BUF + px * WA_LD + c, v + off, ok);
   }
   cp_async_commit();
   const int x = x0 + tx;
@@ -242,8 +252,8 @@ __global__ void __launch_bounds__(WA_NT, 2)
       const float f = BF ? 1.f : il * scale;
 #pragma unroll
       for (int d = 0; d < DH; d += 4)
-        store4(dq_out + pix * D + col + e * DH + d,
-               make_float4(dq[d] * f, dq[d + 1] * f, dq[d + 2] * f, dq[d + 3] * f));
+        st4(dq_out + pix * D + col + e * DH + d,
+            make_float4(dq[d] * f, dq[d + 1] * f, dq[d + 2] * f, dq[d + 3] * f));
       dsum_out[hd] = dd;
     }
   }
@@ -264,13 +274,14 @@ struct KvLayout {
 // One block an item (view, 16 x 16 tile, head pair), items in launch order;
 // a thread owns the key pixels (ry, tx) and (ry + 1, tx) of the tile, one
 // after the other, for head `e` of the pair.
-template <int DH, bool BF = false>
+template <int DH, bool BF = false, class IO = float>
 __global__ void __launch_bounds__(WA_NT, 2)
-    spa_attn_hp_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ dout,
+    spa_attn_hp_bwd_kv_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
+                              const IO* __restrict__ v, const IO* __restrict__ dout,
                               const float* __restrict__ m_in, const float* __restrict__ l_in,
-                              const float* __restrict__ dsum, float* __restrict__ dk_out,
-                              float* __restrict__ dv_out, int h, int w, float scale) {
+                              const float* __restrict__ dsum, IO* __restrict__ dk_out,
+                              IO* __restrict__ dv_out, int h, int w, float scale) {
+  static_assert(BF || !is_bf16<IO>, "bf16 IO takes the BF arithmetic");
   using L = KvLayout<DH>;
   constexpr int D = H * DH, P = H / KV_HEADS, LD = L::LD, W = KV_HEADS * DH;
   extern __shared__ __align__(16) float smem[];
@@ -289,8 +300,8 @@ __global__ void __launch_bounds__(WA_NT, 2)
     const bool ok = oy >= 0 && oy < h && ox >= 0 && ox < w;
     const size_t off =
         ok ? ((static_cast<size_t>(view) * h + oy) * w + ox) * D + pr * W + c : 0;
-    cp_async16(qs + px * LD + c, q + off, ok);
-    cp_async16(gs + px * LD + c, dout + off, ok);
+    copy4(qs + px * LD + c, q + off, ok);
+    copy4(gs + px * LD + c, dout + off, ok);
   }
   cp_async_commit();
   for (int j = threadIdx.x; j < WA_HY * WA_HX * KV_HEADS; j += WA_NT) {
@@ -371,8 +382,8 @@ __global__ void __launch_bounds__(WA_NT, 2)
     }
 #pragma unroll
     for (int d = 0; d < DH; d += 4) {
-      store4(dk_out + off + d, make_float4(dk[d], dk[d + 1], dk[d + 2], dk[d + 3]));
-      store4(dv_out + off + d, make_float4(dv[d], dv[d + 1], dv[d + 2], dv[d + 3]));
+      st4(dk_out + off + d, make_float4(dk[d], dk[d + 1], dk[d + 2], dk[d + 3]));
+      st4(dv_out + off + d, make_float4(dv[d], dv[d + 1], dv[d + 2], dv[d + 3]));
     }
   }
 }
@@ -435,10 +446,11 @@ extern "C" int lft_spa_attn_hp_res(const float* q, const float* k, const float* 
 
 namespace {
 
-template <bool BF>
-int hp_bwd(const float* q, const float* k, const float* v, const float* dout, const float* m,
-           const float* l, float* dsum, float* dq, float* dk, float* dv, int B, int h, int w,
-           int E, int heads, float scale, cudaStream_t s) {
+template <bool BF, class IO = float>
+int hp_bwd(const named_t<IO>* q, const named_t<IO>* k, const named_t<IO>* v,
+           const named_t<IO>* dout, const float* m, const float* l, float* dsum,
+           named_t<IO>* dq, named_t<IO>* dk, named_t<IO>* dv, int B, int h, int w, int E,
+           int heads, float scale, cudaStream_t s) {
   if (bad_shape(B, h, w, E, heads) || n_items(B, h, w, H / KV_HEADS) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid_q = static_cast<int>(n_items(B, h, w, E / WA_G));
@@ -446,8 +458,8 @@ int hp_bwd(const float* q, const float* k, const float* v, const float* dout, co
   switch (E / H) {
 #define LFT_HP_CASE(DHV)                                                             \
     case DHV: {                                                                      \
-      auto kq = spa_attn_hp_bwd_q_kernel<DHV, BF>;                                   \
-      auto kkv = spa_attn_hp_bwd_kv_kernel<DHV, BF>;                                 \
+      auto kq = spa_attn_hp_bwd_q_kernel<DHV, BF, IO>;                               \
+      auto kkv = spa_attn_hp_bwd_kv_kernel<DHV, BF, IO>;                             \
       LFT_SET_SMEM(kq, WA_BYTES);                                                    \
       LFT_SET_SMEM(kkv, KvLayout<DHV>::BYTES);                                       \
       kq<<<grid_q, WA_NT, WA_BYTES, s>>>(q, k, v, dout, m, l, dq, dsum, h, w, scale); \
@@ -486,4 +498,15 @@ extern "C" int lft_spa_attn_hp_bwd_bf16(const float* q, const float* k, const fl
                                         void* stream) {
   return hp_bwd<true>(q, k, v, dout, m, l, dsum, dq, dk, dv, B, h, w, E, heads, scale,
                       static_cast<cudaStream_t>(stream));
+}
+
+// The passes' bf16-IO instances (K3.c under `--dtype bfloat16` training,
+// the header): q, k, v, dout and dq, dk, dv bf16; m, l and dsum f32.
+extern "C" int lft_spa_attn_hp_bwd_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                          const bf16* dout, const float* m, const float* l,
+                                          float* dsum, bf16* dq, bf16* dk, bf16* dv, int B,
+                                          int h, int w, int E, int heads, float scale,
+                                          void* stream) {
+  return hp_bwd<true, bf16>(q, k, v, dout, m, l, dsum, dq, dk, dv, B, h, w, E, heads, scale,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -130,16 +130,22 @@ __device__ __forceinline__ void warp_rows(float* aw, const float* __restrict__ s
   cp_async_commit();
 }
 
-// The same from bf16 rows, widened to f32 by the warp's own loads and stores.
+// The same from bf16 rows, widened to f32 by the warp's own loads and
+// stores, with the group committed as the f32 form commits it: the caller's
+// `cp_async_wait` then covers the copies issued before (row_pass's weight),
+// which an uncommitted group would leave in flight. The loads are coherent
+// (ld.global.cs, not the read-only path): K3.b's pass k reads back the xn
+// its pass q wrote in the same launch.
 template <int D>
 __device__ __forceinline__ void warp_rows(float* aw, const bf16* __restrict__ src, int tile,
                                           int T) {
   const int lane = threadIdx.x & 31, t0 = tile * RG_M + 16 * (threadIdx.x >> 5);
   for (int i = lane; i < 16 * (D / 4); i += 32) {
     const int r = i / (D / 4), c = 4 * (i % (D / 4));
-    store4(aw + r * (D + 4) + c, t0 + r < T ? ldg4(src + static_cast<size_t>(t0 + r) * D + c)
+    store4(aw + r * (D + 4) + c, t0 + r < T ? ldcs4(src + static_cast<size_t>(t0 + r) * D + c)
                                             : make_float4(0.f, 0.f, 0.f, 0.f));
   }
+  cp_async_commit();
 }
 
 // What a pass does to the warp's 16 rows of a tile [t0, t0 + 16) once they
@@ -158,11 +164,13 @@ struct NoRows {
 // two dependent sums, the prologue took K3.b from K2.2's 0.15 ms to 0.22 at
 // [100, 32, 32, 64] on an H100. Pad rows past T are normalised too (their
 // pe_tok row exists; their products are not stored).
-template <int D>
+// IO = bf16 (K3.b's bf16-IO instance): xn written as bf16 (the product
+// rounds the rows it reads alike, with BF); pe_tok f32 (its bf16 values).
+template <int D, class IO = float>
 struct Ln1Rows {
   const float* pe_tok;   // [hw, D]
   const float* ln;       // LN1 weight, then bias
-  float* xn;             // [T, D]
+  IO* xn;                // [T, D]
   int hw;
   __device__ __forceinline__ void operator()(float* aw, int t0, int T) const {
     using RL = RowLN<D>;
@@ -185,7 +193,7 @@ struct Ln1Rows {
       for (int e = 0; e < RL::E; ++e)
         if (RL::valid(e)) {
           aw[r * LDX + RL::col(e)] = v[r][e];
-          if (t0 + r < T) xn[static_cast<size_t>(t0 + r) * D + RL::col(e)] = v[r][e];
+          if (t0 + r < T) st1(xn + static_cast<size_t>(t0 + r) * D + RL::col(e), v[r][e]);
         }
     __syncwarp();   // the product reads other lanes' columns
   }
@@ -268,20 +276,23 @@ __device__ __forceinline__ void row_pass(const named_t<IO>* __restrict__ a,
 // products over bf16-rounded xn, tok and weights, one TF32 pass each; its q,
 // k, v then differ from the f32 forward's, as lft_tpu's do (its backward
 // rebuilds the scores from bf16 q and k against the f32 forward's (m, l)).
-// IO = bf16 (K2.2 `spa_qkv_bf16io`, with BF; not with LN1): xn, tok, q, k,
-// v bf16. Bound at [400, 32, 32, 64]: 40.3 GFLOP at the bf16 rate 0.041
-// ms, 0.52 GB (0.63 reading xn twice) 0.157 ms: bytes.
+// IO = bf16 (with BF): K2.2 `spa_qkv_bf16io`, xn, tok, q, k, v bf16; with
+// LN1 K3.b's `spa_ln_qkv_bf16io` (`--dtype bfloat16` training, lft_tpu's
+// _bwd_kernel :433-445): tok in bf16, xn = bf16(LN1(tok + pe_tok)), q, k,
+// v bf16, pe_tok f32 of its bf16 values. Bound at [400, 32, 32, 64]: 40.3
+// GFLOP at the bf16 rate 0.041 ms, 0.52 GB (0.63 reading xn twice) 0.157
+// ms: bytes; K3.b's at [100, 32, 32, 64]: tok in, xn, q, k, v out and xn
+// read back, 0.16 GB, 0.047 ms.
 template <int C, bool LN1, bool BF = false, class IO = float>
 __global__ void __launch_bounds__(RG_NT, 1)
     spa_qkv_kernel(const IO* xn, const IO* __restrict__ tok,
                    const float* __restrict__ wf, IO* __restrict__ q,
-                   IO* __restrict__ k, IO* __restrict__ v, int T, Ln1Rows<2 * C> ln1) {
+                   IO* __restrict__ k, IO* __restrict__ v, int T, Ln1Rows<2 * C, IO> ln1) {
   constexpr int SQ = RowProj<C>::SQ;
   extern __shared__ __align__(16) float smem[];
-  static_assert(!(LN1 && is_bf16<IO>), "K3.b is f32 IO");
   if constexpr (LN1)
-    row_pass<C, false, Ln1Rows<2 * C>, BF>(tok, wf, q, nullptr, nullptr, nullptr, nullptr, smem,
-                                           T, ln1);
+    row_pass<C, false, Ln1Rows<2 * C, IO>, BF, IO>(tok, wf, q, nullptr, nullptr, nullptr,
+                                                   nullptr, smem, T, ln1);
   else
     row_pass<C, false, NoRows, BF, IO>(xn, wf, q, nullptr, nullptr, nullptr, nullptr, smem, T);
   row_pass<C, false, NoRows, BF, IO>(xn, wf + SQ, k, nullptr, nullptr, nullptr, nullptr, smem, T);
@@ -512,8 +523,8 @@ int qkv(const named_t<IO>* xn, const named_t<IO>* tok, const float* wqk, const f
     launch_rg_weights(ps, 3, wf, s, BF);
     auto kernel = spa_qkv_kernel<CC, LN1, BF, IO>;
     LFT_SET_SMEM(kernel, L::BYTES);
-    Ln1Rows<L::D> ln1{};
-    if constexpr (LN1) ln1 = Ln1Rows<L::D>{pe_tok, ln, xn_out, hw};
+    Ln1Rows<L::D, IO> ln1{};
+    if constexpr (LN1) ln1 = Ln1Rows<L::D, IO>{pe_tok, ln, xn_out, hw};
     kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(LN1 ? xn_out : xn, tok, wf, q,
                                                                     k, v, T, ln1);
   });
@@ -561,6 +572,17 @@ extern "C" int lft_spa_ln_qkv_bf16(const float* tok, const float* pe_tok, const 
                          static_cast<cudaStream_t>(stream));
 }
 
+// K3.b's bf16-IO instance (`--dtype bfloat16` training): tok, xn, q, k, v
+// bf16; pe_tok, ln and the weights f32 (their bf16 values), wf holding the
+// weights' bf16 parts.
+extern "C" int lft_spa_ln_qkv_bf16io(const bf16* tok, const float* pe_tok, const float* ln,
+                                     const float* wqk, const float* wv, float* wf, bf16* xn,
+                                     bf16* q, bf16* k, bf16* v, int T, int hw, int C,
+                                     void* stream) {
+  return qkv<true, true, bf16>(nullptr, tok, wqk, wv, wf, q, k, v, T, C, pe_tok, ln, xn, hw,
+                               static_cast<cudaStream_t>(stream));
+}
+
 namespace {
 
 template <bool STATS>
@@ -598,24 +620,24 @@ extern "C" int lft_spa_window_attn(const float* q, const float* k, const float* 
                             static_cast<cudaStream_t>(stream));
 }
 
-// Step 3's bf16-IO instance (window_attn.cuh): q, k, v, attn bf16; a block
-// takes a (view, 16 x 16 tile) item and every head group.
-extern "C" int lft_spa_window_attn_bf16io(const bf16* q, const bf16* k, const bf16* v,
-                                          bf16* attn, int V, int h, int w, int D, int H,
-                                          float scale, void* stream) {
+namespace {
+
+template <bool STATS>
+int window_attn_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* attn, float* m,
+                       float* l, int V, int h, int w, int D, int H, float scale, cudaStream_t s) {
   if (H != 8 || V < 1 || h < 1 || w < 1 || D % WA_G) return static_cast<int>(cudaErrorInvalidValue);
   const long long items = static_cast<long long>(V) * ((h + WA_TY - 1) / WA_TY) *
                           ((w + WA_TX - 1) / WA_TX);
   if (items > 0x7fffffffLL || static_cast<long long>(V) * h * w > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
   switch (D / H) {
-#define LFT_ATTN_CASE(DHV)                                                                   \
-    case DHV: {                                                                              \
-      auto kernel = spa_window_attn_bf16io_kernel<DHV>;                                      \
-      LFT_SET_SMEM(kernel, WA_BYTES);                                                        \
-      kernel<<<static_cast<int>(items), WA_NT, WA_BYTES, s>>>(q, k, v, attn, V, h, w, scale); \
-      break;                                                                                 \
+#define LFT_ATTN_CASE(DHV)                                                                  \
+    case DHV: {                                                                             \
+      auto kernel = spa_window_attn_bf16io_kernel<DHV, STATS>;                              \
+      LFT_SET_SMEM(kernel, WA_BYTES);                                                       \
+      kernel<<<static_cast<int>(items), WA_NT, WA_BYTES, s>>>(q, k, v, attn, m, l, V, h, w, \
+                                                               scale);                      \
+      break;                                                                                \
     }
     LFT_ATTN_CASE(4)
     LFT_ATTN_CASE(8)
@@ -626,7 +648,27 @@ extern "C" int lft_spa_window_attn_bf16io(const bf16* q, const bf16* k, const bf
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same, also writing m, l [V, h, w, H] (the residuals of K3).
+}  // namespace
+
+// Step 3's bf16-IO instance (window_attn.cuh): q, k, v, attn bf16; a block
+// takes a (view, 16 x 16 tile) item and every head group.
+extern "C" int lft_spa_window_attn_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                          bf16* attn, int V, int h, int w, int D, int H,
+                                          float scale, void* stream) {
+  return window_attn_bf16io<false>(q, k, v, attn, nullptr, nullptr, V, h, w, D, H, scale,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// The same, also writing m, l [V, h, w, H] f32 (the residuals of K3's
+// bf16-IO form: m each query's max over its heads, in every head's slot).
+extern "C" int lft_spa_window_attn_res_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                              bf16* attn, float* m, float* l, int V, int h,
+                                              int w, int D, int H, float scale, void* stream) {
+  return window_attn_bf16io<true>(q, k, v, attn, m, l, V, h, w, D, H, scale,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// Step 3 also writing m, l [V, h, w, H] (the residuals of K3).
 extern "C" int lft_spa_window_attn_res(const float* q, const float* k, const float* v,
                                        float* attn, float* m, float* l, int V, int h,
                                        int w, int D, int H, float scale, void* stream) {

@@ -56,6 +56,17 @@
 // the weights' bf16 parts in the same scratch layouts). What a step hands
 // on stays f32; the next product rounds it as it loads it, as lft_tpu's
 // casts round it at the site.
+//
+// `--dtype bfloat16` training (lft_tpu's _bwd_kernel with io = bf16, every
+// site's operands bf16, :427-568): each step has a bf16-IO instance,
+// `_bf16io` after its name, its BF instance on bf16 rows (rowbwd.cuh:
+// widened to f32 as loaded, rounded to nearest even as stored). What the
+// steps hand on is bf16 where lft_tpu stores or casts it in io: x, tok,
+// attn and dout in; a's dattn, y, dy, hid, dpre, xn2, b's xn, q, k, v, c's
+// dq, dk, dv, d's dtok and e's dx out. dx2, dtokpe and the LN partial sums
+// stay f32 (lft_tpu keeps dx2 = dtok's start and dtokpe in f32, :482,
+// :552-556). The two roundings at each residual add are the forward's (K2.4,
+// K2.5): x2 = bf16(bf16(attn Wo) + tok), y = bf16(bf16(hid W2) + x2).
 
 #include "rowbwd.cuh"
 #include "spa.cuh"
@@ -149,10 +160,10 @@ struct FfnOutBwd {
 // c]) into hid_out and the warp's chunk rows, its signs into the thread's
 // word on[J RG_NT] (bit i: the chunk accumulator's element i), y += hid_c
 // W2[c, :].
-template <int C, int J, bool BF, class Ring>
+template <int C, int J, bool BF, class Ring, class IO>
 __device__ __forceinline__ void fwd_chunks(RgAcc<2 * C>& y, uint32_t* on, const float* xw,
                                            float* hw16,
-                                           float* __restrict__ hid_out, Ring& ring,
+                                           IO* __restrict__ hid_out, Ring& ring,
                                            const float*& st, int t0, int T) {
   using F = FfnOutBwd<C>;
   constexpr int off = F::OFF_F + J * 2 * F::PC;
@@ -176,10 +187,10 @@ __device__ __forceinline__ void fwd_chunks(RgAcc<2 * C>& y, uint32_t* on, const 
 // The backward's hidden chunk J and those after it: dpre_c = (hid_c > 0)
 // dy W2ᵀ[:, c] into dpre_out and the warp's chunk rows, dxn2 += dpre_c
 // W1ᵀ[c, :].
-template <int C, int J, bool BF, class Ring>
+template <int C, int J, bool BF, class Ring, class IO>
 __device__ __forceinline__ void bwd_chunks(RgAcc<2 * C>& dxn, const uint32_t* on,
                                            const float* xw, float* hw16,
-                                           float* __restrict__ dpre_out, Ring& ring,
+                                           IO* __restrict__ dpre_out, Ring& ring,
                                            const float*& st, int t0, int T) {
   using F = FfnOutBwd<C>;
   constexpr int off = F::OFF_B + J * 2 * F::PC;
@@ -200,14 +211,16 @@ __device__ __forceinline__ void bwd_chunks(RgAcc<2 * C>& dxn, const uint32_t* on
 // wf: the weight stream (FfnOutBwd::FLOATS floats, kernels/rowgemm.py:
 // ffn_out_bwd_stream), written by rg_weights_kernel. ln_part [tiles, 2, D].
 // BF: the products over bf16-rounded operands (the weights' bf16 parts).
-template <int C, bool BF = false>
+// IO = bf16 (with BF): attn, tok, dout and the outputs but dx2 and ln_part
+// bf16; x2 and y rounded twice, as the forward rounds them.
+template <int C, bool BF = false, class IO = float>
 __global__ void __launch_bounds__(RG_NT, 1)
-    spa_ffn_out_bwd_kernel(const float* __restrict__ attn, const float* __restrict__ tok,
-                           const float* __restrict__ dout, const float* __restrict__ ln,
+    spa_ffn_out_bwd_kernel(const IO* __restrict__ attn, const IO* __restrict__ tok,
+                           const IO* __restrict__ dout, const float* __restrict__ ln,
                            const float* __restrict__ wf, float* dx2_out,
-                           float* __restrict__ dattn_out, float* __restrict__ y_out,
-                           float* __restrict__ dy_out, float* __restrict__ hid_out,
-                           float* __restrict__ dpre_out, float* __restrict__ xn2_out,
+                           IO* __restrict__ dattn_out, IO* __restrict__ y_out,
+                           IO* __restrict__ dy_out, IO* __restrict__ hid_out,
+                           IO* __restrict__ dpre_out, IO* __restrict__ xn2_out,
                            float* __restrict__ ln_part, int T) {
   using F = FfnOutBwd<C>;
   using P = RgParts<F::D>;
@@ -236,10 +249,9 @@ __global__ void __launch_bounds__(RG_NT, 1)
     rg_product<D, D, 0, false, BF>(a, xw, LDX, ring, st);
     rg_pairs<D>(a, [&](int r, int c, float& v0, float& v1) {
       if (t0 + r < T) {
-        const float2 t =
-            __ldcs(reinterpret_cast<const float2*>(tok + static_cast<size_t>(t0 + r) * D + c));
-        v0 += t.x;
-        v1 += t.y;
+        const float2 t = ldcs2(tok + static_cast<size_t>(t0 + r) * D + c);
+        v0 = io_round<IO>(io_round<IO>(v0) + t.x);
+        v1 = io_round<IO>(io_round<IO>(v1) + t.y);
       }
     });
     put_tile<D>(a, xw, LDX);   // attn is read
@@ -266,8 +278,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
         if (t0 + r < T) {
           const float2 x2 =
               *reinterpret_cast<const float2*>(dx2_out + static_cast<size_t>(t0 + r) * D + c);
-          v0 += x2.x;
-          v1 += x2.y;
+          v0 = io_round<IO>(io_round<IO>(v0) + x2.x);
+          v1 = io_round<IO>(io_round<IO>(v1) + x2.y);
         }
       });
       put_tile<D>(y, xw, LDX);   // xn2 is read
@@ -423,12 +435,13 @@ LFT_EXPORT_ERROR_STRING
 
 namespace {
 
-template <bool BF>
-int ffn_out_bwd(const float* attn, const float* tok, const float* dout, const float* ln,
-                const float* wo, const float* w1, const float* w2, const float* wlinT,
-                const float* w2T, const float* w1T, const float* woT, float* wf, float* dx2,
-                float* dattn, float* y, float* dy, float* hid, float* dpre, float* xn2,
-                float* ln_part, int T, int C, cudaStream_t s) {
+template <bool BF, class IO = float>
+int ffn_out_bwd(const named_t<IO>* attn, const named_t<IO>* tok, const named_t<IO>* dout,
+                const float* ln, const float* wo, const float* w1, const float* w2,
+                const float* wlinT, const float* w2T, const float* w1T, const float* woT,
+                float* wf, float* dx2, named_t<IO>* dattn, named_t<IO>* y, named_t<IO>* dy,
+                named_t<IO>* hid, named_t<IO>* dpre, named_t<IO>* xn2, float* ln_part, int T,
+                int C, cudaStream_t s) {
   if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
     using F = FfnOutBwd<CC>;
@@ -450,7 +463,7 @@ int ffn_out_bwd(const float* attn, const float* tok, const float* dout, const fl
     }
     all[n++] = RgPiece{woT, F::D, F::D, F::D, F::OFF_OT};
     launch_rg_pieces(all, n, wf, s, BF);
-    auto kernel = spa_ffn_out_bwd_kernel<CC, BF>;
+    auto kernel = spa_ffn_out_bwd_kernel<CC, BF, IO>;
     LFT_SET_SMEM(kernel, F::BYTES);
     kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(
         attn, tok, dout, ln, wf, dx2, dattn, y, dy, hid, dpre, xn2, ln_part, T);
@@ -458,27 +471,27 @@ int ffn_out_bwd(const float* attn, const float* tok, const float* dout, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF>
-int qkv_ln_bwd(const float* tok, const float* pe_tok, const float* dq, const float* dk,
-               const float* dv, const float* dx2, const float* ln, const float* wqk,
-               const float* wv, float* wf, float* dtok, float* dtokpe, float* ln_part, int T,
-               int hw, int C, cudaStream_t s) {
+template <bool BF, class IO = float>
+int qkv_ln_bwd(const named_t<IO>* tok, const float* pe_tok, const named_t<IO>* dq,
+               const named_t<IO>* dk, const named_t<IO>* dv, const float* dx2, const float* ln,
+               const float* wqk, const float* wv, float* wf, named_t<IO>* dtok, float* dtokpe,
+               float* ln_part, int T, int hw, int C, cudaStream_t s) {
   if (T < 1 || hw < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
     constexpr int D = 2 * CC;
-    const QkvLnBwdArgs a{tok, pe_tok, dq, dk, dv, dx2, ln, nullptr, dtok, dtokpe, ln_part,
-                         hw, 2 * D, T};
-    return launch_qkv_ln_bwd<D, BF>(a, wqk, wqk + D, 2 * D, wv, wf, s);
+    const QkvLnBwdArgs<IO> a{tok, pe_tok, dq, dk, dv, dx2, ln, nullptr, dtok, dtokpe,
+                             ln_part, hw, 2 * D, T};
+    return launch_qkv_ln_bwd<D, BF, IO>(a, wqk, wqk + D, 2 * D, wv, wf, s);
   });
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool BF>
-int tokenize_bwd(const float* dtok, const float* wu, float* wf, float* dx, int T, int h, int w,
-                 int C, int r, int cw, cudaStream_t s) {
+template <bool BF, class IO = float>
+int tokenize_bwd(const named_t<IO>* dtok, const float* wu, float* wf, named_t<IO>* dx, int T,
+                 int h, int w, int C, int r, int cw, cudaStream_t s) {
   if (h < 1 || w < 1 || T < 1 || T % (h * w)) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
-    return launch_tap_conv<2 * CC, CC, false, false, true, BF>(
+    return launch_tap_conv<2 * CC, CC, false, false, true, BF, IO>(
         dtok, wu, wf, nullptr, nullptr, dx, nullptr, T / (h * w), h, w, 1, r, cw, s);
   });
   return static_cast<int>(cudaErrorInvalidValue);
@@ -552,4 +565,38 @@ extern "C" int lft_spa_tokenize_bwd_bf16(const float* dtok, const float* wu, flo
                                          void* stream) {
   return tokenize_bwd<true>(dtok, wu, wf, dx, T, h, w, C, r, cw,
                             static_cast<cudaStream_t>(stream));
+}
+
+// The steps' bf16-IO instances (`--dtype bfloat16` training, the header):
+// the BF instances on bf16 activations. Step a: attn, tok, dout bf16; dx2
+// and ln_part f32, dattn, y, dy, hid, dpre, xn2 bf16. Step d: tok, dq, dk,
+// dv and dtok bf16; pe_tok (its bf16 values), dx2, dtokpe and ln_part f32.
+// Step e: dtok and dx bf16. The weights f32 (their bf16 values), each wf
+// holding their bf16 parts.
+extern "C" int lft_spa_ffn_out_bwd_bf16io(const bf16* attn, const bf16* tok, const bf16* dout,
+                                          const float* ln, const float* wo, const float* w1,
+                                          const float* w2, const float* wlinT,
+                                          const float* w2T, const float* w1T, const float* woT,
+                                          float* wf, float* dx2, bf16* dattn, bf16* y, bf16* dy,
+                                          bf16* hid, bf16* dpre, bf16* xn2, float* ln_part,
+                                          int T, int C, void* stream) {
+  return ffn_out_bwd<true, bf16>(attn, tok, dout, ln, wo, w1, w2, wlinT, w2T, w1T, woT, wf,
+                                 dx2, dattn, y, dy, hid, dpre, xn2, ln_part, T, C,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int lft_spa_qkv_ln_bwd_bf16io(const bf16* tok, const float* pe_tok, const bf16* dq,
+                                         const bf16* dk, const bf16* dv, const float* dx2,
+                                         const float* ln, const float* wqk, const float* wv,
+                                         float* wf, bf16* dtok, float* dtokpe, float* ln_part,
+                                         int T, int hw, int C, void* stream) {
+  return qkv_ln_bwd<true, bf16>(tok, pe_tok, dq, dk, dv, dx2, ln, wqk, wv, wf, dtok, dtokpe,
+                                ln_part, T, hw, C, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int lft_spa_tokenize_bwd_bf16io(const bf16* dtok, const float* wu, float* wf,
+                                           bf16* dx, int T, int h, int w, int C, int r, int cw,
+                                           void* stream) {
+  return tokenize_bwd<true, bf16>(dtok, wu, wf, dx, T, h, w, C, r, cw,
+                                  static_cast<cudaStream_t>(stream));
 }

@@ -23,6 +23,8 @@
 
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace lft {
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
@@ -34,6 +36,18 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 4 values of src into f32 shared memory at dst (16-byte aligned), zero
+// where !valid: f32 by cp.async (16 bytes); bf16 (`--dtype bfloat16`'s
+// `_bf16io` instances) by the thread's own 8-byte load, widened to f32 as
+// it is stored (cp.async copies bytes), so the rows in shared memory and
+// every read of them are the f32 instance's.
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) {
+  cp_async16(dst, src, valid);
+}
+__device__ __forceinline__ void copy4(float* dst, const bf16* src, bool valid) {
+  store4(dst, valid ? ldg4(src) : make_float4(0.f, 0.f, 0.f, 0.f));
 }
 
 // v = hi + lo: hi is v rounded to TF32 as cvt.rna.tf32.f32 rounds (to

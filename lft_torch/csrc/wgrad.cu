@@ -39,6 +39,14 @@
 //   lft_tpu accumulates Xᵀ dY over bf16 operands): X and dY rounded to bf16
 //   as their fragments load, one `mma.sync` a step instead of three, the
 //   same slabs and f32 accumulation (tf32.cuh).
+// * bf16 IO (`lft_wgrad_bf16io`, the weight grads of `--dtype bfloat16`
+//   training: lft_tpu's Xᵀ dY over its bf16 operands, f32 sums): the BF
+//   products with X and dY bf16 in device memory, staged into the same f32
+//   slabs by the threads' 8-byte loads widened to f32 (`copy4`: cp.async
+//   copies bytes); `_f32dy`: dY f32 (K3's and K4's dx2, which lft_tpu keeps
+//   f32 and casts at the site), rounded to bf16 as its fragments load, as
+//   BF does. The same slices, order and f32 result. Bound at the step's
+//   largest product ([102400, 128] x [102400, 256]): 78.6 MB, 0.023 ms.
 //
 // colsum (a [R, N] -> a.sum(0)) and the partials' sum are one kernel: a
 // cluster of up to 8 blocks (about two blocks an SM in all, at least two
@@ -176,10 +184,11 @@ __device__ __forceinline__ void slice(int T, int S, int& t0, int& t1) {
 
 // taps = 1: block (n tile, k tile, slice) -> dst[slice] = x[slice]ᵀ dy[slice]
 // over its tile.
-template <int WARPS_M, int WARPS_N, bool BF = false>
+template <int WARPS_M, int WARPS_N, bool BF = false, class XT = float, class YT = float>
 __global__ void __launch_bounds__(Tile<WARPS_M, WARPS_N>::NTH)
-    wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+    wgrad_kernel(const XT* __restrict__ x, const YT* __restrict__ dy,
                  float* __restrict__ dst, int T, int K, int N, int S) {
+  static_assert(BF || (!is_bf16<XT> && !is_bf16<YT>), "bf16 operands take the BF products");
   using TL = Tile<WARPS_M, WARPS_N>;
   constexpr int BM = TL::BM, BN = TL::BN, NTH = TL::NTH, LDX = TL::LDX, LDY = TL::LDY;
   extern __shared__ __align__(16) float smem[];
@@ -200,12 +209,12 @@ __global__ void __launch_bounds__(Tile<WARPS_M, WARPS_N>::NTH)
     for (int i = threadIdx.x; i < BT * (BM / 4); i += NTH) {
       const int r = i / (BM / 4), c = 4 * (i % (BM / 4)), t = tb + r;
       const bool ok = t < t1 && k0 + c < K;
-      cp_async16(xs + r * LDX + c, ok ? x + static_cast<size_t>(t) * K + k0 + c : x, ok);
+      copy4(xs + r * LDX + c, ok ? x + static_cast<size_t>(t) * K + k0 + c : x, ok);
     }
     for (int i = threadIdx.x; i < BT * (BN / 4); i += NTH) {
       const int r = i / (BN / 4), c = 4 * (i % (BN / 4)), t = tb + r;
       const bool ok = t < t1 && n0 + c < N;
-      cp_async16(ys + r * LDY + c, ok ? dy + static_cast<size_t>(t) * N + n0 + c : dy, ok);
+      copy4(ys + r * LDY + c, ok ? dy + static_cast<size_t>(t) * N + n0 + c : dy, ok);
     }
   };
 
@@ -233,10 +242,11 @@ __global__ void __launch_bounds__(Tile<WARPS_M, WARPS_N>::NTH)
 
 // taps = 9: block (n tile of 32, k tile of 64, slice); warp = tap = 3 ky + kx
 // -> dst[slice][tap] = x_shifted[slice]ᵀ dy[slice] over the tile.
-template <bool BF = false>
+template <bool BF = false, class XT = float, class YT = float>
 __global__ void __launch_bounds__(TAP_NTH)
-    wgrad_taps_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+    wgrad_taps_kernel(const XT* __restrict__ x, const YT* __restrict__ dy,
                       float* __restrict__ dst, int T, int K, int N, int S, int h, int w) {
+  static_assert(BF || (!is_bf16<XT> && !is_bf16<YT>), "bf16 operands take the BF products");
   extern __shared__ __align__(16) float smem[];
   float* Xs = smem;                             // [STAGES][3][HR][TLDX]
   float* Ys = Xs + STAGES * TAP_X;              // [STAGES][BT][TLDY]
@@ -260,13 +270,12 @@ __global__ void __launch_bounds__(TAP_NTH)
       const int r = rem / (WM / 4), c = 4 * (rem % (WM / 4));
       const int t = tb + (b - 1) * w - 1 + r;
       const bool ok = t >= 0 && t < T && k0 + c < K;
-      cp_async16(xs + (b * HR + r) * TLDX + c, ok ? x + static_cast<size_t>(t) * K + k0 + c : x,
-                 ok);
+      copy4(xs + (b * HR + r) * TLDX + c, ok ? x + static_cast<size_t>(t) * K + k0 + c : x, ok);
     }
     for (int i = threadIdx.x; i < BT * (WN / 4); i += TAP_NTH) {
       const int r = i / (WN / 4), c = 4 * (i % (WN / 4)), t = tb + r;
       const bool ok = t < t1 && n0 + c < N;
-      cp_async16(ys + r * TLDY + c, ok ? dy + static_cast<size_t>(t) * N + n0 + c : dy, ok);
+      copy4(ys + r * TLDY + c, ok ? dy + static_cast<size_t>(t) * N + n0 + c : dy, ok);
     }
     if (threadIdx.x < BT) {
       const int t = tb + threadIdx.x;
@@ -363,15 +372,16 @@ __global__ void __launch_bounds__(CS_THREADS)
   cluster.sync();   // every block's shared memory lives until rank 0 has read it
 }
 
-template <int WARPS_M, int WARPS_N, bool BF>
-cudaError_t launch_product(const float* x, const float* dy, float* dst, int T, int K, int N,
-                           int S, cudaStream_t s) {
+template <int WARPS_M, int WARPS_N, bool BF, class XT, class YT>
+cudaError_t launch_product(const XT* x, const YT* dy, float* dst, int T, int K, int N, int S,
+                           cudaStream_t s) {
   using TL = Tile<WARPS_M, WARPS_N>;
-  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel<WARPS_M, WARPS_N, BF>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+  auto kernel = wgrad_kernel<WARPS_M, WARPS_N, BF, XT, YT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + TL::BN - 1) / TL::BN, (K + TL::BM - 1) / TL::BM, S);
-  wgrad_kernel<WARPS_M, WARPS_N, BF><<<grid, TL::NTH, TL::SMEM, s>>>(x, dy, dst, T, K, N, S);
+  kernel<<<grid, TL::NTH, TL::SMEM, s>>>(x, dy, dst, T, K, N, S);
   return cudaGetLastError();
 }
 
@@ -399,8 +409,8 @@ cudaError_t launch_colsum(const float* a, float* out, int R, int N, int lanes, i
                 : cudaLaunchKernelEx(&cfg, colsum_kernel<1>, a, out, R, N, lanes);
 }
 
-template <bool BF>
-int wgrad(const float* x, const float* dy, float* part, float* out, int T, int K, int N, int S,
+template <bool BF, class XT = float, class YT = float>
+int wgrad(const XT* x, const YT* dy, float* part, float* out, int T, int K, int N, int S,
           int lanes, int size, int h, int w, cudaStream_t s) {
   const int taps = h > 0 ? 9 : 1;
   if (T < 1 || K < 4 || N < 4 || K % 4 || N % 4 || S < 1 || S > T ||
@@ -413,11 +423,11 @@ int wgrad(const float* x, const float* dy, float* part, float* out, int T, int K
   } else if (taps == 1) {
     err = launch_product<1, 2, BF>(x, dy, dst, T, K, N, S, s);
   } else {
-    err = cudaFuncSetAttribute(wgrad_taps_kernel<BF>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, TAP_SMEM);
+    auto kernel = wgrad_taps_kernel<BF, XT, YT>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TAP_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((N + WN - 1) / WN, (K + WM - 1) / WM, S);
-    wgrad_taps_kernel<BF><<<grid, TAP_NTH, TAP_SMEM, s>>>(x, dy, dst, T, K, N, S, h, w);
+    kernel<<<grid, TAP_NTH, TAP_SMEM, s>>>(x, dy, dst, T, K, N, S, h, w);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess || S == 1) return static_cast<int>(err);
@@ -446,6 +456,23 @@ extern "C" int lft_wgrad(const float* x, const float* dy, float* part, float* ou
 extern "C" int lft_wgrad_bf16(const float* x, const float* dy, float* part, float* out, int T,
                               int K, int N, int S, int lanes, int size, int h, int w,
                               void* stream) {
+  return wgrad<true>(x, dy, part, out, T, K, N, S, lanes, size, h, w,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The same over bf16 x and dy in device memory (`--dtype bfloat16`
+// training, the header's bf16 IO): f32 sums, an f32 out.
+extern "C" int lft_wgrad_bf16io(const bf16* x, const bf16* dy, float* part, float* out, int T,
+                                int K, int N, int S, int lanes, int size, int h, int w,
+                                void* stream) {
+  return wgrad<true>(x, dy, part, out, T, K, N, S, lanes, size, h, w,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The same with dy f32 in device memory, rounded to bf16 as it is loaded.
+extern "C" int lft_wgrad_bf16io_f32dy(const bf16* x, const float* dy, float* part, float* out,
+                                      int T, int K, int N, int S, int lanes, int size, int h,
+                                      int w, void* stream) {
   return wgrad<true>(x, dy, part, out, T, K, N, S, lanes, size, h, w,
                      static_cast<cudaStream_t>(stream));
 }

@@ -237,11 +237,15 @@ __global__ void __launch_bounds__(WA_NT, 2)
 // widened to f32 by the threads (cp.async copies bytes). The scores are (q
 // . k) scale, as lft_tpu orders them. Bound at [400, 32, 32, 128]: q, k, v
 // read once and attn written once in bf16, 0.42 GB, 0.125 ms; the first
-// pass reads q and k again through L2.
-template <int DH>
+// pass reads q and k again through L2. STATS (`spa_window_attn_res_bf16io`,
+// `--dtype bfloat16` training: lft_tpu's ml residual, :176-179): also m and
+// l [V, h, w, H] f32, m the query's max over its heads (and 0 where its
+// window leaves the image) in every head's slot, l the head's sum under it.
+template <int DH, bool STATS = false>
 __global__ void __launch_bounds__(WA_NT, 2)
     spa_window_attn_bf16io_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                  const bf16* __restrict__ v, bf16* __restrict__ attn, int V,
+                                  const bf16* __restrict__ v, bf16* __restrict__ attn,
+                                  float* __restrict__ m_out, float* __restrict__ l_out, int V,
                                   int h, int w, float scale) {
   constexpr int H = 8, D = H * DH;
   constexpr int G = D / WA_G;       // head groups of a pixel
@@ -397,6 +401,11 @@ __global__ void __launch_bounds__(WA_NT, 2)
           st4(attn + pix * D + col + e * DH + d,
               make_float4(o[a][d] * inv, o[a][d + 1] * inv, o[a][d + 2] * inv,
                           o[a][d + 3] * inv));
+        if constexpr (STATS) {
+          const size_t hd = pix * H + (col + e * DH) / DH;
+          m_out[hd] = mq[a];
+          l_out[hd] = l[a];
+        }
       }
     }
   }

@@ -67,7 +67,7 @@ def matmul_precision(args) -> str:
 def check_dtype(dtype: str) -> None:
     """The port computes `float32`, `mixed` (f32 activations, the fused
     backward's products over bf16 operands, lft_tpu's per-site plan) and
-    `bfloat16` (bf16 activations and parameters, inference through the fused
-    blocks; models/lft.py)."""
+    `bfloat16` (bf16 activations and parameters, inference and training
+    through the fused blocks; models/lft.py)."""
     if str(dtype) not in DTYPES:
         raise ValueError(f"lft_torch supports dtype {DTYPES}, got {dtype!r}")

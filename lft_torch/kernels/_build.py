@@ -71,8 +71,19 @@ MIXED = ("spa_ffn_out_bwd_bf16", "spa_ln_qkv_bf16", "spa_window_attn_bwd_bf16",
 # each product one TF32 pass over bf16 values, lft_tpu's rounding points.
 BF16IO = tuple(k + "_bf16io" for k in FORWARD)
 
+# ... and of those a fused train step launches under `--dtype bfloat16` in
+# place of K1 res, K2.3 res, K4 (either form), K3's five steps and `wgrad`:
+# bf16 activations, residuals and operands in memory, each product one TF32
+# pass over bf16 values with f32 sums, lft_tpu's rounding points (what stays
+# f32: m, l, dx2, dtokpe, the LayerNorm partial sums and the weight grads).
+BF16TRAIN = tuple(k + "_bf16io" for k in (
+    "ang_block_res", "spa_window_attn_res", "ang_block_bwd", "ang_block_bwd128",
+    "spa_ffn_out_bwd", "spa_ln_qkv", "spa_window_attn_bwd", "spa_qkv_ln_bwd",
+    "spa_tokenize_bwd", "wgrad"))
+
 # kernel name -> launches since the last reset
-LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO}
+LAUNCHES = {name: 0 for name in
+            FORWARD + TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO + BF16TRAIN}
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -28,10 +28,15 @@ scratch of `rowgemm.ang_bwd_floats` floats. Its launches count as
 shows which geometry trained. The angular PE is a constant of the shapes:
 its gradient is None.
 
-`--dtype bfloat16` (inference): a bf16 x runs K1 in bf16 IO, lft_tpu's K1
-with `io` = bf16, its rounding points listed at `ang_block_bf16io_plain`; on
-the card the kernel's `ang_block_bf16io` instance. Its residual form and K4
-take no bf16 tensor yet (ROADMAP.md §1 item 9c: `common.io_kernel` raises).
+`--dtype bfloat16`: a bf16 x runs K1 in bf16 IO, lft_tpu's K1 with `io` =
+bf16, its rounding points listed at `ang_block_bf16io_plain`; on the card
+the kernel's `ang_block_bf16io` instance. Training under it (lft_tpu's
+custom VJP with `io` = bf16, ang_block.py:424-496): K1 res in bf16 IO
+(`ang_block_res_bf16io`: m and l f32 as lft_tpu forms them, attn bf16), K4
+in bf16 IO (`ang_block_bwd[128]_bf16io`: x, attn and dout bf16, every
+operand it hands to `wgrad` bf16 but dx2, which stays f32; the rounding
+points at `_ang_bwd_bf16io_plain`), `wgrad_bf16io`, and `AngBlockFn`
+returns each weight gradient rounded once to bf16.
 """
 
 from __future__ import annotations
@@ -118,11 +123,10 @@ def ang_block_plain(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     returns m, l [N, A2, H] (per token and head: the softmax's row max and
     the sum of exp(s - m)) and attn [N, A2, C]. `plan`: `--dtype mixed`'s
     forward plan (kernels/common.py), followed as lft_tpu's K1 follows it.
-    A bf16 x takes `ang_block_bf16io_plain` (without residuals: those are
-    bf16 training, item 9c)."""
+    A bf16 x takes `ang_block_bf16io_plain`."""
     if x.dtype == torch.bfloat16:
         card_fwd(plan, io_kernel("ang_block_res" if with_res else "ang_block", x))
-        return ang_block_bf16io_plain(x, ang_pe, wts, num_heads)
+        return ang_block_bf16io_plain(x, ang_pe, wts, num_heads, with_res)
     if active(plan) is not None:
         return _ang_block_planned(x, ang_pe, wts, num_heads, with_res, plan)
     ln = wts["ln"]
@@ -145,7 +149,7 @@ def ang_block_plain(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
             a.contiguous())
 
 
-def ang_block_bf16io_plain(x, ang_pe, wts, num_heads: int):
+def ang_block_bf16io_plain(x, ang_pe, wts, num_heads: int, with_res: bool = False):
     """Plain version of K1 in bf16 IO: bf16 x [N, A2, C] -> bf16, at
     lft_tpu's rounding points (ang_block.py:_kernel :116-150 with io = bf16,
     the wrapper :194-213): xf = f32(x) + pe (the angular PE stays f32); xn =
@@ -155,7 +159,10 @@ def ang_block_bf16io_plain(x, ang_pe, wts, num_heads: int):
     of the unrounded e, the product with v over bf16(e); attn = bf16(out *
     (1 / l)); x2 = bf16(bf16(attn Wo) + x); hid = bf16(relu(bf16(LN2(x2))
     W1)); out = bf16(bf16(hid W2) + x2). Every product's operands are bf16
-    values (the weights rounded as lft_tpu casts them), summed in f32."""
+    values (the weights rounded as lft_tpu casts them), summed in f32.
+    with_res (lft_tpu's K1 res, :139-143): also m [N, A2, H] f32, the
+    token's max over every head and key in each head's slot, l [N, A2, H]
+    f32 (the sums of the unrounded e) and attn [N, A2, C] bf16."""
     B = bf16_round
     w = lambda n: B(wts[n].float())
     ln = wts["ln"].float()
@@ -166,10 +173,15 @@ def ang_block_bf16io_plain(x, ang_pe, wts, num_heads: int):
     s = (_heads(q, H) @ _heads(k, H).transpose(-1, -2)) * float(x.shape[-1] // H) ** -0.5
     m = s.amax(-1).amax(1, keepdim=True)                       # [N, 1, A2]
     e = torch.exp(s - m[..., None])
-    a = B(_merge((B(e) @ _heads(v, H)) * (1.0 / e.sum(-1))[..., None]))
+    l = e.sum(-1)                                              # [N, H, A2]
+    a = B(_merge((B(e) @ _heads(v, H)) * (1.0 / l)[..., None]))
     x2 = B(B(a @ w("wo")) + xf)
     hid = B(torch.relu(B(_ln(x2, ln[2], ln[3])) @ w("w1")))
-    return B(B(hid @ w("w2")) + x2).to(torch.bfloat16)
+    out = B(B(hid @ w("w2")) + x2).to(torch.bfloat16)
+    if not with_res:
+        return out
+    return (out, m.expand(-1, H, -1).transpose(1, 2).contiguous(),
+            l.transpose(1, 2).contiguous(), a.bfloat16())
 
 
 def _ang_block_planned(x, ang_pe, wts, num_heads, with_res, plan):
@@ -219,7 +231,8 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     kernel into a scratch of `rowgemm.ang_block_stream`'s layout. `plan`: a
     mixed forward plan; the card runs only `all` (`common.card_fwd`). A bf16
     x launches `ang_block_bf16io` (bf16 in and out; the weights and LN
-    affine as f32 tensors of bf16 values, the PE f32), without residuals."""
+    affine as f32 tensors of bf16 values, the PE f32), with_res
+    `ang_block_res_bf16io` (m, l f32, attn bf16)."""
     if x.device.type != "cuda":
         return ang_block_plain(x, ang_pe, wts, num_heads, with_res, plan)
     name = io_kernel("ang_block_res" if with_res else "ang_block", x)
@@ -246,9 +259,9 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     m = torch.empty(N, A2, num_heads, device=x.device)
     l = torch.empty_like(m)
     attn = torch.empty_like(x)
-    fn = _build.bind("ang_block", "lft_ang_block_fwd_res", 14,
+    fn = _build.bind("ang_block", "lft_ang_block_fwd" + name[len("ang_block"):], 14,
                      (ctypes.c_int,) * 4 + (ctypes.c_float,))
-    _build.launch("ang_block", "ang_block_res", fn, x.device, *ptrs, m.data_ptr(),
+    _build.launch("ang_block", name, fn, x.device, *ptrs, m.data_ptr(),
                   l.data_ptr(), attn.data_ptr(), *tail)
     return out, m, l, attn
 
@@ -264,7 +277,10 @@ def ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int, pl
     `plan`: `--dtype mixed`'s backward plan, each product's operands rounded
     to bf16 where its site is, at lft_tpu's sites (ang_block.py:_bwd_kernel
     :304-382; the attention then in its order: scores from the rounded q
-    and k, D = sum_j p_j dp_j, ds rounded with the scale in it)."""
+    and k, D = sum_j p_j dp_j, ds rounded with the scale in it). A bf16 x
+    (with bf16 attn and dout) takes `_ang_bwd_bf16io_plain`."""
+    if x.dtype == torch.bfloat16:
+        return _ang_bwd_bf16io_plain(x, ang_pe, wts, m, l, attn, dout, num_heads)
     R = lambda t, s: rd(t, plan, s)
     plan = active(plan)
     ln = wts["ln"]
@@ -314,6 +330,62 @@ def ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int, pl
             tok(hid), dln[None])
 
 
+def _ang_bwd_bf16io_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int):
+    """K4 in bf16 IO, lft_tpu's _bwd_kernel with io = bf16 (ang_block.py:
+    305-394): x, attn, dout bf16, m and l f32 as K1 res saved them; every
+    product over bf16 values, the weights rounded as lft_tpu casts them.
+    Recomputed: xn = bf16(LN1(x + pe)), q = bf16(xn Wq), k = bf16(xn Wk), v =
+    bf16(x Wv), x2 = bf16(bf16(attn Wo) + x), xn2 = bf16(LN2(x2)), pre = xn2
+    W1, hid = bf16(relu(pre)). Backward: dpre = bf16((pre > 0) dout W2ᵀ),
+    dxn2 = dpre W1ᵀ, dx2 = dout + LN2ᵀ(dxn2) (f32), dattn = bf16(bf16(dx2)
+    Woᵀ); p = exp((q . k) scale - m) / l, dp = dattn . v, D = sum_j p_j dp_j,
+    ds = bf16(p (dp - D) scale); dq = bf16(ds k), dk = bf16(dsᵀ q), dv =
+    bf16(bf16(p)ᵀ dattn); dxn = dq Wqᵀ + dk Wkᵀ, dx = bf16((dx2 + dv Wvᵀ) +
+    LN1ᵀ(dxn)). It computes in float64 between those points (its f32 results
+    rounded to f32 once): lft_tpu's own f32 sums and LayerNorms (XLA on the
+    CPU) lie within f32 rounding of exact, and where an f32 sum rounds to
+    bf16 next, torch's f32 order turns a few values into the neighbouring
+    bf16 value, which over a sum of such values (a weight gradient) leaves
+    the result as much as 0.18 of lft_tpu's bf16-vs-f32 distance away
+    (float64: 0.000; tests/test_torch_bf16train.py). Returns
+    `ang_block_bwd_ops_plain`'s outputs: dx, xn, dq, dk, dv, xn2, dpre, hid
+    bf16; dx2 and dln f32."""
+    B = bf16_round
+    w = lambda n: B(wts[n].double())
+    ln = wts["ln"].double()
+    N, A2, C = x.shape
+    H = num_heads
+    scale = float(C // H) ** -0.5
+    xf, do = x.double(), dout.double()
+    xhat1, rstd1 = ln_stats(xf + ang_pe.double())
+    xn = B(xhat1 * ln[0] + ln[1])
+    q, k, v = B(xn @ w("wq")), B(xn @ w("wk")), B(xf @ w("wv"))
+    x2 = B(B(attn.double() @ w("wo")) + xf)
+    xhat2, rstd2 = ln_stats(x2)
+    xn2 = B(xhat2 * ln[2] + ln[3])
+    pre = xn2 @ w("w1")
+    hid = B(torch.relu(pre))
+    dpre = B(torch.where(pre > 0, do @ w("w2").t(), 0.0))
+    dxn2 = dpre @ w("w1").t()
+    dx2 = (do + ln_bwd(dxn2, xhat2, rstd2, ln[2])).float().double()
+    dattn = B(B(dx2) @ w("wo").t())
+    qh, kh, vh, doh = _heads(q, H), _heads(k, H), _heads(v, H), _heads(dattn, H)
+    p = (torch.exp((qh @ kh.transpose(-1, -2)) * scale - m.double().transpose(1, 2)[..., None])
+         * (1.0 / l.double().transpose(1, 2))[..., None])
+    dp = doh @ vh.transpose(-1, -2)
+    ds = B(p * (dp - (p * dp).sum(-1, keepdim=True)) * scale)
+    dq, dk = B(_merge(ds @ kh)), B(_merge(ds.transpose(-1, -2) @ qh))
+    dv = B(_merge(B(p).transpose(-1, -2) @ doh))
+    dxn = dq @ w("wq").t() + dk @ w("wk").t()
+    dx = B((dx2 + dv @ w("wv").t()) + ln_bwd(dxn, xhat1, rstd1, ln[0]))
+    cs = lambda t: t.reshape(-1, C).sum(0)
+    dln = torch.stack([cs(dxn * xhat1), cs(dxn), cs(dxn2 * xhat2), cs(dxn2)]).float()
+    tok = lambda t: t.reshape(N * A2, -1)
+    b = lambda t: tok(t).bfloat16()
+    return (dx.bfloat16(), b(xn), b(dq), b(dk), b(dv), tok(dx2).float(), b(xn2), b(dpre),
+            b(hid), dln[None])
+
+
 def ang_bwd_tiles(T: int) -> int:
     """Rows of K4's LN partial sums: one a 128-row tile of steps a and c."""
     return -(-T // RG_M)
@@ -334,7 +406,9 @@ def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=Non
     rounds every site the card launches the kernels' bf16-operand instances
     (`_bf16` after the name): each product of steps a and c one TF32 pass
     over bf16-rounded operands, step b's attention over rounded q, k, v,
-    dattn, ds and p with D from those products (`csrc/ang_block.cu`)."""
+    dattn, ds and p with D from those products (`csrc/ang_block.cu`). bf16
+    x, attn and dout launch the bf16-IO instances (`_bf16io`; their outputs
+    as `_ang_bwd_bf16io_plain`'s, bf16 but dx2 and dln)."""
     if x.device.type != "cuda":
         return ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads, plan)
     N, A2, C = x.shape
@@ -344,18 +418,24 @@ def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=Non
     if half:
         name += "_bf16"
     _check_kernel_shape(name, x, ang_pe, num_heads, BLK)
-    w = wts
+    bio = x.dtype == torch.bfloat16
+    w = {n: wts[n].float().contiguous() for n in WEIGHTS} if bio else wts
     ins = (x, ang_pe, *(w[n] for n in WEIGHTS), m, l, attn, dout)
-    _build.check_cuda_args(name, *ins)
+    if bio:
+        _build.check_cuda_args(name, x, attn, dout, dtype=torch.bfloat16)
+        _build.check_cuda_args(name, ang_pe, *(w[n] for n in WEIGHTS), m, l)
+    else:
+        _build.check_cuda_args(name, *ins)
     dev = x.device
     e = lambda *s: torch.empty(*s, device=dev)
+    eb = (lambda *s: torch.empty(*s, device=dev, dtype=torch.bfloat16)) if bio else e
     wf = e(ang_bwd_floats(C))   # scratch: the split weights of steps a and c
-    outs = (e(N, A2, C), e(T, C), e(T, C), e(T, C), e(T, C), e(T, C), e(T, C),
-            e(T, 2 * C), e(T, 2 * C), e(ang_bwd_tiles(T), 4, C))
+    outs = (eb(N, A2, C), eb(T, C), eb(T, C), eb(T, C), eb(T, C), e(T, C), eb(T, C),
+            eb(T, 2 * C), eb(T, 2 * C), e(ang_bwd_tiles(T), 4, C))
     # what the three kernels hand on: q, k, v, dattn and dsum per token and head
     scratch = (e(T, C), e(T, C), e(T, C), e(T, C), e(T, num_heads))
-    fn = _build.bind("ang_block", "lft_ang_block_bwd" + ("_bf16" if half else ""),
-                     len(ins) + 1 + len(outs) + len(scratch),
+    fn = _build.bind("ang_block", "lft_ang_block_bwd" + ("_bf16" if half else "")
+                     + ("_bf16io" if bio else ""), len(ins) + 1 + len(outs) + len(scratch),
                      (ctypes.c_int,) * 4 + (ctypes.c_float,))
     _build.launch("ang_block", name, fn, dev,
                   *(t.data_ptr() for t in ins + (wf,) + outs + scratch), N, A2, C, num_heads,
@@ -397,7 +477,8 @@ class AngBlockFn(torch.autograd.Function):
     """K1 with residuals forward, K4 backward. Inputs: x [N, A2, C],
     ang_pe, the weights of `ang_weights` in WEIGHTS order, then the
     configuration, the mixed forward and backward plans among it (the
-    backward's is kept in `ctx` for the backward)."""
+    backward's is kept in `ctx` for the backward). A bf16 x (with bf16
+    weights) runs both in bf16 IO and returns bf16 gradients."""
 
     @staticmethod
     def forward(ctx, x, ang_pe, ln, wq, wk, wv, wo, w1, w2, num_heads, plain, plan, bwd_plan):
@@ -415,6 +496,8 @@ class AngBlockFn(torch.autograd.Function):
         bwd = ang_block_bwd_plain if plain else ang_block_bwd
         dx, *dw = bwd(x, ang_pe, dict(zip(WEIGHTS, w)), m, l, attn, dout.contiguous(),
                       num_heads, bwd_plan)
+        if x.dtype == torch.bfloat16:   # lft_tpu's `c(dw, w)`: each f32 sum rounded once
+            dw = [g.to(torch.bfloat16) for g in dw]
         return (dx, None, *dw, None, None, None, None)
 
 

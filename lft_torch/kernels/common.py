@@ -23,7 +23,7 @@ import os
 
 import torch
 
-from lft_torch.kernels._build import FORWARD
+from lft_torch.kernels._build import BF16TRAIN, FORWARD
 
 KERNEL_C = (16, 32, 64)
 
@@ -150,16 +150,11 @@ def card_plan(plan, bwd_plan) -> None:
 # is `mm_site_plan(False, bf16, ...)`, every product site over bf16 operands
 # (the IO dtype), and every intermediate the kernel hands on rounded to bf16
 # where it is stored or added (the rounding points the plain versions list).
-# On the card the SR forward's kernels (`_build.FORWARD`) have `_bf16io`
-# instances; a bf16 tensor that reaches a kernel whose bf16 form is not
-# ported yet raises, naming it and the ROADMAP item that queues it. Nothing
-# falls back to f32.
-# The kernels whose bf16-IO form is bf16 training, ROADMAP.md §1 item 9c
-# (the residual forms and the backwards); any other, 9d (the per-op branch
-# and K11).
-BF16IO_TRAINING = frozenset({"ang_block_res", "spa_window_attn_res", "ang_block_bwd",
-                             "ang_block_bwd128", "spa_ffn_out_bwd", "spa_ln_qkv",
-                             "spa_window_attn_bwd", "spa_qkv_ln_bwd", "spa_tokenize_bwd"})
+# On the card the SR forward's kernels (`_build.FORWARD`) and those of the
+# fused train step (`_build.BF16TRAIN`: K1 res, K2.3 res, K4, K3's five
+# steps, `wgrad`) have `_bf16io` instances; a bf16 tensor that reaches a
+# kernel whose bf16 form is not ported yet (the per-op branch and K11,
+# ROADMAP.md §1 item 9d) raises, naming it. Nothing falls back to f32.
 
 
 def io_kernel(kernel: str, t: torch.Tensor) -> str:
@@ -169,9 +164,8 @@ def io_kernel(kernel: str, t: torch.Tensor) -> str:
     kernel and its ROADMAP item."""
     if t.dtype != torch.bfloat16:
         return kernel
-    if kernel in FORWARD:
+    if kernel in FORWARD or kernel + "_bf16io" in BF16TRAIN:
         return kernel + "_bf16io"
     raise NotImplementedError(
         f"{kernel}: its bf16-IO form is not ported yet (--dtype bfloat16 there is queued as "
-        f"ROADMAP.md §1 item {'9c' if kernel in BF16IO_TRAINING else '9d'}); pass float32 "
-        f"tensors")
+        f"ROADMAP.md §1 item 9d); pass float32 tensors")

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad
+from lft_torch.kernels.common import io_kernel
 
 # The JAX gate's geometry limits (lft_tpu/kernels/spa_attn_hp.py:65-67):
 # the port keeps their outcome, not their TPU meaning.
@@ -212,8 +213,15 @@ def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int, with_dsum: 
     `spa_window_attn_bwd`). `half`: the passes' bf16-operand instance
     (`lft_spa_attn_hp_bwd_bf16`, which only K3.c's `--dtype mixed` form
     launches, on the card only: its plain version is
-    `spa_block.window_attn_bwd_plain` under the plan)."""
-    if half and q.device.type != "cuda":
+    `spa_block.window_attn_bwd_plain` under the plan). bf16 q, k, v and
+    dout (K3.c under `--dtype bfloat16`, `kernel` its `_bf16io` name):
+    `lft_spa_attn_hp_bwd_bf16io`, the bf16-operand passes on bf16 tensors,
+    dq, dk, dv rounded to bf16 once, on the card only (its plain version is
+    `spa_block.window_attn_bwd_plain`'s bf16 branch)."""
+    bio = q.dtype == torch.bfloat16
+    if bio and not kernel.endswith("_bf16io"):
+        io_kernel(kernel, q)   # K5's own bf16 form is ROADMAP item 9d: raises
+    if (half or bio) and q.device.type != "cuda":
         raise ValueError(f"{kernel}: the bf16-operand instance runs on the card only")
     if q.device.type != "cuda":
         grads = windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout, num_heads, ksize)
@@ -222,11 +230,16 @@ def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int, with_dsum: 
         return (*grads, windowed_attention_headpacked_dsum_plain(q, k, v, m, l, dout, num_heads,
                                                                  ksize))
     _check_shape(kernel, q, num_heads, ksize)
-    _build.check_cuda_args(kernel, q, k, v, dout, m, l)
+    if bio:
+        _build.check_cuda_args(kernel, q, k, v, dout, dtype=torch.bfloat16)
+        _build.check_cuda_args(kernel, m, l)
+    else:
+        _build.check_cuda_args(kernel, q, k, v, dout, m, l)
     B, h, w, E = q.shape
     dsum = torch.empty(B, h, w, num_heads, device=q.device)
     outs = tuple(torch.empty_like(q) for _ in range(3))
-    fn = _build.bind("spa_attn_hp", "lft_spa_attn_hp_bwd" + ("_bf16" if half else ""), 10,
+    fn = _build.bind("spa_attn_hp", "lft_spa_attn_hp_bwd" + ("_bf16io" if bio else
+                                                             "_bf16" if half else ""), 10,
                      (ctypes.c_int,) * 5 + (ctypes.c_float,))
     _build.launch("spa_attn_hp", kernel, fn, q.device,
                   *(t.data_ptr() for t in (q, k, v, dout, m, l, dsum, *outs)),

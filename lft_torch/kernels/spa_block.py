@@ -43,12 +43,17 @@ Under `--dtype mixed` the plain versions follow lft_tpu's per-site plans
 (kernels/common.py: each product's operands rounded to bf16 where its site
 is), and on the card the backward's default plan, every site rounded,
 launches the steps' bf16-operand instances (`_bf16` after each name).
-`--dtype bfloat16` (inference): bf16 x runs the five steps in bf16 IO,
-lft_tpu's K2 with `io` = bf16 (spa_block.py:_kernel :116-203): each plain
-step computes in f32 from bf16 inputs and rounds at lft_tpu's points (listed
-at each), and on the card each step launches its `_bf16io` instance, the
-buffers between them bf16. The residual form, K3 and K11 take no bf16 tensor
-yet (ROADMAP.md §1 items 9c, 9d: `common.io_kernel` raises).
+`--dtype bfloat16`: bf16 x runs the five steps in bf16 IO, lft_tpu's K2
+with `io` = bf16 (spa_block.py:_kernel :116-203): each plain step computes
+in f32 from bf16 inputs and rounds at lft_tpu's points (listed at each), and
+on the card each step launches its `_bf16io` instance, the buffers between
+them bf16. Training under it (lft_tpu's custom VJP with `io` = bf16,
+:593-693): the window step with its (m, l) (`spa_window_attn_res_bf16io`),
+K3's five steps in bf16 IO (`_bf16io` after each name; what each hands on
+is bf16 but dx2, dtokpe and the LN partial sums, which lft_tpu keeps f32),
+`wgrad_bf16io`, and `SpaBlockFn` returns each weight gradient and dpe_tok
+rounded once to bf16. K11 takes no bf16 tensor yet (ROADMAP.md §1 item 9d:
+`common.io_kernel` raises).
 Step 3's kernel (`csrc/window_attn.cuh`) is also K5's forward; the geometry
 of it and of K5's two-pass backward is mirrored here (`window_items`,
 `window_thread`, `window_smem`, `hp_kv_items`, `hp_kv_smem`,
@@ -74,7 +79,7 @@ import torch.nn.functional as F
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
 from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_fwd, card_half,
-                                      io_kernel, rd, rounds)
+                                      io_kernel, mm_site_plan, rd, rounds)
 from lft_torch.kernels.rowgemm import (RG_M, ffn_out_bwd_floats, ffn_out_floats,
                                        outproj_floats, piece, qkv_floats, qkv_ln_bwd_floats,
                                        split_tf32)
@@ -253,7 +258,18 @@ def window_attn_plain(q, k, v, num_heads: int, ksize: int, plan=None):
 
 def ffn_out_bwd_plain(attn, tok, dout, wts, plan=None):
     """Plain version of step a: (dx2, dattn, y, dy, hid, dpre, xn2, dln2),
-    dln2 [1, 2, D] = the LN2 affine grads summed over the tokens."""
+    dln2 [1, 2, D] = the LN2 affine grads summed over the tokens. bf16 IO
+    (bf16 attn, tok, dout; lft_tpu's _bwd_kernel :448-482): x2 =
+    bf16(bf16(attn Wo) + tok), xn2 = bf16(LN2(x2)), pre = xn2 W1, hid =
+    bf16(relu(pre)), y = bf16(bf16(hid W2) + x2); dy = dout Wlinᵀ (f32),
+    dpre = bf16((pre > 0) bf16(dy) W2ᵀ), dxn2 = dpre W1ᵀ, dx2 = dy +
+    LN2ᵀ(dxn2) (f32: step d adds it into dtok), dattn = bf16(bf16(dx2)
+    Woᵀ); dattn, y, dy, hid, dpre and xn2 out as bf16, dx2 and dln2 f32.
+    The bf16-IO backward steps compute in float64 between lft_tpu's rounding
+    points, their f32 results rounded to f32 once (K4's plain version,
+    kernels/ang_block.py:_ang_bwd_bf16io_plain, says why)."""
+    if attn.dtype == torch.bfloat16:
+        return _ffn_out_bwd_bf16io(attn, tok, dout, wts)
     R = lambda t, s: rd(t, plan, s)
     ln = wts["ln"]
     D = tok.shape[-1]
@@ -270,8 +286,35 @@ def ffn_out_bwd_plain(attn, tok, dout, wts, plan=None):
     return (dx2, R(dx2, "wo") @ R(wts["wo"], "wo").t(), y, dy, hid, dpre, xn2, dln2[None])
 
 
+def _ffn_out_bwd_bf16io(attn, tok, dout, wts):
+    B = bf16_round
+    w = lambda n: _bw(wts, n).double()
+    ln = wts["ln"].double()
+    D = tok.shape[-1]
+    x2 = B(B(attn.double() @ w("wo")) + tok.double())
+    xhat2, rstd2 = ln_stats(x2)
+    xn2 = B(xhat2 * ln[2] + ln[3])
+    pre = xn2 @ w("w1")
+    hid = B(torch.relu(pre))
+    y = B(B(hid @ w("w2")) + x2)
+    dy = (dout.double() @ w("wlin").t()).float().double()
+    dpre = B(torch.where(pre > 0, B(dy) @ w("w2").t(), 0.0))
+    dxn2 = dpre @ w("w1").t()
+    dx2 = (dy + ln_bwd(dxn2, xhat2, rstd2, ln[2])).float()
+    dln2 = torch.stack([(dxn2 * xhat2).reshape(-1, D).sum(0), dxn2.reshape(-1, D).sum(0)])
+    b = lambda t: t.bfloat16()
+    return (dx2, b(B(dx2.double()) @ w("wo").t()), b(y), b(dy), b(hid), b(dpre), b(xn2),
+            dln2[None].float())
+
+
 def ln_qkv_plain(tok, pe_tok, wts, plan=None):
-    """Plain version of step b: (xn, q, k, v)."""
+    """Plain version of step b: (xn, q, k, v). bf16 IO (bf16 tok and
+    pe_tok, :433-445): xn = bf16(LN1(tok + pe_tok)) from the saved bf16 tok,
+    then `qkv_plain`'s bf16 IO."""
+    if tok.dtype == torch.bfloat16:
+        ln = wts["ln"].float()
+        xn = _ln(tok.float() + pe_tok.float(), ln[0], ln[1]).bfloat16()
+        return (xn, *qkv_plain(xn, tok, wts))
     xn = _ln(tok + pe_tok, wts["ln"][0], wts["ln"][1])
     return (xn, *qkv_plain(xn, tok, wts, plan))
 
@@ -281,9 +324,16 @@ def window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int
     mixed plan in lft_tpu's order (spa_block.py:_bwd_kernel :505-531): the
     scores from q and k rounded at the score site, D = sum_j p_j dp_j from
     dattn and v rounded at the av site, ds rounded with the scale in it, p
-    rounded for dv; `attn` is not read."""
+    rounded for dv; `attn` is not read. bf16 IO (bf16 q, k, v, dattn; the
+    (m, l) of the window step's bf16 form, :503-540): that order over the
+    bf16 values, dq, dk, dv summed in f32 and rounded once to bf16."""
     B, h, w, E = q.shape
     H, dh = num_heads, E // num_heads
+    if q.dtype == torch.bfloat16:
+        f = lambda t: t.double()
+        grads = window_attn_bwd_plain(f(q), f(k), f(v), None, f(dattn), f(m), f(l), H, ksize,
+                                      mm_site_plan(True, frozenset()))
+        return tuple(g.bfloat16() for g in grads)
     if active(plan) is not None:
         s, qh, kw = _planned_scores(q, k, H, ksize, plan)
         p = torch.exp(s - m[:, :, :, None]) * (1.0 / l)[:, :, :, None]
@@ -314,10 +364,23 @@ def window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int
 def qkv_ln_bwd_plain(tok, pe_tok, dq, dk, dv, dx2, wts, plan=None):
     """Plain version of step d: (dtok, dtokpe, dln1); dtokpe is the LN1
     input's cotangent (summed over views it is pe_tok's gradient), dln1
-    [1, 2, D] the LN1 affine grads."""
+    [1, 2, D] the LN1 affine grads. bf16 IO (bf16 tok, pe_tok, dq, dk, dv;
+    f32 dx2; :541-557): dxn = dq Wqᵀ + dk Wkᵀ over the bf16 values, dtokpe =
+    LN1ᵀ(dxn) f32 (xhat from tok + pe_tok), dtok = bf16((dx2 + dv Wvᵀ) +
+    dtokpe); dtokpe and dln1 f32."""
     R = lambda t, s: rd(t, plan, s)
     ln = wts["ln"]
     D = tok.shape[-1]
+    if tok.dtype == torch.bfloat16:
+        f = lambda t: t.double()
+        ln = f(ln)
+        xhat1, rstd1 = ln_stats(f(tok) + f(pe_tok))
+        wqk = f(_bw(wts, "wqk"))
+        dxn = f(dq) @ wqk[:, :D].t() + f(dk) @ wqk[:, D:].t()
+        dtokpe = ln_bwd(dxn, xhat1, rstd1, ln[0]).float()
+        dln1 = torch.stack([(dxn * xhat1).reshape(-1, D).sum(0), dxn.reshape(-1, D).sum(0)])
+        dtok = (f(dx2) + f(dv) @ f(_bw(wts, "wv")).t()) + f(dtokpe)
+        return dtok.bfloat16(), dtokpe, dln1[None].float()
     xhat1, rstd1 = ln_stats(tok + pe_tok)
     wqk = R(wts["wqk"], "qk")
     dxn = R(dq, "qk") @ wqk[:, :D].t() + R(dk, "qk") @ wqk[:, D:].t()
@@ -328,8 +391,13 @@ def qkv_ln_bwd_plain(tok, pe_tok, dq, dk, dv, dx2, wts, plan=None):
 
 def tokenize_bwd_plain(dtok, wts, plan=None):
     """Plain version of step e: dx [V, h, w, C], the transposed 3x3
-    tokenization of dtok [V, h, w, D]."""
+    tokenization of dtok [V, h, w, D]. bf16 IO (:557-568): dx =
+    bf16(the f32 9-tap sum over bf16 dtok and taps)."""
     D, C9 = wts["mlp"].shape
+    if dtok.dtype == torch.bfloat16:
+        dx = F.conv_transpose2d(dtok.double().permute(0, 3, 1, 2),
+                                _bw(wts, "mlp").double().reshape(D, C9 // 9, 3, 3), padding=1)
+        return dx.permute(0, 2, 3, 1).bfloat16().contiguous()
     dx = F.conv_transpose2d(rd(dtok, plan, "tok").permute(0, 3, 1, 2),
                             rd(wts["mlp"], plan, "tok").reshape(D, C9 // 9, 3, 3), padding=1)
     return dx.permute(0, 2, 3, 1).contiguous()
@@ -566,8 +634,9 @@ def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False, p
     column and 16 channels (`window_thread`), two blocks an SM. bf16 q, k,
     v launch `spa_window_attn_bf16io` (`window_attn_plain`'s bf16 IO: a
     block takes a (view, 16 x 16 tile) item and its head groups in two
-    passes, the first for each query's max over all its heads), without
-    stats."""
+    passes, the first for each query's max over all its heads); with_stats
+    `spa_window_attn_res_bf16io` (m, l f32: each query's max over its heads
+    in every head's slot, and its heads' sums)."""
     if q.device.type != "cuda":
         if with_stats:
             return window_attn_plain(q, k, v, num_heads, ksize, plan)
@@ -590,10 +659,8 @@ def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False, p
         return attn
     m = torch.empty(V, h, w, num_heads, device=q.device)
     l = torch.empty_like(m)
-    fn = _build.bind("spa_block", "lft_spa_window_attn_res", 6,
-                     (ctypes.c_int,) * 5 + (ctypes.c_float,))
-    _build.launch("spa_block", "spa_window_attn_res", fn, q.device, *ptrs,
-                  m.data_ptr(), l.data_ptr(), *tail)
+    fn = _build.bind("spa_block", "lft_" + name, 6, (ctypes.c_int,) * 5 + (ctypes.c_float,))
+    _build.launch("spa_block", name, fn, q.device, *ptrs, m.data_ptr(), l.data_ptr(), *tail)
     return attn, m, l
 
 
@@ -665,15 +732,24 @@ def _bwd_weights(wts: dict) -> dict:
     return dict(wlinT=t(wts["wlin"]), w2T=t(wts["w2"]), w1T=t(wts["w1"]), woT=t(wts["wo"]))
 
 
-def _launch(kernel: str, fn_name: str, ins, outs, ints, dev, half: bool = False):
+def _launch(kernel: str, fn_name: str, ins, outs, ints, dev, half: bool = False, bf=()):
     """One step's launch, under its `_bf16` name (C function and count) where
-    `half` (the bf16-operand instance)."""
-    _build.check_cuda_args(kernel, *ins)
-    sfx = "_bf16" if half else ""
+    `half` (the bf16-operand instance), or its `_bf16io` name where `bf`
+    names the inputs (by position) that it takes as bf16."""
+    sfx = "_bf16io" if bf else "_bf16" if half else ""
+    _build.check_cuda_args(kernel + sfx, *(t for i, t in enumerate(ins) if i not in bf))
+    if bf:
+        _build.check_cuda_args(kernel + sfx, *(ins[i] for i in bf), dtype=torch.bfloat16)
     fn = _build.bind("spa_block_bwd", fn_name + sfx, len(ins) + len(outs),
                      (ctypes.c_int,) * len(ints))
     _build.launch("spa_block_bwd", kernel + sfx, fn, dev,
                   *(t.data_ptr() for t in (*ins, *outs)), *ints)
+
+
+def _f32(wts: dict, names) -> dict:
+    """The weights `names` of a bf16-IO launch as f32 tensors of their
+    values (as `_io_args` takes them)."""
+    return {n: wts[n].float().contiguous() for n in names}
 
 
 def ffn_out_bwd_tiles(T: int) -> int:
@@ -689,10 +765,15 @@ def ffn_out_bwd(attn, tok, dout, wts, plan=None):
     the weights split by the launch's first kernels into a scratch of
     `rowgemm.ffn_out_bwd_stream`'s layout; under a mixed plan that rounds
     every site, one TF32 pass each over bf16-rounded operands
-    (`spa_ffn_out_bwd_bf16`, the weights' bf16 parts in the same layout)."""
+    (`spa_ffn_out_bwd_bf16`, the weights' bf16 parts in the same layout).
+    bf16 attn, tok and dout launch `spa_ffn_out_bwd_bf16io` (the plain
+    version's bf16 IO: dx2 and dln2 f32, the other outputs bf16)."""
     if attn.device.type != "cuda":
         return ffn_out_bwd_plain(attn, tok, dout, wts, plan)
     half = card_half(plan, io_kernel("spa_ffn_out_bwd", attn))
+    bio = attn.dtype == torch.bfloat16
+    if bio:
+        wts = dict(wts, **_f32(wts, ("ln", "wo", "w1", "w2", "wlin")))
     *lead, D = tok.shape
     C = D // 2
     T = tok.numel() // D
@@ -704,12 +785,14 @@ def ffn_out_bwd(attn, tok, dout, wts, plan=None):
                          f"{tuple(wts['wlin'].shape)}")
     wt = _bwd_weights(wts)
     e = lambda n: torch.empty(*lead, n, device=tok.device)
+    eb = (lambda n: torch.empty(*lead, n, device=tok.device, dtype=torch.bfloat16)) if bio else e
     wf = torch.empty(ffn_out_bwd_floats(C), device=tok.device)   # scratch: the split weights
-    outs = (e(D), e(D), e(D), e(D), e(2 * D), e(2 * D), e(D),
+    outs = (e(D), eb(D), eb(D), eb(D), eb(2 * D), eb(2 * D), eb(D),
             torch.empty(ffn_out_bwd_tiles(T), 2, D, device=tok.device))
     _launch("spa_ffn_out_bwd", "lft_spa_ffn_out_bwd",
             (attn, tok, dout, wts["ln"], wts["wo"], wts["w1"], wts["w2"], wt["wlinT"],
-             wt["w2T"], wt["w1T"], wt["woT"]), (wf, *outs), (T, C), tok.device, half)
+             wt["w2T"], wt["w1T"], wt["woT"]), (wf, *outs), (T, C), tok.device, half,
+            (0, 1, 2) if bio else ())
     return outs
 
 
@@ -721,17 +804,26 @@ def ln_qkv(tok, pe_tok, wts, plan=None):
     first kernel into a scratch of `rowgemm.qkv_stream`'s layout. With tok
     from K2.1 all four are the forward's bit for bit. Under a mixed plan that
     rounds every site `spa_ln_qkv_bf16`: the products over bf16-rounded xn,
-    tok and weights (q, k, v then differ from the f32 forward's)."""
+    tok and weights (q, k, v then differ from the f32 forward's). bf16 tok
+    and pe_tok launch `spa_ln_qkv_bf16io` (xn, q, k, v bf16; pe_tok, the LN
+    affine and the weights passed as f32 tensors of their values)."""
     if tok.device.type != "cuda":
         return ln_qkv_plain(tok, pe_tok, wts, plan)
-    name = "spa_ln_qkv" + ("_bf16" if card_half(plan, io_kernel("spa_ln_qkv", tok)) else "")
+    name = io_kernel("spa_ln_qkv", tok)
+    if card_half(plan, name):
+        name += "_bf16"
     V, h, w, D = tok.shape
     _check_c("spa_ln_qkv", D // 2)
     if tuple(pe_tok.shape) != (h, w, D) or tuple(wts["wqk"].shape) != (D, 2 * D) \
             or tuple(wts["wv"].shape) != (D, D):
         raise ValueError(f"spa_ln_qkv: tok {tuple(tok.shape)}, pe_tok {tuple(pe_tok.shape)}, "
                          f"wqk {tuple(wts['wqk'].shape)}, wv {tuple(wts['wv'].shape)}")
-    _build.check_cuda_args(name, tok, pe_tok, wts["ln"], wts["wqk"], wts["wv"])
+    if tok.dtype == torch.bfloat16:
+        _build.check_cuda_args(name, tok, pe_tok, dtype=torch.bfloat16)
+        pe_tok = pe_tok.float()
+        wts = dict(wts, **_f32(wts, ("ln", "wqk", "wv")))
+    _build.check_cuda_args(name, *((tok,) if tok.dtype == torch.float32 else ()), pe_tok,
+                           wts["ln"], wts["wqk"], wts["wv"])
     outs = tuple(torch.empty_like(tok) for _ in range(4))
     wf = torch.empty(qkv_floats(D // 2), device=tok.device)   # scratch: the split weights
     fn = _build.bind("spa_block", "lft_" + name, 10, (ctypes.c_int,) * 3)
@@ -748,11 +840,13 @@ def window_attn_bwd(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int, plan
     `spa_window_attn_bwd`: `attn` is not read there (the plain version forms
     D from it). Under a mixed plan that rounds every site its bf16-operand
     instance, `spa_window_attn_bwd_bf16` (q, k, v, dattn rounded on load, ds
-    and p before their products)."""
+    and p before their products); bf16 q, k, v, dattn that instance on bf16
+    tensors, `spa_window_attn_bwd_bf16io` (dq, dk, dv bf16)."""
     if q.device.type != "cuda":
         return window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads, ksize, plan)
-    half = card_half(plan, io_kernel("spa_window_attn_bwd", q))
-    name = "spa_window_attn_bwd" + ("_bf16" if half else "")
+    name = io_kernel("spa_window_attn_bwd", q)
+    half = card_half(plan, name)
+    name += "_bf16" if half else ""
     _check_window(name, q.shape[-1], num_heads, ksize)
     return spa_attn_hp_bwd(q, k, v, m, l, dattn, num_heads, ksize, kernel=name, half=half)
 
@@ -764,10 +858,12 @@ def qkv_ln_bwd(tok, pe_tok, dq, dk, dv, dx2, wts, plan=None):
     pass at D = 128: `rowgemm.qkv_ln_bwd_passes`), Wqᵀ, Wkᵀ, Wvᵀ split
     straight from wqk and wv by the launch's first kernel into a scratch of
     `rowgemm.qkv_ln_bwd_stream`'s layout; `spa_qkv_ln_bwd_bf16` under a
-    mixed plan that rounds every site."""
+    mixed plan that rounds every site. bf16 tok, pe_tok, dq, dk, dv (dx2
+    f32) launch `spa_qkv_ln_bwd_bf16io` (dtok bf16; dtokpe, dln1 f32)."""
     if tok.device.type != "cuda":
         return qkv_ln_bwd_plain(tok, pe_tok, dq, dk, dv, dx2, wts, plan)
     half = card_half(plan, io_kernel("spa_qkv_ln_bwd", tok))
+    bio = tok.dtype == torch.bfloat16
     V, h, w, D = tok.shape
     T = V * h * w
     _check_c("spa_qkv_ln_bwd", D // 2)
@@ -776,12 +872,16 @@ def qkv_ln_bwd(tok, pe_tok, dq, dk, dv, dx2, wts, plan=None):
             or tuple(wts["wv"].shape) != (D, D):
         raise ValueError(f"spa_qkv_ln_bwd: tok {tuple(tok.shape)}, pe_tok {tuple(pe_tok.shape)}, "
                          f"dq {tuple(dq.shape)}, wqk {tuple(wts['wqk'].shape)}")
+    if bio:
+        _build.check_cuda_args("spa_qkv_ln_bwd_bf16io", pe_tok, dtype=torch.bfloat16)
+        pe_tok = pe_tok.float()
+        wts = dict(wts, **_f32(wts, ("ln", "wqk", "wv")))
     wf = torch.empty(qkv_ln_bwd_floats(D), device=tok.device)   # scratch: Wqᵀ, Wkᵀ, Wvᵀ split
-    outs = (torch.empty_like(tok), torch.empty_like(tok),
+    outs = (torch.empty_like(tok), torch.empty(T, D, device=tok.device).view(tok.shape),
             torch.empty(ffn_out_bwd_tiles(T), 2, D, device=tok.device))
     _launch("spa_qkv_ln_bwd", "lft_spa_qkv_ln_bwd",
             (tok, pe_tok, dq, dk, dv, dx2, wts["ln"], wts["wqk"], wts["wv"]), (wf, *outs),
-            (T, h * w, D // 2), tok.device, half)
+            (T, h * w, D // 2), tok.device, half, (0, 2, 3, 4) if bio else ())
     return outs
 
 
@@ -789,20 +889,24 @@ def tokenize_bwd(dtok, wts, plan=None):
     """Step e: dx [V, h, w, C] = the 3x3 tokenization transposed, as a
     gather over the 9 taps (on the card 3xTF32 on the tensor cores;
     `spa_tokenize_bwd_bf16`, one TF32 pass over bf16-rounded dtok and taps,
-    under a mixed plan that rounds every site)."""
+    under a mixed plan that rounds every site; bf16 dtok launches
+    `spa_tokenize_bwd_bf16io`, dx bf16)."""
     if dtok.device.type != "cuda":
         return tokenize_bwd_plain(dtok, wts, plan)
     half = card_half(plan, io_kernel("spa_tokenize_bwd", dtok))
+    bio = dtok.dtype == torch.bfloat16
+    if bio:
+        wts = dict(wts, wu=wts["wu"].float().contiguous())
     V, h, w, D = dtok.shape
     C = D // 2
     _check_c("spa_tokenize_bwd", C)
     if tuple(wts["wu"].shape) != (9, C, D):
         raise ValueError(f"spa_tokenize_bwd: wu {tuple(wts['wu'].shape)} for dtok "
                          f"{tuple(dtok.shape)}")
-    dx = torch.empty(V, h, w, C, device=dtok.device)
+    dx = torch.empty(V, h, w, C, device=dtok.device, dtype=dtok.dtype)
     wf = torch.empty(18 * C * D, device=dtok.device)   # scratch: `tap_weights`' layout
     _launch("spa_tokenize_bwd", "lft_spa_tokenize_bwd", (dtok, wts["wu"]), (wf, dx),
-            (V * h * w, h, w, C, *tok_tile(h, w, C)), dtok.device, half)
+            (V * h * w, h, w, C, *tok_tile(h, w, C)), dtok.device, half, (0,) if bio else ())
     return dx
 
 
@@ -813,9 +917,7 @@ def spa_block(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False,
     """K2 chained; with_res: (out, tok, m, l, attn). pixel_major (K11): x and
     out are [Bb, h, w, A2, C], the first and last step run in their `_pm`
     forms; without residuals. `plan`: a mixed forward plan. A bf16 x runs
-    the bf16-IO steps, without residuals (item 9c)."""
-    if with_res:
-        io_kernel("spa_window_attn_res", x)
+    the bf16-IO steps."""
     tok, xn = tokenize_ln(x, pe_tok, wts, pixel_major, plan)
     q, kk, v = qkv(xn, tok, wts, plan)
     if with_res:
@@ -829,8 +931,6 @@ def spa_block(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False,
 
 def spa_block_plain(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False,
                     plan=None):
-    if with_res:
-        io_kernel("spa_window_attn_res", x)
     tok, xn = tokenize_ln_plain(x, pe_tok, wts, plan)
     q, kk, v = qkv_plain(xn, tok, wts, plan)
     if with_res or active(plan) is not None or x.dtype == torch.bfloat16:
@@ -898,7 +998,8 @@ class SpaBlockFn(torch.autograd.Function):
     """K2 with residuals forward, K3 backward. Inputs: x [V, h, w, C],
     pe_tok [h, w, D], the weights of `spa_weights` in WEIGHTS order, then
     the configuration, the mixed forward and backward plans among it (the
-    backward's is kept in `ctx` for the backward)."""
+    backward's is kept in `ctx` for the backward). A bf16 x (with bf16
+    pe_tok and weights) runs both in bf16 IO and returns bf16 gradients."""
 
     @staticmethod
     def forward(ctx, x, pe_tok, ln, wu, wqk, wv, wo, w1, w2, wlin, num_heads, k, plain, plan,
@@ -917,6 +1018,8 @@ class SpaBlockFn(torch.autograd.Function):
         bwd = spa_block_bwd_plain if plain else spa_block_bwd
         grads = bwd(x, pe_tok, _with_mlp(dict(zip(WEIGHTS, w))), tok, m, l, attn,
                     dout.contiguous(), num_heads, k, bwd_plan)
+        if x.dtype == torch.bfloat16:   # lft_tpu's `c(g, t)`: each f32 sum rounded once
+            grads = (grads[0], *(g.to(torch.bfloat16) for g in grads[1:]))
         return (*grads, None, None, None, None, None)
 
 

@@ -21,8 +21,12 @@ into two TF32 parts, three products accumulated in f32: f32 accuracy; see
 the source). With `half=True` (`--dtype mixed`'s backward at a site that
 rounds: lft_tpu's weight grads over bf16 operands) both operands are
 rounded to bf16 and the product is one TF32 pass, accumulated in f32 in
-the same order, counted as `wgrad_bf16`. On a CPU tensor each takes its
-plain version; the `*_plain` functions run anywhere.
+the same order, counted as `wgrad_bf16`. A bf16 x (`--dtype bfloat16`
+training: lft_tpu's weight grads over its bf16 operands) launches
+`wgrad_bf16io`: x and dy bf16 in memory, or dy f32 (K3's and K4's dx2)
+rounded to bf16 as it is loaded, the same slices, order and f32 sums, an
+f32 result. On a CPU tensor each takes its plain version; the `*_plain`
+functions run anywhere.
 """
 
 from __future__ import annotations
@@ -84,15 +88,23 @@ def _shifted(x_img: torch.Tensor, ky: int, kx: int) -> torch.Tensor:
 
 
 def wgrad_plain(x: torch.Tensor, dy: torch.Tensor, image=None, half: bool = False) -> torch.Tensor:
-    """Plain version of `wgrad`."""
+    """Plain version of `wgrad`: f32 sums, over bf16 values where `half`;
+    a bf16 x (`wgrad_bf16io`): its products with bf16(dy) summed in float64
+    and rounded to f32 once (as the other bf16-IO backwards' plain versions
+    sum, kernels/ang_block.py:_ang_bwd_bf16io_plain)."""
+    bio = x.dtype == torch.bfloat16
+    if bio:
+        x, dy = x.double(), bf16_round(dy.double())
     if half:
         x, dy = bf16_round(x), bf16_round(dy)
     if image is None:
-        return x.t() @ dy
-    h, w = image
-    xi = x.reshape(-1, h, w, x.shape[-1])
-    return torch.stack([_shifted(xi, t // 3, t % 3).reshape(x.shape).t() @ dy
-                        for t in range(9)])
+        out = x.t() @ dy
+    else:
+        h, w = image
+        xi = x.reshape(-1, h, w, x.shape[-1])
+        out = torch.stack([_shifted(xi, t // 3, t % 3).reshape(x.shape).t() @ dy
+                           for t in range(9)])
+    return out.float() if bio else out
 
 
 def colsum_plain(a: torch.Tensor) -> torch.Tensor:
@@ -102,7 +114,7 @@ def colsum_plain(a: torch.Tensor) -> torch.Tensor:
 def wgrad(x: torch.Tensor, dy: torch.Tensor, image=None, half: bool = False) -> torch.Tensor:
     """xᵀ·dy over the token axis (see the module docstring): the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors. half: over bf16
-    operands (`wgrad_bf16`)."""
+    operands (`wgrad_bf16`); a bf16 x: `wgrad_bf16io` (dy bf16 or f32)."""
     if x.device.type != "cuda":
         return wgrad_plain(x, dy, image, half)
     (T, K), N = x.shape, dy.shape[1]
@@ -111,12 +123,19 @@ def wgrad(x: torch.Tensor, dy: torch.Tensor, image=None, half: bool = False) -> 
     taps, (h, w) = (1, (0, 0)) if image is None else (9, image)
     if taps == 9 and T % (h * w):
         raise ValueError(f"wgrad: {T} tokens are not whole {h}x{w} images")
-    _build.check_cuda_args("wgrad", x, dy)
+    bio = x.dtype == torch.bfloat16
+    name = "wgrad_bf16io" if bio else "wgrad_bf16" if half else "wgrad"
+    if bio:
+        _build.check_cuda_args(name, x, dtype=torch.bfloat16)
+        _build.check_cuda_args(name, dy, dtype=dy.dtype if dy.dtype == torch.bfloat16
+                               else torch.float32)
+    else:
+        _build.check_cuda_args(name, x, dy)
     S = splits(T, K, N, taps)
     out = torch.empty(taps, K, N, device=x.device)
     part = torch.empty(S, taps, K, N, device=x.device) if S > 1 else out
-    name = "wgrad_bf16" if half else "wgrad"
-    fn = _build.bind("wgrad", "lft_" + name, 4, (ctypes.c_int,) * 8)
+    fn_name = "lft_" + name + ("_f32dy" if bio and dy.dtype == torch.float32 else "")
+    fn = _build.bind("wgrad", fn_name, 4, (ctypes.c_int,) * 8)
     _build.launch("wgrad", name, fn, x.device, x.data_ptr(), dy.data_ptr(),
                   part.data_ptr(), out.data_ptr(), T, K, N, S,
                   *colsum_cut(S, taps * K * N), h, w)

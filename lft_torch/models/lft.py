@@ -48,16 +48,20 @@ plans run on the plain versions only. The unfused branch ignores the plan,
 as lft_tpu's does.
 
 `--dtype bfloat16` (lft_tpu/models/lft.py:272-306, :447: lft_tpu's all-bf16
-mode, -0.20 dB PSNR against f32 there), inference only: the parameters and
-the LR views are cast to bf16, the conv stack, LeakyReLU, the residuals and
-the upsampler run as torch ops in bf16, the blocks on bf16 tensors (the
-kernels' `_bf16io` instances on the card, their plain versions on the CPU or
-with `plain_blocks=True`), the bicubic skip in f32, and the output is the
-bf16 mosaic in f32 plus the skip. Only the fused branch has a bf16 form:
-a geometry or width it does not take (on the card a C outside
+mode, -0.20 dB PSNR against f32 there): the parameters and the LR views are
+cast to bf16, the conv stack, LeakyReLU, the residuals and the upsampler run
+as torch ops in bf16, the blocks on bf16 tensors (the kernels' `_bf16io`
+instances on the card, their plain versions on the CPU or with
+`plain_blocks=True`), the bicubic skip in f32, and the output is the bf16
+mosaic in f32 plus the skip. It trains as it serves, as lft_tpu's fused
+branch trains it (lft_tpu/models/lft.py:332): each block through its
+autograd Function (K1 res / K2 res forward, K4 / K3 backward, all in bf16
+IO, each weight gradient rounded once to bf16), the rest under torch's
+autograd in bf16, the loss on the f32 SR; the casts' backward brings every
+gradient to the f32 parameters. Only the fused branch has a bf16 form: a
+geometry or width it does not take (on the card a C outside
 `kernels.common.KERNEL_C`) and `fused=False` raise NotImplementedError
-naming ROADMAP item 9d, where lft_tpu's unfused XLA branch computes; a
-forward that would be differentiated raises naming item 9c.
+naming ROADMAP item 9d, where lft_tpu's unfused XLA branch computes.
 """
 
 from __future__ import annotations
@@ -274,13 +278,10 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
     (default `args.attention_impl`) selects the unfused branch's attention:
     auto | dense | tiled | pallas. `args.dtype` `mixed` takes lft_tpu's
     site plans in the fused branch (module docstring), `bfloat16` bf16
-    inference through the fused branch only (`resolve_bf16`)."""
+    inference and training through the fused branch only (`resolve_bf16`)."""
     dt = str(getattr(args, "dtype", "float32") or "float32")
     check_dtype(dt)
     bf16 = dt == "bfloat16"
-    if bf16 and _needs_grad(lr, *params.values()):
-        raise NotImplementedError("--dtype bfloat16 trains nothing yet: bf16 training is "
-                                  "queued as ROADMAP.md §1 item 9c")
     impl = attention_impl or getattr(args, "attention_impl", "auto") or "auto"
     A = args.angRes
     S = args.scale_factor
@@ -356,25 +357,27 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
 
 @functools.lru_cache(maxsize=None)
 def _fold_index(C: int, S: int):
-    """(rows, columns, taps) of lft_tpu's Wfold (lft_tpu/models/lft.py:
-    413-424): column (s9, i, j) of `U @ Wfold` holds the part of HR pixel
-    (S y + i, S x + j)'s 3x3 conv that LR cell (y + cy, x + cx) gives,
-    s9 = 3 (cy + 1) + cx + 1; row c S^2 + ip S + jp of U is channel c of
-    that cell's subpixel (ip, jp); tap c 9 + 3 ky + kx of the conv weight."""
+    """(rows, columns) of lft_tpu's Wfold (lft_tpu/models/lft.py:413-424):
+    column (s9, i, j) of `U @ Wfold` holds the part of HR pixel (S y + i,
+    S x + j)'s 3x3 conv that LR cell (y + cy, x + cx) gives, s9 = 3 (cy + 1)
+    + cx + 1; row c S^2 + ip S + jp of U is channel c of that cell's
+    subpixel (ip, jp). Entry n of each (i, j)'s block of 9 C holds tap n = c
+    9 + 3 ky + kx of the conv weight, so the values are the weight repeated
+    S^2 times (a broadcast, whose backward is a sum, not a scatter-add), and
+    every (row, column) is set once."""
     S2 = S * S
-    r, c, k = [], [], []
+    r, c = [], []
     for i in range(S):
         for j in range(S):
-            for ky in range(3):
-                for kx in range(3):
-                    cy, ip = divmod(i + ky - 1, S)
-                    cx, jp = divmod(j + kx - 1, S)
-                    s9 = (cy + 1) * 3 + (cx + 1)
-                    for ch in range(C):
+            for ch in range(C):
+                for ky in range(3):
+                    for kx in range(3):
+                        cy, ip = divmod(i + ky - 1, S)
+                        cx, jp = divmod(j + kx - 1, S)
+                        s9 = (cy + 1) * 3 + (cx + 1)
                         r.append(ch * S2 + ip * S + jp)
                         c.append(s9 * S2 + i * S + j)
-                        k.append(ch * 9 + ky * 3 + kx)
-    return tuple(torch.tensor(a) for a in (r, c, k))
+    return tuple(torch.tensor(a) for a in (r, c))
 
 
 def _upsample_fold(m, w_up, w3, S: int):
@@ -386,12 +389,15 @@ def _upsample_fold(m, w_up, w3, S: int):
     lft_tpu's order; then the pixel shuffle. The same function as the NCHW
     form, which rounds the conv once and so skips roundings lft_tpu makes:
     with it the bf16 SR lay 0.876 of lft_tpu's bf16-vs-f32 distance from the
-    f32 SR, with this form 0.984 (tests/test_torch_bf16.py, on the CPU)."""
+    f32 SR, with this form 0.984 (tests/test_torch_bf16.py, on the CPU).
+    Under grad, Wfold's backward gathers its entries and sums each tap's S^2
+    in a fixed order (`_fold_index`): a train step repeats bitwise."""
     B, H, W, C = m.shape
     S2 = S * S
-    rows, cols, taps = _fold_index(C, S)
+    rows, cols = _fold_index(C, S)
     wfold = torch.zeros(C * S2, 9 * S2, dtype=m.dtype, device=m.device)
-    wfold[rows.to(m.device), cols.to(m.device)] = w3.reshape(-1)[taps.to(m.device)]
+    wfold = wfold.index_put((rows.to(m.device), cols.to(m.device)),
+                            w3.reshape(1, -1).expand(S2, -1).reshape(-1))
     u = _leaky(m @ w_up[:, :, 0, 0].t())                           # [B, H, W, S2 C]
     tp = F.pad(u @ wfold, (0, 0, 1, 1, 1, 1))                      # [B, H+2, W+2, 9 S2]
     o = 0

@@ -1,7 +1,7 @@
 """Time and profile the train step on one CUDA card.
 
     python3 -m lft_torch.profile_train [--steps N] [--seed S] [--plain] [--unfused]
-        [--ang-res A] [--batch B] [--dtype float32|mixed]
+        [--ang-res A] [--batch B] [--dtype float32|mixed|bfloat16]
         [--matmul-precision default|high|highest]
 
 The 4x recipe (runs/ref_recipe_s4): LFT at full width (C=64, 8 heads, 4
@@ -20,7 +20,11 @@ gate sends to the per-op branch, K8 and K5, with or without `--unfused`):
 `--dtype mixed` trains under lft_tpu's mixed plans: the fused backward's
 products over bf16 operands (the `_bf16` instances of K3, K4 and `wgrad`;
 with `--plain` their plain versions); `--matmul-precision high` turns TF32
-on for the torch ops around the kernels.
+on for the torch ops around the kernels. `--dtype bfloat16` trains the
+bf16 model (lft_tpu's all-bf16 mode): the fused blocks' `_bf16io` kernels,
+K1 res, K2 res, K4, K3 and `wgrad_bf16io` (with `--plain` their plain
+versions), the master weights and Adam state f32; it has no `--unfused`
+form (ROADMAP.md §1 item 9d).
 `--plain` trains through the blocks' plain PyTorch versions and backwards
 instead of the kernels; `--unfused` trains the per-op branch
 (`--train_fused false`): the attentions as the kernels K7 and K5 with their
@@ -56,7 +60,7 @@ def main(argv=None) -> int:
     ap.add_argument("--unfused", action="store_true")
     ap.add_argument("--ang-res", type=int, default=5)
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--dtype", default="float32", choices=["float32", "mixed"])
+    ap.add_argument("--dtype", default="float32", choices=["float32", "mixed", "bfloat16"])
     ap.add_argument("--matmul-precision", default="default",
                     choices=["default", "high", "highest"])
     a = ap.parse_args(argv)

@@ -19,6 +19,13 @@ several). `--batch_size` is the global batch and divides by the ranks;
 each rank takes its slice of every batch, and only rank 0 logs and writes
 checkpoints. The data-parallel step trains the unfused branch, as
 lft_tpu's does (`--train_fused` is not read there).
+
+`--dtype bfloat16` trains the fused blocks in bf16 (`--train_fused auto`
+is fused under it on every device): on the card the `_bf16io` kernels of K1
+res, K2 res, K4, K3 and `wgrad`, on the CPU their plain versions; the
+master weights, the Adam state and the checkpoints stay f32, so a resume is
+exact. `--train_fused false` and the data-parallel step raise under it
+(the unfused branch's bf16 form is ROADMAP.md §1 item 9d).
 """
 
 from __future__ import annotations

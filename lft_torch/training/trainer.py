@@ -14,11 +14,13 @@ unfused branch, whose two attentions are the per-op kernels (K7 and K5, or
 K8, K9 and K6 where the geometry or the `LFT_ANG_VARIANT` / `LFT_SPA_VARIANT`
 knobs send them) with kernel backwards (no atomics) and everything else
 torch's own autograd; or with `--train_fused true`, and by default under
-`--dtype mixed` (as lft_tpu's `auto` on its accelerator), through the fused
-blocks, whose backwards are the hand-written K4/K3 kernels with
-deterministic weight-gradient reductions (every geometry the fused gates
-pass, up to 11x11 views). cuDNN is held to deterministic algorithms: the same state and
-batch give the same update bit for bit.
+`--dtype mixed` or `bfloat16` (as lft_tpu's `auto` on its accelerator),
+through the fused blocks, whose backwards are the hand-written K4/K3 kernels
+with deterministic weight-gradient reductions (every geometry the fused
+gates pass, up to 11x11 views). Under `--dtype bfloat16` the model computes
+in bf16 (`models/lft.py`) while the master parameters, the Adam moments and
+the checkpoints stay f32. cuDNN is held to deterministic algorithms: the
+same state and batch give the same update bit for bit.
 
 Data parallelism lives in lft_torch/parallel/; as in lft_tpu, `fit` takes
 the step as a pluggable (`step_builder`) and the move of a numpy batch to
@@ -43,16 +45,20 @@ from lft_torch.utils.checkpoint import (load_checkpoint, params_to_pth, save_che
 
 def train_fused(args, device: torch.device) -> bool:
     """`--train_fused`: auto = the fused blocks on the card under `--dtype
-    mixed`, the unfused branch otherwise, as lft_tpu's auto (lft_tpu/
-    training/trainer.py:100-106: fused on its accelerator in bfloat16 or
-    mixed; the card stands where the TPU stands); on CUDA the unfused branch
+    mixed`, on every device under `bfloat16`, the unfused branch otherwise,
+    as lft_tpu's auto (lft_tpu/training/trainer.py:100-106: fused on its
+    accelerator in bfloat16 or mixed; the card stands where the TPU stands;
+    on the CPU lft_tpu's bf16 `auto` trains its unfused branch, which the
+    port has no bf16 form of yet: ROADMAP.md §3). On CUDA the unfused branch
     runs the per-op kernels (`--attention_impl`). true trains the fused
     blocks: their kernels on CUDA, their plain versions through the autograd
     Functions on the CPU. A geometry the fused gates do not pass goes to the
-    unfused branch whatever this says (`models.lft.resolve_fused`)."""
+    unfused branch whatever this says (`models.lft.resolve_fused`), under
+    bfloat16 it raises (`models.lft.resolve_bf16`)."""
     tf = str(getattr(args, "train_fused", "auto")).lower()
+    dt = str(getattr(args, "dtype", ""))
     if tf == "auto":
-        return torch.device(device).type == "cuda" and str(getattr(args, "dtype", "")) == "mixed"
+        return dt == "bfloat16" or (torch.device(device).type == "cuda" and dt == "mixed")
     return tf in ("true", "1", "yes")
 
 
@@ -67,16 +73,18 @@ def make_train_step(model, optimizer, args, with_metrics: bool = True,
     (lft_tpu/parallel/mesh.py:66); where the mesh has a process group,
     `data` and `label` are this rank's shard, the gradients are averaged
     over the ranks before the update and the results are means over them.
-    `--dtype bfloat16` raises here, before any step: bf16 training is ROADMAP
-    item 9c, and nothing trains f32 in its place."""
-    if str(getattr(args, "dtype", "float32")) == "bfloat16":
-        raise NotImplementedError("--dtype bfloat16 is inference only: bf16 training is "
-                                  "queued as ROADMAP.md §1 item 9c")
+    `--dtype bfloat16` trains the fused branch only: the DP step and
+    `--train_fused false` (the unfused branch) raise here, before any step,
+    naming ROADMAP item 9d, and nothing trains f32 in their place."""
     device = optimizer.params[0].device
+    fused = mesh is None and train_fused(args, device)
+    if str(getattr(args, "dtype", "float32")) == "bfloat16" and not fused:
+        raise NotImplementedError(
+            f"--dtype bfloat16 trains the fused blocks only ({'the data-parallel step' if mesh is not None else '--train_fused false'} "
+            f"trains the unfused branch, whose bf16 form is queued as ROADMAP.md §1 item 9d)")
     if device.type == "cuda":
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
-    fused = mesh is None and train_fused(args, device)
     kw = {"fused": fused} if "fused" in model.capabilities else {}
     reduce = mesh is not None and mesh.group is not None
 

@@ -412,14 +412,14 @@ def test_launch_pieces_read_the_streams_matrices(C):
                  "RgPiece{w2 + j * L::HC * C, C, C, L::HC, off + L::PC, 1};",
                  "RgPiece{w1 + j * L::HC, 2 * C, L::HC, C, off + 2 * L::PC, 1};",
                  "RgPiece{wo, C, C, C, L::OFF_OT, 1};",
-                 "launch_qkv_ln_bwd<C, BF>(a, wq, wk, C, wv, wf + L::FLOATS, s);"):
+                 "launch_qkv_ln_bwd<C, BF, IO>(a, wq, wk, C, wv, wf + L::FLOATS, s);"):
         assert line in src, line
     hdr = (CSRC / "rowbwd.cuh").read_text()
     for line in ("ps.p[0] = RgPiece{wq, ldqk, W, W, 0, 1};",
                  "ps.p[1] = RgPiece{wk, ldqk, W, W, Q::SQ, 1};",
                  "ps.p[2] = RgPiece{wv, W, W, W, 2 * Q::SQ, 1};"):
         assert line in hdr, line
-    assert "launch_qkv_ln_bwd<D, BF>(a, wqk, wqk + D, 2 * D, wv, wf, s);" in \
+    assert "launch_qkv_ln_bwd<D, BF, IO>(a, wqk, wqk + D, 2 * D, wv, wf, s);" in \
         (CSRC / "spa_block_bwd.cu").read_text()
     assert "(pc.tr ? static_cast<size_t>(n) * pc.ld + k" in (CSRC / "rowgemm.cuh").read_text()
 
@@ -476,10 +476,10 @@ def test_python_geometry_mirrors_the_source():
                  "quad_ln<C, true>(a, ln + 2 * C, ln + 3 * C, mu, rstd);",
                  "tile_ln_sums<C>(part, ln_part + static_cast<size_t>(tile) * 4 * C + 2 * C);",
                  "inline int attn_pixels(int A2) { return NT / (8 * A2) > 1 ? NT / (8 * A2) : 1; }",
-                 "out[9], A2, 4 * C, T};"):
+                 "g.ln_part, A2, 4 * C, T};"):
         assert line in ang, line
     a = ang.split("ang_bwd_tok_kernel(", 1)[1].split("// b. P pixels", 1)[0]
-    assert a.index("v0 += xv.x;") < a.index("quad_ln<C, true>")
+    assert a.index("v0 = io_round<IO>(io_round<IO>(v0) + xv.x);") < a.index("quad_ln<C, true>")
     assert not re.search(r"rg_product<[^>]*[^e]>\(", a.replace(", BF>", ">")), \
         "every product of K4 a tails first"
     assert not re.search(r"\bgemm_acc\b", ang)
@@ -492,7 +492,7 @@ def test_python_geometry_mirrors_the_source():
                  "rg_product<W, W, 0, true, BF>(acc, rw(S1), LDX, wr, st);",
                  "rg_product<W, W, 0, true, BF>(acc, rw(S2), LDX, wr, st);",
                  "acc[pp][i] = u.x + acc[pp][i];",
-                 "make_float2((u.x + acc[pp][i]) + d.x, (u.y + acc[pp][i + 1]) + d.y)"):
+                 "stcs2(a.dx + at, (u.x + acc[pp][i]) + d.x, (u.y + acc[pp][i + 1]) + d.y);"):
         assert line in hdr, line
     assert not re.search(r"\bgemm_acc\b", hdr)
     bwd = (CSRC / "spa_block_bwd.cu").read_text()

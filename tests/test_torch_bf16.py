@@ -207,9 +207,11 @@ def test_bf16_step_wrappers_chain_to_the_block():
 
 
 def test_bf16_raises_where_nothing_is_ported():
-    """Training (9c), the unfused branch and a width the kernels do not take
-    on the card (9d) raise under bfloat16; so does a bf16 tensor at a
-    kernel without a bf16-IO form, and at an f32 launcher."""
+    """Under bfloat16 the unfused branch (9d) raises: `fused=False`, a
+    geometry or (on the card) a width the fused blocks do not take, a train
+    step with `--train_fused false` and the data-parallel step (which train
+    it), and a bf16 tensor at a per-op or K11 kernel; a bf16 tensor at an f32
+    launcher raises TypeError. Bf16 training itself runs (9c)."""
     args = Args(channels=16, scale_factor=2, dtype="bfloat16")
     p = lft.init_params(0, args, device="cpu")
     x = torch.rand(1, 1, 40, 40, generator=torch.Generator().manual_seed(0))
@@ -217,24 +219,31 @@ def test_bf16_raises_where_nothing_is_ported():
         lft.forward(p, x, args, fused=False)
     with pytest.raises(NotImplementedError, match="item 9d"):
         lft.resolve_bf16(None, 8, 8, 48, 25, "cuda")
+    with pytest.raises(NotImplementedError, match="item 9d"):
+        lft.resolve_bf16(None, 8, 8, 16, 144, "cpu")
     assert lft.resolve_bf16(None, 8, 8, 48, 25, "cpu") and lft.resolve_bf16(None, 8, 8, 64, 25,
                                                                            "cuda")
     for t in p.values():
         t.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        lft.forward(p, x, args)
     model = lft.LFT_MODEL
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        trainer.make_train_step(model, optim.make_optimizer(p, args, 10), args)
+    opt = optim.make_optimizer(p, args, 10)
+    with pytest.raises(NotImplementedError, match="--train_fused false.*item 9d"):
+        trainer.make_train_step(model, opt, Args(channels=16, scale_factor=2, dtype="bfloat16",
+                                                 train_fused="false"))
+    with pytest.raises(NotImplementedError, match="data-parallel.*item 9d"):
+        trainer.make_train_step(model, opt, args, mesh=object())
+    assert trainer.train_fused(args, torch.device("cpu"))
+    assert trainer.train_fused(args, torch.device("cuda"))
+    trainer.make_train_step(model, opt, args)
     xb = torch.zeros(4, 25, 16, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ang_block_res.*item 9c"):
-        ang_block.ang_block_plain(xb, torch.zeros(25, 16), {}, H, with_res=True)
     assert common.io_kernel("spa_qkv", xb) == "spa_qkv_bf16io"
+    assert common.io_kernel("ang_block_res", xb) == "ang_block_res_bf16io"
     assert common.io_kernel("spa_qkv", xb.float()) == "spa_qkv"
-    with pytest.raises(NotImplementedError, match="spa_tokenize_ln_pm.*item 9d"):
-        common.io_kernel("spa_tokenize_ln_pm", xb)
-    with pytest.raises(NotImplementedError, match="spa_attn_hp.*item 9d"):
-        common.io_kernel("spa_attn_hp", xb)
+    for kernel in ("spa_tokenize_ln_pm", "spa_ffn_out_pm", "spa_attn_hp", "spa_attn_hp_bwd",
+                   "ang_attn_res", "ang_attn_sweep_bwd", "spa_attn_offset", "spa_attn_mxu_res",
+                   "spa_attn_tile"):
+        with pytest.raises(NotImplementedError, match=f"{kernel}:.*item 9d"):
+            common.io_kernel(kernel, xb)
     with pytest.raises(TypeError, match="spa_qkv: torch.float32 tensors only"):
         _build.check_cuda_args("spa_qkv", xb)
     with pytest.raises(TypeError, match="bfloat16 tensors only"):

@@ -1386,16 +1386,18 @@ def test_bf16_forward_kernels_match_plain_blocks(cuda_device):
 
 @pytest.mark.cuda
 def test_bf16_raises_where_no_kernel_is_ported(cuda_device):
-    """A bf16 tensor at a kernel without a bf16-IO form raises, naming its
-    ROADMAP item; at an f32 launcher, TypeError; a width the kernels do not
-    take raises under bfloat16 (item 9d)."""
+    """A bf16 tensor at a kernel without a bf16-IO form (the per-op branch,
+    K11) raises, naming its ROADMAP item; at an f32 launcher, TypeError; a
+    width the kernels do not take raises under bfloat16 (item 9d)."""
     pb = {k: v.bfloat16() for k, v in _params(16, cuda_device).items()}
     wa = ang_block.ang_weights(pb, "altblock.0.ang_trans.")
     ws = spa_block.spa_weights(pb, "altblock.0.spa_trans.")
     x = torch.zeros(4, 25, 16, device=cuda_device, dtype=torch.bfloat16)
     pe = torch.from_numpy(angular_position(25, 16)).to(cuda_device)
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        ang_block.ang_block(x, pe, wa, 8, with_res=True)
+    q_bf = torch.zeros(2, 8, 8, 32, device=cuda_device, dtype=torch.bfloat16)
+    m_f = torch.ones(2, 8, 8, 8, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="spa_attn_hp_bwd.*item 9d"):
+        spa_attn_hp.spa_attn_hp_bwd(q_bf, q_bf, q_bf, m_f, m_f, q_bf, 8, 5)
     xs = torch.zeros(1, 8, 8, 25, 16, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="item 9d"):
         spa_block.tokenize_ln(xs, torch.zeros(8, 8, 32, device=cuda_device,
@@ -1407,3 +1409,296 @@ def test_bf16_raises_where_no_kernel_is_ported(cuda_device):
     with pytest.raises(NotImplementedError, match="item 9d"):
         lft.forward(p48, torch.zeros(1, 1, 40, 40, device=cuda_device),
                     Args(channels=48, scale_factor=2, dtype="bfloat16"))
+
+
+# ------------------------------------- `--dtype bfloat16` training kernels ---
+
+def _bf16t_close(got, ref, ref32, gap=0.1, ulps=1.0, f32_rel=1e-4):
+    """A bf16-training kernel against its plain bf16 version, per output:
+    the dtype of the plain version's; L2 within `gap` of the plain
+    bf16-vs-f32 distance and, where the plain version rounds to bf16, every
+    element within `ulps` bf16 ulps of max |plain|; an output whose bf16 and
+    f32 plain versions compute the same f32 arithmetic (dtokpe, an LN sum)
+    within `f32_rel` L2-relative (chip_smoke.py's `bf16t_err`)."""
+    for i, (g, r, r32) in enumerate(zip(got, ref, ref32)):
+        assert g.dtype == r.dtype and g.shape == r.shape, (i, g.dtype, r.dtype)
+        g, r, r32 = g.double(), r.double(), r32.double()
+        nr = float(r.norm())
+        d, d32 = float((g - r).norm()) / nr, float((r32 - r).norm()) / nr
+        if d32 <= f32_rel:
+            assert d <= f32_rel, (i, d, d32)
+            continue
+        assert d <= gap * d32, (i, d, d32)
+        if got[i].dtype == torch.bfloat16:   # where the plain version rounds
+            ulp = 2.0 ** (np.floor(np.log2(float(r.abs().max()))) - 7)
+            assert float((g - r).abs().max()) <= ulps * ulp, i
+
+
+def _calm_relu(dout, hid_k, hid_p):
+    """dout with a zero cotangent on the tokens where an FFN ReLU is on in
+    one version and off in the other (its input within rounding of 0: dpre
+    jumps there by design; chip_smoke.py's `calm_relu`). They stay rare."""
+    flips = ((hid_k > 0) != (hid_p > 0)).reshape(-1, hid_k.shape[-1]).any(-1)
+    assert int(flips.sum()) <= max(2, 1e-3 * flips.numel())
+    dout = dout.clone()
+    dout.reshape(-1, dout.shape[-1])[flips] = 0
+    return dout
+
+
+def _bf16_params(C, dev, seed=0):
+    return {k: v.bfloat16() for k, v in _params(C, dev, seed).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("A2,N", [(25, 37), (81, 7)])
+def test_ang_block_res_bf16io_kernel(cuda_device, C, A2, N):
+    """K1 res in bf16 IO: out bit for bit `ang_block_bf16io`'s; m (one value
+    a token), l and attn against the plain version (m and l move where q or
+    k rounds to the neighbouring bf16 value); one launch under its name."""
+    wts = ang_block.ang_weights(_bf16_params(C, cuda_device), "altblock.1.ang_trans.")
+    g = torch.Generator(device=cuda_device).manual_seed(C + A2)
+    x = torch.randn(N, A2, C, device=cuda_device, generator=g).bfloat16()
+    pe = torch.from_numpy(angular_position(A2, C)).to(cuda_device)
+    reset_launches()
+    got = ang_block.ang_block(x, pe, wts, 8, with_res=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ang_block_res_bf16io"] == 1 and sum(LAUNCHES.values()) == 1
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32, torch.float32,
+                                      torch.bfloat16]
+    assert torch.equal(got[0], ang_block.ang_block(x, pe, wts, 8))
+    assert torch.equal(got[1], got[1][..., :1].expand_as(got[1]))   # the token's max
+    ref = ang_block.ang_block_plain(x, pe, wts, 8, with_res=True)
+    ref32 = ang_block.ang_block_plain(x.float(), pe, {k: v.float() for k, v in wts.items()}, 8,
+                                      with_res=True)
+    _bf16t_close(got, ref, ref32)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, ang_block.ang_block(x, pe, wts, 8, with_res=True)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("V,h,w", [(3, 9, 7), (2, 32, 32), (2, 17, 40)])
+def test_window_attn_res_bf16io_kernel(cuda_device, C, V, h, w):
+    """K2.3 res in bf16 IO: attn bit for bit `spa_window_attn_bf16io`'s;
+    m (each query's max over its heads, 0 where the window leaves the
+    image) and l against the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(C + h)
+    q, k, v = (torch.randn(V, h, w, 2 * C, device=cuda_device, generator=g).bfloat16()
+               for _ in range(3))
+    reset_launches()
+    attn, m, l = spa_block.window_attn(q, k, v, 8, 5, with_stats=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spa_window_attn_res_bf16io"] == 1 and sum(LAUNCHES.values()) == 1
+    assert torch.equal(attn, spa_block.window_attn(q, k, v, 8, 5))
+    ref = spa_block.window_attn_plain(q, k, v, 8, 5)
+    torch.testing.assert_close(m, ref[1], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, ref[2], atol=1e-5, rtol=1e-4)
+    assert torch.equal(m, m[..., :1].expand_as(m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("A2,N", [(4, 301), (25, 37), (81, 7)])
+def test_ang_block_bwd_bf16io_kernels(cuda_device, C, A2, N):
+    """K4 in bf16 IO from the plain K1 res's bf16 residuals, every output
+    against the plain version (bf16 but dx2 and the LN sums); counted as
+    `ang_block_bwd_bf16io` (A2 <= 64) or `ang_block_bwd128_bf16io`; twice
+    bit for bit."""
+    wts = ang_block.ang_weights(_bf16_params(C, cuda_device, seed=A2), "altblock.2.ang_trans.")
+    w32 = {k: v.float() for k, v in wts.items()}
+    g = torch.Generator(device=cuda_device).manual_seed(C + A2)
+    x = torch.randn(N, A2, C, device=cuda_device, generator=g).bfloat16()
+    dout = torch.randn(N, A2, C, device=cuda_device, generator=g).bfloat16()
+    pe = torch.from_numpy(angular_position(A2, C)).to(cuda_device)
+    _, m, l, attn = ang_block.ang_block_plain(x, pe, wts, 8, with_res=True)
+    dout = _calm_relu(dout, ang_block.ang_block_bwd_ops(x, pe, wts, m, l, attn, dout, 8)[8],
+                      ang_block.ang_block_bwd_ops_plain(x, pe, wts, m, l, attn, dout, 8)[8])
+    reset_launches()
+    got = ang_block.ang_block_bwd_ops(x, pe, wts, m, l, attn, dout, 8)
+    torch.cuda.synchronize()
+    name = "ang_block_bwd128_bf16io" if A2 > 64 else "ang_block_bwd_bf16io"
+    assert LAUNCHES[name] == 1 and sum(LAUNCHES.values()) == 1
+    ref = ang_block.ang_block_bwd_ops_plain(x, pe, wts, m, l, attn, dout, 8)
+    ref32 = ang_block.ang_block_bwd_ops_plain(x.float(), pe, w32, m, l, attn.float(),
+                                              dout.float(), 8)
+    got = (*got[:-1], got[-1].sum(0))
+    ref, ref32 = ((*r[:-1], r[-1][0]) for r in (ref, ref32))
+    _bf16t_close(got, ref, ref32)
+    again = ang_block.ang_block_bwd_ops(x, pe, wts, m, l, attn, dout, 8)
+    assert all(torch.equal(a, b) for a, b in zip(got[:-1], again[:-1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("V,h,w", [(3, 9, 7), (2, 32, 32), (2, 17, 40)])
+def test_spa_block_bwd_bf16io_kernels(cuda_device, C, V, h, w):
+    """K3's five steps in bf16 IO, each from its plain predecessor's output,
+    against the plain version; each counted under its `_bf16io` name."""
+    ws = spa_block._with_mlp(spa_block.spa_weights(_bf16_params(C, cuda_device, seed=h),
+                                                   "altblock.2.spa_trans."))
+    ws32 = {k: v.float() for k, v in ws.items()}
+    g = torch.Generator(device=cuda_device).manual_seed(C + h + w)
+    x = torch.randn(V, h, w, C, device=cuda_device, generator=g).bfloat16()
+    pe_tok = torch.randn(h, w, 2 * C, device=cuda_device, generator=g).bfloat16()
+    dout = torch.randn(V, h, w, C, device=cuda_device, generator=g).bfloat16()
+    _, tok, m, l, attn = spa_block.spa_block_plain(x, pe_tok, ws, 8, 5, with_res=True)
+    dout = _calm_relu(dout, spa_block.ffn_out_bwd(attn, tok, dout, ws)[4],
+                      spa_block.ffn_out_bwd_plain(attn, tok, dout, ws)[4])
+    f = lambda t: t.float() if t.dtype == torch.bfloat16 else t
+    summed = lambda r: (*r[:-1], r[-1].sum(0))
+    reset_launches()
+
+    def step(kern, plain, ins, sums=False):
+        got, ref, ref32 = kern(*ins), plain(*ins), plain(*(f(t) for t in ins))
+        got, ref, ref32 = ((r,) if isinstance(r, torch.Tensor) else tuple(r)
+                           for r in (got, ref, ref32))
+        if sums:
+            got, ref, ref32 = summed(got), summed(ref), summed(ref32)
+        _bf16t_close(got, ref, ref32)
+        return ref
+
+    a_ref = step(lambda *a: spa_block.ffn_out_bwd(*a, ws), lambda *a: spa_block.ffn_out_bwd_plain(
+        *a, ws if a[0].dtype == torch.bfloat16 else ws32), (attn, tok, dout), sums=True)
+    dx2, dattn = a_ref[0], a_ref[1]
+    xn, q, k, v = step(lambda *a: spa_block.ln_qkv(*a, ws),
+                       lambda *a: spa_block.ln_qkv_plain(
+                           *a, ws if a[0].dtype == torch.bfloat16 else ws32), (tok, pe_tok))
+    dq, dk, dv = step(lambda *a: spa_block.window_attn_bwd(*a, m, l, 8, 5),
+                      lambda *a: spa_block.window_attn_bwd_plain(*a, m, l, 8, 5),
+                      (q, k, v, attn, dattn))
+    dtok = step(lambda *a: spa_block.qkv_ln_bwd(*a, ws),
+                lambda *a: spa_block.qkv_ln_bwd_plain(
+                    *a, ws if a[0].dtype == torch.bfloat16 else ws32),
+                (tok, pe_tok, dq, dk, dv, dx2), sums=True)[0]
+    step(lambda *a: spa_block.tokenize_bwd(*a, ws), lambda *a: spa_block.tokenize_bwd_plain(
+        *a, ws if a[0].dtype == torch.bfloat16 else ws32), (dtok,))
+    torch.cuda.synchronize()
+    for n in ("spa_ffn_out_bwd", "spa_ln_qkv", "spa_window_attn_bwd", "spa_qkv_ln_bwd",
+              "spa_tokenize_bwd"):
+        assert LAUNCHES[n + "_bf16io"] == 1 and LAUNCHES[n] == LAUNCHES[n + "_bf16"] == 0, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K,N,image", [(4096, 128, 128, None), (2048, 64, 128, None),
+                                         (2048, 256, 128, None), (2100, 64, 128, (7, 10)),
+                                         (6 * 32 * 32, 64, 128, (32, 32))])
+@pytest.mark.parametrize("dy_f32", [False, True])
+def test_wgrad_bf16io_kernel(cuda_device, T, K, N, image, dy_f32):
+    """`wgrad_bf16io` on bf16 x and bf16 (or f32, rounded as it loads) dy:
+    the plain version's f32 sums over the bf16 values within 1e-5 of its
+    largest output, an f32 result, bitwise repeatable."""
+    if dy_f32 and image is not None:
+        pytest.skip("no product of the step takes an f32 dy with taps")
+    g = torch.Generator(device=cuda_device).manual_seed(T + K + N)
+    x = torch.randn(T, K, device=cuda_device, generator=g).bfloat16()
+    dy = torch.randn(T, N, device=cuda_device, generator=g)
+    dy = dy if dy_f32 else dy.bfloat16()
+    reset_launches()
+    got = wgrad.wgrad(x, dy, image)
+    torch.cuda.synchronize()
+    assert LAUNCHES["wgrad_bf16io"] == 1 and sum(LAUNCHES.values()) in (1, 2)
+    ref = wgrad.wgrad_plain(x, dy, image)
+    assert got.dtype == torch.float32
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(got, wgrad.wgrad(x, dy, image))
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_kernels_match_plain_blocks(cuda_device):
+    """A `--dtype bfloat16` fused train step (C = 16, 2x) through the
+    kernels against the same step through the plain blocks: the loss, the
+    gradient's distance from the f32 step's within 10% of the plain step's
+    and its L2 from the plain step's within 1.5 of that; only the bf16
+    kernels launched (4 of each block kernel, 56 `wgrad_bf16io`); the master
+    parameters and their gradients f32; bitwise repeatable."""
+    import dataclasses
+    import functools
+
+    from lft_torch.kernels import BF16IO, BF16TRAIN
+    from lft_torch.registry import get_model
+    from lft_torch.training import optim, trainer
+    args = Args(channels=16, scale_factor=2, dtype="bfloat16", batch_size=2)
+    a32 = Args(channels=16, scale_factor=2, batch_size=2, train_fused="true")
+    p0 = _params(16, cuda_device, seed=4)
+    rs = np.random.RandomState(1)
+    lr = torch.from_numpy(rs.rand(2, 1, 80, 80).astype(np.float32)).to(cuda_device)
+    hr = torch.from_numpy(rs.rand(2, 1, 160, 160).astype(np.float32)).to(cuda_device)
+
+    def step(a, plain=False):
+        p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        model = get_model(a)
+        if plain:
+            model = dataclasses.replace(model, apply=functools.partial(lft.forward,
+                                                                       plain_blocks=True))
+        fn = trainer.make_train_step(model, optim.make_optimizer(p, a, 10), a)
+        loss = float(fn(p, lr, hr)[0])
+        return loss, torch.cat([p[k].grad.reshape(-1) for k in sorted(p)]), p
+
+    reset_launches()
+    loss, gk, pk = step(args)
+    torch.cuda.synchronize()
+    bf_ = [n for n in BF16TRAIN if n not in ("ang_block_bwd128_bf16io", "wgrad_bf16io")]
+    want = {n: 4 for n in bf_ + [n for n in BF16IO if n.startswith("spa_") and
+                                 n != "spa_window_attn_bf16io"]}
+    want.update(wgrad_bf16io=56, colsum=16)
+    assert {k: v for k, v in LAUNCHES.items() if v} == want
+    assert all(v.dtype == torch.float32 and v.grad.dtype == torch.float32 for v in pk.values())
+    loss2, gk2, _ = step(args)
+    assert loss2 == loss and torch.equal(gk, gk2)
+    loss_p, gp, _ = step(args, plain=True)
+    _, g32, _ = step(a32, plain=True)
+    assert abs(loss - loss_p) <= 1e-3 * abs(loss_p)
+    l2 = lambda a, b: float((a - b).double().norm() / b.double().norm())
+    gap = l2(gp, g32)
+    assert abs(l2(gk, g32) / gap - 1) <= 0.1, (l2(gk, g32), gap)
+    assert l2(gk, gp) <= 1.5 * gap
+
+
+@pytest.mark.cuda
+def test_bf16io_kernels_repeat_bitwise(cuda_device):
+    """The bf16-IO kernels whose rows the warps widen themselves (K2.2,
+    K2.4, K3.b, K3.d) and the bf16 K2 chain, 20 repeats each bit for bit: a
+    row loader that left the weight copies uncommitted made the chain differ
+    now and then (tests/test_torch_bf16train.py)."""
+    ws = spa_block._with_mlp(spa_block.spa_weights(_bf16_params(64, cuda_device),
+                                                   "altblock.0.spa_trans."))
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(50, 16, 16, 64, device=cuda_device, generator=g).bfloat16()
+    pe_tok = torch.randn(16, 16, 128, device=cuda_device, generator=g).bfloat16()
+    tok, xn = spa_block.tokenize_ln(x, pe_tok, ws)
+    q, k, v = spa_block.qkv(xn, tok, ws)
+    attn = spa_block.window_attn(q, k, v, 8, 5)
+    dq = torch.randn_like(q.float()).bfloat16()
+    dx2 = torch.randn_like(q.float())
+    for fn in (lambda: spa_block.qkv(xn, tok, ws), lambda: spa_block.outproj_ln(attn, tok, ws),
+               lambda: spa_block.ln_qkv(tok, pe_tok, ws),
+               lambda: spa_block.qkv_ln_bwd(tok, pe_tok, dq, dq, dq, dx2, ws),
+               lambda: (spa_block.spa_block(x, pe_tok, ws, 8, 5),)):
+        first = fn()
+        for _ in range(20):
+            assert all(torch.equal(a, b) for a, b in zip(first, fn()))
+
+
+@pytest.mark.cuda
+def test_bf16_train_launchers_check_dtypes(cuda_device):
+    """A bf16-training launcher given an activation of another dtype raises
+    TypeError, naming its `_bf16io` instance; nothing is launched."""
+    pb = _bf16_params(16, cuda_device)
+    wa = ang_block.ang_weights(pb, "altblock.0.ang_trans.")
+    ws = spa_block._with_mlp(spa_block.spa_weights(pb, "altblock.0.spa_trans."))
+    x = torch.zeros(4, 25, 16, device=cuda_device, dtype=torch.bfloat16)
+    m = torch.ones(4, 25, 8, device=cuda_device)
+    pe = torch.from_numpy(angular_position(25, 16)).to(cuda_device)
+    t = torch.zeros(2, 8, 8, 32, device=cuda_device, dtype=torch.bfloat16)
+    reset_launches()
+    with pytest.raises(TypeError, match="ang_block_bwd_bf16io"):
+        ang_block.ang_block_bwd_ops(x, pe, wa, m, m, x.float(), x, 8)
+    with pytest.raises(TypeError, match="spa_ffn_out_bwd_bf16io"):
+        spa_block.ffn_out_bwd(t, t.float(), t[..., :16].contiguous(), ws)
+    with pytest.raises(TypeError, match="spa_qkv_ln_bwd_bf16io"):
+        spa_block.qkv_ln_bwd(t, t[0].contiguous(), t, t, t.float(), t.float(), ws)
+    with pytest.raises(TypeError, match="wgrad_bf16io"):
+        wgrad.wgrad(t.reshape(-1, 32), t.reshape(-1, 32).half())
+    torch.cuda.synchronize()
+    assert sum(LAUNCHES.values()) == 0

@@ -276,7 +276,8 @@ def test_ffn_out_bwd_python_geometry_mirrors_the_source():
     kernel = src.split("spa_ffn_out_bwd_kernel(", 1)[1].split("// ---- b:", 1)[0]
     assert not re.search(r"\bgemm_acc\b", kernel)
     # the same order as K2.4's row_pass<C, true>: + tok, put, then quad_ln
-    assert kernel.index("v0 += t.x;") < kernel.index("quad_ln<D, true>")
+    assert (kernel.index("v0 = io_round<IO>(io_round<IO>(v0) + t.x);")
+            < kernel.index("quad_ln<D, true>"))
     fwd = (CSRC / "spa_block.cu").read_text()
     assert ("row_pass<C, true, NoRows, is_bf16<IO>, IO>(attn, wf, x2, tok, ln + 2 * D, "
             "ln + 3 * D, xn2,") in fwd

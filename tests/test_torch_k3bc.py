@@ -231,9 +231,9 @@ def test_k3bc_wrappers_plain_on_cpu_and_sources():
         in entry
     for line in ("auto kernel = spa_qkv_kernel<CC, LN1, BF, IO>;",
                  "LFT_SET_SMEM(kernel, L::BYTES);",
-                 "row_pass<C, false, Ln1Rows<2 * C>, BF>(tok, wf, q, nullptr, nullptr, nullptr, "
-                 "nullptr, smem,",
-                 "if constexpr (LN1) ln1 = Ln1Rows<L::D>{pe_tok, ln, xn_out, hw};",
+                 "row_pass<C, false, Ln1Rows<2 * C, IO>, BF, IO>(tok, wf, q, nullptr, nullptr, "
+                 "nullptr,",
+                 "if constexpr (LN1) ln1 = Ln1Rows<L::D, IO>{pe_tok, ln, xn_out, hw};",
                  "L::BYTES, s>>>(LN1 ? xn_out : xn, tok, wf, q,",
                  "RL::apply(v[r], ln, ln + D);"):
         assert line in spa, line
@@ -241,10 +241,12 @@ def test_k3bc_wrappers_plain_on_cpu_and_sources():
     for C_ in (16, 32, 64):
         assert rg.qkv_floats(C_) == 3 * 2 * (2 * C_) ** 2
         assert rg.proj_smem(C_) <= rg.RG_SMEM_MAX
-    assert 'name = "spa_window_attn_bwd" + ("_bf16" if half else "")' in \
-        inspect.getsource(sb.window_attn_bwd)
+    assert 'name = io_kernel("spa_window_attn_bwd", q)' in inspect.getsource(sb.window_attn_bwd)
+    assert 'name += "_bf16" if half else ""' in inspect.getsource(sb.window_attn_bwd)
     c_src = inspect.getsource(hp.spa_attn_hp_bwd)
-    assert 'bind("spa_attn_hp", "lft_spa_attn_hp_bwd" + ("_bf16" if half else ""), 10,' in c_src
+    assert ('bind("spa_attn_hp", "lft_spa_attn_hp_bwd" + ("_bf16io" if bio else\n'
+            '                                                             "_bf16" if half else ""), 10,'
+            in c_src)
     assert "dsum = torch.empty(B, h, w, num_heads" in c_src
     assert '_build.launch("spa_attn_hp", kernel, fn' in c_src
     hp_entry = srcs["spa_attn_hp.cu"].split('extern "C" int lft_spa_attn_hp_bwd(', 1)[1]
