@@ -235,7 +235,30 @@
     bfloat16, in turns; (e) the train CLI's body under `bfloat16` for 2
     epochs of 2 steps (f32 checkpoints; a resume from the epoch-1 file ends
     on the uninterrupted run's parameters bit for bit);
-25. prints the `kernels` JSON line (every kernel, old and new), the card's
+25. `--dtype bfloat16` serving through the unfused per-op branch (lft_tpu's
+    bf16 unfused branch: the per-op forwards' `_bf16io` kernels, the torch
+    ops around them at lft_tpu's rounding points): (a) the demo checkpoint's
+    bf16 scenes through `make_scene_sr` on step 15's geometries, each with
+    every count at 0: 5x5 with `fused=False` (K7 + K5), 12x12 views with
+    default arguments (K8's sweep + K5), 30x30-view patches (K7 + K9),
+    64x64-view patches (K7 + K6), and `LFT_SPA_VARIANT=tile` with
+    `LFT_ANG_VARIANT=sweep` at 5x5 (K10 + K8 through K7's f32-inside
+    instance): exactly the expected `_bf16io` launches and no other kernel,
+    a bitwise repeat, |dPSNR| <= 0.01 dB against the same scene through the
+    kernels' plain versions on the card (`plain_blocks=True`), its distance
+    from the f32 scene within BF16_SCENE_TOL of theirs and its L2 from
+    theirs within BF16_SCENE_L2 of that distance, and the ms of the f32 and
+    the bf16 scene in turns (f32, bf16, bf16, f32; CUDA events around two
+    back-to-back scenes); (b) each of the
+    six instances against its plain bf16 version at its scene's shapes (K7
+    and K8 [16384, 25, 64], K8 [9216, 144, 64], K5 and K10 [400, 32, 32,
+    128], K9 [400, 30, 30, 128], K6 [400, 64, 64, 128]): L2 within BF16_GAP
+    of the plain bf16-vs-f32 distance and BF16_ULPS bf16 ulp, a bitwise
+    repeat, timed by CUDA events around back-to-back calls beside its bound
+    (bf16 bytes; operations on the FP32 pipes), the plain version and bf16
+    `scaled_dot_product_attention` (a window mask for the spatial ones),
+    then in turns with its f32 instance (f32, bf16, bf16, f32);
+26. prints the `kernels` JSON line (every kernel, old and new), the card's
     name and power limit, and last `{"ok": true, "device": {...}}`.
 
 The plain and library versions of the large shapes of steps 16 and 19 are
@@ -466,7 +489,7 @@ class Recorder:
     def record(self, name, src, replaces, got, ref, fn_k, fn_p, flops, io, lib_fn=None,
                rel=None, shape=None, slow_reps=10, device_time=False, tf32_products=0,
                bf16_products=False, fp32_flops=0, ref32=None, bf16_ref32=None,
-               bf16t_ref32=None):
+               bf16t_ref32=None, timer=None):
         """With `shape` the check is one more shape of a kernel that has its
         row already: compared, timed and printed, not added to the rows.
         `slow_reps`: launches timed of the plain and library versions.
@@ -485,7 +508,9 @@ class Recorder:
         `mixed_err` (`ref` is then the plain version under the mixed plan).
         `bf16_ref32`: the plain f32 version's outputs, for a `_bf16io`
         instance held by `bf16_err` (`ref` the plain bf16 version's);
-        `bf16t_ref32` likewise for a bf16-training instance, `bf16t_err`."""
+        `bf16t_ref32` likewise for a bf16-training instance, `bf16t_err`.
+        `timer(fn, reps)`: times all three in place of `device_time`'s or
+        the CUDA events around one call."""
         if bf16t_ref32 is not None:
             err, ok = bf16t_err(got, ref, bf16t_ref32)
         elif bf16_ref32 is not None:
@@ -493,7 +518,10 @@ class Recorder:
         else:
             err, ok = max_err(got, ref, rel) if ref32 is None else mixed_err(got, ref, ref32)
         warm = 2 if slow_reps >= 10 else 1
-        if device_time:
+        if timer is not None:
+            ms_k, ms_p = timer(fn_k, 20), timer(fn_p, slow_reps)
+            ms_l = timer(lib_fn, slow_reps) if lib_fn is not None else None
+        elif device_time:
             from lft_torch.profile_scene import device_ms
             ms_k, ms_p = device_ms(fn_k), device_ms(fn_p, slow_reps)
             ms_l = device_ms(lib_fn, slow_reps) if lib_fn is not None else None
@@ -525,7 +553,8 @@ class Recorder:
               f"max_abs_err {err:.3e} (limit {limit}) "
               f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}){fp32_note}, library {'-' if ms_l is None else f'{ms_l:.4f} ms'}, "
-              f"launches {n} ({n / self.per:g}/{self.unit}){' [device time]' if device_time else ''}",
+              f"launches {n} ({n / self.per:g}/{self.unit})"
+              f"{' [device time]' if device_time and timer is None else ''}",
               flush=True)
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain version "
@@ -3386,6 +3415,172 @@ def bf16_train_cli(params, seed: int) -> None:
               "bit for bit", flush=True)
 
 
+def bf16_perop_phase(params, scenes, card: str, seed: int) -> dict:
+    """Step 25 a (module docstring). Returns the launches of each instance
+    over its scene, for step 25 b's rows."""
+    import dataclasses
+
+    import torch
+    from lft_torch.config import Args
+    from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
+    from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
+    from lft_torch.kernels import LAUNCHES, reset_launches
+    from lft_torch.models.lft import forward
+    from lft_torch.ops.metrics import cal_metrics
+    from lft_torch.profile_scene import events_ms
+
+    dev = torch.device("cuda")
+    geometries = [
+        # what, angRes, LR view, patch, stride, fused, (ang, spa) knobs, launches a scene
+        ("5x5, fused=False (K7, K5)", 5, 128, 32, 16, False, (None, None),
+         {"ang_attn_bf16io": 16, "spa_attn_hp_bf16io": 16}),
+        ("12x12 views, default arguments (K8, K5)", 12, 48, 32, 16, None, (None, None),
+         {"ang_attn_sweep_bf16io": 4, "spa_attn_hp_bf16io": 4}),
+        ("30x30-view patches (K7, K9)", 5, 128, 30, 16, False, (None, None),
+         {"ang_attn_bf16io": 16, "spa_attn_offset_bf16io": 16}),
+        ("64x64-view patches (K7, K6)", 5, 128, 64, 32, False, (None, None),
+         {"ang_attn_bf16io": 4, "spa_attn_mxu_bf16io": 4}),
+        ("5x5, tile + sweep (K8 as K7's f32-inside instance, K10)", 5, 128, 32, 16, False,
+         ("sweep", "tile"), {"ang_attn_sweep_bf16io": 16, "spa_attn_tile_bf16io": 16}),
+    ]
+    per_scene = {}
+    for what, ang_res, view, patch, stride, fused, (ang, spa), expect in geometries:
+        a32 = Args(angRes=ang_res, scale_factor=4, channels=64, patch_size_for_test=patch,
+                   stride_for_test=stride, eval_batch=16)
+        ab_ = dataclasses.replace(a32, dtype="bfloat16")
+        lr, hr = (scenes[0] if ang_res == 5 else
+                  lr_hr_pair(synth_lf_scene(ang_res, 4 * view, 4 * view, seed=seed), 4))
+        lr_t, hr_t = torch.from_numpy(lr).to(dev), torch.from_numpy(hr).to(dev)
+        kw = {} if fused is None else {"fused": fused}
+        with variants(ang, spa):
+            cache_b = ScenePipelineCache(forward, ab_, **kw)
+            torch.cuda.synchronize()
+            reset_launches()
+            psnr, ssim, _ = evaluate_dataset(forward, params, ab_, [(lr, hr)], cache=cache_b)
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+            print(f"bf16 per-op SR, {what}: PSNR {psnr:.6f} dB SSIM {ssim:.6f}; launches "
+                  f"{ {k: c for k, c in counts.items() if c} }", flush=True)
+            wrong = {k: c for k, c in counts.items() if c != expect.get(k, 0)}
+            if wrong:
+                raise AssertionError(f"bf16 per-op SR, {what}: expected exactly {expect} "
+                                     f"launches, got {wrong}")
+            for k, c in expect.items():
+                per_scene[k] = max(per_scene.get(k, 0), c)
+            sr_k, again = cache_b(params, lr_t), cache_b(params, lr_t)
+            sr_p = ScenePipelineCache(forward, ab_, plain_blocks=True, **kw)(params, lr_t)
+            cache_f = ScenePipelineCache(forward, a32, **kw)
+            sr_f = cache_f(params, lr_t)
+            if sr_k.dtype != torch.float32 or sr_k.shape != hr_t.shape \
+                    or not torch.isfinite(sr_k).all():
+                raise AssertionError(f"{what}: bad bf16 SR mosaic {sr_k.dtype} "
+                                     f"{tuple(sr_k.shape)}")
+            if not torch.equal(sr_k, again):
+                raise AssertionError(f"{what}: the bf16 scene does not repeat bitwise")
+            gap_k, gap_p, d = l2_rel(sr_k, sr_f), l2_rel(sr_p, sr_f), l2_rel(sr_k, sr_p)
+            p_k, p_p, p_f = (float(cal_metrics(hr_t, t, ang_res)[0]) for t in (sr_k, sr_p, sr_f))
+            print(f"  {what}: repeated bitwise; kernels vs their plain versions dPSNR "
+                  f"{p_k - p_p:+.3e} dB (limit 0.01), L2 {d:.3e}; distance from the f32 scene: "
+                  f"kernels {gap_k:.3e}, plain {gap_p:.3e} ({gap_k / gap_p:.4f}, limit 1 +- "
+                  f"{BF16_SCENE_TOL:g}; L2 {d / gap_p:.4f} of it, limit {BF16_SCENE_L2:g}); "
+                  f"dPSNR against f32 {p_k - p_f:+.4f} dB", flush=True)
+            if abs(p_k - p_p) > 0.01 or abs(gap_k / gap_p - 1) > BF16_SCENE_TOL \
+                    or d > BF16_SCENE_L2 * gap_p:
+                raise AssertionError(f"{what}: the bf16 per-op kernels disagree with their "
+                                     f"plain versions")
+            f_fn, b_fn = (lambda: cache_f(params, lr_t)), (lambda: cache_b(params, lr_t))
+            t = [events_ms(f_fn, 2), events_ms(b_fn, 2), events_ms(b_fn, 2), events_ms(f_fn, 2)]
+            print(f"  {card}: {what}, ms a scene (CUDA events, 2 back-to-back scenes) in turns "
+                  f"f32 / bf16 / bf16 / f32: "
+                  + " / ".join(f"{x:.2f}" for x in t)
+                  + f" (bf16 / f32 {(t[1] + t[2]) / (t[0] + t[3]):.3f})", flush=True)
+        del cache_b, cache_f, sr_p
+        torch.cuda.empty_cache()
+    return per_scene
+
+
+def bf16_perop_kernel_checks(card: str, per_scene: dict, seed: int) -> list:
+    """Step 25 b (module docstring): the six per-op `_bf16io` instances
+    against their plain versions, on the card inside `plain_versions()`.
+    Timed by CUDA events around back-to-back calls (`events_ms`): late in
+    this long process the profiler's traces lose kernel records (a kernel
+    counted fewer times than launched, or timed at half its time)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from lft_torch.kernels import ang_attn_mxu, ang_attn_vjp, local_attn, local_attn_vjp
+    from lft_torch.kernels import spa_attn, spa_attn_hp
+    from lft_torch.kernels.common import plain_versions
+    from lft_torch.ops.attention import local_window_mask
+    from lft_torch.profile_scene import events_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 25)
+    rec = Recorder(card, per_scene, 1, "bf16 per-op scene")
+    H, K = 8, 5
+    cases = [
+        # name, wrapper, shape, source, TPU kernel replaced
+        ("ang_attn_bf16io", lambda q, k, v: ang_attn_mxu.ang_attn_fwd(q, k, v, H),
+         (16384, 25, 64), "ang_attn.cu", "lft_tpu/kernels/ang_attn_mxu.py:234"),
+        ("ang_attn_sweep_bf16io", lambda q, k, v: ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, H),
+         (16384, 25, 64), "ang_attn.cu", "lft_tpu/kernels/ang_attn_vjp.py:129"),
+        ("spa_attn_hp_bf16io", lambda q, k, v: spa_attn_hp.spa_attn_hp_fwd(q, k, v, H, K),
+         (400, 32, 32, 128), "spa_attn_hp.cu", "lft_tpu/kernels/spa_attn_hp.py:419"),
+        ("spa_attn_mxu_bf16io", lambda q, k, v: spa_attn.spa_attn_mxu_fwd(q, k, v, H, K),
+         (400, 64, 64, 128), "spa_attn_hp.cu", "lft_tpu/kernels/spa_attn.py:233"),
+        ("spa_attn_offset_bf16io",
+         lambda q, k, v: local_attn_vjp.spa_attn_offset_fwd(q, k, v, H, K),
+         (400, 30, 30, 128), "spa_attn_hp.cu", "lft_tpu/kernels/local_attn_vjp.py:257"),
+        ("spa_attn_tile_bf16io",
+         lambda q, k, v: local_attn.windowed_attention_tile(q, k, v, H, K, 8),
+         (400, 32, 32, 128), "spa_attn_hp.cu", "lft_tpu/kernels/local_attn.py:99"),
+    ]
+    extra = [("ang_attn_sweep_bf16io", cases[1][1], (9216, 144, 64), "ang_attn_sweep.cu",
+              cases[1][4])]
+    seen = set()
+    for name, fn, shape, src, replaces in cases + extra:
+        q, k, v = (torch.randn(*shape, device=dev, generator=g) * sc for sc in (1.5, 1.5, 1.0))
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        got, again = fn(q, k, v), fn(q, k, v)
+        with plain_versions():
+            ref, ref32 = fn(q, k, v), fn(q32, k32, v32)
+
+        def plain():
+            with plain_versions():
+                return fn(q, k, v)
+        if len(shape) == 3:
+            N, A2, C = shape
+            heads = lambda t: t.reshape(N, A2, H, C // H).transpose(1, 2)
+            qh, kh, vh = heads(q), heads(k), heads(v)
+            lib = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+            flops = 4 * N * A2 * A2 * C
+        else:
+            B, h, w, E = shape
+            heads = lambda t: t.reshape(B, h * w, H, E // H).transpose(1, 2)
+            qh, kh, vh = heads(q), heads(k), heads(v)
+            mask = torch.from_numpy(local_window_mask(h, w, K) == 0).to(dev)
+
+            def lib():
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+            flops = 4 * E * B * valid_window_pairs(h, w, K // 2)
+        rec.record(name, "lft_torch/csrc/" + src, replaces, got, ref, lambda: fn(q, k, v), plain,
+                   flops, nbytes(q, k, v, got), lib_fn=lib, slow_reps=3, timer=events_ms,
+                   bf16_ref32=ref32, shape=shape if name in seen else None)
+        seen.add(name)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} at {list(shape)} does not repeat bitwise")
+        f32_fn, bf_fn = (lambda: fn(q32, k32, v32)), (lambda: fn(q, k, v))
+        t = [events_ms(f32_fn), events_ms(bf_fn), events_ms(bf_fn), events_ms(f32_fn)]
+        print(f"  {name} at {list(shape)}: repeated bitwise; {card}: ms (CUDA events, 20 "
+              f"back-to-back calls) in turns with its f32 instance, f32 / bf16 / bf16 / f32: "
+              + " / ".join(f"{x:.4f}" for x in t), flush=True)
+        del q, k, v, q32, k32, v32, got, again, ref, ref32, qh, kh, vh
+        torch.cuda.empty_cache()
+    return rec.rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3409,8 +3604,9 @@ def main(argv=None) -> int:
     from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
-    from lft_torch.kernels import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, PEROP, SWEEPS,
-                                   TAIL, TRAINING, build_all, reset_launches)
+    from lft_torch.kernels import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, PEROP,
+                                   PEROP_BF16IO, SWEEPS, TAIL, TRAINING, build_all,
+                                   reset_launches)
     from lft_torch.models.lft import forward
     from lft_torch.ops.bicubic import bicubic_upscale_views
     from lft_torch.ops.metrics import cal_metrics
@@ -3455,7 +3651,7 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     extra = [k for k in TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO + BF16TRAIN
-             if counts[k]]
+             + PEROP_BF16IO if counts[k]]
     if extra:
         raise AssertionError(f"training or per-op kernels launched by the SR run: {extra}")
 
@@ -3622,6 +3818,12 @@ def main(argv=None) -> int:
     bf16_train_cli(params, a.seed)
     torch.cuda.empty_cache()
     print(f"bf16 training phase: {time.time() - t0:.1f} s", flush=True)
+    # step 25: --dtype bfloat16 serving through the unfused per-op branch
+    t0 = time.time()
+    perop_bf16_counts = bf16_perop_phase(params, scenes, card, a.seed)
+    rows += bf16_perop_kernel_checks(card, perop_bf16_counts, a.seed)
+    torch.cuda.empty_cache()
+    print(f"bf16 per-op phase: {time.time() - t0:.1f} s", flush=True)
     missing = sorted(set(LAUNCHES) - {r["name"] for r in rows})
     if missing:
         raise AssertionError(f"kernels without a row in the kernels line: {missing}")

@@ -82,6 +82,28 @@
 // [1024, 81, 64] 4.3 GFLOP (0.064 ms) against 0.024 ms of bytes. Here too
 // the instructions hold it back: without loads 0.161 of 0.168 ms, the
 // staging alone 0.067 (probe_k7).
+//
+// bf16-IO forwards (`--dtype bfloat16` serving through the per-op branch;
+// bf16 q, k, v and out, f32 arithmetic inside):
+// * `ang_attn_bf16io` (`lft_ang_attn_bf16io`): lft_tpu's K7 on bf16 tensors
+//   (ang_attn_mxu.py:_fwd_kernel :106-142) defers its normalisation behind
+//   one row-wide max: s = (q . k) scale, m each token's max over EVERY head,
+//   e = exp(s - m) rounded to bf16 for the product with v, l the head's sum
+//   of the unrounded e, out = bf16(o (1 / l)). A head's max needs the other
+//   heads' scores first, so `ang_attn_bf16io_kernel` takes K1's bf16-IO
+//   attention pass (ang_block.cu) on its own: a block stages P whole pixels'
+//   q, k, v widened to f32 (one stage), a first pass over the (pixel, head,
+//   query) items writes each item's max to shared memory, a second forms m
+//   over the heads, the sums and the output, rounded as it is stored; one
+//   query a thread, each score built twice.
+// * `ang_attn_sweep_bf16io` at A2 <= 128 (`lft_ang_attn_f32in_bf16io`):
+//   lft_tpu's K8 widens q, k, v to f32 and rounds only its output
+//   (ang_attn_vjp.py:_fwd_kernel :22-50), the f32 kernel's function: its
+//   IO = bf16 instance, rows widened as the threads stage them, the output
+//   rounded as it leaves.
+// Bound at [16384, 25, 64]: q, k, v read and out written once in bf16,
+// 0.0626 ms at 3.35 TB/s (2.6 GFLOP on the FP32 pipes: 0.039 ms; the
+// deferred kernel builds each score twice).
 
 #include "ang_attn.cuh"
 
@@ -120,10 +142,10 @@ inline Geo bwd_geo(int A2, int C) {
 }
 
 // ---- forward: a thread takes two queries of one (pixel, head) -------------
-template <int DH, bool STATS>
+template <int DH, bool STATS, class IO = float>
 __global__ void __launch_bounds__(NT_MAX)
-    ang_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ out,
+    ang_attn_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
+                    const IO* __restrict__ v, IO* __restrict__ out,
                     float* __restrict__ m_out, float* __restrict__ l_out, int N, int A2,
                     int P, float scale) {
   constexpr int C = H * DH, LD = C + 4;
@@ -239,6 +261,73 @@ __global__ void __launch_bounds__(NT_MAX)
       store_rows<H, H>(m_out, MS, row0, rows);
       store_rows<H, H>(l_out, LS, row0, rows);
     }
+  }
+}
+
+// ---- bf16-IO forward with the deferred softmax: a thread a (pixel, head,
+// query), P whole pixels a block ---------------------------------------------
+template <int DH>
+__global__ void __launch_bounds__(NT_MAX)
+    ang_attn_bf16io_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out, int N, int A2,
+                           int P, float scale) {
+  constexpr int C = H * DH, LD = C + 4;
+  extern __shared__ float4 smem4[];
+  float* QT = reinterpret_cast<float*>(smem4);
+  const int RT = P * A2;
+  float* KT = QT + RT * LD;
+  float* VT = KT + RT * LD;
+  float* MH = VT + RT * LD;                  // [RT][H]: each item's max
+  const int np = min(P, N - static_cast<int>(blockIdx.x) * P), rows = np * A2;
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * P * A2;
+  stage_async<C, LD>(QT, q, row0, rows);
+  stage_async<C, LD>(KT, k, row0, rows);
+  stage_async<C, LD>(VT, v, row0, rows);
+  __syncthreads();
+  const int items = np * H * A2;
+  // pass 1: each (pixel, head, query)'s max score; queries fastest, so a
+  // warp's key reads are broadcasts
+  for (int t = threadIdx.x; t < items; t += blockDim.x) {
+    const int i = t % A2, hh = t / A2 % H, p = t / (A2 * H);
+    float qv[DH];
+    ld<DH>(QT + (p * A2 + i) * LD + hh * DH, qv);
+    const float* kp = KT + p * A2 * LD + hh * DH;
+    float mx = -CUDART_INF_F;
+    for (int j = 0; j < A2; ++j) {
+      float kr[DH];
+      ld<DH>(kp + j * LD, kr);
+      mx = fmaxf(mx, dot<DH>(qv, kr) * scale);
+    }
+    MH[(p * A2 + i) * H + hh] = mx;
+  }
+  __syncthreads();
+  // pass 2: m the token's max over its heads; l over e, o over bf16(e)
+  for (int t = threadIdx.x; t < items; t += blockDim.x) {
+    const int i = t % A2, hh = t / A2 % H, p = t / (A2 * H);
+    float m = MH[(p * A2 + i) * H];
+#pragma unroll
+    for (int g = 1; g < H; ++g) m = fmaxf(m, MH[(p * A2 + i) * H + g]);
+    float qv[DH], o[DH];
+    ld<DH>(QT + (p * A2 + i) * LD + hh * DH, qv);
+#pragma unroll
+    for (int d = 0; d < DH; ++d) o[d] = 0.f;
+    const float* kp = KT + p * A2 * LD + hh * DH;
+    const float* vp = VT + p * A2 * LD + hh * DH;
+    float l = 0.f;
+    for (int j = 0; j < A2; ++j) {
+      float kr[DH], vr[DH];
+      ld<DH>(kp + j * LD, kr);
+      ld<DH>(vp + j * LD, vr);
+      const float e = expf(dot<DH>(qv, kr) * scale - m);
+      const float eb = bf16_round(e);
+      l += e;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) o[d] = fmaf(eb, vr[d], o[d]);
+    }
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) o[d] *= inv;
+    st<DH>(out + (row0 + p * A2 + i) * C + hh * DH, o);
   }
 }
 
@@ -436,9 +525,10 @@ __global__ void __launch_bounds__(NT_MAX)
   }
 }
 
-template <bool STATS>
-int ang_attn(const float* q, const float* k, const float* v, float* out, float* m, float* l,
-             int N, int A2, int C, int heads, float scale, cudaStream_t s) {
+template <bool STATS, class IO = float>
+int ang_attn(const named_t<IO>* q, const named_t<IO>* k, const named_t<IO>* v,
+             named_t<IO>* out, float* m, float* l, int N, int A2, int C, int heads, float scale,
+             cudaStream_t s) {
   if (heads != H || A2 < 1 || A2 > 128 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Geo g = fwd_geo(A2, C, STATS);
   const int tiles = (N + g.P - 1) / g.P;
@@ -446,9 +536,36 @@ int ang_attn(const float* q, const float* k, const float* v, float* out, float* 
   switch (C / H) {
 #define LFT_ANG_CASE(DHV)                                                          \
     case DHV: {                                                                    \
-      auto kernel = ang_attn_kernel<DHV, STATS>;                                   \
+      auto kernel = ang_attn_kernel<DHV, STATS, IO>;                               \
       if (const int e = persistent_grid(kernel, g.nt, g.bytes, tiles, &grid)) return e;        \
       kernel<<<grid, g.nt, g.bytes, s>>>(q, k, v, out, m, l, N, A2, g.P, scale);   \
+      break;                                                                       \
+    }
+    LFT_ANG_CASE(2)
+    LFT_ANG_CASE(4)
+    LFT_ANG_CASE(8)
+#undef LFT_ANG_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The deferred bf16-IO forward (the header): P whole pixels a block, their
+// q, k, v and maxima within two blocks' share of an SM, up to 1024 items.
+int ang_attn_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* out, int N, int A2, int C,
+                    int heads, float scale, cudaStream_t s) {
+  if (heads != H || A2 < 1 || A2 > 128 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int row = 3 * (C + 4) + H;           // floats a token takes
+  const int P = std::max(1, std::min(SMEM_TWO / (row * 4) / A2, 2 * NT_MAX / (H * A2)));
+  const int nt = round32(std::min(NT_MAX, P * H * A2));
+  const size_t bytes = static_cast<size_t>(P) * A2 * row * 4;
+  const int grid = (N + P - 1) / P;
+  switch (C / H) {
+#define LFT_ANG_CASE(DHV)                                                          \
+    case DHV: {                                                                    \
+      auto kernel = ang_attn_bf16io_kernel<DHV>;                                   \
+      LFT_SET_SMEM(kernel, bytes);                                                 \
+      kernel<<<grid, nt, bytes, s>>>(q, k, v, out, N, A2, P, scale);               \
       break;                                                                       \
     }
     LFT_ANG_CASE(2)
@@ -479,6 +596,20 @@ extern "C" int lft_ang_attn_res(const float* q, const float* k, const float* v, 
                                 float scale, void* stream) {
   return ang_attn<true>(q, k, v, out, m, l, N, A2, C, heads, scale,
                         static_cast<cudaStream_t>(stream));
+}
+
+// The bf16-IO forwards (the header): q, k, v, out bf16 [N, A2, C].
+extern "C" int lft_ang_attn_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* out, int N,
+                                   int A2, int C, int heads, float scale, void* stream) {
+  return ang_attn_bf16io(q, k, v, out, N, A2, C, heads, scale,
+                         static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int lft_ang_attn_f32in_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                                         int N, int A2, int C, int heads, float scale,
+                                         void* stream) {
+  return ang_attn<false, bf16>(q, k, v, out, nullptr, nullptr, N, A2, C, heads, scale,
+                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lft_ang_attn_bwd(const float* q, const float* k, const float* v,

@@ -19,47 +19,49 @@ constexpr int SMEM_MAX = 232448;   // bytes a block at most
 
 inline int round32(int n) { return (n + 31) / 32 * 32; }
 
-// rows [row0, row0 + rows) of a [*, W] tensor -> a [rows][LD] tile by
-// cp.async, 16 bytes a thread at a time
-template <int W, int LD>
-__device__ __forceinline__ void stage_async(float* dst, const float* __restrict__ src,
+// rows [row0, row0 + rows) of a [*, W] tensor -> a [rows][LD] f32 tile, 4
+// values a thread at a time: f32 by cp.async, bf16 (the `_bf16io`
+// instances) by the thread's own loads widened to f32 (`copy4`)
+template <int W, int LD, class IO>
+__device__ __forceinline__ void stage_async(float* dst, const IO* __restrict__ src,
                                             size_t row0, int rows) {
   for (int i = threadIdx.x; i < rows * (W / 4); i += blockDim.x) {
     const int r = i / (W / 4), c = 4 * (i % (W / 4));
-    cp_async16(dst + r * LD + c, src + (row0 + r) * W + c, true);
+    copy4(dst + r * LD + c, src + (row0 + r) * W + c, true);
   }
 }
 
-// a [rows][LD] tile -> rows [row0, row0 + rows) of a [*, W] tensor, whole lines
-template <int W, int LD>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float* src, size_t row0,
+// a [rows][LD] tile -> rows [row0, row0 + rows) of a [*, W] tensor, whole
+// lines (bf16: each value rounded to nearest even)
+template <int W, int LD, class IO>
+__device__ __forceinline__ void store_rows(IO* __restrict__ dst, const float* src, size_t row0,
                                            int rows) {
   for (int i = threadIdx.x; i < rows * (W / 4); i += blockDim.x) {
     const int r = i / (W / 4), c = 4 * (i % (W / 4));
-    store4(dst + (row0 + r) * W + c, load4(src + r * LD + c));
+    st4(dst + (row0 + r) * W + c, load4(src + r * LD + c));
   }
 }
 
 // columns [col0, col0 + W) of rows [row0, row0 + rows) of a [*, C] tensor ->
-// a [rows][LD] tile by cp.async, 16 bytes a thread at a time (K8's head
-// groups)
-template <int C, int W, int LD>
-__device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__ src, size_t row0,
+// a [rows][LD] f32 tile, 4 values a thread at a time (K8's head groups; f32
+// by cp.async, bf16 widened by the thread)
+template <int C, int W, int LD, class IO>
+__device__ __forceinline__ void stage_cols(float* dst, const IO* __restrict__ src, size_t row0,
                                            int rows, int col0) {
   for (int i = threadIdx.x; i < rows * (W / 4); i += blockDim.x) {
     const int r = i / (W / 4), c = 4 * (i % (W / 4));
-    cp_async16(dst + r * LD + c, src + (row0 + r) * C + col0 + c, true);
+    copy4(dst + r * LD + c, src + (row0 + r) * C + col0 + c, true);
   }
 }
 
 // a [rows][LD] tile -> columns [col0, col0 + W) of rows [row0, row0 + rows)
-// of a [*, C] tensor, 16 bytes a thread at a time
-template <int C, int W, int LD>
-__device__ __forceinline__ void store_cols(float* __restrict__ dst, const float* src, size_t row0,
+// of a [*, C] tensor, 4 values a thread at a time
+template <int C, int W, int LD, class IO>
+__device__ __forceinline__ void store_cols(IO* __restrict__ dst, const float* src, size_t row0,
                                            int rows, int col0) {
   for (int i = threadIdx.x; i < rows * (W / 4); i += blockDim.x) {
     const int r = i / (W / 4), c = 4 * (i % (W / 4));
-    store4(dst + (row0 + r) * C + col0 + c, load4(src + r * LD + c));
+    st4(dst + (row0 + r) * C + col0 + c, load4(src + r * LD + c));
   }
 }
 

@@ -70,6 +70,16 @@
 // [2048, 144, 64] against 0.186 ms of bytes; it runs 1.91 ms there, and from
 // 33 views on it beats K7's backward, which holds p and dp in registers only
 // up to 32 keys (compare_k8).
+//
+// IO = bf16 (`lft_ang_attn_sweep_bf16io`, counted `ang_attn_sweep_bf16io`:
+// `--dtype bfloat16` serving past 128 views): lft_tpu's K8 widens bf16 q,
+// k, v to f32, runs its softmax in f32 and rounds only the output
+// (ang_attn_vjp.py:_fwd_kernel :22-50); so does the forward's IO instance:
+// the stages widened to f32 as the threads load them (8-byte loads; cp.async
+// copies bytes), the f32 arithmetic above, the output rounded to bf16 as it
+// leaves. At 128 views or fewer the wrapper launches K7's f32 kernel's bf16-IO
+// instance (ang_attn.cu). Bound at [9216, 144, 64]: 48.9 GFLOP on the FP32
+// pipes, 0.7302 ms (its bytes in bf16: 0.203 ms).
 
 #include <climits>
 
@@ -118,10 +128,10 @@ inline BwdGeo bwd_geo(int A2, int C) {
 }
 
 // ---- forward: a thread takes two queries of one head of the group ---------
-template <int DH, int HG, bool STATS>
+template <int DH, int HG, bool STATS, class IO = float>
 __global__ void __launch_bounds__(NT_MAX)
-    sweep_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
+    sweep_fwd_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
+                     const IO* __restrict__ v, IO* __restrict__ out,
                      float* __restrict__ m_out, float* __restrict__ l_out, int N, int A2,
                      int QBP, int NQB, float scale) {
   constexpr int C = H * DH, W = HG * DH, LDW = W + 4, NG = H / HG;
@@ -420,22 +430,23 @@ __global__ void __launch_bounds__(NT_MAX)
   }
 }
 
-using FwdKernel = void (*)(const float*, const float*, const float*, float*, float*, float*, int,
-                           int, int, int, float);
+template <class IO = float>
+using FwdKernelIO = void (*)(const IO*, const IO*, const IO*, IO*, float*, float*, int, int, int,
+                             int, float);
 using BwdKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
                            const float*, const float*, float*, float*, float*, int, int, int,
                            float);
 
 // The instances: past 128 views the forward's groups are 1 or 2 heads (2 at
 // dh = 2); the backward takes every A2, so every group.
-template <bool STATS>
-FwdKernel fwd_kernel(int DH, int HG) {
+template <bool STATS, class IO = float>
+FwdKernelIO<IO> fwd_kernel(int DH, int HG) {
   switch (DH * 16 + HG) {
-    case 2 * 16 + 2: return sweep_fwd_kernel<2, 2, STATS>;
-    case 4 * 16 + 1: return sweep_fwd_kernel<4, 1, STATS>;
-    case 4 * 16 + 2: return sweep_fwd_kernel<4, 2, STATS>;
-    case 8 * 16 + 1: return sweep_fwd_kernel<8, 1, STATS>;
-    case 8 * 16 + 2: return sweep_fwd_kernel<8, 2, STATS>;
+    case 2 * 16 + 2: return sweep_fwd_kernel<2, 2, STATS, IO>;
+    case 4 * 16 + 1: return sweep_fwd_kernel<4, 1, STATS, IO>;
+    case 4 * 16 + 2: return sweep_fwd_kernel<4, 2, STATS, IO>;
+    case 8 * 16 + 1: return sweep_fwd_kernel<8, 1, STATS, IO>;
+    case 8 * 16 + 2: return sweep_fwd_kernel<8, 2, STATS, IO>;
     default: return nullptr;
   }
 }
@@ -461,13 +472,14 @@ inline bool bad_shape(int N, int A2, int C, int heads) {
   return heads != H || N < 1 || A2 < 1 || C % H || C / H > 8;
 }
 
-template <bool STATS>
-int sweep_fwd(const float* q, const float* k, const float* v, float* out, float* m, float* l,
-              int N, int A2, int C, int heads, float scale, cudaStream_t s) {
+template <bool STATS, class IO = float>
+int sweep_fwd(const named_t<IO>* q, const named_t<IO>* k, const named_t<IO>* v,
+              named_t<IO>* out, float* m, float* l, int N, int A2, int C, int heads, float scale,
+              cudaStream_t s) {
   // A2 <= 128 is K7's (and a q buffer's next use needs NS - 1 stages a tile)
   if (bad_shape(N, A2, C, heads) || A2 <= 128) return static_cast<int>(cudaErrorInvalidValue);
   const FwdGeo g = fwd_geo(A2, C, STATS);
-  const FwdKernel kernel = fwd_kernel<STATS>(C / H, g.HG);
+  const FwdKernelIO<IO> kernel = fwd_kernel<STATS, IO>(C / H, g.HG);
   const long long tiles = static_cast<long long>(N) * (H / g.HG) * g.NQB;
   if (!kernel || g.bytes > SMEM_MAX || tiles > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -497,6 +509,14 @@ extern "C" int lft_ang_attn_sweep_res(const float* q, const float* k, const floa
                                       int heads, float scale, void* stream) {
   return sweep_fwd<true>(q, k, v, out, m, l, N, A2, C, heads, scale,
                          static_cast<cudaStream_t>(stream));
+}
+
+// The forward's bf16-IO instance (the header): q, k, v, out bf16 [N, A2, C].
+extern "C" int lft_ang_attn_sweep_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                                         int N, int A2, int C, int heads, float scale,
+                                         void* stream) {
+  return sweep_fwd<false, bf16>(q, k, v, out, nullptr, nullptr, N, A2, C, heads, scale,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // Any A2 whose {m, 1 / l, D} of a head group fit a block's shared memory.

@@ -87,6 +87,27 @@
 // it: p = exp(s - m) / l is lft_tpu's); dq, dk, dv summed in f32 and
 // rounded to bf16 once, as they are stored. Bound at [100, 32, 32, 128]:
 // q, k, v, dout in and dq, dk, dv out in bf16, m, l f32, 0.19 GB, 0.056 ms.
+//
+// bf16-IO forwards (`--dtype bfloat16` serving through the per-op branch,
+// lft_tpu's per-op kernels on bf16 tensors; bf16 q, k, v and out, f32
+// arithmetic): three families of rounding points, three instances.
+// * Deferred, K5 (`lft_spa_attn_hp_bf16io`, counted `spa_attn_hp_bf16io`;
+//   lft_tpu/kernels/spa_attn_hp.py:_fwd_kernel :222-280): the query's max
+//   over every head and its window (pad keys score 0), bf16(e) into the
+//   product, l from the unrounded e: K2's bf16 window step, so K2.3's
+//   bf16-IO kernel (window_attn.cuh: spa_window_attn_bf16io_kernel), a
+//   (view, 16 x 16 tile) a block with its head groups in two passes.
+// * Normalized, K6 (`lft_spa_attn_norm_bf16io`, `spa_attn_mxu_bf16io`;
+//   spa_attn.py:_fwd_kernel :72-116): the per-head softmax, p = bf16(e / l)
+//   before the product: spa_window_attn_kernel<DH, false, true, bf16>.
+// * f32 inside, K9 and K10 (`lft_spa_attn_f32in_bf16io`,
+//   `spa_attn_offset_bf16io` / `spa_attn_tile_bf16io`; local_attn_vjp.py:
+//   _fwd_kernel :48-116, local_attn.py:_window_kernel :44-80): the f32
+//   kernel on widened values, the output rounded once:
+//   spa_window_attn_kernel<DH, false, false, bf16>.
+// Bound at [400, 32, 32, 128]: q, k, v read and out written once in bf16,
+// 0.42 GB, 0.1252 ms at 3.35 TB/s; the deferred kernel's first pass reads q
+// and k again (through L2).
 
 #include "attn.cuh"
 #include "window_attn.cuh"
@@ -422,6 +443,34 @@ int spa_attn_hp(const float* q, const float* k, const float* v, float* out, floa
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16-IO forwards (the header): NORM the normalized instance of the
+// f32 kernel, else the f32-inside one; `deferred` K2.3's bf16-IO kernel.
+template <bool NORM>
+int spa_attn_io(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int h, int w,
+                int E, int heads, float scale, bool deferred, cudaStream_t s) {
+  const int groups = deferred ? 1 : E / WA_G;   // a deferred block takes every head group
+  if (bad_shape(B, h, w, E, heads) || n_items(B, h, w, groups) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(n_items(B, h, w, groups));
+  switch (E / H) {
+#define LFT_HP_CASE(DHV)                                                            \
+    case DHV: {                                                                     \
+      auto kernel = deferred ? spa_window_attn_bf16io_kernel<DHV, false>            \
+                             : spa_window_attn_kernel<DHV, false, NORM, bf16>;      \
+      LFT_SET_SMEM(kernel, WA_BYTES);                                               \
+      kernel<<<grid, WA_NT, WA_BYTES, s>>>(q, k, v, out, nullptr, nullptr, B, h, w,  \
+                                           scale);                                  \
+      break;                                                                        \
+    }
+    LFT_HP_CASE(4)
+    LFT_HP_CASE(8)
+    LFT_HP_CASE(16)
+#undef LFT_HP_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 LFT_EXPORT_ERROR_STRING
@@ -442,6 +491,28 @@ extern "C" int lft_spa_attn_hp_res(const float* q, const float* k, const float* 
                                    float scale, void* stream) {
   return spa_attn_hp<true>(q, k, v, out, m, l, B, h, w, E, heads, scale,
                            static_cast<cudaStream_t>(stream));
+}
+
+// The bf16-IO forwards (the header): q, k, v, out bf16 [B, h, w, E].
+extern "C" int lft_spa_attn_hp_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                                      int B, int h, int w, int E, int heads, float scale,
+                                      void* stream) {
+  return spa_attn_io<false>(q, k, v, out, B, h, w, E, heads, scale, true,
+                            static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int lft_spa_attn_norm_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                                        int B, int h, int w, int E, int heads, float scale,
+                                        void* stream) {
+  return spa_attn_io<true>(q, k, v, out, B, h, w, E, heads, scale, false,
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int lft_spa_attn_f32in_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                         bf16* out, int B, int h, int w, int E, int heads,
+                                         float scale, void* stream) {
+  return spa_attn_io<false>(q, k, v, out, B, h, w, E, heads, scale, false,
+                            static_cast<cudaStream_t>(stream));
 }
 
 namespace {

@@ -46,6 +46,21 @@ namespace lft {
 //   the sums of the five key rows; o runs in key order (all held to the
 //   plain version's tolerance and to float64).
 // Every output is written by one thread, no atomics: a call repeats bitwise.
+//
+// IO = bf16 (`--dtype bfloat16` serving through the per-op branch: the
+// bf16-IO instances of K9 `spa_attn_offset_bf16io` and K10
+// `spa_attn_tile_bf16io`, spa_attn_hp.cu): lft_tpu's K9 and K10 kernels
+// widen bf16 q, k, v to f32 and round the output once
+// (local_attn_vjp.py:_fwd_kernel :48-116, local_attn.py:_window_kernel
+// :44-80), and so does this instance: the halos staged by the threads' 8-byte
+// loads widened to f32 (`copy4`; cp.async copies bytes), q widened as it
+// loads, the f32 arithmetic above, attn rounded to bf16 as it is stored.
+// NORM (with IO = bf16: K6 `spa_attn_mxu_bf16io`, lft_tpu's
+// spa_attn.py:_fwd_kernel :72-116, which normalizes per head before the
+// product): scores (q . k) scale from the unscaled q, m the head's own max,
+// p = bf16(e / l), attn = the sum of p v, rounded once. Bound at [400, 32,
+// 32, 128]: q, k, v read and attn written once in bf16, 0.42 GB, 0.125 ms
+// (at [400, 64, 64, 128] 0.501 ms; at [400, 30, 30, 128] 0.110 ms).
 constexpr int WA_TX = 16, WA_TY = 16;                 // query tile
 constexpr int WA_QY = 2;                              // queries a thread, down a column
 constexpr int WA_HX = WA_TX + 2 * R, WA_HY = WA_TY + 2 * R;   // k/v halo
@@ -59,10 +74,10 @@ constexpr size_t WA_BYTES = 2 * static_cast<size_t>(WA_BUF) * sizeof(float);
 static_assert(2 * (WA_BYTES + 1024) <= 233472, "two blocks' halos must share an SM");
 
 // One block an item (view, 16 x 16 tile, head group), items in launch order.
-template <int DH, bool STATS>
+template <int DH, bool STATS, bool NORM = false, class IO = float>
 __global__ void __launch_bounds__(WA_NT, 2)
-    spa_window_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ attn,
+    spa_window_attn_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
+                           const IO* __restrict__ v, IO* __restrict__ attn,
                            float* __restrict__ m_out, float* __restrict__ l_out, int V,
                            int h, int w, float scale) {
   constexpr int H = 8, D = H * DH;
@@ -86,27 +101,28 @@ __global__ void __launch_bounds__(WA_NT, 2)
     const bool ok = ky >= 0 && ky < h && kx >= 0 && kx < w;
     const size_t off =
         ok ? ((static_cast<size_t>(view) * h + ky) * w + kx) * D + g * WA_G + c : 0;
-    cp_async16(smem + px * WA_LD + c, k + off, ok);
-    cp_async16(smem + WA_BUF + px * WA_LD + c, v + off, ok);
+    copy4(smem + px * WA_LD + c, k + off, ok);
+    copy4(smem + WA_BUF + px * WA_LD + c, v + off, ok);
   }
   cp_async_commit();
   {
     const int x = x0 + tx;
     const size_t col = g * WA_G + half * WA_S;   // the slice's first channel
+    const float qs = NORM ? 1.f : scale;         // q scaled before the product, but for NORM
     float qv[WA_QY][WA_S];
 #pragma unroll
     for (int a = 0; a < WA_QY; ++a) {
       const int y = y0 + ry + a;
       const bool in = y < h && x < w;
-      const float* qp = q + ((static_cast<size_t>(view) * h + (in ? y : 0)) * w +
-                             (in ? x : 0)) * D + col;
+      const IO* qp = q + ((static_cast<size_t>(view) * h + (in ? y : 0)) * w +
+                          (in ? x : 0)) * D + col;
 #pragma unroll
       for (int d = 0; d < WA_S; d += 4) {
         const float4 t = in ? ldg4(qp + d) : make_float4(0.f, 0.f, 0.f, 0.f);
-        qv[a][d] = t.x * scale;
-        qv[a][d + 1] = t.y * scale;
-        qv[a][d + 2] = t.z * scale;
-        qv[a][d + 3] = t.w * scale;
+        qv[a][d] = t.x * qs;
+        qv[a][d + 1] = t.y * qs;
+        qv[a][d + 2] = t.z * qs;
+        qv[a][d + 3] = t.w * qs;
       }
     }
     cp_async_wait<0>();
@@ -146,7 +162,8 @@ __global__ void __launch_bounds__(WA_NT, 2)
             float t[4] = {0.f, 0.f, 0.f, 0.f};   // four partial sums, added pairwise
 #pragma unroll
             for (int d = 0; d < DH; ++d) t[d % 4] = fmaf(qv[a][e * DH + d], kk[d], t[d % 4]);
-            s[a][(2 * R + 1) * (r - a) + dx] = (t[0] + t[1]) + (t[2] + t[3]);
+            const float sc = (t[0] + t[1]) + (t[2] + t[3]);
+            s[a][(2 * R + 1) * (r - a) + dx] = NORM ? sc * scale : sc;
           }
         }
       }
@@ -166,6 +183,10 @@ __global__ void __launch_bounds__(WA_NT, 2)
             row += s[a][j];
           }
           l[a] += row;
+        }
+        if constexpr (NORM) {   // p = bf16(e / l) before the product with v
+#pragma unroll
+          for (int j = 0; j < KW; ++j) s[a][j] = bf16_round(s[a][j] / l[a]);
         }
       }
       float o[WA_QY][DH];
@@ -205,12 +226,12 @@ __global__ void __launch_bounds__(WA_NT, 2)
         const int y = y0 + ry + a;
         if (y >= h || x >= w) continue;
         const size_t pix = (static_cast<size_t>(view) * h + y) * w + x;
-        const float inv = 1.f / l[a];
+        const float inv = NORM ? 1.f : 1.f / l[a];
 #pragma unroll
         for (int d = 0; d < DH; d += 4)
-          store4(attn + pix * D + col + e * DH + d,
-                 make_float4(o[a][d] * inv, o[a][d + 1] * inv, o[a][d + 2] * inv,
-                             o[a][d + 3] * inv));
+          st4(attn + pix * D + col + e * DH + d,
+              make_float4(o[a][d] * inv, o[a][d + 1] * inv, o[a][d + 2] * inv,
+                          o[a][d + 3] * inv));
         if constexpr (STATS) {
           const size_t hd = pix * H + (col + e * DH) / DH;
           m_out[hd] = m[a];

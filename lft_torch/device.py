@@ -11,7 +11,10 @@ turns it on, torch's own meaning of `high`. The hand-written kernels ignore
 the flag. The flags are the process's: an entry point passes the run's
 precision once; a call without one (the loaders') leaves them as the port
 last set them, and the process's first call on the card sets `highest`. On
-the CPU the flag changes nothing, as in lft_tpu on the CPU.
+the CPU the flag changes nothing, as in lft_tpu on the CPU. Beside TF32 the
+port turns cuBLAS's `allow_bf16_reduced_precision_reduction` off on the
+card (torch's default lets a bf16 product's partial sums be reduced in bf16,
+where lft_tpu's bf16 products accumulate in f32).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ def resolve_device(device=None, matmul_precision=None) -> torch.device:
         if matmul_precision is not None or _precision is None:
             _precision = matmul_precision or "highest"
             set_tf32(_precision == "high")
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"lft_torch runs on 'cuda' or 'cpu', got {dev}")
     return dev

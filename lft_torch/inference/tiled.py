@@ -20,8 +20,10 @@ every rank returns the whole SR mosaic.
 `args` reaches the model with every chunk, `--dtype` with it: the `mixed`
 plans are read by each model call (kernels/common.py), never kept in
 `ScenePipelineCache`, so a changed plan never mixes two plans in one scene.
-Under `bfloat16` the model runs its fused branch on every device (the only
-one with a bf16 form, models/lft.py:resolve_bf16); the scene buffers, the
+Under `bfloat16` the model picks its branch itself on every device
+(`fused=None`, models/lft.py:resolve_bf16): the fused blocks where their
+gates (and, on the card, the kernels' widths) take the geometry, the
+unfused per-op branch elsewhere, as lft_tpu picks; the scene buffers, the
 model's output and the metrics stay f32.
 """
 
@@ -75,7 +77,7 @@ def make_scene_sr(model_apply, args, h0: int, w0: int,
         flat = flat.reshape(n_patches, 1, A * patch, A * patch)
         kw = dict(apply_kw)
         if takes_fused:
-            kw.setdefault("fused", bf16 or (lr_mosaic.is_cuda and fuse_cuda))
+            kw.setdefault("fused", None if bf16 else lr_mosaic.is_cuda and fuse_cuda)
         run = (lambda c: model_apply(params, c, args, **kw)) if ranks == 1 else \
             (lambda c: _sharded_chunk(model_apply, params, c, args, kw, mesh))
         outs = [run(flat[i:i + eb]) for i in range(0, n_patches, eb)]

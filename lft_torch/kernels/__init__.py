@@ -12,11 +12,14 @@ launches under `--dtype mixed` (K3's steps, K4, `wgrad`, each `_bf16`);
 `BF16IO` the bf16-IO instances of K1 and K2's steps that an SR forward
 launches under `--dtype bfloat16` (each `_bf16io`); `BF16TRAIN` those that
 only a fused train step launches under `--dtype bfloat16` (K1 res, K2.3 res,
-K4 in both forms, K3's five steps, `wgrad`, each `_bf16io`).
+K4 in both forms, K3's five steps, `wgrad`, each `_bf16io`); `PEROP_BF16IO`
+those of the per-op branch's forwards under `--dtype bfloat16` (K7, K8, K5,
+K6, K9, K10, each `_bf16io`).
 """
 
 from lft_torch.kernels._build import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, PEROP,
-                                      SWEEPS, TAIL, TRAINING, build_all, reset_launches)
+                                      PEROP_BF16IO, SWEEPS, TAIL, TRAINING, build_all,
+                                      reset_launches)
 
-__all__ = ["BF16IO", "BF16TRAIN", "FORWARD", "LAUNCHES", "MIXED", "PEROP", "SWEEPS", "TAIL",
-           "TRAINING", "build_all", "reset_launches"]
+__all__ = ["BF16IO", "BF16TRAIN", "FORWARD", "LAUNCHES", "MIXED", "PEROP", "PEROP_BF16IO",
+           "SWEEPS", "TAIL", "TRAINING", "build_all", "reset_launches"]

@@ -81,9 +81,17 @@ BF16TRAIN = tuple(k + "_bf16io" for k in (
     "spa_ffn_out_bwd", "spa_ln_qkv", "spa_window_attn_bwd", "spa_qkv_ln_bwd",
     "spa_tokenize_bwd", "wgrad"))
 
+# The bf16-IO instances of the per-op branch's forwards that `--dtype
+# bfloat16` serving launches on bf16 tensors: K7, K8, K5, K6, K9, K10, each
+# with lft_tpu's rounding points for its family (deferred: K7, K5; normalized:
+# K6; f32 inside: K8, K9, K10).
+PEROP_BF16IO = tuple(k + "_bf16io" for k in (
+    "ang_attn", "ang_attn_sweep", "spa_attn_hp", "spa_attn_mxu", "spa_attn_offset",
+    "spa_attn_tile"))
+
 # kernel name -> launches since the last reset
-LAUNCHES = {name: 0 for name in
-            FORWARD + TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO + BF16TRAIN}
+LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO
+            + BF16TRAIN + PEROP_BF16IO}
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -17,6 +17,14 @@ projections as `torch.matmul`, as the JAX package leaves them to XLA. The
 JAX module's name is kept; what made it "MXU" (keys replicated per head,
 the block-diagonal mask over a group of pixels, pixel pairs) is the TPU's
 and is not carried over. Its gate is: `mxu_applicable(A2)` iff A2 <= 128.
+
+bf16 q, k, v (`--dtype bfloat16` serving): lft_tpu's kernel with io = bf16
+(:106-142) defers its normalisation: scores (q . k) scale in f32, m each
+token's max over EVERY head (its row-wide max), e = exp(s - m) rounded to
+bf16 for the product with v, l the sum of the unrounded e, out = bf16(o (1
+/ l)). On the card `ang_attn_bf16io` (`csrc/ang_attn.cu`), on the CPU
+`ang_attention_blockdiag_bf16_plain`; forward only (the `_res` form and the
+backward in bf16 are ROADMAP item 9e and raise).
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import torch
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _heads, _merge, _needs_grad
-from lft_torch.kernels.common import KERNEL_C
+from lft_torch.kernels.common import KERNEL_C, bf16_round, io_kernel, mm, on_card
 
 BLK = 128          # the gate's key block: A2 <= 128 view tokens per pixel
 
@@ -97,6 +105,18 @@ def ang_attention_blockdiag_plain(q, k, v, num_heads: int):
     return out.contiguous(), m.transpose(1, 2).contiguous(), l.transpose(1, 2).contiguous()
 
 
+def ang_attention_blockdiag_bf16_plain(q, k, v, num_heads: int):
+    """Plain version of K7's forward on bf16 q, k, v [N, A2, C] -> bf16
+    (module docstring): f32 arithmetic over the bf16 values, rounded at
+    lft_tpu's points."""
+    H = num_heads
+    qf, kf, vf = (_heads(t.float(), H) for t in (q, k, v))
+    s = (qf @ kf.transpose(-1, -2)) * float(q.shape[-1] // H) ** -0.5   # [N, H, A2, A2]
+    e = torch.exp(s - s.amax(-1, keepdim=True).amax(1, keepdim=True))
+    out = (bf16_round(e) @ vf) * (1.0 / e.sum(-1, keepdim=True))
+    return _merge(out).bfloat16().contiguous()
+
+
 def ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, num_heads: int):
     """Plain version of K7's backward: (dq, dk, dv) from (q, k, v, m, l,
     dout), the identities written out (ds = p (dp - sum_j p dp))."""
@@ -127,18 +147,28 @@ def ang_attn_fwd(q, k, v, num_heads: int, with_stats: bool = False, kernel: str 
     `ang_attn_res` with stats), the plain version for CPU tensors.
     with_stats: (out, m, l), else out. `kernel`: the name the launch is
     counted under (K8 launches this kernel as `ang_attn_sweep` at A2 <= 128),
-    `_res` appended with stats."""
-    if q.device.type != "cuda":
+    `_res` appended with stats. bf16 tensors: `ang_attn_bf16io` (the
+    deferred softmax, module docstring; `ang_attn_sweep_bf16io` launches the
+    f32 kernel's bf16-IO instance: f32 inside, the output rounded once)."""
+    name = io_kernel(kernel + "_res" if with_stats else kernel, q)
+    if not on_card(q):
+        if q.dtype == torch.bfloat16:
+            return ang_attention_blockdiag_bf16_plain(q, k, v, num_heads)
         out, m, l = ang_attention_blockdiag_plain(q, k, v, num_heads)
         return (out, m, l) if with_stats else out
-    name = kernel + "_res" if with_stats else kernel
     _check_shape(name, q, num_heads)
-    _build.check_cuda_args(name, q, k, v)
     N, A2, C = q.shape
     out = torch.empty_like(q)
     tail = (N, A2, C, num_heads, float(C // num_heads) ** -0.5)
     types = (ctypes.c_int,) * 4 + (ctypes.c_float,)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if q.dtype == torch.bfloat16:
+        _build.check_cuda_args(name, q, k, v, dtype=torch.bfloat16)
+        entry = "lft_ang_attn_bf16io" if kernel == "ang_attn" else "lft_ang_attn_f32in_bf16io"
+        _build.launch("ang_attn", name, _build.bind("ang_attn", entry, 4, types), q.device,
+                      *ptrs, *tail)
+        return out
+    _build.check_cuda_args(name, q, k, v)
     if not with_stats:
         fn = _build.bind("ang_attn", "lft_ang_attn", 4, types)
         _build.launch("ang_attn", name, fn, q.device, *ptrs, *tail)
@@ -152,7 +182,9 @@ def ang_attn_fwd(q, k, v, num_heads: int, with_stats: bool = False, kernel: str 
 
 def ang_attn_bwd(q, k, v, m, l, dout, num_heads: int, kernel: str = "ang_attn_bwd"):
     """K7's backward (`ang_attn_bwd`): (dq, dk, dv) [N, A2, C]. `kernel`: the
-    name the launch is counted under."""
+    name the launch is counted under. Its bf16 form is ROADMAP item 9e: a
+    bf16 tensor raises."""
+    io_kernel(kernel, q)
     if q.device.type != "cuda":
         return ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, num_heads)
     _check_shape(kernel, q, num_heads)
@@ -197,6 +229,7 @@ def ang_attention_mxu(qn, v, in_proj_weight, out_proj_weight, num_heads: int):
     Requires `mxu_applicable(A2)`."""
     *lead, A2, C = qn.shape
     wq, wk, wv = in_proj_weight.chunk(3, dim=0)
-    out = ang_attention_blockdiag((qn @ wq.T).reshape(-1, A2, C), (qn @ wk.T).reshape(-1, A2, C),
-                                  (v @ wv.T).reshape(-1, A2, C), num_heads)
-    return out.reshape(*lead, A2, C) @ out_proj_weight.T
+    out = ang_attention_blockdiag(mm(qn, wq.T).reshape(-1, A2, C),
+                                  mm(qn, wk.T).reshape(-1, A2, C),
+                                  mm(v, wv.T).reshape(-1, A2, C), num_heads)
+    return mm(out.reshape(*lead, A2, C), out_proj_weight.T)

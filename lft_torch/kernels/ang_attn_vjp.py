@@ -22,6 +22,14 @@ probabilities from (m, l).
 out projections as `torch.matmul`, as the JAX package leaves them to XLA. The
 JAX wrapper's pixel-pair packing (16 heads on 2C lanes) fills the TPU's lanes
 and is not carried over; it computes the same function.
+
+bf16 q, k, v (`--dtype bfloat16` serving): lft_tpu's kernel (:22-50) widens
+q, k and v to f32, scales q, runs its online softmax in f32 and rounds the
+output once. On the card `ang_attn_sweep_bf16io`: at A2 <= 128 K7's f32
+kernel's bf16-IO instance, past 128 the streamed-key kernel's
+(`lft_ang_attn_sweep_bf16io`), both f32 inside; on the CPU the plain
+version on the widened values, rounded once. Forward only (the `_res` form
+and the backward in bf16 are ROADMAP item 9e and raise).
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 from lft_torch.kernels import _build
 from lft_torch.kernels import ang_attn_mxu as am
 from lft_torch.kernels.ang_block import _heads, _merge, _needs_grad
-from lft_torch.kernels.common import KERNEL_C
+from lft_torch.kernels.common import KERNEL_C, io_kernel, mm, on_card
 
 M_INIT = -1e30     # the sweep's first running max, as in the JAX kernel
 
@@ -190,22 +198,27 @@ def ang_attn_sweep_fwd(q, k, v, num_heads: int, with_stats: bool = False):
     """K8's forward: for CUDA tensors `ang_attn_sweep` (or
     `ang_attn_sweep_res` with stats), K7's kernel at A2 <= 128 and the
     streamed-key kernel past it; the plain version for CPU tensors.
-    with_stats: (out, m, l), else out."""
-    if q.device.type != "cuda":
+    with_stats: (out, m, l), else out. bf16 tensors: `ang_attn_sweep_bf16io`
+    (module docstring)."""
+    name = io_kernel("ang_attn_sweep_res" if with_stats else "ang_attn_sweep", q)
+    if not on_card(q):
+        if q.dtype == torch.bfloat16:
+            return ang_attention_sweep_plain(q.float(), k.float(), v.float(),
+                                             num_heads)[0].bfloat16()
         out, m, l = ang_attention_sweep_plain(q, k, v, num_heads)
         return (out, m, l) if with_stats else out
-    name = "ang_attn_sweep_res" if with_stats else "ang_attn_sweep"
     _check_shape(name, q, num_heads)
     if am.mxu_applicable(q.shape[1]):
         return am.ang_attn_fwd(q, k, v, num_heads, with_stats, kernel="ang_attn_sweep")
-    _build.check_cuda_args(name, q, k, v)
+    bio = q.dtype == torch.bfloat16
+    _build.check_cuda_args(name, q, k, v, dtype=q.dtype if bio else torch.float32)
     N, A2, C = q.shape
     out = torch.empty_like(q)
     tail = (N, A2, C, num_heads, float(C // num_heads) ** -0.5)
     types = (ctypes.c_int,) * 4 + (ctypes.c_float,)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
     if not with_stats:
-        fn = _build.bind("ang_attn_sweep", "lft_ang_attn_sweep", 4, types)
+        fn = _build.bind("ang_attn_sweep", "lft_" + name, 4, types)
         _build.launch("ang_attn_sweep", name, fn, q.device, *ptrs, *tail)
         return out
     m = torch.empty(N, A2, num_heads, device=q.device)
@@ -234,7 +247,8 @@ def ang_attn_sweep_bwd(q, k, v, out, m, l, dout, num_heads: int):
     """K8's backward (`ang_attn_sweep_bwd`): (dq, dk, dv) [N, A2, C]; for
     CUDA tensors K7's backward kernel at A2 <= K7_BWD_MAX (from m, l; out
     unread), the streamed-key kernel beyond; the plain version for CPU
-    tensors."""
+    tensors. Its bf16 form is ROADMAP item 9e: a bf16 tensor raises."""
+    io_kernel("ang_attn_sweep_bwd", q)
     if q.device.type != "cuda":
         return ang_attention_sweep_bwd_plain(q, k, v, out, m, l, dout, num_heads)
     _check_shape("ang_attn_sweep_bwd", q, num_heads)
@@ -273,6 +287,6 @@ def ang_attention_pallas_ad(qn, v, in_proj_weight, out_proj_weight, num_heads: i
     from the raw ones; torch-packed projections) on [..., A2, C] tokens."""
     *lead, A2, C = qn.shape
     wq, wk, wv = in_proj_weight.chunk(3, dim=0)
-    out = ang_attention((qn @ wq.T).reshape(-1, A2, C), (qn @ wk.T).reshape(-1, A2, C),
-                        (v @ wv.T).reshape(-1, A2, C), num_heads)
-    return out.reshape(*lead, A2, C) @ out_proj_weight.T
+    out = ang_attention(mm(qn, wq.T).reshape(-1, A2, C), mm(qn, wk.T).reshape(-1, A2, C),
+                        mm(v, wv.T).reshape(-1, A2, C), num_heads)
+    return mm(out.reshape(*lead, A2, C), out_proj_weight.T)

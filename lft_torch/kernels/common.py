@@ -19,11 +19,13 @@ and `--dtype bfloat16`'s routing of bf16 tensors (`io_kernel`).
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 
 import torch
 
-from lft_torch.kernels._build import BF16TRAIN, FORWARD
+from lft_torch.kernels._build import BF16TRAIN, FORWARD, PEROP_BF16IO
 
 KERNEL_C = (16, 32, 64)
 
@@ -150,11 +152,13 @@ def card_plan(plan, bwd_plan) -> None:
 # is `mm_site_plan(False, bf16, ...)`, every product site over bf16 operands
 # (the IO dtype), and every intermediate the kernel hands on rounded to bf16
 # where it is stored or added (the rounding points the plain versions list).
-# On the card the SR forward's kernels (`_build.FORWARD`) and those of the
-# fused train step (`_build.BF16TRAIN`: K1 res, K2.3 res, K4, K3's five
-# steps, `wgrad`) have `_bf16io` instances; a bf16 tensor that reaches a
-# kernel whose bf16 form is not ported yet (the per-op branch and K11,
-# ROADMAP.md §1 item 9d) raises, naming it. Nothing falls back to f32.
+# Its unfused branch runs the per-op kernels on bf16 tensors too. On the card
+# the SR forward's kernels (`_build.FORWARD`), those of the fused train step
+# (`_build.BF16TRAIN`: K1 res, K2.3 res, K4, K3's five steps, `wgrad`) and
+# the per-op branch's forwards (`_build.PEROP_BF16IO`: K5-K10) have `_bf16io`
+# instances; a bf16 tensor that reaches a kernel whose bf16 form is not
+# ported yet (the per-op `_res` and backward launches, K11: ROADMAP.md §1
+# item 9e) raises, naming it. Nothing falls back to f32.
 
 
 def io_kernel(kernel: str, t: torch.Tensor) -> str:
@@ -164,8 +168,43 @@ def io_kernel(kernel: str, t: torch.Tensor) -> str:
     kernel and its ROADMAP item."""
     if t.dtype != torch.bfloat16:
         return kernel
-    if kernel in FORWARD or kernel + "_bf16io" in BF16TRAIN:
+    if kernel in FORWARD or kernel + "_bf16io" in BF16TRAIN + PEROP_BF16IO:
         return kernel + "_bf16io"
     raise NotImplementedError(
-        f"{kernel}: its bf16-IO form is not ported yet (--dtype bfloat16 there is queued as "
-        f"ROADMAP.md §1 item 9d); pass float32 tensors")
+        f"{kernel}: its bf16-IO form is not ported yet (queued as ROADMAP.md §1 item 9e); "
+        f"pass float32 tensors")
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the promoted dtype of the two, as jnp's `@` promotes a bf16
+    weight against an f32 activation (exactly: bf16 values widen to f32)."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
+
+
+# The per-op forwards' plain versions on the card, where the caller asks for
+# them: `models.lft.forward(..., plain_blocks=True)` under `--dtype bfloat16`
+# on the unfused branch, the reference that the card's per-op `_bf16io`
+# kernels are held against. Everywhere else a wrapper takes its plain version
+# for a CPU tensor only.
+_plain = threading.local()
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within it, the per-op attention forwards run their plain versions on
+    every device."""
+    old = getattr(_plain, "on", False)
+    _plain.on = True
+    try:
+        yield
+    finally:
+        _plain.on = old
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a per-op forward launches its kernel for `t`: a CUDA tensor,
+    outside `plain_versions()`."""
+    return t.device.type == "cuda" and not getattr(_plain, "on", False)

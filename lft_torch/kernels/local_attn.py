@@ -24,14 +24,23 @@ CPU tensor it runs the plain version. There is no fallback from one to the
 other. K10 is forward-only, as in the JAX package, whose kernel has no VJP
 and fails under `jax.grad`: when grad is needed the wrapper raises on any
 device and names the variants that train.
+
+bf16 q, k, v (`--dtype bfloat16` serving): lft_tpu's kernel (:44-80)
+widens q, k and v to f32, scales q, takes the softmax in f32 and rounds the
+output once. On the card `spa_attn_tile_bf16io` (K5's wrapper,
+`spa_window_attn_kernel`'s bf16-IO instance, f32 inside: K9's bf16-IO
+kernel), on the CPU the plain version on the widened values, rounded once.
 """
 
 from __future__ import annotations
 
 import os
 
+import torch
+
 from lft_torch.kernels import local_attn_vjp
 from lft_torch.kernels.ang_block import _needs_grad
+from lft_torch.kernels.common import io_kernel, mm, on_card
 from lft_torch.kernels.spa_attn import (local_attention_tile_mxu, pick_tile,
                                         windowed_attention_hybrid)
 from lft_torch.kernels.spa_attn_hp import spa_attn_hp_fwd
@@ -55,7 +64,8 @@ def windowed_attention_tile_plain(q, k, v, num_heads: int, ksize: int = 5, t: in
 def windowed_attention_tile(q, k, v, num_heads: int, ksize: int = 5, t: int = TILE):
     """K10 (`spa_attn_tile`) on projected [B, h, w, E] q/k/v, h and w
     multiples of t: K5's forward kernel for CUDA tensors, the plain version
-    for CPU tensors. Inference only."""
+    for CPU tensors. Inference only. bf16 tensors: `spa_attn_tile_bf16io`
+    (module docstring)."""
     if _needs_grad(q, k, v):
         raise ValueError(
             "the tile-halo window attention K10 (variant 'tile', and 'offset' on views of more "
@@ -65,7 +75,11 @@ def windowed_attention_tile(q, k, v, num_heads: int, ksize: int = 5, t: int = TI
     B, h, w, E = q.shape
     if h % t or w % t:
         raise ValueError(f"spa_attn_tile: {t}x{t} tiles do not divide ({h}, {w}) views")
-    if q.device.type != "cuda":
+    io_kernel("spa_attn_tile", q)
+    if not on_card(q):
+        if q.dtype == torch.bfloat16:
+            return windowed_attention_tile_plain(q.float(), k.float(), v.float(), num_heads, ksize,
+                                                 t).bfloat16()
         return windowed_attention_tile_plain(q, k, v, num_heads, ksize, t)
     return spa_attn_hp_fwd(q.contiguous(), k.contiguous(), v.contiguous(), num_heads, ksize,
                            kernel="spa_attn_tile")
@@ -99,5 +113,5 @@ def local_attention_pallas(qn, v, in_proj_weight, out_proj_weight, num_heads: in
         return local_attn_vjp.local_attention_pallas_ad(qn, v, in_proj_weight, out_proj_weight,
                                                         num_heads, k)
     wq, wk, wv = in_proj_weight.chunk(3, dim=0)
-    out = windowed_attention_tile(qn @ wq.T, qn @ wk.T, v @ wv.T, num_heads, k, t)
-    return out @ out_proj_weight.T
+    out = windowed_attention_tile(mm(qn, wq.T), mm(qn, wk.T), mm(v, wv.T), num_heads, k, t)
+    return mm(out, out_proj_weight.T)

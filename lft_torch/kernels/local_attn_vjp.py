@@ -20,6 +20,13 @@ D = rowsum_head(dout * out) from it, as the JAX package does; on the card K5
 bwd's pass q computes D itself (`spa_attn_offset_bwd`). All of it is f32
 (the TPU backward streams k, v and dout as bf16 to fit its VMEM).
 
+bf16 q, k, v (`--dtype bfloat16` serving): lft_tpu's kernel (:48-116)
+widens q, k and v to f32, scales q, runs its online softmax in f32 and
+rounds the output once. On the card `spa_attn_offset_bf16io` (K5's wrapper,
+`spa_window_attn_kernel`'s bf16-IO instance, f32 inside), on the CPU the
+plain version on the widened values, rounded once; forward only (the `_res`
+form and the backward in bf16 are ROADMAP item 9e and raise).
+
 A channel count that the heads do not divide is refused with a ValueError:
 the JAX kernel leaves the last E - heads * (E // heads) channels to no head
 and returns NaN in them (0 / 0), and the model never makes such a shape.
@@ -31,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from lft_torch.kernels.ang_block import _needs_grad
+from lft_torch.kernels.common import io_kernel, mm, on_card
 from lft_torch.kernels.spa_attn_hp import (_window_offsets, _window_valid, spa_attn_hp_bwd,
                                            spa_attn_hp_fwd)
 
@@ -109,9 +117,14 @@ def _check_heads(kernel: str, q, num_heads: int) -> None:
 def spa_attn_offset_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
     """K9's forward: K5's forward kernel for CUDA tensors, counted as
     `spa_attn_offset` (or `spa_attn_offset_res` with stats), the plain
-    version for CPU tensors. with_stats: (out, m, l), else out."""
+    version for CPU tensors. with_stats: (out, m, l), else out. bf16
+    tensors: `spa_attn_offset_bf16io` (module docstring)."""
     _check_heads("spa_attn_offset_res" if with_stats else "spa_attn_offset", q, num_heads)
-    if q.device.type != "cuda":
+    io_kernel("spa_attn_offset_res" if with_stats else "spa_attn_offset", q)
+    if not on_card(q):
+        if q.dtype == torch.bfloat16:
+            return windowed_attention_offset_plain(q.float(), k.float(), v.float(), num_heads,
+                                                   ksize)[0].bfloat16()
         out, m, l = windowed_attention_offset_plain(q, k, v, num_heads, ksize)
         return (out, m, l) if with_stats else out
     return spa_attn_hp_fwd(q, k, v, num_heads, ksize, with_stats, kernel="spa_attn_offset")
@@ -120,8 +133,10 @@ def spa_attn_offset_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = 
 def spa_attn_offset_bwd(q, k, v, out, m, l, dout, num_heads: int, ksize: int):
     """K9's backward: (dq, dk, dv) [B, h, w, E]; K5's two backward passes
     for CUDA tensors, counted as `spa_attn_offset_bwd`, which compute D
-    themselves and do not read `out` (None will do there)."""
+    themselves and do not read `out` (None will do there). Its bf16 form is
+    ROADMAP item 9e: a bf16 tensor raises."""
     _check_heads("spa_attn_offset_bwd", q, num_heads)
+    io_kernel("spa_attn_offset_bwd", q)
     if q.device.type != "cuda":
         return windowed_attention_offset_bwd_plain(q, k, v, out, m, l, dout, num_heads, ksize)
     return spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads, ksize, kernel="spa_attn_offset_bwd")
@@ -160,5 +175,5 @@ def local_attention_pallas_ad(qn, v, in_proj_weight, out_proj_weight, num_heads:
     torch-packed projections): the projections as `torch.matmul`, K9 for the
     window attention itself."""
     wq, wk, wv = in_proj_weight.chunk(3, dim=0)
-    out = windowed_attention(qn @ wq.T, qn @ wk.T, v @ wv.T, num_heads, k)
-    return out @ out_proj_weight.T
+    out = windowed_attention(mm(qn, wq.T), mm(qn, wk.T), mm(v, wv.T), num_heads, k)
+    return mm(out, out_proj_weight.T)

@@ -24,6 +24,14 @@ and denominator l (`spa_attn_mxu_res`) and saves only (q, k, v, m, l), as the
 JAX package does; the backward (`spa_attn_mxu_bwd`) rebuilds the
 probabilities from them and takes D from a * (dout v^T).
 
+bf16 q, k, v (`--dtype bfloat16` serving): lft_tpu's kernel with io = bf16
+(:72-116) normalizes per head: f32 scores (q . k) scale over the bf16
+values, m the head's own max, p = bf16(e / l) before the product with v,
+the f32 sum rounded once. On the card `spa_attn_mxu_bf16io` (K5's wrapper,
+`spa_window_attn_kernel`'s normalized bf16-IO instance), on the CPU
+`windowed_attention_mxu_bf16_plain`; forward only (the `_res` form and the
+backward in bf16 are ROADMAP item 9e and raise).
+
 `windowed_attention_hybrid` picks a kernel per context as the JAX hybrid does
 off a TPU: the window kernel K5 for the primal and for the training pair
 wherever `headpacked_applicable`; else the offset sweep K9 for the primal
@@ -40,6 +48,7 @@ import torch.nn.functional as F
 
 from lft_torch.kernels import local_attn_vjp
 from lft_torch.kernels.ang_block import _needs_grad
+from lft_torch.kernels.common import bf16_round, io_kernel, mm, on_card
 from lft_torch.kernels.spa_attn_hp import (_check_shape, headpacked_applicable, spa_attn_hp_bwd,
                                            spa_attn_hp_fwd, windowed_attention_headpacked)
 
@@ -154,6 +163,26 @@ def windowed_attention_mxu_plain(q, k, v, num_heads: int, ksize: int):
     return torch.cat(outs).contiguous(), torch.cat(ms).contiguous(), torch.cat(ls).contiguous()
 
 
+def windowed_attention_mxu_bf16_plain(q, k, v, num_heads: int, ksize: int):
+    """Plain version of K6's forward on bf16 q, k, v -> bf16 (module
+    docstring): per tile and head the dense masked scores in f32, the
+    head's softmax, p rounded to bf16, p @ v rounded once."""
+    (th, tw), r = _tile_geometry(q, num_heads, ksize)
+    B, h, w, E = q.shape
+    H, scale = num_heads, float(E // num_heads) ** -0.5
+    valid = torch.from_numpy(_tile_mask(th, tw, r, h, w)).to(q.device)[:, None]
+    mask = torch.zeros(valid.shape, device=q.device).masked_fill(~valid, MASKED)
+    outs = []
+    step = _view_chunks(B, valid.numel() * H)
+    for b0 in range(0, B, step):
+        qf, kf, vf = (t[b0:b0 + step].float() for t in (q, k, v))
+        s = (_to_tiles(qf, th, tw, H) @ _to_halos(kf, th, tw, r, H).transpose(-1, -2)) * scale
+        e = torch.exp(s + mask - (s + mask).amax(-1, keepdim=True))
+        p = bf16_round(e / e.sum(-1, keepdim=True))
+        outs.append(_from_tiles(p @ _to_halos(vf, th, tw, r, H), h, w, th, tw))
+    return torch.cat(outs).bfloat16().contiguous()
+
+
 def windowed_attention_mxu_bwd_plain(q, k, v, m, l, dout, num_heads: int, ksize: int):
     """Plain version of K6's backward: (dq, dk, dv) from (q, k, v, m, l,
     dout), the dense identities written out per tile (D = rowsum(a * dout
@@ -184,18 +213,24 @@ def windowed_attention_mxu_bwd_plain(q, k, v, m, l, dout, num_heads: int, ksize:
 def spa_attn_mxu_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
     """K6's forward: K5's forward kernel for CUDA tensors, counted as
     `spa_attn_mxu` (or `spa_attn_mxu_res` with stats), the plain version for
-    CPU tensors. with_stats: (out, m, l), else out."""
-    if q.device.type != "cuda":
+    CPU tensors. with_stats: (out, m, l), else out. bf16 tensors:
+    `spa_attn_mxu_bf16io` (module docstring)."""
+    name = io_kernel("spa_attn_mxu_res" if with_stats else "spa_attn_mxu", q)
+    if not on_card(q):
+        if q.dtype == torch.bfloat16:
+            return windowed_attention_mxu_bf16_plain(q, k, v, num_heads, ksize)
         out, m, l = windowed_attention_mxu_plain(q, k, v, num_heads, ksize)
         return (out, m, l) if with_stats else out
-    _check_shape("spa_attn_mxu_res" if with_stats else "spa_attn_mxu", q, num_heads, ksize)
+    _check_shape(name, q, num_heads, ksize)
     _tile_geometry(q, num_heads, ksize)
     return spa_attn_hp_fwd(q, k, v, num_heads, ksize, with_stats, kernel="spa_attn_mxu")
 
 
 def spa_attn_mxu_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int):
     """K6's backward: (dq, dk, dv) [B, h, w, E]; K5's two backward passes
-    for CUDA tensors, counted as `spa_attn_mxu_bwd`."""
+    for CUDA tensors, counted as `spa_attn_mxu_bwd`. Its bf16 form is
+    ROADMAP item 9e: a bf16 tensor raises."""
+    io_kernel("spa_attn_mxu_bwd", q)
     if q.device.type != "cuda":
         return windowed_attention_mxu_bwd_plain(q, k, v, m, l, dout, num_heads, ksize)
     _check_shape("spa_attn_mxu_bwd", q, num_heads, ksize)
@@ -247,5 +282,5 @@ def local_attention_tile_mxu(qn, v, in_proj_weight, out_proj_weight, num_heads: 
     torch-packed projections): the projections as `torch.matmul`,
     `attention` for the window attention itself."""
     wq, wk, wv = in_proj_weight.chunk(3, dim=0)
-    out = attention(qn @ wq.T, qn @ wk.T, v @ wv.T, num_heads, k)
-    return out @ out_proj_weight.T
+    out = attention(mm(qn, wq.T), mm(qn, wk.T), mm(v, wv.T), num_heads, k)
+    return mm(out, out_proj_weight.T)

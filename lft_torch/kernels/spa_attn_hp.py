@@ -22,6 +22,22 @@ Training: when grad mode is on and q, k or v requires grad it runs as
 m and denominator l (`spa_attn_hp_res`) and saves only (q, k, v, m, l); the
 backward (`spa_attn_hp_bwd`) rebuilds the probabilities from them.
 
+bf16 q, k, v (`--dtype bfloat16` serving): lft_tpu's kernel with io = bf16
+(:222-280) defers its normalisation: f32 scores (q . k) scale, m each
+query's max over EVERY head and its window's keys, in-window keys outside the
+image scoring exactly 0 (its zero-padded halo: the npad correction
+:251-262), e = exp(s - m) rounded to bf16 for the product with v, l the sum
+of the unrounded e, out = bf16(o (1 / l)). That is the fused SpaTrans
+block's bf16 window step, K2.3 bf16io: on the card `spa_attn_hp_bf16io`
+launches its kernel (`window_attn.cuh:spa_window_attn_bf16io_kernel`), on
+the CPU the plain version is its plain version (`spa_block.
+window_attn_plain`). The same wrapper launches the bf16-IO instances of K6
+(`spa_attn_mxu_bf16io`: lft_tpu's per-head softmax, p = bf16(e / l) before
+the product) and of K9 and K10 (`spa_attn_offset_bf16io`,
+`spa_attn_tile_bf16io`: f32 inside, the output rounded once) on
+`spa_window_attn_kernel`'s IO-typed instances. Forward only: the `_res`
+forms and the backwards in bf16 are ROADMAP item 9e and raise.
+
 `headpacked_applicable` decides the dispatch exactly as the JAX package's
 does (its tile search is the TPU's; the port keeps its outcome, so both
 packages send a geometry to the same kernel). The CUDA kernels themselves
@@ -39,7 +55,7 @@ import torch.nn.functional as F
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad
-from lft_torch.kernels.common import io_kernel
+from lft_torch.kernels.common import io_kernel, on_card
 
 # The JAX gate's geometry limits (lft_tpu/kernels/spa_attn_hp.py:65-67):
 # the port keeps their outcome, not their TPU meaning.
@@ -176,27 +192,46 @@ def _check_shape(kernel: str, q, num_heads: int, ksize: int) -> None:
             f"5x5 window; got shape {tuple(q.shape)}, heads={num_heads}, k={ksize}")
 
 
+# The bf16-IO entry of each family that launches K5's forward wrapper.
+_BF16IO_ENTRY = {"spa_attn_hp": "lft_spa_attn_hp_bf16io",         # deferred (K2.3 bf16io)
+                 "spa_attn_mxu": "lft_spa_attn_norm_bf16io",       # normalized
+                 "spa_attn_offset": "lft_spa_attn_f32in_bf16io",   # f32 inside
+                 "spa_attn_tile": "lft_spa_attn_f32in_bf16io"}
+
+
+def windowed_attention_headpacked_bf16_plain(q, k, v, num_heads: int, ksize: int):
+    """Plain version of K5's forward on bf16 q, k, v -> bf16 (module
+    docstring): K2.3's bf16 window step."""
+    from lft_torch.kernels.spa_block import window_attn_plain
+    return window_attn_plain(q, k, v, num_heads, ksize)[0]
+
+
 def spa_attn_hp_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = False,
                     kernel: str = "spa_attn_hp"):
     """K5's forward: the CUDA kernel for CUDA tensors (`spa_attn_hp`, or
     `spa_attn_hp_res` with stats), the plain version for CPU tensors.
     with_stats: (out, m, l), else out. `kernel`: the name the launch is
     counted under, `_res` appended with stats (K6's forward launches it as
-    `spa_attn_mxu`)."""
-    if q.device.type != "cuda":
+    `spa_attn_mxu`). bf16 tensors: the family's bf16-IO instance,
+    `kernel + "_bf16io"` (module docstring)."""
+    name = io_kernel(kernel + "_res" if with_stats else kernel, q)
+    bio = q.dtype == torch.bfloat16
+    if not on_card(q):
+        if bio:
+            return windowed_attention_headpacked_bf16_plain(q, k, v, num_heads, ksize)
         out, m, l = windowed_attention_headpacked_plain(q, k, v, num_heads, ksize)
         return (out, m, l) if with_stats else out
-    name = kernel + "_res" if with_stats else kernel
     _check_shape(name, q, num_heads, ksize)
-    _build.check_cuda_args(name, q, k, v)
+    _build.check_cuda_args(name, q, k, v, dtype=q.dtype if bio else torch.float32)
     B, h, w, E = q.shape
     out = torch.empty_like(q)
     tail = (B, h, w, E, num_heads, float(E // num_heads) ** -0.5)
     types = (ctypes.c_int,) * 5 + (ctypes.c_float,)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
     if not with_stats:
-        fn = _build.bind("spa_attn_hp", "lft_spa_attn_hp", 4, types)
-        _build.launch("spa_attn_hp", name, fn, q.device, *ptrs, *tail)
+        entry = _BF16IO_ENTRY[kernel] if bio else "lft_spa_attn_hp"
+        _build.launch("spa_attn_hp", name, _build.bind("spa_attn_hp", entry, 4, types), q.device,
+                      *ptrs, *tail)
         return out
     m = torch.empty(B, h, w, num_heads, device=q.device)
     l = torch.empty_like(m)
@@ -220,7 +255,7 @@ def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int, with_dsum: 
     `spa_block.window_attn_bwd_plain`'s bf16 branch)."""
     bio = q.dtype == torch.bfloat16
     if bio and not kernel.endswith("_bf16io"):
-        io_kernel(kernel, q)   # K5's own bf16 form is ROADMAP item 9d: raises
+        io_kernel(kernel, q)   # K5's bf16 backward is ROADMAP item 9e: raises
     if (half or bio) and q.device.type != "cuda":
         raise ValueError(f"{kernel}: the bf16-operand instance runs on the card only")
     if q.device.type != "cuda":

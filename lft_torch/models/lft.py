@@ -50,22 +50,31 @@ as lft_tpu's does.
 `--dtype bfloat16` (lft_tpu/models/lft.py:272-306, :447: lft_tpu's all-bf16
 mode, -0.20 dB PSNR against f32 there): the parameters and the LR views are
 cast to bf16, the conv stack, LeakyReLU, the residuals and the upsampler run
-as torch ops in bf16, the blocks on bf16 tensors (the kernels' `_bf16io`
-instances on the card, their plain versions on the CPU or with
-`plain_blocks=True`), the bicubic skip in f32, and the output is the bf16
-mosaic in f32 plus the skip. It trains as it serves, as lft_tpu's fused
-branch trains it (lft_tpu/models/lft.py:332): each block through its
-autograd Function (K1 res / K2 res forward, K4 / K3 backward, all in bf16
-IO, each weight gradient rounded once to bf16), the rest under torch's
-autograd in bf16, the loss on the f32 SR; the casts' backward brings every
-gradient to the f32 parameters. Only the fused branch has a bf16 form: a
-geometry or width it does not take (on the card a C outside
-`kernels.common.KERNEL_C`) and `fused=False` raise NotImplementedError
-naming ROADMAP item 9d, where lft_tpu's unfused XLA branch computes.
+as torch ops in bf16, the blocks on bf16 tensors, the bicubic skip in f32,
+and the output is the bf16 mosaic in f32 plus the skip. The branch is chosen
+as for f32 (`resolve_bf16`): the fused blocks where their gates and (on the
+card) widths take the geometry, their `_bf16io` instances on the card and
+their plain versions on the CPU or with `plain_blocks=True`; elsewhere, and
+with `fused=False`, the unfused branch as lft_tpu's computes it in bf16
+(:358-372): LayerNorm op by op with every step rounded (`_layer_norm`), each
+product and add rounded once, the PE cast to the activations' dtype, and the
+attentions of `attention_impl`: the per-op kernels' `_bf16io` instances on
+the card (`kernels._build.PEROP_BF16IO`), their plain versions on the CPU or
+with `plain_blocks=True`, or the torch ops at lft_tpu's rounding points
+(ops/attention.py: the tiled op's f32 mask promotes what follows it to f32,
+as jnp promotes it). It trains as lft_tpu's fused branch trains it
+(lft_tpu/models/lft.py:332): each block through its autograd Function (K1
+res / K2 res forward, K4 / K3 backward, all in bf16 IO, each weight
+gradient rounded once to bf16), the rest under torch's autograd in bf16,
+the loss on the f32 SR; the casts' backward brings every gradient to the
+f32 parameters. A bf16 forward that would differentiate the unfused branch
+raises NotImplementedError naming ROADMAP item 9e (the per-op kernels'
+bf16 backwards), on every device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Dict
@@ -80,8 +89,8 @@ from lft_torch.kernels.ang_attn import ang_attention_pallas
 from lft_torch.kernels.ang_block import (_needs_grad, ang_block_applicable,
                                          ang_block_trainable, ang_trans_block_fused,
                                          ang_trans_block_plain)
-from lft_torch.kernels.common import (active, attention_route, card_plan, kernels_take,
-                                      mm_hp_sites, mm_site_plan)
+from lft_torch.kernels.common import (active, attention_route, card_plan, kernels_take, mm,
+                                      mm_hp_sites, mm_site_plan, plain_versions)
 from lft_torch.kernels.spa_block import (spa_block_applicable, spa_trans_block_fused,
                                          spa_trans_block_plain)
 from lft_torch.ops.attention import local_attention, multi_head_attention
@@ -178,7 +187,18 @@ def params_from_numpy(d: Dict[str, np.ndarray], device=None) -> Dict[str, torch.
 # ---------------------------------------------------------------------------
 
 def _layer_norm(x, w, b):
-    return F.layer_norm(x, (x.shape[-1],), w, b, LN_EPS)
+    """LayerNorm over the last axis, w and b in x's dtype. A bf16 x takes
+    lft_tpu's op-by-op form (lft_tpu/models/lft.py:143-147) with each step
+    rounded to bf16: the mean (summed in f32, rounded once), x - mu, its
+    square, their mean, + eps (eps itself bf16), rsqrt, the product, then
+    * weight and + bias."""
+    if x.dtype != torch.bfloat16:
+        return F.layer_norm(x, (x.shape[-1],), w.to(x.dtype), b.to(x.dtype), LN_EPS)
+    bf = torch.bfloat16
+    d = x - x.float().mean(-1, keepdim=True).to(bf)
+    var = (d * d).float().mean(-1, keepdim=True).to(bf)
+    eps = torch.tensor(LN_EPS, dtype=bf, device=x.device)
+    return d * torch.rsqrt((var + eps).float()).to(bf) * w + b
 
 
 def _leaky(x):
@@ -197,8 +217,8 @@ def _conv3d_133(x, w_torch):
 
 def _ffn(x, p, prefix):
     y = _layer_norm(x, p[prefix + "feed_forward.0.weight"], p[prefix + "feed_forward.0.bias"])
-    y = torch.relu(y @ p[prefix + "feed_forward.1.weight"].T)
-    return y @ p[prefix + "feed_forward.4.weight"].T
+    y = torch.relu(mm(y, p[prefix + "feed_forward.1.weight"].T))
+    return mm(y, p[prefix + "feed_forward.4.weight"].T)
 
 
 def _ang_trans(x, p, prefix, ang_pe, impl="auto"):
@@ -206,7 +226,7 @@ def _ang_trans(x, p, prefix, ang_pe, impl="auto"):
     (and 'auto' on a CUDA tensor of a width the kernels take) runs the
     attention as the per-op kernel (`kernels.common.attention_route`)."""
     t = x.permute(0, 2, 3, 1, 4)                                   # [B, h, w, A2, C]
-    tn = _layer_norm(t + ang_pe, p[prefix + "norm.weight"], p[prefix + "norm.bias"])
+    tn = _layer_norm(t + ang_pe.to(t.dtype), p[prefix + "norm.weight"], p[prefix + "norm.bias"])
     w_in, w_out = p[prefix + "attention.in_proj_weight"], p[prefix + "attention.out_proj.weight"]
     if attention_route(impl, x.device.type, x.shape[-1]) == "pallas":
         t = ang_attention_pallas(tn, t, w_in, w_out, NUM_HEADS) + t
@@ -218,17 +238,17 @@ def _ang_trans(x, p, prefix, ang_pe, impl="auto"):
 
 def _spa_trans(x, p, prefix, spa_pe, impl="auto"):
     """Unfused spatial transformer over [B, A2, h, w, C]; `impl` as in
-    `ops.attention.local_attention`."""
+    `ops.attention.local_attention`; the spatial PE in the tokens' dtype."""
     B, A2, h, w, C = x.shape
     img = x.reshape(B * A2, h, w, C)
     tok = unfold3x3_linear(img, p[prefix + "MLP.weight"])
-    pe_tok = unfold3x3_linear(spa_pe[None], p[prefix + "MLP.weight"])
+    pe_tok = unfold3x3_linear(spa_pe[None].to(img.dtype), p[prefix + "MLP.weight"])
     tok_n = _layer_norm(tok + pe_tok, p[prefix + "norm.weight"], p[prefix + "norm.bias"])
     tok = local_attention(tok_n, tok, p[prefix + "attention.in_proj_weight"],
                           p[prefix + "attention.out_proj.weight"], NUM_HEADS,
                           k=KERNEL_SEARCH, impl=impl) + tok
     tok = _ffn(tok, p, prefix) + tok
-    out = tok @ p[prefix + "linear.0.weight"][:, :, 0, 0, 0].T
+    out = mm(tok, p[prefix + "linear.0.weight"][:, :, 0, 0, 0].T)
     return out.reshape(B, A2, h, w, C)
 
 
@@ -252,17 +272,13 @@ def resolve_fused(fused: bool, h: int, w: int, C: int, A2: int, device_type: str
 
 def resolve_bf16(fused, h: int, w: int, C: int, A2: int, device_type: str,
                  plain_blocks: bool = False) -> bool:
-    """The branch of a `--dtype bfloat16` forward: the fused one (also where
-    `fused` is None, on every device), or NotImplementedError where it was
-    refused or its gates or the kernels' widths do not take the geometry:
-    the unfused branch has no bf16 form yet (ROADMAP.md §1 item 9d)."""
-    if fused is False or not resolve_fused(True, h, w, C, A2, device_type, False,
-                                           plain_blocks):
-        raise NotImplementedError(
-            f"--dtype bfloat16 runs the fused blocks only (views {h}x{w}, {A2} of them, "
-            f"C={C} on {device_type}, fused={fused}): the unfused branch's bf16 form is "
-            f"queued as ROADMAP.md §1 item 9d")
-    return True
+    """The branch of a `--dtype bfloat16` forward: the fused one where
+    `fused` is not False (None included, on every device) and
+    `resolve_fused` takes the geometry and width; else the unfused one, as
+    lft_tpu sends a geometry its fused gates refuse to its unfused branch
+    (lft_tpu/models/lft.py:325-329, :358-372)."""
+    return fused is not False and resolve_fused(True, h, w, C, A2, device_type, False,
+                                                plain_blocks)
 
 
 def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
@@ -274,11 +290,14 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
     CPU (the JAX tiled pipeline likewise fuses on its accelerator); the
     fused branch needs `resolve_fused`. `plain_blocks=True` runs the
     fused branch through the blocks' plain versions on any device: the
-    reference the card's kernels are held against. `attention_impl`
-    (default `args.attention_impl`) selects the unfused branch's attention:
-    auto | dense | tiled | pallas. `args.dtype` `mixed` takes lft_tpu's
-    site plans in the fused branch (module docstring), `bfloat16` bf16
-    inference and training through the fused branch only (`resolve_bf16`)."""
+    reference the card's kernels are held against (under `bfloat16` also
+    the unfused branch's per-op attentions, `kernels.common.plain_versions`).
+    `attention_impl` (default `args.attention_impl`) selects the unfused
+    branch's attention: auto | dense | tiled | pallas. `args.dtype` `mixed`
+    takes lft_tpu's site plans in the fused branch (module docstring),
+    `bfloat16` bf16 inference through either branch (`resolve_bf16`, fused
+    where the gates pass, `fused=None` included) and training through the
+    fused one."""
     dt = str(getattr(args, "dtype", "float32") or "float32")
     check_dtype(dt)
     bf16 = dt == "bfloat16"
@@ -310,7 +329,13 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
 
     if bf16:
         fused = resolve_bf16(fused, h, w, C, A * A, dev.type, plain_blocks)
-        spa_pe = spa_pe.to(torch.bfloat16)     # lft_tpu/models/lft.py:348
+        if not fused and _needs_grad(lr, *params.values()):
+            raise NotImplementedError(
+                f"--dtype bfloat16 trains the fused blocks only (views {h}x{w}, {A * A} of "
+                f"them, C={C} on {dev.type} take the unfused branch): its bf16 training, the "
+                f"per-op kernels' bf16 backwards, is queued as ROADMAP.md §1 item 9e")
+        if fused:
+            spa_pe = spa_pe.to(torch.bfloat16)     # lft_tpu/models/lft.py:348
     else:
         if fused is None:
             fused = dev.type == "cuda" or plain_blocks
@@ -337,9 +362,10 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
                          NUM_HEADS, KERNEL_SEARCH, **plans)
             buf = out.reshape(B, A * A, h, w, C)
     else:
-        for i in range(LAYER_NUM):
-            buf = _ang_trans(buf, p, f"altblock.{i}.ang_trans.", ang_pe, impl)
-            buf = _spa_trans(buf, p, f"altblock.{i}.spa_trans.", spa_pe, impl)
+        with plain_versions() if bf16 and plain_blocks else contextlib.nullcontext():
+            for i in range(LAYER_NUM):
+                buf = _ang_trans(buf, p, f"altblock.{i}.ang_trans.", ang_pe, impl)
+                buf = _spa_trans(buf, p, f"altblock.{i}.spa_trans.", spa_pe, impl)
     buf = buf + res                                                # model/LFT.py:76
 
     # upsampling head (reference model/LFT.py:39-44, 80): 1x1 conv -> pixel
@@ -382,8 +408,9 @@ def _fold_index(C: int, S: int):
 
 def _upsample_fold(m, w_up, w3, S: int):
     """The upsampler as lft_tpu's `fold` computes it (lft_tpu/models/lft.py:
-    391-433), for `--dtype bfloat16`: m [B, H, W, C] (the mosaic, bf16) ->
-    [B, 1, H S, W S]. U = leaky(m W_up^T) in LR layout; T = U Wfold, the 3x3
+    391-433), for `--dtype bfloat16`: m [B, H, W, C] (the mosaic: bf16, or
+    f32 where the unfused branch's tiled attention promoted it; the weights
+    take its dtype, as there) -> [B, 1, H S, W S]. U = leaky(m W_up^T) in LR layout; T = U Wfold, the 3x3
     conv's parts from each of the 9 neighbouring LR cells, each rounded to
     bf16; their sum over the cells, shifted, one bf16 addition at a time in
     lft_tpu's order; then the pixel shuffle. The same function as the NCHW
@@ -397,8 +424,8 @@ def _upsample_fold(m, w_up, w3, S: int):
     rows, cols = _fold_index(C, S)
     wfold = torch.zeros(C * S2, 9 * S2, dtype=m.dtype, device=m.device)
     wfold = wfold.index_put((rows.to(m.device), cols.to(m.device)),
-                            w3.reshape(1, -1).expand(S2, -1).reshape(-1))
-    u = _leaky(m @ w_up[:, :, 0, 0].t())                           # [B, H, W, S2 C]
+                            w3.to(m.dtype).reshape(1, -1).expand(S2, -1).reshape(-1))
+    u = _leaky(m @ w_up[:, :, 0, 0].t().to(m.dtype))               # [B, H, W, S2 C]
     tp = F.pad(u @ wfold, (0, 0, 1, 1, 1, 1))                      # [B, H+2, W+2, 9 S2]
     o = 0
     for s9 in range(9):

@@ -13,6 +13,18 @@ the per-op kernel dispatch of `kernels/local_attn.py`. Weights follow
 `nn.MultiheadAttention`: packed
 `in_proj_weight [3E, E]` (rows Wq; Wk; Wv) and `out_proj.weight [E, E]`,
 no biases.
+
+On bf16 tensors (`--dtype bfloat16`'s unfused branch) every op rounds where
+lft_tpu's XLA ops round on bf16 arrays (lft_tpu/ops/attention.py): the
+scale is itself bf16 (`jnp.asarray(dh, bf16) ** -0.5`: 0.353515625 at
+dh = 8), `q * scale` is rounded, each product sums in f32 and rounds once,
+and the softmax rounds its `x - max`, its exp, its sum (taken in f32) and
+its divide (`jax.nn.softmax`). Where a bf16 tensor meets an f32 one the
+result is f32, as jnp promotes: the tiled op adds its f32 halo mask to the
+bf16 scores (`local_attention_tiled`), so its softmax, output and
+out-projection are f32, where the dense op casts its mask to the scores'
+dtype (`multi_head_attention`) and stays bf16. Products of a promoted f32
+activation and a bf16 weight run in f32 (`kernels.common.mm`).
 """
 
 from __future__ import annotations
@@ -23,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lft_torch.kernels.common import attention_route
+from lft_torch.kernels.common import attention_route, mm
 
 NEG_INF = -1e30  # finite: no NaN from (-inf) - (-inf); every row has a key
 
@@ -40,27 +52,42 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(-3, -2).reshape(*lead, T, H * dh)
 
 
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis: torch's; on bf16 as `jax.nn.softmax`
+    computes it on a bf16 array: x - max, its exp, their sum (in f32,
+    rounded once) and the divide, each rounded to bf16."""
+    if x.dtype != torch.bfloat16:
+        return torch.softmax(x, dim=-1)
+    e = torch.exp((x - x.amax(-1, keepdim=True)).float()).bfloat16()
+    return (e.float() / e.float().sum(-1, keepdim=True).bfloat16().float()).bfloat16()
+
+
 def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     num_heads: int, mask=None) -> torch.Tensor:
     """Softmax attention over the -2 axis of PROJECTED [..., T, E] q/k/v,
     heads split from E; `mask` is additive, broadcastable to
-    [..., H, Tq, Tk]."""
+    [..., H, Tq, Tk] (an f32 mask promotes bf16 scores to f32). On bf16 q
+    the scale is bf16 and q * scale rounded (module docstring)."""
     dh = q.shape[-1] // num_heads
-    q = _split_heads(q, num_heads) * float(dh) ** -0.5
-    scores = q @ _split_heads(k, num_heads).transpose(-1, -2)
+    scale = float(dh) ** -0.5
+    if q.dtype == torch.bfloat16:
+        scale = torch.tensor(scale, dtype=torch.bfloat16, device=q.device)
+    scores = mm(_split_heads(q, num_heads) * scale, _split_heads(k, num_heads).transpose(-1, -2))
     if mask is not None:
         scores = scores + mask
-    attn = torch.softmax(scores, dim=-1)
-    return _merge_heads(attn @ _split_heads(v, num_heads))
+    return _merge_heads(mm(softmax(scores), _split_heads(v, num_heads)))
 
 
 def multi_head_attention(q_in, k_in, v_in, in_proj_weight, out_proj_weight,
                          num_heads: int, mask=None) -> torch.Tensor:
-    """torch-parity MHA over the -2 axis of [..., T, E] inputs."""
+    """torch-parity MHA over the -2 axis of [..., T, E] inputs; `mask` is
+    cast to the scores' dtype, as lft_tpu casts it."""
     wq, wk, wv = in_proj_weight.chunk(3, dim=0)
-    out = attention_heads(q_in @ wq.T, k_in @ wk.T, v_in @ wv.T, num_heads,
-                          mask)
-    return out @ out_proj_weight.T
+    q, k = mm(q_in, wq.T), mm(k_in, wk.T)
+    if mask is not None:
+        mask = mask.to(torch.promote_types(q.dtype, k.dtype))
+    out = attention_heads(q, k, mm(v_in, wv.T), num_heads, mask)
+    return mm(out, out_proj_weight.T)
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,7 +150,9 @@ def _extract_halo(x: torch.Tensor, t: int, r: int) -> torch.Tensor:
 def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        num_heads: int, ksize: int = 5, impl: str = "auto", t=None):
     """k x k-window attention of PROJECTED [B, h, w, E] q/k/v images; keys
-    outside the image are excluded. impl: 'auto' | 'tiled' | 'dense'; `t`
+    outside the image are excluded. impl: 'auto' | 'tiled' | 'dense' (the
+    tiled op's mask is f32, the dense op's the scores' dtype, as in
+    lft_tpu: on bf16 the tiled op returns f32); `t`
     fixes the tiled op's query tile edge, which must divide h and w (default:
     the first of 8, 16, 4, 32 that does)."""
     B, h, w, E = q.shape
@@ -141,7 +170,7 @@ def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               num_heads, mask[:, :, None])
         out = out.reshape(B, nth, ntw, t, t, E).transpose(2, 3)
         return out.reshape(B, h, w, E)
-    mask = torch.from_numpy(local_window_mask(h, w, ksize)).to(q.device)
+    mask = torch.from_numpy(local_window_mask(h, w, ksize)).to(q.device, q.dtype)
     out = attention_heads(q.reshape(B, h * w, E), k.reshape(B, h * w, E),
                           v.reshape(B, h * w, E), num_heads, mask)
     return out.reshape(B, h, w, E)
@@ -166,5 +195,5 @@ def local_attention(qn: torch.Tensor, v: torch.Tensor, in_proj_weight,
         return local_attention_pallas(qn, v, in_proj_weight, out_proj_weight,
                                       num_heads=num_heads, k=k)
     wq, wk, wv = in_proj_weight.chunk(3, dim=0)
-    out = windowed_attention(qn @ wq.T, qn @ wk.T, v @ wv.T, num_heads, k, impl)
-    return out @ out_proj_weight.T
+    out = windowed_attention(mm(qn, wq.T), mm(qn, wk.T), mm(v, wv.T), num_heads, k, impl)
+    return mm(out, out_proj_weight.T)

@@ -18,8 +18,9 @@ on the card:
 `--plain` runs the blocks' plain PyTorch versions instead of the kernels.
 `--dtype mixed` runs lft_tpu's mixed plans (a forward at the default plan
 is the f32 one), `--dtype bfloat16` the bf16 model (the blocks' `_bf16io`
-kernels, fused only); `--matmul-precision high` turns TF32 on for the torch
-ops around the kernels.
+kernels; with `--unfused` the per-op forwards' `_bf16io` kernels);
+`--matmul-precision high` turns TF32 on for the torch ops around the
+kernels.
 `--unfused` runs the per-op branch (`fused=False`): the attentions as the
 kernels K7 and K5, or with `--plain` as the tiled torch ops. The environment
 variables `LFT_ANG_VARIANT=sweep` and `LFT_SPA_VARIANT=offset|mxu|tile` send
@@ -146,9 +147,11 @@ def kernel_times(fn, reps: int = 20, kernel: str = "", tries: int = 3) -> dict:
     """{kernel name: (device ms a call, launches a call)} of `fn()` in a
     profiler trace of `reps` back-to-back calls after two warm-ups; with
     `kernel`, only the kernels whose name holds it. CUPTI now and then
-    hands the profiler no kernel records for a whole trace: such a trace
-    is taken again, up to `tries` traces in all, and {} means none saw
-    device time."""
+    hands the profiler no kernel records for a whole trace, or only some of
+    them (late in a long process: a kernel counted fewer times than the
+    calls launch it, its time below its bound): such a trace is taken
+    again, up to `tries` traces in all, and {} means none saw every
+    launch."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     fn()
@@ -158,12 +161,15 @@ def kernel_times(fn, reps: int = 20, kernel: str = "", tries: int = 3) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        rows = {e.key: (e.device_time_total / 1e3 / reps, e.count / reps)
-                for e in prof.key_averages()
+        avgs = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key
-                and e.device_time_total > 0}
-        if rows:
-            return rows
+                and e.device_time_total > 0]
+        lost = [e.key for e in avgs if e.count % reps]
+        if avgs and not lost:
+            return {e.key: (e.device_time_total / 1e3 / reps, e.count / reps) for e in avgs}
+        if lost:
+            print(f"kernel_times: a trace of {reps} calls lost launches of {lost[0][:60]!r}; "
+                  f"traced again", flush=True)
     return {}
 
 
@@ -175,7 +181,7 @@ def device_ms(fn, reps: int = 20, kernel: str = "") -> float:
     microseconds a kernel would be in a CUDA-event time of one call. With
     `kernel`, only the kernels whose name holds it.
 
-    If no trace saw device time, the time is that of CUDA events around
+    If no trace saw every launch, the time is that of CUDA events around
     the `reps` calls (which holds the host's launch gaps too), and a line
     says so. A `kernel` filter has no such fallback and raises."""
     tries = 3
@@ -184,16 +190,26 @@ def device_ms(fn, reps: int = 20, kernel: str = "") -> float:
         return sum(ms for ms, _ in rows.values())
     if kernel:
         raise AssertionError(f"the profiler saw no device time of {kernel!r} in {tries} traces")
+    ms = events_ms(fn, reps, warmup=0)
+    print(f"device_ms: no trace of {tries} saw every launch; CUDA events over "
+          f"{reps} back-to-back calls instead: {ms:.4f} ms a call", flush=True)
+    return ms
+
+
+def events_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Milliseconds of one `fn()` by CUDA events around `reps` back-to-back
+    calls after `warmup` more: the card's time where each call keeps it
+    busy longer than its launch takes the host (the host's gaps hide behind
+    the queue), the host's otherwise."""
+    for _ in range(warmup):
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
-    ms = start.elapsed_time(end) / reps
-    print(f"device_ms: the profiler saw no device time in {tries} traces; CUDA events over "
-          f"{reps} back-to-back calls instead: {ms:.4f} ms a call", flush=True)
-    return ms
+    return start.elapsed_time(end) / reps
 
 
 if __name__ == "__main__":

@@ -24,7 +24,7 @@ on for the torch ops around the kernels. `--dtype bfloat16` trains the
 bf16 model (lft_tpu's all-bf16 mode): the fused blocks' `_bf16io` kernels,
 K1 res, K2 res, K4, K3 and `wgrad_bf16io` (with `--plain` their plain
 versions), the master weights and Adam state f32; it has no `--unfused`
-form (ROADMAP.md §1 item 9d).
+form (ROADMAP.md §1 item 9e).
 `--plain` trains through the blocks' plain PyTorch versions and backwards
 instead of the kernels; `--unfused` trains the per-op branch
 (`--train_fused false`): the attentions as the kernels K7 and K5 with their

@@ -25,7 +25,8 @@ is fused under it on every device): on the card the `_bf16io` kernels of K1
 res, K2 res, K4, K3 and `wgrad`, on the CPU their plain versions; the
 master weights, the Adam state and the checkpoints stay f32, so a resume is
 exact. `--train_fused false` and the data-parallel step raise under it
-(the unfused branch's bf16 form is ROADMAP.md §1 item 9d).
+(the unfused branch serves in bf16; its bf16 training is ROADMAP.md §1
+item 9e).
 """
 
 from __future__ import annotations

@@ -74,14 +74,15 @@ def make_train_step(model, optimizer, args, with_metrics: bool = True,
     `data` and `label` are this rank's shard, the gradients are averaged
     over the ranks before the update and the results are means over them.
     `--dtype bfloat16` trains the fused branch only: the DP step and
-    `--train_fused false` (the unfused branch) raise here, before any step,
-    naming ROADMAP item 9d, and nothing trains f32 in their place."""
+    `--train_fused false` (the unfused branch, whose bf16 forward serves but
+    whose per-op kernels have no bf16 backward yet) raise here, before any
+    step, naming ROADMAP item 9e, and nothing trains f32 in their place."""
     device = optimizer.params[0].device
     fused = mesh is None and train_fused(args, device)
     if str(getattr(args, "dtype", "float32")) == "bfloat16" and not fused:
         raise NotImplementedError(
             f"--dtype bfloat16 trains the fused blocks only ({'the data-parallel step' if mesh is not None else '--train_fused false'} "
-            f"trains the unfused branch, whose bf16 form is queued as ROADMAP.md §1 item 9d)")
+            f"trains the unfused branch, whose bf16 training is queued as ROADMAP.md §1 item 9e)")
     if device.type == "cuda":
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False

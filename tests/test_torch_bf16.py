@@ -207,30 +207,28 @@ def test_bf16_step_wrappers_chain_to_the_block():
 
 
 def test_bf16_raises_where_nothing_is_ported():
-    """Under bfloat16 the unfused branch (9d) raises: `fused=False`, a
-    geometry or (on the card) a width the fused blocks do not take, a train
-    step with `--train_fused false` and the data-parallel step (which train
-    it), and a bf16 tensor at a per-op or K11 kernel; a bf16 tensor at an f32
-    launcher raises TypeError. Bf16 training itself runs (9c)."""
+    """Under bfloat16 what has no bf16 form yet raises naming ROADMAP item
+    9e: the unfused branch under grad (its per-op kernels have no bf16
+    backward), a train step with `--train_fused false` and the data-parallel
+    step (which train it), and a bf16 tensor at a per-op `_res` or backward
+    launch or at K11; a bf16 tensor at an f32 launcher raises TypeError.
+    Bf16 serving through either branch (tests/test_torch_bf16perop.py) and
+    fused training (9c) run."""
     args = Args(channels=16, scale_factor=2, dtype="bfloat16")
     p = lft.init_params(0, args, device="cpu")
     x = torch.rand(1, 1, 40, 40, generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        lft.forward(p, x, args, fused=False)
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        lft.resolve_bf16(None, 8, 8, 48, 25, "cuda")
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        lft.resolve_bf16(None, 8, 8, 16, 144, "cpu")
-    assert lft.resolve_bf16(None, 8, 8, 48, 25, "cpu") and lft.resolve_bf16(None, 8, 8, 64, 25,
-                                                                           "cuda")
+    with torch.no_grad():
+        assert torch.isfinite(lft.forward(p, x, args, fused=False)).all()
     for t in p.values():
         t.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="item 9e"):
+        lft.forward(p, x, args, fused=False)
     model = lft.LFT_MODEL
     opt = optim.make_optimizer(p, args, 10)
-    with pytest.raises(NotImplementedError, match="--train_fused false.*item 9d"):
+    with pytest.raises(NotImplementedError, match="--train_fused false.*item 9e"):
         trainer.make_train_step(model, opt, Args(channels=16, scale_factor=2, dtype="bfloat16",
                                                  train_fused="false"))
-    with pytest.raises(NotImplementedError, match="data-parallel.*item 9d"):
+    with pytest.raises(NotImplementedError, match="data-parallel.*item 9e"):
         trainer.make_train_step(model, opt, args, mesh=object())
     assert trainer.train_fused(args, torch.device("cpu"))
     assert trainer.train_fused(args, torch.device("cuda"))
@@ -239,10 +237,14 @@ def test_bf16_raises_where_nothing_is_ported():
     assert common.io_kernel("spa_qkv", xb) == "spa_qkv_bf16io"
     assert common.io_kernel("ang_block_res", xb) == "ang_block_res_bf16io"
     assert common.io_kernel("spa_qkv", xb.float()) == "spa_qkv"
-    for kernel in ("spa_tokenize_ln_pm", "spa_ffn_out_pm", "spa_attn_hp", "spa_attn_hp_bwd",
-                   "ang_attn_res", "ang_attn_sweep_bwd", "spa_attn_offset", "spa_attn_mxu_res",
+    for kernel in ("ang_attn", "ang_attn_sweep", "spa_attn_hp", "spa_attn_mxu", "spa_attn_offset",
                    "spa_attn_tile"):
-        with pytest.raises(NotImplementedError, match=f"{kernel}:.*item 9d"):
+        assert common.io_kernel(kernel, xb) == kernel + "_bf16io"
+    for kernel in ("spa_tokenize_ln_pm", "spa_ffn_out_pm", "spa_attn_hp_res", "spa_attn_hp_bwd",
+                   "ang_attn_res", "ang_attn_bwd", "ang_attn_sweep_res", "ang_attn_sweep_bwd",
+                   "spa_attn_offset_res", "spa_attn_offset_bwd", "spa_attn_mxu_res",
+                   "spa_attn_mxu_bwd"):
+        with pytest.raises(NotImplementedError, match=f"{kernel}:.*item 9e"):
             common.io_kernel(kernel, xb)
     with pytest.raises(TypeError, match="spa_qkv: torch.float32 tensors only"):
         _build.check_cuda_args("spa_qkv", xb)

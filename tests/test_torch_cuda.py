@@ -1386,9 +1386,11 @@ def test_bf16_forward_kernels_match_plain_blocks(cuda_device):
 
 @pytest.mark.cuda
 def test_bf16_raises_where_no_kernel_is_ported(cuda_device):
-    """A bf16 tensor at a kernel without a bf16-IO form (the per-op branch,
-    K11) raises, naming its ROADMAP item; at an f32 launcher, TypeError; a
-    width the kernels do not take raises under bfloat16 (item 9d)."""
+    """A bf16 tensor at a kernel without a bf16-IO form (the per-op `_res`
+    forms and backwards, K11) raises, naming its ROADMAP item (9e); a
+    bf16-IO launcher given an f32 tensor raises TypeError; a width the
+    kernels do not take runs the plain torch ops under bfloat16, launching
+    nothing."""
     pb = {k: v.bfloat16() for k, v in _params(16, cuda_device).items()}
     wa = ang_block.ang_weights(pb, "altblock.0.ang_trans.")
     ws = spa_block.spa_weights(pb, "altblock.0.spa_trans.")
@@ -1396,19 +1398,26 @@ def test_bf16_raises_where_no_kernel_is_ported(cuda_device):
     pe = torch.from_numpy(angular_position(25, 16)).to(cuda_device)
     q_bf = torch.zeros(2, 8, 8, 32, device=cuda_device, dtype=torch.bfloat16)
     m_f = torch.ones(2, 8, 8, 8, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="spa_attn_hp_bwd.*item 9d"):
+    with pytest.raises(NotImplementedError, match="spa_attn_hp_bwd.*item 9e"):
         spa_attn_hp.spa_attn_hp_bwd(q_bf, q_bf, q_bf, m_f, m_f, q_bf, 8, 5)
+    with pytest.raises(NotImplementedError, match="spa_attn_hp_res.*item 9e"):
+        spa_attn_hp.spa_attn_hp_fwd(q_bf, q_bf, q_bf, 8, 5, with_stats=True)
+    with pytest.raises(NotImplementedError, match="ang_attn_res.*item 9e"):
+        ang_attn_mxu.ang_attn_fwd(x, x, x, 8, with_stats=True)
     xs = torch.zeros(1, 8, 8, 25, 16, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 9d"):
+    with pytest.raises(NotImplementedError, match="item 9e"):
         spa_block.tokenize_ln(xs, torch.zeros(8, 8, 32, device=cuda_device,
                                               dtype=torch.bfloat16), ws, pixel_major=True)
     q = torch.zeros(2, 8, 8, 32, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(TypeError):
-        spa_attn_hp.spa_attn_hp_fwd(q, q, q, 8, 5)
+    with pytest.raises(TypeError, match="spa_attn_hp_bf16io"):
+        spa_attn_hp.spa_attn_hp_fwd(q, q.float(), q, 8, 5)
     p48 = _params(48, cuda_device)
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        lft.forward(p48, torch.zeros(1, 1, 40, 40, device=cuda_device),
-                    Args(channels=48, scale_factor=2, dtype="bfloat16"))
+    reset_launches()
+    with torch.no_grad():
+        out = lft.forward(p48, torch.rand(1, 1, 40, 40, device=cuda_device),
+                          Args(channels=48, scale_factor=2, dtype="bfloat16"))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and not any(LAUNCHES.values())
 
 
 # ------------------------------------- `--dtype bfloat16` training kernels ---
@@ -1702,3 +1711,86 @@ def test_bf16_train_launchers_check_dtypes(cuda_device):
         wgrad.wgrad(t.reshape(-1, 32), t.reshape(-1, 32).half())
     torch.cuda.synchronize()
     assert sum(LAUNCHES.values()) == 0
+
+
+# --dtype bfloat16 through the unfused branch: the per-op forwards' bf16-IO
+# instances, each held to its plain bf16 version (run on the card inside
+# `kernels.common.plain_versions`) by L2 within 1/10 of the plain bf16-vs-f32
+# distance and 1 bf16 ulp of max |plain| (an f32 sum in another order rounds
+# to the neighbouring bf16 value now and then).
+PEROP_BF16 = {
+    "ang_attn_bf16io": lambda q, k, v: ang_attn_mxu.ang_attn_fwd(q, k, v, 8),
+    "ang_attn_sweep_bf16io": lambda q, k, v: ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, 8),
+    "spa_attn_hp_bf16io": lambda q, k, v: spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5),
+    "spa_attn_mxu_bf16io": lambda q, k, v: spa_attn.spa_attn_mxu_fwd(q, k, v, 8, 5),
+    "spa_attn_offset_bf16io": lambda q, k, v: local_attn_vjp.spa_attn_offset_fwd(q, k, v, 8, 5),
+    "spa_attn_tile_bf16io": lambda q, k, v: local_attn.windowed_attention_tile(q, k, v, 8, 5, 8),
+}
+
+
+def _bf16_close(got, plain, plain32):
+    l2 = lambda a, b: float((a.double() - b.double()).norm() / b.double().norm())
+    gap = l2(plain, plain32)
+    assert l2(got, plain) <= 0.1 * gap, (l2(got, plain), gap)
+    ulp = 2.0 ** (np.floor(np.log2(float(plain.float().abs().max()))) - 7)
+    assert float((got.float() - plain.float()).abs().max()) <= ulp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PEROP_BF16))
+@pytest.mark.parametrize("shape", [(37, 25, 16), (9, 81, 64), (5, 128, 32), (3, 144, 64),
+                                   (3, 16, 16, 32), (2, 24, 40, 128), (2, 30, 30, 64)])
+def test_perop_bf16io_kernels(cuda_device, name, shape):
+    """Each per-op bf16-IO forward on bf16 tensors against its plain bf16
+    version (bound above), one launch under its name, bitwise repeatable."""
+    from lft_torch.kernels.common import plain_versions
+    spatial = name.startswith("spa_")
+    if spatial != (len(shape) == 4) or (name == "ang_attn_bf16io" and shape[1] > 128) \
+            or (name in ("spa_attn_mxu_bf16io", "spa_attn_tile_bf16io") and shape[1] % 8):
+        pytest.skip("a shape this kernel's dispatch never gives it")
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    q, k, v = (torch.randn(*shape, device=cuda_device, generator=g) * s for s in (1.5, 1.5, 1))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    fn = PEROP_BF16[name]
+    reset_launches()
+    got = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {name: 1}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.equal(got, fn(q, k, v))
+    with plain_versions():
+        plain, plain32 = fn(q, k, v), fn(q.float(), k.float(), v.float())
+    _bf16_close(got, plain, plain32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ang_res,view,spa,ang,want", [
+    (5, 8, None, None, {"ang_attn_bf16io": 4, "spa_attn_hp_bf16io": 4}),
+    (12, 8, None, None, {"ang_attn_sweep_bf16io": 4, "spa_attn_hp_bf16io": 4}),
+    (5, 30, None, None, {"ang_attn_bf16io": 4, "spa_attn_offset_bf16io": 4}),
+    (5, 64, None, None, {"ang_attn_bf16io": 4, "spa_attn_mxu_bf16io": 4}),
+    (5, 16, "tile", "sweep", {"ang_attn_sweep_bf16io": 4, "spa_attn_tile_bf16io": 4})])
+def test_bf16_unfused_forward_launches_perop_bf16io(cuda_device, monkeypatch, ang_res, view, spa,
+                                                    ang, want):
+    """A bf16 forward through the unfused branch (C = 16) launches only the
+    per-op `_bf16io` kernels of its geometry, repeats bitwise, and lies as
+    far from the f32 forward as the same forward through their plain
+    versions (`plain_blocks=True`), within 10%."""
+    for knob, val in (("LFT_SPA_VARIANT", spa), ("LFT_ANG_VARIANT", ang)):
+        if val:
+            monkeypatch.setenv(knob, val)
+    p = _params(16, cuda_device, seed=2)
+    args = Args(channels=16, scale_factor=2, dtype="bfloat16", angRes=ang_res)
+    g = torch.Generator(device=cuda_device).manual_seed(view)
+    lr = torch.rand(1, 1, ang_res * view, ang_res * view, device=cuda_device, generator=g)
+    with torch.no_grad():
+        reset_launches()
+        got = lft.forward(p, lr, args, fused=False)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in LAUNCHES.items() if c} == want
+        assert torch.equal(got, lft.forward(p, lr, args, fused=False))
+        plain = lft.forward(p, lr, args, fused=False, plain_blocks=True)
+        f32 = lft.forward(p, lr, Args(channels=16, scale_factor=2, angRes=ang_res), fused=False)
+    l2 = lambda a, b: float((a.double() - b.double()).norm() / b.double().norm())
+    assert abs(l2(got, f32) / l2(plain, f32) - 1) <= 0.1
+    assert l2(got, plain) <= 1.5 * l2(plain, f32)

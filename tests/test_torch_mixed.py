@@ -352,11 +352,11 @@ def test_matmul_precision_flag(prec):
 
 def test_bfloat16_raises_and_card_plans():
     """bfloat16 under grad trains the fused branch only: `fused=False`
-    raises naming ROADMAP item 9d. The card's plan checks."""
+    raises naming ROADMAP item 9e. The card's plan checks."""
     p = lft.init_params(0, Args(channels=C, scale_factor=2), device="cpu")
     for t in p.values():
         t.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="9d"):
+    with pytest.raises(NotImplementedError, match="9e"):
         lft.forward(p, torch.zeros(1, 1, 40, 40), Args(channels=C, scale_factor=2,
                                                        dtype="bfloat16"), fused=False)
     assert parse_args(["--dtype", "mixed"]).dtype == "mixed"

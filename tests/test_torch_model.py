@@ -126,9 +126,14 @@ def test_registry_and_init():
 
 
 def test_only_float32():
-    """float32 and mixed run every branch; bfloat16 runs the fused branch
-    only: the unfused one raises, naming its ROADMAP item."""
+    """float32 and mixed run every branch; bfloat16 serves through every
+    branch (the unfused one since ROADMAP item 9d) and trains the fused one:
+    the unfused one under grad raises, naming its ROADMAP item (9e)."""
     args = Args(channels=16, scale_factor=2, dtype="bfloat16")
     p = lft.init_params(0, Args(channels=16, scale_factor=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9d"):
+    out = lft.forward(p, torch.zeros(1, 1, 40, 40), args, fused=False)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    for t in p.values():
+        t.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9e"):
         lft.forward(p, torch.zeros(1, 1, 40, 40), args, fused=False)

@@ -11,8 +11,8 @@ REPS = 4
 
 
 class _Avg:
-    def __init__(self, key, us):
-        self.key, self.device_time_total, self.count = key, us, REPS
+    def __init__(self, key, us, count=REPS):
+        self.key, self.device_time_total, self.count = key, us, count
         self.device_type = torch.autograd.DeviceType.CUDA
 
 
@@ -85,3 +85,16 @@ def test_device_ms_with_a_kernel_filter_raises_when_no_trace_saw_it(fake_card):
     state["traces"] = [[_Avg("k_a", 300.0)]] * 3
     with pytest.raises(AssertionError, match="k_b"):
         profile_scene.device_ms(fn, REPS, kernel="k_b")
+
+
+def test_device_ms_traces_again_when_a_trace_lost_launches(fake_card, capsys):
+    """A trace that counts a kernel fewer times than the calls launch it
+    (CUPTI dropped records) is taken again; with none whole, CUDA events."""
+    state, fn = fake_card
+    state["traces"] = [[_Avg("k_a", 150.0, REPS - 1), _Avg("k_b", 100.0)],
+                       [_Avg("k_a", 300.0), _Avg("k_b", 100.0)]]
+    assert profile_scene.device_ms(fn, REPS) == pytest.approx(400.0 / 1e3 / REPS)
+    assert state["taken"] == 2 and "lost launches of 'k_a'" in capsys.readouterr().out
+    state["traces"] = [[_Avg("k_a", 150.0, 1)]] * 3
+    assert profile_scene.device_ms(fn, REPS) == pytest.approx(2.0 / REPS)
+    assert "CUDA events" in capsys.readouterr().out
