@@ -258,7 +258,36 @@
     (bf16 bytes; operations on the FP32 pipes), the plain version and bf16
     `scaled_dot_product_attention` (a window mask for the spatial ones),
     then in turns with its f32 instance (f32, bf16, bf16, f32);
-26. prints the `kernels` JSON line (every kernel, old and new), the card's
+26. `--dtype bfloat16` training through the unfused per-op branch
+    (lft_tpu's bf16 unfused train step: the `_res` forms and backwards of
+    K5-K9 in their `_bf16io` instances, the torch ops around them under
+    torch's autograd in bf16, the master weights and Adam state f32): (a)
+    the 4x recipe's `--train_fused false` step from the demo checkpoint
+    under `bfloat16` through the kernels against the same step with the
+    kernels' plain versions on the card (`common.plain_versions()`): |dloss|
+    within BF16T_LOSS |loss|, the smooth loss's gradient within BF16T_TOL
+    of the plain step's distance from the f32 plain step's and within
+    BF16T_L2 of that distance from the plain step's gradient, the master
+    weights f32, a bitwise repeat, and exactly 4 launches a step of each
+    expected `_res_bf16io` and `_bwd_bf16io` instance and of no other
+    kernel (no f32 form), on four geometries that between them launch all
+    ten: 5x5 views at patch 32 (K7 + K5), `LFT_SPA_VARIANT=mxu` (K7 + K6),
+    `LFT_ANG_VARIANT=sweep` + `LFT_SPA_VARIANT=offset` (K8 through K7's
+    f32-inside instance at A2 = 25 and the streamed backward, + K9), angRes
+    12 at batch 2 (K8's sweep past 128 views + K5); (b) the data-parallel
+    bf16 step at world size 1 (an nccl group of one rank) bitwise equal to
+    (a)'s first step; (c) each of the ten instances against its plain bf16
+    version at the step's shapes (K5, K6, K9 [100, 32, 32, 128], K7 and K8
+    [4096, 25, 64], K8 [2048, 144, 64]; each backward fed the plain `_res`
+    form's out, m, l), the plain f32 version on the same values the
+    yardstick (`bf16t_err`), a bitwise repeat, timed by CUDA events beside
+    its bound (bf16 bytes; operations on the FP32 pipes), the plain version
+    and (the `_res` forms) bf16 `scaled_dot_product_attention`, then in
+    turns with its f32 instance; (d) the per-op step's ms under float32 and
+    bfloat16 in turns; (e) the train CLI's body under `bfloat16
+    --train_fused false` for 2 epochs of 2 steps, a resume from the epoch-1
+    file ending on the uninterrupted run's parameters bit for bit;
+27. prints the `kernels` JSON line (every kernel, old and new), the card's
     name and power limit, and last `{"ok": true, "device": {...}}`.
 
 The plain and library versions of the large shapes of steps 16 and 19 are
@@ -3580,6 +3609,350 @@ def bf16_perop_kernel_checks(card: str, per_scene: dict, seed: int) -> list:
         torch.cuda.empty_cache()
     return rec.rows
 
+# step 26's geometries: what, angRes, view of a patch, batch, (ang, spa) knobs,
+# the kernels whose `_res_bf16io` and `_bwd_bf16io` instances a step launches
+PEROP_BF16_TRAIN_GEOMETRIES = [
+    ("5x5 views, patch 32 (K7, K5)", 5, 32, 4, (None, None), ("ang_attn", "spa_attn_hp")),
+    ("mxu (K7, K6)", 5, 32, 4, (None, "mxu"), ("ang_attn", "spa_attn_mxu")),
+    ("sweep + offset (K8 as K7's f32-inside instance at A2 = 25, K9)", 5, 32, 4,
+     ("sweep", "offset"), ("ang_attn_sweep", "spa_attn_offset")),
+    ("12x12 views, batch 2 (K8 past 128 views, K5)", 12, 32, 2, (None, None),
+     ("ang_attn_sweep", "spa_attn_hp")),
+]
+
+
+def bf16_perop_train_phase(params, seed: int, steps: int = 2):
+    """Step 26 a and b (module docstring). Returns (each instance's launches
+    over (a), the first geometry's first step for b and d: (lr, hr, loss,
+    gradient, params after))."""
+    import dataclasses
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from lft_torch.config import Args
+    from lft_torch.data.device_synth import synth_batch
+    from lft_torch.kernels import LAUNCHES, reset_launches
+    from lft_torch.kernels.common import plain_if
+    from lft_torch.parallel.mesh import get_mesh, make_dp_train_step
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import make_optimizer
+    from lft_torch.training.trainer import make_train_step
+
+    dev = torch.device("cuda")
+    smooth = lambda sr, y: ((sr - y) * torch.cos(3.0 * (sr - y))).mean()
+    totals, first = {}, None
+    for what, ang_res, patch, batch, (ang, spa), bases in PEROP_BF16_TRAIN_GEOMETRIES:
+        ab_ = Args(angRes=ang_res, scale_factor=4, channels=64, batch_size=batch, lr=2e-4,
+                   n_steps=15, gamma=0.5, epoch=50, dtype="bfloat16", train_fused="false")
+        a32 = dataclasses.replace(ab_, dtype="float32")
+        model = get_model(ab_)
+        gen = torch.Generator(device=dev).manual_seed(seed + 26)
+        new_batch = lambda: synth_batch(gen, batch=batch, ang_res=ang_res, patch=patch, scale=4)
+        lr, hr = new_batch()
+        what = f"bf16 per-op train, {what}"
+
+        def step(args, loss=None, plain=False, mesh=None):
+            p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+            m = model if loss is None else dataclasses.replace(model, loss=loss)
+            opt = make_optimizer(p, args, steps_per_epoch=1000)
+            fn = (make_train_step(m, opt, args) if mesh is None
+                  else make_dp_train_step(m, opt, args, mesh))
+            with plain_if(plain):
+                out = float(fn(p, lr, hr)[0])
+            return out, torch.cat([p[k].grad.reshape(-1) for k in sorted(p)]), p, fn
+
+        with variants(ang, spa):
+            reset_launches()
+            loss_p, _, _, _ = step(ab_, plain=True)
+            _, g_p, _, _ = step(ab_, smooth, plain=True)
+            _, g_f, _, _ = step(a32, smooth, plain=True)
+            torch.cuda.synchronize()
+            if any(LAUNCHES.values()):
+                raise AssertionError(f"{what}: the plain path launched kernels: "
+                                     f"{ {k: v for k, v in LAUNCHES.items() if v} }")
+            reset_launches()
+            loss_k, g_r, p_a, step_a = step(ab_)
+            p_a1 = {k_: v.detach().clone() for k_, v in p_a.items()}
+            loss_b, g_b, p_b, _ = step(ab_)
+            _, g_k, _, _ = step(ab_, smooth)
+            for _ in range(steps):
+                step_a(p_a, *new_batch())
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+        n = 3 + steps
+        print(f"{what} step 1: loss kernels {loss_k:.8f} plain {loss_p:.8f} "
+              f"(|d| {abs(loss_k - loss_p):.3e}, limit {BF16T_LOSS:g} |loss|)", flush=True)
+        if not abs(loss_k - loss_p) <= BF16T_LOSS * abs(loss_p):
+            raise AssertionError(f"{what}: the kernel path's loss disagrees with the plain path")
+        gap, own, d = l2_rel(g_p, g_f), l2_rel(g_k, g_f), l2_rel(g_k, g_p)
+        print(f"{what} step 1 (smooth loss): the gradient's distance from the f32 step's "
+              f"{own:.4e}, the plain versions' {gap:.4e} ({own / gap:.4f}, limit 1 +- "
+              f"{BF16T_TOL:g}); L2 from the plain step's gradient {d:.4e} ({d / gap:.4f} of its "
+              f"distance, limit {BF16T_L2:g})", flush=True)
+        if not (abs(own / gap - 1) <= BF16T_TOL and d <= BF16T_L2 * gap):
+            raise AssertionError(f"{what}: the kernel path's gradient disagrees with the plain "
+                                 f"path")
+        if not all(v.dtype == torch.float32 for v in p_a.values()):
+            raise AssertionError(f"{what}: the master parameters left f32")
+        same = (loss_b == loss_k and torch.equal(g_r, g_b)
+                and all(torch.equal(p_a1[k_], p_b[k_]) for k_ in p_b))
+        print(f"{what} step repeated from the same state: loss, grads and params bitwise "
+              f"equal: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{what}: a repeated step is not bitwise equal")
+        want = {f"{b}_{f}_bf16io": 4 * n for b in bases for f in ("res", "bwd")}
+        wrong = {k_: counts[k_] for k_ in LAUNCHES if counts[k_] != want.get(k_, 0)}
+        print(f"launches in the {what} run ({n} kernel-path steps): "
+              f"{ {k_: v for k_, v in counts.items() if v} }", flush=True)
+        if wrong:
+            raise AssertionError(f"{what}: expected {want} and no other launch (no f32 form), "
+                                 f"got {wrong}")
+        for k_, v in want.items():
+            totals[k_] = totals.get(k_, 0) + v
+        if first is None:
+            first = (lr, hr, loss_k, g_r, p_a1)
+            # (b) the data-parallel step at world size 1, on an nccl group of one rank
+            with socket.socket() as s_:
+                s_.bind(("127.0.0.1", 0))
+                port = s_.getsockname()[1]
+            dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                                    world_size=1)
+            try:
+                mesh = get_mesh()
+                loss_d, g_d, p_d, _ = step(ab_, mesh=mesh)
+                torch.cuda.synchronize()
+            finally:
+                dist.destroy_process_group()
+            same = (mesh.size == 1 and mesh.group is not None and loss_d == loss_k
+                    and torch.equal(g_d, g_r) and all(torch.equal(p_a1[k_], p_d[k_])
+                                                       for k_ in p_d))
+            print(f"data-parallel bf16 step at world size 1 (nccl): loss, grads and params "
+                  f"bitwise equal to the first step's: {same}", flush=True)
+            if not same:
+                raise AssertionError("the data-parallel bf16 step at world size 1 differs from "
+                                     "make_train_step's")
+        torch.cuda.empty_cache()
+    return totals, first
+
+
+def bf16_perop_train_kernel_checks(card: str, launches: dict, seed: int) -> list:
+    """Step 26 c (module docstring): the ten `_bf16io` instances against
+    their plain versions on the card (`plain_versions()`), timed by CUDA
+    events around back-to-back calls (late in the process, as step 25)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from lft_torch.kernels import ang_attn_mxu as am
+    from lft_torch.kernels import ang_attn_vjp as av
+    from lft_torch.kernels import local_attn_vjp as lv
+    from lft_torch.kernels import spa_attn as sa
+    from lft_torch.kernels import spa_attn_hp as hp
+    from lft_torch.kernels.common import plain_versions
+    from lft_torch.ops.attention import local_window_mask
+    from lft_torch.profile_scene import events_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 126)
+    rec = Recorder(card, launches, 1, "step-26a run")
+    H, K = 8, 5
+    src_a, src_w = "lft_torch/csrc/ang_attn.cu", "lft_torch/csrc/spa_attn_hp.cu"
+    tpu = "lft_tpu/kernels/"
+    cases = [
+        # base name, _res form, backward (q, k, v, out, m, l, dout), shape, sources, replaces
+        ("ang_attn", lambda q, k, v: am.ang_attn_fwd(q, k, v, H, True),
+         lambda q, k, v, o, m, l, d: am.ang_attn_bwd(q, k, v, m, l, d, H), (4096, 25, 64),
+         (src_a, src_a), (tpu + "ang_attn_mxu.py:244", tpu + "ang_attn_mxu.py:289")),
+        ("ang_attn_sweep", lambda q, k, v: av.ang_attn_sweep_fwd(q, k, v, H, True),
+         lambda q, k, v, o, m, l, d: av.ang_attn_sweep_bwd(q, k, v, o, m, l, d, H),
+         (4096, 25, 64), (src_a, "lft_torch/csrc/ang_attn_sweep.cu"),
+         (tpu + "ang_attn_vjp.py:129", tpu + "ang_attn_vjp.py:158")),
+        ("spa_attn_hp", lambda q, k, v: hp.spa_attn_hp_fwd(q, k, v, H, K, True),
+         lambda q, k, v, o, m, l, d: hp.spa_attn_hp_bwd(q, k, v, m, l, d, H, K),
+         (100, 32, 32, 128), (src_w, src_w),
+         (tpu + "spa_attn_hp.py:433", tpu + "spa_attn_hp.py:514")),
+        ("spa_attn_mxu", lambda q, k, v: sa.spa_attn_mxu_fwd(q, k, v, H, K, True),
+         lambda q, k, v, o, m, l, d: sa.spa_attn_mxu_bwd(q, k, v, m, l, d, H, K),
+         (100, 32, 32, 128), (src_w, src_w), (tpu + "spa_attn.py:220", tpu + "spa_attn.py:271")),
+        ("spa_attn_offset", lambda q, k, v: lv.spa_attn_offset_fwd(q, k, v, H, K, True),
+         lambda q, k, v, o, m, l, d: lv.spa_attn_offset_bwd(q, k, v, o, m, l, d, H, K),
+         (100, 32, 32, 128), (src_w, src_w),
+         (tpu + "local_attn_vjp.py:257", tpu + "local_attn_vjp.py:314")),
+    ]
+    cases.append(("ang_attn_sweep", cases[1][1], cases[1][2], (2048, 144, 64),
+                  ("lft_torch/csrc/ang_attn_sweep.cu", "lft_torch/csrc/ang_attn_sweep.cu"),
+                  cases[1][5]))
+    seen = set()
+    for base, res_fn, bwd_fn, shape, (src_r, src_b), (rep_r, rep_b) in cases:
+        q, k, v, dout = (torch.randn(*shape, device=dev, generator=g) * sc
+                         for sc in (1.5, 1.5, 1.0, 1.0))
+        q, k, v, dout = q.bfloat16(), k.bfloat16(), v.bfloat16(), dout.bfloat16()
+        q32, k32, v32, d32 = q.float(), k.float(), v.float(), dout.float()
+        if len(shape) == 3:
+            N, A2, C = shape
+            heads = lambda t: t.reshape(N, A2, H, C // H).transpose(1, 2)
+            lib = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v))
+            flops = N * A2 * A2 * C
+        else:
+            B, h, w, E = shape
+            heads = lambda t: t.reshape(B, h * w, H, E // H).transpose(1, 2)
+            mask = torch.from_numpy(local_window_mask(h, w, K) == 0).to(dev)
+
+            def lib():
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                          attn_mask=mask)
+            flops = E * B * valid_window_pairs(h, w, K // 2)
+
+        # the `_res` form
+        name = base + "_res_bf16io"
+        got, again = res_fn(q, k, v), res_fn(q, k, v)
+        with plain_versions():
+            ref, ref32 = res_fn(q, k, v), res_fn(q32, k32, v32)
+
+        def plain_res():
+            with plain_versions():
+                return res_fn(q, k, v)
+        rec.record(name, src_r, rep_r, got, ref, lambda: res_fn(q, k, v), plain_res, 4 * flops,
+                   nbytes(q, k, v, *got), lib_fn=lib, slow_reps=3, timer=events_ms,
+                   bf16t_ref32=ref32, shape=shape if name in seen else None)
+        seen.add(name)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} at {list(shape)} does not repeat bitwise")
+        f32_fn, bf_fn = (lambda: res_fn(q32, k32, v32)), (lambda: res_fn(q, k, v))
+        t = [events_ms(f32_fn), events_ms(bf_fn), events_ms(bf_fn), events_ms(f32_fn)]
+        print(f"  {name} at {list(shape)}: repeated bitwise; {card}: ms (CUDA events, 20 "
+              f"back-to-back calls) in turns with its f32 instance, f32 / bf16 / bf16 / f32: "
+              + " / ".join(f"{x:.4f}" for x in t), flush=True)
+
+        # the backward, fed the plain `_res` form's out, m, l
+        name = base + "_bwd_bf16io"
+        res, res32 = ref, ref32
+        got = bwd_fn(q, k, v, *res, dout)
+        again = bwd_fn(q, k, v, *res, dout)
+        with plain_versions():
+            ref, ref32 = bwd_fn(q, k, v, *res, dout), bwd_fn(q32, k32, v32, *res32, d32)
+
+        def plain_bwd():
+            with plain_versions():
+                return bwd_fn(q, k, v, *res, dout)
+        reads = (q, k, v, dout, *res[1:]) + ((res[0],) if "offset" in base or "sweep" in base
+                                              else ())
+        rec.record(name, src_b, rep_b, got, ref, lambda: bwd_fn(q, k, v, *res, dout), plain_bwd,
+                   10 * flops, nbytes(*reads, *got), slow_reps=3, timer=events_ms,
+                   bf16t_ref32=ref32, shape=shape if name in seen else None)
+        seen.add(name)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} at {list(shape)} does not repeat bitwise")
+        f32_fn = lambda: bwd_fn(q32, k32, v32, *res32, d32)
+        bf_fn = lambda: bwd_fn(q, k, v, *res, dout)
+        t = [events_ms(f32_fn), events_ms(bf_fn), events_ms(bf_fn), events_ms(f32_fn)]
+        print(f"  {name} at {list(shape)}: repeated bitwise; {card}: ms (CUDA events, 20 "
+              f"back-to-back calls) in turns with its f32 instance, f32 / bf16 / bf16 / f32: "
+              + " / ".join(f"{x:.4f}" for x in t), flush=True)
+        del q, k, v, dout, q32, k32, v32, d32, got, again, ref, ref32, res, res32
+        torch.cuda.empty_cache()
+    return rec.rows
+
+
+def bf16_perop_step_times(params, first) -> None:
+    """Step 26 d: the per-op train step's ms (5x5 views, K7 + K5) under
+    float32 and bfloat16 in turns (f32, bf16, bf16, f32), 3 steps each
+    after a warm-up, CUDA events."""
+    import dataclasses
+
+    import torch
+    from lft_torch.config import Args
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import make_optimizer
+    from lft_torch.training.trainer import make_train_step
+
+    lr, hr = first[:2]
+    base = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, lr=2e-4, n_steps=15,
+                gamma=0.5, epoch=50, train_fused="false")
+    fns = {}
+    for dt in ("float32", "bfloat16"):
+        args = dataclasses.replace(base, dtype=dt)
+        p = {k_: v.detach().clone().requires_grad_(True) for k_, v in params.items()}
+        fns[dt] = (p, make_train_step(get_model(args), make_optimizer(p, args, 1000), args))
+    times = {k_: [] for k_ in fns}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        p, fn = fns[dt]
+        fn(p, lr, hr)                                    # warm-up
+        for _ in range(3):
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            fn(p, lr, hr)
+            ev1.record()
+            ev1.synchronize()
+            times[dt].append(ev0.elapsed_time(ev1))
+    med = {k_: sorted(v)[len(v) // 2] for k_, v in times.items()}
+    print(f"{card_line()}: per-op train step (--train_fused false, K7 + K5), batch 4 of "
+          f"32x32-view patches, 5x5 views, 4x, C=64, in turns f32, bf16, bf16, f32 (3 steps "
+          f"each, CUDA events): median "
+          + ", ".join(f"{k_} {v:.3f} ms" for k_, v in med.items())
+          + "; all " + "; ".join(f"{k_} {[round(t, 3) for t in v]}" for k_, v in times.items()),
+          flush=True)
+
+
+def bf16_perop_train_cli(params, seed: int) -> None:
+    """Step 26 e: `python -m lft_torch.train --dtype bfloat16 --train_fused
+    false` (its `main`) for 2 epochs of 2 steps from the checkpoint's
+    weights, then a resume from the epoch-1 file that must end on the
+    uninterrupted run's parameters bit for bit."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from lft_torch import train as train_cli
+    from lft_torch.config import Args
+    from lft_torch.data.device_synth import synth_batch
+    from lft_torch.kernels import LAUNCHES, reset_launches
+    from lft_torch.utils.checkpoint import save_checkpoint
+
+    dev = next(iter(params.values())).device
+    lr, hr = synth_batch(torch.Generator(device=dev).manual_seed(seed + 27), batch=8, ang_res=5,
+                         patch=32, scale=4)
+    trainset = MemTrainSet(lr.cpu().numpy(), hr.cpu().numpy(), seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_perop_train_") as tmp:
+        start = os.path.join(tmp, "start.npz")
+        save_checkpoint(start, params, 0)
+        args = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, epoch=2, lr=2e-4,
+                    n_steps=15, gamma=0.5, dtype="bfloat16", train_fused="false",
+                    use_pre_pth=True, path_pre_pth=start, seed=seed, data_name="Synth",
+                    num_workers=0, path_log=os.path.join(tmp, "train"))
+        torch.cuda.synchronize()
+        reset_launches()
+        full, hist = train_cli.main(args, dataset=trainset)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        losses = [hh["loss"] for hh in hist]
+        print(f"train CLI under --dtype bfloat16 --train_fused false: epoch means {hist}; "
+              f"launches { {k: v for k, v in counts.items() if v} }", flush=True)
+        if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"bf16 per-op train CLI: bad losses {losses}")
+        n = 2 * len(trainset) // args.batch_size
+        want = {f"{b}_{f}_bf16io": 4 * n for b in ("ang_attn", "spa_attn_hp")
+                for f in ("res", "bwd")}
+        if {k: v for k, v in counts.items() if v} != want:
+            raise AssertionError(f"bf16 per-op train CLI: expected launches {want}, got {counts}")
+        ck_dir = os.path.join(args.path_log, "SR_5x5_4x", "LFT", "Synth", "checkpoints")
+        names = sorted(os.listdir(ck_dir))
+        if names != ["LFT_5x5_4x_epoch_01_model.npz", "LFT_5x5_4x_epoch_02_model.npz"]:
+            raise AssertionError(f"bf16 per-op train CLI checkpoints: {names}")
+        r_args = dataclasses.replace(args, path_pre_pth=os.path.join(ck_dir, names[0]),
+                                     path_log=os.path.join(tmp, "resume"))
+        resumed, _ = train_cli.main(r_args, dataset=trainset)
+        differ = [k for k in full if not torch.equal(full[k], resumed[k])
+                  or full[k].dtype != torch.float32]
+        if differ:
+            raise AssertionError(f"bf16 per-op train CLI: resumed from epoch 1, {len(differ)} "
+                                 f"parameters differ from the uninterrupted run's (or left "
+                                 f"f32), e.g. {differ[:3]}")
+        print("train CLI under --dtype bfloat16 --train_fused false: checkpoints "
+              + ", ".join(names) + "; resumed from epoch 1, every epoch-2 parameter (f32) equals "
+              "the uninterrupted run's bit for bit", flush=True)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3605,8 +3978,8 @@ def main(argv=None) -> int:
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
     from lft_torch.kernels import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, PEROP,
-                                   PEROP_BF16IO, SWEEPS, TAIL, TRAINING, build_all,
-                                   reset_launches)
+                                   PEROP_BF16IO, PEROP_BF16TRAIN, SWEEPS, TAIL, TRAINING,
+                                   build_all, reset_launches)
     from lft_torch.models.lft import forward
     from lft_torch.ops.bicubic import bicubic_upscale_views
     from lft_torch.ops.metrics import cal_metrics
@@ -3651,7 +4024,7 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     extra = [k for k in TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO + BF16TRAIN
-             + PEROP_BF16IO if counts[k]]
+             + PEROP_BF16IO + PEROP_BF16TRAIN if counts[k]]
     if extra:
         raise AssertionError(f"training or per-op kernels launched by the SR run: {extra}")
 
@@ -3824,6 +4197,15 @@ def main(argv=None) -> int:
     rows += bf16_perop_kernel_checks(card, perop_bf16_counts, a.seed)
     torch.cuda.empty_cache()
     print(f"bf16 per-op phase: {time.time() - t0:.1f} s", flush=True)
+    # step 26: --dtype bfloat16 training through the unfused per-op branch
+    t0 = time.time()
+    pt_counts, pt_first = bf16_perop_train_phase(params, a.seed)
+    rows += bf16_perop_train_kernel_checks(card, pt_counts, a.seed)
+    bf16_perop_step_times(params, pt_first)
+    del pt_first
+    bf16_perop_train_cli(params, a.seed)
+    torch.cuda.empty_cache()
+    print(f"bf16 per-op training phase: {time.time() - t0:.1f} s", flush=True)
     missing = sorted(set(LAUNCHES) - {r["name"] for r in rows})
     if missing:
         raise AssertionError(f"kernels without a row in the kernels line: {missing}")

@@ -5,17 +5,22 @@ revision's, in turns in one process, on one CUDA card.
 
 OTHER_CSRC_DIR holds another revision's whole `lft_torch/csrc` (`git
 archive <commit> lft_torch/csrc`, unpacked into a git-ignored directory, so
-that its headers come with it) whose `ang_block.cu` and `spa_block.cu` have
-the same `_bf16io` C interfaces as this checkout's. Both are built with the
-port's nvcc flags into a temporary directory, and the port's own wrappers
-launch either build (the other's libraries stand in for this checkout's
-while it runs). On the main path's shapes (K1 [16384, 25, 64], K2 [400, 32,
-32, 64], the demo checkpoint's block-0 weights in bf16, each K2 step fed its
-plain predecessor's output), each of the six `_bf16io` kernels of the two
+that its headers come with it) whose `ang_block.cu`, `spa_block.cu`,
+`ang_attn.cu`, `ang_attn_sweep.cu` and `spa_attn_hp.cu` have the same
+`_bf16io` C interfaces as this checkout's. Both are built with the port's
+nvcc flags into a temporary directory, and the port's own wrappers launch
+either build (the other's libraries stand in for this checkout's while it
+runs). On the main path's shapes (K1 [16384, 25, 64], K2 [400, 32, 32, 64],
+the demo checkpoint's block-0 weights in bf16, each K2 step fed its plain
+predecessor's output), each of the six fused `_bf16io` kernels, and on the
+per-op train step's shapes (K7, K8 [4096, 25, 64], K5, K6, K9 [100, 32, 32,
+128]) the ten `_res_bf16io` forms and `_bwd_bf16io` backwards of the per-op
+branch (each backward fed its plain `_res` form's out, m, l), of the two
 builds must agree bit for bit, and both are timed in device time
-(`profile_scene.device_ms`) in the order other, this, this, other. Prints
-the card's name and power limit first. Exits non-zero without a card, or
-if the two builds' outputs differ.
+(`profile_scene.device_ms`) in the order other, this, this, other; a kernel
+whose entry the other build lacks is timed in this build alone. Prints the
+card's name and power limit first. Exits non-zero without a card, or if
+the two builds' outputs differ.
 """
 
 from __future__ import annotations
@@ -83,7 +88,43 @@ def cases(dev):
             ("spa_qkv_bf16io", lambda: sb.qkv(xn, tok, ws)),
             ("spa_window_attn_bf16io", lambda: sb.window_attn(q, k, v, H, K)),
             ("spa_outproj_ln_bf16io", lambda: sb.outproj_ln(attn, tok, ws)),
-            ("spa_ffn_out_bf16io", lambda: sb.ffn_out(xn2, x2, ws))]
+            ("spa_ffn_out_bf16io", lambda: sb.ffn_out(xn2, x2, ws))] + perop_train_cases(dev, g)
+
+
+def perop_train_cases(dev, g):
+    """[(name, fn)]: the per-op branch's ten `_res_bf16io` forms and
+    `_bwd_bf16io` backwards on the train step's shapes."""
+    from lft_torch.kernels import ang_attn_mxu as am
+    from lft_torch.kernels import ang_attn_vjp as av
+    from lft_torch.kernels import local_attn_vjp as lv
+    from lft_torch.kernels import spa_attn as sa
+    from lft_torch.kernels import spa_attn_hp as hp
+    from lft_torch.kernels.common import plain_versions
+
+    H, K = 8, 5
+    fams = [
+        ("ang_attn", (4096, 25, 64), lambda q, k, v: am.ang_attn_fwd(q, k, v, H, True),
+         lambda q, k, v, o, m, l, d: am.ang_attn_bwd(q, k, v, m, l, d, H)),
+        ("ang_attn_sweep", (4096, 25, 64), lambda q, k, v: av.ang_attn_sweep_fwd(q, k, v, H, True),
+         lambda q, k, v, o, m, l, d: av.ang_attn_sweep_bwd(q, k, v, o, m, l, d, H)),
+        ("spa_attn_hp", (100, 32, 32, 128), lambda q, k, v: hp.spa_attn_hp_fwd(q, k, v, H, K, True),
+         lambda q, k, v, o, m, l, d: hp.spa_attn_hp_bwd(q, k, v, m, l, d, H, K)),
+        ("spa_attn_mxu", (100, 32, 32, 128),
+         lambda q, k, v: sa.spa_attn_mxu_fwd(q, k, v, H, K, True),
+         lambda q, k, v, o, m, l, d: sa.spa_attn_mxu_bwd(q, k, v, m, l, d, H, K)),
+        ("spa_attn_offset", (100, 32, 32, 128),
+         lambda q, k, v: lv.spa_attn_offset_fwd(q, k, v, H, K, True),
+         lambda q, k, v, o, m, l, d: lv.spa_attn_offset_bwd(q, k, v, o, m, l, d, H, K)),
+    ]
+    out = []
+    for base, shape, res_fn, bwd_fn in fams:
+        q, k, v, dout = (torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
+                         for _ in range(4))
+        with plain_versions():
+            res = res_fn(q, k, v)
+        out += [(base + "_res_bf16io", lambda f=res_fn, a=(q, k, v): f(*a)),
+                (base + "_bwd_bf16io", lambda f=bwd_fn, a=(q, k, v, *res, dout): f(*a))]
+    return out
 
 
 def main(argv=None) -> int:
@@ -105,11 +146,17 @@ def main(argv=None) -> int:
     differ = 0
     with tempfile.TemporaryDirectory() as tmp:
         other = {n: _build.build_library(os.path.join(a.other_csrc, f"{n}.cu"), tmp, n)
-                 for n in ("ang_block", "spa_block")}
+                 for n in ("ang_block", "spa_block", "ang_attn", "ang_attn_sweep", "spa_attn_hp")}
         for name, fn in cases(dev):
             got = fn()
-            with other_libraries(other):
-                ref = fn()
+            try:
+                with other_libraries(other):
+                    ref = fn()
+            except AttributeError as e:      # an entry the other build does not have
+                t1, t2 = device_ms(fn), device_ms(fn)
+                print(f"{name}: the other build has no such entry ({e}); this {t1:.4f} / "
+                      f"{t2:.4f} ms", flush=True)
+                continue
             got, ref = (t if isinstance(t, tuple) else (t,) for t in (got, ref))
             same = all(torch.equal(x, y) for x, y in zip(got, ref))
             differ += not same

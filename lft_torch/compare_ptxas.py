@@ -10,10 +10,12 @@ it (`kernels._build.build_all`, whose ptxas report is kept beside each
 library) and each source of the other revision with the same flags. Kernels
 are named by their demangled names (`compare_bwd.ptxas_report`); a kernel that gained trailing
 `float` template arguments here (the IO types of `--dtype bfloat16`'s
-`_bf16io` instances: K1-K4's, `wgrad`'s two operands) or a trailing `false`
-(the `BF` switch of `--dtype mixed`'s bf16-operand instances, rowgemm.cuh /
-tokenize.cuh / wgrad.cu; the STATS switch of K2.3's bf16-IO kernel), or
-both, is matched to the other build's kernel without them. Prints every
+`_bf16io` instances: K1-K4's, `wgrad`'s two operands, K7's and K8's
+backwards) or trailing `false`s (the `BF` switch of `--dtype mixed`'s
+bf16-operand instances, rowgemm.cuh / tokenize.cuh / wgrad.cu; the STATS
+switch of K2.3's and K7's bf16-IO kernels; the DIV and DOUT switches of
+K5's backward passes), in any order, is matched to the other build's kernel
+without them. Prints every
 matched pair's registers, spill stores and loads, and each side's unmatched
 kernels (here: the newer bf16 instances). Exits 1 if a matched pair differs
 or an old kernel is missing. Needs nvcc, not a card.
@@ -54,11 +56,16 @@ def without_io(name: str) -> str:
 
 
 def match(name: str, old_by: dict):
-    """The other build's kernel that `name` is, or None."""
-    for cand in (name, without_io(name), without_bf(name), without_bf(without_io(name))):
+    """The other build's kernel that `name` is, or None: `name`, then `name`
+    with its trailing `false`s and `float`s taken off one at a time."""
+    cand = name
+    while True:
         if cand in old_by:
             return cand
-    return None
+        shorter = without_io(cand) if cand.endswith(", float>") else without_bf(cand)
+        if shorter == cand:
+            return None
+        cand = shorter
 
 
 def reports(csrc_other: str) -> tuple:

@@ -104,6 +104,23 @@
 // Bound at [16384, 25, 64]: q, k, v read and out written once in bf16,
 // 0.0626 ms at 3.35 TB/s (2.6 GFLOP on the FP32 pipes: 0.039 ms; the
 // deferred kernel builds each score twice).
+//
+// bf16-IO training forms (`--dtype bfloat16` training through the per-op
+// branch):
+// * `ang_attn_res_bf16io` (`lft_ang_attn_res_bf16io`): the deferred kernel
+//   with STATS, m the token's max over its heads in every head's slot, l
+//   each head's sum under it (lft_tpu's _fwd_kernel with_stats on bf16);
+// * `ang_attn_sweep_res_bf16io` at A2 <= 128 (`lft_ang_attn_f32in_res_bf16io`):
+//   the f32 kernel's bf16-IO instance with STATS (each head's own m, l);
+// * `ang_attn_bwd_bf16io` (`lft_ang_attn_bwd_bf16io`): the backward kernel
+//   with IO = bf16, rows widened as the threads stage them, and lft_tpu's
+//   rounded operands (ang_attn_mxu.py:_bwd_kernel :148-192 on bf16): s = (q
+//   . k) scale from the unscaled q, p = exp(s - m) (1 / l) and D = sum_j p
+//   dp in f32, ds = bf16(p (dp - D) scale) and bf16(p) before their
+//   products, dq, dk, dv summed in f32 and rounded once as they leave.
+// Bound of the backward at [4096, 25, 64]: q, k, v, dout in and dq, dk, dv
+// out in bf16, m, l f32: 0.0294 ms of bytes against 1.6 GFLOP, 0.025 ms on
+// the FP32 pipes.
 
 #include "ang_attn.cuh"
 
@@ -266,11 +283,12 @@ __global__ void __launch_bounds__(NT_MAX)
 
 // ---- bf16-IO forward with the deferred softmax: a thread a (pixel, head,
 // query), P whole pixels a block ---------------------------------------------
-template <int DH>
+template <int DH, bool STATS = false>
 __global__ void __launch_bounds__(NT_MAX)
     ang_attn_bf16io_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ out, int N, int A2,
-                           int P, float scale) {
+                           int P, float scale, float* __restrict__ m_out,
+                           float* __restrict__ l_out) {
   constexpr int C = H * DH, LD = C + 4;
   extern __shared__ float4 smem4[];
   float* QT = reinterpret_cast<float*>(smem4);
@@ -328,18 +346,24 @@ __global__ void __launch_bounds__(NT_MAX)
 #pragma unroll
     for (int d = 0; d < DH; ++d) o[d] *= inv;
     st<DH>(out + (row0 + p * A2 + i) * C + hh * DH, o);
+    if constexpr (STATS) {   // m the token's max over its heads, in every head's slot
+      m_out[(row0 + p * A2 + i) * H + hh] = m;
+      l_out[(row0 + p * A2 + i) * H + hh] = l;
+    }
   }
 }
 
 // ---- backward: a query phase (D, dq), then a key phase (dk, dv) ------------
-template <int DH, bool HOLD>
+// IO = bf16 (`ang_attn_bwd_bf16io`): lft_tpu's rounded operands, the header.
+template <int DH, bool HOLD, class IO = float>
 __global__ void __launch_bounds__(NT_MAX)
-    ang_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
+    ang_attn_bwd_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
+                        const IO* __restrict__ v, const IO* __restrict__ dout,
                         const float* __restrict__ m_in, const float* __restrict__ l_in,
-                        float* __restrict__ dq_out, float* __restrict__ dk_out,
-                        float* __restrict__ dv_out, int N, int A2, int P, int nbuf,
+                        IO* __restrict__ dq_out, IO* __restrict__ dk_out,
+                        IO* __restrict__ dv_out, int N, int A2, int P, int nbuf,
                         float scale) {
+  constexpr bool RND = is_bf16<IO>;   // s = (q . k) scale; ds, p rounded before their products
   constexpr int C = H * DH, LD = C + 4;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -387,10 +411,11 @@ __global__ void __launch_bounds__(NT_MAX)
       ld<DH>(GT + me * LD + hh * DH, g);
 #pragma unroll
       for (int d = 0; d < DH; ++d) {
-        qs[d] *= scale;
+        if constexpr (!RND) qs[d] *= scale;
         dq[d] = 0.f;
       }
-      st<DH>(QT + me * LD + hh * DH, qs);   // the forward's q * scale, for the key phase
+      // the forward's q * scale, for the key phase (RND: q itself)
+      if constexpr (!RND) st<DH>(QT + me * LD + hh * DH, qs);
       const float mi = MT[me * H + hh], inv = 1.f / LT[me * H + hh];
       float dsum = 0.f;
       if constexpr (HOLD) {   // p and dp of every key in registers
@@ -405,7 +430,7 @@ __global__ void __launch_bounds__(NT_MAX)
                 float kr[DH], vr[DH];
                 ld<DH>(kp + j * LD, kr);
                 ld<DH>(vp + j * LD, vr);
-                pj[j] = expf(dot<DH>(qs, kr) - mi) * inv;
+                pj[j] = expf((RND ? dot<DH>(qs, kr) * scale : dot<DH>(qs, kr)) - mi) * inv;
                 dpj[j] = dot<DH>(g, vr);
                 dc = fmaf(pj[j], dpj[j], dc);
               }
@@ -424,7 +449,8 @@ __global__ void __launch_bounds__(NT_MAX)
               if (decltype(full)::value || j < A2) {
                 float kr[DH];
                 ld<DH>(kp + j * LD, kr);
-                const float ds = pj[j] * (dpj[j] - dsum);
+                const float ds = RND ? bf16_round(pj[j] * (dpj[j] - dsum) * scale)
+                                     : pj[j] * (dpj[j] - dsum);
 #pragma unroll
                 for (int d = 0; d < DH; ++d) dc[d] = fmaf(ds, kr[d], dc[d]);
               }
@@ -444,7 +470,8 @@ __global__ void __launch_bounds__(NT_MAX)
               float kr[DH], vr[DH];
               ld<DH>(kp + j * LD, kr);
               ld<DH>(vp + j * LD, vr);
-              dc = fmaf(expf(dot<DH>(qs, kr) - mi) * inv, dot<DH>(g, vr), dc);
+              dc = fmaf(expf((RND ? dot<DH>(qs, kr) * scale : dot<DH>(qs, kr)) - mi) * inv,
+                        dot<DH>(g, vr), dc);
             }
           }
           dsum += dc;
@@ -457,7 +484,9 @@ __global__ void __launch_bounds__(NT_MAX)
               float kr[DH], vr[DH];
               ld<DH>(kp + j * LD, kr);
               ld<DH>(vp + j * LD, vr);
-              const float ds = expf(dot<DH>(qs, kr) - mi) * inv * (dot<DH>(g, vr) - dsum);
+              const float pr = expf((RND ? dot<DH>(qs, kr) * scale : dot<DH>(qs, kr)) - mi) * inv;
+              const float ds = RND ? bf16_round(pr * (dot<DH>(g, vr) - dsum) * scale)
+                                   : pr * (dot<DH>(g, vr) - dsum);
 #pragma unroll
               for (int d = 0; d < DH; ++d) dc[d] = fmaf(ds, kr[d], dc[d]);
             }
@@ -470,7 +499,7 @@ __global__ void __launch_bounds__(NT_MAX)
       }
       store4(SD + (me * H + hh) * 4, make_float4(mi, inv, dsum, 0.f));
 #pragma unroll
-      for (int d = 0; d < DH; ++d) dq[d] *= scale;
+      for (int d = 0; d < DH; ++d) dq[d] *= RND ? 1.f : scale;
       st<DH>(DQ + me * LD + hh * DH, dq);
     }
     __syncthreads();
@@ -494,12 +523,15 @@ __global__ void __launch_bounds__(NT_MAX)
             ld<DH>(QT + o * LD + hh * DH, qo);
             ld<DH>(GT + o * LD + hh * DH, go);
             const float4 sd = load4(SD + (o * H + hh) * 4);
-            const float pr = expf(dot<DH>(qo, kme) - sd.x) * sd.y;
-            const float ds = pr * (dot<DH>(go, vme) - sd.z);
+            const float pr =
+                expf((RND ? dot<DH>(qo, kme) * scale : dot<DH>(qo, kme)) - sd.x) * sd.y;
+            const float ds = RND ? bf16_round(pr * (dot<DH>(go, vme) - sd.z) * scale)
+                                 : pr * (dot<DH>(go, vme) - sd.z);
+            const float pv = RND ? bf16_round(pr) : pr;
 #pragma unroll
             for (int d = 0; d < DH; ++d) {
               ck[d] = fmaf(ds, qo[d], ck[d]);
-              cv[d] = fmaf(pr, go[d], cv[d]);
+              cv[d] = fmaf(pv, go[d], cv[d]);
             }
           }
         }
@@ -551,9 +583,11 @@ int ang_attn(const named_t<IO>* q, const named_t<IO>* k, const named_t<IO>* v,
 }
 
 // The deferred bf16-IO forward (the header): P whole pixels a block, their
-// q, k, v and maxima within two blocks' share of an SM, up to 1024 items.
-int ang_attn_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* out, int N, int A2, int C,
-                    int heads, float scale, cudaStream_t s) {
+// q, k, v and maxima within two blocks' share of an SM, up to 1024 items;
+// STATS also writes m, l.
+template <bool STATS = false>
+int ang_attn_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* m, float* l,
+                    int N, int A2, int C, int heads, float scale, cudaStream_t s) {
   if (heads != H || A2 < 1 || A2 > 128 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int row = 3 * (C + 4) + H;           // floats a token takes
   const int P = std::max(1, std::min(SMEM_TWO / (row * 4) / A2, 2 * NT_MAX / (H * A2)));
@@ -563,9 +597,9 @@ int ang_attn_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* out, int 
   switch (C / H) {
 #define LFT_ANG_CASE(DHV)                                                          \
     case DHV: {                                                                    \
-      auto kernel = ang_attn_bf16io_kernel<DHV>;                                   \
+      auto kernel = ang_attn_bf16io_kernel<DHV, STATS>;                            \
       LFT_SET_SMEM(kernel, bytes);                                                 \
-      kernel<<<grid, nt, bytes, s>>>(q, k, v, out, N, A2, P, scale);               \
+      kernel<<<grid, nt, bytes, s>>>(q, k, v, out, N, A2, P, scale, m, l);         \
       break;                                                                       \
     }
     LFT_ANG_CASE(2)
@@ -601,7 +635,7 @@ extern "C" int lft_ang_attn_res(const float* q, const float* k, const float* v, 
 // The bf16-IO forwards (the header): q, k, v, out bf16 [N, A2, C].
 extern "C" int lft_ang_attn_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* out, int N,
                                    int A2, int C, int heads, float scale, void* stream) {
-  return ang_attn_bf16io(q, k, v, out, N, A2, C, heads, scale,
+  return ang_attn_bf16io(q, k, v, out, nullptr, nullptr, N, A2, C, heads, scale,
                          static_cast<cudaStream_t>(stream));
 }
 
@@ -612,20 +646,22 @@ extern "C" int lft_ang_attn_f32in_bf16io(const bf16* q, const bf16* k, const bf1
                                static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int lft_ang_attn_bwd(const float* q, const float* k, const float* v,
-                                const float* dout, const float* m, const float* l, float* dq,
-                                float* dk, float* dv, int N, int A2, int C, int heads,
-                                float scale, void* stream) {
+namespace {
+
+template <class IO = float>
+int ang_attn_bwd(const named_t<IO>* q, const named_t<IO>* k, const named_t<IO>* v,
+                 const named_t<IO>* dout, const float* m, const float* l, named_t<IO>* dq,
+                 named_t<IO>* dk, named_t<IO>* dv, int N, int A2, int C, int heads, float scale,
+                 cudaStream_t s) {
   if (heads != H || A2 < 1 || A2 > 128 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
   const Geo g = bwd_geo(A2, C);
   const int tiles = (N + g.P - 1) / g.P;
   int grid = 0;
   switch (C / H) {
 #define LFT_ANG_CASE(DHV)                                                                  \
     case DHV: {                                                                            \
-      auto kernel = ang_attn_bwd_kernel<DHV, false>;                                      \
-      if (A2 <= HOLD_MAX) kernel = ang_attn_bwd_kernel<DHV, true>;                         \
+      auto kernel = ang_attn_bwd_kernel<DHV, false, IO>;                                  \
+      if (A2 <= HOLD_MAX) kernel = ang_attn_bwd_kernel<DHV, true, IO>;                     \
       if (const int e = persistent_grid(kernel, g.nt, g.bytes, tiles, &grid)) return e;                \
       kernel<<<grid, g.nt, g.bytes, s>>>(q, k, v, dout, m, l, dq, dk, dv, N, A2, g.P,      \
                                          g.nbuf, scale);                                   \
@@ -638,4 +674,43 @@ extern "C" int lft_ang_attn_bwd(const float* q, const float* k, const float* v,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int lft_ang_attn_bwd(const float* q, const float* k, const float* v,
+                                const float* dout, const float* m, const float* l, float* dq,
+                                float* dk, float* dv, int N, int A2, int C, int heads,
+                                float scale, void* stream) {
+  return ang_attn_bwd(q, k, v, dout, m, l, dq, dk, dv, N, A2, C, heads, scale,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The `_res` forms in bf16 IO (the header): q, k, v, out bf16 [N, A2, C],
+// m, l f32 [N, A2, 8]. `ang_attn_res_bf16io`: the deferred kernel with its
+// statistics (m the token's max over its heads in every head's slot, l the
+// head's sum under it); `ang_attn_sweep_res_bf16io` at A2 <= 128: the f32
+// kernel's bf16-IO instance with its statistics (each head's own).
+extern "C" int lft_ang_attn_res_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                                       float* m, float* l, int N, int A2, int C, int heads,
+                                       float scale, void* stream) {
+  return ang_attn_bf16io<true>(q, k, v, out, m, l, N, A2, C, heads, scale,
+                               static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int lft_ang_attn_f32in_res_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                             bf16* out, float* m, float* l, int N, int A2, int C,
+                                             int heads, float scale, void* stream) {
+  return ang_attn<true, bf16>(q, k, v, out, m, l, N, A2, C, heads, scale,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// K7's backward in bf16 IO (`ang_attn_bwd_bf16io`, the header): q, k, v,
+// dout and dq, dk, dv bf16 [N, A2, C]; m, l f32 of K7 res bf16io.
+extern "C" int lft_ang_attn_bwd_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                       const bf16* dout, const float* m, const float* l,
+                                       bf16* dq, bf16* dk, bf16* dv, int N, int A2, int C,
+                                       int heads, float scale, void* stream) {
+  return ang_attn_bwd<bf16>(q, k, v, dout, m, l, dq, dk, dv, N, A2, C, heads, scale,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -80,6 +80,13 @@
 // leaves. At 128 views or fewer the wrapper launches K7's f32 kernel's bf16-IO
 // instance (ang_attn.cu). Bound at [9216, 144, 64]: 48.9 GFLOP on the FP32
 // pipes, 0.7302 ms (its bytes in bf16: 0.203 ms).
+// Training in bf16 (`ang_attn_sweep_res_bf16io` past 128 views,
+// `ang_attn_sweep_bwd_bf16io` at every view count): the forward's IO
+// instance with STATS, and the backward's: f32 inside on the widened rows
+// (ang_attn_vjp.py:_bwd_kernel :54-87 on bf16), D = dout . out from the
+// saved bf16 output, dq, dk, dv rounded to bf16 once as they leave. The
+// wrapper launches it at 32 views or fewer too, where the f32 backward takes
+// K7's (which forms D from its scores: not lft_tpu's D once out is rounded).
 
 #include <climits>
 
@@ -277,13 +284,13 @@ __global__ void __launch_bounds__(NT_MAX)
 }
 
 // ---- backward: a query phase (D, dq), then a key phase (dk, dv) ------------
-template <int DH, int HG>
+template <int DH, int HG, class IO = float>
 __global__ void __launch_bounds__(NT_MAX)
-    sweep_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ out, const float* __restrict__ m_in,
-                     const float* __restrict__ l_in, float* __restrict__ dq_out,
-                     float* __restrict__ dk_out, float* __restrict__ dv_out, int N, int A2,
+    sweep_bwd_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
+                     const IO* __restrict__ v, const IO* __restrict__ dout,
+                     const IO* __restrict__ out, const float* __restrict__ m_in,
+                     const float* __restrict__ l_in, IO* __restrict__ dq_out,
+                     IO* __restrict__ dk_out, IO* __restrict__ dv_out, int N, int A2,
                      int rounds, float scale) {
   constexpr int C = H * DH, W = HG * DH, LDW = W + 4, NG = H / HG;
   constexpr int SF = 2 * KS * LDW;           // a stage: k, v or q (scaled), dout [KS][LDW]
@@ -433,9 +440,9 @@ __global__ void __launch_bounds__(NT_MAX)
 template <class IO = float>
 using FwdKernelIO = void (*)(const IO*, const IO*, const IO*, IO*, float*, float*, int, int, int,
                              int, float);
-using BwdKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
-                           const float*, const float*, float*, float*, float*, int, int, int,
-                           float);
+template <class IO = float>
+using BwdKernelIO = void (*)(const IO*, const IO*, const IO*, const IO*, const IO*,
+                             const float*, const float*, IO*, IO*, IO*, int, int, int, float);
 
 // The instances: past 128 views the forward's groups are 1 or 2 heads (2 at
 // dh = 2); the backward takes every A2, so every group.
@@ -451,25 +458,45 @@ FwdKernelIO<IO> fwd_kernel(int DH, int HG) {
   }
 }
 
-BwdKernel bwd_kernel(int DH, int HG) {
+inline bool bad_shape(int N, int A2, int C, int heads) {
+  return heads != H || N < 1 || A2 < 1 || C % H || C / H > 8;
+}
+
+template <class IO = float>
+BwdKernelIO<IO> bwd_kernel(int DH, int HG) {
   switch (DH * 16 + HG) {
-    case 2 * 16 + 2: return sweep_bwd_kernel<2, 2>;
-    case 2 * 16 + 4: return sweep_bwd_kernel<2, 4>;
-    case 2 * 16 + 8: return sweep_bwd_kernel<2, 8>;
-    case 4 * 16 + 1: return sweep_bwd_kernel<4, 1>;
-    case 4 * 16 + 2: return sweep_bwd_kernel<4, 2>;
-    case 4 * 16 + 4: return sweep_bwd_kernel<4, 4>;
-    case 4 * 16 + 8: return sweep_bwd_kernel<4, 8>;
-    case 8 * 16 + 1: return sweep_bwd_kernel<8, 1>;
-    case 8 * 16 + 2: return sweep_bwd_kernel<8, 2>;
-    case 8 * 16 + 4: return sweep_bwd_kernel<8, 4>;
-    case 8 * 16 + 8: return sweep_bwd_kernel<8, 8>;
+    case 2 * 16 + 2: return sweep_bwd_kernel<2, 2, IO>;
+    case 2 * 16 + 4: return sweep_bwd_kernel<2, 4, IO>;
+    case 2 * 16 + 8: return sweep_bwd_kernel<2, 8, IO>;
+    case 4 * 16 + 1: return sweep_bwd_kernel<4, 1, IO>;
+    case 4 * 16 + 2: return sweep_bwd_kernel<4, 2, IO>;
+    case 4 * 16 + 4: return sweep_bwd_kernel<4, 4, IO>;
+    case 4 * 16 + 8: return sweep_bwd_kernel<4, 8, IO>;
+    case 8 * 16 + 1: return sweep_bwd_kernel<8, 1, IO>;
+    case 8 * 16 + 2: return sweep_bwd_kernel<8, 2, IO>;
+    case 8 * 16 + 4: return sweep_bwd_kernel<8, 4, IO>;
+    case 8 * 16 + 8: return sweep_bwd_kernel<8, 8, IO>;
     default: return nullptr;
   }
 }
 
-inline bool bad_shape(int N, int A2, int C, int heads) {
-  return heads != H || N < 1 || A2 < 1 || C % H || C / H > 8;
+template <class IO = float>
+int sweep_bwd(const named_t<IO>* q, const named_t<IO>* k, const named_t<IO>* v,
+              const named_t<IO>* dout, const named_t<IO>* out, const float* m, const float* l,
+              named_t<IO>* dq, named_t<IO>* dk, named_t<IO>* dv, int N, int A2, int C,
+              int heads, float scale, cudaStream_t s) {
+  if (bad_shape(N, A2, C, heads)) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdGeo g = bwd_geo(A2, C);
+  const BwdKernelIO<IO> kernel = bwd_kernel<IO>(C / H, g.HG);
+  const long long tiles = static_cast<long long>(N) * (H / g.HG);
+  if (!kernel || g.bytes > SMEM_MAX || tiles > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0;
+  if (const int e = persistent_grid(kernel, g.nt, g.bytes, static_cast<int>(tiles), &grid))
+    return e;
+  kernel<<<grid, g.nt, g.bytes, s>>>(q, k, v, dout, out, m, l, dq, dk, dv, N, A2, g.rounds,
+                                     scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool STATS, class IO = float>
@@ -524,16 +551,27 @@ extern "C" int lft_ang_attn_sweep_bwd(const float* q, const float* k, const floa
                                       const float* dout, const float* out, const float* m,
                                       const float* l, float* dq, float* dk, float* dv, int N,
                                       int A2, int C, int heads, float scale, void* stream) {
-  if (bad_shape(N, A2, C, heads)) return static_cast<int>(cudaErrorInvalidValue);
-  const BwdGeo g = bwd_geo(A2, C);
-  const BwdKernel kernel = bwd_kernel(C / H, g.HG);
-  const long long tiles = static_cast<long long>(N) * (H / g.HG);
-  if (!kernel || g.bytes > SMEM_MAX || tiles > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int grid = 0;
-  if (const int e = persistent_grid(kernel, g.nt, g.bytes, static_cast<int>(tiles), &grid))
-    return e;
-  kernel<<<grid, g.nt, g.bytes, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, dout, out, m, l, dq, dk, dv, N, A2, g.rounds, scale);
-  return static_cast<int>(cudaGetLastError());
+  return sweep_bwd(q, k, v, dout, out, m, l, dq, dk, dv, N, A2, C, heads, scale,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// The `_res` form in bf16 IO past 128 views (`ang_attn_sweep_res_bf16io`,
+// the header): q, k, v, out bf16, m, l f32 [N, A2, 8].
+extern "C" int lft_ang_attn_sweep_res_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                             bf16* out, float* m, float* l, int N, int A2,
+                                             int C, int heads, float scale, void* stream) {
+  return sweep_fwd<true, bf16>(q, k, v, out, m, l, N, A2, C, heads, scale,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The backward in bf16 IO at every A2 (`ang_attn_sweep_bwd_bf16io`, the
+// header): q, k, v, dout, out and dq, dk, dv bf16; D from the saved bf16
+// out.
+extern "C" int lft_ang_attn_sweep_bwd_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                             const bf16* dout, const bf16* out, const float* m,
+                                             const float* l, bf16* dq, bf16* dk, bf16* dv, int N,
+                                             int A2, int C, int heads, float scale,
+                                             void* stream) {
+  return sweep_bwd<bf16>(q, k, v, dout, out, m, l, dq, dk, dv, N, A2, C, heads, scale,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -108,6 +108,27 @@
 // Bound at [400, 32, 32, 128]: q, k, v read and out written once in bf16,
 // 0.42 GB, 0.1252 ms at 3.35 TB/s; the deferred kernel's first pass reads q
 // and k again (through L2).
+//
+// bf16-IO training forms (`--dtype bfloat16` training through the per-op
+// branch, counted `<family>_res_bf16io` and `_bwd_bf16io`):
+// * the `_res` forms (`lft_spa_attn_{hp,norm,f32in}_res_bf16io`): the three
+//   forwards above with STATS, m and l f32 in the layout of the family's
+//   backward (deferred: the query's max over its heads in every head's
+//   slot; normalized and f32 inside: each head's own max and sum);
+// * K5's backward (`spa_attn_hp_bwd_bf16io`) is the IO = bf16 passes above,
+//   the function of K3.c bf16io (lft_tpu/kernels/spa_attn_hp.py:_bwd_kernel
+//   on bf16 tensors: p = e (1 / l));
+// * K6's (`lft_spa_attn_norm_bwd_bf16io`, `spa_attn_mxu_bwd_bf16io`) the
+//   same passes with DIV: p = e / l, as lft_tpu's K6 divides
+//   (spa_attn.py:_bwd_kernel :120-180);
+// * K9's (`lft_spa_attn_f32in_bwd_bf16io`, `spa_attn_offset_bwd_bf16io`) the
+//   f32 passes on bf16 rows with DOUT: pass q takes D = dout . out per head
+//   from the saved bf16 output (local_attn_vjp.py:_vjp_bwd :307), not from
+//   the scores, which differ by the output's rounding; nothing is rounded
+//   but dq, dk, dv, as they are stored.
+// Bound of a backward at [100, 32, 32, 128]: q, k, v, dout in and dq, dk, dv
+// out in bf16, m, l f32, 0.19 GB, 0.0567 ms at 3.35 TB/s (K9 reads out too:
+// 0.0645 ms); its 3.0 GFLOP on the FP32 pipes 0.045 ms.
 
 #include "attn.cuh"
 #include "window_attn.cuh"
@@ -133,14 +154,18 @@ __device__ __forceinline__ float dot4(const float* a, const float (&b)[DH]) {
 // ---- backward, pass q: dq and D --------------------------------------------
 // One block an item (view, 16 x 16 tile, 32-float head group), items in
 // K2.3's launch order.
-template <int DH, bool BF = false, class IO = float>
+// DIV: p = e / l (K6's bf16 form) where the others take e (1 / l); DOUT: D
+// from the saved output, D = dout . out per head (K9's bf16 form), not from
+// the scores.
+template <int DH, bool BF = false, class IO = float, bool DIV = false, bool DOUT = false>
 __global__ void __launch_bounds__(WA_NT, 2)
     spa_attn_hp_bwd_q_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
                              const IO* __restrict__ v, const IO* __restrict__ dout,
                              const float* __restrict__ m_in, const float* __restrict__ l_in,
                              IO* __restrict__ dq_out, float* __restrict__ dsum_out, int h,
-                             int w, float scale) {
-  static_assert(BF || !is_bf16<IO>, "bf16 IO takes the BF arithmetic");
+                             int w, float scale, const IO* __restrict__ out) {
+  static_assert(BF || DOUT || !is_bf16<IO>,
+                "bf16 IO takes the BF arithmetic, or f32 inside with D from the output");
   constexpr int D = H * DH;
   constexpr int G = D / WA_G;       // head groups of a pixel
   constexpr int HT = WA_S / DH;     // heads of a thread's slice
@@ -171,10 +196,19 @@ __global__ void __launch_bounds__(WA_NT, 2)
     const bool in = y < h && x < w;
     const size_t pix = (static_cast<size_t>(view) * h + (in ? y : 0)) * w + (in ? x : 0);
     float qv[WA_S], gv[WA_S];   // the query's q (scaled as the forward scales it), dout
+    float dh_out[HT] = {};      // DOUT: D of each head of the slice, dout . out
 #pragma unroll
     for (int d = 0; d < WA_S; d += 4) {
       const float4 t = in ? ldg4(q + pix * D + col + d) : make_float4(0.f, 0.f, 0.f, 0.f);
       const float4 u = in ? ldg4(dout + pix * D + col + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (DOUT) {
+        const float4 o = in ? ldg4(out + pix * D + col + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+        float& dd = dh_out[d / DH];
+        dd = fmaf(u.x, o.x, dd);
+        dd = fmaf(u.y, o.y, dd);
+        dd = fmaf(u.z, o.z, dd);
+        dd = fmaf(u.w, o.w, dd);
+      }
       if constexpr (BF) {   // q unscaled: the score's scale comes after the product
         qv[d] = bf16_round(t.x);
         qv[d + 1] = bf16_round(t.y);
@@ -215,7 +249,7 @@ __global__ void __launch_bounds__(WA_NT, 2)
 #pragma unroll
     for (int e = 0; e < HT; ++e) {   // the heads of the thread's slice
       const size_t hd = pix * H + (col + e * DH) / DH;
-      const float m = __ldg(m_in + hd), il = 1.f / __ldg(l_in + hd);
+      const float m = __ldg(m_in + hd), lv = __ldg(l_in + hd), il = 1.f / lv;
       // the window row-major, s[5 dy + dx]: the forward's scores, -inf (and
       // dp 0) where the key lies outside the image
       float s[KW], dp[KW];
@@ -241,16 +275,18 @@ __global__ void __launch_bounds__(WA_NT, 2)
           dp[(2 * R + 1) * r + dx] = dot4<DH>(gv + e * DH, vv);
         }
       }
-      float dsum = 0.f;   // sum_j e_j dp_j in key order
+      float dsum = 0.f;   // sum_j e_j dp_j in key order (DIV: sum_j p_j dp_j)
 #pragma unroll
       for (int j = 0; j < KW; ++j) {
         s[j] = expf(s[j] - m);
-        dsum = fmaf(s[j], dp[j], dsum);
+        if constexpr (DIV) s[j] = s[j] / lv;
+        if constexpr (!DOUT) dsum = fmaf(s[j], dp[j], dsum);
       }
-      const float dd = dsum * il;
+      const float dd = DOUT ? dh_out[e] : DIV ? dsum : dsum * il;
 #pragma unroll
       for (int j = 0; j < KW; ++j)   // l ds_j; BF: ds_j rounded
-        dp[j] = BF ? bf16_round(s[j] * il * (dp[j] - dd) * scale) : s[j] * (dp[j] - dd);
+        dp[j] = BF ? bf16_round((DIV ? s[j] : s[j] * il) * (dp[j] - dd) * scale)
+                   : s[j] * (dp[j] - dd);
       float dq[DH];
 #pragma unroll
       for (int d = 0; d < DH; ++d) dq[d] = 0.f;
@@ -294,15 +330,15 @@ struct KvLayout {
 
 // One block an item (view, 16 x 16 tile, head pair), items in launch order;
 // a thread owns the key pixels (ry, tx) and (ry + 1, tx) of the tile, one
-// after the other, for head `e` of the pair.
-template <int DH, bool BF = false, class IO = float>
+// after the other, for head `e` of the pair. bf16 IO with the f32
+// arithmetic (!BF) is K9's bf16 form; DIV: p = e / l (the row holds l).
+template <int DH, bool BF = false, class IO = float, bool DIV = false>
 __global__ void __launch_bounds__(WA_NT, 2)
     spa_attn_hp_bwd_kv_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
                               const IO* __restrict__ v, const IO* __restrict__ dout,
                               const float* __restrict__ m_in, const float* __restrict__ l_in,
                               const float* __restrict__ dsum, IO* __restrict__ dk_out,
                               IO* __restrict__ dv_out, int h, int w, float scale) {
-  static_assert(BF || !is_bf16<IO>, "bf16 IO takes the BF arithmetic");
   using L = KvLayout<DH>;
   constexpr int D = H * DH, P = H / KV_HEADS, LD = L::LD, W = KV_HEADS * DH;
   extern __shared__ __align__(16) float smem[];
@@ -332,7 +368,7 @@ __global__ void __launch_bounds__(WA_NT, 2)
     if (oy >= 0 && oy < h && ox >= 0 && ox < w) {
       const size_t hd = ((static_cast<size_t>(view) * h + oy) * w + ox) * H + pr * KV_HEADS + hh;
       mv = __ldg(m_in + hd);
-      il = 1.f / __ldg(l_in + hd);
+      il = DIV ? __ldg(l_in + hd) : 1.f / __ldg(l_in + hd);
       dd = __ldg(dsum + hd);
     }
     qs[px * LD + W + 2 * hh] = mv;
@@ -389,7 +425,8 @@ __global__ void __launch_bounds__(WA_NT, 2)
         float qq[DH], gg[DH];
         ld<DH>(qo + e * DH, qq);
         const float2 ml = *reinterpret_cast<const float2*>(qo + W + 2 * e);
-        const float p = expf((BF ? dot4<DH>(qq, km) * scale : dot4<DH>(qq, km)) - ml.x) * ml.y;
+        const float ex = expf((BF ? dot4<DH>(qq, km) * scale : dot4<DH>(qq, km)) - ml.x);
+        const float p = DIV ? ex / ml.y : ex * ml.y;
         ld<DH>(go + e * DH, gg);
         const float ds = BF ? bf16_round(p * (dot4<DH>(gg, vm) - go[W + e]) * scale)
                             : p * (dot4<DH>(gg, vm) - go[W + e]);
@@ -444,10 +481,12 @@ int spa_attn_hp(const float* q, const float* k, const float* v, float* out, floa
 }
 
 // The bf16-IO forwards (the header): NORM the normalized instance of the
-// f32 kernel, else the f32-inside one; `deferred` K2.3's bf16-IO kernel.
-template <bool NORM>
-int spa_attn_io(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int h, int w,
-                int E, int heads, float scale, bool deferred, cudaStream_t s) {
+// f32 kernel, else the f32-inside one; `deferred` K2.3's bf16-IO kernel;
+// STATS also writes m, l (the `_res` forms).
+template <bool NORM, bool STATS = false>
+int spa_attn_io(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* m, float* l,
+                int B, int h, int w, int E, int heads, float scale, bool deferred,
+                cudaStream_t s) {
   const int groups = deferred ? 1 : E / WA_G;   // a deferred block takes every head group
   if (bad_shape(B, h, w, E, heads) || n_items(B, h, w, groups) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -455,11 +494,10 @@ int spa_attn_io(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, i
   switch (E / H) {
 #define LFT_HP_CASE(DHV)                                                            \
     case DHV: {                                                                     \
-      auto kernel = deferred ? spa_window_attn_bf16io_kernel<DHV, false>            \
-                             : spa_window_attn_kernel<DHV, false, NORM, bf16>;      \
+      auto kernel = deferred ? spa_window_attn_bf16io_kernel<DHV, STATS>            \
+                             : spa_window_attn_kernel<DHV, STATS, NORM, bf16>;      \
       LFT_SET_SMEM(kernel, WA_BYTES);                                               \
-      kernel<<<grid, WA_NT, WA_BYTES, s>>>(q, k, v, out, nullptr, nullptr, B, h, w,  \
-                                           scale);                                  \
+      kernel<<<grid, WA_NT, WA_BYTES, s>>>(q, k, v, out, m, l, B, h, w, scale);      \
       break;                                                                        \
     }
     LFT_HP_CASE(4)
@@ -497,31 +535,55 @@ extern "C" int lft_spa_attn_hp_res(const float* q, const float* k, const float* 
 extern "C" int lft_spa_attn_hp_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                                       int B, int h, int w, int E, int heads, float scale,
                                       void* stream) {
-  return spa_attn_io<false>(q, k, v, out, B, h, w, E, heads, scale, true,
+  return spa_attn_io<false>(q, k, v, out, nullptr, nullptr, B, h, w, E, heads, scale, true,
                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lft_spa_attn_norm_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                                         int B, int h, int w, int E, int heads, float scale,
                                         void* stream) {
-  return spa_attn_io<true>(q, k, v, out, B, h, w, E, heads, scale, false,
+  return spa_attn_io<true>(q, k, v, out, nullptr, nullptr, B, h, w, E, heads, scale, false,
                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lft_spa_attn_f32in_bf16io(const bf16* q, const bf16* k, const bf16* v,
                                          bf16* out, int B, int h, int w, int E, int heads,
                                          float scale, void* stream) {
-  return spa_attn_io<false>(q, k, v, out, B, h, w, E, heads, scale, false,
+  return spa_attn_io<false>(q, k, v, out, nullptr, nullptr, B, h, w, E, heads, scale, false,
                             static_cast<cudaStream_t>(stream));
+}
+
+// Their `_res` forms (the header): also m, l [B, h, w, 8] f32, each in the
+// layout of its family's backward (deferred: the query's max over its
+// heads in every head's slot; normalized and f32 inside: each head's own).
+extern "C" int lft_spa_attn_hp_res_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                          bf16* out, float* m, float* l, int B, int h, int w,
+                                          int E, int heads, float scale, void* stream) {
+  return spa_attn_io<false, true>(q, k, v, out, m, l, B, h, w, E, heads, scale, true,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int lft_spa_attn_norm_res_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                            bf16* out, float* m, float* l, int B, int h, int w,
+                                            int E, int heads, float scale, void* stream) {
+  return spa_attn_io<true, true>(q, k, v, out, m, l, B, h, w, E, heads, scale, false,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int lft_spa_attn_f32in_res_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                             bf16* out, float* m, float* l, int B, int h, int w,
+                                             int E, int heads, float scale, void* stream) {
+  return spa_attn_io<false, true>(q, k, v, out, m, l, B, h, w, E, heads, scale, false,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 namespace {
 
-template <bool BF, class IO = float>
+template <bool BF, class IO = float, bool DIV = false, bool DOUT = false>
 int hp_bwd(const named_t<IO>* q, const named_t<IO>* k, const named_t<IO>* v,
            const named_t<IO>* dout, const float* m, const float* l, float* dsum,
            named_t<IO>* dq, named_t<IO>* dk, named_t<IO>* dv, int B, int h, int w, int E,
-           int heads, float scale, cudaStream_t s) {
+           int heads, float scale, cudaStream_t s, const named_t<IO>* out = nullptr) {
   if (bad_shape(B, h, w, E, heads) || n_items(B, h, w, H / KV_HEADS) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid_q = static_cast<int>(n_items(B, h, w, E / WA_G));
@@ -529,11 +591,12 @@ int hp_bwd(const named_t<IO>* q, const named_t<IO>* k, const named_t<IO>* v,
   switch (E / H) {
 #define LFT_HP_CASE(DHV)                                                             \
     case DHV: {                                                                      \
-      auto kq = spa_attn_hp_bwd_q_kernel<DHV, BF, IO>;                               \
-      auto kkv = spa_attn_hp_bwd_kv_kernel<DHV, BF, IO>;                             \
+      auto kq = spa_attn_hp_bwd_q_kernel<DHV, BF, IO, DIV, DOUT>;                    \
+      auto kkv = spa_attn_hp_bwd_kv_kernel<DHV, BF, IO, DIV>;                        \
       LFT_SET_SMEM(kq, WA_BYTES);                                                    \
       LFT_SET_SMEM(kkv, KvLayout<DHV>::BYTES);                                       \
-      kq<<<grid_q, WA_NT, WA_BYTES, s>>>(q, k, v, dout, m, l, dq, dsum, h, w, scale); \
+      kq<<<grid_q, WA_NT, WA_BYTES, s>>>(q, k, v, dout, m, l, dq, dsum, h, w, scale, \
+                                         out);                                       \
       kkv<<<grid_kv, WA_NT, KvLayout<DHV>::BYTES, s>>>(q, k, v, dout, m, l, dsum, dk, dv, \
                                                        h, w, scale);                 \
       break;                                                                         \
@@ -580,4 +643,31 @@ extern "C" int lft_spa_attn_hp_bwd_bf16io(const bf16* q, const bf16* k, const bf
                                           void* stream) {
   return hp_bwd<true, bf16>(q, k, v, dout, m, l, dsum, dq, dk, dv, B, h, w, E, heads, scale,
                             static_cast<cudaStream_t>(stream));
+}
+
+// K6's backward in bf16 IO (`spa_attn_mxu_bwd_bf16io`, the header): the
+// bf16-IO passes with p = e / l (lft_tpu/kernels/spa_attn.py:_bwd_kernel
+// :142-156 divides; K5's multiplies by 1 / l); the arguments of
+// lft_spa_attn_hp_bwd_bf16io, with K6's (m, l) (each head's own max).
+extern "C" int lft_spa_attn_norm_bwd_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                            const bf16* dout, const float* m, const float* l,
+                                            float* dsum, bf16* dq, bf16* dk, bf16* dv, int B,
+                                            int h, int w, int E, int heads, float scale,
+                                            void* stream) {
+  return hp_bwd<true, bf16, true>(q, k, v, dout, m, l, dsum, dq, dk, dv, B, h, w, E, heads,
+                                  scale, static_cast<cudaStream_t>(stream));
+}
+
+// K9's backward in bf16 IO (`spa_attn_offset_bwd_bf16io`, the header): the
+// f32 passes on bf16 tensors (rows widened as they load, nothing rounded
+// but dq, dk, dv as they are stored), D = dout . out per head from the
+// saved bf16 output `out` [B, h, w, E] (lft_tpu/kernels/local_attn_vjp.py:
+// _vjp_bwd :307), not from the scores.
+extern "C" int lft_spa_attn_f32in_bwd_bf16io(const bf16* q, const bf16* k, const bf16* v,
+                                             const bf16* dout, const bf16* out, const float* m,
+                                             const float* l, float* dsum, bf16* dq, bf16* dk,
+                                             bf16* dv, int B, int h, int w, int E, int heads,
+                                             float scale, void* stream) {
+  return hp_bwd<false, bf16, false, true>(q, k, v, dout, m, l, dsum, dq, dk, dv, B, h, w, E,
+                                          heads, scale, static_cast<cudaStream_t>(stream), out);
 }

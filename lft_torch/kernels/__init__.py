@@ -14,12 +14,14 @@ launches under `--dtype bfloat16` (each `_bf16io`); `BF16TRAIN` those that
 only a fused train step launches under `--dtype bfloat16` (K1 res, K2.3 res,
 K4 in both forms, K3's five steps, `wgrad`, each `_bf16io`); `PEROP_BF16IO`
 those of the per-op branch's forwards under `--dtype bfloat16` (K7, K8, K5,
-K6, K9, K10, each `_bf16io`).
+K6, K9, K10, each `_bf16io`); `PEROP_BF16TRAIN` those only its train step
+launches under `--dtype bfloat16` (the `_res` form and backward of K7, K8,
+K5, K6, K9, each `_bf16io`).
 """
 
 from lft_torch.kernels._build import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, PEROP,
-                                      PEROP_BF16IO, SWEEPS, TAIL, TRAINING, build_all,
-                                      reset_launches)
+                                      PEROP_BF16IO, PEROP_BF16TRAIN, SWEEPS, TAIL, TRAINING,
+                                      build_all, reset_launches)
 
 __all__ = ["BF16IO", "BF16TRAIN", "FORWARD", "LAUNCHES", "MIXED", "PEROP", "PEROP_BF16IO",
-           "SWEEPS", "TAIL", "TRAINING", "build_all", "reset_launches"]
+           "PEROP_BF16TRAIN", "SWEEPS", "TAIL", "TRAINING", "build_all", "reset_launches"]

@@ -89,9 +89,18 @@ PEROP_BF16IO = tuple(k + "_bf16io" for k in (
     "ang_attn", "ang_attn_sweep", "spa_attn_hp", "spa_attn_mxu", "spa_attn_offset",
     "spa_attn_tile"))
 
+# ... and those that only a train step of the per-op branch launches under
+# `--dtype bfloat16`: the `_res` form and the backward of K7, K8, K5, K6 and
+# K9, each with its family's rounding points (rounded operands: K7, K5, K6;
+# f32 inside, D from the saved bf16 output: K8, K9).
+PEROP_BF16TRAIN = tuple(k + "_bf16io" for k in (
+    "ang_attn_res", "ang_attn_bwd", "ang_attn_sweep_res", "ang_attn_sweep_bwd",
+    "spa_attn_hp_res", "spa_attn_hp_bwd", "spa_attn_mxu_res", "spa_attn_mxu_bwd",
+    "spa_attn_offset_res", "spa_attn_offset_bwd"))
+
 # kernel name -> launches since the last reset
 LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO
-            + BF16TRAIN + PEROP_BF16IO}
+            + BF16TRAIN + PEROP_BF16IO + PEROP_BF16TRAIN}
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -23,8 +23,16 @@ bf16 q, k, v (`--dtype bfloat16` serving): lft_tpu's kernel with io = bf16
 token's max over EVERY head (its row-wide max), e = exp(s - m) rounded to
 bf16 for the product with v, l the sum of the unrounded e, out = bf16(o (1
 / l)). On the card `ang_attn_bf16io` (`csrc/ang_attn.cu`), on the CPU
-`ang_attention_blockdiag_bf16_plain`; forward only (the `_res` form and the
-backward in bf16 are ROADMAP item 9e and raise).
+`ang_attention_blockdiag_bf16_plain`. Training in bf16: `ang_attn_res_bf16io`
+(the same kernel writing m, the token's max over its heads in every head's
+slot, and each head's l) and `ang_attn_bwd_bf16io` (lft_tpu's _bwd_kernel
+with io = bf16, :148-192: s = (q . k) scale, a = exp(s - m) (1 / l) and D =
+sum a (dout . v) in f32, ds = bf16(a (dov - D) scale) and bf16(a) before
+their products, dq, dk, dv summed in f32 and rounded once: K7's backward
+kernel on bf16 rows with those roundings); their plain versions
+`ang_attention_blockdiag_bf16_plain(with_stats=True)` and
+`ang_attention_blockdiag_bwd_bf16_plain` (float64 between the rounding
+points).
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ import torch
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _heads, _merge, _needs_grad
-from lft_torch.kernels.common import KERNEL_C, bf16_round, io_kernel, mm, on_card
+from lft_torch.kernels.common import KERNEL_C, bf16_round, io_kernel, mm, on_card, plain_if
 
 BLK = 128          # the gate's key block: A2 <= 128 view tokens per pixel
 
@@ -105,16 +113,22 @@ def ang_attention_blockdiag_plain(q, k, v, num_heads: int):
     return out.contiguous(), m.transpose(1, 2).contiguous(), l.transpose(1, 2).contiguous()
 
 
-def ang_attention_blockdiag_bf16_plain(q, k, v, num_heads: int):
+def ang_attention_blockdiag_bf16_plain(q, k, v, num_heads: int, with_stats: bool = False):
     """Plain version of K7's forward on bf16 q, k, v [N, A2, C] -> bf16
     (module docstring): f32 arithmetic over the bf16 values, rounded at
-    lft_tpu's points."""
+    lft_tpu's points. with_stats: (out, m, l), m and l f32 [N, A2, H], m the
+    token's max over its heads in every head's slot."""
     H = num_heads
     qf, kf, vf = (_heads(t.float(), H) for t in (q, k, v))
     s = (qf @ kf.transpose(-1, -2)) * float(q.shape[-1] // H) ** -0.5   # [N, H, A2, A2]
-    e = torch.exp(s - s.amax(-1, keepdim=True).amax(1, keepdim=True))
-    out = (bf16_round(e) @ vf) * (1.0 / e.sum(-1, keepdim=True))
-    return _merge(out).bfloat16().contiguous()
+    m = s.amax(-1, keepdim=True).amax(1, keepdim=True)                  # [N, 1, A2, 1]
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    out = _merge((bf16_round(e) @ vf) * (1.0 / l)).bfloat16().contiguous()
+    if not with_stats:
+        return out
+    return (out, m[:, 0, :, 0, None].expand(-1, -1, H).contiguous(),
+            l[..., 0].transpose(1, 2).contiguous())
 
 
 def ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, num_heads: int):
@@ -130,6 +144,21 @@ def ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, num_heads: int):
     ds = p * (dp - (p * dp).sum(-1, keepdim=True))
     return (_merge(ds @ kh).contiguous() * scale, _merge(ds.transpose(-1, -2) @ qh).contiguous(),
             _merge(p.transpose(-1, -2) @ doh).contiguous())
+
+
+def ang_attention_blockdiag_bwd_bf16_plain(q, k, v, m, l, dout, num_heads: int):
+    """Plain version of K7's backward on bf16 q, k, v, dout (module
+    docstring): float64 between lft_tpu's rounding points, ds and a rounded
+    to bf16 before their products, dq, dk, dv rounded once to bf16."""
+    H = num_heads
+    scale = float(torch.tensor(float(q.shape[-1] // H) ** -0.5))     # the f32 scale
+    qh, kh, vh, doh = (_heads(t.double(), H) for t in (q, k, v, dout))
+    a = torch.exp((qh @ kh.transpose(-1, -2)) * scale - m.double().transpose(1, 2)[..., None]) \
+        * (1.0 / l.double().transpose(1, 2)[..., None])                # [N, H, A2, A2]
+    dov = doh @ vh.transpose(-1, -2)
+    ds = bf16_round(a * (dov - (a * dov).sum(-1, keepdim=True)) * scale)
+    return tuple(_merge(g).bfloat16().contiguous() for g in (
+        ds @ kh, ds.transpose(-1, -2) @ qh, bf16_round(a).transpose(-1, -2) @ doh))
 
 
 # -------------------------------------------------------- kernel wrappers ---
@@ -151,9 +180,10 @@ def ang_attn_fwd(q, k, v, num_heads: int, with_stats: bool = False, kernel: str 
     deferred softmax, module docstring; `ang_attn_sweep_bf16io` launches the
     f32 kernel's bf16-IO instance: f32 inside, the output rounded once)."""
     name = io_kernel(kernel + "_res" if with_stats else kernel, q)
+    bio = q.dtype == torch.bfloat16
     if not on_card(q):
-        if q.dtype == torch.bfloat16:
-            return ang_attention_blockdiag_bf16_plain(q, k, v, num_heads)
+        if bio:
+            return ang_attention_blockdiag_bf16_plain(q, k, v, num_heads, with_stats)
         out, m, l = ang_attention_blockdiag_plain(q, k, v, num_heads)
         return (out, m, l) if with_stats else out
     _check_shape(name, q, num_heads)
@@ -162,36 +192,38 @@ def ang_attn_fwd(q, k, v, num_heads: int, with_stats: bool = False, kernel: str 
     tail = (N, A2, C, num_heads, float(C // num_heads) ** -0.5)
     types = (ctypes.c_int,) * 4 + (ctypes.c_float,)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
-    if q.dtype == torch.bfloat16:
-        _build.check_cuda_args(name, q, k, v, dtype=torch.bfloat16)
-        entry = "lft_ang_attn_bf16io" if kernel == "ang_attn" else "lft_ang_attn_f32in_bf16io"
+    _build.check_cuda_args(name, q, k, v, dtype=q.dtype if bio else torch.float32)
+    res = "_res" if with_stats else ""
+    entry = ((f"lft_ang_attn{res}_bf16io" if kernel == "ang_attn" else
+              f"lft_ang_attn_f32in{res}_bf16io") if bio else f"lft_ang_attn{res}")
+    if not with_stats:
         _build.launch("ang_attn", name, _build.bind("ang_attn", entry, 4, types), q.device,
                       *ptrs, *tail)
         return out
-    _build.check_cuda_args(name, q, k, v)
-    if not with_stats:
-        fn = _build.bind("ang_attn", "lft_ang_attn", 4, types)
-        _build.launch("ang_attn", name, fn, q.device, *ptrs, *tail)
-        return out
     m = torch.empty(N, A2, num_heads, device=q.device)
     l = torch.empty_like(m)
-    fn = _build.bind("ang_attn", "lft_ang_attn_res", 6, types)
+    fn = _build.bind("ang_attn", entry, 6, types)
     _build.launch("ang_attn", name, fn, q.device, *ptrs, m.data_ptr(), l.data_ptr(), *tail)
     return out, m, l
 
 
 def ang_attn_bwd(q, k, v, m, l, dout, num_heads: int, kernel: str = "ang_attn_bwd"):
     """K7's backward (`ang_attn_bwd`): (dq, dk, dv) [N, A2, C]. `kernel`: the
-    name the launch is counted under. Its bf16 form is ROADMAP item 9e: a
-    bf16 tensor raises."""
-    io_kernel(kernel, q)
-    if q.device.type != "cuda":
+    name the launch is counted under (K8's f32 backward at A2 <= 32). bf16
+    tensors: `ang_attn_bwd_bf16io` (module docstring)."""
+    bio = q.dtype == torch.bfloat16
+    kernel = io_kernel(kernel, q)
+    if not on_card(q):
+        if bio:
+            return ang_attention_blockdiag_bwd_bf16_plain(q, k, v, m, l, dout, num_heads)
         return ang_attention_blockdiag_bwd_plain(q, k, v, m, l, dout, num_heads)
     _check_shape(kernel, q, num_heads)
-    _build.check_cuda_args(kernel, q, k, v, dout, m, l)
+    _build.check_cuda_args(kernel, q, k, v, dout, dtype=q.dtype if bio else torch.float32)
+    _build.check_cuda_args(kernel, m, l)
     N, A2, C = q.shape
     outs = tuple(torch.empty_like(q) for _ in range(3))
-    fn = _build.bind("ang_attn", "lft_ang_attn_bwd", 9, (ctypes.c_int,) * 4 + (ctypes.c_float,))
+    fn = _build.bind("ang_attn", "lft_ang_attn_bwd" + ("_bf16io" if bio else ""), 9,
+                     (ctypes.c_int,) * 4 + (ctypes.c_float,))
     _build.launch("ang_attn", kernel, fn, q.device,
                   *(t.data_ptr() for t in (q, k, v, dout, m, l, *outs)),
                   N, A2, C, num_heads, float(C // num_heads) ** -0.5)
@@ -205,13 +237,14 @@ class AngAttnFn(torch.autograd.Function):
     def forward(ctx, q, k, v, num_heads):
         out, m, l = ang_attn_fwd(q, k, v, num_heads, with_stats=True)
         ctx.save_for_backward(q, k, v, m, l)
-        ctx.num_heads = num_heads
+        ctx.num_heads, ctx.plain = num_heads, not on_card(q)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, m, l = ctx.saved_tensors
-        return (*ang_attn_bwd(q, k, v, m, l, dout.contiguous(), ctx.num_heads), None)
+        with plain_if(ctx.plain):
+            return (*ang_attn_bwd(q, k, v, m, l, dout.contiguous(), ctx.num_heads), None)
 
 
 def ang_attention_blockdiag(q, k, v, num_heads: int):

@@ -28,8 +28,14 @@ q, k and v to f32, scales q, runs its online softmax in f32 and rounds the
 output once. On the card `ang_attn_sweep_bf16io`: at A2 <= 128 K7's f32
 kernel's bf16-IO instance, past 128 the streamed-key kernel's
 (`lft_ang_attn_sweep_bf16io`), both f32 inside; on the CPU the plain
-version on the widened values, rounded once. Forward only (the `_res` form
-and the backward in bf16 are ROADMAP item 9e and raise).
+version on the widened values, rounded once. Training in bf16: the `_res`
+form (`ang_attn_sweep_res_bf16io`: the same two instances writing each
+head's m and l) and the backward (`ang_attn_sweep_bwd_bf16io`, lft_tpu's
+_vjp_bwd on bf16 tensors, :54-87 and :145-167: f32 inside, nothing rounded
+but dq, dk and dv, once, D = rowsum_head(dout * out) over the SAVED BF16
+OUTPUT): the streamed-key backward's bf16-IO instance at every view count,
+K7's backward (which forms D from its scores) never; the plain backward in
+float64 on the widened values, rounded once.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import torch
 from lft_torch.kernels import _build
 from lft_torch.kernels import ang_attn_mxu as am
 from lft_torch.kernels.ang_block import _heads, _merge, _needs_grad
-from lft_torch.kernels.common import KERNEL_C, io_kernel, mm, on_card
+from lft_torch.kernels.common import KERNEL_C, io_kernel, mm, on_card, plain_if
 
 M_INIT = -1e30     # the sweep's first running max, as in the JAX kernel
 
@@ -203,8 +209,8 @@ def ang_attn_sweep_fwd(q, k, v, num_heads: int, with_stats: bool = False):
     name = io_kernel("ang_attn_sweep_res" if with_stats else "ang_attn_sweep", q)
     if not on_card(q):
         if q.dtype == torch.bfloat16:
-            return ang_attention_sweep_plain(q.float(), k.float(), v.float(),
-                                             num_heads)[0].bfloat16()
+            out, m, l = ang_attention_sweep_plain(q.float(), k.float(), v.float(), num_heads)
+            return (out.bfloat16(), m, l) if with_stats else out.bfloat16()
         out, m, l = ang_attention_sweep_plain(q, k, v, num_heads)
         return (out, m, l) if with_stats else out
     _check_shape(name, q, num_heads)
@@ -223,21 +229,24 @@ def ang_attn_sweep_fwd(q, k, v, num_heads: int, with_stats: bool = False):
         return out
     m = torch.empty(N, A2, num_heads, device=q.device)
     l = torch.empty_like(m)
-    fn = _build.bind("ang_attn_sweep", "lft_ang_attn_sweep_res", 6, types)
+    fn = _build.bind("ang_attn_sweep", "lft_" + name, 6, types)
     _build.launch("ang_attn_sweep", name, fn, q.device, *ptrs, m.data_ptr(), l.data_ptr(), *tail)
     return out, m, l
 
 
 def sweep_bwd_launch(q, k, v, out, m, l, dout, num_heads: int):
     """The streamed-key backward kernel (`lft_ang_attn_sweep_bwd`) at any A2,
-    counted as `ang_attn_sweep_bwd`: (dq, dk, dv) [N, A2, C] of CUDA tensors."""
-    _check_shape("ang_attn_sweep_bwd", q, num_heads)
-    _build.check_cuda_args("ang_attn_sweep_bwd", q, k, v, dout, out, m, l)
+    counted as `ang_attn_sweep_bwd`: (dq, dk, dv) [N, A2, C] of CUDA tensors;
+    bf16 ones its bf16-IO instance, `ang_attn_sweep_bwd_bf16io`."""
+    name = io_kernel("ang_attn_sweep_bwd", q)
+    _check_shape(name, q, num_heads)
+    _build.check_cuda_args(name, q, k, v, dout, out, dtype=q.dtype)
+    _build.check_cuda_args(name, m, l)
     N, A2, C = q.shape
     grads = tuple(torch.empty_like(q) for _ in range(3))
-    fn = _build.bind("ang_attn_sweep", "lft_ang_attn_sweep_bwd", 10,
+    fn = _build.bind("ang_attn_sweep", "lft_" + name, 10,
                      (ctypes.c_int,) * 4 + (ctypes.c_float,))
-    _build.launch("ang_attn_sweep", "ang_attn_sweep_bwd", fn, q.device,
+    _build.launch("ang_attn_sweep", name, fn, q.device,
                   *(t.data_ptr() for t in (q, k, v, dout, out, m, l, *grads)),
                   N, A2, C, num_heads, float(C // num_heads) ** -0.5)
     return grads
@@ -247,12 +256,19 @@ def ang_attn_sweep_bwd(q, k, v, out, m, l, dout, num_heads: int):
     """K8's backward (`ang_attn_sweep_bwd`): (dq, dk, dv) [N, A2, C]; for
     CUDA tensors K7's backward kernel at A2 <= K7_BWD_MAX (from m, l; out
     unread), the streamed-key kernel beyond; the plain version for CPU
-    tensors. Its bf16 form is ROADMAP item 9e: a bf16 tensor raises."""
+    tensors. bf16 tensors: the streamed-key kernel's bf16-IO instance at
+    every A2 (D from the saved `out`; module docstring), their plain
+    version in float64, rounded once."""
+    bio = q.dtype == torch.bfloat16
     io_kernel("ang_attn_sweep_bwd", q)
-    if q.device.type != "cuda":
+    if not on_card(q):
+        if bio:
+            grads = ang_attention_sweep_bwd_plain(
+                *(t.double() for t in (q, k, v, out, m, l, dout)), num_heads)
+            return tuple(g.bfloat16() for g in grads)
         return ang_attention_sweep_bwd_plain(q, k, v, out, m, l, dout, num_heads)
     _check_shape("ang_attn_sweep_bwd", q, num_heads)
-    if q.shape[1] <= K7_BWD_MAX:
+    if q.shape[1] <= K7_BWD_MAX and not bio:
         return am.ang_attn_bwd(q, k, v, m, l, dout, num_heads, kernel="ang_attn_sweep_bwd")
     return sweep_bwd_launch(q, k, v, out, m, l, dout, num_heads)
 
@@ -264,13 +280,15 @@ class AngSweepFn(torch.autograd.Function):
     def forward(ctx, q, k, v, num_heads):
         out, m, l = ang_attn_sweep_fwd(q, k, v, num_heads, with_stats=True)
         ctx.save_for_backward(q, k, v, out, m, l)
-        ctx.num_heads = num_heads
+        ctx.num_heads, ctx.plain = num_heads, not on_card(q)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m, l = ctx.saved_tensors
-        return (*ang_attn_sweep_bwd(q, k, v, out, m, l, dout.contiguous(), ctx.num_heads), None)
+        with plain_if(ctx.plain):
+            return (*ang_attn_sweep_bwd(q, k, v, out, m, l, dout.contiguous(), ctx.num_heads),
+                    None)
 
 
 def ang_attention(q, k, v, num_heads: int):

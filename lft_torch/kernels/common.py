@@ -25,7 +25,7 @@ import threading
 
 import torch
 
-from lft_torch.kernels._build import BF16TRAIN, FORWARD, PEROP_BF16IO
+from lft_torch.kernels._build import BF16TRAIN, FORWARD, PEROP_BF16IO, PEROP_BF16TRAIN
 
 KERNEL_C = (16, 32, 64)
 
@@ -154,11 +154,12 @@ def card_plan(plan, bwd_plan) -> None:
 # where it is stored or added (the rounding points the plain versions list).
 # Its unfused branch runs the per-op kernels on bf16 tensors too. On the card
 # the SR forward's kernels (`_build.FORWARD`), those of the fused train step
-# (`_build.BF16TRAIN`: K1 res, K2.3 res, K4, K3's five steps, `wgrad`) and
-# the per-op branch's forwards (`_build.PEROP_BF16IO`: K5-K10) have `_bf16io`
+# (`_build.BF16TRAIN`: K1 res, K2.3 res, K4, K3's five steps, `wgrad`), the
+# per-op branch's forwards (`_build.PEROP_BF16IO`: K5-K10) and its `_res`
+# forms and backwards (`_build.PEROP_BF16TRAIN`: K5-K9) have `_bf16io`
 # instances; a bf16 tensor that reaches a kernel whose bf16 form is not
-# ported yet (the per-op `_res` and backward launches, K11: ROADMAP.md §1
-# item 9e) raises, naming it. Nothing falls back to f32.
+# ported yet (K11's pixel-major launches: ROADMAP.md §1 item 9f) raises,
+# naming it. Nothing falls back to f32.
 
 
 def io_kernel(kernel: str, t: torch.Tensor) -> str:
@@ -168,10 +169,10 @@ def io_kernel(kernel: str, t: torch.Tensor) -> str:
     kernel and its ROADMAP item."""
     if t.dtype != torch.bfloat16:
         return kernel
-    if kernel in FORWARD or kernel + "_bf16io" in BF16TRAIN + PEROP_BF16IO:
+    if kernel in FORWARD or kernel + "_bf16io" in BF16TRAIN + PEROP_BF16IO + PEROP_BF16TRAIN:
         return kernel + "_bf16io"
     raise NotImplementedError(
-        f"{kernel}: its bf16-IO form is not ported yet (queued as ROADMAP.md §1 item 9e); "
+        f"{kernel}: its bf16-IO form is not ported yet (queued as ROADMAP.md §1 item 9f); "
         f"pass float32 tensors")
 
 
@@ -184,18 +185,19 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
-# The per-op forwards' plain versions on the card, where the caller asks for
+# The per-op kernels' plain versions on the card, where the caller asks for
 # them: `models.lft.forward(..., plain_blocks=True)` under `--dtype bfloat16`
 # on the unfused branch, the reference that the card's per-op `_bf16io`
-# kernels are held against. Everywhere else a wrapper takes its plain version
-# for a CPU tensor only.
+# kernels are held against (their forwards, `_res` forms and backwards; an
+# autograd Function's backward runs where its forward ran). Everywhere else a
+# wrapper takes its plain version for a CPU tensor only.
 _plain = threading.local()
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Within it, the per-op attention forwards run their plain versions on
-    every device."""
+    """Within it, the per-op attention kernels (forwards, `_res` forms and
+    backwards) run their plain versions on every device."""
     old = getattr(_plain, "on", False)
     _plain.on = True
     try:
@@ -205,6 +207,12 @@ def plain_versions():
 
 
 def on_card(t: torch.Tensor) -> bool:
-    """Whether a per-op forward launches its kernel for `t`: a CUDA tensor,
-    outside `plain_versions()`."""
+    """Whether a per-op kernel's wrapper launches its kernel for `t`: a CUDA
+    tensor, outside `plain_versions()`."""
     return t.device.type == "cuda" and not getattr(_plain, "on", False)
+
+
+def plain_if(plain: bool):
+    """`plain_versions()` where `plain`, else nothing: an autograd Function's
+    backward entered where its forward ran."""
+    return plain_versions() if plain else contextlib.nullcontext()

@@ -24,8 +24,15 @@ bf16 q, k, v (`--dtype bfloat16` serving): lft_tpu's kernel (:48-116)
 widens q, k and v to f32, scales q, runs its online softmax in f32 and
 rounds the output once. On the card `spa_attn_offset_bf16io` (K5's wrapper,
 `spa_window_attn_kernel`'s bf16-IO instance, f32 inside), on the CPU the
-plain version on the widened values, rounded once; forward only (the `_res`
-form and the backward in bf16 are ROADMAP item 9e and raise).
+plain version on the widened values, rounded once. Training in bf16: the
+`_res` form (`spa_attn_offset_res_bf16io`, the same instance writing each
+head's m and l) and the backward (`spa_attn_offset_bwd_bf16io`, lft_tpu's
+_vjp_bwd on bf16 tensors, :282-341: f32 inside, nothing rounded but dq, dk
+and dv, once, and D = rowsum_head(dout * out) over the SAVED BF16 OUTPUT,
+:307, which differs from D formed from the scores by the output's
+rounding); `SpaOffsetFn` saves the bf16 output on the card too, and K5's
+passes take D from it (`lft_spa_attn_f32in_bwd_bf16io`). The plain
+backward runs in float64 on the widened values and rounds once.
 
 A channel count that the heads do not divide is refused with a ValueError:
 the JAX kernel leaves the last E - heads * (E // heads) channels to no head
@@ -38,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from lft_torch.kernels.ang_block import _needs_grad
-from lft_torch.kernels.common import io_kernel, mm, on_card
+from lft_torch.kernels.common import io_kernel, mm, on_card, plain_if
 from lft_torch.kernels.spa_attn_hp import (_window_offsets, _window_valid, spa_attn_hp_bwd,
                                            spa_attn_hp_fwd)
 
@@ -123,8 +130,9 @@ def spa_attn_offset_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = 
     io_kernel("spa_attn_offset_res" if with_stats else "spa_attn_offset", q)
     if not on_card(q):
         if q.dtype == torch.bfloat16:
-            return windowed_attention_offset_plain(q.float(), k.float(), v.float(), num_heads,
-                                                   ksize)[0].bfloat16()
+            out, m, l = windowed_attention_offset_plain(q.float(), k.float(), v.float(),
+                                                        num_heads, ksize)
+            return (out.bfloat16(), m, l) if with_stats else out.bfloat16()
         out, m, l = windowed_attention_offset_plain(q, k, v, num_heads, ksize)
         return (out, m, l) if with_stats else out
     return spa_attn_hp_fwd(q, k, v, num_heads, ksize, with_stats, kernel="spa_attn_offset")
@@ -132,32 +140,42 @@ def spa_attn_offset_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = 
 
 def spa_attn_offset_bwd(q, k, v, out, m, l, dout, num_heads: int, ksize: int):
     """K9's backward: (dq, dk, dv) [B, h, w, E]; K5's two backward passes
-    for CUDA tensors, counted as `spa_attn_offset_bwd`, which compute D
-    themselves and do not read `out` (None will do there). Its bf16 form is
-    ROADMAP item 9e: a bf16 tensor raises."""
+    for CUDA tensors, counted as `spa_attn_offset_bwd`, which at f32 compute
+    D themselves and do not read `out` (None will do there). bf16 tensors:
+    `spa_attn_offset_bwd_bf16io`, D from the saved bf16 `out` (module
+    docstring)."""
     _check_heads("spa_attn_offset_bwd", q, num_heads)
     io_kernel("spa_attn_offset_bwd", q)
-    if q.device.type != "cuda":
+    if not on_card(q):
+        if q.dtype == torch.bfloat16:
+            grads = windowed_attention_offset_bwd_plain(
+                *(t.double() for t in (q, k, v, out, m, l, dout)), num_heads, ksize)
+            return tuple(g.bfloat16() for g in grads)
         return windowed_attention_offset_bwd_plain(q, k, v, out, m, l, dout, num_heads, ksize)
-    return spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads, ksize, kernel="spa_attn_offset_bwd")
+    return spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads, ksize, kernel="spa_attn_offset_bwd",
+                           out=out)
 
 
 class SpaOffsetFn(torch.autograd.Function):
     """K9 with stats forward, K9's backward; saves (q, k, v, m, l), and the
-    output only for the plain backward, which reads it."""
+    output where the backward reads it: the plain backward, and the bf16
+    kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, ksize):
         out, m, l = spa_attn_offset_fwd(q, k, v, num_heads, ksize, with_stats=True)
-        ctx.save_for_backward(q, k, v, m, l, None if q.device.type == "cuda" else out)
+        ctx.plain = not on_card(q)
+        ctx.save_for_backward(q, k, v, m, l,
+                              out if ctx.plain or q.dtype == torch.bfloat16 else None)
         ctx.cfg = (num_heads, ksize)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, m, l, out = ctx.saved_tensors
-        return (*spa_attn_offset_bwd(q, k, v, out, m, l, dout.contiguous(), *ctx.cfg),
-                None, None)
+        with plain_if(ctx.plain):
+            return (*spa_attn_offset_bwd(q, k, v, out, m, l, dout.contiguous(), *ctx.cfg),
+                    None, None)
 
 
 def windowed_attention(q, k, v, num_heads: int, ksize: int = 5):

@@ -29,8 +29,15 @@ bf16 q, k, v (`--dtype bfloat16` serving): lft_tpu's kernel with io = bf16
 values, m the head's own max, p = bf16(e / l) before the product with v,
 the f32 sum rounded once. On the card `spa_attn_mxu_bf16io` (K5's wrapper,
 `spa_window_attn_kernel`'s normalized bf16-IO instance), on the CPU
-`windowed_attention_mxu_bf16_plain`; forward only (the `_res` form and the
-backward in bf16 are ROADMAP item 9e and raise).
+`windowed_attention_mxu_bf16_plain`. Training in bf16: `spa_attn_mxu_res_bf16io`
+(the same kernel writing each head's m and l) and `spa_attn_mxu_bwd_bf16io`
+(lft_tpu's _bwd_kernel with io = bf16, :120-180: a = exp(s - m) / l and D =
+sum a (dout . v) in f32, ds = bf16(a (dov - D) scale) and bf16(a) before
+their products, dq rounded once, dk and dv summed over the halos in f32 and
+rounded once: K5's bf16-IO passes with p = e / l); their plain versions
+`windowed_attention_mxu_bf16_plain(with_stats=True)` and
+`windowed_attention_mxu_bwd_bf16_plain` (float64 between the rounding
+points).
 
 `windowed_attention_hybrid` picks a kernel per context as the JAX hybrid does
 off a TPU: the window kernel K5 for the primal and for the training pair
@@ -48,7 +55,7 @@ import torch.nn.functional as F
 
 from lft_torch.kernels import local_attn_vjp
 from lft_torch.kernels.ang_block import _needs_grad
-from lft_torch.kernels.common import bf16_round, io_kernel, mm, on_card
+from lft_torch.kernels.common import bf16_round, io_kernel, mm, on_card, plain_if
 from lft_torch.kernels.spa_attn_hp import (_check_shape, headpacked_applicable, spa_attn_hp_bwd,
                                            spa_attn_hp_fwd, windowed_attention_headpacked)
 
@@ -163,24 +170,31 @@ def windowed_attention_mxu_plain(q, k, v, num_heads: int, ksize: int):
     return torch.cat(outs).contiguous(), torch.cat(ms).contiguous(), torch.cat(ls).contiguous()
 
 
-def windowed_attention_mxu_bf16_plain(q, k, v, num_heads: int, ksize: int):
+def windowed_attention_mxu_bf16_plain(q, k, v, num_heads: int, ksize: int,
+                                      with_stats: bool = False):
     """Plain version of K6's forward on bf16 q, k, v -> bf16 (module
     docstring): per tile and head the dense masked scores in f32, the
-    head's softmax, p rounded to bf16, p @ v rounded once."""
+    head's softmax, p rounded to bf16, p @ v rounded once. with_stats:
+    (out, m, l), m and l f32 [B, h, w, H], each head's max and sum."""
     (th, tw), r = _tile_geometry(q, num_heads, ksize)
     B, h, w, E = q.shape
     H, scale = num_heads, float(E // num_heads) ** -0.5
     valid = torch.from_numpy(_tile_mask(th, tw, r, h, w)).to(q.device)[:, None]
     mask = torch.zeros(valid.shape, device=q.device).masked_fill(~valid, MASKED)
-    outs = []
+    outs, ms, ls = [], [], []
     step = _view_chunks(B, valid.numel() * H)
     for b0 in range(0, B, step):
         qf, kf, vf = (t[b0:b0 + step].float() for t in (q, k, v))
         s = (_to_tiles(qf, th, tw, H) @ _to_halos(kf, th, tw, r, H).transpose(-1, -2)) * scale
-        e = torch.exp(s + mask - (s + mask).amax(-1, keepdim=True))
-        p = bf16_round(e / e.sum(-1, keepdim=True))
+        m = (s + mask).amax(-1, keepdim=True)
+        e = torch.exp(s + mask - m)
+        l = e.sum(-1, keepdim=True)
+        p = bf16_round(e / l)
         outs.append(_from_tiles(p @ _to_halos(vf, th, tw, r, H), h, w, th, tw))
-    return torch.cat(outs).bfloat16().contiguous()
+        ms.append(_from_tiles(m, h, w, th, tw))
+        ls.append(_from_tiles(l, h, w, th, tw))
+    out = torch.cat(outs).bfloat16().contiguous()
+    return (out, torch.cat(ms).contiguous(), torch.cat(ls).contiguous()) if with_stats else out
 
 
 def windowed_attention_mxu_bwd_plain(q, k, v, m, l, dout, num_heads: int, ksize: int):
@@ -208,6 +222,33 @@ def windowed_attention_mxu_bwd_plain(q, k, v, m, l, dout, num_heads: int, ksize:
     return tuple(torch.cat(g).contiguous() for g in grads)
 
 
+def windowed_attention_mxu_bwd_bf16_plain(q, k, v, m, l, dout, num_heads: int, ksize: int):
+    """Plain version of K6's backward on bf16 q, k, v, dout (module
+    docstring): per tile and head in float64 between lft_tpu's rounding
+    points, a = exp(s - m) / l, ds and a rounded to bf16 before their
+    products, dq, dk, dv rounded once to bf16."""
+    (th, tw), r = _tile_geometry(q, num_heads, ksize)
+    B, h, w, E = q.shape
+    H, scale = num_heads, float(torch.tensor(float(E // num_heads) ** -0.5))
+    valid = torch.from_numpy(_tile_mask(th, tw, r, h, w)).to(q.device)[:, None]
+    grads = ([], [], [])
+    step = _view_chunks(B, valid.numel() * H)
+    for b0 in range(0, B, step):
+        sl = slice(b0, b0 + step)
+        f = lambda t: t[sl].double()
+        q_t, do_t = _to_tiles(f(q), th, tw, H), _to_tiles(f(dout), th, tw, H)
+        k_t, v_t = _to_halos(f(k), th, tw, r, H), _to_halos(f(v), th, tw, r, H)
+        m_t, l_t = _to_tiles(f(m), th, tw, H), _to_tiles(f(l), th, tw, H)
+        s = (q_t @ k_t.transpose(-1, -2)) * scale
+        a = (torch.exp(s - m_t) / l_t).masked_fill(~valid, 0.0)
+        dov = do_t @ v_t.transpose(-1, -2)
+        ds = bf16_round(a * (dov - (a * dov).sum(-1, keepdim=True)) * scale)
+        grads[0].append(_from_tiles(ds @ k_t, h, w, th, tw))
+        grads[1].append(_add_halos(ds.transpose(-1, -2) @ q_t, h, w, th, tw, r))
+        grads[2].append(_add_halos(bf16_round(a).transpose(-1, -2) @ do_t, h, w, th, tw, r))
+    return tuple(torch.cat(g).bfloat16().contiguous() for g in grads)
+
+
 # -------------------------------------------------------- kernel wrappers ---
 
 def spa_attn_mxu_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = False):
@@ -218,7 +259,7 @@ def spa_attn_mxu_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = Fal
     name = io_kernel("spa_attn_mxu_res" if with_stats else "spa_attn_mxu", q)
     if not on_card(q):
         if q.dtype == torch.bfloat16:
-            return windowed_attention_mxu_bf16_plain(q, k, v, num_heads, ksize)
+            return windowed_attention_mxu_bf16_plain(q, k, v, num_heads, ksize, with_stats)
         out, m, l = windowed_attention_mxu_plain(q, k, v, num_heads, ksize)
         return (out, m, l) if with_stats else out
     _check_shape(name, q, num_heads, ksize)
@@ -228,12 +269,14 @@ def spa_attn_mxu_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = Fal
 
 def spa_attn_mxu_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int):
     """K6's backward: (dq, dk, dv) [B, h, w, E]; K5's two backward passes
-    for CUDA tensors, counted as `spa_attn_mxu_bwd`. Its bf16 form is
-    ROADMAP item 9e: a bf16 tensor raises."""
-    io_kernel("spa_attn_mxu_bwd", q)
-    if q.device.type != "cuda":
+    for CUDA tensors, counted as `spa_attn_mxu_bwd`. bf16 tensors:
+    `spa_attn_mxu_bwd_bf16io` (module docstring)."""
+    name = io_kernel("spa_attn_mxu_bwd", q)
+    if not on_card(q):
+        if q.dtype == torch.bfloat16:
+            return windowed_attention_mxu_bwd_bf16_plain(q, k, v, m, l, dout, num_heads, ksize)
         return windowed_attention_mxu_bwd_plain(q, k, v, m, l, dout, num_heads, ksize)
-    _check_shape("spa_attn_mxu_bwd", q, num_heads, ksize)
+    _check_shape(name, q, num_heads, ksize)
     _tile_geometry(q, num_heads, ksize)
     return spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads, ksize, kernel="spa_attn_mxu_bwd")
 
@@ -245,13 +288,14 @@ class SpaMxuFn(torch.autograd.Function):
     def forward(ctx, q, k, v, num_heads, ksize):
         out, m, l = spa_attn_mxu_fwd(q, k, v, num_heads, ksize, with_stats=True)
         ctx.save_for_backward(q, k, v, m, l)
-        ctx.cfg = (num_heads, ksize)
+        ctx.cfg, ctx.plain = (num_heads, ksize), not on_card(q)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, m, l = ctx.saved_tensors
-        return (*spa_attn_mxu_bwd(q, k, v, m, l, dout.contiguous(), *ctx.cfg), None, None)
+        with plain_if(ctx.plain):
+            return (*spa_attn_mxu_bwd(q, k, v, m, l, dout.contiguous(), *ctx.cfg), None, None)
 
 
 def windowed_attention_mxu(q_img, k_img, v_img, num_heads: int, k: int = 5):
@@ -265,9 +309,11 @@ def windowed_attention_mxu(q_img, k_img, v_img, num_heads: int, k: int = 5):
 
 def windowed_attention_hybrid(q_img, k_img, v_img, num_heads: int, k: int):
     """Window attention with the kernel chosen per context, as the JAX
-    hybrid chooses off a TPU: K5 for the primal and for the training pair
+    hybrid chooses off a TPU (and on a TPU under bf16: lft_tpu's
+    `_use_headpacked_pair`): K5 for the primal and for the training pair
     wherever `headpacked_applicable`; else K9 for the primal and K6 for the
-    training pair. The caller ensures `pick_tile(h, w)` and h*w <= 2048."""
+    training pair. The pair is fixed for both directions (their (m, l)
+    layouts differ). The caller ensures `pick_tile(h, w)` and h*w <= 2048."""
     B, h, w, E = q_img.shape
     if headpacked_applicable(h, w, E, num_heads, k):
         return windowed_attention_headpacked(q_img, k_img, v_img, num_heads, k)

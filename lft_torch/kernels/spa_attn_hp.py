@@ -35,8 +35,25 @@ window_attn_plain`). The same wrapper launches the bf16-IO instances of K6
 (`spa_attn_mxu_bf16io`: lft_tpu's per-head softmax, p = bf16(e / l) before
 the product) and of K9 and K10 (`spa_attn_offset_bf16io`,
 `spa_attn_tile_bf16io`: f32 inside, the output rounded once) on
-`spa_window_attn_kernel`'s IO-typed instances. Forward only: the `_res`
-forms and the backwards in bf16 are ROADMAP item 9e and raise.
+`spa_window_attn_kernel`'s IO-typed instances.
+
+Training in bf16 (`--dtype bfloat16` through the per-op branch): each
+family's `_res` form is its forward's kernel writing (m, l) f32 in the
+layout its backward reads (`spa_attn_hp_res_bf16io`: K2.3 res bf16io's
+kernel, m the query's max over its heads in every head's slot;
+`spa_attn_mxu_res_bf16io` and `spa_attn_offset_res_bf16io`: each head's own
+max and sum). The backwards: K5's (`spa_attn_hp_bwd_bf16io`) is K3.c
+bf16io's passes, `lft_spa_attn_hp_bwd_bf16io` (lft_tpu's _vjp_bwd with io =
+bf16, :464-527, is K3's window step backward: p = e (1 / l), D = sum_j p_j
+dp_j in f32, ds = bf16(p (dp - D) scale) and bf16(p) before their products,
+dq, dk, dv summed in f32 and rounded once); K6's (`spa_attn_mxu_bwd_bf16io`)
+the same passes with p = e / l, as lft_tpu's K6 divides
+(`lft_spa_attn_norm_bwd_bf16io`); K9's (`spa_attn_offset_bwd_bf16io`) the
+f32 passes on bf16 tensors with D = dout . out from the saved bf16 output
+(`lft_spa_attn_f32in_bwd_bf16io`). On the CPU, or inside
+`common.plain_versions()`, their plain versions: K5's is K3.c's
+(`spa_block.window_attn_bwd_plain`'s bf16 branch, float64 between the
+rounding points).
 
 `headpacked_applicable` decides the dispatch exactly as the JAX package's
 does (its tile search is the TPU's; the port keeps its outcome, so both
@@ -55,7 +72,7 @@ import torch.nn.functional as F
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad
-from lft_torch.kernels.common import io_kernel, on_card
+from lft_torch.kernels.common import io_kernel, on_card, plain_if
 
 # The JAX gate's geometry limits (lft_tpu/kernels/spa_attn_hp.py:65-67):
 # the port keeps their outcome, not their TPU meaning.
@@ -192,18 +209,25 @@ def _check_shape(kernel: str, q, num_heads: int, ksize: int) -> None:
             f"5x5 window; got shape {tuple(q.shape)}, heads={num_heads}, k={ksize}")
 
 
-# The bf16-IO entry of each family that launches K5's forward wrapper.
-_BF16IO_ENTRY = {"spa_attn_hp": "lft_spa_attn_hp_bf16io",         # deferred (K2.3 bf16io)
-                 "spa_attn_mxu": "lft_spa_attn_norm_bf16io",       # normalized
-                 "spa_attn_offset": "lft_spa_attn_f32in_bf16io",   # f32 inside
-                 "spa_attn_tile": "lft_spa_attn_f32in_bf16io"}
+# The bf16-IO entries (`lft_spa_attn_<family>[_res|_bwd]_bf16io`) of each
+# kernel that launches K5's wrappers: deferred (K5, K2.3 bf16io's kernels),
+# normalized (K6) and f32 inside (K9, K10).
+_BF16IO_FAMILY = {"spa_attn_hp": "hp", "spa_attn_mxu": "norm", "spa_attn_offset": "f32in",
+                  "spa_attn_tile": "f32in", "spa_window_attn": "hp"}
 
 
-def windowed_attention_headpacked_bf16_plain(q, k, v, num_heads: int, ksize: int):
+def _family(kernel: str) -> str:
+    return next(f for k, f in _BF16IO_FAMILY.items() if kernel.startswith(k))
+
+
+def windowed_attention_headpacked_bf16_plain(q, k, v, num_heads: int, ksize: int,
+                                             with_stats: bool = False):
     """Plain version of K5's forward on bf16 q, k, v -> bf16 (module
-    docstring): K2.3's bf16 window step."""
+    docstring): K2.3's bf16 window step; with_stats (out, m, l), m the
+    query's max over its heads in every head's slot."""
     from lft_torch.kernels.spa_block import window_attn_plain
-    return window_attn_plain(q, k, v, num_heads, ksize)[0]
+    res = window_attn_plain(q, k, v, num_heads, ksize)
+    return res if with_stats else res[0]
 
 
 def spa_attn_hp_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = False,
@@ -218,7 +242,8 @@ def spa_attn_hp_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = Fals
     bio = q.dtype == torch.bfloat16
     if not on_card(q):
         if bio:
-            return windowed_attention_headpacked_bf16_plain(q, k, v, num_heads, ksize)
+            return windowed_attention_headpacked_bf16_plain(q, k, v, num_heads, ksize,
+                                                            with_stats)
         out, m, l = windowed_attention_headpacked_plain(q, k, v, num_heads, ksize)
         return (out, m, l) if with_stats else out
     _check_shape(name, q, num_heads, ksize)
@@ -228,56 +253,63 @@ def spa_attn_hp_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = Fals
     tail = (B, h, w, E, num_heads, float(E // num_heads) ** -0.5)
     types = (ctypes.c_int,) * 5 + (ctypes.c_float,)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    entry = (f"lft_spa_attn_{_family(kernel)}{'_res' if with_stats else ''}_bf16io" if bio
+             else "lft_spa_attn_hp_res" if with_stats else "lft_spa_attn_hp")
     if not with_stats:
-        entry = _BF16IO_ENTRY[kernel] if bio else "lft_spa_attn_hp"
         _build.launch("spa_attn_hp", name, _build.bind("spa_attn_hp", entry, 4, types), q.device,
                       *ptrs, *tail)
         return out
     m = torch.empty(B, h, w, num_heads, device=q.device)
     l = torch.empty_like(m)
-    fn = _build.bind("spa_attn_hp", "lft_spa_attn_hp_res", 6, types)
+    fn = _build.bind("spa_attn_hp", entry, 6, types)
     _build.launch("spa_attn_hp", name, fn, q.device, *ptrs, m.data_ptr(), l.data_ptr(), *tail)
     return out, m, l
 
 
 def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int, with_dsum: bool = False,
-                    kernel: str = "spa_attn_hp_bwd", half: bool = False):
+                    kernel: str = "spa_attn_hp_bwd", half: bool = False, out=None):
     """K5's backward: (dq, dk, dv) [B, h, w, E]; with_dsum also D [B, h, w,
     H], the scratch pass q hands to pass kv. `kernel`: the name the launch
     is counted under (the fused SpaTrans backward's step c launches it as
-    `spa_window_attn_bwd`). `half`: the passes' bf16-operand instance
-    (`lft_spa_attn_hp_bwd_bf16`, which only K3.c's `--dtype mixed` form
-    launches, on the card only: its plain version is
+    `spa_window_attn_bwd`, K6 and K9 under theirs). `half`: the passes'
+    bf16-operand instance (`lft_spa_attn_hp_bwd_bf16`, which only K3.c's
+    `--dtype mixed` form launches, on the card only: its plain version is
     `spa_block.window_attn_bwd_plain` under the plan). bf16 q, k, v and
-    dout (K3.c under `--dtype bfloat16`, `kernel` its `_bf16io` name):
-    `lft_spa_attn_hp_bwd_bf16io`, the bf16-operand passes on bf16 tensors,
-    dq, dk, dv rounded to bf16 once, on the card only (its plain version is
-    `spa_block.window_attn_bwd_plain`'s bf16 branch)."""
+    dout: `kernel`'s `_bf16io` instance (module docstring; K9's reads its
+    saved bf16 output `out`), dq, dk, dv rounded to bf16 once; on the CPU or
+    inside `plain_versions()` K5's plain version is
+    `spa_block.window_attn_bwd_plain`'s bf16 branch."""
     bio = q.dtype == torch.bfloat16
     if bio and not kernel.endswith("_bf16io"):
-        io_kernel(kernel, q)   # K5's bf16 backward is ROADMAP item 9e: raises
-    if (half or bio) and q.device.type != "cuda":
+        kernel = io_kernel(kernel, q)
+    if half and q.device.type != "cuda":
         raise ValueError(f"{kernel}: the bf16-operand instance runs on the card only")
-    if q.device.type != "cuda":
+    if not on_card(q):
+        if bio:
+            from lft_torch.kernels.spa_block import window_attn_bwd_plain
+            return window_attn_bwd_plain(q, k, v, None, dout, m, l, num_heads, ksize)
         grads = windowed_attention_headpacked_bwd_plain(q, k, v, m, l, dout, num_heads, ksize)
         if not with_dsum:
             return grads
         return (*grads, windowed_attention_headpacked_dsum_plain(q, k, v, m, l, dout, num_heads,
                                                                  ksize))
     _check_shape(kernel, q, num_heads, ksize)
-    if bio:
-        _build.check_cuda_args(kernel, q, k, v, dout, dtype=torch.bfloat16)
-        _build.check_cuda_args(kernel, m, l)
-    else:
-        _build.check_cuda_args(kernel, q, k, v, dout, m, l)
     B, h, w, E = q.shape
     dsum = torch.empty(B, h, w, num_heads, device=q.device)
     outs = tuple(torch.empty_like(q) for _ in range(3))
-    fn = _build.bind("spa_attn_hp", "lft_spa_attn_hp_bwd" + ("_bf16io" if bio else
-                                                             "_bf16" if half else ""), 10,
-                     (ctypes.c_int,) * 5 + (ctypes.c_float,))
+    if bio:
+        fam = _family(kernel)
+        ins = (q, k, v, dout) + ((out,) if fam == "f32in" else ())
+        _build.check_cuda_args(kernel, *ins, dtype=torch.bfloat16)
+        _build.check_cuda_args(kernel, m, l)
+        entry = f"lft_spa_attn_{fam}_bwd_bf16io"
+    else:
+        ins = (q, k, v, dout)
+        _build.check_cuda_args(kernel, *ins, m, l)
+        entry = "lft_spa_attn_hp_bwd" + ("_bf16" if half else "")
+    fn = _build.bind("spa_attn_hp", entry, len(ins) + 6, (ctypes.c_int,) * 5 + (ctypes.c_float,))
     _build.launch("spa_attn_hp", kernel, fn, q.device,
-                  *(t.data_ptr() for t in (q, k, v, dout, m, l, dsum, *outs)),
+                  *(t.data_ptr() for t in (*ins, m, l, dsum, *outs)),
                   B, h, w, E, num_heads, float(E // num_heads) ** -0.5)
     return (*outs, dsum) if with_dsum else outs
 
@@ -289,13 +321,14 @@ class SpaAttnHpFn(torch.autograd.Function):
     def forward(ctx, q, k, v, num_heads, ksize):
         out, m, l = spa_attn_hp_fwd(q, k, v, num_heads, ksize, with_stats=True)
         ctx.save_for_backward(q, k, v, m, l)
-        ctx.cfg = (num_heads, ksize)
+        ctx.cfg, ctx.plain = (num_heads, ksize), not on_card(q)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, m, l = ctx.saved_tensors
-        return (*spa_attn_hp_bwd(q, k, v, m, l, dout.contiguous(), *ctx.cfg), None, None)
+        with plain_if(ctx.plain):
+            return (*spa_attn_hp_bwd(q, k, v, m, l, dout.contiguous(), *ctx.cfg), None, None)
 
 
 def windowed_attention_headpacked(q, k, v, num_heads: int, ksize: int = 5):

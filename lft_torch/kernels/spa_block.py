@@ -52,7 +52,7 @@ them bf16. Training under it (lft_tpu's custom VJP with `io` = bf16,
 K3's five steps in bf16 IO (`_bf16io` after each name; what each hands on
 is bf16 but dx2, dtokpe and the LN partial sums, which lft_tpu keeps f32),
 `wgrad_bf16io`, and `SpaBlockFn` returns each weight gradient and dpe_tok
-rounded once to bf16. K11 takes no bf16 tensor yet (ROADMAP.md §1 item 9e:
+rounded once to bf16. K11 takes no bf16 tensor yet (ROADMAP.md §1 item 9f:
 `common.io_kernel` raises).
 Step 3's kernel (`csrc/window_attn.cuh`) is also K5's forward; the geometry
 of it and of K5's two-pass backward is mirrored here (`window_items`,

@@ -62,14 +62,17 @@ attentions of `attention_impl`: the per-op kernels' `_bf16io` instances on
 the card (`kernels._build.PEROP_BF16IO`), their plain versions on the CPU or
 with `plain_blocks=True`, or the torch ops at lft_tpu's rounding points
 (ops/attention.py: the tiled op's f32 mask promotes what follows it to f32,
-as jnp promotes it). It trains as lft_tpu's fused branch trains it
-(lft_tpu/models/lft.py:332): each block through its autograd Function (K1
-res / K2 res forward, K4 / K3 backward, all in bf16 IO, each weight
-gradient rounded once to bf16), the rest under torch's autograd in bf16,
-the loss on the f32 SR; the casts' backward brings every gradient to the
-f32 parameters. A bf16 forward that would differentiate the unfused branch
-raises NotImplementedError naming ROADMAP item 9e (the per-op kernels'
-bf16 backwards), on every device.
+as jnp promotes it). It trains through either branch as lft_tpu's trains
+it: the fused one (lft_tpu/models/lft.py:332) with each block through its
+autograd Function (K1 res / K2 res forward, K4 / K3 backward, all in bf16
+IO, each weight gradient rounded once to bf16); the unfused one with its
+torch ops (the op-by-op LayerNorm, the products, the casts) under torch's
+autograd in bf16 and the attentions of `attention_impl` through their
+autograd Functions (the per-op kernels' `_res` forms and backwards,
+`kernels._build.PEROP_BF16TRAIN`, on the card; their plain versions on the
+CPU or with `plain_blocks=True`; or the torch ops); in both the rest under
+torch's autograd in bf16, the loss on the f32 SR, and the casts' backward
+brings every gradient to the f32 parameters.
 """
 
 from __future__ import annotations
@@ -295,9 +298,8 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
     `attention_impl` (default `args.attention_impl`) selects the unfused
     branch's attention: auto | dense | tiled | pallas. `args.dtype` `mixed`
     takes lft_tpu's site plans in the fused branch (module docstring),
-    `bfloat16` bf16 inference through either branch (`resolve_bf16`, fused
-    where the gates pass, `fused=None` included) and training through the
-    fused one."""
+    `bfloat16` bf16 inference and training through either branch
+    (`resolve_bf16`, fused where the gates pass, `fused=None` included)."""
     dt = str(getattr(args, "dtype", "float32") or "float32")
     check_dtype(dt)
     bf16 = dt == "bfloat16"
@@ -329,11 +331,6 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
 
     if bf16:
         fused = resolve_bf16(fused, h, w, C, A * A, dev.type, plain_blocks)
-        if not fused and _needs_grad(lr, *params.values()):
-            raise NotImplementedError(
-                f"--dtype bfloat16 trains the fused blocks only (views {h}x{w}, {A * A} of "
-                f"them, C={C} on {dev.type} take the unfused branch): its bf16 training, the "
-                f"per-op kernels' bf16 backwards, is queued as ROADMAP.md §1 item 9e")
         if fused:
             spa_pe = spa_pe.to(torch.bfloat16)     # lft_tpu/models/lft.py:348
     else:
@@ -406,25 +403,47 @@ def _fold_index(C: int, S: int):
     return tuple(torch.tensor(a) for a in (r, c))
 
 
+class _Repeat(torch.autograd.Function):
+    """A flat w repeated n times, whose backward adds the n cotangents one at
+    a time in w's dtype, in their order (as lft_tpu's scatter of w3 into
+    Wfold adds its updates: in bf16 each sum rounded; torch's sum over an
+    expanded axis would round the n once)."""
+
+    @staticmethod
+    def forward(ctx, w, n: int):
+        ctx.n = n
+        return w.reshape(1, -1).expand(n, -1).reshape(-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.reshape(ctx.n, -1)
+        acc = g[0]
+        for i in range(1, ctx.n):
+            acc = acc + g[i]
+        return acc, None
+
+
 def _upsample_fold(m, w_up, w3, S: int):
     """The upsampler as lft_tpu's `fold` computes it (lft_tpu/models/lft.py:
     391-433), for `--dtype bfloat16`: m [B, H, W, C] (the mosaic: bf16, or
     f32 where the unfused branch's tiled attention promoted it; the weights
-    take its dtype, as there) -> [B, 1, H S, W S]. U = leaky(m W_up^T) in LR layout; T = U Wfold, the 3x3
+    take its dtype, as there; Wfold is built in w3's and cast) -> [B, 1, H
+    S, W S]. U = leaky(m W_up^T) in LR layout; T = U Wfold, the 3x3
     conv's parts from each of the 9 neighbouring LR cells, each rounded to
     bf16; their sum over the cells, shifted, one bf16 addition at a time in
     lft_tpu's order; then the pixel shuffle. The same function as the NCHW
     form, which rounds the conv once and so skips roundings lft_tpu makes:
     with it the bf16 SR lay 0.876 of lft_tpu's bf16-vs-f32 distance from the
     f32 SR, with this form 0.984 (tests/test_torch_bf16.py, on the CPU).
-    Under grad, Wfold's backward gathers its entries and sums each tap's S^2
-    in a fixed order (`_fold_index`): a train step repeats bitwise."""
+    Under grad, Wfold's backward gathers its entries and adds each tap's S^2
+    one at a time in lft_tpu's order (its scatter into Wfold, `_Repeat`),
+    each sum rounded to w3's dtype: a train step repeats bitwise."""
     B, H, W, C = m.shape
     S2 = S * S
     rows, cols = _fold_index(C, S)
-    wfold = torch.zeros(C * S2, 9 * S2, dtype=m.dtype, device=m.device)
+    wfold = torch.zeros(C * S2, 9 * S2, dtype=w3.dtype, device=m.device)
     wfold = wfold.index_put((rows.to(m.device), cols.to(m.device)),
-                            w3.to(m.dtype).reshape(1, -1).expand(S2, -1).reshape(-1))
+                            _Repeat.apply(w3.reshape(-1), S2)).to(m.dtype)
     u = _leaky(m @ w_up[:, :, 0, 0].t().to(m.dtype))               # [B, H, W, S2 C]
     tp = F.pad(u @ wfold, (0, 0, 1, 1, 1, 1))                      # [B, H+2, W+2, 9 S2]
     o = 0

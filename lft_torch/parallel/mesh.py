@@ -16,7 +16,9 @@ all-reduce, so the logs read as a single process's.
 As in lft_tpu (mesh.py:66, `model.apply(params, data, args)` without
 `fused=`), the data-parallel step trains the unfused branch, whatever
 `--train_fused` says: on the card the per-op kernels K7 and K5 (or K8,
-K9, K6 where the geometry or knobs send it) with their kernel backwards.
+K9, K6 where the geometry or knobs send it) with their kernel backwards,
+under `--dtype bfloat16` their `_bf16io` forms (`kernels.PEROP_BF16TRAIN`).
+At world size 1 it is `make_train_step(--train_fused false)`'s step.
 """
 
 from __future__ import annotations

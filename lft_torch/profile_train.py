@@ -23,8 +23,9 @@ with `--plain` their plain versions); `--matmul-precision high` turns TF32
 on for the torch ops around the kernels. `--dtype bfloat16` trains the
 bf16 model (lft_tpu's all-bf16 mode): the fused blocks' `_bf16io` kernels,
 K1 res, K2 res, K4, K3 and `wgrad_bf16io` (with `--plain` their plain
-versions), the master weights and Adam state f32; it has no `--unfused`
-form (ROADMAP.md §1 item 9e).
+versions), or with `--unfused` the per-op branch's `_res_bf16io` forms and
+`_bwd_bf16io` backwards (K7 + K5, or the knobs' families), the master
+weights and Adam state f32.
 `--plain` trains through the blocks' plain PyTorch versions and backwards
 instead of the kernels; `--unfused` trains the per-op branch
 (`--train_fused false`): the attentions as the kernels K7 and K5 with their

@@ -20,13 +20,14 @@ each rank takes its slice of every batch, and only rank 0 logs and writes
 checkpoints. The data-parallel step trains the unfused branch, as
 lft_tpu's does (`--train_fused` is not read there).
 
-`--dtype bfloat16` trains the fused blocks in bf16 (`--train_fused auto`
-is fused under it on every device): on the card the `_bf16io` kernels of K1
-res, K2 res, K4, K3 and `wgrad`, on the CPU their plain versions; the
-master weights, the Adam state and the checkpoints stay f32, so a resume is
-exact. `--train_fused false` and the data-parallel step raise under it
-(the unfused branch serves in bf16; its bf16 training is ROADMAP.md §1
-item 9e).
+`--dtype bfloat16` trains in bf16 through either branch (`--train_fused
+auto` is fused under it on the card and unfused on the CPU, as lft_tpu's
+auto): the fused blocks, on the card the `_bf16io` kernels of K1 res, K2
+res, K4, K3 and `wgrad`; or with `--train_fused false` and in the
+data-parallel step the unfused branch, on the card the per-op kernels'
+`_res_bf16io` forms and `_bwd_bf16io` backwards (K5-K9); on the CPU their
+plain versions. The master weights, the Adam state and the checkpoints stay
+f32, so a resume is exact.
 """
 
 from __future__ import annotations

@@ -18,8 +18,8 @@ torch's own autograd; or with `--train_fused true`, and by default under
 through the fused blocks, whose backwards are the hand-written K4/K3 kernels
 with deterministic weight-gradient reductions (every geometry the fused
 gates pass, up to 11x11 views). Under `--dtype bfloat16` the model computes
-in bf16 (`models/lft.py`) while the master parameters, the Adam moments and
-the checkpoints stay f32. cuDNN is held to deterministic algorithms: the
+in bf16 (`models/lft.py`) through either branch, while the master
+parameters, the Adam moments and the checkpoints stay f32. cuDNN is held to deterministic algorithms: the
 same state and batch give the same update bit for bit.
 
 Data parallelism lives in lft_torch/parallel/; as in lft_tpu, `fit` takes
@@ -45,20 +45,18 @@ from lft_torch.utils.checkpoint import (load_checkpoint, params_to_pth, save_che
 
 def train_fused(args, device: torch.device) -> bool:
     """`--train_fused`: auto = the fused blocks on the card under `--dtype
-    mixed`, on every device under `bfloat16`, the unfused branch otherwise,
-    as lft_tpu's auto (lft_tpu/training/trainer.py:100-106: fused on its
-    accelerator in bfloat16 or mixed; the card stands where the TPU stands;
-    on the CPU lft_tpu's bf16 `auto` trains its unfused branch, which the
-    port has no bf16 form of yet: ROADMAP.md §3). On CUDA the unfused branch
-    runs the per-op kernels (`--attention_impl`). true trains the fused
-    blocks: their kernels on CUDA, their plain versions through the autograd
-    Functions on the CPU. A geometry the fused gates do not pass goes to the
-    unfused branch whatever this says (`models.lft.resolve_fused`), under
-    bfloat16 it raises (`models.lft.resolve_bf16`)."""
+    mixed` or `bfloat16`, the unfused branch otherwise, as lft_tpu's auto
+    (lft_tpu/training/trainer.py:100-104: fused on its accelerator in
+    bfloat16 or mixed; the card stands where the TPU stands). On CUDA the
+    unfused branch runs the per-op kernels (`--attention_impl`). true trains
+    the fused blocks: their kernels on CUDA, their plain versions through
+    the autograd Functions on the CPU. A geometry the fused gates do not
+    pass goes to the unfused branch whatever this says
+    (`models.lft.resolve_fused`, `resolve_bf16`)."""
     tf = str(getattr(args, "train_fused", "auto")).lower()
     dt = str(getattr(args, "dtype", ""))
     if tf == "auto":
-        return dt == "bfloat16" or (torch.device(device).type == "cuda" and dt == "mixed")
+        return torch.device(device).type == "cuda" and dt in ("mixed", "bfloat16")
     return tf in ("true", "1", "yes")
 
 
@@ -70,19 +68,12 @@ def make_train_step(model, optimizer, args, with_metrics: bool = True,
 
     With a `mesh` (`parallel.mesh.Mesh`), the data-parallel step: it trains
     the unfused branch whatever `--train_fused` says, as lft_tpu's does
-    (lft_tpu/parallel/mesh.py:66); where the mesh has a process group,
-    `data` and `label` are this rank's shard, the gradients are averaged
-    over the ranks before the update and the results are means over them.
-    `--dtype bfloat16` trains the fused branch only: the DP step and
-    `--train_fused false` (the unfused branch, whose bf16 forward serves but
-    whose per-op kernels have no bf16 backward yet) raise here, before any
-    step, naming ROADMAP item 9e, and nothing trains f32 in their place."""
+    (lft_tpu/parallel/mesh.py:66), under `--dtype bfloat16` too; where the
+    mesh has a process group, `data` and `label` are this rank's shard, the
+    gradients are averaged over the ranks before the update and the results
+    are means over them."""
     device = optimizer.params[0].device
     fused = mesh is None and train_fused(args, device)
-    if str(getattr(args, "dtype", "float32")) == "bfloat16" and not fused:
-        raise NotImplementedError(
-            f"--dtype bfloat16 trains the fused blocks only ({'the data-parallel step' if mesh is not None else '--train_fused false'} "
-            f"trains the unfused branch, whose bf16 training is queued as ROADMAP.md §1 item 9e)")
     if device.type == "cuda":
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False

@@ -43,11 +43,13 @@ import torch
 from lft_torch import test as ptest
 from lft_torch.config import Args, parse_args
 from lft_torch.device import check_dtype
-from lft_torch.kernels import LAUNCHES, _build, ang_block, common, reset_launches, spa_block
+from lft_torch.kernels import (LAUNCHES, _build, ang_block, common, local_attn, reset_launches,
+                               spa_block)
 from lft_torch.kernels.common import bf16_round
 from lft_torch.models import lft
 from lft_torch.ops.posenc import angular_position, spatial_position
 from lft_torch.ops.unfold import unfold3x3_linear
+from lft_torch.parallel import mesh as pmesh
 from lft_torch.training import optim, trainer
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -207,13 +209,14 @@ def test_bf16_step_wrappers_chain_to_the_block():
 
 
 def test_bf16_raises_where_nothing_is_ported():
-    """Under bfloat16 what has no bf16 form yet raises naming ROADMAP item
-    9e: the unfused branch under grad (its per-op kernels have no bf16
-    backward), a train step with `--train_fused false` and the data-parallel
-    step (which train it), and a bf16 tensor at a per-op `_res` or backward
-    launch or at K11; a bf16 tensor at an f32 launcher raises TypeError.
-    Bf16 serving through either branch (tests/test_torch_bf16perop.py) and
-    fused training (9c) run."""
+    """Under bfloat16 the unfused branch trains (ROADMAP item 9e): a forward
+    under grad with `fused=False`, a train step with `--train_fused false`
+    and the data-parallel step build and run, and `--train_fused auto` is
+    fused on the card and unfused on the CPU, as lft_tpu's auto; the per-op
+    `_res` and backward launches route to their `_bf16io` forms. What has no
+    bf16 form yet raises: a bf16 tensor at K11 names item 9f, the tile-halo
+    kernel K10 under grad raises ValueError; a bf16 tensor at an f32
+    launcher raises TypeError."""
     args = Args(channels=16, scale_factor=2, dtype="bfloat16")
     p = lft.init_params(0, args, device="cpu")
     x = torch.rand(1, 1, 40, 40, generator=torch.Generator().manual_seed(0))
@@ -221,31 +224,35 @@ def test_bf16_raises_where_nothing_is_ported():
         assert torch.isfinite(lft.forward(p, x, args, fused=False)).all()
     for t in p.values():
         t.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 9e"):
-        lft.forward(p, x, args, fused=False)
+    lft.forward(p, x, args, fused=False).float().sum().backward()
+    assert all(t.grad is not None and t.grad.dtype == torch.float32 for t in p.values())
     model = lft.LFT_MODEL
     opt = optim.make_optimizer(p, args, 10)
-    with pytest.raises(NotImplementedError, match="--train_fused false.*item 9e"):
-        trainer.make_train_step(model, opt, Args(channels=16, scale_factor=2, dtype="bfloat16",
-                                                 train_fused="false"))
-    with pytest.raises(NotImplementedError, match="data-parallel.*item 9e"):
-        trainer.make_train_step(model, opt, args, mesh=object())
-    assert trainer.train_fused(args, torch.device("cpu"))
+    y = torch.rand(1, 1, 80, 80, generator=torch.Generator().manual_seed(1))
+    for step in (trainer.make_train_step(model, opt, Args(channels=16, scale_factor=2,
+                                                          dtype="bfloat16", train_fused="false")),
+                 trainer.make_train_step(model, opt, args, mesh=pmesh.get_mesh(device="cpu"))):
+        assert np.isfinite(float(step(p, x, y)[0]))
+    assert not trainer.train_fused(args, torch.device("cpu"))
     assert trainer.train_fused(args, torch.device("cuda"))
+    assert trainer.train_fused(Args(dtype="bfloat16", train_fused="true"), torch.device("cpu"))
     trainer.make_train_step(model, opt, args)
     xb = torch.zeros(4, 25, 16, dtype=torch.bfloat16)
     assert common.io_kernel("spa_qkv", xb) == "spa_qkv_bf16io"
     assert common.io_kernel("ang_block_res", xb) == "ang_block_res_bf16io"
     assert common.io_kernel("spa_qkv", xb.float()) == "spa_qkv"
     for kernel in ("ang_attn", "ang_attn_sweep", "spa_attn_hp", "spa_attn_mxu", "spa_attn_offset",
-                   "spa_attn_tile"):
-        assert common.io_kernel(kernel, xb) == kernel + "_bf16io"
-    for kernel in ("spa_tokenize_ln_pm", "spa_ffn_out_pm", "spa_attn_hp_res", "spa_attn_hp_bwd",
-                   "ang_attn_res", "ang_attn_bwd", "ang_attn_sweep_res", "ang_attn_sweep_bwd",
+                   "spa_attn_tile", "spa_attn_hp_res", "spa_attn_hp_bwd", "ang_attn_res",
+                   "ang_attn_bwd", "ang_attn_sweep_res", "ang_attn_sweep_bwd",
                    "spa_attn_offset_res", "spa_attn_offset_bwd", "spa_attn_mxu_res",
                    "spa_attn_mxu_bwd"):
-        with pytest.raises(NotImplementedError, match=f"{kernel}:.*item 9e"):
+        assert common.io_kernel(kernel, xb) == kernel + "_bf16io"
+    for kernel in ("spa_tokenize_ln_pm", "spa_ffn_out_pm"):
+        with pytest.raises(NotImplementedError, match=f"{kernel}:.*item 9f"):
             common.io_kernel(kernel, xb)
+    qb = torch.zeros(1, 16, 16, 32, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(ValueError, match="K10.*forward-only"):
+        local_attn.windowed_attention_tile(qb, qb, qb, 8, 5, 8)
     with pytest.raises(TypeError, match="spa_qkv: torch.float32 tensors only"):
         _build.check_cuda_args("spa_qkv", xb)
     with pytest.raises(TypeError, match="bfloat16 tensors only"):

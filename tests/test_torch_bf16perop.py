@@ -244,7 +244,8 @@ def test_bf16_unfused_branch_is_chosen_where_lft_tpu_chooses_it():
     and True), the unfused one for `fused=False`, angRes >= 12 and, on the
     card, a width the kernels do not take (whose attention then takes the
     plain torch ops); a default CPU forward at angRes 12 computes the
-    unfused branch, and under grad raises naming 9e."""
+    unfused branch, and under grad trains it (ROADMAP 9e): the same f32
+    output, a gradient for every parameter."""
     assert lft.resolve_bf16(None, 8, 8, 16, 25, "cpu") and lft.resolve_bf16(True, 8, 8, 64, 25,
                                                                              "cuda")
     assert lft.resolve_bf16(None, 8, 8, 48, 25, "cpu")
@@ -261,8 +262,10 @@ def test_bf16_unfused_branch_is_chosen_where_lft_tpu_chooses_it():
     assert torch.equal(a, b) and torch.isfinite(a).all()
     for t in p.values():
         t.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 9e"):
-        lft.forward(p, x, args)
+    c = lft.forward(p, x, args)
+    assert torch.equal(c.detach(), a)
+    c.sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in p.values())
 
 
 def test_test_cli_bf16_on_an_unfused_geometry(tmp_path):

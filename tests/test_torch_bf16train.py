@@ -230,8 +230,7 @@ def _step(args, p0, x, y, loss=None, plain=False):
 
 
 def test_fused_bf16_train_step_matches_lft_tpu(ref):
-    """One `--dtype bfloat16` Adam step (`--train_fused auto`: fused on the
-    CPU too) of the whole model (C = 16, 2x, 8x8 views, 4 blocks) under the
+    """One `--dtype bfloat16 --train_fused true` Adam step of the whole model (C = 16, 2x, 8x8 views, 4 blocks) under the
     smooth loss: the loss; the gradient as one vector, its distance from the
     port's f32 step's within STEP_GAP_TOL of lft_tpu's own bf16-vs-f32
     distance, and within STEP_L2 of that distance from lft_tpu's bf16
@@ -242,7 +241,7 @@ def test_fused_bf16_train_step_matches_lft_tpu(ref):
     p0 = lft.params_from_numpy(p_np, device="cpu")
     kw = dict(R.FWD, batch_size=1, lr=2e-4, n_steps=15, gamma=0.5, epoch=2)
     smooth = lambda sr, hr_: RT.smooth_loss(sr, hr_, torch)
-    args = Args(dtype="bfloat16", **kw)
+    args = Args(dtype="bfloat16", train_fused="true", **kw)
     reset_launches()
     loss, g, p1 = _step(args, p0, x, y, smooth)
     assert sum(LAUNCHES.values()) == 0
@@ -294,14 +293,15 @@ def test_bf16_row_loaders_commit_their_group():
 
 
 def test_train_cli_bf16_resumes_bitwise(tmp_path):
-    """`python -m lft_torch.train --dtype bfloat16` (its `main` on the CPU):
+    """`python -m lft_torch.train --dtype bfloat16 --train_fused true` (its
+    `main` on the CPU: the fused blocks' plain versions):
     an epoch of 2 steps writes an f32 checkpoint with the Adam state; a
     second epoch resumed from it ends on the uninterrupted run's parameters
     and Adam state bit for bit."""
     from lft_torch import train as ptrain
     data = _Patches(4)
     kw = dict(channels=16, scale_factor=2, batch_size=2, n_steps=1, gamma=0.5, num_workers=0,
-              seed=3, dtype="bfloat16", data_name="Synth")
+              seed=3, dtype="bfloat16", train_fused="true", data_name="Synth")
     ck = "SR_5x5_2x/LFT/Synth/checkpoints/LFT_5x5_2x_epoch_%02d_model.npz"
     full, hist = ptrain.main(Args(path_log=str(tmp_path / "a"), epoch=2, **kw), device="cpu",
                              dataset=data)

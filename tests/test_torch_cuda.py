@@ -1386,11 +1386,12 @@ def test_bf16_forward_kernels_match_plain_blocks(cuda_device):
 
 @pytest.mark.cuda
 def test_bf16_raises_where_no_kernel_is_ported(cuda_device):
-    """A bf16 tensor at a kernel without a bf16-IO form (the per-op `_res`
-    forms and backwards, K11) raises, naming its ROADMAP item (9e); a
-    bf16-IO launcher given an f32 tensor raises TypeError; a width the
-    kernels do not take runs the plain torch ops under bfloat16, launching
-    nothing."""
+    """A bf16 tensor at a kernel without a bf16-IO form (K11's pixel-major
+    launches) raises, naming its ROADMAP item (9f); the per-op `_res` forms
+    and backwards launch their `_bf16io` instances (9e); K10 under grad
+    raises ValueError; a bf16-IO launcher given an f32 tensor raises
+    TypeError; a width the kernels do not take runs the plain torch ops
+    under bfloat16, launching nothing, and trains on them."""
     pb = {k: v.bfloat16() for k, v in _params(16, cuda_device).items()}
     wa = ang_block.ang_weights(pb, "altblock.0.ang_trans.")
     ws = spa_block.spa_weights(pb, "altblock.0.spa_trans.")
@@ -1398,14 +1399,18 @@ def test_bf16_raises_where_no_kernel_is_ported(cuda_device):
     pe = torch.from_numpy(angular_position(25, 16)).to(cuda_device)
     q_bf = torch.zeros(2, 8, 8, 32, device=cuda_device, dtype=torch.bfloat16)
     m_f = torch.ones(2, 8, 8, 8, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="spa_attn_hp_bwd.*item 9e"):
-        spa_attn_hp.spa_attn_hp_bwd(q_bf, q_bf, q_bf, m_f, m_f, q_bf, 8, 5)
-    with pytest.raises(NotImplementedError, match="spa_attn_hp_res.*item 9e"):
-        spa_attn_hp.spa_attn_hp_fwd(q_bf, q_bf, q_bf, 8, 5, with_stats=True)
-    with pytest.raises(NotImplementedError, match="ang_attn_res.*item 9e"):
-        ang_attn_mxu.ang_attn_fwd(x, x, x, 8, with_stats=True)
+    reset_launches()
+    grads = spa_attn_hp.spa_attn_hp_bwd(q_bf, q_bf, q_bf, m_f, m_f, q_bf, 8, 5)
+    out = spa_attn_hp.spa_attn_hp_fwd(q_bf, q_bf, q_bf, 8, 5, with_stats=True)
+    res = ang_attn_mxu.ang_attn_fwd(x, x, x, 8, with_stats=True)
+    torch.cuda.synchronize()
+    assert grads[0].dtype == out[0].dtype == res[0].dtype == torch.bfloat16
+    assert (LAUNCHES["spa_attn_hp_bwd_bf16io"], LAUNCHES["spa_attn_hp_res_bf16io"],
+            LAUNCHES["ang_attn_res_bf16io"]) == (1, 1, 1)
+    with pytest.raises(ValueError, match="K10.*forward-only"):
+        local_attn.windowed_attention_tile(q_bf.clone().requires_grad_(True), q_bf, q_bf, 8, 5, 8)
     xs = torch.zeros(1, 8, 8, 25, 16, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 9e"):
+    with pytest.raises(NotImplementedError, match="item 9f"):
         spa_block.tokenize_ln(xs, torch.zeros(8, 8, 32, device=cuda_device,
                                               dtype=torch.bfloat16), ws, pixel_major=True)
     q = torch.zeros(2, 8, 8, 32, device=cuda_device, dtype=torch.bfloat16)
@@ -1418,6 +1423,13 @@ def test_bf16_raises_where_no_kernel_is_ported(cuda_device):
                           Args(channels=48, scale_factor=2, dtype="bfloat16"))
     torch.cuda.synchronize()
     assert torch.isfinite(out).all() and not any(LAUNCHES.values())
+    for t in p48.values():
+        t.requires_grad_(True)
+    lft.forward(p48, torch.rand(1, 1, 40, 40, device=cuda_device),
+                Args(channels=48, scale_factor=2, dtype="bfloat16")).sum().backward()
+    torch.cuda.synchronize()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in p48.values())
+    assert not any(LAUNCHES.values())
 
 
 # ------------------------------------- `--dtype bfloat16` training kernels ---
@@ -1728,14 +1740,6 @@ PEROP_BF16 = {
 }
 
 
-def _bf16_close(got, plain, plain32):
-    l2 = lambda a, b: float((a.double() - b.double()).norm() / b.double().norm())
-    gap = l2(plain, plain32)
-    assert l2(got, plain) <= 0.1 * gap, (l2(got, plain), gap)
-    ulp = 2.0 ** (np.floor(np.log2(float(plain.float().abs().max()))) - 7)
-    assert float((got.float() - plain.float()).abs().max()) <= ulp
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(PEROP_BF16))
 @pytest.mark.parametrize("shape", [(37, 25, 16), (9, 81, 64), (5, 128, 32), (3, 144, 64),
@@ -1760,7 +1764,7 @@ def test_perop_bf16io_kernels(cuda_device, name, shape):
     assert torch.equal(got, fn(q, k, v))
     with plain_versions():
         plain, plain32 = fn(q, k, v), fn(q.float(), k.float(), v.float())
-    _bf16_close(got, plain, plain32)
+    _bf16_close((got,), (plain,), (plain32,))
 
 
 @pytest.mark.cuda
@@ -1794,3 +1798,127 @@ def test_bf16_unfused_forward_launches_perop_bf16io(cuda_device, monkeypatch, an
     l2 = lambda a, b: float((a.double() - b.double()).norm() / b.double().norm())
     assert abs(l2(got, f32) / l2(plain, f32) - 1) <= 0.1
     assert l2(got, plain) <= 1.5 * l2(plain, f32)
+
+
+# ------------------- `--dtype bfloat16` training through the per-op branch ---
+#
+# The `_res` forms and backwards of K5-K9 (`kernels.PEROP_BF16TRAIN`) against
+# their plain bf16 versions on the card (inside `plain_versions()`), the plain
+# f32 versions the yardstick, as chip_smoke.py step 26 holds them: per output
+# L2 within 1/10 of the plain bf16-vs-f32 distance, 4 bf16 ulps of max
+# |plain| (a rounded ds or p that rounds the other way moves a sum by its own
+# ulp, as in K4: `BF16T_ULPS`), the f32 stats within 1e-4 L2.
+PEROP_BF16_TRAIN = {
+    # base name: (`_res` form, backward (q, k, v, out, m, l, dout))
+    "ang_attn": (lambda q, k, v: ang_attn_mxu.ang_attn_fwd(q, k, v, 8, True),
+                 lambda q, k, v, o, m, l, d: ang_attn_mxu.ang_attn_bwd(q, k, v, m, l, d, 8)),
+    "ang_attn_sweep": (lambda q, k, v: ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, 8, True),
+                       lambda q, k, v, o, m, l, d: ang_attn_vjp.ang_attn_sweep_bwd(
+                           q, k, v, o, m, l, d, 8)),
+    "spa_attn_hp": (lambda q, k, v: spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5, True),
+                    lambda q, k, v, o, m, l, d: spa_attn_hp.spa_attn_hp_bwd(q, k, v, m, l, d, 8,
+                                                                            5)),
+    "spa_attn_mxu": (lambda q, k, v: spa_attn.spa_attn_mxu_fwd(q, k, v, 8, 5, True),
+                     lambda q, k, v, o, m, l, d: spa_attn.spa_attn_mxu_bwd(q, k, v, m, l, d, 8,
+                                                                           5)),
+    "spa_attn_offset": (lambda q, k, v: local_attn_vjp.spa_attn_offset_fwd(q, k, v, 8, 5, True),
+                        lambda q, k, v, o, m, l, d: local_attn_vjp.spa_attn_offset_bwd(
+                            q, k, v, o, m, l, d, 8, 5)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", list(PEROP_BF16_TRAIN))
+@pytest.mark.parametrize("shape", [(37, 25, 16), (9, 81, 64), (5, 128, 32), (3, 144, 64),
+                                   (3, 16, 16, 32), (2, 24, 40, 128), (2, 30, 30, 64)])
+def test_perop_bf16train_kernels(cuda_device, base, shape):
+    """Each per-op `_res_bf16io` form and `_bwd_bf16io` backward on bf16
+    tensors against its plain bf16 version (the backward fed the plain
+    `_res` form's out, m, l), one launch each under its name, bitwise
+    repeatable; the `_res` form's out is the residual-free forward's."""
+    from lft_torch.kernels.common import plain_versions
+    spatial = base.startswith("spa_")
+    if spatial != (len(shape) == 4) or (base == "ang_attn" and shape[1] > 128) \
+            or (base == "spa_attn_mxu" and shape[1] % 8):
+        pytest.skip("a shape this kernel's dispatch never gives it")
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape) + 24)
+    q, k, v, dout = (torch.randn(*shape, device=cuda_device, generator=g) * s
+                     for s in (1.5, 1.5, 1, 1))
+    q, k, v, dout = q.bfloat16(), k.bfloat16(), v.bfloat16(), dout.bfloat16()
+    res_fn, bwd_fn = PEROP_BF16_TRAIN[base]
+    reset_launches()
+    got = res_fn(q, k, v)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {base + "_res_bf16io": 1}
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32, torch.float32]
+    assert all(torch.equal(a, b) for a, b in zip(got, res_fn(q, k, v)))
+    assert torch.equal(got[0], PEROP_BF16[base + "_bf16io"](q, k, v))
+    with plain_versions():
+        res, res32 = res_fn(q, k, v), res_fn(q.float(), k.float(), v.float())
+    _bf16t_close(got, res, res32, ulps=1.0)
+    reset_launches()
+    grads = bwd_fn(q, k, v, *res, dout)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {base + "_bwd_bf16io": 1}
+    assert all(t.dtype == torch.bfloat16 and t.shape == q.shape for t in grads)
+    assert all(torch.equal(a, b) for a, b in zip(grads, bwd_fn(q, k, v, *res, dout)))
+    with plain_versions():
+        plain = bwd_fn(q, k, v, *res, dout)
+        plain32 = bwd_fn(q.float(), k.float(), v.float(), *res32, dout.float())
+    _bf16t_close(grads, plain, plain32, ulps=4.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ang_res,view,spa,ang,bases", [
+    (5, 8, None, None, ("ang_attn", "spa_attn_hp")),
+    (5, 8, "mxu", None, ("ang_attn", "spa_attn_mxu")),
+    (5, 8, "offset", "sweep", ("ang_attn_sweep", "spa_attn_offset")),
+    (12, 8, None, None, ("ang_attn_sweep", "spa_attn_hp"))])
+def test_bf16_unfused_train_step_launches_perop_bf16train(cuda_device, monkeypatch, ang_res, view,
+                                                          spa, ang, bases):
+    """A `--dtype bfloat16 --train_fused false` step (C = 16) launches only
+    the `_res_bf16io` and `_bwd_bf16io` instances of its geometry, 4 of
+    each, repeats bitwise, keeps f32 master weights, and its gradient lies
+    as far from the f32 plain step's as the same step through the plain
+    versions (`plain_versions()`), within 15%: at C = 16 and batch 2 one
+    step's ratio is a sample with a spread (1.10 under `mxu` on an H100;
+    tests/test_torch_bf16perop_train.py's STEP_GAP_TOL); chip_smoke.py step
+    26 holds the full-width step to 10%."""
+    import dataclasses
+    from lft_torch.kernels.common import plain_if
+    from lft_torch.registry import get_model
+    from lft_torch.training import optim, trainer
+    for knob, val in (("LFT_SPA_VARIANT", spa), ("LFT_ANG_VARIANT", ang)):
+        if val:
+            monkeypatch.setenv(knob, val)
+    p0 = _params(16, cuda_device, seed=3)
+    args = Args(channels=16, scale_factor=2, dtype="bfloat16", angRes=ang_res, batch_size=2,
+                train_fused="false")
+    g = torch.Generator(device=cuda_device).manual_seed(view + ang_res)
+    lr = torch.rand(2, 1, ang_res * view, ang_res * view, device=cuda_device, generator=g)
+    hr = torch.rand(2, 1, 2 * ang_res * view, 2 * ang_res * view, device=cuda_device, generator=g)
+    smooth = lambda sr, y: ((sr - y) * torch.cos(3.0 * (sr - y))).mean()
+
+    def step(a, plain=False):
+        p = {k_: v_.clone().requires_grad_(True) for k_, v_ in p0.items()}
+        model = dataclasses.replace(get_model(a), loss=smooth)
+        fn = trainer.make_train_step(model, optim.make_optimizer(p, a, 10), a, with_metrics=False)
+        with plain_if(plain):
+            loss = float(fn(p, lr, hr)[0])
+        return loss, torch.cat([p[k_].grad.reshape(-1) for k_ in sorted(p)]), p
+
+    reset_launches()
+    loss, grad, p1 = step(args)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {f"{b}_{f}_bf16io": 4 for b in bases
+                                                        for f in ("res", "bwd")}
+    loss_b, grad_b, p1_b = step(args)
+    assert loss == loss_b and torch.equal(grad, grad_b)
+    assert all(torch.equal(p1[k_], p1_b[k_]) and p1[k_].dtype == torch.float32 for k_ in p1)
+    reset_launches()
+    _, g_p, _ = step(args, plain=True)
+    _, g_f, _ = step(dataclasses.replace(args, dtype="float32"), plain=True)
+    assert not any(LAUNCHES.values())
+    l2 = lambda a, b: float((a.double() - b.double()).norm() / b.double().norm())
+    assert abs(l2(grad, g_f) / l2(g_p, g_f) - 1) <= 0.15, l2(grad, g_f) / l2(g_p, g_f)
+    assert l2(grad, g_p) <= 1.5 * l2(g_p, g_f)

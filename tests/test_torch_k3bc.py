@@ -244,9 +244,11 @@ def test_k3bc_wrappers_plain_on_cpu_and_sources():
     assert 'name = io_kernel("spa_window_attn_bwd", q)' in inspect.getsource(sb.window_attn_bwd)
     assert 'name += "_bf16" if half else ""' in inspect.getsource(sb.window_attn_bwd)
     c_src = inspect.getsource(hp.spa_attn_hp_bwd)
-    assert ('bind("spa_attn_hp", "lft_spa_attn_hp_bwd" + ("_bf16io" if bio else\n'
-            '                                                             "_bf16" if half else ""), 10,'
-            in c_src)
+    for line in ('entry = f"lft_spa_attn_{fam}_bwd_bf16io"',
+                 'entry = "lft_spa_attn_hp_bwd" + ("_bf16" if half else "")',
+                 'fn = _build.bind("spa_attn_hp", entry, len(ins) + 6,'):
+        assert line in c_src, line
+    assert hp._family("spa_window_attn_bwd_bf16io") == "hp"
     assert "dsum = torch.empty(B, h, w, num_heads" in c_src
     assert '_build.launch("spa_attn_hp", kernel, fn' in c_src
     hp_entry = srcs["spa_attn_hp.cu"].split('extern "C" int lft_spa_attn_hp_bwd(', 1)[1]

@@ -73,7 +73,7 @@ def test_k7_python_geometry_mirrors_the_source():
             "const int i = t % A2, hh = t / A2 % H, p = t / (A2 * H);",
             "const int j = t % A2, hh = t / A2 % H, p = t / (A2 * H);",
             "*grid = std::min(tiles, sms * per_sm);",
-            "if (A2 <= HOLD_MAX) kernel = ang_attn_bwd_kernel<DHV, true>;"):
+            "if (A2 <= HOLD_MAX) kernel = ang_attn_bwd_kernel<DHV, true, IO>;"):
         assert line in src, line
     assert (am.KB, am.NT_MAX, am.SMEM_TWO, am.SMEM_MAX, am.HOLD_MAX) == (8, 512, 115712, 232448,
                                                                           32)

@@ -351,14 +351,15 @@ def test_matmul_precision_flag(prec):
 
 
 def test_bfloat16_raises_and_card_plans():
-    """bfloat16 under grad trains the fused branch only: `fused=False`
-    raises naming ROADMAP item 9e. The card's plan checks."""
+    """bfloat16 under grad trains either branch (`fused=False` since ROADMAP
+    item 9e) and takes no mixed plan. The card's plan checks."""
     p = lft.init_params(0, Args(channels=C, scale_factor=2), device="cpu")
     for t in p.values():
         t.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="9e"):
-        lft.forward(p, torch.zeros(1, 1, 40, 40), Args(channels=C, scale_factor=2,
-                                                       dtype="bfloat16"), fused=False)
+    out = lft.forward(p, torch.zeros(1, 1, 40, 40), Args(channels=C, scale_factor=2,
+                                                         dtype="bfloat16"), fused=False)
+    out.sum().backward()
+    assert all(t.grad is not None and t.grad.dtype == torch.float32 for t in p.values())
     assert parse_args(["--dtype", "mixed"]).dtype == "mixed"
     plan = lambda sites: common.mm_site_plan(True, sites)
     half, f32 = plan(frozenset()), plan(common.MM_HP_ALL)

@@ -127,13 +127,18 @@ def test_registry_and_init():
 
 def test_only_float32():
     """float32 and mixed run every branch; bfloat16 serves through every
-    branch (the unfused one since ROADMAP item 9d) and trains the fused one:
-    the unfused one under grad raises, naming its ROADMAP item (9e)."""
+    branch (the unfused one since ROADMAP item 9d) and trains through every
+    branch (the unfused one since 9e): under grad its f32 output's gradient
+    reaches every f32 parameter."""
     args = Args(channels=16, scale_factor=2, dtype="bfloat16")
     p = lft.init_params(0, Args(channels=16, scale_factor=2), device="cpu")
     out = lft.forward(p, torch.zeros(1, 1, 40, 40), args, fused=False)
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     for t in p.values():
         t.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9e"):
-        lft.forward(p, torch.zeros(1, 1, 40, 40), args, fused=False)
+    out = lft.forward(p, torch.rand(1, 1, 40, 40, generator=torch.Generator().manual_seed(0)),
+                      args, fused=False)
+    assert out.dtype == torch.float32
+    out.sum().backward()
+    assert all(t.grad is not None and t.grad.dtype == torch.float32
+               and torch.isfinite(t.grad).all() for t in p.values())
