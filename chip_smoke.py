@@ -287,8 +287,29 @@
     bfloat16 in turns; (e) the train CLI's body under `bfloat16
     --train_fused false` for 2 epochs of 2 steps, a resume from the epoch-1
     file ending on the uninterrupted run's parameters bit for bit;
-27. prints the `kernels` JSON line (every kernel, old and new), the card's
-    name and power limit, and last `{"ok": true, "device": {...}}`.
+27. the last forward forms of the fused blocks (`fwdforms_phase`): (a) K11
+    on a bf16 pixel-major buffer [16, 32, 32, 25, 64] with block 0's
+    weights in bf16: one launch of each of its five `_bf16io` kernels, the
+    chain bitwise view-major K2 bf16io's on a permuted copy, K11's two
+    `_pm_bf16io` kernels against their plain versions with step 23's
+    bounds and a bitwise repeat; K11 on the f32 buffer under
+    LFT_MM_HP_SITES=none likewise (its five `_bf16` kernels); (b) step 3's
+    scenes under `--dtype mixed` with LFT_MM_HP_SITES=none: 16 launches a
+    scene of each of the six `_bf16` forwards and no other kernel, |dPSNR|
+    <= 0.01 dB against the same scenes through the plain blocks under the
+    plan, the distance from the f32 scene within 10% of theirs and the L2
+    from theirs within 1.5 of it, a bitwise repeat, dPSNR against f32; (c)
+    each of the eight `_bf16` kernels against its plain version under the
+    plan (step 22's bounds) at the main path's shapes, a bitwise repeat,
+    timed by CUDA events beside its bound (f32 bytes, the products at the
+    bf16 rate); (d) a train step under `none` and a forward under a site
+    subset raise before any launch; (e) each new kernel in turns with its
+    f32 instance (K11's `_pm_bf16io` with view-major K2 bf16io's), and the
+    `none` scene with the f32 scene (device busy, CUDA-event time, idle
+    share);
+28. prints the script's seconds, the `kernels` JSON line (every kernel, old
+    and new), the card's name and power limit, and last `{"ok": true,
+    "device": {...}}`.
 
 The plain and library versions of the large shapes of steps 16 and 19 are
 timed over 3 launches instead of 10.
@@ -308,6 +329,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -2847,7 +2869,7 @@ def mixed_scene_phase(params, args, scenes, cache, step4) -> None:
     import torch
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
-    from lft_torch.kernels import FORWARD, LAUNCHES, MIXED, TRAINING, reset_launches
+    from lft_torch.kernels import FORWARD, LAUNCHES, MIXED, MIXED_FWD, TRAINING, reset_launches
     from lft_torch.models.lft import forward
     from lft_torch.ops.metrics import cal_metrics
 
@@ -2865,7 +2887,8 @@ def mixed_scene_phase(params, args, scenes, cache, step4) -> None:
           f"launches {counts}", flush=True)
     if not (same and psnr == step4[0] and ssim == step4[1] and rows == step4[2]):
         raise AssertionError("the mixed scenes are not the float32 scenes bit for bit")
-    if any(counts[k_] == 0 for k_ in FORWARD) or any(counts[k_] for k_ in TRAINING + MIXED):
+    if any(counts[k_] == 0 for k_ in FORWARD) or any(counts[k_] for k_ in TRAINING + MIXED
+                                                     + MIXED_FWD):
         raise AssertionError(f"the mixed SR run launched the wrong kernels: {counts}")
     lr0, hr0 = (torch.from_numpy(t).to(dev) for t in scenes[0])
     ref = cache(params, lr0)
@@ -3954,6 +3977,341 @@ def bf16_perop_train_cli(params, seed: int) -> None:
               "the uninterrupted run's bit for bit", flush=True)
 
 
+@contextlib.contextmanager
+def fwd_sites(spec: str):
+    """LFT_MM_HP_SITES set to `spec` for the block, and put back after it."""
+    before = os.environ.get("LFT_MM_HP_SITES")
+    os.environ["LFT_MM_HP_SITES"] = spec
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("LFT_MM_HP_SITES", None)
+        else:
+            os.environ["LFT_MM_HP_SITES"] = before
+
+
+def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
+    """Step 27, the last forward forms of the fused blocks.
+    a: K11 on a bf16 pixel-major buffer [16, 32, 32, 25, 64] (block 0's
+    weights in bf16): one launch of each of its five `_bf16io` kernels, the
+    chain bitwise view-major K2 bf16io's on a permuted copy, its two `_pm`
+    kernels against their plain versions with step 23's bounds and a
+    bitwise repeat; then K11 on the f32 buffer under LFT_MM_HP_SITES=none
+    (the five `_bf16` kernels, bitwise the view-major `_bf16` chain).
+    b: step 3's scenes under `--dtype mixed` with LFT_MM_HP_SITES=none: 16
+    launches a scene of each of the six `_bf16` forwards and no other
+    kernel; against the same scenes through the plain blocks under the plan
+    (|dPSNR| within 0.01 dB, the distance from the f32 scene within 10% of
+    the plain path's, the L2 from the plain path's within 1.5 of it), a
+    bitwise repeat, dPSNR against f32. c: each of the eight `_bf16` kernels
+    against its plain version under the plan with step 22's bounds at the
+    main path's shapes, a bitwise repeat. d: a train step under `none` and a
+    forward under a site subset raise before any launch. e: each new kernel
+    in turns with its f32 (or view-major `_bf16io`) instance, and the `none`
+    scene with the f32 scene (device busy, CUDA-event wall time, idle
+    share). Returns the ten rows of the `kernels` line."""
+    import dataclasses
+
+    import torch
+    from lft_torch.config import Args
+    from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
+    from lft_torch.kernels import LAUNCHES, MIXED_FWD, common, reset_launches
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.models.lft import forward
+    from lft_torch.ops.attention import local_window_mask
+    from lft_torch.ops.metrics import cal_metrics
+    from lft_torch.ops.posenc import angular_position, spatial_position
+    from lft_torch.ops.unfold import unfold3x3_linear
+    from lft_torch.profile_scene import events_ms, kernel_times
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import make_optimizer
+    from lft_torch.training.trainer import make_train_step
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 27)
+    C, A2, h, w, H, K = 64, 25, 32, 32, 8, 5
+    D = 2 * C
+    Bb = 16
+    V, N = Bb * A2, Bb * h * w
+    T = V * h * w
+    plan = common.mm_site_plan(True, frozenset())          # LFT_MM_HP_SITES=none
+    prefix = "altblock.0.spa_trans."
+    src, rep = "lft_torch/csrc/spa_block.cu", "lft_tpu/kernels/spa_block.py:309"
+    to_vm = lambda t: t.permute(0, 3, 1, 2, 4).reshape(V, h, w, C).contiguous()
+    to_pm = lambda t: t.reshape(Bb, A2, h, w, C).permute(0, 2, 3, 1, 4).contiguous()
+    tup = lambda o: o if isinstance(o, tuple) else (o,)
+    rows, turns = [], []
+
+    def nearest(name, what, fn):
+        """The nearest library calls (on bf16 copies cast before), timed
+        beside a kernel that no one library call computes."""
+        print(f"  {name}: nearest library calls, {what}: {events_ms(fn, 10):.4f} ms (bf16, "
+              f"CUDA events)", flush=True)
+
+    def repeats(name, fn, got):
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(tup(got), tup(fn())))
+        print(f"  {name}: repeated bitwise: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{name} does not repeat bitwise")
+
+    def k11_chain(x, pe_tok, p, form, pl):
+        """K11 on x through the entry point: its launches, the chain against
+        view-major K2's same instances on a permuted copy (bitwise)."""
+        names = ("spa_tokenize_ln_pm", "spa_qkv", "spa_window_attn", "spa_outproj_ln",
+                 "spa_ffn_out_pm")
+        torch.cuda.synchronize()
+        reset_launches()
+        got = sb.spa_trans_block_fused(x, pe_tok, p, prefix, H, K, pixel_major=True, plan=pl)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        expect = {f"{n}_{form}": 1 for n in names}
+        if {k_: c for k_, c in counts.items() if c} != expect:
+            raise AssertionError(f"K11 {form}: expected one launch of each of {tuple(expect)}, "
+                                 f"got { {k_: c for k_, c in counts.items() if c} }")
+        vm = to_pm(sb.spa_trans_block_fused(to_vm(x), pe_tok, p, prefix, H, K, plan=pl))
+        same = torch.equal(got, vm)
+        print(f"K11 {form} at {list(x.shape)} {str(x.dtype)[6:]}: launches {expect}; bitwise "
+              f"view-major K2's {form} chain on a permuted copy: {same}; finite "
+              f"{bool(torch.isfinite(got.float()).all())}", flush=True)
+        if not same or got.dtype != x.dtype or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"K11 {form} disagrees with view-major K2 {form}")
+        return counts
+
+    # a: K11 on bf16, then on f32 under the plan
+    pb = {k_: v_.to(torch.bfloat16) for k_, v_ in params.items()}
+    wsb = sb.spa_weights(pb, prefix)
+    ws32b = {k_: v_.float() for k_, v_ in wsb.items()}
+    xb = torch.randn(Bb, h, w, A2, C, device=dev, generator=g).to(torch.bfloat16)
+    pe_b = unfold3x3_linear(torch.from_numpy(spatial_position(h, w, C)).to(dev)[None]
+                            .to(torch.bfloat16), wsb["mlp"])[0].contiguous()
+    counts_b = k11_chain(xb, pe_b, pb, "bf16io", None)
+    rec_b = Recorder(card, counts_b, 1, "K11 call")
+    xvb = to_vm(xb)
+    tok, xn = sb.tokenize_ln_plain(xvb, pe_b, wsb)
+    tok32 = sb.tokenize_ln_plain(xvb.float(), pe_b.float(), ws32b)
+    fn_t = lambda xb=xb, pe_b=pe_b, wsb=wsb: sb.tokenize_ln(xb, pe_b, wsb, True)
+    got = fn_t()
+    rec_b.record("spa_tokenize_ln_pm_bf16io", src, rep, got, (tok, xn), fn_t,
+                 lambda: sb.tokenize_ln_plain(to_vm(xb), pe_b, wsb),
+                 2 * C * D * V * valid_window_pairs(h, w, 1),
+                 nbytes(xb, pe_b, tok, xn) + sum(nbytes(wsb[n]) for n in ("wu", "ln")),
+                 bf16_products=True, bf16_ref32=tok32)
+    repeats("spa_tokenize_ln_pm_bf16io", fn_t, got)
+    conv_b = lambda xvb=xvb, wsb=wsb: torch.nn.functional.conv2d(
+        xvb.permute(0, 3, 1, 2), wsb["mlp"].reshape(D, C, 3, 3), padding=1)
+    nearest("spa_tokenize_ln_pm_bf16io", "its conv part only on a view-major copy, cuDNN's "
+            "F.conv2d", conv_b)
+    turns.append(("spa_tokenize_ln_pm_bf16io vs spa_tokenize_ln_bf16io",
+                  lambda xvb=xvb, pe_b=pe_b, wsb=wsb: sb.tokenize_ln(xvb, pe_b, wsb), fn_t))
+    q, k, v = sb.qkv_plain(xn, tok, wsb)
+    x2, xn2 = sb.outproj_ln_plain(sb.window_attn_plain(q, k, v, H, K)[0], tok, wsb)
+    del q, k, v, tok32
+    out = to_pm(sb.ffn_out_plain(xn2, x2, wsb))
+    out32 = to_pm(sb.ffn_out_plain(xn2.float(), x2.float(), ws32b))
+    fn_o = lambda xn2=xn2, x2=x2, wsb=wsb: sb.ffn_out(xn2, x2, wsb, A2)
+    got = fn_o()
+    rec_b.record("spa_ffn_out_pm_bf16io", src, rep, got, out, fn_o,
+                 lambda: to_pm(sb.ffn_out_plain(xn2, x2, wsb)), 2 * T * (4 * D * D + D * C),
+                 nbytes(xn2, x2, out) + sum(nbytes(wsb[n]) for n in ("w1", "w2", "wlin")),
+                 bf16_products=True, bf16_ref32=out32)
+    repeats("spa_ffn_out_pm_bf16io", fn_o, got)
+    hid_b = torch.empty(T, 2 * D, device=dev, dtype=torch.bfloat16)
+    ffn_b = lambda xn2=xn2, x2=x2, wsb=wsb: (
+        torch.mm(xn2.reshape(-1, D), wsb["w1"], out=hid_b), hid_b @ wsb["w2"],
+        x2.reshape(-1, D) @ wsb["wlin"])
+    nearest("spa_ffn_out_pm_bf16io", "its three cuBLAS products", ffn_b)
+    turns.append(("spa_ffn_out_pm_bf16io vs spa_ffn_out_bf16io",
+                  lambda xn2=xn2, x2=x2, wsb=wsb: sb.ffn_out(xn2, x2, wsb), fn_o))
+    rows += rec_b.rows
+    del got, out, out32
+
+    ws = sb._with_mlp(sb.spa_weights(params, prefix))
+    xf = torch.randn(Bb, h, w, A2, C, device=dev, generator=g)
+    pe_f = unfold3x3_linear(torch.from_numpy(spatial_position(h, w, C)).to(dev)[None],
+                            ws["mlp"])[0].contiguous()
+    counts_pm = k11_chain(xf, pe_f, params, "bf16", plan)
+
+    # b: the scenes under --dtype mixed with LFT_MM_HP_SITES=none
+    n = len(scenes)
+    am = dataclasses.replace(args, dtype="mixed")
+    with fwd_sites("none"):
+        cache_m = ScenePipelineCache(forward, am, eval_batch=16)
+        torch.cuda.synchronize()
+        reset_launches()
+        psnr, ssim, per = evaluate_dataset(forward, params, am, scenes, cache=cache_m)
+        torch.cuda.synchronize()
+        counts_s = dict(LAUNCHES)
+        print(f"SR under --dtype mixed, LFT_MM_HP_SITES=none: PSNR {psnr:.6f} dB SSIM {ssim:.6f}; "
+              f"per scene {per}; launches { {k_: c for k_, c in counts_s.items() if c} }",
+              flush=True)
+        wrong = {k_: c for k_, c in counts_s.items()
+                 if c != (16 * n if k_ in MIXED_FWD[:6] else 0)}
+        if wrong:
+            raise AssertionError(f"the mixed none SR run: expected {16 * n} launches of each "
+                                 f"`_bf16` forward kernel and no other, got {wrong}")
+        plain = ScenePipelineCache(forward, am, eval_batch=16, plain_blocks=True)
+        for i, (lr_np, hr_np) in enumerate(scenes):
+            lr_t, hr_t = torch.from_numpy(lr_np).to(dev), torch.from_numpy(hr_np).to(dev)
+            sr_k, sr_p, sr_f = cache_m(params, lr_t), plain(params, lr_t), cache(params, lr_t)
+            again = cache_m(params, lr_t)
+            if sr_k.dtype != torch.float32 or sr_k.shape != sr_f.shape \
+                    or not torch.isfinite(sr_k).all():
+                raise AssertionError(f"bad mixed SR mosaic {sr_k.dtype} {tuple(sr_k.shape)}")
+            gap_k, gap_p, d = l2_rel(sr_k, sr_f), l2_rel(sr_p, sr_f), l2_rel(sr_k, sr_p)
+            p_k, p_p, p_f = (float(cal_metrics(hr_t, t_, args.angRes)[0])
+                             for t_ in (sr_k, sr_p, sr_f))
+            print(f"scene {i} under mixed none: kernels vs the plain blocks dPSNR "
+                  f"{p_k - p_p:+.3e} dB (limit 0.01), L2 {d:.3e}; distance from the f32 scene: "
+                  f"kernels {gap_k:.3e}, plain blocks {gap_p:.3e} ({gap_k / gap_p:.4f}, limit 1 "
+                  f"+- 0.1; L2 {d / gap_p:.4f} of it, limit 1.5); repeated bitwise "
+                  f"{torch.equal(sr_k, again)}; dPSNR against f32 {p_k - p_f:+.5f} dB", flush=True)
+            if abs(p_k - p_p) > 0.01 or abs(gap_k / gap_p - 1) > 0.1 or d > 1.5 * gap_p \
+                    or not torch.equal(sr_k, again):
+                raise AssertionError(f"scene {i}: the mixed none kernels disagree with the "
+                                     f"plain blocks")
+        del plain
+        lr0 = torch.from_numpy(scenes[0][0]).to(dev)
+        scene_fns = (("f32", lambda: cache(params, lr0)), ("none", lambda: cache_m(params, lr0)))
+
+    # c: the eight `_bf16` kernels against their plain versions under the plan
+    rec = Recorder(card, counts_s, n, "scene")
+    rec_pm = Recorder(card, counts_pm, 1, "K11 call")
+    wbytes = lambda *k_: sum(nbytes(ws[n_]) for n_ in k_)
+
+    def check(name, fn, plain_fn, ins, flops, io, recorder=rec, lib=None, **kw):
+        got, ref, ref32 = fn(*ins, plan=plan), plain_fn(*ins, plan=plan), plain_fn(*ins)
+        recorder.record(name, "lft_torch/csrc/" + kw.pop("src_", "spa_block.cu"),
+                        kw.pop("replaces", "lft_tpu/kernels/spa_block.py:352"), tup(got),
+                        tup(ref), lambda: fn(*ins, plan=plan),
+                        lambda: plain_fn(*ins, plan=plan), flops, io, ref32=tup(ref32),
+                        bf16_products=True, timer=events_ms, **kw)
+        repeats(name, lambda: fn(*ins, plan=plan), got)
+        if lib is not None:
+            nearest(name, *lib)
+        turns.append((f"{name} vs {name[:-5]}", lambda: fn(*ins), lambda: fn(*ins, plan=plan)))
+        return ref
+
+    with torch.no_grad():
+        wa = ab.ang_weights(params, "altblock.0.ang_trans.")
+        x1 = torch.randn(N, A2, C, device=dev, generator=g)
+        pe1 = torch.from_numpy(angular_position(A2, C)).to(dev)
+        ang = lambda x_, pe_, wa_, plan=None: ab.ang_block(x_, pe_, wa_, H, plan=plan)
+        ang_p = lambda x_, pe_, wa_, plan=None: ab.ang_block_plain(x_, pe_, wa_, H, plan=plan)
+        tok1 = x1.reshape(-1, C).to(torch.bfloat16)
+        hid1, wab = torch.cat([tok1, tok1], 1), {k_: v_.to(torch.bfloat16) for k_, v_ in wa.items()}
+        check("ang_block_bf16", ang, ang_p, (x1, pe1, wa), 2 * N * A2 * 8 * C * C,
+              nbytes(x1, pe1, x1, *wa.values()), src_="ang_block.cu",
+              replaces="lft_tpu/kernels/ang_block.py:188", fp32_flops=4 * N * A2 * A2 * C,
+              lib=("its six cuBLAS products",
+                   lambda: [tok1 @ wab[n_] for n_ in ("wq", "wk", "wv", "wo", "w1")]
+                   + [hid1 @ wab["w2"]]))
+        del x1, tok1, hid1
+        xs = torch.randn(V, h, w, C, device=dev, generator=g)
+        bf = lambda t_: t_.to(torch.bfloat16)
+        wsb = {k_: bf(v_) for k_, v_ in ws.items()}
+        conv = ("its conv part only, cuDNN's F.conv2d",
+                lambda xsb=bf(xs): torch.nn.functional.conv2d(
+                    xsb.permute(0, 3, 1, 2), wsb["mlp"].reshape(D, C, 3, 3), padding=1))
+        tok, xn = check("spa_tokenize_ln_bf16", sb.tokenize_ln, sb.tokenize_ln_plain,
+                        (xs, pe_f, ws), 2 * C * D * V * valid_window_pairs(h, w, 1),
+                        nbytes(xs, pe_f) + 2 * T * D * 4 + wbytes("wu", "ln"), lib=conv)
+        q, k, v = check("spa_qkv_bf16", sb.qkv, sb.qkv_plain, (xn, tok, ws), 2 * T * D * 3 * D,
+                        nbytes(xn, tok) + 3 * T * D * 4 + wbytes("wqk", "wv"),
+                        lib=("its two cuBLAS products", lambda xnb=bf(xn), tokb=bf(tok): (
+                            xnb @ wsb["wqk"], tokb @ wsb["wv"])))
+        win = lambda *a_, plan=None: sb.window_attn(*a_, H, K, plan=plan)
+        win_p = lambda *a_, plan=None: sb.window_attn_plain(*a_, H, K, plan=plan)[0]
+        mask = torch.from_numpy(local_window_mask(h, w, K) == 0).to(dev)
+        heads = lambda t_: t_.reshape(V, h * w, H, D // H).transpose(1, 2).to(torch.bfloat16)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        pairs = V * valid_window_pairs(h, w, K // 2)
+        attn = check("spa_window_attn_bf16", win, win_p, (q, k, v), 4 * D * pairs,
+                     nbytes(q, k, v, q),
+                     lib_fn=lambda: torch.nn.functional.scaled_dot_product_attention(
+                         qh, kh, vh, attn_mask=mask))
+        del qh, kh, vh, q, k, v
+        x2, xn2 = check("spa_outproj_ln_bf16", sb.outproj_ln, sb.outproj_ln_plain,
+                        (attn, tok, ws), 2 * T * D * D,
+                        nbytes(attn, tok) + 2 * T * D * 4 + wbytes("wo", "ln"),
+                        lib=("its cuBLAS product with the residual (addmm, no LN2)",
+                             lambda ab_=bf(attn), tb=bf(tok): torch.addmm(
+                                 tb.reshape(-1, D), ab_.reshape(-1, D), wsb["wo"])))
+        ffn = ("its three cuBLAS products", lambda xb_=bf(xn2), x2b=bf(x2): (
+            torch.mm(xb_.reshape(-1, D), wsb["w1"], out=hid_b), hid_b @ wsb["w2"],
+            x2b.reshape(-1, D) @ wsb["wlin"]))
+        check("spa_ffn_out_bf16", sb.ffn_out, sb.ffn_out_plain, (xn2, x2, ws),
+              2 * T * (4 * D * D + D * C), nbytes(xn2, x2) + T * C * 4
+              + wbytes("w1", "w2", "wlin"), lib=ffn)
+        # K11's two on the f32 buffer: x pixel-major, the output pixel-major
+        tokp = lambda x_, pe_, ws_, plan=None: sb.tokenize_ln(x_, pe_, ws_, True, plan=plan)
+        tokp_p = lambda x_, pe_, ws_, plan=None: sb.tokenize_ln_plain(to_vm(x_), pe_, ws_, plan)
+        check("spa_tokenize_ln_pm_bf16", tokp, tokp_p, (xf, pe_f, ws),
+              2 * C * D * V * valid_window_pairs(h, w, 1),
+              nbytes(xf, pe_f) + 2 * T * D * 4 + wbytes("wu", "ln"), replaces=rep,
+              recorder=rec_pm, lib=conv)
+        ffp = lambda a_, b_, ws_, plan=None: sb.ffn_out(a_, b_, ws_, A2, plan=plan)
+        ffp_p = lambda a_, b_, ws_, plan=None: to_pm(sb.ffn_out_plain(a_, b_, ws_, plan))
+        check("spa_ffn_out_pm_bf16", ffp, ffp_p, (xn2, x2, ws), 2 * T * (4 * D * D + D * C),
+              nbytes(xn2, x2) + T * C * 4 + wbytes("w1", "w2", "wlin"), replaces=rep,
+              recorder=rec_pm, lib=ffn)
+        rows += rec.rows + rec_pm.rows
+        del xs, tok, xn, attn, x2, xn2, xf, conv, ffn, wsb
+
+        # d: a train step under `none`, and a forward under a site subset, raise
+        # before any launch
+        a4 = Args(angRes=5, scale_factor=4, channels=64, batch_size=1, train_fused="true",
+                  dtype="mixed")
+        lr_t = torch.rand(1, 1, 160, 160, device=dev, generator=g)
+        hr_t = torch.rand(1, 1, 640, 640, device=dev, generator=g)
+    for spec, what, grad, pat in (("none", "a train step", True, "under grad.*item 9g"),
+                                  ("qk,ffn", "a forward", False, "item 9h")):
+        with fwd_sites(spec):
+            torch.cuda.synchronize()
+            reset_launches()
+            try:
+                if grad:
+                    pg = {k_: v_.detach().clone().requires_grad_(True)
+                          for k_, v_ in params.items()}
+                    make_train_step(get_model(a4), make_optimizer(pg, a4, 10), a4)(pg, lr_t, hr_t)
+                else:
+                    with torch.no_grad():
+                        forward(params, lr_t, a4)
+                raise AssertionError(f"{what} under LFT_MM_HP_SITES={spec} did not raise")
+            except NotImplementedError as e:
+                torch.cuda.synchronize()
+                if not re.search(pat, str(e)) or any(LAUNCHES.values()):
+                    raise AssertionError(f"{what} under LFT_MM_HP_SITES={spec}: {e}; launches "
+                                         f"{ {k_: c for k_, c in LAUNCHES.items() if c} }")
+                print(f"{what} under LFT_MM_HP_SITES={spec} raised before any launch: {e}",
+                      flush=True)
+
+    # e: in turns, CUDA events around back-to-back calls (late in the process)
+    print(f"{card_line()}: ms of each new instance beside its f32 (or view-major `_bf16io`) "
+          f"instance on the same inputs, in turns (other, new, new, other; CUDA events around "
+          f"20 back-to-back calls):", flush=True)
+    for name, other_fn, new_fn in turns:
+        t_ = [events_ms(other_fn), events_ms(new_fn), events_ms(new_fn), events_ms(other_fn)]
+        print(f"  {name}: other {t_[0]:.4f} / {t_[3]:.4f} ms, new {t_[1]:.4f} / {t_[2]:.4f} ms "
+              f"(new / other {(t_[1] + t_[2]) / (t_[0] + t_[3]):.3f})", flush=True)
+    turns.clear()
+    with fwd_sites("none"):
+        busy = []
+        for what, fn in scene_fns + scene_fns[::-1]:
+            kt = kernel_times(fn, 3)
+            busy.append((what, sum(ms for ms, _ in kt.values()) if kt else None,
+                         events_ms(fn, 3)))
+    print(f"{card_line()}: scene 0, in turns f32 / none / none / f32 (device busy: the "
+          f"kernels of a profiler trace of 3 scenes; CUDA events around 3 back-to-back "
+          f"scenes): " + "; ".join(
+              f"{w_} CUDA events {e_:.2f} ms, device busy " + (
+                  "not measured (every trace lost kernel records)" if d_ is None else
+                  f"{d_:.2f} ms, idle share {1 - d_ / e_:.3f}") for w_, d_, e_ in busy),
+          flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3971,15 +4329,16 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     import time
+    t_start = time.time()
 
     import numpy as np
     from lft_torch.config import Args
     from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
-    from lft_torch.kernels import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, PEROP,
-                                   PEROP_BF16IO, PEROP_BF16TRAIN, SWEEPS, TAIL, TRAINING,
-                                   build_all, reset_launches)
+    from lft_torch.kernels import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, MIXED_FWD, PEROP,
+                                   PEROP_BF16IO, PEROP_BF16TRAIN, SWEEPS, TAIL, TAIL_BF16IO,
+                                   TRAINING, build_all, reset_launches)
     from lft_torch.models.lft import forward
     from lft_torch.ops.bicubic import bicubic_upscale_views
     from lft_torch.ops.metrics import cal_metrics
@@ -4024,7 +4383,7 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     extra = [k for k in TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO + BF16TRAIN
-             + PEROP_BF16IO + PEROP_BF16TRAIN if counts[k]]
+             + PEROP_BF16IO + PEROP_BF16TRAIN + MIXED_FWD + TAIL_BF16IO if counts[k]]
     if extra:
         raise AssertionError(f"training or per-op kernels launched by the SR run: {extra}")
 
@@ -4206,9 +4565,15 @@ def main(argv=None) -> int:
     bf16_perop_train_cli(params, a.seed)
     torch.cuda.empty_cache()
     print(f"bf16 per-op training phase: {time.time() - t0:.1f} s", flush=True)
+    # step 27: the last forward forms (K11 on bf16, the forward plan `none`)
+    t0 = time.time()
+    rows += fwdforms_phase(params, args, scenes, cache, card, a.seed)
+    torch.cuda.empty_cache()
+    print(f"forward-forms phase: {time.time() - t0:.1f} s", flush=True)
     missing = sorted(set(LAUNCHES) - {r["name"] for r in rows})
     if missing:
         raise AssertionError(f"kernels without a row in the kernels line: {missing}")
+    print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,8 +14,11 @@ are named by their demangled names (`compare_bwd.ptxas_report`); a kernel that g
 backwards) or trailing `false`s (the `BF` switch of `--dtype mixed`'s
 bf16-operand instances, rowgemm.cuh / tokenize.cuh / wgrad.cu; the STATS
 switch of K2.3's and K7's bf16-IO kernels; the DIV and DOUT switches of
-K5's backward passes), in any order, is matched to the other build's kernel
-without them. Prints every
+K5's backward passes), in any order, or a trailing `true` after a
+`__nv_bfloat16` IO type (the `BF` switch that K1's, K2.4's and K2.5's
+bf16-IO instances always set, made its own template argument for the
+bf16-operand forward instances of `--dtype mixed`), is matched to the other
+build's kernel without them. Prints every
 matched pair's registers, spill stores and loads, and each side's unmatched
 kernels (here: the newer bf16 instances). Exits 1 if a matched pair differs
 or an old kernel is missing. Needs nvcc, not a card.
@@ -55,14 +58,25 @@ def without_io(name: str) -> str:
     return name
 
 
+def without_bf16_bf(name: str) -> str:
+    """`k<64, __nv_bfloat16, true>` -> `k<64, __nv_bfloat16>`: a bf16-IO
+    instance's name before its BF switch."""
+    if name.endswith("__nv_bfloat16, true>"):
+        return name[: -len(", true>")] + ">"
+    return name
+
+
 def match(name: str, old_by: dict):
     """The other build's kernel that `name` is, or None: `name`, then `name`
-    with its trailing `false`s and `float`s taken off one at a time."""
+    with its trailing `false`s and `float`s (or a bf16-IO instance's `true`)
+    taken off one at a time."""
     cand = name
     while True:
         if cand in old_by:
             return cand
-        shorter = without_io(cand) if cand.endswith(", float>") else without_bf(cand)
+        shorter = (without_io(cand) if cand.endswith(", float>") else
+                   without_bf16_bf(cand) if cand.endswith("__nv_bfloat16, true>") else
+                   without_bf(cand))
         if shorter == cand:
             return None
         cand = shorter

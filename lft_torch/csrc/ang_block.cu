@@ -62,6 +62,16 @@
 //   second pass also writes m, the token's max over its heads, into every
 //   head's slot, l over the unrounded e, and the attention output in bf16;
 //   out is `ang_block_bf16io`'s bit for bit.
+// * BF with IO = float (`ang_block_bf16`, `--dtype mixed` serving under
+//   LFT_MM_HP_SITES=none; lft_tpu's kernel with mm_half and every site
+//   rounded, ang_block.py:110-152): x, out and every sum f32; the products
+//   over bf16-rounded operands (rowgemm.cuh's BF rounds the rows as they
+//   load), q, k and v held rounded (the `ascore` and `aav` sites), and
+//   lft_tpu's softmax as above (the token's max over its heads, e rounded
+//   through the product with v). Nothing else rounds: x2 = a Wo + x, LN2
+//   and out = y + x2 stay f32. Bound at [16384, 25, 64]: 26.8 GFLOP at the
+//   bf16 rate 0.027 ms, the attention on the FP32 pipes 0.08 ms with the
+//   max pass, x in and out f32 0.063 ms of bytes.
 
 #include "attn.cuh"
 #include "rowbwd.cuh"
@@ -92,8 +102,9 @@ struct AngLayout {
 };
 
 // wf: the weight stream (AngLayout::FLOATS floats, kernels/rowgemm.py:
-// ang_block_stream), written by rg_weights_kernel.
-template <int C, int H, bool RES, class IO = float>
+// ang_block_stream), written by rg_weights_kernel. BF: the products over
+// bf16-rounded operands and lft_tpu's softmax (the header); set by IO = bf16.
+template <int C, int H, bool RES, class IO = float, bool BF = is_bf16<IO>>
 __global__ void __launch_bounds__(RG_NT, 1)
     ang_block_kernel(const IO* __restrict__ x, const float* __restrict__ pe,
                      const float* __restrict__ ln, const float* __restrict__ wf,
@@ -104,6 +115,15 @@ __global__ void __launch_bounds__(RG_NT, 1)
   constexpr int LD = L::LD, LDH = L::LDH, HC = L::HC, DH = C / H;
   constexpr bool BIO = is_bf16<IO>;
   extern __shared__ __align__(16) float smem[];
+  // q, k, v as the attention reads them: rounded to bf16 under BF
+  auto rq = [](float v) {
+    if constexpr (BIO)
+      return io_round<IO>(v);
+    else if constexpr (BF)
+      return bf16_round(v);
+    else
+      return v;
+  };
   float* XQ = smem;             // x, then q, then x2
   float* XN = XQ + L::TILE;     // xn, then the attention output, then LN2(x2)
   float* K = XN + L::TILE;
@@ -162,19 +182,18 @@ __global__ void __launch_bounds__(RG_NT, 1)
       RgAcc<C> acc;
       auto put = [&](float* dst) {
         rg_pairs<C>(acc, [&](int r, int c, float v0, float v1) {
-          *reinterpret_cast<float2*>(dst + (wr + r) * LD + c) =
-              make_float2(io_round<IO>(v0), io_round<IO>(v1));
+          *reinterpret_cast<float2*>(dst + (wr + r) * LD + c) = make_float2(rq(v0), rq(v1));
         });
       };
       rg_zero<C>(acc);
-      rg_product<C, C, L::OFF_V, false, BIO>(acc, XQ + wr * LD, LD, ring, st);
+      rg_product<C, C, L::OFF_V, false, BF>(acc, XQ + wr * LD, LD, ring, st);
       put(V);
       rg_zero<C>(acc);
-      rg_product<C, C, L::OFF_Q, false, BIO>(acc, XN + wr * LD, LD, ring, st);
+      rg_product<C, C, L::OFF_Q, false, BF>(acc, XN + wr * LD, LD, ring, st);
       __syncwarp();   // x is read
       put(XQ);
       rg_zero<C>(acc);
-      rg_product<C, C, L::OFF_K, false, BIO>(acc, XN + wr * LD, LD, ring, st);
+      rg_product<C, C, L::OFF_K, false, BF>(acc, XN + wr * LD, LD, ring, st);
       put(K);
     }
     __syncthreads();
@@ -185,7 +204,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // rescale of the running sums a chunk (an online softmax over chunks).
     // The output overwrites xn, which is dead after the projections.
     constexpr int KB = 8;
-    if constexpr (BIO) {
+    if constexpr (BF) {
       // lft_tpu's softmax (the header): pass 1, each item's max score
       float* MH = V + L::TILE + L::NS * RG_SF;   // [RP][H]
       for (int t = tid; t < np * H * A2; t += RG_NT) {
@@ -241,7 +260,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
         }
       }
     }
-    for (int t = tid; t < (BIO ? 0 : np * H * A2); t += RG_NT) {
+    for (int t = tid; t < (BF ? 0 : np * H * A2); t += RG_NT) {
       const int i = t % A2, hh = (t / A2) % H, p = t / (A2 * H);
       const float* qr = XQ + (p * A2 + i) * LD + hh * DH;
       const float* kp = K + p * A2 * LD + hh * DH;
@@ -302,7 +321,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // of the attention output
     RgAcc<C> x2;
     rg_zero<C>(x2);
-    rg_product<C, C, L::OFF_O, false, BIO>(x2, XN + wr * LD, LD, ring, st);
+    rg_product<C, C, L::OFF_O, false, BF>(x2, XN + wr * LD, LD, ring, st);
     rg_pairs<C>(x2, [&](int r, int c, float& v0, float& v1) {
       if (wr + r < nrows) {
         const float2 xv = ldg2(x + (row0 + wr + r) * C + c);
@@ -326,14 +345,14 @@ __global__ void __launch_bounds__(RG_NT, 1)
       constexpr int off = L::OFF_F + decltype(J)::value * (L::W1 + L::W2);
       RgAcc<HC> hid;
       rg_zero<HC>(hid);
-      rg_product<C, HC, off, false, BIO>(hid, XN + wr * LD, LD, ring, st);
+      rg_product<C, HC, off, false, BF>(hid, XN + wr * LD, LD, ring, st);
       __syncwarp();   // the previous chunk's rows are read
       rg_pairs<HC>(hid, [&](int r, int c, float v0, float v1) {
         *reinterpret_cast<float2*>(HID + (wr + r) * LDH + c) =
             make_float2(io_round<IO>(fmaxf(v0, 0.f)), io_round<IO>(fmaxf(v1, 0.f)));
       });
       __syncwarp();
-      rg_product<HC, C, off + L::W1, false, BIO>(y, HID + wr * LDH, LDH, ring, st);
+      rg_product<HC, C, off + L::W1, false, BF>(y, HID + wr * LDH, LDH, ring, st);
     });
     rg_pairs<C>(y, [&](int r, int c, float v0, float v1) {
       if (wr + r >= nrows) return;
@@ -344,16 +363,15 @@ __global__ void __launch_bounds__(RG_NT, 1)
   cp_async_wait<0>();
 }
 
-template <int C, bool RES, class IO = float>
+template <int C, bool RES, class IO = float, bool BF = is_bf16<IO>>
 int launch(const IO* x, const float* pe, const float* ln, const float* wq,
            const float* wk, const float* wv, const float* wo, const float* w1,
            const float* w2, float* wf, IO* out, float* m, float* l, named_t<IO>* attn, int N,
            int A2, float scale, cudaStream_t stream) {
   using L = AngLayout<C>;
   constexpr int H = 8;
-  constexpr bool BIO = is_bf16<IO>;
-  // bf16 IO: the items' maxima MH past the ring
-  constexpr size_t BYTES = L::BYTES + (BIO ? static_cast<size_t>(RP) * H * 4 : 0);
+  // BF: the items' maxima MH past the ring
+  constexpr size_t BYTES = L::BYTES + (BF ? static_cast<size_t>(RP) * H * 4 : 0);
   static_assert(BYTES <= RG_SMEM_MAX, "the rows, the ring and MH must fit");
   RgPieces ps{};
   int n = 0;
@@ -365,8 +383,8 @@ int launch(const IO* x, const float* pe, const float* ln, const float* wq,
     ps.p[n++] = RgPiece{w1 + j * L::HC, 2 * C, C, L::HC, L::OFF_F + j * (L::W1 + L::W2)};
     ps.p[n++] = RgPiece{w2 + j * L::HC * C, C, L::HC, C, L::OFF_F + j * (L::W1 + L::W2) + L::W1};
   }
-  launch_rg_weights(ps, n, wf, stream, BIO);
-  auto kernel = ang_block_kernel<C, H, RES, IO>;
+  launch_rg_weights(ps, n, wf, stream, BF);
+  auto kernel = ang_block_kernel<C, H, RES, IO, BF>;
   LFT_SET_SMEM(kernel, BYTES);
   const int P = RP / A2;
   kernel<<<rg_grid((N + P - 1) / P), RG_NT, BYTES, stream>>>(x, pe, ln, wf, out, m, l, attn, N,
@@ -841,6 +859,28 @@ extern "C" int lft_ang_block_fwd(const float* x, const float* pe, const float* l
 #define LFT_CASE(CV)                                                                       \
     case CV: return launch<CV, false>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out, nullptr, \
                                       nullptr, nullptr, N, A2, scale, s);
+    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
+#undef LFT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The bf16-operand instance (`--dtype mixed` serving under
+// LFT_MM_HP_SITES=none): the same arguments; wf holds the weights' bf16
+// parts in the same layout.
+extern "C" int lft_ang_block_fwd_bf16(const float* x, const float* pe, const float* ln,
+                                      const float* wq, const float* wk, const float* wv,
+                                      const float* wo, const float* w1, const float* w2,
+                                      float* wf, float* out, int N, int A2, int C, int H,
+                                      float scale, void* stream) {
+  if (H != 8 || A2 < 1 || A2 > RP || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+#define LFT_CASE(CV)                                                                        \
+    case CV: return launch<CV, false, float, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf,   \
+                                                   out, nullptr, nullptr, nullptr, N, A2,   \
+                                                   scale, s);
     LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
 #undef LFT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -59,7 +59,18 @@
 // q, k, v; K2.4 x2 = bf16(bf16(attn Wo) + tok) and xn2 = bf16(LN2(x2));
 // K2.5 hid = bf16(relu(xn2 W1)), y = bf16(bf16(hid W2) + x2) and out =
 // bf16(y Wlin). K2.1 and K2.3: tokenize.cuh, window_attn.cuh. With half
-// the bytes, every step is bound by its bytes (the bounds at each).
+// the bytes, every step is bound by its bytes (the bounds at each). K11's
+// two steps have the same instances (`lft_spa_*_pm_bf16io`).
+//
+// `--dtype mixed` serving under LFT_MM_HP_SITES=none (lft_tpu's K2 with
+// mm_half and every site rounded, spa_block.py:_kernel :117-202): each step
+// and K11's two have a `_bf16` instance (`lft_spa_*_bf16`) with f32
+// activations in device memory and the BF products (operands rounded to
+// bf16 as they load, the weights' bf16 parts, sums in f32). Only a product's
+// operands round: tok, xn, x2 = attn Wo + tok, LN2, y = hid W2 + x2 and the
+// output stay f32, as in the plain version; K2.3 takes lft_tpu's softmax
+// (window_attn.cuh). The bytes are K2's f32 ones and the products run at the
+// bf16 rate, so steps 1 and 5 become bound by bytes too.
 
 #include "rowgemm.cuh"
 #include "spa.cuh"
@@ -308,16 +319,17 @@ __global__ void __launch_bounds__(RG_NT, 1)
 // One pass of step 2's (above). wf: Wo split (RowProj::SQ floats,
 // kernels/rowgemm.py:outproj_stream), written by rg_weights_kernel. IO =
 // bf16 (`spa_outproj_ln_bf16io`, BF products): attn, tok, x2, xn2 bf16;
-// bound at [400, 32, 32, 64]: 0.42 GB, 0.125 ms, bytes.
-template <int C, class IO = float>
+// bound at [400, 32, 32, 64]: 0.42 GB, 0.125 ms, bytes. BF with IO = float
+// (`spa_outproj_ln_bf16`): attn and Wo rounded to bf16 in the product, x2 =
+// attn Wo + tok and LN2 f32.
+template <int C, class IO = float, bool BF = is_bf16<IO>>
 __global__ void __launch_bounds__(RG_NT, 1)
     spa_outproj_ln_kernel(const IO* __restrict__ attn, const IO* __restrict__ tok,
                           const float* __restrict__ wf, const float* __restrict__ ln,
                           IO* __restrict__ x2, IO* __restrict__ xn2, int T) {
   constexpr int D = 2 * C;
   extern __shared__ __align__(16) float smem[];
-  row_pass<C, true, NoRows, is_bf16<IO>, IO>(attn, wf, x2, tok, ln + 2 * D, ln + 3 * D, xn2,
-                                             smem, T);
+  row_pass<C, true, NoRows, BF, IO>(attn, wf, x2, tok, ln + 2 * D, ln + 3 * D, xn2, smem, T);
 }
 
 // ---- 5: FFN + residual + Token2SAI --------------------------------------
@@ -351,15 +363,17 @@ struct FfnOut {
 // ffn_out_stream), written by rg_weights_kernel. IO = bf16
 // (`spa_ffn_out_bf16io`): xn2, x2, out bf16, BF products, hid = bf16(relu),
 // y = bf16(bf16(hid W2) + x2), out = bf16(y Wlin); bound at [400, 32, 32,
-// 64]: 60.4 GFLOP at the bf16 rate 0.061 ms, 0.26 GB 0.078 ms: bytes.
-template <int C, bool PM, class IO = float>
+// 64]: 60.4 GFLOP at the bf16 rate 0.061 ms, 0.26 GB 0.078 ms: bytes. BF
+// with IO = float (`spa_ffn_out_bf16`): xn2, hid, y and the weights rounded
+// to bf16 in the products, hid = relu(xn2 W1) and y = hid W2 + x2 f32, out
+// f32; 0.52 GB, 0.157 ms: bytes.
+template <int C, bool PM, class IO = float, bool BF = is_bf16<IO>>
 __global__ void __launch_bounds__(RG_NT, 1)
     spa_ffn_out_kernel(const IO* __restrict__ xn2, const IO* __restrict__ x2,
                        const float* __restrict__ wf, IO* __restrict__ out, int T, int hw,
                        int A2) {
   using F = FfnOut<C>;
   constexpr int D = F::D, HC = F::HC, LDX = F::LDX, LDH = F::LDH;
-  constexpr bool BIO = is_bf16<IO>;
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* xw = smem + 16 * warp * LDX;                   // the warp's 16 rows: xn2, then y
@@ -394,14 +408,14 @@ __global__ void __launch_bounds__(RG_NT, 1)
       constexpr int off = decltype(J)::value * (F::W1 + F::W2);
       RgAcc<HC> h;
       rg_zero<HC>(h);
-      rg_product<D, HC, off, false, BIO>(h, xw, LDX, ring, st);
+      rg_product<D, HC, off, false, BF>(h, xw, LDX, ring, st);
       __syncwarp();   // the previous chunk's rows are read
       rg_pairs<HC>(h, [&](int r, int c, float v0, float v1) {
         *reinterpret_cast<float2*>(hw16 + r * LDH + c) =
             make_float2(io_round<IO>(fmaxf(v0, 0.f)), io_round<IO>(fmaxf(v1, 0.f)));
       });
       __syncwarp();
-      rg_product<HC, D, off + F::W1, false, BIO>(y, hw16, LDH, ring, st);
+      rg_product<HC, D, off + F::W1, false, BF>(y, hw16, LDH, ring, st);
     });
     __syncwarp();     // xn2 is read
     rg_pairs<D>(y, [&](int r, int c, float v0, float v1) {
@@ -415,7 +429,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     __syncwarp();
     RgAcc<C> o;
     rg_zero<C>(o);
-    rg_product<D, C, F::OFF_LIN, false, BIO>(o, xw, LDX, ring, st);
+    rg_product<D, C, F::OFF_LIN, false, BF>(o, xw, LDX, ring, st);
     rg_pairs<C>(o, [&](int r, int c, float v0, float v1) {
       const int t = t0 + r;
       if (t >= T) return;
@@ -439,18 +453,19 @@ LFT_EXPORT_ERROR_STRING
 
 namespace {
 
-template <bool PM, class IO = float>
+// BF: the band and the taps rounded to bf16 (tokenize.cuh); set by IO = bf16.
+template <bool PM, class IO = float, bool BF = is_bf16<IO>>
 int tokenize_ln(const IO* x, const IO* pe_tok, const float* wu, float* wf, const float* ln,
                 IO* tok, IO* xn, int V, int h, int w, int A2, int C, int r, int cw,
                 cudaStream_t s) {
   LFT_DISPATCH_C(C, {
-    return launch_tap_conv<CC, 2 * CC, PM, true, false, is_bf16<IO>, IO>(
+    return launch_tap_conv<CC, 2 * CC, PM, true, false, BF, IO>(
         x, wu, wf, pe_tok, ln, tok, xn, V, h, w, A2, r, cw, s);
   });
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool PM, class IO = float>
+template <bool PM, class IO = float, bool BF = is_bf16<IO>>
 int ffn_out(const IO* xn2, const IO* x2, const float* w1, const float* w2,
             const float* wlin, float* wf, IO* out, int T, int hw, int A2, int C,
             cudaStream_t s) {
@@ -465,8 +480,8 @@ int ffn_out(const IO* xn2, const IO* x2, const float* w1, const float* w2,
                           j * (F::W1 + F::W2) + F::W1};
     }
     ps.p[n++] = RgPiece{wlin, CC, F::D, CC, F::OFF_LIN};
-    launch_rg_weights(ps, n, wf, s, is_bf16<IO>);
-    auto kernel = spa_ffn_out_kernel<CC, PM, IO>;
+    launch_rg_weights(ps, n, wf, s, BF);
+    auto kernel = spa_ffn_out_kernel<CC, PM, IO, BF>;
     LFT_SET_SMEM(kernel, F::BYTES);
     kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(xn2, x2, wf, out, T, hw, A2);
   });
@@ -495,14 +510,55 @@ extern "C" int lft_spa_tokenize_ln_bf16io(const bf16* x, const bf16* pe_tok, con
                                   static_cast<cudaStream_t>(stream));
 }
 
+// Step 1's bf16-operand instance (`--dtype mixed` serving under
+// LFT_MM_HP_SITES=none): lft_spa_tokenize_ln's arguments; x and wu rounded to
+// bf16 in the product (wf holding wu's bf16 parts), tok and xn f32.
+extern "C" int lft_spa_tokenize_ln_bf16(const float* x, const float* pe_tok, const float* wu,
+                                        float* wf, const float* ln, float* tok, float* xn, int V,
+                                        int h, int w, int C, int r, int cw, void* stream) {
+  return tokenize_ln<false, float, true>(x, pe_tok, wu, wf, ln, tok, xn, V, h, w, 1, C, r, cw,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+template <class IO, bool BF = is_bf16<IO>>
+int tokenize_ln_pm(const IO* x, const IO* pe_tok, const float* wu, float* wf, const float* ln,
+                   IO* tok, IO* xn, int Bb, int h, int w, int A2, int C, int r, int cw,
+                   cudaStream_t s) {
+  if (Bb < 1 || A2 < 1 || static_cast<long long>(Bb) * A2 * h * w > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tokenize_ln<true, IO, BF>(x, pe_tok, wu, wf, ln, tok, xn, Bb * A2, h, w, A2, C, r, cw,
+                                   s);
+}
+
+}  // namespace
+
 // K11's first step: x [Bb, h, w, A2, C] pixel-major -> tok, xn [Bb * A2, h, w, D].
 extern "C" int lft_spa_tokenize_ln_pm(const float* x, const float* pe_tok, const float* wu,
                                       float* wf, const float* ln, float* tok, float* xn, int Bb,
                                       int h, int w, int A2, int C, int r, int cw, void* stream) {
-  if (Bb < 1 || A2 < 1 || static_cast<long long>(Bb) * A2 * h * w > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return tokenize_ln<true>(x, pe_tok, wu, wf, ln, tok, xn, Bb * A2, h, w, A2, C, r, cw,
-                           static_cast<cudaStream_t>(stream));
+  return tokenize_ln_pm<float>(x, pe_tok, wu, wf, ln, tok, xn, Bb, h, w, A2, C, r, cw,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// Its bf16-operand instance: as lft_spa_tokenize_ln_bf16.
+extern "C" int lft_spa_tokenize_ln_pm_bf16(const float* x, const float* pe_tok, const float* wu,
+                                           float* wf, const float* ln, float* tok, float* xn,
+                                           int Bb, int h, int w, int A2, int C, int r, int cw,
+                                           void* stream) {
+  return tokenize_ln_pm<float, true>(x, pe_tok, wu, wf, ln, tok, xn, Bb, h, w, A2, C, r, cw,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// Its bf16-IO instance: as lft_spa_tokenize_ln_bf16io, x pixel-major (a
+// (pixel, view) row is C bf16 values, 2 C bytes, at a stride of A2 C).
+extern "C" int lft_spa_tokenize_ln_pm_bf16io(const bf16* x, const bf16* pe_tok, const float* wu,
+                                             float* wf, const float* ln, bf16* tok, bf16* xn,
+                                             int Bb, int h, int w, int A2, int C, int r, int cw,
+                                             void* stream) {
+  return tokenize_ln_pm<bf16>(x, pe_tok, wu, wf, ln, tok, xn, Bb, h, w, A2, C, r, cw,
+                              static_cast<cudaStream_t>(stream));
 }
 
 namespace {
@@ -550,6 +606,16 @@ extern "C" int lft_spa_qkv_bf16io(const bf16* xn, const bf16* tok, const float* 
                                   int C, void* stream) {
   return qkv<false, true, bf16>(xn, tok, wqk, wv, wf, q, k, v, T, C, nullptr, nullptr, nullptr,
                                 1, static_cast<cudaStream_t>(stream));
+}
+
+// Step 2's bf16-operand instance (`--dtype mixed` serving under
+// LFT_MM_HP_SITES=none): lft_spa_qkv's arguments; xn, tok and the weights
+// rounded to bf16 in the products (wf holding their bf16 parts), q, k, v f32.
+extern "C" int lft_spa_qkv_bf16(const float* xn, const float* tok, const float* wqk,
+                                const float* wv, float* wf, float* q, float* k, float* v, int T,
+                                int C, void* stream) {
+  return qkv<false, true>(xn, tok, wqk, wv, wf, q, k, v, T, C, nullptr, nullptr, nullptr, 1,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // K3.b (the backward's step b): tok [T, D], pe_tok [hw, D], ln [4, D] (LN1's
@@ -622,9 +688,12 @@ extern "C" int lft_spa_window_attn(const float* q, const float* k, const float* 
 
 namespace {
 
-template <bool STATS>
-int window_attn_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* attn, float* m,
-                       float* l, int V, int h, int w, int D, int H, float scale, cudaStream_t s) {
+// lft_tpu's softmax (window_attn.cuh: window_softmax_max_heads): a block a
+// (view, 16 x 16 tile) item; IO = bf16 the bf16-IO kernel, IO = float the
+// bf16-operand one (no STATS).
+template <bool STATS, class IO = bf16>
+int window_attn_max_heads(const IO* q, const IO* k, const IO* v, IO* attn, float* m, float* l,
+                          int V, int h, int w, int D, int H, float scale, cudaStream_t s) {
   if (H != 8 || V < 1 || h < 1 || w < 1 || D % WA_G) return static_cast<int>(cudaErrorInvalidValue);
   const long long items = static_cast<long long>(V) * ((h + WA_TY - 1) / WA_TY) *
                           ((w + WA_TX - 1) / WA_TX);
@@ -633,7 +702,7 @@ int window_attn_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* attn, 
   switch (D / H) {
 #define LFT_ATTN_CASE(DHV)                                                                  \
     case DHV: {                                                                             \
-      auto kernel = spa_window_attn_bf16io_kernel<DHV, STATS>;                              \
+      auto kernel = window_attn_max_heads_kernel<DHV, STATS, IO>();                         \
       LFT_SET_SMEM(kernel, WA_BYTES);                                                       \
       kernel<<<static_cast<int>(items), WA_NT, WA_BYTES, s>>>(q, k, v, attn, m, l, V, h, w, \
                                                                scale);                      \
@@ -655,8 +724,18 @@ int window_attn_bf16io(const bf16* q, const bf16* k, const bf16* v, bf16* attn, 
 extern "C" int lft_spa_window_attn_bf16io(const bf16* q, const bf16* k, const bf16* v,
                                           bf16* attn, int V, int h, int w, int D, int H,
                                           float scale, void* stream) {
-  return window_attn_bf16io<false>(q, k, v, attn, nullptr, nullptr, V, h, w, D, H, scale,
-                                   static_cast<cudaStream_t>(stream));
+  return window_attn_max_heads<false>(q, k, v, attn, nullptr, nullptr, V, h, w, D, H, scale,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// Step 3's bf16-operand instance (`--dtype mixed` serving under
+// LFT_MM_HP_SITES=none): lft_spa_window_attn's arguments; q, k, v rounded to
+// bf16 as they load, lft_tpu's softmax with e rounded, attn f32.
+extern "C" int lft_spa_window_attn_bf16(const float* q, const float* k, const float* v,
+                                        float* attn, int V, int h, int w, int D, int H,
+                                        float scale, void* stream) {
+  return window_attn_max_heads<false, float>(q, k, v, attn, nullptr, nullptr, V, h, w, D, H,
+                                             scale, static_cast<cudaStream_t>(stream));
 }
 
 // The same, also writing m, l [V, h, w, H] f32 (the residuals of K3's
@@ -664,8 +743,8 @@ extern "C" int lft_spa_window_attn_bf16io(const bf16* q, const bf16* k, const bf
 extern "C" int lft_spa_window_attn_res_bf16io(const bf16* q, const bf16* k, const bf16* v,
                                               bf16* attn, float* m, float* l, int V, int h,
                                               int w, int D, int H, float scale, void* stream) {
-  return window_attn_bf16io<true>(q, k, v, attn, m, l, V, h, w, D, H, scale,
-                                  static_cast<cudaStream_t>(stream));
+  return window_attn_max_heads<true>(q, k, v, attn, m, l, V, h, w, D, H, scale,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // Step 3 also writing m, l [V, h, w, H] (the residuals of K3).
@@ -676,19 +755,19 @@ extern "C" int lft_spa_window_attn_res(const float* q, const float* k, const flo
                            static_cast<cudaStream_t>(stream));
 }
 
-// Step 4: wf is a scratch of RowProj<C>::SQ floats (kernels/rowgemm.py:
-// outproj_floats), Wo split into TF32 hi/lo by the launch's first kernel.
-extern "C" int lft_spa_outproj_ln(const float* attn, const float* tok, const float* wo,
-                                  const float* ln, float* wf, float* x2, float* xn2, int T,
-                                  int C, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
+namespace {
+
+// Step 4: Wo split (or its bf16 part, BF) into wf, then spa_outproj_ln_kernel.
+template <class IO, bool BF = is_bf16<IO>>
+int outproj_ln(const IO* attn, const IO* tok, const float* wo, const float* ln, float* wf,
+               IO* x2, IO* xn2, int T, int C, cudaStream_t s) {
   if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
     using L = RowProj<CC>;
     RgPieces ps{};
     ps.p[0] = RgPiece{wo, L::D, L::D, L::D, 0};
-    launch_rg_weights(ps, 1, wf, s);
-    auto kernel = spa_outproj_ln_kernel<CC>;
+    launch_rg_weights(ps, 1, wf, s, BF);
+    auto kernel = spa_outproj_ln_kernel<CC, IO, BF>;
     LFT_SET_SMEM(kernel, L::BYTES);
     kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(attn, tok, wf, ln, x2, xn2,
                                                                     T);
@@ -696,24 +775,33 @@ extern "C" int lft_spa_outproj_ln(const float* attn, const float* tok, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
+
+// Step 4: wf is a scratch of RowProj<C>::SQ floats (kernels/rowgemm.py:
+// outproj_floats), Wo split into TF32 hi/lo by the launch's first kernel.
+extern "C" int lft_spa_outproj_ln(const float* attn, const float* tok, const float* wo,
+                                  const float* ln, float* wf, float* x2, float* xn2, int T,
+                                  int C, void* stream) {
+  return outproj_ln<float>(attn, tok, wo, ln, wf, x2, xn2, T, C,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Step 4's bf16-operand instance (`--dtype mixed` serving under
+// LFT_MM_HP_SITES=none): the same arguments, wf holding Wo's bf16 part.
+extern "C" int lft_spa_outproj_ln_bf16(const float* attn, const float* tok, const float* wo,
+                                       const float* ln, float* wf, float* x2, float* xn2, int T,
+                                       int C, void* stream) {
+  return outproj_ln<float, true>(attn, tok, wo, ln, wf, x2, xn2, T, C,
+                                 static_cast<cudaStream_t>(stream));
+}
+
 // Step 4's bf16-IO instance: attn, tok, x2, xn2 bf16; wo, ln f32, wf holding
 // Wo's bf16 part.
 extern "C" int lft_spa_outproj_ln_bf16io(const bf16* attn, const bf16* tok, const float* wo,
                                          const float* ln, float* wf, bf16* x2, bf16* xn2, int T,
                                          int C, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
-  LFT_DISPATCH_C(C, {
-    using L = RowProj<CC>;
-    RgPieces ps{};
-    ps.p[0] = RgPiece{wo, L::D, L::D, L::D, 0};
-    launch_rg_weights(ps, 1, wf, s, true);
-    auto kernel = spa_outproj_ln_kernel<CC, bf16>;
-    LFT_SET_SMEM(kernel, L::BYTES);
-    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(attn, tok, wf, ln, x2, xn2,
-                                                                    T);
-  });
-  return static_cast<int>(cudaGetLastError());
+  return outproj_ln<bf16>(attn, tok, wo, ln, wf, x2, xn2, T, C,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // Step 5: wf is a scratch of FfnOut<C>::FLOATS floats (kernels/rowgemm.py:
@@ -726,6 +814,16 @@ extern "C" int lft_spa_ffn_out(const float* xn2, const float* x2, const float* w
                         static_cast<cudaStream_t>(stream));
 }
 
+// Step 5's bf16-operand instance (`--dtype mixed` serving under
+// LFT_MM_HP_SITES=none): the same arguments, wf holding the weights' bf16
+// parts.
+extern "C" int lft_spa_ffn_out_bf16(const float* xn2, const float* x2, const float* w1,
+                                    const float* w2, const float* wlin, float* wf, float* out,
+                                    int T, int C, void* stream) {
+  return ffn_out<false, float, true>(xn2, x2, w1, w2, wlin, wf, out, T, 1, 1, C,
+                                     static_cast<cudaStream_t>(stream));
+}
+
 // Step 5's bf16-IO instance: xn2, x2, out bf16; the weights f32 (their bf16
 // values), wf holding their bf16 parts.
 extern "C" int lft_spa_ffn_out_bf16io(const bf16* xn2, const bf16* x2, const float* w1,
@@ -735,13 +833,40 @@ extern "C" int lft_spa_ffn_out_bf16io(const bf16* xn2, const bf16* x2, const flo
                               static_cast<cudaStream_t>(stream));
 }
 
+namespace {
+
+template <class IO, bool BF = is_bf16<IO>>
+int ffn_out_pm(const IO* xn2, const IO* x2, const float* w1, const float* w2, const float* wlin,
+               float* wf, IO* out, int Bb, int hw, int A2, int C, cudaStream_t s) {
+  if (Bb < 1 || A2 < 1 || hw < 1 || static_cast<long long>(Bb) * A2 * hw > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return ffn_out<true, IO, BF>(xn2, x2, w1, w2, wlin, wf, out, Bb * A2 * hw, hw, A2, C, s);
+}
+
+}  // namespace
+
 // K11's last step: xn2, x2 [Bb * A2, hw, D] view-major -> out [Bb, hw, A2, C]
 // pixel-major.
 extern "C" int lft_spa_ffn_out_pm(const float* xn2, const float* x2, const float* w1,
                                   const float* w2, const float* wlin, float* wf, float* out,
                                   int Bb, int hw, int A2, int C, void* stream) {
-  if (Bb < 1 || A2 < 1 || hw < 1 || static_cast<long long>(Bb) * A2 * hw > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return ffn_out<true>(xn2, x2, w1, w2, wlin, wf, out, Bb * A2 * hw, hw, A2, C,
-                       static_cast<cudaStream_t>(stream));
+  return ffn_out_pm<float>(xn2, x2, w1, w2, wlin, wf, out, Bb, hw, A2, C,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Its bf16-operand instance: as lft_spa_ffn_out_bf16.
+extern "C" int lft_spa_ffn_out_pm_bf16(const float* xn2, const float* x2, const float* w1,
+                                       const float* w2, const float* wlin, float* wf, float* out,
+                                       int Bb, int hw, int A2, int C, void* stream) {
+  return ffn_out_pm<float, true>(xn2, x2, w1, w2, wlin, wf, out, Bb, hw, A2, C,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// Its bf16-IO instance: as lft_spa_ffn_out_bf16io, out pixel-major (a (pixel,
+// view) row of C bf16 values written as 4-byte pairs).
+extern "C" int lft_spa_ffn_out_pm_bf16io(const bf16* xn2, const bf16* x2, const float* w1,
+                                         const float* w2, const float* wlin, float* wf, bf16* out,
+                                         int Bb, int hw, int A2, int C, void* stream) {
+  return ffn_out_pm<bf16>(xn2, x2, w1, w2, wlin, wf, out, Bb, hw, A2, C,
+                          static_cast<cudaStream_t>(stream));
 }

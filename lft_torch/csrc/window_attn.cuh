@@ -262,12 +262,20 @@ __global__ void __launch_bounds__(WA_NT, 2)
 // `--dtype bfloat16` training: lft_tpu's ml residual, :176-179): also m and
 // l [V, h, w, H] f32, m the query's max over its heads (and 0 where its
 // window leaves the image) in every head's slot, l the head's sum under it.
-template <int DH, bool STATS = false>
-__global__ void __launch_bounds__(WA_NT, 2)
-    spa_window_attn_bf16io_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                  const bf16* __restrict__ v, bf16* __restrict__ attn,
-                                  float* __restrict__ m_out, float* __restrict__ l_out, int V,
-                                  int h, int w, float scale) {
+// IO = float (`spa_window_attn_bf16`, `--dtype mixed` serving under
+// LFT_MM_HP_SITES=none; lft_tpu's K2 with mm_half, :141-192): f32 q, k, v
+// rounded to bf16 as they are loaded (the `score` and `av` sites), the same
+// softmax with e rounded through the product, attn f32; bound at [400, 32,
+// 32, 128]: q, k, v, attn in f32, 0.84 GB, 0.250 ms. The body is
+// `window_softmax_max_heads`, run by one kernel for each IO type.
+template <int DH, bool STATS, class IO>
+__device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ q,
+                                                         const IO* __restrict__ k,
+                                                         const IO* __restrict__ v,
+                                                         IO* __restrict__ attn,
+                                                         float* __restrict__ m_out,
+                                                         float* __restrict__ l_out, int V,
+                                                         int h, int w, float scale) {
   constexpr int H = 8, D = H * DH;
   constexpr int G = D / WA_G;       // head groups of a pixel
   constexpr int HT = WA_S / DH;     // heads of a thread's slice
@@ -283,14 +291,17 @@ __global__ void __launch_bounds__(WA_NT, 2)
   const int y0 = tile / ntx * WA_TY, x0 = tile % ntx * WA_TX, x = x0 + tx;
 
   // group g's halo of src [V, h, w, D] into buf, zero outside the image
-  auto stage = [&](const bf16* __restrict__ src, float* buf, int g) {
+  // (f32 values rounded to bf16)
+  auto stage = [&](const IO* __restrict__ src, float* buf, int g) {
     for (int j = threadIdx.x; j < WA_HY * WA_HX * (WA_G / 4); j += WA_NT) {
       const int px = j / (WA_G / 4), c = 4 * (j % (WA_G / 4));
       const int ky = y0 - R + px / WA_HX, kx = x0 - R + px % WA_HX;
       const bool ok = ky >= 0 && ky < h && kx >= 0 && kx < w;
-      store4(buf + px * WA_LD + c,
-             ok ? ldg4(src + ((static_cast<size_t>(view) * h + ky) * w + kx) * D + g * WA_G + c)
-                : make_float4(0.f, 0.f, 0.f, 0.f));
+      float4 t = ok ? ldg4(src + ((static_cast<size_t>(view) * h + ky) * w + kx) * D + g * WA_G + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (!is_bf16<IO>)
+        t = make_float4(bf16_round(t.x), bf16_round(t.y), bf16_round(t.z), bf16_round(t.w));
+      store4(buf + px * WA_LD + c, t);
     }
   };
   // the thread's slice of group g of its queries' q (zero outside the image)
@@ -299,15 +310,15 @@ __global__ void __launch_bounds__(WA_NT, 2)
     for (int a = 0; a < WA_QY; ++a) {
       const int y = y0 + ry + a;
       const bool in = y < h && x < w;
-      const bf16* qp = q + ((static_cast<size_t>(view) * h + (in ? y : 0)) * w + (in ? x : 0)) * D +
-                       g * WA_G + half * WA_S;
+      const IO* qp = q + ((static_cast<size_t>(view) * h + (in ? y : 0)) * w + (in ? x : 0)) * D +
+                     g * WA_G + half * WA_S;
 #pragma unroll
       for (int d = 0; d < WA_S; d += 4) {
         const float4 t = in ? ldg4(qp + d) : make_float4(0.f, 0.f, 0.f, 0.f);
-        qv[a][d] = t.x;
-        qv[a][d + 1] = t.y;
-        qv[a][d + 2] = t.z;
-        qv[a][d + 3] = t.w;
+        qv[a][d] = is_bf16<IO> ? t.x : bf16_round(t.x);
+        qv[a][d + 1] = is_bf16<IO> ? t.y : bf16_round(t.y);
+        qv[a][d + 2] = is_bf16<IO> ? t.z : bf16_round(t.z);
+        qv[a][d + 3] = is_bf16<IO> ? t.w : bf16_round(t.w);
       }
     }
   };
@@ -430,6 +441,37 @@ __global__ void __launch_bounds__(WA_NT, 2)
       }
     }
   }
+}
+
+// K2.3's bf16-IO form (`spa_window_attn_bf16io`, `_res_bf16io`; K5's, K6's
+// and K10's bf16-IO forwards, spa_attn_hp.cu).
+template <int DH, bool STATS = false>
+__global__ void __launch_bounds__(WA_NT, 2)
+    spa_window_attn_bf16io_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v, bf16* __restrict__ attn,
+                                  float* __restrict__ m_out, float* __restrict__ l_out, int V,
+                                  int h, int w, float scale) {
+  window_softmax_max_heads<DH, STATS, bf16>(q, k, v, attn, m_out, l_out, V, h, w, scale);
+}
+
+// K2.3's bf16-operand form (`spa_window_attn_bf16`): f32 in and out.
+template <int DH>
+__global__ void __launch_bounds__(WA_NT, 2)
+    spa_window_attn_bf16_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, float* __restrict__ attn,
+                                float* __restrict__ m_out, float* __restrict__ l_out, int V,
+                                int h, int w, float scale) {
+  window_softmax_max_heads<DH, false, float>(q, k, v, attn, m_out, l_out, V, h, w, scale);
+}
+
+// The kernel that runs window_softmax_max_heads<DH, STATS, IO>.
+template <int DH, bool STATS, class IO>
+constexpr auto window_attn_max_heads_kernel() {
+  static_assert(is_bf16<IO> || !STATS, "the bf16-operand form has no residuals");
+  if constexpr (is_bf16<IO>)
+    return spa_window_attn_bf16io_kernel<DH, STATS>;
+  else
+    return spa_window_attn_bf16_kernel<DH>;
 }
 
 }  // namespace lft

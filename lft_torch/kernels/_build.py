@@ -56,7 +56,8 @@ SWEEPS = ("ang_attn_sweep", "ang_attn_sweep_res", "ang_attn_sweep_bwd", "spa_att
 # 128 views (its three kernels, counted apart from A2 <= 64 so that a run
 # shows which geometry trained) and K11 (K2's first and last step on a
 # pixel-major buffer).
-TAIL = ("spa_attn_tile", "ang_block_bwd128", "spa_tokenize_ln_pm", "spa_ffn_out_pm")
+K11 = ("spa_tokenize_ln_pm", "spa_ffn_out_pm")
+TAIL = ("spa_attn_tile", "ang_block_bwd128") + K11
 
 # The bf16-operand instances that a fused train step under `--dtype mixed`
 # launches in place of K3's five steps, K4 (either form) and `wgrad` (the
@@ -98,9 +99,20 @@ PEROP_BF16TRAIN = tuple(k + "_bf16io" for k in (
     "spa_attn_hp_res", "spa_attn_hp_bwd", "spa_attn_mxu_res", "spa_attn_mxu_bwd",
     "spa_attn_offset_res", "spa_attn_offset_bwd"))
 
+# The bf16-operand instances of the SR forward's kernels that `--dtype mixed`
+# serving launches under LFT_MM_HP_SITES=none (every site rounded) where no
+# gradient is needed: K1, K2's five steps and K11's two, f32 activations,
+# each product one TF32 pass over operands rounded to bf16, lft_tpu's
+# softmax (each token's max over its heads, e rounded) in K1 and K2.3.
+MIXED_FWD = tuple(k + "_bf16" for k in FORWARD + K11)
+
+# K11's bf16-IO instances (`--dtype bfloat16` on a pixel-major buffer): K2.1
+# and K2.5 bf16io's arithmetic, the buffer read and written in place.
+TAIL_BF16IO = tuple(k + "_bf16io" for k in K11)
+
 # kernel name -> launches since the last reset
 LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO
-            + BF16TRAIN + PEROP_BF16IO + PEROP_BF16TRAIN}
+            + BF16TRAIN + PEROP_BF16IO + PEROP_BF16TRAIN + MIXED_FWD + TAIL_BF16IO}
 
 _libs: dict = {}
 _lock = threading.Lock()

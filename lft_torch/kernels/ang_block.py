@@ -30,7 +30,10 @@ its gradient is None.
 
 `--dtype bfloat16`: a bf16 x runs K1 in bf16 IO, lft_tpu's K1 with `io` =
 bf16, its rounding points listed at `ang_block_bf16io_plain`; on the card
-the kernel's `ang_block_bf16io` instance. Training under it (lft_tpu's
+the kernel's `ang_block_bf16io` instance. `--dtype mixed` under
+LFT_MM_HP_SITES=none, where no gradient is needed, launches its
+bf16-operand instance `ang_block_bf16` (f32 x and out, the products over
+bf16-rounded operands, lft_tpu's softmax as in bf16 IO). Training under it (lft_tpu's
 custom VJP with `io` = bf16, ang_block.py:424-496): K1 res in bf16 IO
 (`ang_block_res_bf16io`: m and l f32 as lft_tpu forms them, attn bf16), K4
 in bf16 IO (`ang_block_bwd[128]_bf16io`: x, attn and dout bf16, every
@@ -47,7 +50,7 @@ import torch
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_fwd, card_half,
-                                      io_kernel, rd, rounds)
+                                      fwd_kernel, io_kernel, no_plan, rd, rounds)
 from lft_torch.kernels.rowgemm import RG_M, ang_block_floats, ang_bwd_floats
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import attention_heads
@@ -125,7 +128,7 @@ def ang_block_plain(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     forward plan (kernels/common.py), followed as lft_tpu's K1 follows it.
     A bf16 x takes `ang_block_bf16io_plain`."""
     if x.dtype == torch.bfloat16:
-        card_fwd(plan, io_kernel("ang_block_res" if with_res else "ang_block", x))
+        no_plan(plan, io_kernel("ang_block_res" if with_res else "ang_block", x))
         return ang_block_bf16io_plain(x, ang_pe, wts, num_heads, with_res)
     if active(plan) is not None:
         return _ang_block_planned(x, ang_pe, wts, num_heads, with_res, plan)
@@ -229,14 +232,14 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     `ang_block_res`. On the card its six products run 3xTF32 on the tensor
     cores (`csrc/rowgemm.cuh`), the weights split by the launch's first
     kernel into a scratch of `rowgemm.ang_block_stream`'s layout. `plan`: a
-    mixed forward plan; the card runs only `all` (`common.card_fwd`). A bf16
-    x launches `ang_block_bf16io` (bf16 in and out; the weights and LN
+    mixed forward plan; on the card `all` runs the f32 kernel and `none`
+    `ang_block_bf16` (`common.fwd_kernel`; with_res it raises). A bf16 x
+    launches `ang_block_bf16io` (bf16 in and out; the weights and LN
     affine as f32 tensors of bf16 values, the PE f32), with_res
     `ang_block_res_bf16io` (m, l f32, attn bf16)."""
     if x.device.type != "cuda":
         return ang_block_plain(x, ang_pe, wts, num_heads, with_res, plan)
-    name = io_kernel("ang_block_res" if with_res else "ang_block", x)
-    card_fwd(plan, name)
+    name = fwd_kernel("ang_block_res" if with_res else "ang_block", x, plan, with_res)
     _check_kernel_shape(name, x, ang_pe, num_heads, BLK)
     N, A2, C = x.shape
     w = wts
@@ -483,6 +486,8 @@ class AngBlockFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ang_pe, ln, wq, wk, wv, wo, w1, w2, num_heads, plain, plan, bwd_plan):
         wts = dict(zip(WEIGHTS, (ln, wq, wk, wv, wo, w1, w2)))
+        if not plain and x.device.type == "cuda":   # before the first launch
+            card_fwd(plan, "ang_trans_block_fused", grad=True)
         fwd = ang_block_plain if plain else ang_block
         out, m, l, attn = fwd(x, ang_pe, wts, num_heads, with_res=True, plan=plan)
         ctx.save_for_backward(x, ang_pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn)

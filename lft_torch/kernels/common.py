@@ -12,9 +12,9 @@ request for a kernel (`attention_impl='pallas'`, a block or kernel wrapper
 called directly) still raises `NotImplementedError` at such a width.
 
 It also holds `--dtype mixed`'s per-site product plans (below), which the
-plain versions of K1-K4 follow at every site and the card's backward
-kernels at the plans they have instances for (`card_fwd`, `card_half`),
-and `--dtype bfloat16`'s routing of bf16 tensors (`io_kernel`).
+plain versions of K1-K4 follow at every site and the card's kernels at the
+plans they have instances for (`card_fwd`, `card_half`, `fwd_kernel`), and
+`--dtype bfloat16`'s routing of bf16 tensors (`io_kernel`).
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ import threading
 
 import torch
 
-from lft_torch.kernels._build import BF16TRAIN, FORWARD, PEROP_BF16IO, PEROP_BF16TRAIN
+from lft_torch.kernels._build import (BF16TRAIN, FORWARD, PEROP_BF16IO, PEROP_BF16TRAIN,
+                                      TAIL_BF16IO)
 
 KERNEL_C = (16, 32, 64)
 
@@ -114,14 +115,28 @@ def _site_name(plan) -> str:
     return _plan_name(frozenset(s for s, r in plan.items() if not r))
 
 
-def card_fwd(plan, kernel: str) -> None:
-    """A forward kernel on the card runs the forward plan `all` (the f32
-    kernels) only; another plan raises NotImplementedError. The plain
+def card_fwd(plan, kernel: str, grad: bool = False) -> bool:
+    """Whether a forward kernel on the card takes its bf16-operand instance
+    (`_bf16`: LFT_MM_HP_SITES=none, every site rounded) or its f32 one
+    (`all`). `grad`: the forward of a train step (K1 res, K2.3 res), whose
+    plan `none` raises NotImplementedError: the step's `_res` forms and K3.b's
+    recompute have no bf16-operand forms (ROADMAP.md §2a item 9g). A plan
+    that rounds some sites and not others raises too (item 9h). The plain
     versions (CPU) run every plan."""
-    if active(plan) is not None:
+    plan = active(plan)
+    if plan is None:
+        return False
+    if not all(plan.values()):
         raise NotImplementedError(
-            f"{kernel}: the card's kernels run LFT_MM_HP_SITES=all only under --dtype mixed, "
-            f"got {_site_name(plan)!r}; the plain versions (CPU) run every plan")
+            f"{kernel}: the card's kernels run LFT_MM_HP_SITES=none or all only under --dtype "
+            f"mixed, got {_site_name(plan)!r} (a site subset: ROADMAP.md §2a item 9h); the "
+            f"plain versions (CPU) run every plan")
+    if grad:
+        raise NotImplementedError(
+            f"{kernel}: LFT_MM_HP_SITES=none under grad: a train step's forward has no "
+            f"bf16-operand kernels on the card yet (K1 res, K2.3 res, K3.b; ROADMAP.md §2a "
+            f"item 9g); train with LFT_MM_HP_SITES=all, or on the plain versions (CPU)")
+    return True
 
 
 def card_half(plan, kernel: str) -> bool:
@@ -138,11 +153,31 @@ def card_half(plan, kernel: str) -> bool:
         f"{_site_name(plan)!r}; the plain versions (CPU) run every plan")
 
 
-def card_plan(plan, bwd_plan) -> None:
+def card_plan(plan, bwd_plan, grad: bool = False) -> None:
     """The wrappers' checks of a model call's forward and backward plans,
-    made before its first launch."""
-    card_fwd(plan, "--dtype mixed")
+    made before its first launch; `grad`: the call needs a gradient."""
+    card_fwd(plan, "--dtype mixed", grad)
     card_half(bwd_plan, "--dtype mixed")
+
+
+def no_plan(plan, kernel: str) -> None:
+    """A bf16 tensor takes no `mixed` plan (the two dtypes exclude each
+    other): an active plan raises NotImplementedError."""
+    if active(plan) is not None:
+        raise NotImplementedError(
+            f"{kernel}: a bf16 tensor runs no --dtype mixed plan, got {_site_name(plan)!r}")
+
+
+def fwd_kernel(kernel: str, t: torch.Tensor, plan, grad: bool = False) -> str:
+    """The launch name of forward kernel `kernel` on the card for the IO
+    dtype of `t` under the forward plan `plan`: its `_bf16io` instance for a
+    bf16 t (`io_kernel`, no plan), its `_bf16` instance under
+    LFT_MM_HP_SITES=none (`card_fwd`), else itself."""
+    name = io_kernel(kernel, t)
+    if t.dtype == torch.bfloat16:
+        no_plan(plan, name)
+        return name
+    return name + "_bf16" if card_fwd(plan, name, grad) else name
 
 
 # ----------------------------------------------- `--dtype bfloat16` (IO) ---
@@ -155,25 +190,23 @@ def card_plan(plan, bwd_plan) -> None:
 # Its unfused branch runs the per-op kernels on bf16 tensors too. On the card
 # the SR forward's kernels (`_build.FORWARD`), those of the fused train step
 # (`_build.BF16TRAIN`: K1 res, K2.3 res, K4, K3's five steps, `wgrad`), the
-# per-op branch's forwards (`_build.PEROP_BF16IO`: K5-K10) and its `_res`
-# forms and backwards (`_build.PEROP_BF16TRAIN`: K5-K9) have `_bf16io`
-# instances; a bf16 tensor that reaches a kernel whose bf16 form is not
-# ported yet (K11's pixel-major launches: ROADMAP.md §1 item 9f) raises,
-# naming it. Nothing falls back to f32.
+# per-op branch's forwards (`_build.PEROP_BF16IO`: K5-K10), its `_res`
+# forms and backwards (`_build.PEROP_BF16TRAIN`: K5-K9) and K11's
+# pixel-major steps (`_build.TAIL_BF16IO`) have `_bf16io` instances; a bf16
+# tensor at any other launch raises. Nothing falls back to f32.
 
 
 def io_kernel(kernel: str, t: torch.Tensor) -> str:
     """The launch name of `kernel` for the IO dtype of `t`: itself for an
-    f32 tensor, its `_bf16io` instance for a bf16 one where that is ported;
-    a bf16 tensor at any other kernel raises NotImplementedError naming the
-    kernel and its ROADMAP item."""
+    f32 tensor, its `_bf16io` instance for a bf16 one; a bf16 tensor at a
+    kernel without one (`colsum`, whose inputs are f32 sums) raises
+    NotImplementedError."""
     if t.dtype != torch.bfloat16:
         return kernel
-    if kernel in FORWARD or kernel + "_bf16io" in BF16TRAIN + PEROP_BF16IO + PEROP_BF16TRAIN:
+    if kernel in FORWARD or kernel + "_bf16io" in (BF16TRAIN + PEROP_BF16IO + PEROP_BF16TRAIN
+                                                   + TAIL_BF16IO):
         return kernel + "_bf16io"
-    raise NotImplementedError(
-        f"{kernel}: its bf16-IO form is not ported yet (queued as ROADMAP.md §1 item 9f); "
-        f"pass float32 tensors")
+    raise NotImplementedError(f"{kernel}: has no bf16-IO form; pass float32 tensors")
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -41,8 +41,11 @@ a real gradient: it carries MLP.weight.
 `spa_trans_block_plain` runs the plain versions of all of it on any device.
 Under `--dtype mixed` the plain versions follow lft_tpu's per-site plans
 (kernels/common.py: each product's operands rounded to bf16 where its site
-is), and on the card the backward's default plan, every site rounded,
-launches the steps' bf16-operand instances (`_bf16` after each name).
+is), and on the card a plan that rounds every site launches the steps'
+bf16-operand instances (`_bf16` after each name): the backward's default
+plan K3's, the forward's LFT_MM_HP_SITES=none, where no gradient is needed,
+K2's five and K11's two (the activations f32, only a product's operands
+rounded; the window step with lft_tpu's softmax, `window_attn_plain`).
 `--dtype bfloat16`: bf16 x runs the five steps in bf16 IO, lft_tpu's K2
 with `io` = bf16 (spa_block.py:_kernel :116-203): each plain step computes
 in f32 from bf16 inputs and rounds at lft_tpu's points (listed at each), and
@@ -52,8 +55,8 @@ them bf16. Training under it (lft_tpu's custom VJP with `io` = bf16,
 K3's five steps in bf16 IO (`_bf16io` after each name; what each hands on
 is bf16 but dx2, dtokpe and the LN partial sums, which lft_tpu keeps f32),
 `wgrad_bf16io`, and `SpaBlockFn` returns each weight gradient and dpe_tok
-rounded once to bf16. K11 takes no bf16 tensor yet (ROADMAP.md §1 item 9f:
-`common.io_kernel` raises).
+rounded once to bf16. K11 takes bf16 tensors too (`spa_tokenize_ln_pm_bf16io`,
+`spa_ffn_out_pm_bf16io`).
 Step 3's kernel (`csrc/window_attn.cuh`) is also K5's forward; the geometry
 of it and of K5's two-pass backward is mirrored here (`window_items`,
 `window_thread`, `window_smem`, `hp_kv_items`, `hp_kv_smem`,
@@ -79,7 +82,7 @@ import torch.nn.functional as F
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
 from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_fwd, card_half,
-                                      io_kernel, mm_site_plan, rd, rounds)
+                                      fwd_kernel, io_kernel, mm_site_plan, no_plan, rd, rounds)
 from lft_torch.kernels.rowgemm import (RG_M, ffn_out_bwd_floats, ffn_out_floats,
                                        outproj_floats, piece, qkv_floats, qkv_ln_bwd_floats,
                                        split_tf32)
@@ -162,7 +165,7 @@ def tokenize_ln_plain(x, pe_tok, wts, plan=None):
     bf16(tok_f) and xn = bf16(LN1(tok_f + pe_tok)), LN1 from the unrounded
     tok_f (:128-142)."""
     if x.dtype == torch.bfloat16:
-        card_fwd(plan, "spa_tokenize_ln_bf16io")
+        no_plan(plan, "spa_tokenize_ln_bf16io")
         tok_f = _tap_sum(x.float(), _bw(wts, "wu"))
         ln = wts["ln"].float()
         return (tok_f.bfloat16(),
@@ -175,7 +178,7 @@ def qkv_plain(xn, tok, wts, plan=None):
     """bf16 IO: q, k = bf16(xn Wqk), v = bf16(tok Wv) (:143-147)."""
     D = tok.shape[-1]
     if xn.dtype == torch.bfloat16:
-        card_fwd(plan, "spa_qkv_bf16io")
+        no_plan(plan, "spa_qkv_bf16io")
         qk = xn.float() @ _bw(wts, "wqk")
         return (qk[..., :D].bfloat16(), qk[..., D:].bfloat16(),
                 (tok.float() @ _bw(wts, "wv")).bfloat16())
@@ -187,7 +190,7 @@ def qkv_plain(xn, tok, wts, plan=None):
 def outproj_ln_plain(attn, tok, wts, plan=None):
     """bf16 IO: x2 = bf16(bf16(attn Wo) + tok), xn2 = bf16(LN2(x2)) (:196-197)."""
     if attn.dtype == torch.bfloat16:
-        card_fwd(plan, "spa_outproj_ln_bf16io")
+        no_plan(plan, "spa_outproj_ln_bf16io")
         x2 = bf16_round(bf16_round(attn.float() @ _bw(wts, "wo")) + tok.float())
         ln = wts["ln"].float()
         return x2.bfloat16(), _ln(x2, ln[2], ln[3]).bfloat16()
@@ -199,7 +202,7 @@ def ffn_out_plain(xn2, x2, wts, plan=None):
     """bf16 IO: hid = bf16(relu(xn2 W1)), y = bf16(bf16(hid W2) + x2), out =
     bf16(y Wlin) (:198-202)."""
     if xn2.dtype == torch.bfloat16:
-        card_fwd(plan, "spa_ffn_out_bf16io")
+        no_plan(plan, "spa_ffn_out_bf16io")
         B = bf16_round
         y = B(B(B(torch.relu(xn2.float() @ _bw(wts, "w1"))) @ _bw(wts, "w2")) + x2.float())
         return (y @ _bw(wts, "wlin")).bfloat16()
@@ -234,7 +237,7 @@ def window_attn_plain(q, k, v, num_heads: int, ksize: int, plan=None):
     B, h, w, E = q.shape
     io = q.dtype == torch.bfloat16
     if io:
-        card_fwd(plan, "spa_window_attn_bf16io")
+        no_plan(plan, "spa_window_attn_bf16io")
         q, k, v = q.float(), k.float(), v.float()
     if io or active(plan) is not None:
         s, _, _ = _planned_scores(q, k, num_heads, ksize, plan)
@@ -499,13 +502,13 @@ def tokenize_ln(x, pe_tok, wts, pixel_major: bool = False, plan=None):
     pixel_major: x is [Bb, h, w, A2, C], V = Bb * A2, counted as
     `spa_tokenize_ln_pm`; tok and xn are view-major either way. On the card
     3xTF32 on the tensor cores (module docstring). `plan`: a mixed forward
-    plan; the card runs only `all` (`common.card_fwd`), as K2's other
-    forward steps. A bf16 x launches `spa_tokenize_ln_bf16io` (bf16 pe_tok,
-    tok and xn)."""
+    plan; on the card `all` runs the f32 kernel and `none` its bf16-operand
+    instance `spa_tokenize_ln[_pm]_bf16` (x and wu rounded in the product),
+    as for K2's other forward steps (`common.fwd_kernel`). A bf16 x launches
+    `spa_tokenize_ln[_pm]_bf16io` (bf16 pe_tok, tok and xn)."""
     if x.device.type != "cuda":
         return tokenize_ln_plain(_to_view_major(x) if pixel_major else x, pe_tok, wts, plan)
-    name = io_kernel("spa_tokenize_ln_pm" if pixel_major else "spa_tokenize_ln", x)
-    card_fwd(plan, name)
+    name = fwd_kernel("spa_tokenize_ln_pm" if pixel_major else "spa_tokenize_ln", x, plan)
     if pixel_major:
         Bb, h, w, A2, C = x.shape
         dims = (Bb, h, w, A2, C)
@@ -531,11 +534,11 @@ def qkv(xn, tok, wts, plan=None):
     """Step 2: (xn, tok) [V, h, w, D] -> (q, k, v) [V, h, w, D]. On the card
     its three products run 3xTF32 on the tensor cores (`csrc/rowgemm.cuh`),
     the weights split by the launch's first kernel into a scratch of
-    `rowgemm.qkv_stream`'s layout. bf16 xn and tok launch `spa_qkv_bf16io`."""
+    `rowgemm.qkv_stream`'s layout. bf16 xn and tok launch `spa_qkv_bf16io`;
+    the plan `none` `spa_qkv_bf16`."""
     if xn.device.type != "cuda":
         return qkv_plain(xn, tok, wts, plan)
-    name = io_kernel("spa_qkv", xn)
-    card_fwd(plan, name)
+    name = fwd_kernel("spa_qkv", xn, plan)
     D = tok.shape[-1]
     _check_c(name, D // 2)
     if xn.shape != tok.shape or tuple(wts["wqk"].shape) != (D, 2 * D) \
@@ -636,15 +639,17 @@ def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False, p
     block takes a (view, 16 x 16 tile) item and its head groups in two
     passes, the first for each query's max over all its heads); with_stats
     `spa_window_attn_res_bf16io` (m, l f32: each query's max over its heads
-    in every head's slot, and its heads' sums)."""
+    in every head's slot, and its heads' sums). The plan `none` launches
+    `spa_window_attn_bf16` (f32 q, k, v rounded as they load, the bf16-IO
+    kernel's softmax, attn f32); with_stats it raises (`common.card_fwd`)."""
     if q.device.type != "cuda":
         if with_stats:
             return window_attn_plain(q, k, v, num_heads, ksize, plan)
         if active(plan) is not None or q.dtype == torch.bfloat16:
             return window_attn_plain(q, k, v, num_heads, ksize, plan)[0]
         return windowed_attention(q, k, v, num_heads, ksize)
-    name = io_kernel("spa_window_attn_res" if with_stats else "spa_window_attn", q)
-    card_fwd(plan, name)
+    name = fwd_kernel("spa_window_attn_res" if with_stats else "spa_window_attn", q, plan,
+                      with_stats)
     V, h, w, D = q.shape
     _check_window(name, D, num_heads, ksize)
     _build.check_cuda_args(name, q, k, v, dtype=torch.bfloat16 if name.endswith("_bf16io")
@@ -669,11 +674,11 @@ def outproj_ln(attn, tok, wts, plan=None):
     its product runs 3xTF32 on the tensor cores (`csrc/rowgemm.cuh`), Wo
     split by the launch's first kernel into a scratch of
     `rowgemm.outproj_stream`'s layout and held in shared memory, LN2 on the
-    accumulators. bf16 attn and tok launch `spa_outproj_ln_bf16io`."""
+    accumulators. bf16 attn and tok launch `spa_outproj_ln_bf16io`; the
+    plan `none` `spa_outproj_ln_bf16`."""
     if attn.device.type != "cuda":
         return outproj_ln_plain(attn, tok, wts, plan)
-    name = io_kernel("spa_outproj_ln", attn)
-    card_fwd(plan, name)
+    name = fwd_kernel("spa_outproj_ln", attn, plan)
     D = tok.shape[-1]
     _check_c(name, D // 2)
     if attn.shape != tok.shape or tuple(wts["wo"].shape) != (D, D):
@@ -695,14 +700,14 @@ def ffn_out(xn2, x2, wts, views=None, plan=None):
     `spa_ffn_out_pm`. On the card its three products run 3xTF32 on the
     tensor cores (`csrc/rowgemm.cuh`), the weights split by the launch's
     first kernel into a scratch of `rowgemm.ffn_out_stream`'s layout. bf16
-    xn2 and x2 launch `spa_ffn_out_bf16io` (bf16 out)."""
+    xn2 and x2 launch `spa_ffn_out[_pm]_bf16io` (bf16 out); the plan `none`
+    `spa_ffn_out[_pm]_bf16`."""
     if xn2.device.type != "cuda":
         out = ffn_out_plain(xn2, x2, wts, plan)
         return out if views is None else _to_pixel_major(out, views)
     *lead, D = x2.shape
     C = D // 2
-    name = io_kernel("spa_ffn_out" if views is None else "spa_ffn_out_pm", xn2)
-    card_fwd(plan, name)
+    name = fwd_kernel("spa_ffn_out" if views is None else "spa_ffn_out_pm", xn2, plan)
     _check_c(name, C)
     wk = _io_args(name, (xn2, x2), wts, ("w1", "w2", "wlin"))
     if views is None:
@@ -710,7 +715,7 @@ def ffn_out(xn2, x2, wts, views=None, plan=None):
         dims = (x2.numel() // D, C)
     else:
         V, h, w = lead
-        out = torch.empty(V // views, h, w, views, C, device=x2.device)
+        out = torch.empty(V // views, h, w, views, C, device=x2.device, dtype=x2.dtype)
         dims = (V // views, h * w, views, C)
     if tuple(wts["w1"].shape) != (D, 2 * D) or tuple(wts["wlin"].shape) != (D, C):
         raise ValueError(f"{name}: w1 {tuple(wts['w1'].shape)}, wlin "
@@ -916,8 +921,8 @@ def spa_block(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = False,
               pixel_major: bool = False, plan=None):
     """K2 chained; with_res: (out, tok, m, l, attn). pixel_major (K11): x and
     out are [Bb, h, w, A2, C], the first and last step run in their `_pm`
-    forms; without residuals. `plan`: a mixed forward plan. A bf16 x runs
-    the bf16-IO steps."""
+    forms; without residuals. `plan`: a mixed forward plan (on the card
+    `none` runs the `_bf16` steps). A bf16 x runs the bf16-IO steps."""
     tok, xn = tokenize_ln(x, pe_tok, wts, pixel_major, plan)
     q, kk, v = qkv(xn, tok, wts, plan)
     if with_res:
@@ -1005,6 +1010,8 @@ class SpaBlockFn(torch.autograd.Function):
     def forward(ctx, x, pe_tok, ln, wu, wqk, wv, wo, w1, w2, wlin, num_heads, k, plain, plan,
                 bwd_plan):
         wts = _with_mlp(dict(zip(WEIGHTS, (ln, wu, wqk, wv, wo, w1, w2, wlin))))
+        if not plain and x.device.type == "cuda":   # before the first launch
+            card_fwd(plan, "spa_trans_block_fused", grad=True)
         fwd = spa_block_plain if plain else spa_block
         out, tok, m, l, attn = fwd(x, pe_tok, wts, num_heads, k, with_res=True, plan=plan)
         ctx.save_for_backward(x, pe_tok, ln, wu, wqk, wv, wo, w1, w2, wlin, tok, m, l, attn)

@@ -43,9 +43,10 @@ lft_tpu's per-site product plans in the fused blocks, read once a call
 so a `mixed` forward is the f32 one), the backward's from
 LFT_MM_HP_BWD_SITES (default none: every product of K3 and K4 and their
 weight grads over bf16 operands). On the card the backward's plan `none`
-launches the kernels' bf16-operand instances and `all` the f32 ones; other
-plans run on the plain versions only. The unfused branch ignores the plan,
-as lft_tpu's does.
+launches the kernels' bf16-operand instances and `all` the f32 ones; so
+does the forward's where no gradient is needed (`none` under grad raises
+before the first launch); other plans run on the plain versions only. The
+unfused branch ignores the plan, as lft_tpu's does.
 
 `--dtype bfloat16` (lft_tpu/models/lft.py:272-306, :447: lft_tpu's all-bf16
 mode, -0.20 dB PSNR against f32 there): the parameters and the LR views are
@@ -348,7 +349,7 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
                          bwd_plan=active(mm_site_plan(True, mm_hp_sites("LFT_MM_HP_BWD_SITES",
                                                                         "none"))))
             if dev.type == "cuda" and not plain_blocks:
-                card_plan(**plans)
+                card_plan(**plans, grad=_needs_grad(lr, *p.values()))
         for i in range(LAYER_NUM):
             t = buf.permute(0, 2, 3, 1, 4).reshape(B * h * w, A * A, C).contiguous()
             t = ang_fn(t, ang_pe, p, f"altblock.{i}.ang_trans.", NUM_HEADS, **plans)

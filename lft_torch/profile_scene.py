@@ -17,7 +17,8 @@ on the card:
 
 `--plain` runs the blocks' plain PyTorch versions instead of the kernels.
 `--dtype mixed` runs lft_tpu's mixed plans (a forward at the default plan
-is the f32 one), `--dtype bfloat16` the bf16 model (the blocks' `_bf16io`
+is the f32 one; with `LFT_MM_HP_SITES=none` in the environment the fused
+blocks' bf16-operand kernels, `kernels.MIXED_FWD`), `--dtype bfloat16` the bf16 model (the blocks' `_bf16io`
 kernels; with `--unfused` the per-op forwards' `_bf16io` kernels);
 `--matmul-precision high` turns TF32 on for the torch ops around the
 kernels.

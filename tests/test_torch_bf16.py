@@ -213,10 +213,9 @@ def test_bf16_raises_where_nothing_is_ported():
     under grad with `fused=False`, a train step with `--train_fused false`
     and the data-parallel step build and run, and `--train_fused auto` is
     fused on the card and unfused on the CPU, as lft_tpu's auto; the per-op
-    `_res` and backward launches route to their `_bf16io` forms. What has no
-    bf16 form yet raises: a bf16 tensor at K11 names item 9f, the tile-halo
-    kernel K10 under grad raises ValueError; a bf16 tensor at an f32
-    launcher raises TypeError."""
+    `_res` and backward launches route to their `_bf16io` forms, and so do
+    K11's (item 9f). The tile-halo kernel K10 under grad raises ValueError;
+    a bf16 tensor at an f32 launcher raises TypeError."""
     args = Args(channels=16, scale_factor=2, dtype="bfloat16")
     p = lft.init_params(0, args, device="cpu")
     x = torch.rand(1, 1, 40, 40, generator=torch.Generator().manual_seed(0))
@@ -248,8 +247,7 @@ def test_bf16_raises_where_nothing_is_ported():
                    "spa_attn_mxu_bwd"):
         assert common.io_kernel(kernel, xb) == kernel + "_bf16io"
     for kernel in ("spa_tokenize_ln_pm", "spa_ffn_out_pm"):
-        with pytest.raises(NotImplementedError, match=f"{kernel}:.*item 9f"):
-            common.io_kernel(kernel, xb)
+        assert common.io_kernel(kernel, xb) == kernel + "_bf16io"
     qb = torch.zeros(1, 16, 16, 32, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(ValueError, match="K10.*forward-only"):
         local_attn.windowed_attention_tile(qb, qb, qb, 8, 5, 8)

@@ -1386,8 +1386,8 @@ def test_bf16_forward_kernels_match_plain_blocks(cuda_device):
 
 @pytest.mark.cuda
 def test_bf16_raises_where_no_kernel_is_ported(cuda_device):
-    """A bf16 tensor at a kernel without a bf16-IO form (K11's pixel-major
-    launches) raises, naming its ROADMAP item (9f); the per-op `_res` forms
+    """A bf16 tensor at K11's pixel-major launches takes their `_bf16io`
+    instances (ROADMAP 9f); the per-op `_res` forms
     and backwards launch their `_bf16io` instances (9e); K10 under grad
     raises ValueError; a bf16-IO launcher given an f32 tensor raises
     TypeError; a width the kernels do not take runs the plain torch ops
@@ -1410,9 +1410,11 @@ def test_bf16_raises_where_no_kernel_is_ported(cuda_device):
     with pytest.raises(ValueError, match="K10.*forward-only"):
         local_attn.windowed_attention_tile(q_bf.clone().requires_grad_(True), q_bf, q_bf, 8, 5, 8)
     xs = torch.zeros(1, 8, 8, 25, 16, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 9f"):
-        spa_block.tokenize_ln(xs, torch.zeros(8, 8, 32, device=cuda_device,
-                                              dtype=torch.bfloat16), ws, pixel_major=True)
+    reset_launches()
+    spa_block.tokenize_ln(xs, torch.zeros(8, 8, 32, device=cuda_device, dtype=torch.bfloat16), ws,
+                          pixel_major=True)
+    torch.cuda.synchronize()
+    assert {k_: c for k_, c in LAUNCHES.items() if c} == {"spa_tokenize_ln_pm_bf16io": 1}
     q = torch.zeros(2, 8, 8, 32, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="spa_attn_hp_bf16io"):
         spa_attn_hp.spa_attn_hp_fwd(q, q.float(), q, 8, 5)
@@ -1922,3 +1924,152 @@ def test_bf16_unfused_train_step_launches_perop_bf16train(cuda_device, monkeypat
     l2 = lambda a, b: float((a.double() - b.double()).norm() / b.double().norm())
     assert abs(l2(grad, g_f) / l2(g_p, g_f) - 1) <= 0.15, l2(grad, g_f) / l2(g_p, g_f)
     assert l2(grad, g_p) <= 1.5 * l2(g_p, g_f)
+
+
+# ----------------- the last forward forms: `_bf16` (plan none) and K11 bf16io ---
+
+def _mixed_close(got, ref, ref32, rel=1e-3, gap=0.1):
+    """A `--dtype mixed` bf16-operand instance against its plain version
+    under the plan, per output: L2-relative `rel` and `gap` of the plain
+    mixed-vs-f32 distance (chip_smoke.py's MIXED_REL, MIXED_GAP); an output
+    the plan leaves f32 (the plain versions' bit for bit) `rel` alone."""
+    for i, (g, r, r32) in enumerate(zip(got, ref, ref32)):
+        assert g.dtype == r.dtype == torch.float32 and g.shape == r.shape, i
+        g, r, r32 = g.double(), r.double(), r32.double()
+        d, d32 = float((g - r).norm() / r.norm()), float((r32 - r).norm() / r.norm())
+        assert d <= rel and (d <= gap * d32 or d32 == 0), (i, d, d32)
+
+
+def _plan_none():
+    from lft_torch.kernels import common
+    return common.mm_site_plan(True, frozenset())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("V,h,w", [(3, 9, 7), (2, 17, 40), (2, 32, 32)])
+def test_spa_block_mixed_fwd_kernels(cuda_device, C, V, h, w):
+    """Each of K2's five `_bf16` steps (LFT_MM_HP_SITES=none) from its plain
+    predecessor's output under the plan, against its plain version, once
+    each, bitwise on a repeat; the f32 kernels not launched."""
+    plan = _plan_none()
+    ws = spa_block._with_mlp(spa_block.spa_weights(_params(C, cuda_device), "altblock.2.spa_trans."))
+    g = torch.Generator(device=cuda_device).manual_seed(C + h)
+    x = torch.randn(V, h, w, C, device=cuda_device, generator=g)
+    pe_tok = torch.randn(h, w, 2 * C, device=cuda_device, generator=g)
+    tok, xn = spa_block.tokenize_ln_plain(x, pe_tok, ws, plan)
+    q, k, v = spa_block.qkv_plain(xn, tok, ws, plan)
+    attn = spa_block.window_attn_plain(q, k, v, 8, 5, plan)[0]
+    x2, xn2 = spa_block.outproj_ln_plain(attn, tok, ws, plan)
+    win = lambda *a, **kw: spa_block.window_attn(*a, 8, 5, **kw)
+    win_p = lambda *a, **kw: spa_block.window_attn_plain(*a, 8, 5, **kw)[0]
+    steps = [(spa_block.tokenize_ln, spa_block.tokenize_ln_plain, (x, pe_tok, ws)),
+             (spa_block.qkv, spa_block.qkv_plain, (xn, tok, ws)),
+             (win, win_p, (q, k, v)),
+             (spa_block.outproj_ln, spa_block.outproj_ln_plain, (attn, tok, ws)),
+             (spa_block.ffn_out, spa_block.ffn_out_plain, (xn2, x2, ws))]
+    reset_launches()
+    for kern, plain, ins in steps:
+        tup = lambda o: o if isinstance(o, tuple) else (o,)
+        got = tup(kern(*ins, plan=plan))
+        _mixed_close(got, tup(plain(*ins, plan=plan)), tup(plain(*ins)))
+        assert all(torch.equal(a, b) for a, b in zip(got, tup(kern(*ins, plan=plan))))
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {
+        n + "_bf16": 2 for n in FORWARD if n.startswith("spa_")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("A2,N", [(25, 37), (81, 7), (4, 64)])
+def test_ang_block_mixed_fwd_kernel(cuda_device, C, A2, N):
+    plan = _plan_none()
+    wts = ang_block.ang_weights(_params(C, cuda_device), "altblock.1.ang_trans.")
+    g = torch.Generator(device=cuda_device).manual_seed(C + A2)
+    x = torch.randn(N, A2, C, device=cuda_device, generator=g)
+    pe = torch.from_numpy(angular_position(A2, C)).to(cuda_device)
+    reset_launches()
+    got = ang_block.ang_block(x, pe, wts, 8, plan=plan)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {"ang_block_bf16": 1}
+    _mixed_close((got,), (ang_block.ang_block_plain(x, pe, wts, 8, plan=plan),),
+                 (ang_block.ang_block_plain(x, pe, wts, 8),))
+    assert torch.equal(got, ang_block.ang_block(x, pe, wts, 8, plan=plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,Bb,h,w,A2", [(16, 2, 8, 8, 4), (32, 1, 9, 7, 25), (64, 2, 32, 32, 25),
+                                         (64, 1, 17, 40, 9)])
+@pytest.mark.parametrize("form", ["bf16io", "bf16"])
+def test_spa_block_pixel_major_last_forms(cuda_device, C, Bb, h, w, A2, form):
+    """K11 on a bf16 buffer (`_pm_bf16io`) and on an f32 one under the plan
+    `none` (`_pm_bf16`): the chain launches its five instances once each,
+    equals view-major K2's same instances on a permuted copy bit for bit,
+    and each `_pm` kernel holds to its plain version."""
+    plan = _plan_none() if form == "bf16" else None
+    p = _params(C, cuda_device, seed=h)
+    if form == "bf16io":
+        p = {k_: v_.bfloat16() for k_, v_ in p.items()}
+    prefix = "altblock.1.spa_trans."
+    ws = spa_block.spa_weights(p, prefix)
+    g = torch.Generator(device=cuda_device).manual_seed(C + A2)
+    dt = torch.bfloat16 if form == "bf16io" else torch.float32
+    x = torch.randn(Bb, h, w, A2, C, device=cuda_device, generator=g).to(dt)
+    pe_tok = torch.randn(h, w, 2 * C, device=cuda_device, generator=g).to(dt)
+    xv = x.permute(0, 3, 1, 2, 4).reshape(Bb * A2, h, w, C).contiguous()
+    reset_launches()
+    got = spa_block.spa_trans_block_fused(x, pe_tok, p, prefix, 8, 5, pixel_major=True, plan=plan)
+    torch.cuda.synchronize()
+    names = ("spa_tokenize_ln_pm", "spa_qkv", "spa_window_attn", "spa_outproj_ln", "spa_ffn_out_pm")
+    assert {k_: c for k_, c in LAUNCHES.items() if c} == {f"{n}_{form}": 1 for n in names}
+    assert got.shape == x.shape and got.dtype == dt
+    vm = spa_block.spa_trans_block_fused(xv, pe_tok, p, prefix, 8, 5, plan=plan)
+    assert torch.equal(got, vm.reshape(Bb, A2, h, w, C).permute(0, 2, 3, 1, 4))
+    to_pm = lambda t: t.reshape(Bb, A2, h, w, C).permute(0, 2, 3, 1, 4).contiguous()
+    f32 = lambda ts: [t.float() for t in ts]
+    ws32 = {k_: v_.float() for k_, v_ in ws.items()}
+    tok, xn = spa_block.tokenize_ln_plain(xv, pe_tok, ws, plan)
+    got_t = spa_block.tokenize_ln(x, pe_tok, ws, pixel_major=True, plan=plan)
+    ref32_t = spa_block.tokenize_ln_plain(*f32((xv, pe_tok)), ws32)
+    x2, xn2 = torch.randn_like(tok.float()).to(dt), torch.randn_like(tok.float()).to(dt)
+    got_o = spa_block.ffn_out(xn2, x2, ws, views=A2, plan=plan)
+    ref_o = to_pm(spa_block.ffn_out_plain(xn2, x2, ws, plan))
+    ref32_o = to_pm(spa_block.ffn_out_plain(*f32((xn2, x2)), ws32))
+    close = _bf16_close if form == "bf16io" else _mixed_close
+    close(got_t, (tok, xn), ref32_t)
+    close((got_o,), (ref_o,), (ref32_o,))
+
+
+@pytest.mark.cuda
+def test_mixed_none_forward_on_card(cuda_device, monkeypatch):
+    """`--dtype mixed` under LFT_MM_HP_SITES=none on the card: the forward
+    launches the six `_bf16` kernels 4 times each and nothing else, its
+    distance from the f32 forward within 10% of the plain blocks' and its L2
+    from theirs within 1.5 of it, bitwise on a repeat; under grad, and under
+    a site subset, it raises before any launch."""
+    from lft_torch.kernels import MIXED_FWD
+    monkeypatch.setenv("LFT_MM_HP_SITES", "none")
+    args = Args(channels=16, scale_factor=2, dtype="mixed")
+    p = _params(16, cuda_device, seed=3)
+    lr = torch.from_numpy(np.random.RandomState(0).rand(2, 1, 80, 80).astype(np.float32))
+    lr = lr.to(cuda_device)
+    reset_launches()
+    with torch.no_grad():
+        got = lft.forward(p, lr, args)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in LAUNCHES.items() if c} == {n: 4 for n in MIXED_FWD[:6]}
+        assert torch.equal(got, lft.forward(p, lr, args))
+        ref = lft.forward(p, lr, args, plain_blocks=True)
+        f32 = lft.forward(p, lr, Args(channels=16, scale_factor=2))
+    l2 = lambda a, b: float((a - b).double().norm() / b.double().norm())
+    assert abs(l2(got, f32) / l2(ref, f32) - 1) <= 0.1, (l2(got, f32), l2(ref, f32))
+    assert l2(got, ref) <= 1.5 * l2(ref, f32)
+    pg = {k_: v_.clone().requires_grad_(True) for k_, v_ in p.items()}
+    reset_launches()
+    with pytest.raises(NotImplementedError, match="under grad.*item 9g"):
+        lft.forward(pg, lr, args)
+    monkeypatch.setenv("LFT_MM_HP_SITES", "qk,ffn")
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 9h"):
+        lft.forward(p, lr, args)
+    torch.cuda.synchronize()
+    assert not any(LAUNCHES.values())

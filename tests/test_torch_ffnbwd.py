@@ -279,7 +279,7 @@ def test_ffn_out_bwd_python_geometry_mirrors_the_source():
     assert (kernel.index("v0 = io_round<IO>(io_round<IO>(v0) + t.x);")
             < kernel.index("quad_ln<D, true>"))
     fwd = (CSRC / "spa_block.cu").read_text()
-    assert ("row_pass<C, true, NoRows, is_bf16<IO>, IO>(attn, wf, x2, tok, ln + 2 * D, "
+    assert ("row_pass<C, true, NoRows, BF, IO>(attn, wf, x2, tok, ln + 2 * D, "
             "ln + 3 * D, xn2,") in fwd
     for C in KERNEL_C:
         D = 2 * C

@@ -366,8 +366,11 @@ def test_bfloat16_raises_and_card_plans():
     common.card_plan(f32, half)
     common.card_plan(f32, f32)
     common.card_plan(None, None)
-    with pytest.raises(NotImplementedError, match="LFT_MM_HP_SITES=all only"):
-        common.card_plan(half, half)
+    common.card_plan(half, half)
+    with pytest.raises(NotImplementedError, match="LFT_MM_HP_SITES=none under grad"):
+        common.card_plan(half, half, grad=True)
+    with pytest.raises(NotImplementedError, match="LFT_MM_HP_SITES=none or all only.*'qk'"):
+        common.card_plan(plan(frozenset({"qk"})), half)
     with pytest.raises(NotImplementedError, match="LFT_MM_HP_BWD_SITES=none or all only.*'ffn,qk'"):
         common.card_plan(f32, plan(frozenset({"qk", "ffn"})))
     assert common.card_half(half, "k") and not common.card_half(None, "k")

@@ -236,7 +236,7 @@ def test_proj_python_geometry_mirrors_the_source():
                  "ps.p[2] = RgPiece{wv, L::D, L::D, L::D, 2 * L::SQ};",
                  "row_pass<C, false, NoRows, BF, IO>(xn, wf + SQ, k,",
                  "row_pass<C, false, NoRows, BF, IO>(tok, wf + 2 * SQ, v,",
-                 "row_pass<C, true, NoRows, is_bf16<IO>, IO>(attn, wf, x2, tok, ln + 2 * D, "
+                 "row_pass<C, true, NoRows, BF, IO>(attn, wf, x2, tok, ln + 2 * D, "
                  "ln + 3 * D, xn2,"):
         assert line in spa, line
     assert not re.search(r"\bgemm_acc\b", spa.split("namespace {", 1)[1])
