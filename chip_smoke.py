@@ -302,12 +302,31 @@
     each of the eight `_bf16` kernels against its plain version under the
     plan (step 22's bounds) at the main path's shapes, a bitwise repeat,
     timed by CUDA events beside its bound (f32 bytes, the products at the
-    bf16 rate); (d) a train step under `none` and a forward under a site
-    subset raise before any launch; (e) each new kernel in turns with its
+    bf16 rate); (d) a train step and a forward under a site subset raise
+    before any launch; (e) each new kernel in turns with its
     f32 instance (K11's `_pm_bf16io` with view-major K2 bf16io's), and the
     `none` scene with the f32 scene (device busy, CUDA-event time, idle
     share);
-28. prints the script's seconds, the `kernels` JSON line (every kernel, old
+28. `--dtype mixed` training under LFT_MM_HP_SITES=none (`none_train_steps`):
+    (a) the 4x recipe's fused step (C=64, batch 4 of 32x32-view patches)
+    through the kernels against the plain blocks under the same plans:
+    |dloss| <= 1e-3 |loss|, under the smooth loss the gradient's distance
+    from the plain f32 step's within 10% of the plain step's and its L2
+    from the plain step's within 1.5 of it, a bitwise repeat; (b) the same
+    under LFT_MM_HP_BWD_SITES=all; (c) both at angRes 9, patch 16; (d) the
+    launches a step: `ang_block_res_bf16`, `spa_window_attn_res_bf16` and
+    K2's other four `_bf16` steps 4 each, no f32 forward step, the
+    backward's `_bf16` instances under `none` (K4 as `ang_block_bwd128_bf16`
+    at angRes 9) and its f32 kernels under `all`, K4 as `ang_block_bwd_dp`
+    (`ang_block_bwd128_dp`: D from its own p); (e) K1 res and K2.3 res in
+    their `_bf16` forms and K4's `_dp` instance against their plain versions
+    at the step's shapes (`none_kernel_checks`), timed beside their bound
+    and in turns with their f32 forms; (f) the train CLI's body under
+    `--dtype mixed` for 2 epochs of 2 steps, a resume from the epoch-1 file
+    ending on the uninterrupted run's parameters bit for bit; (g) the step's
+    ms under `none` beside `all` in turns; (h) SSIM under `--matmul_precision
+    high` bitwise equal to SSIM under `highest`;
+29. prints the script's seconds, the `kernels` JSON line (every kernel, old
     and new), the card's name and power limit, and last `{"ok": true,
     "device": {...}}`.
 
@@ -3407,6 +3426,18 @@ def bf16_train_cli(params, seed: int) -> None:
     for 2 epochs of 2 steps from the checkpoint's weights, then a resume
     from the epoch-1 file that must end on the uninterrupted run's
     parameters bit for bit."""
+    from lft_torch.kernels import BF16TRAIN
+    per_step = {k: 4 for k in BF16TRAIN if k not in ("wgrad_bf16io", "ang_block_bwd128_bf16io")}
+    per_step["wgrad_bf16io"] = 56
+    train_cli_resume(params, seed, "bfloat16", per_step, ("ang_block_bwd", "wgrad", "spa_qkv"))
+
+
+def train_cli_resume(params, seed: int, dtype: str, per_step: dict, absent) -> None:
+    """`python -m lft_torch.train --dtype <dtype>` (its `main`) for 2 epochs
+    of 2 steps from the checkpoint's weights: each kernel of `per_step`
+    launched that many times a step and none of `absent`, f32 checkpoints;
+    then a resume from the epoch-1 file that must end on the uninterrupted
+    run's parameters bit for bit."""
     import dataclasses
     import tempfile
 
@@ -3415,18 +3446,19 @@ def bf16_train_cli(params, seed: int) -> None:
     from lft_torch import train as train_cli
     from lft_torch.config import Args
     from lft_torch.data.device_synth import synth_batch
-    from lft_torch.kernels import BF16TRAIN, LAUNCHES, reset_launches
+    from lft_torch.kernels import LAUNCHES, reset_launches
     from lft_torch.utils.checkpoint import save_checkpoint
 
     dev = next(iter(params.values())).device
     lr, hr = synth_batch(torch.Generator(device=dev).manual_seed(seed + 8), batch=8, ang_res=5,
                          patch=32, scale=4)
     trainset = MemTrainSet(lr.cpu().numpy(), hr.cpu().numpy(), seed)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_train_") as tmp:
+    what = f"train CLI under --dtype {dtype}"
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{dtype}_train_") as tmp:
         start = os.path.join(tmp, "start.npz")
         save_checkpoint(start, params, 0)
         args = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, epoch=2, lr=2e-4,
-                    n_steps=15, gamma=0.5, dtype="bfloat16", use_pre_pth=True,
+                    n_steps=15, gamma=0.5, dtype=dtype, use_pre_pth=True,
                     path_pre_pth=start, seed=seed, data_name="Synth", num_workers=0,
                     path_log=os.path.join(tmp, "train"))
         torch.cuda.synchronize()
@@ -3435,36 +3467,31 @@ def bf16_train_cli(params, seed: int) -> None:
         torch.cuda.synchronize()
         counts = dict(LAUNCHES)
         losses = [hh["loss"] for hh in hist]
-        print(f"train CLI under --dtype bfloat16: epoch means {hist}; launches "
+        print(f"{what}: epoch means {hist}; launches "
               f"{ {k: v for k, v in counts.items() if v} }", flush=True)
         if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"bf16 train CLI: bad losses {losses}")
+            raise AssertionError(f"{what}: bad losses {losses}")
         n = 2 * len(trainset) // args.batch_size
-        if counts["ang_block_bwd_bf16io"] != 4 * n or counts["wgrad_bf16io"] != 56 * n or any(
-                v for k, v in counts.items() if k in ("ang_block_bwd", "wgrad", "spa_qkv")):
-            raise AssertionError(f"bf16 train CLI: launches {counts}")
-        if not all(counts[k] == 4 * n for k in BF16TRAIN
-                   if k not in ("wgrad_bf16io", "ang_block_bwd128_bf16io")):
-            raise AssertionError(f"bf16 train CLI: launches {counts}")
+        if any(counts[k] != c * n for k, c in per_step.items()) or any(counts[k] for k in absent):
+            raise AssertionError(f"{what}: expected {per_step} launches a step and none of "
+                                 f"{absent}, got {counts}")
         ck_dir = os.path.join(args.path_log, "SR_5x5_4x", "LFT", "Synth", "checkpoints")
         names = sorted(os.listdir(ck_dir))
         if names != ["LFT_5x5_4x_epoch_01_model.npz", "LFT_5x5_4x_epoch_02_model.npz"]:
-            raise AssertionError(f"bf16 train CLI checkpoints: {names}")
+            raise AssertionError(f"{what} checkpoints: {names}")
         z1 = np.load(os.path.join(ck_dir, names[0]))
         if not all(z1[f].dtype == np.float32 for f in z1.files
                    if not f.startswith("__") and z1[f].ndim):
-            raise AssertionError("bf16 train CLI: a checkpoint parameter is not f32")
+            raise AssertionError(f"{what}: a checkpoint parameter is not f32")
         r_args = dataclasses.replace(args, path_pre_pth=os.path.join(ck_dir, names[0]),
                                      path_log=os.path.join(tmp, "resume"))
         resumed, _ = train_cli.main(r_args, dataset=trainset)
         differ = [k for k in full if not torch.equal(full[k], resumed[k])]
         if differ:
-            raise AssertionError(f"bf16 train CLI: resumed from epoch 1, {len(differ)} "
-                                 f"parameters differ from the uninterrupted run's, e.g. "
-                                 f"{differ[:3]}")
-        print("train CLI under --dtype bfloat16: checkpoints " + ", ".join(names) + " (f32); "
-              "resumed from epoch 1, every epoch-2 parameter equals the uninterrupted run's "
-              "bit for bit", flush=True)
+            raise AssertionError(f"{what}: resumed from epoch 1, {len(differ)} parameters "
+                                 f"differ from the uninterrupted run's, e.g. {differ[:3]}")
+        print(f"{what}: checkpoints " + ", ".join(names) + " (f32); resumed from epoch 1, "
+              "every epoch-2 parameter equals the uninterrupted run's bit for bit", flush=True)
 
 
 def bf16_perop_phase(params, scenes, card: str, seed: int) -> dict:
@@ -3978,17 +4005,17 @@ def bf16_perop_train_cli(params, seed: int) -> None:
 
 
 @contextlib.contextmanager
-def fwd_sites(spec: str):
-    """LFT_MM_HP_SITES set to `spec` for the block, and put back after it."""
-    before = os.environ.get("LFT_MM_HP_SITES")
-    os.environ["LFT_MM_HP_SITES"] = spec
+def mm_sites(spec: str, env: str = "LFT_MM_HP_SITES"):
+    """The plan variable `env` set to `spec` for the block, and put back after it."""
+    before = os.environ.get(env)
+    os.environ[env] = spec
     try:
         yield
     finally:
         if before is None:
-            os.environ.pop("LFT_MM_HP_SITES", None)
+            os.environ.pop(env, None)
         else:
-            os.environ["LFT_MM_HP_SITES"] = before
+            os.environ[env] = before
 
 
 def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
@@ -4006,8 +4033,8 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
     the plain path's, the L2 from the plain path's within 1.5 of it), a
     bitwise repeat, dPSNR against f32. c: each of the eight `_bf16` kernels
     against its plain version under the plan with step 22's bounds at the
-    main path's shapes, a bitwise repeat. d: a train step under `none` and a
-    forward under a site subset raise before any launch. e: each new kernel
+    main path's shapes, a bitwise repeat. d: a train step and a forward
+    under a site subset raise before any launch. e: each new kernel
     in turns with its f32 (or view-major `_bf16io`) instance, and the `none`
     scene with the f32 scene (device busy, CUDA-event wall time, idle
     share). Returns the ten rows of the `kernels` line."""
@@ -4136,7 +4163,7 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
     # b: the scenes under --dtype mixed with LFT_MM_HP_SITES=none
     n = len(scenes)
     am = dataclasses.replace(args, dtype="mixed")
-    with fwd_sites("none"):
+    with mm_sites("none"):
         cache_m = ScenePipelineCache(forward, am, eval_batch=16)
         torch.cuda.synchronize()
         reset_launches()
@@ -4259,15 +4286,15 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
         rows += rec.rows + rec_pm.rows
         del xs, tok, xn, attn, x2, xn2, xf, conv, ffn, wsb
 
-        # d: a train step under `none`, and a forward under a site subset, raise
-        # before any launch
+        # d: a train step and a forward under a site subset raise before any
+        # launch (a train step under `none` runs: step 28)
         a4 = Args(angRes=5, scale_factor=4, channels=64, batch_size=1, train_fused="true",
                   dtype="mixed")
         lr_t = torch.rand(1, 1, 160, 160, device=dev, generator=g)
         hr_t = torch.rand(1, 1, 640, 640, device=dev, generator=g)
-    for spec, what, grad, pat in (("none", "a train step", True, "under grad.*item 9g"),
+    for spec, what, grad, pat in (("qk,ffn", "a train step", True, "train step.*item 9h"),
                                   ("qk,ffn", "a forward", False, "item 9h")):
-        with fwd_sites(spec):
+        with mm_sites(spec):
             torch.cuda.synchronize()
             reset_launches()
             try:
@@ -4296,7 +4323,7 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
         print(f"  {name}: other {t_[0]:.4f} / {t_[3]:.4f} ms, new {t_[1]:.4f} / {t_[2]:.4f} ms "
               f"(new / other {(t_[1] + t_[2]) / (t_[0] + t_[3]):.3f})", flush=True)
     turns.clear()
-    with fwd_sites("none"):
+    with mm_sites("none"):
         busy = []
         for what, fn in scene_fns + scene_fns[::-1]:
             kt = kernel_times(fn, 3)
@@ -4309,6 +4336,344 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
                   "not measured (every trace lost kernel records)" if d_ is None else
                   f"{d_:.2f} ms, idle share {1 - d_ / e_:.3f}") for w_, d_, e_ in busy),
           flush=True)
+    return rows
+
+
+def none_train_phase(params, seed: int, bwd: str = "none", steps: int = 2, ang_res: int = 5,
+                     patch: int = 32):
+    """Step 28 a-d: the fused train step of the 4x recipe under `--dtype
+    mixed` with LFT_MM_HP_SITES=none and LFT_MM_HP_BWD_SITES=`bwd` through
+    the kernels against the same step through the plain blocks under the
+    same plans, at the bf16 training limits (BF16T_LOSS, BF16T_TOL,
+    BF16T_L2: the gradient as one vector under the smooth loss, against
+    the plain f32 step), its bitwise repeat and its launches a step: K1 res
+    and K2.3 res as `_bf16` (`kernels.MIXED_TRAIN`), K2's other steps as
+    theirs, no f32 forward; the backward's `_bf16` instances under `none`,
+    its f32 kernels under `all` (K4 as its `_dp` instance: step b forms D
+    from its own p, as lft_tpu's does, where the saved attn is the rounded
+    forward's). Returns (the launch counts, their steps)."""
+    import dataclasses
+    import functools
+
+    import torch
+    from lft_torch.config import Args
+    from lft_torch.data.device_synth import synth_batch
+    from lft_torch.kernels import LAUNCHES, MIXED, MIXED_TRAIN, reset_launches
+    from lft_torch.models.lft import forward
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import make_optimizer
+    from lft_torch.training.trainer import make_train_step
+
+    dev = torch.device("cuda")
+    a32 = Args(angRes=ang_res, scale_factor=4, channels=64, batch_size=4, lr=2e-4, n_steps=15,
+               gamma=0.5, epoch=50, train_fused="true")
+    am = dataclasses.replace(a32, dtype="mixed")
+    model = get_model(am)
+    plain = dataclasses.replace(model, apply=functools.partial(forward, plain_blocks=True))
+    smooth = lambda sr, y: ((sr - y) * torch.cos(3.0 * (sr - y))).mean()
+    gen = torch.Generator(device=dev).manual_seed(seed + 28)
+    new_batch = lambda: synth_batch(gen, batch=4, ang_res=ang_res, patch=patch, scale=4)
+    k4 = "ang_block_bwd128" if ang_res * ang_res > 64 else "ang_block_bwd"
+    what = f"mixed none train, backward plan {bwd} ({ang_res}x{ang_res} views, patch {patch})"
+    lr, hr = new_batch()
+
+    def step(m, args, loss=None):
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        fn = make_train_step(m if loss is None else dataclasses.replace(m, loss=loss),
+                             make_optimizer(p, args, steps_per_epoch=1000), args)
+        out = float(fn(p, lr, hr)[0])
+        return out, torch.cat([p[k].grad.reshape(-1) for k in sorted(p)]), p, fn
+
+    with mm_sites("none"), mm_sites(bwd, "LFT_MM_HP_BWD_SITES"):
+        reset_launches()
+        loss_p, _, _, _ = step(plain, am)
+        _, g_p, _, _ = step(plain, am, smooth)
+        _, g_f, _, _ = step(plain, a32, smooth)
+        torch.cuda.synchronize()
+        if any(LAUNCHES.values()):
+            raise AssertionError(f"the plain mixed none path launched kernels: {dict(LAUNCHES)}")
+        reset_launches()
+        loss_k, g_r, p_a, step_a = step(model, am)
+        p_a1 = {k_: v.detach().clone() for k_, v in p_a.items()}
+        loss_b, g_b, p_b, _ = step(model, am)
+        _, g_k, _, _ = step(model, am, smooth)
+        for _ in range(steps):
+            step_a(p_a, *new_batch())
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+    n = 3 + steps
+    print(f"{what} step 1: loss kernels {loss_k:.8f} plain {loss_p:.8f} "
+          f"(|d| {abs(loss_k - loss_p):.3e}, limit {BF16T_LOSS:g} |loss|)", flush=True)
+    if not abs(loss_k - loss_p) <= BF16T_LOSS * abs(loss_p):
+        raise AssertionError(f"{what}: the kernel-path loss disagrees with the plain path")
+    gap, own, d = l2_rel(g_p, g_f), l2_rel(g_k, g_f), l2_rel(g_k, g_p)
+    print(f"{what} step 1 (smooth loss): the gradient's distance from the f32 step's "
+          f"{own:.4e}, the plain blocks' {gap:.4e} ({own / gap:.4f}, limit 1 +- {BF16T_TOL:g}); "
+          f"L2 from the plain step's gradient {d:.4e} ({d / gap:.4f} of its distance, limit "
+          f"{BF16T_L2:g})", flush=True)
+    if not (abs(own / gap - 1) <= BF16T_TOL and d <= BF16T_L2 * gap):
+        raise AssertionError(f"{what}: the kernel path's gradient disagrees with the plain path")
+    same = (loss_b == loss_k and torch.equal(g_r, g_b)
+            and all(torch.equal(p_a1[k_], p_b[k_]) for k_ in p_b))
+    print(f"{what} step repeated from the same state: loss, grads and params bitwise "
+          f"equal: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{what}: a repeated kernel-path step is not bitwise equal")
+    print(f"launches in the {what} run ({n} kernel-path steps): "
+          f"{ {k_: v for k_, v in counts.items() if v} }", flush=True)
+    want = {k_: 4 * n for k_ in MIXED_TRAIN[:2] + ("spa_tokenize_ln_bf16", "spa_qkv_bf16",
+                                                   "spa_outproj_ln_bf16", "spa_ffn_out_bf16")}
+    if bwd == "none":
+        want.update({k_: 4 * n for k_ in MIXED if k_.startswith("spa_")})
+        want.update({k4 + "_bf16": 4 * n, "wgrad_bf16": 56 * n})
+    else:
+        want.update({k_: 4 * n for k_ in ("spa_ffn_out_bwd", "spa_ln_qkv", "spa_window_attn_bwd",
+                                          "spa_qkv_ln_bwd", "spa_tokenize_bwd", k4 + "_dp")})
+        want["wgrad"] = 56 * n
+    want["colsum"] = 16 * n
+    wrong = {k_: counts[k_] for k_ in LAUNCHES if counts[k_] != want.get(k_, 0)}
+    if wrong:
+        raise AssertionError(f"{what} steps: expected {want} and no other launch (no f32 "
+                             f"forward step), got {wrong}")
+    return counts, n
+
+
+def none_kernel_checks(params, card: str, runs: dict, seed: int) -> list:
+    """Step 28 e: K1 res and K2.3 res in their `_bf16` forms against their
+    plain versions under the plan at the step's shapes ([4096, 25, 64];
+    q, k, v [100, 32, 32, 128] from the plain K2.1 and K2.2 under the plan
+    with block 0's weights): out and attn within MIXED_REL and MIXED_GAP of
+    the plain mixed-vs-f32 distance and BF16T_ULPS bf16 ulps of max |plain|,
+    attn of bf16 values (K2.3 res's: bf16(the serving `_bf16` kernel's attn)
+    bit for bit), out K1 `_bf16`'s bit for bit; m and l within MIXED_REL
+    (L2) of the plain version's (q and k round to bf16 in both, so an f32
+    sum in another order flips a rounding now and then); a bitwise repeat;
+    timed by CUDA events beside the bound (f32 bytes, the products at the
+    bf16 rate), then in turns with the f32 `_res` form. K4's `_dp` instance
+    at [4096, 25, 64] and [1024, 81, 64] from K1 res `_bf16`'s residuals
+    against its plain version (`d_from_p`) within TRAIN_REL, a bitwise
+    repeat, beside the f32 instance in turns. `runs`: kernel -> (launch
+    counts, steps) of the run that launched it. Returns the four rows of the
+    `kernels` line."""
+    import torch
+    from lft_torch.kernels import common
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.ops.attention import local_window_mask
+    from lft_torch.ops.posenc import angular_position, spatial_position
+    from lft_torch.ops.unfold import unfold3x3_linear
+    from lft_torch.profile_scene import events_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 280)
+    C, A2, H, K = 64, 25, 8, 5
+    D = 2 * C
+    N, V, h, w = 4096, 100, 32, 32
+    plan = common.mm_site_plan(True, frozenset())          # LFT_MM_HP_SITES=none
+    recs = {k_: Recorder(card, c_, n_, "step") for k_, (c_, n_) in runs.items()}
+    turns = []
+
+    def extra(name, got, ref, stats, stats_ref):
+        ulps = max(float((g_ - r_).abs().max()) / 2.0 ** (
+            math.floor(math.log2(float(r_.abs().max()))) - 7) for g_, r_ in zip(got, ref))
+        d_s = [l2_rel(g_, r_) for g_, r_ in zip(stats, stats_ref)]
+        attn = got[-1]
+        rounded = torch.equal(attn, common.bf16_round(attn))
+        print(f"  {name}: out/attn at most {ulps:.2f} bf16 ulps of max |plain| (limit "
+              f"{BF16T_ULPS:g}); m, l L2 {d_s[0]:.3e}, {d_s[1]:.3e} from the plain version's "
+              f"(limit {MIXED_REL:g}); attn holds bf16 values: {rounded}", flush=True)
+        if ulps > BF16T_ULPS or max(d_s) > MIXED_REL or not rounded:
+            raise AssertionError(f"{name} disagrees with its plain version")
+
+    with torch.no_grad():
+        wa = ab.ang_weights(params, "altblock.0.ang_trans.")
+        x = torch.randn(N, A2, C, device=dev, generator=g)
+        pe = torch.from_numpy(angular_position(A2, C)).to(dev)
+        fn = lambda x=x, pe=pe: ab.ang_block(x, pe, wa, H, with_res=True, plan=plan)
+        out, m, l, attn = fn()
+        out_p, m_p, l_p, attn_p = ab.ang_block_plain(x, pe, wa, H, with_res=True, plan=plan)
+        out32, _, _, attn32 = ab.ang_block_plain(x, pe, wa, H, with_res=True)
+        recs["ang_block_res_bf16"].record("ang_block_res_bf16", "lft_torch/csrc/ang_block.cu",
+                   "lft_tpu/kernels/ang_block.py:233", (out, attn), (out_p, attn_p), fn,
+                   lambda: ab.ang_block_plain(x, pe, wa, H, with_res=True, plan=plan),
+                   2 * N * A2 * 8 * C * C, nbytes(x, pe, out, m, l, attn, *wa.values()),
+                   ref32=(out32, attn32), bf16_products=True, fp32_flops=4 * N * A2 * A2 * C,
+                   timer=events_ms)
+        extra("ang_block_res_bf16", (out, attn), (out_p, attn_p), (m, l), (m_p, l_p))
+        same = (all(torch.equal(a_, b_) for a_, b_ in zip((out, m, l, attn), fn()))
+                and torch.equal(out, ab.ang_block(x, pe, wa, H, plan=plan)))
+        print(f"  ang_block_res_bf16: repeated bitwise, out bitwise ang_block_bf16's: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError("ang_block_res_bf16 does not repeat, or its out is not "
+                                 "ang_block_bf16's")
+        turns.append(("ang_block_res_bf16 vs ang_block_res",
+                      lambda x=x, pe=pe: ab.ang_block(x, pe, wa, H, with_res=True), fn))
+        del out, m, l, attn, out_p, m_p, l_p, attn_p, out32, attn32
+
+        ws = sb._with_mlp(sb.spa_weights(params, "altblock.0.spa_trans."))
+        xs = torch.randn(V, h, w, C, device=dev, generator=g)
+        pe_tok = unfold3x3_linear(torch.from_numpy(spatial_position(h, w, C)).to(dev)[None],
+                                  ws["mlp"])[0].contiguous()
+        tok, xn = sb.tokenize_ln_plain(xs, pe_tok, ws, plan)
+        q, k, v = sb.qkv_plain(xn, tok, ws, plan)
+        del xs, tok, xn
+        fn = lambda q=q, k=k, v=v: sb.window_attn(q, k, v, H, K, with_stats=True, plan=plan)
+        attn, m, l = fn()
+        attn_p, m_p, l_p = sb.window_attn_plain(q, k, v, H, K, plan, res=True)
+        attn32 = sb.window_attn_plain(q, k, v, H, K)[0]
+        mask = torch.from_numpy(local_window_mask(h, w, K) == 0).to(dev)
+        heads = lambda t_: t_.reshape(V, h * w, H, D // H).transpose(1, 2).to(torch.bfloat16)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        recs["spa_window_attn_res_bf16"].record("spa_window_attn_res_bf16",
+                                                "lft_torch/csrc/spa_block.cu",
+                   "lft_tpu/kernels/spa_block.py:339", (attn,), (attn_p,), fn,
+                   lambda: sb.window_attn_plain(q, k, v, H, K, plan, res=True),
+                   4 * D * V * valid_window_pairs(h, w, K // 2), nbytes(q, k, v, attn, m, l),
+                   ref32=(attn32,), bf16_products=True, timer=events_ms,
+                   lib_fn=lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qh, kh, vh, attn_mask=mask))
+        extra("spa_window_attn_res_bf16", (attn,), (attn_p,), (m, l), (m_p, l_p))
+        same = (all(torch.equal(a_, b_) for a_, b_ in zip((attn, m, l), fn()))
+                and torch.equal(attn, common.bf16_round(sb.window_attn(q, k, v, H, K,
+                                                                        plan=plan))))
+        print(f"  spa_window_attn_res_bf16: repeated bitwise, attn bitwise bf16(the serving "
+              f"spa_window_attn_bf16's): {same}", flush=True)
+        if not same:
+            raise AssertionError("spa_window_attn_res_bf16 does not repeat, or its attn is not "
+                                 "the serving kernel's rounded")
+        turns.append(("spa_window_attn_res_bf16 vs spa_window_attn_res",
+                      lambda q=q, k=k, v=v: sb.window_attn(q, k, v, H, K, with_stats=True), fn))
+        del qh, kh, vh, attn_p, m_p, l_p, attn32, q, k, v
+
+        for name, N_, A2_ in (("ang_block_bwd_dp", 4096, 25), ("ang_block_bwd128_dp", 1024, 81)):
+            T = N_ * A2_
+            x = torch.randn(N_, A2_, C, device=dev, generator=g)
+            pe = torch.from_numpy(angular_position(A2_, C)).to(dev)
+            dout = torch.randn(N_, A2_, C, device=dev, generator=g)
+            res = ab.ang_block(x, pe, wa, H, with_res=True, plan=plan)[1:]
+            fns = lambda x, pe, res, dout: (
+                lambda: ab.ang_block_bwd_ops(x, pe, wa, *res, dout, H, d_from_p=True),
+                lambda: ab.ang_block_bwd_ops_plain(x, pe, wa, *res, dout, H, d_from_p=True),
+                lambda: ab.ang_block_bwd_ops(x, pe, wa, *res, dout, H))
+            kern, plain, _ = fns(x, pe, res, dout)
+            dout = calm_relu(dout, kern()[8], plain()[8], f"{name} at A2 = {A2_}")
+            kern, plain, f32_fn = fns(x, pe, res, dout)
+            got, ref = kern(), plain()
+            recs[name].record(name, "lft_torch/csrc/ang_block.cu",
+                              "lft_tpu/kernels/ang_block.py:477", (*got[:-1], got[-1].sum(0)),
+                              (*ref[:-1], ref[-1][0]), kern, plain, 28 * T * C * C,
+                              nbytes(x, pe, *res, dout, *ref[:-1])
+                              + 2 * sum(nbytes(t) for t in wa.values()), rel=TRAIN_REL,
+                              slow_reps=10 if A2_ <= 64 else 3, tf32_products=3,
+                              fp32_flops=10 * C * T * A2_, timer=events_ms)
+            same = all(torch.equal(a_, b_) for a_, b_ in zip(got, kern()))
+            print(f"  {name}: repeated bitwise: {same}", flush=True)
+            if not same:
+                raise AssertionError(f"{name} does not repeat bitwise")
+            turns.append((f"{name} vs {name[:-3]}", f32_fn, kern))
+            del got, ref
+        print(f"{card_line()}: ms of each new form beside its f32 `_res` form on the same "
+              f"inputs, in turns (f32, new, new, f32; CUDA events around 20 back-to-back "
+              f"calls):", flush=True)
+        for name, f32_fn, new_fn in turns:
+            t_ = [events_ms(f32_fn), events_ms(new_fn), events_ms(new_fn), events_ms(f32_fn)]
+            print(f"  {name}: f32 {t_[0]:.4f} / {t_[3]:.4f} ms, new {t_[1]:.4f} / {t_[2]:.4f} ms "
+                  f"(new / f32 {(t_[1] + t_[2]) / (t_[0] + t_[3]):.3f})", flush=True)
+    return [r_ for rec in recs.values() for r_ in rec.rows]
+
+
+def none_step_times(params, seed: int) -> None:
+    """Step 28 g: the fused mixed train step's ms under LFT_MM_HP_SITES=none
+    beside `all`, in turns (all, none, none, all), 3 steps each after a
+    warm-up, CUDA events (late in the process the profiler loses records)."""
+    import torch
+    from lft_torch.config import Args
+    from lft_torch.data.device_synth import synth_batch
+    from lft_torch.registry import get_model
+    from lft_torch.training.optim import make_optimizer
+    from lft_torch.training.trainer import make_train_step
+
+    dev = torch.device("cuda")
+    args = Args(angRes=5, scale_factor=4, channels=64, batch_size=4, lr=2e-4, n_steps=15,
+                gamma=0.5, epoch=50, train_fused="true", dtype="mixed")
+    lr, hr = synth_batch(torch.Generator(device=dev).manual_seed(seed + 29), batch=4, ang_res=5,
+                         patch=32, scale=4)
+    fns = {}
+    for spec in ("all", "none"):
+        p = {k_: v.detach().clone().requires_grad_(True) for k_, v in params.items()}
+        fns[spec] = (p, make_train_step(get_model(args), make_optimizer(p, args, 1000), args))
+    times = {"all": [], "none": []}
+    for spec in ("all", "none", "none", "all"):
+        p, fn = fns[spec]
+        with mm_sites(spec):
+            fn(p, lr, hr)                                # warm-up
+            for _ in range(3):
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+                fn(p, lr, hr)
+                ev1.record()
+                ev1.synchronize()
+                times[spec].append(ev0.elapsed_time(ev1))
+    med = {k_: sorted(v)[len(v) // 2] for k_, v in times.items()}
+    print(f"{card_line()}: fused mixed train step, batch 4 of 32x32-view patches, 5x5 views, 4x, "
+          f"C=64, in turns LFT_MM_HP_SITES=all, none, none, all (3 steps each, CUDA events): "
+          f"median {med['all']:.3f} ms all, {med['none']:.3f} ms none (all "
+          f"{[round(t, 3) for t in times['all']]}, none "
+          f"{[round(t, 3) for t in times['none']]})", flush=True)
+
+
+def ssim_tf32_check(seed: int) -> None:
+    """Step 28 h: SSIM of a 5x5x32^2 pair under `--matmul_precision high`
+    (TF32 on for cuDNN) equals SSIM under `highest` bit for bit: its filter
+    runs in full f32 whatever the flag (lft_tpu's at HIGHEST)."""
+    import torch
+    from lft_torch import device as port_device
+    from lft_torch.ops.metrics import cal_metrics
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 30)
+    label = torch.rand(160, 160, device=dev, generator=g)
+    out = (label + 0.05 * torch.randn(160, 160, device=dev, generator=g)).clamp(0, 1)
+    before = port_device._precision or "highest"
+    try:
+        res = {}
+        for prec in ("high", "highest"):
+            port_device.resolve_device(dev, prec)
+            res[prec] = cal_metrics(label, out, 5)
+            if torch.backends.cudnn.allow_tf32 != (prec == "high"):
+                raise AssertionError(f"SSIM changed the cuDNN TF32 flag under {prec}")
+    finally:
+        port_device.resolve_device(dev, before)
+    same = all(torch.equal(a_, b_) for a_, b_ in zip(res["high"], res["highest"]))
+    print(f"SSIM of a 5x5x32^2 pair: {float(res['high'][1]):.9f} under --matmul_precision high, "
+          f"{float(res['highest'][1]):.9f} under highest; bitwise equal (PSNR too): {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("SSIM under --matmul_precision high differs from highest")
+
+
+def none_train_steps(params, card: str, seed: int) -> list:
+    """Step 28: `--dtype mixed` training under LFT_MM_HP_SITES=none (module
+    docstring). Returns the four rows of the `kernels` line."""
+    from lft_torch.kernels import MIXED, MIXED_TRAIN
+    run_a = none_train_phase(params, seed)
+    run_b = none_train_phase(params, seed, bwd="all", steps=0)
+    none_train_phase(params, seed, steps=2, ang_res=9, patch=16)
+    run_c = none_train_phase(params, seed, bwd="all", steps=0, ang_res=9, patch=16)
+    rows = none_kernel_checks(params, card, {
+        "ang_block_res_bf16": run_a, "spa_window_attn_res_bf16": run_a,
+        "ang_block_bwd_dp": run_b, "ang_block_bwd128_dp": run_c}, seed)
+    per_step = {k: 4 for k in MIXED_TRAIN[:2] + ("spa_tokenize_ln_bf16", "spa_qkv_bf16",
+                                                 "spa_outproj_ln_bf16", "spa_ffn_out_bf16",
+                                                 "ang_block_bwd_bf16")}
+    per_step.update({k: 4 for k in MIXED if k.startswith("spa_")}, wgrad_bf16=56)
+    with mm_sites("none"):
+        train_cli_resume(params, seed, "mixed", per_step,
+                         ("ang_block_res", "spa_window_attn_res", "spa_qkv", "wgrad"))
+    none_step_times(params, seed)
+    ssim_tf32_check(seed)
     return rows
 
 
@@ -4336,9 +4701,9 @@ def main(argv=None) -> int:
     from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
-    from lft_torch.kernels import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, MIXED_FWD, PEROP,
-                                   PEROP_BF16IO, PEROP_BF16TRAIN, SWEEPS, TAIL, TAIL_BF16IO,
-                                   TRAINING, build_all, reset_launches)
+    from lft_torch.kernels import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, MIXED_FWD,
+                                   MIXED_TRAIN, PEROP, PEROP_BF16IO, PEROP_BF16TRAIN, SWEEPS, TAIL,
+                                   TAIL_BF16IO, TRAINING, build_all, reset_launches)
     from lft_torch.models.lft import forward
     from lft_torch.ops.bicubic import bicubic_upscale_views
     from lft_torch.ops.metrics import cal_metrics
@@ -4383,7 +4748,8 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     extra = [k for k in TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO + BF16TRAIN
-             + PEROP_BF16IO + PEROP_BF16TRAIN + MIXED_FWD + TAIL_BF16IO if counts[k]]
+             + PEROP_BF16IO + PEROP_BF16TRAIN + MIXED_FWD + MIXED_TRAIN + TAIL_BF16IO
+             if counts[k]]
     if extra:
         raise AssertionError(f"training or per-op kernels launched by the SR run: {extra}")
 
@@ -4570,6 +4936,11 @@ def main(argv=None) -> int:
     rows += fwdforms_phase(params, args, scenes, cache, card, a.seed)
     torch.cuda.empty_cache()
     print(f"forward-forms phase: {time.time() - t0:.1f} s", flush=True)
+    # step 28: --dtype mixed training under LFT_MM_HP_SITES=none
+    t0 = time.time()
+    rows += none_train_steps(params, card, a.seed)
+    torch.cuda.empty_cache()
+    print(f"mixed none training phase: {time.time() - t0:.1f} s", flush=True)
     missing = sorted(set(LAUNCHES) - {r["name"] for r in rows})
     if missing:
         raise AssertionError(f"kernels without a row in the kernels line: {missing}")

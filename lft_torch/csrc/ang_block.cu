@@ -72,6 +72,13 @@
 //   and out = y + x2 stay f32. Bound at [16384, 25, 64]: 26.8 GFLOP at the
 //   bf16 rate 0.027 ms, the attention on the FP32 pipes 0.08 ms with the
 //   max pass, x in and out f32 0.063 ms of bytes.
+// * BF with IO = float and residuals (`ang_block_res_bf16`, `--dtype mixed`
+//   training under LFT_MM_HP_SITES=none; lft_tpu's K1 res with mm_half,
+//   ang_block.py:139-143, 241-244): `ang_block_bf16`'s arithmetic, the
+//   second pass also writing m (the token's max over its heads, in every
+//   head's slot), l (the sum of the unrounded e) and the attention output
+//   as f32 tensors of bf16 values, as lft_tpu stores it (`awo`'s dtype);
+//   out is `ang_block_bf16`'s bit for bit.
 
 #include "attn.cuh"
 #include "rowbwd.cuh"
@@ -469,6 +476,12 @@ int launch(const IO* x, const float* pe, const float* ln, const float* wq,
 // before the gradients), and rounds ds = p (dp - D) scale (the scale inside)
 // and p before their products. The saved (m, l) are the f32 forward's: p
 // is not renormalised.
+// `--dtype mixed` with the forward under LFT_MM_HP_SITES=none and this
+// backward under LFT_MM_HP_BWD_SITES=all (`lft_ang_block_bwd_dp`): the f32
+// instances of a and c, and b forming D = sum_j p_j dp_j from its own f32
+// products as BF's b does (lft_tpu forms D so, :360-362). dsum = dattn .
+// attn equals that D only where the saved attn is this backward's sum p v;
+// here it is the rounded forward's. Bound as the f32 instance's.
 // `--dtype bfloat16` training (`lft_ang_block_bwd_bf16io`, lft_tpu's
 // _bwd_kernel with io = bf16, :305-394): the BF instances on bf16 x, attn
 // and dout (rowbwd.cuh: rows widened to f32 as loaded), with K1 res's
@@ -649,8 +662,12 @@ __global__ void __launch_bounds__(RG_NT, 1)
 }
 
 // b. P pixels a block (attn_pixels), tiles [P A2][C + 4] sized by the launch.
-// BF: the header's arithmetic; dsum is not read.
-template <int C, int H, bool BF = false, class IO = float>
+// BF: the header's arithmetic; dsum is not read. BF or DP: D = sum_j p_j
+// dp_j formed here in a first pass over the keys instead of read from dsum
+// (= dattn . attn, which equals it only where the saved attn is this
+// backward's sum p v); DP alone the `_dp` instance, f32 products after a
+// forward that rounded its products (LFT_MM_HP_SITES=none).
+template <int C, int H, bool BF = false, class IO = float, bool DP = false>
 __global__ void __launch_bounds__(NT)
     ang_bwd_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dattn,
@@ -688,10 +705,10 @@ __global__ void __launch_bounds__(NT)
   for (int i = threadIdx.x; i < rows * H; i += NT) {
     M[i] = __ldg(m_in + row0 * H + i);
     Lsum[i] = __ldg(l_in + row0 * H + i);
-    if constexpr (!BF) DS[i] = __ldg(dsum + row0 * H + i);
+    if constexpr (!(BF || DP)) DS[i] = __ldg(dsum + row0 * H + i);
   }
   __syncthreads();
-  if constexpr (BF) {   // D = sum_j p_j dp_j of each (query, head), into DS
+  if constexpr (BF || DP) {   // D = sum_j p_j dp_j of each (query, head), into DS
     for (int t = threadIdx.x; t < np * H * A2; t += NT) {
       const int hh = (t / A2) % H, base = t / (A2 * H) * A2;
       const int me = base + t % A2;
@@ -797,8 +814,8 @@ struct AngBwdArgs {
 };
 
 // BF: the three kernels' bf16-operand instances (the header); IO = bf16
-// (with BF) their bf16-IO instances.
-template <int C, bool BF = false, class IO = float>
+// (with BF) their bf16-IO instances; DP step b's `_dp` instance.
+template <int C, bool BF = false, class IO = float, bool DP = false>
 int launch_bwd(const AngBwdArgs<IO>& g, int N, int A2, float scale, cudaStream_t s) {
   using L = AngBwdTok<C>;
   constexpr int H = 8;
@@ -827,7 +844,7 @@ int launch_bwd(const AngBwdArgs<IO>& g, int N, int A2, float scale, cudaStream_t
       g.x, pe, ln, g.attn, g.dout, wf, g.xn, g.q, g.k, g.v, g.xn2, g.hid, g.dpre, g.dx2,
       g.dattn, g.dsum, g.ln_part, T, A2);
   const int P = attn_pixels(A2);
-  auto att = ang_bwd_attn_kernel<C, H, BF, IO>;
+  auto att = ang_bwd_attn_kernel<C, H, BF, IO, DP>;
   const size_t att_bytes = static_cast<size_t>(P) * A2 * (4 * (C + 4) + 3 * H) * sizeof(float);
   LFT_SET_SMEM(att, att_bytes);
   att<<<(N + P - 1) / P, NT, att_bytes, s>>>(g.q, g.k, g.v, g.dattn, g.m, g.l, g.dsum, g.dq,
@@ -931,6 +948,30 @@ extern "C" int lft_ang_block_fwd_res_bf16io(const bf16* x, const float* pe, cons
   }
 }
 
+// The bf16-operand instance with the residuals (`--dtype mixed` training
+// under LFT_MM_HP_SITES=none): lft_ang_block_fwd_res's arguments; m the
+// token's max over its heads in every head's slot, l each head's sum of the
+// unrounded e, attn f32 holding bf16 values (lft_tpu stores it at the `awo`
+// site's dtype).
+extern "C" int lft_ang_block_fwd_res_bf16(const float* x, const float* pe, const float* ln,
+                                          const float* wq, const float* wk, const float* wv,
+                                          const float* wo, const float* w1, const float* w2,
+                                          float* wf, float* out, float* m, float* l,
+                                          float* attn, int N, int A2, int C, int H,
+                                          float scale, void* stream) {
+  if (H != 8 || A2 < 1 || A2 > RP || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+#define LFT_CASE(CV)                                                                        \
+    case CV: return launch<CV, true, float, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf,    \
+                                                  out, m, l, attn, N, A2, scale, s);
+    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
+#undef LFT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 extern "C" int lft_ang_block_fwd_res(const float* x, const float* pe, const float* ln,
                                      const float* wq, const float* wk, const float* wv,
                                      const float* wo, const float* w1, const float* w2,
@@ -965,27 +1006,41 @@ extern "C" int lft_ang_block_fwd_res(const float* x, const float* pe, const floa
       IO *dk, IO *dv, float *dx2, IO *xn2, IO *dpre, IO *hid, float *ln_part, float *q,   \
       float *k, float *v, float *dattn, float *dsum, int N, int A2, int C, int H,         \
       float scale, void *stream
-#define LFT_ANG_BWD_BODY(BF, IO)                                                           \
+#define LFT_ANG_BWD_BODY(BF, IO, DP)                                                       \
   if (H != 8 || A2 < 1 || A2 > RP || N < 1 || static_cast<long long>(N) * A2 > 0x7fffffffLL) \
     return static_cast<int>(cudaErrorInvalidValue);                                        \
   const AngBwdArgs<IO> g{x, pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn, dout, wf, dx, xn,   \
                          dq, dk, dv, dx2, xn2, dpre, hid, ln_part, q, k, v, dattn, dsum};  \
   auto s = static_cast<cudaStream_t>(stream);                                              \
   switch (C) {                                                                             \
-    case 16: return launch_bwd<16, BF, IO>(g, N, A2, scale, s);                            \
-    case 32: return launch_bwd<32, BF, IO>(g, N, A2, scale, s);                            \
-    case 64: return launch_bwd<64, BF, IO>(g, N, A2, scale, s);                            \
+    case 16: return launch_bwd<16, BF, IO, DP>(g, N, A2, scale, s);                        \
+    case 32: return launch_bwd<32, BF, IO, DP>(g, N, A2, scale, s);                        \
+    case 64: return launch_bwd<64, BF, IO, DP>(g, N, A2, scale, s);                        \
     default: return static_cast<int>(cudaErrorInvalidValue);                               \
   }
 
-extern "C" int lft_ang_block_bwd(LFT_ANG_BWD_ARGS(float)) { LFT_ANG_BWD_BODY(false, float) }
+extern "C" int lft_ang_block_bwd(LFT_ANG_BWD_ARGS(float)) {
+  LFT_ANG_BWD_BODY(false, float, false)
+}
+
+// K4 with step b forming D from its own p (`ang_block_bwd_dp`: a forward under
+// LFT_MM_HP_SITES=none, this backward under LFT_MM_HP_BWD_SITES=all; lft_tpu's
+// _bwd_kernel forms D so at every plan, ang_block.py:360-362): the same
+// arguments, dsum written by step a and not read.
+extern "C" int lft_ang_block_bwd_dp(LFT_ANG_BWD_ARGS(float)) {
+  LFT_ANG_BWD_BODY(false, float, true)
+}
 
 // K4's bf16-operand instances under `--dtype mixed` (the K4 header): the
 // same arguments (dsum is left unwritten), wf holding the weights' bf16
 // parts in the same layouts.
-extern "C" int lft_ang_block_bwd_bf16(LFT_ANG_BWD_ARGS(float)) { LFT_ANG_BWD_BODY(true, float) }
+extern "C" int lft_ang_block_bwd_bf16(LFT_ANG_BWD_ARGS(float)) {
+  LFT_ANG_BWD_BODY(true, float, false)
+}
 
 // K4's bf16-IO instances under `--dtype bfloat16` (the K4 header): the same
 // arguments with x, attn, dout and dx, xn, dq, dk, dv, xn2, dpre, hid bf16
 // (dx2, ln_part, m, l and the scratch f32; dsum left unwritten).
-extern "C" int lft_ang_block_bwd_bf16io(LFT_ANG_BWD_ARGS(bf16)) { LFT_ANG_BWD_BODY(true, bf16) }
+extern "C" int lft_ang_block_bwd_bf16io(LFT_ANG_BWD_ARGS(bf16)) {
+  LFT_ANG_BWD_BODY(true, bf16, false)
+}

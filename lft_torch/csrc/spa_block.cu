@@ -690,7 +690,7 @@ namespace {
 
 // lft_tpu's softmax (window_attn.cuh: window_softmax_max_heads): a block a
 // (view, 16 x 16 tile) item; IO = bf16 the bf16-IO kernel, IO = float the
-// bf16-operand one (no STATS).
+// bf16-operand one.
 template <bool STATS, class IO = bf16>
 int window_attn_max_heads(const IO* q, const IO* k, const IO* v, IO* attn, float* m, float* l,
                           int V, int h, int w, int D, int H, float scale, cudaStream_t s) {
@@ -745,6 +745,17 @@ extern "C" int lft_spa_window_attn_res_bf16io(const bf16* q, const bf16* k, cons
                                               int w, int D, int H, float scale, void* stream) {
   return window_attn_max_heads<true>(q, k, v, attn, m, l, V, h, w, D, H, scale,
                                      static_cast<cudaStream_t>(stream));
+}
+
+// The bf16-operand instance with the residuals (`--dtype mixed` training
+// under LFT_MM_HP_SITES=none): lft_spa_window_attn_res's arguments; m each
+// query's max over its heads and its window's out-of-image keys in every
+// head's slot, l each head's sum, attn f32 holding bf16 values.
+extern "C" int lft_spa_window_attn_res_bf16(const float* q, const float* k, const float* v,
+                                            float* attn, float* m, float* l, int V, int h,
+                                            int w, int D, int H, float scale, void* stream) {
+  return window_attn_max_heads<true, float>(q, k, v, attn, m, l, V, h, w, D, H, scale,
+                                            static_cast<cudaStream_t>(stream));
 }
 
 // Step 3 also writing m, l [V, h, w, H] (the residuals of K3).

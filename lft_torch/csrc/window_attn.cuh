@@ -266,8 +266,13 @@ __global__ void __launch_bounds__(WA_NT, 2)
 // LFT_MM_HP_SITES=none; lft_tpu's K2 with mm_half, :141-192): f32 q, k, v
 // rounded to bf16 as they are loaded (the `score` and `av` sites), the same
 // softmax with e rounded through the product, attn f32; bound at [400, 32,
-// 32, 128]: q, k, v, attn in f32, 0.84 GB, 0.250 ms. The body is
-// `window_softmax_max_heads`, run by one kernel for each IO type.
+// 32, 128]: q, k, v, attn in f32, 0.84 GB, 0.250 ms. IO = float with
+// STATS (`spa_window_attn_res_bf16`, `--dtype mixed` training under
+// LFT_MM_HP_SITES=none: lft_tpu's K2 res with mm_half, :176-179, 346-348):
+// also m and l as above, and attn rounded to bf16 as it is stored (lft_tpu
+// stores the residual at the `wo` site's dtype; K3.a reads it under either
+// backward plan). The body is `window_softmax_max_heads`, run by one kernel
+// for each IO type.
 template <int DH, bool STATS, class IO>
 __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ q,
                                                          const IO* __restrict__ k,
@@ -428,11 +433,17 @@ __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ 
         if (y >= h || x >= w) continue;
         const size_t pix = (static_cast<size_t>(view) * h + y) * w + x;
         const float inv = 1.f / l[a];
+        // f32 IO with STATS: attn holds bf16 values, as lft_tpu's residual
+        auto out = [&](float t) {
+          if constexpr (STATS && !is_bf16<IO>)
+            return bf16_round(t * inv);
+          else
+            return t * inv;
+        };
 #pragma unroll
         for (int d = 0; d < DH; d += 4)
           st4(attn + pix * D + col + e * DH + d,
-              make_float4(o[a][d] * inv, o[a][d + 1] * inv, o[a][d + 2] * inv,
-                          o[a][d + 3] * inv));
+              make_float4(out(o[a][d]), out(o[a][d + 1]), out(o[a][d + 2]), out(o[a][d + 3])));
         if constexpr (STATS) {
           const size_t hd = pix * H + (col + e * DH) / DH;
           m_out[hd] = mq[a];
@@ -454,24 +465,24 @@ __global__ void __launch_bounds__(WA_NT, 2)
   window_softmax_max_heads<DH, STATS, bf16>(q, k, v, attn, m_out, l_out, V, h, w, scale);
 }
 
-// K2.3's bf16-operand form (`spa_window_attn_bf16`): f32 in and out.
-template <int DH>
+// K2.3's bf16-operand form (`spa_window_attn_bf16`, `_res_bf16`): f32 in
+// and out.
+template <int DH, bool STATS = false>
 __global__ void __launch_bounds__(WA_NT, 2)
     spa_window_attn_bf16_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, float* __restrict__ attn,
                                 float* __restrict__ m_out, float* __restrict__ l_out, int V,
                                 int h, int w, float scale) {
-  window_softmax_max_heads<DH, false, float>(q, k, v, attn, m_out, l_out, V, h, w, scale);
+  window_softmax_max_heads<DH, STATS, float>(q, k, v, attn, m_out, l_out, V, h, w, scale);
 }
 
 // The kernel that runs window_softmax_max_heads<DH, STATS, IO>.
 template <int DH, bool STATS, class IO>
 constexpr auto window_attn_max_heads_kernel() {
-  static_assert(is_bf16<IO> || !STATS, "the bf16-operand form has no residuals");
   if constexpr (is_bf16<IO>)
     return spa_window_attn_bf16io_kernel<DH, STATS>;
   else
-    return spa_window_attn_bf16_kernel<DH>;
+    return spa_window_attn_bf16_kernel<DH, STATS>;
 }
 
 }  // namespace lft

@@ -18,14 +18,16 @@ K6, K9, K10, each `_bf16io`); `PEROP_BF16TRAIN` those only its train step
 launches under `--dtype bfloat16` (the `_res` form and backward of K7, K8,
 K5, K6, K9, each `_bf16io`); `MIXED_FWD` the bf16-operand instances of K1,
 K2's five steps and K11's two that an SR forward launches under `--dtype
-mixed` with LFT_MM_HP_SITES=none (each `_bf16`); `TAIL_BF16IO` K11's two on
-bf16 tensors (each `_bf16io`).
+mixed` with LFT_MM_HP_SITES=none (each `_bf16`); `MIXED_TRAIN` those that
+only a fused train step launches under it (K1 res, K2.3 res, each `_bf16`;
+K4 in both forms as `_dp` under LFT_MM_HP_BWD_SITES=all);
+`TAIL_BF16IO` K11's two on bf16 tensors (each `_bf16io`).
 """
 
 from lft_torch.kernels._build import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, MIXED_FWD,
-                                      PEROP, PEROP_BF16IO, PEROP_BF16TRAIN, SWEEPS, TAIL,
-                                      TAIL_BF16IO, TRAINING, build_all, reset_launches)
+                                      MIXED_TRAIN, PEROP, PEROP_BF16IO, PEROP_BF16TRAIN, SWEEPS,
+                                      TAIL, TAIL_BF16IO, TRAINING, build_all, reset_launches)
 
-__all__ = ["BF16IO", "BF16TRAIN", "FORWARD", "LAUNCHES", "MIXED", "MIXED_FWD", "PEROP",
-           "PEROP_BF16IO", "PEROP_BF16TRAIN", "SWEEPS", "TAIL", "TAIL_BF16IO", "TRAINING",
-           "build_all", "reset_launches"]
+__all__ = ["BF16IO", "BF16TRAIN", "FORWARD", "LAUNCHES", "MIXED", "MIXED_FWD", "MIXED_TRAIN",
+           "PEROP", "PEROP_BF16IO", "PEROP_BF16TRAIN", "SWEEPS", "TAIL", "TAIL_BF16IO",
+           "TRAINING", "build_all", "reset_launches"]

@@ -106,13 +106,23 @@ PEROP_BF16TRAIN = tuple(k + "_bf16io" for k in (
 # softmax (each token's max over its heads, e rounded) in K1 and K2.3.
 MIXED_FWD = tuple(k + "_bf16" for k in FORWARD + K11)
 
+# ... and those that only a fused train step launches under `--dtype mixed`
+# with LFT_MM_HP_SITES=none: K1 res and K2.3 res on `MIXED_FWD`'s
+# arithmetic, their attn residual f32 holding bf16 values (K2's other four
+# steps launch their `MIXED_FWD` instances; the backward `MIXED`'s), and
+# under LFT_MM_HP_BWD_SITES=all K4 in both forms with its attention step
+# forming D from its own p (`_dp`; K3's f32 kernels do so already).
+MIXED_TRAIN = ("ang_block_res_bf16", "spa_window_attn_res_bf16", "ang_block_bwd_dp",
+               "ang_block_bwd128_dp")
+
 # K11's bf16-IO instances (`--dtype bfloat16` on a pixel-major buffer): K2.1
 # and K2.5 bf16io's arithmetic, the buffer read and written in place.
 TAIL_BF16IO = tuple(k + "_bf16io" for k in K11)
 
 # kernel name -> launches since the last reset
 LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO
-            + BF16TRAIN + PEROP_BF16IO + PEROP_BF16TRAIN + MIXED_FWD + TAIL_BF16IO}
+            + BF16TRAIN + PEROP_BF16IO + PEROP_BF16TRAIN + MIXED_FWD + MIXED_TRAIN
+            + TAIL_BF16IO}
 
 _libs: dict = {}
 _lock = threading.Lock()

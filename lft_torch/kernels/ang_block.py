@@ -31,9 +31,11 @@ its gradient is None.
 `--dtype bfloat16`: a bf16 x runs K1 in bf16 IO, lft_tpu's K1 with `io` =
 bf16, its rounding points listed at `ang_block_bf16io_plain`; on the card
 the kernel's `ang_block_bf16io` instance. `--dtype mixed` under
-LFT_MM_HP_SITES=none, where no gradient is needed, launches its
-bf16-operand instance `ang_block_bf16` (f32 x and out, the products over
-bf16-rounded operands, lft_tpu's softmax as in bf16 IO). Training under it (lft_tpu's
+LFT_MM_HP_SITES=none launches its bf16-operand instance `ang_block_bf16`
+(f32 x and out, the products over bf16-rounded operands, lft_tpu's softmax
+as in bf16 IO) and, training, `ang_block_res_bf16` (the same out; m the
+token's max over its heads, l, attn f32 of bf16 values as lft_tpu stores
+it), then K4 under the backward's own plan. Training under bf16 (lft_tpu's
 custom VJP with `io` = bf16, ang_block.py:424-496): K1 res in bf16 IO
 (`ang_block_res_bf16io`: m and l f32 as lft_tpu forms them, attn bf16), K4
 in bf16 IO (`ang_block_bwd[128]_bf16io`: x, attn and dout bf16, every
@@ -50,7 +52,7 @@ import torch
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_fwd, card_half,
-                                      fwd_kernel, io_kernel, no_plan, rd, rounds)
+                                      d_from_p, fwd_kernel, io_kernel, no_plan, rd, rounds)
 from lft_torch.kernels.rowgemm import RG_M, ang_block_floats, ang_bwd_floats
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import attention_heads
@@ -192,7 +194,9 @@ def _ang_block_planned(x, ang_pe, wts, num_heads, with_res, plan):
     :110-152): each product's operands rounded where its site is, the
     softmax unnormalised through the e v product (e = exp(s - m) with m the
     token's max over every head, as lft_tpu's row max, so e rounds as
-    there) and divided by l after."""
+    there) and divided by l after. with_res: attn as lft_tpu stores it, at
+    the `awo` site's dtype (ang_block.py:241-244), so bf16 values under a
+    plan that rounds there."""
     R = lambda t, s: rd(t, plan, s)
     ln = wts["ln"]
     H = num_heads
@@ -212,7 +216,7 @@ def _ang_block_planned(x, ang_pe, wts, num_heads, with_res, plan):
     if not with_res:
         return out
     return (out, m.transpose(1, 2).contiguous(), l.transpose(1, 2).contiguous(),
-            a.contiguous())
+            R(a, "awo").contiguous())
 
 
 def _check_kernel_shape(kernel: str, x, ang_pe, num_heads: int, max_a2: int) -> None:
@@ -233,7 +237,8 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     cores (`csrc/rowgemm.cuh`), the weights split by the launch's first
     kernel into a scratch of `rowgemm.ang_block_stream`'s layout. `plan`: a
     mixed forward plan; on the card `all` runs the f32 kernel and `none`
-    `ang_block_bf16` (`common.fwd_kernel`; with_res it raises). A bf16 x
+    `ang_block_bf16` (`common.fwd_kernel`), with_res `ang_block_res_bf16`
+    (attn f32 of bf16 values). A bf16 x
     launches `ang_block_bf16io` (bf16 in and out; the weights and LN
     affine as f32 tensors of bf16 values, the PE f32), with_res
     `ang_block_res_bf16io` (m, l f32, attn bf16)."""
@@ -271,7 +276,8 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
 
 # --------------------------------------------------------------- backward ---
 
-def ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=None):
+def ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=None,
+                            d_from_p: bool = False):
     """Plain version of the K4 kernel: recompute the block from x and the
     saved residuals, then backpropagate dout [N, A2, C]. Returns dx and the
     per-token operands of the weight gradients, each [T, *] with T = N*A2:
@@ -280,8 +286,9 @@ def ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int, pl
     `plan`: `--dtype mixed`'s backward plan, each product's operands rounded
     to bf16 where its site is, at lft_tpu's sites (ang_block.py:_bwd_kernel
     :304-382; the attention then in its order: scores from the rounded q
-    and k, D = sum_j p_j dp_j, ds rounded with the scale in it). A bf16 x
-    (with bf16 attn and dout) takes `_ang_bwd_bf16io_plain`."""
+    and k, D = sum_j p_j dp_j, ds rounded with the scale in it). f32: D =
+    dattn . attn, or with `d_from_p` sum_j p_j dp_j (`common.d_from_p`).
+    A bf16 x (with bf16 attn and dout) takes `_ang_bwd_bf16io_plain`."""
     if x.dtype == torch.bfloat16:
         return _ang_bwd_bf16io_plain(x, ang_pe, wts, m, l, attn, dout, num_heads)
     R = lambda t, s: rd(t, plan, s)
@@ -311,7 +318,10 @@ def ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int, pl
         kh, vh, doh = _heads(k, H), _heads(v, H), _heads(dattn, H)
         p = torch.exp(qh @ kh.transpose(-1, -2) - m_) / il    # [N, H, A2, A2]
         dp = doh @ vh.transpose(-1, -2)
-        dsum = (doh * _heads(attn, H)).sum(-1, keepdim=True)  # = sum_j p dp
+        if d_from_p:
+            dsum = (p * dp).sum(-1, keepdim=True)
+        else:
+            dsum = (doh * _heads(attn, H)).sum(-1, keepdim=True)  # = sum_j p dp
         ds = p * (dp - dsum)
         dq = _merge(ds @ kh) * scale
     else:
@@ -401,7 +411,8 @@ def ang_bwd_attn_pixels(A2: int) -> int:
     return max(1, 256 // (8 * A2))
 
 
-def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=None):
+def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=None,
+                      d_from_p: bool = False):
     """The K4 kernels for CUDA tensors (counted as `ang_block_bwd` at A2 <=
     64, `ang_block_bwd128` beyond), the plain version for CPU tensors. Same
     outputs as `ang_block_bwd_ops_plain`, except that dln holds one partial
@@ -411,15 +422,21 @@ def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=Non
     over bf16-rounded operands, step b's attention over rounded q, k, v,
     dattn, ds and p with D from those products (`csrc/ang_block.cu`). bf16
     x, attn and dout launch the bf16-IO instances (`_bf16io`; their outputs
-    as `_ang_bwd_bf16io_plain`'s, bf16 but dx2 and dln)."""
+    as `_ang_bwd_bf16io_plain`'s, bf16 but dx2 and dln). `d_from_p` with
+    f32 products launches the `_dp` instance (step b forms D from its own
+    p; the bf16-operand instances always do)."""
     if x.device.type != "cuda":
-        return ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads, plan)
+        return ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads, plan,
+                                       d_from_p)
     N, A2, C = x.shape
     T = N * A2
     name = io_kernel("ang_block_bwd128" if A2 > 64 else "ang_block_bwd", x)
     half = card_half(plan, name)
     if half:
         name += "_bf16"
+    dp = d_from_p and not half and x.dtype != torch.bfloat16
+    if dp:
+        name += "_dp"
     _check_kernel_shape(name, x, ang_pe, num_heads, BLK)
     bio = x.dtype == torch.bfloat16
     w = {n: wts[n].float().contiguous() for n in WEIGHTS} if bio else wts
@@ -438,7 +455,8 @@ def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=Non
     # what the three kernels hand on: q, k, v, dattn and dsum per token and head
     scratch = (e(T, C), e(T, C), e(T, C), e(T, C), e(T, num_heads))
     fn = _build.bind("ang_block", "lft_ang_block_bwd" + ("_bf16" if half else "")
-                     + ("_bf16io" if bio else ""), len(ins) + 1 + len(outs) + len(scratch),
+                     + ("_bf16io" if bio else "") + ("_dp" if dp else ""),
+                     len(ins) + 1 + len(outs) + len(scratch),
                      (ctypes.c_int,) * 4 + (ctypes.c_float,))
     _build.launch("ang_block", name, fn, dev,
                   *(t.data_ptr() for t in ins + (wf,) + outs + scratch), N, A2, C, num_heads,
@@ -446,10 +464,13 @@ def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=Non
     return outs
 
 
-def _bwd(ops, wg, cs, x, ang_pe, wts, m, l, attn, dout, num_heads, plan=None):
+def _bwd(ops, wg, cs, x, ang_pe, wts, m, l, attn, dout, num_heads, plan=None, d_from_p=False):
     plan = active(plan)
-    dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, dln = ops(
-        x, ang_pe, wts, m, l, attn, dout, num_heads, **({} if plan is None else {"plan": plan}))
+    kw = {} if plan is None else {"plan": plan}
+    if d_from_p:
+        kw["d_from_p"] = True
+    dx, xn, dq, dk, dv, dx2, xn2, dpre, hid, dln = ops(x, ang_pe, wts, m, l, attn, dout,
+                                                       num_heads, **kw)
     C = x.shape[-1]
     tok = lambda t: t.reshape(-1, C)
     # each weight grad over bf16 operands where its site rounds
@@ -460,20 +481,23 @@ def _bwd(ops, wg, cs, x, ang_pe, wts, m, l, attn, dout, num_heads, plan=None):
             wg(xn2, dpre, **h("affn")), wg(hid, tok(dout), **h("affn")))
 
 
-def ang_block_bwd(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=None):
+def ang_block_bwd(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=None,
+                  d_from_p: bool = False):
     """The block's backward from x and the saved (m, l, attn): (dx,
     dln [4, C], dwq, dwk, dwv, dwo, dw1, dw2), weight grads in the `x @ W`
     layouts of `ang_weights`. K4, then `wgrad` and `colsum`; each takes its
-    plain version for CPU tensors. `plan`: `--dtype mixed`'s backward plan."""
+    plain version for CPU tensors. `plan`: `--dtype mixed`'s backward plan;
+    `d_from_p`: the attention's D from its own p (`common.d_from_p`)."""
     return _bwd(ang_block_bwd_ops, wgrad, colsum, x, ang_pe, wts, m, l, attn, dout,
-                num_heads, plan)
+                num_heads, plan, d_from_p)
 
 
-def ang_block_bwd_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=None):
+def ang_block_bwd_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=None,
+                        d_from_p: bool = False):
     """Plain version of `ang_block_bwd` (lft_tpu/kernels/ang_block.py:305-394
     in plain PyTorch), on any device."""
     return _bwd(ang_block_bwd_ops_plain, wgrad_plain, colsum_plain, x, ang_pe, wts, m, l,
-                attn, dout, num_heads, plan)
+                attn, dout, num_heads, plan, d_from_p)
 
 
 class AngBlockFn(torch.autograd.Function):
@@ -491,16 +515,16 @@ class AngBlockFn(torch.autograd.Function):
         fwd = ang_block_plain if plain else ang_block
         out, m, l, attn = fwd(x, ang_pe, wts, num_heads, with_res=True, plan=plan)
         ctx.save_for_backward(x, ang_pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn)
-        ctx.cfg = (num_heads, plain, bwd_plan)
+        ctx.cfg = (num_heads, plain, bwd_plan, d_from_p(plan, bwd_plan))
         return out
 
     @staticmethod
     def backward(ctx, dout):
         x, ang_pe, *w, m, l, attn = ctx.saved_tensors
-        num_heads, plain, bwd_plan = ctx.cfg
+        num_heads, plain, bwd_plan, dp = ctx.cfg
         bwd = ang_block_bwd_plain if plain else ang_block_bwd
         dx, *dw = bwd(x, ang_pe, dict(zip(WEIGHTS, w)), m, l, attn, dout.contiguous(),
-                      num_heads, bwd_plan)
+                      num_heads, bwd_plan, dp)
         if x.dtype == torch.bfloat16:   # lft_tpu's `c(dw, w)`: each f32 sum rounded once
             dw = [g.to(torch.bfloat16) for g in dw]
         return (dx, None, *dw, None, None, None, None)

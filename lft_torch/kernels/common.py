@@ -118,24 +118,20 @@ def _site_name(plan) -> str:
 def card_fwd(plan, kernel: str, grad: bool = False) -> bool:
     """Whether a forward kernel on the card takes its bf16-operand instance
     (`_bf16`: LFT_MM_HP_SITES=none, every site rounded) or its f32 one
-    (`all`). `grad`: the forward of a train step (K1 res, K2.3 res), whose
-    plan `none` raises NotImplementedError: the step's `_res` forms and K3.b's
-    recompute have no bf16-operand forms (ROADMAP.md §2a item 9g). A plan
-    that rounds some sites and not others raises too (item 9h). The plain
-    versions (CPU) run every plan."""
+    (`all`). `grad`: the forward of a train step, whose `_res` forms (K1
+    res, K2.3 res) have `_bf16` instances too (`_build.MIXED_TRAIN`), so
+    both plans run with and without a gradient. A plan that rounds some
+    sites and not others raises NotImplementedError (ROADMAP.md §2a item
+    9h). The plain versions (CPU) run every plan."""
     plan = active(plan)
     if plan is None:
         return False
     if not all(plan.values()):
+        what = "a train step's forward" if grad else "the forward"
         raise NotImplementedError(
             f"{kernel}: the card's kernels run LFT_MM_HP_SITES=none or all only under --dtype "
-            f"mixed, got {_site_name(plan)!r} (a site subset: ROADMAP.md §2a item 9h); the "
-            f"plain versions (CPU) run every plan")
-    if grad:
-        raise NotImplementedError(
-            f"{kernel}: LFT_MM_HP_SITES=none under grad: a train step's forward has no "
-            f"bf16-operand kernels on the card yet (K1 res, K2.3 res, K3.b; ROADMAP.md §2a "
-            f"item 9g); train with LFT_MM_HP_SITES=all, or on the plain versions (CPU)")
+            f"mixed ({what}), got {_site_name(plan)!r} (a site subset: ROADMAP.md §2a item "
+            f"9h); the plain versions (CPU) run every plan")
     return True
 
 
@@ -151,6 +147,16 @@ def card_half(plan, kernel: str) -> bool:
     raise NotImplementedError(
         f"{kernel}: the card's kernels run LFT_MM_HP_BWD_SITES=none or all only, got "
         f"{_site_name(plan)!r}; the plain versions (CPU) run every plan")
+
+
+def d_from_p(plan, bwd_plan) -> bool:
+    """Whether an f32 backward must form its attention's D = sum_j p_j dp_j
+    from its own p, as lft_tpu's backwards always do: where the forward's
+    plan rounded products and the backward's does not, the saved attn is not
+    the backward's sum p v, so D = dattn . attn (the f32 K4's and the plain
+    versions' shortcut) would differ from lft_tpu's by the forward's
+    roundings."""
+    return active(plan) is not None and active(bwd_plan) is None
 
 
 def card_plan(plan, bwd_plan, grad: bool = False) -> None:

@@ -43,9 +43,11 @@ Under `--dtype mixed` the plain versions follow lft_tpu's per-site plans
 (kernels/common.py: each product's operands rounded to bf16 where its site
 is), and on the card a plan that rounds every site launches the steps'
 bf16-operand instances (`_bf16` after each name): the backward's default
-plan K3's, the forward's LFT_MM_HP_SITES=none, where no gradient is needed,
-K2's five and K11's two (the activations f32, only a product's operands
-rounded; the window step with lft_tpu's softmax, `window_attn_plain`).
+plan K3's, the forward's LFT_MM_HP_SITES=none K2's five and K11's two (the
+activations f32, only a product's operands rounded; the window step with
+lft_tpu's softmax, `window_attn_plain`), in a train step the window step
+with its (m, l) (`spa_window_attn_res_bf16`, attn stored as bf16 values)
+and the backward under its own plan; tok stays f32.
 `--dtype bfloat16`: bf16 x runs the five steps in bf16 IO, lft_tpu's K2
 with `io` = bf16 (spa_block.py:_kernel :116-203): each plain step computes
 in f32 from bf16 inputs and rounds at lft_tpu's points (listed at each), and
@@ -82,7 +84,8 @@ import torch.nn.functional as F
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
 from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_fwd, card_half,
-                                      fwd_kernel, io_kernel, mm_site_plan, no_plan, rd, rounds)
+                                      d_from_p, fwd_kernel, io_kernel, mm_site_plan, no_plan,
+                                      rd, rounds)
 from lft_torch.kernels.rowgemm import (RG_M, ffn_out_bwd_floats, ffn_out_floats,
                                        outproj_floats, piece, qkv_floats, qkv_ln_bwd_floats,
                                        split_tf32)
@@ -224,7 +227,7 @@ def _planned_scores(q, k, num_heads: int, ksize: int, plan):
     return s.masked_fill(~valid, float("-inf")), qh, kw
 
 
-def window_attn_plain(q, k, v, num_heads: int, ksize: int, plan=None):
+def window_attn_plain(q, k, v, num_heads: int, ksize: int, plan=None, res: bool = False):
     """Plain version of the window step with stats: (attn, m, l), m and l
     [V, h, w, H] per query and head. Under a mixed plan in lft_tpu's order:
     e = exp(s - m) rounded at the av site through the e v product, then
@@ -233,7 +236,10 @@ def window_attn_plain(q, k, v, num_heads: int, ksize: int, plan=None):
     zero-padded halo), so that e rounds as there. bf16 IO (bf16 q, k, v;
     :154-192): the same m and e, f32 scores over the keys inside the image,
     l the sum of the unrounded e, the product with v over bf16(e), attn =
-    bf16(out * (1 / l))."""
+    bf16(out * (1 / l)). res: attn as a train step's forward stores it,
+    lft_tpu's residual at the `wo` site's dtype (:346-348): bf16 values
+    under a plan that rounds there (the serving form leaves that rounding
+    to step 4, as its kernel does)."""
     B, h, w, E = q.shape
     io = q.dtype == torch.bfloat16
     if io:
@@ -250,6 +256,8 @@ def window_attn_plain(q, k, v, num_heads: int, ksize: int, plan=None):
                                                                E // num_heads)
         o = torch.einsum("byxjh,byxjhd->byxhd", bf16_round(e) if io else rd(e, plan, "av"), vw)
         attn = (o * (1.0 / l)[..., None]).bfloat16() if io else o / l[..., None]
+        if res:
+            attn = rd(attn, plan, "wo")
         return attn.reshape(B, h, w, E).contiguous(), m.contiguous(), l.contiguous()
     p, _, m, l = _window_probs(q, k, num_heads, ksize)
     vw = _gather_window(v, ksize).reshape(B, h, w, -1, num_heads, E // num_heads)
@@ -329,7 +337,9 @@ def window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int
     dattn and v rounded at the av site, ds rounded with the scale in it, p
     rounded for dv; `attn` is not read. bf16 IO (bf16 q, k, v, dattn; the
     (m, l) of the window step's bf16 form, :503-540): that order over the
-    bf16 values, dq, dk, dv summed in f32 and rounded once to bf16."""
+    bf16 values, dq, dk, dv summed in f32 and rounded once to bf16. f32:
+    D = dattn . attn, or with `attn` None sum_j p_j dp_j (as the kernel
+    forms it; `common.d_from_p`)."""
     B, h, w, E = q.shape
     H, dh = num_heads, E // num_heads
     if q.dtype == torch.bfloat16:
@@ -355,7 +365,10 @@ def window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int
     vw = _gather_window(v, ksize).reshape(B, h, w, -1, H, dh)
     kw = _gather_window(k, ksize).reshape(B, h, w, -1, H, dh)
     dp = torch.einsum("byxhd,byxjhd->byxjh", doh, vw)
-    dsum = (doh * attn.reshape(B, h, w, H, dh)).sum(-1)     # = sum_j p dp
+    if attn is None:
+        dsum = (p * dp).sum(3)
+    else:
+        dsum = (doh * attn.reshape(B, h, w, H, dh)).sum(-1)     # = sum_j p dp
     ds = p * (dp - dsum[:, :, :, None])
     dq = torch.einsum("byxjh,byxjhd->byxhd", ds, kw) * float(dh) ** -0.5
     dkw = torch.einsum("byxjh,byxhd->byxjhd", ds, qh)
@@ -641,10 +654,12 @@ def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False, p
     `spa_window_attn_res_bf16io` (m, l f32: each query's max over its heads
     in every head's slot, and its heads' sums). The plan `none` launches
     `spa_window_attn_bf16` (f32 q, k, v rounded as they load, the bf16-IO
-    kernel's softmax, attn f32); with_stats it raises (`common.card_fwd`)."""
+    kernel's softmax, attn f32); with_stats `spa_window_attn_res_bf16` (the
+    same, m and l as the bf16-IO form's, attn f32 of bf16 values: the
+    residual as lft_tpu stores it)."""
     if q.device.type != "cuda":
         if with_stats:
-            return window_attn_plain(q, k, v, num_heads, ksize, plan)
+            return window_attn_plain(q, k, v, num_heads, ksize, plan, res=True)
         if active(plan) is not None or q.dtype == torch.bfloat16:
             return window_attn_plain(q, k, v, num_heads, ksize, plan)[0]
         return windowed_attention(q, k, v, num_heads, ksize)
@@ -939,7 +954,7 @@ def spa_block_plain(x, pe_tok, wts, num_heads: int, k: int, with_res: bool = Fal
     tok, xn = tokenize_ln_plain(x, pe_tok, wts, plan)
     q, kk, v = qkv_plain(xn, tok, wts, plan)
     if with_res or active(plan) is not None or x.dtype == torch.bfloat16:
-        attn, m, l = window_attn_plain(q, kk, v, num_heads, k, plan)
+        attn, m, l = window_attn_plain(q, kk, v, num_heads, k, plan, res=with_res)
     else:
         attn = windowed_attention(q, kk, v, num_heads, k)
     x2, xn2 = outproj_ln_plain(attn, tok, wts, plan)
@@ -953,23 +968,28 @@ _PLAIN_STEPS = (ffn_out_bwd_plain, ln_qkv_plain, window_attn_bwd_plain, qkv_ln_b
                 tokenize_bwd_plain, wgrad_plain, colsum_plain)
 
 
-def spa_block_bwd(x, pe_tok, wts, tok, m, l, attn, dout, num_heads: int, k: int, plan=None):
+def spa_block_bwd(x, pe_tok, wts, tok, m, l, attn, dout, num_heads: int, k: int, plan=None,
+                  d_from_p: bool = False):
     """K3: the block's backward from x and the saved (tok, m, l, attn).
     Returns (dx, dpe_tok [h, w, D], dln [4, D], dwu [9, C, D], dwqk, dwv,
     dwo, dw1, dw2, dwlin), weight grads in the layouts of `spa_weights`.
     Each step takes its plain version for CPU tensors. `plan`: `--dtype
-    mixed`'s backward plan."""
-    return _bwd(_KERNEL_STEPS, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k, plan)
+    mixed`'s backward plan; `d_from_p`: step c forms D from its own p
+    (`common.d_from_p`; the kernel always does)."""
+    return _bwd(_KERNEL_STEPS, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k, plan,
+                d_from_p)
 
 
 def spa_block_bwd_plain(x, pe_tok, wts, tok, m, l, attn, dout, num_heads: int, k: int,
-                        plan=None):
+                        plan=None, d_from_p: bool = False):
     """Plain version of `spa_block_bwd` (lft_tpu/kernels/spa_block.py:427-568
     in plain PyTorch), on any device."""
-    return _bwd(_PLAIN_STEPS, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k, plan)
+    return _bwd(_PLAIN_STEPS, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k, plan,
+                d_from_p)
 
 
-def _bwd(steps, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k, plan=None):
+def _bwd(steps, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k, plan=None,
+         d_from_p=False):
     f_ffn, f_lnqkv, f_attn, f_qkvln, f_tok, wg, cs = steps
     V, h, w, C = x.shape
     D = 2 * C
@@ -977,7 +997,7 @@ def _bwd(steps, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k, plan=None):
     pl = {} if plan is None else {"plan": plan}
     dx2, dattn, y, dy, hid, dpre, xn2, dln2 = f_ffn(attn, tok, dout, wts, **pl)
     xn, q, kk, v = f_lnqkv(tok, pe_tok, wts, **pl)
-    dq, dk, dv = f_attn(q, kk, v, attn, dattn, m, l, num_heads, k, **pl)
+    dq, dk, dv = f_attn(q, kk, v, None if d_from_p else attn, dattn, m, l, num_heads, k, **pl)
     dtok, dtokpe, dln1 = f_qkvln(tok, pe_tok, dq, dk, dv, dx2, wts, **pl)
     dx = f_tok(dtok, wts, **pl)
     r = lambda t: t.reshape(-1, t.shape[-1])
@@ -1015,16 +1035,16 @@ class SpaBlockFn(torch.autograd.Function):
         fwd = spa_block_plain if plain else spa_block
         out, tok, m, l, attn = fwd(x, pe_tok, wts, num_heads, k, with_res=True, plan=plan)
         ctx.save_for_backward(x, pe_tok, ln, wu, wqk, wv, wo, w1, w2, wlin, tok, m, l, attn)
-        ctx.cfg = (num_heads, k, plain, bwd_plan)
+        ctx.cfg = (num_heads, k, plain, bwd_plan, d_from_p(plan, bwd_plan))
         return out
 
     @staticmethod
     def backward(ctx, dout):
         x, pe_tok, *w, tok, m, l, attn = ctx.saved_tensors
-        num_heads, k, plain, bwd_plan = ctx.cfg
+        num_heads, k, plain, bwd_plan, dp = ctx.cfg
         bwd = spa_block_bwd_plain if plain else spa_block_bwd
         grads = bwd(x, pe_tok, _with_mlp(dict(zip(WEIGHTS, w))), tok, m, l, attn,
-                    dout.contiguous(), num_heads, k, bwd_plan)
+                    dout.contiguous(), num_heads, k, bwd_plan, dp)
         if x.dtype == torch.bfloat16:   # lft_tpu's `c(g, t)`: each f32 sum rounded once
             grads = (grads[0], *(g.to(torch.bfloat16) for g in grads[1:]))
         return (*grads, None, None, None, None, None)

@@ -8,7 +8,7 @@
   sample covariance NP/(NP-1), symmetric boundary, K1 0.01, K2 0.03, mean
   over the image cropped by (win-1)//2.
 * `cal_metrics`: per-view metrics averaged with the reference's
-  positive-mask mean (utils/utils.py:85-86).
+  positive-mask mean (utils/utils.py:85-86), from 2-D to 5-D inputs.
 """
 
 from __future__ import annotations
@@ -43,7 +43,11 @@ def _gaussian_kernel1d(sigma: float = 1.5, truncate: float = 3.5) -> np.ndarray:
 
 
 def _gaussian_filter2d(img: torch.Tensor, sigma: float, truncate: float):
-    """Separable gaussian filter of [N, H, W], symmetric boundary."""
+    """Separable gaussian filter of [N, H, W], symmetric boundary. The two
+    convolutions run in full f32 whatever the process's TF32 flag says, as
+    lft_tpu's run at HIGHEST precision (lft_tpu/ops/metrics.py:88-94): SSIM's
+    variance terms (uxx - ux^2) cancel almost completely, so a TF32 filter
+    moves SSIM itself. The flag is restored afterwards."""
     k = torch.from_numpy(_gaussian_kernel1d(sigma, truncate)).to(img.device)
     r = (k.numel() - 1) // 2
     N, H, W = img.shape
@@ -51,10 +55,15 @@ def _gaussian_filter2d(img: torch.Tensor, sigma: float, truncate: float):
     ix = torch.from_numpy(np.pad(np.arange(W), r, mode="symmetric")).to(img.device)
     x = img.index_select(1, iy).index_select(2, ix)               # [N, H+2r, W+2r]
     kk = k.reshape(1, 1, -1)
-    # rows: correlate along H
-    x = F.conv1d(x.transpose(1, 2).reshape(-1, 1, H + 2 * r), kk)
-    x = x.reshape(N, W + 2 * r, H).transpose(1, 2)                 # [N, H, W+2r]
-    x = F.conv1d(x.reshape(-1, 1, W + 2 * r), kk)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # rows: correlate along H
+        x = F.conv1d(x.transpose(1, 2).reshape(-1, 1, H + 2 * r), kk)
+        x = x.reshape(N, W + 2 * r, H).transpose(1, 2)             # [N, H, W+2r]
+        x = F.conv1d(x.reshape(-1, 1, W + 2 * r), kk)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     return x.reshape(N, H, W)
 
 
@@ -84,9 +93,23 @@ def ssim(ref: torch.Tensor, test: torch.Tensor, data_range=None,
 
 
 def _view_stack(label: torch.Tensor, out: torch.Tensor, a: int):
-    """[A*h, A*w] or [B, A*h, A*w] mosaics -> per-view stacks [N, h, w]."""
+    """-> per-view stacks [N, h, w], one pair per (batch, u, v), from every
+    form lft_tpu's cal_metrics takes (lft_tpu/ops/metrics.py:154-179): a
+    [A*h, A*w] mosaic, [B, A*h, A*w] mosaics, a [B, C, H, W] batch (channel
+    0; square, as the reference's view() assumes) or a [C, U, V, h, w]
+    per-view tensor (channel 0)."""
     if label.ndim == 2:
         label, out = label[None], out[None]
+    if label.ndim == 4:
+        if label.shape[-2] != label.shape[-1]:
+            raise ValueError(
+                "4-D cal_metrics input must be square (the reference's "
+                f"view() assumes H == W); got {tuple(label.shape)}")
+        label, out = label[:, 0], out[:, 0]
+    if label.ndim == 5:
+        lv, ov = label[0], out[0]
+        U, V, h, w = lv.shape
+        return lv.reshape(U * V, h, w), ov.reshape(U * V, h, w)
     B, H, W = label.shape
     h, w = H // a, W // a
     split = lambda m: m.reshape(B, a, h, a, w).permute(0, 1, 3, 2, 4).reshape(B * a * a, h, w)

@@ -1998,6 +1998,103 @@ def test_ang_block_mixed_fwd_kernel(cuda_device, C, A2, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("A2,N", [(25, 37), (81, 7), (4, 64)])
+def test_ang_block_mixed_res_kernels(cuda_device, C, A2, N):
+    """K1 res `_bf16` (LFT_MM_HP_SITES=none in a train step) against its
+    plain version under the plan: out and attn as `_mixed_close`, attn of
+    bf16 values, m and l within L2 1e-3 (q and k round in both), out K1
+    `_bf16`'s bit for bit; then K4's `_dp` instance (D from its own p, for
+    LFT_MM_HP_BWD_SITES=all) from those residuals against its plain version
+    within 5e-4 of max |plain|; both repeat bitwise."""
+    from lft_torch.kernels import common
+    plan = _plan_none()
+    wts = ang_block.ang_weights(_params(C, cuda_device), "altblock.1.ang_trans.")
+    g = torch.Generator(device=cuda_device).manual_seed(C + A2 + 1)
+    x = torch.randn(N, A2, C, device=cuda_device, generator=g)
+    dout = torch.randn(N, A2, C, device=cuda_device, generator=g)
+    pe = torch.from_numpy(angular_position(A2, C)).to(cuda_device)
+    reset_launches()
+    got = ang_block.ang_block(x, pe, wts, 8, with_res=True, plan=plan)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {"ang_block_res_bf16": 1}
+    ref = ang_block.ang_block_plain(x, pe, wts, 8, with_res=True, plan=plan)
+    ref32 = ang_block.ang_block_plain(x, pe, wts, 8, with_res=True)
+    _mixed_close((got[0], got[3]), (ref[0], ref[3]), (ref32[0], ref32[3]))
+    l2 = lambda a, b: float((a - b).double().norm() / b.double().norm())
+    assert l2(got[1], ref[1]) <= 1e-3 and l2(got[2], ref[2]) <= 1e-3
+    assert torch.equal(got[3], common.bf16_round(got[3]))
+    assert torch.equal(got[0], ang_block.ang_block(x, pe, wts, 8, plan=plan))
+    again = ang_block.ang_block(x, pe, wts, 8, with_res=True, plan=plan)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    reset_launches()
+    ops = ang_block.ang_block_bwd_ops(x, pe, wts, *got[1:], dout, 8, d_from_p=True)
+    torch.cuda.synchronize()
+    name = "ang_block_bwd128_dp" if A2 > 64 else "ang_block_bwd_dp"
+    assert {n: c for n, c in LAUNCHES.items() if c} == {name: 1}
+    ops_ref = ang_block.ang_block_bwd_ops_plain(x, pe, wts, *got[1:], dout, 8, d_from_p=True)
+    hid_flip = ((ops[8] > 0) != (ops_ref[8] > 0)).any(-1)
+    assert int(hid_flip.sum()) <= max(1, 1e-3 * hid_flip.numel())
+    keep = ~hid_flip.reshape(N, A2)
+    for i in (0, 2, 3, 4):                     # dx, dq, dk, dv on tokens without a flip
+        a, b = ops[i].reshape(N, A2, C)[keep], ops_ref[i].reshape(N, A2, C)[keep]
+        assert float((a - b).abs().max()) <= 5e-4 * float(b.abs().max()), i
+    again = ang_block.ang_block_bwd_ops(x, pe, wts, *got[1:], dout, 8, d_from_p=True)
+    assert all(torch.equal(a, b) for a, b in zip(ops, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("V,h,w", [(3, 9, 7), (2, 17, 40), (2, 32, 32)])
+def test_spa_window_attn_mixed_res_kernel(cuda_device, C, V, h, w):
+    """K2.3 res `_bf16` against its plain version under the plan (`res`:
+    attn as the residual stores it): attn as `_mixed_close` and bf16(the
+    serving `spa_window_attn_bf16`'s attn) bit for bit, m and l within L2
+    1e-3; a bitwise repeat."""
+    from lft_torch.kernels import common
+    plan = _plan_none()
+    ws = spa_block._with_mlp(spa_block.spa_weights(_params(C, cuda_device),
+                                                   "altblock.2.spa_trans."))
+    g = torch.Generator(device=cuda_device).manual_seed(C + h + 1)
+    x = torch.randn(V, h, w, C, device=cuda_device, generator=g)
+    pe_tok = torch.randn(h, w, 2 * C, device=cuda_device, generator=g)
+    tok, xn = spa_block.tokenize_ln_plain(x, pe_tok, ws, plan)
+    q, k, v = spa_block.qkv_plain(xn, tok, ws, plan)
+    reset_launches()
+    got = spa_block.window_attn(q, k, v, 8, 5, with_stats=True, plan=plan)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {"spa_window_attn_res_bf16": 1}
+    ref = spa_block.window_attn_plain(q, k, v, 8, 5, plan, res=True)
+    _mixed_close(got[:1], ref[:1], spa_block.window_attn_plain(q, k, v, 8, 5)[:1])
+    l2 = lambda a, b: float((a - b).double().norm() / b.double().norm())
+    assert l2(got[1], ref[1]) <= 1e-3 and l2(got[2], ref[2]) <= 1e-3
+    serve = spa_block.window_attn(q, k, v, 8, 5, plan=plan)
+    assert torch.equal(got[0], common.bf16_round(serve))
+    again = spa_block.window_attn(q, k, v, 8, 5, with_stats=True, plan=plan)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_ssim_ignores_the_tf32_flag(cuda_device):
+    """SSIM (and PSNR) of a 5x5x32^2 pair under `--matmul_precision high`
+    equal those under `highest` bit for bit: the SSIM filter runs with
+    cuDNN's TF32 off whatever the flag (lft_tpu's at HIGHEST)."""
+    from lft_torch import device as port_device
+    from lft_torch.ops.metrics import cal_metrics
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    label = torch.rand(160, 160, device=cuda_device, generator=g)
+    out = (label + 0.05 * torch.randn(160, 160, device=cuda_device, generator=g)).clamp(0, 1)
+    try:
+        port_device.resolve_device(cuda_device, "high")
+        high = cal_metrics(label, out, 5)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        port_device.resolve_device(cuda_device, "highest")
+    highest = cal_metrics(label, out, 5)
+    assert all(torch.equal(a, b) for a, b in zip(high, highest))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("C,Bb,h,w,A2", [(16, 2, 8, 8, 4), (32, 1, 9, 7, 25), (64, 2, 32, 32, 25),
                                          (64, 1, 17, 40, 9)])
 @pytest.mark.parametrize("form", ["bf16io", "bf16"])
@@ -2045,9 +2142,11 @@ def test_mixed_none_forward_on_card(cuda_device, monkeypatch):
     """`--dtype mixed` under LFT_MM_HP_SITES=none on the card: the forward
     launches the six `_bf16` kernels 4 times each and nothing else, its
     distance from the f32 forward within 10% of the plain blocks' and its L2
-    from theirs within 1.5 of it, bitwise on a repeat; under grad, and under
-    a site subset, it raises before any launch."""
-    from lft_torch.kernels import MIXED_FWD
+    from theirs within 1.5 of it, bitwise on a repeat; under grad its
+    forward launches K1 res's and K2.3 res's `_bf16` forms in place of K1's
+    and K2.3's (ROADMAP 9g), and under a site subset it raises before any
+    launch, grad or not."""
+    from lft_torch.kernels import MIXED_FWD, MIXED_TRAIN
     monkeypatch.setenv("LFT_MM_HP_SITES", "none")
     args = Args(channels=16, scale_factor=2, dtype="mixed")
     p = _params(16, cuda_device, seed=3)
@@ -2066,10 +2165,16 @@ def test_mixed_none_forward_on_card(cuda_device, monkeypatch):
     assert l2(got, ref) <= 1.5 * l2(ref, f32)
     pg = {k_: v_.clone().requires_grad_(True) for k_, v_ in p.items()}
     reset_launches()
-    with pytest.raises(NotImplementedError, match="under grad.*item 9g"):
-        lft.forward(pg, lr, args)
+    lft.forward(pg, lr, args)
+    torch.cuda.synchronize()
+    steps = [n for n in MIXED_FWD[:6] if n not in ("ang_block_bf16", "spa_window_attn_bf16")]
+    assert {n: c for n, c in LAUNCHES.items() if c} == {n: 4 for n in
+                                                        steps + list(MIXED_TRAIN[:2])}
     monkeypatch.setenv("LFT_MM_HP_SITES", "qk,ffn")
+    reset_launches()
     with torch.no_grad(), pytest.raises(NotImplementedError, match="item 9h"):
         lft.forward(p, lr, args)
+    with pytest.raises(NotImplementedError, match="train step's forward.*item 9h"):
+        lft.forward(pg, lr, args)
     torch.cuda.synchronize()
     assert not any(LAUNCHES.values())

@@ -195,10 +195,10 @@ def test_forward_mixed_none_matches_lft_tpu(ref, monkeypatch):
 # ------------------------------------------------------------- (d) gates ---
 
 def test_forward_plan_gates():
-    """On the card the forward plan `none` takes the `_bf16` instances where
-    no gradient is needed; under grad (a train step's forward) it raises
-    naming ROADMAP item 9g, and a site subset raises naming 9h, grad or
-    not (the model checks both before its first launch: `card_plan`); `all`
+    """On the card the forward plan `none` takes the `_bf16` instances,
+    under grad (a train step's forward) too, its `_res` forms included
+    (ROADMAP item 9g), and a site subset raises naming 9h, grad or not (the
+    model checks the plans before its first launch: `card_plan`); `all`
     and no plan take the f32 kernels. K11's two launches take bf16 tensors
     (`_bf16io`); a bf16 tensor takes no mixed plan."""
     plan = lambda sites: common.mm_site_plan(True, sites)
@@ -208,9 +208,8 @@ def test_forward_plan_gates():
     common.card_plan(half, half)
     common.card_plan(half, f32)
     common.card_plan(f32, half, grad=True)
-    with pytest.raises(NotImplementedError, match="--dtype mixed: LFT_MM_HP_SITES=none under "
-                                                  "grad.*item 9g"):
-        common.card_plan(half, half, grad=True)
+    common.card_plan(half, half, grad=True)
+    assert common.card_fwd(half, "k", grad=True)
     for grad in (False, True):
         with pytest.raises(NotImplementedError, match="'lin,qk'.*item 9h"):
             common.card_plan(some, half, grad=grad)
@@ -227,8 +226,9 @@ def test_forward_plan_gates():
             common.fwd_kernel(k, xb, half)
     for k in ("spa_tokenize_ln_pm", "spa_ffn_out_pm"):
         assert common.io_kernel(k, xb) == k + "_bf16io" and common.io_kernel(k, x32) == k
-    with pytest.raises(NotImplementedError, match="under grad"):
-        common.fwd_kernel("spa_window_attn_res", x32, half, grad=True)
+    for k in ("ang_block_res", "spa_window_attn_res"):
+        assert common.fwd_kernel(k, x32, half, grad=True) == k + "_bf16"
+        assert common.fwd_kernel(k, x32, f32, grad=True) == k
     with pytest.raises(NotImplementedError, match="colsum: has no bf16-IO form"):
         common.io_kernel("colsum", xb)
     from lft_torch.kernels import MIXED_FWD, TAIL_BF16IO
