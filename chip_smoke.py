@@ -302,11 +302,11 @@
     each of the eight `_bf16` kernels against its plain version under the
     plan (step 22's bounds) at the main path's shapes, a bitwise repeat,
     timed by CUDA events beside its bound (f32 bytes, the products at the
-    bf16 rate); (d) a train step and a forward under a site subset raise
-    before any launch; (e) each new kernel in turns with its
-    f32 instance (K11's `_pm_bf16io` with view-major K2 bf16io's), and the
-    `none` scene with the f32 scene (device busy, CUDA-event time, idle
-    share);
+    bf16 rate); (d) a train step and a forward under a site subset of the
+    backward plan raise before any launch, naming ROADMAP 9h-b; (e) each
+    new kernel in turns with its f32 instance (K11's `_pm_bf16io` with
+    view-major K2 bf16io's), and the `none` scene with the f32 scene
+    (device busy, CUDA-event time, idle share);
 28. `--dtype mixed` training under LFT_MM_HP_SITES=none (`none_train_steps`):
     (a) the 4x recipe's fused step (C=64, batch 4 of 32x32-view patches)
     through the kernels against the plain blocks under the same plans:
@@ -326,7 +326,26 @@
     ending on the uninterrupted run's parameters bit for bit; (g) the step's
     ms under `none` beside `all` in turns; (h) SSIM under `--matmul_precision
     high` bitwise equal to SSIM under `highest`;
-29. prints the script's seconds, the `kernels` JSON line (every kernel, old
+29. `--dtype mixed` under the LFT_MM_HP_SITES subsets S1 = `qk,score,ffn,
+    aqkv,aav,wo` and its complement S2 (`sites_phase`; ROADMAP 9h): (a) K11
+    on the f32 buffer [16, 32, 32, 25, 64] under S1, its launches bitwise
+    view-major K2's chain under S1; (b) step 3's scenes under each subset:
+    16 launches a scene of each fused step's instance as `common.card_fwd`
+    names it (under S1 `ang_block_sites`, `spa_qkv_sites`,
+    `spa_window_attn_sites`, `spa_ffn_out_sites`, K2.1 `_bf16` and K2.4
+    f32) and no other kernel, |dPSNR| <= 0.01 dB against the plain blocks
+    under the subset, the distance from the f32 scene within 10% of theirs
+    and the L2 from theirs within 1.5 of it, a bitwise repeat; (c) the fused
+    train step under S1 with the backward plans `none` and `all`, held as
+    step 28 holds `none` (K1 res and K2.3 res as `_sites`); (d) each of the
+    seven `_sites` kernels under S1 and S2 against its plain version at the
+    main path's shapes (step 27's bounds; the `_res` forms also step 28's
+    bf16 ulps, m and l, and attn of bf16 values exactly where `awo` / `wo`
+    rounds), a bitwise repeat, timed by CUDA events beside its bound (f32
+    bytes, each product at the bf16 rate where its site rounds and as
+    3xTF32 where it does not); (e) each `_sites` kernel in turns with its
+    f32 and `_bf16` instances;
+30. prints the script's seconds, the `kernels` JSON line (every kernel, old
     and new), the card's name and power limit, and last `{"ok": true,
     "device": {...}}`.
 
@@ -559,7 +578,7 @@ class Recorder:
     def record(self, name, src, replaces, got, ref, fn_k, fn_p, flops, io, lib_fn=None,
                rel=None, shape=None, slow_reps=10, device_time=False, tf32_products=0,
                bf16_products=False, fp32_flops=0, ref32=None, bf16_ref32=None,
-               bf16t_ref32=None, timer=None):
+               bf16t_ref32=None, timer=None, site_flops=None):
         """With `shape` the check is one more shape of a kernel that has its
         row already: compared, timed and printed, not added to the rows.
         `slow_reps`: launches timed of the plain and library versions.
@@ -580,7 +599,11 @@ class Recorder:
         instance held by `bf16_err` (`ref` the plain bf16 version's);
         `bf16t_ref32` likewise for a bf16-training instance, `bf16t_err`.
         `timer(fn, reps)`: times all three in place of `device_time`'s or
-        the CUDA events around one call."""
+        the CUDA events around one call. `site_flops`: a `_sites` instance's
+        operations as (flops, rounds) pairs, one a product site: the bound
+        then takes those of a rounding site at the bf16 rate and the others
+        as 3xTF32 (3 TF32 products each), the least time for the same
+        products."""
         if bf16t_ref32 is not None:
             err, ok = bf16t_err(got, ref, bf16t_ref32)
         elif bf16_ref32 is not None:
@@ -600,7 +623,12 @@ class Recorder:
             ms_l = timed(lib_fn, slow_reps, warm) if lib_fn is not None else None
         b_ms, b_by = self.bound(flops + fp32_flops, io)
         fp32_note = ""
-        if tf32_products or bf16_products:
+        if site_flops is not None:
+            fp32_note = f", FP32-pipe bound {b_ms:.4f} ms ({b_by})"
+            t_ops = sum(f_ / (self.bf16_peak if r_ else self.tf32_peak / 3)
+                        for f_, r_ in site_flops) * 1e3
+            b_ms, b_by = max((t_ops, "operations"), self.bound(0, io))
+        elif tf32_products or bf16_products:
             fp32_note = f", FP32-pipe bound {b_ms:.4f} ms ({b_by})"
             if bf16_products:
                 b_ms, b_by = self.bound(flops + fp32_flops, io, self.bf16_peak)
@@ -4034,10 +4062,11 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
     bitwise repeat, dPSNR against f32. c: each of the eight `_bf16` kernels
     against its plain version under the plan with step 22's bounds at the
     main path's shapes, a bitwise repeat. d: a train step and a forward
-    under a site subset raise before any launch. e: each new kernel
-    in turns with its f32 (or view-major `_bf16io`) instance, and the `none`
-    scene with the f32 scene (device busy, CUDA-event wall time, idle
-    share). Returns the ten rows of the `kernels` line."""
+    under a site subset of the backward plan raise before any launch. e:
+    each new kernel in turns with its f32 (or view-major `_bf16io`)
+    instance, and the `none` scene with the f32 scene (device busy,
+    CUDA-event wall time, idle share). Returns the ten rows of the
+    `kernels` line."""
     import dataclasses
 
     import torch
@@ -4286,15 +4315,15 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
         rows += rec.rows + rec_pm.rows
         del xs, tok, xn, attn, x2, xn2, xf, conv, ffn, wsb
 
-        # d: a train step and a forward under a site subset raise before any
-        # launch (a train step under `none` runs: step 28)
+        # d: a train step and a forward under a site subset of the backward
+        # plan raise before any launch (forward subsets run: step 29)
         a4 = Args(angRes=5, scale_factor=4, channels=64, batch_size=1, train_fused="true",
                   dtype="mixed")
         lr_t = torch.rand(1, 1, 160, 160, device=dev, generator=g)
         hr_t = torch.rand(1, 1, 640, 640, device=dev, generator=g)
-    for spec, what, grad, pat in (("qk,ffn", "a train step", True, "train step.*item 9h"),
-                                  ("qk,ffn", "a forward", False, "item 9h")):
-        with mm_sites(spec):
+    for spec, what, grad, pat in (("qk,ffn", "a train step", True, "BWD_SITES.*item 9h-b"),
+                                  ("qk,ffn", "a forward", False, "item 9h-b")):
+        with mm_sites("none"), mm_sites(spec, "LFT_MM_HP_BWD_SITES"):
             torch.cuda.synchronize()
             reset_launches()
             try:
@@ -4305,13 +4334,13 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
                 else:
                     with torch.no_grad():
                         forward(params, lr_t, a4)
-                raise AssertionError(f"{what} under LFT_MM_HP_SITES={spec} did not raise")
+                raise AssertionError(f"{what} under LFT_MM_HP_BWD_SITES={spec} did not raise")
             except NotImplementedError as e:
                 torch.cuda.synchronize()
                 if not re.search(pat, str(e)) or any(LAUNCHES.values()):
-                    raise AssertionError(f"{what} under LFT_MM_HP_SITES={spec}: {e}; launches "
-                                         f"{ {k_: c for k_, c in LAUNCHES.items() if c} }")
-                print(f"{what} under LFT_MM_HP_SITES={spec} raised before any launch: {e}",
+                    raise AssertionError(f"{what} under LFT_MM_HP_BWD_SITES={spec}: {e}; "
+                                         f"launches { {k_: c for k_, c in LAUNCHES.items() if c} }")
+                print(f"{what} under LFT_MM_HP_BWD_SITES={spec} raised before any launch: {e}",
                       flush=True)
 
     # e: in turns, CUDA events around back-to-back calls (late in the process)
@@ -4340,9 +4369,11 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
 
 
 def none_train_phase(params, seed: int, bwd: str = "none", steps: int = 2, ang_res: int = 5,
-                     patch: int = 32):
+                     patch: int = 32, fwd: str = "none"):
     """Step 28 a-d: the fused train step of the 4x recipe under `--dtype
-    mixed` with LFT_MM_HP_SITES=none and LFT_MM_HP_BWD_SITES=`bwd` through
+    mixed` with LFT_MM_HP_SITES=`fwd` (step 29 c: a site subset, whose
+    forward launches each step's instance as `common.card_fwd` names it)
+    and LFT_MM_HP_BWD_SITES=`bwd` through
     the kernels against the same step through the plain blocks under the
     same plans, at the bf16 training limits (BF16T_LOSS, BF16T_TOL,
     BF16T_L2: the gradient as one vector under the smooth loss, against
@@ -4358,13 +4389,15 @@ def none_train_phase(params, seed: int, bwd: str = "none", steps: int = 2, ang_r
     import torch
     from lft_torch.config import Args
     from lft_torch.data.device_synth import synth_batch
-    from lft_torch.kernels import LAUNCHES, MIXED, MIXED_TRAIN, reset_launches
+    from lft_torch.kernels import LAUNCHES, MIXED, common, reset_launches
     from lft_torch.models.lft import forward
     from lft_torch.registry import get_model
     from lft_torch.training.optim import make_optimizer
     from lft_torch.training.trainer import make_train_step
 
     dev = torch.device("cuda")
+    with mm_sites(fwd):
+        plan = common.active(common.mm_site_plan(True, common.mm_hp_sites()))
     a32 = Args(angRes=ang_res, scale_factor=4, channels=64, batch_size=4, lr=2e-4, n_steps=15,
                gamma=0.5, epoch=50, train_fused="true")
     am = dataclasses.replace(a32, dtype="mixed")
@@ -4374,7 +4407,8 @@ def none_train_phase(params, seed: int, bwd: str = "none", steps: int = 2, ang_r
     gen = torch.Generator(device=dev).manual_seed(seed + 28)
     new_batch = lambda: synth_batch(gen, batch=4, ang_res=ang_res, patch=patch, scale=4)
     k4 = "ang_block_bwd128" if ang_res * ang_res > 64 else "ang_block_bwd"
-    what = f"mixed none train, backward plan {bwd} ({ang_res}x{ang_res} views, patch {patch})"
+    what = (f"mixed {fwd} train, backward plan {bwd} ({ang_res}x{ang_res} views, patch "
+            f"{patch})")
     lr, hr = new_batch()
 
     def step(m, args, loss=None):
@@ -4384,14 +4418,14 @@ def none_train_phase(params, seed: int, bwd: str = "none", steps: int = 2, ang_r
         out = float(fn(p, lr, hr)[0])
         return out, torch.cat([p[k].grad.reshape(-1) for k in sorted(p)]), p, fn
 
-    with mm_sites("none"), mm_sites(bwd, "LFT_MM_HP_BWD_SITES"):
+    with mm_sites(fwd), mm_sites(bwd, "LFT_MM_HP_BWD_SITES"):
         reset_launches()
         loss_p, _, _, _ = step(plain, am)
         _, g_p, _, _ = step(plain, am, smooth)
         _, g_f, _, _ = step(plain, a32, smooth)
         torch.cuda.synchronize()
         if any(LAUNCHES.values()):
-            raise AssertionError(f"the plain mixed none path launched kernels: {dict(LAUNCHES)}")
+            raise AssertionError(f"the plain {what} path launched kernels: {dict(LAUNCHES)}")
         reset_launches()
         loss_k, g_r, p_a, step_a = step(model, am)
         p_a1 = {k_: v.detach().clone() for k_, v in p_a.items()}
@@ -4421,8 +4455,9 @@ def none_train_phase(params, seed: int, bwd: str = "none", steps: int = 2, ang_r
         raise AssertionError(f"{what}: a repeated kernel-path step is not bitwise equal")
     print(f"launches in the {what} run ({n} kernel-path steps): "
           f"{ {k_: v for k_, v in counts.items() if v} }", flush=True)
-    want = {k_: 4 * n for k_ in MIXED_TRAIN[:2] + ("spa_tokenize_ln_bf16", "spa_qkv_bf16",
-                                                   "spa_outproj_ln_bf16", "spa_ffn_out_bf16")}
+    want = {k_ + common.card_fwd(plan, k_): 4 * n
+            for k_ in ("ang_block_res", "spa_tokenize_ln", "spa_qkv", "spa_window_attn_res",
+                       "spa_outproj_ln", "spa_ffn_out")}
     if bwd == "none":
         want.update({k_: 4 * n for k_ in MIXED if k_.startswith("spa_")})
         want.update({k4 + "_bf16": 4 * n, "wgrad_bf16": 56 * n})
@@ -4677,6 +4712,234 @@ def none_train_steps(params, card: str, seed: int) -> list:
     return rows
 
 
+# The two complementary site subsets of step 29 (tests/_torch_sites_ref.py):
+# S1 keeps these sites f32 and rounds the rest, S2 the other way round.
+SITES_S1 = "qk,score,ffn,aqkv,aav,wo"
+SITES_S2 = "tok,v,av,lin,ascore,awo,affn"
+
+
+def sites_phase(params, args, scenes, cache, card: str, seed: int) -> list:
+    """Step 29: `--dtype mixed` under the LFT_MM_HP_SITES subsets S1 and S2
+    (module docstring). Returns the seven rows of the `kernels` line, each
+    from S1's run of its path (the scenes; the train step for the `_res`
+    forms; a K11 call for `spa_ffn_out_pm_sites`)."""
+    import dataclasses
+
+    import torch
+    from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
+    from lft_torch.kernels import FORWARD, LAUNCHES, MIXED_SITES, common, reset_launches
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.models.lft import forward
+    from lft_torch.ops.metrics import cal_metrics
+    from lft_torch.ops.posenc import angular_position, spatial_position
+    from lft_torch.ops.unfold import unfold3x3_linear
+    from lft_torch.profile_scene import events_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 29)
+    C, A2, h, w, H, K = 64, 25, 32, 32, 8, 5
+    D = 2 * C
+    Bb = 16
+    V, N = Bb * A2, Bb * h * w
+    T = V * h * w
+    plans = {sp: common.mm_site_plan(True, frozenset(sp.split(","))) for sp in
+             (SITES_S1, SITES_S2)}
+    name_of = {SITES_S1: "S1", SITES_S2: "S2"}
+    prefix = "altblock.0.spa_trans."
+    tup = lambda o: o if isinstance(o, tuple) else (o,)
+    counted = lambda: {k_: c for k_, c in LAUNCHES.items() if c}
+
+    # a: K11 under S1 through the entry point, bitwise view-major K2's chain
+    ws = sb._with_mlp(sb.spa_weights(params, prefix))
+    xf = torch.randn(Bb, h, w, A2, C, device=dev, generator=g)
+    pe_f = unfold3x3_linear(torch.from_numpy(spatial_position(h, w, C)).to(dev)[None],
+                            ws["mlp"])[0].contiguous()
+    s1 = plans[SITES_S1]
+    torch.cuda.synchronize()
+    reset_launches()
+    got = sb.spa_trans_block_fused(xf, pe_f, params, prefix, H, K, pixel_major=True, plan=s1)
+    torch.cuda.synchronize()
+    counts_pm = dict(LAUNCHES)
+    expect = {n_ + common.card_fwd(s1, n_): 1 for n_ in (
+        "spa_tokenize_ln_pm", "spa_qkv", "spa_window_attn", "spa_outproj_ln", "spa_ffn_out_pm")}
+    to_vm = lambda t: t.permute(0, 3, 1, 2, 4).reshape(V, h, w, C).contiguous()
+    vm = sb.spa_trans_block_fused(to_vm(xf), pe_f, params, prefix, H, K, plan=s1)
+    same = torch.equal(got, vm.reshape(Bb, A2, h, w, C).permute(0, 2, 3, 1, 4))
+    print(f"K11 under S1 at {list(xf.shape)}: launches "
+          f"{ {k_: c for k_, c in counts_pm.items() if c} }; bitwise "
+          f"view-major K2's S1 chain on a permuted copy: {same}", flush=True)
+    if {k_: c for k_, c in counts_pm.items() if c} != expect or not same:
+        raise AssertionError(f"K11 under S1: expected {expect} and view-major K2's output")
+    del got, vm
+
+    # b: the scenes under each subset
+    n = len(scenes)
+    am = dataclasses.replace(args, dtype="mixed")
+    counts_s = {}
+    for spec, plan in plans.items():
+        with mm_sites(spec):
+            cache_m = ScenePipelineCache(forward, am, eval_batch=16)
+            torch.cuda.synchronize()
+            reset_launches()
+            psnr, ssim, per = evaluate_dataset(forward, params, am, scenes, cache=cache_m)
+            torch.cuda.synchronize()
+            counts_s[spec] = dict(LAUNCHES)
+            print(f"SR under --dtype mixed, LFT_MM_HP_SITES={spec} ({name_of[spec]}): PSNR "
+                  f"{psnr:.6f} dB SSIM {ssim:.6f}; per scene {per}; launches {counted()}",
+                  flush=True)
+            want = {k_ + common.card_fwd(plan, k_): 16 * n for k_ in FORWARD}
+            if counted() != want:
+                raise AssertionError(f"the {name_of[spec]} SR run: expected {want} and no other "
+                                     f"launch, got {counted()}")
+            plain = ScenePipelineCache(forward, am, eval_batch=16, plain_blocks=True)
+            for i, (lr_np, hr_np) in enumerate(scenes):
+                lr_t, hr_t = torch.from_numpy(lr_np).to(dev), torch.from_numpy(hr_np).to(dev)
+                sr_k, sr_p, sr_f = cache_m(params, lr_t), plain(params, lr_t), cache(params, lr_t)
+                again = cache_m(params, lr_t)
+                if sr_k.dtype != torch.float32 or sr_k.shape != sr_f.shape \
+                        or not torch.isfinite(sr_k).all():
+                    raise AssertionError(f"bad mixed SR mosaic {sr_k.dtype} {tuple(sr_k.shape)}")
+                gap_k, gap_p, d = l2_rel(sr_k, sr_f), l2_rel(sr_p, sr_f), l2_rel(sr_k, sr_p)
+                p_k, p_p, p_f = (float(cal_metrics(hr_t, t_, args.angRes)[0])
+                                 for t_ in (sr_k, sr_p, sr_f))
+                print(f"scene {i} under {name_of[spec]}: kernels vs the plain blocks dPSNR "
+                      f"{p_k - p_p:+.3e} dB (limit 0.01), L2 {d:.3e}; distance from the f32 "
+                      f"scene: kernels {gap_k:.3e}, plain blocks {gap_p:.3e} ({gap_k / gap_p:.4f},"
+                      f" limit 1 +- 0.1; L2 {d / gap_p:.4f} of it, limit 1.5); repeated bitwise "
+                      f"{torch.equal(sr_k, again)}; dPSNR against f32 {p_k - p_f:+.5f} dB",
+                      flush=True)
+                if abs(p_k - p_p) > 0.01 or abs(gap_k / gap_p - 1) > 0.1 or d > 1.5 * gap_p \
+                        or not torch.equal(sr_k, again):
+                    raise AssertionError(f"scene {i}: the {name_of[spec]} kernels disagree with "
+                                         f"the plain blocks")
+            del plain, cache_m
+
+    # c: the train step under S1, backward plans `none` and `all`
+    run_n = none_train_phase(params, seed, fwd=SITES_S1)
+    none_train_phase(params, seed, bwd="all", steps=0, fwd=SITES_S1)
+
+    # d: each `_sites` kernel against its plain version, S1's run giving the row
+    recs = {SITES_S1: {"scene": Recorder(card, counts_s[SITES_S1], n, "scene"),
+                       "step": Recorder(card, run_n[0], run_n[1], "step"),
+                       "pm": Recorder(card, counts_pm, 1, "K11 call")},
+            SITES_S2: {"scene": Recorder(card, counts_s[SITES_S2], n, "scene"),
+                       "step": Recorder(card, counts_s[SITES_S2], n, "scene"),
+                       "pm": Recorder(card, counts_pm, 1, "K11 call")}}
+    wbytes = lambda *k_: sum(nbytes(ws[n_]) for n_ in k_)
+    turns = []
+
+    def check(spec, rec, name, fn, plain_fn, ins, site_flops, io, outs=None, res=None, **kw):
+        """One `_sites` kernel under `spec` against its plain version; `outs`:
+        the outputs held by `mixed_err` (all by default); `res`: (m, l
+        positions, attn position, its site) of a `_res` form."""
+        plan = plans[spec]
+        got, ref, ref32 = (tup(f_(*ins, plan=p_)) for f_, p_ in ((fn, plan), (plain_fn, plan),
+                                                                 (plain_fn, None)))
+        pick = lambda t_: t_ if outs is None else tuple(t_[i_] for i_ in outs)
+        flops = [(f_, plan[s_]) for f_, s_ in site_flops]
+        recs[spec][rec].record(
+            name, "lft_torch/csrc/" + kw.pop("src_", "spa_block.cu"),
+            kw.pop("replaces", "lft_tpu/kernels/spa_block.py:352"), pick(got), pick(ref),
+            lambda: fn(*ins, plan=plan), lambda: plain_fn(*ins, plan=plan),
+            sum(f_ for f_, _ in flops), io, ref32=pick(ref32), site_flops=flops,
+            timer=events_ms, shape=None if spec == SITES_S1 else (name_of[spec],), **kw)
+        if res is not None:   # step 28's limits on a `_res` form
+            stats, a_i, site = res
+            ulps = max(float((g_ - r_).abs().max()) / 2.0 ** (
+                math.floor(math.log2(float(r_.abs().max()))) - 7)
+                for g_, r_ in zip(pick(got), pick(ref)))
+            d_s = [l2_rel(got[i_], ref[i_]) for i_ in stats]
+            rounded = torch.equal(got[a_i], common.bf16_round(got[a_i]))
+            print(f"  {name} under {name_of[spec]}: outputs at most {ulps:.2f} bf16 ulps of max "
+                  f"|plain| (limit {BF16T_ULPS:g}); m, l L2 {d_s[0]:.3e}, {d_s[1]:.3e} (limit "
+                  f"{MIXED_REL:g}); attn holds bf16 values: {rounded} (its site `{site}` "
+                  f"rounds: {plan[site]})", flush=True)
+            if ulps > BF16T_ULPS or max(d_s) > MIXED_REL or rounded != plan[site]:
+                raise AssertionError(f"{name} under {name_of[spec]} disagrees with its plain "
+                                     f"version")
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(got, tup(fn(*ins, plan=plan))))
+        print(f"  {name} under {name_of[spec]}: repeated bitwise: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{name} under {name_of[spec]} does not repeat bitwise")
+        if spec == SITES_S1:
+            half = common.mm_site_plan(True, frozenset())
+            turns.append((name, lambda: fn(*ins), lambda: fn(*ins, plan=half),
+                          lambda: fn(*ins, plan=plan)))
+        return ref if len(ref) > 1 else ref[0]
+
+    with torch.no_grad():
+        wa = ab.ang_weights(params, "altblock.0.ang_trans.")
+        x1 = torch.randn(N, A2, C, device=dev, generator=g)
+        pe1 = torch.from_numpy(angular_position(A2, C)).to(dev)
+        xr = torch.randn(4096, A2, C, device=dev, generator=g)
+        ang = lambda x_, pe_, wa_, plan=None: ab.ang_block(x_, pe_, wa_, H, plan=plan)
+        ang_p = lambda x_, pe_, wa_, plan=None: ab.ang_block_plain(x_, pe_, wa_, H, plan=plan)
+        angr = lambda x_, pe_, wa_, plan=None: ab.ang_block(x_, pe_, wa_, H, True, plan=plan)
+        angr_p = lambda x_, pe_, wa_, plan=None: ab.ang_block_plain(x_, pe_, wa_, H, True, plan)
+        # K1's six products, then its attention (q k, e v)
+        k1_flops = lambda n_: [(2 * n_ * A2 * C * C * 3, "aqkv"), (2 * n_ * A2 * C * C, "awo"),
+                               (2 * n_ * A2 * C * C * 4, "affn"), (2 * n_ * A2 * A2 * C, "ascore"),
+                               (2 * n_ * A2 * A2 * C, "aav")]
+        xs = torch.randn(V, h, w, C, device=dev, generator=g)
+        pairs = V * valid_window_pairs(h, w, K // 2)
+        win = lambda *a_, plan=None: sb.window_attn(*a_, H, K, plan=plan)
+        win_p = lambda *a_, plan=None: sb.window_attn_plain(*a_, H, K, plan=plan)[0]
+        winr = lambda *a_, plan=None: sb.window_attn(*a_, H, K, with_stats=True, plan=plan)
+        winr_p = lambda *a_, plan=None: sb.window_attn_plain(*a_, H, K, plan, res=True)
+        ffp = lambda a_, b_, ws_, plan=None: sb.ffn_out(a_, b_, ws_, A2, plan=plan)
+        ffp_p = lambda a_, b_, ws_, plan=None: sb.ffn_out_plain(a_, b_, ws_, plan).reshape(
+            Bb, A2, h, w, C).permute(0, 2, 3, 1, 4).contiguous()
+        ffn_flops = [(2 * T * 4 * D * D, "ffn"), (2 * T * D * C, "lin")]
+        for spec, plan in plans.items():
+            print(f"the `_sites` kernels under {name_of[spec]} (LFT_MM_HP_SITES={spec}):",
+                  flush=True)
+            check(spec, "scene", "ang_block_sites", ang, ang_p, (x1, pe1, wa), k1_flops(N),
+                  nbytes(x1, pe1, x1, *wa.values()), src_="ang_block.cu",
+                  replaces="lft_tpu/kernels/ang_block.py:188")
+            Tr = 4096 * A2
+            check(spec, "step", "ang_block_res_sites", angr, angr_p, (xr, pe1, wa),
+                  k1_flops(4096), nbytes(xr, pe1, xr, xr) + Tr * H * 8
+                  + sum(nbytes(t_) for t_ in wa.values()), outs=(0, 3),
+                  res=((1, 2), 3, "awo"), src_="ang_block.cu",
+                  replaces="lft_tpu/kernels/ang_block.py:233")
+            tok, xn = sb.tokenize_ln_plain(xs, pe_f, ws, plan)
+            q, k, v = check(spec, "scene", "spa_qkv_sites", sb.qkv, sb.qkv_plain, (xn, tok, ws),
+                            [(2 * T * D * 2 * D, "qk"), (2 * T * D * D, "v")],
+                            nbytes(xn, tok) + 3 * T * D * 4 + wbytes("wqk", "wv"))
+            attn = check(spec, "scene", "spa_window_attn_sites", win, win_p, (q, k, v),
+                         [(2 * D * pairs, "score"), (2 * D * pairs, "av")], nbytes(q, k, v, q))
+            qr, kr, vr = (t_[:100].contiguous() for t_ in (q, k, v))
+            check(spec, "step", "spa_window_attn_res_sites", winr, winr_p, (qr, kr, vr),
+                  [(2 * D * pairs // 4, "score"), (2 * D * pairs // 4, "av")],
+                  nbytes(qr, kr, vr, qr) + 100 * h * w * H * 8, outs=(0,),
+                  res=((1, 2), 0, "wo"), replaces="lft_tpu/kernels/spa_block.py:339")
+            del q, k, v, qr, kr, vr
+            x2, xn2 = sb.outproj_ln_plain(attn, tok, ws, plan)
+            del attn, tok, xn
+            check(spec, "scene", "spa_ffn_out_sites", sb.ffn_out, sb.ffn_out_plain,
+                  (xn2, x2, ws), ffn_flops, nbytes(xn2, x2) + T * C * 4
+                  + wbytes("w1", "w2", "wlin"))
+            check(spec, "pm", "spa_ffn_out_pm_sites", ffp, ffp_p, (xn2, x2, ws), ffn_flops,
+                  nbytes(xn2, x2) + T * C * 4 + wbytes("w1", "w2", "wlin"),
+                  replaces="lft_tpu/kernels/spa_block.py:309")
+            del x2, xn2
+
+        # e: in turns with the f32 and `_bf16` instances, CUDA events
+        print(f"{card_line()}: ms of each `_sites` instance (S1) beside its f32 and `_bf16` "
+              f"instances on the same inputs, in turns (f32, bf16, sites, sites, bf16, f32; "
+              f"CUDA events around 20 back-to-back calls):", flush=True)
+        for name, f32_fn, half_fn, sites_fn in turns:
+            t_ = [events_ms(f_) for f_ in (f32_fn, half_fn, sites_fn, sites_fn, half_fn, f32_fn)]
+            print(f"  {name}: f32 {t_[0]:.4f} / {t_[5]:.4f} ms, bf16 {t_[1]:.4f} / {t_[4]:.4f} "
+                  f"ms, sites {t_[2]:.4f} / {t_[3]:.4f} ms", flush=True)
+    rows = [r_ for by in recs[SITES_S1].values() for r_ in by.rows]
+    if sorted(r_["name"] for r_ in rows) != sorted(MIXED_SITES):
+        raise AssertionError(f"step 29's rows {[r_['name'] for r_ in rows]} are not "
+                             f"{MIXED_SITES}")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4702,8 +4965,9 @@ def main(argv=None) -> int:
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
     from lft_torch.kernels import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, MIXED_FWD,
-                                   MIXED_TRAIN, PEROP, PEROP_BF16IO, PEROP_BF16TRAIN, SWEEPS, TAIL,
-                                   TAIL_BF16IO, TRAINING, build_all, reset_launches)
+                                   MIXED_SITES, MIXED_TRAIN, PEROP, PEROP_BF16IO, PEROP_BF16TRAIN,
+                                   SWEEPS, TAIL, TAIL_BF16IO, TRAINING, build_all,
+                                   reset_launches)
     from lft_torch.models.lft import forward
     from lft_torch.ops.bicubic import bicubic_upscale_views
     from lft_torch.ops.metrics import cal_metrics
@@ -4748,8 +5012,8 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     extra = [k for k in TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO + BF16TRAIN
-             + PEROP_BF16IO + PEROP_BF16TRAIN + MIXED_FWD + MIXED_TRAIN + TAIL_BF16IO
-             if counts[k]]
+             + PEROP_BF16IO + PEROP_BF16TRAIN + MIXED_FWD + MIXED_TRAIN + MIXED_SITES
+             + TAIL_BF16IO if counts[k]]
     if extra:
         raise AssertionError(f"training or per-op kernels launched by the SR run: {extra}")
 
@@ -4941,6 +5205,11 @@ def main(argv=None) -> int:
     rows += none_train_steps(params, card, a.seed)
     torch.cuda.empty_cache()
     print(f"mixed none training phase: {time.time() - t0:.1f} s", flush=True)
+    # step 29: --dtype mixed under LFT_MM_HP_SITES subsets
+    t0 = time.time()
+    rows += sites_phase(params, args, scenes, cache, card, a.seed)
+    torch.cuda.empty_cache()
+    print(f"mixed site-subset phase: {time.time() - t0:.1f} s", flush=True)
     missing = sorted(set(LAUNCHES) - {r["name"] for r in rows})
     if missing:
         raise AssertionError(f"kernels without a row in the kernels line: {missing}")

@@ -79,6 +79,19 @@
 //   head's slot), l (the sum of the unrounded e) and the attention output
 //   as f32 tensors of bf16 values, as lft_tpu stores it (`awo`'s dtype);
 //   out is `ang_block_bf16`'s bit for bit.
+// * SITES (`ang_block_sites`, `ang_block_res_sites`: `--dtype mixed` under
+//   an LFT_MM_HP_SITES subset; lft_tpu's kernel with mm_half and that
+//   plan, ang_block.py:113-149): IO = float and a runtime mask `sites`, a
+//   bit a site. Each product takes the BF path or stays 3xTF32 as its
+//   site's bit says (rowgemm.cuh: rg_product_site; a uniform branch), its
+//   weights split piece by piece to match: V, Q and K by `aqkv`, O by
+//   `awo`, the FFN by `affn`. The attention always takes lft_tpu's softmax
+//   (the two passes above: lft_tpu's row max is the token's over its heads
+//   at every plan), q and k held rounded where `ascore` rounds, v and e
+//   where `aav` does, and the output (the residual attn too) where `awo`
+//   does. Bound: the products at the bf16 rate where their site rounds and
+//   3xTF32 at the TF32 rate where it does not; the attention and bytes as
+//   `ang_block_bf16`'s.
 
 #include "attn.cuh"
 #include "rowbwd.cuh"
@@ -111,17 +124,22 @@ struct AngLayout {
 // wf: the weight stream (AngLayout::FLOATS floats, kernels/rowgemm.py:
 // ang_block_stream), written by rg_weights_kernel. BF: the products over
 // bf16-rounded operands and lft_tpu's softmax (the header); set by IO = bf16.
-template <int C, int H, bool RES, class IO = float, bool BF = is_bf16<IO>>
+// SITES (with IO = float, BF = false: `ang_block[_res]_sites`): each site
+// rounds where its bit of `sites` is set (the header).
+template <int C, int H, bool RES, class IO = float, bool BF = is_bf16<IO>, bool SITES = false>
 __global__ void __launch_bounds__(RG_NT, 1)
     ang_block_kernel(const IO* __restrict__ x, const float* __restrict__ pe,
                      const float* __restrict__ ln, const float* __restrict__ wf,
                      IO* __restrict__ out, float* __restrict__ m_out,
                      float* __restrict__ l_out, IO* __restrict__ attn_out, int N, int A2,
-                     float scale) {
+                     float scale, int sites) {
   using L = AngLayout<C>;
   constexpr int LD = L::LD, LDH = L::LDH, HC = L::HC, DH = C / H;
   constexpr bool BIO = is_bf16<IO>;
+  static_assert(!SITES || (!BF && !BIO), "a `_sites` instance is f32 IO with its own mask");
   extern __shared__ __align__(16) float smem[];
+  // whether site `bit` rounds its operands: the mask's bit, else BF
+  auto rnd = [&](int bit) { return SITES ? (sites & bit) != 0 : BF; };
   // q, k, v as the attention reads them: rounded to bf16 under BF
   auto rq = [](float v) {
     if constexpr (BIO)
@@ -187,21 +205,32 @@ __global__ void __launch_bounds__(RG_NT, 1)
 
     {  // v from the raw x, then q over x's rows, k from xn
       RgAcc<C> acc;
-      auto put = [&](float* dst) {
+      // SITES: v rounded where `aav` rounds, q and k where `ascore` does
+      auto put = [&](float* dst, bool r16) {
         rg_pairs<C>(acc, [&](int r, int c, float v0, float v1) {
-          *reinterpret_cast<float2*>(dst + (wr + r) * LD + c) = make_float2(rq(v0), rq(v1));
+          if constexpr (SITES) {
+            if (r16) {
+              v0 = bf16_round(v0);
+              v1 = bf16_round(v1);
+            }
+          } else {
+            v0 = rq(v0);
+            v1 = rq(v1);
+          }
+          *reinterpret_cast<float2*>(dst + (wr + r) * LD + c) = make_float2(v0, v1);
         });
       };
+      const bool r_qk = rnd(S_ASCORE), r_v = rnd(S_AAV), r_in = rnd(S_AQKV);
       rg_zero<C>(acc);
-      rg_product<C, C, L::OFF_V, false, BF>(acc, XQ + wr * LD, LD, ring, st);
-      put(V);
+      rg_product_site<C, C, L::OFF_V, BF, SITES>(r_in, acc, XQ + wr * LD, LD, ring, st);
+      put(V, r_v);
       rg_zero<C>(acc);
-      rg_product<C, C, L::OFF_Q, false, BF>(acc, XN + wr * LD, LD, ring, st);
+      rg_product_site<C, C, L::OFF_Q, BF, SITES>(r_in, acc, XN + wr * LD, LD, ring, st);
       __syncwarp();   // x is read
-      put(XQ);
+      put(XQ, r_qk);
       rg_zero<C>(acc);
-      rg_product<C, C, L::OFF_K, false, BF>(acc, XN + wr * LD, LD, ring, st);
-      put(K);
+      rg_product_site<C, C, L::OFF_K, BF, SITES>(r_in, acc, XN + wr * LD, LD, ring, st);
+      put(K, r_qk);
     }
     __syncthreads();
 
@@ -211,7 +240,9 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // rescale of the running sums a chunk (an online softmax over chunks).
     // The output overwrites xn, which is dead after the projections.
     constexpr int KB = 8;
-    if constexpr (BF) {
+    if constexpr (BF || SITES) {
+      // SITES: e rounded where `aav` rounds, the output where `awo` does
+      const bool r_e = rnd(S_AAV), r_o = rnd(S_AWO);
       // lft_tpu's softmax (the header): pass 1, each item's max score
       float* MH = V + L::TILE + L::NS * RG_SF;   // [RP][H]
       for (int t = tid; t < np * H * A2; t += RG_NT) {
@@ -249,7 +280,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
 #pragma unroll
           for (int d = 0; d < DH; ++d) s = fmaf(qv[d], kp[j * LD + d], s);
           const float e = expf(s * scale - m);
-          const float eb = bf16_round(e);
+          const float eb = !SITES || r_e ? bf16_round(e) : e;
           l += e;
 #pragma unroll
           for (int d = 0; d < DH; ++d) o[d] = fmaf(eb, vp[j * LD + d], o[d]);
@@ -257,7 +288,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
         const float inv = 1.f / l;
         float* ar = XN + (p * A2 + i) * LD + hh * DH;
 #pragma unroll
-        for (int d = 0; d < DH; ++d) ar[d] = bf16_round(o[d] * inv);
+        for (int d = 0; d < DH; ++d)
+          ar[d] = !SITES || r_o ? bf16_round(o[d] * inv) : o[d] * inv;
         if constexpr (RES) {  // the residuals of the backward (K4's bf16-IO form)
           const size_t row = row0 + p * A2 + i;
           m_out[row * H + hh] = m;
@@ -267,7 +299,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
         }
       }
     }
-    for (int t = tid; t < (BF ? 0 : np * H * A2); t += RG_NT) {
+    for (int t = tid; t < (BF || SITES ? 0 : np * H * A2); t += RG_NT) {
       const int i = t % A2, hh = (t / A2) % H, p = t / (A2 * H);
       const float* qr = XQ + (p * A2 + i) * LD + hh * DH;
       const float* kp = K + p * A2 * LD + hh * DH;
@@ -328,7 +360,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // of the attention output
     RgAcc<C> x2;
     rg_zero<C>(x2);
-    rg_product<C, C, L::OFF_O, false, BF>(x2, XN + wr * LD, LD, ring, st);
+    rg_product_site<C, C, L::OFF_O, BF, SITES>(rnd(S_AWO), x2, XN + wr * LD, LD, ring, st);
     rg_pairs<C>(x2, [&](int r, int c, float& v0, float& v1) {
       if (wr + r < nrows) {
         const float2 xv = ldg2(x + (row0 + wr + r) * C + c);
@@ -352,14 +384,15 @@ __global__ void __launch_bounds__(RG_NT, 1)
       constexpr int off = L::OFF_F + decltype(J)::value * (L::W1 + L::W2);
       RgAcc<HC> hid;
       rg_zero<HC>(hid);
-      rg_product<C, HC, off, false, BF>(hid, XN + wr * LD, LD, ring, st);
+      rg_product_site<C, HC, off, BF, SITES>(rnd(S_AFFN), hid, XN + wr * LD, LD, ring, st);
       __syncwarp();   // the previous chunk's rows are read
       rg_pairs<HC>(hid, [&](int r, int c, float v0, float v1) {
         *reinterpret_cast<float2*>(HID + (wr + r) * LDH + c) =
             make_float2(io_round<IO>(fmaxf(v0, 0.f)), io_round<IO>(fmaxf(v1, 0.f)));
       });
       __syncwarp();
-      rg_product<HC, C, off + L::W1, false, BF>(y, HID + wr * LDH, LDH, ring, st);
+      rg_product_site<HC, C, off + L::W1, BF, SITES>(rnd(S_AFFN), y, HID + wr * LDH, LDH, ring,
+                                                     st);
     });
     rg_pairs<C>(y, [&](int r, int c, float v0, float v1) {
       if (wr + r >= nrows) return;
@@ -370,15 +403,17 @@ __global__ void __launch_bounds__(RG_NT, 1)
   cp_async_wait<0>();
 }
 
-template <int C, bool RES, class IO = float, bool BF = is_bf16<IO>>
+// SITES: the `_sites` instance, each weight piece split as its site's bit
+// of `sites` says.
+template <int C, bool RES, class IO = float, bool BF = is_bf16<IO>, bool SITES = false>
 int launch(const IO* x, const float* pe, const float* ln, const float* wq,
            const float* wk, const float* wv, const float* wo, const float* w1,
            const float* w2, float* wf, IO* out, float* m, float* l, named_t<IO>* attn, int N,
-           int A2, float scale, cudaStream_t stream) {
+           int A2, float scale, cudaStream_t stream, int sites = 0) {
   using L = AngLayout<C>;
   constexpr int H = 8;
-  // BF: the items' maxima MH past the ring
-  constexpr size_t BYTES = L::BYTES + (BF ? static_cast<size_t>(RP) * H * 4 : 0);
+  // BF, SITES: the items' maxima MH past the ring
+  constexpr size_t BYTES = L::BYTES + (BF || SITES ? static_cast<size_t>(RP) * H * 4 : 0);
   static_assert(BYTES <= RG_SMEM_MAX, "the rows, the ring and MH must fit");
   RgPieces ps{};
   int n = 0;
@@ -390,12 +425,15 @@ int launch(const IO* x, const float* pe, const float* ln, const float* wq,
     ps.p[n++] = RgPiece{w1 + j * L::HC, 2 * C, C, L::HC, L::OFF_F + j * (L::W1 + L::W2)};
     ps.p[n++] = RgPiece{w2 + j * L::HC * C, C, L::HC, C, L::OFF_F + j * (L::W1 + L::W2) + L::W1};
   }
-  launch_rg_weights(ps, n, wf, stream, BF);
-  auto kernel = ang_block_kernel<C, H, RES, IO, BF>;
+  if constexpr (SITES)   // Wv, Wq, Wk: aqkv; Wo: awo; the FFN's pieces: affn
+    for (int i = 0; i < n; ++i)
+      ps.p[i].bf = (sites & (i < 3 ? S_AQKV : i == 3 ? S_AWO : S_AFFN)) != 0;
+  launch_rg_weights(ps, n, wf, stream, BF, SITES);
+  auto kernel = ang_block_kernel<C, H, RES, IO, BF, SITES>;
   LFT_SET_SMEM(kernel, BYTES);
   const int P = RP / A2;
   kernel<<<rg_grid((N + P - 1) / P), RG_NT, BYTES, stream>>>(x, pe, ln, wf, out, m, l, attn, N,
-                                                              A2, scale);
+                                                              A2, scale, sites);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -966,6 +1004,51 @@ extern "C" int lft_ang_block_fwd_res_bf16(const float* x, const float* pe, const
 #define LFT_CASE(CV)                                                                        \
     case CV: return launch<CV, true, float, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf,    \
                                                   out, m, l, attn, N, A2, scale, s);
+    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
+#undef LFT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The site-subset instances (`--dtype mixed` under an LFT_MM_HP_SITES
+// subset; the K1 header): lft_ang_block_fwd's and lft_ang_block_fwd_res's
+// arguments and `sites`, the mask of the sites whose operands round
+// (tf32.cuh: S_AQKV .. S_AFFN); wf holds each weight split as its site's
+// products read it. m, l and attn as `_res_bf16`'s, attn rounded where
+// `awo` rounds.
+extern "C" int lft_ang_block_fwd_sites(const float* x, const float* pe, const float* ln,
+                                       const float* wq, const float* wk, const float* wv,
+                                       const float* wo, const float* w1, const float* w2,
+                                       float* wf, float* out, int N, int A2, int C, int H,
+                                       float scale, int sites, void* stream) {
+  if (H != 8 || A2 < 1 || A2 > RP || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+#define LFT_CASE(CV)                                                                      \
+    case CV: return launch<CV, false, float, false, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, \
+                                                          wf, out, nullptr, nullptr, nullptr, \
+                                                          N, A2, scale, s, sites);
+    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
+#undef LFT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int lft_ang_block_fwd_res_sites(const float* x, const float* pe, const float* ln,
+                                           const float* wq, const float* wk, const float* wv,
+                                           const float* wo, const float* w1, const float* w2,
+                                           float* wf, float* out, float* m, float* l,
+                                           float* attn, int N, int A2, int C, int H,
+                                           float scale, int sites, void* stream) {
+  if (H != 8 || A2 < 1 || A2 > RP || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+#define LFT_CASE(CV)                                                                     \
+    case CV: return launch<CV, true, float, false, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, \
+                                                         wf, out, m, l, attn, N, A2, scale, \
+                                                         s, sites);
     LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
 #undef LFT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);

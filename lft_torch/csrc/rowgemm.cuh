@@ -53,7 +53,10 @@
 // * BF (`--dtype mixed`'s backward): both operands rounded to bf16 (A as
 //   it is loaded, B by `rg_weights_kernel<true>` into the hi part of the
 //   same layout, lo left 0), one TF32 `wgmma` a k8 step instead of three,
-//   the same chains and f32 accumulation (tf32.cuh).
+//   the same chains and f32 accumulation (tf32.cuh). A `_sites` instance
+//   (a `--dtype mixed` site subset) takes BF or 3xTF32 product by product
+//   at run time (`rg_product_site`), its weights split piece by piece to
+//   match (`RgPiece::bf`).
 // Every output is written by one warp of one block, no atomics: a call
 // repeats bitwise.
 #pragma once
@@ -78,11 +81,14 @@ constexpr int rg_slots(int tile_bytes) {
 
 // One piece of a weight stream: B[k][n] = src[k ld + n], K x N, written at
 // stream offset `off` (floats); with `tr` B is read transposed, B[k][n] =
-// src[n ld + k] (a backward's Wᵀ from the forward's W, with no copy).
+// src[n ld + k] (a backward's Wᵀ from the forward's W, with no copy). bf:
+// the piece is split as a BF product reads it (bf16 in hi, lo 0), read by
+// the `_sites` instances' weight kernel only (`rg_weights_kernel<.., true>`).
 struct RgPiece {
   const float* src;
   int ld, K, N, off;
   int tr;
+  int bf;
 };
 constexpr int RG_MAX_PIECES = 12;
 struct RgPieces {
@@ -94,8 +100,9 @@ struct RgPieces {
 // lo) is core matrices of 8 columns x 4 k, 128 bytes each, N / 8 of them
 // 128 bytes apart, then the second k half (kernels/rowgemm.py:piece). BF:
 // hi is B rounded to bf16 and lo 0, in the same layout, so a BF product
-// never reads a 3xTF32 split.
-template <bool BF = false>
+// never reads a 3xTF32 split. PER (the `_sites` instances): each piece as
+// its own `bf` says, the same layout either way.
+template <bool BF = false, bool PER = false>
 __global__ void __launch_bounds__(256) rg_weights_kernel(RgPieces ps, float* __restrict__ wf) {
   const RgPiece pc = ps.p[blockIdx.y];
   for (int i = blockIdx.x * 256 + threadIdx.x; i < pc.K * pc.N; i += gridDim.x * 256) {
@@ -103,7 +110,14 @@ __global__ void __launch_bounds__(256) rg_weights_kernel(RgPieces ps, float* __r
     uint32_t hi, lo;
     const float v = __ldg(pc.src + (pc.tr ? static_cast<size_t>(n) * pc.ld + k
                                           : static_cast<size_t>(k) * pc.ld + n));
-    if constexpr (BF) {
+    if constexpr (PER) {
+      if (pc.bf) {
+        hi = bf16_bits(v);
+        lo = 0u;
+      } else {
+        split_tf32_rn(v, hi, lo);
+      }
+    } else if constexpr (BF) {
       hi = bf16_bits(v);
       lo = 0u;
     } else {
@@ -117,12 +131,15 @@ __global__ void __launch_bounds__(256) rg_weights_kernel(RgPieces ps, float* __r
   }
 }
 
+// per: each piece split as its `bf` says (a `_sites` instance's weights).
 inline void launch_rg_weights(const RgPieces& ps, int n, float* wf, cudaStream_t s,
-                              bool bf = false) {
+                              bool bf = false, bool per = false) {
   int most = 0;
   for (int i = 0; i < n; ++i) most = ps.p[i].K * ps.p[i].N > most ? ps.p[i].K * ps.p[i].N : most;
   const dim3 grid((most + 255) / 256, n);
-  if (bf)
+  if (per)
+    rg_weights_kernel<false, true><<<grid, 256, 0, s>>>(ps, wf);
+  else if (bf)
     rg_weights_kernel<true><<<grid, 256, 0, s>>>(ps, wf);
   else
     rg_weights_kernel<false><<<grid, 256, 0, s>>>(ps, wf);
@@ -519,6 +536,23 @@ __device__ __forceinline__ void rg_product(RgAcc<N>& acc, const float* a, int ld
   }
   wgmma_wait<0>();
   flush(NC * NP - 1);
+}
+
+// rg_product<K, N, OFF, false, BF>; with SITES (a `_sites` instance) BF is
+// `bf`, the bit of the product's site in the instance's mask, taken at run
+// time (the same in every thread of the block, so the branch is uniform and
+// both paths keep the ring's stages in step).
+template <int K, int N, int OFF, bool BF, bool SITES, class W>
+__device__ __forceinline__ void rg_product_site(bool bf, RgAcc<N>& acc, const float* a, int lda,
+                                                W& ring, const float*& st) {
+  if constexpr (SITES) {
+    if (bf)
+      rg_product<K, N, OFF, false, true>(acc, a, lda, ring, st);
+    else
+      rg_product<K, N, OFF, false, false>(acc, a, lda, ring, st);
+  } else {
+    rg_product<K, N, OFF, false, BF>(acc, a, lda, ring, st);
+  }
 }
 
 }  // namespace lft

@@ -71,6 +71,16 @@
 // output stay f32, as in the plain version; K2.3 takes lft_tpu's softmax
 // (window_attn.cuh). The bytes are K2's f32 ones and the products run at the
 // bf16 rate, so steps 1 and 5 become bound by bytes too.
+//
+// `--dtype mixed` under an LFT_MM_HP_SITES subset (lft_tpu's K2 with that
+// plan, spa_block.py:131-203): a step whose sites all round takes its
+// `_bf16` instance, one whose sites all stay f32 its f32 one, and one whose
+// products span sites that differ a `_sites` instance (`lft_spa_*_sites`)
+// that takes a mask of the rounding sites (tf32.cuh: S_TOK .. S_LIN) and
+// picks each product's path at run time (rowgemm.cuh: rg_product_site;
+// its weights split piece by piece): K2.2 (q, k by `qk`; v by `v`), K2.3
+// (window_attn.cuh: q, k by `score`, v and e by `av`, the residual attn by
+// `wo`) and K2.5 / K11.5 (W1, W2 by `ffn`; Wlin by `lin`).
 
 #include "rowgemm.cuh"
 #include "spa.cuh"
@@ -311,6 +321,28 @@ __global__ void __launch_bounds__(RG_NT, 1)
                                      smem, T);
 }
 
+// Step 2's site-subset form (`spa_qkv_sites`, `--dtype mixed` under an
+// LFT_MM_HP_SITES subset): the same three passes, q and k BF where `qk`
+// rounds (S_QK of `sites`), v where `v` does, 3xTF32 elsewhere (a uniform
+// branch a pass); wf split piece by piece to match.
+template <int C>
+__global__ void __launch_bounds__(RG_NT, 1)
+    spa_qkv_sites_kernel(const float* xn, const float* __restrict__ tok,
+                         const float* __restrict__ wf, float* __restrict__ q,
+                         float* __restrict__ k, float* __restrict__ v, int T, int sites) {
+  constexpr int SQ = RowProj<C>::SQ;
+  extern __shared__ __align__(16) float smem[];
+  auto pass = [&](bool bf, const float* a, const float* w, float* out) {
+    if (bf)
+      row_pass<C, false, NoRows, true>(a, w, out, nullptr, nullptr, nullptr, nullptr, smem, T);
+    else
+      row_pass<C, false, NoRows, false>(a, w, out, nullptr, nullptr, nullptr, nullptr, smem, T);
+  };
+  pass(sites & S_QK, xn, wf, q);
+  pass(sites & S_QK, xn, wf + SQ, k);
+  pass(sites & S_V, tok, wf + 2 * SQ, v);
+}
+
 // ---- 3: 5x5-window attention -------------------------------------------
 // spa_window_attn_kernel<DH, STATS> (window_attn.cuh), which K5's forward
 // launches too.
@@ -367,12 +399,18 @@ struct FfnOut {
 // with IO = float (`spa_ffn_out_bf16`): xn2, hid, y and the weights rounded
 // to bf16 in the products, hid = relu(xn2 W1) and y = hid W2 + x2 f32, out
 // f32; 0.52 GB, 0.157 ms: bytes.
-template <int C, bool PM, class IO = float, bool BF = is_bf16<IO>>
+// SITES (`spa_ffn_out[_pm]_sites`, `--dtype mixed` under an LFT_MM_HP_SITES
+// subset; IO = float, BF = false): W1 and W2 BF where `ffn` rounds (S_FFN
+// of `sites`), Wlin where `lin` does, 3xTF32 elsewhere; wf split piece by
+// piece to match.
+template <int C, bool PM, class IO = float, bool BF = is_bf16<IO>, bool SITES = false>
 __global__ void __launch_bounds__(RG_NT, 1)
     spa_ffn_out_kernel(const IO* __restrict__ xn2, const IO* __restrict__ x2,
                        const float* __restrict__ wf, IO* __restrict__ out, int T, int hw,
-                       int A2) {
+                       int A2, int sites) {
   using F = FfnOut<C>;
+  static_assert(!SITES || (!BF && !is_bf16<IO>), "K2.5's f32 instance with a mask");
+  const bool r_ffn = SITES ? (sites & S_FFN) != 0 : BF, r_lin = SITES ? (sites & S_LIN) != 0 : BF;
   constexpr int D = F::D, HC = F::HC, LDX = F::LDX, LDH = F::LDH;
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -408,14 +446,14 @@ __global__ void __launch_bounds__(RG_NT, 1)
       constexpr int off = decltype(J)::value * (F::W1 + F::W2);
       RgAcc<HC> h;
       rg_zero<HC>(h);
-      rg_product<D, HC, off, false, BF>(h, xw, LDX, ring, st);
+      rg_product_site<D, HC, off, BF, SITES>(r_ffn, h, xw, LDX, ring, st);
       __syncwarp();   // the previous chunk's rows are read
       rg_pairs<HC>(h, [&](int r, int c, float v0, float v1) {
         *reinterpret_cast<float2*>(hw16 + r * LDH + c) =
             make_float2(io_round<IO>(fmaxf(v0, 0.f)), io_round<IO>(fmaxf(v1, 0.f)));
       });
       __syncwarp();
-      rg_product<HC, D, off + F::W1, false, BF>(y, hw16, LDH, ring, st);
+      rg_product_site<HC, D, off + F::W1, BF, SITES>(r_ffn, y, hw16, LDH, ring, st);
     });
     __syncwarp();     // xn2 is read
     rg_pairs<D>(y, [&](int r, int c, float v0, float v1) {
@@ -429,7 +467,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     __syncwarp();
     RgAcc<C> o;
     rg_zero<C>(o);
-    rg_product<D, C, F::OFF_LIN, false, BF>(o, xw, LDX, ring, st);
+    rg_product_site<D, C, F::OFF_LIN, BF, SITES>(r_lin, o, xw, LDX, ring, st);
     rg_pairs<C>(o, [&](int r, int c, float v0, float v1) {
       const int t = t0 + r;
       if (t >= T) return;
@@ -465,10 +503,10 @@ int tokenize_ln(const IO* x, const IO* pe_tok, const float* wu, float* wf, const
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool PM, class IO = float, bool BF = is_bf16<IO>>
+template <bool PM, class IO = float, bool BF = is_bf16<IO>, bool SITES = false>
 int ffn_out(const IO* xn2, const IO* x2, const float* w1, const float* w2,
             const float* wlin, float* wf, IO* out, int T, int hw, int A2, int C,
-            cudaStream_t s) {
+            cudaStream_t s, int sites = 0) {
   if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
     using F = FfnOut<CC>;
@@ -480,10 +518,13 @@ int ffn_out(const IO* xn2, const IO* x2, const float* w1, const float* w2,
                           j * (F::W1 + F::W2) + F::W1};
     }
     ps.p[n++] = RgPiece{wlin, CC, F::D, CC, F::OFF_LIN};
-    launch_rg_weights(ps, n, wf, s, BF);
-    auto kernel = spa_ffn_out_kernel<CC, PM, IO, BF>;
+    if constexpr (SITES)   // W1, W2: ffn; Wlin: lin
+      for (int i = 0; i < n; ++i) ps.p[i].bf = (sites & (i + 1 < n ? S_FFN : S_LIN)) != 0;
+    launch_rg_weights(ps, n, wf, s, BF, SITES);
+    auto kernel = spa_ffn_out_kernel<CC, PM, IO, BF, SITES>;
     LFT_SET_SMEM(kernel, F::BYTES);
-    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(xn2, x2, wf, out, T, hw, A2);
+    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(xn2, x2, wf, out, T, hw, A2,
+                                                                    sites);
   });
   return static_cast<int>(cudaGetLastError());
 }
@@ -587,6 +628,28 @@ int qkv(const named_t<IO>* xn, const named_t<IO>* tok, const float* wqk, const f
   return static_cast<int>(cudaGetLastError());
 }
 
+// Step 2's site-subset form: each weight split as its pass reads it, then
+// spa_qkv_sites_kernel.
+int qkv_sites(const float* xn, const float* tok, const float* wqk, const float* wv, float* wf,
+              float* q, float* k, float* v, int T, int C, int sites, cudaStream_t s) {
+  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  LFT_DISPATCH_C(C, {
+    using L = RowProj<CC>;
+    RgPieces ps{};
+    ps.p[0] = RgPiece{wqk, 2 * L::D, L::D, L::D, 0};
+    ps.p[1] = RgPiece{wqk + L::D, 2 * L::D, L::D, L::D, L::SQ};
+    ps.p[2] = RgPiece{wv, L::D, L::D, L::D, 2 * L::SQ};
+    ps.p[0].bf = ps.p[1].bf = (sites & S_QK) != 0;
+    ps.p[2].bf = (sites & S_V) != 0;
+    launch_rg_weights(ps, 3, wf, s, false, true);
+    auto kernel = spa_qkv_sites_kernel<CC>;
+    LFT_SET_SMEM(kernel, L::BYTES);
+    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(xn, tok, wf, q, k, v, T,
+                                                                    sites);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Step 2: wf is a scratch of 3 RowProj<C>::SQ floats (kernels/rowgemm.py:
@@ -616,6 +679,16 @@ extern "C" int lft_spa_qkv_bf16(const float* xn, const float* tok, const float* 
                                 int C, void* stream) {
   return qkv<false, true>(xn, tok, wqk, wv, wf, q, k, v, T, C, nullptr, nullptr, nullptr, 1,
                           static_cast<cudaStream_t>(stream));
+}
+
+// Step 2's site-subset instance (`--dtype mixed` under an LFT_MM_HP_SITES
+// subset): lft_spa_qkv's arguments and `sites`, the mask of the sites that
+// round (tf32.cuh: S_QK for passes q and k, S_V for pass v); wf holds each
+// weight split as its pass reads it.
+extern "C" int lft_spa_qkv_sites(const float* xn, const float* tok, const float* wqk,
+                                 const float* wv, float* wf, float* q, float* k, float* v, int T,
+                                 int C, int sites, void* stream) {
+  return qkv_sites(xn, tok, wqk, wv, wf, q, k, v, T, C, sites, static_cast<cudaStream_t>(stream));
 }
 
 // K3.b (the backward's step b): tok [T, D], pe_tok [hw, D], ln [4, D] (LN1's
@@ -758,6 +831,58 @@ extern "C" int lft_spa_window_attn_res_bf16(const float* q, const float* k, cons
                                             static_cast<cudaStream_t>(stream));
 }
 
+namespace {
+
+// The site-subset form of lft_tpu's softmax (window_attn.cuh:
+// spa_window_attn_sites_kernel): a block a (view, 16 x 16 tile) item.
+template <bool STATS>
+int window_attn_sites(const float* q, const float* k, const float* v, float* attn, float* m,
+                      float* l, int V, int h, int w, int D, int H, float scale, int sites,
+                      cudaStream_t s) {
+  if (H != 8 || V < 1 || h < 1 || w < 1 || D % WA_G) return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = static_cast<long long>(V) * ((h + WA_TY - 1) / WA_TY) *
+                          ((w + WA_TX - 1) / WA_TX);
+  if (items > 0x7fffffffLL || static_cast<long long>(V) * h * w > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (D / H) {
+#define LFT_ATTN_CASE(DHV)                                                                  \
+    case DHV: {                                                                             \
+      auto kernel = spa_window_attn_sites_kernel<DHV, STATS>;                               \
+      LFT_SET_SMEM(kernel, WA_BYTES);                                                       \
+      kernel<<<static_cast<int>(items), WA_NT, WA_BYTES, s>>>(q, k, v, attn, m, l, V, h, w, \
+                                                               scale, sites);               \
+      break;                                                                                \
+    }
+    LFT_ATTN_CASE(4)
+    LFT_ATTN_CASE(8)
+    LFT_ATTN_CASE(16)
+#undef LFT_ATTN_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Step 3's site-subset instances (`--dtype mixed` under an LFT_MM_HP_SITES
+// subset): lft_spa_window_attn's and lft_spa_window_attn_res's arguments
+// and `sites`, the mask of the sites that round (tf32.cuh: S_SCORE, S_AV,
+// and for the residual attn S_WO); m, l as `_res_bf16`'s.
+extern "C" int lft_spa_window_attn_sites(const float* q, const float* k, const float* v,
+                                         float* attn, int V, int h, int w, int D, int H,
+                                         float scale, int sites, void* stream) {
+  return window_attn_sites<false>(q, k, v, attn, nullptr, nullptr, V, h, w, D, H, scale, sites,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int lft_spa_window_attn_res_sites(const float* q, const float* k, const float* v,
+                                             float* attn, float* m, float* l, int V, int h,
+                                             int w, int D, int H, float scale, int sites,
+                                             void* stream) {
+  return window_attn_sites<true>(q, k, v, attn, m, l, V, h, w, D, H, scale, sites,
+                                 static_cast<cudaStream_t>(stream));
+}
+
 // Step 3 also writing m, l [V, h, w, H] (the residuals of K3).
 extern "C" int lft_spa_window_attn_res(const float* q, const float* k, const float* v,
                                        float* attn, float* m, float* l, int V, int h,
@@ -835,6 +960,17 @@ extern "C" int lft_spa_ffn_out_bf16(const float* xn2, const float* x2, const flo
                                      static_cast<cudaStream_t>(stream));
 }
 
+// Step 5's site-subset instance (`--dtype mixed` under an LFT_MM_HP_SITES
+// subset): the same arguments and `sites`, the mask of the sites that round
+// (tf32.cuh: S_FFN for W1 and W2, S_LIN for Wlin); wf holds each weight
+// split as its product reads it.
+extern "C" int lft_spa_ffn_out_sites(const float* xn2, const float* x2, const float* w1,
+                                     const float* w2, const float* wlin, float* wf, float* out,
+                                     int T, int C, int sites, void* stream) {
+  return ffn_out<false, float, false, true>(xn2, x2, w1, w2, wlin, wf, out, T, 1, 1, C,
+                                            static_cast<cudaStream_t>(stream), sites);
+}
+
 // Step 5's bf16-IO instance: xn2, x2, out bf16; the weights f32 (their bf16
 // values), wf holding their bf16 parts.
 extern "C" int lft_spa_ffn_out_bf16io(const bf16* xn2, const bf16* x2, const float* w1,
@@ -846,12 +982,14 @@ extern "C" int lft_spa_ffn_out_bf16io(const bf16* xn2, const bf16* x2, const flo
 
 namespace {
 
-template <class IO, bool BF = is_bf16<IO>>
+template <class IO, bool BF = is_bf16<IO>, bool SITES = false>
 int ffn_out_pm(const IO* xn2, const IO* x2, const float* w1, const float* w2, const float* wlin,
-               float* wf, IO* out, int Bb, int hw, int A2, int C, cudaStream_t s) {
+               float* wf, IO* out, int Bb, int hw, int A2, int C, cudaStream_t s,
+               int sites = 0) {
   if (Bb < 1 || A2 < 1 || hw < 1 || static_cast<long long>(Bb) * A2 * hw > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  return ffn_out<true, IO, BF>(xn2, x2, w1, w2, wlin, wf, out, Bb * A2 * hw, hw, A2, C, s);
+  return ffn_out<true, IO, BF, SITES>(xn2, x2, w1, w2, wlin, wf, out, Bb * A2 * hw, hw, A2, C, s,
+                                      sites);
 }
 
 }  // namespace
@@ -871,6 +1009,15 @@ extern "C" int lft_spa_ffn_out_pm_bf16(const float* xn2, const float* x2, const 
                                        int Bb, int hw, int A2, int C, void* stream) {
   return ffn_out_pm<float, true>(xn2, x2, w1, w2, wlin, wf, out, Bb, hw, A2, C,
                                  static_cast<cudaStream_t>(stream));
+}
+
+// Its site-subset instance: as lft_spa_ffn_out_sites.
+extern "C" int lft_spa_ffn_out_pm_sites(const float* xn2, const float* x2, const float* w1,
+                                        const float* w2, const float* wlin, float* wf,
+                                        float* out, int Bb, int hw, int A2, int C, int sites,
+                                        void* stream) {
+  return ffn_out_pm<float, false, true>(xn2, x2, w1, w2, wlin, wf, out, Bb, hw, A2, C,
+                                        static_cast<cudaStream_t>(stream), sites);
 }
 
 // Its bf16-IO instance: as lft_spa_ffn_out_bf16io, out pixel-major (a (pixel,

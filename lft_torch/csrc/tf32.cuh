@@ -79,6 +79,14 @@ __device__ __forceinline__ uint32_t bf16_bits(float v) {
   return __float_as_uint(bf16_round(v));
 }
 
+// `--dtype mixed`'s product sites as the bits of a `_sites` instance's mask
+// (kernels/common.py: SITE_BITS): a set bit rounds both operands of the
+// site's products to bf16, a clear one keeps them f32 (3xTF32). The mask is
+// a kernel argument, the same in every thread, so a branch on it is uniform.
+constexpr int S_TOK = 1 << 0, S_QK = 1 << 1, S_V = 1 << 2, S_SCORE = 1 << 3, S_AV = 1 << 4,
+              S_WO = 1 << 5, S_FFN = 1 << 6, S_LIN = 1 << 7, S_AQKV = 1 << 8,
+              S_ASCORE = 1 << 9, S_AAV = 1 << 10, S_AWO = 1 << 11, S_AFFN = 1 << 12;
+
 // c += a b over one m16n8k8 tile. Fragments (lane = 4 g + q): A (row,
 // column) a0 (g, q), a1 (g+8, q), a2 (g, q+4), a3 (g+8, q+4); B (k, n) b0
 // (q, g), b1 (q+4, g); C c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1).

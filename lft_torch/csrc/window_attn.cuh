@@ -272,15 +272,26 @@ __global__ void __launch_bounds__(WA_NT, 2)
 // also m and l as above, and attn rounded to bf16 as it is stored (lft_tpu
 // stores the residual at the `wo` site's dtype; K3.a reads it under either
 // backward plan). The body is `window_softmax_max_heads`, run by one kernel
-// for each IO type.
-template <int DH, bool STATS, class IO>
+// for each IO type. SITES with IO = float (`spa_window_attn[_res]_sites`,
+// `--dtype mixed` under an LFT_MM_HP_SITES subset; lft_tpu's K2 with that
+// plan, :144-190): each rounding as its site's bit of the mask `sites` says
+// (tf32.cuh): q and k as they load where `score` rounds, v and e where `av`
+// does, and with STATS the stored attn where `wo` does; the same two passes
+// and m (lft_tpu's row max is the query's over its heads at every plan), so
+// m and l are `_res_bf16`'s form. Bound: as `spa_window_attn_bf16`'s.
+template <int DH, bool STATS, class IO, bool SITES = false>
 __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ q,
                                                          const IO* __restrict__ k,
                                                          const IO* __restrict__ v,
                                                          IO* __restrict__ attn,
                                                          float* __restrict__ m_out,
                                                          float* __restrict__ l_out, int V,
-                                                         int h, int w, float scale) {
+                                                         int h, int w, float scale,
+                                                         int sites = 0) {
+  static_assert(!SITES || !is_bf16<IO>, "a `_sites` instance is f32 IO");
+  // what rounds: every operand but for SITES its site's bit
+  const bool r_score = !SITES || (sites & S_SCORE), r_av = !SITES || (sites & S_AV),
+             r_wo = !SITES || (sites & S_WO);
   constexpr int H = 8, D = H * DH;
   constexpr int G = D / WA_G;       // head groups of a pixel
   constexpr int HT = WA_S / DH;     // heads of a thread's slice
@@ -296,8 +307,8 @@ __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ 
   const int y0 = tile / ntx * WA_TY, x0 = tile % ntx * WA_TX, x = x0 + tx;
 
   // group g's halo of src [V, h, w, D] into buf, zero outside the image
-  // (f32 values rounded to bf16)
-  auto stage = [&](const IO* __restrict__ src, float* buf, int g) {
+  // (f32 values rounded to bf16 where `r16`)
+  auto stage = [&](const IO* __restrict__ src, float* buf, int g, bool r16) {
     for (int j = threadIdx.x; j < WA_HY * WA_HX * (WA_G / 4); j += WA_NT) {
       const int px = j / (WA_G / 4), c = 4 * (j % (WA_G / 4));
       const int ky = y0 - R + px / WA_HX, kx = x0 - R + px % WA_HX;
@@ -305,7 +316,8 @@ __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ 
       float4 t = ok ? ldg4(src + ((static_cast<size_t>(view) * h + ky) * w + kx) * D + g * WA_G + c)
                     : make_float4(0.f, 0.f, 0.f, 0.f);
       if constexpr (!is_bf16<IO>)
-        t = make_float4(bf16_round(t.x), bf16_round(t.y), bf16_round(t.z), bf16_round(t.w));
+        if (r16)
+          t = make_float4(bf16_round(t.x), bf16_round(t.y), bf16_round(t.z), bf16_round(t.w));
       store4(buf + px * WA_LD + c, t);
     }
   };
@@ -320,10 +332,11 @@ __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ 
 #pragma unroll
       for (int d = 0; d < WA_S; d += 4) {
         const float4 t = in ? ldg4(qp + d) : make_float4(0.f, 0.f, 0.f, 0.f);
-        qv[a][d] = is_bf16<IO> ? t.x : bf16_round(t.x);
-        qv[a][d + 1] = is_bf16<IO> ? t.y : bf16_round(t.y);
-        qv[a][d + 2] = is_bf16<IO> ? t.z : bf16_round(t.z);
-        qv[a][d + 3] = is_bf16<IO> ? t.w : bf16_round(t.w);
+        const bool kept = is_bf16<IO> || !r_score;
+        qv[a][d] = kept ? t.x : bf16_round(t.x);
+        qv[a][d + 1] = kept ? t.y : bf16_round(t.y);
+        qv[a][d + 2] = kept ? t.z : bf16_round(t.z);
+        qv[a][d + 3] = kept ? t.w : bf16_round(t.w);
       }
     }
   };
@@ -359,7 +372,7 @@ __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ 
   float mq[WA_QY] = {-CUDART_INF_F, -CUDART_INF_F};
   for (int g = 0; g < G; ++g) {   // pass 1: each query's max over its heads
     __syncthreads();   // the previous group's halo is read
-    stage(k, smem, g);
+    stage(k, smem, g, r_score);
     load_q(g, qv);
     __syncthreads();
 #pragma unroll
@@ -379,8 +392,8 @@ __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ 
   }
   for (int g = 0; g < G; ++g) {   // pass 2: the softmax and the product with v
     __syncthreads();
-    stage(k, smem, g);
-    stage(v, smem + WA_BUF, g);
+    stage(k, smem, g, r_score);
+    stage(v, smem + WA_BUF, g, r_av);
     load_q(g, qv);
     __syncthreads();
     const int col = g * WA_G + half * WA_S;
@@ -398,7 +411,7 @@ __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ 
           for (int j = j0; j < j0 + 2 * R + 1; ++j) {
             const float ex = expf(s[a][j] - mq[a]);
             row += ex;
-            s[a][j] = bf16_round(ex);
+            s[a][j] = r_av ? bf16_round(ex) : ex;
           }
           l[a] += row;
         }
@@ -436,7 +449,7 @@ __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ 
         // f32 IO with STATS: attn holds bf16 values, as lft_tpu's residual
         auto out = [&](float t) {
           if constexpr (STATS && !is_bf16<IO>)
-            return bf16_round(t * inv);
+            return r_wo ? bf16_round(t * inv) : t * inv;
           else
             return t * inv;
         };
@@ -474,6 +487,18 @@ __global__ void __launch_bounds__(WA_NT, 2)
                                 float* __restrict__ m_out, float* __restrict__ l_out, int V,
                                 int h, int w, float scale) {
   window_softmax_max_heads<DH, STATS, float>(q, k, v, attn, m_out, l_out, V, h, w, scale);
+}
+
+// K2.3's site-subset form (`spa_window_attn_sites`, `_res_sites`): f32 in
+// and out, the roundings as the mask `sites` says.
+template <int DH, bool STATS = false>
+__global__ void __launch_bounds__(WA_NT, 2)
+    spa_window_attn_sites_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, float* __restrict__ attn,
+                                 float* __restrict__ m_out, float* __restrict__ l_out, int V,
+                                 int h, int w, float scale, int sites) {
+  window_softmax_max_heads<DH, STATS, float, true>(q, k, v, attn, m_out, l_out, V, h, w, scale,
+                                                   sites);
 }
 
 // The kernel that runs window_softmax_max_heads<DH, STATS, IO>.

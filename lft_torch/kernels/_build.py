@@ -115,6 +115,16 @@ MIXED_FWD = tuple(k + "_bf16" for k in FORWARD + K11)
 MIXED_TRAIN = ("ang_block_res_bf16", "spa_window_attn_res_bf16", "ang_block_bwd_dp",
                "ang_block_bwd128_dp")
 
+# The site-subset instances of `--dtype mixed` under an LFT_MM_HP_SITES
+# subset: K1 (both forms), K2.2, K2.3 (both forms), K2.5 and K11.5, the
+# kernels whose products span sites that such a plan can split
+# (`common.KERNEL_SITES`); each takes a runtime mask of the sites that round
+# and picks each product's path by it. A launch whose sites all round takes
+# its `_bf16` instance, one whose sites all stay f32 its f32 one.
+MIXED_SITES = ("ang_block_sites", "ang_block_res_sites", "spa_qkv_sites",
+               "spa_window_attn_sites", "spa_window_attn_res_sites", "spa_ffn_out_sites",
+               "spa_ffn_out_pm_sites")
+
 # K11's bf16-IO instances (`--dtype bfloat16` on a pixel-major buffer): K2.1
 # and K2.5 bf16io's arithmetic, the buffer read and written in place.
 TAIL_BF16IO = tuple(k + "_bf16io" for k in K11)
@@ -122,7 +132,7 @@ TAIL_BF16IO = tuple(k + "_bf16io" for k in K11)
 # kernel name -> launches since the last reset
 LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO
             + BF16TRAIN + PEROP_BF16IO + PEROP_BF16TRAIN + MIXED_FWD + MIXED_TRAIN
-            + TAIL_BF16IO}
+            + MIXED_SITES + TAIL_BF16IO}
 
 _libs: dict = {}
 _lock = threading.Lock()

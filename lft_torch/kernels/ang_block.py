@@ -35,7 +35,10 @@ LFT_MM_HP_SITES=none launches its bf16-operand instance `ang_block_bf16`
 (f32 x and out, the products over bf16-rounded operands, lft_tpu's softmax
 as in bf16 IO) and, training, `ang_block_res_bf16` (the same out; m the
 token's max over its heads, l, attn f32 of bf16 values as lft_tpu stores
-it), then K4 under the backward's own plan. Training under bf16 (lft_tpu's
+it), then K4 under the backward's own plan; under a site subset that rounds
+some of K1's sites and not others, `ang_block[_res]_sites` (each product
+BF or 3xTF32 as its site's bit of a runtime mask says, lft_tpu's softmax).
+Training under bf16 (lft_tpu's
 custom VJP with `io` = bf16, ang_block.py:424-496): K1 res in bf16 IO
 (`ang_block_res_bf16io`: m and l f32 as lft_tpu forms them, attn bf16), K4
 in bf16 IO (`ang_block_bwd[128]_bf16io`: x, attn and dout bf16, every
@@ -51,8 +54,8 @@ import ctypes
 import torch
 
 from lft_torch.kernels import _build
-from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_fwd, card_half,
-                                      d_from_p, fwd_kernel, io_kernel, no_plan, rd, rounds)
+from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_half, d_from_p,
+                                      fwd_kernel, io_kernel, no_plan, rd, rounds, site_mask)
 from lft_torch.kernels.rowgemm import RG_M, ang_block_floats, ang_bwd_floats
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import attention_heads
@@ -238,13 +241,16 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     kernel into a scratch of `rowgemm.ang_block_stream`'s layout. `plan`: a
     mixed forward plan; on the card `all` runs the f32 kernel and `none`
     `ang_block_bf16` (`common.fwd_kernel`), with_res `ang_block_res_bf16`
-    (attn f32 of bf16 values). A bf16 x
+    (attn f32 of bf16 values); a subset that rounds some of K1's sites and
+    not others `ang_block[_res]_sites` (the mask of its rounding sites,
+    `common.site_mask`; attn rounded where `awo` rounds). A bf16 x
     launches `ang_block_bf16io` (bf16 in and out; the weights and LN
     affine as f32 tensors of bf16 values, the PE f32), with_res
     `ang_block_res_bf16io` (m, l f32, attn bf16)."""
     if x.device.type != "cuda":
         return ang_block_plain(x, ang_pe, wts, num_heads, with_res, plan)
-    name = fwd_kernel("ang_block_res" if with_res else "ang_block", x, plan, with_res)
+    base = "ang_block_res" if with_res else "ang_block"
+    name = fwd_kernel(base, x, plan)
     _check_kernel_shape(name, x, ang_pe, num_heads, BLK)
     N, A2, C = x.shape
     w = wts
@@ -259,16 +265,17 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     ptrs = [x.data_ptr(), ang_pe.data_ptr(), *(w[n].data_ptr() for n in WEIGHTS),
             wf.data_ptr(), out.data_ptr()]
     tail = (N, A2, C, num_heads, float(C // num_heads) ** -0.5)
+    types = (ctypes.c_int,) * 4 + (ctypes.c_float,)
+    if name.endswith("_sites"):
+        tail, types = tail + (site_mask(plan, base),), types + (ctypes.c_int,)
     if not with_res:
-        fn = _build.bind("ang_block", "lft_ang_block_fwd" + name[len("ang_block"):], 11,
-                         (ctypes.c_int,) * 4 + (ctypes.c_float,))
+        fn = _build.bind("ang_block", "lft_ang_block_fwd" + name[len("ang_block"):], 11, types)
         _build.launch("ang_block", name, fn, x.device, *ptrs, *tail)
         return out
     m = torch.empty(N, A2, num_heads, device=x.device)
     l = torch.empty_like(m)
     attn = torch.empty_like(x)
-    fn = _build.bind("ang_block", "lft_ang_block_fwd" + name[len("ang_block"):], 14,
-                     (ctypes.c_int,) * 4 + (ctypes.c_float,))
+    fn = _build.bind("ang_block", "lft_ang_block_fwd" + name[len("ang_block"):], 14, types)
     _build.launch("ang_block", name, fn, x.device, *ptrs, m.data_ptr(),
                   l.data_ptr(), attn.data_ptr(), *tail)
     return out, m, l, attn
@@ -511,7 +518,7 @@ class AngBlockFn(torch.autograd.Function):
     def forward(ctx, x, ang_pe, ln, wq, wk, wv, wo, w1, w2, num_heads, plain, plan, bwd_plan):
         wts = dict(zip(WEIGHTS, (ln, wq, wk, wv, wo, w1, w2)))
         if not plain and x.device.type == "cuda":   # before the first launch
-            card_fwd(plan, "ang_trans_block_fused", grad=True)
+            card_half(bwd_plan, "ang_trans_block_fused")
         fwd = ang_block_plain if plain else ang_block
         out, m, l, attn = fwd(x, ang_pe, wts, num_heads, with_res=True, plan=plan)
         ctx.save_for_backward(x, ang_pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn)

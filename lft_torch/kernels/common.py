@@ -12,9 +12,10 @@ request for a kernel (`attention_impl='pallas'`, a block or kernel wrapper
 called directly) still raises `NotImplementedError` at such a width.
 
 It also holds `--dtype mixed`'s per-site product plans (below), which the
-plain versions of K1-K4 follow at every site and the card's kernels at the
-plans they have instances for (`card_fwd`, `card_half`, `fwd_kernel`), and
-`--dtype bfloat16`'s routing of bf16 tensors (`io_kernel`).
+plain versions of K1-K4 follow at every site, the card's forward kernels at
+every plan (`KERNEL_SITES`, `card_fwd`, `fwd_kernel`) and its backward
+kernels at `none` and `all` (`card_half`), and `--dtype bfloat16`'s routing
+of bf16 tensors (`io_kernel`).
 """
 
 from __future__ import annotations
@@ -115,30 +116,50 @@ def _site_name(plan) -> str:
     return _plan_name(frozenset(s for s, r in plan.items() if not r))
 
 
-def card_fwd(plan, kernel: str, grad: bool = False) -> bool:
-    """Whether a forward kernel on the card takes its bf16-operand instance
-    (`_bf16`: LFT_MM_HP_SITES=none, every site rounded) or its f32 one
-    (`all`). `grad`: the forward of a train step, whose `_res` forms (K1
-    res, K2.3 res) have `_bf16` instances too (`_build.MIXED_TRAIN`), so
-    both plans run with and without a gradient. A plan that rounds some
-    sites and not others raises NotImplementedError (ROADMAP.md §2a item
-    9h). The plain versions (CPU) run every plan."""
+# The sites whose products each forward launch computes on the card, as
+# lft_tpu's K1 and K2 use them (ang_block.py:113-149, spa_block.py:131-203):
+# K2.3 rounds q, k (`score`) and v, e (`av`), and its `_res` form stores the
+# attn residual at the `wo` site's dtype (:190, :346-348); K1's `_res` form
+# stores attn at `awo`'s, a site K1 computes anyway.
+_K1_SITES = ("aqkv", "ascore", "aav", "awo", "affn")
+KERNEL_SITES = {
+    "ang_block": _K1_SITES, "ang_block_res": _K1_SITES,
+    "spa_tokenize_ln": ("tok",), "spa_tokenize_ln_pm": ("tok",),
+    "spa_qkv": ("qk", "v"),
+    "spa_window_attn": ("score", "av"), "spa_window_attn_res": ("score", "av", "wo"),
+    "spa_outproj_ln": ("wo",),
+    "spa_ffn_out": ("ffn", "lin"), "spa_ffn_out_pm": ("ffn", "lin"),
+}
+# A `_sites` instance's mask: bit i rounds site i (csrc/tf32.cuh: S_TOK ..).
+SITE_BITS = {s: 1 << i for i, s in enumerate(
+    ("tok", "qk", "v", "score", "av", "wo", "ffn", "lin", "aqkv", "ascore", "aav", "awo",
+     "affn"))}
+
+
+def card_fwd(plan, kernel: str) -> str:
+    """The instance that forward launch `kernel` (a key of KERNEL_SITES)
+    takes on the card under the forward plan `plan`, as the suffix of its
+    name: "" (the f32 instance) where none of its sites round, "_bf16" where
+    all do, "_sites" (with `site_mask`) where some do and some do not (an
+    LFT_MM_HP_SITES subset that splits the kernel's products). Under `all`
+    and `none` every launch takes the f32 or `_bf16` instance."""
     plan = active(plan)
     if plan is None:
-        return False
-    if not all(plan.values()):
-        what = "a train step's forward" if grad else "the forward"
-        raise NotImplementedError(
-            f"{kernel}: the card's kernels run LFT_MM_HP_SITES=none or all only under --dtype "
-            f"mixed ({what}), got {_site_name(plan)!r} (a site subset: ROADMAP.md §2a item "
-            f"9h); the plain versions (CPU) run every plan")
-    return True
+        return ""
+    r = [plan[s] for s in KERNEL_SITES[kernel]]
+    return "_bf16" if all(r) else "_sites" if any(r) else ""
+
+
+def site_mask(plan, kernel: str) -> int:
+    """The mask a `_sites` launch of `kernel` takes: the SITE_BITS of its
+    sites that round under `plan`."""
+    return sum(SITE_BITS[s] for s in KERNEL_SITES[kernel] if rounds(plan, s))
 
 
 def card_half(plan, kernel: str) -> bool:
     """Whether a backward kernel on the card takes its bf16-operand instance
     (LFT_MM_HP_BWD_SITES=none: every site rounded) or its f32 one (`all`);
-    another plan raises NotImplementedError."""
+    a site subset raises NotImplementedError (ROADMAP.md §2a item 9h-b)."""
     plan = active(plan)
     if plan is None:
         return False
@@ -146,7 +167,8 @@ def card_half(plan, kernel: str) -> bool:
         return True
     raise NotImplementedError(
         f"{kernel}: the card's kernels run LFT_MM_HP_BWD_SITES=none or all only, got "
-        f"{_site_name(plan)!r}; the plain versions (CPU) run every plan")
+        f"{_site_name(plan)!r} (a site subset of the backward: ROADMAP.md §2a item 9h-b); the "
+        f"plain versions (CPU) run every plan")
 
 
 def d_from_p(plan, bwd_plan) -> bool:
@@ -159,10 +181,10 @@ def d_from_p(plan, bwd_plan) -> bool:
     return active(plan) is not None and active(bwd_plan) is None
 
 
-def card_plan(plan, bwd_plan, grad: bool = False) -> None:
-    """The wrappers' checks of a model call's forward and backward plans,
-    made before its first launch; `grad`: the call needs a gradient."""
-    card_fwd(plan, "--dtype mixed", grad)
+def card_plan(plan, bwd_plan) -> None:
+    """The wrappers' check of a model call's plans, made before its first
+    launch: the card runs every forward plan (`card_fwd`), and the backward
+    plans `none` and `all` (`card_half`)."""
     card_half(bwd_plan, "--dtype mixed")
 
 
@@ -174,16 +196,16 @@ def no_plan(plan, kernel: str) -> None:
             f"{kernel}: a bf16 tensor runs no --dtype mixed plan, got {_site_name(plan)!r}")
 
 
-def fwd_kernel(kernel: str, t: torch.Tensor, plan, grad: bool = False) -> str:
+def fwd_kernel(kernel: str, t: torch.Tensor, plan) -> str:
     """The launch name of forward kernel `kernel` on the card for the IO
     dtype of `t` under the forward plan `plan`: its `_bf16io` instance for a
-    bf16 t (`io_kernel`, no plan), its `_bf16` instance under
-    LFT_MM_HP_SITES=none (`card_fwd`), else itself."""
+    bf16 t (`io_kernel`, no plan), else its f32, `_bf16` or `_sites`
+    instance (`card_fwd`)."""
     name = io_kernel(kernel, t)
     if t.dtype == torch.bfloat16:
         no_plan(plan, name)
         return name
-    return name + "_bf16" if card_fwd(plan, name, grad) else name
+    return name + card_fwd(plan, kernel)
 
 
 # ----------------------------------------------- `--dtype bfloat16` (IO) ---

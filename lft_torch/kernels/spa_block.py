@@ -47,7 +47,13 @@ plan K3's, the forward's LFT_MM_HP_SITES=none K2's five and K11's two (the
 activations f32, only a product's operands rounded; the window step with
 lft_tpu's softmax, `window_attn_plain`), in a train step the window step
 with its (m, l) (`spa_window_attn_res_bf16`, attn stored as bf16 values)
-and the backward under its own plan; tok stays f32.
+and the backward under its own plan; tok stays f32. A forward plan that
+rounds some of a step's sites and not others (an LFT_MM_HP_SITES subset)
+launches its `_sites` instance, with the mask of its rounding sites: K2.2
+(`qk`, `v`), K2.3 (`score`, `av`; the `_res` form also `wo`, where its attn
+residual rounds), K2.5 and K11.5 (`ffn`, `lin`); a step whose sites all
+round takes `_bf16`, one whose sites all stay f32 the f32 kernel
+(`common.card_fwd`).
 `--dtype bfloat16`: bf16 x runs the five steps in bf16 IO, lft_tpu's K2
 with `io` = bf16 (spa_block.py:_kernel :116-203): each plain step computes
 in f32 from bf16 inputs and rounds at lft_tpu's points (listed at each), and
@@ -83,9 +89,9 @@ import torch.nn.functional as F
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
-from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_fwd, card_half,
-                                      d_from_p, fwd_kernel, io_kernel, mm_site_plan, no_plan,
-                                      rd, rounds)
+from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_half, d_from_p,
+                                      fwd_kernel, io_kernel, mm_site_plan, no_plan, rd, rounds,
+                                      site_mask)
 from lft_torch.kernels.rowgemm import (RG_M, ffn_out_bwd_floats, ffn_out_floats,
                                        outproj_floats, piece, qkv_floats, qkv_ln_bwd_floats,
                                        split_tf32)
@@ -493,6 +499,13 @@ def _io_args(kernel: str, acts, wts: dict, names):
     return w
 
 
+def _sites_tail(name: str, plan, kernel: str) -> tuple:
+    """The trailing argument of a `_sites` launch, the mask of `kernel`'s
+    sites that round under `plan` (`common.site_mask`); none for another
+    instance."""
+    return (site_mask(plan, kernel),) if name.endswith("_sites") else ()
+
+
 def _check_c(kernel: str, C: int) -> None:
     if C not in KERNEL_C:
         raise NotImplementedError(f"{kernel} kernel takes C in {KERNEL_C}, got C={C}")
@@ -552,6 +565,7 @@ def qkv(xn, tok, wts, plan=None):
     if xn.device.type != "cuda":
         return qkv_plain(xn, tok, wts, plan)
     name = fwd_kernel("spa_qkv", xn, plan)
+    sites = _sites_tail(name, plan, "spa_qkv")
     D = tok.shape[-1]
     _check_c(name, D // 2)
     if xn.shape != tok.shape or tuple(wts["wqk"].shape) != (D, 2 * D) \
@@ -561,10 +575,10 @@ def qkv(xn, tok, wts, plan=None):
     wk = _io_args(name, (xn, tok), wts, ("wqk", "wv"))
     q, k, v = (torch.empty_like(tok) for _ in range(3))
     wf = torch.empty(qkv_floats(D // 2), device=tok.device)   # scratch: the split weights
-    fn = _build.bind("spa_block", "lft_" + name, 8, (ctypes.c_int,) * 2)
+    fn = _build.bind("spa_block", "lft_" + name, 8, (ctypes.c_int,) * (2 + len(sites)))
     _build.launch("spa_block", name, fn, xn.device, xn.data_ptr(), tok.data_ptr(),
                   wk["wqk"].data_ptr(), wk["wv"].data_ptr(), wf.data_ptr(), q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), tok.numel() // D, D // 2)
+                  k.data_ptr(), v.data_ptr(), tok.numel() // D, D // 2, *sites)
     return q, k, v
 
 
@@ -663,23 +677,24 @@ def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False, p
         if active(plan) is not None or q.dtype == torch.bfloat16:
             return window_attn_plain(q, k, v, num_heads, ksize, plan)[0]
         return windowed_attention(q, k, v, num_heads, ksize)
-    name = fwd_kernel("spa_window_attn_res" if with_stats else "spa_window_attn", q, plan,
-                      with_stats)
+    base = "spa_window_attn_res" if with_stats else "spa_window_attn"
+    name = fwd_kernel(base, q, plan)
     V, h, w, D = q.shape
     _check_window(name, D, num_heads, ksize)
     _build.check_cuda_args(name, q, k, v, dtype=torch.bfloat16 if name.endswith("_bf16io")
                            else torch.float32)
     attn = torch.empty_like(q)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), attn.data_ptr()]
-    tail = (V, h, w, D, num_heads, float(D // num_heads) ** -0.5)
+    sites = _sites_tail(name, plan, base)
+    tail = (V, h, w, D, num_heads, float(D // num_heads) ** -0.5, *sites)
+    types = (ctypes.c_int,) * 5 + (ctypes.c_float,) + (ctypes.c_int,) * len(sites)
     if not with_stats:
-        fn = _build.bind("spa_block", "lft_" + name, 4,
-                         (ctypes.c_int,) * 5 + (ctypes.c_float,))
+        fn = _build.bind("spa_block", "lft_" + name, 4, types)
         _build.launch("spa_block", name, fn, q.device, *ptrs, *tail)
         return attn
     m = torch.empty(V, h, w, num_heads, device=q.device)
     l = torch.empty_like(m)
-    fn = _build.bind("spa_block", "lft_" + name, 6, (ctypes.c_int,) * 5 + (ctypes.c_float,))
+    fn = _build.bind("spa_block", "lft_" + name, 6, types)
     _build.launch("spa_block", name, fn, q.device, *ptrs, m.data_ptr(), l.data_ptr(), *tail)
     return attn, m, l
 
@@ -722,7 +737,9 @@ def ffn_out(xn2, x2, wts, views=None, plan=None):
         return out if views is None else _to_pixel_major(out, views)
     *lead, D = x2.shape
     C = D // 2
-    name = fwd_kernel("spa_ffn_out" if views is None else "spa_ffn_out_pm", xn2, plan)
+    base = "spa_ffn_out" if views is None else "spa_ffn_out_pm"
+    name = fwd_kernel(base, xn2, plan)
+    sites = _sites_tail(name, plan, base)
     _check_c(name, C)
     wk = _io_args(name, (xn2, x2), wts, ("w1", "w2", "wlin"))
     if views is None:
@@ -736,10 +753,10 @@ def ffn_out(xn2, x2, wts, views=None, plan=None):
         raise ValueError(f"{name}: w1 {tuple(wts['w1'].shape)}, wlin "
                          f"{tuple(wts['wlin'].shape)} for x2 {tuple(x2.shape)}")
     wf = torch.empty(ffn_out_floats(C), device=x2.device)   # scratch: the split weights
-    fn = _build.bind("spa_block", "lft_" + name, 7, (ctypes.c_int,) * len(dims))
+    fn = _build.bind("spa_block", "lft_" + name, 7, (ctypes.c_int,) * (len(dims) + len(sites)))
     _build.launch("spa_block", name, fn, x2.device, xn2.data_ptr(),
                   x2.data_ptr(), wk["w1"].data_ptr(), wk["w2"].data_ptr(),
-                  wk["wlin"].data_ptr(), wf.data_ptr(), out.data_ptr(), *dims)
+                  wk["wlin"].data_ptr(), wf.data_ptr(), out.data_ptr(), *dims, *sites)
     return out
 
 
@@ -1031,7 +1048,7 @@ class SpaBlockFn(torch.autograd.Function):
                 bwd_plan):
         wts = _with_mlp(dict(zip(WEIGHTS, (ln, wu, wqk, wv, wo, w1, w2, wlin))))
         if not plain and x.device.type == "cuda":   # before the first launch
-            card_fwd(plan, "spa_trans_block_fused", grad=True)
+            card_half(bwd_plan, "spa_trans_block_fused")
         fwd = spa_block_plain if plain else spa_block
         out, tok, m, l, attn = fwd(x, pe_tok, wts, num_heads, k, with_res=True, plan=plan)
         ctx.save_for_backward(x, pe_tok, ln, wu, wqk, wv, wo, w1, w2, wlin, tok, m, l, attn)

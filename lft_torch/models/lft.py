@@ -349,7 +349,7 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
                          bwd_plan=active(mm_site_plan(True, mm_hp_sites("LFT_MM_HP_BWD_SITES",
                                                                         "none"))))
             if dev.type == "cuda" and not plain_blocks:
-                card_plan(**plans, grad=_needs_grad(lr, *p.values()))
+                card_plan(**plans)
         for i in range(LAYER_NUM):
             t = buf.permute(0, 2, 3, 1, 4).reshape(B * h * w, A * A, C).contiguous()
             t = ang_fn(t, ang_pe, p, f"altblock.{i}.ang_trans.", NUM_HEADS, **plans)

@@ -2144,8 +2144,9 @@ def test_mixed_none_forward_on_card(cuda_device, monkeypatch):
     distance from the f32 forward within 10% of the plain blocks' and its L2
     from theirs within 1.5 of it, bitwise on a repeat; under grad its
     forward launches K1 res's and K2.3 res's `_bf16` forms in place of K1's
-    and K2.3's (ROADMAP 9g), and under a site subset it raises before any
-    launch, grad or not."""
+    and K2.3's (ROADMAP 9g), and under a site subset of the backward plan it
+    raises before any launch, naming ROADMAP 9h-b, grad or not (a forward
+    subset runs: test_mixed_sites_forward_on_card)."""
     from lft_torch.kernels import MIXED_FWD, MIXED_TRAIN
     monkeypatch.setenv("LFT_MM_HP_SITES", "none")
     args = Args(channels=16, scale_factor=2, dtype="mixed")
@@ -2170,11 +2171,133 @@ def test_mixed_none_forward_on_card(cuda_device, monkeypatch):
     steps = [n for n in MIXED_FWD[:6] if n not in ("ang_block_bf16", "spa_window_attn_bf16")]
     assert {n: c for n, c in LAUNCHES.items() if c} == {n: 4 for n in
                                                         steps + list(MIXED_TRAIN[:2])}
-    monkeypatch.setenv("LFT_MM_HP_SITES", "qk,ffn")
+    monkeypatch.setenv("LFT_MM_HP_BWD_SITES", "qk,ffn")
     reset_launches()
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 9h"):
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 9h-b"):
         lft.forward(p, lr, args)
-    with pytest.raises(NotImplementedError, match="train step's forward.*item 9h"):
+    with pytest.raises(NotImplementedError, match="LFT_MM_HP_BWD_SITES.*item 9h-b"):
         lft.forward(pg, lr, args)
     torch.cuda.synchronize()
     assert not any(LAUNCHES.values())
+
+
+# --------------------------------------------- LFT_MM_HP_SITES subsets (9h) ---
+
+# S1 keeps these sites f32 and rounds the rest; S2 is its complement
+# (tests/_torch_sites_ref.py), so every `_sites` kernel's products split both
+# ways between them.
+SITES_S1 = "qk,score,ffn,aqkv,aav,wo"
+SITES_S2 = "tok,v,av,lin,ascore,awo,affn"
+
+
+def _plan_sites(spec):
+    from lft_torch.kernels import common
+    return common.mm_site_plan(True, frozenset(spec.split(",")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [SITES_S1, SITES_S2])
+@pytest.mark.parametrize("C", [16, 32, 64])
+def test_mixed_sites_kernels(cuda_device, C, spec):
+    """Each `_sites` instance (K1 and K1 res, K2.2, K2.3 and K2.3 res, K2.5,
+    K11.5) under the subset against its plain version, from the plain
+    predecessor's output: `_mixed_close` per output (an output the plan
+    leaves f32 within `rel` alone), m and l within L2 1e-3 as K1 res
+    `_bf16`'s, attn of bf16 values exactly where `awo` / `wo` rounds; each
+    launched once and bitwise on a repeat."""
+    from lft_torch.kernels import MIXED_SITES, common
+    plan = _plan_sites(spec)
+    l2 = lambda a, b: float((a - b).double().norm() / b.double().norm())
+    g = torch.Generator(device=cuda_device).manual_seed(C + len(spec))
+    wa = ang_block.ang_weights(_params(C, cuda_device), "altblock.1.ang_trans.")
+    x = torch.randn(37, 25, C, device=cuda_device, generator=g)
+    pe = torch.from_numpy(angular_position(25, C)).to(cuda_device)
+    ws = spa_block._with_mlp(spa_block.spa_weights(_params(C, cuda_device), "altblock.2.spa_trans."))
+    xs = torch.randn(2, 17, 40, C, device=cuda_device, generator=g)
+    pe_tok = torch.randn(17, 40, 2 * C, device=cuda_device, generator=g)
+    tok, xn = spa_block.tokenize_ln_plain(xs, pe_tok, ws, plan)
+    q, k, v = spa_block.qkv_plain(xn, tok, ws, plan)
+    x2, xn2 = spa_block.outproj_ln_plain(spa_block.window_attn_plain(q, k, v, 8, 5, plan)[0],
+                                         tok, ws, plan)
+    win = lambda *a, plan=None: spa_block.window_attn(*a, 8, 5, plan=plan)
+    win_p = lambda *a, plan=None: spa_block.window_attn_plain(*a, 8, 5, plan)[0]
+    winr = lambda *a, plan=None: spa_block.window_attn(*a, 8, 5, with_stats=True, plan=plan)
+    winr_p = lambda *a, plan=None: spa_block.window_attn_plain(*a, 8, 5, plan, res=True)
+    angr = lambda *a, plan=None: ang_block.ang_block(*a, 8, with_res=True, plan=plan)
+    angr_p = lambda *a, plan=None: ang_block.ang_block_plain(*a, 8, with_res=True, plan=plan)
+    pm = lambda *a, plan=None: spa_block.ffn_out(*a, views=2, plan=plan)
+    pm_p = lambda *a, plan=None: spa_block._to_pixel_major(spa_block.ffn_out_plain(*a, plan), 2)
+    steps = {"ang_block_sites": (lambda *a, plan=None: ang_block.ang_block(*a, 8, plan=plan),
+                                 lambda *a, plan=None: ang_block.ang_block_plain(*a, 8, plan=plan),
+                                 (x, pe, wa)),
+             "ang_block_res_sites": (angr, angr_p, (x, pe, wa)),
+             "spa_qkv_sites": (spa_block.qkv, spa_block.qkv_plain, (xn, tok, ws)),
+             "spa_window_attn_sites": (win, win_p, (q, k, v)),
+             "spa_window_attn_res_sites": (winr, winr_p, (q, k, v)),
+             "spa_ffn_out_sites": (spa_block.ffn_out, spa_block.ffn_out_plain, (xn2, x2, ws)),
+             "spa_ffn_out_pm_sites": (pm, pm_p, (xn2, x2, ws))}
+    assert set(steps) == set(MIXED_SITES)
+    tup = lambda o: o if isinstance(o, tuple) else (o,)
+    for name, (kern, plain, ins) in steps.items():
+        reset_launches()
+        got = tup(kern(*ins, plan=plan))
+        torch.cuda.synchronize()
+        assert {n: c for n, c in LAUNCHES.items() if c} == {name: 1}, name
+        ref, ref32 = tup(plain(*ins, plan=plan)), tup(plain(*ins))
+        outs, stats, attn = range(len(got)), (), None
+        if name == "ang_block_res_sites":   # out, attn; m, l; attn at `awo`'s dtype
+            outs, stats, attn, site = (0, 3), (1, 2), got[3], "awo"
+        elif name == "spa_window_attn_res_sites":
+            outs, stats, attn, site = (0,), (1, 2), got[0], "wo"
+        _mixed_close(*(tuple(t[i] for i in outs) for t in (got, ref, ref32)))
+        assert all(l2(got[i], ref[i]) <= 1e-3 for i in stats), name
+        if attn is not None:
+            assert torch.equal(attn, common.bf16_round(attn)) == plan[site], name
+        assert all(torch.equal(a, b) for a, b in zip(got, tup(kern(*ins, plan=plan)))), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [SITES_S1, SITES_S2])
+def test_mixed_sites_forward_on_card(cuda_device, monkeypatch, spec):
+    """`--dtype mixed` under a site subset on the card: the forward launches
+    each fused step's instance as `common.card_fwd` names it, 4 times each
+    (under S1 the four `_sites` steps, K2.1 `_bf16` and K2.4 f32), its
+    distance from the f32 forward within 10% of the plain blocks' and its
+    L2 from theirs within 1.5 of it, bitwise on a repeat; under grad K1 res's
+    and K2.3 res's `_sites` forms in place of K1's and K2.3's, with the
+    backward plans `none` and `all`."""
+    from lft_torch.kernels import common
+    monkeypatch.setenv("LFT_MM_HP_SITES", spec)
+    plan = _plan_sites(spec)
+    args = Args(channels=16, scale_factor=2, dtype="mixed")
+    p = _params(16, cuda_device, seed=3)
+    lr = torch.from_numpy(np.random.RandomState(0).rand(2, 1, 80, 80).astype(np.float32))
+    lr = lr.to(cuda_device)
+    expect = lambda names: {n + common.card_fwd(plan, n): 4 for n in names}
+    reset_launches()
+    with torch.no_grad():
+        got = lft.forward(p, lr, args)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in LAUNCHES.items() if c} == expect(FORWARD)
+        if spec == SITES_S1:
+            assert expect(FORWARD) == {
+                "ang_block_sites": 4, "spa_tokenize_ln_bf16": 4, "spa_qkv_sites": 4,
+                "spa_window_attn_sites": 4, "spa_outproj_ln": 4, "spa_ffn_out_sites": 4}
+        assert torch.equal(got, lft.forward(p, lr, args))
+        ref = lft.forward(p, lr, args, plain_blocks=True)
+        f32 = lft.forward(p, lr, Args(channels=16, scale_factor=2))
+    l2 = lambda a, b: float((a - b).double().norm() / b.double().norm())
+    assert abs(l2(got, f32) / l2(ref, f32) - 1) <= 0.1, (l2(got, f32), l2(ref, f32))
+    assert l2(got, ref) <= 1.5 * l2(ref, f32)
+    train = ["ang_block_res" if n == "ang_block" else "spa_window_attn_res"
+             if n == "spa_window_attn" else n for n in FORWARD]
+    for bwd in ("none", "all"):
+        monkeypatch.setenv("LFT_MM_HP_BWD_SITES", bwd)
+        pg = {k_: v_.clone().requires_grad_(True) for k_, v_ in p.items()}
+        reset_launches()
+        out = lft.forward(pg, lr, args)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in LAUNCHES.items() if c} == expect(train), bwd
+        out.square().mean().backward()
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(t.grad).all() for t in pg.values()), bwd

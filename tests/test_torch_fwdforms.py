@@ -195,27 +195,27 @@ def test_forward_mixed_none_matches_lft_tpu(ref, monkeypatch):
 # ------------------------------------------------------------- (d) gates ---
 
 def test_forward_plan_gates():
-    """On the card the forward plan `none` takes the `_bf16` instances,
-    under grad (a train step's forward) too, its `_res` forms included
-    (ROADMAP item 9g), and a site subset raises naming 9h, grad or not (the
-    model checks the plans before its first launch: `card_plan`); `all`
-    and no plan take the f32 kernels. K11's two launches take bf16 tensors
-    (`_bf16io`); a bf16 tensor takes no mixed plan."""
+    """On the card the forward plan `none` takes the `_bf16` instances, their
+    `_res` forms included (ROADMAP item 9g), and a site subset takes each
+    launch's `_sites` instance where it splits the launch's sites, else its
+    `_bf16` or f32 one (ROADMAP item 9h; test_torch_sites.py holds the
+    instances); a backward subset raises naming 9h-b (the model checks the
+    plans before its first launch: `card_plan`); `all` and no plan take the
+    f32 kernels. K11's two launches take bf16 tensors (`_bf16io`); a bf16
+    tensor takes no mixed plan."""
     plan = lambda sites: common.mm_site_plan(True, sites)
     half, f32, some = plan(frozenset()), plan(common.MM_HP_ALL), plan(frozenset({"qk", "lin"}))
-    assert common.card_fwd(half, "k") and not common.card_fwd(f32, "k")
-    assert not common.card_fwd(None, "k") and not common.card_fwd(f32, "k", grad=True)
+    assert common.card_fwd(half, "spa_qkv") == "_bf16" and common.card_fwd(f32, "spa_qkv") == ""
+    assert common.card_fwd(None, "spa_qkv") == ""
     common.card_plan(half, half)
     common.card_plan(half, f32)
-    common.card_plan(f32, half, grad=True)
-    common.card_plan(half, half, grad=True)
-    assert common.card_fwd(half, "k", grad=True)
-    for grad in (False, True):
-        with pytest.raises(NotImplementedError, match="'lin,qk'.*item 9h"):
-            common.card_plan(some, half, grad=grad)
-        with pytest.raises(NotImplementedError, match="k: the card's kernels run "
-                                                      "LFT_MM_HP_SITES=none or all only"):
-            common.card_fwd(some, "k", grad)
+    common.card_plan(f32, half)
+    common.card_plan(some, half)
+    common.card_plan(some, f32)
+    with pytest.raises(NotImplementedError, match="'lin,qk'.*item 9h-b"):
+        common.card_plan(half, some)
+    assert common.card_fwd(some, "spa_qkv") == "_sites" == common.card_fwd(some, "spa_ffn_out")
+    assert common.card_fwd(some, "spa_tokenize_ln") == "_bf16"
     x32, xb = torch.zeros(2, 4), torch.zeros(2, 4, dtype=torch.bfloat16)
     for k in ("ang_block", "spa_tokenize_ln", "spa_qkv", "spa_window_attn", "spa_outproj_ln",
               "spa_ffn_out", "spa_tokenize_ln_pm", "spa_ffn_out_pm"):
@@ -227,8 +227,8 @@ def test_forward_plan_gates():
     for k in ("spa_tokenize_ln_pm", "spa_ffn_out_pm"):
         assert common.io_kernel(k, xb) == k + "_bf16io" and common.io_kernel(k, x32) == k
     for k in ("ang_block_res", "spa_window_attn_res"):
-        assert common.fwd_kernel(k, x32, half, grad=True) == k + "_bf16"
-        assert common.fwd_kernel(k, x32, f32, grad=True) == k
+        assert common.fwd_kernel(k, x32, half) == k + "_bf16"
+        assert common.fwd_kernel(k, x32, f32) == k
     with pytest.raises(NotImplementedError, match="colsum: has no bf16-IO form"):
         common.io_kernel("colsum", xb)
     from lft_torch.kernels import MIXED_FWD, TAIL_BF16IO

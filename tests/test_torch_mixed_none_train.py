@@ -270,20 +270,22 @@ def test_fused_train_step_under_none_matches_lft_tpu(ref):
 
 def test_card_gates_let_none_train():
     """On the card the forward plan `none` passes under grad (its `_res`
-    forms launch `kernels.MIXED_TRAIN`), and a site subset of either plan
-    still raises naming ROADMAP item 9h, grad or not."""
+    forms launch `kernels.MIXED_TRAIN`), a forward site subset too (its
+    `_sites` forms, ROADMAP item 9h), and a site subset of the backward plan
+    still raises naming ROADMAP item 9h-b."""
     f32 = common.mm_site_plan(True, common.MM_HP_ALL)
     some = common.mm_site_plan(True, frozenset({"score", "av"}))
-    common.card_plan(PLAN, PLAN, grad=True)
-    common.card_plan(PLAN, f32, grad=True)
+    common.card_plan(PLAN, PLAN)
+    common.card_plan(PLAN, f32)
     x = torch.zeros(2, 4)
-    assert common.fwd_kernel("ang_block_res", x, PLAN, grad=True) == "ang_block_res_bf16"
-    assert common.fwd_kernel("spa_window_attn_res", x, PLAN, True) == "spa_window_attn_res_bf16"
-    for grad in (False, True):
-        with pytest.raises(NotImplementedError, match="'av,score'.*item 9h"):
-            common.card_plan(some, PLAN, grad=grad)
-    with pytest.raises(NotImplementedError, match="LFT_MM_HP_BWD_SITES=none or all only"):
-        common.card_plan(PLAN, some, grad=True)
+    assert common.fwd_kernel("ang_block_res", x, PLAN) == "ang_block_res_bf16"
+    assert common.fwd_kernel("spa_window_attn_res", x, PLAN) == "spa_window_attn_res_bf16"
+    common.card_plan(some, PLAN)
+    assert common.fwd_kernel("spa_window_attn_res", x, some) == "spa_window_attn_res_sites"
+    assert common.fwd_kernel("ang_block_res", x, some) == "ang_block_res_bf16"
+    with pytest.raises(NotImplementedError, match="LFT_MM_HP_BWD_SITES=none or all only.*"
+                                                  "'av,score'.*item 9h-b"):
+        common.card_plan(PLAN, some)
     assert MIXED_TRAIN == ("ang_block_res_bf16", "spa_window_attn_res_bf16", "ang_block_bwd_dp",
                            "ang_block_bwd128_dp")
     assert set(MIXED_TRAIN) <= set(LAUNCHES)
