@@ -303,7 +303,8 @@
     plan (step 22's bounds) at the main path's shapes, a bitwise repeat,
     timed by CUDA events beside its bound (f32 bytes, the products at the
     bf16 rate); (d) a train step and a forward under a site subset of the
-    backward plan raise before any launch, naming ROADMAP 9h-b; (e) each
+    backward plan (`qk,ffn`) run, each launch as `common.card_plan` names
+    it (the backward's `_sites` instances: step 30); (e) each
     new kernel in turns with its f32 instance (K11's `_pm_bf16io` with
     view-major K2 bf16io's), and the `none` scene with the f32 scene
     (device busy, CUDA-event time, idle share);
@@ -345,7 +346,21 @@
     bytes, each product at the bf16 rate where its site rounds and as
     3xTF32 where it does not); (e) each `_sites` kernel in turns with its
     f32 and `_bf16` instances;
-30. prints the script's seconds, the `kernels` JSON line (every kernel, old
+30. `--dtype mixed` training under the LFT_MM_HP_BWD_SITES subsets S1 and
+    S2 (`bwd_sites_phase`; ROADMAP 9h-b): (b) the fused train step under
+    (forward `none`, backward S1), (S2, S2) and (`none`,
+    `aqkv,ascore,aav,awo,affn`), and under (`none`, S1) at angRes 9, held as
+    step 28 holds `none`: its gradient's distance from the plain step's as
+    a fraction of the plain step's distance from f32, and each launch as
+    `common.card_plan` names it (K3.a-K3.d and K4 as `_sites`, K3.e and the
+    weight gradients by their own sites; K4 as `ang_block_bwd_dp` under the
+    third); (c) the train CLI's body under (`none`, S1) for 2 epochs of 2
+    steps, a resume from the epoch-1 file ending on the uninterrupted run's
+    parameters bit for bit; (a) each of the six backward `_sites` kernels
+    under S1 and S2 against its plain version at the step's shapes (step
+    29's bounds), a bitwise repeat, timed by CUDA events beside its bound;
+    (d) each in turns with its f32 and `_bf16` instances;
+31. prints the script's seconds, the `kernels` JSON line (every kernel, old
     and new), the card's name and power limit, and last `{"ok": true,
     "device": {...}}`.
 
@@ -662,6 +677,14 @@ class Recorder:
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def k3a_out_bytes(T: int, D: int) -> int:
+    """The bytes K3.a's f32-output instances write: dx2, dattn, y, dy, xn2
+    (D wide) and hid, dpre (2D wide), 9 D floats a token, and the LN2
+    partial sums, two D-wide rows a 128-row tile."""
+    from lft_torch.kernels.spa_block import ffn_out_bwd_tiles
+    return 9 * T * D * 4 + ffn_out_bwd_tiles(T) * 2 * D * 4
 
 
 def f64_check(name: str, got, ref, exact, repeats: bool) -> None:
@@ -2690,7 +2713,7 @@ def mixed_kernel_checks(params, card: str, launches: dict, n_steps: int, launche
                      "spa_ffn_out_bwd_bf16")
     ref = check("spa_ffn_out_bwd_bf16", src_s, sb.ffn_out_bwd, (attn, tok, dout, ws),
                 T * (20 * D * D + 2 * C * D),
-                nbytes(attn, tok, dout) + 11 * T * D * 4 + wbytes("ln", "wo", "w1", "w2", "wlin"),
+                nbytes(attn, tok, dout) + k3a_out_bytes(T, D) + wbytes("ln", "wo", "w1", "w2", "wlin"),
                 summed=True, plain=sb.ffn_out_bwd_plain, bf16_products=True)
     dx2, dattn = ref[0], ref[1]
     xn, q, k, v = check("spa_ln_qkv_bf16", "lft_torch/csrc/spa_block.cu", sb.ln_qkv,
@@ -4072,7 +4095,7 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
     import torch
     from lft_torch.config import Args
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
-    from lft_torch.kernels import LAUNCHES, MIXED_FWD, common, reset_launches
+    from lft_torch.kernels import FORWARD, LAUNCHES, MIXED_FWD, common, reset_launches
     from lft_torch.kernels import ang_block as ab
     from lft_torch.kernels import spa_block as sb
     from lft_torch.models.lft import forward
@@ -4316,32 +4339,34 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
         del xs, tok, xn, attn, x2, xn2, xf, conv, ffn, wsb
 
         # d: a train step and a forward under a site subset of the backward
-        # plan raise before any launch (forward subsets run: step 29)
+        # plan run (ROADMAP 9h-b, step 30), each launch named by `card_plan`
         a4 = Args(angRes=5, scale_factor=4, channels=64, batch_size=1, train_fused="true",
                   dtype="mixed")
         lr_t = torch.rand(1, 1, 160, 160, device=dev, generator=g)
         hr_t = torch.rand(1, 1, 640, 640, device=dev, generator=g)
-    for spec, what, grad, pat in (("qk,ffn", "a train step", True, "BWD_SITES.*item 9h-b"),
-                                  ("qk,ffn", "a forward", False, "item 9h-b")):
+    spec = "qk,ffn"
+    for what, grad in (("a train step", True), ("a forward", False)):
         with mm_sites("none"), mm_sites(spec, "LFT_MM_HP_BWD_SITES"):
+            bplan = common.active(common.mm_site_plan(True, common.mm_hp_sites(
+                "LFT_MM_HP_BWD_SITES", "none")))
             torch.cuda.synchronize()
             reset_launches()
-            try:
-                if grad:
-                    pg = {k_: v_.detach().clone().requires_grad_(True)
-                          for k_, v_ in params.items()}
-                    make_train_step(get_model(a4), make_optimizer(pg, a4, 10), a4)(pg, lr_t, hr_t)
-                else:
-                    with torch.no_grad():
-                        forward(params, lr_t, a4)
-                raise AssertionError(f"{what} under LFT_MM_HP_BWD_SITES={spec} did not raise")
-            except NotImplementedError as e:
-                torch.cuda.synchronize()
-                if not re.search(pat, str(e)) or any(LAUNCHES.values()):
-                    raise AssertionError(f"{what} under LFT_MM_HP_BWD_SITES={spec}: {e}; "
-                                         f"launches { {k_: c for k_, c in LAUNCHES.items() if c} }")
-                print(f"{what} under LFT_MM_HP_BWD_SITES={spec} raised before any launch: {e}",
-                      flush=True)
+            if grad:
+                pg = {k_: v_.detach().clone().requires_grad_(True) for k_, v_ in params.items()}
+                loss = make_train_step(get_model(a4), make_optimizer(pg, a4, 10), a4)(pg, lr_t,
+                                                                                      hr_t)[0]
+                want = step_launches(plan, bplan, "ang_block_bwd")
+            else:
+                with torch.no_grad():
+                    loss = forward(params, lr_t, a4).mean()
+                want = {k_ + "_bf16": 4 for k_ in FORWARD}
+            torch.cuda.synchronize()
+            got = {k_: c for k_, c in LAUNCHES.items() if c}
+            print(f"{what} under LFT_MM_HP_SITES=none, LFT_MM_HP_BWD_SITES={spec}: "
+                  f"{float(loss):.6f}; launches {got}", flush=True)
+            if got != want or not math.isfinite(float(loss)):
+                raise AssertionError(f"{what} under LFT_MM_HP_BWD_SITES={spec}: expected {want}, "
+                                     f"got {got}")
 
     # e: in turns, CUDA events around back-to-back calls (late in the process)
     print(f"{card_line()}: ms of each new instance beside its f32 (or view-major `_bf16io`) "
@@ -4368,12 +4393,40 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
     return rows
 
 
+# The sites of the 14 weight gradients of an AltFilter block's backward, in
+# `wgrad` call order (spa_block._bwd, ang_block._bwd): each takes its
+# `_bf16` instance where its site rounds.
+WGRAD_SITES = ("tok", "qk", "qk", "v", "wo", "ffn", "ffn", "lin", "aqkv", "aqkv", "aqkv", "awo",
+               "affn", "affn")
+
+
+def step_launches(plan, bplan, k4: str) -> dict:
+    """The launches of one fused train step of the 4-block model under the
+    forward plan `plan` and the backward plan `bplan`, each kernel named as
+    the wrappers name it (`common.card_plan`): K1 res, K2's five steps (the
+    window step's `_res` form), K3's five and K4 (`k4`: its form at the
+    step's view count) 4 times each, the 14 weight gradients of each block
+    pair at their sites' instances and 16 `colsum`s."""
+    from lft_torch.kernels import common
+    names = common.card_plan(plan, bplan)
+    want = {names[k]: 4 for k in ("ang_block_res", "spa_tokenize_ln", "spa_qkv",
+                                  "spa_window_attn_res", "spa_outproj_ln", "spa_ffn_out",
+                                  "spa_ffn_out_bwd", "spa_ln_qkv", "spa_window_attn_bwd",
+                                  "spa_qkv_ln_bwd", "spa_tokenize_bwd", k4)}
+    nb = sum(common.rounds(bplan, s_) for s_ in WGRAD_SITES)
+    want.update({k: 4 * c for k, c in (("wgrad_bf16", nb), ("wgrad", len(WGRAD_SITES) - nb))
+                 if c})
+    want["colsum"] = 16
+    return want
+
+
 def none_train_phase(params, seed: int, bwd: str = "none", steps: int = 2, ang_res: int = 5,
                      patch: int = 32, fwd: str = "none"):
     """Step 28 a-d: the fused train step of the 4x recipe under `--dtype
     mixed` with LFT_MM_HP_SITES=`fwd` (step 29 c: a site subset, whose
     forward launches each step's instance as `common.card_fwd` names it)
-    and LFT_MM_HP_BWD_SITES=`bwd` through
+    and LFT_MM_HP_BWD_SITES=`bwd` (step 30: a site subset, whose backward
+    launches each kernel's instance as `common.card_bwd` names it) through
     the kernels against the same step through the plain blocks under the
     same plans, at the bf16 training limits (BF16T_LOSS, BF16T_TOL,
     BF16T_L2: the gradient as one vector under the smooth loss, against
@@ -4389,15 +4442,17 @@ def none_train_phase(params, seed: int, bwd: str = "none", steps: int = 2, ang_r
     import torch
     from lft_torch.config import Args
     from lft_torch.data.device_synth import synth_batch
-    from lft_torch.kernels import LAUNCHES, MIXED, common, reset_launches
+    from lft_torch.kernels import LAUNCHES, common, reset_launches
     from lft_torch.models.lft import forward
     from lft_torch.registry import get_model
     from lft_torch.training.optim import make_optimizer
     from lft_torch.training.trainer import make_train_step
 
     dev = torch.device("cuda")
-    with mm_sites(fwd):
+    with mm_sites(fwd), mm_sites(bwd, "LFT_MM_HP_BWD_SITES"):
         plan = common.active(common.mm_site_plan(True, common.mm_hp_sites()))
+        bplan = common.active(common.mm_site_plan(True, common.mm_hp_sites(
+            "LFT_MM_HP_BWD_SITES", "none")))
     a32 = Args(angRes=ang_res, scale_factor=4, channels=64, batch_size=4, lr=2e-4, n_steps=15,
                gamma=0.5, epoch=50, train_fused="true")
     am = dataclasses.replace(a32, dtype="mixed")
@@ -4455,17 +4510,7 @@ def none_train_phase(params, seed: int, bwd: str = "none", steps: int = 2, ang_r
         raise AssertionError(f"{what}: a repeated kernel-path step is not bitwise equal")
     print(f"launches in the {what} run ({n} kernel-path steps): "
           f"{ {k_: v for k_, v in counts.items() if v} }", flush=True)
-    want = {k_ + common.card_fwd(plan, k_): 4 * n
-            for k_ in ("ang_block_res", "spa_tokenize_ln", "spa_qkv", "spa_window_attn_res",
-                       "spa_outproj_ln", "spa_ffn_out")}
-    if bwd == "none":
-        want.update({k_: 4 * n for k_ in MIXED if k_.startswith("spa_")})
-        want.update({k4 + "_bf16": 4 * n, "wgrad_bf16": 56 * n})
-    else:
-        want.update({k_: 4 * n for k_ in ("spa_ffn_out_bwd", "spa_ln_qkv", "spa_window_attn_bwd",
-                                          "spa_qkv_ln_bwd", "spa_tokenize_bwd", k4 + "_dp")})
-        want["wgrad"] = 56 * n
-    want["colsum"] = 16 * n
+    want = {k_: c * n for k_, c in step_launches(plan, bplan, k4).items()}
     wrong = {k_: counts[k_] for k_ in LAUNCHES if counts[k_] != want.get(k_, 0)}
     if wrong:
         raise AssertionError(f"{what} steps: expected {want} and no other launch (no f32 "
@@ -4940,6 +4985,174 @@ def sites_phase(params, args, scenes, cache, card: str, seed: int) -> list:
     return rows
 
 
+# Step 30's third backward plan: K4's five sites f32, every spatial one
+# rounded; after a forward under `none` K4 takes its `_dp` instance.
+BWD_K4_F32 = "aqkv,ascore,aav,awo,affn"
+
+
+def bwd_sites_kernel_checks(params, card: str, runs: dict, seed: int) -> list:
+    """Step 30 a and d: each `_sites` instance of the backward (K3.a-K3.d at
+    [100, 32, 32, 64], K4 at [4096, 25, 64] and [1024, 81, 64]) under the
+    backward subsets S1 and S2 against its plain version under the subset,
+    from the plain f32 forward's residuals and the plain chain's inputs
+    under the subset: each output within MIXED_REL and MIXED_GAP of the
+    plain mixed-vs-f32 distance (step 29's limits; the LN partial sums
+    summed), a bitwise repeat, timed by CUDA events beside its bound (f32
+    bytes, each product at the bf16 rate where its site rounds and as
+    3xTF32 where it does not), S1's run giving the row; then each in turns
+    with its f32 and `_bf16` instances. `runs`: kernel -> (launch counts,
+    steps) of the S1 train run that launched it."""
+    import torch
+    from lft_torch.kernels import MIXED_BWD_SITES, common
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.ops.posenc import angular_position, spatial_position
+    from lft_torch.ops.unfold import unfold3x3_linear
+    from lft_torch.profile_scene import events_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 300)
+    C, h, w, H, K = 64, 32, 32, 8, 5
+    D = 2 * C
+    V = 100
+    T = V * h * w
+    plans = {sp: common.mm_site_plan(True, frozenset(sp.split(","))) for sp in
+             (SITES_S1, SITES_S2)}
+    half = common.mm_site_plan(True, frozenset())
+    name_of = {SITES_S1: "S1", SITES_S2: "S2"}
+    recs = {k_: Recorder(card, c_, n_, "step") for k_, (c_, n_) in runs.items()}
+    rand = lambda *s_: torch.randn(*s_, device=dev, generator=g)
+    with_sum = lambda ops: (*ops[:-1], ops[-1].sum(0))
+    src_s, rep = "lft_torch/csrc/spa_block_bwd.cu", "lft_tpu/kernels/spa_block.py:602"
+    turns = []
+
+    def check(spec, name, src, fn, plain, args, site_flops, io, summed=False, **kw):
+        """One `_sites` instance under `spec` against its plain version
+        (`fn(*args, plan=)` the wrapper on CUDA tensors)."""
+        plan = plans[spec]
+        got, ref, ref32 = fn(*args, plan=plan), plain(*args, plan=plan), plain(*args)
+        again = fn(*args, plan=plan)
+        if summed:
+            got, again = with_sum(got), with_sum(again)
+            ref, ref32 = ((*r[:-1], r[-1][0]) for r in (ref, ref32))
+        flops = [(f_, plan[s_]) for f_, s_ in site_flops]
+        recs[name].record(name, src, kw.pop("replaces", rep), got, ref,
+                          lambda: fn(*args, plan=plan), lambda: plain(*args, plan=plan),
+                          sum(f_ for f_, _ in flops), io, ref32=ref32, site_flops=flops,
+                          timer=events_ms, shape=None if spec == SITES_S1 else (name_of[spec],),
+                          **kw)
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+        print(f"  {name} under {name_of[spec]}: repeated bitwise: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{name} under {name_of[spec]} does not repeat bitwise")
+        if spec == SITES_S1:
+            turns.append((name, lambda: fn(*args), lambda: fn(*args, plan=half),
+                          lambda: fn(*args, plan=plan)))
+        return ref
+
+    ws = sb._with_mlp(sb.spa_weights(params, "altblock.0.spa_trans."))
+    wbytes = lambda *k_: sum(nbytes(ws[n_]) for n_ in k_)
+    xs = rand(V, h, w, C)
+    pe_tok = unfold3x3_linear(torch.from_numpy(spatial_position(h, w, C)).to(dev)[None],
+                              ws["mlp"])[0].contiguous()
+    _, tok, m, l, attn = sb.spa_block_plain(xs, pe_tok, ws, H, K, with_res=True)
+    del xs
+    pairs = V * valid_window_pairs(h, w, K // 2)
+    wa = ab.ang_weights(params, "altblock.0.ang_trans.")
+    for spec in (SITES_S1, SITES_S2):
+        plan = plans[spec]
+        print(f"the backward's `_sites` kernels under {name_of[spec]} "
+              f"(LFT_MM_HP_BWD_SITES={spec}):", flush=True)
+        dout = rand(V, h, w, C)
+        dout = calm_relu(dout, sb.ffn_out_bwd(attn, tok, dout, ws, plan=plan)[4],
+                         sb.ffn_out_bwd_plain(attn, tok, dout, ws, plan=plan)[4],
+                         f"spa_ffn_out_bwd_sites under {name_of[spec]}")
+        # K3.a: x2 and dattn (wo), the FFN's four (ffn), dy (lin)
+        ref = check(spec, "spa_ffn_out_bwd_sites", src_s, sb.ffn_out_bwd, sb.ffn_out_bwd_plain,
+                    (attn, tok, dout, ws),
+                    [(4 * T * D * D, "wo"), (16 * T * D * D, "ffn"), (2 * T * C * D, "lin")],
+                    nbytes(attn, tok, dout) + k3a_out_bytes(T, D)
+                    + wbytes("ln", "wo", "w1", "w2", "wlin"), summed=True)
+        dx2, dattn = ref[0], ref[1]
+        xn, q, k, v = check(spec, "spa_ln_qkv_sites", "lft_torch/csrc/spa_block.cu", sb.ln_qkv,
+                            sb.ln_qkv_plain, (tok, pe_tok, ws),
+                            [(4 * T * D * D, "qk"), (2 * T * D * D, "v")],
+                            nbytes(tok, pe_tok) + 4 * T * D * 4 + wbytes("ln", "wqk", "wv"))
+        dq, dk, dv = check(spec, "spa_window_attn_bwd_sites", "lft_torch/csrc/spa_attn_hp.cu",
+                           sb.window_attn_bwd, sb.window_attn_bwd_plain,
+                           (q, k, v, attn, dattn, m, l, H, K),
+                           [(6 * D * pairs, "score"), (4 * D * pairs, "av")],
+                           nbytes(q, k, v, dattn, m, l) + 3 * T * D * 4)
+        check(spec, "spa_qkv_ln_bwd_sites", src_s, sb.qkv_ln_bwd, sb.qkv_ln_bwd_plain,
+              (tok, pe_tok, dq, dk, dv, dx2, ws), [(4 * T * D * D, "qk"), (2 * T * D * D, "v")],
+              nbytes(tok, pe_tok, dq, dk, dv, dx2) + 2 * T * D * 4 + wbytes("ln", "wqk", "wv"),
+              summed=True)
+        del dout, ref, dx2, dattn, xn, q, k, v, dq, dk, dv
+        # K4, both forms, from the f32 forward's residuals
+        for N, A2, name in ((4096, 25, "ang_block_bwd_sites"),
+                            (1024, 81, "ang_block_bwd128_sites")):
+            x = rand(N, A2, C)
+            pe = torch.from_numpy(angular_position(A2, C)).to(dev)
+            res = ab.ang_block_plain(x, pe, wa, H, with_res=True)[1:]
+            dout = rand(N, A2, C)
+            dout = calm_relu(dout, ab.ang_block_bwd_ops(x, pe, wa, *res, dout, H, plan=plan)[8],
+                             ab.ang_block_bwd_ops_plain(x, pe, wa, *res, dout, H, plan=plan)[8],
+                             f"{name} under {name_of[spec]}")
+            Tk = N * A2
+            # a: q, k, v (aqkv), x2 and dattn (awo), the FFN's three (affn); b:
+            # s, dp, D (ascore), dq, dk (ascore), dv (aav); c: dxn, dx (aqkv)
+            check(spec, name, "lft_torch/csrc/ang_block.cu", ab.ang_block_bwd_ops,
+                  ab.ang_block_bwd_ops_plain, (x, pe, wa, *res, dout, H),
+                  [(12 * Tk * C * C, "aqkv"), (4 * Tk * C * C, "awo"), (12 * Tk * C * C, "affn"),
+                   (6 * Tk * A2 * C, "ascore"), (4 * Tk * A2 * C, "aav")],
+                  nbytes(x, pe, *res, dout) + 11 * Tk * C * 4
+                  + 2 * sum(nbytes(t_) for t_ in wa.values()),
+                  replaces="lft_tpu/kernels/ang_block.py:432" if A2 <= 64 else
+                  "lft_tpu/kernels/ang_block.py:477", summed=True,
+                  slow_reps=10 if A2 <= 64 else 3)
+            del x, pe, res, dout
+    del tok, m, l, attn
+
+    print(f"{card_line()}: ms of each backward `_sites` instance (S1) beside its f32 and "
+          f"`_bf16` instances on the same inputs, in turns (f32, bf16, sites, sites, bf16, f32; "
+          f"CUDA events around 20 back-to-back calls):", flush=True)
+    for name, f32_fn, half_fn, sites_fn in turns:
+        t_ = [events_ms(f_) for f_ in (f32_fn, half_fn, sites_fn, sites_fn, half_fn, f32_fn)]
+        print(f"  {name}: f32 {t_[0]:.4f} / {t_[5]:.4f} ms, bf16 {t_[1]:.4f} / {t_[4]:.4f} ms, "
+              f"sites {t_[2]:.4f} / {t_[3]:.4f} ms", flush=True)
+    turns.clear()
+    rows = [r_ for rec in recs.values() for r_ in rec.rows]
+    if sorted(r_["name"] for r_ in rows) != sorted(MIXED_BWD_SITES):
+        raise AssertionError(f"step 30's rows {[r_['name'] for r_ in rows]} are not "
+                             f"{MIXED_BWD_SITES}")
+    return rows
+
+
+def bwd_sites_phase(params, card: str, seed: int) -> list:
+    """Step 30: `--dtype mixed` training under LFT_MM_HP_BWD_SITES subsets
+    (module docstring). Returns the six rows of the `kernels` line, each
+    from the S1 train run that launched it (K4's 128-row form: angRes 9)."""
+    from lft_torch.kernels import common
+    # b: the fused train step under three pairs of plans, and S1 at angRes 9
+    run_1 = none_train_phase(params, seed, bwd=SITES_S1)
+    none_train_phase(params, seed, bwd=SITES_S2, steps=0, fwd=SITES_S2)
+    none_train_phase(params, seed, bwd=BWD_K4_F32, steps=0)
+    run_9 = none_train_phase(params, seed, bwd=SITES_S1, steps=0, ang_res=9, patch=16)
+    # c: the train CLI under (none, S1), resumed bitwise
+    half = common.mm_site_plan(True, frozenset())
+    s1 = common.mm_site_plan(True, frozenset(SITES_S1.split(",")))
+    with mm_sites("none"), mm_sites(SITES_S1, "LFT_MM_HP_BWD_SITES"):
+        train_cli_resume(params, seed, "mixed", step_launches(half, s1, "ang_block_bwd"),
+                         ("spa_ffn_out_bwd", "spa_ffn_out_bwd_bf16", "ang_block_bwd",
+                          "ang_block_bwd_bf16", "ang_block_bwd_dp"))
+    # a, d: the kernels against their plain versions, then in turns
+    runs = {k_: run_1 for k_ in ("spa_ffn_out_bwd_sites", "spa_ln_qkv_sites",
+                                 "spa_window_attn_bwd_sites", "spa_qkv_ln_bwd_sites",
+                                 "ang_block_bwd_sites")}
+    runs["ang_block_bwd128_sites"] = run_9
+    return bwd_sites_kernel_checks(params, card, runs, seed)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4964,10 +5177,10 @@ def main(argv=None) -> int:
     from lft_torch.data.synth import lr_hr_pair, synth_lf_scene
     from lft_torch.device import resolve_device
     from lft_torch.inference.tiled import ScenePipelineCache, evaluate_dataset
-    from lft_torch.kernels import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, MIXED_FWD,
-                                   MIXED_SITES, MIXED_TRAIN, PEROP, PEROP_BF16IO, PEROP_BF16TRAIN,
-                                   SWEEPS, TAIL, TAIL_BF16IO, TRAINING, build_all,
-                                   reset_launches)
+    from lft_torch.kernels import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED,
+                                   MIXED_BWD_SITES, MIXED_FWD, MIXED_SITES, MIXED_TRAIN, PEROP,
+                                   PEROP_BF16IO, PEROP_BF16TRAIN, SWEEPS, TAIL, TAIL_BF16IO,
+                                   TRAINING, build_all, reset_launches)
     from lft_torch.models.lft import forward
     from lft_torch.ops.bicubic import bicubic_upscale_views
     from lft_torch.ops.metrics import cal_metrics
@@ -5013,7 +5226,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     extra = [k for k in TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO + BF16TRAIN
              + PEROP_BF16IO + PEROP_BF16TRAIN + MIXED_FWD + MIXED_TRAIN + MIXED_SITES
-             + TAIL_BF16IO if counts[k]]
+             + MIXED_BWD_SITES + TAIL_BF16IO if counts[k]]
     if extra:
         raise AssertionError(f"training or per-op kernels launched by the SR run: {extra}")
 
@@ -5210,6 +5423,11 @@ def main(argv=None) -> int:
     rows += sites_phase(params, args, scenes, cache, card, a.seed)
     torch.cuda.empty_cache()
     print(f"mixed site-subset phase: {time.time() - t0:.1f} s", flush=True)
+    # step 30: --dtype mixed training under LFT_MM_HP_BWD_SITES subsets
+    t0 = time.time()
+    rows += bwd_sites_phase(params, card, a.seed)
+    torch.cuda.empty_cache()
+    print(f"mixed backward site-subset phase: {time.time() - t0:.1f} s", flush=True)
     missing = sorted(set(LAUNCHES) - {r["name"] for r in rows})
     if missing:
         raise AssertionError(f"kernels without a row in the kernels line: {missing}")

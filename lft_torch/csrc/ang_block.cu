@@ -532,6 +532,21 @@ int launch(const IO* x, const float* pe, const float* ln, const float* wq,
 // them. Bound at [4096, 25, 64]: x, attn, dout, dx, xn, dq, dk, dv, xn2
 // and the 2C-wide hid, dpre in bf16, dx2 in f32 and m, l: 1.92 KB a token,
 // 197 MB, 0.059 ms; the products at the bf16 rate 0.012 ms.
+// `--dtype mixed` under an LFT_MM_HP_BWD_SITES subset that rounds some of
+// K4's sites and not others (`lft_ang_block_bwd_sites`, counted
+// `ang_block_bwd[128]_sites`; lft_tpu's _bwd_kernel with that plan,
+// :307-385): f32 IO and a runtime mask `sites` (tf32.cuh: S_AQKV ..
+// S_AFFN). a: each product BF or 3xTF32 as its site's bit says
+// (rowgemm.cuh: rg_product_site; a uniform branch): the recomputed q, k, v
+// by `aqkv`, x2 and dattn by `awo`, the FFN's three by `affn`; its stream
+// split piece by piece to match; no dsum. b: BF's arithmetic (D first from
+// its own products, s = (q . k) scale, ds with the scale inside), q, k and
+// ds rounded where `ascore` rounds, v, dattn and p where `aav` does. c
+// computes one site (`aqkv`) and runs its f32 or BF instance whole. A subset
+// that rounds none of K4's sites takes `_dp` (after a forward that rounded)
+// or the f32 instance, one that rounds all of them `_bf16`. Bound: the
+// products at the bf16 rate where their site rounds and as 3xTF32 where it
+// does not; bytes as the f32 instance's.
 
 // The weight stream of step a and the block's shared memory.
 template <int C>
@@ -556,8 +571,9 @@ struct AngBwdTok {
 // a. wf: the weight stream (AngBwdTok<C>::FLOATS floats), written by
 // rg_weights_kernel. q, k, v, dattn [T, C] and dsum [T, H]: step b's
 // inputs; ln_part [tiles, 4, C], rows 2-3 (LN2). BF: products over bf16
-// operands, and no dsum (step b's BF instance forms D itself).
-template <int C, int H, bool BF = false, class IO = float>
+// operands, and no dsum (step b's BF instance forms D itself). SITES (f32
+// IO): each product BF where its site's bit of `sites` is set, no dsum.
+template <int C, int H, bool BF = false, class IO = float, bool SITES = false>
 __global__ void __launch_bounds__(RG_NT, 1)
     ang_bwd_tok_kernel(const IO* __restrict__ x, const float* __restrict__ pe,
                        const float* __restrict__ ln, const IO* __restrict__ attn,
@@ -567,8 +583,11 @@ __global__ void __launch_bounds__(RG_NT, 1)
                        IO* __restrict__ xn2_out, IO* __restrict__ hid_out,
                        IO* __restrict__ dpre_out, float* __restrict__ dx2_out,
                        float* __restrict__ dattn_out, float* __restrict__ dsum_out,
-                       float* __restrict__ ln_part, int T, int A2) {
+                       float* __restrict__ ln_part, int T, int A2, int sites) {
   static_assert(BF || !is_bf16<IO>, "bf16 IO takes the BF products");
+  static_assert(!SITES || (!BF && !is_bf16<IO>), "a `_sites` instance is f32 IO with its own mask");
+  const bool r_qkv = (sites & S_AQKV) != 0, r_wo = (sites & S_AWO) != 0,
+             r_ffn = (sites & S_AFFN) != 0;
   using L = AngBwdTok<C>;
   constexpr int LD = L::LD, LDH = L::LDH, HC = L::HC, DH = C / H;
   extern __shared__ __align__(16) float smem[];
@@ -603,15 +622,24 @@ __global__ void __launch_bounds__(RG_NT, 1)
     {  // v = x Wv, q = xn Wq, k = xn Wk, into step b's scratch
       RgAcc<C> a;
       rg_zero<C>(a);
-      rg_product<C, C, L::OFF_V, true, BF>(a, xw, LD, ring, st);
+      if constexpr (SITES)
+        rg_product_site<C, C, L::OFF_V, false, true, true>(r_qkv, a, xw, LD, ring, st);
+      else
+        rg_product<C, C, L::OFF_V, true, BF>(a, xw, LD, ring, st);
       put_tile<C>(a, hw, LDH);
       store_rows<C, true>(hw, LDH, v_out, C, 0, t0, T);
       rg_zero<C>(a);
-      rg_product<C, C, L::OFF_Q, true, BF>(a, nw, LD, ring, st);
+      if constexpr (SITES)
+        rg_product_site<C, C, L::OFF_Q, false, true, true>(r_qkv, a, nw, LD, ring, st);
+      else
+        rg_product<C, C, L::OFF_Q, true, BF>(a, nw, LD, ring, st);
       put_tile<C>(a, hw, LDH);
       store_rows<C, true>(hw, LDH, q_out, C, 0, t0, T);
       rg_zero<C>(a);
-      rg_product<C, C, L::OFF_K, true, BF>(a, nw, LD, ring, st);
+      if constexpr (SITES)
+        rg_product_site<C, C, L::OFF_K, false, true, true>(r_qkv, a, nw, LD, ring, st);
+      else
+        rg_product<C, C, L::OFF_K, true, BF>(a, nw, LD, ring, st);
       put_tile<C>(a, hw, LDH);
       store_rows<C, true>(hw, LDH, k_out, C, 0, t0, T);
     }
@@ -620,7 +648,10 @@ __global__ void __launch_bounds__(RG_NT, 1)
     {  // x2 = attn Wo + x (x added to the finished product), xn2 = LN2(x2)
       RgAcc<C> a;
       rg_zero<C>(a);
-      rg_product<C, C, L::OFF_O, true, BF>(a, nw, LD, ring, st);
+      if constexpr (SITES)
+        rg_product_site<C, C, L::OFF_O, false, true, true>(r_wo, a, nw, LD, ring, st);
+      else
+        rg_product<C, C, L::OFF_O, true, BF>(a, nw, LD, ring, st);
       rg_pairs<C>(a, [&](int r, int c, float& v0, float& v1) {
         const float2 xv = *reinterpret_cast<const float2*>(xw + r * LD + c);
         v0 = io_round<IO>(io_round<IO>(v0) + xv.x);
@@ -641,7 +672,10 @@ __global__ void __launch_bounds__(RG_NT, 1)
       constexpr int j = decltype(J)::value, off = L::OFF_F + j * 3 * L::PC;
       RgAcc<HC> hc;
       rg_zero<HC>(hc);
-      rg_product<C, HC, off, true, BF>(hc, nw, LD, ring, st);
+      if constexpr (SITES)
+        rg_product_site<C, HC, off, false, true, true>(r_ffn, hc, nw, LD, ring, st);
+      else
+        rg_product<C, HC, off, true, BF>(hc, nw, LD, ring, st);
       uint32_t on = 0;   // the ReLU's signs, bit i: element i
 #pragma unroll
       for (int i = 0; i < RgParts<HC>::R; ++i) {
@@ -651,13 +685,20 @@ __global__ void __launch_bounds__(RG_NT, 1)
       put_tile<HC>(hc, hw, LDH);
       store_rows<HC>(hw, LDH, hid_out, 2 * C, j * HC, t0, T);
       rg_zero<HC>(hc);
-      rg_product<C, HC, off + L::PC, true, BF>(hc, dw, LD, ring, st);
+      if constexpr (SITES)
+        rg_product_site<C, HC, off + L::PC, false, true, true>(r_ffn, hc, dw, LD, ring, st);
+      else
+        rg_product<C, HC, off + L::PC, true, BF>(hc, dw, LD, ring, st);
 #pragma unroll
       for (int i = 0; i < RgParts<HC>::R; ++i)
         if (!((on >> i) & 1u)) hc[0][i] = 0.f;
       put_tile<HC>(hc, hw, LDH);
       store_rows<HC>(hw, LDH, dpre_out, 2 * C, j * HC, t0, T);
-      rg_product<HC, C, off + 2 * L::PC, true, BF>(dxn, hw, LDH, ring, st);
+      if constexpr (SITES)
+        rg_product_site<HC, C, off + 2 * L::PC, false, true, true>(r_ffn, dxn, hw, LDH, ring,
+                                                                   st);
+      else
+        rg_product<HC, C, off + 2 * L::PC, true, BF>(dxn, hw, LDH, ring, st);
     });
 
     {  // dx2 = dout + LN2ᵀ(dxn2) on the accumulators, xhat from x2 as LN2 made it
@@ -680,11 +721,14 @@ __global__ void __launch_bounds__(RG_NT, 1)
     {  // dattn = dx2 Woᵀ; dsum = dattn . attn per head (attn read again)
       RgAcc<C> a;
       rg_zero<C>(a);
-      rg_product<C, C, L::OFF_OT, true, BF>(a, xw, LD, ring, st);
+      if constexpr (SITES)
+        rg_product_site<C, C, L::OFF_OT, false, true, true>(r_wo, a, xw, LD, ring, st);
+      else
+        rg_product<C, C, L::OFF_OT, true, BF>(a, xw, LD, ring, st);
       put_tile<C>(a, hw, LDH);
       store_rows<C, true>(hw, LDH, dattn_out, C, 0, t0, T);
       constexpr int LH = DH / 2;   // lanes of a quad that hold a head of a row
-      if constexpr (!BF) rg_each<C>([&](int p, int i, int r, int c) {
+      if constexpr (!BF && !SITES) rg_each<C>([&](int p, int i, int r, int c) {
         const int t = t0 + r;
         const float2 av =
             t < T ? __ldcs(reinterpret_cast<const float2*>(attn + static_cast<size_t>(t) * C + c))
@@ -704,16 +748,20 @@ __global__ void __launch_bounds__(RG_NT, 1)
 // dp_j formed here in a first pass over the keys instead of read from dsum
 // (= dattn . attn, which equals it only where the saved attn is this
 // backward's sum p v); DP alone the `_dp` instance, f32 products after a
-// forward that rounded its products (LFT_MM_HP_SITES=none).
-template <int C, int H, bool BF = false, class IO = float, bool DP = false>
+// forward that rounded its products (LFT_MM_HP_SITES=none). SITES (f32 IO):
+// BF's arithmetic, q, k and ds rounded where `ascore`'s bit of `sites` is
+// set, v, dattn and p where `aav`'s is.
+template <int C, int H, bool BF = false, class IO = float, bool DP = false, bool SITES = false>
 __global__ void __launch_bounds__(NT)
     ang_bwd_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dattn,
                         const float* __restrict__ m_in, const float* __restrict__ l_in,
                         const float* __restrict__ dsum, IO* __restrict__ dq_out,
                         IO* __restrict__ dk_out, IO* __restrict__ dv_out, int N, int A2,
-                        int P, float scale) {
+                        int P, float scale, int sites) {
+  static_assert(!SITES || (!BF && !DP && !is_bf16<IO>), "a `_sites` instance is f32 IO");
   constexpr int LD = C + 4, DH = C / H;
+  const bool r_sc = (sites & S_ASCORE) != 0, r_av = (sites & S_AAV) != 0;
   extern __shared__ float4 smem4[];
   const int pix0 = blockIdx.x * P, np = min(P, N - pix0), rows = np * A2;
   float* Q = reinterpret_cast<float*>(smem4);
@@ -740,13 +788,27 @@ __global__ void __launch_bounds__(NT)
       }
     }
   }
+  if constexpr (SITES) {   // q, k where `ascore` rounds; v, dattn where `aav` does
+    if (r_sc || r_av)
+      for (int i = threadIdx.x; i < rows * (C / 4); i += NT) {
+        const int off = i / (C / 4) * (C + 4) + 4 * (i % (C / 4));
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          if (!(b < 2 ? r_sc : r_av)) continue;
+          float* p = Q + b * P * A2 * (C + 4) + off;
+          const float4 t = load4(p);
+          store4(p, make_float4(bf16_round(t.x), bf16_round(t.y), bf16_round(t.z),
+                                bf16_round(t.w)));
+        }
+      }
+  }
   for (int i = threadIdx.x; i < rows * H; i += NT) {
     M[i] = __ldg(m_in + row0 * H + i);
     Lsum[i] = __ldg(l_in + row0 * H + i);
-    if constexpr (!(BF || DP)) DS[i] = __ldg(dsum + row0 * H + i);
+    if constexpr (!(BF || DP || SITES)) DS[i] = __ldg(dsum + row0 * H + i);
   }
   __syncthreads();
-  if constexpr (BF || DP) {   // D = sum_j p_j dp_j of each (query, head), into DS
+  if constexpr (BF || DP || SITES) {   // D = sum_j p_j dp_j of each (query, head), into DS
     for (int t = threadIdx.x; t < np * H * A2; t += NT) {
       const int hh = (t / A2) % H, base = t / (A2 * H) * A2;
       const int me = base + t % A2;
@@ -778,7 +840,7 @@ __global__ void __launch_bounds__(NT)
     ld<DH>(DO + me * LD + hh * DH, dov);
 #pragma unroll
     for (int d = 0; d < DH; ++d) {
-      if constexpr (!BF) qs[d] *= scale;
+      if constexpr (!BF && !SITES) qs[d] *= scale;
       dq[d] = dk[d] = dv[d] = 0.f;
     }
     const float m_me = M[me * H + hh], inv_me = 1.f / Lsum[me * H + hh];
@@ -790,6 +852,24 @@ __global__ void __launch_bounds__(NT)
       ld<DH>(Q + o * LD + hh * DH, qo);
       ld<DH>(DO + o * LD + hh * DH, dr);
       // me as the query, o as the key
+      if constexpr (SITES) {   // BF's arithmetic, ds rounded by `ascore`, p by `aav`
+        float pr = expf(dot<DH>(qs, kr) * scale - m_me) * inv_me;
+        float g = pr * (dot<DH>(dov, vr) - ds_me) * scale;
+        g = r_sc ? bf16_round(g) : g;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) dq[d] = fmaf(g, kr[d], dq[d]);
+        // o as the query, me as the key
+        pr = expf(dot<DH>(qo, kv) * scale - M[o * H + hh]) * (1.f / Lsum[o * H + hh]);
+        g = pr * (dot<DH>(dr, vv) - DS[o * H + hh]) * scale;
+        g = r_sc ? bf16_round(g) : g;
+        pr = r_av ? bf16_round(pr) : pr;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) {
+          dk[d] = fmaf(g, qo[d], dk[d]);
+          dv[d] = fmaf(pr, dr[d], dv[d]);
+        }
+        continue;
+      }
       if constexpr (BF) {
         float pr = expf(dot<DH>(qs, kr) * scale - m_me) * inv_me;
         float g = bf16_round(pr * (dot<DH>(dov, vr) - ds_me) * scale);
@@ -821,7 +901,7 @@ __global__ void __launch_bounds__(NT)
         dv[d] = fmaf(pr, dr[d], dv[d]);
       }
     }
-    if constexpr (!BF) {
+    if constexpr (!BF && !SITES) {
 #pragma unroll
       for (int d = 0; d < DH; ++d) dq[d] *= scale;
     }
@@ -852,9 +932,13 @@ struct AngBwdArgs {
 };
 
 // BF: the three kernels' bf16-operand instances (the header); IO = bf16
-// (with BF) their bf16-IO instances; DP step b's `_dp` instance.
-template <int C, bool BF = false, class IO = float, bool DP = false>
-int launch_bwd(const AngBwdArgs<IO>& g, int N, int A2, float scale, cudaStream_t s) {
+// (with BF) their bf16-IO instances; DP step b's `_dp` instance; SITES the
+// `_sites` instances of a and b with the mask `sites`, step a's stream split
+// piece by piece (Wv, Wq, Wk `aqkv`; Wo, Woᵀ `awo`; the FFN's `affn`), and
+// step c's f32 or BF instance as `aqkv` says.
+template <int C, bool BF = false, class IO = float, bool DP = false, bool SITES = false>
+int launch_bwd(const AngBwdArgs<IO>& g, int N, int A2, float scale, cudaStream_t s,
+               int sites = 0) {
   using L = AngBwdTok<C>;
   constexpr int H = 8;
   const int T = N * A2;
@@ -875,20 +959,25 @@ int launch_bwd(const AngBwdArgs<IO>& g, int N, int A2, float scale, cudaStream_t
     all[n++] = RgPiece{w1 + j * L::HC, 2 * C, L::HC, C, off + 2 * L::PC, 1};     // W1ᵀ[c, :]
   }
   all[n++] = RgPiece{wo, C, C, C, L::OFF_OT, 1};                                // Woᵀ
-  launch_rg_pieces(all, n, wf, s, BF);
-  auto tok = ang_bwd_tok_kernel<C, H, BF, IO>;
+  if constexpr (SITES)
+    for (int i = 0; i < n; ++i)
+      all[i].bf = (sites & (i < 3 ? S_AQKV : i == 3 || i == n - 1 ? S_AWO : S_AFFN)) != 0;
+  launch_rg_pieces(all, n, wf, s, BF, SITES);
+  auto tok = ang_bwd_tok_kernel<C, H, BF, IO, SITES>;
   LFT_SET_SMEM(tok, L::BYTES);
   tok<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(
       g.x, pe, ln, g.attn, g.dout, wf, g.xn, g.q, g.k, g.v, g.xn2, g.hid, g.dpre, g.dx2,
-      g.dattn, g.dsum, g.ln_part, T, A2);
+      g.dattn, g.dsum, g.ln_part, T, A2, sites);
   const int P = attn_pixels(A2);
-  auto att = ang_bwd_attn_kernel<C, H, BF, IO, DP>;
+  auto att = ang_bwd_attn_kernel<C, H, BF, IO, DP, SITES>;
   const size_t att_bytes = static_cast<size_t>(P) * A2 * (4 * (C + 4) + 3 * H) * sizeof(float);
   LFT_SET_SMEM(att, att_bytes);
   att<<<(N + P - 1) / P, NT, att_bytes, s>>>(g.q, g.k, g.v, g.dattn, g.m, g.l, g.dsum, g.dq,
-                                            g.dk, g.dv, N, A2, P, scale);
+                                            g.dk, g.dv, N, A2, P, scale, sites);
   const QkvLnBwdArgs<IO> a{g.x, pe, g.dq, g.dk, g.dv, g.dx2, ln, nullptr, g.dx, nullptr,
                            g.ln_part, A2, 4 * C, T};
+  if constexpr (SITES)   // step c: one site, `aqkv`
+    if (sites & S_AQKV) return launch_qkv_ln_bwd<C, true, IO>(a, wq, wk, C, wv, wf + L::FLOATS, s);
   return launch_qkv_ln_bwd<C, BF, IO>(a, wq, wk, C, wv, wf + L::FLOATS, s);
 }
 
@@ -1119,6 +1208,30 @@ extern "C" int lft_ang_block_bwd_dp(LFT_ANG_BWD_ARGS(float)) {
 // parts in the same layouts.
 extern "C" int lft_ang_block_bwd_bf16(LFT_ANG_BWD_ARGS(float)) {
   LFT_ANG_BWD_BODY(true, float, false)
+}
+
+// K4's site-subset instances under an LFT_MM_HP_BWD_SITES subset (the K4
+// header): the same arguments and `sites` (tf32.cuh: S_AQKV .. S_AFFN)
+// before the stream; dsum is left unwritten, wf holds each weight split as
+// its site's products read it.
+extern "C" int lft_ang_block_bwd_sites(
+    const float* x, const float* pe, const float* ln, const float* wq, const float* wk,
+    const float* wv, const float* wo, const float* w1, const float* w2, const float* m,
+    const float* l, const float* attn, const float* dout, float* wf, float* dx, float* xn,
+    float* dq, float* dk, float* dv, float* dx2, float* xn2, float* dpre, float* hid,
+    float* ln_part, float* q, float* k, float* v, float* dattn, float* dsum, int N, int A2,
+    int C, int H, float scale, int sites, void* stream) {
+  if (H != 8 || A2 < 1 || A2 > RP || N < 1 || static_cast<long long>(N) * A2 > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const AngBwdArgs<float> g{x, pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn, dout, wf, dx, xn,
+                            dq, dk, dv, dx2, xn2, dpre, hid, ln_part, q, k, v, dattn, dsum};
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 16: return launch_bwd<16, false, float, false, true>(g, N, A2, scale, s, sites);
+    case 32: return launch_bwd<32, false, float, false, true>(g, N, A2, scale, s, sites);
+    case 64: return launch_bwd<64, false, float, false, true>(g, N, A2, scale, s, sites);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // K4's bf16-IO instances under `--dtype bfloat16` (the K4 header): the same

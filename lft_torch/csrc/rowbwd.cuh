@@ -336,6 +336,13 @@ __device__ __forceinline__ void tile_ln_sums(const float* part, float* __restric
 // sums f32, as lft_tpu keeps them. Bound of K3.d's bf16-IO instance at
 // [100, 32, 32, 64]: x, dq, dk, dv in bf16, dx2 in and dxpe out f32, dx out
 // bf16, 262 MB, 0.078 ms; 10.1 GFLOP at the bf16 rate 0.010 ms: bytes.
+// SITES (`qkv_ln_bwd_sites_kernel`, K3.d's `_sites` instance under an
+// LFT_MM_HP_BWD_SITES subset): f32 rows, each product BF or 3xTF32 as its
+// bit of the runtime mask `rb` says (1: dq Wqᵀ, 2: dk Wkᵀ, 4: dv Wvᵀ; a
+// uniform branch, rowgemm.cuh:rg_product_site), the weights split piece by
+// piece to match. At W <= 64 (ONE) one pass carries products of both
+// settings; at W = 128 each pass is one product. K4's step c computes one
+// site (`aqkv`) and takes the f32 or BF instance whole.
 template <int W>
 struct QkvLnBwd {
   static constexpr int LDX = W + 4;          // row stride of a tile
@@ -361,9 +368,11 @@ struct QkvLnBwdArgs {
 
 // One pass over the block's tiles running the phases of PH (1: Q, 2: K,
 // 4: V), each from its own weight and row tile (slots in phase order).
-// Ends with every warp past its last read of the weights.
-template <int W, int PH, bool BF, class IO>
-__device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs<IO>& a, float* smem) {
+// Ends with every warp past its last read of the weights. SITES: phase i's
+// product BF where bit i of rb is set.
+template <int W, int PH, bool BF, class IO, bool SITES = false>
+__device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs<IO>& a, float* smem,
+                                                int rb = 0) {
   using Q = QkvLnBwd<W>;
   constexpr int LDX = Q::LDX, SQ = Q::SQ;
   constexpr int S1 = PH & 1, S2 = S1 + ((PH >> 1) & 1);   // the slots of K and V
@@ -394,7 +403,10 @@ __device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs<IO>& a, float
     if constexpr ((PH & 1) != 0) {
       ResidentWeights wr{smem};
       rg_zero<W>(p);
-      rg_product<W, W, 0, true, BF>(p, rw(0), LDX, wr, st);
+      if constexpr (SITES)
+        rg_product_site<W, W, 0, false, true, true>((rb & 1) != 0, p, rw(0), LDX, wr, st);
+      else
+        rg_product<W, W, 0, true, BF>(p, rw(0), LDX, wr, st);
       __syncwarp();   // the warp's rows are read
       if (more) rows_async<W>(rw(0), a.dq, n0, T);
       if constexpr ((PH & 2) == 0) store_acc<W, false>(p, a.dxpe, W, 0, t0, T);
@@ -402,7 +414,10 @@ __device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs<IO>& a, float
     if constexpr ((PH & 2) != 0) {
       ResidentWeights wr{smem + S1 * SQ};
       rg_zero<W>(acc);
-      rg_product<W, W, 0, true, BF>(acc, rw(S1), LDX, wr, st);
+      if constexpr (SITES)
+        rg_product_site<W, W, 0, false, true, true>((rb & 2) != 0, acc, rw(S1), LDX, wr, st);
+      else
+        rg_product<W, W, 0, true, BF>(acc, rw(S1), LDX, wr, st);
       __syncwarp();
       if (more) rows_async<W>(rw(S1), a.dk, n0, T);
       // dxn = dq Wqᵀ + dk Wkᵀ, the finished products added (zero past T)
@@ -440,7 +455,10 @@ __device__ __forceinline__ void qkv_ln_bwd_pass(const QkvLnBwdArgs<IO>& a, float
     if constexpr ((PH & 4) != 0) {
       ResidentWeights wr{smem + S2 * SQ};
       rg_zero<W>(acc);
-      rg_product<W, W, 0, true, BF>(acc, rw(S2), LDX, wr, st);
+      if constexpr (SITES)
+        rg_product_site<W, W, 0, false, true, true>((rb & 4) != 0, acc, rw(S2), LDX, wr, st);
+      else
+        rg_product<W, W, 0, true, BF>(acc, rw(S2), LDX, wr, st);
       __syncwarp();
       if (more) rows_async<W>(rw(S2), a.dv, n0, T);
       // dx = (dx2 + dv Wvᵀ) + d
@@ -473,24 +491,49 @@ __global__ void __launch_bounds__(RG_NT, 1) qkv_ln_bwd_kernel(const QkvLnBwdArgs
   }
 }
 
+// The `_sites` instance (the header's SITES): f32 rows, rb the mask of the
+// phases whose products round.
+template <int W>
+__global__ void __launch_bounds__(RG_NT, 1) qkv_ln_bwd_sites_kernel(const QkvLnBwdArgs<float> a,
+                                                                    int rb) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (QkvLnBwd<W>::ONE) {
+    qkv_ln_bwd_pass<W, 7, false, float, true>(a, smem, rb);
+  } else {
+    qkv_ln_bwd_pass<W, 1, false, float, true>(a, smem, rb);
+    qkv_ln_bwd_pass<W, 2, false, float, true>(a, smem, rb);
+    qkv_ln_bwd_pass<W, 4, false, float, true>(a, smem, rb);
+  }
+}
+
 // Splits Wqᵀ, Wkᵀ, Wvᵀ straight from the forward's "x @ W" weights (wq, wk
 // rows ldqk floats apart, wv rows W apart) into the scratch wf
 // (QkvLnBwd<W>::FLOATS floats, kernels/rowgemm.py:qkv_ln_bwd_stream), then
 // runs the kernel; BF: the bf16 parts, then the BF instance; IO: the rows'
-// type (bf16 with BF).
-template <int W, bool BF = false, class IO = float>
+// type (bf16 with BF). SITES: each piece split as its phase's bit of rb
+// says, then the `_sites` instance.
+template <int W, bool BF = false, class IO = float, bool SITES = false>
 int launch_qkv_ln_bwd(QkvLnBwdArgs<IO> a, const float* wq, const float* wk, int ldqk,
-                      const float* wv, float* wf, cudaStream_t s) {
+                      const float* wv, float* wf, cudaStream_t s, int rb = 0) {
   using Q = QkvLnBwd<W>;
   RgPieces ps{};
   ps.p[0] = RgPiece{wq, ldqk, W, W, 0, 1};
   ps.p[1] = RgPiece{wk, ldqk, W, W, Q::SQ, 1};
   ps.p[2] = RgPiece{wv, W, W, W, 2 * Q::SQ, 1};
-  launch_rg_weights(ps, 3, wf, s, BF);
+  if constexpr (SITES)
+    for (int i = 0; i < 3; ++i) ps.p[i].bf = (rb >> i) & 1;
+  launch_rg_weights(ps, 3, wf, s, BF, SITES);
   a.wf = wf;
-  auto kernel = qkv_ln_bwd_kernel<W, BF, IO>;
-  LFT_SET_SMEM(kernel, Q::BYTES);
-  kernel<<<rg_grid((a.T + RG_M - 1) / RG_M), RG_NT, Q::BYTES, s>>>(a);
+  if constexpr (SITES) {
+    static_assert(!BF && !is_bf16<IO>, "a `_sites` instance is f32 IO with its own mask");
+    auto kernel = qkv_ln_bwd_sites_kernel<W>;
+    LFT_SET_SMEM(kernel, Q::BYTES);
+    kernel<<<rg_grid((a.T + RG_M - 1) / RG_M), RG_NT, Q::BYTES, s>>>(a, rb);
+  } else {
+    auto kernel = qkv_ln_bwd_kernel<W, BF, IO>;
+    LFT_SET_SMEM(kernel, Q::BYTES);
+    kernel<<<rg_grid((a.T + RG_M - 1) / RG_M), RG_NT, Q::BYTES, s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

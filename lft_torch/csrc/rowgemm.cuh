@@ -147,12 +147,12 @@ inline void launch_rg_weights(const RgPieces& ps, int n, float* wf, cudaStream_t
 
 // The same for any number of pieces, RG_MAX_PIECES a launch.
 inline void launch_rg_pieces(const RgPiece* all, int n, float* wf, cudaStream_t s,
-                             bool bf = false) {
+                             bool bf = false, bool per = false) {
   for (int i = 0; i < n; i += RG_MAX_PIECES) {
     RgPieces ps{};
     const int k = n - i < RG_MAX_PIECES ? n - i : RG_MAX_PIECES;
     for (int j = 0; j < k; ++j) ps.p[j] = all[i + j];
-    launch_rg_weights(ps, k, wf, s, bf);
+    launch_rg_weights(ps, k, wf, s, bf, per);
   }
 }
 
@@ -538,20 +538,20 @@ __device__ __forceinline__ void rg_product(RgAcc<N>& acc, const float* a, int ld
   flush(NC * NP - 1);
 }
 
-// rg_product<K, N, OFF, false, BF>; with SITES (a `_sites` instance) BF is
+// rg_product<K, N, OFF, TAILS, BF>; with SITES (a `_sites` instance) BF is
 // `bf`, the bit of the product's site in the instance's mask, taken at run
 // time (the same in every thread of the block, so the branch is uniform and
 // both paths keep the ring's stages in step).
-template <int K, int N, int OFF, bool BF, bool SITES, class W>
+template <int K, int N, int OFF, bool BF, bool SITES, bool TAILS = false, class W>
 __device__ __forceinline__ void rg_product_site(bool bf, RgAcc<N>& acc, const float* a, int lda,
                                                 W& ring, const float*& st) {
   if constexpr (SITES) {
     if (bf)
-      rg_product<K, N, OFF, false, true>(acc, a, lda, ring, st);
+      rg_product<K, N, OFF, TAILS, true>(acc, a, lda, ring, st);
     else
-      rg_product<K, N, OFF, false, false>(acc, a, lda, ring, st);
+      rg_product<K, N, OFF, TAILS, false>(acc, a, lda, ring, st);
   } else {
-    rg_product<K, N, OFF, false, BF>(acc, a, lda, ring, st);
+    rg_product<K, N, OFF, TAILS, BF>(acc, a, lda, ring, st);
   }
 }
 

@@ -79,6 +79,17 @@
 // from the rounded products, on the FP32 pipes as the f32 passes. The
 // saved (m, l) are the f32 forward's, so p is not renormalised.
 //
+// SITES (`lft_spa_attn_hp_bwd_sites`: K3.c under an LFT_MM_HP_BWD_SITES
+// subset that splits `score` from `av`): BF's arithmetic (s = (q . k)
+// scale, D = sum_j p_j dp_j from the pass's own products, ds with the scale
+// inside) with each rounding taken by the runtime mask `sites`: where
+// `score` rounds (S_SCORE), q and k as they are staged and ds before its
+// products; where `av` rounds (S_AV), v and dout as they are staged and p
+// before dv. Nothing else rounds: D's products and sums are f32, as
+// lft_tpu's D segment sum is (its `_seg` at the score site's precision,
+// whose operands stay f32). The mask is the same in every thread (uniform
+// branches). Bound as BF's.
+//
 // IO = bf16 (`lft_spa_attn_hp_bwd_bf16io`: K3.c under `--dtype bfloat16`
 // training, lft_tpu's _bwd_kernel with io = bf16, :488-540): the BF passes
 // on bf16 q, k, v, dout, their halos staged by the threads' 8-byte loads
@@ -156,16 +167,20 @@ __device__ __forceinline__ float dot4(const float* a, const float (&b)[DH]) {
 // K2.3's launch order.
 // DIV: p = e / l (K6's bf16 form) where the others take e (1 / l); DOUT: D
 // from the saved output, D = dout . out per head (K9's bf16 form), not from
-// the scores.
-template <int DH, bool BF = false, class IO = float, bool DIV = false, bool DOUT = false>
+// the scores. SITES: the header's, the roundings by `sites`.
+template <int DH, bool BF = false, class IO = float, bool DIV = false, bool DOUT = false,
+          bool SITES = false>
 __global__ void __launch_bounds__(WA_NT, 2)
     spa_attn_hp_bwd_q_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
                              const IO* __restrict__ v, const IO* __restrict__ dout,
                              const float* __restrict__ m_in, const float* __restrict__ l_in,
                              IO* __restrict__ dq_out, float* __restrict__ dsum_out, int h,
-                             int w, float scale, const IO* __restrict__ out) {
+                             int w, float scale, const IO* __restrict__ out, int sites) {
   static_assert(BF || DOUT || !is_bf16<IO>,
                 "bf16 IO takes the BF arithmetic, or f32 inside with D from the output");
+  static_assert(!SITES || !(BF || DIV || DOUT || is_bf16<IO>), "a `_sites` instance is f32");
+  constexpr bool SC = BF || SITES;   // s = (q . k) scale, ds with the scale inside
+  const bool r_sc = SITES && (sites & S_SCORE) != 0, r_av = SITES && (sites & S_AV) != 0;
   constexpr int D = H * DH;
   constexpr int G = D / WA_G;       // head groups of a pixel
   constexpr int HT = WA_S / DH;     // heads of a thread's slice
@@ -220,6 +235,17 @@ __global__ void __launch_bounds__(WA_NT, 2)
         gv[d + 3] = bf16_round(u.w);
         continue;
       }
+      if constexpr (SITES) {   // q unscaled, rounded where `score` rounds; dout where `av` does
+        qv[d] = r_sc ? bf16_round(t.x) : t.x;
+        qv[d + 1] = r_sc ? bf16_round(t.y) : t.y;
+        qv[d + 2] = r_sc ? bf16_round(t.z) : t.z;
+        qv[d + 3] = r_sc ? bf16_round(t.w) : t.w;
+        gv[d] = r_av ? bf16_round(u.x) : u.x;
+        gv[d + 1] = r_av ? bf16_round(u.y) : u.y;
+        gv[d + 2] = r_av ? bf16_round(u.z) : u.z;
+        gv[d + 3] = r_av ? bf16_round(u.w) : u.w;
+        continue;
+      }
       qv[d] = t.x * scale;
       qv[d + 1] = t.y * scale;
       qv[d + 2] = t.z * scale;
@@ -242,6 +268,19 @@ __global__ void __launch_bounds__(WA_NT, 2)
                                   bf16_round(t.w)));
           }
         }
+      } else if constexpr (SITES) {   // k where `score` rounds, v where `av` does
+        if (r_sc || r_av)
+          for (int j = threadIdx.x; j < WA_HY * WA_HX * (WA_G / 4); j += WA_NT) {
+            const int px = j / (WA_G / 4), c = 4 * (j % (WA_G / 4));
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              if (!(b == 0 ? r_sc : r_av)) continue;
+              float* p = smem + b * WA_BUF + px * WA_LD + c;
+              const float4 t = load4(p);
+              store4(p, make_float4(bf16_round(t.x), bf16_round(t.y), bf16_round(t.z),
+                                    bf16_round(t.w)));
+            }
+          }
       }
       __syncthreads();
     }
@@ -269,7 +308,7 @@ __global__ void __launch_bounds__(WA_NT, 2)
           if (kx < 0 || kx >= w) continue;
           float kk[DH], vv[DH];
           ld<DH>(kr + dx * WA_LD, kk);
-          s[(2 * R + 1) * r + dx] = BF ? dot4<DH>(qv + e * DH, kk) * scale
+          s[(2 * R + 1) * r + dx] = SC ? dot4<DH>(qv + e * DH, kk) * scale
                                        : dot4<DH>(qv + e * DH, kk);
           ld<DH>(kr + WA_BUF + dx * WA_LD, vv);
           dp[(2 * R + 1) * r + dx] = dot4<DH>(gv + e * DH, vv);
@@ -284,9 +323,15 @@ __global__ void __launch_bounds__(WA_NT, 2)
       }
       const float dd = DOUT ? dh_out[e] : DIV ? dsum : dsum * il;
 #pragma unroll
-      for (int j = 0; j < KW; ++j)   // l ds_j; BF: ds_j rounded
+      for (int j = 0; j < KW; ++j) {   // l ds_j; BF: ds_j rounded (SITES: where `score` rounds)
+        if constexpr (SITES) {
+          const float g = s[j] * il * (dp[j] - dd) * scale;
+          dp[j] = r_sc ? bf16_round(g) : g;
+          continue;
+        }
         dp[j] = BF ? bf16_round((DIV ? s[j] : s[j] * il) * (dp[j] - dd) * scale)
                    : s[j] * (dp[j] - dd);
+      }
       float dq[DH];
 #pragma unroll
       for (int d = 0; d < DH; ++d) dq[d] = 0.f;
@@ -306,7 +351,7 @@ __global__ void __launch_bounds__(WA_NT, 2)
           for (int d = 0; d < DH; ++d) dq[d] = fmaf(c, kk[d], dq[d]);
         }
       }
-      const float f = BF ? 1.f : il * scale;
+      const float f = SC ? 1.f : il * scale;
 #pragma unroll
       for (int d = 0; d < DH; d += 4)
         st4(dq_out + pix * D + col + e * DH + d,
@@ -332,13 +377,17 @@ struct KvLayout {
 // a thread owns the key pixels (ry, tx) and (ry + 1, tx) of the tile, one
 // after the other, for head `e` of the pair. bf16 IO with the f32
 // arithmetic (!BF) is K9's bf16 form; DIV: p = e / l (the row holds l).
-template <int DH, bool BF = false, class IO = float, bool DIV = false>
+// SITES: the header's, the roundings by `sites`.
+template <int DH, bool BF = false, class IO = float, bool DIV = false, bool SITES = false>
 __global__ void __launch_bounds__(WA_NT, 2)
     spa_attn_hp_bwd_kv_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
                               const IO* __restrict__ v, const IO* __restrict__ dout,
                               const float* __restrict__ m_in, const float* __restrict__ l_in,
                               const float* __restrict__ dsum, IO* __restrict__ dk_out,
-                              IO* __restrict__ dv_out, int h, int w, float scale) {
+                              IO* __restrict__ dv_out, int h, int w, float scale, int sites) {
+  static_assert(!SITES || !(BF || DIV || is_bf16<IO>), "a `_sites` instance is f32");
+  constexpr bool SC = BF || SITES;   // s = (q . k) scale, ds with the scale inside
+  const bool r_sc = SITES && (sites & S_SCORE) != 0, r_av = SITES && (sites & S_AV) != 0;
   using L = KvLayout<DH>;
   constexpr int D = H * DH, P = H / KV_HEADS, LD = L::LD, W = KV_HEADS * DH;
   extern __shared__ __align__(16) float smem[];
@@ -388,6 +437,16 @@ __global__ void __launch_bounds__(WA_NT, 2)
                             bf16_round(t.w)));
       store4(g, make_float4(bf16_round(u.x), bf16_round(u.y), bf16_round(u.z),
                             bf16_round(u.w)));
+    } else if constexpr (SITES) {   // q unscaled where `score` rounds, dout where `av` does
+      if (r_sc)
+        store4(p, make_float4(bf16_round(t.x), bf16_round(t.y), bf16_round(t.z),
+                              bf16_round(t.w)));
+      if (r_av) {
+        float* g = gs + j / (W / 4) * LD + 4 * (j % (W / 4));
+        const float4 u = load4(g);
+        store4(g, make_float4(bf16_round(u.x), bf16_round(u.y), bf16_round(u.z),
+                              bf16_round(u.w)));
+      }
     } else {
       store4(p, make_float4(t.x * scale, t.y * scale, t.z * scale, t.w * scale));
     }
@@ -410,6 +469,10 @@ __global__ void __launch_bounds__(WA_NT, 2)
         km[d] = bf16_round(km[d]);
         vm[d] = bf16_round(vm[d]);
       }
+      if constexpr (SITES) {
+        if (r_sc) km[d] = bf16_round(km[d]);
+        if (r_av) vm[d] = bf16_round(vm[d]);
+      }
     }
 #pragma unroll
     for (int r = 0; r <= 2 * R; ++r) {   // query row y + r - 2: halo row ry + a + r
@@ -425,12 +488,19 @@ __global__ void __launch_bounds__(WA_NT, 2)
         float qq[DH], gg[DH];
         ld<DH>(qo + e * DH, qq);
         const float2 ml = *reinterpret_cast<const float2*>(qo + W + 2 * e);
-        const float ex = expf((BF ? dot4<DH>(qq, km) * scale : dot4<DH>(qq, km)) - ml.x);
+        const float ex = expf((SC ? dot4<DH>(qq, km) * scale : dot4<DH>(qq, km)) - ml.x);
         const float p = DIV ? ex / ml.y : ex * ml.y;
         ld<DH>(go + e * DH, gg);
-        const float ds = BF ? bf16_round(p * (dot4<DH>(gg, vm) - go[W + e]) * scale)
-                            : p * (dot4<DH>(gg, vm) - go[W + e]);
-        const float pv = BF ? bf16_round(p) : p;
+        float ds, pv;
+        if constexpr (SITES) {
+          ds = p * (dot4<DH>(gg, vm) - go[W + e]) * scale;
+          ds = r_sc ? bf16_round(ds) : ds;
+          pv = r_av ? bf16_round(p) : p;
+        } else {
+          ds = BF ? bf16_round(p * (dot4<DH>(gg, vm) - go[W + e]) * scale)
+                  : p * (dot4<DH>(gg, vm) - go[W + e]);
+          pv = BF ? bf16_round(p) : p;
+        }
 #pragma unroll
         for (int d = 0; d < DH; ++d) {
           dk[d] = fmaf(ds, qq[d], dk[d]);
@@ -579,11 +649,12 @@ extern "C" int lft_spa_attn_f32in_res_bf16io(const bf16* q, const bf16* k, const
 
 namespace {
 
-template <bool BF, class IO = float, bool DIV = false, bool DOUT = false>
+template <bool BF, class IO = float, bool DIV = false, bool DOUT = false, bool SITES = false>
 int hp_bwd(const named_t<IO>* q, const named_t<IO>* k, const named_t<IO>* v,
            const named_t<IO>* dout, const float* m, const float* l, float* dsum,
            named_t<IO>* dq, named_t<IO>* dk, named_t<IO>* dv, int B, int h, int w, int E,
-           int heads, float scale, cudaStream_t s, const named_t<IO>* out = nullptr) {
+           int heads, float scale, cudaStream_t s, const named_t<IO>* out = nullptr,
+           int sites = 0) {
   if (bad_shape(B, h, w, E, heads) || n_items(B, h, w, H / KV_HEADS) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid_q = static_cast<int>(n_items(B, h, w, E / WA_G));
@@ -591,14 +662,14 @@ int hp_bwd(const named_t<IO>* q, const named_t<IO>* k, const named_t<IO>* v,
   switch (E / H) {
 #define LFT_HP_CASE(DHV)                                                             \
     case DHV: {                                                                      \
-      auto kq = spa_attn_hp_bwd_q_kernel<DHV, BF, IO, DIV, DOUT>;                    \
-      auto kkv = spa_attn_hp_bwd_kv_kernel<DHV, BF, IO, DIV>;                        \
+      auto kq = spa_attn_hp_bwd_q_kernel<DHV, BF, IO, DIV, DOUT, SITES>;             \
+      auto kkv = spa_attn_hp_bwd_kv_kernel<DHV, BF, IO, DIV, SITES>;                 \
       LFT_SET_SMEM(kq, WA_BYTES);                                                    \
       LFT_SET_SMEM(kkv, KvLayout<DHV>::BYTES);                                       \
       kq<<<grid_q, WA_NT, WA_BYTES, s>>>(q, k, v, dout, m, l, dq, dsum, h, w, scale, \
-                                         out);                                       \
+                                         out, sites);                                \
       kkv<<<grid_kv, WA_NT, KvLayout<DHV>::BYTES, s>>>(q, k, v, dout, m, l, dsum, dk, dv, \
-                                                       h, w, scale);                 \
+                                                       h, w, scale, sites);          \
       break;                                                                         \
     }
     LFT_HP_CASE(4)
@@ -632,6 +703,20 @@ extern "C" int lft_spa_attn_hp_bwd_bf16(const float* q, const float* k, const fl
                                         void* stream) {
   return hp_bwd<true>(q, k, v, dout, m, l, dsum, dq, dk, dv, B, h, w, E, heads, scale,
                       static_cast<cudaStream_t>(stream));
+}
+
+// The passes' site-subset instances (K3.c under an LFT_MM_HP_BWD_SITES
+// subset, the header): the same arguments and `sites`, the mask of the sites
+// that round (tf32.cuh: S_SCORE, S_AV).
+extern "C" int lft_spa_attn_hp_bwd_sites(const float* q, const float* k, const float* v,
+                                         const float* dout, const float* m, const float* l,
+                                         float* dsum, float* dq, float* dk, float* dv, int B,
+                                         int h, int w, int E, int heads, float scale, int sites,
+                                         void* stream) {
+  return hp_bwd<false, float, false, false, true>(q, k, v, dout, m, l, dsum, dq, dk, dv, B, h,
+                                                  w, E, heads, scale,
+                                                  static_cast<cudaStream_t>(stream), nullptr,
+                                                  sites);
 }
 
 // The passes' bf16-IO instances (K3.c under `--dtype bfloat16` training,

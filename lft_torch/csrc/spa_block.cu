@@ -80,7 +80,9 @@
 // picks each product's path at run time (rowgemm.cuh: rg_product_site;
 // its weights split piece by piece): K2.2 (q, k by `qk`; v by `v`), K2.3
 // (window_attn.cuh: q, k by `score`, v and e by `av`, the residual attn by
-// `wo`) and K2.5 / K11.5 (W1, W2 by `ffn`; Wlin by `lin`).
+// `wo`) and K2.5 / K11.5 (W1, W2 by `ffn`; Wlin by `lin`). K3.b under an
+// LFT_MM_HP_BWD_SITES subset that splits `qk` from `v` is K2.2's `_sites`
+// kernel with the LN1 prologue (`lft_spa_ln_qkv_sites`).
 
 #include "rowgemm.cuh"
 #include "spa.cuh"
@@ -324,12 +326,16 @@ __global__ void __launch_bounds__(RG_NT, 1)
 // Step 2's site-subset form (`spa_qkv_sites`, `--dtype mixed` under an
 // LFT_MM_HP_SITES subset): the same three passes, q and k BF where `qk`
 // rounds (S_QK of `sites`), v where `v` does, 3xTF32 elsewhere (a uniform
-// branch a pass); wf split piece by piece to match.
-template <int C>
+// branch a pass); wf split piece by piece to match. LN1 (K3.b's
+// `spa_ln_qkv_sites`, an LFT_MM_HP_BWD_SITES subset): pass q reads tok and
+// runs spa_qkv_kernel<C, true>'s prologue (xn = LN1(tok + pe_tok) f32,
+// written to ln1.xn, which passes k reads back).
+template <int C, bool LN1 = false>
 __global__ void __launch_bounds__(RG_NT, 1)
     spa_qkv_sites_kernel(const float* xn, const float* __restrict__ tok,
                          const float* __restrict__ wf, float* __restrict__ q,
-                         float* __restrict__ k, float* __restrict__ v, int T, int sites) {
+                         float* __restrict__ k, float* __restrict__ v, int T, int sites,
+                         Ln1Rows<2 * C, float> ln1) {
   constexpr int SQ = RowProj<C>::SQ;
   extern __shared__ __align__(16) float smem[];
   auto pass = [&](bool bf, const float* a, const float* w, float* out) {
@@ -338,7 +344,16 @@ __global__ void __launch_bounds__(RG_NT, 1)
     else
       row_pass<C, false, NoRows, false>(a, w, out, nullptr, nullptr, nullptr, nullptr, smem, T);
   };
-  pass(sites & S_QK, xn, wf, q);
+  if constexpr (LN1) {
+    if (sites & S_QK)
+      row_pass<C, false, Ln1Rows<2 * C, float>, true>(tok, wf, q, nullptr, nullptr, nullptr,
+                                                      nullptr, smem, T, ln1);
+    else
+      row_pass<C, false, Ln1Rows<2 * C, float>, false>(tok, wf, q, nullptr, nullptr, nullptr,
+                                                       nullptr, smem, T, ln1);
+  } else {
+    pass(sites & S_QK, xn, wf, q);
+  }
   pass(sites & S_QK, xn, wf + SQ, k);
   pass(sites & S_V, tok, wf + 2 * SQ, v);
 }
@@ -629,10 +644,13 @@ int qkv(const named_t<IO>* xn, const named_t<IO>* tok, const float* wqk, const f
 }
 
 // Step 2's site-subset form: each weight split as its pass reads it, then
-// spa_qkv_sites_kernel.
+// spa_qkv_sites_kernel; LN1: K3.b's, pe_tok, ln, xn_out and hw as qkv's.
+template <bool LN1 = false>
 int qkv_sites(const float* xn, const float* tok, const float* wqk, const float* wv, float* wf,
-              float* q, float* k, float* v, int T, int C, int sites, cudaStream_t s) {
-  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
+              float* q, float* k, float* v, int T, int C, int sites, cudaStream_t s,
+              const float* pe_tok = nullptr, const float* ln = nullptr, float* xn_out = nullptr,
+              int hw = 1) {
+  if (T < 1 || hw < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
     using L = RowProj<CC>;
     RgPieces ps{};
@@ -642,10 +660,12 @@ int qkv_sites(const float* xn, const float* tok, const float* wqk, const float* 
     ps.p[0].bf = ps.p[1].bf = (sites & S_QK) != 0;
     ps.p[2].bf = (sites & S_V) != 0;
     launch_rg_weights(ps, 3, wf, s, false, true);
-    auto kernel = spa_qkv_sites_kernel<CC>;
+    auto kernel = spa_qkv_sites_kernel<CC, LN1>;
     LFT_SET_SMEM(kernel, L::BYTES);
-    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(xn, tok, wf, q, k, v, T,
-                                                                    sites);
+    Ln1Rows<L::D, float> ln1{};
+    if constexpr (LN1) ln1 = Ln1Rows<L::D, float>{pe_tok, ln, xn_out, hw};
+    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, L::BYTES, s>>>(LN1 ? xn_out : xn, tok, wf, q,
+                                                                    k, v, T, sites, ln1);
   });
   return static_cast<int>(cudaGetLastError());
 }
@@ -709,6 +729,17 @@ extern "C" int lft_spa_ln_qkv_bf16(const float* tok, const float* pe_tok, const 
                                    void* stream) {
   return qkv<true, true>(nullptr, tok, wqk, wv, wf, q, k, v, T, C, pe_tok, ln, xn, hw,
                          static_cast<cudaStream_t>(stream));
+}
+
+// K3.b's site-subset instance (`--dtype mixed` under an LFT_MM_HP_BWD_SITES
+// subset that rounds one of `qk` and `v`): the same arguments and `sites`
+// (tf32.cuh: S_QK, S_V), wf holding each weight split as its pass reads it.
+extern "C" int lft_spa_ln_qkv_sites(const float* tok, const float* pe_tok, const float* ln,
+                                    const float* wqk, const float* wv, float* wf, float* xn,
+                                    float* q, float* k, float* v, int T, int hw, int C,
+                                    int sites, void* stream) {
+  return qkv_sites<true>(nullptr, tok, wqk, wv, wf, q, k, v, T, C, sites,
+                         static_cast<cudaStream_t>(stream), pe_tok, ln, xn, hw);
 }
 
 // K3.b's bf16-IO instance (`--dtype bfloat16` training): tok, xn, q, k, v

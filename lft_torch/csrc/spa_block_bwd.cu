@@ -57,6 +57,18 @@
 // on stays f32; the next product rounds it as it loads it, as lft_tpu's
 // casts round it at the site.
 //
+// `--dtype mixed` under an LFT_MM_HP_BWD_SITES subset (lft_tpu's
+// _bwd_kernel with that plan): a step whose sites all round takes its
+// `_bf16` instance, one whose sites all stay f32 its f32 one, and one whose
+// products span sites the plan splits a `_sites` instance with the mask of
+// the rounding sites (tf32.cuh: S_TOK ..), each product BF or 3xTF32 by its
+// bit (rowgemm.cuh: rg_product_site), the weights split piece by piece
+// (RgPiece::bf): a (x2 and dattn `wo`, the FFN's four `ffn`, dy `lin`), b
+// (spa_block.cu, q and k `qk`, v `v`), c (spa_attn_hp.cu, `score` and
+// `av`) and d (dq Wqᵀ, dk Wkᵀ `qk`, dv Wvᵀ `v`: rowbwd.cuh's phase mask).
+// Step e computes `tok` alone. Bound: each product at the bf16 rate where
+// its site rounds, as 3xTF32 where not; bytes as the f32 instance's.
+//
 // `--dtype bfloat16` training (lft_tpu's _bwd_kernel with io = bf16, every
 // site's operands bf16, :427-568): each step has a bf16-IO instance,
 // `_bf16io` after its name, its BF instance on bf16 rows (rowbwd.cuh:
@@ -159,17 +171,20 @@ struct FfnOutBwd {
 // The forward's hidden chunk J and those after it: hid_c = relu(xn2 W1[:,
 // c]) into hid_out and the warp's chunk rows, its signs into the thread's
 // word on[J RG_NT] (bit i: the chunk accumulator's element i), y += hid_c
-// W2[c, :].
-template <int C, int J, bool BF, class Ring, class IO>
+// W2[c, :]. SITES: both products BF where rf (the `ffn` site's bit).
+template <int C, int J, bool BF, bool SITES = false, class Ring, class IO>
 __device__ __forceinline__ void fwd_chunks(RgAcc<2 * C>& y, uint32_t* on, const float* xw,
                                            float* hw16,
                                            IO* __restrict__ hid_out, Ring& ring,
-                                           const float*& st, int t0, int T) {
+                                           const float*& st, int t0, int T, bool rf = false) {
   using F = FfnOutBwd<C>;
   constexpr int off = F::OFF_F + J * 2 * F::PC;
   RgAcc<F::HC> hc;
   rg_zero<F::HC>(hc);
-  rg_product<F::D, F::HC, off, true, BF>(hc, xw, F::LDX, ring, st);
+  if constexpr (SITES)
+    rg_product_site<F::D, F::HC, off, false, true, true>(rf, hc, xw, F::LDX, ring, st);
+  else
+    rg_product<F::D, F::HC, off, true, BF>(hc, xw, F::LDX, ring, st);
   uint32_t bits = 0;
 #pragma unroll
   for (int i = 0; i < RgParts<F::HC>::R; ++i) {
@@ -179,41 +194,54 @@ __device__ __forceinline__ void fwd_chunks(RgAcc<2 * C>& y, uint32_t* on, const 
   on[J * RG_NT] = bits;
   put_tile<F::HC>(hc, hw16, F::LDH);
   store_rows<F::HC>(hw16, F::LDH, hid_out, 2 * F::D, J * F::HC, t0, T);
-  rg_product<F::HC, F::D, off + F::PC, true, BF>(y, hw16, F::LDH, ring, st);
+  if constexpr (SITES)
+    rg_product_site<F::HC, F::D, off + F::PC, false, true, true>(rf, y, hw16, F::LDH, ring, st);
+  else
+    rg_product<F::HC, F::D, off + F::PC, true, BF>(y, hw16, F::LDH, ring, st);
   if constexpr (J + 1 < F::NH)
-    fwd_chunks<C, J + 1, BF>(y, on, xw, hw16, hid_out, ring, st, t0, T);
+    fwd_chunks<C, J + 1, BF, SITES>(y, on, xw, hw16, hid_out, ring, st, t0, T, rf);
 }
 
 // The backward's hidden chunk J and those after it: dpre_c = (hid_c > 0)
 // dy W2ᵀ[:, c] into dpre_out and the warp's chunk rows, dxn2 += dpre_c
-// W1ᵀ[c, :].
-template <int C, int J, bool BF, class Ring, class IO>
+// W1ᵀ[c, :]. SITES: both products BF where rf (the `ffn` site's bit).
+template <int C, int J, bool BF, bool SITES = false, class Ring, class IO>
 __device__ __forceinline__ void bwd_chunks(RgAcc<2 * C>& dxn, const uint32_t* on,
                                            const float* xw, float* hw16,
                                            IO* __restrict__ dpre_out, Ring& ring,
-                                           const float*& st, int t0, int T) {
+                                           const float*& st, int t0, int T, bool rf = false) {
   using F = FfnOutBwd<C>;
   constexpr int off = F::OFF_B + J * 2 * F::PC;
   RgAcc<F::HC> dp;
   rg_zero<F::HC>(dp);
-  rg_product<F::D, F::HC, off, true, BF>(dp, xw, F::LDX, ring, st);
+  if constexpr (SITES)
+    rg_product_site<F::D, F::HC, off, false, true, true>(rf, dp, xw, F::LDX, ring, st);
+  else
+    rg_product<F::D, F::HC, off, true, BF>(dp, xw, F::LDX, ring, st);
   const uint32_t bits = on[J * RG_NT];
 #pragma unroll
   for (int i = 0; i < RgParts<F::HC>::R; ++i)
     if (!((bits >> i) & 1u)) dp[0][i] = 0.f;
   put_tile<F::HC>(dp, hw16, F::LDH);
   store_rows<F::HC>(hw16, F::LDH, dpre_out, 2 * F::D, J * F::HC, t0, T);
-  rg_product<F::HC, F::D, off + F::PC, true, BF>(dxn, hw16, F::LDH, ring, st);
+  if constexpr (SITES)
+    rg_product_site<F::HC, F::D, off + F::PC, false, true, true>(rf, dxn, hw16, F::LDH, ring,
+                                                                 st);
+  else
+    rg_product<F::HC, F::D, off + F::PC, true, BF>(dxn, hw16, F::LDH, ring, st);
   if constexpr (J + 1 < F::NH)
-    bwd_chunks<C, J + 1, BF>(dxn, on, xw, hw16, dpre_out, ring, st, t0, T);
+    bwd_chunks<C, J + 1, BF, SITES>(dxn, on, xw, hw16, dpre_out, ring, st, t0, T, rf);
 }
 
 // wf: the weight stream (FfnOutBwd::FLOATS floats, kernels/rowgemm.py:
 // ffn_out_bwd_stream), written by rg_weights_kernel. ln_part [tiles, 2, D].
 // BF: the products over bf16-rounded operands (the weights' bf16 parts).
 // IO = bf16 (with BF): attn, tok, dout and the outputs but dx2 and ln_part
-// bf16; x2 and y rounded twice, as the forward rounds them.
-template <int C, bool BF = false, class IO = float>
+// bf16; x2 and y rounded twice, as the forward rounds them. SITES (with IO
+// = float, BF = false: `spa_ffn_out_bwd_sites`): each product BF where its
+// site's bit of `sites` is set (x2 and dattn `wo`, the FFN's four `ffn`,
+// dy `lin`), 3xTF32 elsewhere.
+template <int C, bool BF = false, class IO = float, bool SITES = false>
 __global__ void __launch_bounds__(RG_NT, 1)
     spa_ffn_out_bwd_kernel(const IO* __restrict__ attn, const IO* __restrict__ tok,
                            const IO* __restrict__ dout, const float* __restrict__ ln,
@@ -221,7 +249,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
                            IO* __restrict__ dattn_out, IO* __restrict__ y_out,
                            IO* __restrict__ dy_out, IO* __restrict__ hid_out,
                            IO* __restrict__ dpre_out, IO* __restrict__ xn2_out,
-                           float* __restrict__ ln_part, int T) {
+                           float* __restrict__ ln_part, int T, int sites) {
+  static_assert(!SITES || (!BF && !is_bf16<IO>), "a `_sites` instance is f32 IO with its own mask");
   using F = FfnOutBwd<C>;
   using P = RgParts<F::D>;
   constexpr int D = F::D, LDX = F::LDX, LDH = F::LDH;
@@ -246,7 +275,10 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // x2 = attn Wo + tok (tok added to the finished product), xn2 = LN2(x2)
     RgAcc<D> a;
     rg_zero<D>(a);
-    rg_product<D, D, 0, false, BF>(a, xw, LDX, ring, st);
+    if constexpr (SITES)
+      rg_product_site<D, D, 0, false, true>((sites & S_WO) != 0, a, xw, LDX, ring, st);
+    else
+      rg_product<D, D, 0, false, BF>(a, xw, LDX, ring, st);
     rg_pairs<D>(a, [&](int r, int c, float& v0, float& v1) {
       if (t0 + r < T) {
         const float2 t = ldcs2(tok + static_cast<size_t>(t0 + r) * D + c);
@@ -273,7 +305,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
     {
       RgAcc<D> y;
       rg_zero<D>(y);
-      fwd_chunks<C, 0, BF>(y, on, xw, hw16, hid_out, ring, st, t0, T);
+      fwd_chunks<C, 0, BF, SITES>(y, on, xw, hw16, hid_out, ring, st, t0, T,
+                                  (sites & S_FFN) != 0);
       rg_pairs<D>(y, [&](int r, int c, float& v0, float& v1) {
         if (t0 + r < T) {
           const float2 x2 =
@@ -291,7 +324,11 @@ __global__ void __launch_bounds__(RG_NT, 1)
       warp_rows<C>(hw16, LDH, dout, t0, T);
       RgAcc<D> dy;
       rg_zero<D>(dy);
-      rg_product<C, D, F::OFF_LIN, true, BF>(dy, hw16, LDH, ring, st);
+      if constexpr (SITES)
+        rg_product_site<C, D, F::OFF_LIN, false, true, true>((sites & S_LIN) != 0, dy, hw16, LDH,
+                                                             ring, st);
+      else
+        rg_product<C, D, F::OFF_LIN, true, BF>(dy, hw16, LDH, ring, st);
       put_tile<D>(dy, xw, LDX);
       store_rows<D>(xw, LDX, dy_out, D, 0, t0, T);
     }
@@ -299,7 +336,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // dpre = (hid > 0) dy W2ᵀ and dxn2 = dpre W1ᵀ, a hidden chunk at a time
     RgAcc<D> dxn;
     rg_zero<D>(dxn);
-    bwd_chunks<C, 0, BF>(dxn, on, xw, hw16, dpre_out, ring, st, t0, T);
+    bwd_chunks<C, 0, BF, SITES>(dxn, on, xw, hw16, dpre_out, ring, st, t0, T,
+                                (sites & S_FFN) != 0);
 
     // LN2 backward on the accumulators: xhat = (x2 - mu) rstd as the
     // forward made it (zero on rows past T, whose dxn2 is zero too)
@@ -390,7 +428,11 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // dattn = dx2 Woᵀ
     RgAcc<D> da;
     rg_zero<D>(da);
-    rg_product<D, D, F::OFF_OT, true, BF>(da, xw, LDX, ring, st);
+    if constexpr (SITES)
+      rg_product_site<D, D, F::OFF_OT, false, true, true>((sites & S_WO) != 0, da, xw, LDX, ring,
+                                                          st);
+    else
+      rg_product<D, D, F::OFF_OT, true, BF>(da, xw, LDX, ring, st);
     put_tile<D>(da, xw, LDX);   // dx2 is read
     store_rows<D>(xw, LDX, dattn_out, D, 0, t0, T);
 
@@ -435,13 +477,15 @@ LFT_EXPORT_ERROR_STRING
 
 namespace {
 
-template <bool BF, class IO = float>
+// SITES: the `_sites` instance, each weight piece split as its site's bit
+// of `sites` says (Wo, Woᵀ `wo`; Wlinᵀ `lin`; the FFN's `ffn`).
+template <bool BF, class IO = float, bool SITES = false>
 int ffn_out_bwd(const named_t<IO>* attn, const named_t<IO>* tok, const named_t<IO>* dout,
                 const float* ln, const float* wo, const float* w1, const float* w2,
                 const float* wlinT, const float* w2T, const float* w1T, const float* woT,
                 float* wf, float* dx2, named_t<IO>* dattn, named_t<IO>* y, named_t<IO>* dy,
                 named_t<IO>* hid, named_t<IO>* dpre, named_t<IO>* xn2, float* ln_part, int T,
-                int C, cudaStream_t s) {
+                int C, cudaStream_t s, int sites = 0) {
   if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
     using F = FfnOutBwd<CC>;
@@ -462,25 +506,34 @@ int ffn_out_bwd(const named_t<IO>* attn, const named_t<IO>* tok, const named_t<I
                          off + F::PC};
     }
     all[n++] = RgPiece{woT, F::D, F::D, F::D, F::OFF_OT};
-    launch_rg_pieces(all, n, wf, s, BF);
-    auto kernel = spa_ffn_out_bwd_kernel<CC, BF, IO>;
+    if constexpr (SITES)
+      for (int i = 0; i < n; ++i)
+        all[i].bf = (sites & (i == 0 || i == n - 1 ? S_WO : i == 1 + 2 * F::NH ? S_LIN
+                                                                               : S_FFN)) != 0;
+    launch_rg_pieces(all, n, wf, s, BF, SITES);
+    auto kernel = spa_ffn_out_bwd_kernel<CC, BF, IO, SITES>;
     LFT_SET_SMEM(kernel, F::BYTES);
     kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(
-        attn, tok, dout, ln, wf, dx2, dattn, y, dy, hid, dpre, xn2, ln_part, T);
+        attn, tok, dout, ln, wf, dx2, dattn, y, dy, hid, dpre, xn2, ln_part, T, sites);
   });
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF, class IO = float>
+// SITES: the `_sites` instance, dq Wqᵀ and dk Wkᵀ BF where `qk` rounds, dv
+// Wvᵀ where `v` does (rowbwd.cuh's phase mask rb).
+template <bool BF, class IO = float, bool SITES = false>
 int qkv_ln_bwd(const named_t<IO>* tok, const float* pe_tok, const named_t<IO>* dq,
                const named_t<IO>* dk, const named_t<IO>* dv, const float* dx2, const float* ln,
                const float* wqk, const float* wv, float* wf, named_t<IO>* dtok, float* dtokpe,
-               float* ln_part, int T, int hw, int C, cudaStream_t s) {
+               float* ln_part, int T, int hw, int C, cudaStream_t s, int sites = 0) {
   if (T < 1 || hw < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
     constexpr int D = 2 * CC;
     const QkvLnBwdArgs<IO> a{tok, pe_tok, dq, dk, dv, dx2, ln, nullptr, dtok, dtokpe,
                              ln_part, hw, 2 * D, T};
+    if constexpr (SITES)
+      return launch_qkv_ln_bwd<D, false, float, true>(
+          a, wqk, wqk + D, 2 * D, wv, wf, s, (sites & S_QK ? 3 : 0) | (sites & S_V ? 4 : 0));
     return launch_qkv_ln_bwd<D, BF, IO>(a, wqk, wqk + D, 2 * D, wv, wf, s);
   });
   return static_cast<int>(cudaErrorInvalidValue);
@@ -565,6 +618,35 @@ extern "C" int lft_spa_tokenize_bwd_bf16(const float* dtok, const float* wu, flo
                                          void* stream) {
   return tokenize_bwd<true>(dtok, wu, wf, dx, T, h, w, C, r, cw,
                             static_cast<cudaStream_t>(stream));
+}
+
+// The site-subset instances of steps a and d (`--dtype mixed` under an
+// LFT_MM_HP_BWD_SITES subset; the header): the f32 instances' arguments and
+// `sites`, the mask of the sites whose operands round (tf32.cuh: S_TOK ..),
+// each wf holding every weight split as its site's products read it. Step
+// a: Wo, Woᵀ by `wo`, the FFN's by `ffn`, Wlinᵀ by `lin`; step d: Wqᵀ, Wkᵀ
+// by `qk`, Wvᵀ by `v`. Step e computes one site (`tok`) and takes its f32
+// or `_bf16` instance whole.
+extern "C" int lft_spa_ffn_out_bwd_sites(const float* attn, const float* tok, const float* dout,
+                                         const float* ln, const float* wo, const float* w1,
+                                         const float* w2, const float* wlinT, const float* w2T,
+                                         const float* w1T, const float* woT, float* wf,
+                                         float* dx2, float* dattn, float* y, float* dy,
+                                         float* hid, float* dpre, float* xn2, float* ln_part,
+                                         int T, int C, int sites, void* stream) {
+  return ffn_out_bwd<false, float, true>(attn, tok, dout, ln, wo, w1, w2, wlinT, w2T, w1T, woT,
+                                         wf, dx2, dattn, y, dy, hid, dpre, xn2, ln_part, T, C,
+                                         static_cast<cudaStream_t>(stream), sites);
+}
+
+extern "C" int lft_spa_qkv_ln_bwd_sites(const float* tok, const float* pe_tok, const float* dq,
+                                        const float* dk, const float* dv, const float* dx2,
+                                        const float* ln, const float* wqk, const float* wv,
+                                        float* wf, float* dtok, float* dtokpe, float* ln_part,
+                                        int T, int hw, int C, int sites, void* stream) {
+  return qkv_ln_bwd<false, float, true>(tok, pe_tok, dq, dk, dv, dx2, ln, wqk, wv, wf, dtok,
+                                        dtokpe, ln_part, T, hw, C,
+                                        static_cast<cudaStream_t>(stream), sites);
 }
 
 // The steps' bf16-IO instances (`--dtype bfloat16` training, the header):

@@ -22,15 +22,18 @@ mixed` with LFT_MM_HP_SITES=none (each `_bf16`); `MIXED_TRAIN` those that
 only a fused train step launches under it (K1 res, K2.3 res, each `_bf16`;
 K4 in both forms as `_dp` under LFT_MM_HP_BWD_SITES=all); `MIXED_SITES`
 the site-subset instances of K1 (both forms), K2.2, K2.3 (both forms), K2.5
-and K11.5 under an LFT_MM_HP_SITES subset (each `_sites`);
+and K11.5 under an LFT_MM_HP_SITES subset (each `_sites`); `MIXED_BWD_SITES`
+those of K3.a-K3.d and K4 (both forms) under an LFT_MM_HP_BWD_SITES subset
+(each `_sites`);
 `TAIL_BF16IO` K11's two on bf16 tensors (each `_bf16io`).
 """
 
-from lft_torch.kernels._build import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED, MIXED_FWD,
-                                      MIXED_SITES, MIXED_TRAIN, PEROP, PEROP_BF16IO,
-                                      PEROP_BF16TRAIN, SWEEPS, TAIL, TAIL_BF16IO, TRAINING,
-                                      build_all, reset_launches)
+from lft_torch.kernels._build import (BF16IO, BF16TRAIN, FORWARD, LAUNCHES, MIXED,
+                                      MIXED_BWD_SITES, MIXED_FWD, MIXED_SITES, MIXED_TRAIN, PEROP,
+                                      PEROP_BF16IO, PEROP_BF16TRAIN, SWEEPS, TAIL, TAIL_BF16IO,
+                                      TRAINING, build_all, reset_launches)
 
-__all__ = ["BF16IO", "BF16TRAIN", "FORWARD", "LAUNCHES", "MIXED", "MIXED_FWD", "MIXED_SITES",
-           "MIXED_TRAIN", "PEROP", "PEROP_BF16IO", "PEROP_BF16TRAIN", "SWEEPS", "TAIL",
-           "TAIL_BF16IO", "TRAINING", "build_all", "reset_launches"]
+__all__ = ["BF16IO", "BF16TRAIN", "FORWARD", "LAUNCHES", "MIXED", "MIXED_BWD_SITES",
+           "MIXED_FWD", "MIXED_SITES", "MIXED_TRAIN", "PEROP", "PEROP_BF16IO",
+           "PEROP_BF16TRAIN", "SWEEPS", "TAIL", "TAIL_BF16IO", "TRAINING", "build_all",
+           "reset_launches"]

@@ -125,6 +125,14 @@ MIXED_SITES = ("ang_block_sites", "ang_block_res_sites", "spa_qkv_sites",
                "spa_window_attn_sites", "spa_window_attn_res_sites", "spa_ffn_out_sites",
                "spa_ffn_out_pm_sites")
 
+# ... and those of a fused train step's backward under an LFT_MM_HP_BWD_SITES
+# subset: K3.a, K3.b, K3.c, K3.d and K4 in both forms, each launch whose
+# products span sites that such a plan can split (`common.KERNEL_BWD_SITES`,
+# `common.card_bwd`); K3.e computes one site and takes its f32 or `_bf16`
+# instance, `wgrad` each site's own.
+MIXED_BWD_SITES = ("spa_ffn_out_bwd_sites", "spa_ln_qkv_sites", "spa_window_attn_bwd_sites",
+                   "spa_qkv_ln_bwd_sites", "ang_block_bwd_sites", "ang_block_bwd128_sites")
+
 # K11's bf16-IO instances (`--dtype bfloat16` on a pixel-major buffer): K2.1
 # and K2.5 bf16io's arithmetic, the buffer read and written in place.
 TAIL_BF16IO = tuple(k + "_bf16io" for k in K11)
@@ -132,7 +140,7 @@ TAIL_BF16IO = tuple(k + "_bf16io" for k in K11)
 # kernel name -> launches since the last reset
 LAUNCHES = {name: 0 for name in FORWARD + TRAINING + PEROP + SWEEPS + TAIL + MIXED + BF16IO
             + BF16TRAIN + PEROP_BF16IO + PEROP_BF16TRAIN + MIXED_FWD + MIXED_TRAIN
-            + MIXED_SITES + TAIL_BF16IO}
+            + MIXED_SITES + MIXED_BWD_SITES + TAIL_BF16IO}
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -37,7 +37,10 @@ as in bf16 IO) and, training, `ang_block_res_bf16` (the same out; m the
 token's max over its heads, l, attn f32 of bf16 values as lft_tpu stores
 it), then K4 under the backward's own plan; under a site subset that rounds
 some of K1's sites and not others, `ang_block[_res]_sites` (each product
-BF or 3xTF32 as its site's bit of a runtime mask says, lft_tpu's softmax).
+BF or 3xTF32 as its site's bit of a runtime mask says, lft_tpu's softmax);
+likewise a backward subset that rounds some of K4's sites and not others
+`ang_block_bwd[128]_sites`, and one that keeps them all f32 after a
+forward that rounded `ang_block_bwd[128]_dp` (`common.card_bwd`).
 Training under bf16 (lft_tpu's
 custom VJP with `io` = bf16, ang_block.py:424-496): K1 res in bf16 IO
 (`ang_block_res_bf16io`: m and l f32 as lft_tpu forms them, attn bf16), K4
@@ -54,8 +57,8 @@ import ctypes
 import torch
 
 from lft_torch.kernels import _build
-from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_half, d_from_p,
-                                      fwd_kernel, io_kernel, no_plan, rd, rounds, site_mask)
+from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_bwd, fwd_kernel,
+                                      io_kernel, no_plan, rd, rounds, site_mask)
 from lft_torch.kernels.rowgemm import RG_M, ang_block_floats, ang_bwd_floats
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import attention_heads
@@ -294,7 +297,8 @@ def ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads: int, pl
     to bf16 where its site is, at lft_tpu's sites (ang_block.py:_bwd_kernel
     :304-382; the attention then in its order: scores from the rounded q
     and k, D = sum_j p_j dp_j, ds rounded with the scale in it). f32: D =
-    dattn . attn, or with `d_from_p` sum_j p_j dp_j (`common.d_from_p`).
+    dattn . attn, or with `d_from_p` (the forward rounded, so the saved attn
+    is not this backward's sum p v) sum_j p_j dp_j, as lft_tpu forms it.
     A bf16 x (with bf16 attn and dout) takes `_ang_bwd_bf16io_plain`."""
     if x.dtype == torch.bfloat16:
         return _ang_bwd_bf16io_plain(x, ang_pe, wts, m, l, attn, dout, num_heads)
@@ -429,21 +433,24 @@ def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=Non
     over bf16-rounded operands, step b's attention over rounded q, k, v,
     dattn, ds and p with D from those products (`csrc/ang_block.cu`). bf16
     x, attn and dout launch the bf16-IO instances (`_bf16io`; their outputs
-    as `_ang_bwd_bf16io_plain`'s, bf16 but dx2 and dln). `d_from_p` with
-    f32 products launches the `_dp` instance (step b forms D from its own
-    p; the bf16-operand instances always do)."""
+    as `_ang_bwd_bf16io_plain`'s, bf16 but dx2 and dln). Under a plan that
+    rounds some of its five sites and not others, the `_sites` instances
+    (`_sites` after the name: each product of steps a and c BF or 3xTF32 as
+    its site's bit of a runtime mask says, step b's roundings likewise).
+    `d_from_p` (the forward rounded) with every K4 site f32 launches the
+    `_dp` instance (step b forms D from its own p; the bf16-operand and
+    site-subset instances always do): `common.card_bwd` names them all."""
     if x.device.type != "cuda":
         return ang_block_bwd_ops_plain(x, ang_pe, wts, m, l, attn, dout, num_heads, plan,
                                        d_from_p)
     N, A2, C = x.shape
     T = N * A2
-    name = io_kernel("ang_block_bwd128" if A2 > 64 else "ang_block_bwd", x)
-    half = card_half(plan, name)
-    if half:
-        name += "_bf16"
-    dp = d_from_p and not half and x.dtype != torch.bfloat16
-    if dp:
-        name += "_dp"
+    base = "ang_block_bwd128" if A2 > 64 else "ang_block_bwd"
+    name = io_kernel(base, x)
+    if x.dtype == torch.bfloat16:
+        no_plan(plan, name)
+    else:
+        name += card_bwd(d_from_p, plan, base)
     _check_kernel_shape(name, x, ang_pe, num_heads, BLK)
     bio = x.dtype == torch.bfloat16
     w = {n: wts[n].float().contiguous() for n in WEIGHTS} if bio else wts
@@ -461,13 +468,15 @@ def ang_block_bwd_ops(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=Non
             eb(T, 2 * C), eb(T, 2 * C), e(ang_bwd_tiles(T), 4, C))
     # what the three kernels hand on: q, k, v, dattn and dsum per token and head
     scratch = (e(T, C), e(T, C), e(T, C), e(T, C), e(T, num_heads))
-    fn = _build.bind("ang_block", "lft_ang_block_bwd" + ("_bf16" if half else "")
-                     + ("_bf16io" if bio else "") + ("_dp" if dp else ""),
-                     len(ins) + 1 + len(outs) + len(scratch),
-                     (ctypes.c_int,) * 4 + (ctypes.c_float,))
+    tail, types = (N, A2, C, num_heads, float(C // num_heads) ** -0.5), \
+        (ctypes.c_int,) * 4 + (ctypes.c_float,)
+    if name.endswith("_sites"):
+        tail, types = tail + (site_mask(plan, base),), types + (ctypes.c_int,)
+    # one C entry for both forms: `lft_ang_block_bwd` and the instance's suffix
+    fn = _build.bind("ang_block", "lft_ang_block_bwd" + name[len(base):],
+                     len(ins) + 1 + len(outs) + len(scratch), types)
     _build.launch("ang_block", name, fn, dev,
-                  *(t.data_ptr() for t in ins + (wf,) + outs + scratch), N, A2, C, num_heads,
-                  float(C // num_heads) ** -0.5)
+                  *(t.data_ptr() for t in ins + (wf,) + outs + scratch), *tail)
     return outs
 
 
@@ -494,7 +503,8 @@ def ang_block_bwd(x, ang_pe, wts, m, l, attn, dout, num_heads: int, plan=None,
     dln [4, C], dwq, dwk, dwv, dwo, dw1, dw2), weight grads in the `x @ W`
     layouts of `ang_weights`. K4, then `wgrad` and `colsum`; each takes its
     plain version for CPU tensors. `plan`: `--dtype mixed`'s backward plan;
-    `d_from_p`: the attention's D from its own p (`common.d_from_p`)."""
+    `d_from_p`: the forward rounded; the attention's D from its own p
+    (`ang_block_bwd_ops_plain`, `common.card_bwd`)."""
     return _bwd(ang_block_bwd_ops, wgrad, colsum, x, ang_pe, wts, m, l, attn, dout,
                 num_heads, plan, d_from_p)
 
@@ -517,12 +527,11 @@ class AngBlockFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ang_pe, ln, wq, wk, wv, wo, w1, w2, num_heads, plain, plan, bwd_plan):
         wts = dict(zip(WEIGHTS, (ln, wq, wk, wv, wo, w1, w2)))
-        if not plain and x.device.type == "cuda":   # before the first launch
-            card_half(bwd_plan, "ang_trans_block_fused")
         fwd = ang_block_plain if plain else ang_block
         out, m, l, attn = fwd(x, ang_pe, wts, num_heads, with_res=True, plan=plan)
         ctx.save_for_backward(x, ang_pe, ln, wq, wk, wv, wo, w1, w2, m, l, attn)
-        ctx.cfg = (num_heads, plain, bwd_plan, d_from_p(plan, bwd_plan))
+        # d_from_p: the forward rounded, so the saved attn is not the backward's sum p v
+        ctx.cfg = (num_heads, plain, bwd_plan, active(plan) is not None)
         return out
 
     @staticmethod

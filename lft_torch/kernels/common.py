@@ -12,10 +12,11 @@ request for a kernel (`attention_impl='pallas'`, a block or kernel wrapper
 called directly) still raises `NotImplementedError` at such a width.
 
 It also holds `--dtype mixed`'s per-site product plans (below), which the
-plain versions of K1-K4 follow at every site, the card's forward kernels at
-every plan (`KERNEL_SITES`, `card_fwd`, `fwd_kernel`) and its backward
-kernels at `none` and `all` (`card_half`), and `--dtype bfloat16`'s routing
-of bf16 tensors (`io_kernel`).
+plain versions of K1-K4 follow at every site, and the card's kernels at
+every plan too: the forward's (`KERNEL_SITES`, `card_fwd`, `fwd_kernel`)
+and the backward's (`KERNEL_BWD_SITES`, `card_bwd`), each launch naming its
+f32, `_bf16` or `_sites` instance (K4 also `_dp`); and `--dtype
+bfloat16`'s routing of bf16 tensors (`io_kernel`).
 """
 
 from __future__ import annotations
@@ -150,42 +151,60 @@ def card_fwd(plan, kernel: str) -> str:
     return "_bf16" if all(r) else "_sites" if any(r) else ""
 
 
+# The sites whose products each backward launch computes on the card, as
+# lft_tpu's _bwd_kernel / _spa_vjp_bwd use them (spa_block.py:430-567,
+# ang_block.py:307-385): K3.a x2 = attn Wo and dattn = dx2 Woᵀ at `wo`, the
+# FFN at `ffn`, dy = dout Wlinᵀ at `lin`; K3.b and K3.d the projections at
+# `qk` and `v`; K3.c q, k, ds and D's sum at `score`, v, dattn and p at
+# `av`; K3.e the transposed tokenization at `tok` alone (f32 or `_bf16`,
+# never `_sites`); K4's three kernels the five angular sites. The weight
+# gradients (`wgrad`) take each site's own setting.
+_K4_SITES = ("aqkv", "ascore", "aav", "awo", "affn")
+KERNEL_BWD_SITES = {
+    "spa_ffn_out_bwd": ("wo", "ffn", "lin"), "spa_ln_qkv": ("qk", "v"),
+    "spa_window_attn_bwd": ("score", "av"), "spa_qkv_ln_bwd": ("qk", "v"),
+    "spa_tokenize_bwd": ("tok",),
+    "ang_block_bwd": _K4_SITES, "ang_block_bwd128": _K4_SITES,
+}
+
+
 def site_mask(plan, kernel: str) -> int:
-    """The mask a `_sites` launch of `kernel` takes: the SITE_BITS of its
-    sites that round under `plan`."""
-    return sum(SITE_BITS[s] for s in KERNEL_SITES[kernel] if rounds(plan, s))
+    """The mask a `_sites` launch of `kernel` (a key of KERNEL_SITES or
+    KERNEL_BWD_SITES) takes: the SITE_BITS of its sites that round under
+    `plan`."""
+    sites = KERNEL_SITES[kernel] if kernel in KERNEL_SITES else KERNEL_BWD_SITES[kernel]
+    return sum(SITE_BITS[s] for s in sites if rounds(plan, s))
 
 
-def card_half(plan, kernel: str) -> bool:
-    """Whether a backward kernel on the card takes its bf16-operand instance
-    (LFT_MM_HP_BWD_SITES=none: every site rounded) or its f32 one (`all`);
-    a site subset raises NotImplementedError (ROADMAP.md §2a item 9h-b)."""
-    plan = active(plan)
-    if plan is None:
-        return False
-    if all(plan.values()):
-        return True
-    raise NotImplementedError(
-        f"{kernel}: the card's kernels run LFT_MM_HP_BWD_SITES=none or all only, got "
-        f"{_site_name(plan)!r} (a site subset of the backward: ROADMAP.md §2a item 9h-b); the "
-        f"plain versions (CPU) run every plan")
+def card_bwd(rounded: bool, bwd_plan, kernel: str) -> str:
+    """The instance that backward launch `kernel` (a key of
+    KERNEL_BWD_SITES) takes on the card under the backward plan `bwd_plan`
+    after a forward that rounded (`rounded`: its plan was active) or not,
+    as the suffix of its name: "" (the f32 instance) where none of its sites
+    round, "_bf16" where all do, "_sites" (with `site_mask(bwd_plan,
+    kernel)`) where some do and some do not. K4's f32 instance forms its
+    attention's D = dattn . attn, which is lft_tpu's D = sum_j p_j dp_j only
+    where the saved attn is an f32 forward's: with its sites all f32 after a
+    forward that rounded, K4 takes `_dp` (D from its own p). The `_bf16` and
+    `_sites` instances always form D so."""
+    bwd_plan = active(bwd_plan)
+    r = [bool(bwd_plan) and bwd_plan[s] for s in KERNEL_BWD_SITES[kernel]]
+    if all(r):
+        return "_bf16"
+    if any(r):
+        return "_sites"
+    return "_dp" if rounded and kernel in ("ang_block_bwd", "ang_block_bwd128") else ""
 
 
-def d_from_p(plan, bwd_plan) -> bool:
-    """Whether an f32 backward must form its attention's D = sum_j p_j dp_j
-    from its own p, as lft_tpu's backwards always do: where the forward's
-    plan rounded products and the backward's does not, the saved attn is not
-    the backward's sum p v, so D = dattn . attn (the f32 K4's and the plain
-    versions' shortcut) would differ from lft_tpu's by the forward's
-    roundings."""
-    return active(plan) is not None and active(bwd_plan) is None
-
-
-def card_plan(plan, bwd_plan) -> None:
-    """The wrappers' check of a model call's plans, made before its first
-    launch: the card runs every forward plan (`card_fwd`), and the backward
-    plans `none` and `all` (`card_half`)."""
-    card_half(bwd_plan, "--dtype mixed")
+def card_plan(plan, bwd_plan) -> dict:
+    """Every launch of a fused model call on the card under the forward plan
+    `plan` and the backward plan `bwd_plan`, named as the wrappers name it:
+    {kernel: instance} for the keys of KERNEL_SITES (`card_fwd`) and of
+    KERNEL_BWD_SITES (`card_bwd`). The card runs every pair of plans."""
+    rounded = active(plan) is not None
+    names = {k: k + card_fwd(plan, k) for k in KERNEL_SITES}
+    names.update({k: k + card_bwd(rounded, bwd_plan, k) for k in KERNEL_BWD_SITES})
+    return names
 
 
 def no_plan(plan, kernel: str) -> None:

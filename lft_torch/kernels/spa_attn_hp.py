@@ -267,14 +267,17 @@ def spa_attn_hp_fwd(q, k, v, num_heads: int, ksize: int, with_stats: bool = Fals
 
 
 def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int, with_dsum: bool = False,
-                    kernel: str = "spa_attn_hp_bwd", half: bool = False, out=None):
+                    kernel: str = "spa_attn_hp_bwd", half: bool = False, out=None, sites=None):
     """K5's backward: (dq, dk, dv) [B, h, w, E]; with_dsum also D [B, h, w,
     H], the scratch pass q hands to pass kv. `kernel`: the name the launch
     is counted under (the fused SpaTrans backward's step c launches it as
     `spa_window_attn_bwd`, K6 and K9 under theirs). `half`: the passes'
     bf16-operand instance (`lft_spa_attn_hp_bwd_bf16`, which only K3.c's
     `--dtype mixed` form launches, on the card only: its plain version is
-    `spa_block.window_attn_bwd_plain` under the plan). bf16 q, k, v and
+    `spa_block.window_attn_bwd_plain` under the plan); `sites`, a mask of
+    `common.SITE_BITS` (`score`, `av`): their site-subset instance
+    (`lft_spa_attn_hp_bwd_sites`, K3.c under an LFT_MM_HP_BWD_SITES subset,
+    likewise on the card only). bf16 q, k, v and
     dout: `kernel`'s `_bf16io` instance (module docstring; K9's reads its
     saved bf16 output `out`), dq, dk, dv rounded to bf16 once; on the CPU or
     inside `plain_versions()` K5's plain version is
@@ -282,8 +285,9 @@ def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int, with_dsum: 
     bio = q.dtype == torch.bfloat16
     if bio and not kernel.endswith("_bf16io"):
         kernel = io_kernel(kernel, q)
-    if half and q.device.type != "cuda":
-        raise ValueError(f"{kernel}: the bf16-operand instance runs on the card only")
+    if (half or sites is not None) and q.device.type != "cuda":
+        raise ValueError(f"{kernel}: the bf16-operand and site-subset instances run on the "
+                         f"card only")
     if not on_card(q):
         if bio:
             from lft_torch.kernels.spa_block import window_attn_bwd_plain
@@ -307,10 +311,13 @@ def spa_attn_hp_bwd(q, k, v, m, l, dout, num_heads: int, ksize: int, with_dsum: 
         ins = (q, k, v, dout)
         _build.check_cuda_args(kernel, *ins, m, l)
         entry = "lft_spa_attn_hp_bwd" + ("_bf16" if half else "")
-    fn = _build.bind("spa_attn_hp", entry, len(ins) + 6, (ctypes.c_int,) * 5 + (ctypes.c_float,))
+    tail, types = (B, h, w, E, num_heads, float(E // num_heads) ** -0.5), \
+        (ctypes.c_int,) * 5 + (ctypes.c_float,)
+    if sites is not None:
+        entry, tail, types = entry + "_sites", tail + (sites,), types + (ctypes.c_int,)
+    fn = _build.bind("spa_attn_hp", entry, len(ins) + 6, types)
     _build.launch("spa_attn_hp", kernel, fn, q.device,
-                  *(t.data_ptr() for t in (*ins, m, l, dsum, *outs)),
-                  B, h, w, E, num_heads, float(E // num_heads) ** -0.5)
+                  *(t.data_ptr() for t in (*ins, m, l, dsum, *outs)), *tail)
     return (*outs, dsum) if with_dsum else outs
 
 

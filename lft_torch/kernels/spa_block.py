@@ -53,7 +53,10 @@ launches its `_sites` instance, with the mask of its rounding sites: K2.2
 (`qk`, `v`), K2.3 (`score`, `av`; the `_res` form also `wo`, where its attn
 residual rounds), K2.5 and K11.5 (`ffn`, `lin`); a step whose sites all
 round takes `_bf16`, one whose sites all stay f32 the f32 kernel
-(`common.card_fwd`).
+(`common.card_fwd`). A backward plan that splits a K3 step's sites (an
+LFT_MM_HP_BWD_SITES subset) likewise launches its `_sites` instance
+(`common.card_bwd`): K3.a (`wo`, `ffn`, `lin`), K3.b and K3.d (`qk`, `v`),
+K3.c (`score`, `av`); K3.e computes `tok` alone.
 `--dtype bfloat16`: bf16 x runs the five steps in bf16 IO, lft_tpu's K2
 with `io` = bf16 (spa_block.py:_kernel :116-203): each plain step computes
 in f32 from bf16 inputs and rounds at lft_tpu's points (listed at each), and
@@ -89,9 +92,8 @@ import torch.nn.functional as F
 
 from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
-from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_half, d_from_p,
-                                      fwd_kernel, io_kernel, mm_site_plan, no_plan, rd, rounds,
-                                      site_mask)
+from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_bwd, fwd_kernel,
+                                      mm_site_plan, no_plan, rd, rounds, site_mask)
 from lft_torch.kernels.rowgemm import (RG_M, ffn_out_bwd_floats, ffn_out_floats,
                                        outproj_floats, piece, qkv_floats, qkv_ln_bwd_floats,
                                        split_tf32)
@@ -345,7 +347,7 @@ def window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int
     (m, l) of the window step's bf16 form, :503-540): that order over the
     bf16 values, dq, dk, dv summed in f32 and rounded once to bf16. f32:
     D = dattn . attn, or with `attn` None sum_j p_j dp_j (as the kernel
-    forms it; `common.d_from_p`)."""
+    forms it, where the forward rounded)."""
     B, h, w, E = q.shape
     H, dh = num_heads, E // num_heads
     if q.dtype == torch.bfloat16:
@@ -769,18 +771,29 @@ def _bwd_weights(wts: dict) -> dict:
     return dict(wlinT=t(wts["wlin"]), w2T=t(wts["w2"]), w1T=t(wts["w1"]), woT=t(wts["wo"]))
 
 
-def _launch(kernel: str, fn_name: str, ins, outs, ints, dev, half: bool = False, bf=()):
-    """One step's launch, under its `_bf16` name (C function and count) where
-    `half` (the bf16-operand instance), or its `_bf16io` name where `bf`
-    names the inputs (by position) that it takes as bf16."""
-    sfx = "_bf16io" if bf else "_bf16" if half else ""
-    _build.check_cuda_args(kernel + sfx, *(t for i, t in enumerate(ins) if i not in bf))
+def _bwd_name(kernel: str, t: torch.Tensor, plan) -> str:
+    """The launch name of backward step `kernel` for the IO dtype of `t`:
+    its `_bf16io` instance for a bf16 t (no plan), else its f32, `_bf16` or
+    `_sites` instance under the backward plan `plan` (`common.card_bwd`)."""
+    if t.dtype == torch.bfloat16:
+        no_plan(plan, kernel + "_bf16io")
+        return kernel + "_bf16io"
+    return kernel + card_bwd(False, plan, kernel)
+
+
+def _launch(name: str, plan, ins, outs, ints, dev, bf=()):
+    """One step's launch under its name `name` (C function `lft_<name>` and
+    count; `_bwd_name`): a `_sites` instance also takes the mask of its
+    rounding sites under the backward plan `plan`; a `_bf16io` one takes the
+    inputs that `bf` names (by position) as bf16."""
+    if name.endswith("_sites"):
+        ints = (*ints, site_mask(plan, name[:-len("_sites")]))
+    _build.check_cuda_args(name, *(t for i, t in enumerate(ins) if i not in bf))
     if bf:
-        _build.check_cuda_args(kernel + sfx, *(ins[i] for i in bf), dtype=torch.bfloat16)
-    fn = _build.bind("spa_block_bwd", fn_name + sfx, len(ins) + len(outs),
+        _build.check_cuda_args(name, *(ins[i] for i in bf), dtype=torch.bfloat16)
+    fn = _build.bind("spa_block_bwd", "lft_" + name, len(ins) + len(outs),
                      (ctypes.c_int,) * len(ints))
-    _build.launch("spa_block_bwd", kernel + sfx, fn, dev,
-                  *(t.data_ptr() for t in (*ins, *outs)), *ints)
+    _build.launch("spa_block_bwd", name, fn, dev, *(t.data_ptr() for t in (*ins, *outs)), *ints)
 
 
 def _f32(wts: dict, names) -> dict:
@@ -801,13 +814,15 @@ def ffn_out_bwd(attn, tok, dout, wts, plan=None):
     its seven products run 3xTF32 on the tensor cores (`csrc/rowgemm.cuh`),
     the weights split by the launch's first kernels into a scratch of
     `rowgemm.ffn_out_bwd_stream`'s layout; under a mixed plan that rounds
-    every site, one TF32 pass each over bf16-rounded operands
-    (`spa_ffn_out_bwd_bf16`, the weights' bf16 parts in the same layout).
-    bf16 attn, tok and dout launch `spa_ffn_out_bwd_bf16io` (the plain
+    every site (`wo`, `ffn`, `lin`), one TF32 pass each over bf16-rounded
+    operands (`spa_ffn_out_bwd_bf16`, the weights' bf16 parts in the same
+    layout); under one that rounds some of them `spa_ffn_out_bwd_sites`
+    (each product BF or 3xTF32 as its site says, `common.card_bwd`). bf16
+    attn, tok and dout launch `spa_ffn_out_bwd_bf16io` (the plain
     version's bf16 IO: dx2 and dln2 f32, the other outputs bf16)."""
     if attn.device.type != "cuda":
         return ffn_out_bwd_plain(attn, tok, dout, wts, plan)
-    half = card_half(plan, io_kernel("spa_ffn_out_bwd", attn))
+    name = _bwd_name("spa_ffn_out_bwd", attn, plan)
     bio = attn.dtype == torch.bfloat16
     if bio:
         wts = dict(wts, **_f32(wts, ("ln", "wo", "w1", "w2", "wlin")))
@@ -826,10 +841,9 @@ def ffn_out_bwd(attn, tok, dout, wts, plan=None):
     wf = torch.empty(ffn_out_bwd_floats(C), device=tok.device)   # scratch: the split weights
     outs = (e(D), eb(D), eb(D), eb(D), eb(2 * D), eb(2 * D), eb(D),
             torch.empty(ffn_out_bwd_tiles(T), 2, D, device=tok.device))
-    _launch("spa_ffn_out_bwd", "lft_spa_ffn_out_bwd",
-            (attn, tok, dout, wts["ln"], wts["wo"], wts["w1"], wts["w2"], wt["wlinT"],
-             wt["w2T"], wt["w1T"], wt["woT"]), (wf, *outs), (T, C), tok.device, half,
-            (0, 1, 2) if bio else ())
+    _launch(name, plan, (attn, tok, dout, wts["ln"], wts["wo"], wts["w1"], wts["w2"],
+                         wt["wlinT"], wt["w2T"], wt["w1T"], wt["woT"]), (wf, *outs), (T, C),
+            tok.device, (0, 1, 2) if bio else ())
     return outs
 
 
@@ -841,14 +855,15 @@ def ln_qkv(tok, pe_tok, wts, plan=None):
     first kernel into a scratch of `rowgemm.qkv_stream`'s layout. With tok
     from K2.1 all four are the forward's bit for bit. Under a mixed plan that
     rounds every site `spa_ln_qkv_bf16`: the products over bf16-rounded xn,
-    tok and weights (q, k, v then differ from the f32 forward's). bf16 tok
+    tok and weights (q, k, v then differ from the f32 forward's); under one
+    that rounds one of `qk` and `v`, `spa_ln_qkv_sites` (K2.2's `_sites`
+    kernel with the LN1 prologue). bf16 tok
     and pe_tok launch `spa_ln_qkv_bf16io` (xn, q, k, v bf16; pe_tok, the LN
     affine and the weights passed as f32 tensors of their values)."""
     if tok.device.type != "cuda":
         return ln_qkv_plain(tok, pe_tok, wts, plan)
-    name = io_kernel("spa_ln_qkv", tok)
-    if card_half(plan, name):
-        name += "_bf16"
+    name = _bwd_name("spa_ln_qkv", tok, plan)
+    sites = _sites_tail(name, plan, "spa_ln_qkv")
     V, h, w, D = tok.shape
     _check_c("spa_ln_qkv", D // 2)
     if tuple(pe_tok.shape) != (h, w, D) or tuple(wts["wqk"].shape) != (D, 2 * D) \
@@ -863,10 +878,10 @@ def ln_qkv(tok, pe_tok, wts, plan=None):
                            wts["ln"], wts["wqk"], wts["wv"])
     outs = tuple(torch.empty_like(tok) for _ in range(4))
     wf = torch.empty(qkv_floats(D // 2), device=tok.device)   # scratch: the split weights
-    fn = _build.bind("spa_block", "lft_" + name, 10, (ctypes.c_int,) * 3)
+    fn = _build.bind("spa_block", "lft_" + name, 10, (ctypes.c_int,) * (3 + len(sites)))
     _build.launch("spa_block", name, fn, tok.device,
                   *(t.data_ptr() for t in (tok, pe_tok, wts["ln"], wts["wqk"], wts["wv"], wf,
-                                           *outs)), V * h * w, h * w, D // 2)
+                                           *outs)), V * h * w, h * w, D // 2, *sites)
     return outs
 
 
@@ -877,15 +892,17 @@ def window_attn_bwd(q, k, v, attn, dattn, m, l, num_heads: int, ksize: int, plan
     `spa_window_attn_bwd`: `attn` is not read there (the plain version forms
     D from it). Under a mixed plan that rounds every site its bf16-operand
     instance, `spa_window_attn_bwd_bf16` (q, k, v, dattn rounded on load, ds
-    and p before their products); bf16 q, k, v, dattn that instance on bf16
-    tensors, `spa_window_attn_bwd_bf16io` (dq, dk, dv bf16)."""
+    and p before their products); under one that rounds one of `score` and
+    `av`, `spa_window_attn_bwd_sites` (those roundings by the site's bit);
+    bf16 q, k, v, dattn that instance on bf16 tensors,
+    `spa_window_attn_bwd_bf16io` (dq, dk, dv bf16)."""
     if q.device.type != "cuda":
         return window_attn_bwd_plain(q, k, v, attn, dattn, m, l, num_heads, ksize, plan)
-    name = io_kernel("spa_window_attn_bwd", q)
-    half = card_half(plan, name)
-    name += "_bf16" if half else ""
+    name = _bwd_name("spa_window_attn_bwd", q, plan)
+    sites = _sites_tail(name, plan, "spa_window_attn_bwd")
     _check_window(name, q.shape[-1], num_heads, ksize)
-    return spa_attn_hp_bwd(q, k, v, m, l, dattn, num_heads, ksize, kernel=name, half=half)
+    return spa_attn_hp_bwd(q, k, v, m, l, dattn, num_heads, ksize, kernel=name,
+                           half=name.endswith("_bf16"), sites=sites[0] if sites else None)
 
 
 def qkv_ln_bwd(tok, pe_tok, dq, dk, dv, dx2, wts, plan=None):
@@ -895,11 +912,12 @@ def qkv_ln_bwd(tok, pe_tok, dq, dk, dv, dx2, wts, plan=None):
     pass at D = 128: `rowgemm.qkv_ln_bwd_passes`), Wqᵀ, Wkᵀ, Wvᵀ split
     straight from wqk and wv by the launch's first kernel into a scratch of
     `rowgemm.qkv_ln_bwd_stream`'s layout; `spa_qkv_ln_bwd_bf16` under a
-    mixed plan that rounds every site. bf16 tok, pe_tok, dq, dk, dv (dx2
+    mixed plan that rounds `qk` and `v`, `spa_qkv_ln_bwd_sites` under one
+    that rounds one of them. bf16 tok, pe_tok, dq, dk, dv (dx2
     f32) launch `spa_qkv_ln_bwd_bf16io` (dtok bf16; dtokpe, dln1 f32)."""
     if tok.device.type != "cuda":
         return qkv_ln_bwd_plain(tok, pe_tok, dq, dk, dv, dx2, wts, plan)
-    half = card_half(plan, io_kernel("spa_qkv_ln_bwd", tok))
+    name = _bwd_name("spa_qkv_ln_bwd", tok, plan)
     bio = tok.dtype == torch.bfloat16
     V, h, w, D = tok.shape
     T = V * h * w
@@ -916,9 +934,8 @@ def qkv_ln_bwd(tok, pe_tok, dq, dk, dv, dx2, wts, plan=None):
     wf = torch.empty(qkv_ln_bwd_floats(D), device=tok.device)   # scratch: Wqᵀ, Wkᵀ, Wvᵀ split
     outs = (torch.empty_like(tok), torch.empty(T, D, device=tok.device).view(tok.shape),
             torch.empty(ffn_out_bwd_tiles(T), 2, D, device=tok.device))
-    _launch("spa_qkv_ln_bwd", "lft_spa_qkv_ln_bwd",
-            (tok, pe_tok, dq, dk, dv, dx2, wts["ln"], wts["wqk"], wts["wv"]), (wf, *outs),
-            (T, h * w, D // 2), tok.device, half, (0, 2, 3, 4) if bio else ())
+    _launch(name, plan, (tok, pe_tok, dq, dk, dv, dx2, wts["ln"], wts["wqk"], wts["wv"]),
+            (wf, *outs), (T, h * w, D // 2), tok.device, (0, 2, 3, 4) if bio else ())
     return outs
 
 
@@ -926,11 +943,11 @@ def tokenize_bwd(dtok, wts, plan=None):
     """Step e: dx [V, h, w, C] = the 3x3 tokenization transposed, as a
     gather over the 9 taps (on the card 3xTF32 on the tensor cores;
     `spa_tokenize_bwd_bf16`, one TF32 pass over bf16-rounded dtok and taps,
-    under a mixed plan that rounds every site; bf16 dtok launches
+    under a mixed plan that rounds `tok`, its one site; bf16 dtok launches
     `spa_tokenize_bwd_bf16io`, dx bf16)."""
     if dtok.device.type != "cuda":
         return tokenize_bwd_plain(dtok, wts, plan)
-    half = card_half(plan, io_kernel("spa_tokenize_bwd", dtok))
+    name = _bwd_name("spa_tokenize_bwd", dtok, plan)
     bio = dtok.dtype == torch.bfloat16
     if bio:
         wts = dict(wts, wu=wts["wu"].float().contiguous())
@@ -942,8 +959,8 @@ def tokenize_bwd(dtok, wts, plan=None):
                          f"{tuple(dtok.shape)}")
     dx = torch.empty(V, h, w, C, device=dtok.device, dtype=dtok.dtype)
     wf = torch.empty(18 * C * D, device=dtok.device)   # scratch: `tap_weights`' layout
-    _launch("spa_tokenize_bwd", "lft_spa_tokenize_bwd", (dtok, wts["wu"]), (wf, dx),
-            (V * h * w, h, w, C, *tok_tile(h, w, C)), dtok.device, half, (0,) if bio else ())
+    _launch(name, plan, (dtok, wts["wu"]), (wf, dx), (V * h * w, h, w, C, *tok_tile(h, w, C)),
+            dtok.device, (0,) if bio else ())
     return dx
 
 
@@ -991,8 +1008,8 @@ def spa_block_bwd(x, pe_tok, wts, tok, m, l, attn, dout, num_heads: int, k: int,
     Returns (dx, dpe_tok [h, w, D], dln [4, D], dwu [9, C, D], dwqk, dwv,
     dwo, dw1, dw2, dwlin), weight grads in the layouts of `spa_weights`.
     Each step takes its plain version for CPU tensors. `plan`: `--dtype
-    mixed`'s backward plan; `d_from_p`: step c forms D from its own p
-    (`common.d_from_p`; the kernel always does)."""
+    mixed`'s backward plan; `d_from_p`: the forward rounded, so step c forms
+    D from its own p (the kernel always does)."""
     return _bwd(_KERNEL_STEPS, x, pe_tok, wts, tok, m, l, attn, dout, num_heads, k, plan,
                 d_from_p)
 
@@ -1047,12 +1064,11 @@ class SpaBlockFn(torch.autograd.Function):
     def forward(ctx, x, pe_tok, ln, wu, wqk, wv, wo, w1, w2, wlin, num_heads, k, plain, plan,
                 bwd_plan):
         wts = _with_mlp(dict(zip(WEIGHTS, (ln, wu, wqk, wv, wo, w1, w2, wlin))))
-        if not plain and x.device.type == "cuda":   # before the first launch
-            card_half(bwd_plan, "spa_trans_block_fused")
         fwd = spa_block_plain if plain else spa_block
         out, tok, m, l, attn = fwd(x, pe_tok, wts, num_heads, k, with_res=True, plan=plan)
         ctx.save_for_backward(x, pe_tok, ln, wu, wqk, wv, wo, w1, w2, wlin, tok, m, l, attn)
-        ctx.cfg = (num_heads, k, plain, bwd_plan, d_from_p(plan, bwd_plan))
+        # d_from_p: the forward rounded, so the saved attn is not the backward's sum p v
+        ctx.cfg = (num_heads, k, plain, bwd_plan, active(plan) is not None)
         return out
 
     @staticmethod

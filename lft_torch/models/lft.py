@@ -93,7 +93,7 @@ from lft_torch.kernels.ang_attn import ang_attention_pallas
 from lft_torch.kernels.ang_block import (_needs_grad, ang_block_applicable,
                                          ang_block_trainable, ang_trans_block_fused,
                                          ang_trans_block_plain)
-from lft_torch.kernels.common import (active, attention_route, card_plan, kernels_take, mm,
+from lft_torch.kernels.common import (active, attention_route, kernels_take, mm,
                                       mm_hp_sites, mm_site_plan, plain_versions)
 from lft_torch.kernels.spa_block import (spa_block_applicable, spa_trans_block_fused,
                                          spa_trans_block_plain)
@@ -348,8 +348,6 @@ def forward(params: Dict[str, torch.Tensor], lr: torch.Tensor, args,
             plans = dict(plan=active(mm_site_plan(True, mm_hp_sites())),
                          bwd_plan=active(mm_site_plan(True, mm_hp_sites("LFT_MM_HP_BWD_SITES",
                                                                         "none"))))
-            if dev.type == "cuda" and not plain_blocks:
-                card_plan(**plans)
         for i in range(LAYER_NUM):
             t = buf.permute(0, 2, 3, 1, 4).reshape(B * h * w, A * A, C).contiguous()
             t = ang_fn(t, ang_pe, p, f"altblock.{i}.ang_trans.", NUM_HEADS, **plans)

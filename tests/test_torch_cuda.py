@@ -2145,8 +2145,8 @@ def test_mixed_none_forward_on_card(cuda_device, monkeypatch):
     from theirs within 1.5 of it, bitwise on a repeat; under grad its
     forward launches K1 res's and K2.3 res's `_bf16` forms in place of K1's
     and K2.3's (ROADMAP 9g), and under a site subset of the backward plan it
-    raises before any launch, naming ROADMAP 9h-b, grad or not (a forward
-    subset runs: test_mixed_sites_forward_on_card)."""
+    runs (ROADMAP 9h-b): the same forward launches, grad or not (the
+    backward's `_sites` instances: test_mixed_bwd_sites_train_step_on_card)."""
     from lft_torch.kernels import MIXED_FWD, MIXED_TRAIN
     monkeypatch.setenv("LFT_MM_HP_SITES", "none")
     args = Args(channels=16, scale_factor=2, dtype="mixed")
@@ -2173,12 +2173,15 @@ def test_mixed_none_forward_on_card(cuda_device, monkeypatch):
                                                         steps + list(MIXED_TRAIN[:2])}
     monkeypatch.setenv("LFT_MM_HP_BWD_SITES", "qk,ffn")
     reset_launches()
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 9h-b"):
-        lft.forward(p, lr, args)
-    with pytest.raises(NotImplementedError, match="LFT_MM_HP_BWD_SITES.*item 9h-b"):
-        lft.forward(pg, lr, args)
+    with torch.no_grad():
+        assert torch.equal(lft.forward(p, lr, args), got)
     torch.cuda.synchronize()
-    assert not any(LAUNCHES.values())
+    assert {n: c for n, c in LAUNCHES.items() if c} == {n: 4 for n in MIXED_FWD[:6]}
+    reset_launches()
+    lft.forward(pg, lr, args)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {n: 4 for n in
+                                                        steps + list(MIXED_TRAIN[:2])}
 
 
 # --------------------------------------------- LFT_MM_HP_SITES subsets (9h) ---
@@ -2301,3 +2304,110 @@ def test_mixed_sites_forward_on_card(cuda_device, monkeypatch, spec):
         out.square().mean().backward()
         torch.cuda.synchronize()
         assert all(torch.isfinite(t.grad).all() for t in pg.values()), bwd
+
+
+# ------------------------------------- LFT_MM_HP_BWD_SITES subsets (9h-b) ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [SITES_S1, SITES_S2])
+@pytest.mark.parametrize("C", [16, 32, 64])
+def test_mixed_bwd_sites_kernels(cuda_device, C, spec):
+    """Each backward `_sites` instance (K3.a, K3.b, K3.c, K3.d, K4 at A2 = 25
+    and 81) under the subset against its plain version, from the plain f32
+    forward's residuals and the plain chain's inputs under the subset:
+    `_mixed_close` per output (the LN partial sums summed), each launched
+    once and bitwise on a repeat."""
+    from lft_torch.kernels import MIXED_BWD_SITES
+    plan = _plan_sites(spec)
+    g = torch.Generator(device=cuda_device).manual_seed(C + 2 * len(spec))
+    ws = spa_block._with_mlp(spa_block.spa_weights(_params(C, cuda_device), "altblock.2.spa_trans."))
+    xs = torch.randn(2, 17, 40, C, device=cuda_device, generator=g)
+    pe_tok = torch.randn(17, 40, 2 * C, device=cuda_device, generator=g)
+    dout = torch.randn(2, 17, 40, C, device=cuda_device, generator=g)
+    _, tok, m, l, attn = spa_block.spa_block_plain(xs, pe_tok, ws, 8, 5, with_res=True)
+    dx2, dattn = spa_block.ffn_out_bwd_plain(attn, tok, dout, ws, plan)[:2]
+    _, q, k, v = spa_block.ln_qkv_plain(tok, pe_tok, ws, plan)
+    dq, dk, dv = spa_block.window_attn_bwd_plain(q, k, v, attn, dattn, m, l, 8, 5, plan)
+    wa = ang_block.ang_weights(_params(C, cuda_device), "altblock.1.ang_trans.")
+    k4 = {}
+    for N, A2 in ((37, 25), (7, 81)):
+        x = torch.randn(N, A2, C, device=cuda_device, generator=g)
+        pe = torch.from_numpy(angular_position(A2, C)).to(cuda_device)
+        k4[A2] = (x, pe, wa, *ang_block.ang_block_plain(x, pe, wa, 8, with_res=True)[1:],
+                  torch.randn(N, A2, C, device=cuda_device, generator=g), 8)
+    summed = lambda o: (*o[:-1], o[-1].sum(0))
+    steps = {"spa_ffn_out_bwd_sites": (spa_block.ffn_out_bwd, spa_block.ffn_out_bwd_plain,
+                                       (attn, tok, dout, ws), True),
+             "spa_ln_qkv_sites": (spa_block.ln_qkv, spa_block.ln_qkv_plain, (tok, pe_tok, ws),
+                                  False),
+             "spa_window_attn_bwd_sites": (spa_block.window_attn_bwd,
+                                           spa_block.window_attn_bwd_plain,
+                                           (q, k, v, attn, dattn, m, l, 8, 5), False),
+             "spa_qkv_ln_bwd_sites": (spa_block.qkv_ln_bwd, spa_block.qkv_ln_bwd_plain,
+                                      (tok, pe_tok, dq, dk, dv, dx2, ws), True),
+             "ang_block_bwd_sites": (ang_block.ang_block_bwd_ops, ang_block.ang_block_bwd_ops_plain,
+                                     k4[25], True),
+             "ang_block_bwd128_sites": (ang_block.ang_block_bwd_ops,
+                                        ang_block.ang_block_bwd_ops_plain, k4[81], True)}
+    assert set(steps) == set(MIXED_BWD_SITES)
+    for name, (kern, plain, ins, part) in steps.items():
+        reset_launches()
+        got = kern(*ins, plan=plan)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in LAUNCHES.items() if c} == {name: 1}, name
+        again = kern(*ins, plan=plan)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+        ref, ref32 = plain(*ins, plan=plan), plain(*ins)
+        if part:
+            got = summed(got)
+            ref, ref32 = ((*r[:-1], r[-1][0]) for r in (ref, ref32))
+        _mixed_close(got, ref, ref32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fwd,bwd", [("none", SITES_S1), (SITES_S2, SITES_S2),
+                                     ("none", "aqkv,ascore,aav,awo,affn")])
+def test_mixed_bwd_sites_train_step_on_card(cuda_device, monkeypatch, fwd, bwd):
+    """`--dtype mixed` training with both plans set on the card: a forward
+    under grad and its backward launch each kernel as `common.card_plan`
+    names it, 4 times each (K4 as `ang_block_bwd_dp` where the backward
+    keeps K4's sites f32 after a forward under `none`), the gradients finite
+    and their distance from the plain blocks' within 1.5 of the plain
+    blocks' distance from the f32 gradients, and their own distance from the
+    f32 gradients within 1 +- 0.1 of the plain blocks'."""
+    from lft_torch.kernels import common
+    monkeypatch.setenv("LFT_MM_HP_SITES", fwd)
+    monkeypatch.setenv("LFT_MM_HP_BWD_SITES", bwd)
+    plan = common.active(common.mm_site_plan(True, common.mm_hp_sites()))
+    bplan = common.active(common.mm_site_plan(True, common.mm_hp_sites("LFT_MM_HP_BWD_SITES",
+                                                                       "none")))
+    names = common.card_plan(plan, bplan)
+    args = Args(channels=16, scale_factor=2, dtype="mixed")
+    p = _params(16, cuda_device, seed=3)
+    lr = torch.from_numpy(np.random.RandomState(0).rand(2, 1, 80, 80).astype(np.float32))
+    lr = lr.to(cuda_device)
+
+    def grads(a, **kw):
+        pg = {k_: v_.clone().requires_grad_(True) for k_, v_ in p.items()}
+        lft.forward(pg, lr, a, **kw).square().mean().backward()
+        torch.cuda.synchronize()
+        return torch.cat([pg[k_].grad.reshape(-1) for k_ in sorted(pg)])
+
+    reset_launches()
+    g_k = grads(args)
+    got = {n: c for n, c in LAUNCHES.items() if c}
+    kinds = ("ang_block_res", "spa_tokenize_ln", "spa_qkv", "spa_window_attn_res",
+             "spa_outproj_ln", "spa_ffn_out", "spa_ffn_out_bwd", "spa_ln_qkv",
+             "spa_window_attn_bwd", "spa_qkv_ln_bwd", "spa_tokenize_bwd", "ang_block_bwd")
+    assert all(got.get(names[k_]) == 4 for k_ in kinds), got
+    if bwd.startswith("aqkv"):
+        assert names["ang_block_bwd"] == "ang_block_bwd_dp"
+    else:
+        assert {names[k_] for k_ in kinds[6:] if k_ != "spa_tokenize_bwd"} == {
+            k_ + "_sites" for k_ in kinds[6:] if k_ != "spa_tokenize_bwd"}
+    g_p = grads(args, plain_blocks=True)
+    g_f = grads(Args(channels=16, scale_factor=2))
+    assert torch.isfinite(g_k).all()
+    l2 = lambda a, b: float((a - b).double().norm() / b.double().norm())
+    assert l2(g_k, g_p) <= 1.5 * l2(g_p, g_f), (l2(g_k, g_p), l2(g_p, g_f))
+    assert abs(l2(g_k, g_f) / l2(g_p, g_f) - 1) <= 0.1, (l2(g_k, g_f), l2(g_p, g_f))

@@ -199,21 +199,23 @@ def test_forward_plan_gates():
     `_res` forms included (ROADMAP item 9g), and a site subset takes each
     launch's `_sites` instance where it splits the launch's sites, else its
     `_bf16` or f32 one (ROADMAP item 9h; test_torch_sites.py holds the
-    instances); a backward subset raises naming 9h-b (the model checks the
-    plans before its first launch: `card_plan`); `all` and no plan take the
+    instances), and a backward subset takes each backward launch's `_sites`
+    instance likewise (ROADMAP item 9h-b, `card_plan`: every pair of plans
+    runs); `all` and no plan take the
     f32 kernels. K11's two launches take bf16 tensors (`_bf16io`); a bf16
     tensor takes no mixed plan."""
     plan = lambda sites: common.mm_site_plan(True, sites)
     half, f32, some = plan(frozenset()), plan(common.MM_HP_ALL), plan(frozenset({"qk", "lin"}))
     assert common.card_fwd(half, "spa_qkv") == "_bf16" and common.card_fwd(f32, "spa_qkv") == ""
     assert common.card_fwd(None, "spa_qkv") == ""
-    common.card_plan(half, half)
-    common.card_plan(half, f32)
-    common.card_plan(f32, half)
-    common.card_plan(some, half)
-    common.card_plan(some, f32)
-    with pytest.raises(NotImplementedError, match="'lin,qk'.*item 9h-b"):
-        common.card_plan(half, some)
+    assert common.card_plan(half, half)["spa_qkv"] == "spa_qkv_bf16"
+    assert common.card_plan(half, f32)["ang_block_bwd"] == "ang_block_bwd_dp"
+    assert common.card_plan(f32, half)["spa_qkv"] == "spa_qkv"
+    assert common.card_plan(some, half)["spa_ffn_out"] == "spa_ffn_out_sites"
+    assert common.card_plan(some, f32)["spa_ffn_out_bwd"] == "spa_ffn_out_bwd"
+    names = common.card_plan(half, some)   # `lin` and `qk` f32, the rest rounded
+    assert names["spa_ffn_out_bwd"] == "spa_ffn_out_bwd_sites"
+    assert names["spa_ln_qkv"] == "spa_ln_qkv_sites" and names["spa_qkv"] == "spa_qkv_bf16"
     assert common.card_fwd(some, "spa_qkv") == "_sites" == common.card_fwd(some, "spa_ffn_out")
     assert common.card_fwd(some, "spa_tokenize_ln") == "_bf16"
     x32, xb = torch.zeros(2, 4), torch.zeros(2, 4, dtype=torch.bfloat16)

@@ -241,8 +241,10 @@ def test_k3bc_wrappers_plain_on_cpu_and_sources():
     for C_ in (16, 32, 64):
         assert rg.qkv_floats(C_) == 3 * 2 * (2 * C_) ** 2
         assert rg.proj_smem(C_) <= rg.RG_SMEM_MAX
-    assert 'name = io_kernel("spa_window_attn_bwd", q)' in inspect.getsource(sb.window_attn_bwd)
-    assert 'name += "_bf16" if half else ""' in inspect.getsource(sb.window_attn_bwd)
+    assert 'name = _bwd_name("spa_window_attn_bwd", q, plan)' in inspect.getsource(
+        sb.window_attn_bwd)
+    assert 'half=name.endswith("_bf16"), sites=sites[0] if sites else None' in \
+        inspect.getsource(sb.window_attn_bwd)
     c_src = inspect.getsource(hp.spa_attn_hp_bwd)
     for line in ('entry = f"lft_spa_attn_{fam}_bwd_bf16io"',
                  'entry = "lft_spa_attn_hp_bwd" + ("_bf16" if half else "")',

@@ -352,7 +352,9 @@ def test_matmul_precision_flag(prec):
 
 def test_bfloat16_raises_and_card_plans():
     """bfloat16 under grad trains either branch (`fused=False` since ROADMAP
-    item 9e) and takes no mixed plan. The card's plan checks."""
+    item 9e) and takes no mixed plan. The card's instances under the plans
+    (`card_plan`): every pair of plans runs, a backward subset too (ROADMAP
+    item 9h-b: `card_bwd`)."""
     p = lft.init_params(0, Args(channels=C, scale_factor=2), device="cpu")
     for t in p.values():
         t.requires_grad_(True)
@@ -363,18 +365,25 @@ def test_bfloat16_raises_and_card_plans():
     assert parse_args(["--dtype", "mixed"]).dtype == "mixed"
     plan = lambda sites: common.mm_site_plan(True, sites)
     half, f32 = plan(frozenset()), plan(common.MM_HP_ALL)
-    common.card_plan(f32, half)
-    common.card_plan(f32, f32)
-    common.card_plan(None, None)
-    common.card_plan(half, half)
-    common.card_plan(plan(frozenset({"qk"})), half)   # a forward subset: `_build.MIXED_SITES`
+    assert common.card_plan(f32, half)["spa_qkv_ln_bwd"] == "spa_qkv_ln_bwd_bf16"
+    assert common.card_plan(f32, f32)["ang_block_bwd"] == "ang_block_bwd"
+    assert common.card_plan(None, None)["spa_ln_qkv"] == "spa_ln_qkv"
+    assert common.card_plan(half, half)["ang_block_bwd"] == "ang_block_bwd_bf16"
+    # a forward subset: `_build.MIXED_SITES`
+    assert common.card_plan(plan(frozenset({"qk"})), half)["spa_qkv"] == "spa_qkv_sites"
     assert common.card_fwd(plan(frozenset({"qk"})), "spa_qkv") == "_sites"
-    with pytest.raises(NotImplementedError, match="LFT_MM_HP_BWD_SITES=none or all only.*'ffn,qk'"):
-        common.card_plan(f32, plan(frozenset({"qk", "ffn"})))
-    assert common.card_half(half, "k") and not common.card_half(None, "k")
-    assert not common.card_half(f32, "k")
-    with pytest.raises(NotImplementedError, match="k: the card's kernels.*item 9h-b"):
-        common.card_half(plan(frozenset({"qk"})), "k")
+    # a backward subset (`_build.MIXED_BWD_SITES`): qk f32, v rounded
+    names = common.card_plan(f32, plan(frozenset({"qk", "ffn"})))
+    assert names["spa_qkv_ln_bwd"] == "spa_qkv_ln_bwd_sites"
+    assert names["spa_ln_qkv"] == "spa_ln_qkv_sites"
+    assert names["spa_ffn_out_bwd"] == "spa_ffn_out_bwd_sites"
+    assert names["spa_tokenize_bwd"] == "spa_tokenize_bwd_bf16"
+    assert names["ang_block_bwd"] == "ang_block_bwd_bf16"
+    assert common.card_bwd(False, half, "spa_ln_qkv") == "_bf16"
+    assert common.card_bwd(False, None, "spa_ln_qkv") == "" == common.card_bwd(False, f32,
+                                                                                "spa_ln_qkv")
+    assert common.card_bwd(True, f32, "ang_block_bwd") == "_dp"
+    assert common.card_bwd(False, plan(frozenset({"qk"})), "spa_ln_qkv") == "_sites"
     assert common.card_fwd(f32, "spa_qkv") == ""
 
 

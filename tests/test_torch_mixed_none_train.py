@@ -202,13 +202,14 @@ def test_block_vjps_forward_none_backward_all(ref, C):
     """Each block's backward under LFT_MM_HP_BWD_SITES=all from its forward's
     residuals under the plan `none` (K4 and K3 f32, reading bf16-valued
     attn as lft_tpu's f32 backward does, and forming the attention's D from
-    their own p as lft_tpu's do: `common.d_from_p`) against jax.vjp of
+    their own p as lft_tpu's do: `common.card_bwd`'s `_dp`) against jax.vjp of
     lft_tpu's fused block with mm_half under the same two plans, every
     gradient."""
     r = ref["blocks"]
     x, pe, wts, dout = _k1(C)
     _, m, l, attn = ang_block.ang_block_plain(x, pe, wts, H, with_res=True, plan=PLAN)
-    assert common.d_from_p(PLAN, None) and not common.d_from_p(None, PLAN)
+    assert common.card_bwd(True, None, "ang_block_bwd") == "_dp"
+    assert common.card_bwd(False, PLAN, "ang_block_bwd") == "_bf16"
     got = ang_block.ang_block_bwd(x, pe, wts, m, l, attn, dout, H, d_from_p=True)
     for i, g in enumerate(got):
         _mixed_close(g, r[f"k4_{C}_none_{i}"], r[f"k4_{C}_f32_{i}"], f"K4 #{i}")
@@ -272,20 +273,21 @@ def test_card_gates_let_none_train():
     """On the card the forward plan `none` passes under grad (its `_res`
     forms launch `kernels.MIXED_TRAIN`), a forward site subset too (its
     `_sites` forms, ROADMAP item 9h), and a site subset of the backward plan
-    still raises naming ROADMAP item 9h-b."""
+    too (its backward launches' `_sites` forms, ROADMAP item 9h-b)."""
     f32 = common.mm_site_plan(True, common.MM_HP_ALL)
     some = common.mm_site_plan(True, frozenset({"score", "av"}))
-    common.card_plan(PLAN, PLAN)
-    common.card_plan(PLAN, f32)
+    assert common.card_plan(PLAN, PLAN)["ang_block_res"] == "ang_block_res_bf16"
+    assert common.card_plan(PLAN, f32)["ang_block_bwd128"] == "ang_block_bwd128_dp"
     x = torch.zeros(2, 4)
     assert common.fwd_kernel("ang_block_res", x, PLAN) == "ang_block_res_bf16"
     assert common.fwd_kernel("spa_window_attn_res", x, PLAN) == "spa_window_attn_res_bf16"
-    common.card_plan(some, PLAN)
+    assert common.card_plan(some, PLAN)["spa_window_attn_bwd"] == "spa_window_attn_bwd_bf16"
     assert common.fwd_kernel("spa_window_attn_res", x, some) == "spa_window_attn_res_sites"
     assert common.fwd_kernel("ang_block_res", x, some) == "ang_block_res_bf16"
-    with pytest.raises(NotImplementedError, match="LFT_MM_HP_BWD_SITES=none or all only.*"
-                                                  "'av,score'.*item 9h-b"):
-        common.card_plan(PLAN, some)
+    names = common.card_plan(PLAN, some)   # `score` and `av` f32, the rest rounded
+    assert names["spa_window_attn_bwd"] == "spa_window_attn_bwd"
+    assert names["spa_ffn_out_bwd"] == "spa_ffn_out_bwd_bf16"
+    assert names["ang_block_bwd"] == "ang_block_bwd_bf16"
     assert MIXED_TRAIN == ("ang_block_res_bf16", "spa_window_attn_res_bf16", "ang_block_bwd_dp",
                            "ang_block_bwd128_dp")
     assert set(MIXED_TRAIN) <= set(LAUNCHES)

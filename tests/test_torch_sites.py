@@ -252,10 +252,11 @@ def test_forward_under_subset_matches_lft_tpu(ref, monkeypatch, s):
 def test_block_vjps_under_s1_backward_all(ref, C):
     """Each block's backward under LFT_MM_HP_BWD_SITES=all from its forward's
     residuals under S1 (K4 and K3 f32, forming the attention's D from their
-    own p: `common.d_from_p`) against jax.vjp of lft_tpu's fused block with
+    own p: `common.card_bwd`'s `_dp`) against jax.vjp of lft_tpu's fused block with
     mm_half under the same two plans, every gradient."""
     r, r32, plan = ref["blocks_s1"], ref["blocks_s2"], PLANS["s1"]
-    assert common.d_from_p(plan, None) and not common.d_from_p(None, plan)
+    assert common.card_bwd(True, None, "ang_block_bwd") == "_dp"
+    assert common.card_bwd(False, plan, "ang_block_bwd") == "_sites"
     x, pe, wts, dout = _k1(C)
     _, m, l, attn = ang_block.ang_block_plain(x, pe, wts, H, with_res=True, plan=plan)
     got = ang_block.ang_block_bwd(x, pe, wts, m, l, attn, dout, H, d_from_p=True)
@@ -362,9 +363,10 @@ def test_subset_dispatch(s):
 def test_plan_gates():
     """`all` and no plan take the f32 instances and `none` the `_bf16` ones
     (as at the parent: `kernels.MIXED_FWD` and K1 res, K2.3 res); the card
-    takes every forward plan, and a backward subset still raises before the
-    first launch, naming ROADMAP item 9h-b (the model checks it whether or
-    not the call needs a gradient: `card_plan`)."""
+    takes every pair of forward and backward plans (`card_plan`), a backward
+    subset too, each backward launch its f32, `_bf16`, `_sites` (ROADMAP
+    item 9h-b) or, K4, `_dp` instance (tests/test_torch_bwd_sites.py holds
+    the backward's names)."""
     x = torch.zeros(2, 4)
     half, f32 = common.mm_site_plan(True, frozenset()), common.mm_site_plan(True, common.MM_HP_ALL)
     for k in common.KERNEL_SITES:
@@ -373,15 +375,16 @@ def test_plan_gates():
     assert {k + "_bf16" for k in common.KERNEL_SITES} <= set(MIXED_FWD) | {
         "ang_block_res_bf16", "spa_window_attn_res_bf16"}
     for fwd in (None, f32, half, *PLANS.values()):
-        common.card_plan(fwd, half)
-        common.card_plan(fwd, f32)
-        for bwd in PLANS.values():
-            with pytest.raises(NotImplementedError, match="LFT_MM_HP_BWD_SITES=none or all "
-                                                          "only.*item 9h-b"):
-                common.card_plan(fwd, bwd)
-    with pytest.raises(NotImplementedError, match="k: the card's kernels run "
-                                                  "LFT_MM_HP_BWD_SITES.*'ffn,qk'.*9h-b"):
-        common.card_half(common.mm_site_plan(True, frozenset({"qk", "ffn"})), "k")
+        for bwd in (half, f32, *PLANS.values()):
+            names = common.card_plan(fwd, bwd)
+            assert set(names.values()) <= set(LAUNCHES), (fwd, bwd)
+            assert all(names[k] == k + common.card_fwd(fwd, k) for k in common.KERNEL_SITES)
+        assert all(v == k + "_bf16" for k, v in common.card_plan(fwd, half).items()
+                   if k in common.KERNEL_BWD_SITES)
+    some = common.card_plan(None, common.mm_site_plan(True, frozenset({"qk", "ffn"})))
+    assert some["spa_ffn_out_bwd"] == "spa_ffn_out_bwd_sites"
+    assert some["spa_ln_qkv"] == "spa_ln_qkv_sites"
+    assert some["spa_qkv_ln_bwd"] == "spa_qkv_ln_bwd_sites"
     xb = torch.zeros(2, 4, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="a bf16 tensor runs no --dtype mixed plan"):
         common.fwd_kernel("spa_qkv", xb, PLANS["s1"])
