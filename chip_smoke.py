@@ -230,7 +230,8 @@
     the yardstick (`bf16t_err`), K1 res's out and K2.3 res's attn bit for bit
     the serving kernels', a bitwise repeat, each timed in device time beside
     its bound (bf16 bytes, the bf16 rate), `wgrad_bf16io` also beside
-    `torch.mm(x.t(), dy, out_dtype=torch.float32)`, then beside its f32 and
+    `torch.mm(x.t(), dy, out_dtype=torch.float32)` (warm, and with L2
+    flushed by a 512 MB write before each call), then beside its f32 and
     `_bf16` instances in turns; (d) the step's ms under float32, mixed and
     bfloat16, in turns; (e) the train CLI's body under `bfloat16` for 2
     epochs of 2 steps (f32 checkpoints; a resume from the epoch-1 file ends
@@ -3283,7 +3284,9 @@ def bf16_train_kernel_checks(params, card: str, launches: dict, n_steps: int, la
     """Step 24 c: each bf16-training instance against its plain bf16
     version at the train step's shapes (K1 res and K4 [4096, 25, 64], K4
     also [1024, 81, 64], K2.3 res and K3 [100, 32, 32, 64], `wgrad_bf16io`
-    at the step's 8 products), the demo checkpoint's weights cast to bf16,
+    at the step's 8 products and K3's dwo on an f32 dx2, each beside its
+    bound and cuBLAS, warm and with L2 flushed between calls), the demo
+    checkpoint's weights cast to bf16,
     each step fed its plain predecessor's output; the plain f32 version on
     the same values is the yardstick (`bf16t_err`); a bitwise repeat; the
     `kernels` rows, bound at the bf16 rate on bf16 bytes; then each one's
@@ -3297,7 +3300,7 @@ def bf16_train_kernel_checks(params, card: str, launches: dict, n_steps: int, la
     from lft_torch.kernels import wgrad as wg
     from lft_torch.ops.posenc import angular_position, spatial_position
     from lft_torch.ops.unfold import unfold3x3_linear
-    from lft_torch.profile_scene import device_ms
+    from lft_torch.profile_scene import cold_ms, device_ms
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 7)
@@ -3430,6 +3433,10 @@ def bf16_train_kernel_checks(params, card: str, launches: dict, n_steps: int, la
         has_lib = False
         print(f"  torch.mm(..., out_dtype=float32) of bf16 operands is not available ({e}); "
               f"wgrad_bf16io's library time is null", flush=True)
+    # (the f32 dy of dwo: the cast to bf16 and the product, two calls timed
+    # together; dwu's taps: no one cuBLAS call). Each also with L2 flushed
+    # by a 512 MB write before every call (`cold_ms`), as a step finds its
+    # inputs after the kernels between.
     rows = list(STEP_PRODUCTS) + [("K3 dwo, dy = dx2 in f32", 128, 128, None, 4)]
     for i, (what, Kw, Nw, image, per_step) in enumerate(rows):
         x = rand(T, Kw)
@@ -3437,17 +3444,26 @@ def bf16_train_kernel_checks(params, card: str, launches: dict, n_steps: int, la
         got, again = wg.wgrad(x, dy, image), wg.wgrad(x, dy, image)
         ref, ref32 = wg.wgrad_plain(x, dy, image), wg.wgrad_plain(x.float(), dy.float(), image)
         lib = None
-        if has_lib and image is None and dy.dtype == torch.bfloat16:
-            lib = lambda x=x, dy=dy: lib_mm(x, dy)
+        if has_lib and image is None:
+            lib = lambda x=x, dy=dy: lib_mm(x, dy if dy.dtype == torch.bfloat16 else dy.bfloat16())
         pairs_w = T if image is None else V * valid_window_pairs(h, w, 1)
-        rec.record("wgrad_bf16io", "lft_torch/csrc/wgrad.cu", "lft_tpu/kernels/spa_block.py:570",
-                   (got,), (ref,), lambda x=x, dy=dy, im=image: wg.wgrad(x, dy, im),
-                   lambda x=x, dy=dy, im=image: wg.wgrad_plain(x, dy, im),
-                   2 * pairs_w * Kw * Nw, nbytes(x, dy, got), lib_fn=lib, bf16t_ref32=(ref32,),
-                   shape=None if i == 0 else (T, Kw, Nw) + (image or ()), device_time=True,
-                   bf16_products=True)
-        print(f"  wgrad_bf16io {what}: {per_step} a step; repeated bitwise: "
-              f"{torch.equal(got, again)}", flush=True)
+        kern = lambda x=x, dy=dy, im=image: wg.wgrad(x, dy, im)
+        flops, io = 2 * pairs_w * Kw * Nw, nbytes(x, dy, got)
+        ms_k, _, ms_l = rec.record(
+            "wgrad_bf16io", "lft_torch/csrc/wgrad.cu", "lft_tpu/kernels/spa_block.py:570",
+            (got,), (ref,), kern, lambda x=x, dy=dy, im=image: wg.wgrad_plain(x, dy, im), flops,
+            io, lib_fn=lib if i < len(STEP_PRODUCTS) else None, bf16t_ref32=(ref32,),
+            shape=None if i == 0 else (T, Kw, Nw) + (image or ()), device_time=True,
+            bf16_products=True)
+        if i == len(STEP_PRODUCTS) and lib is not None:
+            ms_l = device_ms(lib)
+        b_ms, b_by = rec.bound(flops, io, rec.bf16_peak)
+        c_k, c_l = cold_ms(kern), None if lib is None else cold_ms(lib)
+        print(f"  wgrad_bf16io {what} [{T}, {Kw}]ᵀ[{T}, {Nw}]{'' if image is None else ' 9 taps'}"
+              f" ({card_line()}): bound {b_ms:.4f} ms ({b_by}); warm: kernel {ms_k:.4f} ms, "
+              f"cuBLAS {'-' if ms_l is None else f'{ms_l:.4f} ms'}; L2 flushed: kernel "
+              f"{c_k:.4f} ms, cuBLAS {'-' if c_l is None else f'{c_l:.4f} ms'}; {per_step} a "
+              f"step; repeated bitwise: {torch.equal(got, again)}", flush=True)
         if not torch.equal(got, again):
             raise AssertionError(f"wgrad_bf16io {what} does not repeat bitwise")
         if i in (0, 1):
@@ -4322,7 +4338,7 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
             x2b.reshape(-1, D) @ wsb["wlin"]))
         check("spa_ffn_out_bf16", sb.ffn_out, sb.ffn_out_plain, (xn2, x2, ws),
               2 * T * (4 * D * D + D * C), nbytes(xn2, x2) + T * C * 4
-              + wbytes("w1", "w2", "wlin"), lib=ffn)
+              + wbytes("w1", "w2", "wlin"), lib=ffn, src_="ffn_bf16.cuh")
         # K11's two on the f32 buffer: x pixel-major, the output pixel-major
         tokp = lambda x_, pe_, ws_, plan=None: sb.tokenize_ln(x_, pe_, ws_, True, plan=plan)
         tokp_p = lambda x_, pe_, ws_, plan=None: sb.tokenize_ln_plain(to_vm(x_), pe_, ws_, plan)
@@ -4334,7 +4350,7 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
         ffp_p = lambda a_, b_, ws_, plan=None: to_pm(sb.ffn_out_plain(a_, b_, ws_, plan))
         check("spa_ffn_out_pm_bf16", ffp, ffp_p, (xn2, x2, ws), 2 * T * (4 * D * D + D * C),
               nbytes(xn2, x2) + T * C * 4 + wbytes("w1", "w2", "wlin"), replaces=rep,
-              recorder=rec_pm, lib=ffn)
+              recorder=rec_pm, lib=ffn, src_="ffn_bf16.cuh")
         rows += rec.rows + rec_pm.rows
         del xs, tok, xn, attn, x2, xn2, xf, conv, ffn, wsb
 

@@ -38,6 +38,21 @@ steps of this checkout, in the same turns, each held to the plain chain:
 the chain's device time and, within it, that of its step 5 (K2.5 or
 K11.5), the step that reads what step 4 wrote. Prints the card's name and power limit first. Exits
 non-zero without a card.
+
+    python3 -m lft_torch.compare_blocks --ffn-bf16 OTHER_SPA_BLOCK_CU
+
+(or the other checkout's built `libspa_block_<hash>.so`, loaded as it is)
+times K2.5's `_bf16` instance alone (`spa_ffn_out_bf16`, `--dtype mixed`
+under LFT_MM_HP_SITES=none) against the other revision's, whose C entries
+`lft_spa_ffn_out_bf16(xn2, x2, w1, w2, wlin, wf, out, T, C, stream)` and
+`lft_spa_ffn_out_pm_bf16(..., out, Bb, hw, A2, C, stream)` take a scratch
+of `rowgemm.ffn_out_floats(C)` floats (the TF32 stream of commits 9453b3c
+to 4761636): at [400, 32, 32, 64] and [100, 32, 32, 64], and K11.5's
+`spa_ffn_out_pm_bf16` at [16, 32, 32, 25, 64], both
+builds against the plain version under the plan `none` (L2-relative 1e-3
+and 1/10 of its mixed-vs-f32 distance), a bitwise repeat, timed in device
+time other, this, this, other beside the bound (0.52 GB of f32 rows at
+3.35 TB/s at the larger shape) and the three cuBLAS bf16 products.
 """
 
 from __future__ import annotations
@@ -140,14 +155,103 @@ def _tuple(t):
     return t if isinstance(t, tuple) else (t,)
 
 
+def _ffn_bf16_main(other_spa: str) -> int:
+    """`--ffn-bf16` (the module docstring)."""
+    import ctypes
+
+    from lft_torch.device import resolve_device
+    from lft_torch.kernels import _build
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.kernels.common import mm_site_plan
+    from lft_torch.kernels.rowgemm import ffn_out_floats
+    from lft_torch.profile_scene import device_ms
+    from lft_torch.utils.checkpoint import load_checkpoint
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    dev = resolve_device()
+    params, _, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
+                                                "LFT_5x5_4x_synth3000.pth"), device=dev)
+    ws = sb.spa_weights(params, "altblock.0.spa_trans.")
+    none = mm_site_plan(True, frozenset())
+    C, h, w = 64, 32, 32
+    D = 2 * C
+    wsb = {k: v.to(torch.bfloat16) for k, v in ws.items()}
+    g = torch.Generator(device=dev).manual_seed(0)
+    l2 = lambda a_, b_: float((a_.double() - b_.double()).norm() / b_.double().norm())
+    with tempfile.TemporaryDirectory() as tmp:
+        spa = ctypes.CDLL(other_spa) if other_spa.endswith(".so") else \
+            _build.build_library(other_spa, tmp, "other_spa_block")
+        fn, fn_pm = spa.lft_spa_ffn_out_bf16, spa.lft_spa_ffn_out_pm_bf16
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn_pm.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+        def other(xn2, x2, views=None):
+            wf = torch.empty(ffn_out_floats(C), device=dev)
+            ptrs = (xn2.data_ptr(), x2.data_ptr(),
+                    *(ws[n].data_ptr() for n in ("w1", "w2", "wlin")), wf.data_ptr())
+            stream = torch.cuda.current_stream().cuda_stream
+            if views is None:
+                out = torch.empty(*x2.shape[:-1], C, device=dev)
+                rc = fn(*ptrs, out.data_ptr(), x2.numel() // D, C, stream)
+            else:
+                V_, h_, w_ = x2.shape[:-1]
+                out = torch.empty(V_ // views, h_, w_, views, C, device=dev)
+                rc = fn_pm(*ptrs, out.data_ptr(), V_ // views, h_ * w_, views, C, stream)
+            if rc:
+                raise RuntimeError("the other spa_ffn_out[_pm]_bf16 failed to launch")
+            return out
+
+        for V, A2 in ((400, None), (100, None), (400, 25)):
+            xn2 = torch.randn(V, h, w, D, device=dev, generator=g)
+            x2 = torch.randn(V, h, w, D, device=dev, generator=g)
+            ref = sb.ffn_out_plain(xn2, x2, ws, none)
+            gap = l2(sb.ffn_out_plain(xn2, x2, ws), ref)
+            if A2 is not None:
+                ref = sb._to_pixel_major(ref, A2)
+            builds = (lambda: other(xn2, x2, A2), lambda: sb.ffn_out(xn2, x2, ws, A2, plan=none))
+            dist = []
+            for f in builds:
+                got = f()
+                d = l2(got, ref)
+                if not (d <= 1e-3 and d <= 0.1 * gap):
+                    raise AssertionError(f"spa_ffn_out[_pm]_bf16 [{V}, {h}, {w}, {C}]: a build "
+                                         f"is {d:.3e} from the plain version (gap {gap:.3e})")
+                if not torch.equal(got, f()):
+                    raise AssertionError("spa_ffn_out_bf16: a build does not repeat bitwise")
+                dist.append(d / gap)
+            t = [device_ms(builds[0]), device_ms(builds[1]), device_ms(builds[1]),
+                 device_ms(builds[0])]
+            xb, x2b = xn2.reshape(-1, D).bfloat16(), x2.reshape(-1, D).bfloat16()
+            hid = torch.empty(xb.shape[0], 2 * D, device=dev, dtype=torch.bfloat16)
+            lib = device_ms(lambda: (torch.mm(xb, wsb["w1"], out=hid), hid @ wsb["w2"],
+                                     x2b @ wsb["wlin"]))
+            bound = (2 * xn2.numel() + V * h * w * C) * 4 / 3.35e12 * 1e3
+            what = (f"spa_ffn_out_bf16 [{V}, {h}, {w}, {C}]" if A2 is None else
+                    f"spa_ffn_out_pm_bf16 [{V // A2}, {h}, {w}, {A2}, {C}]")
+            print(f"{what}: other {t[0]:.4f} / {t[3]:.4f} ms, "
+                  f"this {t[1]:.4f} / {t[2]:.4f} ms, bound {bound:.4f} ms (bytes), its three "
+                  f"cuBLAS bf16 products {lib:.4f} ms; L2 from the plain version as a share of "
+                  f"its mixed-vs-f32 distance: other {dist[0]:.4f}, this {dist[1]:.4f}",
+                  flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other_spa", help="path of the other revision's spa_block.cu")
-    ap.add_argument("other_ang", help="path of the other revision's ang_block.cu")
+    ap.add_argument("other_ang", nargs="?", help="path of the other revision's ang_block.cu")
+    ap.add_argument("--ffn-bf16", action="store_true",
+                    help="K2.5's `_bf16` instance alone against the other spa_block.cu's")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_blocks: no CUDA device is available", file=sys.stderr)
         return 1
+    if a.ffn_bf16:
+        return _ffn_bf16_main(a.other_spa)
+    if a.other_ang is None:
+        ap.error("OTHER_ANG_BLOCK_CU is needed without --ffn-bf16")
     from lft_torch.device import resolve_device
     from lft_torch.kernels import ang_block as ab
     from lft_torch.kernels import spa_block as sb

@@ -5,9 +5,12 @@ code: the ptxas registers and spills of every kernel, both builds.
 
 OTHER_CSRC_DIR holds another revision's whole `lft_torch/csrc` (e.g. `git
 archive <commit> lft_torch/csrc` unpacked into a git-ignored directory such
-as `ab/`). Each source of this checkout is built as `chip_smoke.py` builds
-it (`kernels._build.build_all`, whose ptxas report is kept beside each
-library) and each source of the other revision with the same flags. Kernels
+as `ab/`), or is another checkout's `lft_torch/build` after its
+`build_all` (its ptxas reports `lib<source>_<hash>.so.log` are read, and
+nothing is compiled). Each source of this checkout is built as
+`chip_smoke.py` builds it (`kernels._build.build_all`, whose ptxas report is
+kept beside each library) and each source of the other revision with the
+same flags. Kernels
 are named by their demangled names (`compare_bwd.ptxas_report`); a kernel that gained trailing
 `float` template arguments here (the IO types of `--dtype bfloat16`'s
 `_bf16io` instances: K1-K4's, `wgrad`'s two operands, K7's and K8's
@@ -18,7 +21,9 @@ K5's backward passes), in any order, or a trailing `true` after a
 `__nv_bfloat16` IO type (the `BF` switch that K1's, K2.4's and K2.5's
 bf16-IO instances always set, made its own template argument for the
 bf16-operand forward instances of `--dtype mixed`), is matched to the other
-build's kernel without them. Prints every
+build's kernel without them; so is a kernel that lost its trailing `float`
+IO types here (`wgrad`'s f32 kernels once `wgrad_bf16io` had kernels of
+its own). Prints every
 matched pair's registers, spill stores and loads, and each side's unmatched
 kernels (here: the newer bf16 instances). Exits 1 if a matched pair differs
 or an old kernel is missing. Needs nvcc, not a card.
@@ -90,6 +95,13 @@ def reports(csrc_other: str) -> tuple:
         with open(lib + ".log") as f:
             ours[src] = ptxas_report(f.read())
     theirs = {}
+    logs = {f[3:].rsplit("_", 1)[0]: f for f in os.listdir(csrc_other) if f.endswith(".so.log")}
+    if logs:
+        for src in _build.SOURCES:
+            if src in logs:
+                with open(os.path.join(csrc_other, logs[src])) as f:
+                    theirs[src] = ptxas_report(f.read())
+        return ours, theirs
     with tempfile.TemporaryDirectory() as tmp:
         for src in _build.SOURCES:
             path = os.path.join(csrc_other, f"{src}.cu")
@@ -114,9 +126,10 @@ def main(argv=None) -> int:
     for src in sorted(theirs):
         new = ours.get(src, {})
         old_by = {bare(k): r for k, r in theirs[src].items()}
+        old_io = {without_io(k): k for k in old_by if k.endswith(", float>")}
         matched = set()
         for name, r in sorted(new.items()):
-            key = match(bare(name), old_by)
+            key = match(bare(name), old_by) or old_io.get(bare(name))
             if key is None:
                 print(f"{src}: new only  {name}: {r[0]} registers, spills {r[1]}/{r[2]} B")
                 continue

@@ -70,7 +70,9 @@
 // operands round: tok, xn, x2 = attn Wo + tok, LN2, y = hid W2 + x2 and the
 // output stay f32, as in the plain version; K2.3 takes lft_tpu's softmax
 // (window_attn.cuh). The bytes are K2's f32 ones and the products run at the
-// bf16 rate, so steps 1 and 5 become bound by bytes too.
+// bf16 rate, so steps 1 and 5 become bound by bytes too. Step 5's instance,
+// and K11.5's, keep their bf16 weights resident and run bf16 `wgmma`
+// (ffn_bf16.cuh).
 //
 // `--dtype mixed` under an LFT_MM_HP_SITES subset (lft_tpu's K2 with that
 // plan, spa_block.py:131-203): a step whose sites all round takes its
@@ -84,6 +86,7 @@
 // LFT_MM_HP_BWD_SITES subset that splits `qk` from `v` is K2.2's `_sites`
 // kernel with the LN1 prologue (`lft_spa_ln_qkv_sites`).
 
+#include "ffn_bf16.cuh"
 #include "rowgemm.cuh"
 #include "spa.cuh"
 #include "tokenize.cuh"
@@ -410,10 +413,9 @@ struct FfnOut {
 // ffn_out_stream), written by rg_weights_kernel. IO = bf16
 // (`spa_ffn_out_bf16io`): xn2, x2, out bf16, BF products, hid = bf16(relu),
 // y = bf16(bf16(hid W2) + x2), out = bf16(y Wlin); bound at [400, 32, 32,
-// 64]: 60.4 GFLOP at the bf16 rate 0.061 ms, 0.26 GB 0.078 ms: bytes. BF
-// with IO = float (`spa_ffn_out_bf16`): xn2, hid, y and the weights rounded
-// to bf16 in the products, hid = relu(xn2 W1) and y = hid W2 + x2 f32, out
-// f32; 0.52 GB, 0.157 ms: bytes.
+// 64]: 60.4 GFLOP at the bf16 rate 0.061 ms, 0.26 GB 0.078 ms: bytes.
+// (`--dtype mixed`'s `spa_ffn_out[_pm]_bf16` have a kernel of their own,
+// ffn_bf16.cuh.)
 // SITES (`spa_ffn_out[_pm]_sites`, `--dtype mixed` under an LFT_MM_HP_SITES
 // subset; IO = float, BF = false): W1 and W2 BF where `ffn` rounds (S_FFN
 // of `sites`), Wlin where `lin` does, 3xTF32 elsewhere; wf split piece by
@@ -518,7 +520,7 @@ int tokenize_ln(const IO* x, const IO* pe_tok, const float* wu, float* wf, const
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool PM, class IO = float, bool BF = is_bf16<IO>, bool SITES = false>
+template <bool PM, class IO = float, bool SITES = false>
 int ffn_out(const IO* xn2, const IO* x2, const float* w1, const float* w2,
             const float* wlin, float* wf, IO* out, int T, int hw, int A2, int C,
             cudaStream_t s, int sites = 0) {
@@ -535,8 +537,8 @@ int ffn_out(const IO* xn2, const IO* x2, const float* w1, const float* w2,
     ps.p[n++] = RgPiece{wlin, CC, F::D, CC, F::OFF_LIN};
     if constexpr (SITES)   // W1, W2: ffn; Wlin: lin
       for (int i = 0; i < n; ++i) ps.p[i].bf = (sites & (i + 1 < n ? S_FFN : S_LIN)) != 0;
-    launch_rg_weights(ps, n, wf, s, BF, SITES);
-    auto kernel = spa_ffn_out_kernel<CC, PM, IO, BF, SITES>;
+    launch_rg_weights(ps, n, wf, s, is_bf16<IO>, SITES);
+    auto kernel = spa_ffn_out_kernel<CC, PM, IO, is_bf16<IO>, SITES>;
     LFT_SET_SMEM(kernel, F::BYTES);
     kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(xn2, x2, wf, out, T, hw, A2,
                                                                     sites);
@@ -982,13 +984,19 @@ extern "C" int lft_spa_ffn_out(const float* xn2, const float* x2, const float* w
 }
 
 // Step 5's bf16-operand instance (`--dtype mixed` serving under
-// LFT_MM_HP_SITES=none): the same arguments, wf holding the weights' bf16
-// parts.
+// LFT_MM_HP_SITES=none): the same arguments, wf a scratch of
+// FfnBf16<C>::ELEMS bf16 values (kernels/rowgemm.py:ffn_out_bf16_floats
+// floats) for the weights rounded to bf16; its own kernel (ffn_bf16.cuh:
+// resident bf16 weights, bf16 `wgmma`).
 extern "C" int lft_spa_ffn_out_bf16(const float* xn2, const float* x2, const float* w1,
                                     const float* w2, const float* wlin, float* wf, float* out,
                                     int T, int C, void* stream) {
-  return ffn_out<false, float, true>(xn2, x2, w1, w2, wlin, wf, out, T, 1, 1, C,
-                                     static_cast<cudaStream_t>(stream));
+  const auto s = static_cast<cudaStream_t>(stream);
+  bf16* wb = reinterpret_cast<bf16*>(wf);
+  LFT_DISPATCH_C(C, {
+    return launch_ffn_bf16<CC, false>(xn2, x2, w1, w2, wlin, wb, out, T, 1, 1, s);
+  });
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Step 5's site-subset instance (`--dtype mixed` under an LFT_MM_HP_SITES
@@ -998,8 +1006,8 @@ extern "C" int lft_spa_ffn_out_bf16(const float* xn2, const float* x2, const flo
 extern "C" int lft_spa_ffn_out_sites(const float* xn2, const float* x2, const float* w1,
                                      const float* w2, const float* wlin, float* wf, float* out,
                                      int T, int C, int sites, void* stream) {
-  return ffn_out<false, float, false, true>(xn2, x2, w1, w2, wlin, wf, out, T, 1, 1, C,
-                                            static_cast<cudaStream_t>(stream), sites);
+  return ffn_out<false, float, true>(xn2, x2, w1, w2, wlin, wf, out, T, 1, 1, C,
+                                     static_cast<cudaStream_t>(stream), sites);
 }
 
 // Step 5's bf16-IO instance: xn2, x2, out bf16; the weights f32 (their bf16
@@ -1013,14 +1021,14 @@ extern "C" int lft_spa_ffn_out_bf16io(const bf16* xn2, const bf16* x2, const flo
 
 namespace {
 
-template <class IO, bool BF = is_bf16<IO>, bool SITES = false>
+template <class IO, bool SITES = false>
 int ffn_out_pm(const IO* xn2, const IO* x2, const float* w1, const float* w2, const float* wlin,
                float* wf, IO* out, int Bb, int hw, int A2, int C, cudaStream_t s,
                int sites = 0) {
   if (Bb < 1 || A2 < 1 || hw < 1 || static_cast<long long>(Bb) * A2 * hw > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  return ffn_out<true, IO, BF, SITES>(xn2, x2, w1, w2, wlin, wf, out, Bb * A2 * hw, hw, A2, C, s,
-                                      sites);
+  return ffn_out<true, IO, SITES>(xn2, x2, w1, w2, wlin, wf, out, Bb * A2 * hw, hw, A2, C, s,
+                                  sites);
 }
 
 }  // namespace
@@ -1034,12 +1042,21 @@ extern "C" int lft_spa_ffn_out_pm(const float* xn2, const float* x2, const float
                            static_cast<cudaStream_t>(stream));
 }
 
-// Its bf16-operand instance: as lft_spa_ffn_out_bf16.
+// Its bf16-operand instance: the arguments of lft_spa_ffn_out_pm, wf the
+// scratch of lft_spa_ffn_out_bf16, whose kernel it launches with the output
+// pixel-major (so that K11 under the plan `none` is view-major K2's chain bit
+// for bit).
 extern "C" int lft_spa_ffn_out_pm_bf16(const float* xn2, const float* x2, const float* w1,
                                        const float* w2, const float* wlin, float* wf, float* out,
                                        int Bb, int hw, int A2, int C, void* stream) {
-  return ffn_out_pm<float, true>(xn2, x2, w1, w2, wlin, wf, out, Bb, hw, A2, C,
-                                 static_cast<cudaStream_t>(stream));
+  if (Bb < 1 || A2 < 1 || hw < 1 || static_cast<long long>(Bb) * A2 * hw > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  bf16* wb = reinterpret_cast<bf16*>(wf);
+  LFT_DISPATCH_C(C, {
+    return launch_ffn_bf16<CC, true>(xn2, x2, w1, w2, wlin, wb, out, Bb * A2 * hw, hw, A2, s);
+  });
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Its site-subset instance: as lft_spa_ffn_out_sites.
@@ -1047,8 +1064,8 @@ extern "C" int lft_spa_ffn_out_pm_sites(const float* xn2, const float* x2, const
                                         const float* w2, const float* wlin, float* wf,
                                         float* out, int Bb, int hw, int A2, int C, int sites,
                                         void* stream) {
-  return ffn_out_pm<float, false, true>(xn2, x2, w1, w2, wlin, wf, out, Bb, hw, A2, C,
-                                        static_cast<cudaStream_t>(stream), sites);
+  return ffn_out_pm<float, true>(xn2, x2, w1, w2, wlin, wf, out, Bb, hw, A2, C,
+                                 static_cast<cudaStream_t>(stream), sites);
 }
 
 // Its bf16-IO instance: as lft_spa_ffn_out_bf16io, out pixel-major (a (pixel,

@@ -16,8 +16,12 @@ wrapper allocates. `piece` and the `*_stream` functions are that
 preparation in plain PyTorch, which the CPU tests emulate the kernels from;
 `*_floats` are the scratch sizes and `*_smem` the shared memory the kernels
 take (`RowProj`, `FfnOut`, `FfnOutBwd`, `AngLayout`, `AngBwdTok`,
-`QkvLnBwd` in the sources). A backward's transposed weights are split
-straight from the forward's (`RgPiece::tr`): no transposed copy is made.
+`QkvLnBwd` in the sources). K2.5's `_bf16` instance (`csrc/ffn_bf16.cuh`)
+runs bf16 `wgmma` on its three weights held whole in shared memory:
+`bf16_piece` and `ffn_out_bf16_stream` are its weights' layout,
+`ffn_out_bf16_floats` and `ffn_out_bf16_smem` its sizes (`FfnBf16`). A
+backward's transposed weights are split straight from the forward's
+(`RgPiece::tr`): no transposed copy is made.
 """
 
 from __future__ import annotations
@@ -62,6 +66,17 @@ def piece(B: torch.Tensor, split=split_tf32_rn) -> torch.Tensor:
     hi, lo = split(B)
     f = torch.stack([hi, lo]).reshape(2, K // 8, 2, 4, N // 8, 8)
     return f.permute(1, 0, 2, 4, 5, 3).reshape(-1)
+
+
+def bf16_piece(B: torch.Tensor) -> torch.Tensor:
+    """One K x N weight matrix as K2.5's bf16 kernel reads it (`csrc/
+    ffn_bf16.cuh`), flat: rounded to bf16 (to nearest even) and laid out
+    [K / 16, 2, N / 8, 8, 8]: (k16 step kk, k half kh, n8 tile j, row n, t)
+    holds B[16 kk + 8 kh + t][8 j + n], the K-major core matrices (8
+    columns x 8 k, 128 bytes each) bf16 `wgmma` reads without swizzle."""
+    K, N = B.shape
+    f = B.to(torch.bfloat16).reshape(K // 16, 2, 8, N // 8, 8)
+    return f.permute(0, 1, 3, 4, 2).reshape(-1)
 
 
 def hidden_chunk(width: int) -> int:
@@ -204,6 +219,13 @@ def ffn_out_stream(wts: dict) -> torch.Tensor:
     return torch.cat([piece(p) for p in ffn_out_pieces(wts["w1"], wts["w2"], wts["wlin"])])
 
 
+def ffn_out_bf16_stream(wts: dict) -> torch.Tensor:
+    """Plain version of the `spa_ffn_out_bf16` launches' weight preparation
+    (`ffn_bf16_weights_kernel`): W1, W2 and Wlin whole, each a `bf16_piece`,
+    bf16 values."""
+    return torch.cat([bf16_piece(wts[n]) for n in ("w1", "w2", "wlin")])
+
+
 def ang_block_stream(wts: dict) -> torch.Tensor:
     """Plain version of the K1 launches' weight preparation."""
     return torch.cat([piece(p) for p in ang_block_pieces(wts)])
@@ -224,6 +246,13 @@ def ffn_out_floats(C: int) -> int:
     """Floats of K2.5's weight stream (FfnOut<C>::FLOATS)."""
     D = 2 * C
     return 2 * (4 * D * D + D * C)
+
+
+def ffn_out_bf16_floats(C: int) -> int:
+    """f32 words of `spa_ffn_out_bf16`'s scratch: its FfnBf16<C>::ELEMS =
+    4 D^2 + D C bf16 values, two a word."""
+    D = 2 * C
+    return (4 * D * D + D * C) // 2
 
 
 def ffn_out_bwd_floats(C: int) -> int:
@@ -270,6 +299,13 @@ def ffn_out_smem(C: int) -> int:
     D = 2 * C
     tiles = RG_M * (D + 4 + hidden_chunk(D) + 4) * 4
     return tiles + ring_slots(tiles) * RG_SF * 4
+
+
+def ffn_out_bf16_smem(C: int) -> int:
+    """Shared memory of a `spa_ffn_out_bf16` block: the bf16 weights and
+    the rows of xn2 [128, 2C + 8] (FfnBf16<C>::BYTES)."""
+    D = 2 * C
+    return 4 * ffn_out_bf16_floats(C) + RG_M * (D + 8) * 4
 
 
 def ffn_out_bwd_smem(C: int) -> int:

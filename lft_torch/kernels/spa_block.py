@@ -94,9 +94,9 @@ from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
 from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_bwd, fwd_kernel,
                                       mm_site_plan, no_plan, rd, rounds, site_mask)
-from lft_torch.kernels.rowgemm import (RG_M, ffn_out_bwd_floats, ffn_out_floats,
-                                       outproj_floats, piece, qkv_floats, qkv_ln_bwd_floats,
-                                       split_tf32)
+from lft_torch.kernels.rowgemm import (RG_M, ffn_out_bf16_floats, ffn_out_bwd_floats,
+                                       ffn_out_floats, outproj_floats, piece, qkv_floats,
+                                       qkv_ln_bwd_floats, split_tf32)
 from lft_torch.kernels.spa_attn_hp import (_gather_window, _hp_geometry_exists,
                                            _scatter_window, _window_probs, _window_valid,
                                            spa_attn_hp_bwd)
@@ -733,7 +733,9 @@ def ffn_out(xn2, x2, wts, views=None, plan=None):
     tensor cores (`csrc/rowgemm.cuh`), the weights split by the launch's
     first kernel into a scratch of `rowgemm.ffn_out_stream`'s layout. bf16
     xn2 and x2 launch `spa_ffn_out[_pm]_bf16io` (bf16 out); the plan `none`
-    `spa_ffn_out[_pm]_bf16`."""
+    `spa_ffn_out[_pm]_bf16` (bf16 `wgmma` on the weights rounded to bf16
+    into `rowgemm.ffn_out_bf16_stream`'s layout and held whole in shared
+    memory, `csrc/ffn_bf16.cuh`)."""
     if xn2.device.type != "cuda":
         out = ffn_out_plain(xn2, x2, wts, plan)
         return out if views is None else _to_pixel_major(out, views)
@@ -754,7 +756,9 @@ def ffn_out(xn2, x2, wts, views=None, plan=None):
     if tuple(wts["w1"].shape) != (D, 2 * D) or tuple(wts["wlin"].shape) != (D, C):
         raise ValueError(f"{name}: w1 {tuple(wts['w1'].shape)}, wlin "
                          f"{tuple(wts['wlin'].shape)} for x2 {tuple(x2.shape)}")
-    wf = torch.empty(ffn_out_floats(C), device=x2.device)   # scratch: the split weights
+    # scratch: the split weights (the bf16 ones of `spa_ffn_out_bf16`)
+    wf = torch.empty(ffn_out_bf16_floats(C) if name.endswith("_bf16") else
+                     ffn_out_floats(C), device=x2.device)
     fn = _build.bind("spa_block", "lft_" + name, 7, (ctypes.c_int,) * (len(dims) + len(sites)))
     _build.launch("spa_block", name, fn, x2.device, xn2.data_ptr(),
                   x2.data_ptr(), wk["w1"].data_ptr(), wk["w2"].data_ptr(),

@@ -24,9 +24,10 @@ rounded to bf16 and the product is one TF32 pass, accumulated in f32 in
 the same order, counted as `wgrad_bf16`. A bf16 x (`--dtype bfloat16`
 training: lft_tpu's weight grads over its bf16 operands) launches
 `wgrad_bf16io`: x and dy bf16 in memory, or dy f32 (K3's and K4's dx2)
-rounded to bf16 as it is loaded, the same slices, order and f32 sums, an
-f32 result. On a CPU tensor each takes its plain version; the `*_plain`
-functions run anywhere.
+rounded to bf16 as it is loaded, bf16 products with f32 sums over the
+slices of `bf16io_cut`, whose clusters of Z blocks add their partials in
+shared memory before the column sum; an f32 result. On a CPU tensor each
+takes its plain version; the `*_plain` functions run anywhere.
 """
 
 from __future__ import annotations
@@ -50,6 +51,12 @@ TILE, SMALL_TILE, TAP_TILE = (128, 128), (64, 64), (64, 32)
 # portable maximum) splits the rows
 CS_THREADS, CS_MAX = 512, 8
 CS_FILL = 2 * SMS      # blocks wanted in flight
+# wgrad_bf16io: tokens of a stage (one chain of 4 k16 MMAs), stages of its
+# ring, blocks of a cluster that add their slices' partials in shared memory
+# (pairs: at one block an SM an H100 holds 66 clusters of 2 at once, but
+# only 30 of 4 or 15 of 8, 120 SMs, and a second wave of clusters doubled
+# the time) and the most the kernels take (the portable maximum)
+BIO_BT, BIO_STAGES, BIO_CLUSTER, BIO_CL_MAX = 64, 4, 2, 8
 
 
 def tile(N: int, taps: int = 1):
@@ -66,6 +73,35 @@ def splits(T: int, K: int, N: int, taps: int = 1) -> int:
     (tk, tn), fill = tile(N, taps)
     tiles = -(-K // tk) * -(-N // tn)
     return max(1, min(-(-T // ROWS), -(-fill // tiles)))
+
+
+def bf16io_cut(T: int, K: int, N: int, taps: int = 1):
+    """(S, Z) of a `wgrad_bf16io` product: S slices, `splits`' count cut
+    down to a multiple of Z, in clusters of Z <= BIO_CLUSTER blocks that add
+    their partials in rank order; S / Z partials go to the column sum (none
+    where S = Z). A function of the shapes only, so the order of every sum
+    is fixed."""
+    s = splits(T, K, N, taps)
+    z = min(BIO_CLUSTER, s)
+    return s // z * z, z
+
+
+def bf16io_smem(N: int, taps: int = 1, f32_dy: bool = False) -> int:
+    """Shared memory of a `wgrad_bf16io` block (BioTile / BioTaps in the
+    source): the ring of BIO_STAGES stages (X rows padded by 8 bf16 values,
+    dY by 8 bf16 or 4 f32 ones; with taps three row bands of BIO_BT + 2
+    tokens and a mask a token), or the block's f32 partial [rows][cols + 8]
+    where that is larger; with taps a zero row of 64 bf16 values after
+    them."""
+    ye = 4 if f32_dy else 2
+    if taps == 9:
+        wn = TAP_TILE[1]
+        stage = 3 * (BIO_BT + 2) * (64 + 8) * 2 + BIO_BT * (wn + (4 if f32_dy else 8)) * ye \
+            + BIO_BT * 4
+        return max(BIO_STAGES * stage, 9 * 64 * (wn + 8) * 4) + 64 * 2
+    bm, bn = tile(N)[0]
+    stage = BIO_BT * (bm + 8) * 2 + BIO_BT * (bn + (4 if f32_dy else 8)) * ye
+    return max(BIO_STAGES * stage, bm * (bn + 8) * 4)
 
 
 def colsum_cut(R: int, N: int):
@@ -131,11 +167,22 @@ def wgrad(x: torch.Tensor, dy: torch.Tensor, image=None, half: bool = False) -> 
                                else torch.float32)
     else:
         _build.check_cuda_args(name, x, dy)
-    S = splits(T, K, N, taps)
     out = torch.empty(taps, K, N, device=x.device)
+    if bio:
+        if K % 8 or N % 8:
+            raise ValueError(f"{name}: K {K} and N {N} must be multiples of 8")
+        S, Z = bf16io_cut(T, K, N, taps)
+        groups = S // Z
+        part = torch.empty(groups, taps, K, N, device=x.device) if groups > 1 else out
+        fn_name = "lft_" + name + ("_f32dy" if dy.dtype == torch.float32 else "")
+        fn = _build.bind("wgrad", fn_name, 4, (ctypes.c_int,) * 9)
+        _build.launch("wgrad", name, fn, x.device, x.data_ptr(), dy.data_ptr(),
+                      part.data_ptr(), out.data_ptr(), T, K, N, S, Z,
+                      *colsum_cut(groups, taps * K * N), h, w)
+        return out[0] if image is None else out
+    S = splits(T, K, N, taps)
     part = torch.empty(S, taps, K, N, device=x.device) if S > 1 else out
-    fn_name = "lft_" + name + ("_f32dy" if bio and dy.dtype == torch.float32 else "")
-    fn = _build.bind("wgrad", fn_name, 4, (ctypes.c_int,) * 8)
+    fn = _build.bind("wgrad", "lft_" + name, 4, (ctypes.c_int,) * 8)
     _build.launch("wgrad", name, fn, x.device, x.data_ptr(), dy.data_ptr(),
                   part.data_ptr(), out.data_ptr(), T, K, N, S,
                   *colsum_cut(S, taps * K * N), h, w)

@@ -213,5 +213,26 @@ def events_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cold_ms(fn, reps: int = 20, flush_mb: int = 512) -> float:
+    """Median milliseconds of one `fn()` by CUDA events around it, each call
+    after a `flush_mb` MB write that evicts the 50 MB L2, so that its inputs
+    come from device memory. The write runs before the first event and takes
+    the card longer (~0.2 ms) than the host takes to queue the call's
+    launches behind it, so no host gap enters the time."""
+    flush = torch.empty(flush_mb * 1024 * 1024 // 4, device="cuda")
+    times = []
+    for i in range(reps + 2):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
 if __name__ == "__main__":
     sys.exit(main())

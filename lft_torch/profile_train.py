@@ -127,7 +127,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report(prof, wall, "one step", top=25)
-    names = ("wgrad_kernel", "wgrad_taps_kernel", "colsum_kernel")
+    names = ("wgrad_kernel", "wgrad_taps_kernel", "wgrad_bf16io_kernel",
+             "wgrad_bf16io_taps_kernel", "colsum_kernel")
     red = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
            and any(n in e.key for n in names)]
     print(f"weight-grad and column-sum reductions (wgrad.cu) in the traced step: "

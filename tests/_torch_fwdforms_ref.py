@@ -1,7 +1,9 @@
 """lft_tpu's outputs for tests/test_torch_fwdforms.py, made in a process of
 their own:
 
-    python tests/_torch_fwdforms_ref.py OUT.npz
+    python tests/_torch_fwdforms_ref.py OUT.npz [PART ...]
+
+(PART: `k11` or `fwd`; both where none is named.)
 
 K11 (`spa_trans_block_fused(pixel_major=True)`) on a bf16 pixel-major
 buffer and, under LFT_MM_HP_SITES=none, on an f32 one with `mm_half`; each
@@ -61,7 +63,9 @@ def fwd_inputs():
     return lr, f32_params(FWD["channels"], FWD["scale_factor"], 11)
 
 
-def main(out_path: str) -> None:
+def main(out_path: str, parts=("k11", "fwd")) -> None:
+    """`parts`: "k11" (both K11 cases) and "fwd" (the forwards); all by
+    default."""
     import jax
     import jax.numpy as jnp
     jax.config.update("jax_platforms", "cpu")
@@ -75,7 +79,7 @@ def main(out_path: str) -> None:
     res = {}
     f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))
     h, w = K11_SHAPE[1:3]
-    for C in C_BLOCKS:
+    for C in C_BLOCKS if "k11" in parts else ():
         d = k11_inputs(C)
         for case, dts in (("bf16", (jnp.bfloat16, jnp.float32)), ("f32", (jnp.float32,))):
             for dt in dts:
@@ -95,7 +99,7 @@ def main(out_path: str) -> None:
     j_lft.LAYER_NUM = FWD_LAYERS
     lr, p = fwd_inputs()
     jp = {k: jnp.asarray(v) for k, v in p.items()}
-    for dt in ("mixed", "float32"):
+    for dt in ("mixed", "float32") if "fwd" in parts else ():
         args = JArgs(model_name="LFT", dtype=dt, **FWD)
         res[f"fwd_{dt}"] = f32(j_lft.forward(jp, jnp.asarray(lr), args, remat=False, fused=True))
     np.savez(out_path, **res)
@@ -106,4 +110,4 @@ if __name__ == "__main__":
                                + " --xla_allow_excess_precision=false")
     os.environ.update(LFT_ANGB_GPS="1", LFT_SPAB_VPS="1", LFT_MM_HP_SITES="none")
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    main(sys.argv[1])
+    main(sys.argv[1], tuple(sys.argv[2:]) or ("k11", "fwd"))

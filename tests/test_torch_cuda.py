@@ -1628,6 +1628,40 @@ def test_wgrad_bf16io_kernel(cuda_device, T, K, N, image, dy_f32):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+def test_wgrad_bf16io_products_at_each_width(cuda_device, C):
+    """`wgrad_bf16io` (bf16 `mma.sync` on `ldmatrix.trans` fragments, slices
+    in clusters of two that add their partials in shared memory) at every
+    product of a bf16 train step at width C: K3's (D = 2C) dw1, dwu (9
+    taps), dwq, dw2, dwlin and dwo on an f32 dx2, K4's C x C weights, dw1,
+    dw2 and dwo on an f32 dx2; 3 images of 23 x 31 tokens (T = 2139, no
+    64-token stage or slice divides it) and the step's T = 102,400: within
+    1e-5 of the plain version's largest output, an f32 result, one launch
+    (and the column sum), bitwise on a repeat."""
+    D = 2 * C
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    prods = [(D, 2 * D, False, False), (C, D, True, False), (D, D, False, False),
+             (2 * D, D, False, False), (D, C, False, False), (D, D, False, True),
+             (C, C, False, False), (C, 2 * C, False, False), (2 * C, C, False, False),
+             (C, C, False, True)]
+    for T, image in ((3 * 23 * 31, (23, 31)), (100 * 32 * 32, (32, 32))):
+        for K, N, taps, dy_f32 in prods:
+            x = torch.randn(T, K, device=cuda_device, generator=g).bfloat16()
+            dy = torch.randn(T, N, device=cuda_device, generator=g)
+            dy = dy if dy_f32 else dy.bfloat16()
+            im = image if taps else None
+            reset_launches()
+            got = wgrad.wgrad(x, dy, im)
+            torch.cuda.synchronize()
+            assert LAUNCHES["wgrad_bf16io"] == 1 and sum(LAUNCHES.values()) in (1, 2)
+            ref = wgrad.wgrad_plain(x, dy, im)
+            assert got.dtype == torch.float32 and got.shape == ref.shape
+            err = float((got - ref).abs().max())
+            assert err <= 1e-5 * float(ref.abs().max()), (T, K, N, taps, dy_f32, err)
+            assert torch.equal(got, wgrad.wgrad(x, dy, im))
+
+
+@pytest.mark.cuda
 def test_bf16_train_step_kernels_match_plain_blocks(cuda_device):
     """A `--dtype bfloat16` fused train step (C = 16, 2x) through the
     kernels against the same step through the plain blocks: the loss, the
@@ -1977,6 +2011,35 @@ def test_spa_block_mixed_fwd_kernels(cuda_device, C, V, h, w):
     torch.cuda.synchronize()
     assert {n: c for n, c in LAUNCHES.items() if c} == {
         n + "_bf16": 2 for n in FORWARD if n.startswith("spa_")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+def test_spa_ffn_out_bf16_kernel(cuda_device, C):
+    """K2.5's `_bf16` kernel (bf16 weights resident in shared memory, bf16
+    `wgmma`) on the model's weights at T = 189, 3400 and 20480 tokens (a
+    ragged last 128-row tile; 160 tiles, so a block walks more than one and
+    prefetches the next one's rows): against the plain version under the
+    plan `none` within the mixed bounds, one launch each, bitwise on a
+    repeat; K11.5's `_pm_bf16` (the same kernel, the output pixel-major)
+    bitwise the view-major output permuted; nothing else launched."""
+    plan = _plan_none()
+    ws = spa_block.spa_weights(_params(C, cuda_device, seed=C), "altblock.1.spa_trans.")
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    reset_launches()
+    for V, h, w, A2 in ((3, 9, 7, 3), (5, 17, 40, 5), (20, 32, 32, 4)):
+        xn2 = torch.randn(V, h, w, 2 * C, device=cuda_device, generator=g)
+        x2 = torch.randn(V, h, w, 2 * C, device=cuda_device, generator=g)
+        got = spa_block.ffn_out(xn2, x2, ws, plan=plan)
+        assert got.shape == (V, h, w, C) and got.dtype == torch.float32
+        _mixed_close((got,), (spa_block.ffn_out_plain(xn2, x2, ws, plan=plan),),
+                     (spa_block.ffn_out_plain(xn2, x2, ws),))
+        assert torch.equal(got, spa_block.ffn_out(xn2, x2, ws, plan=plan))
+        pm = spa_block.ffn_out(xn2, x2, ws, views=A2, plan=plan)
+        assert torch.equal(pm, got.reshape(V // A2, A2, h, w, C).permute(0, 2, 3, 1, 4))
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {"spa_ffn_out_bf16": 6,
+                                                        "spa_ffn_out_pm_bf16": 3}
 
 
 @pytest.mark.cuda
