@@ -3062,9 +3062,10 @@ def bf16_kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: i
     pairs = V * valid_window_pairs(h, w, K // 2)
     attn = check("spa_window_attn_bf16io", lambda *a: sb.window_attn(*a, H, K),
                  lambda *a: sb.window_attn_plain(*a, H, K)[0], (q, k, v), f32((q, k, v)),
-                 4 * D * pairs, nbytes(q, k, v, q),
+                 4 * D * pairs, nbytes(q, k, v, q), src="window_mma.cuh",
                  lib_fn=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
     del qh, kh, vh
+    window_width_checks(g)
     x2, xn2 = check("spa_outproj_ln_bf16io", sb.outproj_ln, sb.outproj_ln_plain,
                     (attn, tok, ws), (*f32((attn, tok)), ws32), 2 * T * D * D,
                     nbytes(attn, tok, attn, tok) + wbytes("wo", "ln"),
@@ -3078,6 +3079,64 @@ def bf16_kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: i
                        hid @ ws["w2"], x2.reshape(-1, D) @ ws["wlin"]),
           lib_what="its three cuBLAS products")
     return rec.rows
+
+
+def window_width_checks(g) -> None:
+    """Step 23 a: the bf16-IO window kernel (csrc/window_mma.cuh) at the
+    head widths the main path does not give it, DH = 4 and 8 (D = 32, 64),
+    and at DH = 16 on ragged views: `spa_window_attn_bf16io` and its `_res`
+    form and K5's `spa_attn_hp_bf16io` against the plain bf16 version
+    (`bf16_err`: BF16_GAP of the plain bf16-vs-f32 distance, BF16_ULPS), m
+    and l within 1e-5 / 1e-4, a bitwise repeat, the `_res` form's and K5's
+    attn bit for bit the forward's. Not timed (the main shapes are)."""
+    import torch
+    from lft_torch.kernels import spa_attn_hp as hp
+    from lft_torch.kernels import spa_block as sb
+
+    H, K = 8, 5
+    for shape in ((40, 32, 32, 32), (40, 32, 32, 64), (7, 17, 23, 32), (7, 17, 23, 64),
+                  (5, 9, 30, 128)):
+        q, k, v = (torch.randn(*shape, device="cuda", generator=g) * sc for sc in (1.5, 1.5, 1))
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        got = sb.window_attn(q, k, v, H, K)
+        res = sb.window_attn(q, k, v, H, K, with_stats=True)
+        ref = sb.window_attn_plain(q, k, v, H, K)
+        ref32 = sb.window_attn_plain(q.float(), k.float(), v.float(), H, K)[0]
+        _, ok = bf16_err(got, ref[0], ref32)
+        stat = max(float(((a - b).abs() / (b.abs() + 0.1)).max()) for a, b in zip(res[1:], ref[1:]))
+        same = (torch.equal(got, sb.window_attn(q, k, v, H, K)) and torch.equal(res[0], got)
+                and torch.equal(hp.spa_attn_hp_fwd(q, k, v, H, K), got)
+                and all(torch.equal(a, b) for a, b in zip(hp.spa_attn_hp_fwd(q, k, v, H, K, True),
+                                                          res)))
+        print(f"  the bf16-IO window kernel at {list(shape)} (DH = {shape[3] // H}): within "
+              f"limits {ok}; m, l max relative {stat:.2e} (limit 1e-4, 1e-5 absolute near 0); "
+              f"repeated, `_res` and K5 bit for bit: {same}", flush=True)
+        if not (ok and stat <= 1e-4 and same):
+            raise AssertionError(f"the bf16-IO window kernel at {list(shape)} disagrees")
+
+
+def ffn_sites_width_checks(plan, what: str, g) -> None:
+    """Step 29 d: K2.5's and K11.5's `_sites` kernels (csrc/ffn_sites.cuh)
+    at the widths the main path does not give them, C = 16 and 32 (random
+    weights), on ragged rows: against the plain version under the subset
+    (`mixed_err`), a bitwise repeat, K11.5's output the view-major one's
+    pixel-major bit for bit. Not timed (the main shapes are)."""
+    import torch
+    from lft_torch.kernels import spa_block as sb
+
+    for C in (16, 32):
+        D = 2 * C
+        wts = {n: torch.randn(*s_, device="cuda", generator=g) / s_[0] ** 0.5
+               for n, s_ in (("w1", (D, 2 * D)), ("w2", (2 * D, D)), ("wlin", (D, C)))}
+        xn2, x2 = (torch.randn(50, 17, 23, D, device="cuda", generator=g) for _ in range(2))
+        got = sb.ffn_out(xn2, x2, wts, plan=plan)
+        _, ok = mixed_err(got, sb.ffn_out_plain(xn2, x2, wts, plan), sb.ffn_out_plain(xn2, x2, wts))
+        same = (torch.equal(got, sb.ffn_out(xn2, x2, wts, plan=plan)) and
+                torch.equal(sb.ffn_out(xn2, x2, wts, 25, plan=plan), sb._to_pixel_major(got, 25)))
+        print(f"  spa_ffn_out_sites under {what} at [50, 17, 23, {C}]: within limits {ok}; "
+              f"repeated and K11.5 bit for bit: {same}", flush=True)
+        if not (ok and same):
+            raise AssertionError(f"spa_ffn_out_sites under {what} at C = {C} disagrees")
 
 
 def bf16_scene_phase(params, args, scenes, cache, card: str) -> dict:
@@ -3383,7 +3442,7 @@ def bf16_train_kernel_checks(params, card: str, launches: dict, n_steps: int, la
     tok, xn = sb.tokenize_ln_plain(xs, pe_tok, ws)
     q, k, v = sb.qkv_plain(xn, tok, ws)
     pairs = V * valid_window_pairs(h, w, K // 2)
-    attn, m, l = check("spa_window_attn_res_bf16io", "spa_block.cu",
+    attn, m, l = check("spa_window_attn_res_bf16io", "window_mma.cuh",
                        "lft_tpu/kernels/spa_block.py:339",
                        lambda *a: sb.window_attn(*a, H, K, with_stats=True),
                        lambda *a: sb.window_attn_plain(*a, H, K), (q, k, v), f32((q, k, v)),
@@ -3671,7 +3730,7 @@ def bf16_perop_kernel_checks(card: str, per_scene: dict, seed: int) -> list:
         ("ang_attn_sweep_bf16io", lambda q, k, v: ang_attn_vjp.ang_attn_sweep_fwd(q, k, v, H),
          (16384, 25, 64), "ang_attn.cu", "lft_tpu/kernels/ang_attn_vjp.py:129"),
         ("spa_attn_hp_bf16io", lambda q, k, v: spa_attn_hp.spa_attn_hp_fwd(q, k, v, H, K),
-         (400, 32, 32, 128), "spa_attn_hp.cu", "lft_tpu/kernels/spa_attn_hp.py:419"),
+         (400, 32, 32, 128), "window_mma.cuh", "lft_tpu/kernels/spa_attn_hp.py:419"),
         ("spa_attn_mxu_bf16io", lambda q, k, v: spa_attn.spa_attn_mxu_fwd(q, k, v, H, K),
          (400, 64, 64, 128), "spa_attn_hp.cu", "lft_tpu/kernels/spa_attn.py:233"),
         ("spa_attn_offset_bf16io",
@@ -3886,7 +3945,7 @@ def bf16_perop_train_kernel_checks(card: str, launches: dict, seed: int) -> list
          (tpu + "ang_attn_vjp.py:129", tpu + "ang_attn_vjp.py:158")),
         ("spa_attn_hp", lambda q, k, v: hp.spa_attn_hp_fwd(q, k, v, H, K, True),
          lambda q, k, v, o, m, l, d: hp.spa_attn_hp_bwd(q, k, v, m, l, d, H, K),
-         (100, 32, 32, 128), (src_w, src_w),
+         (100, 32, 32, 128), ("lft_torch/csrc/window_mma.cuh", src_w),
          (tpu + "spa_attn_hp.py:433", tpu + "spa_attn_hp.py:514")),
         ("spa_attn_mxu", lambda q, k, v: sa.spa_attn_mxu_fwd(q, k, v, H, K, True),
          lambda q, k, v, o, m, l, d: sa.spa_attn_mxu_bwd(q, k, v, m, l, d, H, K),
@@ -4980,11 +5039,12 @@ def sites_phase(params, args, scenes, cache, card: str, seed: int) -> list:
             del attn, tok, xn
             check(spec, "scene", "spa_ffn_out_sites", sb.ffn_out, sb.ffn_out_plain,
                   (xn2, x2, ws), ffn_flops, nbytes(xn2, x2) + T * C * 4
-                  + wbytes("w1", "w2", "wlin"))
+                  + wbytes("w1", "w2", "wlin"), src_="ffn_sites.cuh")
             check(spec, "pm", "spa_ffn_out_pm_sites", ffp, ffp_p, (xn2, x2, ws), ffn_flops,
                   nbytes(xn2, x2) + T * C * 4 + wbytes("w1", "w2", "wlin"),
-                  replaces="lft_tpu/kernels/spa_block.py:309")
+                  replaces="lft_tpu/kernels/spa_block.py:309", src_="ffn_sites.cuh")
             del x2, xn2
+            ffn_sites_width_checks(plan, name_of[spec], g)
 
         # e: in turns with the f32 and `_bf16` instances, CUDA events
         print(f"{card_line()}: ms of each `_sites` instance (S1) beside its f32 and `_bf16` "

@@ -5,8 +5,10 @@ revision's, in turns in one process, on one CUDA card.
 
 OTHER_CSRC_DIR holds another revision's whole `lft_torch/csrc` (`git
 archive <commit> lft_torch/csrc`, unpacked into a git-ignored directory, so
-that its headers come with it) whose `ang_block.cu`, `spa_block.cu`,
-`ang_attn.cu`, `ang_attn_sweep.cu` and `spa_attn_hp.cu` have the same
+that its headers come with it), or is another checkout's built
+`lft_torch/build` (its libraries are loaded as they are), whose
+`ang_block.cu`, `spa_block.cu`, `ang_attn.cu`, `ang_attn_sweep.cu` and
+`spa_attn_hp.cu` have the same
 `_bf16io` C interfaces as this checkout's. Both are built with the port's
 nvcc flags into a temporary directory, and the port's own wrappers launch
 either build (the other's libraries stand in for this checkout's while it
@@ -21,6 +23,21 @@ builds must agree bit for bit, and both are timed in device time
 whose entry the other build lacks is timed in this build alone. Prints the
 card's name and power limit first. Exits non-zero without a card, or if
 the two builds' outputs differ.
+
+    python3 -m lft_torch.compare_bf16io OTHER_CSRC_DIR --redesigned NAMES [--only NAMES]
+
+`--redesigned` (comma-separated launch names) holds a kernel that this
+checkout redesigned, whose sums run in another order than the other
+build's, to its plain version instead of to the other build: each output
+(both builds') within 1/10 of the plain bf16-vs-f32 distance (L2) and 1
+bf16 ulp of max |plain| (chip_smoke.py's BF16_GAP, BF16_ULPS), and its
+first output's max error against float64 (the f32 plain attention on the
+same bf16 values in float64) printed beside the plain version's; the times
+in the same turns. The four window forms K2.3 `spa_window_attn_bf16io`
+[400, 32, 32, 128] and `spa_window_attn_res_bf16io` [100, 32, 32, 128],
+K5 `spa_attn_hp_bf16io` [400, 32, 32, 128] and `spa_attn_hp_res_bf16io`
+[100, 32, 32, 128] (one kernel, `csrc/window_mma.cuh`) have such
+references. `--only` times those launch names alone.
 """
 
 from __future__ import annotations
@@ -28,6 +45,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import math
 import os
 import subprocess
 import sys
@@ -61,6 +79,7 @@ def cases(dev):
     """[(name, fn)]: each `_bf16io` kernel's wrapper call on the main path's
     shapes, its inputs made once."""
     from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import spa_attn_hp as hp
     from lft_torch.kernels import spa_block as sb
     from lft_torch.ops.posenc import angular_position, spatial_position
     from lft_torch.ops.unfold import unfold3x3_linear
@@ -83,12 +102,44 @@ def cases(dev):
     q, k, v = sb.qkv_plain(xn, tok, ws)
     attn = sb.window_attn_plain(q, k, v, H, K)[0]
     x2, xn2 = sb.outproj_ln_plain(attn, tok, ws)
+    qr, kr, vr = (torch.randn(100, h, w, 2 * C, device=dev, generator=g).to(torch.bfloat16)
+                  for _ in range(3))
     return [("ang_block_bf16io", lambda: ab.ang_block(x, pe, wa, H)),
             ("spa_tokenize_ln_bf16io", lambda: sb.tokenize_ln(xs, pe_tok, ws)),
             ("spa_qkv_bf16io", lambda: sb.qkv(xn, tok, ws)),
             ("spa_window_attn_bf16io", lambda: sb.window_attn(q, k, v, H, K)),
+            ("spa_window_attn_res_bf16io",
+             lambda: sb.window_attn(qr, kr, vr, H, K, with_stats=True)),
+            ("spa_attn_hp_bf16io", lambda: hp.spa_attn_hp_fwd(q, k, v, H, K)),
             ("spa_outproj_ln_bf16io", lambda: sb.outproj_ln(attn, tok, ws)),
             ("spa_ffn_out_bf16io", lambda: sb.ffn_out(xn2, x2, ws))] + perop_train_cases(dev, g)
+
+
+def window_refs(fn):
+    """(plain, plain on f32 values, float64) of a window form's call `fn`
+    (`--redesigned`): the same call on the plain versions."""
+    from lft_torch.kernels import spa_attn_hp as hp
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.kernels.common import plain_versions
+
+    calls = []
+    real = sb.window_attn, hp.spa_attn_hp_fwd
+
+    def grab(q, k, v, *a, **kw):
+        calls.append((q, k, v, kw.get("with_stats", len(a) > 2 and a[2])))
+        return None
+    sb.window_attn = hp.spa_attn_hp_fwd = grab
+    try:
+        fn()
+    finally:
+        sb.window_attn, hp.spa_attn_hp_fwd = real
+    (q, k, v, stats), = calls
+    with plain_versions():
+        plain = sb.window_attn_plain(q, k, v, 8, 5)
+        plain32 = sb.window_attn_plain(q.float(), k.float(), v.float(), 8, 5)
+    exact = hp.windowed_attention_headpacked_plain(q.double(), k.double(), v.double(), 8, 5)[0]
+    pick = (lambda r: r) if stats else (lambda r: (r[0],))
+    return pick(plain), pick(plain32), exact
 
 
 def perop_train_cases(dev, g):
@@ -127,10 +178,33 @@ def perop_train_cases(dev, g):
     return out
 
 
+WINDOW_FORMS = ("spa_window_attn_bf16io", "spa_window_attn_res_bf16io", "spa_attn_hp_bf16io",
+                "spa_attn_hp_res_bf16io")
+
+
+def _bf16_dist(got, ref, ref32):
+    """[(L2 from the plain version as a share of its bf16-vs-f32 distance,
+    max |diff| in bf16 ulps of max |plain|)] an output."""
+    out = []
+    for a, r, r32 in zip(got, ref, ref32):
+        a, r, r32 = a.double(), r.double(), r32.double()
+        gap = float((r32 - r).norm() / r.norm())
+        ulp = 2.0 ** (math.floor(math.log2(float(r.abs().max()))) - 7)
+        out.append((float((a - r).norm() / r.norm()) / gap, float((a - r).abs().max()) / ulp))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other_csrc")
+    ap.add_argument("--redesigned", default="",
+                    help="launch names held to their plain versions, not to the other build")
+    ap.add_argument("--only", default="", help="time these launch names alone")
     a = ap.parse_args(argv)
+    redesigned = set(filter(None, a.redesigned.split(",")))
+    only = set(filter(None, a.only.split(",")))
+    if redesigned - set(WINDOW_FORMS):
+        ap.error(f"--redesigned takes {', '.join(WINDOW_FORMS)}")
     if not torch.cuda.is_available():
         print("compare_bf16io: no CUDA device is available", file=sys.stderr)
         return 1
@@ -145,9 +219,15 @@ def main(argv=None) -> int:
     _build.build_all()
     differ = 0
     with tempfile.TemporaryDirectory() as tmp:
-        other = {n: _build.build_library(os.path.join(a.other_csrc, f"{n}.cu"), tmp, n)
-                 for n in ("ang_block", "spa_block", "ang_attn", "ang_attn_sweep", "spa_attn_hp")}
+        names = ("ang_block", "spa_block", "ang_attn", "ang_attn_sweep", "spa_attn_hp")
+        built = {f[3:].rsplit("_", 1)[0]: f for f in os.listdir(a.other_csrc)
+                 if f.startswith("lib") and f.endswith(".so")}
+        other = {n: ctypes.CDLL(os.path.join(a.other_csrc, built[n])) if built else
+                 _build.build_library(os.path.join(a.other_csrc, f"{n}.cu"), tmp, n)
+                 for n in names}
         for name, fn in cases(dev):
+            if only and name not in only:
+                continue
             got = fn()
             try:
                 with other_libraries(other):
@@ -158,16 +238,37 @@ def main(argv=None) -> int:
                       f"{t2:.4f} ms", flush=True)
                 continue
             got, ref = (t if isinstance(t, tuple) else (t,) for t in (got, ref))
-            same = all(torch.equal(x, y) for x, y in zip(got, ref))
-            differ += not same
+            if name in redesigned:
+                plain, plain32, exact = window_refs(fn)
+                dist = [_bf16_dist(t[:1], plain[:1], plain32[:1])[0] for t in (ref, got)]
+                # m and l (the `_res` forms) against the plain version's
+                stat = [max((float(((x.double() - y.double()).abs()
+                                    / (y.double().abs() + 0.1)).max())
+                             for x, y in zip(t[1:], plain[1:])), default=0.0) for t in (ref, got)]
+                ok = all(d <= 0.1 and u <= 1.0 for d, u in dist) and max(stat) <= 1e-4
+                err = [float((t[0].double() - exact).abs().max()) for t in (ref, got, plain)]
+                again = fn()
+                same = all(torch.equal(x, y) for x, y in
+                           zip(got, again if isinstance(again, tuple) else (again,)))
+                differ += not (ok and same)
+                verdict = (f"attn: L2 from the plain version as a share of its bf16-vs-f32 "
+                           f"distance other {dist[0][0]:.4f}, this {dist[1][0]:.4f} (limit 0.1), "
+                           f"max |diff| other {dist[0][1]:.2f}, this {dist[1][1]:.2f} bf16 ulps "
+                           f"of max |plain| (limit 1); max |attn - float64| other "
+                           f"{err[0]:.3e}, this {err[1]:.3e}, plain {err[2]:.3e}; m, l max "
+                           f"relative from the plain version's other {stat[0]:.2e}, this "
+                           f"{stat[1]:.2e} (limit 1e-4, 1e-5 absolute near 0); repeats bitwise: {same}")
+            else:
+                same = all(torch.equal(x, y) for x, y in zip(got, ref))
+                differ += not same
+                verdict = f"outputs bitwise equal: {same}"
             with other_libraries(other):
                 t0 = device_ms(fn)
             t1, t2 = device_ms(fn), device_ms(fn)
             with other_libraries(other):
                 t3 = device_ms(fn)
             print(f"{name}: other {t0:.4f} / {t3:.4f} ms, this {t1:.4f} / {t2:.4f} ms (this / "
-                  f"other {(t1 + t2) / (t0 + t3):.3f}); outputs bitwise equal: {same}",
-                  flush=True)
+                  f"other {(t1 + t2) / (t0 + t3):.3f}); {verdict}", flush=True)
     return 1 if differ else 0
 
 

@@ -53,6 +53,22 @@ builds against the plain version under the plan `none` (L2-relative 1e-3
 and 1/10 of its mixed-vs-f32 distance), a bitwise repeat, timed in device
 time other, this, this, other beside the bound (0.52 GB of f32 rows at
 3.35 TB/s at the larger shape) and the three cuBLAS bf16 products.
+
+    python3 -m lft_torch.compare_blocks --ffn-sites OTHER_SPA_BLOCK_CU
+
+likewise K2.5's `_sites` instance (`spa_ffn_out_sites`, `--dtype mixed`
+under an LFT_MM_HP_SITES subset that rounds one of `ffn` and `lin`)
+against the other revision's, whose C entries `lft_spa_ffn_out_sites(xn2,
+x2, w1, w2, wlin, wf, out, T, C, sites, stream)` and
+`lft_spa_ffn_out_pm_sites(..., out, Bb, hw, A2, C, sites, stream)` take a
+scratch of `rowgemm.ffn_out_floats(C)` floats: under S1 (`ffn` f32, `lin`
+rounded) and S2 (`ffn` rounded, `lin` f32) at [400, 32, 32, 64] and [100,
+32, 32, 64], and K11.5's `spa_ffn_out_pm_sites` at [16, 32, 32, 25, 64];
+both builds against the plain version under the subset (L2-relative 1e-3
+and 1/10 of its mixed-vs-f32 distance), their max error against float64 of
+the same rounded operands beside the plain version's, a bitwise repeat,
+timed other, this, this, other beside the bound (S1: W1 and W2 as three
+TF32 products at 495 TFLOP/s, Wlin at 989; S2: the rows' bytes).
 """
 
 from __future__ import annotations
@@ -238,20 +254,116 @@ def _ffn_bf16_main(other_spa: str) -> int:
     return 0
 
 
+def _ffn_sites_main(other_spa: str) -> int:
+    """`--ffn-sites` (the module docstring)."""
+    import ctypes
+
+    from lft_torch.device import resolve_device
+    from lft_torch.kernels import _build
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.kernels.common import mm_site_plan, site_mask
+    from lft_torch.kernels.rowgemm import ffn_out_floats
+    from lft_torch.profile_scene import device_ms
+    from lft_torch.utils.checkpoint import load_checkpoint
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    dev = resolve_device()
+    params, _, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
+                                                "LFT_5x5_4x_synth3000.pth"), device=dev)
+    ws = sb.spa_weights(params, "altblock.0.spa_trans.")
+    w64 = {k: v.double() for k, v in ws.items()}
+    C, h, w = 64, 32, 32
+    D = 2 * C
+    g = torch.Generator(device=dev).manual_seed(0)
+    l2 = lambda a_, b_: float((a_.double() - b_.double()).norm() / b_.double().norm())
+    with tempfile.TemporaryDirectory() as tmp:
+        spa = ctypes.CDLL(other_spa) if other_spa.endswith(".so") else \
+            _build.build_library(other_spa, tmp, "other_spa_block")
+        fn, fn_pm = spa.lft_spa_ffn_out_sites, spa.lft_spa_ffn_out_pm_sites
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn_pm.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+        def other(xn2, x2, mask, views=None):
+            wf = torch.empty(ffn_out_floats(C), device=dev)
+            ptrs = (xn2.data_ptr(), x2.data_ptr(),
+                    *(ws[n].data_ptr() for n in ("w1", "w2", "wlin")), wf.data_ptr())
+            stream = torch.cuda.current_stream().cuda_stream
+            if views is None:
+                out = torch.empty(*x2.shape[:-1], C, device=dev)
+                rc = fn(*ptrs, out.data_ptr(), x2.numel() // D, C, mask, stream)
+            else:
+                V_, h_, w_ = x2.shape[:-1]
+                out = torch.empty(V_ // views, h_, w_, views, C, device=dev)
+                rc = fn_pm(*ptrs, out.data_ptr(), V_ // views, h_ * w_, views, C, mask, stream)
+            if rc:
+                raise RuntimeError("the other spa_ffn_out[_pm]_sites failed to launch")
+            return out
+
+        for spec, kept in (("S1", "qk,score,ffn,aqkv,aav,wo"),
+                           ("S2", "tok,v,av,lin,ascore,awo,affn")):
+            plan = mm_site_plan(True, frozenset(kept.split(",")))
+            mask = site_mask(plan, "spa_ffn_out")
+            for V, A2 in ((400, None), (100, None), (400, 25)):
+                xn2 = torch.randn(V, h, w, D, device=dev, generator=g)
+                x2 = torch.randn(V, h, w, D, device=dev, generator=g)
+                ref = sb.ffn_out_plain(xn2, x2, ws, plan)
+                gap = l2(sb.ffn_out_plain(xn2, x2, ws), ref)
+                exact = sb.ffn_out_plain(xn2.double(), x2.double(), w64, plan)
+                if A2 is not None:
+                    ref, exact = sb._to_pixel_major(ref, A2), sb._to_pixel_major(exact, A2)
+                builds = (lambda: other(xn2, x2, mask, A2),
+                          lambda: sb.ffn_out(xn2, x2, ws, A2, plan=plan))
+                dist, err = [], []
+                for f in builds:
+                    got = f()
+                    d = l2(got, ref)
+                    if not (d <= 1e-3 and d <= 0.1 * gap):
+                        raise AssertionError(f"spa_ffn_out[_pm]_sites {spec} [{V}, {h}, {w}, "
+                                             f"{C}]: a build is {d:.3e} from the plain version "
+                                             f"(gap {gap:.3e})")
+                    if not torch.equal(got, f()):
+                        raise AssertionError("spa_ffn_out_sites: a build does not repeat bitwise")
+                    dist.append(d / gap)
+                    err.append(_err(got, exact))
+                t = [device_ms(builds[0]), device_ms(builds[1]), device_ms(builds[1]),
+                     device_ms(builds[0])]
+                T = V * h * w
+                rows = (2 * xn2.numel() + T * C) * 4 / 3.35e12 * 1e3
+                big, small = 2 * T * 4 * D * D, 2 * T * D * C     # W1 + W2, Wlin
+                ops = (3 * big / 495e12 + small / 989e12 if spec == "S1" else
+                       big / 989e12 + 3 * small / 495e12) * 1e3
+                bound = max(rows, ops)
+                what = (f"spa_ffn_out_sites {spec} [{V}, {h}, {w}, {C}]" if A2 is None else
+                        f"spa_ffn_out_pm_sites {spec} [{V // A2}, {h}, {w}, {A2}, {C}]")
+                print(f"{what}: other {t[0]:.4f} / {t[3]:.4f} ms, this {t[1]:.4f} / {t[2]:.4f} "
+                      f"ms, bound {bound:.4f} ms ({'bytes' if rows >= ops else 'operations'}); "
+                      f"L2 from the plain version as a share of its mixed-vs-f32 distance: "
+                      f"other {dist[0]:.4f}, this {dist[1]:.4f}; max |out - float64| other "
+                      f"{err[0]:.3e}, this {err[1]:.3e}, plain {_err(ref, exact):.3e}",
+                      flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other_spa", help="path of the other revision's spa_block.cu")
     ap.add_argument("other_ang", nargs="?", help="path of the other revision's ang_block.cu")
     ap.add_argument("--ffn-bf16", action="store_true",
                     help="K2.5's `_bf16` instance alone against the other spa_block.cu's")
+    ap.add_argument("--ffn-sites", action="store_true",
+                    help="K2.5's `_sites` instance alone against the other spa_block.cu's")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_blocks: no CUDA device is available", file=sys.stderr)
         return 1
     if a.ffn_bf16:
         return _ffn_bf16_main(a.other_spa)
+    if a.ffn_sites:
+        return _ffn_sites_main(a.other_spa)
     if a.other_ang is None:
-        ap.error("OTHER_ANG_BLOCK_CU is needed without --ffn-bf16")
+        ap.error("OTHER_ANG_BLOCK_CU is needed without --ffn-bf16 or --ffn-sites")
     from lft_torch.device import resolve_device
     from lft_torch.kernels import ang_block as ab
     from lft_torch.kernels import spa_block as sb

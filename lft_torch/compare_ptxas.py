@@ -23,7 +23,8 @@ bf16-IO instances always set, made its own template argument for the
 bf16-operand forward instances of `--dtype mixed`), is matched to the other
 build's kernel without them; so is a kernel that lost its trailing `float`
 IO types here (`wgrad`'s f32 kernels once `wgrad_bf16io` had kernels of
-its own). Prints every
+its own), or its trailing `false` (K2.5's SITES switch once its `_sites`
+instances had kernels of their own, ffn_sites.cuh). Prints every
 matched pair's registers, spill stores and loads, and each side's unmatched
 kernels (here: the newer bf16 instances). Exits 1 if a matched pair differs
 or an old kernel is missing. Needs nvcc, not a card.
@@ -127,9 +128,10 @@ def main(argv=None) -> int:
         new = ours.get(src, {})
         old_by = {bare(k): r for k, r in theirs[src].items()}
         old_io = {without_io(k): k for k in old_by if k.endswith(", float>")}
+        old_bf = {without_bf(k): k for k in old_by if k.endswith(", false>")}
         matched = set()
         for name, r in sorted(new.items()):
-            key = match(bare(name), old_by) or old_io.get(bare(name))
+            key = match(bare(name), old_by) or old_io.get(bare(name)) or old_bf.get(bare(name))
             if key is None:
                 print(f"{src}: new only  {name}: {r[0]} registers, spills {r[1]}/{r[2]} B")
                 continue

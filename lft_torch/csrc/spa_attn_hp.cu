@@ -106,8 +106,8 @@
 //   lft_tpu/kernels/spa_attn_hp.py:_fwd_kernel :222-280): the query's max
 //   over every head and its window (pad keys score 0), bf16(e) into the
 //   product, l from the unrounded e: K2's bf16 window step, so K2.3's
-//   bf16-IO kernel (window_attn.cuh: spa_window_attn_bf16io_kernel), a
-//   (view, 16 x 16 tile) a block with its head groups in two passes.
+//   bf16-IO kernel (window_mma.cuh: spa_window_attn_mma_kernel), a (view,
+//   8 x 8 tile) a block, every head, the products on the tensor cores.
 // * Normalized, K6 (`lft_spa_attn_norm_bf16io`, `spa_attn_mxu_bf16io`;
 //   spa_attn.py:_fwd_kernel :72-116): the per-head softmax, p = bf16(e / l)
 //   before the product: spa_window_attn_kernel<DH, false, true, bf16>.
@@ -117,8 +117,7 @@
 //   kernel on widened values, the output rounded once:
 //   spa_window_attn_kernel<DH, false, false, bf16>.
 // Bound at [400, 32, 32, 128]: q, k, v read and out written once in bf16,
-// 0.42 GB, 0.1252 ms at 3.35 TB/s; the deferred kernel's first pass reads q
-// and k again (through L2).
+// 0.42 GB, 0.1252 ms at 3.35 TB/s.
 //
 // bf16-IO training forms (`--dtype bfloat16` training through the per-op
 // branch, counted `<family>_res_bf16io` and `_bwd_bf16io`):
@@ -551,21 +550,20 @@ int spa_attn_hp(const float* q, const float* k, const float* v, float* out, floa
 }
 
 // The bf16-IO forwards (the header): NORM the normalized instance of the
-// f32 kernel, else the f32-inside one; `deferred` K2.3's bf16-IO kernel;
-// STATS also writes m, l (the `_res` forms).
+// f32 kernel, else the f32-inside one; `deferred` K2.3's bf16-IO kernel
+// (window_mma.cuh); STATS also writes m, l (the `_res` forms).
 template <bool NORM, bool STATS = false>
 int spa_attn_io(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* m, float* l,
                 int B, int h, int w, int E, int heads, float scale, bool deferred,
                 cudaStream_t s) {
-  const int groups = deferred ? 1 : E / WA_G;   // a deferred block takes every head group
-  if (bad_shape(B, h, w, E, heads) || n_items(B, h, w, groups) > 0x7fffffffLL)
+  if (bad_shape(B, h, w, E, heads) || n_items(B, h, w, E / WA_G) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = static_cast<int>(n_items(B, h, w, groups));
+  if (deferred) return launch_window_mma<STATS>(q, k, v, out, m, l, B, h, w, E, heads, scale, s);
+  const int grid = static_cast<int>(n_items(B, h, w, E / WA_G));
   switch (E / H) {
 #define LFT_HP_CASE(DHV)                                                            \
     case DHV: {                                                                     \
-      auto kernel = deferred ? spa_window_attn_bf16io_kernel<DHV, STATS>            \
-                             : spa_window_attn_kernel<DHV, STATS, NORM, bf16>;      \
+      auto kernel = spa_window_attn_kernel<DHV, STATS, NORM, bf16>;                 \
       LFT_SET_SMEM(kernel, WA_BYTES);                                               \
       kernel<<<grid, WA_NT, WA_BYTES, s>>>(q, k, v, out, m, l, B, h, w, scale);      \
       break;                                                                        \

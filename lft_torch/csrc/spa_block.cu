@@ -87,6 +87,7 @@
 // kernel with the LN1 prologue (`lft_spa_ln_qkv_sites`).
 
 #include "ffn_bf16.cuh"
+#include "ffn_sites.cuh"
 #include "rowgemm.cuh"
 #include "spa.cuh"
 #include "tokenize.cuh"
@@ -414,20 +415,14 @@ struct FfnOut {
 // (`spa_ffn_out_bf16io`): xn2, x2, out bf16, BF products, hid = bf16(relu),
 // y = bf16(bf16(hid W2) + x2), out = bf16(y Wlin); bound at [400, 32, 32,
 // 64]: 60.4 GFLOP at the bf16 rate 0.061 ms, 0.26 GB 0.078 ms: bytes.
-// (`--dtype mixed`'s `spa_ffn_out[_pm]_bf16` have a kernel of their own,
-// ffn_bf16.cuh.)
-// SITES (`spa_ffn_out[_pm]_sites`, `--dtype mixed` under an LFT_MM_HP_SITES
-// subset; IO = float, BF = false): W1 and W2 BF where `ffn` rounds (S_FFN
-// of `sites`), Wlin where `lin` does, 3xTF32 elsewhere; wf split piece by
-// piece to match.
-template <int C, bool PM, class IO = float, bool BF = is_bf16<IO>, bool SITES = false>
+// (`--dtype mixed`'s `spa_ffn_out[_pm]_bf16` and `spa_ffn_out[_pm]_sites`
+// have kernels of their own, ffn_bf16.cuh and ffn_sites.cuh.)
+template <int C, bool PM, class IO = float, bool BF = is_bf16<IO>>
 __global__ void __launch_bounds__(RG_NT, 1)
     spa_ffn_out_kernel(const IO* __restrict__ xn2, const IO* __restrict__ x2,
                        const float* __restrict__ wf, IO* __restrict__ out, int T, int hw,
-                       int A2, int sites) {
+                       int A2) {
   using F = FfnOut<C>;
-  static_assert(!SITES || (!BF && !is_bf16<IO>), "K2.5's f32 instance with a mask");
-  const bool r_ffn = SITES ? (sites & S_FFN) != 0 : BF, r_lin = SITES ? (sites & S_LIN) != 0 : BF;
   constexpr int D = F::D, HC = F::HC, LDX = F::LDX, LDH = F::LDH;
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -463,14 +458,14 @@ __global__ void __launch_bounds__(RG_NT, 1)
       constexpr int off = decltype(J)::value * (F::W1 + F::W2);
       RgAcc<HC> h;
       rg_zero<HC>(h);
-      rg_product_site<D, HC, off, BF, SITES>(r_ffn, h, xw, LDX, ring, st);
+      rg_product<D, HC, off, false, BF>(h, xw, LDX, ring, st);
       __syncwarp();   // the previous chunk's rows are read
       rg_pairs<HC>(h, [&](int r, int c, float v0, float v1) {
         *reinterpret_cast<float2*>(hw16 + r * LDH + c) =
             make_float2(io_round<IO>(fmaxf(v0, 0.f)), io_round<IO>(fmaxf(v1, 0.f)));
       });
       __syncwarp();
-      rg_product_site<HC, D, off + F::W1, BF, SITES>(r_ffn, y, hw16, LDH, ring, st);
+      rg_product<HC, D, off + F::W1, false, BF>(y, hw16, LDH, ring, st);
     });
     __syncwarp();     // xn2 is read
     rg_pairs<D>(y, [&](int r, int c, float v0, float v1) {
@@ -484,7 +479,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     __syncwarp();
     RgAcc<C> o;
     rg_zero<C>(o);
-    rg_product_site<D, C, F::OFF_LIN, BF, SITES>(r_lin, o, xw, LDX, ring, st);
+    rg_product<D, C, F::OFF_LIN, false, BF>(o, xw, LDX, ring, st);
     rg_pairs<C>(o, [&](int r, int c, float v0, float v1) {
       const int t = t0 + r;
       if (t >= T) return;
@@ -520,10 +515,10 @@ int tokenize_ln(const IO* x, const IO* pe_tok, const float* wu, float* wf, const
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool PM, class IO = float, bool SITES = false>
+template <bool PM, class IO = float>
 int ffn_out(const IO* xn2, const IO* x2, const float* w1, const float* w2,
             const float* wlin, float* wf, IO* out, int T, int hw, int A2, int C,
-            cudaStream_t s, int sites = 0) {
+            cudaStream_t s) {
   if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
     using F = FfnOut<CC>;
@@ -535,13 +530,10 @@ int ffn_out(const IO* xn2, const IO* x2, const float* w1, const float* w2,
                           j * (F::W1 + F::W2) + F::W1};
     }
     ps.p[n++] = RgPiece{wlin, CC, F::D, CC, F::OFF_LIN};
-    if constexpr (SITES)   // W1, W2: ffn; Wlin: lin
-      for (int i = 0; i < n; ++i) ps.p[i].bf = (sites & (i + 1 < n ? S_FFN : S_LIN)) != 0;
-    launch_rg_weights(ps, n, wf, s, is_bf16<IO>, SITES);
-    auto kernel = spa_ffn_out_kernel<CC, PM, IO, is_bf16<IO>, SITES>;
+    launch_rg_weights(ps, n, wf, s, is_bf16<IO>);
+    auto kernel = spa_ffn_out_kernel<CC, PM, IO, is_bf16<IO>>;
     LFT_SET_SMEM(kernel, F::BYTES);
-    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(xn2, x2, wf, out, T, hw, A2,
-                                                                    sites);
+    kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(xn2, x2, wf, out, T, hw, A2);
   });
   return static_cast<int>(cudaGetLastError());
 }
@@ -794,12 +786,12 @@ extern "C" int lft_spa_window_attn(const float* q, const float* k, const float* 
 
 namespace {
 
-// lft_tpu's softmax (window_attn.cuh: window_softmax_max_heads): a block a
-// (view, 16 x 16 tile) item; IO = bf16 the bf16-IO kernel, IO = float the
-// bf16-operand one.
-template <bool STATS, class IO = bf16>
-int window_attn_max_heads(const IO* q, const IO* k, const IO* v, IO* attn, float* m, float* l,
-                          int V, int h, int w, int D, int H, float scale, cudaStream_t s) {
+// lft_tpu's softmax on f32 q, k, v (window_attn.cuh: window_softmax_max_heads,
+// the bf16-operand kernel): a block a (view, 16 x 16 tile) item.
+template <bool STATS>
+int window_attn_max_heads(const float* q, const float* k, const float* v, float* attn, float* m,
+                          float* l, int V, int h, int w, int D, int H, float scale,
+                          cudaStream_t s) {
   if (H != 8 || V < 1 || h < 1 || w < 1 || D % WA_G) return static_cast<int>(cudaErrorInvalidValue);
   const long long items = static_cast<long long>(V) * ((h + WA_TY - 1) / WA_TY) *
                           ((w + WA_TX - 1) / WA_TX);
@@ -808,7 +800,7 @@ int window_attn_max_heads(const IO* q, const IO* k, const IO* v, IO* attn, float
   switch (D / H) {
 #define LFT_ATTN_CASE(DHV)                                                                  \
     case DHV: {                                                                             \
-      auto kernel = window_attn_max_heads_kernel<DHV, STATS, IO>();                         \
+      auto kernel = spa_window_attn_bf16_kernel<DHV, STATS>;                                \
       LFT_SET_SMEM(kernel, WA_BYTES);                                                       \
       kernel<<<static_cast<int>(items), WA_NT, WA_BYTES, s>>>(q, k, v, attn, m, l, V, h, w, \
                                                                scale);                      \
@@ -825,13 +817,13 @@ int window_attn_max_heads(const IO* q, const IO* k, const IO* v, IO* attn, float
 
 }  // namespace
 
-// Step 3's bf16-IO instance (window_attn.cuh): q, k, v, attn bf16; a block
-// takes a (view, 16 x 16 tile) item and every head group.
+// Step 3's bf16-IO instance (window_mma.cuh): q, k, v, attn bf16; a block
+// takes a (view, 8 x 8 tile) item and every head.
 extern "C" int lft_spa_window_attn_bf16io(const bf16* q, const bf16* k, const bf16* v,
                                           bf16* attn, int V, int h, int w, int D, int H,
                                           float scale, void* stream) {
-  return window_attn_max_heads<false>(q, k, v, attn, nullptr, nullptr, V, h, w, D, H, scale,
-                                      static_cast<cudaStream_t>(stream));
+  return launch_window_mma<false>(q, k, v, attn, nullptr, nullptr, V, h, w, D, H, scale,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // Step 3's bf16-operand instance (`--dtype mixed` serving under
@@ -840,8 +832,8 @@ extern "C" int lft_spa_window_attn_bf16io(const bf16* q, const bf16* k, const bf
 extern "C" int lft_spa_window_attn_bf16(const float* q, const float* k, const float* v,
                                         float* attn, int V, int h, int w, int D, int H,
                                         float scale, void* stream) {
-  return window_attn_max_heads<false, float>(q, k, v, attn, nullptr, nullptr, V, h, w, D, H,
-                                             scale, static_cast<cudaStream_t>(stream));
+  return window_attn_max_heads<false>(q, k, v, attn, nullptr, nullptr, V, h, w, D, H, scale,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 // The same, also writing m, l [V, h, w, H] f32 (the residuals of K3's
@@ -849,8 +841,8 @@ extern "C" int lft_spa_window_attn_bf16(const float* q, const float* k, const fl
 extern "C" int lft_spa_window_attn_res_bf16io(const bf16* q, const bf16* k, const bf16* v,
                                               bf16* attn, float* m, float* l, int V, int h,
                                               int w, int D, int H, float scale, void* stream) {
-  return window_attn_max_heads<true>(q, k, v, attn, m, l, V, h, w, D, H, scale,
-                                     static_cast<cudaStream_t>(stream));
+  return launch_window_mma<true>(q, k, v, attn, m, l, V, h, w, D, H, scale,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // The bf16-operand instance with the residuals (`--dtype mixed` training
@@ -860,8 +852,8 @@ extern "C" int lft_spa_window_attn_res_bf16io(const bf16* q, const bf16* k, cons
 extern "C" int lft_spa_window_attn_res_bf16(const float* q, const float* k, const float* v,
                                             float* attn, float* m, float* l, int V, int h,
                                             int w, int D, int H, float scale, void* stream) {
-  return window_attn_max_heads<true, float>(q, k, v, attn, m, l, V, h, w, D, H, scale,
-                                            static_cast<cudaStream_t>(stream));
+  return window_attn_max_heads<true>(q, k, v, attn, m, l, V, h, w, D, H, scale,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 namespace {
@@ -1001,13 +993,16 @@ extern "C" int lft_spa_ffn_out_bf16(const float* xn2, const float* x2, const flo
 
 // Step 5's site-subset instance (`--dtype mixed` under an LFT_MM_HP_SITES
 // subset): the same arguments and `sites`, the mask of the sites that round
-// (tf32.cuh: S_FFN for W1 and W2, S_LIN for Wlin); wf holds each weight
-// split as its product reads it.
+// (tf32.cuh: S_FFN for W1 and W2, S_LIN for Wlin), exactly one of the two;
+// its own kernels (ffn_sites.cuh), wf holding the weights as they read them.
 extern "C" int lft_spa_ffn_out_sites(const float* xn2, const float* x2, const float* w1,
                                      const float* w2, const float* wlin, float* wf, float* out,
                                      int T, int C, int sites, void* stream) {
-  return ffn_out<false, float, true>(xn2, x2, w1, w2, wlin, wf, out, T, 1, 1, C,
-                                     static_cast<cudaStream_t>(stream), sites);
+  const auto s = static_cast<cudaStream_t>(stream);
+  LFT_DISPATCH_C(C, {
+    return launch_ffn_sites<CC, false>(xn2, x2, w1, w2, wlin, wf, out, T, 1, 1, sites, s);
+  });
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Step 5's bf16-IO instance: xn2, x2, out bf16; the weights f32 (their bf16
@@ -1021,14 +1016,12 @@ extern "C" int lft_spa_ffn_out_bf16io(const bf16* xn2, const bf16* x2, const flo
 
 namespace {
 
-template <class IO, bool SITES = false>
+template <class IO>
 int ffn_out_pm(const IO* xn2, const IO* x2, const float* w1, const float* w2, const float* wlin,
-               float* wf, IO* out, int Bb, int hw, int A2, int C, cudaStream_t s,
-               int sites = 0) {
+               float* wf, IO* out, int Bb, int hw, int A2, int C, cudaStream_t s) {
   if (Bb < 1 || A2 < 1 || hw < 1 || static_cast<long long>(Bb) * A2 * hw > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  return ffn_out<true, IO, SITES>(xn2, x2, w1, w2, wlin, wf, out, Bb * A2 * hw, hw, A2, C, s,
-                                  sites);
+  return ffn_out<true, IO>(xn2, x2, w1, w2, wlin, wf, out, Bb * A2 * hw, hw, A2, C, s);
 }
 
 }  // namespace
@@ -1059,13 +1052,21 @@ extern "C" int lft_spa_ffn_out_pm_bf16(const float* xn2, const float* x2, const 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Its site-subset instance: as lft_spa_ffn_out_sites.
+// Its site-subset instance: as lft_spa_ffn_out_sites, launching its kernel
+// with the output pixel-major (so that K11 under the subset is view-major
+// K2's chain bit for bit).
 extern "C" int lft_spa_ffn_out_pm_sites(const float* xn2, const float* x2, const float* w1,
                                         const float* w2, const float* wlin, float* wf,
                                         float* out, int Bb, int hw, int A2, int C, int sites,
                                         void* stream) {
-  return ffn_out_pm<float, true>(xn2, x2, w1, w2, wlin, wf, out, Bb, hw, A2, C,
-                                 static_cast<cudaStream_t>(stream), sites);
+  if (Bb < 1 || A2 < 1 || hw < 1 || static_cast<long long>(Bb) * A2 * hw > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  LFT_DISPATCH_C(C, {
+    return launch_ffn_sites<CC, true>(xn2, x2, w1, w2, wlin, wf, out, Bb * A2 * hw, hw, A2,
+                                      sites, s);
+  });
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Its bf16-IO instance: as lft_spa_ffn_out_bf16io, out pixel-major (a (pixel,

@@ -6,6 +6,7 @@
 
 #include "spa.cuh"
 #include "tf32.cuh"
+#include "window_mma.cuh"
 
 namespace lft {
 
@@ -242,53 +243,46 @@ __global__ void __launch_bounds__(WA_NT, 2)
   }
 }
 
-// K2.3's bf16-IO form (`spa_window_attn_bf16io`, `--dtype bfloat16`):
-// lft_tpu's window softmax with io = bf16 (spa_block.py:_kernel :154-192).
-// q, k, v and the output bf16; the scores f32 over the keys inside the
-// image; e = exp(s - m) with m the query's max over EVERY head and its
-// window's keys, a key outside the image scoring 0 (lft_tpu's row max over
-// its zero-padded halo), so that bf16(e) rounds as there; l the sum of the
-// unrounded e (rows, then their sum, as above), o the sum of bf16(e) v in
-// key order, attn = bf16(o (1 / l)). A query's heads lie in all G head
-// groups, so a block takes a (view, 16 x 16 tile) item and its groups
-// twice: a first pass stages each group's k halo and takes every query's
-// max over its heads (the two slices of a group in lanes 16 apart), a
-// second stages k and v and runs the softmax. The threads, halos and shared
-// memory are the f32 kernel's; the halos are staged from 8-byte loads
-// widened to f32 by the threads (cp.async copies bytes). The scores are (q
-// . k) scale, as lft_tpu orders them. Bound at [400, 32, 32, 128]: q, k, v
-// read once and attn written once in bf16, 0.42 GB, 0.125 ms; the first
-// pass reads q and k again through L2. STATS (`spa_window_attn_res_bf16io`,
-// `--dtype bfloat16` training: lft_tpu's ml residual, :176-179): also m and
-// l [V, h, w, H] f32, m the query's max over its heads (and 0 where its
-// window leaves the image) in every head's slot, l the head's sum under it.
-// IO = float (`spa_window_attn_bf16`, `--dtype mixed` serving under
+// lft_tpu's window softmax (spa_block.py:_kernel :154-192) as its bf16-IO
+// form computes it (window_mma.cuh), on f32 q, k, v: the scores f32 over
+// the keys inside the image; e = exp(s - m) with m the query's max over
+// EVERY head and its window's keys, a key outside the image scoring 0
+// (lft_tpu's row max over its zero-padded halo), so that bf16(e) rounds as
+// there; l the sum of the unrounded e (rows, then their sum, as above), o
+// the sum of bf16(e) v in key order, attn = o (1 / l). A query's heads lie
+// in all G head groups, so a block takes a (view, 16 x 16 tile) item and
+// its groups twice: a first pass stages each group's k halo and takes every
+// query's max over its heads (the two slices of a group in lanes 16 apart),
+// a second stages k and v and runs the softmax. The threads, halos and
+// shared memory are the f32 kernel's. The scores are (q . k) scale, as
+// lft_tpu orders them.
+// `spa_window_attn_bf16` (`--dtype mixed` serving under
 // LFT_MM_HP_SITES=none; lft_tpu's K2 with mm_half, :141-192): f32 q, k, v
 // rounded to bf16 as they are loaded (the `score` and `av` sites), the same
 // softmax with e rounded through the product, attn f32; bound at [400, 32,
-// 32, 128]: q, k, v, attn in f32, 0.84 GB, 0.250 ms. IO = float with
-// STATS (`spa_window_attn_res_bf16`, `--dtype mixed` training under
+// 32, 128]: q, k, v, attn in f32, 0.84 GB, 0.250 ms. With STATS
+// (`spa_window_attn_res_bf16`, `--dtype mixed` training under
 // LFT_MM_HP_SITES=none: lft_tpu's K2 res with mm_half, :176-179, 346-348):
-// also m and l as above, and attn rounded to bf16 as it is stored (lft_tpu
-// stores the residual at the `wo` site's dtype; K3.a reads it under either
-// backward plan). The body is `window_softmax_max_heads`, run by one kernel
-// for each IO type. SITES with IO = float (`spa_window_attn[_res]_sites`,
-// `--dtype mixed` under an LFT_MM_HP_SITES subset; lft_tpu's K2 with that
-// plan, :144-190): each rounding as its site's bit of the mask `sites` says
-// (tf32.cuh): q and k as they load where `score` rounds, v and e where `av`
-// does, and with STATS the stored attn where `wo` does; the same two passes
-// and m (lft_tpu's row max is the query's over its heads at every plan), so
-// m and l are `_res_bf16`'s form. Bound: as `spa_window_attn_bf16`'s.
-template <int DH, bool STATS, class IO, bool SITES = false>
-__device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ q,
-                                                         const IO* __restrict__ k,
-                                                         const IO* __restrict__ v,
-                                                         IO* __restrict__ attn,
+// also m and l [V, h, w, H] f32, m the query's max over its heads (and 0
+// where its window leaves the image) in every head's slot, l the head's sum
+// under it, and attn rounded to bf16 as it is stored (lft_tpu stores the
+// residual at the `wo` site's dtype; K3.a reads it under either backward
+// plan). SITES (`spa_window_attn[_res]_sites`, `--dtype mixed` under an
+// LFT_MM_HP_SITES subset; lft_tpu's K2 with that plan, :144-190): each
+// rounding as its site's bit of the mask `sites` says (tf32.cuh): q and k
+// as they load where `score` rounds, v and e where `av` does, and with
+// STATS the stored attn where `wo` does; the same two passes and m
+// (lft_tpu's row max is the query's over its heads at every plan), so m and
+// l are `_res_bf16`'s form. Bound: as `spa_window_attn_bf16`'s.
+template <int DH, bool STATS, bool SITES = false>
+__device__ __forceinline__ void window_softmax_max_heads(const float* __restrict__ q,
+                                                         const float* __restrict__ k,
+                                                         const float* __restrict__ v,
+                                                         float* __restrict__ attn,
                                                          float* __restrict__ m_out,
                                                          float* __restrict__ l_out, int V,
                                                          int h, int w, float scale,
                                                          int sites = 0) {
-  static_assert(!SITES || !is_bf16<IO>, "a `_sites` instance is f32 IO");
   // what rounds: every operand but for SITES its site's bit
   const bool r_score = !SITES || (sites & S_SCORE), r_av = !SITES || (sites & S_AV),
              r_wo = !SITES || (sites & S_WO);
@@ -308,16 +302,15 @@ __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ 
 
   // group g's halo of src [V, h, w, D] into buf, zero outside the image
   // (f32 values rounded to bf16 where `r16`)
-  auto stage = [&](const IO* __restrict__ src, float* buf, int g, bool r16) {
+  auto stage = [&](const float* __restrict__ src, float* buf, int g, bool r16) {
     for (int j = threadIdx.x; j < WA_HY * WA_HX * (WA_G / 4); j += WA_NT) {
       const int px = j / (WA_G / 4), c = 4 * (j % (WA_G / 4));
       const int ky = y0 - R + px / WA_HX, kx = x0 - R + px % WA_HX;
       const bool ok = ky >= 0 && ky < h && kx >= 0 && kx < w;
       float4 t = ok ? ldg4(src + ((static_cast<size_t>(view) * h + ky) * w + kx) * D + g * WA_G + c)
                     : make_float4(0.f, 0.f, 0.f, 0.f);
-      if constexpr (!is_bf16<IO>)
-        if (r16)
-          t = make_float4(bf16_round(t.x), bf16_round(t.y), bf16_round(t.z), bf16_round(t.w));
+      if (r16)
+        t = make_float4(bf16_round(t.x), bf16_round(t.y), bf16_round(t.z), bf16_round(t.w));
       store4(buf + px * WA_LD + c, t);
     }
   };
@@ -327,12 +320,12 @@ __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ 
     for (int a = 0; a < WA_QY; ++a) {
       const int y = y0 + ry + a;
       const bool in = y < h && x < w;
-      const IO* qp = q + ((static_cast<size_t>(view) * h + (in ? y : 0)) * w + (in ? x : 0)) * D +
+      const float* qp = q + ((static_cast<size_t>(view) * h + (in ? y : 0)) * w + (in ? x : 0)) * D +
                      g * WA_G + half * WA_S;
 #pragma unroll
       for (int d = 0; d < WA_S; d += 4) {
         const float4 t = in ? ldg4(qp + d) : make_float4(0.f, 0.f, 0.f, 0.f);
-        const bool kept = is_bf16<IO> || !r_score;
+        const bool kept = !r_score;
         qv[a][d] = kept ? t.x : bf16_round(t.x);
         qv[a][d + 1] = kept ? t.y : bf16_round(t.y);
         qv[a][d + 2] = kept ? t.z : bf16_round(t.z);
@@ -446,9 +439,9 @@ __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ 
         if (y >= h || x >= w) continue;
         const size_t pix = (static_cast<size_t>(view) * h + y) * w + x;
         const float inv = 1.f / l[a];
-        // f32 IO with STATS: attn holds bf16 values, as lft_tpu's residual
+        // with STATS: attn holds bf16 values, as lft_tpu's residual
         auto out = [&](float t) {
-          if constexpr (STATS && !is_bf16<IO>)
+          if constexpr (STATS)
             return r_wo ? bf16_round(t * inv) : t * inv;
           else
             return t * inv;
@@ -467,17 +460,6 @@ __device__ __forceinline__ void window_softmax_max_heads(const IO* __restrict__ 
   }
 }
 
-// K2.3's bf16-IO form (`spa_window_attn_bf16io`, `_res_bf16io`; K5's, K6's
-// and K10's bf16-IO forwards, spa_attn_hp.cu).
-template <int DH, bool STATS = false>
-__global__ void __launch_bounds__(WA_NT, 2)
-    spa_window_attn_bf16io_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                  const bf16* __restrict__ v, bf16* __restrict__ attn,
-                                  float* __restrict__ m_out, float* __restrict__ l_out, int V,
-                                  int h, int w, float scale) {
-  window_softmax_max_heads<DH, STATS, bf16>(q, k, v, attn, m_out, l_out, V, h, w, scale);
-}
-
 // K2.3's bf16-operand form (`spa_window_attn_bf16`, `_res_bf16`): f32 in
 // and out.
 template <int DH, bool STATS = false>
@@ -486,7 +468,7 @@ __global__ void __launch_bounds__(WA_NT, 2)
                                 const float* __restrict__ v, float* __restrict__ attn,
                                 float* __restrict__ m_out, float* __restrict__ l_out, int V,
                                 int h, int w, float scale) {
-  window_softmax_max_heads<DH, STATS, float>(q, k, v, attn, m_out, l_out, V, h, w, scale);
+  window_softmax_max_heads<DH, STATS>(q, k, v, attn, m_out, l_out, V, h, w, scale);
 }
 
 // K2.3's site-subset form (`spa_window_attn_sites`, `_res_sites`): f32 in
@@ -497,17 +479,9 @@ __global__ void __launch_bounds__(WA_NT, 2)
                                  const float* __restrict__ v, float* __restrict__ attn,
                                  float* __restrict__ m_out, float* __restrict__ l_out, int V,
                                  int h, int w, float scale, int sites) {
-  window_softmax_max_heads<DH, STATS, float, true>(q, k, v, attn, m_out, l_out, V, h, w, scale,
-                                                   sites);
+  window_softmax_max_heads<DH, STATS, true>(q, k, v, attn, m_out, l_out, V, h, w, scale,
+                                             sites);
 }
 
-// The kernel that runs window_softmax_max_heads<DH, STATS, IO>.
-template <int DH, bool STATS, class IO>
-constexpr auto window_attn_max_heads_kernel() {
-  if constexpr (is_bf16<IO>)
-    return spa_window_attn_bf16io_kernel<DH, STATS>;
-  else
-    return spa_window_attn_bf16_kernel<DH, STATS>;
-}
 
 }  // namespace lft

@@ -19,8 +19,13 @@ take (`RowProj`, `FfnOut`, `FfnOutBwd`, `AngLayout`, `AngBwdTok`,
 `QkvLnBwd` in the sources). K2.5's `_bf16` instance (`csrc/ffn_bf16.cuh`)
 runs bf16 `wgmma` on its three weights held whole in shared memory:
 `bf16_piece` and `ffn_out_bf16_stream` are its weights' layout,
-`ffn_out_bf16_floats` and `ffn_out_bf16_smem` its sizes (`FfnBf16`). A
-backward's transposed weights are split straight from the forward's
+`ffn_out_bf16_floats` and `ffn_out_bf16_smem` its sizes (`FfnBf16`).
+K2.5's `_sites` instances (`csrc/ffn_sites.cuh`) take the rounded weights
+in `bf16_piece`'s layout and the f32 ones split, Wlin's rows in
+`sites_rows` order where its product's A comes from an accumulator
+(`sites_piece`):
+`ffn_out_sites_stream`, `ffn_out_sites_floats` and `ffn_out_sites_smem`
+(`FfnSites`). A backward's transposed weights are split straight from the forward's
 (`RgPiece::tr`): no transposed copy is made.
 """
 
@@ -219,6 +224,41 @@ def ffn_out_stream(wts: dict) -> torch.Tensor:
     return torch.cat([piece(p) for p in ffn_out_pieces(wts["w1"], wts["w2"], wts["wlin"])])
 
 
+SITES_CHAIN = 4        # 16s of K a chain of K2.5 `_sites`'s 3xTF32 products (FS_CHAIN)
+
+
+def sites_rows(K: int) -> list:
+    """The rows of a K-row weight in the order `csrc/ffn_sites.cuh` lays them
+    out for a product whose A fragments come from an accumulator
+    (`ffn_sites_k`): in each group of 8, logical row k is row 2 (k % 4) + k
+    // 4, since the TF32 fragment's k = q, q + 4 hold the accumulator's
+    columns 2 q, 2 q + 1."""
+    return [8 * (k // 8) + 2 * (k % 4) + k % 8 // 4 for k in range(K)]
+
+
+def sites_piece(B: torch.Tensor) -> torch.Tensor:
+    """`piece` of B with its rows in `sites_rows` order."""
+    return piece(B[sites_rows(B.shape[0])])
+
+
+def ffn_out_sites_stream(wts: dict, ffn: bool):
+    """Plain version of the `spa_ffn_out_sites` launches' weight preparation
+    (`ffn_sites_weights_kernel`), as (bf16 values, f32 values) in scratch
+    order. ffn (the `ffn` site rounds, `lin` does not): W1 and W2 whole,
+    each a `bf16_piece`, then Wlin split (`sites_piece`); else, per hidden
+    chunk, W1[:, chunk] and W2[chunk, :] split (`piece`), then Wlin a
+    `bf16_piece`."""
+    if ffn:
+        return (torch.cat([bf16_piece(wts["w1"]), bf16_piece(wts["w2"])]),
+                sites_piece(wts["wlin"]))
+    D = wts["w1"].shape[0]
+    hc = hidden_chunk(D)
+    parts = []
+    for j in range(0, 2 * D, hc):
+        parts += [piece(wts["w1"][:, j:j + hc]), piece(wts["w2"][j:j + hc])]
+    return bf16_piece(wts["wlin"]), torch.cat(parts)
+
+
 def ffn_out_bf16_stream(wts: dict) -> torch.Tensor:
     """Plain version of the `spa_ffn_out_bf16` launches' weight preparation
     (`ffn_bf16_weights_kernel`): W1, W2 and Wlin whole, each a `bf16_piece`,
@@ -253,6 +293,14 @@ def ffn_out_bf16_floats(C: int) -> int:
     4 D^2 + D C bf16 values, two a word."""
     D = 2 * C
     return (4 * D * D + D * C) // 2
+
+
+def ffn_out_sites_floats(C: int, ffn: bool) -> int:
+    """f32 words of `spa_ffn_out_sites`'s scratch (FfnSites<C, ffn>::FLOATS),
+    within `ffn_out_floats(C)`: ffn the bf16 W1, W2 (two a word) and Wlin
+    split; else W1, W2 split and the bf16 Wlin."""
+    D = 2 * C
+    return 2 * D * D + 2 * D * C if ffn else 8 * D * D + D * C // 2
 
 
 def ffn_out_bwd_floats(C: int) -> int:
@@ -306,6 +354,18 @@ def ffn_out_bf16_smem(C: int) -> int:
     the rows of xn2 [128, 2C + 8] (FfnBf16<C>::BYTES)."""
     D = 2 * C
     return 4 * ffn_out_bf16_floats(C) + RG_M * (D + 8) * 4
+
+
+def ffn_out_sites_smem(C: int, ffn: bool) -> int:
+    """Shared memory of a `spa_ffn_out_sites` block (FfnSites<C, ffn>::BYTES):
+    ffn the resident weights alone (bf16 W1, W2 and Wlin split); else the
+    bf16 Wlin, the rows of xn2 [128, 2C + 4] and of a hidden chunk [128,
+    68], and the ring's slots with two mbarriers each."""
+    D = 2 * C
+    if ffn:
+        return 4 * ffn_out_sites_floats(C, True)
+    fixed = 2 * D * C + RG_M * (D + 4 + hidden_chunk(D) + 4) * 4
+    return fixed + ring_slots(fixed + 16 * 8) * (RG_SF * 4 + 16)
 
 
 def ffn_out_bwd_smem(C: int) -> int:

@@ -650,6 +650,56 @@ def hp_thread_pixels(tid: int):
     return [(ry + a, tx) for a in range(WA_QY)]
 
 
+# The bf16-IO window kernel (csrc/window_mma.cuh: `spa_window_attn_bf16io`
+# and its `_res` form, K5's `spa_attn_hp_bf16io` and `_res_bf16io`): a block
+# takes an 8 x 8 query tile of one view and all heads (`window_mma_items`),
+# its 12 x 12 k halo and, in WM_VS rounds of D / WM_VS channels, its v halo
+# bf16 in shared memory (`window_mma_smem`, 16-byte chunks swizzled by
+# `window_mma_unit`), four blocks an SM; warp j takes the tile's 4 x 4 patch
+# (j // 2, j % 2), the 16 rows of `mma.sync`, and lane (g, q) its queries g
+# and g + 8 (`window_mma_lane`).
+WM_T = 8               # query tile
+WM_P = 4               # a warp's patch of queries
+WM_NT = 128            # threads of a block
+WM_VS = 2              # rounds of the v halo
+WM_BLOCKS = 4          # blocks an SM
+
+
+def window_mma_smem(D: int) -> int:
+    """Shared memory of a bf16-IO window block: the k halo, (8 + 4)^2 pixels
+    of D bf16 values, and a round of the v halo, D / WM_VS values a pixel
+    (WinMma<D>::BYTES)."""
+    halo = (WM_T + 2 * WA_RADIUS) ** 2 * D * 2
+    return halo + halo // WM_VS
+
+
+def window_mma_items(V: int, h: int, w: int):
+    """The bf16-IO window kernel's blocks in launch order, (view, y0, x0):
+    an 8 x 8 query tile at (y0, x0) of one view."""
+    ntx, nty = -(-w // WM_T), -(-h // WM_T)
+    return [(i // (nty * ntx), i % (nty * ntx) // ntx * WM_T, i % (nty * ntx) % ntx * WM_T)
+            for i in range(V * nty * ntx)]
+
+
+def window_mma_lane(tid: int):
+    """(patch row, patch column) in the tile of thread `tid`'s warp and the
+    (row, column) in that patch of its two queries (g and g + 8 of the MMA's
+    16 rows), with its key columns 2 q, 2 q + 1 of each 8-key row: ((py,
+    px), [(qy, qx), (qy + 2, qx)], q)."""
+    warp, lane = tid // 32, tid % 32
+    g, q = lane // 4, lane % 4
+    return ((WM_P * (warp // 2), WM_P * (warp % 2)), [(g // 4, g % 4), (g // 4 + 2, g % 4)], q)
+
+
+def window_mma_unit(p: int, c: int, ch: int) -> int:
+    """The 16-byte unit of a halo of `ch` chunks (8 channels each) a pixel
+    that holds chunk c of halo pixel p (window_mma.cuh: wm_unit): D / 8 for
+    the k halo, D / 8 / WM_VS for a round of the v halo."""
+    if ch >= 8:
+        return p * ch + (c ^ (p & 7))
+    return p * ch + (c ^ ((p >> 1) & 3) if ch == 4 else c ^ ((p >> 2) & 1))
+
+
 def _check_window(kernel: str, D: int, num_heads: int, ksize: int) -> None:
     if num_heads != 8 or ksize != 5 or D // num_heads not in (4, 8, 16) \
             or D % num_heads:
@@ -664,11 +714,12 @@ def window_attn(q, k, v, num_heads: int, ksize: int, with_stats: bool = False, p
     `spa_window_attn_res`. On the card a block takes a (view, 16 x 16 tile,
     head group) item (`window_items`), its threads each 2 queries of a
     column and 16 channels (`window_thread`), two blocks an SM. bf16 q, k,
-    v launch `spa_window_attn_bf16io` (`window_attn_plain`'s bf16 IO: a
-    block takes a (view, 16 x 16 tile) item and its head groups in two
-    passes, the first for each query's max over all its heads); with_stats
-    `spa_window_attn_res_bf16io` (m, l f32: each query's max over its heads
-    in every head's slot, and its heads' sums). The plan `none` launches
+    v launch `spa_window_attn_bf16io` (`window_attn_plain`'s bf16 IO,
+    `csrc/window_mma.cuh`: a block takes an 8 x 8 query tile and every head
+    (`window_mma_items`), k and v staged once, bf16, the products on the
+    tensor cores, a first pass of scores for each query's max over all its
+    heads); with_stats `spa_window_attn_res_bf16io` (m, l f32: each query's
+    max over its heads in every head's slot, and its heads' sums). The plan `none` launches
     `spa_window_attn_bf16` (f32 q, k, v rounded as they load, the bf16-IO
     kernel's softmax, attn f32); with_stats `spa_window_attn_res_bf16` (the
     same, m and l as the bf16-IO form's, attn f32 of bf16 values: the
@@ -735,7 +786,10 @@ def ffn_out(xn2, x2, wts, views=None, plan=None):
     xn2 and x2 launch `spa_ffn_out[_pm]_bf16io` (bf16 out); the plan `none`
     `spa_ffn_out[_pm]_bf16` (bf16 `wgmma` on the weights rounded to bf16
     into `rowgemm.ffn_out_bf16_stream`'s layout and held whole in shared
-    memory, `csrc/ffn_bf16.cuh`)."""
+    memory, `csrc/ffn_bf16.cuh`); a site subset that rounds one of `ffn`
+    and `lin` `spa_ffn_out[_pm]_sites` (`csrc/ffn_sites.cuh`: the rounded
+    products bf16 `wgmma`, the f32 ones 3xTF32, the weights prepared into
+    `rowgemm.ffn_out_sites_stream`'s layout)."""
     if xn2.device.type != "cuda":
         out = ffn_out_plain(xn2, x2, wts, plan)
         return out if views is None else _to_pixel_major(out, views)

@@ -2474,3 +2474,70 @@ def test_mixed_bwd_sites_train_step_on_card(cuda_device, monkeypatch, fwd, bwd):
     l2 = lambda a, b: float((a - b).double().norm() / b.double().norm())
     assert l2(g_k, g_p) <= 1.5 * l2(g_p, g_f), (l2(g_k, g_p), l2(g_p, g_f))
     assert abs(l2(g_k, g_f) / l2(g_p, g_f) - 1) <= 0.1, (l2(g_k, g_f), l2(g_p, g_f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("V,h,w", [(2, 8, 8), (1, 3, 2), (2, 1, 13), (3, 12, 20)])
+def test_window_bf16io_mma_kernel_forms(cuda_device, C, V, h, w):
+    """The bf16-IO window kernel on the tensor cores (csrc/window_mma.cuh),
+    at every head width (DH = 4, 8, 16) and views no 8 x 8 tile divides or
+    smaller than one: against the plain bf16 version (`_bf16_close`), m and
+    l against its (m in every head's slot), and its four launch forms (K2.3
+    `spa_window_attn[_res]_bf16io`, K5 `spa_attn_hp[_res]_bf16io`) bit for
+    bit one another, each launched once under its own name."""
+    g = torch.Generator(device=cuda_device).manual_seed(C + h + w)
+    q, k, v = (torch.randn(V, h, w, 2 * C, device=cuda_device, generator=g) * s
+               for s in (1.5, 1.5, 1.0))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    forms = {"spa_window_attn_bf16io": lambda: (spa_block.window_attn(q, k, v, 8, 5),),
+             "spa_window_attn_res_bf16io": lambda: spa_block.window_attn(q, k, v, 8, 5, True),
+             "spa_attn_hp_bf16io": lambda: (spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5),),
+             "spa_attn_hp_res_bf16io": lambda: spa_attn_hp.spa_attn_hp_fwd(q, k, v, 8, 5, True)}
+    outs = {}
+    for name, fn in forms.items():
+        reset_launches()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        assert {n: c for n, c in LAUNCHES.items() if c} == {name: 1}
+    ref = spa_block.window_attn_plain(q, k, v, 8, 5)
+    ref32 = spa_block.window_attn_plain(q.float(), k.float(), v.float(), 8, 5)[0]
+    _bf16_close(outs["spa_window_attn_bf16io"], ref[:1], (ref32,))
+    for name in ("spa_window_attn_res_bf16io", "spa_attn_hp_res_bf16io"):
+        torch.testing.assert_close(outs[name][1], ref[1], atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(outs[name][2], ref[2], atol=1e-5, rtol=1e-4)
+    first = outs["spa_window_attn_res_bf16io"]
+    assert all(torch.equal(a, b) for a, b in zip(outs["spa_attn_hp_res_bf16io"], first))
+    assert all(torch.equal(o[0], first[0]) for o in outs.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [SITES_S1, SITES_S2])
+@pytest.mark.parametrize("C", [16, 32, 64])
+def test_ffn_out_sites_kernels_pm_and_masks(cuda_device, C, spec):
+    """K2.5's `_sites` kernels (csrc/ffn_sites.cuh): K11.5's output is the
+    view-major one's pixel-major bit for bit (so that K11 under the subset
+    is K2's chain), a call repeats bitwise, and the C entry refuses a mask
+    that rounds both or neither of `ffn` and `lin` (those take the `_bf16`
+    or f32 instance) with cudaErrorInvalidValue."""
+    import ctypes
+
+    from lft_torch.kernels import _build, common
+    from lft_torch.kernels.rowgemm import ffn_out_floats
+    plan = _plan_sites(spec)
+    ws = spa_block.spa_weights(_params(C, cuda_device), "altblock.2.spa_trans.")
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    xn2, x2 = (torch.randn(50, 9, 7, 2 * C, device=cuda_device, generator=g) for _ in range(2))
+    got = spa_block.ffn_out(xn2, x2, ws, plan=plan)
+    assert torch.equal(got, spa_block.ffn_out(xn2, x2, ws, plan=plan))
+    assert torch.equal(spa_block.ffn_out(xn2, x2, ws, 25, plan=plan),
+                       spa_block._to_pixel_major(got, 25))
+    fn = _build.bind("spa_block", "lft_spa_ffn_out_sites", 7, (ctypes.c_int,) * 3)
+    wf = torch.empty(ffn_out_floats(C), device=cuda_device)
+    out = torch.empty_like(got)
+    bits = common.SITE_BITS
+    for mask in (0, bits["ffn"] | bits["lin"]):
+        rc = fn(xn2.data_ptr(), x2.data_ptr(), *(ws[n].data_ptr() for n in ("w1", "w2", "wlin")),
+                wf.data_ptr(), out.data_ptr(), xn2.numel() // (2 * C), C, mask,
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 1   # cudaErrorInvalidValue
