@@ -547,6 +547,27 @@ def bf16_err(got, ref, ref32, ulps_max=BF16_ULPS, f32_rel=0.0):
     return worst, ok
 
 
+def f64_err(got, ref, ref32, exact) -> bool:
+    """A bf16-IO output whose plain version is no yardstick at BF16_GAP
+    (`ang_bf16_width_checks`): whether it lies no further from `exact`
+    (its function in float64, rounded to bf16 where the plain version
+    rounds) than the plain version does, plus BF16_GAP of the plain
+    bf16-vs-f32 distance, and within BF16_ULPS bf16 ulps of max |plain| of
+    the plain version. Prints the distances and the share of the plain
+    version's."""
+    import torch
+    if got.shape != ref.shape or got.dtype != ref.dtype or not torch.isfinite(got).all():
+        raise AssertionError(f"bad kernel output: {got.dtype} {tuple(got.shape)}")
+    gap, d, d_ref = l2_rel(ref32, ref), l2_rel(got, exact), l2_rel(ref, exact)
+    err = float((got.float() - ref.float()).abs().max())
+    ulps = err / 2.0 ** (math.floor(math.log2(float(ref.float().abs().max()))) - 7)
+    print(f"  out {tuple(got.shape)}: from float64 at the plain version's rounding points "
+          f"{d / gap:.4f} of the bf16-vs-f32 distance, the plain version {d_ref / gap:.4f} "
+          f"(limit it + {BF16_GAP}); from the plain version {l2_rel(got, ref) / gap:.4f}; max "
+          f"|diff| {ulps:.2f} bf16 ulps of max |plain|", flush=True)
+    return d <= d_ref + BF16_GAP * gap and ulps <= BF16_ULPS
+
+
 def bf16t_err(got, ref, ref32):
     """A bf16-training kernel against its plain bf16 version: `bf16_err`
     with BF16T_ULPS and BF16T_F32_REL."""
@@ -3033,7 +3054,7 @@ def bf16_kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: i
           (x, pe, wa), (x.float(), pe, wa32), 2 * N * A2 * 8 * C * C,
           nbytes(x, pe, x, *wa.values()),
           lib=lambda: [tok1 @ wa[n] for n in ("wq", "wk", "wv", "wo", "w1")] + [hid1 @ wa["w2"]],
-          lib_what="its six cuBLAS products", src="ang_block.cu",
+          lib_what="its six cuBLAS products", src="ang_bf16.cuh",
           replaces="lft_tpu/kernels/ang_block.py:249", fp32_flops=4 * N * A2 * A2 * C)
     del x, tok1, hid1
 
@@ -3066,6 +3087,8 @@ def bf16_kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: i
                  lib_fn=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
     del qh, kh, vh
     window_width_checks(g)
+    ang_bf16_width_checks(g)
+    ffn_bf16io_width_checks(g)
     x2, xn2 = check("spa_outproj_ln_bf16io", sb.outproj_ln, sb.outproj_ln_plain,
                     (attn, tok, ws), (*f32((attn, tok)), ws32), 2 * T * D * D,
                     nbytes(attn, tok, attn, tok) + wbytes("wo", "ln"),
@@ -3077,7 +3100,7 @@ def bf16_kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: i
           nbytes(xn2, x2) + T * C * 2 + wbytes("w1", "w2", "wlin"),
           lib=lambda: (torch.mm(xn2.reshape(-1, D), ws["w1"], out=hid),
                        hid @ ws["w2"], x2.reshape(-1, D) @ ws["wlin"]),
-          lib_what="its three cuBLAS products")
+          lib_what="its three cuBLAS products", src="ffn_bf16.cuh")
     return rec.rows
 
 
@@ -3113,6 +3136,100 @@ def window_width_checks(g) -> None:
               f"repeated, `_res` and K5 bit for bit: {same}", flush=True)
         if not (ok and stat <= 1e-4 and same):
             raise AssertionError(f"the bf16-IO window kernel at {list(shape)} disagrees")
+
+
+def ang_bf16_width_checks(g, plan=None) -> None:
+    """Step 23 a (bf16 IO) and step 27 (`plan`: LFT_MM_HP_SITES=none, f32
+    IO): K1's all-bf16 kernel (csrc/ang_bf16.cuh) at the widths the main
+    path does not give it, C = 16 and 32, and at the main path's C = 64 at
+    the view counts it does not give it, at pixels of 25, 81 and 121 views,
+    random weights, on 256 pixels of 25 views (the last tile partly filled)
+    and 64 of 81 or 121 (a tile one pixel, its last rows empty): the forward
+    and its `_res` form against the plain version (bf16 IO: `bf16_err`,
+    `bf16t_err` for the `_res` outputs; f32 IO: `mixed_err` for out and
+    attn, m and l within L2 1e-3), a bitwise repeat, the `_res` form's out
+    bit for bit the forward's. Enough pixels that one q, k or v value
+    rounding the other way in one version, which moves the bf16 roundings
+    of many of its pixel's outputs, does not decide the share. In bf16 IO
+    at C = 64, where on these weights the plain version's own out lies
+    0.06-0.13 of its bf16-vs-f32 distance from float64 at its rounding
+    points (`probe_variants --accuracy` on an H100), so that no version
+    summing in another order, exact arithmetic included, keeps within
+    BF16_GAP of it, out is held to float64 instead (`f64_err`). Not timed
+    (the main shapes are)."""
+    import torch
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.ops.posenc import angular_position
+
+    H = 8
+    l2 = lambda a, b: float((a - b).double().norm() / b.double().norm())
+    for C, A2, N in ((16, 25, 256), (32, 25, 256), (16, 81, 64), (32, 81, 64), (64, 81, 64),
+                     (16, 121, 64), (32, 121, 64), (64, 121, 64)):
+        rnd = lambda *s_: torch.randn(*s_, device="cuda", generator=g)
+        wts = {n: rnd(*s_) / s_[0] ** 0.5 for n, s_ in (
+            ("wq", (C, C)), ("wk", (C, C)), ("wv", (C, C)), ("wo", (C, C)), ("w1", (C, 2 * C)),
+            ("w2", (2 * C, C)))}
+        wts["ln"] = torch.stack([1 + 0.2 * rnd(C), 0.2 * rnd(C), 1 + 0.2 * rnd(C), 0.2 * rnd(C)])
+        x = rnd(N, A2, C)
+        pe = torch.from_numpy(angular_position(A2, C)).to("cuda")
+        if plan is None:
+            wts = {n: t.to(torch.bfloat16) for n, t in wts.items()}
+            w32 = {n: t.float() for n, t in wts.items()}
+            x = x.to(torch.bfloat16)
+            what = "ang_block_bf16io and ang_block_res_bf16io"
+            got, res = ab.ang_block(x, pe, wts, H), ab.ang_block(x, pe, wts, H, with_res=True)
+            ref, ref32 = (ab.ang_block_plain(x_, pe, w_, H, with_res=True)
+                          for x_, w_ in ((x, wts), (x.float(), w32)))
+            if C == 64:
+                ok = f64_err(got, ref[0], ref32[0], ab.ang_block_bf16io_f64(x, pe, w32, H))
+                _, ok_r = bf16t_err(res[1:], ref[1:], ref32[1:])
+            else:
+                _, ok = bf16_err(got, ref[0], ref32[0])
+                _, ok_r = bf16t_err(res, ref, ref32)
+            ok = ok and ok_r
+        else:
+            what = "ang_block_bf16 and ang_block_res_bf16"
+            got = ab.ang_block(x, pe, wts, H, plan=plan)
+            res = ab.ang_block(x, pe, wts, H, with_res=True, plan=plan)
+            ref = ab.ang_block_plain(x, pe, wts, H, with_res=True, plan=plan)
+            ref32 = ab.ang_block_plain(x, pe, wts, H, with_res=True)
+            _, ok = mixed_err((got, res[3]), (ref[0], ref[3]), (ref32[0], ref32[3]))
+            ok = ok and l2(res[1], ref[1]) <= 1e-3 and l2(res[2], ref[2]) <= 1e-3
+        again = ab.ang_block(x, pe, wts, H, with_res=True, plan=plan)
+        same = (torch.equal(got, ab.ang_block(x, pe, wts, H, plan=plan))
+                and all(torch.equal(a, b) for a, b in zip(res, again))
+                and torch.equal(res[0], got))
+        print(f"  {what} at [{N}, {A2}, {C}]: within limits {ok}; repeated, `_res` out bit "
+              f"for bit the forward's: {same}", flush=True)
+        if not (ok and same):
+            raise AssertionError(f"{what} at [{N}, {A2}, {C}] disagrees")
+
+
+def ffn_bf16io_width_checks(g) -> None:
+    """Step 23 a: K2.5's and K11.5's bf16-IO instances (csrc/ffn_bf16.cuh's
+    kernel on bf16 rows) at the widths the main path does not give them, C
+    = 16 and 32 (random weights), on ragged rows: against the plain bf16
+    version (`bf16_err`), a bitwise repeat, K11.5's output the view-major
+    one's pixel-major bit for bit. Not timed (the main shapes are)."""
+    import torch
+    from lft_torch.kernels import spa_block as sb
+
+    for C in (16, 32):
+        D = 2 * C
+        wts = {n: (torch.randn(*s_, device="cuda", generator=g) / s_[0] ** 0.5).to(torch.bfloat16)
+               for n, s_ in (("w1", (D, 2 * D)), ("w2", (2 * D, D)), ("wlin", (D, C)))}
+        w32 = {n: t.float() for n, t in wts.items()}
+        xn2, x2 = (torch.randn(50, 17, 23, D, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(2))
+        got = sb.ffn_out(xn2, x2, wts)
+        _, ok = bf16_err(got, sb.ffn_out_plain(xn2, x2, wts),
+                         sb.ffn_out_plain(xn2.float(), x2.float(), w32))
+        same = (torch.equal(got, sb.ffn_out(xn2, x2, wts)) and
+                torch.equal(sb.ffn_out(xn2, x2, wts, 25), sb._to_pixel_major(got, 25)))
+        print(f"  spa_ffn_out_bf16io at [50, 17, 23, {C}]: within limits {ok}; repeated and "
+              f"K11.5 bit for bit: {same}", flush=True)
+        if not (ok and same):
+            raise AssertionError(f"spa_ffn_out_bf16io at C = {C} disagrees")
 
 
 def ffn_sites_width_checks(plan, what: str, g) -> None:
@@ -3406,7 +3523,7 @@ def bf16_train_kernel_checks(params, card: str, launches: dict, n_steps: int, la
         pe = torch.from_numpy(angular_position(A2, C)).to(dev)
         Tk = N * A2
         if A2 <= 64:
-            res = check("ang_block_res_bf16io", "ang_block.cu", "lft_tpu/kernels/ang_block.py:233",
+            res = check("ang_block_res_bf16io", "ang_bf16.cuh", "lft_tpu/kernels/ang_block.py:233",
                         lambda *a: ab.ang_block(*a, H, with_res=True),
                         lambda *a: ab.ang_block_plain(*a, H, with_res=True), (x, pe, wa),
                         (x.float(), pe, wa32), 2 * Tk * 8 * C * C, nbytes(x, pe, x, x)
@@ -4266,7 +4383,7 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
     out32 = to_pm(sb.ffn_out_plain(xn2.float(), x2.float(), ws32b))
     fn_o = lambda xn2=xn2, x2=x2, wsb=wsb: sb.ffn_out(xn2, x2, wsb, A2)
     got = fn_o()
-    rec_b.record("spa_ffn_out_pm_bf16io", src, rep, got, out, fn_o,
+    rec_b.record("spa_ffn_out_pm_bf16io", "lft_torch/csrc/ffn_bf16.cuh", rep, got, out, fn_o,
                  lambda: to_pm(sb.ffn_out_plain(xn2, x2, wsb)), 2 * T * (4 * D * D + D * C),
                  nbytes(xn2, x2, out) + sum(nbytes(wsb[n]) for n in ("w1", "w2", "wlin")),
                  bf16_products=True, bf16_ref32=out32)
@@ -4356,12 +4473,13 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
         tok1 = x1.reshape(-1, C).to(torch.bfloat16)
         hid1, wab = torch.cat([tok1, tok1], 1), {k_: v_.to(torch.bfloat16) for k_, v_ in wa.items()}
         check("ang_block_bf16", ang, ang_p, (x1, pe1, wa), 2 * N * A2 * 8 * C * C,
-              nbytes(x1, pe1, x1, *wa.values()), src_="ang_block.cu",
+              nbytes(x1, pe1, x1, *wa.values()), src_="ang_bf16.cuh",
               replaces="lft_tpu/kernels/ang_block.py:188", fp32_flops=4 * N * A2 * A2 * C,
               lib=("its six cuBLAS products",
                    lambda: [tok1 @ wab[n_] for n_ in ("wq", "wk", "wv", "wo", "w1")]
                    + [hid1 @ wab["w2"]]))
         del x1, tok1, hid1
+        ang_bf16_width_checks(g, plan)
         xs = torch.randn(V, h, w, C, device=dev, generator=g)
         bf = lambda t_: t_.to(torch.bfloat16)
         wsb = {k_: bf(v_) for k_, v_ in ws.items()}
@@ -4648,7 +4766,7 @@ def none_kernel_checks(params, card: str, runs: dict, seed: int) -> list:
         out, m, l, attn = fn()
         out_p, m_p, l_p, attn_p = ab.ang_block_plain(x, pe, wa, H, with_res=True, plan=plan)
         out32, _, _, attn32 = ab.ang_block_plain(x, pe, wa, H, with_res=True)
-        recs["ang_block_res_bf16"].record("ang_block_res_bf16", "lft_torch/csrc/ang_block.cu",
+        recs["ang_block_res_bf16"].record("ang_block_res_bf16", "lft_torch/csrc/ang_bf16.cuh",
                    "lft_tpu/kernels/ang_block.py:233", (out, attn), (out_p, attn_p), fn,
                    lambda: ab.ang_block_plain(x, pe, wa, H, with_res=True, plan=plan),
                    2 * N * A2 * 8 * C * C, nbytes(x, pe, out, m, l, attn, *wa.values()),

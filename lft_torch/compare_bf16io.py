@@ -37,7 +37,14 @@ in the same turns. The four window forms K2.3 `spa_window_attn_bf16io`
 [400, 32, 32, 128] and `spa_window_attn_res_bf16io` [100, 32, 32, 128],
 K5 `spa_attn_hp_bf16io` [400, 32, 32, 128] and `spa_attn_hp_res_bf16io`
 [100, 32, 32, 128] (one kernel, `csrc/window_mma.cuh`) have such
-references. `--only` times those launch names alone.
+references, and so do K1 `ang_block_bf16io` [16384, 25, 64] and
+`ang_block_res_bf16io` [4096, 25, 64] (`csrc/ang_bf16.cuh`; the `_res`
+form's out, attn, m and l each within 1/10 of its plain bf16-vs-f32
+distance, out within 1 bf16 ulp and attn 4 (chip_smoke.py's BF16T_ULPS);
+float64: the f32 block on the same bf16 values) and K2.5
+`spa_ffn_out_bf16io` [400, 32, 32, 64] and K11.5 `spa_ffn_out_pm_bf16io`
+[16, 32, 32, 25, 64] (`csrc/ffn_bf16.cuh`; float64: the f32 step on the
+same values): `REDESIGNED`. `--only` times those launch names alone.
 """
 
 from __future__ import annotations
@@ -58,15 +65,25 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @contextlib.contextmanager
 def other_libraries(libs: dict):
-    """The port's wrappers launch `libs` ({source name: CDLL}) while inside."""
+    """The port's wrappers launch `libs` ({source name: CDLL}) while inside.
+    Their scratch for the weights is the larger, split stream's size for
+    every instance: an older build's `_bf16io` and `_bf16` entries (K1, K2.5)
+    prepare that stream where this one's keep a bf16 copy."""
+    from unittest import mock
+
     from lft_torch.kernels import _build
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.kernels.rowgemm import ang_block_floats, ffn_out_floats
     saved = {n: _build._libs.get(n) for n in libs}
     for lib in libs.values():
         lib.lft_error_string.argtypes = [ctypes.c_int]
         lib.lft_error_string.restype = ctypes.c_char_p
     _build._libs.update(libs)
     try:
-        yield
+        with mock.patch.object(ab, "ang_bf16_floats", ang_block_floats), \
+                mock.patch.object(sb, "ffn_out_bf16_floats", ffn_out_floats):
+            yield
     finally:
         for n, lib in saved.items():
             if lib is None:
@@ -104,7 +121,9 @@ def cases(dev):
     x2, xn2 = sb.outproj_ln_plain(attn, tok, ws)
     qr, kr, vr = (torch.randn(100, h, w, 2 * C, device=dev, generator=g).to(torch.bfloat16)
                   for _ in range(3))
+    xr = torch.randn(4096, A2, C, device=dev, generator=g).to(torch.bfloat16)
     return [("ang_block_bf16io", lambda: ab.ang_block(x, pe, wa, H)),
+            ("ang_block_res_bf16io", lambda: ab.ang_block(xr, pe, wa, H, with_res=True)),
             ("spa_tokenize_ln_bf16io", lambda: sb.tokenize_ln(xs, pe_tok, ws)),
             ("spa_qkv_bf16io", lambda: sb.qkv(xn, tok, ws)),
             ("spa_window_attn_bf16io", lambda: sb.window_attn(q, k, v, H, K)),
@@ -112,7 +131,8 @@ def cases(dev):
              lambda: sb.window_attn(qr, kr, vr, H, K, with_stats=True)),
             ("spa_attn_hp_bf16io", lambda: hp.spa_attn_hp_fwd(q, k, v, H, K)),
             ("spa_outproj_ln_bf16io", lambda: sb.outproj_ln(attn, tok, ws)),
-            ("spa_ffn_out_bf16io", lambda: sb.ffn_out(xn2, x2, ws))] + perop_train_cases(dev, g)
+            ("spa_ffn_out_bf16io", lambda: sb.ffn_out(xn2, x2, ws)),
+            ("spa_ffn_out_pm_bf16io", lambda: sb.ffn_out(xn2, x2, ws, A2))] + perop_train_cases(dev, g)
 
 
 def window_refs(fn):
@@ -140,6 +160,42 @@ def window_refs(fn):
     exact = hp.windowed_attention_headpacked_plain(q.double(), k.double(), v.double(), 8, 5)[0]
     pick = (lambda r: r) if stats else (lambda r: (r[0],))
     return pick(plain), pick(plain32), exact
+
+
+def _grab(module, name: str, fn):
+    """The arguments of the one call `fn()` makes to `module.name`."""
+    calls = []
+    real = getattr(module, name)
+    setattr(module, name, lambda *a, **kw: calls.append((a, kw)))
+    try:
+        fn()
+    finally:
+        setattr(module, name, real)
+    (args, kw), = calls
+    return args, kw
+
+
+def block_refs(name: str, fn):
+    """(plain, plain on f32 values, float64 of the first output) of a K1 or
+    K2.5 bf16-IO call `fn` (`--redesigned`): the same call on the plain
+    versions, float64 the f32 function on the same bf16 values."""
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import spa_block as sb
+
+    f32 = lambda w: {k: v.float() for k, v in w.items()}
+    f64 = lambda w: {k: v.double() for k, v in w.items()}
+    if name.startswith("ang_block"):
+        (x, pe, wa, H), kw = _grab(ab, "ang_block", fn)
+        res = kw.get("with_res", False)
+        tup = (lambda r: r) if res else (lambda r: (r,))
+        return (tup(ab.ang_block_plain(x, pe, wa, H, res)),
+                tup(ab.ang_block_plain(x.float(), pe, f32(wa), H, res)),
+                ab.ang_block_plain(x.double(), pe.double(), f64(wa), H))
+    (xn2, x2, ws, *views), _ = _grab(sb, "ffn_out", fn)
+    pm = (lambda t: sb._to_pixel_major(t, views[0])) if views else (lambda t: t)
+    return ((pm(sb.ffn_out_plain(xn2, x2, ws)),),
+            (pm(sb.ffn_out_plain(xn2.float(), x2.float(), f32(ws))),),
+            pm(sb.ffn_out_plain(xn2.double(), x2.double(), f64(ws))))
 
 
 def perop_train_cases(dev, g):
@@ -180,6 +236,10 @@ def perop_train_cases(dev, g):
 
 WINDOW_FORMS = ("spa_window_attn_bf16io", "spa_window_attn_res_bf16io", "spa_attn_hp_bf16io",
                 "spa_attn_hp_res_bf16io")
+BLOCK_FORMS = ("ang_block_bf16io", "ang_block_res_bf16io", "spa_ffn_out_bf16io",
+               "spa_ffn_out_pm_bf16io")
+REDESIGNED = WINDOW_FORMS + BLOCK_FORMS
+BF16T_ULPS = 4.0   # chip_smoke.py: a training form's bf16 residual
 
 
 def _bf16_dist(got, ref, ref32):
@@ -203,8 +263,8 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     redesigned = set(filter(None, a.redesigned.split(",")))
     only = set(filter(None, a.only.split(",")))
-    if redesigned - set(WINDOW_FORMS):
-        ap.error(f"--redesigned takes {', '.join(WINDOW_FORMS)}")
+    if redesigned - set(REDESIGNED):
+        ap.error(f"--redesigned takes {', '.join(REDESIGNED)}")
     if not torch.cuda.is_available():
         print("compare_bf16io: no CUDA device is available", file=sys.stderr)
         return 1
@@ -238,7 +298,25 @@ def main(argv=None) -> int:
                       f"{t2:.4f} ms", flush=True)
                 continue
             got, ref = (t if isinstance(t, tuple) else (t,) for t in (got, ref))
-            if name in redesigned:
+            if name in redesigned and name in BLOCK_FORMS:
+                plain, plain32, exact = block_refs(name, fn)
+                dist = [_bf16_dist(t, plain, plain32) for t in (ref, got)]
+                # out within 1 ulp; a `_res` form's attn within BF16T_ULPS, m and l by L2 alone
+                ulps = [1.0, math.inf, math.inf, BF16T_ULPS]
+                ok = all(d <= 0.1 and u <= ulps[i] for t in dist for i, (d, u) in enumerate(t))
+                err = [float((t[0].double() - exact).abs().max()) for t in (ref, got, plain)]
+                again = fn()
+                same = all(torch.equal(x, y) for x, y in
+                           zip(got, again if isinstance(again, tuple) else (again,)))
+                differ += not (ok and same)
+                verdict = ("per output L2 from the plain version as a share of its bf16-vs-f32 "
+                           "distance (limit 0.1) and max |diff| in bf16 ulps of max |plain| "
+                           "(out 1, attn 4): other " + ", ".join(f"{d:.4f} / {u:.2f}"
+                                                                 for d, u in dist[0])
+                           + "; this " + ", ".join(f"{d:.4f} / {u:.2f}" for d, u in dist[1])
+                           + f"; max |out - float64| other {err[0]:.3e}, this {err[1]:.3e}, "
+                           f"plain {err[2]:.3e}; repeats bitwise: {same}")
+            elif name in redesigned:
                 plain, plain32, exact = window_refs(fn)
                 dist = [_bf16_dist(t[:1], plain[:1], plain32[:1])[0] for t in (ref, got)]
                 # m and l (the `_res` forms) against the plain version's

@@ -69,6 +69,29 @@ and 1/10 of its mixed-vs-f32 distance), their max error against float64 of
 the same rounded operands beside the plain version's, a bitwise repeat,
 timed other, this, this, other beside the bound (S1: W1 and W2 as three
 TF32 products at 495 TFLOP/s, Wlin at 989; S2: the rows' bytes).
+
+    python3 -m lft_torch.compare_blocks --ang-bf16 OTHER_ANG_BLOCK_CU
+
+(or the other checkout's built `libang_block_<hash>.so`) likewise K1's
+bf16-operand forms (`--dtype mixed` under LFT_MM_HP_SITES=none), whose C
+entries `lft_ang_block_fwd_bf16` and `lft_ang_block_fwd_res_bf16` have this
+checkout's interface (a scratch of `rowgemm.ang_block_floats(C)` floats):
+`ang_block_bf16` at [16384, 25, 64] and `ang_block_res_bf16` at [4096, 25,
+64], the demo checkpoint's block-0 weights; both builds against the plain
+version under the plan `none` (out and attn L2-relative 1e-3 and 1/10 of
+its mixed-vs-f32 distance, m and l L2 1e-3), their max error of out
+against float64 (the plan's plain version in float64) beside the plain
+version's, a bitwise repeat, the `_res` form's out its forward's; timed
+other, this, this, other beside the bound (x in and out f32 at 3.35
+TB/s, or the six products and the attention at the bf16 rate, the larger)
+and the six cuBLAS bf16 products. Then, at the card tests' shapes (C 16,
+32, 64; 9, 25, 81 and 121 views; 5 and 37 pixels at 121) with block 1's
+weights of `init_params`, and at C = 64 and 64 pixels of 81 and 121 views
+with `chip_smoke.py`'s random weights (N(0, 1 / fan-in), LayerNorm affine 1
++- 0.2), each output of `ang_block_res_bf16io` of both builds as a share of
+the plain bf16-vs-f32 distance, two seeds each: how far two designs summing
+in other orders lie from the plain version, bf16 roundings that flip
+included.
 """
 
 from __future__ import annotations
@@ -254,6 +277,131 @@ def _ffn_bf16_main(other_spa: str) -> int:
     return 0
 
 
+def _ang_bf16_main(other_ang: str) -> int:
+    """`--ang-bf16` (the module docstring)."""
+    import ctypes
+
+    from lft_torch.compare_bf16io import other_libraries
+    from lft_torch.device import resolve_device
+    from lft_torch.kernels import _build
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels.common import mm_site_plan
+    from lft_torch.ops.posenc import angular_position
+    from lft_torch.profile_scene import device_ms
+    from lft_torch.utils.checkpoint import load_checkpoint
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    dev = resolve_device()
+    _build.build_all()
+    params, _, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
+                                                "LFT_5x5_4x_synth3000.pth"), device=dev)
+    wa = ab.ang_weights(params, "altblock.0.ang_trans.")
+    w64 = {k: v.double() for k, v in wa.items()}
+    wab = {k: v.to(torch.bfloat16) for k, v in wa.items()}
+    none = mm_site_plan(True, frozenset())
+    C, A2, H = 64, 25, 8
+    pe = torch.from_numpy(angular_position(A2, C)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    l2 = lambda a_, b_: float((a_.double() - b_.double()).norm() / b_.double().norm())
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = ctypes.CDLL(other_ang) if other_ang.endswith(".so") else \
+            _build.build_library(other_ang, tmp, "other_ang_block")
+        for N, res in ((16384, False), (4096, True)):
+            name = "ang_block_res_bf16" if res else "ang_block_bf16"
+            x = torch.randn(N, A2, C, device=dev, generator=g)
+            fn = lambda x=x, res=res: ab.ang_block(x, pe, wa, H, with_res=res, plan=none)
+            ref = _tuple(ab.ang_block_plain(x, pe, wa, H, with_res=res, plan=none))
+            ref32 = _tuple(ab.ang_block_plain(x, pe, wa, H, with_res=res))
+            exact = ab.ang_block_plain(x.double(), pe.double(), w64, H, plan=none)
+            fwd = ab.ang_block(x, pe, wa, H, plan=none) if res else None
+
+            def other(fn=fn):
+                with other_libraries({"ang_block": lib}):
+                    return fn()
+            dist, err = [], []
+            for f in (other, fn):
+                got = _tuple(f())
+                ds = [l2(got[i], ref[i]) for i in range(len(got))]
+                gaps = [l2(ref32[i], ref[i]) for i in range(len(got))]
+                ok = all(ds[i] <= 1e-3 and (i in (1, 2) or ds[i] <= 0.1 * gaps[i])
+                         for i in range(len(got)))
+                if not ok or not all(torch.equal(a_, b_) for a_, b_ in zip(got, _tuple(f()))):
+                    raise AssertionError(f"{name}: a build disagrees with the plain version or "
+                                         f"does not repeat ({ds}, gaps {gaps})")
+                if f is fn and res and not torch.equal(got[0], fwd):
+                    raise AssertionError(f"{name}: out is not ang_block_bf16's")
+                dist.append(ds[0] / gaps[0])
+                err.append(_err(got[0], exact))
+            err.append(_err(ref[0], exact))
+            t = [device_ms(other), device_ms(fn), device_ms(fn), device_ms(other)]
+            tok = x.reshape(-1, C).bfloat16()
+            hid = torch.cat([tok, tok], 1)
+            lib_ms = device_ms(lambda: [tok @ wab[n] for n in ("wq", "wk", "wv", "wo", "w1")]
+                               + [hid @ wab["w2"]])
+            T = N * A2
+            io = 2 * T * C * 4 + (T * (2 * H + C) * 4 if res else 0)
+            flops = 2 * T * 8 * C * C + 4 * T * A2 * C
+            bound = max(io / 3.35e12, flops / 989e12) * 1e3
+            print(f"{name} [{N}, {A2}, {C}]: other {t[0]:.4f} / {t[3]:.4f} ms, this {t[1]:.4f} / "
+                  f"{t[2]:.4f} ms (this / other {(t[1] + t[2]) / (t[0] + t[3]):.3f}), bound "
+                  f"{bound:.4f} ms, its six cuBLAS bf16 products {lib_ms:.4f} ms; out's L2 from "
+                  f"the plain version as a share of its mixed-vs-f32 distance: other "
+                  f"{dist[0]:.4f}, this {dist[1]:.4f}; max |out - float64| other {err[0]:.3e}, "
+                  f"this {err[1]:.3e}, plain {err[2]:.3e}", flush=True)
+        _res_bf16io_distances(lib, dev)
+    return 0
+
+
+def _res_bf16io_distances(lib, dev) -> None:
+    """`--ang-bf16`'s second part (the module docstring): out, m, l, attn of
+    `ang_block_res_bf16io`, this build's and `lib`'s."""
+    from lft_torch.compare_bf16io import other_libraries
+    from lft_torch.config import Args
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.models import lft
+    from lft_torch.ops.posenc import angular_position
+
+    share = lambda a, r, r32: float((a.double() - r.double()).norm()
+                                    / (r32.double() - r.double()).norm())
+
+    def random_weights(C, g):
+        rnd = lambda *s_: torch.randn(*s_, device=dev, generator=g)
+        w = {n: rnd(*s_) / s_[0] ** 0.5 for n, s_ in (
+            ("wq", (C, C)), ("wk", (C, C)), ("wv", (C, C)), ("wo", (C, C)), ("w1", (C, 2 * C)),
+            ("w2", (2 * C, C)))}
+        w["ln"] = torch.stack([1 + 0.2 * rnd(C), 0.2 * rnd(C), 1 + 0.2 * rnd(C), 0.2 * rnd(C)])
+        return {n: t.bfloat16() for n, t in w.items()}
+
+    cases = [(C, A2, N, "init_params") for C in (16, 32, 64)
+             for A2, N in ((9, 37), (25, 37), (81, 7), (121, 5), (121, 37))]
+    cases += [(64, A2, 64, "random") for A2 in (81, 121)]
+    for C, A2, N, kind in cases:
+        if kind == "random":
+            wb = random_weights(C, torch.Generator(device=dev).manual_seed(A2))
+        else:
+            p = {k: v.bfloat16() for k, v in lft.init_params(0, Args(channels=C, scale_factor=2),
+                                                             device=dev).items()}
+            wb = ab.ang_weights(p, "altblock.1.ang_trans.")
+        w32 = {k: v.float() for k, v in wb.items()}
+        pe = torch.from_numpy(angular_position(A2, C)).to(dev)
+        for seed in range(2):
+            g = torch.Generator(device=dev).manual_seed(C + A2 + 100 * seed)
+            x = torch.randn(N, A2, C, device=dev, generator=g).bfloat16()
+            ref = ab.ang_block_plain(x, pe, wb, 8, with_res=True)
+            ref32 = ab.ang_block_plain(x.float(), pe, w32, 8, with_res=True)
+            got = ab.ang_block(x, pe, wb, 8, with_res=True)
+            with other_libraries({"ang_block": lib}):
+                old = ab.ang_block(x, pe, wb, 8, with_res=True)
+            print(f"ang_block_res_bf16io [{N}, {A2}, {C}] {kind} weights, seed {seed}: out, m, "
+                  "l, attn as shares of the plain bf16-vs-f32 distance: other "
+                  + " ".join(f"{share(a, r, r32):.3f}" for a, r, r32 in zip(old, ref, ref32))
+                  + "; this "
+                  + " ".join(f"{share(a, r, r32):.3f}" for a, r, r32 in zip(got, ref, ref32)),
+                  flush=True)
+
+
 def _ffn_sites_main(other_spa: str) -> int:
     """`--ffn-sites` (the module docstring)."""
     import ctypes
@@ -354,6 +502,9 @@ def main(argv=None) -> int:
                     help="K2.5's `_bf16` instance alone against the other spa_block.cu's")
     ap.add_argument("--ffn-sites", action="store_true",
                     help="K2.5's `_sites` instance alone against the other spa_block.cu's")
+    ap.add_argument("--ang-bf16", action="store_true",
+                    help="K1's `_bf16` forms alone against the other ang_block.cu's (the one "
+                         "path given)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_blocks: no CUDA device is available", file=sys.stderr)
@@ -362,6 +513,8 @@ def main(argv=None) -> int:
         return _ffn_bf16_main(a.other_spa)
     if a.ffn_sites:
         return _ffn_sites_main(a.other_spa)
+    if a.ang_bf16:
+        return _ang_bf16_main(a.other_spa)
     if a.other_ang is None:
         ap.error("OTHER_ANG_BLOCK_CU is needed without --ffn-bf16 or --ffn-sites")
     from lft_torch.device import resolve_device

@@ -1,7 +1,7 @@
 """Hold this checkout's f32 kernel instances to another revision's machine
 code: the ptxas registers and spills of every kernel, both builds.
 
-    python3 -m lft_torch.compare_ptxas OTHER_CSRC_DIR
+    python3 -m lft_torch.compare_ptxas OTHER_CSRC_DIR [--replaced REGEX]
 
 OTHER_CSRC_DIR holds another revision's whole `lft_torch/csrc` (e.g. `git
 archive <commit> lft_torch/csrc` unpacked into a git-ignored directory such
@@ -24,15 +24,23 @@ bf16-operand forward instances of `--dtype mixed`), is matched to the other
 build's kernel without them; so is a kernel that lost its trailing `float`
 IO types here (`wgrad`'s f32 kernels once `wgrad_bf16io` had kernels of
 its own), or its trailing `false` (K2.5's SITES switch once its `_sites`
-instances had kernels of their own, ffn_sites.cuh). Prints every
-matched pair's registers, spill stores and loads, and each side's unmatched
-kernels (here: the newer bf16 instances). Exits 1 if a matched pair differs
-or an old kernel is missing. Needs nvcc, not a card.
+instances had kernels of their own, ffn_sites.cuh), or an IO type with
+its BF switch (`, float, false`) from the middle of its arguments (K1's
+and K2.5's f32 and `_sites` kernels once their all-bf16 forms had kernels
+of their own, ang_bf16.cuh and ffn_bf16.cuh). Prints every matched pair's
+registers, spill stores and loads, and each side's unmatched kernels (here:
+the newer bf16 instances). Exits 1 if a matched pair differs or an old
+kernel is missing; `--replaced REGEX`: an old kernel missing here whose
+name matches REGEX (an instance this revision replaced by a kernel of
+another design) is printed as replaced and not counted. Needs nvcc, not a
+card.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -118,20 +126,24 @@ def reports(csrc_other: str) -> tuple:
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1:
-        print(__doc__, file=sys.stderr)
-        return 2
-    ours, theirs = reports(argv[0])
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other_csrc")
+    ap.add_argument("--replaced", default=None,
+                    help="old kernels matching this regex may be missing here")
+    a = ap.parse_args(argv)
+    replaced = re.compile(a.replaced) if a.replaced else None
+    ours, theirs = reports(a.other_csrc)
     bad = 0
     for src in sorted(theirs):
         new = ours.get(src, {})
         old_by = {bare(k): r for k, r in theirs[src].items()}
         old_io = {without_io(k): k for k in old_by if k.endswith(", float>")}
         old_bf = {without_bf(k): k for k in old_by if k.endswith(", false>")}
+        old_mid = {k.replace(", float, false", "", 1): k for k in old_by if ", float, false" in k}
         matched = set()
         for name, r in sorted(new.items()):
-            key = match(bare(name), old_by) or old_io.get(bare(name)) or old_bf.get(bare(name))
+            key = (match(bare(name), old_by) or old_io.get(bare(name)) or old_bf.get(bare(name))
+                   or old_mid.get(bare(name)))
             if key is None:
                 print(f"{src}: new only  {name}: {r[0]} registers, spills {r[1]}/{r[2]} B")
                 continue
@@ -142,6 +154,9 @@ def main(argv=None) -> int:
                   f"{r[1]}/{r[2]} B; other build {key}: {old_by[key][0]} registers, spills "
                   f"{old_by[key][1]}/{old_by[key][2]} B")
         for key in sorted(set(old_by) - matched):
+            if replaced is not None and replaced.search(key):
+                print(f"{src}: replaced  {key}")
+                continue
             bad += 1
             print(f"{src}: MISSING here  {key}")
     print(f"ptxas: {'every kernel of the other build matched' if not bad else f'{bad} differ'}")

@@ -41,58 +41,31 @@
 //   an SM.
 // * With residuals (training) each thread also writes its query's m, l and
 //   attention output.
-// * IO = bf16 (`ang_block_bf16io`, `--dtype bfloat16`; lft_tpu's kernel with
-//   io = bf16, ang_block.py:116-150): x and out bf16, widened as x is
-//   loaded; the weights' bf16 parts (rg_weights_kernel<true>) and the
-//   products one TF32 pass over bf16 values (rowgemm.cuh's BF), exact
-//   products summed in f32; every row the block keeps in shared memory
-//   stays f32 but holds bf16 values where lft_tpu rounds: xn, q, k, v, the
-//   attention output, x2 = bf16(bf16(a Wo) + x), LN2(x2), the hidden
-//   chunks, and out = bf16(bf16(y) + x2). The PE and the LayerNorms stay
-//   f32. The softmax takes lft_tpu's max, each token's over every head and
-//   key: a first pass over the (pixel, head, query) items writes each one's
-//   max to MH (4 KB past the ring), the second the token's max over its
-//   heads, then e = exp(s - m), l over the unrounded e and o over bf16(e),
-//   scores as (q . k) scale as lft_tpu orders them. Bound (the bytes halve,
-//   the products at the bf16 rate): at [16384, 25, 64] 0.0314 ms of bytes,
-//   26.8 GFLOP 0.027 ms on the tensor cores and the attention on the FP32
-//   pipes 0.04 ms (0.08 with the max pass).
-// * IO = bf16 with residuals (`ang_block_res_bf16io`, `--dtype bfloat16`
-//   training, lft_tpu's K1 res with io = bf16, ang_block.py:139-143): the
-//   second pass also writes m, the token's max over its heads, into every
-//   head's slot, l over the unrounded e, and the attention output in bf16;
-//   out is `ang_block_bf16io`'s bit for bit.
-// * BF with IO = float (`ang_block_bf16`, `--dtype mixed` serving under
-//   LFT_MM_HP_SITES=none; lft_tpu's kernel with mm_half and every site
-//   rounded, ang_block.py:110-152): x, out and every sum f32; the products
-//   over bf16-rounded operands (rowgemm.cuh's BF rounds the rows as they
-//   load), q, k and v held rounded (the `ascore` and `aav` sites), and
-//   lft_tpu's softmax as above (the token's max over its heads, e rounded
-//   through the product with v). Nothing else rounds: x2 = a Wo + x, LN2
-//   and out = y + x2 stay f32. Bound at [16384, 25, 64]: 26.8 GFLOP at the
-//   bf16 rate 0.027 ms, the attention on the FP32 pipes 0.08 ms with the
-//   max pass, x in and out f32 0.063 ms of bytes.
-// * BF with IO = float and residuals (`ang_block_res_bf16`, `--dtype mixed`
-//   training under LFT_MM_HP_SITES=none; lft_tpu's K1 res with mm_half,
-//   ang_block.py:139-143, 241-244): `ang_block_bf16`'s arithmetic, the
-//   second pass also writing m (the token's max over its heads, in every
-//   head's slot), l (the sum of the unrounded e) and the attention output
-//   as f32 tensors of bf16 values, as lft_tpu stores it (`awo`'s dtype);
-//   out is `ang_block_bf16`'s bit for bit.
+// * The all-bf16 forms, `ang_block_bf16io` and `ang_block_res_bf16io`
+//   (`--dtype bfloat16`: x, out and attn bf16) and `ang_block_bf16` and
+//   `ang_block_res_bf16` (`--dtype mixed` under LFT_MM_HP_SITES=none: f32
+//   IO, every product over bf16-rounded operands), have a kernel of their
+//   own: ang_bf16.cuh (resident bf16 weights, bf16 `wgmma`, the attention on
+//   `mma.sync`).
 // * SITES (`ang_block_sites`, `ang_block_res_sites`: `--dtype mixed` under
 //   an LFT_MM_HP_SITES subset; lft_tpu's kernel with mm_half and that
 //   plan, ang_block.py:113-149): IO = float and a runtime mask `sites`, a
 //   bit a site. Each product takes the BF path or stays 3xTF32 as its
 //   site's bit says (rowgemm.cuh: rg_product_site; a uniform branch), its
 //   weights split piece by piece to match: V, Q and K by `aqkv`, O by
-//   `awo`, the FFN by `affn`. The attention always takes lft_tpu's softmax
-//   (the two passes above: lft_tpu's row max is the token's over its heads
-//   at every plan), q and k held rounded where `ascore` rounds, v and e
-//   where `aav` does, and the output (the residual attn too) where `awo`
-//   does. Bound: the products at the bf16 rate where their site rounds and
-//   3xTF32 at the TF32 rate where it does not; the attention and bytes as
-//   `ang_block_bf16`'s.
+//   `awo`, the FFN by `affn`. The attention always takes lft_tpu's softmax,
+//   whose row max is the token's over its heads at every plan: a first pass
+//   over the (pixel, head, query) items writes each one's max to MH (4 KB
+//   past the ring), the second takes the token's max over its heads, then e
+//   = exp(s - m), l over the unrounded e and o over e, scores as (q . k)
+//   scale as lft_tpu orders them; q and k held rounded where `ascore`
+//   rounds, v and e where `aav` does, and the output (the residual attn too)
+//   where `awo` does. Bound: the products at the bf16 rate where their site
+//   rounds and 3xTF32 at the TF32 rate where it does not; the attention on
+//   the FP32 pipes (0.08 ms with the max pass at [16384, 25, 64]); x in and
+//   out f32, 0.063 ms of bytes there.
 
+#include "ang_bf16.cuh"
 #include "attn.cuh"
 #include "rowbwd.cuh"
 
@@ -122,33 +95,22 @@ struct AngLayout {
 };
 
 // wf: the weight stream (AngLayout::FLOATS floats, kernels/rowgemm.py:
-// ang_block_stream), written by rg_weights_kernel. BF: the products over
-// bf16-rounded operands and lft_tpu's softmax (the header); set by IO = bf16.
-// SITES (with IO = float, BF = false: `ang_block[_res]_sites`): each site
-// rounds where its bit of `sites` is set (the header).
-template <int C, int H, bool RES, class IO = float, bool BF = is_bf16<IO>, bool SITES = false>
+// ang_block_stream), written by rg_weights_kernel. SITES
+// (`ang_block[_res]_sites`): each site rounds where its bit of `sites` is
+// set (the header). The all-bf16 forms have a kernel of their own
+// (ang_bf16.cuh).
+template <int C, int H, bool RES, bool SITES = false>
 __global__ void __launch_bounds__(RG_NT, 1)
-    ang_block_kernel(const IO* __restrict__ x, const float* __restrict__ pe,
+    ang_block_kernel(const float* __restrict__ x, const float* __restrict__ pe,
                      const float* __restrict__ ln, const float* __restrict__ wf,
-                     IO* __restrict__ out, float* __restrict__ m_out,
-                     float* __restrict__ l_out, IO* __restrict__ attn_out, int N, int A2,
+                     float* __restrict__ out, float* __restrict__ m_out,
+                     float* __restrict__ l_out, float* __restrict__ attn_out, int N, int A2,
                      float scale, int sites) {
   using L = AngLayout<C>;
   constexpr int LD = L::LD, LDH = L::LDH, HC = L::HC, DH = C / H;
-  constexpr bool BIO = is_bf16<IO>;
-  static_assert(!SITES || (!BF && !BIO), "a `_sites` instance is f32 IO with its own mask");
   extern __shared__ __align__(16) float smem[];
-  // whether site `bit` rounds its operands: the mask's bit, else BF
-  auto rnd = [&](int bit) { return SITES ? (sites & bit) != 0 : BF; };
-  // q, k, v as the attention reads them: rounded to bf16 under BF
-  auto rq = [](float v) {
-    if constexpr (BIO)
-      return io_round<IO>(v);
-    else if constexpr (BF)
-      return bf16_round(v);
-    else
-      return v;
-  };
+  // whether site `bit` rounds its operands: the mask's bit (SITES)
+  auto rnd = [&](int bit) { return SITES && (sites & bit) != 0; };
   float* XQ = smem;             // x, then q, then x2
   float* XN = XQ + L::TILE;     // xn, then the attention output, then LN2(x2)
   float* K = XN + L::TILE;
@@ -197,8 +159,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
       });
       quad_ln<C>(xp, ln, ln + C);
       rg_pairs<C>(xp, [&](int r, int c, float v0, float v1) {
-        *reinterpret_cast<float2*>(XN + (wr + r) * LD + c) =
-            make_float2(io_round<IO>(v0), io_round<IO>(v1));
+        *reinterpret_cast<float2*>(XN + (wr + r) * LD + c) = make_float2(v0, v1);
       });
     }
     __syncwarp();
@@ -208,28 +169,23 @@ __global__ void __launch_bounds__(RG_NT, 1)
       // SITES: v rounded where `aav` rounds, q and k where `ascore` does
       auto put = [&](float* dst, bool r16) {
         rg_pairs<C>(acc, [&](int r, int c, float v0, float v1) {
-          if constexpr (SITES) {
-            if (r16) {
-              v0 = bf16_round(v0);
-              v1 = bf16_round(v1);
-            }
-          } else {
-            v0 = rq(v0);
-            v1 = rq(v1);
+          if (SITES && r16) {
+            v0 = bf16_round(v0);
+            v1 = bf16_round(v1);
           }
           *reinterpret_cast<float2*>(dst + (wr + r) * LD + c) = make_float2(v0, v1);
         });
       };
       const bool r_qk = rnd(S_ASCORE), r_v = rnd(S_AAV), r_in = rnd(S_AQKV);
       rg_zero<C>(acc);
-      rg_product_site<C, C, L::OFF_V, BF, SITES>(r_in, acc, XQ + wr * LD, LD, ring, st);
+      rg_product_site<C, C, L::OFF_V, false, SITES>(r_in, acc, XQ + wr * LD, LD, ring, st);
       put(V, r_v);
       rg_zero<C>(acc);
-      rg_product_site<C, C, L::OFF_Q, BF, SITES>(r_in, acc, XN + wr * LD, LD, ring, st);
+      rg_product_site<C, C, L::OFF_Q, false, SITES>(r_in, acc, XN + wr * LD, LD, ring, st);
       __syncwarp();   // x is read
       put(XQ, r_qk);
       rg_zero<C>(acc);
-      rg_product_site<C, C, L::OFF_K, BF, SITES>(r_in, acc, XN + wr * LD, LD, ring, st);
+      rg_product_site<C, C, L::OFF_K, false, SITES>(r_in, acc, XN + wr * LD, LD, ring, st);
       put(K, r_qk);
     }
     __syncthreads();
@@ -240,8 +196,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // rescale of the running sums a chunk (an online softmax over chunks).
     // The output overwrites xn, which is dead after the projections.
     constexpr int KB = 8;
-    if constexpr (BF || SITES) {
-      // SITES: e rounded where `aav` rounds, the output where `awo` does
+    if constexpr (SITES) {
+      // e rounded where `aav` rounds, the output where `awo` does
       const bool r_e = rnd(S_AAV), r_o = rnd(S_AWO);
       // lft_tpu's softmax (the header): pass 1, each item's max score
       float* MH = V + L::TILE + L::NS * RG_SF;   // [RP][H]
@@ -280,7 +236,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
 #pragma unroll
           for (int d = 0; d < DH; ++d) s = fmaf(qv[d], kp[j * LD + d], s);
           const float e = expf(s * scale - m);
-          const float eb = !SITES || r_e ? bf16_round(e) : e;
+          const float eb = r_e ? bf16_round(e) : e;
           l += e;
 #pragma unroll
           for (int d = 0; d < DH; ++d) o[d] = fmaf(eb, vp[j * LD + d], o[d]);
@@ -289,8 +245,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
         float* ar = XN + (p * A2 + i) * LD + hh * DH;
 #pragma unroll
         for (int d = 0; d < DH; ++d)
-          ar[d] = !SITES || r_o ? bf16_round(o[d] * inv) : o[d] * inv;
-        if constexpr (RES) {  // the residuals of the backward (K4's bf16-IO form)
+          ar[d] = r_o ? bf16_round(o[d] * inv) : o[d] * inv;
+        if constexpr (RES) {  // the residuals of the backward
           const size_t row = row0 + p * A2 + i;
           m_out[row * H + hh] = m;
           l_out[row * H + hh] = l;
@@ -299,7 +255,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
         }
       }
     }
-    for (int t = tid; t < (BF || SITES ? 0 : np * H * A2); t += RG_NT) {
+    for (int t = tid; t < (SITES ? 0 : np * H * A2); t += RG_NT) {
       const int i = t % A2, hh = (t / A2) % H, p = t / (A2 * H);
       const float* qr = XQ + (p * A2 + i) * LD + hh * DH;
       const float* kp = K + p * A2 * LD + hh * DH;
@@ -360,20 +316,19 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // of the attention output
     RgAcc<C> x2;
     rg_zero<C>(x2);
-    rg_product_site<C, C, L::OFF_O, BF, SITES>(rnd(S_AWO), x2, XN + wr * LD, LD, ring, st);
+    rg_product_site<C, C, L::OFF_O, false, SITES>(rnd(S_AWO), x2, XN + wr * LD, LD, ring, st);
     rg_pairs<C>(x2, [&](int r, int c, float& v0, float& v1) {
       if (wr + r < nrows) {
         const float2 xv = ldg2(x + (row0 + wr + r) * C + c);
-        v0 = io_round<IO>(io_round<IO>(v0) + xv.x);
-        v1 = io_round<IO>(io_round<IO>(v1) + xv.y);
+        v0 += xv.x;
+        v1 += xv.y;
       }
       *reinterpret_cast<float2*>(XQ + (wr + r) * LD + c) = make_float2(v0, v1);
     });
     __syncwarp();   // the attention output is read
     quad_ln<C>(x2, ln + 2 * C, ln + 3 * C);
     rg_pairs<C>(x2, [&](int r, int c, float v0, float v1) {
-      *reinterpret_cast<float2*>(XN + (wr + r) * LD + c) =
-          make_float2(io_round<IO>(v0), io_round<IO>(v1));
+      *reinterpret_cast<float2*>(XN + (wr + r) * LD + c) = make_float2(v0, v1);
     });
     __syncwarp();
 
@@ -384,20 +339,20 @@ __global__ void __launch_bounds__(RG_NT, 1)
       constexpr int off = L::OFF_F + decltype(J)::value * (L::W1 + L::W2);
       RgAcc<HC> hid;
       rg_zero<HC>(hid);
-      rg_product_site<C, HC, off, BF, SITES>(rnd(S_AFFN), hid, XN + wr * LD, LD, ring, st);
+      rg_product_site<C, HC, off, false, SITES>(rnd(S_AFFN), hid, XN + wr * LD, LD, ring, st);
       __syncwarp();   // the previous chunk's rows are read
       rg_pairs<HC>(hid, [&](int r, int c, float v0, float v1) {
         *reinterpret_cast<float2*>(HID + (wr + r) * LDH + c) =
-            make_float2(io_round<IO>(fmaxf(v0, 0.f)), io_round<IO>(fmaxf(v1, 0.f)));
+            make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
       });
       __syncwarp();
-      rg_product_site<HC, C, off + L::W1, BF, SITES>(rnd(S_AFFN), y, HID + wr * LDH, LDH, ring,
-                                                     st);
+      rg_product_site<HC, C, off + L::W1, false, SITES>(rnd(S_AFFN), y, HID + wr * LDH, LDH,
+                                                        ring, st);
     });
     rg_pairs<C>(y, [&](int r, int c, float v0, float v1) {
       if (wr + r >= nrows) return;
       const float2 res = *reinterpret_cast<const float2*>(XQ + (wr + r) * LD + c);
-      st2(out + (row0 + wr + r) * C + c, io_round<IO>(v0) + res.x, io_round<IO>(v1) + res.y);
+      st2(out + (row0 + wr + r) * C + c, v0 + res.x, v1 + res.y);
     });
   }
   cp_async_wait<0>();
@@ -405,15 +360,15 @@ __global__ void __launch_bounds__(RG_NT, 1)
 
 // SITES: the `_sites` instance, each weight piece split as its site's bit
 // of `sites` says.
-template <int C, bool RES, class IO = float, bool BF = is_bf16<IO>, bool SITES = false>
-int launch(const IO* x, const float* pe, const float* ln, const float* wq,
+template <int C, bool RES, bool SITES = false>
+int launch(const float* x, const float* pe, const float* ln, const float* wq,
            const float* wk, const float* wv, const float* wo, const float* w1,
-           const float* w2, float* wf, IO* out, float* m, float* l, named_t<IO>* attn, int N,
+           const float* w2, float* wf, float* out, float* m, float* l, float* attn, int N,
            int A2, float scale, cudaStream_t stream, int sites = 0) {
   using L = AngLayout<C>;
   constexpr int H = 8;
-  // BF, SITES: the items' maxima MH past the ring
-  constexpr size_t BYTES = L::BYTES + (BF || SITES ? static_cast<size_t>(RP) * H * 4 : 0);
+  // SITES: the items' maxima MH past the ring
+  constexpr size_t BYTES = L::BYTES + (SITES ? static_cast<size_t>(RP) * H * 4 : 0);
   static_assert(BYTES <= RG_SMEM_MAX, "the rows, the ring and MH must fit");
   RgPieces ps{};
   int n = 0;
@@ -428,8 +383,8 @@ int launch(const IO* x, const float* pe, const float* ln, const float* wq,
   if constexpr (SITES)   // Wv, Wq, Wk: aqkv; Wo: awo; the FFN's pieces: affn
     for (int i = 0; i < n; ++i)
       ps.p[i].bf = (sites & (i < 3 ? S_AQKV : i == 3 ? S_AWO : S_AFFN)) != 0;
-  launch_rg_weights(ps, n, wf, stream, BF, SITES);
-  auto kernel = ang_block_kernel<C, H, RES, IO, BF, SITES>;
+  launch_rg_weights(ps, n, wf, stream, false, SITES);
+  auto kernel = ang_block_kernel<C, H, RES, SITES>;
   LFT_SET_SMEM(kernel, BYTES);
   const int P = RP / A2;
   kernel<<<rg_grid((N + P - 1) / P), RG_NT, BYTES, stream>>>(x, pe, ln, wf, out, m, l, attn, N,
@@ -1009,46 +964,36 @@ extern "C" int lft_ang_block_fwd(const float* x, const float* pe, const float* l
   }
 }
 
-// The bf16-operand instance (`--dtype mixed` serving under
-// LFT_MM_HP_SITES=none): the same arguments; wf holds the weights' bf16
-// parts in the same layout.
+// The all-bf16 forms (the K1 header; their kernel: ang_bf16.cuh). wf is a
+// scratch of AngBf16<C>::ELEMS bf16 values (kernels/rowgemm.py:
+// ang_bf16_floats floats) for the weights rounded to bf16. The bf16-operand instance (`--dtype mixed` serving under
+// LFT_MM_HP_SITES=none): lft_ang_block_fwd's arguments.
+#define LFT_ANG_BF16(RES, IO, ...)                                                       \
+  if (H != 8 || A2 < 1 || A2 > RP || N < 1) return static_cast<int>(cudaErrorInvalidValue); \
+  const auto s = static_cast<cudaStream_t>(stream);                                      \
+  bf16* wb = reinterpret_cast<bf16*>(wf);                                                \
+  LFT_DISPATCH_C(C, {                                                                    \
+    return launch_ang_bf16<CC, RES, IO>(x, pe, ln, wq, wk, wv, wo, w1, w2, wb, out,      \
+                                        __VA_ARGS__, N, A2, scale, s);                   \
+  });                                                                                    \
+  return static_cast<int>(cudaErrorInvalidValue);
+
 extern "C" int lft_ang_block_fwd_bf16(const float* x, const float* pe, const float* ln,
                                       const float* wq, const float* wk, const float* wv,
                                       const float* wo, const float* w1, const float* w2,
                                       float* wf, float* out, int N, int A2, int C, int H,
                                       float scale, void* stream) {
-  if (H != 8 || A2 < 1 || A2 > RP || N < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-#define LFT_CASE(CV)                                                                        \
-    case CV: return launch<CV, false, float, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf,   \
-                                                   out, nullptr, nullptr, nullptr, N, A2,   \
-                                                   scale, s);
-    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
-#undef LFT_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  LFT_ANG_BF16(false, float, nullptr, nullptr, nullptr)
 }
 
 // The bf16-IO instance (`--dtype bfloat16`): x and out bf16 [N, A2, C]; pe,
-// ln and the weights f32 (the weights' bf16 values), wf as above.
+// ln and the weights f32 (the weights' bf16 values).
 extern "C" int lft_ang_block_fwd_bf16io(const bf16* x, const float* pe, const float* ln,
                                         const float* wq, const float* wk, const float* wv,
                                         const float* wo, const float* w1, const float* w2,
                                         float* wf, bf16* out, int N, int A2, int C, int H,
                                         float scale, void* stream) {
-  if (H != 8 || A2 < 1 || A2 > RP || N < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-#define LFT_CASE(CV)                                                                       \
-    case CV: return launch<CV, false, bf16>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out,    \
-                                            nullptr, nullptr, nullptr, N, A2, scale, s);
-    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
-#undef LFT_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  LFT_ANG_BF16(false, bf16, nullptr, nullptr, nullptr)
 }
 
 // The same, with the residuals of the backward: m, l [N, A2, H] (per token
@@ -1062,17 +1007,7 @@ extern "C" int lft_ang_block_fwd_res_bf16io(const bf16* x, const float* pe, cons
                                             float* wf, bf16* out, float* m, float* l, bf16* attn,
                                             int N, int A2, int C, int H, float scale,
                                             void* stream) {
-  if (H != 8 || A2 < 1 || A2 > RP || N < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-#define LFT_CASE(CV)                                                                         \
-    case CV: return launch<CV, true, bf16>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out, m, l,  \
-                                           attn, N, A2, scale, s);
-    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
-#undef LFT_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  LFT_ANG_BF16(true, bf16, m, l, attn)
 }
 
 // The bf16-operand instance with the residuals (`--dtype mixed` training
@@ -1086,18 +1021,9 @@ extern "C" int lft_ang_block_fwd_res_bf16(const float* x, const float* pe, const
                                           float* wf, float* out, float* m, float* l,
                                           float* attn, int N, int A2, int C, int H,
                                           float scale, void* stream) {
-  if (H != 8 || A2 < 1 || A2 > RP || N < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-#define LFT_CASE(CV)                                                                        \
-    case CV: return launch<CV, true, float, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf,    \
-                                                  out, m, l, attn, N, A2, scale, s);
-    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
-#undef LFT_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  LFT_ANG_BF16(true, float, m, l, attn)
 }
+#undef LFT_ANG_BF16
 
 // The site-subset instances (`--dtype mixed` under an LFT_MM_HP_SITES
 // subset; the K1 header): lft_ang_block_fwd's and lft_ang_block_fwd_res's
@@ -1115,9 +1041,9 @@ extern "C" int lft_ang_block_fwd_sites(const float* x, const float* pe, const fl
   auto s = static_cast<cudaStream_t>(stream);
   switch (C) {
 #define LFT_CASE(CV)                                                                      \
-    case CV: return launch<CV, false, float, false, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, \
-                                                          wf, out, nullptr, nullptr, nullptr, \
-                                                          N, A2, scale, s, sites);
+    case CV: return launch<CV, false, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out,     \
+                                            nullptr, nullptr, nullptr, N, A2, scale, s,    \
+                                            sites);
     LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
 #undef LFT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -1135,9 +1061,8 @@ extern "C" int lft_ang_block_fwd_res_sites(const float* x, const float* pe, cons
   auto s = static_cast<cudaStream_t>(stream);
   switch (C) {
 #define LFT_CASE(CV)                                                                     \
-    case CV: return launch<CV, true, float, false, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, \
-                                                         wf, out, m, l, attn, N, A2, scale, \
-                                                         s, sites);
+    case CV: return launch<CV, true, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out, m, l, \
+                                           attn, N, A2, scale, s, sites);
     LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
 #undef LFT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -6,12 +6,17 @@
 //   `ldmatrix_x4_trans`: the weight gradients of `--dtype bfloat16`
 //   training (wgrad.cu, `wgrad_bf16io`). The reduction axis there (tokens)
 //   is the slow axis of both operands, so each 8 x 8 piece of a fragment is
-//   read transposed from token-major rows as it lies.
+//   read transposed from token-major rows as it lies. With `mma_bf16_k8`
+//   and `ldmatrix_x4` also the attentions of the window kernel
+//   (window_mma.cuh) and of K1's all-bf16 kernel (ang_bf16.cuh): scores
+//   of q against k rows, and bf16(e) against v's rows read transposed.
 // * `WgmmaBf<N>` (`wgmma.mma_async` m64nNk16, bf16, A from registers, B
-//   from shared memory K-major without swizzle, f32 accumulators): K2.5's
-//   `_bf16` instance (ffn_bf16.cuh). An m64nN accumulator's pairs are the A
-//   fragments of the next product over its N columns (`acc_to_a`), so a
-//   hidden layer goes from one product into the next in registers.
+//   from shared memory K-major without swizzle, `bf16_piece_desc`, f32
+//   accumulators): K2.5's `_bf16`, `_bf16io` and `_sites` kernels
+//   (ffn_bf16.cuh, ffn_sites.cuh) and K1's all-bf16 kernel. An m64nN
+//   accumulator's pairs are the A fragments of the next product over its N
+//   columns (`acc_to_a`), so a hidden layer goes from one product into the
+//   next in registers.
 //
 // A product of two bf16 values is exact in f32. The tensor cores add them
 // and the accumulator with their sums rounded toward zero; each kernel says
@@ -38,6 +43,25 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
+}
+
+// Four 8 x 8 b16 matrices: lane 8 i + r gives the address of row r of
+// matrix i (16 bytes); thread (g, q) receives elements (g, 2 q) and (g, 2 q
+// + 1) of each, packed, as r[i].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// c += a b over one m16n8k8 bf16 tile: A a0 (g, 2q), a1 (g+8, 2q); B b0 (2q,
+// g); C as mma_bf16's.
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], const uint32_t (&a)[2], uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
 }
 
 // c += a b over one m16n8k16 bf16 tile, f32 accumulators. Fragments (lane =
@@ -156,6 +180,14 @@ __device__ __forceinline__ uint64_t smem_desc_b16(const void* p, int lbo, int sb
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+}
+
+// The descriptor of k16 step s of the K x N weight at bf16 offset `off` of
+// ws (kernels/rowgemm.py:bf16_piece's layout), from column n0 (a multiple
+// of 8) on.
+template <int N>
+__device__ __forceinline__ uint64_t bf16_piece_desc(const bf16* ws, int off, int s, int n0) {
+  return smem_desc_b16(ws + off + (2 * s * (N / 8) + n0 / 8) * 64, N / 8 * 128, 128);
 }
 
 // The A fragments of k16 step s of a product whose K runs over the N

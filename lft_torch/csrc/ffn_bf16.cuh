@@ -38,6 +38,24 @@
 //   C = 64: 147,456 + 69,632 = 217,088 bytes (of 232,448)
 // One block of 256 threads (two warpgroups of 64 rows) an SM. Every output
 // is written by one warp of one block, no atomics: a call repeats bitwise.
+//
+// IO = bf16: K2.5's bf16-IO instance `spa_ffn_out_bf16io` (`--dtype
+// bfloat16`) and K11.5's `spa_ffn_out_pm_bf16io`, lft_tpu's _kernel
+// :198-202 with io = bf16 (kernels/spa_block.py:ffn_out_plain on bf16
+// tensors): xn2, x2 and out bf16; hid = bf16(relu(xn2 W1)), y = bf16(bf16(hid
+// W2) + x2) (the W2 product rounded before x2 is added, the sum again), out =
+// bf16(y Wlin). The rows of xn2 come into shared memory by 16-byte cp.async
+// as they lie, bf16 at a stride of D + 8 values, and into the A fragments by
+// ldmatrix (no widening); x2 is read as bf16 pairs, out written as bf16
+// pairs (pixel-major under PM, 4-byte pairs of a (pixel, view) row). Bound
+// at [400, 32, 32, 64]: the rows halve, 0.26 GB, 0.078 ms at 3.35 TB/s,
+// still above the 60.4 GFLOP at the bf16 rate: bytes. It replaced
+// spa_block.cu's `spa_ffn_out_kernel<C, PM, bf16>` (TF32 weight parts on a
+// WeightRing, the rows widened to f32 by the threads, hid and y through f32
+// shared memory: 0.8393 ms on an H100 at 700 W). Shared memory (`BYTES16`):
+//   C = 16:   9,216 + 10,240 =  19,456 bytes
+//   C = 32:  36,864 + 18,432 =  55,296 bytes
+//   C = 64: 147,456 + 34,816 = 182,272 bytes
 #pragma once
 
 #include "bf16mma.cuh"
@@ -56,6 +74,9 @@ struct FfnBf16 {
   static constexpr int WBYTES = 2 * ELEMS;
   static constexpr int LDX = D + 8;                   // f32 row stride of the xn2 rows
   static constexpr int BYTES = WBYTES + RG_M * LDX * 4;
+  static constexpr int BYTES16 = WBYTES + RG_M * LDX * 2;   // bf16 rows (IO = bf16)
+  template <class IO>
+  static constexpr int bytes = is_bf16<IO> ? BYTES16 : BYTES;
   static_assert(2 * D % HC == 0, "whole hidden chunks");
   static_assert(BYTES <= RG_SMEM_MAX, "the weights and the rows must fit in shared memory");
 };
@@ -81,33 +102,28 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// The descriptor of k16 step s of the K x N weight at bf16 offset `off` of
-// ws, from column n0 (a multiple of 8) on.
-template <int N>
-__device__ __forceinline__ uint64_t ffn_bf16_desc(const bf16* ws, int off, int s, int n0) {
-  return smem_desc_b16(ws + off + (2 * s * (N / 8) + n0 / 8) * 64, N / 8 * 128, 128);
-}
-
 // The warp's 16 rows of tile `tile` of src [T, D] into aw (row stride
-// D + 8) by cp.async, zero past T; one group.
-template <int D>
-__device__ __forceinline__ void ffn_bf16_rows(float* aw, const float* __restrict__ src, int tile,
+// D + 8 values of the IO type) by cp.async, zero past T; one group.
+template <int D, class IO>
+__device__ __forceinline__ void ffn_bf16_rows(IO* aw, const IO* __restrict__ src, int tile,
                                               int T) {
+  constexpr int V = 16 / sizeof(IO);   // values a 16-byte chunk
   const int lane = threadIdx.x & 31, t0 = tile * RG_M + 16 * (threadIdx.x >> 5);
-  for (int i = lane; i < 16 * (D / 4); i += 32) {
-    const int r = i / (D / 4), c = 4 * (i % (D / 4));
+  for (int i = lane; i < 16 * (D / V); i += 32) {
+    const int r = i / (D / V), c = V * (i % (D / V));
     const bool ok = t0 + r < T;
-    cp_async16(aw + r * (D + 8) + c, src + static_cast<size_t>(ok ? t0 + r : 0) * D + c, ok);
+    cp_async16v(aw + r * (D + 8) + c, src + static_cast<size_t>(ok ? t0 + r : 0) * D + c, ok);
   }
   cp_async_commit();
 }
 
 // wb: the rounded weights (ffn_bf16_weights_kernel). xn2, x2 [T, D] -> out
-// [T, C], or with PM out [T / (hw A2), hw, A2, C] (spa.cuh: pm_row).
-template <int C, bool PM>
+// [T, C], or with PM out [T / (hw A2), hw, A2, C] (spa.cuh: pm_row); IO the
+// activations' type (bf16: the bf16-IO instance's rounding points, above).
+template <int C, bool PM, class IO = float>
 __global__ void __launch_bounds__(RG_NT, 1)
-    spa_ffn_out_bf16_kernel(const float* __restrict__ xn2, const float* __restrict__ x2,
-                            const bf16* __restrict__ wb, float* __restrict__ out, int T, int hw,
+    spa_ffn_out_bf16_kernel(const IO* __restrict__ xn2, const IO* __restrict__ x2,
+                            const bf16* __restrict__ wb, IO* __restrict__ out, int T, int hw,
                             int A2) {
   using F = FfnBf16<C>;
   constexpr int D = F::D, HC = F::HC, NH = F::NH, LDX = F::LDX;
@@ -116,7 +132,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem);
   const bf16* ws = reinterpret_cast<const bf16*>(sm);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  float* xw = reinterpret_cast<float*>(sm + F::WBYTES) + 16 * warp * LDX;   // the warp's rows
+  constexpr bool BIO = is_bf16<IO>;
+  IO* xw = reinterpret_cast<IO*>(sm + F::WBYTES) + 16 * warp * LDX;   // the warp's rows
   const int tiles = (T + RG_M - 1) / RG_M;
   for (int i = 16 * static_cast<int>(threadIdx.x); i < F::WBYTES; i += 16 * RG_NT)
     cp_async16v(sm + i, reinterpret_cast<const unsigned char*>(wb) + i, true);
@@ -127,7 +144,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int t0 = tile * RG_M + 16 * warp;   // the warp's first token
     if (lane == 0 && t0 < T) {                // its rows of x2 into L2 for the epilogue
-      const int n = (T - t0 < 16 ? T - t0 : 16) * D * 4;
+      const int n = (T - t0 < 16 ? T - t0 : 16) * D * static_cast<int>(sizeof(IO));
       asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(
                        x2 + static_cast<size_t>(t0) * D),
                    "r"(n)
@@ -138,16 +155,20 @@ __global__ void __launch_bounds__(RG_NT, 1)
     uint32_t xa[KD][4];   // xn2 rounded to bf16: the A fragments of the W1 products
 #pragma unroll
     for (int s = 0; s < KD; ++s) {
-      const float* r0 = xw + g * LDX + 16 * s + 2 * q;
-      const float* r1 = r0 + 8 * LDX;
-      const float2 a0 = *reinterpret_cast<const float2*>(r0);
-      const float2 a1 = *reinterpret_cast<const float2*>(r1);
-      const float2 a2 = *reinterpret_cast<const float2*>(r0 + 8);
-      const float2 a3 = *reinterpret_cast<const float2*>(r1 + 8);
-      xa[s][0] = narrow2(a0.x, a0.y);
-      xa[s][1] = narrow2(a1.x, a1.y);
-      xa[s][2] = narrow2(a2.x, a2.y);
-      xa[s][3] = narrow2(a3.x, a3.y);
+      if constexpr (BIO) {   // as it lies: matrices (rows 8 (i % 2), k 16 s + 8 (i / 2))
+        ldmatrix_x4(xa[s], xw + (lane & 15) * LDX + 16 * s + 8 * (lane >> 4));
+      } else {
+        const float* r0 = xw + g * LDX + 16 * s + 2 * q;
+        const float* r1 = r0 + 8 * LDX;
+        const float2 a0 = *reinterpret_cast<const float2*>(r0);
+        const float2 a1 = *reinterpret_cast<const float2*>(r1);
+        const float2 a2 = *reinterpret_cast<const float2*>(r0 + 8);
+        const float2 a3 = *reinterpret_cast<const float2*>(r1 + 8);
+        xa[s][0] = narrow2(a0.x, a0.y);
+        xa[s][1] = narrow2(a1.x, a1.y);
+        xa[s][2] = narrow2(a2.x, a2.y);
+        xa[s][3] = narrow2(a3.x, a3.y);
+      }
     }
     __syncwarp();   // the rows are read: the next tile's come into their place
     if (tile + static_cast<int>(gridDim.x) < tiles) ffn_bf16_rows<D>(xw, xn2, tile + gridDim.x, T);
@@ -160,7 +181,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
       wgmma_fence();
 #pragma unroll
       for (int s = 0; s < KD; ++s)
-        WgmmaBf<HC>::mma(h, xa[s], ffn_bf16_desc<2 * D>(ws, 0, s, c * HC), s);
+        WgmmaBf<HC>::mma(h, xa[s], bf16_piece_desc<2 * D>(ws, 0, s, c * HC), s);
       wgmma_commit();
     };
     auto relu = [](float v) { return fmaxf(v, 0.f); };
@@ -175,7 +196,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
       wgmma_fence();
 #pragma unroll
       for (int s = 0; s < KH; ++s)
-        WgmmaBf<D>::mma(y, ha[s], ffn_bf16_desc<D>(ws, F::OFF_W2, c * KH + s, 0), c + s);
+        WgmmaBf<D>::mma(y, ha[s], bf16_piece_desc<D>(ws, F::OFF_W2, c * KH + s, 0), c + s);
       wgmma_commit();
       if (c + 1 < NH) hidden(c + 1);
       wgmma_wait<0>();
@@ -187,7 +208,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
       }
     }
 
-    // y + x2 in f32, rounded to bf16: the A fragments of the Wlin product
+    // y + x2 in f32 (bf16 IO: bf16(bf16(y) + x2)), rounded to bf16: the A
+    // fragments of the Wlin product
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
 #pragma unroll
@@ -195,8 +217,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
         const int t = t0 + g + 8 * hh;
         const float2 r = t < T ? ldg2(x2 + static_cast<size_t>(t) * D + 8 * j + 2 * q)
                                : make_float2(0.f, 0.f);
-        y[4 * j + 2 * hh] += r.x;
-        y[4 * j + 2 * hh + 1] += r.y;
+        y[4 * j + 2 * hh] = io_round<IO>(io_round<IO>(y[4 * j + 2 * hh]) + r.x);
+        y[4 * j + 2 * hh + 1] = io_round<IO>(io_round<IO>(y[4 * j + 2 * hh + 1]) + r.y);
       }
     uint32_t ya[KD][4];
 #pragma unroll
@@ -205,7 +227,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     wgmma_fence();
 #pragma unroll
     for (int s = 0; s < KD; ++s)
-      WgmmaBf<C>::mma(o, ya[s], ffn_bf16_desc<C>(ws, F::OFF_LIN, s, 0), s);
+      WgmmaBf<C>::mma(o, ya[s], bf16_piece_desc<C>(ws, F::OFF_LIN, s, 0), s);
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(o);
@@ -225,18 +247,19 @@ __global__ void __launch_bounds__(RG_NT, 1)
 
 // The launch: the weights' rounding into wb (FfnBf16<C>::ELEMS bf16 values),
 // then the persistent kernel, one block an SM.
-template <int C, bool PM>
-int launch_ffn_bf16(const float* xn2, const float* x2, const float* w1, const float* w2,
-                    const float* wlin, bf16* wb, float* out, int T, int hw, int A2,
+template <int C, bool PM, class IO = float>
+int launch_ffn_bf16(const IO* xn2, const IO* x2, const float* w1, const float* w2,
+                    const float* wlin, bf16* wb, IO* out, int T, int hw, int A2,
                     cudaStream_t s) {
   using F = FfnBf16<C>;
   if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   ffn_bf16_weights_kernel<C><<<(F::ELEMS + 255) / 256, 256, 0, s>>>(w1, w2, wlin, wb);
-  auto kernel = spa_ffn_out_bf16_kernel<C, PM>;
+  auto kernel = spa_ffn_out_bf16_kernel<C, PM, IO>;
+  constexpr int BYTES = F::template bytes<IO>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::BYTES);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(xn2, x2, wb, out, T, hw, A2);
+  kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, BYTES, s>>>(xn2, x2, wb, out, T, hw, A2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -373,7 +373,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
       wgmma_fence();
 #pragma unroll
       for (int s = 0; s < KD; ++s)
-        WgmmaBf<HC>::mma(h, xa[s], ffn_bf16_desc<2 * D>(ws, 0, s, c * HC), s);
+        WgmmaBf<HC>::mma(h, xa[s], bf16_piece_desc<2 * D>(ws, 0, s, c * HC), s);
       wgmma_commit();
     };
     auto relu = [](float v) { return fmaxf(v, 0.f); };
@@ -388,7 +388,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
       wgmma_fence();
 #pragma unroll
       for (int s = 0; s < KH; ++s)
-        WgmmaBf<D>::mma(y, ha[s], ffn_bf16_desc<D>(ws, F::OFF_W2, c * KH + s, 0), c + s);
+        WgmmaBf<D>::mma(y, ha[s], bf16_piece_desc<D>(ws, F::OFF_W2, c * KH + s, 0), c + s);
       wgmma_commit();
       if (c + 1 < NH) hidden(c + 1);
       wgmma_wait<0>();
@@ -489,7 +489,8 @@ __global__ void __launch_bounds__(RG_NT, 1)
     float o[C / 2];
     wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < KD; ++s) WgmmaBf<C>::mma(o, ya[s], ffn_bf16_desc<C>(wl, 0, s, 0), s);
+    for (int s = 0; s < KD; ++s)
+      WgmmaBf<C>::mma(o, ya[s], bf16_piece_desc<C>(wl, 0, s, 0), s);
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(o);

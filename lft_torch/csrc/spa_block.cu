@@ -58,7 +58,9 @@
 // products summed in f32), and the epilogues round what they store: K2.2
 // q, k, v; K2.4 x2 = bf16(bf16(attn Wo) + tok) and xn2 = bf16(LN2(x2));
 // K2.5 hid = bf16(relu(xn2 W1)), y = bf16(bf16(hid W2) + x2) and out =
-// bf16(y Wlin). K2.1 and K2.3: tokenize.cuh, window_attn.cuh. With half
+// bf16(y Wlin). K2.1: tokenize.cuh; K2.3: window_mma.cuh; K2.5 (and K11.5)
+// the `_bf16` instance's kernel with bf16 rows as they lie, resident bf16
+// weights and bf16 `wgmma` (ffn_bf16.cuh). With half
 // the bytes, every step is bound by its bytes (the bounds at each). K11's
 // two steps have the same instances (`lft_spa_*_pm_bf16io`).
 //
@@ -411,16 +413,13 @@ struct FfnOut {
 
 // PM: out is pixel-major [T / (hw A2), hw, A2, C]; xn2 and x2 are view-major.
 // wf: the weight stream (FfnOut::FLOATS floats, kernels/rowgemm.py:
-// ffn_out_stream), written by rg_weights_kernel. IO = bf16
-// (`spa_ffn_out_bf16io`): xn2, x2, out bf16, BF products, hid = bf16(relu),
-// y = bf16(bf16(hid W2) + x2), out = bf16(y Wlin); bound at [400, 32, 32,
-// 64]: 60.4 GFLOP at the bf16 rate 0.061 ms, 0.26 GB 0.078 ms: bytes.
-// (`--dtype mixed`'s `spa_ffn_out[_pm]_bf16` and `spa_ffn_out[_pm]_sites`
-// have kernels of their own, ffn_bf16.cuh and ffn_sites.cuh.)
-template <int C, bool PM, class IO = float, bool BF = is_bf16<IO>>
+// ffn_out_stream), written by rg_weights_kernel. (K2.5's other instances
+// have kernels of their own: `spa_ffn_out[_pm]_bf16` and `_bf16io`
+// ffn_bf16.cuh, `spa_ffn_out[_pm]_sites` ffn_sites.cuh.)
+template <int C, bool PM>
 __global__ void __launch_bounds__(RG_NT, 1)
-    spa_ffn_out_kernel(const IO* __restrict__ xn2, const IO* __restrict__ x2,
-                       const float* __restrict__ wf, IO* __restrict__ out, int T, int hw,
+    spa_ffn_out_kernel(const float* __restrict__ xn2, const float* __restrict__ x2,
+                       const float* __restrict__ wf, float* __restrict__ out, int T, int hw,
                        int A2) {
   using F = FfnOut<C>;
   constexpr int D = F::D, HC = F::HC, LDX = F::LDX, LDH = F::LDH;
@@ -458,28 +457,26 @@ __global__ void __launch_bounds__(RG_NT, 1)
       constexpr int off = decltype(J)::value * (F::W1 + F::W2);
       RgAcc<HC> h;
       rg_zero<HC>(h);
-      rg_product<D, HC, off, false, BF>(h, xw, LDX, ring, st);
+      rg_product<D, HC, off>(h, xw, LDX, ring, st);
       __syncwarp();   // the previous chunk's rows are read
       rg_pairs<HC>(h, [&](int r, int c, float v0, float v1) {
         *reinterpret_cast<float2*>(hw16 + r * LDH + c) =
-            make_float2(io_round<IO>(fmaxf(v0, 0.f)), io_round<IO>(fmaxf(v1, 0.f)));
+            make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
       });
       __syncwarp();
-      rg_product<HC, D, off + F::W1, false, BF>(y, hw16, LDH, ring, st);
+      rg_product<HC, D, off + F::W1>(y, hw16, LDH, ring, st);
     });
     __syncwarp();     // xn2 is read
     rg_pairs<D>(y, [&](int r, int c, float v0, float v1) {
       const int t = t0 + r;
       const float2 res = t < T ? ldg2(x2 + static_cast<size_t>(t) * D + c)
                                : make_float2(0.f, 0.f);
-      *reinterpret_cast<float2*>(xw + r * LDX + c) =
-          make_float2(io_round<IO>(io_round<IO>(v0) + res.x),
-                      io_round<IO>(io_round<IO>(v1) + res.y));
+      *reinterpret_cast<float2*>(xw + r * LDX + c) = make_float2(v0 + res.x, v1 + res.y);
     });
     __syncwarp();
     RgAcc<C> o;
     rg_zero<C>(o);
-    rg_product<D, C, F::OFF_LIN, false, BF>(o, xw, LDX, ring, st);
+    rg_product<D, C, F::OFF_LIN>(o, xw, LDX, ring, st);
     rg_pairs<C>(o, [&](int r, int c, float v0, float v1) {
       const int t = t0 + r;
       if (t >= T) return;
@@ -515,9 +512,9 @@ int tokenize_ln(const IO* x, const IO* pe_tok, const float* wu, float* wf, const
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool PM, class IO = float>
-int ffn_out(const IO* xn2, const IO* x2, const float* w1, const float* w2,
-            const float* wlin, float* wf, IO* out, int T, int hw, int A2, int C,
+template <bool PM>
+int ffn_out(const float* xn2, const float* x2, const float* w1, const float* w2,
+            const float* wlin, float* wf, float* out, int T, int hw, int A2, int C,
             cudaStream_t s) {
   if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   LFT_DISPATCH_C(C, {
@@ -530,8 +527,8 @@ int ffn_out(const IO* xn2, const IO* x2, const float* w1, const float* w2,
                           j * (F::W1 + F::W2) + F::W1};
     }
     ps.p[n++] = RgPiece{wlin, CC, F::D, CC, F::OFF_LIN};
-    launch_rg_weights(ps, n, wf, s, is_bf16<IO>);
-    auto kernel = spa_ffn_out_kernel<CC, PM, IO, is_bf16<IO>>;
+    launch_rg_weights(ps, n, wf, s);
+    auto kernel = spa_ffn_out_kernel<CC, PM>;
     LFT_SET_SMEM(kernel, F::BYTES);
     kernel<<<rg_grid((T + RG_M - 1) / RG_M), RG_NT, F::BYTES, s>>>(xn2, x2, wf, out, T, hw, A2);
   });
@@ -1006,33 +1003,28 @@ extern "C" int lft_spa_ffn_out_sites(const float* xn2, const float* x2, const fl
 }
 
 // Step 5's bf16-IO instance: xn2, x2, out bf16; the weights f32 (their bf16
-// values), wf holding their bf16 parts.
+// values), wf the scratch of lft_spa_ffn_out_bf16 for the weights rounded to
+// bf16; its kernel is the `_bf16` instance's with bf16 rows (ffn_bf16.cuh).
 extern "C" int lft_spa_ffn_out_bf16io(const bf16* xn2, const bf16* x2, const float* w1,
                                       const float* w2, const float* wlin, float* wf, bf16* out,
                                       int T, int C, void* stream) {
-  return ffn_out<false, bf16>(xn2, x2, w1, w2, wlin, wf, out, T, 1, 1, C,
-                              static_cast<cudaStream_t>(stream));
+  const auto s = static_cast<cudaStream_t>(stream);
+  bf16* wb = reinterpret_cast<bf16*>(wf);
+  LFT_DISPATCH_C(C, {
+    return launch_ffn_bf16<CC, false, bf16>(xn2, x2, w1, w2, wlin, wb, out, T, 1, 1, s);
+  });
+  return static_cast<int>(cudaErrorInvalidValue);
 }
-
-namespace {
-
-template <class IO>
-int ffn_out_pm(const IO* xn2, const IO* x2, const float* w1, const float* w2, const float* wlin,
-               float* wf, IO* out, int Bb, int hw, int A2, int C, cudaStream_t s) {
-  if (Bb < 1 || A2 < 1 || hw < 1 || static_cast<long long>(Bb) * A2 * hw > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return ffn_out<true, IO>(xn2, x2, w1, w2, wlin, wf, out, Bb * A2 * hw, hw, A2, C, s);
-}
-
-}  // namespace
 
 // K11's last step: xn2, x2 [Bb * A2, hw, D] view-major -> out [Bb, hw, A2, C]
 // pixel-major.
 extern "C" int lft_spa_ffn_out_pm(const float* xn2, const float* x2, const float* w1,
                                   const float* w2, const float* wlin, float* wf, float* out,
                                   int Bb, int hw, int A2, int C, void* stream) {
-  return ffn_out_pm<float>(xn2, x2, w1, w2, wlin, wf, out, Bb, hw, A2, C,
-                           static_cast<cudaStream_t>(stream));
+  if (Bb < 1 || A2 < 1 || hw < 1 || static_cast<long long>(Bb) * A2 * hw > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return ffn_out<true>(xn2, x2, w1, w2, wlin, wf, out, Bb * A2 * hw, hw, A2, C,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // Its bf16-operand instance: the arguments of lft_spa_ffn_out_pm, wf the
@@ -1070,10 +1062,18 @@ extern "C" int lft_spa_ffn_out_pm_sites(const float* xn2, const float* x2, const
 }
 
 // Its bf16-IO instance: as lft_spa_ffn_out_bf16io, out pixel-major (a (pixel,
-// view) row of C bf16 values written as 4-byte pairs).
+// view) row of C bf16 values written as 4-byte pairs), so that K11 in bf16
+// IO is view-major K2's chain bit for bit.
 extern "C" int lft_spa_ffn_out_pm_bf16io(const bf16* xn2, const bf16* x2, const float* w1,
                                          const float* w2, const float* wlin, float* wf, bf16* out,
                                          int Bb, int hw, int A2, int C, void* stream) {
-  return ffn_out_pm<bf16>(xn2, x2, w1, w2, wlin, wf, out, Bb, hw, A2, C,
-                          static_cast<cudaStream_t>(stream));
+  if (Bb < 1 || A2 < 1 || hw < 1 || static_cast<long long>(Bb) * A2 * hw > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  bf16* wb = reinterpret_cast<bf16*>(wf);
+  LFT_DISPATCH_C(C, {
+    return launch_ffn_bf16<CC, true, bf16>(xn2, x2, w1, w2, wlin, wb, out, Bb * A2 * hw, hw, A2,
+                                           s);
+  });
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -109,25 +109,6 @@ __device__ __forceinline__ int wm_unit(int p, int c) {
     return p * CH + (c ^ ((p >> 2) & 1));
 }
 
-// Four 8 x 8 b16 matrices: lane 8 i + r gives the address of row r of
-// matrix i (16 bytes); thread (g, q) receives elements (g, 2 q) and (g, 2 q
-// + 1) of each, packed, as r[i].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// c += a b over one m16n8k8 bf16 tile: A a0 (g, 2q), a1 (g+8, 2q); B b0 (2q,
-// g); C as mma_bf16's.
-__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], const uint32_t (&a)[2], uint32_t b0) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b0));
-}
-
 // One block a (view, 8 x 8 tile) item, items in launch order; warp j takes
 // the tile's 4 x 4 patch (j / 2, j % 2). Lane (g, q) holds the patch's
 // queries g and g + 8 (row-major in the patch: (g / 4, g % 4) and (g / 4 +

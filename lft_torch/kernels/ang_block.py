@@ -59,7 +59,7 @@ import torch
 from lft_torch.kernels import _build
 from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_bwd, fwd_kernel,
                                       io_kernel, no_plan, rd, rounds, site_mask)
-from lft_torch.kernels.rowgemm import RG_M, ang_block_floats, ang_bwd_floats
+from lft_torch.kernels.rowgemm import RG_M, ang_bf16_floats, ang_block_floats, ang_bwd_floats
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import attention_heads
 
@@ -195,6 +195,25 @@ def ang_block_bf16io_plain(x, ang_pe, wts, num_heads: int, with_res: bool = Fals
             l.transpose(1, 2).contiguous(), a.bfloat16())
 
 
+def ang_block_bf16io_f64(x, ang_pe, wts, num_heads: int):
+    """`ang_block_bf16io_plain`'s function in float64, rounded to bf16 at
+    the same points (float64 of bf16 values): a yardstick for how far a
+    version's f32 arithmetic lies from exact. Not on any path."""
+    B = lambda t: t.to(torch.bfloat16).double()
+    w = lambda n: B(wts[n].double())
+    ln = wts["ln"].double()
+    H = num_heads
+    xf = x.double()
+    xn = B(_ln(xf + ang_pe.double(), ln[0], ln[1]))
+    q, k, v = B(xn @ w("wq")), B(xn @ w("wk")), B(xf @ w("wv"))
+    s = (_heads(q, H) @ _heads(k, H).transpose(-1, -2)) * float(x.shape[-1] // H) ** -0.5
+    e = torch.exp(s - s.amax(-1).amax(1, keepdim=True)[..., None])
+    a = B(_merge((B(e) @ _heads(v, H)) / e.sum(-1)[..., None]))
+    x2 = B(B(a @ w("wo")) + xf)
+    hid = B(torch.relu(B(_ln(x2, ln[2], ln[3])) @ w("w1")))
+    return B(B(hid @ w("w2")) + x2)
+
+
 def _ang_block_planned(x, ang_pe, wts, num_heads, with_res, plan):
     """K1 under a mixed plan, in lft_tpu's order (ang_block.py:_kernel
     :110-152): each product's operands rounded where its site is, the
@@ -249,7 +268,10 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     `common.site_mask`; attn rounded where `awo` rounds). A bf16 x
     launches `ang_block_bf16io` (bf16 in and out; the weights and LN
     affine as f32 tensors of bf16 values, the PE f32), with_res
-    `ang_block_res_bf16io` (m, l f32, attn bf16)."""
+    `ang_block_res_bf16io` (m, l f32, attn bf16). These four all-bf16 forms
+    run one kernel (`csrc/ang_bf16.cuh`: bf16 `wgmma` on the weights rounded
+    into `rowgemm.ang_bf16_stream`'s layout and held whole in shared memory,
+    the attention on bf16 `mma.sync`)."""
     if x.device.type != "cuda":
         return ang_block_plain(x, ang_pe, wts, num_heads, with_res, plan)
     base = "ang_block_res" if with_res else "ang_block"
@@ -264,7 +286,10 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     else:
         _build.check_cuda_args(name, x, ang_pe, *(w[n] for n in WEIGHTS))
     out = torch.empty_like(x)
-    wf = torch.empty(ang_block_floats(C), device=x.device)   # scratch: the split weights
+    # scratch: the weights as the launch's first kernel prepares them (the
+    # all-bf16 forms' bf16 copy, the others' split stream)
+    wf = torch.empty(ang_bf16_floats(C) if name.endswith(("_bf16io", "_bf16"))
+                     else ang_block_floats(C), device=x.device)
     ptrs = [x.data_ptr(), ang_pe.data_ptr(), *(w[n].data_ptr() for n in WEIGHTS),
             wf.data_ptr(), out.data_ptr()]
     tail = (N, A2, C, num_heads, float(C // num_heads) ** -0.5)

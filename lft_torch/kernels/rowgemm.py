@@ -25,7 +25,11 @@ in `bf16_piece`'s layout and the f32 ones split, Wlin's rows in
 `sites_rows` order where its product's A comes from an accumulator
 (`sites_piece`):
 `ffn_out_sites_stream`, `ffn_out_sites_floats` and `ffn_out_sites_smem`
-(`FfnSites`). A backward's transposed weights are split straight from the forward's
+(`FfnSites`). K2.5's `_bf16io` instances run the `_bf16` kernel on bf16 rows
+(`ffn_out_bf16io_smem`). K1's all-bf16 forms (`csrc/ang_bf16.cuh`) hold
+their six weights rounded to bf16 in `bf16_piece`'s layout
+(`ang_bf16_stream`, `ang_bf16_floats`, `ang_bf16_smem`: `AngBf16`). A
+backward's transposed weights are split straight from the forward's
 (`RgPiece::tr`): no transposed copy is made.
 """
 
@@ -271,6 +275,17 @@ def ang_block_stream(wts: dict) -> torch.Tensor:
     return torch.cat([piece(p) for p in ang_block_pieces(wts)])
 
 
+ANG_BF16_ORDER = ("wv", "wq", "wk", "wo", "w1", "w2")
+
+
+def ang_bf16_stream(wts: dict) -> torch.Tensor:
+    """Plain version of the weight preparation of K1's all-bf16 forms
+    (`ang_block[_res]_bf16io`, `ang_block[_res]_bf16`: `csrc/ang_bf16.cuh`,
+    `ang_bf16_weights_kernel`): Wv, Wq, Wk, Wo, W1 and W2 whole, each a
+    `bf16_piece`, bf16 values."""
+    return torch.cat([bf16_piece(wts[n].float()) for n in ANG_BF16_ORDER])
+
+
 def outproj_floats(C: int) -> int:
     """Floats of one D x D weight split (RowProj<C>::SQ): K2.4's Wo, and
     each of K2.2's three."""
@@ -311,6 +326,12 @@ def ffn_out_bwd_floats(C: int) -> int:
 def ang_block_floats(C: int) -> int:
     """Floats of K1's weight stream (AngLayout<C>::FLOATS)."""
     return 16 * C * C
+
+
+def ang_bf16_floats(C: int) -> int:
+    """f32 words of the scratch of K1's all-bf16 forms: AngBf16<C>::ELEMS =
+    8 C^2 bf16 values, two a word."""
+    return 4 * C * C
 
 
 def ang_bwd_tok_floats(C: int) -> int:
@@ -356,6 +377,14 @@ def ffn_out_bf16_smem(C: int) -> int:
     return 4 * ffn_out_bf16_floats(C) + RG_M * (D + 8) * 4
 
 
+def ffn_out_bf16io_smem(C: int) -> int:
+    """Shared memory of a `spa_ffn_out_bf16io` block (the `_bf16` kernel with
+    bf16 rows): the bf16 weights and the rows of xn2 [128, 2C + 8] in bf16
+    (FfnBf16<C>::BYTES16)."""
+    D = 2 * C
+    return 4 * ffn_out_bf16_floats(C) + RG_M * (D + 8) * 2
+
+
 def ffn_out_sites_smem(C: int, ffn: bool) -> int:
     """Shared memory of a `spa_ffn_out_sites` block (FfnSites<C, ffn>::BYTES):
     ffn the resident weights alone (bf16 W1, W2 and Wlin split); else the
@@ -387,6 +416,25 @@ def ang_block_smem(C: int) -> int:
     (AngLayout<C>::BYTES)."""
     tiles = 4 * RG_M * (C + 4) * 4
     return tiles + ring_slots(tiles) * RG_SF * 4
+
+
+ANG_BF16_ROWS = RG_M + 16   # q, k, v rows: a pixel's last 16 queries may pass the tile by 15
+
+
+def ang_bf16_groups(C: int) -> int:
+    """Head groups of the attention of K1's all-bf16 kernel (AngBf16<C>::NG):
+    two chunks of 8 channels each, an item (pixel, 16 queries, group)."""
+    return C // 16
+
+
+def ang_bf16_smem(C: int, bf16_io: bool) -> int:
+    """Shared memory of a block of K1's all-bf16 forms (AngBf16<C>::bytes):
+    the bf16 weights, q, k, v [144, C + 8] and the attention output [128, C +
+    8] in bf16, pass 1's maxima [144, C / 16] in f32, and two stages of x
+    [128, C + 8] in the IO type."""
+    ld = C + 8
+    return (2 * 8 * C * C + 3 * ANG_BF16_ROWS * ld * 2 + RG_M * ld * 2
+            + ANG_BF16_ROWS * ang_bf16_groups(C) * 4 + 2 * RG_M * ld * (2 if bf16_io else 4))
 
 
 def ang_bwd_tok_smem(C: int) -> int:

@@ -782,11 +782,12 @@ def ffn_out(xn2, x2, wts, views=None, plan=None):
     `views` = A2 the output is pixel-major [V / A2, h, w, A2, C], counted as
     `spa_ffn_out_pm`. On the card its three products run 3xTF32 on the
     tensor cores (`csrc/rowgemm.cuh`), the weights split by the launch's
-    first kernel into a scratch of `rowgemm.ffn_out_stream`'s layout. bf16
-    xn2 and x2 launch `spa_ffn_out[_pm]_bf16io` (bf16 out); the plan `none`
-    `spa_ffn_out[_pm]_bf16` (bf16 `wgmma` on the weights rounded to bf16
-    into `rowgemm.ffn_out_bf16_stream`'s layout and held whole in shared
-    memory, `csrc/ffn_bf16.cuh`); a site subset that rounds one of `ffn`
+    first kernel into a scratch of `rowgemm.ffn_out_stream`'s layout. The
+    plan `none` launches `spa_ffn_out[_pm]_bf16` (bf16 `wgmma` on the
+    weights rounded to bf16 into `rowgemm.ffn_out_bf16_stream`'s layout and
+    held whole in shared memory, `csrc/ffn_bf16.cuh`), bf16 xn2 and x2
+    `spa_ffn_out[_pm]_bf16io` (the same kernel on bf16 rows, bf16 out); a
+    site subset that rounds one of `ffn`
     and `lin` `spa_ffn_out[_pm]_sites` (`csrc/ffn_sites.cuh`: the rounded
     products bf16 `wgmma`, the f32 ones 3xTF32, the weights prepared into
     `rowgemm.ffn_out_sites_stream`'s layout)."""
@@ -810,8 +811,9 @@ def ffn_out(xn2, x2, wts, views=None, plan=None):
     if tuple(wts["w1"].shape) != (D, 2 * D) or tuple(wts["wlin"].shape) != (D, C):
         raise ValueError(f"{name}: w1 {tuple(wts['w1'].shape)}, wlin "
                          f"{tuple(wts['wlin'].shape)} for x2 {tuple(x2.shape)}")
-    # scratch: the split weights (the bf16 ones of `spa_ffn_out_bf16`)
-    wf = torch.empty(ffn_out_bf16_floats(C) if name.endswith("_bf16") else
+    # scratch: the weights as the launch's first kernel prepares them (the
+    # bf16 copy of `_bf16` and `_bf16io`, the others' split stream)
+    wf = torch.empty(ffn_out_bf16_floats(C) if name.endswith(("_bf16", "_bf16io")) else
                      ffn_out_floats(C), device=x2.device)
     fn = _build.bind("spa_block", "lft_" + name, 7, (ctypes.c_int,) * (len(dims) + len(sites)))
     _build.launch("spa_block", name, fn, x2.device, xn2.data_ptr(),

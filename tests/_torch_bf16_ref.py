@@ -1,7 +1,7 @@
 """lft_tpu's `--dtype bfloat16` outputs for tests/test_torch_bf16.py, made in
 a process of their own:
 
-    python tests/_torch_bf16_ref.py OUT.npz
+    python tests/_torch_bf16_ref.py OUT.npz [k1 | k2]
 
 lft_tpu's fused Pallas kernels run in interpret mode on the CPU, as its own
 tests run them, with XLA's excess precision off
@@ -16,6 +16,8 @@ Each grid step takes one pixel group of K1 and one view of K2
 (`LFT_ANGB_GPS=1`, `LFT_SPAB_VPS=1`): the same values, a shorter trace.
 
 The inputs are made here and in the test by the same functions, from seeds.
+With `k1` only K1's blocks are made (`k1_{C}_bf16`, `k1_{C}_f32`), with
+`k2` only K2's (and their `_petok`).
 """
 
 import os
@@ -69,7 +71,7 @@ def fwd_inputs():
     return lr, np_params(FWD["channels"], FWD["scale_factor"], 5)
 
 
-def main(out_path: str) -> None:
+def main(out_path: str, part: str = "all") -> None:
     import jax
     import jax.numpy as jnp
     jax.config.update("jax_platforms", "cpu")
@@ -88,9 +90,12 @@ def main(out_path: str) -> None:
         for dt in ("bf16", "f32"):
             t = jnp.bfloat16 if dt == "bf16" else jnp.float32
             p = {k: jnp.asarray(v).astype(t) for k, v in d["params"].items()}
-            res[f"k1_{C}_{dt}"] = f32(j_ang.ang_trans_block_fused(
-                jnp.asarray(d["k1_x"]).astype(t), jnp.asarray(angular_position(K1_SHAPE[1], C)),
-                p, ANG_PREFIX, 8))
+            if part != "k2":
+                res[f"k1_{C}_{dt}"] = f32(j_ang.ang_trans_block_fused(
+                    jnp.asarray(d["k1_x"]).astype(t),
+                    jnp.asarray(angular_position(K1_SHAPE[1], C)), p, ANG_PREFIX, 8))
+            if part == "k1":
+                continue
             h, w = K2_SHAPE[1:]
             pe_tok = unfold3x3_linear(jnp.asarray(spatial_position(h, w, C))[None].astype(t),
                                       p[SPA_PREFIX + "MLP.weight"])[0]
@@ -99,7 +104,7 @@ def main(out_path: str) -> None:
                 jnp.asarray(d["k2_x"]).astype(t), pe_tok, p, SPA_PREFIX, 8, 5))
     lr, p = fwd_inputs()
     jp = {k: jnp.asarray(v) for k, v in p.items()}
-    for dt in ("bfloat16", "float32"):
+    for dt in (("bfloat16", "float32") if part == "all" else ()):
         args = JArgs(model_name="LFT", dtype=dt, **FWD)
         fwd = jax.jit(lambda p_, x_: j_lft.forward(p_, x_, args, remat=False, fused=True))
         res[f"fwd_{dt}"] = f32(fwd(jp, jnp.asarray(lr)))
@@ -111,4 +116,4 @@ if __name__ == "__main__":
                                + " --xla_allow_excess_precision=false")
     os.environ.update(LFT_ANGB_GPS="1", LFT_SPAB_VPS="1")
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    main(sys.argv[1])
+    main(*sys.argv[1:3])

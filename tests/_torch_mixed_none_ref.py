@@ -17,7 +17,9 @@ grid step. PART is one of PARTS:
   tests/test_torch_mixed.py's `test_mixed_fused_train_step_matches_jax`
   takes it: `--dtype mixed` under the plan `none` (the backward's default
   plan, `none`), and `float32`; the update and the loss, and (`step_none`)
-  the warm state's leaves.
+  the warm state's leaves;
+* `k1` (tests/test_torch_ang_bf16.py, not in PARTS): `blocks`' K1 forwards
+  alone (out, m, l, attn under `none` and in f32).
 
 The inputs are made here and in the test by the same functions, from seeds.
 """
@@ -75,7 +77,7 @@ def warm_state(flat: dict, n_params: int) -> dict:
     return flat
 
 
-def blocks(res: dict) -> None:
+def blocks(res: dict, k1_only: bool = False) -> None:
     import jax
     import jax.numpy as jnp
     from lft_tpu.kernels import ang_block as j_ang
@@ -104,6 +106,8 @@ def blocks(res: dict) -> None:
             for n, a in zip(("out", "m", "l", "attn"),
                             j_ang._core_fwd(x1, pe, *wa, 8, with_res=True, mm_half=mm)):
                 res[f"k1_{C}_{dt}_{n}"] = f32(a)
+            if k1_only:
+                continue
             for n, a in zip(("out", "tok", "ml", "attn"),
                             j_spa._fwd_call(x2, pe_tok, *ws, 8, 5, with_res=True, mm_half=mm)):
                 res[f"k2_{C}_{dt}_{n}"] = f32(a)
@@ -154,8 +158,8 @@ def main(out_path: str, part: str) -> None:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
     res = {}
-    if part == "blocks":
-        blocks(res)
+    if part in ("blocks", "k1"):
+        blocks(res, part == "k1")
     else:
         step(res, "mixed" if part == "step_none" else "float32")
     np.savez(out_path, **res)

@@ -2541,3 +2541,89 @@ def test_ffn_out_sites_kernels_pm_and_masks(cuda_device, C, spec):
                 wf.data_ptr(), out.data_ptr(), xn2.numel() // (2 * C), C, mask,
                 torch.cuda.current_stream().cuda_stream)
         assert rc == 1   # cudaErrorInvalidValue
+
+
+# ---- K1's all-bf16 forms and K2.5 bf16io on their bf16 tensor-core designs
+# (csrc/ang_bf16.cuh, csrc/ffn_bf16.cuh)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("A2,N", [(9, 37), (25, 37), (81, 64), (121, 64)])
+def test_ang_bf16_kernel_forms(cuda_device, C, A2, N):
+    """K1's four all-bf16 forms on one kernel (csrc/ang_bf16.cuh), at every
+    width, pixels of 9-121 views and a last tile only partly filled (at 81
+    and 121 views a tile is one pixel, its last rows empty; 64 pixels there,
+    since at a few a single q, k or v value that rounds the other way in
+    one version moves a few hundred of attn's bf16 roundings, and one draw
+    would decide the share):
+    `ang_block_bf16io` and `ang_block_res_bf16io` against the plain bf16
+    version (`_bf16_close`, `_bf16t_close`), `ang_block_bf16` and
+    `ang_block_res_bf16` against the plain version under the plan `none`
+    (`_mixed_close`; m, l within L2 1e-3); each `_res` form's out bit for
+    bit its forward's, m one value a token, every call repeating bitwise,
+    one launch each under its name."""
+    from lft_torch.kernels import common
+    g = torch.Generator(device=cuda_device).manual_seed(C + A2)
+    pe = torch.from_numpy(angular_position(A2, C)).to(cuda_device)
+    wb = ang_block.ang_weights(_bf16_params(C, cuda_device), "altblock.1.ang_trans.")
+    wf = ang_block.ang_weights(_params(C, cuda_device), "altblock.1.ang_trans.")
+    x = torch.randn(N, A2, C, device=cuda_device, generator=g)
+    xb = x.bfloat16()
+    plan = _plan_none()
+    reset_launches()
+    fwd_b = ang_block.ang_block(xb, pe, wb, 8)
+    res_b = ang_block.ang_block(xb, pe, wb, 8, with_res=True)
+    fwd_f = ang_block.ang_block(x, pe, wf, 8, plan=plan)
+    res_f = ang_block.ang_block(x, pe, wf, 8, with_res=True, plan=plan)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {
+        "ang_block_bf16io": 1, "ang_block_res_bf16io": 1, "ang_block_bf16": 1,
+        "ang_block_res_bf16": 1}
+    wb32 = {k: v.float() for k, v in wb.items()}
+    _bf16_close((fwd_b,), (ang_block.ang_block_plain(xb, pe, wb, 8),),
+                (ang_block.ang_block_plain(xb.float(), pe, wb32, 8),))
+    _bf16t_close(res_b, ang_block.ang_block_plain(xb, pe, wb, 8, with_res=True),
+                 ang_block.ang_block_plain(xb.float(), pe, wb32, 8, with_res=True))
+    _mixed_close((fwd_f,), (ang_block.ang_block_plain(x, pe, wf, 8, plan=plan),),
+                 (ang_block.ang_block_plain(x, pe, wf, 8),))
+    ref = ang_block.ang_block_plain(x, pe, wf, 8, with_res=True, plan=plan)
+    ref32 = ang_block.ang_block_plain(x, pe, wf, 8, with_res=True)
+    _mixed_close((res_f[0], res_f[3]), (ref[0], ref[3]), (ref32[0], ref32[3]))
+    l2 = lambda a, b: float((a - b).double().norm() / b.double().norm())
+    assert l2(res_f[1], ref[1]) <= 1e-3 and l2(res_f[2], ref[2]) <= 1e-3
+    assert torch.equal(res_f[3], common.bf16_round(res_f[3]))
+    for res, fwd in ((res_b, fwd_b), (res_f, fwd_f)):
+        assert torch.equal(res[0], fwd)
+        assert torch.equal(res[1], res[1][..., :1].expand_as(res[1]))   # the token's max
+    assert torch.equal(fwd_b, ang_block.ang_block(xb, pe, wb, 8))
+    assert torch.equal(fwd_f, ang_block.ang_block(x, pe, wf, 8, plan=plan))
+    assert all(torch.equal(a, b) for a, b in
+               zip(res_b, ang_block.ang_block(xb, pe, wb, 8, with_res=True)))
+    assert all(torch.equal(a, b) for a, b in
+               zip(res_f, ang_block.ang_block(x, pe, wf, 8, with_res=True, plan=plan)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("V,h,w,A2", [(3, 9, 7, 3), (50, 17, 23, 25), (20, 32, 32, 4)])
+def test_ffn_out_bf16io_kernel(cuda_device, C, V, h, w, A2):
+    """K2.5 and K11.5 in bf16 IO on the `_bf16` kernel with bf16 rows
+    (csrc/ffn_bf16.cuh) at every width, on ragged token counts: against the
+    plain bf16 version (`_bf16_close`), a bitwise repeat, K11.5's output
+    K2.5's pixel-major copy bit for bit, one launch of each."""
+    ws = spa_block.spa_weights(_bf16_params(C, cuda_device), "altblock.2.spa_trans.")
+    ws32 = {k: v.float() for k, v in ws.items()}
+    g = torch.Generator(device=cuda_device).manual_seed(C + h)
+    xn2, x2 = (torch.randn(V, h, w, 2 * C, device=cuda_device, generator=g).bfloat16()
+               for _ in range(2))
+    reset_launches()
+    got = spa_block.ffn_out(xn2, x2, ws)
+    pm = spa_block.ffn_out(xn2, x2, ws, A2)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {"spa_ffn_out_bf16io": 1,
+                                                        "spa_ffn_out_pm_bf16io": 1}
+    assert got.dtype == pm.dtype == torch.bfloat16 and got.shape == (V, h, w, C)
+    _bf16_close((got,), (spa_block.ffn_out_plain(xn2, x2, ws),),
+                (spa_block.ffn_out_plain(xn2.float(), x2.float(), ws32),))
+    assert torch.equal(got, spa_block.ffn_out(xn2, x2, ws))
+    assert torch.equal(pm, spa_block._to_pixel_major(got, A2))
