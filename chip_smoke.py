@@ -208,7 +208,11 @@
     per output L2 within BF16_GAP of the plain bf16-vs-f32 distance and no
     element off by more than BF16_ULPS bf16 ulps of max |plain|, a bitwise
     repeat, timed beside its bound (bf16 bytes, every operation at the bf16
-    rate) and the bf16 library calls;
+    rate) and the bf16 library calls; the redesigned kernels at the widths
+    and views the main path does not give them (`window_width_checks`,
+    `ang_bf16_width_checks`, `ffn_bf16io_width_checks`,
+    `tok_bf16_width_checks`: K2.1 / K11.1 at every C and 32 x 32, 30 x 30,
+    64 x 64 views, the pixel-major form bit for bit the view-major one);
 24. `--dtype bfloat16` training (lft_tpu's fused bf16 train step: K1 res,
     K2 res, K4, K3 and `wgrad` in their `_bf16io` instances, the master
     weights and Adam state f32): (a) the fused train step of the 4x recipe
@@ -303,7 +307,9 @@
     each of the eight `_bf16` kernels against its plain version under the
     plan (step 22's bounds) at the main path's shapes, a bitwise repeat,
     timed by CUDA events beside its bound (f32 bytes, the products at the
-    bf16 rate); (d) a train step and a forward under a site subset of the
+    bf16 rate), K1's and K2.1's at the widths and views the main path does
+    not give them (`ang_bf16_width_checks`, `tok_bf16_width_checks`); (d) a
+    train step and a forward under a site subset of the
     backward plan (`qk,ffn`) run, each launch as `common.card_plan` names
     it (the backward's `_sites` instances: step 30); (e) each
     new kernel in turns with its f32 instance (K11's `_pm_bf16io` with
@@ -345,8 +351,11 @@
     bf16 ulps, m and l, and attn of bf16 values exactly where `awo` / `wo`
     rounds), a bitwise repeat, timed by CUDA events beside its bound (f32
     bytes, each product at the bf16 rate where its site rounds and as
-    3xTF32 where it does not); (e) each `_sites` kernel in turns with its
-    f32 and `_bf16` instances;
+    3xTF32 where it does not), and K1's (csrc/ang_sites.cuh) under S1, S2
+    and M3 (`aqkv` and `awo` round) at every C and 25, 81, 121 views, out
+    and attn held to float64 at the plain version's rounding points
+    (`ang_sites_width_checks`, `f64_mixed_err`); (e) each `_sites` kernel in
+    turns with its f32 and `_bf16` instances;
 30. `--dtype mixed` training under the LFT_MM_HP_BWD_SITES subsets S1 and
     S2 (`bwd_sites_phase`; ROADMAP 9h-b): (b) the fused train step under
     (forward `none`, backward S1), (S2, S2) and (`none`,
@@ -3071,7 +3080,7 @@ def bf16_kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: i
                     nbytes(xs, pe_tok, xs, xs, xs, xs) + wbytes("wu", "ln"),
                     lib=lambda: F.conv2d(xs.permute(0, 3, 1, 2), ws["mlp"].reshape(D, C, 3, 3),
                                          padding=1),
-                    lib_what="its conv part only, cuDNN's F.conv2d")
+                    lib_what="its conv part only, cuDNN's F.conv2d", src="tok_bf16.cuh")
     q, k, v = check("spa_qkv_bf16io", sb.qkv, sb.qkv_plain, (xn, tok, ws),
                     (*f32((xn, tok)), ws32), 2 * T * D * 3 * D,
                     nbytes(xn, tok, xn, tok, xn) + wbytes("wqk", "wv"),
@@ -3089,6 +3098,7 @@ def bf16_kernel_checks(params, card: str, launches: dict, n_scenes: int, seed: i
     window_width_checks(g)
     ang_bf16_width_checks(g)
     ffn_bf16io_width_checks(g)
+    tok_bf16_width_checks(g)
     x2, xn2 = check("spa_outproj_ln_bf16io", sb.outproj_ln, sb.outproj_ln_plain,
                     (attn, tok, ws), (*f32((attn, tok)), ws32), 2 * T * D * D,
                     nbytes(attn, tok, attn, tok) + wbytes("wo", "ln"),
@@ -3230,6 +3240,133 @@ def ffn_bf16io_width_checks(g) -> None:
               f"K11.5 bit for bit: {same}", flush=True)
         if not (ok and same):
             raise AssertionError(f"spa_ffn_out_bf16io at C = {C} disagrees")
+
+
+def f64_mixed_err(got, ref, ref32, exact) -> bool:
+    """An f32-IO output of a `_sites` instance at C = 64
+    (`ang_sites_width_checks`), where on random weights the plain version's
+    own f32 error is a share of its mixed-vs-f32 distance: whether it lies
+    no further from `exact` (its function in float64, rounded to bf16 where
+    the plain version rounds) than the plain version does, plus MIXED_GAP
+    of that distance, and within MIXED_REL L2 of the plain version. Prints
+    the distances and the shares."""
+    import torch
+    if got.shape != ref.shape or got.dtype != torch.float32 or not torch.isfinite(got).all():
+        raise AssertionError(f"bad kernel output: {got.dtype} {tuple(got.shape)}")
+    gap, d, d_ref, d_plain = l2_rel(ref32, ref), l2_rel(got, exact), l2_rel(ref, exact), \
+        l2_rel(got, ref)
+    print(f"  {tuple(got.shape)}: from float64 at the plain version's rounding points "
+          f"{d / gap:.4f} of the mixed-vs-f32 distance, the plain version {d_ref / gap:.4f} "
+          f"(limit it + {MIXED_GAP}); from the plain version {d_plain / gap:.4f}, L2 "
+          f"{d_plain:.3e} (limit {MIXED_REL:g})", flush=True)
+    return d <= d_ref + MIXED_GAP * gap and d_plain <= MIXED_REL
+
+
+# Step 29's third K1 mask beside S1 and S2: `aqkv` and `awo` round, the
+# attention's scores and e v both f32 (S1: bf16 scores, f32 e v; S2 the
+# reverse), the FFN f32.
+SITES_M3 = "tok,qk,v,score,av,wo,ffn,lin,ascore,aav,affn"
+
+
+def ang_sites_width_checks(g) -> None:
+    """Step 29 d: K1's `_sites` kernel (csrc/ang_sites.cuh) under S1, S2 and
+    M3 at every width, C = 16, 32 and 64, at 25, 81 and 121 views (256
+    pixels of 25, 64 of 81 or 121: a tile one pixel, its last rows empty;
+    enough that one q, k or v value rounding the other way does not decide
+    a share), random weights: `ang_block_sites` and `ang_block_res_sites`
+    against the plain version under the subset, out and attn no further
+    from float64 at the plain version's rounding points than the plain
+    version plus MIXED_GAP of its mixed-vs-f32 distance (`f64_mixed_err`:
+    the f32 sites' 3xTF32 accuracy and the rounded sites' roundings) and,
+    below C = 64, within `mixed_err`'s limits (at C = 64 the plain version's
+    own f32 error is a share of that distance: `ang_bf16_width_checks`); m
+    and l within L2 MIXED_REL; attn bf16 values exactly where `awo` rounds;
+    a bitwise repeat; the `_res` form's out bit for bit the forward's. Not
+    timed (the main shapes are)."""
+    import torch
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels import common
+    from lft_torch.ops.posenc import angular_position
+
+    H = 8
+    for spec, what in ((SITES_S1, "S1"), (SITES_S2, "S2"), (SITES_M3, "M3")):
+        plan = common.mm_site_plan(True, frozenset(spec.split(",")))
+        for C, A2, N in ((16, 25, 256), (32, 25, 256), (64, 25, 256), (16, 81, 64),
+                         (32, 81, 64), (64, 81, 64), (16, 121, 64), (32, 121, 64),
+                         (64, 121, 64)):
+            rnd = lambda *s_: torch.randn(*s_, device="cuda", generator=g)
+            wts = {n: rnd(*s_) / s_[0] ** 0.5 for n, s_ in (
+                ("wq", (C, C)), ("wk", (C, C)), ("wv", (C, C)), ("wo", (C, C)),
+                ("w1", (C, 2 * C)), ("w2", (2 * C, C)))}
+            wts["ln"] = torch.stack([1 + 0.2 * rnd(C), 0.2 * rnd(C), 1 + 0.2 * rnd(C),
+                                     0.2 * rnd(C)])
+            x = rnd(N, A2, C)
+            pe = torch.from_numpy(angular_position(A2, C)).to("cuda")
+            got = ab.ang_block(x, pe, wts, H, plan=plan)
+            res = ab.ang_block(x, pe, wts, H, with_res=True, plan=plan)
+            ref = ab.ang_block_plain(x, pe, wts, H, with_res=True, plan=plan)
+            ref32 = ab.ang_block_plain(x, pe, wts, H, with_res=True)
+            exact = ab.ang_block_plain(x.double(), pe.double(),
+                                       {k: v.double() for k, v in wts.items()}, H,
+                                       with_res=True, plan=plan)
+            ok = all(f64_mixed_err(res[i], ref[i], ref32[i], exact[i]) for i in (0, 3))
+            if C < 64:
+                ok = mixed_err((res[0], res[3]), (ref[0], ref[3]), (ref32[0], ref32[3]))[1] \
+                    and ok
+            ok = ok and l2_rel(res[1], ref[1]) <= MIXED_REL and l2_rel(res[2], ref[2]) <= \
+                MIXED_REL and torch.equal(res[3], common.bf16_round(res[3])) == plan["awo"]
+            again = ab.ang_block(x, pe, wts, H, with_res=True, plan=plan)
+            same = (torch.equal(got, ab.ang_block(x, pe, wts, H, plan=plan))
+                    and all(torch.equal(a, b) for a, b in zip(res, again))
+                    and torch.equal(res[0], got))
+            print(f"  ang_block_sites and ang_block_res_sites under {what} at [{N}, {A2}, {C}]: "
+                  f"within limits {ok}; repeated, `_res` out bit for bit the forward's: {same}",
+                  flush=True)
+            if not (ok and same):
+                raise AssertionError(f"ang_block_sites under {what} at [{N}, {A2}, {C}] "
+                                     f"disagrees")
+
+
+def tok_bf16_width_checks(g, plan=None) -> None:
+    """Step 23 a (bf16 IO) and step 27 (`plan`: LFT_MM_HP_SITES=none, f32
+    IO): K2.1's and K11.1's bf16 forms (csrc/tok_bf16.cuh) at every width,
+    C = 16, 32 and 64, and at 32 x 32, 30 x 30 and 64 x 64 views (tiles of
+    `spa_block.tok_bf16_tile`, partly outside a 30 x 30 view), random
+    weights: the view-major form against the plain version (bf16 IO
+    `bf16_err`, f32 IO `mixed_err`), the pixel-major form bit for bit the
+    view-major one on the permuted copy, a bitwise repeat. Not timed (the
+    main shapes are)."""
+    import torch
+    from lft_torch.kernels import spa_block as sb
+
+    for C in (16, 32, 64):
+        D = 2 * C
+        for V, h, w, A2 in ((6, 32, 32, 3), (4, 30, 30, 2), (2, 64, 64, 2)):
+            rnd = lambda *s_: torch.randn(*s_, device="cuda", generator=g)
+            wts = sb._with_mlp({"wu": rnd(9, C, D) / (3 * C ** 0.5),
+                                "ln": torch.stack([1 + 0.2 * rnd(D), 0.2 * rnd(D)])})
+            x, pe = rnd(V, h, w, C), rnd(h, w, D)
+            if plan is None:
+                wts, x, pe = {k: v.bfloat16() for k, v in wts.items()}, x.bfloat16(), pe.bfloat16()
+                what = "spa_tokenize_ln_bf16io and spa_tokenize_ln_pm_bf16io"
+                got = sb.tokenize_ln(x, pe, wts)
+                _, ok = bf16_err(got, sb.tokenize_ln_plain(x, pe, wts),
+                                 sb.tokenize_ln_plain(x.float(), pe.float(),
+                                                      {k: v.float() for k, v in wts.items()}))
+            else:
+                what = "spa_tokenize_ln_bf16 and spa_tokenize_ln_pm_bf16"
+                got = sb.tokenize_ln(x, pe, wts, plan=plan)
+                _, ok = mixed_err(got, sb.tokenize_ln_plain(x, pe, wts, plan),
+                                  sb.tokenize_ln_plain(x, pe, wts))
+            pm = x.reshape(V // A2, A2, h, w, C).permute(0, 2, 3, 1, 4).contiguous()
+            same = (all(torch.equal(a, b) for a, b in zip(got, sb.tokenize_ln(x, pe, wts,
+                                                                                plan=plan)))
+                    and all(torch.equal(a, b) for a, b in zip(got, sb.tokenize_ln(
+                        pm, pe, wts, pixel_major=True, plan=plan))))
+            print(f"  {what} at [{V}, {h}, {w}, {C}]: within limits {ok}; repeated and the "
+                  f"pixel-major form bit for bit: {same}", flush=True)
+            if not (ok and same):
+                raise AssertionError(f"{what} at [{V}, {h}, {w}, {C}] disagrees")
 
 
 def ffn_sites_width_checks(plan, what: str, g) -> None:
@@ -4364,7 +4501,8 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
     tok32 = sb.tokenize_ln_plain(xvb.float(), pe_b.float(), ws32b)
     fn_t = lambda xb=xb, pe_b=pe_b, wsb=wsb: sb.tokenize_ln(xb, pe_b, wsb, True)
     got = fn_t()
-    rec_b.record("spa_tokenize_ln_pm_bf16io", src, rep, got, (tok, xn), fn_t,
+    rec_b.record("spa_tokenize_ln_pm_bf16io", "lft_torch/csrc/tok_bf16.cuh", rep, got,
+                 (tok, xn), fn_t,
                  lambda: sb.tokenize_ln_plain(to_vm(xb), pe_b, wsb),
                  2 * C * D * V * valid_window_pairs(h, w, 1),
                  nbytes(xb, pe_b, tok, xn) + sum(nbytes(wsb[n]) for n in ("wu", "ln")),
@@ -4488,7 +4626,9 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
                     xsb.permute(0, 3, 1, 2), wsb["mlp"].reshape(D, C, 3, 3), padding=1))
         tok, xn = check("spa_tokenize_ln_bf16", sb.tokenize_ln, sb.tokenize_ln_plain,
                         (xs, pe_f, ws), 2 * C * D * V * valid_window_pairs(h, w, 1),
-                        nbytes(xs, pe_f) + 2 * T * D * 4 + wbytes("wu", "ln"), lib=conv)
+                        nbytes(xs, pe_f) + 2 * T * D * 4 + wbytes("wu", "ln"), lib=conv,
+                        src_="tok_bf16.cuh")
+        tok_bf16_width_checks(g, plan)
         q, k, v = check("spa_qkv_bf16", sb.qkv, sb.qkv_plain, (xn, tok, ws), 2 * T * D * 3 * D,
                         nbytes(xn, tok) + 3 * T * D * 4 + wbytes("wqk", "wv"),
                         lib=("its two cuBLAS products", lambda xnb=bf(xn), tokb=bf(tok): (
@@ -4522,7 +4662,7 @@ def fwdforms_phase(params, args, scenes, cache, card: str, seed: int) -> list:
         check("spa_tokenize_ln_pm_bf16", tokp, tokp_p, (xf, pe_f, ws),
               2 * C * D * V * valid_window_pairs(h, w, 1),
               nbytes(xf, pe_f) + 2 * T * D * 4 + wbytes("wu", "ln"), replaces=rep,
-              recorder=rec_pm, lib=conv)
+              recorder=rec_pm, lib=conv, src_="tok_bf16.cuh")
         ffp = lambda a_, b_, ws_, plan=None: sb.ffn_out(a_, b_, ws_, A2, plan=plan)
         ffp_p = lambda a_, b_, ws_, plan=None: to_pm(sb.ffn_out_plain(a_, b_, ws_, plan))
         check("spa_ffn_out_pm_bf16", ffp, ffp_p, (xn2, x2, ws), 2 * T * (4 * D * D + D * C),
@@ -5133,13 +5273,13 @@ def sites_phase(params, args, scenes, cache, card: str, seed: int) -> list:
             print(f"the `_sites` kernels under {name_of[spec]} (LFT_MM_HP_SITES={spec}):",
                   flush=True)
             check(spec, "scene", "ang_block_sites", ang, ang_p, (x1, pe1, wa), k1_flops(N),
-                  nbytes(x1, pe1, x1, *wa.values()), src_="ang_block.cu",
+                  nbytes(x1, pe1, x1, *wa.values()), src_="ang_sites.cuh",
                   replaces="lft_tpu/kernels/ang_block.py:188")
             Tr = 4096 * A2
             check(spec, "step", "ang_block_res_sites", angr, angr_p, (xr, pe1, wa),
                   k1_flops(4096), nbytes(xr, pe1, xr, xr) + Tr * H * 8
                   + sum(nbytes(t_) for t_ in wa.values()), outs=(0, 3),
-                  res=((1, 2), 3, "awo"), src_="ang_block.cu",
+                  res=((1, 2), 3, "awo"), src_="ang_sites.cuh",
                   replaces="lft_tpu/kernels/ang_block.py:233")
             tok, xn = sb.tokenize_ln_plain(xs, pe_f, ws, plan)
             q, k, v = check(spec, "scene", "spa_qkv_sites", sb.qkv, sb.qkv_plain, (xn, tok, ws),
@@ -5163,6 +5303,7 @@ def sites_phase(params, args, scenes, cache, card: str, seed: int) -> list:
                   replaces="lft_tpu/kernels/spa_block.py:309", src_="ffn_sites.cuh")
             del x2, xn2
             ffn_sites_width_checks(plan, name_of[spec], g)
+        ang_sites_width_checks(g)
 
         # e: in turns with the f32 and `_bf16` instances, CUDA events
         print(f"{card_line()}: ms of each `_sites` instance (S1) beside its f32 and `_bf16` "

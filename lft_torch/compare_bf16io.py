@@ -67,8 +67,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def other_libraries(libs: dict):
     """The port's wrappers launch `libs` ({source name: CDLL}) while inside.
     Their scratch for the weights is the larger, split stream's size for
-    every instance: an older build's `_bf16io` and `_bf16` entries (K1, K2.5)
-    prepare that stream where this one's keep a bf16 copy."""
+    every instance: an older build's `_bf16io` and `_bf16` entries (K1, K2.5,
+    K2.1 and K11.1) prepare that stream where this one's keep a bf16 copy;
+    and K2.1's and K11.1's bf16 forms take `tok_tile`'s tiles, as the older
+    build's `tap_conv_kernel` instances did (K1 `_sites`'s scratch here is
+    larger than an older build's)."""
     from unittest import mock
 
     from lft_torch.kernels import _build
@@ -82,7 +85,9 @@ def other_libraries(libs: dict):
     _build._libs.update(libs)
     try:
         with mock.patch.object(ab, "ang_bf16_floats", ang_block_floats), \
-                mock.patch.object(sb, "ffn_out_bf16_floats", ffn_out_floats):
+                mock.patch.object(sb, "ffn_out_bf16_floats", ffn_out_floats), \
+                mock.patch.object(sb, "tok_bf16_floats", lambda C: 36 * C * C), \
+                mock.patch.object(sb, "tok_bf16_tile", sb.tok_tile):
             yield
     finally:
         for n, lib in saved.items():

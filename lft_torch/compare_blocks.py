@@ -92,6 +92,25 @@ with `chip_smoke.py`'s random weights (N(0, 1 / fan-in), LayerNorm affine 1
 the plain bf16-vs-f32 distance, two seeds each: how far two designs summing
 in other orders lie from the plain version, bf16 roundings that flip
 included.
+
+    python3 -m lft_torch.compare_blocks --ang-sites OTHER_ANG_BLOCK_CU
+
+(or the other build's `libang_block_<hash>.so`) likewise K1's site-subset
+forms, whose C entries `lft_ang_block_fwd_sites` and
+`lft_ang_block_fwd_res_sites` have this checkout's interface (the other
+build's scratch, `rowgemm.ang_block_floats(C)` floats at commit 7589e65, is
+within this one's): `ang_block_sites` at [16384, 25, 64] and
+`ang_block_res_sites` at [4096, 25, 64] under S1, S2 and M3 (`aqkv` and
+`awo` round: the attention's scores and e v both f32), the demo
+checkpoint's block-0 weights; both builds against the plain version under
+the subset (out and attn L2-relative 1e-3 and 1/10 of the mixed-vs-f32
+distance, m and l L2 1e-3), their max error of out against float64 at the
+plain version's rounding points beside the plain version's, a bitwise
+repeat, the `_res` form's out its forward's; timed other, this, this,
+other beside the bound (the products at the bf16 rate where their site
+rounds and as three TF32 products where not, or x in and out, the larger)
+and the six cuBLAS products at their sites' precision (bf16 or f32, TF32
+off).
 """
 
 from __future__ import annotations
@@ -402,6 +421,95 @@ def _res_bf16io_distances(lib, dev) -> None:
                   flush=True)
 
 
+ANG_MASKS = (("S1", "qk,score,ffn,aqkv,aav,wo"), ("S2", "tok,v,av,lin,ascore,awo,affn"),
+             ("M3", "tok,qk,v,score,av,wo,ffn,lin,ascore,aav,affn"))
+
+
+def _ang_sites_main(other_ang: str) -> int:
+    """`--ang-sites` (the module docstring)."""
+    import ctypes
+
+    from lft_torch.compare_bf16io import other_libraries
+    from lft_torch.device import resolve_device
+    from lft_torch.kernels import _build
+    from lft_torch.kernels import ang_block as ab
+    from lft_torch.kernels.common import mm_site_plan
+    from lft_torch.ops.posenc import angular_position
+    from lft_torch.profile_scene import device_ms
+    from lft_torch.utils.checkpoint import load_checkpoint
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    dev = resolve_device()
+    _build.build_all()
+    params, _, _ = load_checkpoint(os.path.join(REPO, "examples", "synth_demo",
+                                                "LFT_5x5_4x_synth3000.pth"), device=dev)
+    wa = ab.ang_weights(params, "altblock.0.ang_trans.")
+    w64 = {k: v.double() for k, v in wa.items()}
+    C, A2, H = 64, 25, 8
+    pe = torch.from_numpy(angular_position(A2, C)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    l2 = lambda a_, b_: float((a_.double() - b_.double()).norm() / b_.double().norm())
+    site_of = {"wv": "aqkv", "wq": "aqkv", "wk": "aqkv", "wo": "awo", "w1": "affn",
+               "w2": "affn"}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = ctypes.CDLL(other_ang) if other_ang.endswith(".so") else \
+            _build.build_library(other_ang, tmp, "other_ang_block")
+        for spec, kept in ANG_MASKS:
+            plan = mm_site_plan(True, frozenset(kept.split(",")))
+            for N, res in ((16384, False), (4096, True)):
+                name = "ang_block_res_sites" if res else "ang_block_sites"
+                x = torch.randn(N, A2, C, device=dev, generator=g)
+                fn = lambda x=x, res=res: ab.ang_block(x, pe, wa, H, with_res=res, plan=plan)
+                ref = _tuple(ab.ang_block_plain(x, pe, wa, H, with_res=res, plan=plan))
+                ref32 = _tuple(ab.ang_block_plain(x, pe, wa, H, with_res=res))
+                exact = ab.ang_block_plain(x.double(), pe.double(), w64, H, plan=plan)
+                fwd = ab.ang_block(x, pe, wa, H, plan=plan) if res else None
+
+                def other(fn=fn):
+                    with other_libraries({"ang_block": lib}):
+                        return fn()
+                dist, err = [], []
+                for f in (other, fn):
+                    got = _tuple(f())
+                    ds = [l2(got[i], ref[i]) for i in range(len(got))]
+                    gaps = [l2(ref32[i], ref[i]) for i in range(len(got))]
+                    ok = all(ds[i] <= 1e-3 and (i in (1, 2) or ds[i] <= 0.1 * gaps[i])
+                             for i in range(len(got)))
+                    if not ok or not all(torch.equal(a_, b_) for a_, b_ in zip(got, _tuple(f()))):
+                        raise AssertionError(f"{name} {spec}: a build disagrees with the plain "
+                                             f"version or does not repeat ({ds}, gaps {gaps})")
+                    if f is fn and res and not torch.equal(got[0], fwd):
+                        raise AssertionError(f"{name} {spec}: out is not ang_block_sites'")
+                    dist.append(ds[0] / gaps[0])
+                    err.append(_err(got[0], exact))
+                err.append(_err(ref[0], exact))
+                t = [device_ms(other), device_ms(fn), device_ms(fn), device_ms(other)]
+                tok = x.reshape(-1, C)
+                hid = torch.cat([tok, tok], 1)
+                cast = lambda t_, n_: t_.bfloat16() if plan[site_of[n_]] else t_
+                ws_ = {n_: cast(wa[n_], n_) for n_ in site_of}
+                ins = {n_: cast(hid if n_ == "w2" else tok, n_) for n_ in site_of}
+                lib_ms = device_ms(lambda: [ins[n_] @ ws_[n_] for n_ in site_of])
+                T = N * A2
+                io = 2 * T * C * 4 + (T * (2 * H + C) * 4 if res else 0)
+                prods = {"aqkv": 3 * 2 * T * C * C, "awo": 2 * T * C * C,
+                         "affn": 4 * 2 * T * C * C, "ascore": 2 * T * A2 * C,
+                         "aav": 2 * T * A2 * C}
+                ops = sum(f_ / (989e12 if plan[s_] else 495e12 / 3) for s_, f_ in prods.items())
+                bound = max(io / 3.35e12, ops) * 1e3
+                print(f"{name} {spec} [{N}, {A2}, {C}]: other {t[0]:.4f} / {t[3]:.4f} ms, this "
+                      f"{t[1]:.4f} / {t[2]:.4f} ms (this / other "
+                      f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}), bound {bound:.4f} ms "
+                      f"({'bytes' if io / 3.35e12 >= ops else 'operations'}), its six cuBLAS "
+                      f"products {lib_ms:.4f} ms; out's L2 from the plain version as a share of "
+                      f"its mixed-vs-f32 distance: other {dist[0]:.4f}, this {dist[1]:.4f}; max "
+                      f"|out - float64| other {err[0]:.3e}, this {err[1]:.3e}, plain "
+                      f"{err[2]:.3e}", flush=True)
+    return 0
+
+
 def _ffn_sites_main(other_spa: str) -> int:
     """`--ffn-sites` (the module docstring)."""
     import ctypes
@@ -505,6 +613,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ang-bf16", action="store_true",
                     help="K1's `_bf16` forms alone against the other ang_block.cu's (the one "
                          "path given)")
+    ap.add_argument("--ang-sites", action="store_true",
+                    help="K1's `_sites` forms alone against the other ang_block.cu's (the one "
+                         "path given)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_blocks: no CUDA device is available", file=sys.stderr)
@@ -515,6 +626,8 @@ def main(argv=None) -> int:
         return _ffn_sites_main(a.other_spa)
     if a.ang_bf16:
         return _ang_bf16_main(a.other_spa)
+    if a.ang_sites:
+        return _ang_sites_main(a.other_spa)
     if a.other_ang is None:
         ap.error("OTHER_ANG_BLOCK_CU is needed without --ffn-bf16 or --ffn-sites")
     from lft_torch.device import resolve_device

@@ -47,25 +47,16 @@
 //   IO, every product over bf16-rounded operands), have a kernel of their
 //   own: ang_bf16.cuh (resident bf16 weights, bf16 `wgmma`, the attention on
 //   `mma.sync`).
-// * SITES (`ang_block_sites`, `ang_block_res_sites`: `--dtype mixed` under
-//   an LFT_MM_HP_SITES subset; lft_tpu's kernel with mm_half and that
-//   plan, ang_block.py:113-149): IO = float and a runtime mask `sites`, a
-//   bit a site. Each product takes the BF path or stays 3xTF32 as its
-//   site's bit says (rowgemm.cuh: rg_product_site; a uniform branch), its
-//   weights split piece by piece to match: V, Q and K by `aqkv`, O by
-//   `awo`, the FFN by `affn`. The attention always takes lft_tpu's softmax,
-//   whose row max is the token's over its heads at every plan: a first pass
-//   over the (pixel, head, query) items writes each one's max to MH (4 KB
-//   past the ring), the second takes the token's max over its heads, then e
-//   = exp(s - m), l over the unrounded e and o over e, scores as (q . k)
-//   scale as lft_tpu orders them; q and k held rounded where `ascore`
-//   rounds, v and e where `aav` does, and the output (the residual attn too)
-//   where `awo` does. Bound: the products at the bf16 rate where their site
-//   rounds and 3xTF32 at the TF32 rate where it does not; the attention on
-//   the FP32 pipes (0.08 ms with the max pass at [16384, 25, 64]); x in and
-//   out f32, 0.063 ms of bytes there.
+// * The site-subset forms, `ang_block_sites` and `ang_block_res_sites`
+//   (`--dtype mixed` under an LFT_MM_HP_SITES subset that rounds some of
+//   K1's sites and not others: f32 IO and a runtime mask `sites`, a bit a
+//   site), have a kernel of their own too: ang_sites.cuh (the rounded
+//   products on resident bf16 weights, the f32 ones 3xTF32 on a stream of
+//   the others split, the attention on `mma.sync` in bf16 or 3xTF32 by
+//   site).
 
 #include "ang_bf16.cuh"
+#include "ang_sites.cuh"
 #include "attn.cuh"
 #include "rowbwd.cuh"
 
@@ -95,22 +86,18 @@ struct AngLayout {
 };
 
 // wf: the weight stream (AngLayout::FLOATS floats, kernels/rowgemm.py:
-// ang_block_stream), written by rg_weights_kernel. SITES
-// (`ang_block[_res]_sites`): each site rounds where its bit of `sites` is
-// set (the header). The all-bf16 forms have a kernel of their own
-// (ang_bf16.cuh).
-template <int C, int H, bool RES, bool SITES = false>
+// ang_block_stream), written by rg_weights_kernel. The all-bf16 and
+// site-subset forms have kernels of their own (ang_bf16.cuh, ang_sites.cuh).
+template <int C, int H, bool RES>
 __global__ void __launch_bounds__(RG_NT, 1)
     ang_block_kernel(const float* __restrict__ x, const float* __restrict__ pe,
                      const float* __restrict__ ln, const float* __restrict__ wf,
                      float* __restrict__ out, float* __restrict__ m_out,
                      float* __restrict__ l_out, float* __restrict__ attn_out, int N, int A2,
-                     float scale, int sites) {
+                     float scale) {
   using L = AngLayout<C>;
   constexpr int LD = L::LD, LDH = L::LDH, HC = L::HC, DH = C / H;
   extern __shared__ __align__(16) float smem[];
-  // whether site `bit` rounds its operands: the mask's bit (SITES)
-  auto rnd = [&](int bit) { return SITES && (sites & bit) != 0; };
   float* XQ = smem;             // x, then q, then x2
   float* XN = XQ + L::TILE;     // xn, then the attention output, then LN2(x2)
   float* K = XN + L::TILE;
@@ -166,27 +153,21 @@ __global__ void __launch_bounds__(RG_NT, 1)
 
     {  // v from the raw x, then q over x's rows, k from xn
       RgAcc<C> acc;
-      // SITES: v rounded where `aav` rounds, q and k where `ascore` does
-      auto put = [&](float* dst, bool r16) {
+      auto put = [&](float* dst) {
         rg_pairs<C>(acc, [&](int r, int c, float v0, float v1) {
-          if (SITES && r16) {
-            v0 = bf16_round(v0);
-            v1 = bf16_round(v1);
-          }
           *reinterpret_cast<float2*>(dst + (wr + r) * LD + c) = make_float2(v0, v1);
         });
       };
-      const bool r_qk = rnd(S_ASCORE), r_v = rnd(S_AAV), r_in = rnd(S_AQKV);
       rg_zero<C>(acc);
-      rg_product_site<C, C, L::OFF_V, false, SITES>(r_in, acc, XQ + wr * LD, LD, ring, st);
-      put(V, r_v);
+      rg_product<C, C, L::OFF_V>(acc, XQ + wr * LD, LD, ring, st);
+      put(V);
       rg_zero<C>(acc);
-      rg_product_site<C, C, L::OFF_Q, false, SITES>(r_in, acc, XN + wr * LD, LD, ring, st);
+      rg_product<C, C, L::OFF_Q>(acc, XN + wr * LD, LD, ring, st);
       __syncwarp();   // x is read
-      put(XQ, r_qk);
+      put(XQ);
       rg_zero<C>(acc);
-      rg_product_site<C, C, L::OFF_K, false, SITES>(r_in, acc, XN + wr * LD, LD, ring, st);
-      put(K, r_qk);
+      rg_product<C, C, L::OFF_K>(acc, XN + wr * LD, LD, ring, st);
+      put(K);
     }
     __syncthreads();
 
@@ -196,66 +177,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // rescale of the running sums a chunk (an online softmax over chunks).
     // The output overwrites xn, which is dead after the projections.
     constexpr int KB = 8;
-    if constexpr (SITES) {
-      // e rounded where `aav` rounds, the output where `awo` does
-      const bool r_e = rnd(S_AAV), r_o = rnd(S_AWO);
-      // lft_tpu's softmax (the header): pass 1, each item's max score
-      float* MH = V + L::TILE + L::NS * RG_SF;   // [RP][H]
-      for (int t = tid; t < np * H * A2; t += RG_NT) {
-        const int i = t % A2, hh = (t / A2) % H, p = t / (A2 * H);
-        const float* qr = XQ + (p * A2 + i) * LD + hh * DH;
-        const float* kp = K + p * A2 * LD + hh * DH;
-        float mx = -CUDART_INF_F;
-        for (int j = 0; j < A2; ++j) {
-          float s = 0.f;
-#pragma unroll
-          for (int d = 0; d < DH; ++d) s = fmaf(qr[d], kp[j * LD + d], s);
-          mx = fmaxf(mx, s * scale);
-        }
-        MH[(p * A2 + i) * H + hh] = mx;
-      }
-      __syncthreads();
-      // pass 2: m the token's max over its heads; l over e, o over bf16(e)
-      for (int t = tid; t < np * H * A2; t += RG_NT) {
-        const int i = t % A2, hh = (t / A2) % H, p = t / (A2 * H);
-        const float* qr = XQ + (p * A2 + i) * LD + hh * DH;
-        const float* kp = K + p * A2 * LD + hh * DH;
-        const float* vp = V + p * A2 * LD + hh * DH;
-        float m = MH[(p * A2 + i) * H];
-#pragma unroll
-        for (int g = 1; g < H; ++g) m = fmaxf(m, MH[(p * A2 + i) * H + g]);
-        float qv[DH], o[DH];
-#pragma unroll
-        for (int d = 0; d < DH; ++d) {
-          qv[d] = qr[d];
-          o[d] = 0.f;
-        }
-        float l = 0.f;
-        for (int j = 0; j < A2; ++j) {
-          float s = 0.f;
-#pragma unroll
-          for (int d = 0; d < DH; ++d) s = fmaf(qv[d], kp[j * LD + d], s);
-          const float e = expf(s * scale - m);
-          const float eb = r_e ? bf16_round(e) : e;
-          l += e;
-#pragma unroll
-          for (int d = 0; d < DH; ++d) o[d] = fmaf(eb, vp[j * LD + d], o[d]);
-        }
-        const float inv = 1.f / l;
-        float* ar = XN + (p * A2 + i) * LD + hh * DH;
-#pragma unroll
-        for (int d = 0; d < DH; ++d)
-          ar[d] = r_o ? bf16_round(o[d] * inv) : o[d] * inv;
-        if constexpr (RES) {  // the residuals of the backward
-          const size_t row = row0 + p * A2 + i;
-          m_out[row * H + hh] = m;
-          l_out[row * H + hh] = l;
-#pragma unroll
-          for (int d = 0; d < DH; ++d) st1(attn_out + row * C + hh * DH + d, ar[d]);
-        }
-      }
-    }
-    for (int t = tid; t < (SITES ? 0 : np * H * A2); t += RG_NT) {
+    for (int t = tid; t < np * H * A2; t += RG_NT) {
       const int i = t % A2, hh = (t / A2) % H, p = t / (A2 * H);
       const float* qr = XQ + (p * A2 + i) * LD + hh * DH;
       const float* kp = K + p * A2 * LD + hh * DH;
@@ -316,7 +238,7 @@ __global__ void __launch_bounds__(RG_NT, 1)
     // of the attention output
     RgAcc<C> x2;
     rg_zero<C>(x2);
-    rg_product_site<C, C, L::OFF_O, false, SITES>(rnd(S_AWO), x2, XN + wr * LD, LD, ring, st);
+    rg_product<C, C, L::OFF_O>(x2, XN + wr * LD, LD, ring, st);
     rg_pairs<C>(x2, [&](int r, int c, float& v0, float& v1) {
       if (wr + r < nrows) {
         const float2 xv = ldg2(x + (row0 + wr + r) * C + c);
@@ -339,15 +261,14 @@ __global__ void __launch_bounds__(RG_NT, 1)
       constexpr int off = L::OFF_F + decltype(J)::value * (L::W1 + L::W2);
       RgAcc<HC> hid;
       rg_zero<HC>(hid);
-      rg_product_site<C, HC, off, false, SITES>(rnd(S_AFFN), hid, XN + wr * LD, LD, ring, st);
+      rg_product<C, HC, off>(hid, XN + wr * LD, LD, ring, st);
       __syncwarp();   // the previous chunk's rows are read
       rg_pairs<HC>(hid, [&](int r, int c, float v0, float v1) {
         *reinterpret_cast<float2*>(HID + (wr + r) * LDH + c) =
             make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
       });
       __syncwarp();
-      rg_product_site<HC, C, off + L::W1, false, SITES>(rnd(S_AFFN), y, HID + wr * LDH, LDH,
-                                                        ring, st);
+      rg_product<HC, C, off + L::W1>(y, HID + wr * LDH, LDH, ring, st);
     });
     rg_pairs<C>(y, [&](int r, int c, float v0, float v1) {
       if (wr + r >= nrows) return;
@@ -358,18 +279,15 @@ __global__ void __launch_bounds__(RG_NT, 1)
   cp_async_wait<0>();
 }
 
-// SITES: the `_sites` instance, each weight piece split as its site's bit
-// of `sites` says.
-template <int C, bool RES, bool SITES = false>
+template <int C, bool RES>
 int launch(const float* x, const float* pe, const float* ln, const float* wq,
            const float* wk, const float* wv, const float* wo, const float* w1,
            const float* w2, float* wf, float* out, float* m, float* l, float* attn, int N,
-           int A2, float scale, cudaStream_t stream, int sites = 0) {
+           int A2, float scale, cudaStream_t stream) {
   using L = AngLayout<C>;
   constexpr int H = 8;
-  // SITES: the items' maxima MH past the ring
-  constexpr size_t BYTES = L::BYTES + (SITES ? static_cast<size_t>(RP) * H * 4 : 0);
-  static_assert(BYTES <= RG_SMEM_MAX, "the rows, the ring and MH must fit");
+  constexpr size_t BYTES = L::BYTES;
+  static_assert(BYTES <= RG_SMEM_MAX, "the rows and the ring must fit");
   RgPieces ps{};
   int n = 0;
   ps.p[n++] = RgPiece{wv, C, C, C, L::OFF_V};
@@ -380,15 +298,12 @@ int launch(const float* x, const float* pe, const float* ln, const float* wq,
     ps.p[n++] = RgPiece{w1 + j * L::HC, 2 * C, C, L::HC, L::OFF_F + j * (L::W1 + L::W2)};
     ps.p[n++] = RgPiece{w2 + j * L::HC * C, C, L::HC, C, L::OFF_F + j * (L::W1 + L::W2) + L::W1};
   }
-  if constexpr (SITES)   // Wv, Wq, Wk: aqkv; Wo: awo; the FFN's pieces: affn
-    for (int i = 0; i < n; ++i)
-      ps.p[i].bf = (sites & (i < 3 ? S_AQKV : i == 3 ? S_AWO : S_AFFN)) != 0;
-  launch_rg_weights(ps, n, wf, stream, false, SITES);
-  auto kernel = ang_block_kernel<C, H, RES, SITES>;
+  launch_rg_weights(ps, n, wf, stream);
+  auto kernel = ang_block_kernel<C, H, RES>;
   LFT_SET_SMEM(kernel, BYTES);
   const int P = RP / A2;
   kernel<<<rg_grid((N + P - 1) / P), RG_NT, BYTES, stream>>>(x, pe, ln, wf, out, m, l, attn, N,
-                                                              A2, scale, sites);
+                                                              A2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1026,28 +941,27 @@ extern "C" int lft_ang_block_fwd_res_bf16(const float* x, const float* pe, const
 #undef LFT_ANG_BF16
 
 // The site-subset instances (`--dtype mixed` under an LFT_MM_HP_SITES
-// subset; the K1 header): lft_ang_block_fwd's and lft_ang_block_fwd_res's
-// arguments and `sites`, the mask of the sites whose operands round
-// (tf32.cuh: S_AQKV .. S_AFFN); wf holds each weight split as its site's
-// products read it. m, l and attn as `_res_bf16`'s, attn rounded where
-// `awo` rounds.
+// subset; the K1 header, their kernel: ang_sites.cuh): lft_ang_block_fwd's
+// and lft_ang_block_fwd_res's arguments and `sites`, the mask of the sites
+// whose operands round (tf32.cuh: S_AQKV .. S_AFFN), some of K1's five and
+// not all; wf a scratch of AngSites<C>::FLOATS floats (kernels/rowgemm.py:
+// ang_sites_floats) for the weights rounded or split as their sites say. m,
+// l and attn as `_res_bf16`'s, attn rounded where `awo` rounds.
+#define LFT_ANG_SITES(RES, ...)                                                            \
+  if (H != 8 || A2 < 1 || A2 > RP || N < 1) return static_cast<int>(cudaErrorInvalidValue); \
+  const auto s = static_cast<cudaStream_t>(stream);                                        \
+  LFT_DISPATCH_C(C, {                                                                      \
+    return launch_ang_sites<CC, RES>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out,           \
+                                     __VA_ARGS__, N, A2, scale, sites, s);                 \
+  });                                                                                      \
+  return static_cast<int>(cudaErrorInvalidValue);
+
 extern "C" int lft_ang_block_fwd_sites(const float* x, const float* pe, const float* ln,
                                        const float* wq, const float* wk, const float* wv,
                                        const float* wo, const float* w1, const float* w2,
                                        float* wf, float* out, int N, int A2, int C, int H,
                                        float scale, int sites, void* stream) {
-  if (H != 8 || A2 < 1 || A2 > RP || N < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-#define LFT_CASE(CV)                                                                      \
-    case CV: return launch<CV, false, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out,     \
-                                            nullptr, nullptr, nullptr, N, A2, scale, s,    \
-                                            sites);
-    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
-#undef LFT_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  LFT_ANG_SITES(false, nullptr, nullptr, nullptr)
 }
 
 extern "C" int lft_ang_block_fwd_res_sites(const float* x, const float* pe, const float* ln,
@@ -1056,18 +970,9 @@ extern "C" int lft_ang_block_fwd_res_sites(const float* x, const float* pe, cons
                                            float* wf, float* out, float* m, float* l,
                                            float* attn, int N, int A2, int C, int H,
                                            float scale, int sites, void* stream) {
-  if (H != 8 || A2 < 1 || A2 > RP || N < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-#define LFT_CASE(CV)                                                                     \
-    case CV: return launch<CV, true, true>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out, m, l, \
-                                           attn, N, A2, scale, s, sites);
-    LFT_CASE(16) LFT_CASE(32) LFT_CASE(64)
-#undef LFT_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  LFT_ANG_SITES(true, m, l, attn)
 }
+#undef LFT_ANG_SITES
 
 extern "C" int lft_ang_block_fwd_res(const float* x, const float* pe, const float* ln,
                                      const float* wq, const float* wk, const float* wv,

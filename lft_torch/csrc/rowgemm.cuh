@@ -344,6 +344,70 @@ struct MbarRing {
   }
 };
 
+// MbarRing with its slot count set at run time (`start`'s ns, at least 3):
+// K1 `_sites` (ang_sites.cuh), whose shared memory depends on its mask. The
+// same protocol, the slot arithmetic on a run-time count, and thread 0
+// issues every stage whose slot both warpgroups have released rather than
+// PD ahead of the one entered: that kernel enters a product's stages
+// together before its first `wgmma`, so with PD ahead a product's last
+// stage was issued only as the product began.
+template <>
+struct MbarRing<0> {
+  static constexpr int SF = RG_SF;
+  float* slot;
+  uint64_t *full, *empty;
+  const float* wf;
+  int total, spt, last, s, issued;
+  int ns;   // slots
+
+  __device__ __forceinline__ void issue(int t) {
+    const int i = t % ns, off = (t % spt) * RG_SF;
+    const int n = total - off < RG_SF ? total - off : RG_SF;
+    mbar_expect_tx(full + i, 4u * n);
+    bulk_g2s(slot + i * RG_SF, wf + off, 4u * n, full + i);
+  }
+  __device__ __forceinline__ void fill(int need) {
+    while (issued < last) {
+      if (issued >= ns) {
+        const uint32_t parity = ((issued / ns) - 1) & 1;
+        if (issued <= need)
+          mbar_wait(empty + issued % ns, parity);
+        else if (!mbar_test(empty + issued % ns, parity))
+          break;
+      }
+      issue(issued++);
+    }
+  }
+  __device__ __forceinline__ void start(float* slots, uint64_t* bars, const float* stream,
+                                        int floats, int tiles, int slots_n) {
+    ns = slots_n;
+    slot = slots;
+    full = bars;
+    empty = bars + ns;
+    wf = stream;
+    total = floats;
+    spt = (floats + RG_SF - 1) / RG_SF;
+    last = tiles * spt;
+    s = 0;
+    issued = 0;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < ns; ++i) {
+        mbar_init(full + i, 1);
+        mbar_init(empty + i, 2);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) fill(-1);
+  }
+  __device__ __forceinline__ const float* enter() {
+    if (s >= 2 && (threadIdx.x & 127) == 0) mbar_arrive(empty + (s - 2) % ns);
+    if (threadIdx.x == 0) fill(s);
+    mbar_wait(full + s % ns, (s / ns) & 1);
+    return slot + (s++ % ns) * RG_SF;
+  }
+};
+
 // A weight held whole in shared memory for a pass over the tiles: one
 // stage as large as any stream, entered once, where the stream starts.
 struct ResidentWeights {
@@ -383,6 +447,55 @@ __device__ __forceinline__ void rg_pairs(RgAcc<N>& acc, F f) {
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         f(g + 8 * h, p * P::NW + 8 * j + 2 * q, acc[p][4 * j + 2 * h], acc[p][4 * j + 2 * h + 1]);
+}
+
+// The warp's rows g and g + 8 of acc into rows r[0] and r[1] of dst (N
+// values a row, IO type; a row < 0 is not stored), 16 bytes a lane: the
+// quad's pairs moved across its lanes first (bf16: a lane stores the eight
+// columns of one 8-column group, f32: four of them), so that a warp's store
+// fills whole 32-byte sectors where a pair a lane filled half of one.
+template <int N, class IO>
+__device__ __forceinline__ void rg_store_rows16(IO* __restrict__ dst, const RgAcc<N>& acc,
+                                                const long long (&r)[2]) {
+  using P = RgParts<N>;
+  constexpr int NJ = N / 8, JP = P::NW / 8;
+  static_assert(NJ % (is_bf16<IO> ? 4 : 2) == 0, "whole groups of 8-column groups");
+  const int q = threadIdx.x & 3;
+  auto val = [&](int j, int e, int i) { return acc[j / JP][4 * (j % JP) + 2 * e + i]; };
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    IO* row = dst + r[e] * N;
+    if constexpr (is_bf16<IO>) {
+      auto pick = [](const uint32_t (&m)[4], int i) {
+        return i == 0 ? m[0] : i == 1 ? m[1] : i == 2 ? m[2] : m[3];
+      };
+#pragma unroll
+      for (int jb = 0; jb < NJ / 4; ++jb) {
+        uint32_t m[4], x[4];   // m[k]: this lane's pair of group 4 jb + k
+#pragma unroll
+        for (int k = 0; k < 4; ++k) m[k] = narrow2(val(4 * jb + k, e, 0), val(4 * jb + k, e, 1));
+#pragma unroll
+        for (int d = 0; d < 4; ++d)   // x[d]: lane q ^ d's pair of group 4 jb + q
+          x[d] = d ? __shfl_xor_sync(0xffffffffu, pick(m, q ^ d), d) : pick(m, q);
+        if (r[e] >= 0)
+          *reinterpret_cast<uint4*>(row + 8 * (4 * jb + q)) =
+              make_uint4(pick(x, q), pick(x, q ^ 1), pick(x, q ^ 2), pick(x, q ^ 3));
+      }
+    } else {
+      const bool odd = q & 1;
+#pragma unroll
+      for (int j = 0; j < NJ; j += 2) {   // even lanes group j, odd ones group j + 1
+        const float2 a = make_float2(val(j, e, 0), val(j, e, 1));
+        const float2 b = make_float2(val(j + 1, e, 0), val(j + 1, e, 1));
+        const float2 send = odd ? a : b;
+        const float2 got = make_float2(__shfl_xor_sync(0xffffffffu, send.x, 1),
+                                       __shfl_xor_sync(0xffffffffu, send.y, 1));
+        if (r[e] >= 0)
+          *reinterpret_cast<float4*>(row + (odd ? 8 * (j + 1) + 2 * (q - 1) : 8 * j + 2 * q)) =
+              odd ? make_float4(got.x, got.y, b.x, b.y) : make_float4(a.x, a.y, got.x, got.y);
+      }
+    }
+  }
 }
 
 // LayerNorm (torch's: biased variance, eps 1e-5, affine w, b), in place,

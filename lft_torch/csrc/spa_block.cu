@@ -58,7 +58,8 @@
 // products summed in f32), and the epilogues round what they store: K2.2
 // q, k, v; K2.4 x2 = bf16(bf16(attn Wo) + tok) and xn2 = bf16(LN2(x2));
 // K2.5 hid = bf16(relu(xn2 W1)), y = bf16(bf16(hid W2) + x2) and out =
-// bf16(y Wlin). K2.1: tokenize.cuh; K2.3: window_mma.cuh; K2.5 (and K11.5)
+// bf16(y Wlin). K2.1 (and K11.1): tok_bf16.cuh, resident bf16 taps, bf16
+// `wgmma` on a bf16 band by ldmatrix; K2.3: window_mma.cuh; K2.5 (and K11.5)
 // the `_bf16` instance's kernel with bf16 rows as they lie, resident bf16
 // weights and bf16 `wgmma` (ffn_bf16.cuh). With half
 // the bytes, every step is bound by its bytes (the bounds at each). K11's
@@ -72,9 +73,9 @@
 // operands round: tok, xn, x2 = attn Wo + tok, LN2, y = hid W2 + x2 and the
 // output stay f32, as in the plain version; K2.3 takes lft_tpu's softmax
 // (window_attn.cuh). The bytes are K2's f32 ones and the products run at the
-// bf16 rate, so steps 1 and 5 become bound by bytes too. Step 5's instance,
-// and K11.5's, keep their bf16 weights resident and run bf16 `wgmma`
-// (ffn_bf16.cuh).
+// bf16 rate, so steps 1 and 5 become bound by bytes too. Steps 1 and 5, and
+// K11's, keep their bf16 weights resident and run bf16 `wgmma` (tok_bf16.cuh,
+// ffn_bf16.cuh).
 //
 // `--dtype mixed` under an LFT_MM_HP_SITES subset (lft_tpu's K2 with that
 // plan, spa_block.py:131-203): a step whose sites all round takes its
@@ -92,6 +93,7 @@
 #include "ffn_sites.cuh"
 #include "rowgemm.cuh"
 #include "spa.cuh"
+#include "tok_bf16.cuh"
 #include "tokenize.cuh"
 #include "window_attn.cuh"
 
@@ -100,7 +102,8 @@ using namespace lft;
 namespace {
 
 // ---- 1: tokenisation (9 shifted C -> D taps) + PE + LN1 -----------------
-// tap_conv_kernel<C, 2C, PM, true> (tokenize.cuh).
+// tap_conv_kernel<C, 2C, PM, true> (tokenize.cuh); the bf16 forms
+// tok_bf16_kernel<C, PM, IO> (tok_bf16.cuh).
 
 // ---- 2 and 4: token rows times one resident D x D weight --------------
 // Steps 2 and 4 run their products 3xTF32 on the tensor cores (rowgemm.cuh)
@@ -500,14 +503,18 @@ LFT_EXPORT_ERROR_STRING
 
 namespace {
 
-// BF: the band and the taps rounded to bf16 (tokenize.cuh); set by IO = bf16.
+// BF: the band and the taps rounded to bf16, tok_bf16.cuh's kernel (tiles
+// of kernels/spa_block.py:tok_bf16_tile); set by IO = bf16.
 template <bool PM, class IO = float, bool BF = is_bf16<IO>>
 int tokenize_ln(const IO* x, const IO* pe_tok, const float* wu, float* wf, const float* ln,
                 IO* tok, IO* xn, int V, int h, int w, int A2, int C, int r, int cw,
                 cudaStream_t s) {
   LFT_DISPATCH_C(C, {
-    return launch_tap_conv<CC, 2 * CC, PM, true, false, BF, IO>(
-        x, wu, wf, pe_tok, ln, tok, xn, V, h, w, A2, r, cw, s);
+    if constexpr (BF)
+      return launch_tok_bf16<CC, PM, IO>(x, wu, wf, pe_tok, ln, tok, xn, V, h, w, A2, r, cw, s);
+    else
+      return launch_tap_conv<CC, 2 * CC, PM, true, false>(x, wu, wf, pe_tok, ln, tok, xn, V, h,
+                                                         w, A2, r, cw, s);
   });
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -548,7 +555,8 @@ extern "C" int lft_spa_tokenize_ln(const float* x, const float* pe_tok, const fl
 }
 
 // Step 1's bf16-IO instance: x, pe_tok, tok, xn bf16; wu and ln f32 (wu's
-// bf16 values, split into their bf16 parts).
+// bf16 values); wf a scratch of 9 C D bf16 values (kernels/spa_block.py:
+// tok_bf16_floats floats); tiles of kernels/spa_block.py:tok_bf16_tile.
 extern "C" int lft_spa_tokenize_ln_bf16io(const bf16* x, const bf16* pe_tok, const float* wu,
                                           float* wf, const float* ln, bf16* tok, bf16* xn,
                                           int V, int h, int w, int C, int r, int cw,
@@ -557,9 +565,9 @@ extern "C" int lft_spa_tokenize_ln_bf16io(const bf16* x, const bf16* pe_tok, con
                                   static_cast<cudaStream_t>(stream));
 }
 
-// Step 1's bf16-operand instance (`--dtype mixed` serving under
-// LFT_MM_HP_SITES=none): lft_spa_tokenize_ln's arguments; x and wu rounded to
-// bf16 in the product (wf holding wu's bf16 parts), tok and xn f32.
+// Step 1's bf16-operand instance (`--dtype mixed` where `tok` rounds):
+// lft_spa_tokenize_ln_bf16io's arguments with x, pe_tok, tok and xn f32; x
+// and wu rounded to bf16 in the product.
 extern "C" int lft_spa_tokenize_ln_bf16(const float* x, const float* pe_tok, const float* wu,
                                         float* wf, const float* ln, float* tok, float* xn, int V,
                                         int h, int w, int C, int r, int cw, void* stream) {

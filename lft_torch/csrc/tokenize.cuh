@@ -62,14 +62,12 @@
 //   rounded to bf16 (the taps by `tap_weights_kernel<BWD, true>` into the hi
 //   part of the same layout, lo 0), one TF32 `wgmma` a k8 step instead of
 //   three, the same chains and f32 accumulation (tf32.cuh).
-// * IO = bf16 (K2.1 `spa_tokenize_ln_bf16io`, `--dtype bfloat16`, with BF;
-//   lft_tpu's io = bf16, spa_block.py:128-142): x and pe_tok bf16, tok and
-//   xn stored bf16. The band stays f32 in shared memory, written by the
-//   threads from 8-byte loads widened to f32 (cp.async copies bytes, and an
-//   f32 band keeps the fragment loads and their banks as they are); the
-//   epilogue stores tok = bf16(tok_f) and takes LN1 from the unrounded sums,
-//   xn = bf16(LN1(tok_f + pe_tok)). Bound at [400, 32, 32, 64]: 57.9 GFLOP
-//   at the bf16 rate 0.059 ms, x, pe_tok, tok, xn 263 MB 0.078 ms: bytes.
+// * IO = bf16 (K3.e `spa_tokenize_bwd_bf16io`, `--dtype bfloat16` training,
+//   with BF): dtok and dx bf16. The band stays f32 in shared memory, written
+//   by the threads from 8-byte loads widened to f32 (cp.async copies bytes,
+//   and an f32 band keeps the fragment loads and their banks as they are);
+//   dx is rounded as it is stored. The forward's bf16 forms (K2.1 and K11.1
+//   `_bf16io` and `_bf16`) have a kernel of their own: tok_bf16.cuh.
 #pragma once
 
 #include "spa.cuh"
@@ -135,17 +133,19 @@ __global__ void __launch_bounds__(256)
   wf[at + 2 * 4 * N] = __uint_as_float(lo & 0xffffe000u);   // the next part: 2 x N/8 x 32
 }
 
-// LN: out = tok, xn = LN1(tok + pe_tok) with ln = (LN1 w, b); else out only.
-// PM: in is pixel-major [V / A2, h, w, A2, CIN]; out and xn stay view-major.
-// wf: [9, CIN / 8, 2 (hi, lo), 2, COUT / 8, 8, 4] (kernels/spa_block.py:
-// tap_weights). BF: the band rounded to bf16 as it loads, one product a k8
-// step over the taps' bf16 part.
+// LN (the f32 forward, K2.1 and K11.1): out = tok, xn = LN1(tok + pe_tok)
+// with ln = (LN1 w, b); else out only (K3.e). PM: in is pixel-major [V / A2,
+// h, w, A2, CIN]; out and xn stay view-major. wf: [9, CIN / 8, 2 (hi, lo),
+// 2, COUT / 8, 8, 4] (kernels/spa_block.py: tap_weights). BF (K3.e's
+// bf16-operand and bf16-IO instances): the band rounded to bf16 as it loads,
+// one product a k8 step over the taps' bf16 part.
 template <int CIN, int COUT, bool PM, bool LN, bool BF = false, class IO = float>
 __global__ void __launch_bounds__(TOK_NT, 1)
     tap_conv_kernel(const IO* __restrict__ in, const float* __restrict__ wf,
                     const IO* __restrict__ pe_tok, const float* __restrict__ ln,
                     IO* __restrict__ out, IO* __restrict__ xn, int h, int w, int A2,
                     int r, int cw) {
+  static_assert(!LN || (!BF && !is_bf16<IO>), "the bf16 forwards run tok_bf16.cuh");
   using G = TapConv<CIN, COUT>;
   constexpr int LDA = G::LDA, R = G::R;
   extern __shared__ __align__(16) float smem[];

@@ -37,7 +37,8 @@ as in bf16 IO) and, training, `ang_block_res_bf16` (the same out; m the
 token's max over its heads, l, attn f32 of bf16 values as lft_tpu stores
 it), then K4 under the backward's own plan; under a site subset that rounds
 some of K1's sites and not others, `ang_block[_res]_sites` (each product
-BF or 3xTF32 as its site's bit of a runtime mask says, lft_tpu's softmax);
+bf16 or 3xTF32 as its site's bit of a runtime mask says, lft_tpu's
+softmax; `csrc/ang_sites.cuh`);
 likewise a backward subset that rounds some of K4's sites and not others
 `ang_block_bwd[128]_sites`, and one that keeps them all f32 after a
 forward that rounded `ang_block_bwd[128]_dp` (`common.card_bwd`).
@@ -59,7 +60,8 @@ import torch
 from lft_torch.kernels import _build
 from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_bwd, fwd_kernel,
                                       io_kernel, no_plan, rd, rounds, site_mask)
-from lft_torch.kernels.rowgemm import RG_M, ang_bf16_floats, ang_block_floats, ang_bwd_floats
+from lft_torch.kernels.rowgemm import (RG_M, ang_bf16_floats, ang_block_floats, ang_bwd_floats,
+                                      ang_sites_floats)
 from lft_torch.kernels.wgrad import colsum, colsum_plain, wgrad, wgrad_plain
 from lft_torch.ops.attention import attention_heads
 
@@ -271,7 +273,10 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
     `ang_block_res_bf16io` (m, l f32, attn bf16). These four all-bf16 forms
     run one kernel (`csrc/ang_bf16.cuh`: bf16 `wgmma` on the weights rounded
     into `rowgemm.ang_bf16_stream`'s layout and held whole in shared memory,
-    the attention on bf16 `mma.sync`)."""
+    the attention on bf16 `mma.sync`); the `_sites` forms a kernel of their
+    own (`csrc/ang_sites.cuh`: that design's bf16 products where their site
+    rounds, 3xTF32 on the others split and streamed,
+    `rowgemm.ang_sites_stream`; the attention bf16 or 3xTF32 by site)."""
     if x.device.type != "cuda":
         return ang_block_plain(x, ang_pe, wts, num_heads, with_res, plan)
     base = "ang_block_res" if with_res else "ang_block"
@@ -287,8 +292,10 @@ def ang_block(x: torch.Tensor, ang_pe: torch.Tensor, wts: dict,
         _build.check_cuda_args(name, x, ang_pe, *(w[n] for n in WEIGHTS))
     out = torch.empty_like(x)
     # scratch: the weights as the launch's first kernel prepares them (the
-    # all-bf16 forms' bf16 copy, the others' split stream)
+    # all-bf16 forms' bf16 copy, the `_sites` forms' bf16 copy and split
+    # stream, the f32 forms' split stream)
     wf = torch.empty(ang_bf16_floats(C) if name.endswith(("_bf16io", "_bf16"))
+                     else ang_sites_floats(C) if name.endswith("_sites")
                      else ang_block_floats(C), device=x.device)
     ptrs = [x.data_ptr(), ang_pe.data_ptr(), *(w[n].data_ptr() for n in WEIGHTS),
             wf.data_ptr(), out.data_ptr()]

@@ -28,14 +28,20 @@ in `bf16_piece`'s layout and the f32 ones split, Wlin's rows in
 (`FfnSites`). K2.5's `_bf16io` instances run the `_bf16` kernel on bf16 rows
 (`ffn_out_bf16io_smem`). K1's all-bf16 forms (`csrc/ang_bf16.cuh`) hold
 their six weights rounded to bf16 in `bf16_piece`'s layout
-(`ang_bf16_stream`, `ang_bf16_floats`, `ang_bf16_smem`: `AngBf16`). A
-backward's transposed weights are split straight from the forward's
-(`RgPiece::tr`): no transposed copy is made.
+(`ang_bf16_stream`, `ang_bf16_floats`, `ang_bf16_smem`: `AngBf16`); K1's
+`_sites` forms (`csrc/ang_sites.cuh`) hold the weights of the sites that
+round likewise and stream the others split, their layout and shared memory
+placed from the mask (`ang_sites_plan`, `ang_sites_stream`,
+`ang_sites_floats`: `AngSites`, `AngSitesPlan`). A backward's transposed
+weights are split straight from the forward's (`RgPiece::tr`): no
+transposed copy is made.
 """
 
 from __future__ import annotations
 
 import torch
+
+from lft_torch.kernels.common import SITE_BITS
 
 RG_M = 128             # token rows of a block: 2 warpgroups of 64
 RG_SF = 4096           # floats of a weight-ring stage (16 KB)
@@ -286,6 +292,113 @@ def ang_bf16_stream(wts: dict) -> torch.Tensor:
     return torch.cat([bf16_piece(wts[n].float()) for n in ANG_BF16_ORDER])
 
 
+# K1's weights in the order of `ang_sites.cuh` (bf16 offsets and stream
+# pieces alike) and the site of each
+ANG_SITES_ORDER = (("wv", "aqkv"), ("wq", "aqkv"), ("wk", "aqkv"), ("wo", "awo"),
+                   ("w1", "affn"), ("w2", "affn"))
+
+
+def ang_sites_plan(C: int, mask: int) -> dict:
+    """The layout of a K1 `_sites` launch under `mask` (common.site_mask's
+    bits), as `ang_sites.cuh:ang_sites_plan` computes it: `bw` the bf16
+    offsets of Wv, Wq, Wk, Wo, W1, W2 where their site rounds (compacted, -1
+    where f32); `sw` the stream offsets (floats, each a multiple of 32
+    max(C, hc)) of Wv, Wq, Wk, Wo and the FFN's first hidden chunk where f32
+    (-1 where rounded), `stream` its floats; of it the groups Wv-Wk, Wo and
+    the FFN held resident in that order while they fit beside the rows
+    (with three ring slots left where a group still streams): `res` floats,
+    the ring's part from `rb`; the byte offsets in shared memory of the
+    resident split weights (`rbase`, past the bf16 ones), of the rows past
+    all resident weights (`wbytes`): q, k, v (144 rows: bf16 at C + 8
+    values where `ascore` / `aav` round, f32 at C + 4 floats where not), a
+    hidden chunk's rows (`hid`, where `affn` is f32: over k's, and LN2(x2)'s
+    rows over q's, where q and k are f32 at the chunk's row stride, `rows`;
+    else over k and v, `hid_kv`), the attention
+    output (`ao`: over q where its format, bf16 where `awo` rounds, is
+    q's), pass 1's maxima (`mh`), the ring (`ring`, `ns` slots of 16 KB
+    with two mbarriers each, up to 8, none where nothing streams) and the
+    block's `bytes`."""
+    sq, hc = C * C, hidden_chunk(C)
+    nh = 2 * C // hc
+    align = 32 * max(C, hc)
+    up = lambda v, a: -(-v // a) * a
+    rounds = lambda site: bool(mask & SITE_BITS[site])
+    bw, b = [], 0
+    for (n, site), e in zip(ANG_SITES_ORDER, (sq, sq, sq, sq, 2 * sq, 2 * sq)):
+        bw.append(b if rounds(site) else -1)
+        b += e if rounds(site) else 0
+    sw, end, s = [], [], 0
+    for i, (n, site) in enumerate(ANG_SITES_ORDER[:5]):
+        if rounds(site):
+            sw.append(-1)
+        else:
+            sw.append(up(s, align))
+            s = sw[-1] + (2 * sq if i < 4 else nh * 4 * C * hc)
+        end.append(s)
+    rows, r16, r32 = RG_M + 16, (C + 8) * 2, (C + 4) * 4
+    qb, vb, ob = rounds("ascore"), rounds("aav"), rounds("awo")
+    qbytes, vbytes = rows * (r16 if qb else r32), rows * (r16 if vb else r32)
+    rows_ = not rounds("affn") and not qb and C + 4 == hc + 4
+    hid_kv = not rounds("affn") and not rows_
+    kv = max(qbytes + vbytes, RG_M * (hc + 4) * 4 if hid_kv else 0)
+    tiles = up(qbytes + kv + (RG_M * (r16 if ob else r32) if qb != ob else 0)
+               + rows * (C // 16) * 4, 16)
+    slot = RG_SF * 4 + 16
+    p = dict(bw=bw, sw=sw, stream=s, rbase=up(2 * b, 16), res=0, hid_kv=hid_kv, rows=rows_)
+    prev = 0
+    for g_end in (end[2], end[3], end[4]):   # Wv-Wk, Wo, the FFN
+        if g_end == prev:
+            continue
+        prev = g_end
+        if p["rbase"] + 4 * g_end + tiles + (3 * slot if g_end < s else 0) > RG_SMEM_MAX:
+            break
+        p["res"] = g_end
+    p["rb"] = up(p["res"], align)
+    p["wbytes"] = p["rbase"] + 4 * p["res"]
+    p["q"] = p["wbytes"]
+    p["k"] = p["q"] + qbytes
+    p["v"] = p["k"] + qbytes
+    p["hid"] = p["k"]
+    o = p["k"] + kv
+    p["ao"] = p["q"] if qb == ob else o
+    if qb != ob:
+        o += RG_M * (r16 if ob else r32)
+    p["mh"] = o
+    p["ring"] = up(o + rows * (C // 16) * 4, 16)
+    p["ns"] = 0 if s == p["res"] else min(8, (RG_SMEM_MAX - p["ring"]) // slot)
+    p["bytes"] = p["ring"] + p["ns"] * slot
+    return p
+
+
+def ang_sites_stream(wts: dict, mask: int):
+    """Plain version of the weight preparation of K1's `_sites` forms
+    (`ang_sites_weights_kernel`): (the weights of the sites that round, each
+    a `bf16_piece`, compacted in ANG_SITES_ORDER; the stream of the others
+    split, as f32 values at `ang_sites_plan`'s offsets, zero in the gaps):
+    Wv, Wq, Wk and, but where the plan's `rows` (A from LN2(x2)'s rows),
+    W1[:, chunk] (A from accumulators) as `sites_piece`s, Wo and W2[chunk, :]
+    as `piece`s."""
+    C = wts["wq"].shape[0]
+    hc = hidden_chunk(C)
+    p = ang_sites_plan(C, mask)
+    rounds = lambda site: bool(mask & SITE_BITS[site])
+    bf = [bf16_piece(wts[n].float()) for n, site in ANG_SITES_ORDER if rounds(site)]
+    out = torch.zeros(p["stream"])
+    for i, (n, site) in enumerate(ANG_SITES_ORDER[:4]):
+        if not rounds(site):
+            f = piece(wts[n].float()) if n == "wo" else sites_piece(wts[n].float())
+            out[p["sw"][i]:p["sw"][i] + f.numel()] = f
+    if not rounds("affn"):
+        at = p["sw"][4]
+        for j in range(0, 2 * C, hc):
+            w1 = wts["w1"][:, j:j + hc].float()
+            for f in ((piece if p["rows"] else sites_piece)(w1),
+                      piece(wts["w2"][j:j + hc].float())):
+                out[at:at + f.numel()] = f
+                at += f.numel()
+    return (torch.cat(bf) if bf else torch.zeros(0, dtype=torch.bfloat16)), out
+
+
 def outproj_floats(C: int) -> int:
     """Floats of one D x D weight split (RowProj<C>::SQ): K2.4's Wo, and
     each of K2.2's three."""
@@ -332,6 +445,14 @@ def ang_bf16_floats(C: int) -> int:
     """f32 words of the scratch of K1's all-bf16 forms: AngBf16<C>::ELEMS =
     8 C^2 bf16 values, two a word."""
     return 4 * C * C
+
+
+def ang_sites_floats(C: int) -> int:
+    """f32 words of the scratch of K1's `_sites` forms (AngSites<C>::FLOATS):
+    the rounded weights (at most 8 C^2 bf16 values), then the stream of the
+    others split (at most 16 C^2 floats and the gaps that align its
+    pieces)."""
+    return 4 * C * C + 16 * C * C + 6 * 32 * max(C, hidden_chunk(C))
 
 
 def ang_bwd_tok_floats(C: int) -> int:

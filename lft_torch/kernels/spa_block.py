@@ -94,9 +94,9 @@ from lft_torch.kernels import _build
 from lft_torch.kernels.ang_block import _needs_grad, ln_bwd, ln_stats
 from lft_torch.kernels.common import (KERNEL_C, active, bf16_round, card_bwd, fwd_kernel,
                                       mm_site_plan, no_plan, rd, rounds, site_mask)
-from lft_torch.kernels.rowgemm import (RG_M, ffn_out_bf16_floats, ffn_out_bwd_floats,
-                                       ffn_out_floats, outproj_floats, piece, qkv_floats,
-                                       qkv_ln_bwd_floats, split_tf32)
+from lft_torch.kernels.rowgemm import (RG_M, bf16_piece, ffn_out_bf16_floats,
+                                       ffn_out_bwd_floats, ffn_out_floats, outproj_floats, piece,
+                                       qkv_floats, qkv_ln_bwd_floats, split_tf32)
 from lft_torch.kernels.spa_attn_hp import (_gather_window, _hp_geometry_exists,
                                            _scatter_window, _window_probs, _window_valid,
                                            spa_attn_hp_bwd)
@@ -446,18 +446,14 @@ def tok_smem(r: int, cw: int, cin: int, cout: int, ln: bool) -> int:
     return max(main, TOK_M * (cout + 8) * 4 if ln else 0)
 
 
-@functools.lru_cache(maxsize=None)
-def tok_tile(h: int, w: int, C: int):
-    """(r, cw): the rectangle of r image rows x cw columns of one view that
-    a block of the tokenization and of its transpose takes (r cw <= 128
-    tokens), such that both fit in shared memory: the fewest blocks, then
-    the smallest band, then the widest rectangle. A function of the shapes
-    only."""
+def _best_tile(h: int, w: int, fits, what: str):
+    """The (r, cw) of r <= h rows x cw <= w columns, r cw <= 128, for which
+    `fits(r, cw)`: the fewest tiles of the view, then the smallest band,
+    then the widest rectangle."""
     best = None
     for cw in range(1, min(w, TOK_M) + 1):
         r = min(h, TOK_M // cw)
-        while r >= 1 and max(tok_smem(r, cw, C, 2 * C, True),
-                             tok_smem(r, cw, 2 * C, C, False)) > TOK_SMEM_MAX:
+        while r >= 1 and not fits(r, cw):
             r -= 1
         if r < 1:
             continue
@@ -465,8 +461,42 @@ def tok_tile(h: int, w: int, C: int):
         if best is None or key < best[0]:
             best = (key, (r, cw))
     if best is None:
-        raise ValueError(f"no tokenization tile fits an {h}x{w} view at C={C}")
+        raise ValueError(f"no {what} tile fits an {h}x{w} view")
     return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def tok_tile(h: int, w: int, C: int):
+    """(r, cw): the rectangle of r image rows x cw columns of one view that
+    a block of the tokenization and of its transpose takes (r cw <= 128
+    tokens), such that both fit in shared memory: the fewest blocks, then
+    the smallest band, then the widest rectangle. A function of the shapes
+    only."""
+    return _best_tile(h, w, lambda r, cw: max(tok_smem(r, cw, C, 2 * C, True),
+                                              tok_smem(r, cw, 2 * C, C, False)) <= TOK_SMEM_MAX,
+                      f"tokenization (C={C})")
+
+
+def tok_bf16_smem(r: int, cw: int, C: int) -> int:
+    """Shared memory bytes of a block of K2.1's bf16 forms (tok_bf16.cuh:
+    TokBf16::bytes): the taps in bf16, 9 C 2C values, and two bands of (r +
+    2) x (cw + 2) pixels at a row stride of C + 8 bf16 values."""
+    return 2 * 9 * C * 2 * C + 2 * (r + 2) * (cw + 2) * (C + 8) * 2
+
+
+@functools.lru_cache(maxsize=None)
+def tok_bf16_tile(h: int, w: int, C: int):
+    """(r, cw) of the tiles of K2.1's and K11.1's bf16 forms, chosen as
+    `tok_tile` chooses, where their shared memory fits (the launch's check).
+    A function of the shapes only."""
+    return _best_tile(h, w, lambda r, cw: tok_bf16_smem(r, cw, C) <= TOK_SMEM_MAX,
+                      f"bf16 tokenization (C={C})")
+
+
+def tok_bf16_floats(C: int) -> int:
+    """f32 words of the scratch of K2.1's bf16 forms: TokBf16<C>::ELEMS = 9
+    C 2C bf16 values, two a word."""
+    return 9 * C * C
 
 
 def tap_weights(wu: torch.Tensor, backward: bool = False) -> torch.Tensor:
@@ -482,6 +512,13 @@ def tap_weights(wu: torch.Tensor, backward: bool = False) -> torch.Tensor:
     B = wu.flip(0).transpose(1, 2) if backward else wu
     K, N = B.shape[1:]
     return torch.stack([piece(b, split_tf32) for b in B]).reshape(9, K // 8, 2, 2, N // 8, 8, 4)
+
+
+def tap_weights_bf16(wu: torch.Tensor) -> torch.Tensor:
+    """Plain version of the weight preparation of K2.1's bf16 forms
+    (tok_bf16.cuh: tok_bf16_weights_kernel): wu [9, C, D] rounded to bf16,
+    each tap a `rowgemm.bf16_piece` ([C / 16, 2, D / 8, 8, 8]), flat."""
+    return torch.cat([bf16_piece(t.float()) for t in wu])
 
 
 # ------------------------------------------------------ kernel wrappers ---
@@ -530,10 +567,13 @@ def tokenize_ln(x, pe_tok, wts, pixel_major: bool = False, plan=None):
     pixel_major: x is [Bb, h, w, A2, C], V = Bb * A2, counted as
     `spa_tokenize_ln_pm`; tok and xn are view-major either way. On the card
     3xTF32 on the tensor cores (module docstring). `plan`: a mixed forward
-    plan; on the card `all` runs the f32 kernel and `none` its bf16-operand
-    instance `spa_tokenize_ln[_pm]_bf16` (x and wu rounded in the product),
-    as for K2's other forward steps (`common.fwd_kernel`). A bf16 x launches
-    `spa_tokenize_ln[_pm]_bf16io` (bf16 pe_tok, tok and xn)."""
+    plan; on the card `all` runs the f32 kernel and one where `tok` rounds
+    its bf16-operand instance `spa_tokenize_ln[_pm]_bf16` (x and wu rounded
+    in the product), as for K2's other forward steps (`common.fwd_kernel`).
+    A bf16 x launches `spa_tokenize_ln[_pm]_bf16io` (bf16 pe_tok, tok and
+    xn). The bf16 forms run a kernel of their own (`csrc/tok_bf16.cuh`:
+    the taps rounded into `tap_weights_bf16`'s layout and resident, bf16
+    `wgmma` on a bf16 band, tiles of `tok_bf16_tile`)."""
     if x.device.type != "cuda":
         return tokenize_ln_plain(_to_view_major(x) if pixel_major else x, pe_tok, wts, plan)
     name = fwd_kernel("spa_tokenize_ln_pm" if pixel_major else "spa_tokenize_ln", x, plan)
@@ -550,11 +590,14 @@ def tokenize_ln(x, pe_tok, wts, pixel_major: bool = False, plan=None):
     wk = _io_args(name, (x, pe_tok), wts, ("wu", "ln"))
     tok = torch.empty(Bb * A2, h, w, D, device=x.device, dtype=x.dtype)
     xn = torch.empty_like(tok)
-    wf = torch.empty(18 * C * D, device=x.device)      # scratch: `tap_weights`' layout
+    bf = name.endswith(("_bf16io", "_bf16"))
+    # scratch: `tap_weights_bf16`' layout, or `tap_weights`'
+    wf = torch.empty(tok_bf16_floats(C) if bf else 18 * C * D, device=x.device)
     fn = _build.bind("spa_block", "lft_" + name, 7, (ctypes.c_int,) * (len(dims) + 2))
     _build.launch("spa_block", name, fn, x.device, x.data_ptr(),
                   pe_tok.data_ptr(), wk["wu"].data_ptr(), wf.data_ptr(), wk["ln"].data_ptr(),
-                  tok.data_ptr(), xn.data_ptr(), *dims, *tok_tile(h, w, C))
+                  tok.data_ptr(), xn.data_ptr(), *dims,
+                  *(tok_bf16_tile if bf else tok_tile)(h, w, C))
     return tok, xn
 
 

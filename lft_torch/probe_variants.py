@@ -1,14 +1,17 @@
 """What sets the pace of the bf16 window attention (`csrc/window_mma.cuh`),
 of K2.5's `_sites` kernels (`csrc/ffn_sites.cuh`), of K1's all-bf16 kernel
-(`csrc/ang_bf16.cuh`) and of K2.5's bf16-IO instance (`csrc/ffn_bf16.cuh`
-on bf16 rows) on the card: each timed beside variants of its sources one
-text edit away, in turns in one process (as `probe_wgrad`, `probe_k7`).
+(`csrc/ang_bf16.cuh`), of K2.5's bf16-IO instance (`csrc/ffn_bf16.cuh` on
+bf16 rows), of K1's `_sites` kernel (`csrc/ang_sites.cuh`) and of K2.1's
+bf16 forms (`csrc/tok_bf16.cuh`) on the card: each timed beside variants
+of its sources one text edit away, in turns in one process (as
+`probe_wgrad`, `probe_k7`).
 
-    python3 -m lft_torch.probe_variants [--targets window,ffn_sites,ang,ffn_io] [--accuracy]
+    python3 -m lft_torch.probe_variants [--targets window,ffn_sites,ang,ffn_io,ang_sites,tok_bf16] [--accuracy]
 
 Each variant is a copy of this checkout's `csrc` with one edit, and a
 small source that includes the kernel's header and exports its launcher
-(`probe_window`, `probe_ffn_sites`, `probe_ang`, `probe_ffn_io`), built with the port's nvcc flags into
+(`probe_window`, `probe_ffn_sites`, `probe_ang`, `probe_ffn_io`,
+`probe_ang_sites`, `probe_tok`), built with the port's nvcc flags into
 a temporary directory, all at once; an edit whose anchor is gone from the
 source raises, and a variant that does not build is left out. Most
 variants compute wrong values on purpose: each is timed, none is checked.
@@ -62,6 +65,43 @@ K2.5 bf16io at [400, 32, 32, 64]:
 
 * `no_rows`: no cp.async of xn2's rows;
 * `no_x2`: no load of x2 for the residual.
+
+K1's `_sites` kernel at [16384, 25, 64] under S1 and S2 (f32 IO, random
+weights):
+
+* `no_attention`, `no_max_pass`, `no_exp`: as K1's all-bf16 kernel's;
+* `expf`: e = expf(round(s scale) - m) for the SFU's 2^x of one FMA (the
+  cost of keeping the plain version's exp);
+* `attn_tf32x1`: the attention's 3xTF32 MMAs one TF32 pass each;
+* `tf32x1`: the 3xTF32 row products one TF32 pass (`tf3_product`,
+  `tf3_qkv`);
+* `no_prefetch`: no L2 prefetch of the next tile's x;
+* `no_x`: no load of x (the LayerNorm's and the residual's);
+* `no_ln`: no LayerNorm (LN1 and LN2);
+* `no_put`: no store of q, k and v into shared memory;
+* `no_tile_barrier`: no block barrier at a tile's start (where a hidden
+  chunk lies over k and v);
+* `no_out`: no store of out;
+* `wait0`: each group of a 3xTF32 product (`tf3_product`) waited on
+  before the next is issued;
+* `no_tf3_mma`: no `wgmma` in the 3xTF32 products of `tf3_product` (a use
+  of the fragments in their place; the ring's protocol kept).
+
+K2.1's bf16 forms at [400, 32, 32, 64] in bf16 IO (`spa_tokenize_ln_bf16io`'s
+launch) and f32 IO (`spa_tokenize_ln_bf16`'s):
+
+* `no_band`: the next tile's band not read (its f32 units stored as zeros);
+* `wait0`: each tap's products waited on before the next tap's fragments
+  load (`wgmma_wait<0>`);
+* `no_ln`: no LayerNorm (xn = tok + pe_tok);
+* `no_mma`: no `wgmma` (a use of the fragments in its place);
+* `no_ldmatrix`: no ldmatrix of the A fragments;
+* `n128`: one m64n128k16 `wgmma` a k16 step for the two m64n64k16 parts;
+* `no_io`: no token of a tile inside the image (no load of pe_tok, no
+  store);
+* `no_taps`: no tap (no fragment, no product, no staging of the next band
+  in f32 IO);
+* `no_stores`: no store of tok and xn.
 
 Times are device times (`profile_scene.device_ms`) in the order as is,
 variants, variants reversed, as is. Prints the card's name and power limit
@@ -135,8 +175,42 @@ extern "C" int probe_ffn_io(const bf16* xn2, const bf16* x2, const float* w1, co
 }
 """
 
+_ANG_SITES_MAIN = r"""
+#include "ang_sites.cuh"
+using namespace lft;
+LFT_EXPORT_ERROR_STRING
+extern "C" int probe_ang_sites(const float* x, const float* pe, const float* ln, const float* wq,
+                               const float* wk, const float* wv, const float* wo, const float* w1,
+                               const float* w2, float* wf, float* out, int N, int A2, float scale,
+                               int sites, void* stream) {
+  return launch_ang_sites<64, false>(x, pe, ln, wq, wk, wv, wo, w1, w2, wf, out, nullptr, nullptr,
+                                     nullptr, N, A2, scale, sites,
+                                     static_cast<cudaStream_t>(stream));
+}
+"""
+
+_TOK_MAIN = r"""
+#include "tok_bf16.cuh"
+using namespace lft;
+LFT_EXPORT_ERROR_STRING
+extern "C" int probe_tok(const void* x, const void* pe, const float* wu, float* wf,
+                         const float* ln, void* tok, void* xn, int V, int h, int w, int r, int cw,
+                         int bf16_io, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (bf16_io)
+    return launch_tok_bf16<64, false, bf16>(static_cast<const bf16*>(x), wu, wf,
+                                            static_cast<const bf16*>(pe), ln,
+                                            static_cast<bf16*>(tok), static_cast<bf16*>(xn), V,
+                                            h, w, 1, r, cw, s);
+  return launch_tok_bf16<64, false, float>(static_cast<const float*>(x), wu, wf,
+                                           static_cast<const float*>(pe), ln,
+                                           static_cast<float*>(tok), static_cast<float*>(xn), V,
+                                           h, w, 1, r, cw, s);
+}
+"""
+
 MAINS = {"window": _WINDOW_MAIN, "ffn_sites": _FFN_MAIN, "ang": _ANG_MAIN,
-         "ffn_io": _FFN_IO_MAIN}
+         "ffn_io": _FFN_IO_MAIN, "ang_sites": _ANG_SITES_MAIN, "tok_bf16": _TOK_MAIN}
 
 _PASS1 = ("  cp_async_wait<1>();\n  __syncthreads();\n  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};",
           "  float m[2] = {0.f, 0.f};\n  if (V < 0) {\n  cp_async_wait<1>();\n  __syncthreads();")
@@ -230,6 +304,13 @@ _ANG_QKV_FLUSH = """#pragma unroll
       }
 """
 
+_SITES_EXP = ("          s0[i] = key < A2 ? ex2(fmaf(s0[i], sl, -ml[i >> 1])) : 0.f;\n"
+              "          s1[i] = key + 8 < A2 ? ex2(fmaf(s1[i], sl, -ml[i >> 1])) : 0.f;")
+_TF32X3 = ("      Wgmma<NW>::mma(sum[z], al[c & 1][u], dh, u || !first);\n"
+           "      Wgmma<NW>::mma(sum[z], ah[c & 1][u], dl, 1);\n"
+           "      Wgmma<NW>::mma(sum[z], ah[c & 1][u], dh, 1);\n",
+           "      Wgmma<NW>::mma(sum[z], ah[c & 1][u], dh, u || !first);\n")
+
 # target -> variant -> [(file, anchor, replacement), ...]
 VARIANTS = {
     "window": {
@@ -256,11 +337,7 @@ VARIANTS = {
                      "constexpr int WM_BLOCKS = 3;")],
     },
     "ffn_sites": {
-        "tf32x1": [("ffn_sites.cuh",
-                    "      Wgmma<NW>::mma(sum[z], al[c & 1][u], dh, u || !first);\n"
-                    "      Wgmma<NW>::mma(sum[z], ah[c & 1][u], dl, 1);\n"
-                    "      Wgmma<NW>::mma(sum[z], ah[c & 1][u], dh, 1);\n",
-                    "      Wgmma<NW>::mma(sum[z], ah[c & 1][u], dh, u || !first);\n")],
+        "tf32x1": [("ffn_sites.cuh",) + _TF32X3],
         "chain16": [("ffn_sites.cuh", "constexpr int FS_CHAIN = 4;", "constexpr int FS_CHAIN = 1;")],
         "chain32": [("ffn_sites.cuh", "constexpr int FS_CHAIN = 4;", "constexpr int FS_CHAIN = 2;")],
         "chain_all": [("ffn_sites.cuh", "constexpr int FS_CHAIN = 4;", "constexpr int FS_CHAIN = 8;")],
@@ -313,6 +390,99 @@ VARIANTS = {
                    "\n                               : make_float2(0.f, 0.f);",
                    "        const float2 r = make_float2(0.f, static_cast<float>(t));")],
     },
+    "ang_sites": {
+        "no_attention": [("ang_sites.cuh", "  const int items = np * MT * NG;",
+                          "  const int items = A2 < 0 ? np * MT * NG : 0;")],
+        "no_max_pass": [("ang_sites.cuh",
+                         "    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};\n"
+                         "    for (int k0 = 0; k0 < A2; k0 += 16) {",
+                         "    float mx[2] = {0.f, 0.f};\n"
+                         "    for (int k0 = 0; k0 < (A2 < 0 ? A2 : 0); k0 += 16) {")],
+        "no_exp": [("ang_sites.cuh", _SITES_EXP,
+                    "          s0[i] = key < A2 ? fmaf(s0[i], sl, -ml[i >> 1]) : 0.f;\n"
+                    "          s1[i] = key + 8 < A2 ? fmaf(s1[i], sl, -ml[i >> 1]) : 0.f;")],
+        "expf": [("ang_sites.cuh", _SITES_EXP,
+                  "          s0[i] = key < A2 ? expf(__fsub_rn(__fmul_rn(s0[i], scale), "
+                  "m[i >> 1])) : 0.f;\n"
+                  "          s1[i] = key + 8 < A2 ? expf(__fsub_rn(__fmul_rn(s1[i], scale), "
+                  "m[i >> 1])) : 0.f;")],
+        "attn_tf32x1": [("ang_sites.cuh",
+                         "    mma_tf32(c, al, bh[0], bh[1]);\n    mma_tf32(c, ah, bl[0], bl[1]);\n",
+                         "    (void)al;\n    (void)bl;\n")],
+        "tf32x1": [("ang_sites.cuh",
+                    "    Wgmma<N>::mma(s0, al[b][0], h0, c > 0);\n"
+                    "    Wgmma<N>::mma(s1, al[b][1], h1, c > 0);\n"
+                    "    Wgmma<N>::mma(s0, ah[b][0], h0 + 2 * N, 1);\n"
+                    "    Wgmma<N>::mma(s1, ah[b][1], h1 + 2 * N, 1);\n"
+                    "    Wgmma<N>::mma(s0, ah[b][0], h0, 1);\n"
+                    "    Wgmma<N>::mma(s1, ah[b][1], h1, 1);\n",
+                    "    Wgmma<N>::mma(s0, ah[b][0], h0, c > 0);\n"
+                    "    Wgmma<N>::mma(s1, ah[b][1], h1, c > 0);\n"),
+                   ("ang_sites.cuh",
+                    "    Wgmma<N>::mma(va, xl[b], dv, kk > 0);\n"
+                    "    Wgmma<N>::mma(qa, nl[b], dq, kk > 0);\n"
+                    "    Wgmma<N>::mma(ka, nl[b], dk, kk > 0);\n"
+                    "    Wgmma<N>::mma(va, xh[b], dv + 2 * N, 1);\n"
+                    "    Wgmma<N>::mma(qa, nh[b], dq + 2 * N, 1);\n"
+                    "    Wgmma<N>::mma(ka, nh[b], dk + 2 * N, 1);\n"
+                    "    Wgmma<N>::mma(va, xh[b], dv, 1);\n"
+                    "    Wgmma<N>::mma(qa, nh[b], dq, 1);\n"
+                    "    Wgmma<N>::mma(ka, nh[b], dk, 1);\n",
+                    "    Wgmma<N>::mma(va, xh[b], dv, kk > 0);\n"
+                    "    Wgmma<N>::mma(qa, nh[b], dq, kk > 0);\n"
+                    "    Wgmma<N>::mma(ka, nh[b], dk, kk > 0);\n")],
+        "no_prefetch": [("ang_sites.cuh", "      if (lane == 0 && nr > 0)",
+                         "      if (lane == 0 && nr < 0)")],
+        "no_tf3_mma": [("ang_sites.cuh",
+                        "    Wgmma<N>::mma(s0, al[b][0], h0, c > 0);\n"
+                        "    Wgmma<N>::mma(s1, al[b][1], h1, c > 0);\n"
+                        "    Wgmma<N>::mma(s0, ah[b][0], h0 + 2 * N, 1);\n"
+                        "    Wgmma<N>::mma(s1, ah[b][1], h1 + 2 * N, 1);\n"
+                        "    Wgmma<N>::mma(s0, ah[b][0], h0, 1);\n"
+                        "    Wgmma<N>::mma(s1, ah[b][1], h1, 1);\n",
+                        "    s0[0] += __uint_as_float((al[b][0][0] ^ ah[b][1][3] ^ "
+                        "static_cast<uint32_t>(h0)) & 1u);\n")],
+        "no_x": [("ang_sites.cuh",
+                  "      return wr + r < nrows ? ldg2(x + (row0 + wr + r) * C + c) : "
+                  "make_float2(0.f, 0.f);",
+                  "      return make_float2(static_cast<float>(r), static_cast<float>(c));")],
+        "no_ln": [("ang_sites.cuh", "      quad_ln<C>(xn, ln, ln + C);", "      (void)ln;"),
+                  ("ang_sites.cuh", "    quad_ln<C>(t, ln + 2 * C, ln + 3 * C);", "")],
+        "no_put": [("ang_sites.cuh", "                     bool two) {",
+                    "                     bool two) {\n        if (N > 0) return;")],
+        "no_tile_barrier": [("ang_sites.cuh", "    if (p.hid_kv && it > 0) {",
+                             "    if (p.hid_kv && it < 0) {")],
+        "no_out": [("ang_sites.cuh", "    rg_store_rows16<C>(out, o, orow);", "    (void)orow;")],
+        "wait0": [("ang_sites.cuh", "    if (c > 0) {\n      wgmma_wait<1>();",
+                   "    if (c > 0) {\n      wgmma_wait<0>();")],
+    },
+    "tok_bf16": {
+        "no_band": [("tok_bf16.cuh", "      if (next < tiles) stage_all(nxt, nview, ny0, nx0, 0);",
+                     "      (void)nview;"),
+                    ("tok_bf16.cuh",
+                     "        urow[tap & 1] = next < tiles ? source(nview, ny0, nx0, u) : -1;",
+                     "        urow[tap & 1] = -1;")],
+        "wait0": [("tok_bf16.cuh", "      if (tap > 0) wgmma_wait<1>();",
+                   "      if (tap > 0) wgmma_wait<0>();")],
+        "no_ln": [("tok_bf16.cuh", "    quad_ln<D>(v, ln, ln + D);", "    (void)ln;")],
+        "no_mma": [("tok_bf16.cuh",
+                    "          WgmmaBf<NW>::mma(acc[p], af[tap & 1][s], bf16_piece_desc<D>(ws, tap * "
+                    "C * D, s, p * NW),\n                           tap + s);",
+                    "          acc[p][s] += __uint_as_float((af[tap & 1][s][0] ^ af[tap & 1][s][3]) & "
+                    "1u);")],
+        "no_ldmatrix": [("tok_bf16.cuh",
+                         "      for (int s = 0; s < KS; ++s) ldmatrix_x4(af[b][s], arow + toff * LDB "
+                         "+ 16 * s);",
+                         "      for (int s = 0; s < KS; ++s) af[b][s][0] += toff;")],
+        "no_io": [("tok_bf16.cuh",
+                   "      t[e] = mm < ntok && y < h && xx < w ? view * hw + y * w + xx : -1;",
+                   "      t[e] = y < -1 ? mm : -1;")],
+        "no_taps": [("tok_bf16.cuh", "    for (int tap = 0; tap < 9; ++tap) {",
+                     "    for (int tap = 0; tap < (V < 0 ? 9 : 0); ++tap) {")],
+        "n128": [("tok_bf16.cuh", "constexpr int TOK_N = 64;", "constexpr int TOK_N = 128;")],
+        "no_stores": [("tok_bf16.cuh", "    rg_store_rows16<D>(tok, v, rows);\n", ""),
+                      ("tok_bf16.cuh", "    rg_store_rows16<D>(xn, v, rows);", "    (void)xn;")],
+    },
 }
 
 
@@ -360,6 +530,11 @@ def _build(tmp: str, target: str, name: str, files: dict) -> ctypes.CDLL:
     elif target == "ang":
         lib.probe_ang.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
                                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    elif target == "ang_sites":
+        lib.probe_ang_sites.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
+                                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    elif target == "tok_bf16":
+        lib.probe_tok.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     else:
         lib.probe_ffn_io.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
     return lib
@@ -446,7 +621,9 @@ def main(argv=None) -> int:
 
     from lft_torch.device import resolve_device
     from lft_torch.kernels import common
-    from lft_torch.kernels.rowgemm import ang_bf16_floats, ffn_out_bf16_floats, ffn_out_floats
+    from lft_torch.kernels import spa_block as sb
+    from lft_torch.kernels.rowgemm import (ang_bf16_floats, ang_sites_floats, ffn_out_bf16_floats,
+                                           ffn_out_floats)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -570,6 +747,65 @@ def main(argv=None) -> int:
             t = _turns(fns)
             print("K2.5 bf16io at [400, 32, 32, 64]: "
                   + "; ".join(f"{n} {w[0]:.4f} / {w[1]:.4f} ms" for n, w in t.items()), flush=True)
+
+        if "ang_sites" in targets:
+            C, A2 = 64, 25
+            wa = {n: torch.randn(*s_, device=dev, generator=g) / s_[0] ** 0.5
+                  for n, s_ in (("wq", (C, C)), ("wk", (C, C)), ("wv", (C, C)), ("wo", (C, C)),
+                                ("w1", (C, 2 * C)), ("w2", (2 * C, C)))}
+            ln = torch.stack([torch.ones(C, device=dev), torch.zeros(C, device=dev)] * 2)
+            pe = torch.randn(A2, C, device=dev, generator=g)
+            wf = torch.empty(ang_sites_floats(C), device=dev)
+            x = torch.randn(16384, A2, C, device=dev, generator=g)
+            out = torch.empty_like(x)
+            for spec, kept in (("S1", "qk,score,ffn,aqkv,aav,wo"),
+                               ("S2", "tok,v,av,lin,ascore,awo,affn")):
+                mask = common.site_mask(common.mm_site_plan(True, frozenset(kept.split(","))),
+                                        "ang_block")
+                fns = {}
+                for (t, n), lib in libs.items():
+                    if t != "ang_sites":
+                        continue
+                    args = (x.data_ptr(), pe.data_ptr(), ln.data_ptr(),
+                            *(wa[k].data_ptr() for k in ("wq", "wk", "wv", "wo", "w1", "w2")),
+                            wf.data_ptr(), out.data_ptr(), 16384, A2, (C // 8) ** -0.5, mask)
+                    fns[n] = lambda f=lib.probe_ang_sites, a=args: f(*a, stream())
+                    if fns[n]():
+                        raise RuntimeError(f"probe_variants: ang_sites/{n} failed to launch")
+                torch.cuda.synchronize()
+                t = _turns(fns)
+                print(f"K1's `_sites` kernel under {spec} at [16384, {A2}, {C}]: "
+                      + "; ".join(f"{n} {w[0]:.4f} / {w[1]:.4f} ms" for n, w in t.items()),
+                      flush=True)
+            del x, out
+
+        if "tok_bf16" in targets:
+            C, h, w = 64, 32, 32
+            wu = torch.randn(9, C, 2 * C, device=dev, generator=g) / (3 * C ** 0.5)
+            ln = torch.stack([torch.ones(2 * C, device=dev), torch.zeros(2 * C, device=dev)])
+            wf = torch.empty(sb.tok_bf16_floats(C), device=dev)
+            r, cw = sb.tok_bf16_tile(h, w, C)
+            for io in (torch.bfloat16, torch.float32):
+                x = torch.randn(400, h, w, C, device=dev, generator=g).to(io)
+                pe = torch.randn(h, w, 2 * C, device=dev, generator=g).to(io)
+                tok = torch.empty(400, h, w, 2 * C, device=dev, dtype=io)
+                xn = torch.empty_like(tok)
+                fns = {}
+                for (t, n), lib in libs.items():
+                    if t != "tok_bf16":
+                        continue
+                    args = (x.data_ptr(), pe.data_ptr(), wu.data_ptr(), wf.data_ptr(),
+                            ln.data_ptr(), tok.data_ptr(), xn.data_ptr(), 400, h, w, r, cw,
+                            int(io == torch.bfloat16))
+                    fns[n] = lambda f=lib.probe_tok, a=args: f(*a, stream())
+                    if fns[n]():
+                        raise RuntimeError(f"probe_variants: tok_bf16/{n} failed to launch")
+                torch.cuda.synchronize()
+                t = _turns(fns)
+                print(f"K2.1's bf16 form ({str(io)[6:]} IO) at [400, {h}, {w}, {C}]: "
+                      + "; ".join(f"{n} {w_[0]:.4f} / {w_[1]:.4f} ms" for n, w_ in t.items()),
+                      flush=True)
+                del x, tok, xn
     return 0
 
 

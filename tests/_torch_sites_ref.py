@@ -39,6 +39,29 @@ from _torch_mixed_none_ref import (C_BLOCKS, K1_SHAPE, K2_SHAPE, STEP,  # noqa: 
 # between them every `_sites` kernel's products are split both ways.
 SUBSETS = {"s1": "qk,score,ffn,aqkv,aav,wo", "s2": "tok,v,av,lin,ascore,awo,affn"}
 PARTS = ("blocks_s1", "blocks_s2", "fwd_s1", "fwd_s2", "step_s1", "step_f32")
+# tests/test_torch_ang_sites_bf16.py's, not in PARTS: `k1_s1`, `k1_s2`, K1's
+# forward under the plan with the residuals and its f32 one (`k1`)
+
+
+def k1(res: dict) -> None:
+    import jax.numpy as jnp
+    from lft_tpu.kernels import ang_block as j_ang
+    from lft_tpu.ops.posenc import angular_position
+
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))
+    for C in C_BLOCKS:
+        d = block_inputs(C)
+        p = {k: jnp.asarray(v) for k, v in d["params"].items()}
+        wq, wk, wv = jnp.split(p[ANG_PREFIX + "attention.in_proj_weight"], 3, axis=0)
+        ln = jnp.stack([p[ANG_PREFIX + n] for n in (
+            "norm.weight", "norm.bias", "feed_forward.0.weight", "feed_forward.0.bias")])
+        wa = (ln, wq.T, wk.T, wv.T, p[ANG_PREFIX + "attention.out_proj.weight"].T,
+              p[ANG_PREFIX + "feed_forward.1.weight"].T, p[ANG_PREFIX + "feed_forward.4.weight"].T)
+        x1, pe = jnp.asarray(d["k1_x"]), jnp.asarray(angular_position(K1_SHAPE[1], C))
+        for dt, mm in (("mixed", True), ("f32", False)):
+            for n, a in zip(("out", "m", "l", "attn"),
+                            j_ang._core_fwd(x1, pe, *wa, 8, with_res=True, mm_half=mm)):
+                res[f"k1_{C}_{dt}_{n}"] = f32(a)
 
 
 def blocks(res: dict, plan: str) -> None:
@@ -140,6 +163,8 @@ def main(out_path: str, part: str) -> None:
     what, plan = part.split("_")
     if what == "blocks":
         blocks(res, plan)
+    elif what == "k1":
+        k1(res)
     elif what == "fwd":
         fwd(res, with_f32=plan == "s1")
     else:

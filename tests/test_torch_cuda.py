@@ -2627,3 +2627,125 @@ def test_ffn_out_bf16io_kernel(cuda_device, C, V, h, w, A2):
                 (spa_block.ffn_out_plain(xn2.float(), x2.float(), ws32),))
     assert torch.equal(got, spa_block.ffn_out(xn2, x2, ws))
     assert torch.equal(pm, spa_block._to_pixel_major(got, A2))
+
+
+# ---- K1's `_sites` forms and K2.1's / K11.1's bf16 forms on their bf16
+# tensor-core designs (csrc/ang_sites.cuh, csrc/tok_bf16.cuh)
+
+# a third K1 mask beside S1 and S2: `aqkv` and `awo` round, the attention's
+# scores and e v both f32 (S1: bf16 scores, f32 e v; S2 the reverse)
+SITES_M3 = "tok,qk,v,score,av,wo,ffn,lin,ascore,aav,affn"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [SITES_S1, SITES_S2, SITES_M3])
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("A2,N", [(25, 37), (81, 64), (121, 64)])
+def test_ang_sites_kernel_forms(cuda_device, C, A2, N, spec):
+    """K1's `_sites` forms on one kernel (csrc/ang_sites.cuh) under S1, S2
+    and M3 at every width and pixels of 25-121 views (a last tile partly
+    filled; 64 pixels at 81 and 121 views, as test_ang_bf16_kernel_forms
+    says why): `ang_block_sites` and `ang_block_res_sites` against the plain
+    version under the subset, out and attn by `_mixed_close` below C = 64,
+    and at every C no further from float64 at the plain version's rounding
+    points than the plain version plus 1/10 of its mixed-vs-f32 distance (at
+    C = 64 the plain version's own f32 error is a share of that distance:
+    chip_smoke.py's `f64_err`); m, l within L2 1e-3, m one value a token,
+    attn bf16 values exactly where `awo` rounds; the `_res` form's out bit
+    for bit its forward's, every call repeating bitwise, one launch each."""
+    from lft_torch.kernels import common
+    plan = _plan_sites(spec)
+    assert common.card_fwd(plan, "ang_block") == "_sites"
+    g = torch.Generator(device=cuda_device).manual_seed(C + A2 + len(spec))
+    pe = torch.from_numpy(angular_position(A2, C)).to(cuda_device)
+    wa = ang_block.ang_weights(_params(C, cuda_device), "altblock.1.ang_trans.")
+    x = torch.randn(N, A2, C, device=cuda_device, generator=g)
+    reset_launches()
+    fwd = ang_block.ang_block(x, pe, wa, 8, plan=plan)
+    res = ang_block.ang_block(x, pe, wa, 8, with_res=True, plan=plan)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {"ang_block_sites": 1,
+                                                        "ang_block_res_sites": 1}
+    ref = ang_block.ang_block_plain(x, pe, wa, 8, with_res=True, plan=plan)
+    ref32 = ang_block.ang_block_plain(x, pe, wa, 8, with_res=True)
+    exact = ang_block.ang_block_plain(x.double(), pe.double(),
+                                      {k: v.double() for k, v in wa.items()}, 8, with_res=True,
+                                      plan=plan)
+    l2 = lambda a, b: float((a - b).double().norm() / b.double().norm())
+    if C < 64:
+        _mixed_close((res[0], res[3]), (ref[0], ref[3]), (ref32[0], ref32[3]))
+    for i in (0, 3):
+        assert l2(res[i], exact[i]) <= l2(ref[i], exact[i]) + 0.1 * l2(ref32[i], ref[i]), i
+        assert l2(res[i], ref[i]) <= 1e-3, i
+    assert l2(res[1], ref[1]) <= 1e-3 and l2(res[2], ref[2]) <= 1e-3
+    assert torch.equal(res[3], common.bf16_round(res[3])) == plan["awo"]
+    assert torch.equal(res[0], fwd) and torch.equal(res[1], res[1][..., :1].expand_as(res[1]))
+    assert torch.equal(fwd, ang_block.ang_block(x, pe, wa, 8, plan=plan))
+    assert all(torch.equal(a, b) for a, b in
+               zip(res, ang_block.ang_block(x, pe, wa, 8, with_res=True, plan=plan)))
+
+
+@pytest.mark.cuda
+def test_ang_sites_kernel_refuses_a_mask_without_a_split(cuda_device):
+    """The `_sites` C entries take a mask that rounds some of K1's five
+    sites and not others; none or all of them is refused
+    (cudaErrorInvalidValue): those take the f32 and all-bf16 instances."""
+    import ctypes
+
+    from lft_torch.kernels import _build, common
+    from lft_torch.kernels.rowgemm import ang_sites_floats
+    C, A2 = 16, 25
+    wa = ang_block.ang_weights(_params(C, cuda_device), "altblock.1.ang_trans.")
+    x = torch.randn(5, A2, C, device=cuda_device)
+    pe = torch.from_numpy(angular_position(A2, C)).to(cuda_device)
+    out, wf = torch.empty_like(x), torch.empty(ang_sites_floats(C), device=cuda_device)
+    fn = _build.library("ang_block").lft_ang_block_fwd_sites
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                                   ctypes.c_void_p]
+    every = sum(common.SITE_BITS[s] for s in ("aqkv", "ascore", "aav", "awo", "affn"))
+    for mask in (0, every, common.SITE_BITS["tok"]):
+        rc = fn(x.data_ptr(), pe.data_ptr(), *(wa[n].data_ptr() for n in ang_block.WEIGHTS),
+                wf.data_ptr(), out.data_ptr(), 5, A2, C, 8, (C // 8) ** -0.5, mask,
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, mask   # cudaErrorInvalidValue
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("V,h,w,A2", [(6, 32, 32, 3), (4, 30, 30, 2), (2, 64, 64, 2)])
+def test_tok_bf16_kernel_forms(cuda_device, C, V, h, w, A2):
+    """K2.1's and K11.1's four bf16 forms on one kernel (csrc/tok_bf16.cuh)
+    at every width and at 32 x 32, 30 x 30 and 64 x 64 views:
+    `spa_tokenize_ln_bf16io` against the plain bf16 version (`_bf16_close`),
+    `spa_tokenize_ln_bf16` against the plain version under the plan `none`
+    (`_mixed_close`), the pixel-major forms bit for bit their view-major
+    counterparts on the permuted copy; every call repeating bitwise, one
+    launch each under its name."""
+    g = torch.Generator(device=cuda_device).manual_seed(C + h)
+    ws = spa_block._with_mlp(spa_block.spa_weights(_params(C, cuda_device),
+                                                   "altblock.2.spa_trans."))
+    wb = {k: v.bfloat16() for k, v in ws.items()}
+    wb32 = {k: v.float() for k, v in wb.items()}
+    x = torch.randn(V, h, w, C, device=cuda_device, generator=g)
+    pe = torch.randn(h, w, 2 * C, device=cuda_device, generator=g)
+    xb, peb = x.bfloat16(), pe.bfloat16()
+    to_pm = lambda t: t.reshape(V // A2, A2, h, w, C).permute(0, 2, 3, 1, 4).contiguous()
+    plan = _plan_none()
+    reset_launches()
+    got_b = spa_block.tokenize_ln(xb, peb, wb)
+    pm_b = spa_block.tokenize_ln(to_pm(xb), peb, wb, pixel_major=True)
+    got_f = spa_block.tokenize_ln(x, pe, ws, plan=plan)
+    pm_f = spa_block.tokenize_ln(to_pm(x), pe, ws, pixel_major=True, plan=plan)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == {
+        "spa_tokenize_ln_bf16io": 1, "spa_tokenize_ln_pm_bf16io": 1, "spa_tokenize_ln_bf16": 1,
+        "spa_tokenize_ln_pm_bf16": 1}
+    _bf16_close(got_b, spa_block.tokenize_ln_plain(xb, peb, wb),
+                spa_block.tokenize_ln_plain(xb.float(), peb.float(), wb32))
+    _mixed_close(got_f, spa_block.tokenize_ln_plain(x, pe, ws, plan=plan),
+                 spa_block.tokenize_ln_plain(x, pe, ws))
+    for a, b in ((pm_b, got_b), (pm_f, got_f)):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert all(torch.equal(u, v) for u, v in zip(got_b, spa_block.tokenize_ln(xb, peb, wb)))
+    assert all(torch.equal(u, v) for u, v in zip(got_f, spa_block.tokenize_ln(x, pe, ws,
+                                                                              plan=plan)))
